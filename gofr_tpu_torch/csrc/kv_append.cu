@@ -1,0 +1,66 @@
+// Per-step KV append into the paged pool, in place.
+//
+// Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
+// (:110, pallas_call :160).
+//
+// What bounds it on the card: device-memory bytes, and at these sizes the
+// launch itself. A step writes one [Hkv, D] row of K and of V per slot
+// (8 slots x 8 heads x 128 x 2 B x 2 = 32 KiB for Llama-3-8B) and reads as
+// much; no arithmetic.
+//
+// Design: one block per slot, threads over Hkv x D, each element copied as
+// its 16-bit pattern so the pool row equals the new row bit for bit. The
+// block reads its own table entry. The store is skipped when pos < 0, when
+// pos // page >= MaxP, or when the entry is not a pool page (the OOB id P);
+// every other byte of the pool is left untouched.
+//
+// The TPU kernel needed a reserved sink page 0: Mosaic's pipeline copied a
+// whole page tile through VMEM and back, so an OOB row's tile had to land on
+// a page no real row wrote in the same call (kv_append.py:120-130). This
+// kernel copies nothing back — it stores only the new row — so it needs no
+// sink page and every pool page is allocatable.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads) kv_append_kernel(
+    uint16_t* __restrict__ k_pool,        // [P, Hkv, page, D] (16-bit elements)
+    uint16_t* __restrict__ v_pool,
+    const uint16_t* __restrict__ k_new,   // [N, Hkv, D]
+    const uint16_t* __restrict__ v_new,
+    const int* __restrict__ table,        // [N, MaxP]
+    const int* __restrict__ positions,    // [N]
+    int maxp, int pool, int hkv, int page, int d) {
+  const int n = blockIdx.x;
+  const int pos = positions[n];
+  if (pos < 0) return;
+  const int logical = pos / page;
+  if (logical >= maxp) return;
+  const int entry = table[(size_t)n * maxp + logical];
+  if (entry < 0 || entry >= pool) return;
+  const int off = pos % page;
+  const int row = hkv * d;
+  for (int i = threadIdx.x; i < row; i += kThreads) {
+    const int h = i / d, j = i % d;
+    const size_t dst = (((size_t)entry * hkv + h) * page + off) * d + j;
+    k_pool[dst] = k_new[(size_t)n * row + i];
+    v_pool[dst] = v_new[(size_t)n * row + i];
+  }
+}
+
+}  // namespace
+
+extern "C" int gofr_kv_append(void* k_pool, void* v_pool, const void* k_new, const void* v_new,
+                              const void* table, const void* positions, int n, int maxp,
+                              int pool, int hkv, int page, int d, void* stream) {
+  kv_append_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint16_t*>(k_pool), static_cast<uint16_t*>(v_pool),
+      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),
+      static_cast<const int*>(table), static_cast<const int*>(positions),
+      maxp, pool, hkv, page, d);
+  return static_cast<int>(cudaGetLastError());
+}

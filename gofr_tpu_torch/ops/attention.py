@@ -11,16 +11,18 @@ Two layers live here:
   ``paged_decode_attention_plain``), straightforward PyTorch that mirrors
   the JAX XLA path op for op, bf16 roundings included;
 - the public entry points (``mha_attention``, ``paged_decode_attention``),
-  which hand the call to the kernel wrapper in ``ops/cuda``. The wrapper
-  launches its CUDA kernel for a tensor on the card and takes the plain
-  version for a tensor on the CPU; there is no fallback from one to the
-  other.
+  which make the one choice between the two: a tensor on the card goes to
+  the CUDA kernel's launcher in ``ops/cuda`` (which launches or raises), a
+  tensor on the CPU to the plain version. There is no fallback from one to
+  the other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
 from gofr_tpu_torch.ops.paged import gather_kv
 
 NEG_INF = -1e30
@@ -99,17 +101,15 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float | None = None) -> torch.Tensor:
     """Prefill attention: the flash kernel on the card, the plain version on
     the CPU (same contract as ``mha_attention_plain``)."""
-    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
-
-    return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                           kv_lengths=kv_lengths, scale=scale)
+    attend = flash_attention if q.is_cuda else mha_attention_plain
+    return attend(q, k, v, causal=causal, q_offset=q_offset, kv_lengths=kv_lengths, scale=scale)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            table: torch.Tensor, lengths: torch.Tensor, *,
                            scale: float | None = None) -> torch.Tensor:
     """Single-token decode against the paged pool: q [N, Hq, D]; pools
-    [P, Hkv, page, D]; table [N, MaxP] (OOB entries == P); lengths [N]."""
-    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
-
-    return paged_decode(q, k_pool, v_pool, table, lengths, scale=scale)
+    [P, Hkv, page, D]; table [N, MaxP] (OOB entries == P); lengths [N]. The
+    kernel on the card, the plain version on the CPU."""
+    attend = paged_decode if q.is_cuda else paged_decode_attention_plain
+    return attend(q, k_pool, v_pool, table, lengths, scale=scale)

@@ -48,25 +48,29 @@ def nvcc() -> str:
     return found
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def compile_commands(compiler: str = "nvcc") -> list[list[str]]:
+def compile_commands(compiler: str = "nvcc", csrc: Path = CSRC,
+                     build_dir: Path = BUILD) -> list[list[str]]:
     """One compile command per source, then the link command."""
-    objs = [BUILD / f"{src.stem}.o" for src in sources()]
+    library = build_dir / LIBRARY.name
+    objs = [build_dir / f"{src.stem}.o" for src in sources(csrc)]
     cmds = [[compiler, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            for src, obj in zip(sources(), objs)]
-    cmds.append([compiler, *ARCH, "-shared", *map(str, objs), "-o", str(LIBRARY) + ".tmp"])
+            for src, obj in zip(sources(csrc), objs)]
+    cmds.append([compiler, *ARCH, "-shared", *map(str, objs), "-o", str(library) + ".tmp"])
     return cmds
 
 
-def build() -> dict:
-    """Compile every source in parallel and link the library. Returns the
-    seconds taken and the compiler's register/shared-memory report."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD) -> dict:
+    """Compile every source of ``csrc`` in parallel and link the library in
+    ``build_dir``. Returns the seconds taken, the compiler's register/
+    shared-memory report and the library's path."""
     start = time.perf_counter()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    *compiles, link = compile_commands(nvcc())
+    library = build_dir / LIBRARY.name
+    build_dir.mkdir(parents=True, exist_ok=True)
+    *compiles, link = compile_commands(nvcc(), csrc, build_dir)
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
     reports = [proc.communicate()[0] for proc in procs]
@@ -76,8 +80,8 @@ def build() -> dict:
     linked = subprocess.run(link, capture_output=True, text=True)
     if linked.returncode != 0:
         raise RuntimeError(f"link failed ({linked.returncode}):\n{linked.stdout}{linked.stderr}")
-    os.replace(str(LIBRARY) + ".tmp", LIBRARY)
-    return {"seconds": time.perf_counter() - start, "ptxas": "".join(reports)}
+    os.replace(str(library) + ".tmp", library)
+    return {"seconds": time.perf_counter() - start, "ptxas": "".join(reports), "library": library}
 
 
 def _stale() -> bool:
@@ -87,17 +91,25 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in CSRC.iterdir())
 
 
+def load(library: Path = LIBRARY) -> ctypes.CDLL:
+    """Load a built kernel library and make it the one every wrapper
+    launches from (a check of a modified copy of the sources loads its own)."""
+    global _lib
+    loaded = ctypes.CDLL(str(library))
+    loaded.gofr_error_string.argtypes = [ctypes.c_int]
+    loaded.gofr_error_string.restype = ctypes.c_char_p
+    _lib = loaded
+    return loaded
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or older than its
     sources."""
-    global _lib
     with _lock:
         if _lib is None:
             if _stale():
                 build()
-            _lib = ctypes.CDLL(str(LIBRARY))
-            _lib.gofr_error_string.argtypes = [ctypes.c_int]
-            _lib.gofr_error_string.restype = ctypes.c_char_p
+            load()
         return _lib
 
 

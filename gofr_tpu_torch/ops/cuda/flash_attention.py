@@ -3,8 +3,9 @@
 Replaces gofr_tpu/ops/pallas/flash_attention.py ``flash_attention`` (:108).
 The CUDA source is ``csrc/flash_attention.cu`` with the recurrence shared
 with kernel A in ``csrc/online_softmax.cuh``; the header note says what
-bounds it (operations) and how the design answers that. ``plain`` is the
-same function in plain PyTorch (ops/attention.py).
+bounds it (operations) and how the design answers that. Its plain version
+is ``ops.attention.mha_attention_plain``; ``ops.attention.mha_attention``
+chooses between the two by the tensor's device.
 """
 
 from __future__ import annotations
@@ -14,9 +15,18 @@ import ctypes
 import torch
 
 from gofr_tpu_torch.ops import cuda
-from gofr_tpu_torch.ops.attention import mha_attention_plain as plain
 
 HEAD_DIM = 128
+# Agreement with the plain version on the same bf16 inputs. As for paged
+# decode, the two differ by where they round to bf16; a row that attends to
+# few keys has outputs of a few units, so at the slice's shapes (4 x 512,
+# causal and ragged) the largest difference was one bf16 ulp of such a value
+# (2^-6), and the RMS difference 0.41% of the output's RMS. Limits: 3e-2 on
+# any element and 1.2% on the RMS. A planted fault (the causal diagonal
+# masked, one key past kv_length, the last key tile skipped) moved outputs
+# by 0.56..4.5 and 6.3%..83% (scripts/torch_kernel_mutants.py).
+MAX_ABS = 3e-2
+RMS_REL = 1.2e-2
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -26,11 +36,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] → [B, Sq, Hq, D], causal with a
     per-batch ``q_offset``, keys masked by ``kv_lengths`` [B]; fully masked
-    rows give zeros. A CPU tensor takes ``plain``; a CUDA tensor launches the
-    kernel or raises."""
-    if not q.is_cuda:
-        return plain(q, k, v, causal=causal, q_offset=q_offset,
-                     kv_lengths=kv_lengths, scale=scale)
+    rows give zeros. Launches the kernel, or raises."""
+    cuda.require(q.is_cuda and k.is_cuda and v.is_cuda, "flash_attention takes tensors on the card")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,

@@ -2,8 +2,10 @@
 
 Replaces gofr_tpu/ops/pallas/kv_append.py ``append_tokens_paged_inplace``
 (:110). The CUDA source is ``csrc/kv_append.cu``; its header note says what
-bounds it and why the kernel needs no reserved sink page. ``plain`` is the
-same write in plain PyTorch (ops/paged.py).
+bounds it and why the kernel needs no reserved sink page. Its plain
+version is ``ops.paged.append_tokens_paged_plain``, and the two agree bit
+for bit; ``ops.paged.append_tokens_paged`` chooses between them by the
+tensor's device.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import ctypes
 import torch
 
 from gofr_tpu_torch.ops import cuda
-from gofr_tpu_torch.ops.paged import append_tokens_paged_plain as plain
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -22,10 +23,9 @@ def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
               positions: torch.Tensor, k_new: torch.Tensor,
               v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Write k_new/v_new [N, Hkv, D] into the layer slices [P, Hkv, page, D]
-    at each slot's position, in place, and return the slices. A CPU tensor
-    takes ``plain``; a CUDA tensor launches the kernel or raises."""
-    if not k_layer.is_cuda:
-        return plain(k_layer, v_layer, table, positions, k_new, v_new)
+    at each slot's position, in place, and return the slices. Launches the
+    kernel, or raises."""
+    cuda.require(k_layer.is_cuda and v_layer.is_cuda, "kv_append takes pools on the card")
     pool, hkv, page, d = k_layer.shape
     n = k_new.shape[0]
     cuda.require(v_layer.shape == k_layer.shape and v_layer.dtype == k_layer.dtype,

@@ -3,7 +3,9 @@
 Replaces gofr_tpu/ops/pallas/paged_decode.py ``paged_decode_attention``
 (:94). The CUDA source is ``csrc/paged_decode.cu``; its header note says
 what bounds it (device-memory bytes) and how the design answers that.
-``plain`` is the same function in plain PyTorch (gather, then dense decode).
+Its plain version is ``ops.attention.paged_decode_attention_plain`` (gather,
+then dense decode); ``ops.attention.paged_decode_attention`` chooses
+between the two by the tensor's device.
 """
 
 from __future__ import annotations
@@ -13,9 +15,18 @@ import ctypes
 import torch
 
 from gofr_tpu_torch.ops import cuda
-from gofr_tpu_torch.ops.attention import paged_decode_attention_plain as plain
 
 HEAD_DIM = 128
+# Agreement with the plain version on the same bf16 inputs. The plain
+# version rounds the scores to bf16 where the kernel keeps them in f32, and
+# each rounds its output to bf16, so they differ by a few bf16 ulps: at the
+# slice's shapes (live lengths 699..1591) at most 1.2e-3 on outputs of RMS
+# 0.05, and an RMS difference of 0.48% of the output's RMS. Limits: 5e-3 on
+# any element and 1.2% on the RMS. A planted fault (one key past or short
+# of the length, a live page skipped, a key left out of P.V) moved the
+# outputs by 0.020..0.23 and 3.0%..41% (scripts/torch_kernel_mutants.py).
+MAX_ABS = 5e-3
+RMS_REL = 1.2e-2
 MAX_GROUP = 8
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -25,10 +36,9 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  scale: float | None = None) -> torch.Tensor:
     """q [N, Hq, D] against pool layer slices [P, Hkv, page, D] through the
     block table [N, MaxP] (OOB entries == P), masked by lengths [N] →
-    [N, Hq, D]. A CPU tensor takes ``plain``; a CUDA tensor launches the
-    kernel or raises."""
-    if not q.is_cuda:
-        return plain(q, k_pool, v_pool, table, lengths, scale=scale)
+    [N, Hq, D]. Launches the kernel, or raises."""
+    cuda.require(q.is_cuda and k_pool.is_cuda and v_pool.is_cuda,
+                 "paged_decode takes tensors on the card")
     n, hq, d = q.shape
     pool, hkv, page, _ = k_pool.shape
     cuda.require(q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16,

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from gofr_tpu_torch.ops.cuda.kv_append import kv_append
+
 
 @dataclass
 class PagedKVCache:
@@ -99,10 +101,9 @@ def append_tokens_paged(k_layer: torch.Tensor, v_layer: torch.Tensor, table: tor
                         positions: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Append one token's K/V per slot (paged.py:519): the CUDA kernel for a
-    tensor on the card, its plain version for one on the CPU."""
-    from gofr_tpu_torch.ops.cuda.kv_append import kv_append
-
-    return kv_append(k_layer, v_layer, table, positions, k_new, v_new)
+    pool on the card, its plain version for one on the CPU."""
+    append = kv_append if k_layer.is_cuda else append_tokens_paged_plain
+    return append(k_layer, v_layer, table, positions, k_new, v_new)
 
 
 def gather_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,

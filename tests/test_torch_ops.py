@@ -264,6 +264,34 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     assert cuda.launch_counts() == {"paged_decode": 0, "kv_append": 0, "flash_attention": 0}
 
 
+@pytest.mark.quick
+def test_kernel_launchers_refuse_cpu_tensors():
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.cuda.kv_append import kv_append
+    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+
+    cuda.reset_launch_counts()
+    q, k, v = (_t(a) for a in _qkv(52, 1, 4, 4, 2, 2, 8))
+    k_pool, v_pool, table, lengths = (_t(a) for a in _pool_case(53))
+    calls = (lambda: flash_attention(q, k, v),
+             lambda: paged_decode(_t(np.ones((4, 2, 16), np.float32)), k_pool, v_pool, table, lengths),
+             lambda: kv_append(k_pool, v_pool, table, lengths, k_pool[:4, :, 0], v_pool[:4, :, 0]))
+    for call in calls:
+        with pytest.raises(ValueError, match="on the card"):
+            call()
+    assert cuda.launch_counts() == {"paged_decode": 0, "kv_append": 0, "flash_attention": 0}
+
+
+def _within(got, want, module):
+    """The limits each kernel's launcher module states against its plain
+    version: ``MAX_ABS`` on any element, ``RMS_REL`` on the RMS of the
+    difference over the RMS of the output."""
+    diff = got.float() - want.float()
+    rel = diff.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()
+    return diff.abs().max().item() <= module.MAX_ABS and rel.item() <= module.RMS_REL
+
+
 # -- the CUDA kernels against their plain versions (on the card only) ---------------
 
 
@@ -274,6 +302,8 @@ def test_cuda_kernels_match_plain_on_the_card():
         mha_attention_plain,
         paged_decode_attention_plain,
     )
+    from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
+    from gofr_tpu_torch.ops.cuda import paged_decode as decode_mod
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
     from gofr_tpu_torch.ops.cuda.kv_append import kv_append
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
@@ -285,17 +315,20 @@ def test_cuda_kernels_match_plain_on_the_card():
     k = torch.randn(2, 100, 2, 128, device=dev, generator=g).to(bf)
     v = torch.randn(2, 100, 2, 128, device=dev, generator=g).to(bf)
     lens = torch.tensor([100, 37], device=dev)
-    got = flash_attention(q, k, v, kv_lengths=lens).float()
-    want = mha_attention_plain(q, k, v, kv_lengths=lens).float()
-    assert (got - want).abs().max().item() < 3e-2
-    pool = torch.randn(20, 2, 16, 128, device=dev, generator=g).to(bf)
-    vpool = torch.randn(20, 2, 16, 128, device=dev, generator=g).to(bf)
-    table = torch.tensor([[3, 7, 20], [1, 20, 20], [20, 20, 20]], device=dev, dtype=torch.int32)
-    lengths = torch.tensor([40, 9, 0], device=dev, dtype=torch.int32)
+    got = flash_attention(q, k, v, kv_lengths=lens)
+    want = mha_attention_plain(q, k, v, kv_lengths=lens)
+    assert _within(got, want, flash_mod)
+    # live lengths of hundreds, as the limits were set at; OOB entries == 40
+    pool = torch.randn(40, 2, 16, 128, device=dev, generator=g).to(bf)
+    vpool = torch.randn(40, 2, 16, 128, device=dev, generator=g).to(bf)
+    perm = torch.randperm(40, device=dev, generator=g).to(torch.int32)
+    table = torch.full((3, 16), 40, device=dev, dtype=torch.int32)
+    table[0, :15], table[1, :10] = perm[:15], perm[15:25]
+    lengths = torch.tensor([230, 150, 0], device=dev, dtype=torch.int32)
     qd = torch.randn(3, 8, 128, device=dev, generator=g).to(bf)
-    got = paged_decode(qd, pool, vpool, table, lengths).float()
-    want = paged_decode_attention_plain(qd, pool, vpool, table, lengths).float()
-    assert (got - want).abs().max().item() < 3e-2
+    got = paged_decode(qd, pool, vpool, table, lengths)
+    want = paged_decode_attention_plain(qd, pool, vpool, table, lengths)
+    assert _within(got, want, decode_mod)
     assert torch.all(got[2] == 0)
     kn = torch.randn(3, 2, 128, device=dev, generator=g).to(bf)
     a, b = pool.clone(), vpool.clone()

@@ -12,18 +12,23 @@ result line:
    ``gofr_tpu_torch/build/libgofr_kernels.so``; seconds and the compiler's
    register/spill lines;
 3. the kernels at the slice's own shapes (Llama-3-8B heads: Hq 32, Hkv 8,
-   D 128; page 128; 8 slots of live length 100..2000; a 4 x 512 prefill):
-   each held against its plain PyTorch version on the same inputs, timed
-   with CUDA events beside the plain version, a library yardstick where
-   one PyTorch call computes the same function, and the least time the
-   card could take (its bound);
-4. the main path: a full-width, full-depth Llama-3-8B engine with random
-   bf16 weights from a seed serves 8 concurrent requests (prompts of
-   64..1024 tokens, 64 new greedy tokens each); every launch counter is set
-   to 0 just before and read just after, and each must be > 0;
-5. the model on the card: one prompt through ``prefill_paged`` and four
-   ``decode_step_paged`` steps with the kernels, and again with their plain
-   versions; the logits must agree within the bf16 tolerance below.
+   D 128; page 128; 8 slots of live length 100..2000 on bf16, int8 and
+   int4 pools, the quantized ones written by the port's own writes from
+   random bf16 K/V; a 4 x 512 prefill): each held against its plain
+   PyTorch version on the same inputs, timed with CUDA events beside the
+   plain version, a library yardstick where one PyTorch call computes the
+   same function, and the least time the card could take (its bound);
+4. the main path, once per pool format: a full-width, full-depth
+   Llama-3-8B engine with random bf16 weights from a seed serves 8
+   concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
+   each) on a bf16 pool, then the same model on an int8 and on an int4
+   pool (``kv_quantize``); every launch counter is set to 0 just before
+   each run and read just after it, and each kernel of that pool's path
+   (``ON_PATH``) must be > 0 and every other kernel 0;
+5. the model on the card, on each pool format: one prompt through
+   ``prefill_paged`` and four ``decode_step_paged`` steps with the
+   kernels, and again with their plain versions; the logits must agree
+   within the bf16 tolerance below.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name and power limit line and,
 last, ``{"ok": true, "device": {...}}``. Without a card, or run outside a
@@ -46,8 +51,13 @@ SEED = 0
 # the RMS of the difference over the RMS of the output) are stated beside
 # its launcher (ops/cuda/*.py); the KV append is held to bit equality.
 # Model on the card: 32 layers of bf16 rounding at different points move
-# the logits by a small fraction of their range.
-LOGITS_RTOL = 5e-2
+# the logits by a small fraction of their range. On a quantized pool such a
+# rounding can also flip a stored code, which moves that K/V element by a
+# whole step of max|x|/127 (int8) or max|x|/7 (int4); int4's steps are 18x
+# coarser, so its limit is twice the others' (phase 5 reports the error of
+# each of its prompts).
+LOGITS_RTOL = {"": 5e-2, "int8": 5e-2, "int4": 1e-1}
+PHASE5_PROMPTS = 3
 
 
 def emit(phase: str, payload) -> None:
@@ -95,30 +105,30 @@ def agreement(name: str, got, want, module) -> dict:
     err, rms = diff.abs().max().item(), diff.pow(2).mean().sqrt().item()
     out_rms = want.pow(2).mean().sqrt().item()
     rel = rms / max(out_rms, 1e-30)
-    require(err <= module.MAX_ABS and rel <= module.RMS_REL,
-            f"{name} disagrees with plain: max err {err} (limit {module.MAX_ABS}), "
-            f"RMS err / RMS out {rel} (limit {module.RMS_REL})")
-    return {"max_abs_err": err, "rms_rel_err": rel, "out_rms": out_rms}
+    numbers = {"max_abs_err": err, "rms_rel_err": rel, "out_rms": out_rms}
+    if not (err <= module.MAX_ABS and rel <= module.RMS_REL):
+        failure = SystemExit(f"chip_smoke FAILED: {name} disagrees with plain: max err {err} "
+                             f"(limit {module.MAX_ABS}), RMS err / RMS out {rel} "
+                             f"(limit {module.RMS_REL})")
+        failure.numbers = numbers
+        raise failure
+    return numbers
 
 
-def check_kernels(torch, timed: bool = True) -> list[dict]:
-    """Each kernel against its plain version at the slice's shapes, and (if
-    ``timed``) its time beside the plain version's, the library yardstick's
-    and its bound."""
-    import torch.nn.functional as F
-
-    from gofr_tpu_torch.ops.attention import mha_attention_plain, paged_decode_attention_plain
-    from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
-    from gofr_tpu_torch.ops.cuda import paged_decode as decode_mod
-    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
-    from gofr_tpu_torch.ops.cuda.kv_append import kv_append
-    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
-    from gofr_tpu_torch.ops.paged import append_tokens_paged_plain
-
-    def timing(ms, plain_ms, library_ms=None) -> dict:
-        if not timed:
-            return {}
-        return {"ms": ms(), "plain_ms": plain_ms(), "library_ms": library_ms and library_ms()}
+def _decode_case(torch) -> dict:
+    """The decode kernels' inputs at the slice's shapes: 8 slots of live
+    length 100..2000 on pages of 128 in a random order (OOB entries == P),
+    and ``layers`` layer slices of each pool, cycled while timing so each
+    launch finds its pages cold in L2, as a decode step through 32 layers
+    does. The int8 and int4 pools are written by the port's own
+    ``write_prompts_paged_q``/``_q4`` from random bf16 K/V, so their scales
+    are those of real rows."""
+    from gofr_tpu_torch.ops.paged import (
+        Q4PagedKVCache,
+        QPagedKVCache,
+        write_prompts_paged_q,
+        write_prompts_paged_q4,
+    )
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -133,107 +143,205 @@ def check_kernels(torch, timed: bool = True) -> list[dict]:
     for i, need in enumerate(pages_needed):
         table_cpu[i, :need] = perm[used:used + need]
         used += need
-    table, lengths = table_cpu.to(dev), lengths_cpu.to(dev)
-    # `layers` layer slices, cycled while timing so each launch finds its
-    # pages cold in L2, as a decode step through 32 layers does
+    table = table_cpu.to(dev)
     k_pool = torch.randn(layers, pool, hkv, page, d, device=dev, generator=gen).to(bf)
     v_pool = torch.randn(layers, pool, hkv, page, d, device=dev, generator=gen).to(bf)
-    q = torch.randn(n, hq, d, device=dev, generator=gen).to(bf)
-    live = int(lengths_cpu.sum())
+    pools = {8: QPagedKVCache.create(layers, pool, page, hkv, d, device=dev),
+             4: Q4PagedKVCache.create(layers, pool, page, hkv, d, device=dev)}
+    for layer in range(layers):
+        for plane in ("k", "v"):
+            rows = torch.randn(n, maxp * page, hkv, d, device=dev, generator=gen).to(bf)
+            for bits, write in ((8, write_prompts_paged_q), (4, write_prompts_paged_q4)):
+                cache = pools[bits]
+                write(getattr(cache, plane)[layer], getattr(cache, plane + "s")[layer], table, rows)
+    return {"hq": hq, "hkv": hkv, "d": d, "page": page, "n": n, "layers": layers,
+            "lengths_cpu": lengths_cpu, "lengths": lengths_cpu.to(dev), "table": table,
+            "k_pool": k_pool, "v_pool": v_pool, "pools": pools,
+            "q": torch.randn(n, hq, d, device=dev, generator=gen).to(bf),
+            "live": int(lengths_cpu.sum()), "gen": gen}
+
+
+def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[dict]:
+    """Each kernel against its plain version at the slice's shapes, and (if
+    ``timed``) its time beside the plain version's, the library yardstick's
+    and its bound. A kernel that fails its check ends the run, or, with
+    ``keep_going``, is recorded (``passed`` False, its failure and numbers)
+    and the next kernel is checked."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.attention import (
+        mha_attention_plain,
+        paged_decode_attention_plain,
+        paged_decode_attention_q4_plain,
+        paged_decode_attention_q_plain,
+    )
+    from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
+    from gofr_tpu_torch.ops.cuda import paged_decode as decode_mod
+    from gofr_tpu_torch.ops.cuda import paged_decode_q as decode_q_mod
+    from gofr_tpu_torch.ops.cuda import paged_decode_q4 as decode_q4_mod
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.cuda.kv_append import kv_append
+    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+    from gofr_tpu_torch.ops.paged import append_tokens_paged_plain
+
+    def timing(ms, plain_ms, library_ms=None) -> dict:
+        if not timed:
+            return {}
+        return {"ms": ms(), "plain_ms": plain_ms(), "library_ms": library_ms and library_ms()}
+
+    c = _decode_case(torch)
+    hq, hkv, d, page, n, layers = (c[k] for k in ("hq", "hkv", "d", "page", "n", "layers"))
+    q, table, lengths, k_pool, v_pool, gen = (c[k] for k in ("q", "table", "lengths", "k_pool",
+                                                             "v_pool", "gen"))
+    dev, bf = q.device, q.dtype
+    decode_shape = {"slots": n, "hq": hq, "hkv": hkv, "d": d, "page": page,
+                    "lengths": c["lengths_cpu"].tolist()}
+    # bytes every decode kernel moves besides K/V: q and out, table, lengths
+    decode_io = 2 * q.numel() * 2 + table.numel() * 4 + n * 4
+
+    def check_paged_decode() -> dict:  # A
+        got = paged_decode(q, k_pool[0], v_pool[0], table, lengths)
+        want = paged_decode_attention_plain(q, k_pool[0], v_pool[0], table, lengths)
+        agree = agreement("paged_decode", got, want, decode_mod)
+        b_ms, b_by = bound_ms(c["live"] * hkv * d * 2 * 2 + decode_io, 4 * c["live"] * hq * d)
+        return {
+            "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94", **agree,
+            "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
+            **timing(lambda: time_ms(torch, lambda i: paged_decode(
+                         q, k_pool[i % layers], v_pool[i % layers], table, lengths), 50),
+                     lambda: time_ms(torch, lambda i: paged_decode_attention_plain(
+                         q, k_pool[i % layers], v_pool[i % layers], table, lengths), 10)),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": decode_shape,
+        }
+
+    def check_kv_append() -> dict:  # B: at each slot's next position; bit-exact
+        k_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
+        v_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
+        ka, va = k_pool[0].clone(), v_pool[0].clone()
+        kp, vp = k_pool[0].clone(), v_pool[0].clone()
+        kv_append(ka, va, table, lengths, k_new, v_new)
+        append_tokens_paged_plain(kp, vp, table, lengths, k_new, v_new)
+        exact = (torch.equal(ka.view(torch.int16), kp.view(torch.int16))
+                 and torch.equal(va.view(torch.int16), vp.view(torch.int16)))
+        require(exact, "kv_append pool differs from the plain write")
+        require(not torch.equal(ka, k_pool[0]), "kv_append wrote nothing")
+        del ka, va, kp, vp
+        b_ms, b_by = bound_ms(2 * 2 * k_new.numel() * 2 + table.numel() * 4 + n * 4, 0)
+        return {
+            "name": "kv_append", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
+            "replaces": "gofr_tpu/ops/pallas/kv_append.py:110", "max_abs_err": 0.0,
+            "tolerance": "bit-exact",
+            **timing(lambda: time_ms(torch, lambda i: kv_append(
+                         k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 200),
+                     lambda: time_ms(torch, lambda i: append_tokens_paged_plain(
+                         k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 50)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"slots": n, "hkv": hkv, "d": d, "page": page},
+        }
+
+    def check_flash() -> dict:  # C: a batch of 4 x 512 full prompts (causal)
+        b, s = 4, 512
+        qf = torch.randn(b, s, hq, d, device=dev, generator=gen).to(bf)
+        kf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
+        vf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
+        got = flash_attention(qf, kf, vf, causal=True)
+        want = mha_attention_plain(qf, kf, vf, causal=True)
+        agree = agreement("flash_attention", got, want, flash_mod)
+        # ragged lengths, offsets and a fully masked row: same agreement, zeros
+        lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
+        offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+        got_r = flash_attention(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
+        want_r = mha_attention_plain(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
+        agree_r = agreement("flash_attention (ragged)", got_r, want_r, flash_mod)
+        require(torch.all(got_r[3] == 0).item(), "flash_attention: fully masked rows are not zero")
+        pairs = b * s * (s + 1) // 2
+        b_ms, b_by = bound_ms(2 * (2 * qf.numel() + 2 * kf.numel()), 4 * hq * d * pairs)
+        qh, kh, vh = qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
+        kh_r = kh.repeat_interleave(hq // hkv, dim=1)
+        vh_r = vh.repeat_interleave(hq // hkv, dim=1)
+        return {
+            "name": "flash_attention", "route": "cuda",
+            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
+            "max_abs_err": max(agree["max_abs_err"], agree_r["max_abs_err"]),
+            "rms_rel_err": max(agree["rms_rel_err"], agree_r["rms_rel_err"]),
+            "checks": {"causal": agree, "ragged": agree_r},
+            "tolerance": {"max_abs": flash_mod.MAX_ABS, "rms_rel": flash_mod.RMS_REL},
+            **timing(lambda: time_ms(torch, lambda i: flash_attention(qf, kf, vf, causal=True), 20),
+                     lambda: time_ms(torch, lambda i: mha_attention_plain(qf, kf, vf, causal=True), 5),
+                     # yardstick only (never called by the port): SDPA on
+                     # head-major views, KV heads repeated outside the timed call
+                     lambda: time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                         qh, kh_r, vh_r, is_causal=True), 20)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"batch": b, "seq": s, "hq": hq, "hkv": hkv, "d": d, "causal": True},
+        }
+
+    def check_decode_q(bits: int) -> dict:  # D (int8) and E (int4)
+        name, mod, launch, plain, replaces = (
+            ("paged_decode_q", decode_q_mod, decode_q_mod.paged_decode_q,
+             paged_decode_attention_q_plain, "gofr_tpu/ops/pallas/paged_decode.py:195")
+            if bits == 8 else
+            ("paged_decode_q4", decode_q4_mod, decode_q4_mod.paged_decode_q4,
+             paged_decode_attention_q4_plain, "gofr_tpu/ops/pallas/paged_decode.py:314"))
+        cache = c["pools"][bits]
+
+        def args(layer: int) -> tuple:
+            return (q, cache.k[layer], cache.v[layer], cache.ks[layer], cache.vs[layer], table,
+                    lengths)
+
+        got, want = launch(*args(0)), plain(*args(0))
+        agree = agreement(name, got, want, mod)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
+        # K and V rows of D (int8) or D/2 (packed) bytes plus two bf16 scales
+        row_bytes = 2 * cache.k.shape[-1] + 2 * 2
+        b_ms, b_by = bound_ms(c["live"] * hkv * row_bytes + decode_io, 4 * c["live"] * hq * d)
+        return {
+            "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
+            "replaces": replaces, **agree,
+            "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
+            # no one PyTorch call computes attention over quantized rows
+            **timing(lambda: time_ms(torch, lambda i: launch(*args(i % layers)), 50),
+                     lambda: time_ms(torch, lambda i: plain(*args(i % layers)), 10),
+                     None),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": {**decode_shape, "kv_bits": bits},
+        }
+
+    checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
+              ("paged_decode_q", lambda: check_decode_q(8)),
+              ("paged_decode_q4", lambda: check_decode_q(4)),
+              ("flash_attention", check_flash)]
     results = []
-
-    # A: paged decode
-    got = paged_decode(q, k_pool[0], v_pool[0], table, lengths)
-    want = paged_decode_attention_plain(q, k_pool[0], v_pool[0], table, lengths)
-    agree = agreement("paged_decode", got, want, decode_mod)
-    nbytes = live * hkv * d * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + n * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * live * hq * d)
-    results.append({
-        "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94", **agree,
-        "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
-        **timing(lambda: time_ms(torch, lambda i: paged_decode(
-                     q, k_pool[i % layers], v_pool[i % layers], table, lengths), 50),
-                 lambda: time_ms(torch, lambda i: paged_decode_attention_plain(
-                     q, k_pool[i % layers], v_pool[i % layers], table, lengths), 10)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": {"slots": n, "hq": hq, "hkv": hkv, "d": d, "page": page,
-                  "lengths": lengths_cpu.tolist()},
-    })
-
-    # B: KV append at each slot's next position; bit-exact against plain
-    k_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
-    v_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
-    ka, va = k_pool[0].clone(), v_pool[0].clone()
-    kp, vp = k_pool[0].clone(), v_pool[0].clone()
-    kv_append(ka, va, table, lengths, k_new, v_new)
-    append_tokens_paged_plain(kp, vp, table, lengths, k_new, v_new)
-    exact = (torch.equal(ka.view(torch.int16), kp.view(torch.int16))
-             and torch.equal(va.view(torch.int16), vp.view(torch.int16)))
-    require(exact, "kv_append pool differs from the plain write")
-    require(not torch.equal(ka, k_pool[0]), "kv_append wrote nothing")
-    del ka, va, kp, vp
-    b_ms, b_by = bound_ms(2 * 2 * k_new.numel() * 2 + table.numel() * 4 + n * 4, 0)
-    results.append({
-        "name": "kv_append", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
-        "replaces": "gofr_tpu/ops/pallas/kv_append.py:110", "max_abs_err": 0.0,
-        "tolerance": "bit-exact",
-        **timing(lambda: time_ms(torch, lambda i: kv_append(
-                     k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 200),
-                 lambda: time_ms(torch, lambda i: append_tokens_paged_plain(
-                     k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 50)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": {"slots": n, "hkv": hkv, "d": d, "page": page},
-    })
-    del k_pool, v_pool
-
-    # C: flash prefill, a batch of 4 x 512 full prompts (causal)
-    b, s = 4, 512
-    qf = torch.randn(b, s, hq, d, device=dev, generator=gen).to(bf)
-    kf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
-    vf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
-    got = flash_attention(qf, kf, vf, causal=True)
-    want = mha_attention_plain(qf, kf, vf, causal=True)
-    agree = agreement("flash_attention", got, want, flash_mod)
-    # ragged lengths, offsets and a fully masked row: same agreement, zeros
-    lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
-    offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
-    got_r = flash_attention(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
-    want_r = mha_attention_plain(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
-    agree_r = agreement("flash_attention (ragged)", got_r, want_r, flash_mod)
-    require(torch.all(got_r[3] == 0).item(), "flash_attention: fully masked rows are not zero")
-    pairs = b * s * (s + 1) // 2
-    b_ms, b_by = bound_ms(2 * (2 * qf.numel() + 2 * kf.numel()), 4 * hq * d * pairs)
-    qh, kh, vh = qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
-    kh_r = kh.repeat_interleave(hq // hkv, dim=1)
-    vh_r = vh.repeat_interleave(hq // hkv, dim=1)
-    results.append({
-        "name": "flash_attention", "route": "cuda", "source": "gofr_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
-        "max_abs_err": max(agree["max_abs_err"], agree_r["max_abs_err"]),
-        "rms_rel_err": max(agree["rms_rel_err"], agree_r["rms_rel_err"]),
-        "checks": {"causal": agree, "ragged": agree_r},
-        "tolerance": {"max_abs": flash_mod.MAX_ABS, "rms_rel": flash_mod.RMS_REL},
-        **timing(lambda: time_ms(torch, lambda i: flash_attention(qf, kf, vf, causal=True), 20),
-                 lambda: time_ms(torch, lambda i: mha_attention_plain(qf, kf, vf, causal=True), 5),
-                 # yardstick only (never called by the port): SDPA on
-                 # head-major views, KV heads repeated outside the timed call
-                 lambda: time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                     qh, kh_r, vh_r, is_causal=True), 20)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": {"batch": b, "seq": s, "hq": hq, "hkv": hkv, "d": d, "causal": True},
-    })
+    for name, check in checks:
+        try:
+            results.append({**check(), "passed": True})
+        except SystemExit as failure:
+            if not keep_going:
+                raise
+            results.append({"name": name, "passed": False, "failure": str(failure),
+                            **getattr(failure, "numbers", {})})
     return results
 
 
-def serve(torch, cuda) -> tuple[object, dict, dict]:
+# The kernels each pool format's serving run must launch; every other
+# kernel must launch no time in that run.
+ON_PATH = {"": ("paged_decode", "kv_append", "flash_attention"),
+           "int8": ("paged_decode_q", "flash_attention"),
+           "int4": ("paged_decode_q4", "flash_attention")}
+
+
+def serve(torch, cuda, model=None, kv_quantize: str = "") -> tuple[object, dict, dict]:
+    """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
+    pool format ``kv_quantize``; a new model with random weights from the
+    seed, or ``model`` when given. Returns (engine, launches, metrics)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = LlamaConfig.llama3_8b() if model is None else model.cfg
     t0 = time.perf_counter()
-    eng = build_engine(cfg, device="cuda", seed=SEED, slots=8, max_len=2048,
-                       max_prefill_batch=4, decode_chunk=8)
+    eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                       max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
@@ -250,18 +358,27 @@ def serve(torch, cuda) -> tuple[object, dict, dict]:
     torch.cuda.synchronize()
     t_done = time.monotonic()
     counts = cuda.launch_counts()
+    pool = kv_quantize or "bf16"
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
-                f"request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
-        require(all(0 <= t < cfg.vocab_size for t in o["tokens"]), f"request {i}: token out of range")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the main path")
+                f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
+                f"{pool} request {i}: token out of range")
+    for name, launches in counts.items():
+        if name in ON_PATH[kv_quantize]:
+            require(launches > 0, f"kernel {name} was not launched on the {pool} pool's path")
+        else:
+            require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
+                                   f"pool's path")
     first = [t_submit + o["ttft_s"] for o in outs]
     done = [f + o["decode_s"] for f, o in zip(first, outs)]
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
     ttft = sorted(o["ttft_s"] for o in outs)
+    cache = eng.cache
     metrics = {
         "model": "llama3_8b (random bf16 weights, seed 0)", "layers": cfg.num_layers,
+        "kv_pool": pool, "pool_bytes": sum(t.nbytes for t in vars(cache).values()),
+        "pool_positions": cache.num_pages * cache.page_size,
         "requests": len(outs), "prompt_lens": lens, "new_tokens": 64,
         "engine_build_s": build_s, "wall_s": t_done - t_submit,
         "ttft_s": [o["ttft_s"] for o in outs], "ttft_p50_s": ttft[len(ttft) // 2],
@@ -274,38 +391,47 @@ def serve(torch, cuda) -> tuple[object, dict, dict]:
     return eng, counts, metrics
 
 
-def model_check(torch, model) -> dict:
-    """Kernels vs plain versions, end to end through the model."""
+def model_check(torch, model, kv_quantize: str = "") -> dict:
+    """Kernels vs plain versions, end to end through the model, on a pool of
+    the format ``kv_quantize``: each of ``PHASE5_PROMPTS`` prompts of 256
+    tokens through ``prefill_paged`` and four ``decode_step_paged`` steps,
+    once with the kernels and once with their plain versions."""
+    from gofr_tpu_torch.gpu.engine import make_pool
+
+    pool = kv_quantize or "bf16"
     rng = torch.Generator().manual_seed(SEED + 1)
-    prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
     lengths = torch.tensor([256], device="cuda")
     table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
-    runs = {}
-    steps = None
-    for kernels in (True, False):
-        cache = model.make_paged_cache(4, 128)
-        logits, _ = model.prefill_paged(prompt, lengths, cache, table, kernels=kernels)
-        seq = [logits]
-        tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[0]
-        chosen = [tokens]
-        for step in range(4):
-            pos = torch.tensor([256 + step], device="cuda")
-            logits, _ = model.decode_step_paged(tokens, pos, cache, table, kernels=kernels)
-            seq.append(logits)
-            # both runs feed the same inputs: the kernel run's greedy tokens
-            tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[step + 1]
-            chosen.append(tokens)
-        steps = steps or chosen
-        runs[kernels] = torch.stack(seq)
-        del cache
-    k_run, p_run = runs[True], runs[False]
-    require(torch.isfinite(k_run).all().item(), "non-finite logits with the kernels")
-    err = (k_run - p_run).abs().max().item()
-    scale = p_run.abs().max().item()
-    agree = (k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item()
-    require(err < LOGITS_RTOL * scale, f"kernel vs plain logits: max err {err} vs scale {scale}")
-    return {"steps": 5, "max_abs_err": err, "max_abs_logit": scale,
-            "rel_err": err / scale, "tol_rel": LOGITS_RTOL, "argmax_agree": agree}
+    rel_errs, agree = [], []
+    for _ in range(PHASE5_PROMPTS):
+        prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
+        runs = {}
+        steps = None
+        for kernels in (True, False):
+            cache = make_pool(model, kv_quantize, 4, 128)
+            logits, _ = model.prefill_paged(prompt, lengths, cache, table, kernels=kernels)
+            seq = [logits]
+            tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[0]
+            chosen = [tokens]
+            for step in range(4):
+                pos = torch.tensor([256 + step], device="cuda")
+                logits, _ = model.decode_step_paged(tokens, pos, cache, table, kernels=kernels)
+                seq.append(logits)
+                # both runs feed the same inputs: the kernel run's greedy tokens
+                tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[step + 1]
+                chosen.append(tokens)
+            steps = steps or chosen
+            runs[kernels] = torch.stack(seq)
+            del cache
+        k_run, p_run = runs[True], runs[False]
+        require(torch.isfinite(k_run).all().item(), f"non-finite logits with the kernels ({pool})")
+        rel_errs.append((k_run - p_run).abs().max().item() / p_run.abs().max().item())
+        agree.append((k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item())
+    require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
+            f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
+            f"(limit {LOGITS_RTOL[kv_quantize]})")
+    return {"kv_pool": pool, "prompts": PHASE5_PROMPTS, "steps": 5, "rel_err": rel_errs,
+            "tol_rel": LOGITS_RTOL[kv_quantize], "argmax_agree": agree}
 
 
 def main() -> None:
@@ -328,21 +454,30 @@ def main() -> None:
 
     kernels = check_kernels(torch)
     emit("phase3_kernels", kernels)
-
-    eng, counts, metrics = serve(torch, cuda)
-    emit("phase4_serve", {**metrics, "launches": counts})
-    eng.stop()
-    model = eng.model
-    del eng
     torch.cuda.empty_cache()
 
-    emit("phase5_model", model_check(torch, model))
+    # the same 8 requests on a bf16, an int8 and an int4 pool, one model
+    model, served = None, {}
+    for kv_quantize in ("", "int8", "int4"):
+        eng, counts, metrics = serve(torch, cuda, model, kv_quantize)
+        emit(f"phase4_serve_{kv_quantize or 'bf16'}", {**metrics, "launches": counts})
+        eng.stop()
+        model = eng.model
+        served[kv_quantize] = {"metrics": metrics, "launches": counts}
+        del eng
+        torch.cuda.empty_cache()
 
+    for kv_quantize in ("", "int8", "int4"):
+        emit(f"phase5_model_{kv_quantize or 'bf16'}", model_check(torch, model, kv_quantize))
+
+    # each kernel's launches from the serving run of the pool it belongs to
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        kv_quantize = next(kvq for kvq, names in ON_PATH.items() if k["name"] in names)
+        k["launches"] = served[kv_quantize]["launches"][k["name"]]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": kernels, "serve": metrics}, f, indent=1)
+        json.dump({"kernels": kernels, "serve": {kvq or "bf16": run for kvq, run in served.items()}},
+                  f, indent=1)
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")} for k in kernels]}))

@@ -10,8 +10,10 @@
 //   - a row whose running max is still kNegInf takes its probabilities
 //     against 0, so exp(kNegInf - 0) underflows to 0 instead of exp(0) == 1;
 //   - the final divide clamps the normaliser at 1e-20.
-// Probabilities are rounded to bf16 before the P.V product (common.py:57);
-// the normaliser sums them unrounded, in f32.
+// The bf16 kernels round probabilities to bf16 before the P.V product
+// (common.py:57); the quantized-pool kernels instead fold the per-position
+// value scale into them, in f32 and unrounded (common.py:56-60). Either
+// way the normaliser sums the plain probabilities, unrounded, in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,11 +67,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp folds one 64-wide tile row held in shared memory (`row`, f32,
-// masked entries == kNegInf) into the running state kept in shared memory
-// (m, l). The row is overwritten with its bf16-rounded probabilities and
-// alpha is stored for the P.V step. Every lane of the warp must call this.
-__device__ __forceinline__ void fold_row64(float* row, float* m, float* l, float* alpha) {
+// One warp takes the probabilities of one 64-wide tile row held in shared
+// memory (`row`, f32, masked entries == kNegInf) against the running state
+// kept in shared memory (m, l), and updates that state: lane 0 stores the
+// new max, the normaliser and alpha for the P.V step. Returns this lane's
+// probabilities of positions lane and lane + 32. Every lane of the warp
+// must call this.
+__device__ __forceinline__ float2 row_probs64(const float* row, float* m, float* l, float* alpha) {
   const int lane = threadIdx.x & 31;
   const float a = row[lane], b = row[lane + 32];
   RowState st{*m, *l};
@@ -78,13 +82,35 @@ __device__ __forceinline__ void fold_row64(float* row, float* m, float* l, float
   const float pa = row_prob(a, safe), pb = row_prob(b, safe);
   const float sum = warp_sum(pa + pb);
   __syncwarp();
-  row[lane] = round_bf16(pa);
-  row[lane + 32] = round_bf16(pb);
   if (lane == 0) {
     *m = st.m;
     *l = st.l + sum;
     *alpha = scale;
   }
+  return make_float2(pa, pb);
+}
+
+// Fold one tile row into the running state and overwrite it with its
+// bf16-rounded probabilities, the P.V weights of the bf16 kernels.
+__device__ __forceinline__ void fold_row64(float* row, float* m, float* l, float* alpha) {
+  const int lane = threadIdx.x & 31;
+  const float2 p = row_probs64(row, m, l, alpha);
+  const float pa = p.x, pb = p.y;
+  row[lane] = round_bf16(pa);
+  row[lane + 32] = round_bf16(pb);
+  __syncwarp();
+}
+
+// The v_scale fold (common.py:56-60): fold one tile row into the running
+// state and overwrite it with p * vs[t], the P.V weights of the
+// quantized-pool kernels: f32, with no bf16 rounding. `vs` holds the
+// tile's 64 value scales.
+__device__ __forceinline__ void fold_row64_vscale(float* row, const float* vs, float* m, float* l,
+                                                  float* alpha) {
+  const int lane = threadIdx.x & 31;
+  const float2 p = row_probs64(row, m, l, alpha);
+  row[lane] = p.x * vs[lane];
+  row[lane + 32] = p.y * vs[lane + 32];
   __syncwarp();
 }
 

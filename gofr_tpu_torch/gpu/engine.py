@@ -38,8 +38,21 @@ import torch
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.programs import decode_chunk, prefill_sample
 from gofr_tpu_torch.models.llama import Llama, LlamaConfig, init, params_from_jax
+from gofr_tpu_torch.ops.paged import AnyPagedKVCache
 
 log = logging.getLogger(__name__)
+
+
+# pool formats: the model's dtype, int8 rows, packed int4 rows
+KV_QUANTIZE = ("", "int8", "int4")
+
+
+def make_pool(model: Llama, kv_quantize: str, pages: int, page_size: int) -> AnyPagedKVCache:
+    """An empty pool of ``pages`` pages for ``model`` in the format
+    ``kv_quantize`` (one of ``KV_QUANTIZE``)."""
+    make = {"": model.make_paged_cache, "int8": model.make_paged_cache_q,
+            "int4": model.make_paged_cache_q4}[kv_quantize]
+    return make(pages, page_size)
 
 
 class EngineClosed(RuntimeError):
@@ -127,14 +140,20 @@ class GenerateEngine:
     ``device`` is where the engine runs (the card unless the caller asks for
     the CPU) and must be the model's device. ``max_len`` caps prompt plus
     generation per request; ``page_size`` and ``total_pages`` size the pool
-    (default: every slot can hold a ``max_len`` request)."""
+    (default: every slot can hold a ``max_len`` request). ``kv_quantize``
+    picks the pool's format: ``""`` the model's dtype, ``"int8"`` or
+    ``"int4"`` quantized rows with bf16 scales (2x or 4x the positions in
+    the same memory); page reservation is the same for all three."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, max_prefill_batch: int = 4,
                  decode_chunk: int = 8, eos_token_id: int | None = None, top_k: int = 0,
                  top_p: float = 1.0, tokenizer: Any = None,
                  default_timeout: float | None = None, seed: int = 0,
-                 page_size: int = 128, total_pages: int | None = None):
+                 page_size: int = 128, total_pages: int | None = None,
+                 kv_quantize: str = ""):
+        if kv_quantize not in KV_QUANTIZE:
+            raise ValueError(f"kv_quantize={kv_quantize!r}: use '', 'int8' or 'int4'")
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
@@ -156,7 +175,7 @@ class GenerateEngine:
         if self.total_pages < self.pages_per_slot:
             raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
                              f"{self.pages_per_slot}: one max-length request cannot fit")
-        self.cache = model.make_paged_cache(self.total_pages, page_size)
+        self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
         self._free_pages = list(range(self.total_pages))
         self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
         # OOB convention: unallocated entries point one past the pool

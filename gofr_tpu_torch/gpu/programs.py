@@ -18,11 +18,11 @@ from __future__ import annotations
 import torch
 
 from gofr_tpu_torch.models.llama import Llama
-from gofr_tpu_torch.ops.paged import PagedKVCache
+from gofr_tpu_torch.ops.paged import AnyPagedKVCache
 from gofr_tpu_torch.ops.sampling import sample_token
 
 
-def prefill_sample(model: Llama, cache: PagedKVCache, tokens: torch.Tensor,
+def prefill_sample(model: Llama, cache: AnyPagedKVCache, tokens: torch.Tensor,
                    lengths: torch.Tensor, pages: torch.Tensor, temps: torch.Tensor,
                    generator: torch.Generator | None, *, top_k: int = 0,
                    top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
@@ -33,7 +33,7 @@ def prefill_sample(model: Llama, cache: PagedKVCache, tokens: torch.Tensor,
                         top_p=top_p, do_sample=do_sample)
 
 
-def decode_chunk(model: Llama, cache: PagedKVCache, tokens: torch.Tensor,
+def decode_chunk(model: Llama, cache: AnyPagedKVCache, tokens: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor, temps: torch.Tensor,
                  steps: int, generator: torch.Generator | None, *, top_k: int = 0,
                  top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:

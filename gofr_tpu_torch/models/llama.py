@@ -15,14 +15,18 @@ Entry points, each a method of ``Llama``:
                          the paged pool, last-token logits (llama.py:617)
 - ``decode_step_paged``  one token per slot, K/V appended through the
                          block table (llama.py:710)
-- ``make_paged_cache``   an empty pool for this model (llama.py:587)
+- ``make_paged_cache``   an empty pool for this model (llama.py:587), and
+  ``make_paged_cache_q`` / ``make_paged_cache_q4`` its int8 and packed
+  int4 forms (llama.py:595,605); ``prefill_paged`` and
+  ``decode_step_paged`` branch on the pool's type as the JAX functions do
 
 Attention and the KV append go through ``ops`` and so through the CUDA
 kernels on the card. ``kernels=False`` runs the same step on their plain
 versions instead, which is how the card-side check holds the kernels
 against the plain path end to end (``prefill_paged`` and
-``decode_step_paged``). This slice serves bf16 weights and a
-bf16 pool only (no int8 weights, LoRA deltas or quantized pools).
+``decode_step_paged``). On a quantized pool the append is plain PyTorch
+either way (the TPU ran it as XLA). This slice serves bf16 weights (no
+int8 weights or LoRA deltas).
 """
 
 from __future__ import annotations
@@ -40,15 +44,30 @@ from gofr_tpu_torch.ops.attention import (
     mha_attention_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_attention_q,
+    paged_decode_attention_q4,
+    paged_decode_attention_q4_plain,
+    paged_decode_attention_q_plain,
 )
+from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged import (
+    AnyPagedKVCache,
     PagedKVCache,
+    Q4PagedKVCache,
+    QPagedKVCache,
     append_tokens_paged,
     append_tokens_paged_plain,
+    append_tokens_paged_q,
+    append_tokens_paged_q4,
     gather_kv,
+    gather_kv_q,
+    gather_kv_q4,
     write_prompts_paged,
+    write_prompts_paged_q,
+    write_prompts_paged_q4,
 )
+from gofr_tpu_torch.ops.quant import fake_quant_row_int4
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
 
 
@@ -95,12 +114,25 @@ class LlamaConfig:
         ), **kw})
 
 
-def _ops(kernels: bool):
-    """(prefill attention, paged decode attention, KV append): the kernel
-    entry points, or their plain versions."""
+def _ops(kernels: bool, cache: AnyPagedKVCache):
+    """(prefill attention, paged decode attention, KV append) for the type of
+    ``cache``: the kernel entry points, or their plain versions. The
+    quantized appends write one plane at a time and have no kernel."""
+    attn = mha_attention if kernels else mha_attention_plain
+    if isinstance(cache, Q4PagedKVCache):
+        return (attn, paged_decode_attention_q4 if kernels else paged_decode_attention_q4_plain,
+                append_tokens_paged_q4)
+    if isinstance(cache, QPagedKVCache):
+        return (attn, paged_decode_attention_q if kernels else paged_decode_attention_q_plain,
+                append_tokens_paged_q)
     if kernels:
-        return mha_attention, paged_decode_attention, append_tokens_paged
-    return mha_attention_plain, paged_decode_attention_plain, append_tokens_paged_plain
+        return attn, paged_decode_attention, append_tokens_paged
+    return attn, paged_decode_attention_plain, append_tokens_paged_plain
+
+
+# (write, gather, fake quantization) of each quantized pool type
+_QUANTIZED = {QPagedKVCache: (write_prompts_paged_q, gather_kv_q, fake_quant_row),
+              Q4PagedKVCache: (write_prompts_paged_q4, gather_kv_q4, fake_quant_row_int4)}
 
 
 class Block(nn.Module):
@@ -183,18 +215,21 @@ class Llama(nn.Module):
         return self._logits(x)
 
     @torch.no_grad()
-    def prefill_paged(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: PagedKVCache,
+    def prefill_paged(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyPagedKVCache,
                       pages: torch.Tensor, offsets: torch.Tensor | None = None, *,
-                      kernels: bool = True) -> tuple[torch.Tensor, PagedKVCache]:
+                      kernels: bool = True) -> tuple[torch.Tensor, AnyPagedKVCache]:
         """Prefill prompts (or prompt chunks) through block-table rows.
 
         tokens [B, S] (padded), lengths [B] = live tokens in this call, pages
         [B, MaxP] (OOB = pool size). ``offsets`` [B] places the chunk at
         positions offsets .. offsets+S; chunked rows attend to the whole
         cache written so far through a gathered view, whole-prompt rows
-        attend prompt-locally. Returns (last-token logits [B, V] f32, cache),
-        the cache written in place."""
-        attn, _, _ = _ops(kernels)
+        attend prompt-locally. On a quantized pool whole-prompt rows attend
+        to their fake-quantized k/v (what the pool stores) and chunked rows
+        to the dequantized gather (llama.py:644-685). Returns (last-token
+        logits [B, V] f32, cache), the cache written in place."""
+        attn = _ops(kernels, cache)[0]
+        quant = _QUANTIZED.get(type(cache))
         b, s = tokens.shape
         off = (torch.zeros(b, dtype=torch.long, device=tokens.device) if offsets is None
                else offsets.long())
@@ -204,11 +239,22 @@ class Llama(nn.Module):
             q, k, v = self._qkv(lp, x)
             q, k = self._rope(q, positions), self._rope(k, positions)
             k_layer, v_layer = cache.k[layer], cache.v[layer]
-            write_prompts_paged(k_layer, v_layer, pages, k, v, offsets)
+            if quant is None:
+                write_prompts_paged(k_layer, v_layer, pages, k, v, offsets)
+            else:
+                write, gather, fake_quant = quant
+                write(k_layer, cache.ks[layer], pages, k, offsets)
+                write(v_layer, cache.vs[layer], pages, v, offsets)
             if offsets is None:
+                if quant is not None:
+                    k, v = fake_quant(k), fake_quant(v)
                 a = attn(q, k, v, causal=True, kv_lengths=lengths)
             else:
-                k_view, v_view = gather_kv(k_layer, v_layer, pages)
+                if quant is None:
+                    k_view, v_view = gather_kv(k_layer, v_layer, pages)
+                else:
+                    k_view = dequantize_view(*gather(k_layer, cache.ks[layer], pages), self.cfg.dtype)
+                    v_view = dequantize_view(*gather(v_layer, cache.vs[layer], pages), self.cfg.dtype)
                 a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
                          causal=True, q_offset=off, kv_lengths=off + lengths)
             x = x + lp.wo(a.reshape(b, s, -1))
@@ -218,13 +264,14 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def decode_step_paged(self, tokens: torch.Tensor, positions: torch.Tensor,
-                          cache: PagedKVCache, table: torch.Tensor, *,
-                          kernels: bool = True) -> tuple[torch.Tensor, PagedKVCache]:
+                          cache: AnyPagedKVCache, table: torch.Tensor, *,
+                          kernels: bool = True) -> tuple[torch.Tensor, AnyPagedKVCache]:
         """One decode step over every slot: tokens [N] go to ``positions`` [N]
         through ``table`` [N, MaxP]. Returns (logits [N, V] f32, cache), the
         cache written in place. Lanes with an all-OOB table row write
         nothing and produce logits the caller ignores."""
-        attn, append = _ops(kernels)[1:]
+        attn, append = _ops(kernels, cache)[1:]
+        quant = type(cache) in _QUANTIZED
         n = tokens.shape[0]
         pos1 = positions.long()[:, None]
         lengths = positions + 1
@@ -233,8 +280,14 @@ class Llama(nn.Module):
             q, k, v = self._qkv(lp, x[:, None])
             q, k, v = self._rope(q, pos1)[:, 0], self._rope(k, pos1)[:, 0], v[:, 0]
             k_layer, v_layer = cache.k[layer], cache.v[layer]
-            append(k_layer, v_layer, table, positions, k, v)
-            a = attn(q, k_layer, v_layer, table, lengths)
+            if quant:
+                ks_layer, vs_layer = cache.ks[layer], cache.vs[layer]
+                append(k_layer, ks_layer, table, positions, k)
+                append(v_layer, vs_layer, table, positions, v)
+                a = attn(q, k_layer, v_layer, ks_layer, vs_layer, table, lengths)
+            else:
+                append(k_layer, v_layer, table, positions, k, v)
+                a = attn(q, k_layer, v_layer, table, lengths)
             x = x + lp.wo(a.reshape(n, -1))
             x = x + self._mlp(lp, x)
         return self._logits(x), cache
@@ -243,6 +296,18 @@ class Llama(nn.Module):
         cfg = self.cfg
         return PagedKVCache.create(cfg.num_layers, pages, page_size, cfg.num_kv_heads,
                                    cfg.head_size, dtype=cfg.dtype, device=self.device)
+
+    def make_paged_cache_q(self, pages: int, page_size: int = 128) -> QPagedKVCache:
+        """The int8 pool (llama.py:595)."""
+        cfg = self.cfg
+        return QPagedKVCache.create(cfg.num_layers, pages, page_size, cfg.num_kv_heads,
+                                    cfg.head_size, device=self.device)
+
+    def make_paged_cache_q4(self, pages: int, page_size: int = 128) -> Q4PagedKVCache:
+        """The packed int4 pool (llama.py:605); head_dim must be even."""
+        cfg = self.cfg
+        return Q4PagedKVCache.create(cfg.num_layers, pages, page_size, cfg.num_kv_heads,
+                                     cfg.head_size, device=self.device)
 
 
 # -- weights --------------------------------------------------------------------

@@ -8,10 +8,13 @@ never repeated.
 Two layers live here:
 
 - the plain versions (``mha_attention_plain``, ``decode_attention_plain``,
-  ``paged_decode_attention_plain``), straightforward PyTorch that mirrors
-  the JAX XLA path op for op, bf16 roundings included;
-- the public entry points (``mha_attention``, ``paged_decode_attention``),
-  which make the one choice between the two: a tensor on the card goes to
+  ``paged_decode_attention_plain``, and ``decode_attention_q_plain`` with
+  ``paged_decode_attention_q_plain`` / ``_q4_plain`` for the int8 and
+  int4 pools), straightforward PyTorch that mirrors the JAX XLA path op
+  for op, bf16 roundings included;
+- the public entry points (``mha_attention``, ``paged_decode_attention``,
+  ``paged_decode_attention_q``, ``paged_decode_attention_q4``), which make
+  the one choice between the two: a tensor on the card goes to
   the CUDA kernel's launcher in ``ops/cuda`` (which launches or raises), a
   tensor on the CPU to the plain version. There is no fallback from one to
   the other.
@@ -23,7 +26,9 @@ import torch
 
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
-from gofr_tpu_torch.ops.paged import gather_kv
+from gofr_tpu_torch.ops.cuda.paged_decode_q import paged_decode_q
+from gofr_tpu_torch.ops.cuda.paged_decode_q4 import paged_decode_q4
+from gofr_tpu_torch.ops.paged import gather_kv, gather_kv_q, gather_kv_q4
 
 NEG_INF = -1e30
 
@@ -95,6 +100,50 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: 
     return decode_attention_plain(q, k_view, v_view, lengths, scale=scale)
 
 
+def decode_attention_q_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             k_scale: torch.Tensor, v_scale: torch.Tensor, lengths: torch.Tensor,
+                             *, scale: float | None = None) -> torch.Tensor:
+    """Decode against a quantized head-major cache (attention.py:219): q
+    [B, Hq, D]; k/v values [B, Hkv, S, D] (int8, or unpacked int4) with
+    per-position scales [B, Hkv, S]. The values convert to q's type at the
+    product; ``k_scale`` multiplies the scores, ``v_scale`` the
+    probabilities, which are then rounded to q's type before P.V."""
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, k_cache.to(q.dtype)).float()
+    scores = scores * k_scale[:, :, None, :].float() * scale
+    mask = torch.arange(smax, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = _softmax(scores)
+    pv = (probs * v_scale[:, :, None, :].float()).to(q.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", pv, v_cache.to(q.dtype))
+    return out.reshape(b, hq, d)
+
+
+def paged_decode_attention_q_plain(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                                   ks_pool: torch.Tensor, vs_pool: torch.Tensor,
+                                   table: torch.Tensor, lengths: torch.Tensor, *,
+                                   scale: float | None = None) -> torch.Tensor:
+    """Decode against the int8 pool by gathering each slot's int8 rows and
+    scales and running ``decode_attention_q_plain`` (attention.py:359)."""
+    gkq, gks = gather_kv_q(kq_pool, ks_pool, table)
+    gvq, gvs = gather_kv_q(vq_pool, vs_pool, table)
+    return decode_attention_q_plain(q, gkq, gvq, gks, gvs, lengths, scale=scale)
+
+
+def paged_decode_attention_q4_plain(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                                    ks_pool: torch.Tensor, vs_pool: torch.Tensor,
+                                    table: torch.Tensor, lengths: torch.Tensor, *,
+                                    scale: float | None = None) -> torch.Tensor:
+    """Decode against the packed int4 pool: gather, unpack after the gather,
+    then ``decode_attention_q_plain`` (attention.py:433)."""
+    gkq, gks = gather_kv_q4(kq_pool, ks_pool, table)
+    gvq, gvs = gather_kv_q4(vq_pool, vs_pool, table)
+    return decode_attention_q_plain(q, gkq, gvq, gks, gvs, lengths, scale=scale)
+
+
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: torch.Tensor | int = 0,
                   kv_lengths: torch.Tensor | None = None,
@@ -113,3 +162,23 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     kernel on the card, the plain version on the CPU."""
     attend = paged_decode if q.is_cuda else paged_decode_attention_plain
     return attend(q, k_pool, v_pool, table, lengths, scale=scale)
+
+
+def paged_decode_attention_q(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                             ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
+                             lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """Single-token decode against the int8 pool: q [N, Hq, D]; values
+    [P, Hkv, page, D] int8; scales [P, Hkv, page] bf16; table [N, MaxP]
+    (OOB entries == P); lengths [N]. The kernel on the card, the plain
+    version on the CPU."""
+    attend = paged_decode_q if q.is_cuda else paged_decode_attention_q_plain
+    return attend(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale=scale)
+
+
+def paged_decode_attention_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                              ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
+                              lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """Single-token decode against the packed int4 pool (values uint8
+    [P, Hkv, page, D//2]); otherwise as ``paged_decode_attention_q``."""
+    attend = paged_decode_q4 if q.is_cuda else paged_decode_attention_q4_plain
+    return attend(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale=scale)

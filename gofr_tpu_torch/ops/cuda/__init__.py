@@ -142,19 +142,28 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({lib().gofr_error_string(rc).decode()})")
 
 
+def _wrappers() -> dict:
+    from gofr_tpu_torch.ops.cuda import (
+        flash_attention,
+        kv_append,
+        paged_decode,
+        paged_decode_q,
+        paged_decode_q4,
+    )
+
+    return {"paged_decode": paged_decode.paged_decode,
+            "kv_append": kv_append.kv_append,
+            "flash_attention": flash_attention.flash_attention,
+            "paged_decode_q": paged_decode_q.paged_decode_q,
+            "paged_decode_q4": paged_decode_q4.paged_decode_q4}
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset (wrappers count only
     where they launch, never on the plain path)."""
-    from gofr_tpu_torch.ops.cuda import flash_attention, kv_append, paged_decode
-
-    return {"paged_decode": paged_decode.paged_decode.launches,
-            "kv_append": kv_append.kv_append.launches,
-            "flash_attention": flash_attention.flash_attention.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from gofr_tpu_torch.ops.cuda import flash_attention, kv_append, paged_decode
-
-    paged_decode.paged_decode.launches = 0
-    kv_append.kv_append.launches = 0
-    flash_attention.flash_attention.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0

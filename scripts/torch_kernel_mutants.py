@@ -8,7 +8,9 @@ length mask off by one, a live page skipped, a key left out of P.V, ...),
 made and built under ``gofr_tpu_torch/build/mutants/`` at run time; the
 sources in the checkout are never changed. Every mutant library is loaded
 in turn and put through ``chip_smoke.check_kernels`` (the same inputs and
-per-kernel limits, untimed). The unmodified sources go first and must pass.
+per-kernel limits, untimed), every kernel checked even after one fails, so
+a fault in code that two kernels share shows in both. The unmodified
+sources go first and must pass.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -49,6 +51,17 @@ MUTANTS = [
      "const bool ok = kv < kl &&", "const bool ok = kv <= kl &&", True),
     ("flash_attention: last key tile skipped", "flash_attention.cu",
      "for (int k0 = 0; k0 < kv_end; k0 += kBK)", "for (int k0 = 0; k0 < kv_end - kBK; k0 += kBK)", True),
+    ("paged_decode_q/_q4: ks fold dropped", "paged_decode_q.cu",
+     "s * scale * ks_s[t]", "s * scale", True),
+    ("paged_decode_q/_q4: vs fold dropped", "online_softmax.cuh",
+     "row[lane] = p.x * vs[lane];\n  row[lane + 32] = p.y * vs[lane + 32];",
+     "row[lane] = p.x;\n  row[lane + 32] = p.y;", True),
+    ("paged_decode_q/_q4: one key past the length", "paged_decode_q.cu",
+     "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
+    ("paged_decode_q4: nibble halves swapped", "paged_decode_q.cu",
+     "kLoShift = 0, kHiShift = 4", "kLoShift = 4, kHiShift = 0", True),
+    ("paged_decode_q4: bias of 7 instead of 8", "paged_decode_q.cu",
+     "kBias = 8", "kBias = 7", True),
     # p kept in f32 instead of rounded to bf16 before P.V: a relative change
     # of at most 2^-9 on each probability, averaged over hundreds of keys,
     # is below a bf16 ulp of the outputs, so no output check can see it
@@ -72,13 +85,14 @@ def make(index: int, mutant) -> dict:
 
 
 def verdict(torch, library: Path) -> dict:
+    """Every kernel's check on one library: passed only if all pass; each
+    kernel's verdict, error numbers and failure."""
     cuda.load(library)
-    try:
-        kernels = chip_smoke.check_kernels(torch, timed=False)
-    except SystemExit as failure:
-        return {"passed": False, "failure": str(failure)}
-    return {"passed": True, "agreement": {k["name"]: {m: k[m] for m in ("max_abs_err", "rms_rel_err")}
-                                          for k in kernels if "rms_rel_err" in k}}
+    kernels = chip_smoke.check_kernels(torch, timed=False, keep_going=True)
+    return {"passed": all(k["passed"] for k in kernels),
+            "kernels": {k["name"]: {m: k[m] for m in ("passed", "max_abs_err", "rms_rel_err",
+                                                     "failure") if m in k}
+                        for k in kernels}}
 
 
 def main() -> None:

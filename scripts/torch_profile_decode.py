@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port spends its time on one card.
 
-    python3 scripts/torch_profile_decode.py [--layers 32] [--steps 8]
+    python3 scripts/torch_profile_decode.py [--layers 32] [--steps 8] [--kv-quantize int8]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, full width) on the
-card, prefills 8 prompts of 100..2000 tokens into the paged pool, then runs
+card, prefills 8 prompts of 100..2000 tokens into the paged pool (bf16,
+or int8 / int4 with ``--kv-quantize``), then runs
 ``decode_chunk`` steps under ``torch.profiler``. Prints one JSON line: host
 wall time per step without the profiler (and with it), device busy time
 per step (the sum of CUDA kernel times; one stream, so kernels do not
@@ -25,6 +26,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from gofr_tpu_torch.gpu.device import device_info  # noqa: E402
+from gofr_tpu_torch.gpu.engine import KV_QUANTIZE, make_pool  # noqa: E402
 from gofr_tpu_torch.gpu.programs import decode_chunk  # noqa: E402
 from gofr_tpu_torch.models.llama import LlamaConfig, init  # noqa: E402
 
@@ -33,6 +35,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--kv-quantize", choices=KV_QUANTIZE, default="")
     args = ap.parse_args()
     info = device_info()
     cfg = LlamaConfig.llama3_8b(num_layers=args.layers)
@@ -41,7 +44,7 @@ def main() -> None:
     n, page, maxp = 8, 128, 17
     rng = torch.Generator().manual_seed(0)
     lengths = torch.randint(100, 2001, (n,), generator=rng)
-    cache = model.make_paged_cache(n * maxp, page)
+    cache = make_pool(model, args.kv_quantize, n * maxp, page)
     table = torch.arange(n * maxp, dtype=torch.int32).view(n, maxp).to(dev)
     for i in range(n):  # one prompt at a time keeps prefill activations small
         toks = torch.randint(0, cfg.vocab_size, (1, int(lengths[i])), generator=rng).to(dev)
@@ -78,6 +81,7 @@ def main() -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "device": info["nvidia_smi"], "layers": cfg.num_layers, "slots": n,
+        "kv_pool": args.kv_quantize or "bf16",
         "lengths": lengths.tolist(), "steps": args.steps,
         "wall_ms_per_step": wall_plain * 1e3 / args.steps,
         "wall_ms_per_step_profiled": wall * 1e3 / args.steps,

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 2e-5
+_KERNELS = ("paged_decode", "kv_append", "flash_attention", "paged_decode_q", "paged_decode_q4")
 
 
 def _t(a):
@@ -67,7 +68,7 @@ def test_build_commands_target_sm90a_one_nvcc_per_source():
 
     cmds = cuda.compile_commands()
     names = {p.name for p in cuda.sources()}
-    assert {"paged_decode.cu", "kv_append.cu", "flash_attention.cu"} <= names
+    assert {"paged_decode.cu", "kv_append.cu", "flash_attention.cu", "paged_decode_q.cu"} <= names
     assert len(cmds) == len(names) + 1  # one compile per source, then the link
     for cmd in cmds:
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -261,7 +262,7 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     k_pool, v_pool, table, lengths = (_t(a) for a in _pool_case(51))
     paged_decode_attention(_t(np.ones((4, 2, 16), np.float32)), k_pool, v_pool, table, lengths)
     append_tokens_paged(k_pool, v_pool, table, lengths, k_pool[:4, :, 0], v_pool[:4, :, 0])
-    assert cuda.launch_counts() == {"paged_decode": 0, "kv_append": 0, "flash_attention": 0}
+    assert cuda.launch_counts() == dict.fromkeys(_KERNELS, 0)
 
 
 @pytest.mark.quick
@@ -280,7 +281,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
     for call in calls:
         with pytest.raises(ValueError, match="on the card"):
             call()
-    assert cuda.launch_counts() == {"paged_decode": 0, "kv_append": 0, "flash_attention": 0}
+    assert cuda.launch_counts() == dict.fromkeys(_KERNELS, 0)
 
 
 def _within(got, want, module):

@@ -12,9 +12,10 @@ result line:
    ``gofr_tpu_torch/build/libgofr_kernels.so``; seconds and the compiler's
    register/spill lines;
 3. the kernels at the slice's own shapes (Llama-3-8B heads: Hq 32, Hkv 8,
-   D 128; page 128; 8 slots of live length 100..2000 on bf16, int8 and
-   int4 pools, the quantized ones written by the port's own writes from
-   random bf16 K/V; a 4 x 512 prefill): each held against its plain
+   D 128; page 128; 8 slots of live length 100..2000 and one empty slot
+   on bf16, int8 and int4 pools, the quantized ones written by the port's
+   own writes from random bf16 K/V; a 4 x 512 prefill): each held against
+   its plain
    PyTorch version on the same inputs, timed with CUDA events beside the
    plain version, a library yardstick where one PyTorch call computes the
    same function, and the least time the card could take (its bound);
@@ -25,10 +26,12 @@ result line:
    pool (``kv_quantize``); every launch counter is set to 0 just before
    each run and read just after it, and each kernel of that pool's path
    (``ON_PATH``) must be > 0 and every other kernel 0;
-5. the model on the card, on each pool format: one prompt through
+5. the model on the card, on each pool format: three prompts through
    ``prefill_paged`` and four ``decode_step_paged`` steps with the
-   kernels, and again with their plain versions; the logits must agree
-   within the bf16 tolerance below.
+   kernels, with their plain versions, and with the kernels in prefill
+   only and in decode only; the kernel run's logits must agree with the
+   plain run's within the limits below, and each step's error of every
+   run is reported.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name and power limit line and,
 last, ``{"ok": true, "device": {...}}``. Without a card, or run outside a
@@ -53,10 +56,16 @@ SEED = 0
 # Model on the card: 32 layers of bf16 rounding at different points move
 # the logits by a small fraction of their range. On a quantized pool such a
 # rounding can also flip a stored code, which moves that K/V element by a
-# whole step of max|x|/127 (int8) or max|x|/7 (int4); int4's steps are 18x
-# coarser, so its limit is twice the others' (phase 5 reports the error of
-# each of its prompts).
+# whole step of max|x|/127 (int8) or max|x|/7 (int4). Phase 5 splits the
+# step: with the plain prefill and the kernels in decode only, every pool
+# reads like bf16 (under 2% of the logit range on the H100) and is held to
+# DECODE_RTOL. The int4 pool's larger error (up to 6.3%) comes with the
+# flash prefill: the K/V it stores differ from the plain run's by 13% RMS,
+# against 1.9% on int8, as flipped 4-bit codes feed the next layer. So its
+# served-path limit is twice the others'; a masked causal diagonal in the
+# flash kernel reads 60% there (PERF.md, scripts/torch_kernel_mutants.py).
 LOGITS_RTOL = {"": 5e-2, "int8": 5e-2, "int4": 1e-1}
+DECODE_RTOL = 5e-2
 PHASE5_PROMPTS = 3
 
 
@@ -118,7 +127,8 @@ def agreement(name: str, got, want, module) -> dict:
 def _decode_case(torch) -> dict:
     """The decode kernels' inputs at the slice's shapes: 8 slots of live
     length 100..2000 on pages of 128 in a random order (OOB entries == P),
-    and ``layers`` layer slices of each pool, cycled while timing so each
+    a ninth slot that is empty (length 0, its table row all OOB), and
+    ``layers`` layer slices of each pool, cycled while timing so each
     launch finds its pages cold in L2, as a decode step through 32 layers
     does. The int8 and int4 pools are written by the port's own
     ``write_prompts_paged_q``/``_q4`` from random bf16 K/V, so their scales
@@ -133,8 +143,9 @@ def _decode_case(torch) -> dict:
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cpu_rng = torch.Generator().manual_seed(SEED)
-    hq, hkv, d, page, n, maxp, layers = 32, 8, 128, 128, 8, 16, 8
+    hq, hkv, d, page, n, maxp, layers = 32, 8, 128, 128, 9, 16, 8
     lengths_cpu = torch.randint(100, 2001, (n,), generator=cpu_rng, dtype=torch.int32)
+    lengths_cpu[-1] = 0
     pages_needed = [math.ceil(int(x) / page) for x in lengths_cpu]
     pool = sum(pages_needed)
     perm = torch.randperm(pool, generator=cpu_rng).to(torch.int32)
@@ -203,6 +214,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         got = paged_decode(q, k_pool[0], v_pool[0], table, lengths)
         want = paged_decode_attention_plain(q, k_pool[0], v_pool[0], table, lengths)
         agree = agreement("paged_decode", got, want, decode_mod)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), "paged_decode: empty slots not zero")
         b_ms, b_by = bound_ms(c["live"] * hkv * d * 2 * 2 + decode_io, 4 * c["live"] * hq * d)
         return {
             "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
@@ -391,47 +403,84 @@ def serve(torch, cuda, model=None, kv_quantize: str = "") -> tuple[object, dict,
     return eng, counts, metrics
 
 
-def model_check(torch, model, kv_quantize: str = "") -> dict:
-    """Kernels vs plain versions, end to end through the model, on a pool of
-    the format ``kv_quantize``: each of ``PHASE5_PROMPTS`` prompts of 256
-    tokens through ``prefill_paged`` and four ``decode_step_paged`` steps,
-    once with the kernels and once with their plain versions."""
+def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
+                decode_kernels: bool, fed=None):
+    """Logits [5, 1, V] of ``prompt`` (1 x 256) through ``prefill_paged`` and
+    four ``decode_step_paged`` steps on a fresh pool of the format
+    ``kv_quantize``, the kernels or their plain versions in each. Each step
+    is fed ``fed``'s tokens when given, else the run's own greedy tokens.
+    Returns (logits, the tokens fed, the K/V the pool holds at the end as
+    its read path returns them, f32 [L, 2, Hkv, written positions, D])."""
     from gofr_tpu_torch.gpu.engine import make_pool
 
+    lengths = torch.tensor([prompt.shape[1]], device="cuda")
+    table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    cache = make_pool(model, kv_quantize, 4, 128)
+    logits, _ = model.prefill_paged(prompt, lengths, cache, table, kernels=prefill_kernels)
+    seq, chosen = [logits], []
+    for step in range(4):
+        tokens = logits.argmax(-1).to(torch.int32) if fed is None else fed[step]
+        chosen.append(tokens)
+        pos = torch.tensor([prompt.shape[1] + step], device="cuda")
+        logits, _ = model.decode_step_paged(tokens, pos, cache, table, kernels=decode_kernels)
+        seq.append(logits)
+    written = prompt.shape[1] + 4
+    stored = torch.stack([torch.stack(cache.read(layer, table, torch.float32))[:, 0, :, :written]
+                          for layer in range(cache.num_layers)]).float()
+    return torch.stack(seq), chosen, stored
+
+
+# Phase 5's runs besides the plain one: (prefill kernels, decode kernels).
+# "kernels" is the served path and is held to LOGITS_RTOL; the two splits
+# show which half of the step an error comes from.
+PHASE5_RUNS = {"kernels": (True, True), "plain_prefill": (False, True),
+               "plain_decode": (True, False)}
+
+
+def model_check(torch, model, kv_quantize: str = "", enforce: bool = True) -> dict:
+    """Kernels vs plain versions, end to end through the model, on a pool of
+    the format ``kv_quantize``: each of ``PHASE5_PROMPTS`` prompts of 256
+    tokens through ``prefill_paged`` and four ``decode_step_paged`` steps
+    with the plain versions, with the kernels, and with the kernels in one
+    half of the step only, every run fed the kernel run's greedy tokens.
+    Reports, for each run and step, max |logits - plain logits| over max
+    |plain logit|, and how the K/V stored by the kernel run differ from the
+    plain run's (the share of elements that differ, and the RMS of the
+    difference over the RMS of the stored values). With ``enforce``, the
+    kernel run's largest error must stay under the pool's limit, and the
+    decode-only run's under ``DECODE_RTOL``."""
     pool = kv_quantize or "bf16"
     rng = torch.Generator().manual_seed(SEED + 1)
-    lengths = torch.tensor([256], device="cuda")
-    table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
-    rel_errs, agree = [], []
+    steps = {name: [] for name in PHASE5_RUNS}
+    agree, differ, stored_rel = [], [], []
     for _ in range(PHASE5_PROMPTS):
         prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
-        runs = {}
-        steps = None
-        for kernels in (True, False):
-            cache = make_pool(model, kv_quantize, 4, 128)
-            logits, _ = model.prefill_paged(prompt, lengths, cache, table, kernels=kernels)
-            seq = [logits]
-            tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[0]
-            chosen = [tokens]
-            for step in range(4):
-                pos = torch.tensor([256 + step], device="cuda")
-                logits, _ = model.decode_step_paged(tokens, pos, cache, table, kernels=kernels)
-                seq.append(logits)
-                # both runs feed the same inputs: the kernel run's greedy tokens
-                tokens = logits.argmax(-1).to(torch.int32) if steps is None else steps[step + 1]
-                chosen.append(tokens)
-            steps = steps or chosen
-            runs[kernels] = torch.stack(seq)
-            del cache
-        k_run, p_run = runs[True], runs[False]
+        k_run, fed, k_kv = model_steps(torch, model, kv_quantize, prompt, True, True)
+        p_run, _, p_kv = model_steps(torch, model, kv_quantize, prompt, False, False, fed)
         require(torch.isfinite(k_run).all().item(), f"non-finite logits with the kernels ({pool})")
-        rel_errs.append((k_run - p_run).abs().max().item() / p_run.abs().max().item())
+        top = p_run.abs().max().item()
+        for name, (pk, dk) in PHASE5_RUNS.items():
+            run = k_run if name == "kernels" else model_steps(
+                torch, model, kv_quantize, prompt, pk, dk, fed)[0]
+            steps[name].append(((run - p_run).abs().amax(dim=(1, 2)) / top).tolist())
         agree.append((k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item())
-    require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
-            f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
-            f"(limit {LOGITS_RTOL[kv_quantize]})")
-    return {"kv_pool": pool, "prompts": PHASE5_PROMPTS, "steps": 5, "rel_err": rel_errs,
-            "tol_rel": LOGITS_RTOL[kv_quantize], "argmax_agree": agree}
+        differ.append((k_kv != p_kv).float().mean().item())
+        stored_rel.append(((k_kv - p_kv).pow(2).mean() / p_kv.pow(2).mean()).sqrt().item())
+        del k_kv, p_kv
+    rel_errs = [max(s) for s in steps["kernels"]]
+    decode_errs = [max(s[1:]) for s in steps["plain_prefill"]]
+    out = {"kv_pool": pool, "prompts": PHASE5_PROMPTS, "steps": 5, "rel_err": rel_errs,
+           "tol_rel": LOGITS_RTOL[kv_quantize], "decode_only_rel_err": decode_errs,
+           "decode_only_tol_rel": DECODE_RTOL, "argmax_agree": agree, "rel_err_by_step": steps,
+           "stored_differ": differ, "stored_rms_rel": stored_rel}
+    if enforce:
+        require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
+                f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
+                f"(limit {LOGITS_RTOL[kv_quantize]})")
+        require(max(decode_errs) < DECODE_RTOL,
+                f"kernel vs plain logits, kernels in decode only ({pool}): {decode_errs} "
+                f"(limit {DECODE_RTOL})")
+    return out
 
 
 def main() -> None:

@@ -17,8 +17,10 @@ Entry points, each a method of ``Llama``:
                          block table (llama.py:710)
 - ``make_paged_cache``   an empty pool for this model (llama.py:587), and
   ``make_paged_cache_q`` / ``make_paged_cache_q4`` its int8 and packed
-  int4 forms (llama.py:595,605); ``prefill_paged`` and
-  ``decode_step_paged`` branch on the pool's type as the JAX functions do
+  int4 forms (llama.py:595,605). Where the JAX functions branch on the
+  pool's type (llama.py:644-685, :735-739), ``prefill_paged`` and
+  ``decode_step_paged`` call the pool's own operations (``ops.paged``)
+  and its format's decode attention (``ops.attention.DECODE_ATTENTION``)
 
 Attention and the KV append go through ``ops`` and so through the CUDA
 kernels on the card. ``kernels=False`` runs the same step on their plain
@@ -39,35 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from gofr_tpu_torch.gpu.device import resolve_device
-from gofr_tpu_torch.ops.attention import (
-    mha_attention,
-    mha_attention_plain,
-    paged_decode_attention,
-    paged_decode_attention_plain,
-    paged_decode_attention_q,
-    paged_decode_attention_q4,
-    paged_decode_attention_q4_plain,
-    paged_decode_attention_q_plain,
-)
-from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row
+from gofr_tpu_torch.ops.attention import DECODE_ATTENTION, mha_attention, mha_attention_plain
 from gofr_tpu_torch.ops.norms import rms_norm
-from gofr_tpu_torch.ops.paged import (
-    AnyPagedKVCache,
-    PagedKVCache,
-    Q4PagedKVCache,
-    QPagedKVCache,
-    append_tokens_paged,
-    append_tokens_paged_plain,
-    append_tokens_paged_q,
-    append_tokens_paged_q4,
-    gather_kv,
-    gather_kv_q,
-    gather_kv_q4,
-    write_prompts_paged,
-    write_prompts_paged_q,
-    write_prompts_paged_q4,
-)
-from gofr_tpu_torch.ops.quant import fake_quant_row_int4
+from gofr_tpu_torch.ops.paged import AnyPagedKVCache, PagedKVCache, Q4PagedKVCache, QPagedKVCache
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
 
 
@@ -112,27 +88,6 @@ class LlamaConfig:
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128,
             rope_theta=10000.0, dtype=torch.float32,
         ), **kw})
-
-
-def _ops(kernels: bool, cache: AnyPagedKVCache):
-    """(prefill attention, paged decode attention, KV append) for the type of
-    ``cache``: the kernel entry points, or their plain versions. The
-    quantized appends write one plane at a time and have no kernel."""
-    attn = mha_attention if kernels else mha_attention_plain
-    if isinstance(cache, Q4PagedKVCache):
-        return (attn, paged_decode_attention_q4 if kernels else paged_decode_attention_q4_plain,
-                append_tokens_paged_q4)
-    if isinstance(cache, QPagedKVCache):
-        return (attn, paged_decode_attention_q if kernels else paged_decode_attention_q_plain,
-                append_tokens_paged_q)
-    if kernels:
-        return attn, paged_decode_attention, append_tokens_paged
-    return attn, paged_decode_attention_plain, append_tokens_paged_plain
-
-
-# (write, gather, fake quantization) of each quantized pool type
-_QUANTIZED = {QPagedKVCache: (write_prompts_paged_q, gather_kv_q, fake_quant_row),
-              Q4PagedKVCache: (write_prompts_paged_q4, gather_kv_q4, fake_quant_row_int4)}
 
 
 class Block(nn.Module):
@@ -228,8 +183,7 @@ class Llama(nn.Module):
         to their fake-quantized k/v (what the pool stores) and chunked rows
         to the dequantized gather (llama.py:644-685). Returns (last-token
         logits [B, V] f32, cache), the cache written in place."""
-        attn = _ops(kernels, cache)[0]
-        quant = _QUANTIZED.get(type(cache))
+        attn = mha_attention if kernels else mha_attention_plain
         b, s = tokens.shape
         off = (torch.zeros(b, dtype=torch.long, device=tokens.device) if offsets is None
                else offsets.long())
@@ -238,23 +192,11 @@ class Llama(nn.Module):
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x)
             q, k = self._rope(q, positions), self._rope(k, positions)
-            k_layer, v_layer = cache.k[layer], cache.v[layer]
-            if quant is None:
-                write_prompts_paged(k_layer, v_layer, pages, k, v, offsets)
-            else:
-                write, gather, fake_quant = quant
-                write(k_layer, cache.ks[layer], pages, k, offsets)
-                write(v_layer, cache.vs[layer], pages, v, offsets)
+            cache.write(layer, pages, k, v, offsets)
             if offsets is None:
-                if quant is not None:
-                    k, v = fake_quant(k), fake_quant(v)
-                a = attn(q, k, v, causal=True, kv_lengths=lengths)
+                a = attn(q, cache.stored(k), cache.stored(v), causal=True, kv_lengths=lengths)
             else:
-                if quant is None:
-                    k_view, v_view = gather_kv(k_layer, v_layer, pages)
-                else:
-                    k_view = dequantize_view(*gather(k_layer, cache.ks[layer], pages), self.cfg.dtype)
-                    v_view = dequantize_view(*gather(v_layer, cache.vs[layer], pages), self.cfg.dtype)
+                k_view, v_view = cache.read(layer, pages, self.cfg.dtype)
                 a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
                          causal=True, q_offset=off, kv_lengths=off + lengths)
             x = x + lp.wo(a.reshape(b, s, -1))
@@ -270,8 +212,7 @@ class Llama(nn.Module):
         through ``table`` [N, MaxP]. Returns (logits [N, V] f32, cache), the
         cache written in place. Lanes with an all-OOB table row write
         nothing and produce logits the caller ignores."""
-        attn, append = _ops(kernels, cache)[1:]
-        quant = type(cache) in _QUANTIZED
+        attn = DECODE_ATTENTION[type(cache)][0 if kernels else 1]
         n = tokens.shape[0]
         pos1 = positions.long()[:, None]
         lengths = positions + 1
@@ -279,15 +220,8 @@ class Llama(nn.Module):
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x[:, None])
             q, k, v = self._rope(q, pos1)[:, 0], self._rope(k, pos1)[:, 0], v[:, 0]
-            k_layer, v_layer = cache.k[layer], cache.v[layer]
-            if quant:
-                ks_layer, vs_layer = cache.ks[layer], cache.vs[layer]
-                append(k_layer, ks_layer, table, positions, k)
-                append(v_layer, vs_layer, table, positions, v)
-                a = attn(q, k_layer, v_layer, ks_layer, vs_layer, table, lengths)
-            else:
-                append(k_layer, v_layer, table, positions, k, v)
-                a = attn(q, k_layer, v_layer, table, lengths)
+            cache.append(layer, table, positions, k, v, kernels=kernels)
+            a = attn(q, *cache.planes(layer), table, lengths)
             x = x + lp.wo(a.reshape(n, -1))
             x = x + self._mlp(lp, x)
         return self._logits(x), cache

@@ -28,7 +28,14 @@ from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
 from gofr_tpu_torch.ops.cuda.paged_decode_q import paged_decode_q
 from gofr_tpu_torch.ops.cuda.paged_decode_q4 import paged_decode_q4
-from gofr_tpu_torch.ops.paged import gather_kv, gather_kv_q, gather_kv_q4
+from gofr_tpu_torch.ops.paged import (
+    PagedKVCache,
+    Q4PagedKVCache,
+    QPagedKVCache,
+    gather_kv,
+    gather_kv_q,
+    gather_kv_q4,
+)
 
 NEG_INF = -1e30
 
@@ -182,3 +189,12 @@ def paged_decode_attention_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: t
     [P, Hkv, page, D//2]); otherwise as ``paged_decode_attention_q``."""
     attend = paged_decode_q4 if q.is_cuda else paged_decode_attention_q4_plain
     return attend(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale=scale)
+
+
+# Each pool format's decode attention, (entry point, plain version), called
+# as fn(q, *cache.planes(layer), table, lengths).
+DECODE_ATTENTION = {
+    PagedKVCache: (paged_decode_attention, paged_decode_attention_plain),
+    QPagedKVCache: (paged_decode_attention_q, paged_decode_attention_q_plain),
+    Q4PagedKVCache: (paged_decode_attention_q4, paged_decode_attention_q4_plain),
+}

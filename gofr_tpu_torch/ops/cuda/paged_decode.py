@@ -20,11 +20,12 @@ HEAD_DIM = 128
 # Agreement with the plain version on the same bf16 inputs. The plain
 # version rounds the scores to bf16 where the kernel keeps them in f32, and
 # each rounds its output to bf16, so they differ by a few bf16 ulps: at the
-# slice's shapes (live lengths 699..1591) at most 1.2e-3 on outputs of RMS
-# 0.05, and an RMS difference of 0.48% of the output's RMS. Limits: 5e-3 on
-# any element and 1.2% on the RMS. A planted fault (one key past or short
-# of the length, a live page skipped, a key left out of P.V) moved the
-# outputs by 0.020..0.23 and 3.0%..41% (scripts/torch_kernel_mutants.py).
+# slice's shapes (live lengths 699..1591 and an empty slot) at most 2.0e-3
+# on outputs of RMS 0.05, and an RMS difference of 0.48% of the output's
+# RMS. Limits: 5e-3 on any element and 1.2% on the RMS. A planted fault (a
+# key short of the length, a live page skipped, a key left out of P.V, one
+# key past the length, which the empty slot turns into a whole row) moved
+# the outputs by 0.035..3.2 and 3.0%..7.1x (scripts/torch_kernel_mutants.py).
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 MAX_GROUP = 8

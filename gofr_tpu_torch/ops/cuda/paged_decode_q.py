@@ -24,12 +24,12 @@ MAX_GROUP = 8
 # written by ops.paged.write_prompts_paged_q from random bf16 K/V). The
 # plain version rounds the scores and p * vs to bf16 where the kernel keeps
 # both in f32, as the TPU kernel does. At the slice's shapes (live lengths
-# 699..1591) they differ by at most 1.5e-3 on outputs of RMS 0.05, and an
-# RMS difference of 0.46% of the output's RMS. Limits, kernel A's: 5e-3 on
-# any element and 1.2% on the RMS. The nearest planted fault, one key past
-# the length, moved the outputs by 0.034 and 3.7%; the others (the K or V
-# scale left out) by 3.8..14 and 19..45x the output's RMS
-# (scripts/torch_kernel_mutants.py).
+# 699..1591 and an empty slot) they differ by at most 2.0e-3 on outputs of
+# RMS 0.05, and an RMS difference of 0.45% of the output's RMS. Limits,
+# kernel A's: 5e-3 on any element and 1.2% on the RMS. A planted fault (one
+# key past the length, which the empty slot turns into a whole row; the K
+# or V scale left out) moved the outputs by 4.0..12 and 7.2..45x the
+# output's RMS (scripts/torch_kernel_mutants.py).
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]

@@ -29,16 +29,14 @@ def quantize_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def fake_quant_row(x: torch.Tensor, dtype: torch.dtype | None = None,
-                   scale_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def fake_quant_row(x: torch.Tensor) -> torch.Tensor:
     """Round-trip ``x`` through int8 row quantization exactly as the pool
     stores it and the read path dequantizes it: the scale passes through
     the pool's bf16, and the cast/multiply order is ``dequantize_view``'s.
     Whole-prompt prefill attends to this, so a prompt attends to what a
     later read of its pages returns."""
     q, s = quantize_row(x)
-    out = dtype or x.dtype
-    return q.to(out) * s.to(scale_dtype)[..., None].to(out)
+    return q.to(x.dtype) * s.to(torch.bfloat16)[..., None].to(x.dtype)
 
 
 def dequantize_view(cache_q: torch.Tensor, cache_s: torch.Tensor,

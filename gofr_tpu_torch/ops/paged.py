@@ -16,7 +16,10 @@ model's dtype; ``QPagedKVCache`` holds them as int8 rows and
 scale per (page, head, position) in ``ks``/``vs``. The quantized writes,
 appends and gathers work on one plane (values plus scales) at a time, as
 the JAX functions do. The quantized append has no kernel: the TPU ran it
-as XLA, and here it is plain PyTorch on the card too.
+as XLA, and here it is plain PyTorch on the card too. Each pool class
+carries its format's per-layer operations (``write``, ``append``,
+``stored``, ``read``, ``planes``), so the model never branches on the
+format.
 
 Unlike the JAX package, whose arrays are immutable, the port writes the
 pool IN PLACE: a layer slice ``cache.k[l]`` is a view, and the write paths
@@ -32,8 +35,8 @@ from typing import ClassVar
 import torch
 
 from gofr_tpu_torch.ops.cuda.kv_append import kv_append
-from gofr_tpu_torch.ops.kvcache import quantize_row
-from gofr_tpu_torch.ops.quant import pack_int4, quantize_row_int4, unpack_int4
+from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row, quantize_row
+from gofr_tpu_torch.ops.quant import fake_quant_row_int4, pack_int4, quantize_row_int4, unpack_int4
 
 
 class _PoolShape:
@@ -52,6 +55,12 @@ class _PoolShape:
 
 @dataclass
 class PagedKVCache(_PoolShape):
+    """K/V in the model's dtype. Each pool format offers the model the same
+    per-layer operations: ``write`` (prompts or chunks), ``append`` (one
+    decode row per slot), ``stored`` (what a read of a written row returns),
+    ``read`` (dense logical views through a table) and ``planes`` (the
+    tensors its decode attention takes)."""
+
     k: torch.Tensor  # [L, P, Hkv, page, D]
     v: torch.Tensor  # [L, P, Hkv, page, D]
 
@@ -63,10 +72,32 @@ class PagedKVCache(_PoolShape):
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
+    def write(self, layer: int, pages: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+              offsets: torch.Tensor | None = None) -> None:
+        write_prompts_paged(self.k[layer], self.v[layer], pages, k_new, v_new, offsets)
+
+    def append(self, layer: int, table: torch.Tensor, positions: torch.Tensor,
+               k_new: torch.Tensor, v_new: torch.Tensor, *, kernels: bool = True) -> None:
+        append = append_tokens_paged if kernels else append_tokens_paged_plain
+        append(self.k[layer], self.v[layer], table, positions, k_new, v_new)
+
+    @staticmethod
+    def stored(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def read(self, layer: int, pages: torch.Tensor,
+             dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        return gather_kv(self.k[layer], self.v[layer], pages)
+
+    def planes(self, layer: int) -> tuple[torch.Tensor, ...]:
+        return self.k[layer], self.v[layer]
+
 
 @dataclass
 class _ScaledPagedKVCache(_PoolShape):
-    """Quantized K/V rows with one bf16 scale per (page, head, position)."""
+    """Quantized K/V rows with one bf16 scale per (page, head, position).
+    A subclass names its row format's one-plane functions; the quantized
+    append has no kernel, so ``append`` is plain PyTorch either way."""
 
     k: torch.Tensor   # [L, P, Hkv, page, row width]
     v: torch.Tensor
@@ -74,6 +105,10 @@ class _ScaledPagedKVCache(_PoolShape):
     vs: torch.Tensor  # bf16 [L, P, Hkv, page]
 
     values_dtype: ClassVar[torch.dtype]
+    write_plane: ClassVar
+    append_plane: ClassVar
+    gather_plane: ClassVar
+    stored: ClassVar
 
     @staticmethod
     def row_width(head_dim: int) -> int:
@@ -89,42 +124,40 @@ class _ScaledPagedKVCache(_PoolShape):
                    ks=torch.zeros(sshape, dtype=torch.bfloat16, device=device),
                    vs=torch.zeros(sshape, dtype=torch.bfloat16, device=device))
 
+    def _plane_pairs(self, layer: int):
+        return (self.k[layer], self.ks[layer]), (self.v[layer], self.vs[layer])
 
-class QPagedKVCache(_ScaledPagedKVCache):
-    """int8 pool (paged.py:200): k, v int8 [L, P, Hkv, page, D]."""
+    def write(self, layer: int, pages: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+              offsets: torch.Tensor | None = None) -> None:
+        for (values, scales), new in zip(self._plane_pairs(layer), (k_new, v_new)):
+            self.write_plane(values, scales, pages, new, offsets)
 
-    values_dtype = torch.int8
+    def append(self, layer: int, table: torch.Tensor, positions: torch.Tensor,
+               k_new: torch.Tensor, v_new: torch.Tensor, *, kernels: bool = True) -> None:
+        for (values, scales), new in zip(self._plane_pairs(layer), (k_new, v_new)):
+            self.append_plane(values, scales, table, positions, new)
 
+    def read(self, layer: int, pages: torch.Tensor,
+             dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        k, v = (dequantize_view(*self.gather_plane(values, scales, pages), dtype)
+                for values, scales in self._plane_pairs(layer))
+        return k, v
 
-class Q4PagedKVCache(_ScaledPagedKVCache):
-    """Packed-int4 pool (paged.py:238): k, v uint8 [L, P, Hkv, page, D//2],
-    byte j of a row holding elements j and j + D/2 (``ops.quant.pack_int4``).
-    A zero byte decodes to -8, so unwritten rows are kept out of attention
-    by the slot's length, never by their zero scale."""
-
-    values_dtype = torch.uint8
-
-    @staticmethod
-    def row_width(head_dim: int) -> int:
-        if head_dim % 2:
-            raise ValueError(f"int4 packing needs an even head_dim, got {head_dim}")
-        return head_dim // 2
-
-
-AnyPagedKVCache = PagedKVCache | QPagedKVCache | Q4PagedKVCache
+    def planes(self, layer: int) -> tuple[torch.Tensor, ...]:
+        return self.k[layer], self.v[layer], self.ks[layer], self.vs[layer]
 
 
 def kv_plane_bytes_per_position(layers: int, kv_heads: int, head_dim: int,
-                                kv_dtype: str = "bf16", dense_bytes: int = 2) -> int:
+                                kv_dtype: str = "bf16") -> int:
     """Bytes one position takes across every plane of a pool (paged.py:290):
-    dense K+V at ``dense_bytes`` per element; int8 K+V plus the two bf16
-    scales; packed int4 K+V (half a byte per element) plus the scales."""
+    bf16 K+V; int8 K+V plus the two bf16 scales; packed int4 K+V (half a
+    byte per element) plus the scales."""
     if kv_dtype == "int4":
         per = 2 * (head_dim // 2) + 4
     elif kv_dtype == "int8":
         per = 2 * head_dim + 4
     else:
-        per = 2 * head_dim * dense_bytes
+        per = 2 * head_dim * 2
     return layers * kv_heads * per
 
 
@@ -286,3 +319,35 @@ def gather_kv_q4(cache_q: torch.Tensor, cache_s: torch.Tensor,
     """Logical ([N, Hkv, MaxP * page, D] int8 in [-8, 7], scale) views of
     each slot's packed plane, unpacked after the gather (paged.py:477)."""
     return unpack_int4(_gather_plane(cache_q, table)), _gather_plane(cache_s, table)
+
+
+class QPagedKVCache(_ScaledPagedKVCache):
+    """int8 pool (paged.py:200): k, v int8 [L, P, Hkv, page, D]."""
+
+    values_dtype = torch.int8
+    write_plane = staticmethod(write_prompts_paged_q)
+    append_plane = staticmethod(append_tokens_paged_q)
+    gather_plane = staticmethod(gather_kv_q)
+    stored = staticmethod(fake_quant_row)
+
+
+class Q4PagedKVCache(_ScaledPagedKVCache):
+    """Packed-int4 pool (paged.py:238): k, v uint8 [L, P, Hkv, page, D//2],
+    byte j of a row holding elements j and j + D/2 (``ops.quant.pack_int4``).
+    A zero byte decodes to -8, so unwritten rows are kept out of attention
+    by the slot's length, never by their zero scale."""
+
+    values_dtype = torch.uint8
+    write_plane = staticmethod(write_prompts_paged_q4)
+    append_plane = staticmethod(append_tokens_paged_q4)
+    gather_plane = staticmethod(gather_kv_q4)
+    stored = staticmethod(fake_quant_row_int4)
+
+    @staticmethod
+    def row_width(head_dim: int) -> int:
+        if head_dim % 2:
+            raise ValueError(f"int4 packing needs an even head_dim, got {head_dim}")
+        return head_dim // 2
+
+
+AnyPagedKVCache = PagedKVCache | QPagedKVCache | Q4PagedKVCache

@@ -44,11 +44,9 @@ def unpack_int4(b: torch.Tensor) -> torch.Tensor:
     return torch.cat([(bi & 0xF) - 8, ((bi >> 4) & 0xF) - 8], dim=-1).to(torch.int8)
 
 
-def fake_quant_row_int4(x: torch.Tensor, dtype: torch.dtype | None = None,
-                        scale_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def fake_quant_row_int4(x: torch.Tensor) -> torch.Tensor:
     """Round-trip ``x`` through int4 row quantization exactly as the packed
-    pool stores it and the read path dequantizes it (the int4 analog of
-    ``ops.kvcache.fake_quant_row``)."""
+    pool stores it and the read path dequantizes it, its scale through the
+    pool's bf16 (the int4 analog of ``ops.kvcache.fake_quant_row``)."""
     q, s = quantize_row_int4(x)
-    out = dtype or x.dtype
-    return q.to(out) * s.to(scale_dtype)[..., None].to(out)
+    return q.to(x.dtype) * s.to(torch.bfloat16)[..., None].to(x.dtype)

@@ -10,7 +10,10 @@ sources in the checkout are never changed. Every mutant library is loaded
 in turn and put through ``chip_smoke.check_kernels`` (the same inputs and
 per-kernel limits, untimed), every kernel checked even after one fails, so
 a fault in code that two kernels share shows in both. The unmodified
-sources go first and must pass.
+sources go first and must pass. Then the builds named in ``PHASE5`` are
+read through ``chip_smoke.model_check`` (a full-width Llama-3-8B with
+random weights from the seed, end to end, kernels against plain) on the
+pools named there; these readings are reported, not judged.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -31,6 +34,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
+from gofr_tpu_torch.models.llama import LlamaConfig, init  # noqa: E402
 from gofr_tpu_torch.ops import cuda  # noqa: E402
 
 # (name, file, text to replace, replacement, must_catch)
@@ -69,6 +73,15 @@ MUTANTS = [
      "row[lane] = round_bf16(pa);\n  row[lane + 32] = round_bf16(pb);",
      "row[lane] = pa;\n  row[lane + 32] = pb;", False),
 ]
+
+# Builds also read through chip_smoke's phase 5 (the model end to end), on
+# the pools named: the unmodified build, the nearest fault of each decode
+# kernel and a fault of the prefill kernel, to see which faults phase 5
+# resolves beside a clean reading.
+PHASE5 = {"unmodified": ("", "int8", "int4"),
+          "paged_decode: one key past the length": ("",),
+          "paged_decode_q/_q4: one key past the length": ("int8", "int4"),
+          "flash_attention: causal diagonal masked": ("int4",)}
 
 
 def make(index: int, mutant) -> dict:
@@ -113,6 +126,15 @@ def main() -> None:
         results.append(row)
         if (fname is None and not row["passed"]) or (must_catch and row["passed"]):
             bad.append(name)
+    torch.cuda.empty_cache()
+    model = init(LlamaConfig.llama3_8b(), torch.Generator(device="cuda").manual_seed(chip_smoke.SEED),
+                 "cuda")
+    for row, library in zip(results, libraries):
+        if row["mutant"] in PHASE5:
+            cuda.load(library)
+            row["phase5"] = {kvq or "bf16": chip_smoke.model_check(torch, model, kvq, enforce=False)
+                             for kvq in PHASE5[row["mutant"]]}
+            print(json.dumps({"mutant": row["mutant"], "phase5": row["phase5"]}), flush=True)
     summary = {"caught": sum(not r["passed"] for r in results[1:]), "mutants": len(MUTANTS),
                "unexpected": bad, "nvidia_smi": chip_smoke.smi_line()}
     print(json.dumps(summary))

@@ -12,30 +12,33 @@ result line:
    ``gofr_tpu_torch/build/libgofr_kernels.so``; seconds and the compiler's
    register/spill lines;
 3. the kernels at the slice's own shapes (Llama-3-8B heads: Hq 32, Hkv 8,
-   D 128; page 128; 8 slots of live length 100..2000 and one empty slot
-   on bf16, int8 and int4 pools, the quantized ones written by the port's
-   own writes from random bf16 K/V; a 4 x 512 prefill): each held against
-   its plain
-   PyTorch version on the same inputs, timed with CUDA events beside the
-   plain version, a library yardstick where one PyTorch call computes the
-   same function, and the least time the card could take (its bound);
-4. the main path, once per pool format: a full-width, full-depth
+   D 128; 8 slots of live length 100..2000 and one empty slot, on bf16,
+   int8 and int4 pools of page 128, the quantized ones written by the
+   port's own writes from random bf16 K/V, and on a bf16 slot cache of
+   2176 positions per slot, with a lane past the slot; a 4 x 512
+   prefill): each held against its plain PyTorch version on the same
+   inputs, timed with CUDA events beside the plain version, a library
+   yardstick where one PyTorch call computes the same function, and the
+   least time the card could take (its bound);
+4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
-   each) on a bf16 pool, then the same model on an int8 and on an int4
-   pool (``kv_quantize``); every launch counter is set to 0 just before
-   each run and read just after it, and each kernel of that pool's path
+   each) on a bf16 pool, then the same model on an int8 and an int4 pool
+   (``kv_quantize``) and on a bf16 and an int8 slot cache
+   (``kv_layout="slot"``); every launch counter is set to 0 just before
+   each run and read just after it, and each kernel of that cache's path
    (``ON_PATH``) must be > 0 and every other kernel 0;
-5. the model on the card, on each pool format: three prompts through
-   ``prefill_paged`` and four ``decode_step_paged`` steps with the
-   kernels, with their plain versions, and with the kernels in prefill
-   only and in decode only; the kernel run's logits must agree with the
-   plain run's within the limits below, and each step's error of every
-   run is reported.
+5. the model on the card, on each cache: three prompts through
+   ``prefill`` and four ``decode_step`` steps with the kernels, with
+   their plain versions, and with the kernels in prefill only and in
+   decode only; the kernel run's logits must agree with the plain run's
+   within the limits below, and each step's error of every run is
+   reported.
 
-Then the ``kernels`` line, the ``nvidia-smi`` name and power limit line and,
-last, ``{"ok": true, "device": {...}}``. Without a card, or run outside a
-checkout of the repository, it exits non-zero and prints no result.
+Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
+the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
+"device": {...}}``. Without a card, or run outside a checkout of the
+repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -172,6 +175,19 @@ def _decode_case(torch) -> dict:
             "live": int(lengths_cpu.sum()), "gen": gen}
 
 
+def _slot_case(torch, c: dict) -> dict:
+    """The slot kernels' inputs at the slice's shapes: ``_decode_case``'s
+    q and lengths (8 live slots and an empty one) over slot-cache layer
+    slices [9, Hkv, Smax, D] of Smax 2176, the cache length the engine
+    gives ``max_len`` 2048 and ``decode_chunk`` 8 (not a multiple of the
+    kernel's 64-row tile), ``layers`` slices cycled while timing. Every row
+    is random, so a lane read past its length reads data."""
+    smax, shape = 2176, (c["layers"], c["n"], c["hkv"], 2176, c["d"])
+    k = torch.randn(shape, device="cuda", generator=c["gen"]).to(torch.bfloat16)
+    v = torch.randn(shape, device="cuda", generator=c["gen"]).to(torch.bfloat16)
+    return {"smax": smax, "k": k, "v": v}
+
+
 def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[dict]:
     """Each kernel against its plain version at the slice's shapes, and (if
     ``timed``) its time beside the plain version's, the library yardstick's
@@ -181,18 +197,21 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     import torch.nn.functional as F
 
     from gofr_tpu_torch.ops.attention import (
+        decode_attention_plain,
         mha_attention_plain,
         paged_decode_attention_plain,
         paged_decode_attention_q4_plain,
         paged_decode_attention_q_plain,
     )
+    from gofr_tpu_torch.ops.cuda import decode_attention as slot_decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import paged_decode as decode_mod
     from gofr_tpu_torch.ops.cuda import paged_decode_q as decode_q_mod
     from gofr_tpu_torch.ops.cuda import paged_decode_q4 as decode_q4_mod
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
-    from gofr_tpu_torch.ops.cuda.kv_append import kv_append
+    from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_slot
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+    from gofr_tpu_torch.ops.kvcache import append_tokens_plain
     from gofr_tpu_torch.ops.paged import append_tokens_paged_plain
 
     def timing(ms, plain_ms, library_ms=None) -> dict:
@@ -320,10 +339,80 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "bound_ms": b_ms, "bound_by": b_by, "shape": {**decode_shape, "kv_bits": bits},
         }
 
+    sc = _slot_case(torch, c)
+    smax, sk, sv = sc["smax"], sc["k"], sc["v"]
+    slot_shape = {**{k: v for k, v in decode_shape.items() if k != "page"}, "smax": smax}
+
+    def check_slot_decode() -> dict:  # F: the slot cache's decode attention
+        slot_decode = slot_decode_mod.decode_attention
+        got = slot_decode(q, sk[0], sv[0], lengths)
+        agree = agreement("decode_attention", got, decode_attention_plain(q, sk[0], sv[0], lengths),
+                          slot_decode_mod)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), "decode_attention: empty slots not zero")
+        # lane 0 past the slot, as an idle engine lane asks for cache_len + 1 + k:
+        # the kernel clamps it to the slot, the plain version attends the whole slot
+        over = lengths.clone()
+        over[0] = smax + 5
+        got_o = slot_decode(q, sk[0], sv[0], over)
+        want_o = decode_attention_plain(q, sk[0], sv[0], over)
+        agree_o = agreement("decode_attention (length past the slot)", got_o[:1], want_o[:1],
+                            slot_decode_mod)
+        b_ms, b_by = bound_ms(c["live"] * hkv * d * 2 * 2 + 2 * q.numel() * 2 + n * 4,
+                              4 * c["live"] * hq * d)
+        # yardstick only (never called by the port): SDPA with a length mask
+        # built outside the timed call; it returns NaN for the empty slot
+        mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        q1 = q[:, :, None]
+        return {
+            "name": "decode_attention", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/pallas/decode_attention.py:85",
+            "max_abs_err": max(agree["max_abs_err"], agree_o["max_abs_err"]),
+            "rms_rel_err": max(agree["rms_rel_err"], agree_o["rms_rel_err"]),
+            "checks": {"ragged": agree, "past_the_slot": agree_o},
+            "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
+            **timing(lambda: time_ms(torch, lambda i: slot_decode(
+                         q, sk[i % layers], sv[i % layers], lengths), 50),
+                     lambda: time_ms(torch, lambda i: decode_attention_plain(
+                         q, sk[i % layers], sv[i % layers], lengths), 10),
+                     lambda: time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                         q1, sk[i % layers], sv[i % layers], attn_mask=mask, enable_gqa=True), 50)),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": slot_shape,
+        }
+
+    def check_kv_append_slot() -> dict:  # G: bit-exact; lanes past the slot drop
+        k_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
+        v_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
+        pos = lengths.clone()
+        pos[0], pos[n - 1] = smax, -1
+        ka, va = sk[0].clone(), sv[0].clone()
+        kp, vp = sk[0].clone(), sv[0].clone()
+        kv_append_slot(ka, va, pos, k_new, v_new)
+        append_tokens_plain(kp, vp, pos, k_new, v_new)
+        exact = (torch.equal(ka.view(torch.int16), kp.view(torch.int16))
+                 and torch.equal(va.view(torch.int16), vp.view(torch.int16)))
+        require(exact, "kv_append_slot cache differs from the plain write")
+        require(all(torch.equal(a[i], b[0][i]) for a, b in ((ka, sk), (va, sv)) for i in (0, n - 1)),
+                "kv_append_slot wrote a lane whose position lies outside the slot")
+        require(not torch.equal(ka, sk[0]), "kv_append_slot wrote nothing")
+        del ka, va, kp, vp
+        b_ms, b_by = bound_ms(2 * 2 * k_new.numel() * 2 + n * 4, 0)
+        return {
+            "name": "kv_append_slot", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
+            "replaces": "gofr_tpu/ops/pallas/kv_append.py:61", "max_abs_err": 0.0,
+            "tolerance": "bit-exact",
+            **timing(lambda: time_ms(torch, lambda i: kv_append_slot(
+                         sk[i % layers], sv[i % layers], lengths, k_new, v_new), 200),
+                     lambda: time_ms(torch, lambda i: append_tokens_plain(
+                         sk[i % layers], sv[i % layers], lengths, k_new, v_new), 50)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"slots": n, "hkv": hkv, "d": d, "smax": smax},
+        }
+
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
-              ("flash_attention", check_flash)]
+              ("flash_attention", check_flash),
+              ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot)]
     results = []
     for name, check in checks:
         try:
@@ -336,24 +425,38 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     return results
 
 
-# The kernels each pool format's serving run must launch; every other
-# kernel must launch no time in that run.
-ON_PATH = {"": ("paged_decode", "kv_append", "flash_attention"),
-           "int8": ("paged_decode_q", "flash_attention"),
-           "int4": ("paged_decode_q4", "flash_attention")}
+# The serving runs of phase 4 and the checks of phase 5, one per cache:
+# (kv_layout, kv_quantize).
+RUNS = (("paged", ""), ("paged", "int8"), ("paged", "int4"), ("slot", ""), ("slot", "int8"))
+# The kernels each run must launch; every other kernel must launch no time
+# in that run. The int8 slot cache's decode attention and append are plain
+# PyTorch (the TPU ran them as XLA).
+ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
+           ("paged", "int8"): ("paged_decode_q", "flash_attention"),
+           ("paged", "int4"): ("paged_decode_q4", "flash_attention"),
+           ("slot", ""): ("decode_attention", "kv_append_slot", "flash_attention"),
+           ("slot", "int8"): ("flash_attention",)}
 
 
-def serve(torch, cuda, model=None, kv_quantize: str = "") -> tuple[object, dict, dict]:
+def run_name(kv_layout: str, kv_quantize: str) -> str:
+    pool = kv_quantize or "bf16"
+    return pool if kv_layout == "paged" else f"slot_{pool}"
+
+
+def serve(torch, cuda, model=None, kv_quantize: str = "",
+          kv_layout: str = "paged") -> tuple[object, dict, dict]:
     """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
-    pool format ``kv_quantize``; a new model with random weights from the
-    seed, or ``model`` when given. Returns (engine, launches, metrics)."""
+    cache ``kv_layout`` in the format ``kv_quantize``; a new model with
+    random weights from the seed, or ``model`` when given. Returns (engine,
+    launches, metrics)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
 
     cfg = LlamaConfig.llama3_8b() if model is None else model.cfg
     t0 = time.perf_counter()
     eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
-                       max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize)
+                       max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize,
+                       kv_layout=kv_layout)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
@@ -370,27 +473,35 @@ def serve(torch, cuda, model=None, kv_quantize: str = "") -> tuple[object, dict,
     torch.cuda.synchronize()
     t_done = time.monotonic()
     counts = cuda.launch_counts()
-    pool = kv_quantize or "bf16"
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
                 f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                 f"{pool} request {i}: token out of range")
     for name, launches in counts.items():
-        if name in ON_PATH[kv_quantize]:
-            require(launches > 0, f"kernel {name} was not launched on the {pool} pool's path")
+        if name in ON_PATH[kv_layout, kv_quantize]:
+            require(launches > 0, f"kernel {name} was not launched on the {pool} cache's path")
         else:
             require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
-                                   f"pool's path")
+                                   f"cache's path")
+    from gofr_tpu_torch.ops.paged import kv_plane_bytes_per_position
+
+    cache = eng.cache
+    positions = cache.k.shape[1] * cache.k.shape[3]  # pages x page size, or slots x Smax
+    pool_bytes = sum(t.nbytes for t in vars(cache).values())
+    per = kv_plane_bytes_per_position(cfg.num_layers, cfg.num_kv_heads, cfg.head_size,
+                                      kv_quantize or "bf16")
+    require(pool_bytes == per * positions,
+            f"{pool} cache holds {pool_bytes} B for {positions} positions, not {per} B each")
     first = [t_submit + o["ttft_s"] for o in outs]
     done = [f + o["decode_s"] for f, o in zip(first, outs)]
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
     ttft = sorted(o["ttft_s"] for o in outs)
-    cache = eng.cache
     metrics = {
         "model": "llama3_8b (random bf16 weights, seed 0)", "layers": cfg.num_layers,
-        "kv_pool": pool, "pool_bytes": sum(t.nbytes for t in vars(cache).values()),
-        "pool_positions": cache.num_pages * cache.page_size,
+        "kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
+        "pool_bytes": pool_bytes, "pool_positions": positions,
         "requests": len(outs), "prompt_lens": lens, "new_tokens": 64,
         "engine_build_s": build_s, "wall_s": t_done - t_submit,
         "ttft_s": [o["ttft_s"] for o in outs], "ttft_p50_s": ttft[len(ttft) // 2],
@@ -404,28 +515,33 @@ def serve(torch, cuda, model=None, kv_quantize: str = "") -> tuple[object, dict,
 
 
 def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
-                decode_kernels: bool, fed=None):
-    """Logits [5, 1, V] of ``prompt`` (1 x 256) through ``prefill_paged`` and
-    four ``decode_step_paged`` steps on a fresh pool of the format
-    ``kv_quantize``, the kernels or their plain versions in each. Each step
-    is fed ``fed``'s tokens when given, else the run's own greedy tokens.
-    Returns (logits, the tokens fed, the K/V the pool holds at the end as
-    its read path returns them, f32 [L, 2, Hkv, written positions, D])."""
+                decode_kernels: bool, fed=None, kv_layout: str = "paged"):
+    """Logits [5, 1, V] of ``prompt`` (1 x 256) through ``prefill`` and four
+    ``decode_step`` steps on a fresh cache of 512 positions (4 pages of
+    128, or one slot), ``kv_layout`` in the format ``kv_quantize``, the
+    kernels or their plain versions in each. Each step is fed ``fed``'s
+    tokens when given, else the run's own greedy tokens. Returns (logits,
+    the tokens fed, the K/V the cache holds at the end as its read path
+    returns them, f32 [L, 2, Hkv, written positions, D])."""
     from gofr_tpu_torch.gpu.engine import make_pool
 
     lengths = torch.tensor([prompt.shape[1]], device="cuda")
-    table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
-    cache = make_pool(model, kv_quantize, 4, 128)
-    logits, _ = model.prefill_paged(prompt, lengths, cache, table, kernels=prefill_kernels)
+    if kv_layout == "paged":
+        rows = table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+        cache = make_pool(model, kv_quantize, 4, 128)
+    else:
+        rows, table = torch.zeros(1, dtype=torch.int32, device="cuda"), None
+        cache = make_pool(model, kv_quantize, 1, 512, "slot")
+    logits, _ = model.prefill(prompt, lengths, cache, rows, kernels=prefill_kernels)
     seq, chosen = [logits], []
     for step in range(4):
         tokens = logits.argmax(-1).to(torch.int32) if fed is None else fed[step]
         chosen.append(tokens)
         pos = torch.tensor([prompt.shape[1] + step], device="cuda")
-        logits, _ = model.decode_step_paged(tokens, pos, cache, table, kernels=decode_kernels)
+        logits, _ = model.decode_step(tokens, pos, cache, table, kernels=decode_kernels)
         seq.append(logits)
     written = prompt.shape[1] + 4
-    stored = torch.stack([torch.stack(cache.read(layer, table, torch.float32))[:, 0, :, :written]
+    stored = torch.stack([torch.stack(cache.read(layer, rows, torch.float32))[:, 0, :, :written]
                           for layer in range(cache.num_layers)]).float()
     return torch.stack(seq), chosen, stored
 
@@ -437,10 +553,11 @@ PHASE5_RUNS = {"kernels": (True, True), "plain_prefill": (False, True),
                "plain_decode": (True, False)}
 
 
-def model_check(torch, model, kv_quantize: str = "", enforce: bool = True) -> dict:
-    """Kernels vs plain versions, end to end through the model, on a pool of
-    the format ``kv_quantize``: each of ``PHASE5_PROMPTS`` prompts of 256
-    tokens through ``prefill_paged`` and four ``decode_step_paged`` steps
+def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
+                kv_layout: str = "paged") -> dict:
+    """Kernels vs plain versions, end to end through the model, on a cache
+    ``kv_layout`` of the format ``kv_quantize``: each of ``PHASE5_PROMPTS``
+    prompts of 256 tokens through ``prefill`` and four ``decode_step`` steps
     with the plain versions, with the kernels, and with the kernels in one
     half of the step only, every run fed the kernel run's greedy tokens.
     Reports, for each run and step, max |logits - plain logits| over max
@@ -449,19 +566,21 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True) -> di
     difference over the RMS of the stored values). With ``enforce``, the
     kernel run's largest error must stay under the pool's limit, and the
     decode-only run's under ``DECODE_RTOL``."""
-    pool = kv_quantize or "bf16"
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
     rng = torch.Generator().manual_seed(SEED + 1)
     steps = {name: [] for name in PHASE5_RUNS}
     agree, differ, stored_rel = [], [], []
     for _ in range(PHASE5_PROMPTS):
         prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
-        k_run, fed, k_kv = model_steps(torch, model, kv_quantize, prompt, True, True)
-        p_run, _, p_kv = model_steps(torch, model, kv_quantize, prompt, False, False, fed)
+        k_run, fed, k_kv = model_steps(torch, model, kv_quantize, prompt, True, True,
+                                       kv_layout=kv_layout)
+        p_run, _, p_kv = model_steps(torch, model, kv_quantize, prompt, False, False, fed,
+                                     kv_layout)
         require(torch.isfinite(k_run).all().item(), f"non-finite logits with the kernels ({pool})")
         top = p_run.abs().max().item()
         for name, (pk, dk) in PHASE5_RUNS.items():
             run = k_run if name == "kernels" else model_steps(
-                torch, model, kv_quantize, prompt, pk, dk, fed)[0]
+                torch, model, kv_quantize, prompt, pk, dk, fed, kv_layout)[0]
             steps[name].append(((run - p_run).abs().amax(dim=(1, 2)) / top).tolist())
         agree.append((k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item())
         differ.append((k_kv != p_kv).float().mean().item())
@@ -469,7 +588,8 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True) -> di
         del k_kv, p_kv
     rel_errs = [max(s) for s in steps["kernels"]]
     decode_errs = [max(s[1:]) for s in steps["plain_prefill"]]
-    out = {"kv_pool": pool, "prompts": PHASE5_PROMPTS, "steps": 5, "rel_err": rel_errs,
+    out = {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "prompts": PHASE5_PROMPTS,
+           "steps": 5, "rel_err": rel_errs,
            "tol_rel": LOGITS_RTOL[kv_quantize], "decode_only_rel_err": decode_errs,
            "decode_only_tol_rel": DECODE_RTOL, "argmax_agree": agree, "rel_err_by_step": steps,
            "stored_differ": differ, "stored_rms_rel": stored_rel}
@@ -494,39 +614,50 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wall, start = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        wall[name] = time.perf_counter() - start - sum(wall.values())
+
     emit("phase1_device", device_info())
 
     built = cuda.build()
     notes = [ln.strip() for ln in built["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("phase2_build", {"seconds": built["seconds"], "ptxas": notes})
+    lap("phases_1_2")
 
     kernels = check_kernels(torch)
     emit("phase3_kernels", kernels)
     torch.cuda.empty_cache()
+    lap("phase3")
 
-    # the same 8 requests on a bf16, an int8 and an int4 pool, one model
+    # the same 8 requests on each cache, one model
     model, served = None, {}
-    for kv_quantize in ("", "int8", "int4"):
-        eng, counts, metrics = serve(torch, cuda, model, kv_quantize)
-        emit(f"phase4_serve_{kv_quantize or 'bf16'}", {**metrics, "launches": counts})
+    for kv_layout, kv_quantize in RUNS:
+        eng, counts, metrics = serve(torch, cuda, model, kv_quantize, kv_layout)
+        emit(f"phase4_serve_{run_name(kv_layout, kv_quantize)}", {**metrics, "launches": counts})
         eng.stop()
         model = eng.model
-        served[kv_quantize] = {"metrics": metrics, "launches": counts}
+        served[kv_layout, kv_quantize] = {"metrics": metrics, "launches": counts}
         del eng
         torch.cuda.empty_cache()
+        lap(f"phase4_{run_name(kv_layout, kv_quantize)}")
 
-    for kv_quantize in ("", "int8", "int4"):
-        emit(f"phase5_model_{kv_quantize or 'bf16'}", model_check(torch, model, kv_quantize))
+    for kv_layout, kv_quantize in RUNS:
+        emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
+             model_check(torch, model, kv_quantize, kv_layout=kv_layout))
+        lap(f"phase5_{run_name(kv_layout, kv_quantize)}")
 
-    # each kernel's launches from the serving run of the pool it belongs to
+    # each kernel's launches from the first serving run whose path it is on
     for k in kernels:
-        kv_quantize = next(kvq for kvq, names in ON_PATH.items() if k["name"] in names)
-        k["launches"] = served[kv_quantize]["launches"][k["name"]]
+        run = next(r for r in RUNS if k["name"] in ON_PATH[r])
+        k["launches"] = served[run]["launches"][k["name"]]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": kernels, "serve": {kvq or "bf16": run for kvq, run in served.items()}},
-                  f, indent=1)
+        json.dump({"kernels": kernels, "wall_s": wall,
+                   "serve": {run_name(*r): run for r, run in served.items()}}, f, indent=1)
+    emit("wall_time", {"seconds": time.perf_counter() - start, "by_phase": wall})
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")} for k in kernels]}))

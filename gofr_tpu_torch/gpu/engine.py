@@ -1,25 +1,31 @@
-"""Continuous-batching generation over the paged KV pool (counterpart of
-gofr_tpu/tpu/engine.py ``GenerateEngine`` and ``build_engine``).
+"""Continuous-batching generation over the paged KV pool or the slot KV
+cache (counterpart of gofr_tpu/tpu/engine.py ``GenerateEngine`` and
+``build_engine``).
 
-A device thread owns the model, the pool and every slot. Callers ``submit``
-prompts onto a queue and get a ``Request`` future back. Each loop turn the
-thread
+A device thread owns the model, the cache and every slot. Callers
+``submit`` prompts onto a queue and get a ``Request`` future back. Each
+loop turn the thread
 
 1. moves queued requests into a pending list, rejecting bad prompts;
-2. admits pending requests while a slot and enough free pages exist: the
-   pages a request can ever write (prompt plus ``max_new_tokens``, capped at
-   ``max_len``) are taken from the free list at admission, and the batch is
-   prefilled at once, padded to its longest prompt and masked by lengths;
+2. admits pending requests while a slot (and, on the paged layout, enough
+   free pages) exists, and prefills the batch at once, padded to its
+   longest prompt and masked by lengths;
 3. runs ``decode_chunk`` decode steps over every slot and hands each slot its
-   tokens until EOS or its length limit; a finished request returns its
-   pages to the free list at once.
+   tokens until EOS or its length limit; a finished request frees its slot
+   (and its pages) at once.
 
-Lanes without a request keep an all-OOB table row, so their writes drop.
-Reserving a request's pages at admission means a running request never
-waits for pages and nothing is preempted; the JAX engine allocates on
-demand and preempts instead, which this slice leaves for later, with the
-prefix cache, chunked admission, speculative decoding, QoS, adapters,
-handoff, lockstep, autotune and the perf plane.
+``kv_layout`` picks the cache. On the paged layout (the default, as
+engine.py:4118 picks it for llama) the pages a request can ever write
+(prompt plus ``max_new_tokens``, capped at ``max_len``) are taken from the
+free list at admission, and lanes without a request keep an all-OOB table
+row, so their writes drop. On the slot layout each slot owns ``cache_len``
+positions (engine.py:1321), a request needs only a free slot, and lanes
+without a request sit at position ``cache_len``, so their writes drop
+(tpu/decode.py:309-315). Reserving pages at admission means a running
+request never waits for pages and nothing is preempted; the JAX engine
+allocates on demand and preempts instead, which this slice leaves for
+later, with the prefix cache, chunked admission, speculative decoding,
+QoS, adapters, handoff, lockstep, autotune and the perf plane.
 """
 
 from __future__ import annotations
@@ -37,22 +43,25 @@ import torch
 
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.programs import decode_chunk, prefill_sample
-from gofr_tpu_torch.models.llama import Llama, LlamaConfig, init, params_from_jax
-from gofr_tpu_torch.ops.paged import AnyPagedKVCache
+from gofr_tpu_torch.models.llama import AnyKVCache, Llama, LlamaConfig, init, params_from_jax
 
 log = logging.getLogger(__name__)
 
 
-# pool formats: the model's dtype, int8 rows, packed int4 rows
+# cache formats: the model's dtype, int8 rows, packed int4 rows (paged only)
 KV_QUANTIZE = ("", "int8", "int4")
+KV_LAYOUTS = ("paged", "slot")
 
 
-def make_pool(model: Llama, kv_quantize: str, pages: int, page_size: int) -> AnyPagedKVCache:
-    """An empty pool of ``pages`` pages for ``model`` in the format
-    ``kv_quantize`` (one of ``KV_QUANTIZE``)."""
-    make = {"": model.make_paged_cache, "int8": model.make_paged_cache_q,
-            "int4": model.make_paged_cache_q4}[kv_quantize]
-    return make(pages, page_size)
+def make_pool(model: Llama, kv_quantize: str, rows: int, row_len: int,
+              kv_layout: str = "paged") -> AnyKVCache:
+    """An empty KV cache for ``model`` in the format ``kv_quantize`` (one of
+    ``KV_QUANTIZE``): ``rows`` pages of ``row_len`` positions on the paged
+    layout, ``rows`` slots of ``row_len`` positions on the slot layout."""
+    make = {("paged", ""): model.make_paged_cache, ("paged", "int8"): model.make_paged_cache_q,
+            ("paged", "int4"): model.make_paged_cache_q4, ("slot", ""): model.make_cache,
+            ("slot", "int8"): model.make_cache_q}[kv_layout, kv_quantize]
+    return make(rows, row_len)
 
 
 class EngineClosed(RuntimeError):
@@ -135,15 +144,17 @@ class _Slot:
 
 
 class GenerateEngine:
-    """Continuous batching for a ``Llama`` on the paged pool.
+    """Continuous batching for a ``Llama`` on the paged pool or the slot
+    cache.
 
     ``device`` is where the engine runs (the card unless the caller asks for
     the CPU) and must be the model's device. ``max_len`` caps prompt plus
-    generation per request; ``page_size`` and ``total_pages`` size the pool
-    (default: every slot can hold a ``max_len`` request). ``kv_quantize``
-    picks the pool's format: ``""`` the model's dtype, ``"int8"`` or
-    ``"int4"`` quantized rows with bf16 scales (2x or 4x the positions in
-    the same memory); page reservation is the same for all three."""
+    generation per request. ``kv_layout`` is ``"paged"`` (``page_size`` and
+    ``total_pages`` size the pool; default: every slot can hold a
+    ``max_len`` request) or ``"slot"`` (``cache_len`` positions per slot).
+    ``kv_quantize`` picks the cache's format: ``""`` the model's dtype,
+    ``"int8"`` or, on the paged layout only, ``"int4"`` quantized rows with
+    bf16 scales (2x or 4x the positions in the same memory)."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, max_prefill_batch: int = 4,
@@ -151,9 +162,14 @@ class GenerateEngine:
                  top_p: float = 1.0, tokenizer: Any = None,
                  default_timeout: float | None = None, seed: int = 0,
                  page_size: int = 128, total_pages: int | None = None,
-                 kv_quantize: str = ""):
+                 kv_quantize: str = "", kv_layout: str = "paged"):
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
             raise ValueError(f"kv_quantize={kv_quantize!r}: use '', 'int8' or 'int4'")
+        if kv_quantize == "int4" and kv_layout != "paged":
+            raise ValueError("kv_quantize='int4' needs kv_layout='paged' (packed-nibble "
+                             "pages); the slot layout supports '' or 'int8'")
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
@@ -169,17 +185,30 @@ class GenerateEngine:
         self.top_k, self.top_p = top_k, top_p
         self.tokenizer = tokenizer
         self.default_timeout = default_timeout
-        self.page_size = page_size
-        self.pages_per_slot = math.ceil(self.max_len / page_size)
-        self.total_pages = total_pages or slots * self.pages_per_slot
-        if self.total_pages < self.pages_per_slot:
-            raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
-                             f"{self.pages_per_slot}: one max-length request cannot fit")
-        self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
-        self._free_pages = list(range(self.total_pages))
-        self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
-        # OOB convention: unallocated entries point one past the pool
-        self._table = np.full((slots, self.pages_per_slot), self.total_pages, np.int32)
+        self.kv_layout = kv_layout
+        if kv_layout == "paged":
+            self.page_size = page_size
+            self.pages_per_slot = math.ceil(self.max_len / page_size)
+            self.total_pages = total_pages or slots * self.pages_per_slot
+            if self.total_pages < self.pages_per_slot:
+                raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
+                                 f"{self.pages_per_slot}: one max-length request cannot fit")
+            self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
+            self._free_pages = list(range(self.total_pages))
+            self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            # OOB convention: unallocated entries point one past the pool
+            self._table: np.ndarray | None = np.full((slots, self.pages_per_slot),
+                                                     self.total_pages, np.int32)
+            self._idle_position = 0
+        else:
+            # a chunk never writes past the slot; a multiple of 128 where the
+            # model allows it (engine.py:1321)
+            self.cache_len = min(math.ceil((self.max_len + self.decode_chunk) / 128) * 128,
+                                 self.cfg.max_seq_len)
+            self.cache = make_pool(model, kv_quantize, slots, self.cache_len, "slot")
+            self._table = None
+            # idle lanes write at and past the slot's end, where the append drops
+            self._idle_position = self.cache_len
         self.slots: list[_Slot | None] = [None] * slots
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: queue.Queue[Request] = queue.Queue()
@@ -216,6 +245,8 @@ class GenerateEngine:
         self._fail_all(EngineClosed("engine stopped"))
 
     def free_pages(self) -> int:
+        if self._table is None:
+            raise RuntimeError("the slot layout has no pages")
         return len(self._free_pages)
 
     # -- device thread ---------------------------------------------------------
@@ -284,8 +315,9 @@ class GenerateEngine:
                 return
 
     def _admit(self) -> bool:
-        """Prefill as many pending requests as slots, pages and the batch cap
-        allow, in arrival order. Returns whether any were admitted."""
+        """Prefill as many pending requests as slots, pages (on the paged
+        layout) and the batch cap allow, in arrival order. Returns whether
+        any were admitted."""
         batch: list[tuple[int, Request, list[int], int]] = []
         while self._pending and len(batch) < self.max_prefill_batch:
             req, toks = self._pending[0]
@@ -297,14 +329,17 @@ class GenerateEngine:
             free = [i for i, s in enumerate(self.slots)
                     if s is None and i not in {b[0] for b in batch}]
             max_total = min(len(toks) + req.kw["max_new_tokens"], self.max_len)
-            need = math.ceil(max_total / self.page_size)
-            if not free or need > len(self._free_pages):
+            if not free:
                 break
-            self._pending.pop(0)
             idx = free[0]
-            pages, self._free_pages = self._free_pages[:need], self._free_pages[need:]
-            self._slot_pages[idx] = pages
-            self._table[idx, :need] = pages
+            if self._table is not None:
+                need = math.ceil(max_total / self.page_size)
+                if need > len(self._free_pages):
+                    break
+                pages, self._free_pages = self._free_pages[:need], self._free_pages[need:]
+                self._slot_pages[idx] = pages
+                self._table[idx, :need] = pages
+            self._pending.pop(0)
             batch.append((idx, req, toks, max_total))
         if not batch:
             return False
@@ -314,10 +349,11 @@ class GenerateEngine:
         for row, (_, _, toks, _) in enumerate(batch):
             tokens[row, :len(toks)] = toks
         temps = [req.kw["temperature"] for _, req, _, _ in batch]
+        idxs = np.array([idx for idx, *_ in batch], np.int64)
         first = prefill_sample(
             self.model, self.cache, self._to_device(tokens),
             self._to_device(np.array([len(t) for _, _, t, _ in batch], np.int64)),
-            self._to_device(self._table[[idx for idx, *_ in batch]]),
+            self._to_device(idxs if self._table is None else self._table[idxs]),
             self._to_device(np.array(temps, np.float32)), self._generator,
             top_k=self.top_k, top_p=self.top_p, do_sample=max(temps) > 0,
         ).tolist()
@@ -339,14 +375,15 @@ class GenerateEngine:
         if not active:
             return
         tokens = np.zeros(self.num_slots, np.int64)
-        positions = np.zeros(self.num_slots, np.int64)
+        positions = np.full(self.num_slots, self._idle_position, np.int64)
         temps = np.zeros(self.num_slots, np.float32)
         for i in active:
             s = self.slots[i]
             tokens[i], positions[i], temps[i] = s.generated[-1], s.pos, s.temperature
         out = decode_chunk(
             self.model, self.cache, self._to_device(tokens), self._to_device(positions),
-            self._to_device(self._table), self._to_device(temps), self.decode_chunk,
+            None if self._table is None else self._to_device(self._table),
+            self._to_device(temps), self.decode_chunk,
             self._generator, top_k=self.top_k, top_p=self.top_p, do_sample=bool(temps.max() > 0),
         ).cpu().numpy()
         for i in active:
@@ -377,9 +414,10 @@ class GenerateEngine:
         return True
 
     def _free_slot(self, idx: int) -> None:
-        self._free_pages.extend(self._slot_pages[idx])
-        self._slot_pages[idx] = []
-        self._table[idx] = self.total_pages
+        if self._table is not None:
+            self._free_pages.extend(self._slot_pages[idx])
+            self._slot_pages[idx] = []
+            self._table[idx] = self.total_pages
         self.slots[idx] = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:

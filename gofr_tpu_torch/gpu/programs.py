@@ -11,37 +11,41 @@ take tensors, run eagerly, and hand back only sampled token ids.
   fused in, the next step's input being the previous step's output on the
   device (programs.py ``_decode_chunk``). The host reads ``[slots, steps]``
   ids once per chunk.
+
+Both serve either cache layout: the slot cache takes slot ids where the
+paged pool takes block-table rows, and no table at decode.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gofr_tpu_torch.models.llama import Llama
-from gofr_tpu_torch.ops.paged import AnyPagedKVCache
+from gofr_tpu_torch.models.llama import AnyKVCache, Llama
 from gofr_tpu_torch.ops.sampling import sample_token
 
 
-def prefill_sample(model: Llama, cache: AnyPagedKVCache, tokens: torch.Tensor,
-                   lengths: torch.Tensor, pages: torch.Tensor, temps: torch.Tensor,
+def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+                   lengths: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                    generator: torch.Generator | None, *, top_k: int = 0,
                    top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
-    """tokens [B, S] padded, lengths [B], pages [B, MaxP], temps [B] →
-    first sampled token per row [B] int32 (the pool is written in place)."""
-    logits, _ = model.prefill_paged(tokens, lengths, cache, pages)
+    """tokens [B, S] padded, lengths [B], rows (slot ids [B], or block-table
+    rows [B, MaxP]), temps [B] → first sampled token per row [B] int32 (the
+    cache is written in place)."""
+    logits, _ = model.prefill(tokens, lengths, cache, rows)
     return sample_token(logits, generator, temperature=temps, top_k=top_k,
                         top_p=top_p, do_sample=do_sample)
 
 
-def decode_chunk(model: Llama, cache: AnyPagedKVCache, tokens: torch.Tensor,
-                 positions: torch.Tensor, table: torch.Tensor, temps: torch.Tensor,
+def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+                 positions: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor,
                  steps: int, generator: torch.Generator | None, *, top_k: int = 0,
                  top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
     """``steps`` decode steps: tokens [N] are the inputs at ``positions``
-    [N]; returns the sampled ids [N, steps] int32, still on the device."""
+    [N] (through ``table`` [N, MaxP] on the paged pool, None on the slot
+    cache); returns the sampled ids [N, steps] int32, still on the device."""
     out = []
     for _ in range(steps):
-        logits, _ = model.decode_step_paged(tokens, positions, cache, table)
+        logits, _ = model.decode_step(tokens, positions, cache, table)
         tokens = sample_token(logits, generator, temperature=temps, top_k=top_k,
                               top_p=top_p, do_sample=do_sample)
         positions = positions + 1

@@ -11,24 +11,31 @@ bias, so a JAX ``x @ W`` with W [in, out] becomes a weight of [out, in]
 Entry points, each a method of ``Llama``:
 
 - ``forward``            full causal pass, no cache (llama.py:206)
-- ``prefill_paged``      prompts (or chunks at ``offsets``) written into
-                         the paged pool, last-token logits (llama.py:617)
-- ``decode_step_paged``  one token per slot, K/V appended through the
-                         block table (llama.py:710)
-- ``make_paged_cache``   an empty pool for this model (llama.py:587), and
-  ``make_paged_cache_q`` / ``make_paged_cache_q4`` its int8 and packed
-  int4 forms (llama.py:595,605). Where the JAX functions branch on the
-  pool's type (llama.py:644-685, :735-739), ``prefill_paged`` and
-  ``decode_step_paged`` call the pool's own operations (``ops.paged``)
-  and its format's decode attention (``ops.attention.DECODE_ATTENTION``)
+- ``prefill``            prompts (or chunks at ``offsets``) written into
+                         the cache, last-token logits: slot rows on the slot
+                         cache (llama.py:304), block-table rows on the paged
+                         pool (``prefill_paged``, llama.py:617)
+- ``decode_step``        one token per slot, K/V appended at each slot's
+                         position: lane n is slot n on the slot cache
+                         (llama.py:453), or through the block table on the
+                         paged pool (``decode_step_paged``, llama.py:710)
+- ``make_cache``         an empty slot cache (llama.py:505) and
+  ``make_cache_q`` its int8 form (llama.py:512); ``make_paged_cache``
+  an empty pool (llama.py:587), and ``make_paged_cache_q`` /
+  ``make_paged_cache_q4`` its int8 and packed int4 forms (llama.py:595,
+  605). Where the JAX functions branch on the cache's type (llama.py:
+  333-378, 644-685, 735-739), ``prefill`` and ``decode_step`` call the
+  cache's own per-layer operations (``ops.kvcache``, ``ops.paged``) and
+  its format's decode attention (``ops.attention.DECODE_ATTENTION``), so
+  one body serves both layouts and every format.
 
 Attention and the KV append go through ``ops`` and so through the CUDA
 kernels on the card. ``kernels=False`` runs the same step on their plain
 versions instead, which is how the card-side check holds the kernels
-against the plain path end to end (``prefill_paged`` and
-``decode_step_paged``). On a quantized pool the append is plain PyTorch
-either way (the TPU ran it as XLA). This slice serves bf16 weights (no
-int8 weights or LoRA deltas).
+against the plain path end to end. On a quantized cache the append is
+plain PyTorch either way, and so is decode attention on the int8 slot
+cache (the TPU ran both as XLA). This slice serves bf16 weights (no int8
+weights or LoRA deltas); ``verify_step`` waits for speculative decoding.
 """
 
 from __future__ import annotations
@@ -42,9 +49,13 @@ from torch import nn
 
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.ops.attention import DECODE_ATTENTION, mha_attention, mha_attention_plain
+from gofr_tpu_torch.ops.kvcache import QSlotKVCache, SlotKVCache
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged import AnyPagedKVCache, PagedKVCache, Q4PagedKVCache, QPagedKVCache
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
+
+
+AnyKVCache = SlotKVCache | QSlotKVCache | AnyPagedKVCache
 
 
 @dataclass(frozen=True)
@@ -170,19 +181,21 @@ class Llama(nn.Module):
         return self._logits(x)
 
     @torch.no_grad()
-    def prefill_paged(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyPagedKVCache,
-                      pages: torch.Tensor, offsets: torch.Tensor | None = None, *,
-                      kernels: bool = True) -> tuple[torch.Tensor, AnyPagedKVCache]:
-        """Prefill prompts (or prompt chunks) through block-table rows.
+    def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
+                rows: torch.Tensor, offsets: torch.Tensor | None = None, *,
+                kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+        """Prefill prompts (or prompt chunks) into the cache.
 
-        tokens [B, S] (padded), lengths [B] = live tokens in this call, pages
-        [B, MaxP] (OOB = pool size). ``offsets`` [B] places the chunk at
-        positions offsets .. offsets+S; chunked rows attend to the whole
-        cache written so far through a gathered view, whole-prompt rows
-        attend prompt-locally. On a quantized pool whole-prompt rows attend
-        to their fake-quantized k/v (what the pool stores) and chunked rows
-        to the dequantized gather (llama.py:644-685). Returns (last-token
-        logits [B, V] f32, cache), the cache written in place."""
+        tokens [B, S] (padded), lengths [B] = live tokens in this call, rows
+        = where each prompt goes: slot ids [B] on a slot cache, block-table
+        rows [B, MaxP] (OOB = pool size) on a paged pool. ``offsets`` [B]
+        places the chunk at positions offsets .. offsets+S; chunked rows
+        attend to the whole cache written so far through a dense view,
+        whole-prompt rows attend prompt-locally. On a quantized cache
+        whole-prompt rows attend to their fake-quantized k/v (what the cache
+        stores) and chunked rows to the dequantized view (llama.py:343-367,
+        644-685). Returns (last-token logits [B, V] f32, cache), the cache
+        written in place."""
         attn = mha_attention if kernels else mha_attention_plain
         b, s = tokens.shape
         off = (torch.zeros(b, dtype=torch.long, device=tokens.device) if offsets is None
@@ -192,11 +205,11 @@ class Llama(nn.Module):
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x)
             q, k = self._rope(q, positions), self._rope(k, positions)
-            cache.write(layer, pages, k, v, offsets)
+            cache.write(layer, rows, k, v, offsets)
             if offsets is None:
                 a = attn(q, cache.stored(k), cache.stored(v), causal=True, kv_lengths=lengths)
             else:
-                k_view, v_view = cache.read(layer, pages, self.cfg.dtype)
+                k_view, v_view = cache.read(layer, rows, self.cfg.dtype)
                 a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
                          causal=True, q_offset=off, kv_lengths=off + lengths)
             x = x + lp.wo(a.reshape(b, s, -1))
@@ -205,26 +218,48 @@ class Llama(nn.Module):
         return self._logits(last), cache
 
     @torch.no_grad()
-    def decode_step_paged(self, tokens: torch.Tensor, positions: torch.Tensor,
-                          cache: AnyPagedKVCache, table: torch.Tensor, *,
-                          kernels: bool = True) -> tuple[torch.Tensor, AnyPagedKVCache]:
-        """One decode step over every slot: tokens [N] go to ``positions`` [N]
-        through ``table`` [N, MaxP]. Returns (logits [N, V] f32, cache), the
-        cache written in place. Lanes with an all-OOB table row write
-        nothing and produce logits the caller ignores."""
+    def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
+                    table: torch.Tensor | None = None, *,
+                    kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+        """One decode step over every slot: tokens [N] go to ``positions``
+        [N], lane n into slot n of a slot cache (``table`` None), or through
+        ``table`` [N, MaxP] into a paged pool. Returns (logits [N, V] f32,
+        cache), the cache written in place. A lane whose write drops (an
+        all-OOB table row, a position past the slot) produces logits the
+        caller ignores; its rope angle clamps to the table's last row, as
+        JAX's gather clamps it, since an idle slot lane may sit at
+        ``max_seq_len``."""
         attn = DECODE_ATTENTION[type(cache)][0 if kernels else 1]
         n = tokens.shape[0]
-        pos1 = positions.long()[:, None]
+        pos1 = positions.long().clamp(max=self.cfg.max_seq_len - 1)[:, None]
         lengths = positions + 1
         x = self.embed[tokens]
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x[:, None])
             q, k, v = self._rope(q, pos1)[:, 0], self._rope(k, pos1)[:, 0], v[:, 0]
             cache.append(layer, table, positions, k, v, kernels=kernels)
-            a = attn(q, *cache.planes(layer), table, lengths)
+            a = attn(q, *cache.planes(layer, table), lengths)
             x = x + lp.wo(a.reshape(n, -1))
             x = x + self._mlp(lp, x)
         return self._logits(x), cache
+
+    # the JAX package's names for the paged pool's entry points (the same bodies)
+    prefill_paged = prefill
+    decode_step_paged = decode_step
+
+    def make_cache(self, slots: int, max_len: int | None = None) -> SlotKVCache:
+        """An empty slot cache of ``max_len`` positions per slot (default
+        ``max_seq_len``) in the model's dtype (llama.py:505)."""
+        cfg = self.cfg
+        return SlotKVCache.create(cfg.num_layers, slots, max_len or cfg.max_seq_len,
+                                  cfg.num_kv_heads, cfg.head_size, dtype=cfg.dtype,
+                                  device=self.device)
+
+    def make_cache_q(self, slots: int, max_len: int | None = None) -> QSlotKVCache:
+        """The int8 slot cache (llama.py:512)."""
+        cfg = self.cfg
+        return QSlotKVCache.create(cfg.num_layers, slots, max_len or cfg.max_seq_len,
+                                   cfg.num_kv_heads, cfg.head_size, device=self.device)
 
     def make_paged_cache(self, pages: int, page_size: int = 128) -> PagedKVCache:
         cfg = self.cfg

@@ -1,5 +1,5 @@
-"""Attention: batched GQA prefill and single-token paged decode
-(counterpart of gofr_tpu/ops/attention.py).
+"""Attention: batched GQA prefill and single-token decode over the slot
+cache and the paged pool (counterpart of gofr_tpu/ops/attention.py).
 
 Shapes follow the JAX package: activations [batch, seq, heads, head_dim],
 query heads grouped under their KV head ([B, S, Hkv, G, D]) so K/V are
@@ -12,22 +12,25 @@ Two layers live here:
   ``paged_decode_attention_q_plain`` / ``_q4_plain`` for the int8 and
   int4 pools), straightforward PyTorch that mirrors the JAX XLA path op
   for op, bf16 roundings included;
-- the public entry points (``mha_attention``, ``paged_decode_attention``,
-  ``paged_decode_attention_q``, ``paged_decode_attention_q4``), which make
-  the one choice between the two: a tensor on the card goes to
-  the CUDA kernel's launcher in ``ops/cuda`` (which launches or raises), a
-  tensor on the CPU to the plain version. There is no fallback from one to
-  the other.
+- the public entry points (``mha_attention``, ``decode_attention``,
+  ``paged_decode_attention``, ``paged_decode_attention_q``,
+  ``paged_decode_attention_q4``), which make the one choice between the
+  two: a tensor on the card goes to the CUDA kernel's launcher in
+  ``ops/cuda`` (which launches or raises), a tensor on the CPU to the plain
+  version. There is no fallback from one to the other. The int8 slot
+  decode ``decode_attention_q`` has no kernel: the TPU ran it as XLA.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gofr_tpu_torch.ops.cuda.decode_attention import decode_attention as slot_decode
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
 from gofr_tpu_torch.ops.cuda.paged_decode_q import paged_decode_q
 from gofr_tpu_torch.ops.cuda.paged_decode_q4 import paged_decode_q4
+from gofr_tpu_torch.ops.kvcache import QSlotKVCache, SlotKVCache
 from gofr_tpu_torch.ops.paged import (
     PagedKVCache,
     Q4PagedKVCache,
@@ -161,6 +164,24 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attend(q, k, v, causal=causal, q_offset=q_offset, kv_lengths=kv_lengths, scale=scale)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """Single-token decode against the slot cache (attention.py:169): q
+    [B, Hq, D]; layer slices [B, Hkv, Smax, D]; lengths [B], clamped to
+    [0, Smax]. The kernel on the card, the plain version on the CPU."""
+    attend = slot_decode if q.is_cuda else decode_attention_plain
+    return attend(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def decode_attention_q(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor, lengths: torch.Tensor,
+                       *, scale: float | None = None) -> torch.Tensor:
+    """Single-token decode against the int8 slot cache (attention.py:219):
+    values [B, Hkv, Smax, D] int8, scales [B, Hkv, Smax] bf16. Plain
+    PyTorch on both devices: the TPU ran it as XLA, with no kernel to port."""
+    return decode_attention_q_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, scale=scale)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            table: torch.Tensor, lengths: torch.Tensor, *,
                            scale: float | None = None) -> torch.Tensor:
@@ -191,9 +212,12 @@ def paged_decode_attention_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: t
     return attend(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale=scale)
 
 
-# Each pool format's decode attention, (entry point, plain version), called
-# as fn(q, *cache.planes(layer), table, lengths).
+# Each cache format's decode attention, (entry point, plain version), called
+# as fn(q, *cache.planes(layer, table), lengths): a paged pool's planes end
+# with the block table, a slot cache takes none (lane n is slot n).
 DECODE_ATTENTION = {
+    SlotKVCache: (decode_attention, decode_attention_plain),
+    QSlotKVCache: (decode_attention_q, decode_attention_q_plain),
     PagedKVCache: (paged_decode_attention, paged_decode_attention_plain),
     QPagedKVCache: (paged_decode_attention_q, paged_decode_attention_q_plain),
     Q4PagedKVCache: (paged_decode_attention_q4, paged_decode_attention_q4_plain),

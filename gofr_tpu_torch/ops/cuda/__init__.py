@@ -144,6 +144,7 @@ def check(rc: int, name: str) -> None:
 
 def _wrappers() -> dict:
     from gofr_tpu_torch.ops.cuda import (
+        decode_attention,
         flash_attention,
         kv_append,
         paged_decode,
@@ -155,7 +156,9 @@ def _wrappers() -> dict:
             "kv_append": kv_append.kv_append,
             "flash_attention": flash_attention.flash_attention,
             "paged_decode_q": paged_decode_q.paged_decode_q,
-            "paged_decode_q4": paged_decode_q4.paged_decode_q4}
+            "paged_decode_q4": paged_decode_q4.paged_decode_q4,
+            "decode_attention": decode_attention.decode_attention,
+            "kv_append_slot": kv_append.kv_append_slot}
 
 
 def launch_counts() -> dict[str, int]:

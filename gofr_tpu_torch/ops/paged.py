@@ -58,8 +58,8 @@ class PagedKVCache(_PoolShape):
     """K/V in the model's dtype. Each pool format offers the model the same
     per-layer operations: ``write`` (prompts or chunks), ``append`` (one
     decode row per slot), ``stored`` (what a read of a written row returns),
-    ``read`` (dense logical views through a table) and ``planes`` (the
-    tensors its decode attention takes)."""
+    ``read`` (dense logical views through a table) and ``planes`` (what its
+    decode attention takes before the lengths: the planes and the table)."""
 
     k: torch.Tensor  # [L, P, Hkv, page, D]
     v: torch.Tensor  # [L, P, Hkv, page, D]
@@ -89,8 +89,8 @@ class PagedKVCache(_PoolShape):
              dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
         return gather_kv(self.k[layer], self.v[layer], pages)
 
-    def planes(self, layer: int) -> tuple[torch.Tensor, ...]:
-        return self.k[layer], self.v[layer]
+    def planes(self, layer: int, table: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.k[layer], self.v[layer], table
 
 
 @dataclass
@@ -143,8 +143,8 @@ class _ScaledPagedKVCache(_PoolShape):
                 for values, scales in self._plane_pairs(layer))
         return k, v
 
-    def planes(self, layer: int) -> tuple[torch.Tensor, ...]:
-        return self.k[layer], self.v[layer], self.ks[layer], self.vs[layer]
+    def planes(self, layer: int, table: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.k[layer], self.v[layer], self.ks[layer], self.vs[layer], table
 
 
 def kv_plane_bytes_per_position(layers: int, kv_heads: int, head_dim: int,

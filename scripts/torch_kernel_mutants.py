@@ -4,7 +4,7 @@
     python3 scripts/torch_kernel_mutants.py
 
 Each mutant is a copy of ``gofr_tpu_torch/csrc`` with one planted fault (a
-length mask off by one, a live page skipped, a key left out of P.V, ...),
+length mask off by one, a live tile skipped, a key left out of P.V, ...),
 made and built under ``gofr_tpu_torch/build/mutants/`` at run time; the
 sources in the checkout are never changed. Every mutant library is loaded
 in turn and put through ``chip_smoke.check_kernels`` (the same inputs and
@@ -13,7 +13,9 @@ a fault in code that two kernels share shows in both. The unmodified
 sources go first and must pass. Then the builds named in ``PHASE5`` are
 read through ``chip_smoke.model_check`` (a full-width Llama-3-8B with
 random weights from the seed, end to end, kernels against plain) on the
-pools named there; these readings are reported, not judged.
+caches named there; these readings are reported, not judged. Kernels A
+and F (paged and slot decode) are one template in ``paged_decode.cu``, so
+a fault in its shared body lands in both.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -43,12 +45,23 @@ MUTANTS = [
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
     ("paged_decode: last live key dropped", "paged_decode.cu",
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] - 1, 0), maxp * page)", True),
-    ("paged_decode: first live page skipped", "paged_decode.cu",
-     "for (int t0 = 0; t0 < len; t0 += kTile)", "for (int t0 = page; t0 < len; t0 += kTile)", True),
-    ("paged_decode: last key of each tile left out of P.V", "paged_decode.cu",
+    ("paged_decode/decode_attention: first live tile skipped", "paged_decode.cu",
+     "for (int t0 = 0; t0 < len; t0 += kTile)", "for (int t0 = kTile; t0 < len; t0 += kTile)", True),
+    ("paged_decode/decode_attention: last key of each tile left out of P.V", "paged_decode.cu",
      "for (int t = 0; t < kTile; ++t) {", "for (int t = 0; t < kTile - 1; ++t) {", True),
+    ("decode_attention: one key past the length", "paged_decode.cu",
+     "min(max(lengths[n], 0), smax)", "min(max(lengths[n] + 1, 0), smax)", True),
+    ("decode_attention: last live key dropped", "paged_decode.cu",
+     "min(max(lengths[n], 0), smax)", "min(max(lengths[n] - 1, 0), smax)", True),
+    # the lane past the slot reads five rows of the next head
+    ("decode_attention: length not clamped to Smax", "paged_decode.cu",
+     "min(max(lengths[n], 0), smax)", "max(lengths[n], 0)", True),
     ("kv_append: row one past the position", "kv_append.cu",
      "const int off = pos % page;", "const int off = (pos + 1) % page;", True),
+    ("kv_append_slot: row one past the position", "kv_append.cu",
+     "* smax + pos) * d + j", "* smax + pos + 1) * d + j", True),
+    ("kv_append_slot: no drop at pos == Smax", "kv_append.cu",
+     "pos >= smax", "pos > smax", True),
     ("flash_attention: causal diagonal masked", "flash_attention.cu",
      "qo + q0 + r >= kv", "qo + q0 + r > kv", True),
     ("flash_attention: one key past kv_length", "flash_attention.cu",
@@ -75,13 +88,14 @@ MUTANTS = [
 ]
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
-# the pools named: the unmodified build, the nearest fault of each decode
-# kernel and a fault of the prefill kernel, to see which faults phase 5
-# resolves beside a clean reading.
-PHASE5 = {"unmodified": ("", "int8", "int4"),
-          "paged_decode: one key past the length": ("",),
-          "paged_decode_q/_q4: one key past the length": ("int8", "int4"),
-          "flash_attention: causal diagonal masked": ("int4",)}
+# the caches named, (kv_layout, kv_quantize): the unmodified build, the
+# nearest fault of each decode kernel and a fault of the prefill kernel, to
+# see which faults phase 5 resolves beside a clean reading.
+PHASE5 = {"unmodified": chip_smoke.RUNS,
+          "paged_decode: one key past the length": (("paged", ""),),
+          "paged_decode_q/_q4: one key past the length": (("paged", "int8"), ("paged", "int4")),
+          "flash_attention: causal diagonal masked": (("paged", "int4"),),
+          "decode_attention: one key past the length": (("slot", ""),)}
 
 
 def make(index: int, mutant) -> dict:
@@ -132,8 +146,8 @@ def main() -> None:
     for row, library in zip(results, libraries):
         if row["mutant"] in PHASE5:
             cuda.load(library)
-            row["phase5"] = {kvq or "bf16": chip_smoke.model_check(torch, model, kvq, enforce=False)
-                             for kvq in PHASE5[row["mutant"]]}
+            row["phase5"] = {chip_smoke.run_name(*run): chip_smoke.model_check(
+                torch, model, run[1], enforce=False, kv_layout=run[0]) for run in PHASE5[row["mutant"]]}
             print(json.dumps({"mutant": row["mutant"], "phase5": row["phase5"]}), flush=True)
     summary = {"caught": sum(not r["passed"] for r in results[1:]), "mutants": len(MUTANTS),
                "unexpected": bad, "nvidia_smi": chip_smoke.smi_line()}

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 2e-5
-_KERNELS = ("paged_decode", "kv_append", "flash_attention", "paged_decode_q", "paged_decode_q4")
+_KERNELS = ("paged_decode", "kv_append", "flash_attention", "paged_decode_q", "paged_decode_q4",
+            "decode_attention", "kv_append_slot")
 
 
 def _t(a):

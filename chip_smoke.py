@@ -15,8 +15,10 @@ result line:
    D 128; 8 slots of live length 100..2000 and one empty slot, on bf16,
    int8 and int4 pools of page 128, the quantized ones written by the
    port's own writes from random bf16 K/V, and on a bf16 slot cache of
-   2176 positions per slot, with a lane past the slot; a 4 x 512
-   prefill): each held against its plain PyTorch version on the same
+   2176 positions per slot, with a lane past the slot and lanes on and one
+   past the slot decode's split boundaries; 4 x 512 and 4 x 1024 prefills,
+   full and ragged, and a chunk of 200 queries after cached offsets): each
+   held against its plain PyTorch version on the same
    inputs, timed with CUDA events beside the plain version, a library
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (its bound);
@@ -198,6 +200,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
 
     from gofr_tpu_torch.ops.attention import (
         decode_attention_plain,
+        decode_attention_split_plain,
         mha_attention_plain,
         paged_decode_attention_plain,
         paged_decode_attention_q4_plain,
@@ -271,42 +274,68 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "shape": {"slots": n, "hkv": hkv, "d": d, "page": page},
         }
 
-    def check_flash() -> dict:  # C: a batch of 4 x 512 full prompts (causal)
-        b, s = 4, 512
-        qf = torch.randn(b, s, hq, d, device=dev, generator=gen).to(bf)
-        kf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
-        vf = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(bf)
-        got = flash_attention(qf, kf, vf, causal=True)
-        want = mha_attention_plain(qf, kf, vf, causal=True)
-        agree = agreement("flash_attention", got, want, flash_mod)
+    def flash_case(s: int) -> tuple:
+        """q, k, v of a batch of 4 x ``s`` prompts and the bound of a full
+        causal call over them."""
+        qf = torch.randn(4, s, hq, d, device=dev, generator=gen).to(bf)
+        kf = torch.randn(4, s, hkv, d, device=dev, generator=gen).to(bf)
+        vf = torch.randn(4, s, hkv, d, device=dev, generator=gen).to(bf)
+        pairs = 4 * s * (s + 1) // 2
+        return qf, kf, vf, bound_ms(2 * (2 * qf.numel() + 2 * kf.numel()), 4 * hq * d * pairs)
+
+    def sdpa_ms(qf, kf, vf) -> float:
+        """Yardstick only (never called by the port): SDPA on head-major
+        views, KV heads repeated outside the timed call."""
+        qh = qf.transpose(1, 2)
+        kh, vh = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1) for t in (kf, vf))
+        return time_ms(torch, lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+
+    def flash_agree(label: str, qf, kf, vf, **kw) -> tuple:
+        """(agreement with the plain version, the kernel's output)."""
+        got = flash_attention(qf, kf, vf, causal=True, **kw)
+        return agreement(f"flash_attention ({label})", got,
+                         mha_attention_plain(qf, kf, vf, causal=True, **kw), flash_mod), got
+
+    def check_flash() -> dict:  # C: batches of 4 x 512 and 4 x 1024 full prompts (causal)
+        qf, kf, vf, (b_ms, b_by) = flash_case(512)
+        checks = {"causal": flash_agree("causal", qf, kf, vf)[0]}
         # ragged lengths, offsets and a fully masked row: same agreement, zeros
         lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
         offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
-        got_r = flash_attention(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
-        want_r = mha_attention_plain(qf, kf, vf, causal=True, q_offset=offs, kv_lengths=lens)
-        agree_r = agreement("flash_attention (ragged)", got_r, want_r, flash_mod)
+        checks["ragged"], got_r = flash_agree("ragged", qf, kf, vf, q_offset=offs, kv_lengths=lens)
         require(torch.all(got_r[3] == 0).item(), "flash_attention: fully masked rows are not zero")
-        pairs = b * s * (s + 1) // 2
-        b_ms, b_by = bound_ms(2 * (2 * qf.numel() + 2 * kf.numel()), 4 * hq * d * pairs)
-        qh, kh, vh = qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
-        kh_r = kh.repeat_interleave(hq // hkv, dim=1)
-        vh_r = vh.repeat_interleave(hq // hkv, dim=1)
+        # the longest prefill phase 4 pads to, where the bound is operations
+        q2, k2, v2, (b_ms_l, b_by_l) = flash_case(1024)
+        checks["causal_1024"] = flash_agree("causal 4 x 1024", q2, k2, v2)[0]
+        lens = torch.tensor([1024, 700, 129, 0], device=dev, dtype=torch.int32)
+        offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+        checks["ragged_1024"] = flash_agree("ragged 4 x 1024", q2, k2, v2, q_offset=offs,
+                                            kv_lengths=lens)[0]
+        # chunked prefill (models/llama.py, prefill with offsets): a chunk of
+        # 200 queries (not a multiple of the 64-row tile) after offsets of up
+        # to 824 cached positions, keys up to offset + chunk length
+        offs = torch.tensor([512, 300, 0, 824], device=dev, dtype=torch.int32)
+        lens = offs + torch.tensor([200, 131, 77, 200], device=dev, dtype=torch.int32)
+        checks["chunked"] = flash_agree("chunked", q2[:, :200].contiguous(), k2, v2, q_offset=offs,
+                                        kv_lengths=lens)[0]
+        long = {"shape": {"batch": 4, "seq": 1024, "causal": True}, "bound_ms": b_ms_l,
+                "bound_by": b_by_l}
+        if timed:
+            long["ms"] = time_ms(torch, lambda i: flash_attention(q2, k2, v2, causal=True), 20)
+            long["library_ms"] = sdpa_ms(q2, k2, v2)
         return {
             "name": "flash_attention", "route": "cuda",
             "source": "gofr_tpu_torch/csrc/flash_attention.cu",
             "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
-            "max_abs_err": max(agree["max_abs_err"], agree_r["max_abs_err"]),
-            "rms_rel_err": max(agree["rms_rel_err"], agree_r["rms_rel_err"]),
-            "checks": {"causal": agree, "ragged": agree_r},
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "rms_rel_err": max(c["rms_rel_err"] for c in checks.values()),
+            "checks": checks,
             "tolerance": {"max_abs": flash_mod.MAX_ABS, "rms_rel": flash_mod.RMS_REL},
             **timing(lambda: time_ms(torch, lambda i: flash_attention(qf, kf, vf, causal=True), 20),
                      lambda: time_ms(torch, lambda i: mha_attention_plain(qf, kf, vf, causal=True), 5),
-                     # yardstick only (never called by the port): SDPA on
-                     # head-major views, KV heads repeated outside the timed call
-                     lambda: time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                         qh, kh_r, vh_r, is_causal=True), 20)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"batch": b, "seq": s, "hq": hq, "hkv": hkv, "d": d, "causal": True},
+                     lambda: sdpa_ms(qf, kf, vf)),
+            "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long,
+            "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
 
     def check_decode_q(bits: int) -> dict:  # D (int8) and E (int4)
@@ -357,6 +386,20 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         want_o = decode_attention_plain(q, sk[0], sv[0], over)
         agree_o = agreement("decode_attention (length past the slot)", got_o[:1], want_o[:1],
                             slot_decode_mod)
+        # the split's edges: on and one past the first three split
+        # boundaries, the whole slot, the empty slot, past the slot. Lanes
+        # this short have outputs up to ~0.9, where the plain version's bf16
+        # scores alone move an output by up to two bf16 ulps (7.8e-3
+        # between the two plain versions, past MAX_ABS); so they are held against the split's plain version,
+        # which takes the scores in f32 and splits as the kernel does
+        rows_per_split, splits = slot_decode_mod.split_plan(n, hkv, smax)
+        r = rows_per_split
+        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, smax, 0, smax + 5, 3 * r, 3 * r + 1],
+                             device=dev, dtype=torch.int32)
+        got_e = slot_decode(q, sk[0], sv[0], edges)
+        agree_e = agreement("decode_attention (split boundaries)", got_e,
+                            decode_attention_split_plain(q, sk[0], sv[0], edges, r), slot_decode_mod)
+        require(torch.all(got_e[5] == 0).item(), "decode_attention: the empty slot is not zero")
         b_ms, b_by = bound_ms(c["live"] * hkv * d * 2 * 2 + 2 * q.numel() * 2 + n * 4,
                               4 * c["live"] * hq * d)
         # yardstick only (never called by the port): SDPA with a length mask
@@ -366,9 +409,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         return {
             "name": "decode_attention", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
             "replaces": "gofr_tpu/ops/pallas/decode_attention.py:85",
-            "max_abs_err": max(agree["max_abs_err"], agree_o["max_abs_err"]),
-            "rms_rel_err": max(agree["rms_rel_err"], agree_o["rms_rel_err"]),
-            "checks": {"ragged": agree, "past_the_slot": agree_o},
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_o, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_o, agree_e)),
+            "checks": {"ragged": agree, "past_the_slot": agree_o, "split_boundaries": agree_e},
+            "split": {"split_rows": rows_per_split, "splits": splits},
             "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
             **timing(lambda: time_ms(torch, lambda i: slot_decode(
                          q, sk[i % layers], sv[i % layers], lengths), 50),

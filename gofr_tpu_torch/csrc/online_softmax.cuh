@@ -4,7 +4,9 @@
 // softmax_block_update :33, softmax_finish :69). On the TPU the running
 // (m, l, acc) state lived in VMEM scratch carried across sequential grid
 // steps; on the card a block walks its KV tiles in a loop and keeps the
-// state in shared memory and registers. The numerics stay those of the
+// state in shared memory (the decode kernels' warp-per-row fold) or in
+// registers (the flash kernel, one quad of threads per row). The numerics
+// stay those of the
 // TPU kernels, so a fully masked row gives zeros, not NaN:
 //   - masked scores are kNegInf (-1e30), never -inf;
 //   - a row whose running max is still kNegInf takes its probabilities
@@ -65,6 +67,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The same reductions over the 4 threads of an mma quad (lanes 4i..4i+3),
+// which together hold one row of an m16n8 accumulator tile.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // One warp takes the probabilities of one 64-wide tile row held in shared

@@ -2,28 +2,48 @@
 // either layout.
 //
 // Replaces gofr_tpu/ops/pallas/paged_decode.py paged_decode_attention
-// (:94, pallas_call :122, body _paged_decode_kernel :54) over the page pool,
-// and gofr_tpu/ops/pallas/decode_attention.py decode_attention (:85,
-// pallas_call :111, body _decode_kernel :46) over the slot cache. The two
-// differ only in where row t of (slot n, KV head h) lives, so one kernel
-// template serves both through a row-addressing policy: PagedRows reads the
-// slot's block-table entry, SlotRows steps from the slot's base.
+// (:94, pallas_call :122, body _paged_decode_kernel :54) over the page pool
+// (kernel A), and gofr_tpu/ops/pallas/decode_attention.py decode_attention
+// (:85, pallas_call :111, body _decode_kernel :46) over the slot cache
+// (kernel F). The two differ only in where row t of (slot n, KV head h)
+// lives, so one kernel template serves both through a row-addressing policy:
+// PagedRows reads the slot's block-table entry, SlotRows steps from the
+// slot's base.
 //
 // What bounds it on the card: device-memory bytes. Each slot's live K and V
 // rows (len x Hkv x D x 2 planes x 2 B per layer) are read once and used for
 // G = Hq/Hkv query rows only, about one multiply-add per byte, far below the
-// ~295 operations per byte where an H100 turns compute-bound.
+// ~295 operations per byte where an H100 turns compute-bound. At the slot
+// cache's engine shapes (8 slots, Hkv 8, lengths in the hundreds to
+// thousands) that is 37 MB, 11 us at 3.35 TB/s; reaching it takes tens of KB
+// in flight on every one of the 132 SMs.
 //
 // Design:
-//   - One thread block per (slot, KV head). The G query rows of the head
-//     share every K/V tile the block stages, so K/V are read once per head,
-//     not once per query head (the TPU kernels' [G, d] tile).
+//   - One thread block per (slot, KV head, split of the sequence). The G
+//     query rows of the head share every K/V tile the block stages, so K/V
+//     are read once per head, not once per query head (the TPU kernels' [G,
+//     d] tile).
+//   - The split: the launcher cuts each slot into `splits` runs of
+//     `split_rows` positions (a multiple of the 64-row tile), a number the
+//     host takes from the shapes alone, never from the lengths (reading them
+//     would stall the host on the card every layer). A block whose run starts
+//     at or past its length exits at once; the others each walk only their
+//     own live rows, so the work spreads over hundreds of blocks instead of
+//     one per (slot, head). Each writes the f32 state of its G rows (running
+//     max m, sum l, unnormalised acc[D]) to scratch, and a second kernel,
+//     launched from the same entry point, merges the live runs of each
+//     (slot, query head): it rescales run i by exp(m_i - M) (M safe as in
+//     online_softmax.cuh), sums, and divides with the 1e-20 clamp. It reads
+//     only the runs that were written, so the scratch needs no clearing; a
+//     slot of length 0 has no live run and gets zeros. With one split (kernel
+//     A in this version) the block finishes in place and there is no merge.
 //   - The block reads its own length (and block-table row); there is no
-//     scalar prefetch on the card. It walks only the live positions
-//     (ceil(len/64) tiles of 64 rows), never the whole table or slot: the
-//     TPU slot kernel streams all Smax positions and masks them.
-//   - Tiles are staged in shared memory with 16-byte coalesced loads; rows
-//     are padded by 16 B so the score loop reads them without bank conflicts.
+//     scalar prefetch on the card. The TPU slot kernel streams all Smax
+//     positions and masks them; this one stops at the length.
+//   - Tiles flow through a two-stage ring of cp.async copies
+//     (async_copy.cuh): the next tile loads while the current one is
+//     scored and folded. Rows are padded by 16 B so the score loop reads
+//     them without bank conflicts.
 //   - The online-softmax state is f32 (online_softmax.cuh); probabilities are
 //     rounded to bf16 before the P.V product, as the TPU kernels do.
 //   - A length is clamped to what the layout holds (MaxP x page, or Smax): an
@@ -31,20 +51,25 @@
 //     would read the next head's rows. A table entry past the pool clamps to
 //     page P-1 (read, then masked by length like the TPU kernel). Smax need
 //     not be a multiple of 64: rows past the length are never loaded.
-//     len == 0 writes zeros.
-// This first version keeps one block per (slot, head) with no split over the
-// sequence, so at small batch most SMs idle; that is the lever for later work.
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "online_softmax.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kD = 128;          // head_dim (the wrapper checks)
 constexpr int kTile = 64;        // KV positions per staged tile
 constexpr int kThreads = 128;    // == kD: one output column per thread
 constexpr int kMaxGroup = 8;     // query heads per KV head
 constexpr int kStride = kD + 8;  // padded smem row, in bf16 elements
+constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+constexpr int kTileElems = kTile * kStride;
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kRingBytes = kStages * 2 * kTileElems * 2;  // K and V: 69,632 B
+constexpr int kState = kD + 2;   // one split's scratch per query row: acc[D], m, l
 
 // The page pool [P, Hkv, page, D] through the block table [N, MaxP].
 struct PagedRows {
@@ -77,23 +102,45 @@ struct SlotRows {
 
 template <class Rows>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    const __nv_bfloat16* __restrict__ q,      // [N, Hq, D]
-    const __nv_bfloat16* __restrict__ k,      // the layout's K rows
-    const __nv_bfloat16* __restrict__ v,      // the layout's V rows
+    const bf16* __restrict__ q,      // [N, Hq, D]
+    const bf16* __restrict__ k,      // the layout's K rows
+    const bf16* __restrict__ v,      // the layout's V rows
     const Rows rows,
-    const int* __restrict__ lengths,          // [N]
-    __nv_bfloat16* __restrict__ out,          // [N, Hq, D]
-    int hkv, int group, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kStride];
+    const int* __restrict__ lengths,  // [N]
+    bf16* __restrict__ out,           // [N, Hq, D], written here when there is one split
+    float* __restrict__ part,         // [N, Hq, splits, kState], written when there are more
+    int hkv, int group, int split_rows, float scale) {
+  extern __shared__ __align__(16) unsigned char ring[];  // [kStages][K, V][kTile][kStride]
   __shared__ float q_s[kMaxGroup][kD];
   __shared__ float p_s[kMaxGroup][kTile];
   __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], alpha_s[kMaxGroup];
 
-  const int n = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int n = blockIdx.x, h = blockIdx.y, split = blockIdx.z, tid = threadIdx.x;
   const int warp = tid >> 5;
   const int hq = hkv * group;
   const int len = rows.length(lengths, n);
+  const int t_begin = split * split_rows;
+  const int t_end = min(len, t_begin + split_rows);
+  if (gridDim.z > 1 && t_begin >= len) return;  // no live row: the merge never reads this split
+  const int n_tiles = (max(t_end - t_begin, 0) + kTile - 1) / kTile;
+  bf16* const ring_s = reinterpret_cast<bf16*>(ring);
+
+  // copy rows t_begin + 64 i .. of this (slot, head) into stage i % 2; rows
+  // at or past t_end are zero-filled
+  auto stage = [&](int i) {
+    bf16* k_s = ring_s + (i % kStages) * 2 * kTileElems;
+    bf16* v_s = k_s + kTileElems;
+    const int t0 = t_begin + i * kTile;
+    for (int c = tid; c < kTile * kChunks; c += kThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8, t = t0 + r;
+      const bool ok = t < t_end;
+      const size_t base = (ok ? rows.row(n, h, hkv, t) : 0) + col;
+      gofr::cp_async16(k_s + r * kStride + col, k + base, ok);
+      gofr::cp_async16(v_s + r * kStride + col, v + base, ok);
+    }
+  };
+  if (n_tiles > 0) stage(0);
+  gofr::cp_async_commit();
 
   for (int i = tid; i < group * kD; i += kThreads) {
     const int g = i / kD, j = i % kD;
@@ -106,45 +153,36 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float acc[kMaxGroup];
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-  __syncthreads();
 
-  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    // stage K/V rows t0 .. t0+63 of this (slot, head); rows past len are 0
-    for (int c = tid; c < kTile * kChunks; c += kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const int t = t0 + r;
-      uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (t < len) {
-        const size_t base = rows.row(n, h, hkv, t) + col;
-        kk = *reinterpret_cast<const uint4*>(k + base);
-        vv = *reinterpret_cast<const uint4*>(v + base);
-      }
-      *reinterpret_cast<uint4*>(&k_s[r * kStride + col]) = kk;
-      *reinterpret_cast<uint4*>(&v_s[r * kStride + col]) = vv;
-    }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = t_begin + i * kTile;
+    if (i + 1 < n_tiles) stage(i + 1);
+    gofr::cp_async_commit();  // possibly empty, so one wait depth serves every step
+    gofr::cp_async_wait<1>();
     __syncthreads();
+    const bf16* k_s = ring_s + (i % kStages) * 2 * kTileElems;
+    const bf16* v_s = k_s + kTileElems;
 
     // scores: one (query row, position) pair per thread and step
-    for (int i = tid; i < group * kTile; i += kThreads) {
-      const int g = i / kTile, t = i % kTile;
+    for (int j = tid; j < group * kTile; j += kThreads) {
+      const int g = j / kTile, t = j % kTile;
       // 16-byte reads: the 272-byte row stride puts the 8 rows a
       // quarter-warp reads on distinct banks
       const uint4* kr = reinterpret_cast<const uint4*>(&k_s[t * kStride]);
       const float* qr = q_s[g];
       float s = 0.f;
 #pragma unroll 4
-      for (int j = 0; j < kChunks; ++j) {
-        const uint4 w = kr[j];
+      for (int c = 0; c < kChunks; ++c) {
+        const uint4 w = kr[c];
         const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 kf = __bfloat1622float2(k2[e]);
-          s = fmaf(qr[8 * j + 2 * e], kf.x, s);
-          s = fmaf(qr[8 * j + 2 * e + 1], kf.y, s);
+          s = fmaf(qr[8 * c + 2 * e], kf.x, s);
+          s = fmaf(qr[8 * c + 2 * e + 1], kf.y, s);
         }
       }
-      p_s[g][t] = (t0 + t < len) ? s * scale : gofr::kNegInf;
+      p_s[g][t] = (t0 + t < t_end) ? s * scale : gofr::kNegInf;
     }
     __syncthreads();
 
@@ -162,39 +200,95 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       for (int g = 0; g < kMaxGroup; ++g)
         if (g < group) acc[g] = fmaf(p_s[g][t], vt, acc[g]);
     }
-    __syncthreads();
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
+  gofr::cp_async_wait<0>();
+  __syncthreads();  // m_s / l_s are final (a block with no tile has only its init)
 
+  if (gridDim.z == 1) {
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-    if (g < group)
-      out[((size_t)n * hq + h * group + g) * kD + tid] =
-          __float2bfloat16(gofr::row_finish(acc[g], l_s[g]));
+    for (int g = 0; g < kMaxGroup; ++g)
+      if (g < group)
+        out[((size_t)n * hq + h * group + g) * kD + tid] =
+            __float2bfloat16(gofr::row_finish(acc[g], l_s[g]));
+    return;
+  }
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+    if (g < group) {
+      float* st = part + (((size_t)n * hq + h * group + g) * gridDim.z + split) * kState;
+      st[tid] = acc[g];
+      if (tid == 0) st[kD] = m_s[g], st[kD + 1] = l_s[g];
+    }
+  }
+}
+
+// One block per (slot, query head); thread j merges output column j over
+// the slot's live splits.
+template <class Rows>
+__global__ void __launch_bounds__(kThreads) merge_kernel(
+    const float* __restrict__ part, const Rows rows, const int* __restrict__ lengths,
+    bf16* __restrict__ out, int split_rows, int splits) {
+  const int n = blockIdx.x, hq = gridDim.y, head = blockIdx.y, tid = threadIdx.x;
+  const int live = (rows.length(lengths, n) + split_rows - 1) / split_rows;
+  const float* st = part + ((size_t)n * hq + head) * splits * kState;
+  float m = gofr::kNegInf;
+  for (int s = 0; s < live; ++s) m = fmaxf(m, st[s * kState + kD]);
+  const float safe = m > gofr::kNegInf * 0.5f ? m : 0.f;
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < live; ++s) {
+    const float w = expf(st[s * kState + kD] - safe);
+    l = fmaf(w, st[s * kState + kD + 1], l);
+    acc = fmaf(w, st[s * kState + tid], acc);
+  }
+  out[((size_t)n * hq + head) * kD + tid] = __float2bfloat16(gofr::row_finish(acc, l));
 }
 
 template <class Rows>
 int launch(const void* q, const void* k, const void* v, const Rows& rows, const void* lengths,
-           void* out, int n, int hkv, int group, float scale, void* stream) {
-  decode_kernel<Rows><<<dim3(n, hkv), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), rows, static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), hkv, group, scale);
+           void* out, void* scratch, int n, int hkv, int group, int split_rows, int splits,
+           float scale, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  decode_kernel<Rows><<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), rows,
+      static_cast<const int*>(lengths), static_cast<bf16*>(out), static_cast<float*>(scratch),
+      hkv, group, split_rows, scale);
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    merge_kernel<Rows><<<dim3(n, hkv * group), kThreads, 0, s>>>(
+        static_cast<const float*>(scratch), rows, static_cast<const int*>(lengths),
+        static_cast<bf16*>(out), split_rows, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Kernel A: one split (the block finishes in place).
 extern "C" int gofr_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const void* table, const void* lengths, void* out,
                                  int n, int hkv, int group, int pool, int page, int maxp,
                                  float scale, void* stream) {
   const PagedRows rows{static_cast<const int*>(table), pool, page, maxp};
-  return launch(q, k_pool, v_pool, rows, lengths, out, n, hkv, group, scale, stream);
+  return launch(q, k_pool, v_pool, rows, lengths, out, nullptr, n, hkv, group, maxp * page, 1,
+                scale, stream);
 }
 
+// Kernel F: `splits` runs of `split_rows` positions (splits x split_rows >=
+// smax), then the merge; `scratch` holds n x Hq x splits x (D + 2) floats.
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                     const void* lengths, void* out, int n, int hkv, int group,
-                                     int smax, float scale, void* stream) {
+                                     const void* lengths, void* out, void* scratch, int n, int hkv,
+                                     int group, int smax, int split_rows, int splits, float scale,
+                                     void* stream) {
   const SlotRows rows{smax};
-  return launch(q, k_cache, v_cache, rows, lengths, out, n, hkv, group, scale, stream);
+  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, split_rows,
+                splits, scale, stream);
 }

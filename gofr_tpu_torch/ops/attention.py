@@ -19,6 +19,9 @@ Two layers live here:
   ``ops/cuda`` (which launches or raises), a tensor on the CPU to the plain
   version. There is no fallback from one to the other. The int8 slot
   decode ``decode_attention_q`` has no kernel: the TPU ran it as XLA.
+
+``decode_attention_split_plain`` repeats kernel F's split-and-merge
+arithmetic in PyTorch; only the tests call it.
 """
 
 from __future__ import annotations
@@ -99,6 +102,41 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     probs = _softmax(scores)
     out = torch.einsum("bkgt,bktd->bkgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, hq, d)
+
+
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                 lengths: torch.Tensor, split_rows: int, *,
+                                 scale: float | None = None) -> torch.Tensor:
+    """``decode_attention`` as kernel F computes it, for the tests: the slot
+    cut into runs of ``split_rows`` positions, each run's (max m, sum l,
+    unnormalised acc) taken in f32 against its own max with probabilities
+    rounded to the cache's type before P.V, then the live runs (those
+    starting before the length, clamped to [0, Smax]) merged: run i
+    rescaled by exp(m_i - M) with the safe-max rule, summed, and divided
+    with the 1e-20 clamp. A slot of length 0 has no live run: zeros."""
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    splits = -(-smax // split_rows)
+    pad = splits * split_rows - smax
+    length = lengths.to(q.device).long().clamp(0, smax)
+    scores = torch.einsum("bkgd,bktd->bkgt", q.reshape(b, hkv, g, d).float(), k_cache.float()) * scale
+    live_pos = torch.arange(smax, device=q.device)[None, :] < length[:, None]
+    scores = torch.where(live_pos[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    runs = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF).reshape(b, hkv, g, splits,
+                                                                            split_rows)
+    m = runs.amax(dim=-1)                                           # [B, Hkv, G, splits]
+    p = torch.exp(runs - m.where(m > NEG_INF / 2, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    v_runs = torch.nn.functional.pad(v_cache, (0, 0, 0, pad)).reshape(b, hkv, splits, split_rows, d)
+    acc = torch.einsum("bkgsr,bksrd->bkgsd", p.to(v_cache.dtype).float(), v_runs.float())
+    live = torch.arange(splits, device=q.device)[None, :] < (-(-length // split_rows))[:, None]
+    live = live[:, None, None]                                       # [B, 1, 1, splits]
+    top = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - top.where(top > NEG_INF / 2, 0.0)), torch.zeros_like(m))
+    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1), min=1e-20)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

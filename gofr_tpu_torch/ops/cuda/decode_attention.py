@@ -2,16 +2,20 @@
 
 Replaces gofr_tpu/ops/pallas/decode_attention.py ``decode_attention``
 (:85). The CUDA source is ``csrc/paged_decode.cu``, the kernel template of
-kernel A with the slot cache's row addressing (``SlotRows``); its header
-note says what bounds it (device-memory bytes) and how the design answers
-that. Its plain version is ``ops.attention.decode_attention_plain``;
-``ops.attention.decode_attention`` chooses between the two by the tensor's
-device.
+kernel A with the slot cache's row addressing (``SlotRows``), split over the
+sequence into ``split_plan``'s runs and merged by a second kernel launched
+from the same entry point; its header note says what bounds it
+(device-memory bytes) and how the design answers that. Its plain version is
+``ops.attention.decode_attention_plain``; ``ops.attention.decode_attention``
+chooses between the two by the tensor's device.
+``ops.attention.decode_attention_split_plain`` repeats the split and merge
+arithmetic in PyTorch for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -22,23 +26,42 @@ from gofr_tpu_torch.ops.cuda.paged_decode import HEAD_DIM, MAX_GROUP
 # is kernel A's (the same template), and so is the plain version's, so the
 # two differ as A and its plain version do: by a few bf16 ulps, the plain
 # version rounding the scores to bf16 where the kernel keeps them in f32.
-# On an H100 (700 W) at the slice's shapes (8 live slots of 699..1591, an
-# empty slot, Smax 2176) the clean kernel is off by at most 1.95e-3 and
-# 0.53% of the output's RMS, and by 7.3e-4 / 0.52% on a lane past the
-# slot. The nearest planted fault, a length not clamped to Smax, reads
-# 7.9e-3 / 3.6% on that lane; a key past the length or the last key
-# dropped reads 3.3 / 687% and 0.033 / 3.1% (scripts/torch_kernel_mutants.py).
-# Limits: those of A, 5e-3 on any element and 1.2% on the RMS ratio.
+# The split changes only the order of the f32 sums (each run's probabilities
+# are taken against its own max, then rescaled in the merge). On an H100
+# (700 W) at the slice's shapes (8 live slots of 699..1591, an empty slot,
+# Smax 2176) the unsplit kernel was off by at most 1.95e-3 and 0.53% of the
+# output's RMS, and by 7.3e-4 / 0.52% on a lane past the slot; the nearest
+# planted fault, a length not clamped to Smax, read 7.9e-3 / 3.6% on that
+# lane (scripts/torch_kernel_mutants.py). Limits: those of A, 5e-3 on any
+# element and 1.2% on the RMS ratio.
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+TILE = 64
+# Blocks the split aims at over the whole (slot, KV head, split) grid:
+# about 8 per SM of an H100's 132. Three fit on an SM at once (70 KB of
+# shared memory each), and at the engine's lengths about half of them find
+# no live row and exit at once.
+SPLIT_BLOCKS = 1024
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def split_plan(n: int, hkv: int, smax: int) -> tuple[int, int]:
+    """(split_rows, splits) for ``n`` slots of ``hkv`` KV heads and ``smax``
+    positions: runs of a whole number of 64-row tiles, as many per (slot,
+    head) as bring the grid to about ``SPLIT_BLOCKS`` blocks, and enough of
+    them to cover the slot. A function of the shapes alone: the lengths live
+    on the card, and reading them here would stall the host every layer."""
+    tiles = max(1, math.ceil(smax / TILE))
+    per_lane = max(1, math.ceil(SPLIT_BLOCKS / max(1, n * hkv)))
+    split_rows = TILE * math.ceil(tiles / per_lane)
+    return split_rows, max(1, math.ceil(smax / split_rows))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
     """q [B, Hq, D] against slot-cache layer slices [B, Hkv, Smax, D],
     attending to positions < lengths[b] (clamped to [0, Smax]) →
-    [B, Hq, D]. Launches the kernel, or raises."""
+    [B, Hq, D]. Launches the kernel (and its merge), or raises."""
     cuda.require(q.is_cuda and k_cache.is_cuda and v_cache.is_cuda,
                  "decode_attention takes tensors on the card")
     b, hq, d = q.shape
@@ -60,9 +83,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     out = torch.empty_like(q)
     if b == 0:
         return out
+    split_rows, splits = split_plan(b, hkv, smax)
+    # each split's (acc[D], m, l) per query row; only the merge reads it
+    scratch = torch.empty(b * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
+                          device=q.device)
     fn = cuda.bind("gofr_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, hkv, hq // hkv, smax, scale, cuda.stream_of(q))
+            out.data_ptr(), scratch.data_ptr(), b, hkv, hq // hkv, smax, split_rows, splits, scale,
+            cuda.stream_of(q))
     cuda.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

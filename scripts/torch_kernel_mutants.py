@@ -45,8 +45,9 @@ MUTANTS = [
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
     ("paged_decode: last live key dropped", "paged_decode.cu",
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] - 1, 0), maxp * page)", True),
+    # the scores of the sequence's first 64 rows masked: as if never loaded
     ("paged_decode/decode_attention: first live tile skipped", "paged_decode.cu",
-     "for (int t0 = 0; t0 < len; t0 += kTile)", "for (int t0 = kTile; t0 < len; t0 += kTile)", True),
+     "p_s[g][t] = (t0 + t < t_end)", "p_s[g][t] = (t0 >= kTile && t0 + t < t_end)", True),
     ("paged_decode/decode_attention: last key of each tile left out of P.V", "paged_decode.cu",
      "for (int t = 0; t < kTile; ++t) {", "for (int t = 0; t < kTile - 1; ++t) {", True),
     ("decode_attention: one key past the length", "paged_decode.cu",
@@ -63,11 +64,23 @@ MUTANTS = [
     ("kv_append_slot: no drop at pos == Smax", "kv_append.cu",
      "pos >= smax", "pos > smax", True),
     ("flash_attention: causal diagonal masked", "flash_attention.cu",
-     "qo + q0 + r >= kv", "qo + q0 + r > kv", True),
+     "(!causal || pos >= kv)", "(!causal || pos > kv)", True),
     ("flash_attention: one key past kv_length", "flash_attention.cu",
-     "const bool ok = kv < kl &&", "const bool ok = kv <= kl &&", True),
+     "!(kv < kl &&", "!(kv <= kl &&", True),
     ("flash_attention: last key tile skipped", "flash_attention.cu",
-     "for (int k0 = 0; k0 < kv_end; k0 += kBK)", "for (int k0 = 0; k0 < kv_end - kBK; k0 += kBK)", True),
+     "n_tiles = (kv_end + kBK - 1) / kBK;", "n_tiles = (kv_end - 1) / kBK;", True),
+    ("flash_attention: online rescale of O skipped", "flash_attention.cu",
+     "o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];",
+     "(void)alpha;", True),
+    # keys 8..15 of every 16-key step left out of P.V (for half the columns)
+    ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
+     "mma_bf16(o[2 * dp], pf[kk], vf[0], vf[1]);", "mma_bf16(o[2 * dp], pf[kk], vf[0], 0u);", True),
+    ("decode_attention: last live split left out of the merge", "paged_decode.cu",
+     "for (int s = 0; s < live; ++s) {", "for (int s = 0; s < live - 1; ++s) {", True),
+    ("decode_attention: a split's max ignored in the merge (no rescale)", "paged_decode.cu",
+     "const float w = expf(st[s * kState + kD] - safe);", "const float w = 1.f;", True),
+    ("decode_attention: split boundaries overlapping by one row", "paged_decode.cu",
+     "min(len, t_begin + split_rows);", "min(len, t_begin + split_rows + 1);", True),
     ("paged_decode_q/_q4: ks fold dropped", "paged_decode_q.cu",
      "s * scale * ks_s[t]", "s * scale", True),
     ("paged_decode_q/_q4: vs fold dropped", "online_softmax.cuh",

@@ -339,3 +339,30 @@ def test_cuda_kernels_match_plain_on_the_card():
     append_tokens_paged_plain(c, d, table, lengths, kn, kn)
     assert torch.equal(a.view(torch.int16), c.view(torch.int16))
     assert torch.equal(b.view(torch.int16), d.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain_at_long_ragged_and_chunked_prefill():
+    """The tensor-core flash kernel at the longest prefill the engine pads to
+    (4 x 1024, causal, full and ragged with offsets) and on a chunked-prefill
+    call: a chunk of 200 queries (not a multiple of the 64-row tile) after
+    cached offsets, keys up to offset + chunk length (models/llama.py)."""
+    _needs_card()
+    from gofr_tpu_torch.ops.attention import mha_attention_plain
+    from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(4, 1024, 32, 128, device=dev, generator=g).to(bf)
+    k = torch.randn(4, 1024, 8, 128, device=dev, generator=g).to(bf)
+    v = torch.randn(4, 1024, 8, 128, device=dev, generator=g).to(bf)
+    offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+    lens = torch.tensor([1024, 700, 129, 0], device=dev, dtype=torch.int32)
+    chunk_offs = torch.tensor([512, 300, 0, 824], device=dev, dtype=torch.int32)
+    chunk_lens = chunk_offs + torch.tensor([200, 131, 77, 200], device=dev, dtype=torch.int32)
+    for qq, kw in ((q, {}), (q, {"q_offset": offs, "kv_lengths": lens}),
+                   (q[:, :200].contiguous(), {"q_offset": chunk_offs, "kv_lengths": chunk_lens})):
+        got = flash_mod.flash_attention(qq, k, v, causal=True, **kw)
+        assert _within(got, mha_attention_plain(qq, k, v, causal=True, **kw), flash_mod)
+        if "kv_lengths" in kw and qq is q:
+            assert torch.all(got[3] == 0)  # kv_length 0: every row fully masked

@@ -449,3 +449,38 @@ def test_slot_kernels_match_plain_on_the_card():
     assert torch.equal(a.view(torch.int16), c.view(torch.int16))
     assert torch.equal(b.view(torch.int16), d.view(torch.int16))
     assert torch.equal(a[0], k[0]) and torch.equal(a[2], k[2]) and not torch.equal(a[1], k[1])
+
+
+@pytest.mark.cuda
+def test_split_slot_decode_matches_plain_at_split_boundaries():
+    """Kernel F split over the sequence at the engine's shapes: lanes on and
+    one past the first split boundaries, the whole slot, the empty slot and
+    a lane past the slot, held against the split's plain version (f32
+    scores, as the kernel) and the ragged long lanes against the unsplit one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gofr_tpu_torch.ops.attention import decode_attention_plain, decode_attention_split_plain
+    from gofr_tpu_torch.ops.cuda import decode_attention as mod
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2)
+    n, smax = 9, 2176
+    k = torch.randn(n, 8, smax, 128, device=dev, generator=g).to(bf)
+    v = torch.randn(n, 8, smax, 128, device=dev, generator=g).to(bf)
+    q = torch.randn(n, 32, 128, device=dev, generator=g).to(bf)
+    r, splits = mod.split_plan(n, 8, smax)
+    assert splits > 1
+    edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, smax, 0, smax + 5, 3 * r, 3 * r + 1],
+                         device=dev, dtype=torch.int32)
+    got = mod.decode_attention(q, k, v, edges)
+    want = decode_attention_split_plain(q, k, v, edges, r)
+    diff = got.float() - want.float()
+    rel = diff.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()
+    assert diff.abs().max().item() <= mod.MAX_ABS and rel.item() <= mod.RMS_REL
+    assert torch.all(got[5] == 0)
+    long = torch.tensor([699, 1591, 1200, 2000, 1000, 0, 1500, 800, 1300], device=dev,
+                        dtype=torch.int32)
+    got, want = mod.decode_attention(q, k, v, long), decode_attention_plain(q, k, v, long)
+    diff = got.float() - want.float()
+    rel = diff.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()
+    assert diff.abs().max().item() <= mod.MAX_ABS and rel.item() <= mod.RMS_REL

@@ -97,6 +97,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time of one ``fn(i)``: the time of the GPU activity (kernels,
+    memsets, copies) that ``iters`` calls leave in a ``torch.profiler``
+    trace, over ``iters``. Unlike ``time_ms`` it leaves out the host's time
+    between launches, which a short kernel behind a Python wrapper can wait
+    on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -217,10 +236,16 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     from gofr_tpu_torch.ops.kvcache import append_tokens_plain
     from gofr_tpu_torch.ops.paged import append_tokens_paged_plain
 
-    def timing(ms, plain_ms, library_ms=None) -> dict:
+    def timing(kernel, plain, library=None, iters: int = 50, plain_iters: int = 10) -> dict:
+        """Each of ``fn(i)`` kernel, plain version and library yardstick
+        timed with CUDA events over back-to-back calls (``ms``), and the
+        kernel and yardstick also by their device time (``device_ms``)."""
         if not timed:
             return {}
-        return {"ms": ms(), "plain_ms": plain_ms(), "library_ms": library_ms and library_ms()}
+        return {"ms": time_ms(torch, kernel, iters), "device_ms": device_ms(torch, kernel, iters),
+                "plain_ms": time_ms(torch, plain, plain_iters),
+                "library_ms": library and time_ms(torch, library, iters),
+                "library_device_ms": library and device_ms(torch, library, iters)}
 
     c = _decode_case(torch)
     hq, hkv, d, page, n, layers = (c[k] for k in ("hq", "hkv", "d", "page", "n", "layers"))
@@ -242,10 +267,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
             "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94", **agree,
             "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
-            **timing(lambda: time_ms(torch, lambda i: paged_decode(
-                         q, k_pool[i % layers], v_pool[i % layers], table, lengths), 50),
-                     lambda: time_ms(torch, lambda i: paged_decode_attention_plain(
-                         q, k_pool[i % layers], v_pool[i % layers], table, lengths), 10)),
+            **timing(lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table,
+                                            lengths),
+                     lambda i: paged_decode_attention_plain(q, k_pool[i % layers], v_pool[i % layers],
+                                                            table, lengths)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": decode_shape,
         }
 
@@ -266,10 +291,11 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "name": "kv_append", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
             "replaces": "gofr_tpu/ops/pallas/kv_append.py:110", "max_abs_err": 0.0,
             "tolerance": "bit-exact",
-            **timing(lambda: time_ms(torch, lambda i: kv_append(
-                         k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 200),
-                     lambda: time_ms(torch, lambda i: append_tokens_paged_plain(
-                         k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new), 50)),
+            **timing(lambda i: kv_append(k_pool[i % layers], v_pool[i % layers], table, lengths,
+                                         k_new, v_new),
+                     lambda i: append_tokens_paged_plain(k_pool[i % layers], v_pool[i % layers],
+                                                         table, lengths, k_new, v_new),
+                     iters=200, plain_iters=50),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"slots": n, "hkv": hkv, "d": d, "page": page},
         }
@@ -283,12 +309,12 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         pairs = 4 * s * (s + 1) // 2
         return qf, kf, vf, bound_ms(2 * (2 * qf.numel() + 2 * kf.numel()), 4 * hq * d * pairs)
 
-    def sdpa_ms(qf, kf, vf) -> float:
+    def sdpa(qf, kf, vf):
         """Yardstick only (never called by the port): SDPA on head-major
         views, KV heads repeated outside the timed call."""
         qh = qf.transpose(1, 2)
         kh, vh = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1) for t in (kf, vf))
-        return time_ms(torch, lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+        return lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
 
     def flash_agree(label: str, qf, kf, vf, **kw) -> tuple:
         """(agreement with the plain version, the kernel's output)."""
@@ -319,10 +345,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         checks["chunked"] = flash_agree("chunked", q2[:, :200].contiguous(), k2, v2, q_offset=offs,
                                         kv_lengths=lens)[0]
         long = {"shape": {"batch": 4, "seq": 1024, "causal": True}, "bound_ms": b_ms_l,
-                "bound_by": b_by_l}
-        if timed:
-            long["ms"] = time_ms(torch, lambda i: flash_attention(q2, k2, v2, causal=True), 20)
-            long["library_ms"] = sdpa_ms(q2, k2, v2)
+                "bound_by": b_by_l,
+                **timing(lambda i: flash_attention(q2, k2, v2, causal=True),
+                         lambda i: mha_attention_plain(q2, k2, v2, causal=True), sdpa(q2, k2, v2),
+                         iters=20, plain_iters=3)}
         return {
             "name": "flash_attention", "route": "cuda",
             "source": "gofr_tpu_torch/csrc/flash_attention.cu",
@@ -331,9 +357,9 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "rms_rel_err": max(c["rms_rel_err"] for c in checks.values()),
             "checks": checks,
             "tolerance": {"max_abs": flash_mod.MAX_ABS, "rms_rel": flash_mod.RMS_REL},
-            **timing(lambda: time_ms(torch, lambda i: flash_attention(qf, kf, vf, causal=True), 20),
-                     lambda: time_ms(torch, lambda i: mha_attention_plain(qf, kf, vf, causal=True), 5),
-                     lambda: sdpa_ms(qf, kf, vf)),
+            **timing(lambda i: flash_attention(qf, kf, vf, causal=True),
+                     lambda i: mha_attention_plain(qf, kf, vf, causal=True), sdpa(qf, kf, vf),
+                     iters=20, plain_iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long,
             "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
@@ -362,9 +388,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "replaces": replaces, **agree,
             "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
-            **timing(lambda: time_ms(torch, lambda i: launch(*args(i % layers)), 50),
-                     lambda: time_ms(torch, lambda i: plain(*args(i % layers)), 10),
-                     None),
+            **timing(lambda i: launch(*args(i % layers)), lambda i: plain(*args(i % layers))),
             "bound_ms": b_ms, "bound_by": b_by, "shape": {**decode_shape, "kv_bits": bits},
         }
 
@@ -389,9 +413,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         # the split's edges: on and one past the first three split
         # boundaries, the whole slot, the empty slot, past the slot. Lanes
         # this short have outputs up to ~0.9, where the plain version's bf16
-        # scores alone move an output by up to two bf16 ulps (7.8e-3
-        # between the two plain versions, past MAX_ABS); so they are held against the split's plain version,
-        # which takes the scores in f32 and splits as the kernel does
+        # scores alone move an output by up to two bf16 ulps (7.8e-3 between
+        # the two plain versions, past MAX_ABS); so they are held against the
+        # split's plain version, which takes the scores in f32 and splits as
+        # the kernel does
         rows_per_split, splits = slot_decode_mod.split_plan(n, hkv, smax)
         r = rows_per_split
         edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, smax, 0, smax + 5, 3 * r, 3 * r + 1],
@@ -414,12 +439,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "checks": {"ragged": agree, "past_the_slot": agree_o, "split_boundaries": agree_e},
             "split": {"split_rows": rows_per_split, "splits": splits},
             "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
-            **timing(lambda: time_ms(torch, lambda i: slot_decode(
-                         q, sk[i % layers], sv[i % layers], lengths), 50),
-                     lambda: time_ms(torch, lambda i: decode_attention_plain(
-                         q, sk[i % layers], sv[i % layers], lengths), 10),
-                     lambda: time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                         q1, sk[i % layers], sv[i % layers], attn_mask=mask, enable_gqa=True), 50)),
+            **timing(lambda i: slot_decode(q, sk[i % layers], sv[i % layers], lengths),
+                     lambda i: decode_attention_plain(q, sk[i % layers], sv[i % layers], lengths),
+                     lambda i: F.scaled_dot_product_attention(q1, sk[i % layers], sv[i % layers],
+                                                              attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": slot_shape,
         }
 
@@ -444,10 +467,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "name": "kv_append_slot", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
             "replaces": "gofr_tpu/ops/pallas/kv_append.py:61", "max_abs_err": 0.0,
             "tolerance": "bit-exact",
-            **timing(lambda: time_ms(torch, lambda i: kv_append_slot(
-                         sk[i % layers], sv[i % layers], lengths, k_new, v_new), 200),
-                     lambda: time_ms(torch, lambda i: append_tokens_plain(
-                         sk[i % layers], sv[i % layers], lengths, k_new, v_new), 50)),
+            **timing(lambda i: kv_append_slot(sk[i % layers], sv[i % layers], lengths, k_new, v_new),
+                     lambda i: append_tokens_plain(sk[i % layers], sv[i % layers], lengths, k_new,
+                                                   v_new),
+                     iters=200, plain_iters=50),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"slots": n, "hkv": hkv, "d": d, "smax": smax},
         }

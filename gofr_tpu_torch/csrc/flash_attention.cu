@@ -175,13 +175,16 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
+      // all four fragments of this d-step first, so their loads overlap
+      // matrices: keys +0..7 / +8..15 (mat >> 1) by d +0..7 / +8..15 (mat & 1)
+      uint32_t kf[kBK / 16][4];
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np)
+        ldmatrix_x4(kf[np], ks + (np * 16 + mrow + (mat >> 1) * 8) * kStride + kk * 16 + (mat & 1) * 8);
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
-        // matrices: keys +0..7 / +8..15 (mat >> 1) by d +0..7 / +8..15 (mat & 1)
-        uint32_t kf[4];
-        ldmatrix_x4(kf, ks + (np * 16 + mrow + (mat >> 1) * 8) * kStride + kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qf[kk], kf[np][0], kf[np][1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[np][2], kf[np][3]);
       }
     }
 
@@ -226,12 +229,20 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
+      for (int half = 0; half < 2; ++half) {
+        // four fragments (64 columns of d) first, so their loads overlap
         // transposed matrices: keys +0..7 / +8..15 (mat & 1) by d +0..7 / +8..15 (mat >> 1)
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + mrow + (mat & 1) * 8) * kStride + dp * 16 + (mat >> 1) * 8);
-        mma_bf16(o[2 * dp], pf[kk], vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pf[kk], vf[2], vf[3]);
+        uint32_t vf[kD / 32][4];
+#pragma unroll
+        for (int j = 0; j < kD / 32; ++j)
+          ldmatrix_x4_trans(vf[j], vs + (kk * 16 + mrow + (mat & 1) * 8) * kStride +
+                                       (half * 4 + j) * 16 + (mat >> 1) * 8);
+#pragma unroll
+        for (int j = 0; j < kD / 32; ++j) {
+          const int dp = half * 4 + j;
+          mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);
+          mma_bf16(o[2 * dp + 1], pf[kk], vf[j][2], vf[j][3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled

@@ -36,7 +36,7 @@
 //     online_softmax.cuh), sums, and divides with the 1e-20 clamp. It reads
 //     only the runs that were written, so the scratch needs no clearing; a
 //     slot of length 0 has no live run and gets zeros. With one split (kernel
-//     A in this version) the block finishes in place and there is no merge.
+//     A launches one) the block finishes in place and there is no merge.
 //   - The block reads its own length (and block-table row); there is no
 //     scalar prefetch on the card. The TPU slot kernel streams all Smax
 //     positions and masks them; this one stops at the length.

@@ -26,14 +26,17 @@ from gofr_tpu_torch.ops.cuda.paged_decode import HEAD_DIM, MAX_GROUP
 # is kernel A's (the same template), and so is the plain version's, so the
 # two differ as A and its plain version do: by a few bf16 ulps, the plain
 # version rounding the scores to bf16 where the kernel keeps them in f32.
-# The split changes only the order of the f32 sums (each run's probabilities
-# are taken against its own max, then rescaled in the merge). On an H100
-# (700 W) at the slice's shapes (8 live slots of 699..1591, an empty slot,
-# Smax 2176) the unsplit kernel was off by at most 1.95e-3 and 0.53% of the
-# output's RMS, and by 7.3e-4 / 0.52% on a lane past the slot; the nearest
-# planted fault, a length not clamped to Smax, read 7.9e-3 / 3.6% on that
-# lane (scripts/torch_kernel_mutants.py). Limits: those of A, 5e-3 on any
-# element and 1.2% on the RMS ratio.
+# The split changes only the order of the f32 sums (each run's
+# probabilities are taken against its own max, then rescaled in the merge).
+# On an H100 (700 W) at the slice's shapes (8 live slots of 699..1591, an
+# empty slot, Smax 2176; 192 rows x 12 splits) the split kernel was off by
+# 1.95e-3 and 0.49% of the output's RMS, 7.3e-4 / 0.52% on a lane past the
+# slot, and 1.95e-3 / 0.20% on lanes on and one past split boundaries
+# (against the split's plain version). The nearest planted fault, a length
+# not clamped to Smax, read 8.0e-3 / 3.6% on the lane past the slot; split
+# boundaries overlapping by one row 0.058 / 6.6%, the last split left out
+# of the merge 0.14 / 34% (scripts/torch_kernel_mutants.py). Limits: those
+# of A, 5e-3 on any element and 1.2% on the RMS ratio.
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 TILE = 64

@@ -1,9 +1,10 @@
 """Kernel C: flash (blocked online-softmax) prefill attention.
 
 Replaces gofr_tpu/ops/pallas/flash_attention.py ``flash_attention`` (:108).
-The CUDA source is ``csrc/flash_attention.cu`` with the recurrence shared
-with kernel A in ``csrc/online_softmax.cuh``; the header note says what
-bounds it (operations) and how the design answers that. Its plain version
+The CUDA source is ``csrc/flash_attention.cu`` (tensor cores, ``mma.sync``)
+with the recurrence shared with the decode kernels in
+``csrc/online_softmax.cuh``; the header note says what bounds it (bytes at
+4 x 512, operations at 4 x 1024) and how the design answers that. Its plain version
 is ``ops.attention.mha_attention_plain``; ``ops.attention.mha_attention``
 chooses between the two by the tensor's device.
 """
@@ -17,14 +18,18 @@ import torch
 from gofr_tpu_torch.ops import cuda
 
 HEAD_DIM = 128
-# Agreement with the plain version on the same bf16 inputs. As for paged
-# decode, the two differ by where they round to bf16; a row that attends to
-# few keys has outputs of a few units, so at the slice's shapes (4 x 512,
-# causal and ragged) the largest difference was one bf16 ulp of such a value
-# (2^-6), and the RMS difference 0.41% of the output's RMS. Limits: 3e-2 on
-# any element and 1.2% on the RMS. A planted fault (the causal diagonal
-# masked, one key past kv_length, the last key tile skipped) moved outputs
-# by 0.56..4.5 and 6.3%..83% (scripts/torch_kernel_mutants.py).
+# Agreement with the plain version on the same bf16 inputs. The two differ
+# by where they round to bf16 (the kernel's P is rounded to bf16 for the
+# tensor cores as the plain version's probabilities are, but its scores stay
+# f32); a row that attends to few keys has outputs of a few units, so the
+# largest difference is one bf16 ulp of such a value (2^-6). On an H100
+# (700 W) the tensor-core kernel read 0.0156 and 0.39..0.43% of the
+# output's RMS at every phase-3 case (4 x 512 and 4 x 1024 causal, full and
+# ragged with offsets, a chunk of 200 queries after offsets). Limits: 3e-2
+# on any element and 1.2% on the RMS. The nearest planted fault, one key
+# past kv_length, read 0.77 / 6.3%; O's rescale skipped 2.6 / 36%, a k16
+# half dropped from P.V 2.3 / 41%, the causal diagonal masked 4.8 / 44%
+# (scripts/torch_kernel_mutants.py).
 MAX_ABS = 3e-2
 RMS_REL = 1.2e-2
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -47,7 +52,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda.require(hq % hkv == 0, f"query heads {hq} not divisible by kv heads {hkv}")
     scale = scale if scale is not None else d ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    offsets = torch.as_tensor(q_offset, dtype=torch.int32, device=q.device).expand(b).contiguous()
+    # a Python offset is filled in on the card: copying it from the host
+    # would synchronise the stream on every call (every prefill layer)
+    offsets = (torch.full((b,), int(q_offset), dtype=torch.int32, device=q.device)
+               if isinstance(q_offset, int) else
+               q_offset.to(device=q.device, dtype=torch.int32).expand(b).contiguous())
     lengths = (torch.full((b,), skv, dtype=torch.int32, device=q.device) if kv_lengths is None
                else kv_lengths.to(device=q.device, dtype=torch.int32).contiguous())
     out = torch.empty_like(q)

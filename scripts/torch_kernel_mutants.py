@@ -74,7 +74,7 @@ MUTANTS = [
      "(void)alpha;", True),
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
-     "mma_bf16(o[2 * dp], pf[kk], vf[0], vf[1]);", "mma_bf16(o[2 * dp], pf[kk], vf[0], 0u);", True),
+     "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
     ("decode_attention: last live split left out of the merge", "paged_decode.cu",
      "for (int s = 0; s < live; ++s) {", "for (int s = 0; s < live - 1; ++s) {", True),
     ("decode_attention: a split's max ignored in the merge (no rescale)", "paged_decode.cu",

@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""What does each piece of a kernel's design buy? (one card)
+
+    python3 scripts/torch_kernel_variants.py
+
+Each variant is a copy of ``gofr_tpu_torch/csrc`` with one design choice
+undone (a text replacement, made and built under
+``gofr_tpu_torch/build/variants/`` at run time; the sources in the checkout
+are never changed). The unmodified build is held against the plain
+versions (``chip_smoke.check_kernels``), each variant against the
+unmodified build's outputs, and every build is timed twice, in the order
+A B ... then ... B A, on
+``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
+4 x 1024 causal, the slot decode (F) and the paged decode (A) at 8 live
+slots of 699..1591 and an empty one. Times are device times
+(``chip_smoke.device_ms``), so a wrapper's host time does not hide a
+kernel's.
+
+Prints one JSON line per build and round, then the mean of each, and writes
+them to ``chiprun_out/kernel_variants.json``. Exits non-zero if the
+unmodified build fails ``chip_smoke.check_kernels`` or a variant's outputs
+move by more than ``MAX_DIFF`` from the unmodified build's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+from gofr_tpu_torch.ops import cuda  # noqa: E402
+
+# A variant only reorders or regroups the same arithmetic: its outputs may
+# differ from the unmodified build's by rounding (a bf16 ulp of the largest
+# flash outputs is 0.0156), never by more than this.
+MAX_DIFF = 0.1
+# (name, [(file, text to replace, replacement), ...])
+VARIANTS = [
+    # C: each K and V fragment loaded right before its mma.sync
+    ("flash_attention: fragment loads not batched", [
+        ("flash_attention.cu",
+         "        ldmatrix_x4(kf[np], ks + (np * 16 + mrow + (mat >> 1) * 8) * kStride + kk * 16 + "
+         "(mat & 1) * 8);\n#pragma unroll\n      for (int np = 0; np < kBK / 16; ++np) {\n",
+         "      {\n        ldmatrix_x4(kf[np], ks + (np * 16 + mrow + (mat >> 1) * 8) * kStride + "
+         "kk * 16 + (mat & 1) * 8);\n"),
+        ("flash_attention.cu",
+         "        for (int j = 0; j < kD / 32; ++j)\n          ldmatrix_x4_trans(",
+         "        for (int j = 0; j < kD / 32; ++j) {\n          ldmatrix_x4_trans("),
+        ("flash_attention.cu",
+         "(half * 4 + j) * 16 + (mat >> 1) * 8);\n#pragma unroll\n        for (int j = 0; j < kD / 32; ++j) {\n",
+         "(half * 4 + j) * 16 + (mat >> 1) * 8);\n"),
+    ]),
+    # C: three blocks per SM (Q staged in stage 1's K tile, 168 registers)
+    ("flash_attention: three blocks per SM", [
+        ("flash_attention.cu",
+         "constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;",
+         "constexpr int kSmemBytes = 2 * kStages * kTileElems * 2;"),
+        ("flash_attention.cu", "__launch_bounds__(kThreads) flash_kernel(",
+         "__launch_bounds__(kThreads, 3) flash_kernel("),
+        ("flash_attention.cu",
+         "  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBQ][kStride], then the output tile\n"
+         "  bf16* k_s = q_s + kBQ * kStride;            // [kStages][kBK][kStride]\n",
+         "  bf16* k_s = reinterpret_cast<bf16*>(smem);\n  bf16* q_s = k_s + kTileElems;\n"),
+        ("flash_attention.cu", "    const int k0 = i * kBK;\n    if (i + 1 < n_tiles) {",
+         "    const int k0 = i * kBK;\n    if (i == 0) {\n      gofr::cp_async_wait<0>();\n"
+         "      __syncthreads();\n#pragma unroll\n      for (int kk = 0; kk < kD / 16; ++kk)\n"
+         "        ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kStride + kk * 16 + "
+         "(lane >> 4) * 8);\n      __syncthreads();\n    }\n    if (i + 1 < n_tiles) {"),
+        ("flash_attention.cu",
+         "    gofr::cp_async_wait<1>();\n    __syncthreads();\n    if (i == 0) {\n#pragma unroll\n"
+         "      for (int kk = 0; kk < kD / 16; ++kk)\n        ldmatrix_x4(qf[kk], q_s + (warp * 16 + "
+         "(lane & 15)) * kStride + kk * 16 + (lane >> 4) * 8);\n    }\n",
+         "    if (i > 0) {\n      gofr::cp_async_wait<1>();\n      __syncthreads();\n    }\n"),
+        ("flash_attention.cu", "bf16* o_s = q_s + warp * 16 * kStride;",
+         "bf16* o_s = k_s + warp * 16 * kStride;"),
+    ]),
+    # C, A, D, E, F: exp2f for expf in the probabilities (changes the numerics slightly)
+    ("online_softmax: exp2f probabilities", [
+        ("online_softmax.cuh", "return expf(score - m_safe);",
+         "return exp2f((score - m_safe) * 1.4426950408889634f);"),
+    ]),
+    # A and F: K/V staged with synchronous 16-byte loads (the ring's stages
+    # stay, but each thread waits for its own loads)
+    ("paged_decode/decode_attention: synchronous K/V loads", [
+        ("paged_decode.cu",
+         "      gofr::cp_async16(k_s + r * kStride + col, k + base, ok);\n"
+         "      gofr::cp_async16(v_s + r * kStride + col, v + base, ok);\n",
+         "      *reinterpret_cast<uint4*>(k_s + r * kStride + col) =\n"
+         "          ok ? *reinterpret_cast<const uint4*>(k + base) : make_uint4(0, 0, 0, 0);\n"
+         "      *reinterpret_cast<uint4*>(v_s + r * kStride + col) =\n"
+         "          ok ? *reinterpret_cast<const uint4*>(v + base) : make_uint4(0, 0, 0, 0);\n"),
+    ]),
+    # F: one split per (slot, head), finished in place, as A
+    ("decode_attention: one split", [
+        ("paged_decode.cu",
+         "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, split_rows,\n"
+         "                splits, scale, stream);",
+         "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, smax, 1,\n"
+         "                scale, stream);"),
+    ]),
+]
+
+
+def make(index: int, variant) -> dict:
+    name, edits = variant
+    root = cuda.BUILD / "variants" / f"v{index}"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(cuda.CSRC, root / "csrc")
+    for fname, old, new in edits:
+        path = root / "csrc" / fname
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"variant {name!r}: the text to replace occurs {text.count(old)} times "
+                             f"in {fname}")
+        path.write_text(text.replace(old, new))
+    return cuda.build(root / "csrc", root / "build")
+
+
+def cases(torch) -> dict:
+    """The timed calls, fn(i), at chip_smoke's phase-3 shapes."""
+    from gofr_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    out = {}
+    for s in (512, 1024):
+        q, k, v = (torch.randn(4, s, h, 128, device=dev, generator=gen).to(bf) for h in (32, 8, 8))
+        out[f"flash_4x{s}"] = lambda i, q=q, k=k, v=v: flash_attention(q, k, v, causal=True)
+    c = chip_smoke._decode_case(torch)
+    sc = chip_smoke._slot_case(torch, c)
+    q, lengths, table, layers = c["q"], c["lengths"], c["table"], c["layers"]
+    out["slot_decode"] = lambda i: decode_attention(q, sc["k"][i % layers], sc["v"][i % layers], lengths)
+    out["paged_decode"] = lambda i: paged_decode(q, c["k_pool"][i % layers], c["v_pool"][i % layers],
+                                                 table, lengths)
+    return out
+
+
+def diff_from(calls: dict, wants: dict) -> dict:
+    """Max |output - the unmodified build's output| per call."""
+    return {name: (fn(0).float() - wants[name]).abs().max().item() for name, fn in calls.items()}
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_variants: no CUDA device available")
+    os.chdir(REPO)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        clean = pool.submit(cuda.build)
+        builds = [clean, *(pool.submit(make, i, v) for i, v in enumerate(VARIANTS))]
+        libraries = [b.result()["library"] for b in builds]
+    names = ["unmodified", *(v[0] for v in VARIANTS)]
+    cuda.load(libraries[0])
+    for kernel in chip_smoke.check_kernels(torch, timed=False):
+        if not kernel["passed"]:
+            raise SystemExit(f"the unmodified build fails {kernel['name']}")
+    calls = cases(torch)
+    wants = {name: fn(0).float() for name, fn in calls.items()}
+    rows = []
+    # A B C ... then ... C B A, the unmodified build first and last
+    for order in (range(len(names)), reversed(range(len(names)))):
+        for i in order:
+            cuda.load(libraries[i])
+            row = {"build": names[i], "diff_from_unmodified": diff_from(calls, wants),
+                   "device_ms": {name: chip_smoke.device_ms(torch, fn, 20) for name, fn in calls.items()}}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    mean = {name: {call: sum(r["device_ms"][call] for r in rows if r["build"] == name) / 2
+                   for call in calls} for name in names}
+    bad = [r["build"] for r in rows if max(r["diff_from_unmodified"].values()) > MAX_DIFF]
+    summary = {"mean_device_ms": mean, "nvidia_smi": chip_smoke.smi_line()}
+    print(json.dumps(summary))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:
+        json.dump({"rows": rows, "summary": summary}, f, indent=1)
+    if bad:
+        raise SystemExit(f"variants that change the output: {bad}")
+
+
+if __name__ == "__main__":
+    main()

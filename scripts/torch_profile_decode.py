@@ -12,8 +12,9 @@ engine's length for ``max_len`` 2048), in bf16 or, with
 ``decode_chunk`` steps under ``torch.profiler``. Prints one JSON line: host
 wall time per step without the profiler (and with it), device busy time
 per step (the sum of CUDA kernel times; one stream, so kernels do not
-overlap), the device idle share against the unprofiled wall time, and
-device time by kernel name, largest first. Needs a CUDA card.
+overlap), the device idle share against the unprofiled wall time, the
+time of device-to-host copies, and device time by kernel name, largest
+first. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -98,6 +99,9 @@ def main() -> None:
         "wall_ms_per_step_profiled": wall * 1e3 / args.steps,
         "device_busy_ms_per_step": busy / args.steps,
         "device_idle_share": 1.0 - busy / (wall_plain * 1e3),
+        # a device-to-host copy stalls the host on the card: none is expected
+        "memcpy_dtoh_ms_per_step": sum(v for k, v in kernels.items()
+                                       if k.startswith("Memcpy DtoH")) / args.steps,
         "kernel_ms_per_step": {k: v / args.steps for k, v in top},
     }))
 

@@ -15,10 +15,10 @@ result line:
    D 128; 8 slots of live length 100..2000 and one empty slot, on bf16,
    int8 and int4 pools of page 128, the quantized ones written by the
    port's own writes from random bf16 K/V, and on a bf16 slot cache of
-   2176 positions per slot, with a lane past the slot and lanes on and one
-   past the slot decode's split boundaries; 4 x 512 and 4 x 1024 prefills,
-   full and ragged, and a chunk of 200 queries after cached offsets): each
-   held against its plain PyTorch version on the same
+   2176 positions per slot, with a lane past the slot; lanes on and one
+   past the split boundaries of the slot and quantized-pool decodes; 4 x 512
+   and 4 x 1024 prefills, full and ragged, and a chunk of 200 queries after
+   cached offsets): each held against its plain PyTorch version on the same
    inputs, timed with CUDA events beside the plain version, a library
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (its bound);
@@ -224,6 +224,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         paged_decode_attention_plain,
         paged_decode_attention_q4_plain,
         paged_decode_attention_q_plain,
+        paged_decode_attention_q_split_plain,
     )
     from gofr_tpu_torch.ops.cuda import decode_attention as slot_decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
@@ -380,12 +381,35 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         got, want = launch(*args(0)), plain(*args(0))
         agree = agreement(name, got, want, mod)
         require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
+        # the split's edges: on and one past the first three split
+        # boundaries, the whole table row, the empty slot, past the table,
+        # through a table of pages drawn in scrambled order with repeats and
+        # OOB entries inside two live lanes. As in check_slot_decode these
+        # short lanes are held against the split's plain version, which keeps
+        # the scores and p * vs in f32 and splits as the kernel does
+        pool, maxp = cache.k.shape[1], table.shape[1]
+        r, splits = slot_decode_mod.split_plan(n, hkv, maxp * page)
+        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, maxp * page, 0, maxp * page + 5, 3 * r,
+                              3 * r + 1], device=dev, dtype=torch.int32)
+        edge_table = torch.randint(0, pool, (n, maxp), generator=torch.Generator().manual_seed(SEED + 2),
+                                   dtype=torch.int32)
+        edge_table[1, 1] = edge_table[4, maxp - 1] = pool
+        edge_table[5] = pool
+        edge_args = (*args(0)[:5], edge_table.to(dev), edges)
+        got_e = launch(*edge_args)
+        agree_e = agreement(f"{name} (split boundaries)", got_e,
+                            paged_decode_attention_q_split_plain(*edge_args, r, bits=bits), mod)
+        require(torch.all(got_e[5] == 0).item(), f"{name}: the empty slot is not zero")
         # K and V rows of D (int8) or D/2 (packed) bytes plus two bf16 scales
         row_bytes = 2 * cache.k.shape[-1] + 2 * 2
         b_ms, b_by = bound_ms(c["live"] * hkv * row_bytes + decode_io, 4 * c["live"] * hq * d)
         return {
             "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
-            "replaces": replaces, **agree,
+            "replaces": replaces,
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
+            "checks": {"ragged": agree, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
             "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
             **timing(lambda i: launch(*args(i % layers)), lambda i: plain(*args(i % layers))),

@@ -26,6 +26,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// Copy 4 bytes (a block-table entry) from `src` to `dst`, through L1 (.ca:
+// the 16-byte .cg form is the only one that bypasses it).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -45,11 +45,13 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "mma.cuh"
 #include "online_softmax.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using gofr::mma_bf16;
 
 constexpr int kD = 128;            // head_dim (the wrapper checks)
 constexpr int kBQ = 64;            // query rows per block
@@ -74,16 +76,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(gofr::smem_addr(p)));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two f32 values as one register of bf16 pair, `lo` in the low half (the

@@ -29,14 +29,12 @@
 //     would stall the host on the card every layer). A block whose run starts
 //     at or past its length exits at once; the others each walk only their
 //     own live rows, so the work spreads over hundreds of blocks instead of
-//     one per (slot, head). Each writes the f32 state of its G rows (running
-//     max m, sum l, unnormalised acc[D]) to scratch, and a second kernel,
-//     launched from the same entry point, merges the live runs of each
-//     (slot, query head): it rescales run i by exp(m_i - M) (M safe as in
-//     online_softmax.cuh), sums, and divides with the 1e-20 clamp. It reads
-//     only the runs that were written, so the scratch needs no clearing; a
-//     slot of length 0 has no live run and gets zeros. With one split (kernel
-//     A launches one) the block finishes in place and there is no merge.
+//     one per (slot, head). Each writes the f32 state of its G rows
+//     (unnormalised acc[D], running max m, sum l) to scratch, and the merge
+//     of split_merge.cuh (shared with kernels D and E), launched from the
+//     same entry point, combines the live runs of each (slot, query head).
+//     With one split (kernel A launches one) the block finishes in place
+//     and there is no merge.
 //   - The block reads its own length (and block-table row); there is no
 //     scalar prefetch on the card. The TPU slot kernel streams all Smax
 //     positions and masks them; this one stops at the length.
@@ -55,6 +53,7 @@
 
 #include "async_copy.cuh"
 #include "online_softmax.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -223,27 +222,6 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-// One block per (slot, query head); thread j merges output column j over
-// the slot's live splits.
-template <class Rows>
-__global__ void __launch_bounds__(kThreads) merge_kernel(
-    const float* __restrict__ part, const Rows rows, const int* __restrict__ lengths,
-    bf16* __restrict__ out, int split_rows, int splits) {
-  const int n = blockIdx.x, hq = gridDim.y, head = blockIdx.y, tid = threadIdx.x;
-  const int live = (rows.length(lengths, n) + split_rows - 1) / split_rows;
-  const float* st = part + ((size_t)n * hq + head) * splits * kState;
-  float m = gofr::kNegInf;
-  for (int s = 0; s < live; ++s) m = fmaxf(m, st[s * kState + kD]);
-  const float safe = m > gofr::kNegInf * 0.5f ? m : 0.f;
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < live; ++s) {
-    const float w = expf(st[s * kState + kD] - safe);
-    l = fmaf(w, st[s * kState + kD + 1], l);
-    acc = fmaf(w, st[s * kState + tid], acc);
-  }
-  out[((size_t)n * hq + head) * kD + tid] = __float2bfloat16(gofr::row_finish(acc, l));
-}
-
 template <class Rows>
 int launch(const void* q, const void* k, const void* v, const Rows& rows, const void* lengths,
            void* out, void* scratch, int n, int hkv, int group, int split_rows, int splits,
@@ -263,7 +241,7 @@ int launch(const void* q, const void* k, const void* v, const Rows& rows, const 
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    merge_kernel<Rows><<<dim3(n, hkv * group), kThreads, 0, s>>>(
+    gofr::merge_splits<kD><<<dim3(n, hkv * group), kD, 0, s>>>(
         static_cast<const float*>(scratch), rows, static_cast<const int*>(lengths),
         static_cast<bf16*>(out), split_rows, splits);
   }

@@ -9,223 +9,437 @@
 //
 // What bounds it on the card: device-memory bytes. Each slot's live rows are
 // read once per layer, len x Hkv x (2 x row bytes + 2 x 2 B of scales): a
-// quarter (int4) or a half (int8) of the bf16 kernel's K/V bytes, for the
+// half (int8) or a quarter (int4) of the bf16 kernel's K/V bytes, for the
 // same ~1 multiply-add per element, far below the ~295 operations per byte
-// where an H100 turns compute-bound.
+// where an H100 turns compute-bound. At 8 slots of about a thousand rows
+// that is 19 MB (int8) or 10 MB (int4), 5.7 or 2.9 us at 3.35 TB/s: the
+// card needs tens of KB in flight on every SM, and little arithmetic per
+// byte, to come near it.
 //
-// Design: that of paged_decode.cu, templated on the row format.
-//   - One thread block per (slot, KV head); the G query rows of the head
-//     share every staged 64-row tile. The block reads its own table row and
-//     length, walks only the live positions, and clamps a table entry past
-//     the pool to page P-1 (read, then masked by length).
-//   - Rows are staged in shared memory with 16-byte loads: an int8 row is
-//     128 B (8 chunks), a packed int4 row 64 B (4 chunks). Shared rows are
-//     padded by 16 B (144 B and 80 B strides), so the eight rows a
-//     quarter-warp reads in the score loop fall on distinct banks. The
-//     tile's 64 K scales and 64 V scales are staged beside them as f32.
+// Design:
+//   - One thread block per (slot, KV head, split of the sequence), the split
+//     from ops/cuda/decode_attention.split_plan on the shapes alone, as in
+//     kernel F (paged_decode.cu): a block whose run starts at or past the
+//     slot's length exits at once; the others write the f32 state of their G
+//     query rows to scratch, and the merge of split_merge.cuh, launched from
+//     the same entry point, combines the live runs. With one split the block
+//     finishes in place.
+//   - Tiles of 64 rows flow through a two-stage ring of cp.async copies
+//     (async_copy.cuh): the K and V rows (128 B int8, 64 B packed int4) and
+//     the tile's 64 K and 64 V scales, eight 16-byte copies a plane when
+//     page % 8 == 0 (eight rows of a tile then never straddle a page; other
+//     page sizes, or scales off 16-byte alignment, take plain loads). The
+//     next tile loads while the current one is scored and folded.
+//   - The block-table entries of a tile, one per page it touches (one when
+//     page % 64 == 0), are staged in shared memory by 4-byte cp.async copies
+//     two tiles ahead of the rows, so no row address waits on a table load and
+//     each entry is read once per tile, not once per 16-byte chunk. An entry
+//     past the pool clamps to page P-1 (read, then masked by length), a
+//     length to MaxP x page.
+//   - q.k runs on the tensor cores, mma.sync m16n8k16 bf16 -> f32: the G
+//     query rows (padded to 16) are A fragments held in registers, each warp
+//     takes 16 positions of the tile as B fragments. int8 values and int4
+//     nibbles are exact in bf16, so this is the TPU kernel's
+//     k.astype(q.dtype) product with f32 accumulation, and each staged K
+//     element is converted once per block (a byte to bf16 through the f32
+//     2^23 trick, a nibble through 0x4300 | n == 128 + n: no conversion
+//     unit), not once per query row. The head dimension is permuted between
+//     the fragments, Q's and K's alike, so a thread reads its 32 (int8) or
+//     16 (int4) bytes of a row with 16-byte loads; rows are padded to 144 B
+//     (int8) or kept at 64 B (int4) so those loads of a quarter-warp fall on
+//     distinct banks.
+//   - P.V stays in f32 on the unrounded p * vs (online_softmax.cuh's v_scale
+//     fold): each thread owns 4 (int8) or 8 (int4) output columns of a
+//     quarter of the tile's positions, converts each V element exactly to
+//     f32 once, and the warps' partial sums are added once, at the end.
 //   - Packed int4 is split-half: output column c < D/2 is the low nibble of
 //     byte c, column c >= D/2 the high nibble of byte c - D/2, both biased
 //     by +8. A zero byte decodes to -8, so rows past the length are masked
 //     by their score, never trusted to carry a zero scale.
 //   - The arithmetic is the Pallas bodies', not the XLA path's: scores
-//     s = (q.k) * scale * ks[t] with the values converted exactly to f32 and
-//     the products summed in f32; t >= len masked to kNegInf; the online
-//     softmax with the v_scale fold (online_softmax.cuh: p stays f32 and
-//     unrounded and is multiplied by vs[t] before P.V, the normaliser sums
-//     the unscaled p); out = acc / max(l, 1e-20); len == 0 gives zeros.
-// Like the bf16 kernel it runs one block per (slot, head) with no split over
-// the sequence; wgmma, TMA and a sequence split are later work.
+//     s = (q.k) * scale * ks[t] summed in f32; t >= len masked to kNegInf;
+//     the online softmax with the v_scale fold (p stays f32 and unrounded
+//     and is multiplied by vs[t] before P.V, the normaliser sums the
+//     unscaled p); out = acc / max(l, 1e-20); len == 0 gives zeros.
 #include <cstdint>
 
+#include "async_copy.cuh"
+#include "mma.cuh"
 #include "online_softmax.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
-constexpr int kD = 128;        // head_dim (the wrapper checks)
-constexpr int kTile = 64;      // KV positions per staged tile
-constexpr int kThreads = 128;  // == kD: one output column per thread
-constexpr int kMaxGroup = 8;   // query heads per KV head
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 128;                       // head_dim (the wrapper checks)
+constexpr int kTile = 64;                     // KV positions per staged tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpRows = kTile / kWarps;     // positions per warp: two m16n8 score tiles
+constexpr int kMaxGroup = 8;                  // query heads per KV head (mma rows 0..7)
+constexpr int kSteps = kD / 16;               // m16n8k16 steps over the head dimension
+constexpr int kStages = 2;                    // K/V ring depth
+// Table entries are copied two tiles ahead of their rows, so the buffer a
+// step refills was last read before the previous step's __syncthreads.
+constexpr int kEntryBufs = 4;
+constexpr int kState = kD + 2;                // one split's scratch per query row: acc[D], m, l
+constexpr float kTwo23 = 8388608.f;           // f32 bits 0x4B000000 | u read as 2^23 + u
+
+// Two f32 holding small integers (at most 8 significant bits) as one bf16
+// pair, `lo` in the low half: the top half of each f32 is its bf16, exactly.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Byte i of `u` as the f32 2^23 + byte.
+__device__ __forceinline__ float two23_plus(uint32_t u, int i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i));
+}
 
 // int8 rows: element c is byte c.
 struct Int8Rows {
   static constexpr int kBytes = kD;
+  static constexpr int kStride = kBytes + 16;    // padded shared row, bytes
+  static constexpr int kFragBytes = kBytes / 4;  // bytes of a row one thread of a quad reads
+  static constexpr int kCols = 4;                // P.V columns in a 4-byte word
 
-  // q . k for one staged row; q is f32 in shared memory
-  __device__ static float dot(const uint8_t* row, const float* q) {
-    const uint4* r = reinterpret_cast<const uint4*>(row);
-    float s = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < kBytes / 16; ++j) {
-      const uint4 w = r[j];
-      const int8_t* e = reinterpret_cast<const int8_t*>(&w);
+  // First head_dim column of step s's elements for quad thread c: a[0]/b0
+  // hold columns col, col + 1, a[2]/b1 col + 2, col + 3.
+  __device__ static int frag_col(int c, int s) { return c * kFragBytes + s * 4; }
+
+  // The four int8 values of a word, exactly, as f32: each byte biased to
+  // unsigned and read as 2^23 + byte.
+  __device__ static void values(uint32_t w, float (&v)[kCols]) {
+    const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) s = fmaf(q[16 * j + i], static_cast<float>(e[i]), s);
-    }
-    return s;
+    for (int i = 0; i < 4; ++i) v[i] = two23_plus(u, i) - (kTwo23 + 128.f);
   }
 
-  __device__ static float value(const uint8_t* row, int col) {
-    return static_cast<float>(reinterpret_cast<const int8_t*>(row)[col]);
+  // B fragments of every step from this thread's bytes of a staged row.
+  __device__ static void k_frags(const uint8_t* row, int c, uint32_t (&b)[kSteps][2]) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + c * kFragBytes);
+    const uint4 w0 = p[0], w1 = p[1];
+    const uint32_t w[kSteps] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      float v[kCols];
+      values(w[s], v);
+      b[s][0] = bf16_pair(v[0], v[1]);
+      b[s][1] = bf16_pair(v[2], v[3]);
+    }
   }
+
+  // head_dim column of value i of the word at byte j
+  __device__ static int col(int j, int i) { return j + i; }
 };
 
 // packed int4 rows, split-half (ops/quant.py pack_int4): byte j holds
 // element j in its low nibble and element j + D/2 in its high nibble
 struct Int4Rows {
   static constexpr int kBytes = kD / 2;
+  static constexpr int kStride = kBytes;  // two rows a quarter-warp reads: 128 contiguous B
+  static constexpr int kFragBytes = kBytes / 4;
+  static constexpr int kCols = 8;
   static constexpr int kBias = 8;
   static constexpr int kLoShift = 0, kHiShift = 4;
 
-  __device__ static float nibble(uint32_t byte, int shift) {
-    return static_cast<float>(static_cast<int>((byte >> shift) & 0xFu) - kBias);
+  // steps 0..3 take low nibbles, 4..7 the high nibbles of the same bytes
+  __device__ static int frag_col(int c, int s) {
+    return (s >= kSteps / 2 ? kBytes : 0) + c * kFragBytes + (s % (kSteps / 2)) * 4;
   }
 
-  __device__ static float dot(const uint8_t* row, const float* q) {
-    const uint4* r = reinterpret_cast<const uint4*>(row);
-    float s = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < kBytes / 16; ++j) {
-      const uint4 w = r[j];
-      const uint8_t* e = reinterpret_cast<const uint8_t*>(&w);
+  __device__ static void values(uint32_t w, float (&v)[kCols]) {
+    const uint32_t lo = (w >> kLoShift) & 0x0F0F0F0Fu, hi = (w >> kHiShift) & 0x0F0F0F0Fu;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        s = fmaf(q[16 * j + i], nibble(e[i], kLoShift), s);
-        s = fmaf(q[kBytes + 16 * j + i], nibble(e[i], kHiShift), s);
-      }
+    for (int i = 0; i < 4; ++i) {
+      v[i] = two23_plus(lo, i) - (kTwo23 + kBias);
+      v[4 + i] = two23_plus(hi, i) - (kTwo23 + kBias);
     }
-    return s;
   }
 
-  __device__ static float value(const uint8_t* row, int col) {
-    return col < kBytes ? nibble(row[col], kLoShift) : nibble(row[col - kBytes], kHiShift);
+  // The nibbles at `shift` of the bytes of `spread` ([b0, 0, b1, 0]) as a
+  // bf16 pair: 0x4300 | n is 128 + n, exactly; less 128 + kBias.
+  __device__ static uint32_t nibble_pair(uint32_t spread, int shift) {
+    const uint32_t bits = ((spread >> shift) & 0x000F000Fu) | 0x43004300u;
+    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
+                                     __float2bfloat162_rn(128.f + kBias));
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+
+  __device__ static void k_frags(const uint8_t* row, int c, uint32_t (&b)[kSteps][2]) {
+    const uint4 w = *reinterpret_cast<const uint4*>(row + c * kFragBytes);
+    const uint32_t words[kSteps / 2] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int s = 0; s < kSteps / 2; ++s) {
+      const uint32_t b01 = __byte_perm(words[s], 0, 0x4140), b23 = __byte_perm(words[s], 0, 0x4342);
+      b[s][0] = nibble_pair(b01, kLoShift);
+      b[s][1] = nibble_pair(b23, kLoShift);
+      b[kSteps / 2 + s][0] = nibble_pair(b01, kHiShift);
+      b[kSteps / 2 + s][1] = nibble_pair(b23, kHiShift);
+    }
+  }
+
+  __device__ static int col(int j, int i) { return (i >= 4 ? kBytes : 0) + j + i % 4; }
+};
+
+// A slot's length clamped to what its table row holds: for the decode
+// kernel and the merge alike.
+struct PoolLength {
+  int maxp, page;
+
+  __device__ int length(const int* lengths, int n) const {
+    return min(max(lengths[n], 0), maxp * page);
   }
 };
 
 template <class Rows>
 __global__ void __launch_bounds__(kThreads) paged_decode_q_kernel(
-    const __nv_bfloat16* __restrict__ q,        // [N, Hq, D]
-    const uint8_t* __restrict__ k_pool,         // [P, Hkv, page, Rows::kBytes]
-    const uint8_t* __restrict__ v_pool,         // [P, Hkv, page, Rows::kBytes]
-    const __nv_bfloat16* __restrict__ k_scale,  // [P, Hkv, page]
-    const __nv_bfloat16* __restrict__ v_scale,  // [P, Hkv, page]
-    const int* __restrict__ table,              // [N, MaxP]
-    const int* __restrict__ lengths,            // [N]
-    __nv_bfloat16* __restrict__ out,            // [N, Hq, D]
-    int hkv, int group, int pool, int page, int maxp, float scale) {
-  constexpr int kChunks = Rows::kBytes / 16;  // 16-byte chunks per row
-  constexpr int kStride = Rows::kBytes + 16;  // padded shared row, bytes
-  __shared__ __align__(16) uint8_t k_s[kTile * kStride];
-  __shared__ __align__(16) uint8_t v_s[kTile * kStride];
-  __shared__ float q_s[kMaxGroup][kD];
+    const bf16* __restrict__ q,          // [N, Hq, D]
+    const uint8_t* __restrict__ k_pool,  // [P, Hkv, page, Rows::kBytes]
+    const uint8_t* __restrict__ v_pool,  // [P, Hkv, page, Rows::kBytes]
+    const bf16* __restrict__ k_scale,    // [P, Hkv, page]
+    const bf16* __restrict__ v_scale,    // [P, Hkv, page]
+    const int* __restrict__ table,       // [N, MaxP]
+    const int* __restrict__ lengths,     // [N]
+    const PoolLength pool_len,
+    bf16* __restrict__ out,              // [N, Hq, D], written here when there is one split
+    float* __restrict__ part,            // [N, Hq, splits, kState], written when there are more
+    int hkv, int group, int pool, int page, int split_rows, int vector_scales, float scale) {
+  constexpr int kChunks = Rows::kBytes / 16;            // 16-byte chunks per row
+  constexpr int kTileBytes = kTile * Rows::kStride;
+  constexpr int kLanesPerRow = Rows::kBytes / 4;        // P.V: one 4-byte word per lane
+  constexpr int kRowsPerStep = 32 / kLanesPerRow;
+  static_assert(kStages * 2 * kTileBytes >= kWarps * kMaxGroup * kD * 4,
+                "the warps' partial sums reuse the ring");
+  __shared__ __align__(16) uint8_t ring[kStages][2][kTileBytes];  // K, V rows
+  __shared__ __align__(16) bf16 scales_s[kStages][2][kTile];      // K, V scales
+  __shared__ int entries_s[kEntryBufs][kTile];                    // a tile's table entries
   __shared__ float p_s[kMaxGroup][kTile];
-  __shared__ float ks_s[kTile], vs_s[kTile];
+  __shared__ float vs_s[kTile];
   __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], alpha_s[kMaxGroup];
 
-  const int n = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int n = blockIdx.x, h = blockIdx.y, split = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, quad = lane >> 2, c = lane & 3;
   const int hq = hkv * group;
-  const int len = min(max(lengths[n], 0), maxp * page);
-  const int* row_table = table + (size_t)n * maxp;
+  const int len = pool_len.length(lengths, n);
+  const int t_begin = split * split_rows;
+  const int t_end = min(len, t_begin + split_rows);
+  if (gridDim.z > 1 && t_begin >= len) return;  // no live row: the merge never reads this split
+  const int n_tiles = (max(t_end - t_begin, 0) + kTile - 1) / kTile;
+  const int* row_table = table + (size_t)n * pool_len.maxp;
 
-  for (int i = tid; i < group * kD; i += kThreads) {
-    const int g = i / kD, j = i % kD;
-    q_s[g][j] = __bfloat162float(q[((size_t)n * hq + h * group + g) * kD + j]);
+  // copy the table entries of tile i, one per page it touches, into
+  // entries_s[i % kEntryBufs]
+  auto stage_entries = [&](int i) {
+    const int t0 = t_begin + i * kTile;
+    if (t0 >= t_end) return;
+    const int first = t0 / page;
+    if (tid <= (min(t0 + kTile, t_end) - 1) / page - first)
+      gofr::cp_async4(&entries_s[i % kEntryBufs][tid], row_table + first + tid);
+  };
+  // copy the rows and scales of tile i into stage i % kStages through its
+  // staged entries; rows at or past t_end are zero-filled
+  auto stage = [&](int i) {
+    const int t0 = t_begin + i * kTile, first = t0 / page, st = i % kStages;
+    const int* entry = entries_s[i % kEntryBufs];
+    auto at = [&](int t) {  // (page, head, position) index of row t < t_end
+      const int e = min(max(entry[t / page - first], 0), pool - 1);
+      return ((size_t)e * hkv + h) * page + t % page;
+    };
+    for (int j = tid; j < kTile * kChunks; j += kThreads) {
+      const int r = j / kChunks, col = (j % kChunks) * 16, t = t0 + r;
+      const bool ok = t < t_end;
+      const size_t base = (ok ? at(t) * Rows::kBytes : 0) + col;
+      gofr::cp_async16(&ring[st][0][r * Rows::kStride + col], k_pool + base, ok);
+      gofr::cp_async16(&ring[st][1][r * Rows::kStride + col], v_pool + base, ok);
+    }
+    if (vector_scales) {  // eight scales per copy: threads 0-7 K, 8-15 V
+      if (tid < 2 * kTile / 8) {
+        const int r = (tid % 8) * 8, t = t0 + r;
+        const bool ok = t < t_end;
+        gofr::cp_async16(&scales_s[st][tid / 8][r], (tid < 8 ? k_scale : v_scale) + (ok ? at(t) : 0),
+                         ok);
+      }
+    } else {  // one scale per thread: threads 0-63 K, 64-127 V
+      const int r = tid % kTile, t = t0 + r;
+      scales_s[st][tid / kTile][r] =
+          t < t_end ? (tid < kTile ? k_scale : v_scale)[at(t)] : __float2bfloat16(0.f);
+    }
+  };
+
+  stage_entries(0);
+  stage_entries(1);
+  gofr::cp_async_commit();
+
+  // Q as the A fragments of every step, rows >= group zero (read while the
+  // first entries arrive)
+  uint32_t qa[kSteps][2];
+  {
+    const bf16* qr = q + ((size_t)n * hq + h * group + min(quad, group - 1)) * kD;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int col = Rows::frag_col(c, s);
+      qa[s][0] = quad < group ? *reinterpret_cast<const uint32_t*>(qr + col) : 0u;
+      qa[s][1] = quad < group ? *reinterpret_cast<const uint32_t*>(qr + col + 2) : 0u;
+    }
   }
   if (tid < group) {
     m_s[tid] = gofr::kNegInf;
     l_s[tid] = 0.f;
   }
-  float acc[kMaxGroup];
+  float acc[kMaxGroup][Rows::kCols];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+  for (int g = 0; g < kMaxGroup; ++g)
+#pragma unroll
+    for (int i = 0; i < Rows::kCols; ++i) acc[g][i] = 0.f;
+
+  gofr::cp_async_wait<0>();
   __syncthreads();
+  if (n_tiles > 0) stage(0);
+  stage_entries(2);
+  gofr::cp_async_commit();
 
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    // stage rows t0 .. t0+63 of this (slot, head); rows past len are 0
-    for (int c = tid; c < kTile * kChunks; c += kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 16;
-      const int t = t0 + r;
-      uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (t < len) {
-        const int entry = min(max(row_table[t / page], 0), pool - 1);
-        const size_t base = (((size_t)entry * hkv + h) * page + t % page) * Rows::kBytes + col;
-        kk = *reinterpret_cast<const uint4*>(k_pool + base);
-        vv = *reinterpret_cast<const uint4*>(v_pool + base);
+  // P.V: this lane's word of row vr of each step of kRowsPerStep rows
+  const int vj = (lane % kLanesPerRow) * 4, vr = lane / kLanesPerRow;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = t_begin + i * kTile, st = i % kStages;
+    if (i + 1 < n_tiles) stage(i + 1);  // its entries arrived with tile i - 1's rows
+    stage_entries(i + 3);
+    gofr::cp_async_commit();            // possibly empty, so one wait depth serves every step
+    gofr::cp_async_wait<1>();
+    __syncthreads();
+    const uint8_t* k_tile = ring[st][0];
+    const uint8_t* v_tile = ring[st][1];
+    const bf16* ks_tile = scales_s[st][0];
+
+    // scores: warp w takes positions 16w .. 16w+15, two m16n8 tiles; the C
+    // fragment gives this thread query row `quad` at positions 2c, 2c + 1
+#pragma unroll
+    for (int nt = 0; nt < kWarpRows / 8; ++nt) {
+      const int t_base = warp * kWarpRows + nt * 8;
+      uint32_t b[kSteps][2];
+      Rows::k_frags(k_tile + (t_base + quad) * Rows::kStride, c, b);
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};
+        gofr::mma_bf16(sc, a, b[s][0], b[s][1]);
       }
-      *reinterpret_cast<uint4*>(&k_s[r * kStride + col]) = kk;
-      *reinterpret_cast<uint4*>(&v_s[r * kStride + col]) = vv;
-    }
-    {  // threads 0..63 stage the K scales, 64..127 the V scales
-      const int r = tid % kTile, t = t0 + r;
-      float sc = 0.f;
-      if (t < len) {
-        const int entry = min(max(row_table[t / page], 0), pool - 1);
-        const size_t at = ((size_t)entry * hkv + h) * page + t % page;
-        sc = __bfloat162float(tid < kTile ? k_scale[at] : v_scale[at]);
+      if (quad < group) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = t_base + 2 * c + e;
+          p_s[quad][t] = (t0 + t < t_end) ? sc[e] * scale * __bfloat162float(ks_tile[t])
+                                          : gofr::kNegInf;
+        }
       }
-      (tid < kTile ? ks_s : vs_s)[r] = sc;
     }
+    if (tid < kTile) vs_s[tid] = t0 + tid < t_end ? __bfloat162float(scales_s[st][1][tid]) : 0.f;
     __syncthreads();
 
-    // scores: one (query row, position) pair per thread and step
-    for (int i = tid; i < group * kTile; i += kThreads) {
-      const int g = i / kTile, t = i % kTile;
-      const float s = Rows::dot(&k_s[t * kStride], q_s[g]);
-      p_s[g][t] = (t0 + t < len) ? s * scale * ks_s[t] : gofr::kNegInf;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < group; g += kThreads / 32)
+    for (int g = warp; g < group; g += kWarps)
       gofr::fold_row64_vscale(p_s[g], vs_s, &m_s[g], &l_s[g], &alpha_s[g]);
     __syncthreads();
 
-    // P.V: this thread owns output column `tid` of every query row
+    // P.V: this thread's columns of its positions, every query row
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g)
-      if (g < group) acc[g] *= alpha_s[g];
-    for (int t = 0; t < kTile; ++t) {
-      const float v = Rows::value(&v_s[t * kStride], tid);
+      if (g < group)
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < group) acc[g] = fmaf(p_s[g][t], v, acc[g]);
+        for (int j = 0; j < Rows::kCols; ++j) acc[g][j] *= alpha_s[g];
+#pragma unroll 4
+    for (int r = 0; r < kWarpRows / kRowsPerStep; ++r) {
+      const int t = warp * kWarpRows + r * kRowsPerStep + vr;
+      float v[Rows::kCols];
+      Rows::values(*reinterpret_cast<const uint32_t*>(v_tile + t * Rows::kStride + vj), v);
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g < group) {
+          const float p = p_s[g][t];
+#pragma unroll
+          for (int j = 0; j < Rows::kCols; ++j) acc[g][j] = fmaf(p, v[j], acc[g][j]);
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
+  gofr::cp_async_wait<0>();
+  __syncthreads();  // the ring is free; m_s / l_s are final
 
+  // add the partial sums of the half-warps (int4) and of the warps
+  float* sums = reinterpret_cast<float*>(&ring[0][0][0]);  // [kWarps][kMaxGroup][kD]
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-    if (g < group)
-      out[((size_t)n * hq + h * group + g) * kD + tid] =
-          __float2bfloat16(gofr::row_finish(acc[g], l_s[g]));
+  for (int g = 0; g < kMaxGroup; ++g) {
+    if (g < group) {
+#pragma unroll
+      for (int j = 0; j < Rows::kCols; ++j) {
+        float a = acc[g][j];
+        // int4: lanes 16 apart hold the same columns of neighbouring rows
+        for (int o = 16; o >= kLanesPerRow; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (vr == 0) sums[(warp * kMaxGroup + g) * kD + Rows::col(vj, j)] = a;
+      }
+    }
+  }
+  __syncthreads();
+  for (int g = 0; g < group; ++g) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o += sums[(w * kMaxGroup + g) * kD + tid];
+    if (gridDim.z == 1) {
+      out[((size_t)n * hq + h * group + g) * kD + tid] = __float2bfloat16(gofr::row_finish(o, l_s[g]));
+    } else {
+      float* st = part + (((size_t)n * hq + h * group + g) * gridDim.z + split) * kState;
+      st[tid] = o;
+      if (tid == 0) st[kD] = m_s[g], st[kD + 1] = l_s[g];
+    }
+  }
 }
 
 template <class Rows>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-           const void* v_scale, const void* table, const void* lengths, void* out, int n,
-           int hkv, int group, int pool, int page, int maxp, float scale, void* stream) {
-  paged_decode_q_kernel<Rows><<<dim3(n, hkv), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k_pool),
-      static_cast<const uint8_t*>(v_pool), static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      hkv, group, pool, page, maxp, scale);
+           const void* v_scale, const void* table, const void* lengths, void* out, void* scratch,
+           int n, int hkv, int group, int pool, int page, int maxp, int split_rows, int splits,
+           float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PoolLength pool_len{maxp, page};
+  const bool aligned = (reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale)) % 16 == 0;
+  paged_decode_q_kernel<Rows><<<dim3(n, hkv, splits), kThreads, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const uint8_t*>(k_pool),
+      static_cast<const uint8_t*>(v_pool), static_cast<const bf16*>(k_scale),
+      static_cast<const bf16*>(v_scale), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), pool_len, static_cast<bf16*>(out),
+      static_cast<float*>(scratch), hkv, group, pool, page, split_rows,
+      page % 8 == 0 && aligned, scale);
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gofr::merge_splits<kD><<<dim3(n, hkv * group), kD, 0, s>>>(
+        static_cast<const float*>(scratch), pool_len, static_cast<const int*>(lengths),
+        static_cast<bf16*>(out), split_rows, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// `splits` runs of `split_rows` positions (splits x split_rows >= maxp x
+// page), then the merge when splits > 1; `scratch` holds n x Hq x splits x
+// (D + 2) floats.
 extern "C" int gofr_paged_decode_q(const void* q, const void* k_pool, const void* v_pool,
                                    const void* k_scale, const void* v_scale, const void* table,
-                                   const void* lengths, void* out, int n, int hkv, int group,
-                                   int pool, int page, int maxp, float scale, void* stream) {
-  return launch<Int8Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, n, hkv,
-                          group, pool, page, maxp, scale, stream);
+                                   const void* lengths, void* out, void* scratch, int n, int hkv,
+                                   int group, int pool, int page, int maxp, int split_rows,
+                                   int splits, float scale, void* stream) {
+  return launch<Int8Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                          hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_paged_decode_q4(const void* q, const void* k_pool, const void* v_pool,
                                     const void* k_scale, const void* v_scale, const void* table,
-                                    const void* lengths, void* out, int n, int hkv, int group,
-                                    int pool, int page, int maxp, float scale, void* stream) {
-  return launch<Int4Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, n, hkv,
-                          group, pool, page, maxp, scale, stream);
+                                    const void* lengths, void* out, void* scratch, int n, int hkv,
+                                    int group, int pool, int page, int maxp, int split_rows,
+                                    int splits, float scale, void* stream) {
+  return launch<Int4Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                          hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }

@@ -20,8 +20,9 @@ Two layers live here:
   version. There is no fallback from one to the other. The int8 slot
   decode ``decode_attention_q`` has no kernel: the TPU ran it as XLA.
 
-``decode_attention_split_plain`` repeats kernel F's split-and-merge
-arithmetic in PyTorch; only the tests call it.
+``decode_attention_split_plain`` and ``paged_decode_attention_q_split_plain``
+repeat the split-and-merge arithmetic of kernels F and D/E in PyTorch; only
+the tests call them.
 """
 
 from __future__ import annotations
@@ -104,38 +105,80 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     return out.reshape(b, hq, d)
 
 
-def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                                 lengths: torch.Tensor, split_rows: int, *,
-                                 scale: float | None = None) -> torch.Tensor:
-    """``decode_attention`` as kernel F computes it, for the tests: the slot
-    cut into runs of ``split_rows`` positions, each run's (max m, sum l,
-    unnormalised acc) taken in f32 against its own max with probabilities
-    rounded to the cache's type before P.V, then the live runs (those
-    starting before the length, clamped to [0, Smax]) merged: run i
-    rescaled by exp(m_i - M) with the safe-max rule, summed, and divided
-    with the 1e-20 clamp. A slot of length 0 has no live run: zeros."""
-    b, hq, d = q.shape
-    _, hkv, smax, _ = k_cache.shape
-    g = hq // hkv
-    scale = scale if scale is not None else d ** -0.5
+def _attend_in_runs(scores: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                    split_rows: int, *, p_dtype: torch.dtype | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The split kernels' arithmetic (kernels D, E and F) on scores [B, Hkv,
+    G, S] f32 and values v [B, Hkv, S, D] f32: positions at or past
+    lengths[b] masked, the S positions cut into runs of ``split_rows``, each
+    run's (max m, sum l, unnormalised acc) taken in f32 against its own
+    max, with P.V weights p rounded to ``p_dtype`` (the bf16 kernels) or
+    p * ``v_scale`` [B, Hkv, S] in f32, unrounded (the quantized ones); then
+    the live runs (those starting before the length, clamped to [0, S])
+    merged: run i rescaled by exp(m_i - M) with the safe-max rule, summed,
+    and divided with the 1e-20 clamp. A slot of length 0 has no live run:
+    zeros. Returns [B, Hkv, G, D] f32."""
+    b, hkv, g, smax = scores.shape
     splits = -(-smax // split_rows)
     pad = splits * split_rows - smax
-    length = lengths.to(q.device).long().clamp(0, smax)
-    scores = torch.einsum("bkgd,bktd->bkgt", q.reshape(b, hkv, g, d).float(), k_cache.float()) * scale
-    live_pos = torch.arange(smax, device=q.device)[None, :] < length[:, None]
+    length = lengths.to(scores.device).long().clamp(0, smax)
+    live_pos = torch.arange(smax, device=scores.device)[None, :] < length[:, None]
     scores = torch.where(live_pos[:, None, None], scores, torch.full_like(scores, NEG_INF))
     runs = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF).reshape(b, hkv, g, splits,
                                                                             split_rows)
     m = runs.amax(dim=-1)                                           # [B, Hkv, G, splits]
     p = torch.exp(runs - m.where(m > NEG_INF / 2, 0.0)[..., None])
     l = p.sum(dim=-1)
-    v_runs = torch.nn.functional.pad(v_cache, (0, 0, 0, pad)).reshape(b, hkv, splits, split_rows, d)
-    acc = torch.einsum("bkgsr,bksrd->bkgsd", p.to(v_cache.dtype).float(), v_runs.float())
-    live = torch.arange(splits, device=q.device)[None, :] < (-(-length // split_rows))[:, None]
+    v_runs = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, hkv, splits, split_rows, -1)
+    if v_scale is None:
+        weights = p.to(p_dtype).float()
+    else:
+        weights = p * torch.nn.functional.pad(v_scale, (0, pad)).reshape(b, hkv, 1, splits, split_rows)
+    acc = torch.einsum("bkgsr,bksrd->bkgsd", weights, v_runs)
+    live = torch.arange(splits, device=scores.device)[None, :] < (-(-length // split_rows))[:, None]
     live = live[:, None, None]                                       # [B, 1, 1, splits]
     top = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1, keepdim=True)
     w = torch.where(live, torch.exp(m - top.where(top > NEG_INF / 2, 0.0)), torch.zeros_like(m))
-    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1), min=1e-20)[..., None]
+    return (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1), min=1e-20)[..., None]
+
+
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                 lengths: torch.Tensor, split_rows: int, *,
+                                 scale: float | None = None) -> torch.Tensor:
+    """``decode_attention`` as kernel F computes it, for the tests: scores
+    in f32, the slot cut into runs of ``split_rows`` positions whose
+    probabilities are rounded to the cache's type before P.V, the live runs
+    merged (``_attend_in_runs``)."""
+    b, hq, d = q.shape
+    _, hkv, smax, _ = k_cache.shape
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, k_cache.float()) * scale
+    out = _attend_in_runs(scores, v_cache.float(), lengths, split_rows, p_dtype=v_cache.dtype)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention_q_split_plain(q: torch.Tensor, kq_pool: torch.Tensor,
+                                         vq_pool: torch.Tensor, ks_pool: torch.Tensor,
+                                         vs_pool: torch.Tensor, table: torch.Tensor,
+                                         lengths: torch.Tensor, split_rows: int, *, bits: int,
+                                         scale: float | None = None) -> torch.Tensor:
+    """``paged_decode_attention_q`` (``bits`` 8) or ``_q4`` (4) as kernels
+    D and E compute it, for the tests: each slot's rows and scales gathered
+    through the table (OOB entries clamp to page P-1), scores
+    (q.k) * scale * ks in f32, the MaxP x page positions cut into runs of
+    ``split_rows`` whose P.V weights are p * vs in f32, unrounded (the
+    Pallas kernels' v_scale fold), the live runs merged
+    (``_attend_in_runs``)."""
+    gather = gather_kv_q if bits == 8 else gather_kv_q4
+    kq, ks = gather(kq_pool, ks_pool, table)
+    vq, vs = gather(vq_pool, vs_pool, table)
+    b, hq, d = q.shape
+    hkv = kq.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, kq.float()) * scale * ks[:, :, None].float()
+    out = _attend_in_runs(scores, vq.float(), lengths, split_rows, v_scale=vs.float())
     return out.reshape(b, hq, d).to(q.dtype)
 
 

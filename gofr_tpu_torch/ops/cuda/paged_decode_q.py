@@ -4,10 +4,14 @@ Replaces gofr_tpu/ops/pallas/paged_decode.py ``paged_decode_attention_q``
 (:195). The CUDA source is ``csrc/paged_decode_q.cu`` (entry point
 ``gofr_paged_decode_q``), shared with kernel E, the int4 pool's
 (``ops/cuda/paged_decode_q4.py``); its header note says what bounds it
-(device-memory bytes) and how the design answers that. Its plain version is
+(device-memory bytes) and how the design answers that. It is split over
+the sequence into ``decode_attention.split_plan``'s runs (kernel F's plan,
+over the MaxP x page positions a table row holds), merged by a second
+kernel launched from the same entry point. Its plain version is
 ``ops.attention.paged_decode_attention_q_plain`` (gather, then dense
 decode); ``ops.attention.paged_decode_attention_q`` chooses between the two
-by the tensor's device.
+by the tensor's device. ``ops.attention.paged_decode_attention_q_split_plain``
+repeats the split and merge arithmetic in PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import ctypes
 import torch
 
 from gofr_tpu_torch.ops import cuda
+from gofr_tpu_torch.ops.cuda.decode_attention import split_plan
 
 HEAD_DIM = 128
 MAX_GROUP = 8
@@ -24,15 +29,18 @@ MAX_GROUP = 8
 # written by ops.paged.write_prompts_paged_q from random bf16 K/V). The
 # plain version rounds the scores and p * vs to bf16 where the kernel keeps
 # both in f32, as the TPU kernel does. At the slice's shapes (live lengths
-# 699..1591 and an empty slot) they differ by at most 2.0e-3 on outputs of
-# RMS 0.05, and an RMS difference of 0.45% of the output's RMS. Limits,
-# kernel A's: 5e-3 on any element and 1.2% on the RMS. A planted fault (one
-# key past the length, which the empty slot turns into a whole row; the K
-# or V scale left out) moved the outputs by 4.0..12 and 7.2..45x the
-# output's RMS (scripts/torch_kernel_mutants.py).
+# 699..1591 and an empty slot; 192 rows x 11 splits) on an H100 (700 W)
+# they differ by at most 2.0e-3 on outputs of RMS 0.05, and an RMS
+# difference of 0.45% of the output's RMS; lanes on and one past split
+# boundaries by 2.4e-4 and 0.002% against the split's plain version. Limits,
+# kernel A's: 5e-3 on any element and 1.2% on the RMS. The nearest planted
+# fault, split boundaries overlapping by one row, moved the outputs by 0.030
+# and 6.5% of their RMS; one key past the length (a whole row in the empty
+# slot) and a K or V scale left out by 4.0..12 and 7.2..45x
+# (scripts/torch_kernel_mutants.py).
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: int,
@@ -40,8 +48,9 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
                      ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
                      lengths: torch.Tensor, scale: float | None) -> torch.Tensor:
     """Check the inputs of a quantized-pool decode kernel, launch C entry
-    point ``entry`` and count the launch on ``wrapper``; raise on anything
-    the kernel does not take and on a CUDA error."""
+    point ``entry`` (the split kernel and its merge) and count the launch on
+    ``wrapper``; raise on anything the kernel does not take and on a CUDA
+    error."""
     name = wrapper.__name__
     cuda.require(all(t.is_cuda for t in (q, kq_pool, vq_pool, ks_pool, vs_pool)),
                  f"{name} takes tensors on the card")
@@ -69,10 +78,16 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
     out = torch.empty_like(q)
     if n == 0:
         return out
+    maxp = table.shape[1]
+    split_rows, splits = split_plan(n, hkv, maxp * page)
+    # each split's (acc[D], m, l) per query row; only the merge reads it
+    scratch = torch.empty(n * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
+                          device=q.device)
     fn = cuda.bind(entry, _ARGTYPES)
     rc = fn(q.data_ptr(), kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
             vs_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            n, hkv, hq // hkv, pool, page, table.shape[1], scale, cuda.stream_of(q))
+            scratch.data_ptr(), n, hkv, hq // hkv, pool, page, maxp, split_rows, splits, scale,
+            cuda.stream_of(q))
     cuda.check(rc, name)
     wrapper.launches += 1
     return out

@@ -15,7 +15,8 @@ read through ``chip_smoke.model_check`` (a full-width Llama-3-8B with
 random weights from the seed, end to end, kernels against plain) on the
 caches named there; these readings are reported, not judged. Kernels A
 and F (paged and slot decode) are one template in ``paged_decode.cu``, so
-a fault in its shared body lands in both.
+a fault in its shared body lands in both; the merge of a split decode
+(``split_merge.cuh``) is one kernel for F, D and E.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -75,19 +76,31 @@ MUTANTS = [
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
      "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
-    ("decode_attention: last live split left out of the merge", "paged_decode.cu",
+    # the merge is one kernel for F, D and E
+    ("decode_attention/paged_decode_q/_q4: last live split left out of the merge", "split_merge.cuh",
      "for (int s = 0; s < live; ++s) {", "for (int s = 0; s < live - 1; ++s) {", True),
-    ("decode_attention: a split's max ignored in the merge (no rescale)", "paged_decode.cu",
+    ("decode_attention/paged_decode_q/_q4: a split's max ignored in the merge (no rescale)",
+     "split_merge.cuh",
      "const float w = expf(st[s * kState + kD] - safe);", "const float w = 1.f;", True),
     ("decode_attention: split boundaries overlapping by one row", "paged_decode.cu",
      "min(len, t_begin + split_rows);", "min(len, t_begin + split_rows + 1);", True),
     ("paged_decode_q/_q4: ks fold dropped", "paged_decode_q.cu",
-     "s * scale * ks_s[t]", "s * scale", True),
+     "sc[e] * scale * __bfloat162float(ks_tile[t])", "sc[e] * scale", True),
+    # each score scaled by the next row's K scale (the last row's by the first's)
+    ("paged_decode_q/_q4: K scales one row off", "paged_decode_q.cu",
+     "ks_tile[t]", "ks_tile[(t + 1) % kTile]", True),
     ("paged_decode_q/_q4: vs fold dropped", "online_softmax.cuh",
      "row[lane] = p.x * vs[lane];\n  row[lane + 32] = p.y * vs[lane + 32];",
      "row[lane] = p.x;\n  row[lane + 32] = p.y;", True),
     ("paged_decode_q/_q4: one key past the length", "paged_decode_q.cu",
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
+    ("paged_decode_q/_q4: split boundaries overlapping by one row", "paged_decode_q.cu",
+     "min(len, t_begin + split_rows);", "min(len, t_begin + split_rows + 1);", True),
+    # rows addressed through the entries staged for the tile before (the
+    # right page only where both tiles lie in one page)
+    ("paged_decode_q/_q4: a tile read through the previous tile's table entries",
+     "paged_decode_q.cu", "const int* entry = entries_s[i % kEntryBufs];",
+     "const int* entry = entries_s[(i + kEntryBufs - 1) % kEntryBufs];", True),
     ("paged_decode_q4: nibble halves swapped", "paged_decode_q.cu",
      "kLoShift = 0, kHiShift = 4", "kLoShift = 4, kHiShift = 0", True),
     ("paged_decode_q4: bias of 7 instead of 8", "paged_decode_q.cu",

@@ -11,8 +11,9 @@ versions (``chip_smoke.check_kernels``), each variant against the
 unmodified build's outputs, and every build is timed twice, in the order
 A B ... then ... B A, on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
-4 x 1024 causal, the slot decode (F) and the paged decode (A) at 8 live
-slots of 699..1591 and an empty one. Times are device times
+4 x 1024 causal, the slot decode (F), the paged decode (A) and the
+quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
+one. Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
 kernel's.
 
@@ -41,6 +42,29 @@ from gofr_tpu_torch.ops import cuda  # noqa: E402
 # differ from the unmodified build's by rounding (a bf16 ulp of the largest
 # flash outputs is 0.0156), never by more than this.
 MAX_DIFF = 0.1
+# kernels D and E's tensor-core score block, replaced by one variant
+SCORE_BLOCK = (
+    "#pragma unroll\n"
+    "    for (int nt = 0; nt < kWarpRows / 8; ++nt) {\n"
+    "      const int t_base = warp * kWarpRows + nt * 8;\n"
+    "      uint32_t b[kSteps][2];\n"
+    "      Rows::k_frags(k_tile + (t_base + quad) * Rows::kStride, c, b);\n"
+    "      float sc[4] = {0.f, 0.f, 0.f, 0.f};\n"
+    "#pragma unroll\n"
+    "      for (int s = 0; s < kSteps; ++s) {\n"
+    "        const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};\n"
+    "        gofr::mma_bf16(sc, a, b[s][0], b[s][1]);\n"
+    "      }\n"
+    "      if (quad < group) {\n"
+    "#pragma unroll\n"
+    "        for (int e = 0; e < 2; ++e) {\n"
+    "          const int t = t_base + 2 * c + e;\n"
+    "          p_s[quad][t] = (t0 + t < t_end) ? sc[e] * scale * __bfloat162float(ks_tile[t])\n"
+    "                                          : gofr::kNegInf;\n"
+    "        }\n"
+    "      }\n"
+    "    }\n"
+)
 # (name, [(file, text to replace, replacement), ...])
 VARIANTS = [
     # C: each K and V fragment loaded right before its mma.sync
@@ -105,6 +129,60 @@ VARIANTS = [
          "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, smax, 1,\n"
          "                scale, stream);"),
     ]),
+    # D and E: one split per (slot, head), finished in place
+    ("paged_decode_q/_q4: one split", [
+        ("paged_decode_q.cu", "  const PoolLength pool_len{maxp, page};\n",
+         "  const PoolLength pool_len{maxp, page};\n  split_rows = maxp * page;\n  splits = 1;\n"),
+    ]),
+    # D and E: rows and scales staged with synchronous 16-byte loads (the
+    # ring's stages and the table entries' copies stay)
+    ("paged_decode_q/_q4: synchronous row and scale loads", [
+        ("paged_decode_q.cu",
+         "      gofr::cp_async16(&ring[st][0][r * Rows::kStride + col], k_pool + base, ok);\n"
+         "      gofr::cp_async16(&ring[st][1][r * Rows::kStride + col], v_pool + base, ok);\n",
+         "      *reinterpret_cast<uint4*>(&ring[st][0][r * Rows::kStride + col]) =\n"
+         "          ok ? *reinterpret_cast<const uint4*>(k_pool + base) : make_uint4(0, 0, 0, 0);\n"
+         "      *reinterpret_cast<uint4*>(&ring[st][1][r * Rows::kStride + col]) =\n"
+         "          ok ? *reinterpret_cast<const uint4*>(v_pool + base) : make_uint4(0, 0, 0, 0);\n"),
+        ("paged_decode_q.cu",
+         "        gofr::cp_async16(&scales_s[st][tid / 8][r], (tid < 8 ? k_scale : v_scale) + "
+         "(ok ? at(t) : 0),\n                         ok);\n",
+         "        *reinterpret_cast<uint4*>(&scales_s[st][tid / 8][r]) =\n"
+         "            ok ? *reinterpret_cast<const uint4*>((tid < 8 ? k_scale : v_scale) + at(t))\n"
+         "               : make_uint4(0, 0, 0, 0);\n"),
+    ]),
+    # D and E: PR 2-4's scores, one (query row, position) pair per thread
+    # and step in f32, each K element converted again for every query row
+    # (q staged in shared memory as f32; rows read 16 bytes at a time)
+    ("paged_decode_q/_q4: K dequantized per query row", [
+        ("paged_decode_q.cu", SCORE_BLOCK,
+         "    {\n"
+         "      __shared__ float q_f[kMaxGroup][kD];\n"
+         "      if (i == 0)\n"
+         "        for (int j = tid; j < group * kD; j += kThreads)\n"
+         "          q_f[j / kD][j % kD] =\n"
+         "              __bfloat162float(q[((size_t)n * hq + h * group + j / kD) * kD + j % kD]);\n"
+         "      __syncthreads();\n"
+         "      for (int j = tid; j < group * kTile; j += kThreads) {\n"
+         "        const int g = j / kTile, t = j % kTile;\n"
+         "        const uint4* row = reinterpret_cast<const uint4*>(k_tile + t * Rows::kStride);\n"
+         "        float s = 0.f;\n"
+         "        for (int w4 = 0; w4 < Rows::kBytes / 16; ++w4) {\n"
+         "          const uint4 x = row[w4];\n"
+         "          const uint32_t words[4] = {x.x, x.y, x.z, x.w};\n"
+         "#pragma unroll\n"
+         "          for (int w = 0; w < 4; ++w) {\n"
+         "            float v[Rows::kCols];\n"
+         "            Rows::values(words[w], v);\n"
+         "#pragma unroll\n"
+         "            for (int e = 0; e < Rows::kCols; ++e)\n"
+         "              s = fmaf(q_f[g][Rows::col(16 * w4 + 4 * w, e)], v[e], s);\n"
+         "          }\n"
+         "        }\n"
+         "        p_s[g][t] = (t0 + t < t_end) ? s * scale * __bfloat162float(ks_tile[t]) : gofr::kNegInf;\n"
+         "      }\n"
+         "    }\n"),
+    ]),
 ]
 
 
@@ -128,6 +206,8 @@ def cases(torch) -> dict:
     from gofr_tpu_torch.ops.cuda.decode_attention import decode_attention
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+    from gofr_tpu_torch.ops.cuda.paged_decode_q import paged_decode_q
+    from gofr_tpu_torch.ops.cuda.paged_decode_q4 import paged_decode_q4
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -141,6 +221,12 @@ def cases(torch) -> dict:
     out["slot_decode"] = lambda i: decode_attention(q, sc["k"][i % layers], sc["v"][i % layers], lengths)
     out["paged_decode"] = lambda i: paged_decode(q, c["k_pool"][i % layers], c["v_pool"][i % layers],
                                                  table, lengths)
+    for name, launch, bits in (("paged_decode_q", paged_decode_q, 8),
+                               ("paged_decode_q4", paged_decode_q4, 4)):
+        pool = c["pools"][bits]
+        out[name] = lambda i, pool=pool, launch=launch: launch(
+            q, pool.k[i % layers], pool.v[i % layers], pool.ks[i % layers], pool.vs[i % layers], table,
+            lengths)
     return out
 
 

@@ -407,7 +407,7 @@ def test_wrappers_take_the_plain_path_on_cpu_and_launchers_refuse_it():
 # -- the CUDA kernels against their plain versions (on the card only) ---------------
 
 
-def _card_pool(bits, g, seed):
+def _card_pool(bits, g, seed, page=16):
     """A quantized pool on the card written from random bf16 K/V by the
     port's own write, lengths of hundreds (one empty slot), OOB entries."""
     from gofr_tpu_torch.ops.paged import (
@@ -421,13 +421,13 @@ def _card_pool(bits, g, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     cls, write = ((QPagedKVCache, write_prompts_paged_q) if bits == 8
                   else (Q4PagedKVCache, write_prompts_paged_q4))
-    cache = cls.create(1, 40, 16, 2, 128, device=dev)
+    cache = cls.create(1, 40, page, 2, 128, device=dev)
     perm = torch.randperm(40, device=dev, generator=gen).to(torch.int32)
     table = torch.full((3, 16), 40, device=dev, dtype=torch.int32)
     table[0, :15], table[1, :10] = perm[:15], perm[15:25]
     lengths = torch.tensor([230, 150, 0], device=dev, dtype=torch.int32)
     for plane, scales in ((cache.k[0], cache.ks[0]), (cache.v[0], cache.vs[0])):
-        write(plane, scales, table, torch.randn(3, 256, 2, 128, device=dev, generator=gen).to(bf))
+        write(plane, scales, table, torch.randn(3, 16 * page, 2, 128, device=dev, generator=gen).to(bf))
     q = torch.randn(3, 2 * g, 128, device=dev, generator=gen).to(bf)
     return q, cache.k[0], cache.v[0], cache.ks[0], cache.vs[0], table, lengths
 
@@ -440,19 +440,49 @@ def test_quantized_decode_kernels_match_plain_on_the_card(bits):
     from gofr_tpu_torch.ops import attention
     from gofr_tpu_torch.ops.cuda import paged_decode_q as mod8
     from gofr_tpu_torch.ops.cuda import paged_decode_q4 as mod4
+    from gofr_tpu_torch.ops.cuda.decode_attention import split_plan
 
     mod = mod8 if bits == 8 else mod4
     launch = mod8.paged_decode_q if bits == 8 else mod4.paged_decode_q4
     plain = (attention.paged_decode_attention_q_plain if bits == 8
              else attention.paged_decode_attention_q4_plain)
-    for g in (1, 4):
-        args = _card_pool(bits, g, seed=g)
-        got, want = launch(*args), plain(*args)
+
+    def agrees(got, want):
         diff = got.float() - want.float()
         rel = diff.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()
-        assert diff.abs().max().item() <= mod.MAX_ABS and rel.item() <= mod.RMS_REL
+        return diff.abs().max().item() <= mod.MAX_ABS and rel.item() <= mod.RMS_REL
+
+    for g in (1, 4):
+        args = _card_pool(bits, g, seed=g)
+        got = launch(*args)
+        assert agrees(got, plain(*args))
         assert torch.all(got[2] == 0)
     q, kq, vq, ks, vs, table, lengths = args
+    # the split's edges: on and one past the first three split boundaries,
+    # the whole table row, the empty slot, past the table, through a table
+    # of pages drawn with repeats and an OOB entry inside a live lane,
+    # against the split's plain version
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r, splits = split_plan(9, 2, 16 * 16)
+    assert splits > 3
+    edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, 256, 0, 261, 3 * r, 3 * r + 1],
+                         device="cuda", dtype=torch.int32)
+    edge_table = torch.randint(0, 40, (9, 16), device="cuda", generator=gen, dtype=torch.int32)
+    edge_table[1, 1] = edge_table[5] = 40
+    edge_args = (torch.randn(9, 8, 128, device="cuda", generator=gen).to(torch.bfloat16),
+                 kq, vq, ks, vs, edge_table, edges)
+    got = launch(*edge_args)
+    assert agrees(got, attention.paged_decode_attention_q_split_plain(*edge_args, r, bits=bits))
+    assert torch.all(got[5] == 0)
+    # pages of 40 rows (a tile spans two) and of 12 (scales staged row by
+    # row: 8 rows of a tile may straddle a page), against the split's plain
+    # version
+    for page in (40, 12):
+        page_args = _card_pool(bits, 4, seed=page, page=page)
+        got = launch(*page_args)
+        r = split_plan(3, 2, 16 * page)[0]
+        assert agrees(got, attention.paged_decode_attention_q_split_plain(*page_args, r, bits=bits))
+        assert torch.all(got[2] == 0)
     with pytest.raises(ValueError, match="pools"):  # the other format's dtype
         launch(q, kq.view(torch.uint8 if bits == 8 else torch.int8),
                vq.view(torch.uint8 if bits == 8 else torch.int8), ks, vs, table, lengths)

@@ -16,7 +16,7 @@ result line:
    int8 and int4 pools of page 128, the quantized ones written by the
    port's own writes from random bf16 K/V, and on a bf16 slot cache of
    2176 positions per slot, with a lane past the slot; lanes on and one
-   past the split boundaries of the slot and quantized-pool decodes; 4 x 512
+   past the split boundaries of the slot and paged decodes; 4 x 512
    and 4 x 1024 prefills, full and ragged, and a chunk of 200 queries after
    cached offsets): each held against its plain PyTorch version on the same
    inputs, timed with CUDA events beside the plain version, a library
@@ -225,6 +225,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         paged_decode_attention_q4_plain,
         paged_decode_attention_q_plain,
         paged_decode_attention_q_split_plain,
+        paged_decode_attention_split_plain,
     )
     from gofr_tpu_torch.ops.cuda import decode_attention as slot_decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
@@ -235,7 +236,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_slot
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
     from gofr_tpu_torch.ops.kvcache import append_tokens_plain
-    from gofr_tpu_torch.ops.paged import append_tokens_paged_plain
+    from gofr_tpu_torch.ops.paged import append_tokens_paged_plain, gather_kv
 
     def timing(kernel, plain, library=None, iters: int = 50, plain_iters: int = 10) -> dict:
         """Each of ``fn(i)`` kernel, plain version and library yardstick
@@ -258,20 +259,55 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     # bytes every decode kernel moves besides K/V: q and out, table, lengths
     decode_io = 2 * q.numel() * 2 + table.numel() * 4 + n * 4
 
+    def edge_case(pool: int, maxp: int) -> tuple:
+        """(split_rows, splits, lengths, table) of a paged decode's split
+        edges: lanes on and one past the first three split boundaries, the
+        whole table row, the empty slot and past the table, through a table
+        of pages drawn in scrambled order with repeats and OOB entries
+        inside two live lanes. Lanes this short are held against the split's
+        plain version, which keeps the scores in f32 and splits as the
+        kernels do."""
+        r, splits = slot_decode_mod.split_plan(n, hkv, maxp * page)
+        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, maxp * page, 0, maxp * page + 5, 3 * r,
+                              3 * r + 1], device=dev, dtype=torch.int32)
+        edge_table = torch.randint(0, pool, (n, maxp), generator=torch.Generator().manual_seed(SEED + 2),
+                                   dtype=torch.int32)
+        edge_table[1, 1] = edge_table[4, maxp - 1] = pool
+        edge_table[5] = pool
+        return r, splits, edges, edge_table.to(dev)
+
     def check_paged_decode() -> dict:  # A
         got = paged_decode(q, k_pool[0], v_pool[0], table, lengths)
         want = paged_decode_attention_plain(q, k_pool[0], v_pool[0], table, lengths)
         agree = agreement("paged_decode", got, want, decode_mod)
         require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), "paged_decode: empty slots not zero")
+        r, splits, edges, edge_table = edge_case(k_pool.shape[1], table.shape[1])
+        got_e = paged_decode(q, k_pool[0], v_pool[0], edge_table, edges)
+        agree_e = agreement("paged_decode (split boundaries)", got_e,
+                            paged_decode_attention_split_plain(q, k_pool[0], v_pool[0], edge_table,
+                                                               edges, r), decode_mod)
+        require(torch.all(got_e[5] == 0).item(), "paged_decode: the empty slot is not zero")
         b_ms, b_by = bound_ms(c["live"] * hkv * d * 2 * 2 + decode_io, 4 * c["live"] * hq * d)
+        # yardstick only (never called by the port): SDPA with a length mask
+        # and enable_gqa on each layer's logical view, gathered through the
+        # table outside the timed call; it returns NaN for the empty slot
+        views = [gather_kv(k_pool[layer], v_pool[layer], table) for layer in range(layers)] if timed else []
+        mask = (torch.arange(table.shape[1] * page, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        q1 = q[:, :, None]
         return {
-            "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94", **agree,
+            "name": "paged_decode", "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
+            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
+            "checks": {"ragged": agree, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
             "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
             **timing(lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table,
                                             lengths),
                      lambda i: paged_decode_attention_plain(q, k_pool[i % layers], v_pool[i % layers],
-                                                            table, lengths)),
+                                                            table, lengths),
+                     lambda i: F.scaled_dot_product_attention(q1, *views[i % layers], attn_mask=mask,
+                                                              enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": decode_shape,
         }
 
@@ -381,21 +417,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         got, want = launch(*args(0)), plain(*args(0))
         agree = agreement(name, got, want, mod)
         require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
-        # the split's edges: on and one past the first three split
-        # boundaries, the whole table row, the empty slot, past the table,
-        # through a table of pages drawn in scrambled order with repeats and
-        # OOB entries inside two live lanes. As in check_slot_decode these
-        # short lanes are held against the split's plain version, which keeps
-        # the scores and p * vs in f32 and splits as the kernel does
-        pool, maxp = cache.k.shape[1], table.shape[1]
-        r, splits = slot_decode_mod.split_plan(n, hkv, maxp * page)
-        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, maxp * page, 0, maxp * page + 5, 3 * r,
-                              3 * r + 1], device=dev, dtype=torch.int32)
-        edge_table = torch.randint(0, pool, (n, maxp), generator=torch.Generator().manual_seed(SEED + 2),
-                                   dtype=torch.int32)
-        edge_table[1, 1] = edge_table[4, maxp - 1] = pool
-        edge_table[5] = pool
-        edge_args = (*args(0)[:5], edge_table.to(dev), edges)
+        # the split's edges (edge_case); the split's plain version keeps p * vs
+        # in f32 as the kernel does
+        r, splits, edges, edge_table = edge_case(cache.k.shape[1], table.shape[1])
+        edge_args = (*args(0)[:5], edge_table, edges)
         got_e = launch(*edge_args)
         agree_e = agreement(f"{name} (split boundaries)", got_e,
                             paged_decode_attention_q_split_plain(*edge_args, r, bits=bits), mod)

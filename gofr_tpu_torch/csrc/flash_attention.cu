@@ -51,6 +51,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using gofr::ldmatrix_x4;
+using gofr::ldmatrix_x4_trans;
 using gofr::mma_bf16;
 
 constexpr int kD = 128;            // head_dim (the wrapper checks)
@@ -65,18 +67,6 @@ constexpr int kTileElems = kBK * kStride;
 constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;  // 87,040 B
 
 static_assert(kBQ == kBK, "stage_rows copies 64-row tiles of Q, K and V alike");
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(gofr::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(gofr::smem_addr(p)));
-}
 
 // Two f32 values as one register of bf16 pair, `lo` in the low half (the
 // lower column of an mma fragment).

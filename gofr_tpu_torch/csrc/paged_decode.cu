@@ -1,14 +1,9 @@
-// Decode attention: one new token per slot against the bf16 KV cache, on
-// either layout.
+// Decode attention over the bf16 slot cache: one new token per slot (kernel
+// F). The page pool's decode attention (kernels A, D and E) lives in
+// paged_decode_q.cu.
 //
-// Replaces gofr_tpu/ops/pallas/paged_decode.py paged_decode_attention
-// (:94, pallas_call :122, body _paged_decode_kernel :54) over the page pool
-// (kernel A), and gofr_tpu/ops/pallas/decode_attention.py decode_attention
-// (:85, pallas_call :111, body _decode_kernel :46) over the slot cache
-// (kernel F). The two differ only in where row t of (slot n, KV head h)
-// lives, so one kernel template serves both through a row-addressing policy:
-// PagedRows reads the slot's block-table entry, SlotRows steps from the
-// slot's base.
+// Replaces gofr_tpu/ops/pallas/decode_attention.py decode_attention (:85,
+// pallas_call :111, body _decode_kernel :46).
 //
 // What bounds it on the card: device-memory bytes. Each slot's live K and V
 // rows (len x Hkv x D x 2 planes x 2 B per layer) are read once and used for
@@ -21,8 +16,9 @@
 // Design:
 //   - One thread block per (slot, KV head, split of the sequence). The G
 //     query rows of the head share every K/V tile the block stages, so K/V
-//     are read once per head, not once per query head (the TPU kernels' [G,
-//     d] tile).
+//     are read once per head, not once per query head (the TPU kernel's [G,
+//     d] tile). Row t of (slot n, KV head h) lies at a fixed step from the
+//     slot's base (SlotRows).
 //   - The split: the launcher cuts each slot into `splits` runs of
 //     `split_rows` positions (a multiple of the 64-row tile), a number the
 //     host takes from the shapes alone, never from the lengths (reading them
@@ -31,23 +27,20 @@
 //     own live rows, so the work spreads over hundreds of blocks instead of
 //     one per (slot, head). Each writes the f32 state of its G rows
 //     (unnormalised acc[D], running max m, sum l) to scratch, and the merge
-//     of split_merge.cuh (shared with kernels D and E), launched from the
+//     of split_merge.cuh (shared with kernels A, D and E), launched from the
 //     same entry point, combines the live runs of each (slot, query head).
-//     With one split (kernel A launches one) the block finishes in place
-//     and there is no merge.
-//   - The block reads its own length (and block-table row); there is no
-//     scalar prefetch on the card. The TPU slot kernel streams all Smax
-//     positions and masks them; this one stops at the length.
+//     With one split the block finishes in place and there is no merge.
+//   - The block reads its own length; there is no scalar prefetch on the
+//     card. The TPU kernel streams all Smax positions and masks them; this
+//     one stops at the length.
 //   - Tiles flow through a two-stage ring of cp.async copies
 //     (async_copy.cuh): the next tile loads while the current one is
 //     scored and folded. Rows are padded by 16 B so the score loop reads
 //     them without bank conflicts.
 //   - The online-softmax state is f32 (online_softmax.cuh); probabilities are
-//     rounded to bf16 before the P.V product, as the TPU kernels do.
-//   - A length is clamped to what the layout holds (MaxP x page, or Smax): an
-//     idle slot-layout lane asks for Smax + 1 + k, and an unclamped length
-//     would read the next head's rows. A table entry past the pool clamps to
-//     page P-1 (read, then masked by length like the TPU kernel). Smax need
+//     rounded to bf16 before the P.V product, as the TPU kernel does.
+//   - A length is clamped to Smax: an idle slot-layout lane asks for Smax + 1
+//     + k, and an unclamped length would read the next head's rows. Smax need
 //     not be a multiple of 64: rows past the length are never loaded.
 #include <cstdint>
 
@@ -70,22 +63,6 @@ constexpr int kStages = 2;       // K/V ring depth
 constexpr int kRingBytes = kStages * 2 * kTileElems * 2;  // K and V: 69,632 B
 constexpr int kState = kD + 2;   // one split's scratch per query row: acc[D], m, l
 
-// The page pool [P, Hkv, page, D] through the block table [N, MaxP].
-struct PagedRows {
-  const int* table;
-  int pool, page, maxp;
-
-  __device__ int length(const int* lengths, int n) const {
-    return min(max(lengths[n], 0), maxp * page);
-  }
-
-  // element offset of row t of (slot n, KV head h)
-  __device__ size_t row(int n, int h, int hkv, int t) const {
-    const int entry = min(max(table[(size_t)n * maxp + t / page], 0), pool - 1);
-    return (((size_t)entry * hkv + h) * page + t % page) * kD;
-  }
-};
-
 // The slot cache's layer slice [N, Hkv, Smax, D]: lane n is slot n.
 struct SlotRows {
   int smax;
@@ -99,12 +76,11 @@ struct SlotRows {
   }
 };
 
-template <class Rows>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const bf16* __restrict__ q,      // [N, Hq, D]
-    const bf16* __restrict__ k,      // the layout's K rows
-    const bf16* __restrict__ v,      // the layout's V rows
-    const Rows rows,
+    const bf16* __restrict__ k,      // [N, Hkv, Smax, D]
+    const bf16* __restrict__ v,      // [N, Hkv, Smax, D]
+    const SlotRows rows,
     const int* __restrict__ lengths,  // [N]
     bf16* __restrict__ out,           // [N, Hq, D], written here when there is one split
     float* __restrict__ part,         // [N, Hq, splits, kState], written when there are more
@@ -222,19 +198,18 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-template <class Rows>
-int launch(const void* q, const void* k, const void* v, const Rows& rows, const void* lengths,
+int launch(const void* q, const void* k, const void* v, const SlotRows& rows, const void* lengths,
            void* out, void* scratch, int n, int hkv, int group, int split_rows, int splits,
            float scale, void* stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  decode_kernel<Rows><<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
+  decode_kernel<<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), rows,
       static_cast<const int*>(lengths), static_cast<bf16*>(out), static_cast<float*>(scratch),
       hkv, group, split_rows, scale);
@@ -250,17 +225,7 @@ int launch(const void* q, const void* k, const void* v, const Rows& rows, const 
 
 }  // namespace
 
-// Kernel A: one split (the block finishes in place).
-extern "C" int gofr_paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                                 const void* table, const void* lengths, void* out,
-                                 int n, int hkv, int group, int pool, int page, int maxp,
-                                 float scale, void* stream) {
-  const PagedRows rows{static_cast<const int*>(table), pool, page, maxp};
-  return launch(q, k_pool, v_pool, rows, lengths, out, nullptr, n, hkv, group, maxp * page, 1,
-                scale, stream);
-}
-
-// Kernel F: `splits` runs of `split_rows` positions (splits x split_rows >=
+// `splits` runs of `split_rows` positions (splits x split_rows >=
 // smax), then the merge; `scratch` holds n x Hq x splits x (D + 2) floats.
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* lengths, void* out, void* scratch, int n, int hkv,

@@ -1,6 +1,6 @@
 // The merge of a decode kernel split over the sequence, shared by the slot
-// decode (kernel F, paged_decode.cu) and the quantized-pool decodes (kernels
-// D and E, paged_decode_q.cu).
+// decode (kernel F, paged_decode.cu) and the page-pool decodes (kernels A, D
+// and E, paged_decode_q.cu).
 //
 // A decode block that covers run s of a slot writes, for each of its query
 // rows, the f32 state of that run: the unnormalised acc[D], then the running

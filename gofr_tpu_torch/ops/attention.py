@@ -20,9 +20,10 @@ Two layers live here:
   version. There is no fallback from one to the other. The int8 slot
   decode ``decode_attention_q`` has no kernel: the TPU ran it as XLA.
 
-``decode_attention_split_plain`` and ``paged_decode_attention_q_split_plain``
-repeat the split-and-merge arithmetic of kernels F and D/E in PyTorch; only
-the tests call them.
+``decode_attention_split_plain``, ``paged_decode_attention_split_plain`` and
+``paged_decode_attention_q_split_plain`` repeat the split-and-merge
+arithmetic of kernels F, A and D/E in PyTorch; only the tests and
+``chip_smoke.py`` call them.
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 def _attend_in_runs(scores: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
                     split_rows: int, *, p_dtype: torch.dtype | None = None,
                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """The split kernels' arithmetic (kernels D, E and F) on scores [B, Hkv,
+    """The split kernels' arithmetic (kernels A, D, E and F) on scores [B, Hkv,
     G, S] f32 and values v [B, Hkv, S, D] f32: positions at or past
     lengths[b] masked, the S positions cut into runs of ``split_rows``, each
     run's (max m, sum l, unnormalised acc) taken in f32 against its own
@@ -156,6 +157,19 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache
     scores = torch.einsum("bkgd,bktd->bkgt", qg, k_cache.float()) * scale
     out = _attend_in_runs(scores, v_cache.float(), lengths, split_rows, p_dtype=v_cache.dtype)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention_split_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                       table: torch.Tensor, lengths: torch.Tensor, split_rows: int,
+                                       *, scale: float | None = None) -> torch.Tensor:
+    """``paged_decode_attention`` as kernel A computes it, for the tests:
+    each slot's rows gathered through the table (OOB entries clamp to page
+    P-1), scores in f32, the MaxP x page positions cut into runs of
+    ``split_rows`` whose probabilities are rounded to the pool's type before
+    P.V, the live runs merged: ``decode_attention_split_plain`` on the
+    gathered view."""
+    k_view, v_view = gather_kv(k_pool, v_pool, table)
+    return decode_attention_split_plain(q, k_view, v_view, lengths, split_rows, scale=scale)
 
 
 def paged_decode_attention_q_split_plain(q: torch.Tensor, kq_pool: torch.Tensor,

@@ -1,11 +1,11 @@
 """Kernel F: decode attention over the bf16 slot cache.
 
 Replaces gofr_tpu/ops/pallas/decode_attention.py ``decode_attention``
-(:85). The CUDA source is ``csrc/paged_decode.cu``, the kernel template of
-kernel A with the slot cache's row addressing (``SlotRows``), split over the
-sequence into ``split_plan``'s runs and merged by a second kernel launched
-from the same entry point; its header note says what bounds it
-(device-memory bytes) and how the design answers that. Its plain version is
+(:85). The CUDA source is ``csrc/paged_decode.cu``, with the slot cache's
+row addressing (``SlotRows``), split over the sequence into
+``split_plan``'s runs and merged by a second kernel launched from the same
+entry point; its header note says what bounds it (device-memory bytes) and
+how the design answers that. Its plain version is
 ``ops.attention.decode_attention_plain``; ``ops.attention.decode_attention``
 chooses between the two by the tensor's device.
 ``ops.attention.decode_attention_split_plain`` repeats the split and merge
@@ -20,10 +20,11 @@ import math
 import torch
 
 from gofr_tpu_torch.ops import cuda
-from gofr_tpu_torch.ops.cuda.paged_decode import HEAD_DIM, MAX_GROUP
 
+HEAD_DIM = 128
+MAX_GROUP = 8
 # Agreement with the plain version on the same bf16 inputs. The arithmetic
-# is kernel A's (the same template), and so is the plain version's, so the
+# is kernel A's (paged_decode_q.cu), and so is the plain version's, so the
 # two differ as A and its plain version do: by a few bf16 ulps, the plain
 # version rounding the scores to bf16 where the kernel keeps them in f32.
 # The split changes only the order of the f32 sums (each run's
@@ -60,6 +61,19 @@ def split_plan(n: int, hkv: int, smax: int) -> tuple[int, int]:
     return split_rows, max(1, math.ceil(smax / split_rows))
 
 
+def split_scratch(q: torch.Tensor, hkv: int, smax: int) -> tuple[int, int, torch.Tensor]:
+    """``split_plan``'s (split_rows, splits) for ``q``'s N lanes of ``hkv``
+    KV heads over ``smax`` positions, and the f32 scratch of each split's
+    (acc[D], m, l) per query row, [N, Hq, splits, D + 2], that only the
+    merge reads (empty with one split). Shared by the split decode
+    launchers (kernels A, D, E and F)."""
+    n, hq, d = q.shape
+    split_rows, splits = split_plan(n, hkv, smax)
+    scratch = torch.empty(n * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
+                          device=q.device)
+    return split_rows, splits, scratch
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
     """q [B, Hq, D] against slot-cache layer slices [B, Hkv, Smax, D],
@@ -86,10 +100,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     out = torch.empty_like(q)
     if b == 0:
         return out
-    split_rows, splits = split_plan(b, hkv, smax)
-    # each split's (acc[D], m, l) per query row; only the merge reads it
-    scratch = torch.empty(b * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
-                          device=q.device)
+    split_rows, splits, scratch = split_scratch(q, hkv, smax)
     fn = cuda.bind("gofr_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), b, hkv, hq // hkv, smax, split_rows, splits, scale,

@@ -3,7 +3,8 @@
 Replaces gofr_tpu/ops/pallas/paged_decode.py ``paged_decode_attention_q``
 (:195). The CUDA source is ``csrc/paged_decode_q.cu`` (entry point
 ``gofr_paged_decode_q``), shared with kernel E, the int4 pool's
-(``ops/cuda/paged_decode_q4.py``); its header note says what bounds it
+(``ops/cuda/paged_decode_q4.py``), and kernel A, the bf16 pool's
+(``ops/cuda/paged_decode.py``); its header note says what bounds it
 (device-memory bytes) and how the design answers that. It is split over
 the sequence into ``decode_attention.split_plan``'s runs (kernel F's plan,
 over the MaxP x page positions a table row holds), merged by a second
@@ -21,10 +22,9 @@ import ctypes
 import torch
 
 from gofr_tpu_torch.ops import cuda
-from gofr_tpu_torch.ops.cuda.decode_attention import split_plan
+from gofr_tpu_torch.ops.cuda.decode_attention import split_scratch
+from gofr_tpu_torch.ops.cuda.paged_decode import HEAD_DIM, MAX_GROUP
 
-HEAD_DIM = 128
-MAX_GROUP = 8
 # Agreement with the plain version on the same inputs (q bf16, a pool
 # written by ops.paged.write_prompts_paged_q from random bf16 K/V). The
 # plain version rounds the scores and p * vs to bf16 where the kernel keeps
@@ -79,10 +79,7 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
     if n == 0:
         return out
     maxp = table.shape[1]
-    split_rows, splits = split_plan(n, hkv, maxp * page)
-    # each split's (acc[D], m, l) per query row; only the merge reads it
-    scratch = torch.empty(n * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
-                          device=q.device)
+    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page)
     fn = cuda.bind(entry, _ARGTYPES)
     rc = fn(q.data_ptr(), kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
             vs_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -13,10 +13,11 @@ a fault in code that two kernels share shows in both. The unmodified
 sources go first and must pass. Then the builds named in ``PHASE5`` are
 read through ``chip_smoke.model_check`` (a full-width Llama-3-8B with
 random weights from the seed, end to end, kernels against plain) on the
-caches named there; these readings are reported, not judged. Kernels A
-and F (paged and slot decode) are one template in ``paged_decode.cu``, so
-a fault in its shared body lands in both; the merge of a split decode
-(``split_merge.cuh``) is one kernel for F, D and E.
+caches named there; these readings are reported, not judged. Kernels A,
+D and E (the page pool's decodes) are one template in
+``paged_decode_q.cu``, so a fault in its shared body lands in all three;
+the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
+D and E.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -42,14 +43,20 @@ from gofr_tpu_torch.ops import cuda  # noqa: E402
 
 # (name, file, text to replace, replacement, must_catch)
 MUTANTS = [
-    ("paged_decode: one key past the length", "paged_decode.cu",
+    # kernels A, D and E are one template in paged_decode_q.cu
+    ("paged_decode/_q/_q4: one key past the length", "paged_decode_q.cu",
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
-    ("paged_decode: last live key dropped", "paged_decode.cu",
+    ("paged_decode/_q/_q4: last live key dropped", "paged_decode_q.cu",
      "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] - 1, 0), maxp * page)", True),
     # the scores of the sequence's first 64 rows masked: as if never loaded
-    ("paged_decode/decode_attention: first live tile skipped", "paged_decode.cu",
+    ("paged_decode/_q/_q4: first live tile skipped", "paged_decode_q.cu",
+     "p_s[quad][t] = (t0 + t < t_end)", "p_s[quad][t] = (t0 >= kTile && t0 + t < t_end)", True),
+    # position 16k + 15 of every tile out of the tensor-core P.V (still in l)
+    ("paged_decode: last key of every 16 left out of P.V", "paged_decode_q.cu",
+     "a[2] = bf16_pair(hi.x, hi.y);", "a[2] = bf16_pair(hi.x, c == 3 ? 0.f : hi.y);", True),
+    ("decode_attention: first live tile skipped", "paged_decode.cu",
      "p_s[g][t] = (t0 + t < t_end)", "p_s[g][t] = (t0 >= kTile && t0 + t < t_end)", True),
-    ("paged_decode/decode_attention: last key of each tile left out of P.V", "paged_decode.cu",
+    ("decode_attention: last key of each tile left out of P.V", "paged_decode.cu",
      "for (int t = 0; t < kTile; ++t) {", "for (int t = 0; t < kTile - 1; ++t) {", True),
     ("decode_attention: one key past the length", "paged_decode.cu",
      "min(max(lengths[n], 0), smax)", "min(max(lengths[n] + 1, 0), smax)", True),
@@ -76,38 +83,37 @@ MUTANTS = [
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
      "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
-    # the merge is one kernel for F, D and E
-    ("decode_attention/paged_decode_q/_q4: last live split left out of the merge", "split_merge.cuh",
+    # the merge is one kernel for F, A, D and E
+    ("decode_attention/paged_decode/_q/_q4: last live split left out of the merge", "split_merge.cuh",
      "for (int s = 0; s < live; ++s) {", "for (int s = 0; s < live - 1; ++s) {", True),
-    ("decode_attention/paged_decode_q/_q4: a split's max ignored in the merge (no rescale)",
+    ("decode_attention/paged_decode/_q/_q4: a split's max ignored in the merge (no rescale)",
      "split_merge.cuh",
      "const float w = expf(st[s * kState + kD] - safe);", "const float w = 1.f;", True),
     ("decode_attention: split boundaries overlapping by one row", "paged_decode.cu",
      "min(len, t_begin + split_rows);", "min(len, t_begin + split_rows + 1);", True),
     ("paged_decode_q/_q4: ks fold dropped", "paged_decode_q.cu",
-     "sc[e] * scale * __bfloat162float(ks_tile[t])", "sc[e] * scale", True),
+     "x *= __bfloat162float(ks_tile[t]);", "x *= 1.f;", True),
     # each score scaled by the next row's K scale (the last row's by the first's)
     ("paged_decode_q/_q4: K scales one row off", "paged_decode_q.cu",
      "ks_tile[t]", "ks_tile[(t + 1) % kTile]", True),
     ("paged_decode_q/_q4: vs fold dropped", "online_softmax.cuh",
      "row[lane] = p.x * vs[lane];\n  row[lane + 32] = p.y * vs[lane + 32];",
      "row[lane] = p.x;\n  row[lane + 32] = p.y;", True),
-    ("paged_decode_q/_q4: one key past the length", "paged_decode_q.cu",
-     "min(max(lengths[n], 0), maxp * page)", "min(max(lengths[n] + 1, 0), maxp * page)", True),
-    ("paged_decode_q/_q4: split boundaries overlapping by one row", "paged_decode_q.cu",
+    ("paged_decode/_q/_q4: split boundaries overlapping by one row", "paged_decode_q.cu",
      "min(len, t_begin + split_rows);", "min(len, t_begin + split_rows + 1);", True),
     # rows addressed through the entries staged for the tile before (the
     # right page only where both tiles lie in one page)
-    ("paged_decode_q/_q4: a tile read through the previous tile's table entries",
+    ("paged_decode/_q/_q4: a tile read through the previous tile's table entries",
      "paged_decode_q.cu", "const int* entry = entries_s[i % kEntryBufs];",
      "const int* entry = entries_s[(i + kEntryBufs - 1) % kEntryBufs];", True),
     ("paged_decode_q4: nibble halves swapped", "paged_decode_q.cu",
      "kLoShift = 0, kHiShift = 4", "kLoShift = 4, kHiShift = 0", True),
     ("paged_decode_q4: bias of 7 instead of 8", "paged_decode_q.cu",
      "kBias = 8", "kBias = 7", True),
-    # p kept in f32 instead of rounded to bf16 before P.V: a relative change
-    # of at most 2^-9 on each probability, averaged over hundreds of keys,
-    # is below a bf16 ulp of the outputs, so no output check can see it
+    # p kept in f32 instead of rounded to bf16 before P.V (A packs it for
+    # the tensor cores by truncation, F multiplies it in f32): a relative
+    # change of at most 2^-8 on each probability, averaged over hundreds of
+    # keys, is below a bf16 ulp of the outputs, so no output check can see it
     ("online_softmax: p not rounded to bf16", "online_softmax.cuh",
      "row[lane] = round_bf16(pa);\n  row[lane + 32] = round_bf16(pb);",
      "row[lane] = pa;\n  row[lane + 32] = pb;", False),
@@ -118,8 +124,8 @@ MUTANTS = [
 # nearest fault of each decode kernel and a fault of the prefill kernel, to
 # see which faults phase 5 resolves beside a clean reading.
 PHASE5 = {"unmodified": chip_smoke.RUNS,
-          "paged_decode: one key past the length": (("paged", ""),),
-          "paged_decode_q/_q4: one key past the length": (("paged", "int8"), ("paged", "int4")),
+          "paged_decode/_q/_q4: one key past the length": (("paged", ""), ("paged", "int8"),
+                                                           ("paged", "int4")),
           "flash_attention: causal diagonal masked": (("paged", "int4"),),
           "decode_attention: one key past the length": (("slot", ""),)}
 

@@ -42,13 +42,14 @@ from gofr_tpu_torch.ops import cuda  # noqa: E402
 # differ from the unmodified build's by rounding (a bf16 ulp of the largest
 # flash outputs is 0.0156), never by more than this.
 MAX_DIFF = 0.1
-# kernels D and E's tensor-core score block, replaced by one variant
+# the template's tensor-core score block (kernels A, D and E), which one
+# variant replaces for D and E
 SCORE_BLOCK = (
     "#pragma unroll\n"
     "    for (int nt = 0; nt < kWarpRows / 8; ++nt) {\n"
     "      const int t_base = warp * kWarpRows + nt * 8;\n"
     "      uint32_t b[kSteps][2];\n"
-    "      Rows::k_frags(k_tile + (t_base + quad) * Rows::kStride, c, b);\n"
+    "      Rows::k_frags(k_tile, t_base + quad, c, b);\n"
     "      float sc[4] = {0.f, 0.f, 0.f, 0.f};\n"
     "#pragma unroll\n"
     "      for (int s = 0; s < kSteps; ++s) {\n"
@@ -59,11 +60,42 @@ SCORE_BLOCK = (
     "#pragma unroll\n"
     "        for (int e = 0; e < 2; ++e) {\n"
     "          const int t = t_base + 2 * c + e;\n"
-    "          p_s[quad][t] = (t0 + t < t_end) ? sc[e] * scale * __bfloat162float(ks_tile[t])\n"
-    "                                          : gofr::kNegInf;\n"
+    "          float x = sc[e] * scale;\n"
+    "          if constexpr (Rows::kScaled) x *= __bfloat162float(ks_tile[t]);\n"
+    "          p_s[quad][t] = (t0 + t < t_end) ? x : gofr::kNegInf;\n"
     "        }\n"
     "      }\n"
     "    }\n"
+)
+# the scores kernels D and E took before the tensor cores, one (query row,
+# position) pair per thread and step in f32, each K element converted again
+# for every query row (q staged in shared memory as f32; rows read 16 bytes
+# at a time)
+SCALAR_SCORES = (
+    "      __shared__ float q_f[kMaxGroup][kD];\n"
+    "      if (i == 0)\n"
+    "        for (int j = tid; j < group * kD; j += kThreads)\n"
+    "          q_f[j / kD][j % kD] =\n"
+    "              __bfloat162float(q[((size_t)n * hq + h * group + j / kD) * kD + j % kD]);\n"
+    "      __syncthreads();\n"
+    "      for (int j = tid; j < group * kTile; j += kThreads) {\n"
+    "        const int g = j / kTile, t = j % kTile;\n"
+    "        const uint4* row = reinterpret_cast<const uint4*>(k_tile + Rows::offset(t, 0));\n"
+    "        float s = 0.f;\n"
+    "        for (int w4 = 0; w4 < Rows::kBytes / 16; ++w4) {\n"
+    "          const uint4 x = row[w4];\n"
+    "          const uint32_t words[4] = {x.x, x.y, x.z, x.w};\n"
+    "#pragma unroll\n"
+    "          for (int w = 0; w < 4; ++w) {\n"
+    "            float v[Rows::kCols];\n"
+    "            Rows::values(words[w], v);\n"
+    "#pragma unroll\n"
+    "            for (int e = 0; e < Rows::kCols; ++e)\n"
+    "              s = fmaf(q_f[g][Rows::col(16 * w4 + 4 * w, e)], v[e], s);\n"
+    "          }\n"
+    "        }\n"
+    "        p_s[g][t] = (t0 + t < t_end) ? s * scale * __bfloat162float(ks_tile[t]) : gofr::kNegInf;\n"
+    "      }\n"
 )
 # (name, [(file, text to replace, replacement), ...])
 VARIANTS = [
@@ -110,9 +142,9 @@ VARIANTS = [
         ("online_softmax.cuh", "return expf(score - m_safe);",
          "return exp2f((score - m_safe) * 1.4426950408889634f);"),
     ]),
-    # A and F: K/V staged with synchronous 16-byte loads (the ring's stages
-    # stay, but each thread waits for its own loads)
-    ("paged_decode/decode_attention: synchronous K/V loads", [
+    # F: K/V staged with synchronous 16-byte loads (the ring's stages stay,
+    # but each thread waits for its own loads)
+    ("decode_attention: synchronous K/V loads", [
         ("paged_decode.cu",
          "      gofr::cp_async16(k_s + r * kStride + col, k + base, ok);\n"
          "      gofr::cp_async16(v_s + r * kStride + col, v + base, ok);\n",
@@ -121,7 +153,7 @@ VARIANTS = [
          "      *reinterpret_cast<uint4*>(v_s + r * kStride + col) =\n"
          "          ok ? *reinterpret_cast<const uint4*>(v + base) : make_uint4(0, 0, 0, 0);\n"),
     ]),
-    # F: one split per (slot, head), finished in place, as A
+    # F: one split per (slot, head), finished in place
     ("decode_attention: one split", [
         ("paged_decode.cu",
          "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, split_rows,\n"
@@ -129,59 +161,45 @@ VARIANTS = [
          "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, smax, 1,\n"
          "                scale, stream);"),
     ]),
-    # D and E: one split per (slot, head), finished in place
-    ("paged_decode_q/_q4: one split", [
+    # A, D and E: one split per (slot, head), finished in place
+    ("paged_decode/_q/_q4: one split", [
         ("paged_decode_q.cu", "  const PoolLength pool_len{maxp, page};\n",
          "  const PoolLength pool_len{maxp, page};\n  split_rows = maxp * page;\n  splits = 1;\n"),
     ]),
-    # D and E: rows and scales staged with synchronous 16-byte loads (the
-    # ring's stages and the table entries' copies stay)
-    ("paged_decode_q/_q4: synchronous row and scale loads", [
+    # A, D and E: each 16-byte chunk's row address through a table read of
+    # its own (the entries are still staged, and not used)
+    ("paged_decode/_q/_q4: per-chunk table reads", [
+        ("paged_decode_q.cu", "const int e = min(max(entry[t / page - first], 0), pool - 1);",
+         "const int e = min(max(row_table[t / page], 0), pool - 1);"),
+    ]),
+    # A, D and E: rows (and scales) staged with synchronous 16-byte loads
+    # (the ring's stages and the table entries' copies stay)
+    ("paged_decode/_q/_q4: synchronous row and scale loads", [
         ("paged_decode_q.cu",
-         "      gofr::cp_async16(&ring[st][0][r * Rows::kStride + col], k_pool + base, ok);\n"
-         "      gofr::cp_async16(&ring[st][1][r * Rows::kStride + col], v_pool + base, ok);\n",
-         "      *reinterpret_cast<uint4*>(&ring[st][0][r * Rows::kStride + col]) =\n"
+         "      gofr::cp_async16(&ring[st][0][Rows::offset(r, col)], k_pool + base, ok);\n"
+         "      gofr::cp_async16(&ring[st][1][Rows::offset(r, col)], v_pool + base, ok);\n",
+         "      *reinterpret_cast<uint4*>(&ring[st][0][Rows::offset(r, col)]) =\n"
          "          ok ? *reinterpret_cast<const uint4*>(k_pool + base) : make_uint4(0, 0, 0, 0);\n"
-         "      *reinterpret_cast<uint4*>(&ring[st][1][r * Rows::kStride + col]) =\n"
+         "      *reinterpret_cast<uint4*>(&ring[st][1][Rows::offset(r, col)]) =\n"
          "          ok ? *reinterpret_cast<const uint4*>(v_pool + base) : make_uint4(0, 0, 0, 0);\n"),
         ("paged_decode_q.cu",
-         "        gofr::cp_async16(&scales_s[st][tid / 8][r], (tid < 8 ? k_scale : v_scale) + "
-         "(ok ? at(t) : 0),\n                         ok);\n",
-         "        *reinterpret_cast<uint4*>(&scales_s[st][tid / 8][r]) =\n"
-         "            ok ? *reinterpret_cast<const uint4*>((tid < 8 ? k_scale : v_scale) + at(t))\n"
-         "               : make_uint4(0, 0, 0, 0);\n"),
+         "          gofr::cp_async16(&scales_s[st][tid / 8][r], (tid < 8 ? k_scale : v_scale) + "
+         "(ok ? at(t) : 0),\n                           ok);\n",
+         "          *reinterpret_cast<uint4*>(&scales_s[st][tid / 8][r]) =\n"
+         "              ok ? *reinterpret_cast<const uint4*>((tid < 8 ? k_scale : v_scale) + at(t))\n"
+         "                 : make_uint4(0, 0, 0, 0);\n"),
     ]),
-    # D and E: PR 2-4's scores, one (query row, position) pair per thread
-    # and step in f32, each K element converted again for every query row
-    # (q staged in shared memory as f32; rows read 16 bytes at a time)
+    # A: P.V in f32 FMAs on p rounded to bf16 (option a: D and E's loop with
+    # 8-byte words, four columns a lane), not on the tensor cores
+    ("paged_decode: P.V in f32 FMAs", [
+        ("paged_decode_q.cu", "static constexpr bool kMmaPV = true;",
+         "static constexpr bool kMmaPV = false;"),
+    ]),
+    # D and E: the scalar scores above (A keeps the tensor cores)
     ("paged_decode_q/_q4: K dequantized per query row", [
         ("paged_decode_q.cu", SCORE_BLOCK,
-         "    {\n"
-         "      __shared__ float q_f[kMaxGroup][kD];\n"
-         "      if (i == 0)\n"
-         "        for (int j = tid; j < group * kD; j += kThreads)\n"
-         "          q_f[j / kD][j % kD] =\n"
-         "              __bfloat162float(q[((size_t)n * hq + h * group + j / kD) * kD + j % kD]);\n"
-         "      __syncthreads();\n"
-         "      for (int j = tid; j < group * kTile; j += kThreads) {\n"
-         "        const int g = j / kTile, t = j % kTile;\n"
-         "        const uint4* row = reinterpret_cast<const uint4*>(k_tile + t * Rows::kStride);\n"
-         "        float s = 0.f;\n"
-         "        for (int w4 = 0; w4 < Rows::kBytes / 16; ++w4) {\n"
-         "          const uint4 x = row[w4];\n"
-         "          const uint32_t words[4] = {x.x, x.y, x.z, x.w};\n"
-         "#pragma unroll\n"
-         "          for (int w = 0; w < 4; ++w) {\n"
-         "            float v[Rows::kCols];\n"
-         "            Rows::values(words[w], v);\n"
-         "#pragma unroll\n"
-         "            for (int e = 0; e < Rows::kCols; ++e)\n"
-         "              s = fmaf(q_f[g][Rows::col(16 * w4 + 4 * w, e)], v[e], s);\n"
-         "          }\n"
-         "        }\n"
-         "        p_s[g][t] = (t0 + t < t_end) ? s * scale * __bfloat162float(ks_tile[t]) : gofr::kNegInf;\n"
-         "      }\n"
-         "    }\n"),
+         "    if constexpr (Rows::kScaled) {\n" + SCALAR_SCORES + "    } else {\n" + SCORE_BLOCK
+         + "    }\n"),
     ]),
 ]
 

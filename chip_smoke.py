@@ -18,10 +18,14 @@ result line:
    2176 positions per slot, with a lane past the slot; lanes on and one
    past the split boundaries of the slot and paged decodes; 4 x 512
    and 4 x 1024 prefills, full and ragged, and a chunk of 200 queries after
-   cached offsets): each held against its plain PyTorch version on the same
-   inputs, timed with CUDA events beside the plain version, a library
-   yardstick where one PyTorch call computes the same function, and the
-   least time the card could take (its bound);
+   cached offsets; the five appends, bf16 and quantizing, on edge lanes: a
+   position of -1, past the table, through an OOB or negative entry, at and
+   past Smax, an all-zero row and a row whose max is one element): each
+   held against its plain PyTorch version on the same inputs (the appends
+   bit for bit, values and scales), timed with CUDA events and by device
+   time beside the plain version, a library yardstick where one PyTorch
+   call computes the same function, and the least time the card could take
+   (its bound);
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -29,13 +33,17 @@ result line:
    (``kv_quantize``) and on a bf16 and an int8 slot cache
    (``kv_layout="slot"``); every launch counter is set to 0 just before
    each run and read just after it, and each kernel of that cache's path
-   (``ON_PATH``) must be > 0 and every other kernel 0;
+   (``ON_PATH``) must be > 0, the decode-step kernels equally often, and
+   every other kernel 0;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, and with the kernels in prefill only and in
    decode only; the kernel run's logits must agree with the plain run's
    within the limits below, and each step's error of every run is
-   reported.
+   reported;
+6. no host sync: two ``decode_step`` steps on each cache inside
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
+   that makes the host wait on the card.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -233,10 +241,22 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     from gofr_tpu_torch.ops.cuda import paged_decode_q as decode_q_mod
     from gofr_tpu_torch.ops.cuda import paged_decode_q4 as decode_q4_mod
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
-    from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_slot
+    from gofr_tpu_torch.ops.cuda.kv_append import (
+        kv_append,
+        kv_append_q,
+        kv_append_q4,
+        kv_append_slot,
+        kv_append_slot_q,
+    )
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
-    from gofr_tpu_torch.ops.kvcache import append_tokens_plain
-    from gofr_tpu_torch.ops.paged import append_tokens_paged_plain, gather_kv
+    from gofr_tpu_torch.ops.kvcache import QSlotKVCache, append_tokens_plain, append_tokens_q
+    from gofr_tpu_torch.ops.paged import (
+        append_tokens_paged_plain,
+        append_tokens_paged_q,
+        append_tokens_paged_q4,
+        gather_kv,
+    )
+    from gofr_tpu_torch.ops.quant import unpack_int4
 
     def timing(kernel, plain, library=None, iters: int = 50, plain_iters: int = 10) -> dict:
         """Each of ``fn(i)`` kernel, plain version and library yardstick
@@ -309,32 +329,6 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                      lambda i: F.scaled_dot_product_attention(q1, *views[i % layers], attn_mask=mask,
                                                               enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": decode_shape,
-        }
-
-    def check_kv_append() -> dict:  # B: at each slot's next position; bit-exact
-        k_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
-        v_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
-        ka, va = k_pool[0].clone(), v_pool[0].clone()
-        kp, vp = k_pool[0].clone(), v_pool[0].clone()
-        kv_append(ka, va, table, lengths, k_new, v_new)
-        append_tokens_paged_plain(kp, vp, table, lengths, k_new, v_new)
-        exact = (torch.equal(ka.view(torch.int16), kp.view(torch.int16))
-                 and torch.equal(va.view(torch.int16), vp.view(torch.int16)))
-        require(exact, "kv_append pool differs from the plain write")
-        require(not torch.equal(ka, k_pool[0]), "kv_append wrote nothing")
-        del ka, va, kp, vp
-        b_ms, b_by = bound_ms(2 * 2 * k_new.numel() * 2 + table.numel() * 4 + n * 4, 0)
-        return {
-            "name": "kv_append", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
-            "replaces": "gofr_tpu/ops/pallas/kv_append.py:110", "max_abs_err": 0.0,
-            "tolerance": "bit-exact",
-            **timing(lambda i: kv_append(k_pool[i % layers], v_pool[i % layers], table, lengths,
-                                         k_new, v_new),
-                     lambda i: append_tokens_paged_plain(k_pool[i % layers], v_pool[i % layers],
-                                                         table, lengths, k_new, v_new),
-                     iters=200, plain_iters=50),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"slots": n, "hkv": hkv, "d": d, "page": page},
         }
 
     def flash_case(s: int) -> tuple:
@@ -495,40 +489,194 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "bound_ms": b_ms, "bound_by": b_by, "shape": slot_shape,
         }
 
-    def check_kv_append_slot() -> dict:  # G: bit-exact; lanes past the slot drop
-        k_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
-        v_new = torch.randn(n, hkv, d, device=dev, generator=gen).to(bf)
+    # -- the appends: B, G and the quantizing B-q, B-q4, G-q, bit-exact ----------------
+    rows_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    pool_pages = k_pool.shape[1]
+    table_cpu = table.cpu()
+
+    def append_rows() -> tuple:
+        """k_new, v_new [N, Hkv, D] bf16, rows of max |x| 0.01..30; lane 4 all
+        zero (codes 0, scale bf16(1e-8 / qmax)) and lane 5 a row whose max |x|
+        is one element (its code reaches +-qmax), in the row's first half on
+        K and its second half on V, the sign alternating by head."""
+        mag = torch.rand(2, n, hkv, 1, device=dev, generator=rows_gen) * 30 + 0.01
+        k_new, v_new = (torch.randn(2, n, hkv, d, device=dev, generator=rows_gen) * mag).to(bf)
+        for new, half in ((k_new, 0), (v_new, d // 2)):
+            new[4] = 0
+            new[5] *= 1e-3
+            for h in range(hkv):
+                new[5, h, half + (h * 37) % (d // 2)] = (1 + h) * (-1) ** h
+        return k_new, v_new
+
+    def pool_edges(pool: int) -> tuple:
+        """(positions, table) on the card and on the CPU for the pool appends'
+        edge lanes: 0, 3, 4, 5 live at their length; 1 at -1; 2 at MaxP x page,
+        past the table (lane 3's first entry, which a fault that forgets the
+        drop would read, is a live page); 6 through an OOB entry (== P); 7
+        through a negative entry; 8, the empty slot, at 0 through its all-OOB
+        row."""
+        pos = c["lengths_cpu"].clone()
+        pos[1], pos[2] = -1, table.shape[1] * page
+        etable = table_cpu.clone()
+        etable[6, int(pos[6]) // page], etable[7, int(pos[7]) // page] = pool, -1
+        return pos.to(dev), etable.to(dev), pos, etable
+
+    def kept_pool(pos, tbl, pool: int) -> int:
+        """Lanes the pool appends write (the drop rule, on the CPU)."""
+        logical = pos.long() // page
+        entry = tbl.long().gather(1, logical.clamp(0, tbl.shape[1] - 1)[:, None])[:, 0]
+        return int(((pos >= 0) & (logical < tbl.shape[1]) & (entry >= 0) & (entry < pool)).sum())
+
+    def same_bits(got, want) -> bool:
+        return all(torch.equal(*(t.view(torch.int16) if t.dtype == bf else t for t in pair))
+                   for pair in zip(got, want))
+
+    def check_edge_rows(name: str, values, scales, qmax: int, where) -> None:
+        """Lane 4 (all zero) stored as codes 0 with scale bf16(1e-8 / qmax),
+        lane 5 (one element holds the max) reaching +-qmax in every head, on
+        both planes; ``where(lane)`` indexes the lane's stored row."""
+        zero_scale = (torch.tensor(1e-8) / qmax).to(bf).view(torch.int16).item()
+        for vals, sc in zip(values, scales):
+            codes = {lane: vals[where(lane)] for lane in (4, 5)}
+            if vals.dtype == torch.uint8:
+                codes = {lane: unpack_int4(x) for lane, x in codes.items()}
+            require(torch.all(codes[4] == 0).item()
+                    and torch.all(sc[where(4)].view(torch.int16) == zero_scale).item(),
+                    f"{name}: an all-zero row is not stored as codes 0 with scale bf16(1e-8/{qmax})")
+            require(torch.all(codes[5].abs().amax(dim=-1) == qmax).item(),
+                    f"{name}: a row's single largest element does not reach +-{qmax}")
+
+    def append_entry(name: str, source: str, replaces: str, timed_fns: tuple, n_bytes: float,
+                     shape: dict) -> dict:
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": 0.0, "tolerance": "bit-exact, values and scales",
+                **timing(*timed_fns, iters=200, plain_iters=50),
+                "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+
+    append_src = "gofr_tpu_torch/csrc/kv_append.cu"
+    append_shape = {"slots": n, "hkv": hkv, "d": d, "page": page}
+    # every append reads the N x Hkv rows of both planes and the positions
+    rows_in = 2 * n * hkv * d * 2 + n * 4
+    kept_timed = kept_pool(c["lengths_cpu"], table_cpu, pool_pages)
+
+    def check_kv_append() -> dict:  # B
+        k_new, v_new = append_rows()
+        pos, etable, _, _ = pool_edges(pool_pages)
+        got = [k_pool[0].clone(), v_pool[0].clone()]
+        want = [t.clone() for t in got]
+        kv_append(*got, etable, pos, k_new, v_new)
+        append_tokens_paged_plain(*want, etable, pos, k_new, v_new)
+        require(same_bits(got, want), "kv_append pool differs from the plain write")
+        require(not torch.equal(got[0], k_pool[0]) and not torch.equal(got[1], v_pool[0]),
+                "kv_append wrote nothing")
+        del got, want
+        return append_entry(
+            "kv_append", append_src, "gofr_tpu/ops/pallas/kv_append.py:110",
+            (lambda i: kv_append(k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new),
+             lambda i: append_tokens_paged_plain(k_pool[i % layers], v_pool[i % layers], table, lengths,
+                                                 k_new, v_new)),
+            rows_in + table.numel() * 4 + 2 * kept_timed * hkv * d * 2, append_shape)
+
+    def check_append_q(bits: int) -> dict:  # B-q (int8) and B-q4 (int4)
+        name, launch, plain, qmax = (("kv_append_q", kv_append_q, append_tokens_paged_q, 127)
+                                     if bits == 8 else
+                                     ("kv_append_q4", kv_append_q4, append_tokens_paged_q4, 7))
+        cache = c["pools"][bits]
+        k_new, v_new = append_rows()
+        pos, etable, pos_cpu, etable_cpu = pool_edges(cache.k.shape[1])
+        got = [t[0].clone() for t in (cache.k, cache.v, cache.ks, cache.vs)]
+        want = [t.clone() for t in got]
+        launch(*got, etable, pos, k_new, v_new)
+        for values, scales, new in ((want[0], want[2], k_new), (want[1], want[3], v_new)):
+            plain(values, scales, etable, pos, new)
+        require(same_bits(got, want), f"{name} differs from the plain append (values or scales)")
+        require(not torch.equal(got[0], cache.k[0]), f"{name} wrote nothing")
+        check_edge_rows(name, got[:2], got[2:], qmax,
+                        lambda lane: (int(etable_cpu[lane, int(pos_cpu[lane]) // page]), slice(None),
+                                      int(pos_cpu[lane]) % page))
+        del got, want
+
+        def planes(i: int) -> tuple:
+            return cache.k[i % layers], cache.v[i % layers], cache.ks[i % layers], cache.vs[i % layers]
+
+        def plain_both(i: int) -> None:
+            kq, vq, ks, vs = planes(i)
+            plain(kq, ks, table, lengths, k_new)
+            plain(vq, vs, table, lengths, v_new)
+
+        return append_entry(
+            name, append_src, "port-only (XLA in JAX: gofr_tpu/ops/paged.py:"
+                              f"{344 if bits == 8 else 438})",
+            (lambda i: launch(*planes(i), table, lengths, k_new, v_new), plain_both),
+            rows_in + table.numel() * 4 + 2 * kept_timed * hkv * (cache.k.shape[-1] + 2),
+            {**append_shape, "kv_bits": bits})
+
+    def slot_edges() -> torch.Tensor:
+        """Positions of the slot appends' edge lanes: 0 at Smax, 1 at -1, 2 at
+        Smax + 7 (dropped), the others live at their length (8, the empty
+        slot, at 0)."""
         pos = lengths.clone()
-        pos[0], pos[n - 1] = smax, -1
-        ka, va = sk[0].clone(), sv[0].clone()
-        kp, vp = sk[0].clone(), sv[0].clone()
-        kv_append_slot(ka, va, pos, k_new, v_new)
-        append_tokens_plain(kp, vp, pos, k_new, v_new)
-        exact = (torch.equal(ka.view(torch.int16), kp.view(torch.int16))
-                 and torch.equal(va.view(torch.int16), vp.view(torch.int16)))
-        require(exact, "kv_append_slot cache differs from the plain write")
-        require(all(torch.equal(a[i], b[0][i]) for a, b in ((ka, sk), (va, sv)) for i in (0, n - 1)),
+        pos[0], pos[1], pos[2] = smax, -1, smax + 7
+        return pos
+
+    kept_slot = int(((c["lengths_cpu"] >= 0) & (c["lengths_cpu"] < smax)).sum())
+    slot_append_shape = {"slots": n, "hkv": hkv, "d": d, "smax": smax}
+
+    def check_kv_append_slot() -> dict:  # G
+        k_new, v_new = append_rows()
+        pos = slot_edges()
+        got = [sk[0].clone(), sv[0].clone()]
+        want = [t.clone() for t in got]
+        kv_append_slot(*got, pos, k_new, v_new)
+        append_tokens_plain(*want, pos, k_new, v_new)
+        require(same_bits(got, want), "kv_append_slot cache differs from the plain write")
+        require(all(torch.equal(a[i], b[0][i]) for a, b in zip(got, (sk, sv)) for i in (0, 1, 2)),
                 "kv_append_slot wrote a lane whose position lies outside the slot")
-        require(not torch.equal(ka, sk[0]), "kv_append_slot wrote nothing")
-        del ka, va, kp, vp
-        b_ms, b_by = bound_ms(2 * 2 * k_new.numel() * 2 + n * 4, 0)
-        return {
-            "name": "kv_append_slot", "route": "cuda", "source": "gofr_tpu_torch/csrc/kv_append.cu",
-            "replaces": "gofr_tpu/ops/pallas/kv_append.py:61", "max_abs_err": 0.0,
-            "tolerance": "bit-exact",
-            **timing(lambda i: kv_append_slot(sk[i % layers], sv[i % layers], lengths, k_new, v_new),
-                     lambda i: append_tokens_plain(sk[i % layers], sv[i % layers], lengths, k_new,
-                                                   v_new),
-                     iters=200, plain_iters=50),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"slots": n, "hkv": hkv, "d": d, "smax": smax},
-        }
+        require(not torch.equal(got[0], sk[0]), "kv_append_slot wrote nothing")
+        del got, want
+        return append_entry(
+            "kv_append_slot", append_src, "gofr_tpu/ops/pallas/kv_append.py:61",
+            (lambda i: kv_append_slot(sk[i % layers], sv[i % layers], lengths, k_new, v_new),
+             lambda i: append_tokens_plain(sk[i % layers], sv[i % layers], lengths, k_new, v_new)),
+            rows_in + 2 * kept_slot * hkv * d * 2, slot_append_shape)
+
+    def check_append_slot_q() -> dict:  # G-q
+        cache = QSlotKVCache.create(layers, n, smax, hkv, d, device=dev)
+        k_new, v_new = append_rows()
+        pos = slot_edges()
+        pos_cpu = pos.cpu()
+        got = [t[0].clone() for t in (cache.k, cache.v, cache.ks, cache.vs)]
+        want = [t.clone() for t in got]
+        kv_append_slot_q(*got, pos, k_new, v_new)
+        for values, scales, new in ((want[0], want[2], k_new), (want[1], want[3], v_new)):
+            append_tokens_q(values, scales, pos, new)
+        require(same_bits(got, want), "kv_append_slot_q differs from the plain append (values or scales)")
+        require(not torch.equal(got[0], cache.k[0]), "kv_append_slot_q wrote nothing")
+        check_edge_rows("kv_append_slot_q", got[:2], got[2:], 127,
+                        lambda lane: (lane, slice(None), int(pos_cpu[lane])))
+        del got, want
+
+        def planes(i: int) -> tuple:
+            return cache.k[i % layers], cache.v[i % layers], cache.ks[i % layers], cache.vs[i % layers]
+
+        def plain_both(i: int) -> None:
+            kq, vq, ks, vs = planes(i)
+            append_tokens_q(kq, ks, lengths, k_new)
+            append_tokens_q(vq, vs, lengths, v_new)
+
+        return append_entry(
+            "kv_append_slot_q", append_src, "port-only (XLA in JAX: gofr_tpu/ops/kvcache.py:132)",
+            (lambda i: kv_append_slot_q(*planes(i), lengths, k_new, v_new), plain_both),
+            rows_in + 2 * kept_slot * hkv * (d + 2), {**slot_append_shape, "kv_bits": 8})
 
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
               ("flash_attention", check_flash),
-              ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot)]
+              ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
+              ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
+              ("kv_append_slot_q", check_append_slot_q)]
     results = []
     for name, check in checks:
         try:
@@ -545,13 +693,15 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
 # (kv_layout, kv_quantize).
 RUNS = (("paged", ""), ("paged", "int8"), ("paged", "int4"), ("slot", ""), ("slot", "int8"))
 # The kernels each run must launch; every other kernel must launch no time
-# in that run. The int8 slot cache's decode attention and append are plain
-# PyTorch (the TPU ran them as XLA).
+# in that run. The int8 slot cache's decode attention is plain PyTorch (the
+# TPU ran it as XLA). Every kernel but the flash prefill runs once per layer
+# and decode step, so those of one run launch equally often.
 ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
-           ("paged", "int8"): ("paged_decode_q", "flash_attention"),
-           ("paged", "int4"): ("paged_decode_q4", "flash_attention"),
+           ("paged", "int8"): ("paged_decode_q", "kv_append_q", "flash_attention"),
+           ("paged", "int4"): ("paged_decode_q4", "kv_append_q4", "flash_attention"),
            ("slot", ""): ("decode_attention", "kv_append_slot", "flash_attention"),
-           ("slot", "int8"): ("flash_attention",)}
+           ("slot", "int8"): ("kv_append_slot_q", "flash_attention")}
+PREFILL_KERNELS = ("flash_attention",)
 
 
 def run_name(kv_layout: str, kv_quantize: str) -> str:
@@ -601,6 +751,9 @@ def serve(torch, cuda, model=None, kv_quantize: str = "",
         else:
             require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
                                    f"cache's path")
+    per_step = {counts[name] for name in ON_PATH[kv_layout, kv_quantize] if name not in PREFILL_KERNELS}
+    require(len(per_step) == 1 and per_step.pop() % cfg.num_layers == 0,
+            f"{pool} cache: the decode-step kernels' launches differ or are not whole steps: {counts}")
     from gofr_tpu_torch.ops.paged import kv_plane_bytes_per_position
 
     cache = eng.cache
@@ -660,6 +813,51 @@ def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
     stored = torch.stack([torch.stack(cache.read(layer, rows, torch.float32))[:, 0, :, :written]
                           for layer in range(cache.num_layers)]).float()
     return torch.stack(seq), chosen, stored
+
+
+def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
+    """Two ``decode_step`` steps on a fresh cache of the layout and format,
+    inside ``torch.cuda.set_sync_debug_mode("error")``: any call that makes
+    the host wait on the card raises there, and nothing catches it. Eight
+    lanes take int64 positions, as the engine hands them; the last lane is
+    idle as the engine parks one (its table row all OOB at position 0 on the
+    pool, at the slot's end on the slot cache), so its writes drop. The
+    decode kernels of the cache's path must launch once per layer and step,
+    and the logits must be finite."""
+    from gofr_tpu_torch.gpu.engine import make_pool
+
+    n, page, pages = 8, 128, 4
+    rng = torch.Generator().manual_seed(SEED + 4)
+    tokens = torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).cuda()
+    positions = torch.randint(0, pages * page - 2, (n,), generator=rng)
+    if kv_layout == "paged":
+        cache = make_pool(model, kv_quantize, n * pages, page)
+        table = torch.arange(n * pages, dtype=torch.int32).view(n, pages)
+        table[n - 1], positions[n - 1] = n * pages, 0
+        table = table.cuda()
+    else:
+        cache, table = make_pool(model, kv_quantize, n, pages * page, "slot"), None
+        positions[n - 1] = pages * page
+    positions = positions.cuda()
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    steps = 2
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(steps):
+            logits, _ = model.decode_step(tokens, positions + step, cache, table)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    decode_kernels = [k for k in ON_PATH[kv_layout, kv_quantize] if k not in PREFILL_KERNELS]
+    require(all(counts[k] == steps * model.cfg.num_layers for k in decode_kernels)
+            and sum(counts.values()) == steps * model.cfg.num_layers * len(decode_kernels),
+            f"{pool}: decode_step did not go through its kernels once per layer: {counts}")
+    require(bool(logits.isfinite().all()), f"{pool}: non-finite logits under the sync check")
+    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "steps": steps,
+            "sync_debug_mode": "error", "launches": {k: counts[k] for k in decode_kernels}}
 
 
 # Phase 5's runs besides the plain one: (prefill kernels, decode kernels).
@@ -764,6 +962,9 @@ def main() -> None:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
         lap(f"phase5_{run_name(kv_layout, kv_quantize)}")
+
+    emit("phase6_no_sync", [no_sync_check(torch, cuda, model, *run) for run in RUNS])
+    lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on
     for k in kernels:

@@ -32,10 +32,12 @@ Entry points, each a method of ``Llama``:
 Attention and the KV append go through ``ops`` and so through the CUDA
 kernels on the card. ``kernels=False`` runs the same step on their plain
 versions instead, which is how the card-side check holds the kernels
-against the plain path end to end. On a quantized cache the append is
-plain PyTorch either way, and so is decode attention on the int8 slot
-cache (the TPU ran both as XLA). This slice serves bf16 weights (no int8
-weights or LoRA deltas); ``verify_step`` waits for speculative decoding.
+against the plain path end to end. Decode attention on the int8 slot
+cache is plain PyTorch either way (the TPU ran it as XLA). On the card a
+decode step makes no host sync on any cache: ``decode_step`` converts the
+positions, lengths and table to int32 once per step, so no launcher casts
+them per layer. This slice serves bf16 weights (no int8 weights or LoRA
+deltas); ``verify_step`` waits for speculative decoding.
 """
 
 from __future__ import annotations
@@ -228,11 +230,15 @@ class Llama(nn.Module):
         all-OOB table row, a position past the slot) produces logits the
         caller ignores; its rope angle clamps to the table's last row, as
         JAX's gather clamps it, since an idle slot lane may sit at
-        ``max_seq_len``."""
+        ``max_seq_len``. Positions, lengths and the table go to the kernels
+        as int32, converted here once per step."""
         attn = DECODE_ATTENTION[type(cache)][0 if kernels else 1]
         n = tokens.shape[0]
         pos1 = positions.long().clamp(max=self.cfg.max_seq_len - 1)[:, None]
+        positions = positions.to(torch.int32)
         lengths = positions + 1
+        if table is not None:
+            table = table.to(torch.int32).contiguous()
         x = self.embed[tokens]
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x[:, None])

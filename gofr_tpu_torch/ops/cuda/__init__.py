@@ -129,11 +129,12 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg) -> None:
     """Reject input a kernel does not take (wrappers validate before any
-    pointer reaches C)."""
+    pointer reaches C). ``msg`` is the message, or a function that makes
+    it, so a launcher formats nothing when its input is good."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def check(rc: int, name: str) -> None:
@@ -158,7 +159,10 @@ def _wrappers() -> dict:
             "paged_decode_q": paged_decode_q.paged_decode_q,
             "paged_decode_q4": paged_decode_q4.paged_decode_q4,
             "decode_attention": decode_attention.decode_attention,
-            "kv_append_slot": kv_append.kv_append_slot}
+            "kv_append_slot": kv_append.kv_append_slot,
+            "kv_append_q": kv_append.kv_append_q,
+            "kv_append_q4": kv_append.kv_append_q4,
+            "kv_append_slot_q": kv_append.kv_append_slot_q}
 
 
 def launch_counts() -> dict[str, int]:

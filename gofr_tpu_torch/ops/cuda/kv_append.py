@@ -1,14 +1,28 @@
-"""The per-step KV appends, in place: kernel B into the paged pool and
-kernel G into the slot cache.
+"""The per-step KV appends, in place, one launch per layer for both planes:
+kernel B into the bf16 paged pool, G into the bf16 slot cache, and the
+port's own B-q, B-q4 and G-q, which quantize each row (int8, or packed
+int4) and append it with its bf16 scale to the int8 pool, the int4 pool
+and the int8 slot cache.
 
 B replaces gofr_tpu/ops/pallas/kv_append.py ``append_tokens_paged_inplace``
-(:110), G ``append_tokens_inplace`` (:61). The CUDA source of both is
-``csrc/kv_append.cu``; its header note says what bounds them and why they
-need no reserved sink page. Their plain versions are
-``ops.paged.append_tokens_paged_plain`` and ``ops.kvcache.
-append_tokens_plain``; ``ops.paged.append_tokens_paged`` and
-``ops.kvcache.append_tokens`` choose by the tensor's device. Limit against
-the plain versions: bit-exact, since each kernel copies 16-bit patterns.
+(:110), G ``append_tokens_inplace`` (:61); the JAX package runs the
+quantized appends as XLA (gofr_tpu/ops/paged.py:344, :438, gofr_tpu/ops/
+kvcache.py:132). All five are one template in ``csrc/kv_append.cu``, whose
+header note says what bounds them (the launch) and why this design.
+
+Their plain versions: ``ops.paged.append_tokens_paged_plain`` (B),
+``ops.kvcache.append_tokens_plain`` (G), and per plane
+``ops.paged.append_tokens_paged_q`` (B-q), ``append_tokens_paged_q4``
+(B-q4) and ``ops.kvcache.append_tokens_q`` (G-q). Limit against them:
+bit-exact, values and scales. B and G copy 16-bit patterns; the others
+quantize in f32 with IEEE division and round half to even, as the plain
+versions do.
+
+The launchers take what the model hands them and convert nothing: rows
+[N, Hkv, 128] in the cache's 16-bit type (bf16 for the quantized caches),
+``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
+(``Llama.decode_step`` converts both once per step). They validate, launch
+and count; a call's host time is a few dozen microseconds of Python.
 """
 
 from __future__ import annotations
@@ -19,37 +33,51 @@ import torch
 
 from gofr_tpu_torch.ops import cuda
 
+HEAD_DIM = 128
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SLOT_Q_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _check(name: str, planes: tuple, rows: tuple, index: tuple, row_dtype: torch.dtype,
+           row_shape: tuple) -> None:
+    """What every append launcher needs, in two passes: everything
+    contiguous on the card; rows of ``row_shape`` in ``row_dtype``, int32
+    ``index`` tensors (positions, table), planes and rows 8-byte aligned.
+    The messages are made only on failure."""
+    cuda.require(all(t.is_cuda and t.is_contiguous() for t in (*planes, *rows, *index)),
+                 lambda: f"{name} takes contiguous tensors on the card")
+    cuda.require(all(r.dtype == row_dtype and r.shape == row_shape for r in rows)
+                 and all(t.dtype == torch.int32 for t in index)
+                 and all(t.data_ptr() % 8 == 0 for t in (*planes[:2], *rows)),
+                 lambda: f"{name} takes {row_dtype} rows {row_shape} and int32 positions and table, "
+                         f"planes and rows 8-byte aligned; got rows "
+                         f"{[(r.dtype, tuple(r.shape)) for r in rows]}, {[t.dtype for t in index]}")
 
 
 def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
               positions: torch.Tensor, k_new: torch.Tensor,
               v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write k_new/v_new [N, Hkv, D] into the layer slices [P, Hkv, page, D]
-    at each slot's position, in place, and return the slices. Launches the
-    kernel, or raises."""
-    cuda.require(k_layer.is_cuda and v_layer.is_cuda, "kv_append takes pools on the card")
+    """Kernel B: write k_new/v_new [N, Hkv, D] into the layer slices
+    [P, Hkv, page, D] (16-bit) at each slot's position through ``table``
+    [N, MaxP], in place, and return the slices. Launches the kernel, or
+    raises."""
     pool, hkv, page, d = k_layer.shape
     n = k_new.shape[0]
-    cuda.require(v_layer.shape == k_layer.shape and v_layer.dtype == k_layer.dtype,
-                 "kv_append: k and v pools differ")
-    cuda.require(k_layer.element_size() == 2, f"kv_append takes a 16-bit pool, got {k_layer.dtype}")
-    cuda.require(k_layer.is_contiguous() and v_layer.is_contiguous(), "kv_append pools must be contiguous")
-    cuda.require(k_new.shape == (n, hkv, d) and v_new.shape == (n, hkv, d),
-                 f"kv_append rows must be [N, {hkv}, {d}], got {tuple(k_new.shape)}")
+    _check("kv_append", (k_layer, v_layer), (k_new, v_new), (table, positions), k_layer.dtype,
+           (n, hkv, HEAD_DIM))
+    cuda.require(k_layer.element_size() == 2 and d == HEAD_DIM and v_layer.shape == k_layer.shape
+                 and v_layer.dtype == k_layer.dtype,
+                 lambda: f"kv_append takes two 16-bit pools [P, Hkv, page, {HEAD_DIM}] of one shape, "
+                         f"got {k_layer.dtype} {tuple(k_layer.shape)} / {v_layer.dtype}")
     cuda.require(table.shape[0] == n and positions.shape == (n,), "kv_append table/positions must have N rows")
     if n == 0:
         return k_layer, v_layer
-    k_new = k_new.to(k_layer.dtype).contiguous()
-    v_new = v_new.to(k_layer.dtype).contiguous()
-    table = table.to(device=k_layer.device, dtype=torch.int32).contiguous()
-    positions = positions.to(device=k_layer.device, dtype=torch.int32).contiguous()
     fn = cuda.bind("gofr_kv_append", _ARGTYPES)
-    rc = fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            table.data_ptr(), positions.data_ptr(), n, table.shape[1], pool, hkv, page, d,
-            cuda.stream_of(k_layer))
-    cuda.check(rc, "kv_append")
+    cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  table.data_ptr(), positions.data_ptr(), n, table.shape[1], pool, hkv, page, d,
+                  cuda.stream_of(k_layer)), "kv_append")
     kv_append.launches += 1
     return k_layer, v_layer
 
@@ -59,32 +87,107 @@ kv_append.launches = 0
 
 def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
                    k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write k_new/v_new [N, Hkv, D] into slot-cache layer slices
-    [N, Hkv, Smax, D] at ``positions`` [N], in place, dropping a position
-    outside [0, Smax), and return the slices. Launches the kernel, or
-    raises."""
-    cuda.require(k_layer.is_cuda and v_layer.is_cuda, "kv_append_slot takes caches on the card")
+    """Kernel G: write k_new/v_new [N, Hkv, D] into slot-cache layer slices
+    [N, Hkv, Smax, D] (16-bit) at ``positions`` [N], in place, dropping a
+    position outside [0, Smax), and return the slices. Launches the kernel,
+    or raises."""
     n, hkv, smax, d = k_layer.shape
-    cuda.require(v_layer.shape == k_layer.shape and v_layer.dtype == k_layer.dtype,
-                 "kv_append_slot: k and v caches differ")
-    cuda.require(k_layer.element_size() == 2,
-                 f"kv_append_slot takes a 16-bit cache, got {k_layer.dtype}")
-    cuda.require(k_layer.is_contiguous() and v_layer.is_contiguous(),
-                 "kv_append_slot caches must be contiguous")
-    cuda.require(k_new.shape == (n, hkv, d) and v_new.shape == (n, hkv, d),
-                 f"kv_append_slot rows must be [{n}, {hkv}, {d}], got {tuple(k_new.shape)}")
+    _check("kv_append_slot", (k_layer, v_layer), (k_new, v_new), (positions,), k_layer.dtype,
+           (n, hkv, HEAD_DIM))
+    cuda.require(k_layer.element_size() == 2 and d == HEAD_DIM and v_layer.shape == k_layer.shape
+                 and v_layer.dtype == k_layer.dtype,
+                 lambda: f"kv_append_slot takes two 16-bit caches [N, Hkv, Smax, {HEAD_DIM}] of one "
+                         f"shape, got {k_layer.dtype} {tuple(k_layer.shape)} / {v_layer.dtype}")
     cuda.require(positions.shape == (n,), "kv_append_slot positions must have N rows")
     if n == 0:
         return k_layer, v_layer
-    k_new = k_new.to(k_layer.dtype).contiguous()
-    v_new = v_new.to(k_layer.dtype).contiguous()
-    positions = positions.to(device=k_layer.device, dtype=torch.int32).contiguous()
     fn = cuda.bind("gofr_kv_append_slot", _SLOT_ARGTYPES)
-    rc = fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            positions.data_ptr(), n, hkv, smax, d, cuda.stream_of(k_layer))
-    cuda.check(rc, "kv_append_slot")
+    cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  positions.data_ptr(), n, hkv, smax, d, cuda.stream_of(k_layer)), "kv_append_slot")
     kv_append_slot.launches += 1
     return k_layer, v_layer
 
 
 kv_append_slot.launches = 0
+
+
+def _check_scaled(name: str, k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                  v_scale: torch.Tensor, values_dtype: torch.dtype, row_bytes: int) -> None:
+    cuda.require(k_layer.dtype == v_layer.dtype == values_dtype and v_layer.shape == k_layer.shape
+                 and k_layer.shape[-1] == row_bytes,
+                 lambda: f"{name} takes {values_dtype} planes of {row_bytes}-byte rows, got "
+                         f"{k_layer.dtype} {tuple(k_layer.shape)}")
+    cuda.require(k_scale.dtype == v_scale.dtype == torch.bfloat16
+                 and k_scale.shape == v_scale.shape == k_layer.shape[:-1],
+                 lambda: f"{name} takes bf16 scales {tuple(k_layer.shape[:-1])}, got "
+                         f"{tuple(k_scale.shape)}")
+
+
+def _pool_q(name: str, entry: str, values_dtype: torch.dtype, row_bytes: int, launcher,
+            k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new) -> tuple:
+    pool, hkv, page, _ = k_layer.shape
+    n = k_new.shape[0]
+    _check(name, (k_layer, v_layer, k_scale, v_scale), (k_new, v_new), (table, positions),
+           torch.bfloat16, (n, hkv, HEAD_DIM))
+    _check_scaled(name, k_layer, v_layer, k_scale, v_scale, values_dtype, row_bytes)
+    cuda.require(table.shape[0] == n and positions.shape == (n,),
+                 lambda: f"{name} table/positions must have N rows")
+    if n > 0:
+        fn = cuda.bind(entry, _Q_ARGTYPES)
+        cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                      k_new.data_ptr(), v_new.data_ptr(), table.data_ptr(), positions.data_ptr(), n,
+                      table.shape[1], pool, hkv, page, HEAD_DIM, cuda.stream_of(k_layer)), name)
+        launcher.launches += 1
+    return k_layer, v_layer, k_scale, v_scale
+
+
+def kv_append_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q: quantize k_new/v_new [N, Hkv, D] bf16 to int8 rows and
+    append them, with their bf16 scales, to the int8 pool's layer slices
+    (values [P, Hkv, page, D], scales [P, Hkv, page]) through ``table``, in
+    place, by B's drop rule; returns the four slices. Launches the kernel,
+    or raises."""
+    return _pool_q("kv_append_q", "gofr_kv_append_q", torch.int8, HEAD_DIM, kv_append_q,
+                   k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
+kv_append_q.launches = 0
+
+
+def kv_append_q4(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                 v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q4: as ``kv_append_q`` into the packed int4 pool (values
+    uint8 [P, Hkv, page, D//2], byte j holding elements j and j + D/2)."""
+    return _pool_q("kv_append_q4", "gofr_kv_append_q4", torch.uint8, HEAD_DIM // 2, kv_append_q4,
+                   k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
+kv_append_q4.launches = 0
+
+
+def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor, positions: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel G-q: quantize k_new/v_new [N, Hkv, D] bf16 to int8 rows and
+    append them, with their bf16 scales, to the int8 slot cache's layer
+    slices (values [N, Hkv, Smax, D], scales [N, Hkv, Smax]) at
+    ``positions``, in place, dropping a position outside [0, Smax); returns
+    the four slices. Launches the kernel, or raises."""
+    n, hkv, smax, _ = k_layer.shape
+    _check("kv_append_slot_q", (k_layer, v_layer, k_scale, v_scale), (k_new, v_new), (positions,),
+           torch.bfloat16, (n, hkv, HEAD_DIM))
+    _check_scaled("kv_append_slot_q", k_layer, v_layer, k_scale, v_scale, torch.int8, HEAD_DIM)
+    cuda.require(positions.shape == (n,), "kv_append_slot_q positions must have N rows")
+    if n > 0:
+        fn = cuda.bind("gofr_kv_append_slot_q", _SLOT_Q_ARGTYPES)
+        cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                      k_new.data_ptr(), v_new.data_ptr(), positions.data_ptr(), n, hkv, smax, HEAD_DIM,
+                      cuda.stream_of(k_layer)), "kv_append_slot_q")
+        kv_append_slot_q.launches += 1
+    return k_layer, v_layer, k_scale, v_scale
+
+
+kv_append_slot_q.launches = 0

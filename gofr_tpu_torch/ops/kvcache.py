@@ -17,7 +17,10 @@ The writes and appends drop what lies outside the cache, as the JAX ones
 do: a slot row outside ``[0, Slots)`` or a position outside ``[0, Smax)``.
 They work without a host sync (no boolean-mask index, no ``.item()``): a
 dropped row is aimed at a clamped location inside the cache and carries the
-value that location ends the call with, so it rewrites what is there.
+value that location ends the call with, so it rewrites what is there. On
+the card the appends are one kernel launch per layer for both planes
+(``ops.cuda.kv_append``: G, and G-q for the int8 cache, which the TPU ran
+as XLA).
 Unlike the JAX package, whose arrays are immutable, the port writes IN
 PLACE: ``cache.k[l]`` is a view, and the writes update it.
 
@@ -35,15 +38,26 @@ from dataclasses import dataclass
 
 import torch
 
-from gofr_tpu_torch.ops.cuda.kv_append import kv_append_slot
+from gofr_tpu_torch.ops.cuda.kv_append import kv_append_slot, kv_append_slot_q
+
+
+def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as IEEE division, on the CPU and on the card alike.
+    PyTorch's CUDA division by a Python number multiplies by its reciprocal,
+    which misses the quotient by an ulp for some ``a``; the JAX package, the
+    CPU and the append kernels divide.
+    A 0-dim divisor on ``a``'s device takes the true division, with no copy
+    from the host."""
+    return a / a.new_full((), b)
 
 
 def quantize_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the last (head_dim) axis: (q int8, scale f32
     without the reduced axis). The scale is max(|x|, 1e-8) / 127; q is
-    x / scale rounded half to even and clipped to ±127."""
+    x / scale rounded half to even and clipped to ±127. Both divisions are
+    IEEE quotients on either device (``ieee_div``)."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    s = ieee_div(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 127.0)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s
 
@@ -168,8 +182,8 @@ def append_tokens_q(cache_q: torch.Tensor, cache_s: torch.Tensor, positions: tor
                     new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize one row [N, Hkv, D] per slot to int8 and append it to one
     plane, in place (kvcache.py:132); a position outside [0, Smax) is
-    dropped. It has no kernel: the TPU ran it as XLA, and here it is plain
-    PyTorch on the card too."""
+    dropped. The plain version of kernel G-q (``ops.cuda.kv_append.
+    kv_append_slot_q``), which does both planes in one launch."""
     q, sc = quantize_row(new)
     lanes, pos, keep = _lane_targets(positions, cache_q.shape[2])
     _append_rows(cache_q, lanes, pos, keep, q)
@@ -236,7 +250,10 @@ class SlotKVCache(_SlotShape):
 @dataclass
 class QSlotKVCache(_SlotShape):
     """int8 K/V rows with one bf16 scale per (slot, head, position)
-    (kvcache.py:62). Its append is plain PyTorch on either device."""
+    (kvcache.py:62). Its append is kernel G-q for a cache on the card, and
+    ``append_tokens_q`` plane by plane on the CPU or with
+    ``kernels=False``; its decode attention is plain PyTorch on either
+    device."""
 
     k: torch.Tensor   # int8 [L, Slots, Hkv, Smax, D]
     v: torch.Tensor
@@ -263,6 +280,10 @@ class QSlotKVCache(_SlotShape):
 
     def append(self, layer: int, table: None, positions: torch.Tensor,
                k_new: torch.Tensor, v_new: torch.Tensor, *, kernels: bool = True) -> None:
+        if kernels and self.k.is_cuda:
+            kv_append_slot_q(self.k[layer], self.v[layer], self.ks[layer], self.vs[layer], positions,
+                             k_new, v_new)
+            return
         for (values, scales), new in zip(self._plane_pairs(layer), (k_new, v_new)):
             append_tokens_q(values, scales, positions, new)
 

@@ -14,9 +14,11 @@ Three pool formats (paged.py:170-287): ``PagedKVCache`` holds K/V in the
 model's dtype; ``QPagedKVCache`` holds them as int8 rows and
 ``Q4PagedKVCache`` as packed int4 rows (``ops.quant``), each with one bf16
 scale per (page, head, position) in ``ks``/``vs``. The quantized writes,
-appends and gathers work on one plane (values plus scales) at a time, as
-the JAX functions do. The quantized append has no kernel: the TPU ran it
-as XLA, and here it is plain PyTorch on the card too. Each pool class
+gathers and plain appends work on one plane (values plus scales) at a
+time, as the JAX functions do. On the card a quantized pool's append is
+one kernel launch per layer for both planes (``ops.cuda.kv_append.
+kv_append_q`` / ``kv_append_q4``, which the TPU ran as XLA), bit-exact
+against those plain appends and free of host syncs. Each pool class
 carries its format's per-layer operations (``write``, ``append``,
 ``stored``, ``read``, ``planes``), so the model never branches on the
 format.
@@ -34,7 +36,7 @@ from typing import ClassVar
 
 import torch
 
-from gofr_tpu_torch.ops.cuda.kv_append import kv_append
+from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_q, kv_append_q4
 from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row, quantize_row
 from gofr_tpu_torch.ops.quant import fake_quant_row_int4, pack_int4, quantize_row_int4, unpack_int4
 
@@ -96,8 +98,10 @@ class PagedKVCache(_PoolShape):
 @dataclass
 class _ScaledPagedKVCache(_PoolShape):
     """Quantized K/V rows with one bf16 scale per (page, head, position).
-    A subclass names its row format's one-plane functions; the quantized
-    append has no kernel, so ``append`` is plain PyTorch either way."""
+    A subclass names its row format's one-plane functions and its append
+    kernel: ``append`` on a pool on the card launches that kernel once for
+    both planes; on the CPU, or with ``kernels=False``, it runs the plain
+    append plane by plane (a boolean-mask index, so a host sync each)."""
 
     k: torch.Tensor   # [L, P, Hkv, page, row width]
     v: torch.Tensor
@@ -107,6 +111,7 @@ class _ScaledPagedKVCache(_PoolShape):
     values_dtype: ClassVar[torch.dtype]
     write_plane: ClassVar
     append_plane: ClassVar
+    append_kernel: ClassVar
     gather_plane: ClassVar
     stored: ClassVar
 
@@ -134,6 +139,10 @@ class _ScaledPagedKVCache(_PoolShape):
 
     def append(self, layer: int, table: torch.Tensor, positions: torch.Tensor,
                k_new: torch.Tensor, v_new: torch.Tensor, *, kernels: bool = True) -> None:
+        if kernels and self.k.is_cuda:
+            self.append_kernel(self.k[layer], self.v[layer], self.ks[layer], self.vs[layer], table,
+                               positions, k_new, v_new)
+            return
         for (values, scales), new in zip(self._plane_pairs(layer), (k_new, v_new)):
             self.append_plane(values, scales, table, positions, new)
 
@@ -285,7 +294,9 @@ def append_tokens_paged_q(cache_q: torch.Tensor, cache_s: torch.Tensor, table: t
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize one row [N, Hkv, D] per slot to int8 and append it to one
     plane, in place (paged.py:344), by the drop rule of ``_append_targets``
-    (the JAX XLA append clamps a position past the table instead)."""
+    (the JAX XLA append clamps a position past the table instead). The
+    plain version of kernel B-q (``ops.cuda.kv_append.kv_append_q``), which
+    does both planes in one launch."""
     q, sc = quantize_row(new)
     return _append_quantized(cache_q, cache_s, table, positions, q, sc)
 
@@ -309,7 +320,8 @@ def write_prompts_paged_q4(cache_q: torch.Tensor, cache_s: torch.Tensor, pages: 
 def append_tokens_paged_q4(cache_q: torch.Tensor, cache_s: torch.Tensor, table: torch.Tensor,
                            positions: torch.Tensor, new: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The int4 analog of ``append_tokens_paged_q`` (paged.py:438)."""
+    """The int4 analog of ``append_tokens_paged_q`` (paged.py:438); the
+    plain version of kernel B-q4 (``ops.cuda.kv_append.kv_append_q4``)."""
     q, sc = quantize_row_int4(new)
     return _append_quantized(cache_q, cache_s, table, positions, pack_int4(q), sc)
 
@@ -327,6 +339,7 @@ class QPagedKVCache(_ScaledPagedKVCache):
     values_dtype = torch.int8
     write_plane = staticmethod(write_prompts_paged_q)
     append_plane = staticmethod(append_tokens_paged_q)
+    append_kernel = staticmethod(kv_append_q)
     gather_plane = staticmethod(gather_kv_q)
     stored = staticmethod(fake_quant_row)
 
@@ -340,6 +353,7 @@ class Q4PagedKVCache(_ScaledPagedKVCache):
     values_dtype = torch.uint8
     write_plane = staticmethod(write_prompts_paged_q4)
     append_plane = staticmethod(append_tokens_paged_q4)
+    append_kernel = staticmethod(kv_append_q4)
     gather_plane = staticmethod(gather_kv_q4)
     stored = staticmethod(fake_quant_row_int4)
 

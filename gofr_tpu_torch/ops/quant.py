@@ -17,12 +17,15 @@ from __future__ import annotations
 
 import torch
 
+from gofr_tpu_torch.ops.kvcache import ieee_div
+
 
 def quantize_row_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int4 over the last axis: (q int8 in [-7, 7], scale f32
-    without the reduced axis). Pack with ``pack_int4``."""
+    without the reduced axis). Pack with ``pack_int4``. The scale is an IEEE
+    quotient on either device (``ops.kvcache.ieee_div``)."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 7.0
+    s = ieee_div(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), 7.0)
     q = torch.clamp(torch.round(xf / s[..., None]), -7, 7).to(torch.int8)
     return q, s
 

@@ -17,7 +17,8 @@ caches named there; these readings are reported, not judged. Kernels A,
 D and E (the page pool's decodes) are one template in
 ``paged_decode_q.cu``, so a fault in its shared body lands in all three;
 the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
-D and E.
+D and E; the five appends (B, G, B-q, B-q4, G-q) are one template in
+``kv_append.cu``, held bit for bit.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -65,12 +66,27 @@ MUTANTS = [
     # the lane past the slot reads five rows of the next head
     ("decode_attention: length not clamped to Smax", "paged_decode.cu",
      "min(max(lengths[n], 0), smax)", "max(lengths[n], 0)", True),
-    ("kv_append: row one past the position", "kv_append.cu",
+    # the five appends are one template in kv_append.cu: B, B-q, B-q4 share
+    # PoolAddr, G and G-q SlotAddr, B-q, B-q4 and G-q the quantizer
+    ("kv_append/_q/_q4: row one past the position", "kv_append.cu",
      "const int off = pos % page;", "const int off = (pos + 1) % page;", True),
-    ("kv_append_slot: row one past the position", "kv_append.cu",
-     "* smax + pos) * d + j", "* smax + pos + 1) * d + j", True),
-    ("kv_append_slot: no drop at pos == Smax", "kv_append.cu",
+    ("kv_append/_q/_q4: no drop at pos // page == MaxP", "kv_append.cu",
+     "if (logical >= maxp) return -1;", "if (logical > maxp) return -1;", True),
+    ("kv_append_slot/_slot_q: row one past the position", "kv_append.cu",
+     "* smax + pos;", "* smax + pos + 1;", True),
+    ("kv_append_slot/_slot_q: no drop at pos == Smax", "kv_append.cu",
      "pos >= smax", "pos > smax", True),
+    ("kv_append_q/_q4/_slot_q: round toward zero", "kv_append.cu",
+     "__float2int_rn(x[i] / s)", "__float2int_rz(x[i] / s)", True),
+    ("kv_append_q/_q4/_slot_q: the scale from one lane's max, not the warp's", "kv_append.cu",
+     "for (int o = 16; o > 0; o >>= 1)", "for (int o = 16; o > 16; o >>= 1)", True),
+    ("kv_append_q/_q4/_slot_q: K and V scales written to each other's plane", "kv_append.cu",
+     "bf16* scales = is_v ? p.vs : p.ks;", "bf16* scales = is_v ? p.ks : p.vs;", True),
+    ("kv_append_q4: nibble halves swapped", "kv_append.cu",
+     "static_cast<uint32_t>(lo + kBias) | (static_cast<uint32_t>(hi + kBias) << 4)",
+     "static_cast<uint32_t>(hi + kBias) | (static_cast<uint32_t>(lo + kBias) << 4)", True),
+    ("kv_append_q4: bias of 7 instead of 8", "kv_append.cu",
+     "constexpr int kBias = 8;", "constexpr int kBias = 7;", True),
     ("flash_attention: causal diagonal masked", "flash_attention.cu",
      "(!causal || pos >= kv)", "(!causal || pos > kv)", True),
     ("flash_attention: one key past kv_length", "flash_attention.cu",

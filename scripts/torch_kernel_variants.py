@@ -13,7 +13,8 @@ A B ... then ... B A, on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
 4 x 1024 causal, the slot decode (F), the paged decode (A) and the
 quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
-one. Times are device times
+one, and the five appends (B, G, B-q, B-q4, G-q) at those slots' next
+positions. Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
 kernel's.
 
@@ -97,6 +98,52 @@ SCALAR_SCORES = (
     "        p_s[g][t] = (t0 + t < t_end) ? s * scale * __bfloat162float(ks_tile[t]) : gofr::kNegInf;\n"
     "      }\n"
 )
+# kernels B and G as first ported: one block of 256 threads per slot,
+# threads over Hkv x D with a div/mod per 2-byte element, each row loaded
+# only after its position and table entry (and one launch for both planes)
+OLD_APPENDS = """
+constexpr int kOldThreads = 256;
+
+__global__ void __launch_bounds__(kOldThreads) kv_append_kernel(
+    uint16_t* __restrict__ k_pool, uint16_t* __restrict__ v_pool,
+    const uint16_t* __restrict__ k_new, const uint16_t* __restrict__ v_new,
+    const int* __restrict__ table, const int* __restrict__ positions,
+    int maxp, int pool, int hkv, int page, int d) {
+  const int n = blockIdx.x;
+  const int pos = positions[n];
+  if (pos < 0) return;
+  const int logical = pos / page;
+  if (logical >= maxp) return;
+  const int entry = table[(size_t)n * maxp + logical];
+  if (entry < 0 || entry >= pool) return;
+  const int off = pos % page;
+  const int row = hkv * d;
+  for (int i = threadIdx.x; i < row; i += kOldThreads) {
+    const int h = i / d, j = i % d;
+    const size_t dst = (((size_t)entry * hkv + h) * page + off) * d + j;
+    k_pool[dst] = k_new[(size_t)n * row + i];
+    v_pool[dst] = v_new[(size_t)n * row + i];
+  }
+}
+
+__global__ void __launch_bounds__(kOldThreads) kv_append_slot_kernel(
+    uint16_t* __restrict__ k_layer, uint16_t* __restrict__ v_layer,
+    const uint16_t* __restrict__ k_new, const uint16_t* __restrict__ v_new,
+    const int* __restrict__ positions, int hkv, int smax, int d) {
+  const int n = blockIdx.x;
+  const int pos = positions[n];
+  if (pos < 0 || pos >= smax) return;
+  const int row = hkv * d;
+  for (int i = threadIdx.x; i < row; i += kOldThreads) {
+    const int h = i / d, j = i % d;
+    const size_t dst = (((size_t)n * hkv + h) * smax + pos) * d + j;
+    k_layer[dst] = k_new[(size_t)n * row + i];
+    v_layer[dst] = v_new[(size_t)n * row + i];
+  }
+}
+
+}  // namespace
+"""
 # (name, [(file, text to replace, replacement), ...])
 VARIANTS = [
     # C: each K and V fragment loaded right before its mma.sync
@@ -201,6 +248,43 @@ VARIANTS = [
          "    if constexpr (Rows::kScaled) {\n" + SCALAR_SCORES + "    } else {\n" + SCORE_BLOCK
          + "    }\n"),
     ]),
+    # B and G: the first design (OLD_APPENDS) behind the same entry points
+    ("kv_append/_slot: one block per slot, 2-byte copies, loads after the table", [
+        ("kv_append.cu", "}  // namespace\n", OLD_APPENDS),
+        ("kv_append.cu",
+         "  return launch<Bf16Rows>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,\n"
+         "                          pool_addr(table, maxp, pool, page), n, hkv, d, stream);\n",
+         "  kv_append_kernel<<<n, kOldThreads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+         "      static_cast<uint16_t*>(k_pool), static_cast<uint16_t*>(v_pool),\n"
+         "      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),\n"
+         "      static_cast<const int*>(table), static_cast<const int*>(positions), maxp, pool, hkv,\n"
+         "      page, d);\n"
+         "  return static_cast<int>(cudaGetLastError());\n"),
+        ("kv_append.cu",
+         "  return launch<Bf16Rows>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,\n"
+         "                          SlotAddr{smax}, n, hkv, d, stream);\n",
+         "  kv_append_slot_kernel<<<n, kOldThreads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+         "      static_cast<uint16_t*>(k_layer), static_cast<uint16_t*>(v_layer),\n"
+         "      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),\n"
+         "      static_cast<const int*>(positions), hkv, smax, d);\n"
+         "  return static_cast<int>(cudaGetLastError());\n"),
+    ]),
+    # all five appends: one launch per plane instead of one for both
+    ("kv_append (all five): separate K and V launches", [
+        ("kv_append.cu",
+         "  const dim3 grid((n * hkv + kWarps - 1) / kWarps, 2);\n"
+         "  append_kernel<Rows, Addr><<<grid, kThreads, 0, s>>>(planes, static_cast<const int*>(positions), addr,\n"
+         "                                                      n, hkv);\n",
+         "  const dim3 grid((n * hkv + kWarps - 1) / kWarps, 1);\n"
+         "  Planes v_planes = planes;\n"
+         "  v_planes.k = planes.v;\n"
+         "  v_planes.ks = planes.vs;\n"
+         "  v_planes.k_new = planes.v_new;\n"
+         "  append_kernel<Rows, Addr><<<grid, kThreads, 0, s>>>(planes, static_cast<const int*>(positions), addr,\n"
+         "                                                      n, hkv);\n"
+         "  append_kernel<Rows, Addr><<<grid, kThreads, 0, s>>>(v_planes, static_cast<const int*>(positions),\n"
+         "                                                      addr, n, hkv);\n"),
+    ]),
 ]
 
 
@@ -223,9 +307,17 @@ def cases(torch) -> dict:
     """The timed calls, fn(i), at chip_smoke's phase-3 shapes."""
     from gofr_tpu_torch.ops.cuda.decode_attention import decode_attention
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.cuda.kv_append import (
+        kv_append,
+        kv_append_q,
+        kv_append_q4,
+        kv_append_slot,
+        kv_append_slot_q,
+    )
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
     from gofr_tpu_torch.ops.cuda.paged_decode_q import paged_decode_q
     from gofr_tpu_torch.ops.cuda.paged_decode_q4 import paged_decode_q4
+    from gofr_tpu_torch.ops.kvcache import QSlotKVCache
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -245,12 +337,37 @@ def cases(torch) -> dict:
         out[name] = lambda i, pool=pool, launch=launch: launch(
             q, pool.k[i % layers], pool.v[i % layers], pool.ks[i % layers], pool.vs[i % layers], table,
             lengths)
+    # the appends at each slot's next position (rows past the decodes' lengths)
+    k_new, v_new = (torch.randn(c["n"], c["hkv"], c["d"], device=dev, generator=gen).to(bf)
+                    for _ in range(2))
+    qslot = QSlotKVCache.create(layers, c["n"], sc["smax"], c["hkv"], c["d"], device=dev)
+    out["kv_append"] = lambda i: kv_append(c["k_pool"][i % layers], c["v_pool"][i % layers], table,
+                                           lengths, k_new, v_new)
+    out["kv_append_slot"] = lambda i: kv_append_slot(sc["k"][i % layers], sc["v"][i % layers], lengths,
+                                                     k_new, v_new)
+    for name, launch, bits in (("kv_append_q", kv_append_q, 8), ("kv_append_q4", kv_append_q4, 4)):
+        pool = c["pools"][bits]
+        out[name] = lambda i, pool=pool, launch=launch: launch(
+            pool.k[i % layers], pool.v[i % layers], pool.ks[i % layers], pool.vs[i % layers], table,
+            lengths, k_new, v_new)
+    out["kv_append_slot_q"] = lambda i: kv_append_slot_q(
+        qslot.k[i % layers], qslot.v[i % layers], qslot.ks[i % layers], qslot.vs[i % layers], lengths,
+        k_new, v_new)
     return out
+
+
+def flat(result) -> "torch.Tensor":
+    """A call's output as one f32 vector (an append returns the planes it
+    wrote)."""
+    import torch
+
+    parts = result if isinstance(result, tuple) else (result,)
+    return torch.cat([t.float().flatten() for t in parts])
 
 
 def diff_from(calls: dict, wants: dict) -> dict:
     """Max |output - the unmodified build's output| per call."""
-    return {name: (fn(0).float() - wants[name]).abs().max().item() for name, fn in calls.items()}
+    return {name: (flat(fn(0)) - wants[name]).abs().max().item() for name, fn in calls.items()}
 
 
 def main() -> None:
@@ -269,7 +386,7 @@ def main() -> None:
         if not kernel["passed"]:
             raise SystemExit(f"the unmodified build fails {kernel['name']}")
     calls = cases(torch)
-    wants = {name: fn(0).float() for name, fn in calls.items()}
+    wants = {name: flat(fn(0)) for name, fn in calls.items()}
     rows = []
     # A B C ... then ... C B A, the unmodified build first and last
     for order in (range(len(names)), reversed(range(len(names)))):

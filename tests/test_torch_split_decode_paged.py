@@ -138,6 +138,9 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_flash_attention": flash_attention._ARGTYPES,
         "gofr_kv_append": kv_append._ARGTYPES,
         "gofr_kv_append_slot": kv_append._SLOT_ARGTYPES,
+        "gofr_kv_append_q": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_q4": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_slot_q": kv_append._SLOT_Q_ARGTYPES,
     }
 
 

@@ -556,9 +556,17 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
 
     append_src = "gofr_tpu_torch/csrc/kv_append.cu"
     append_shape = {"slots": n, "hkv": hkv, "d": d, "page": page}
-    # every append reads the N x Hkv rows of both planes and the positions
-    rows_in = 2 * n * hkv * d * 2 + n * 4
     kept_timed = kept_pool(c["lengths_cpu"], table_cpu, pool_pages)
+    # the table entries the timed pool appends read: one per lane whose
+    # position lies in [0, MaxP x page)
+    entries_timed = int(((c["lengths_cpu"] >= 0) & (c["lengths_cpu"] < table.shape[1] * page)).sum())
+
+    def append_bytes(entries: int, kept: int, row_out: int, scale: int) -> int:
+        """What an append must move: the N positions, ``entries`` table
+        entries, and for each of the ``kept`` lanes' Hkv rows of both planes
+        the bf16 row read and the ``row_out``-byte row and ``scale``-byte
+        scale written (a dropped lane's row need not be read)."""
+        return n * 4 + entries * 4 + 2 * kept * hkv * (d * 2 + row_out + scale)
 
     def check_kv_append() -> dict:  # B
         k_new, v_new = append_rows()
@@ -576,7 +584,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             (lambda i: kv_append(k_pool[i % layers], v_pool[i % layers], table, lengths, k_new, v_new),
              lambda i: append_tokens_paged_plain(k_pool[i % layers], v_pool[i % layers], table, lengths,
                                                  k_new, v_new)),
-            rows_in + table.numel() * 4 + 2 * kept_timed * hkv * d * 2, append_shape)
+            append_bytes(entries_timed, kept_timed, d * 2, 0), append_shape)
 
     def check_append_q(bits: int) -> dict:  # B-q (int8) and B-q4 (int4)
         name, launch, plain, qmax = (("kv_append_q", kv_append_q, append_tokens_paged_q, 127)
@@ -609,7 +617,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             name, append_src, "port-only (XLA in JAX: gofr_tpu/ops/paged.py:"
                               f"{344 if bits == 8 else 438})",
             (lambda i: launch(*planes(i), table, lengths, k_new, v_new), plain_both),
-            rows_in + table.numel() * 4 + 2 * kept_timed * hkv * (cache.k.shape[-1] + 2),
+            append_bytes(entries_timed, kept_timed, cache.k.shape[-1], 2),
             {**append_shape, "kv_bits": bits})
 
     def slot_edges() -> torch.Tensor:
@@ -639,7 +647,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "kv_append_slot", append_src, "gofr_tpu/ops/pallas/kv_append.py:61",
             (lambda i: kv_append_slot(sk[i % layers], sv[i % layers], lengths, k_new, v_new),
              lambda i: append_tokens_plain(sk[i % layers], sv[i % layers], lengths, k_new, v_new)),
-            rows_in + 2 * kept_slot * hkv * d * 2, slot_append_shape)
+            append_bytes(0, kept_slot, d * 2, 0), slot_append_shape)
 
     def check_append_slot_q() -> dict:  # G-q
         cache = QSlotKVCache.create(layers, n, smax, hkv, d, device=dev)
@@ -668,7 +676,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         return append_entry(
             "kv_append_slot_q", append_src, "port-only (XLA in JAX: gofr_tpu/ops/kvcache.py:132)",
             (lambda i: kv_append_slot_q(*planes(i), lengths, k_new, v_new), plain_both),
-            rows_in + 2 * kept_slot * hkv * (d + 2), {**slot_append_shape, "kv_bits": 8})
+            append_bytes(0, kept_slot, d, 2), {**slot_append_shape, "kv_bits": 8})
 
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),

@@ -223,6 +223,11 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Planes p, const int* _
 template <class Rows, class Addr>
 int launch(Planes planes, const void* positions, Addr addr, int n, int hkv, int d, void* stream) {
   if (d != kD || n <= 0 || hkv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the rows' 8-byte loads and stores; refused here, before the launch, so
+  // the launchers need not ask each tensor for its address
+  if ((reinterpret_cast<uintptr_t>(planes.k) | reinterpret_cast<uintptr_t>(planes.v) |
+       reinterpret_cast<uintptr_t>(planes.k_new) | reinterpret_cast<uintptr_t>(planes.v_new)) & 7)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n * hkv + kWarps - 1) / kWarps, 2);
   append_kernel<Rows, Addr><<<grid, kThreads, 0, s>>>(planes, static_cast<const int*>(positions), addr,

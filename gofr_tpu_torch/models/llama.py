@@ -235,7 +235,7 @@ class Llama(nn.Module):
         attn = DECODE_ATTENTION[type(cache)][0 if kernels else 1]
         n = tokens.shape[0]
         pos1 = positions.long().clamp(max=self.cfg.max_seq_len - 1)[:, None]
-        positions = positions.to(torch.int32)
+        positions = positions.to(torch.int32).contiguous()
         lengths = positions + 1
         if table is not None:
             table = table.to(torch.int32).contiguous()

@@ -123,18 +123,20 @@ def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def stream_of(t) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
+    """The handle of PyTorch's current stream on ``t``'s device, from the
+    raw accessor PyTorch's own compiled kernels launch with:
+    ``torch.cuda.current_stream`` builds a Stream object per call, a few
+    microseconds of every launch (scripts/torch_launcher_cost.py)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def require(cond: bool, msg) -> None:
+def require(cond: bool, msg: str) -> None:
     """Reject input a kernel does not take (wrappers validate before any
-    pointer reaches C). ``msg`` is the message, or a function that makes
-    it, so a launcher formats nothing when its input is good."""
+    pointer reaches C)."""
     if not cond:
-        raise ValueError(msg() if callable(msg) else msg)
+        raise ValueError(msg)
 
 
 def check(rc: int, name: str) -> None:

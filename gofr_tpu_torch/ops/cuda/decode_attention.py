@@ -78,7 +78,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
     """q [B, Hq, D] against slot-cache layer slices [B, Hkv, Smax, D],
     attending to positions < lengths[b] (clamped to [0, Smax]) →
-    [B, Hq, D]. Launches the kernel (and its merge), or raises."""
+    [B, Hq, D]. ``lengths`` is int32 and contiguous on the card
+    (``Llama.decode_step`` converts it once per step). Launches the kernel
+    (and its merge), or raises."""
     cuda.require(q.is_cuda and k_cache.is_cuda and v_cache.is_cuda,
                  "decode_attention takes tensors on the card")
     b, hq, d = q.shape
@@ -93,10 +95,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                  f"decode_attention takes up to {MAX_GROUP} query heads per KV head, got {hq}/{hkv}")
     cuda.require(k_cache.is_contiguous() and v_cache.is_contiguous(),
                  "decode_attention caches must be contiguous")
-    cuda.require(lengths.shape == (b,), "decode_attention lengths must have B rows")
+    cuda.require(lengths.is_cuda and lengths.dtype == torch.int32 and lengths.shape == (b,)
+                 and lengths.is_contiguous(),
+                 "decode_attention takes int32 lengths [B], contiguous on the card")
     scale = scale if scale is not None else d ** -0.5
     q = q.contiguous()
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out

@@ -22,7 +22,9 @@ The launchers take what the model hands them and convert nothing: rows
 [N, Hkv, 128] in the cache's 16-bit type (bf16 for the quantized caches),
 ``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
 (``Llama.decode_step`` converts both once per step). They validate, launch
-and count; a call's host time is a few dozen microseconds of Python.
+and count, with one check each of what the pointers they pass need (on
+the card, shapes, types, contiguous); the C entry points refuse rows that
+are not 8-byte aligned before they launch.
 """
 
 from __future__ import annotations
@@ -38,22 +40,54 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_Q_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# what each launcher takes, the message of its one check
+_TAKES = "takes contiguous tensors on the card: "
+_POOL_INDEX = "int32 table [N, MaxP] and positions [N]"
+_B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, 128] of one type, rows "
+            f"[N, Hkv, 128] of that type, {_POOL_INDEX}")
+_G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit caches [N, Hkv, Smax, 128] of one type, rows "
+            "[N, Hkv, 128] of that type, int32 positions [N]")
+_BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, 128] with bf16 scales [P, Hkv, page], "
+             f"bf16 rows [N, Hkv, 128], {_POOL_INDEX}")
+_BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, 64] with bf16 scales [P, Hkv, page], "
+              f"bf16 rows [N, Hkv, 128], {_POOL_INDEX}")
+_GQ_TAKES = (f"kv_append_slot_q {_TAKES}int8 caches [N, Hkv, Smax, 128] with bf16 scales "
+             "[N, Hkv, Smax], bf16 rows [N, Hkv, 128], int32 positions [N]")
 
 
-def _check(name: str, planes: tuple, rows: tuple, index: tuple, row_dtype: torch.dtype,
-           row_shape: tuple) -> None:
-    """What every append launcher needs, in two passes: everything
-    contiguous on the card; rows of ``row_shape`` in ``row_dtype``, int32
-    ``index`` tensors (positions, table), planes and rows 8-byte aligned.
-    The messages are made only on failure."""
-    cuda.require(all(t.is_cuda and t.is_contiguous() for t in (*planes, *rows, *index)),
-                 lambda: f"{name} takes contiguous tensors on the card")
-    cuda.require(all(r.dtype == row_dtype and r.shape == row_shape for r in rows)
-                 and all(t.dtype == torch.int32 for t in index)
-                 and all(t.data_ptr() % 8 == 0 for t in (*planes[:2], *rows)),
-                 lambda: f"{name} takes {row_dtype} rows {row_shape} and int32 positions and table, "
-                         f"planes and rows 8-byte aligned; got rows "
-                         f"{[(r.dtype, tuple(r.shape)) for r in rows]}, {[t.dtype for t in index]}")
+def _planes(k_layer: torch.Tensor, v_layer: torch.Tensor, dtype: torch.dtype, row: int) -> bool:
+    """K and V layer slices of one shape, rows of ``row`` ``dtype``
+    elements, contiguous on the card."""
+    return (k_layer.is_cuda and v_layer.is_cuda and k_layer.dtype == v_layer.dtype == dtype
+            and k_layer.shape[-1] == row and v_layer.shape == k_layer.shape
+            and k_layer.is_contiguous() and v_layer.is_contiguous())
+
+
+def _scales(k_scale: torch.Tensor, v_scale: torch.Tensor, shape: torch.Size) -> bool:
+    """bf16 scale planes of ``shape``, contiguous on the card."""
+    return (k_scale.is_cuda and v_scale.is_cuda and k_scale.dtype == v_scale.dtype == torch.bfloat16
+            and k_scale.shape == v_scale.shape == shape
+            and k_scale.is_contiguous() and v_scale.is_contiguous())
+
+
+def _rows(k_new: torch.Tensor, v_new: torch.Tensor, n: int, hkv: int, dtype: torch.dtype) -> bool:
+    """New rows [N, Hkv, 128] of ``dtype``, contiguous on the card."""
+    return (k_new.is_cuda and v_new.is_cuda and k_new.dtype == v_new.dtype == dtype
+            and k_new.shape == v_new.shape == (n, hkv, HEAD_DIM)
+            and k_new.is_contiguous() and v_new.is_contiguous())
+
+
+def _slot_index(positions: torch.Tensor, n: int) -> bool:
+    """int32 positions [N], contiguous on the card."""
+    return (positions.is_cuda and positions.dtype == torch.int32 and positions.shape == (n,)
+            and positions.is_contiguous())
+
+
+def _pool_index(table: torch.Tensor, positions: torch.Tensor, n: int) -> bool:
+    """``_slot_index``'s positions and an int32 table [N, MaxP], contiguous
+    on the card."""
+    return (_slot_index(positions, n) and table.is_cuda and table.dtype == torch.int32
+            and table.dim() == 2 and table.shape[0] == n and table.is_contiguous())
 
 
 def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
@@ -65,13 +99,9 @@ def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
     raises."""
     pool, hkv, page, d = k_layer.shape
     n = k_new.shape[0]
-    _check("kv_append", (k_layer, v_layer), (k_new, v_new), (table, positions), k_layer.dtype,
-           (n, hkv, HEAD_DIM))
-    cuda.require(k_layer.element_size() == 2 and d == HEAD_DIM and v_layer.shape == k_layer.shape
-                 and v_layer.dtype == k_layer.dtype,
-                 lambda: f"kv_append takes two 16-bit pools [P, Hkv, page, {HEAD_DIM}] of one shape, "
-                         f"got {k_layer.dtype} {tuple(k_layer.shape)} / {v_layer.dtype}")
-    cuda.require(table.shape[0] == n and positions.shape == (n,), "kv_append table/positions must have N rows")
+    cuda.require(_planes(k_layer, v_layer, k_layer.dtype, HEAD_DIM) and k_layer.element_size() == 2
+                 and _rows(k_new, v_new, n, hkv, k_layer.dtype) and _pool_index(table, positions, n),
+                 _B_TAKES)
     if n == 0:
         return k_layer, v_layer
     fn = cuda.bind("gofr_kv_append", _ARGTYPES)
@@ -92,13 +122,9 @@ def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torc
     position outside [0, Smax), and return the slices. Launches the kernel,
     or raises."""
     n, hkv, smax, d = k_layer.shape
-    _check("kv_append_slot", (k_layer, v_layer), (k_new, v_new), (positions,), k_layer.dtype,
-           (n, hkv, HEAD_DIM))
-    cuda.require(k_layer.element_size() == 2 and d == HEAD_DIM and v_layer.shape == k_layer.shape
-                 and v_layer.dtype == k_layer.dtype,
-                 lambda: f"kv_append_slot takes two 16-bit caches [N, Hkv, Smax, {HEAD_DIM}] of one "
-                         f"shape, got {k_layer.dtype} {tuple(k_layer.shape)} / {v_layer.dtype}")
-    cuda.require(positions.shape == (n,), "kv_append_slot positions must have N rows")
+    cuda.require(_planes(k_layer, v_layer, k_layer.dtype, HEAD_DIM) and k_layer.element_size() == 2
+                 and _rows(k_new, v_new, n, hkv, k_layer.dtype) and _slot_index(positions, n),
+                 _G_TAKES)
     if n == 0:
         return k_layer, v_layer
     fn = cuda.bind("gofr_kv_append_slot", _SLOT_ARGTYPES)
@@ -111,32 +137,20 @@ def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torc
 kv_append_slot.launches = 0
 
 
-def _check_scaled(name: str, k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
-                  v_scale: torch.Tensor, values_dtype: torch.dtype, row_bytes: int) -> None:
-    cuda.require(k_layer.dtype == v_layer.dtype == values_dtype and v_layer.shape == k_layer.shape
-                 and k_layer.shape[-1] == row_bytes,
-                 lambda: f"{name} takes {values_dtype} planes of {row_bytes}-byte rows, got "
-                         f"{k_layer.dtype} {tuple(k_layer.shape)}")
-    cuda.require(k_scale.dtype == v_scale.dtype == torch.bfloat16
-                 and k_scale.shape == v_scale.shape == k_layer.shape[:-1],
-                 lambda: f"{name} takes bf16 scales {tuple(k_layer.shape[:-1])}, got "
-                         f"{tuple(k_scale.shape)}")
-
-
-def _pool_q(name: str, entry: str, values_dtype: torch.dtype, row_bytes: int, launcher,
+def _pool_q(launcher, entry: str, values_dtype: torch.dtype, row_bytes: int, takes: str,
             k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new) -> tuple:
     pool, hkv, page, _ = k_layer.shape
     n = k_new.shape[0]
-    _check(name, (k_layer, v_layer, k_scale, v_scale), (k_new, v_new), (table, positions),
-           torch.bfloat16, (n, hkv, HEAD_DIM))
-    _check_scaled(name, k_layer, v_layer, k_scale, v_scale, values_dtype, row_bytes)
-    cuda.require(table.shape[0] == n and positions.shape == (n,),
-                 lambda: f"{name} table/positions must have N rows")
+    cuda.require(_planes(k_layer, v_layer, values_dtype, row_bytes)
+                 and _scales(k_scale, v_scale, k_layer.shape[:-1])
+                 and _rows(k_new, v_new, n, hkv, torch.bfloat16) and _pool_index(table, positions, n),
+                 takes)
     if n > 0:
         fn = cuda.bind(entry, _Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                       k_new.data_ptr(), v_new.data_ptr(), table.data_ptr(), positions.data_ptr(), n,
-                      table.shape[1], pool, hkv, page, HEAD_DIM, cuda.stream_of(k_layer)), name)
+                      table.shape[1], pool, hkv, page, HEAD_DIM, cuda.stream_of(k_layer)),
+                   launcher.__name__)
         launcher.launches += 1
     return k_layer, v_layer, k_scale, v_scale
 
@@ -149,7 +163,7 @@ def kv_append_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Ten
     (values [P, Hkv, page, D], scales [P, Hkv, page]) through ``table``, in
     place, by B's drop rule; returns the four slices. Launches the kernel,
     or raises."""
-    return _pool_q("kv_append_q", "gofr_kv_append_q", torch.int8, HEAD_DIM, kv_append_q,
+    return _pool_q(kv_append_q, "gofr_kv_append_q", torch.int8, HEAD_DIM, _BQ_TAKES,
                    k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
@@ -161,7 +175,7 @@ def kv_append_q4(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Te
                  k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Kernel B-q4: as ``kv_append_q`` into the packed int4 pool (values
     uint8 [P, Hkv, page, D//2], byte j holding elements j and j + D/2)."""
-    return _pool_q("kv_append_q4", "gofr_kv_append_q4", torch.uint8, HEAD_DIM // 2, kv_append_q4,
+    return _pool_q(kv_append_q4, "gofr_kv_append_q4", torch.uint8, HEAD_DIM // 2, _BQ4_TAKES,
                    k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
@@ -177,10 +191,10 @@ def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torc
     ``positions``, in place, dropping a position outside [0, Smax); returns
     the four slices. Launches the kernel, or raises."""
     n, hkv, smax, _ = k_layer.shape
-    _check("kv_append_slot_q", (k_layer, v_layer, k_scale, v_scale), (k_new, v_new), (positions,),
-           torch.bfloat16, (n, hkv, HEAD_DIM))
-    _check_scaled("kv_append_slot_q", k_layer, v_layer, k_scale, v_scale, torch.int8, HEAD_DIM)
-    cuda.require(positions.shape == (n,), "kv_append_slot_q positions must have N rows")
+    cuda.require(_planes(k_layer, v_layer, torch.int8, HEAD_DIM)
+                 and _scales(k_scale, v_scale, k_layer.shape[:-1])
+                 and _rows(k_new, v_new, n, hkv, torch.bfloat16) and _slot_index(positions, n),
+                 _GQ_TAKES)
     if n > 0:
         fn = cuda.bind("gofr_kv_append_slot_q", _SLOT_Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),

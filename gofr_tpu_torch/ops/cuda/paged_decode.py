@@ -48,7 +48,9 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  scale: float | None = None) -> torch.Tensor:
     """q [N, Hq, D] against pool layer slices [P, Hkv, page, D] through the
     block table [N, MaxP] (OOB entries == P), masked by lengths [N] →
-    [N, Hq, D]. Launches the kernel (and its merge), or raises."""
+    [N, Hq, D]. Table and lengths are int32 and contiguous on the card
+    (``Llama.decode_step`` converts them once per step). Launches the
+    kernel (and its merge), or raises."""
     cuda.require(q.is_cuda and k_pool.is_cuda and v_pool.is_cuda,
                  "paged_decode takes tensors on the card")
     n, hq, d = q.shape
@@ -61,11 +63,12 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  f"paged_decode takes up to {MAX_GROUP} query heads per KV head, got {hq}/{hkv}")
     cuda.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (k_pool, v_pool)),
                  "paged_decode pools must be contiguous and 16-byte aligned")
-    cuda.require(table.shape[0] == n and lengths.shape == (n,), "paged_decode table/lengths must have N rows")
+    cuda.require(table.is_cuda and lengths.is_cuda and table.dtype == lengths.dtype == torch.int32
+                 and table.dim() == 2 and table.shape[0] == n and lengths.shape == (n,)
+                 and table.is_contiguous() and lengths.is_contiguous(),
+                 "paged_decode takes an int32 table [N, MaxP] and lengths [N], contiguous on the card")
     scale = scale if scale is not None else d ** -0.5
     q = q.contiguous()
-    table = table.to(device=q.device, dtype=torch.int32).contiguous()
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if n == 0:
         return out

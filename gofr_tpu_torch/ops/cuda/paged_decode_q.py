@@ -47,10 +47,11 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
                      q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
                      ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
                      lengths: torch.Tensor, scale: float | None) -> torch.Tensor:
-    """Check the inputs of a quantized-pool decode kernel, launch C entry
-    point ``entry`` (the split kernel and its merge) and count the launch on
-    ``wrapper``; raise on anything the kernel does not take and on a CUDA
-    error."""
+    """Check the inputs of a quantized-pool decode kernel (table and
+    lengths int32 and contiguous on the card, as ``Llama.decode_step``
+    converts them once per step), launch C entry point ``entry`` (the split
+    kernel and its merge) and count the launch on ``wrapper``; raise on
+    anything the kernel does not take and on a CUDA error."""
     name = wrapper.__name__
     cuda.require(all(t.is_cuda for t in (q, kq_pool, vq_pool, ks_pool, vs_pool)),
                  f"{name} takes tensors on the card")
@@ -70,11 +71,12 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
     cuda.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (kq_pool, vq_pool))
                  and ks_pool.is_contiguous() and vs_pool.is_contiguous(),
                  f"{name} pools must be contiguous and 16-byte aligned")
-    cuda.require(table.shape[0] == n and lengths.shape == (n,), f"{name} table/lengths must have N rows")
+    cuda.require(table.is_cuda and lengths.is_cuda and table.dtype == lengths.dtype == torch.int32
+                 and table.dim() == 2 and table.shape[0] == n and lengths.shape == (n,)
+                 and table.is_contiguous() and lengths.is_contiguous(),
+                 f"{name} takes an int32 table [N, MaxP] and lengths [N], contiguous on the card")
     scale = scale if scale is not None else d ** -0.5
     q = q.contiguous()
-    table = table.to(device=q.device, dtype=torch.int32).contiguous()
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if n == 0:
         return out

@@ -407,3 +407,60 @@ def test_ieee_div_is_the_ieee_quotient():
         for b in (127.0, 7.0):
             got = ieee_div(_t(a).to(dev), b).cpu().numpy()
             np.testing.assert_array_equal(got.view(np.uint32), (a / np.float32(b)).view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_plain_quantizers_agree_bit_for_bit_on_the_card_and_the_cpu(bits, dtype):
+    """The kernels' reference end to end: ``quantize_row`` (int8) and
+    ``quantize_row_int4`` on the card give the CPU's codes and f32 scales
+    bit for bit, on the edge rows (an all-zero row, rows whose max is one
+    element, exact halves) and 4096 more rows of max |x| 1e-3..50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gofr_tpu_torch.ops.kvcache import quantize_row
+    from gofr_tpu_torch.ops.quant import quantize_row_int4
+
+    quantize = quantize_row if bits == 8 else quantize_row_int4
+    rows = _port(_edge_rows(100 + bits, 512, 8, dtype))
+    want_q, want_s = quantize(rows)
+    got_q, got_s = (t.cpu() for t in quantize(rows.to("cuda")))
+    np.testing.assert_array_equal(got_q.numpy(), want_q.numpy())
+    np.testing.assert_array_equal(got_s.numpy().view(np.uint32), want_s.numpy().view(np.uint32))
+    assert torch.all(want_q[0, 0] == 0) and torch.all(want_q[1].abs().amax(dim=-1) == 2 ** (bits - 1) - 1)
+
+
+@pytest.mark.cuda
+def test_launchers_refuse_what_they_would_once_have_converted_on_the_card():
+    """On the card the launchers convert nothing: int64 positions or
+    lengths, as the engine hands them to ``Llama.decode_step``, are refused
+    by the appends and by decode attention (A, F) before any launch, and a
+    row that is not 8-byte aligned by the append's C entry point; nothing
+    is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda import decode_attention, kv_append, paged_decode
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    n, hkv, page, maxp, pool, smax = 3, 2, 16, 4, 12, 40
+    pool_kv = torch.zeros(pool, hkv, page, D, dtype=bf, device=dev)
+    slot_kv = torch.zeros(n, hkv, smax, D, dtype=bf, device=dev)
+    rows = torch.zeros(n, hkv, D, dtype=bf, device=dev)
+    table = torch.arange(n * maxp, dtype=torch.int32, device=dev).view(n, maxp) % pool
+    pos = torch.tensor([3, 20, 0], dtype=torch.int32, device=dev)
+    q = torch.zeros(n, 4 * hkv, D, dtype=bf, device=dev)
+    cuda.reset_launch_counts()
+    for call in (lambda: kv_append.kv_append(pool_kv, pool_kv, table, pos.long(), rows, rows),
+                 lambda: kv_append.kv_append(pool_kv, pool_kv, table.long(), pos, rows, rows),
+                 lambda: kv_append.kv_append_slot(slot_kv, slot_kv, pos.long(), rows, rows),
+                 lambda: paged_decode.paged_decode(q, pool_kv, pool_kv, table, pos.long()),
+                 lambda: decode_attention.decode_attention(q, slot_kv, slot_kv, pos.long())):
+        with pytest.raises(ValueError, match="int32"):
+            call()
+    shifted = torch.zeros(rows.numel() + 1, dtype=bf, device=dev)[1:].view(rows.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 != 0
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kv_append.kv_append(pool_kv, pool_kv, table, pos, shifted, rows)
+    assert set(cuda.launch_counts().values()) == {0}

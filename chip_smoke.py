@@ -17,12 +17,13 @@ result line:
    port's own writes from random bf16 K/V, and on a bf16 slot cache of
    2176 positions per slot, with a lane past the slot; lanes on and one
    past the split boundaries of the slot and paged decodes; 4 x 512
-   and 4 x 1024 prefills, full and ragged, and a chunk of 200 queries after
-   cached offsets; the five appends, bf16 and quantizing, on edge lanes: a
-   position of -1, past the table, through an OOB or negative entry, at and
-   past Smax, an all-zero row and a row whose max is one element): each
-   held against its plain PyTorch version on the same inputs (the appends
-   bit for bit, values and scales), timed with CUDA events and by device
+   and 4 x 1024 prefills, full and ragged, a chunk of 200 queries after
+   cached offsets and one of 512 at offset 512 (phase 4's chunk); the five
+   appends, bf16 and quantizing, on edge lanes: a position of -1, past the
+   table, through an OOB or negative entry, at and past Smax, an all-zero
+   row and a row whose max is one element): each held against its plain
+   PyTorch version on the same inputs (the appends bit for bit, values and
+   scales), timed with CUDA events and by device
    time beside the plain version, a library yardstick where one PyTorch
    call computes the same function, and the least time the card could take
    (its bound);
@@ -34,16 +35,25 @@ result line:
    (``kv_layout="slot"``); every launch counter is set to 0 just before
    each run and read just after it, and each kernel of that cache's path
    (``ON_PATH``) must be > 0, the decode-step kernels equally often, and
-   every other kernel 0;
+   every other kernel 0. Then ``paged_admission``: the same model on a
+   bf16 pool of 40 pages (``ADMISSION``), where a warm request leaves a
+   768-token system prefix in the prefix cache and a burst of 8 prompts
+   that share it (896..1408 tokens, so all chunk) and 4 that do not must
+   preempt; it must launch the bf16 pool's kernels, C on chunked rows among
+   them, every request must end with 64 tokens, each of the 8 must be
+   served 6 pages from the cache, and the pool's audit must pass. The
+   share of requests whose tokens equal an unconstrained run's (no prefix
+   cache, no chunking, the full pool) is printed, not held;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
-   their plain versions, and with the kernels in prefill only and in
-   decode only; the kernel run's logits must agree with the plain run's
-   within the limits below, and each step's error of every run is
-   reported;
-6. no host sync: two ``decode_step`` steps on each cache inside
-   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
-   that makes the host wait on the card.
+   their plain versions, with the kernels in prefill only and in decode
+   only, and with the kernels and the prompt prefilled in two chunks of
+   128 (``PHASE5_RUNS``); the kernel runs' logits, the chunked one's too,
+   must agree with the plain whole-prompt run's within the limits below,
+   and each step's error of every run is reported;
+6. no host sync: a prefill of two 128-token chunks and two ``decode_step``
+   steps on each cache inside ``torch.cuda.set_sync_debug_mode("error")``,
+   which raises on any call that makes the host wait on the card.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -375,6 +385,32 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         lens = offs + torch.tensor([200, 131, 77, 200], device=dev, dtype=torch.int32)
         checks["chunked"] = flash_agree("chunked", q2[:, :200].contiguous(), k2, v2, q_offset=offs,
                                         kv_lengths=lens)[0]
+        # the engine's chunked prefill at phase 4's chunk: 512 queries at
+        # offset 512 against the 1024 keys of the dense view
+        qc = torch.randn(1, 512, hq, d, device=dev, generator=gen).to(bf)
+        kc, vc = (torch.randn(1, 1024, hkv, d, device=dev, generator=gen).to(bf) for _ in range(2))
+        offc = torch.tensor([512], device=dev, dtype=torch.int32)
+        lenc = torch.tensor([1024], device=dev, dtype=torch.int32)
+        checks["chunk_512_at_512"] = flash_agree("chunk 512 at 512", qc, kc, vc, q_offset=offc,
+                                                 kv_lengths=lenc)[0]
+        # query i at position 512 + i attends keys 0 .. 512 + i
+        b_ms_c, b_by_c = bound_ms(2 * (2 * qc.numel() + 2 * kc.numel()),
+                                  4 * hq * d * (512 * 513 + 512 * 511 // 2))
+        # yardstick only: SDPA with the chunk's causal mask as a bool mask
+        # and KV heads repeated, built outside the timed call
+        chunk_mask = (torch.arange(1024, device=dev)[None, :]
+                      <= 512 + torch.arange(512, device=dev)[:, None])
+        qch = qc.transpose(1, 2)
+        kch, vch = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1) for t in (kc, vc))
+        chunk = {"shape": {"batch": 1, "queries": 512, "offset": 512, "keys": 1024},
+                 "bound_ms": b_ms_c, "bound_by": b_by_c,
+                 **timing(lambda i: flash_attention(qc, kc, vc, causal=True, q_offset=offc,
+                                                    kv_lengths=lenc),
+                          lambda i: mha_attention_plain(qc, kc, vc, causal=True, q_offset=offc,
+                                                        kv_lengths=lenc),
+                          lambda i: F.scaled_dot_product_attention(qch, kch, vch,
+                                                                   attn_mask=chunk_mask),
+                          iters=50, plain_iters=5)}
         long = {"shape": {"batch": 4, "seq": 1024, "causal": True}, "bound_ms": b_ms_l,
                 "bound_by": b_by_l,
                 **timing(lambda i: flash_attention(q2, k2, v2, causal=True),
@@ -391,7 +427,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             **timing(lambda i: flash_attention(qf, kf, vf, causal=True),
                      lambda i: mha_attention_plain(qf, kf, vf, causal=True), sdpa(qf, kf, vf),
                      iters=20, plain_iters=5),
-            "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long,
+            "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long, "chunk_512_at_512": chunk,
             "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
 
@@ -791,25 +827,158 @@ def serve(torch, cuda, model=None, kv_quantize: str = "",
     return eng, counts, metrics
 
 
+# Phase 4's admission run: a pool too small for the burst unshared, so the
+# prefix cache, chunked prefill and preemption all run. The tails span
+# 128..640 and lean to 507..512, the longest that prefill in one chunk, so
+# the 8 shared prompts decode at once and outgrow the pool together.
+ADMISSION = {"page_size": 128, "total_pages": 40, "prefill_buckets": [128, 256, 512],
+             "prefix": 768, "warm_tail": 16, "tails": [128, 640, 512, 511, 510, 509, 508, 507],
+             "others": [64, 170, 277, 384]}
+
+
+def admission_traffic(torch, vocab: int) -> tuple[list, list]:
+    """(warm request, burst) of the admission run from the seed: the warm
+    prompt is the 768-token system prefix and a tail of 16; the burst is 8
+    prompts of that prefix and a distinct tail, then 4 unshared prompts."""
+    rng = torch.Generator().manual_seed(SEED + 5)
+
+    def draw(n: int) -> list:
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    prefix = draw(ADMISSION["prefix"])
+    warm = prefix + draw(ADMISSION["warm_tail"])
+    burst = [prefix + draw(n) for n in ADMISSION["tails"]] + [draw(n) for n in ADMISSION["others"]]
+    return warm, burst
+
+
+def admission_run(torch, model, warm, **kw) -> object:
+    """A new admission engine on ``model`` that has served the warm
+    request alone; ``kw`` sizes its pool, buckets and cache."""
+    from gofr_tpu_torch.gpu.engine import build_engine
+
+    eng = build_engine(model.cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                       max_prefill_batch=4, decode_chunk=8, page_size=ADMISSION["page_size"], **kw)
+    out = eng.generate(warm, max_new_tokens=64, timeout=600)
+    require(out["finish_reason"] == "length", f"admission warm request: {out['finish_reason']}")
+    return eng
+
+
+def serve_admission(torch, cuda, model) -> dict:
+    """Phase 4 ``paged_admission``: the burst on a 40-page bf16 pool through
+    the admission the JAX engine runs (EDF planner, chunked prefill, pages on
+    demand, preemption by recompute, the prefix cache), the launch counters
+    set to 0 just before the burst and read just after; then the same
+    traffic unconstrained, for the token-equality share."""
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    cfg = model.cfg
+    warm, burst = admission_traffic(torch, cfg.vocab_size)
+    n_shared = len(ADMISSION["tails"])
+    eng = admission_run(torch, model, warm, total_pages=ADMISSION["total_pages"],
+                        prefill_buckets=ADMISSION["prefill_buckets"])
+    before = dict(eng.counters)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t_submit = time.monotonic()
+    outs = [r.result(timeout=900) for r in [eng.submit(p, max_new_tokens=64) for p in burst]]
+    torch.cuda.synchronize()
+    t_done = time.monotonic()
+    counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
+    did = {k: v - before[k] for k, v in eng.counters.items()}
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                f"admission request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
+                f"admission request {i}: token out of range")
+        if i < n_shared:
+            require(o["prefix_hit_tokens"] >= ADMISSION["prefix"],
+                    f"admission request {i}: {o['prefix_hit_tokens']} tokens from the prefix cache")
+    require(did["preemptions"] >= 1, f"the admission burst preempted nothing: {did}")
+    for name, launches in counts.items():
+        if name in ON_PATH["paged", ""]:
+            require(launches > 0, f"kernel {name} was not launched on the admission run")
+        else:
+            require(launches == 0, f"kernel {name} was launched {launches} times on the "
+                                   f"admission run")
+    require(did["prefill_chunks_at_offset"] >= 1 and
+            offset_launches == did["prefill_chunks"] * cfg.num_layers,
+            f"flash_attention launched {offset_launches} times on chunked rows for "
+            f"{did['prefill_chunks']} chunks ({did['prefill_chunks_at_offset']} at an offset)")
+    eng.check_page_refs()
+    pool = eng.page_pool_stats()
+    require(pool["slot_pages"] == 0 and
+            pool["free_pages"] + pool["prefix_pages"] == ADMISSION["total_pages"],
+            f"admission pool after the drain: {pool}")
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+
+    # the unconstrained run: no prefix cache, no chunking, the full pool
+    free_eng = admission_run(torch, model, warm, prefix_cache=False, prefill_buckets=[2048])
+    free_outs = [r.result(timeout=900) for r in [free_eng.submit(p, max_new_tokens=64)
+                                                 for p in burst]]
+    require(free_eng.counters["preemptions"] == 0 and free_eng.counters["prefill_chunks"] == 0,
+            f"the unconstrained run preempted or chunked: {free_eng.counters}")
+    free_eng.stop()
+    del free_eng
+    torch.cuda.empty_cache()
+
+    first = [t_submit + o["ttft_s"] for o in outs]
+    done = [f + o["decode_s"] for f, o in zip(first, outs)]
+    ttft = sorted(o["ttft_s"] for o in outs)
+    return {
+        "model": "llama3_8b (random bf16 weights, seed 0)", "layers": cfg.num_layers,
+        "kv_layout": "paged", "kv_pool": "bf16", **ADMISSION, "requests": len(outs),
+        "prompt_lens": [len(p) for p in burst], "new_tokens": 64,
+        "wall_s": t_done - t_submit, "ttft_s": [o["ttft_s"] for o in outs],
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_tok_s": sum(len(o["tokens"]) - 1 for o in outs) / (max(done) - min(first)),
+        "preemptions": did["preemptions"],
+        "preemptions_by_request": [o["preemptions"] for o in outs],
+        "prefix_hit_tokens": did["prefix_hit_tokens"],
+        "prefix_hit_tokens_by_request": [o["prefix_hit_tokens"] for o in outs],
+        "prefix_evicted_pages": did["prefix_evicted_pages"],
+        "prefill_chunks": did["prefill_chunks"],
+        "chunk_launches_at_offset": did["prefill_chunks_at_offset"] * cfg.num_layers,
+        "flash_offset_launches": offset_launches, "launches": counts, "pool_after": pool,
+        "tokens_equal_unconstrained": sum(o["tokens"] == f["tokens"]
+                                          for o, f in zip(outs, free_outs)) / len(outs),
+        # per request, the index of the first token that differs (None: equal)
+        "first_difference": [next((j for j, (a, b) in enumerate(zip(o["tokens"], f["tokens"]))
+                                   if a != b), None) for o, f in zip(outs, free_outs)],
+        "note": "smoke run, not a benchmark",
+    }
+
+
 def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
-                decode_kernels: bool, fed=None, kv_layout: str = "paged"):
-    """Logits [5, 1, V] of ``prompt`` (1 x 256) through ``prefill`` and four
-    ``decode_step`` steps on a fresh cache of 512 positions (4 pages of
-    128, or one slot), ``kv_layout`` in the format ``kv_quantize``, the
-    kernels or their plain versions in each. Each step is fed ``fed``'s
-    tokens when given, else the run's own greedy tokens. Returns (logits,
-    the tokens fed, the K/V the cache holds at the end as its read path
-    returns them, f32 [L, 2, Hkv, written positions, D])."""
+                decode_kernels: bool, fed=None, kv_layout: str = "paged", chunks: int = 1):
+    """Logits [5, 1, V] of ``prompt`` (1 x 256) through ``prefill`` (whole,
+    or in ``chunks`` equal chunks at their offsets, as the engine's chunked
+    prefill runs them) and four ``decode_step`` steps on a fresh cache of
+    512 positions (4 pages of 128, or one slot), ``kv_layout`` in the
+    format ``kv_quantize``, the kernels or their plain versions in each.
+    Each step is fed ``fed``'s tokens when given, else the run's own greedy
+    tokens. Returns (logits, the tokens fed, the K/V the cache holds at the
+    end as its read path returns them, f32 [L, 2, Hkv, written positions,
+    D])."""
     from gofr_tpu_torch.gpu.engine import make_pool
 
-    lengths = torch.tensor([prompt.shape[1]], device="cuda")
     if kv_layout == "paged":
         rows = table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
         cache = make_pool(model, kv_quantize, 4, 128)
     else:
         rows, table = torch.zeros(1, dtype=torch.int32, device="cuda"), None
         cache = make_pool(model, kv_quantize, 1, 512, "slot")
-    logits, _ = model.prefill(prompt, lengths, cache, rows, kernels=prefill_kernels)
+    if chunks == 1:
+        lengths = torch.tensor([prompt.shape[1]], device="cuda")
+        logits, _ = model.prefill(prompt, lengths, cache, rows, kernels=prefill_kernels)
+    else:
+        width = prompt.shape[1] // chunks
+        lengths = torch.tensor([width], device="cuda")
+        for c in range(chunks):
+            logits, _ = model.prefill(prompt[:, c * width:(c + 1) * width], lengths, cache, rows,
+                                      torch.tensor([c * width], device="cuda"),
+                                      kernels=prefill_kernels)
     seq, chosen = [logits], []
     for step in range(4):
         tokens = logits.argmax(-1).to(torch.int32) if fed is None else fed[step]
@@ -824,55 +993,90 @@ def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
 
 
 def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
-    """Two ``decode_step`` steps on a fresh cache of the layout and format,
-    inside ``torch.cuda.set_sync_debug_mode("error")``: any call that makes
-    the host wait on the card raises there, and nothing catches it. Eight
-    lanes take int64 positions, as the engine hands them; the last lane is
-    idle as the engine parks one (its table row all OOB at position 0 on the
-    pool, at the slot's end on the slot cache), so its writes drop. The
-    decode kernels of the cache's path must launch once per layer and step,
-    and the logits must be finite."""
+    """A prefill of 256 tokens in two chunks of 128 at their offsets (the
+    engine's chunked path), then two ``decode_step`` steps, on a fresh
+    cache of the layout and format, each inside
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that makes the
+    host wait on the card raises there, and nothing catches it. The chunks
+    go to lane 0's table row (or slot). Eight lanes decode with int64
+    positions, as the engine hands them; the last lane is idle as the engine
+    parks one (its table row all OOB at position 0 on the pool, at the
+    slot's end on the slot cache), so its writes drop. The chunks must
+    launch C once per layer each, the decode steps the decode kernels of
+    the cache's path once per layer and step, and the logits must be
+    finite."""
     from gofr_tpu_torch.gpu.engine import make_pool
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 
     n, page, pages = 8, 128, 4
     rng = torch.Generator().manual_seed(SEED + 4)
     tokens = torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).cuda()
     positions = torch.randint(0, pages * page - 2, (n,), generator=rng)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
     if kv_layout == "paged":
         cache = make_pool(model, kv_quantize, n * pages, page)
         table = torch.arange(n * pages, dtype=torch.int32).view(n, pages)
         table[n - 1], positions[n - 1] = n * pages, 0
         table = table.cuda()
+        rows = table[:1]
     else:
         cache, table = make_pool(model, kv_quantize, n, pages * page, "slot"), None
         positions[n - 1] = pages * page
+        rows = torch.zeros(1, dtype=torch.int32, device="cuda")
     positions = positions.cuda()
-    torch.cuda.synchronize()
-    cuda.reset_launch_counts()
+    chunk_len = torch.tensor([128], device="cuda")
+    offsets = [torch.tensor([c * 128], device="cuda") for c in range(2)]
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    layers = model.cfg.num_layers
+
+    def unsynced(fn) -> dict:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        require(bool(out.isfinite().all()), f"{pool}: non-finite logits under the sync check")
+        return cuda.launch_counts()
+
+    def chunked():
+        for c in range(2):
+            logits, _ = model.prefill(prompt[:, c * 128:(c + 1) * 128], chunk_len, cache, rows,
+                                      offsets[c])
+        return logits
+
+    counts = unsynced(chunked)
+    require(counts["flash_attention"] == flash_attention.offset_launches == 2 * layers
+            and sum(counts.values()) == 2 * layers,
+            f"{pool}: the chunked prefill did not launch C once per layer and chunk: {counts}")
+    chunk_launches = counts["flash_attention"]
+
     steps = 2
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+
+    def decode():
         for step in range(steps):
             logits, _ = model.decode_step(tokens, positions + step, cache, table)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    counts = cuda.launch_counts()
-    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+        return logits
+
+    counts = unsynced(decode)
     decode_kernels = [k for k in ON_PATH[kv_layout, kv_quantize] if k not in PREFILL_KERNELS]
-    require(all(counts[k] == steps * model.cfg.num_layers for k in decode_kernels)
-            and sum(counts.values()) == steps * model.cfg.num_layers * len(decode_kernels),
+    require(all(counts[k] == steps * layers for k in decode_kernels)
+            and sum(counts.values()) == steps * layers * len(decode_kernels),
             f"{pool}: decode_step did not go through its kernels once per layer: {counts}")
-    require(bool(logits.isfinite().all()), f"{pool}: non-finite logits under the sync check")
-    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "steps": steps,
-            "sync_debug_mode": "error", "launches": {k: counts[k] for k in decode_kernels}}
+    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "chunks": 2,
+            "steps": steps, "sync_debug_mode": "error",
+            "launches": {"flash_attention (chunks)": chunk_launches,
+                         **{k: counts[k] for k in decode_kernels}}}
 
 
-# Phase 5's runs besides the plain one: (prefill kernels, decode kernels).
-# "kernels" is the served path and is held to LOGITS_RTOL; the two splits
-# show which half of the step an error comes from.
-PHASE5_RUNS = {"kernels": (True, True), "plain_prefill": (False, True),
-               "plain_decode": (True, False)}
+# Phase 5's runs besides the plain one: (prefill kernels, decode kernels,
+# prefill chunks). "kernels" is the served path and "chunked" the engine's
+# chunked prefill through the kernels; both are held to LOGITS_RTOL. The
+# two splits show which half of the step an error comes from.
+PHASE5_RUNS = {"kernels": (True, True, 1), "plain_prefill": (False, True, 1),
+               "plain_decode": (True, False, 1), "chunked": (True, True, 2)}
 
 
 def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
@@ -900,24 +1104,28 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
                                      kv_layout)
         require(torch.isfinite(k_run).all().item(), f"non-finite logits with the kernels ({pool})")
         top = p_run.abs().max().item()
-        for name, (pk, dk) in PHASE5_RUNS.items():
+        for name, (pk, dk, chunks) in PHASE5_RUNS.items():
             run = k_run if name == "kernels" else model_steps(
-                torch, model, kv_quantize, prompt, pk, dk, fed, kv_layout)[0]
+                torch, model, kv_quantize, prompt, pk, dk, fed, kv_layout, chunks)[0]
             steps[name].append(((run - p_run).abs().amax(dim=(1, 2)) / top).tolist())
         agree.append((k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item())
         differ.append((k_kv != p_kv).float().mean().item())
         stored_rel.append(((k_kv - p_kv).pow(2).mean() / p_kv.pow(2).mean()).sqrt().item())
         del k_kv, p_kv
     rel_errs = [max(s) for s in steps["kernels"]]
+    chunked_errs = [max(s) for s in steps["chunked"]]
     decode_errs = [max(s[1:]) for s in steps["plain_prefill"]]
     out = {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "prompts": PHASE5_PROMPTS,
-           "steps": 5, "rel_err": rel_errs,
+           "steps": 5, "rel_err": rel_errs, "chunked_rel_err": chunked_errs,
            "tol_rel": LOGITS_RTOL[kv_quantize], "decode_only_rel_err": decode_errs,
            "decode_only_tol_rel": DECODE_RTOL, "argmax_agree": agree, "rel_err_by_step": steps,
            "stored_differ": differ, "stored_rms_rel": stored_rel}
     if enforce:
         require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
                 f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
+                f"(limit {LOGITS_RTOL[kv_quantize]})")
+        require(max(chunked_errs) < LOGITS_RTOL[kv_quantize],
+                f"chunked prefill through the kernels vs plain logits ({pool}): {chunked_errs} "
                 f"(limit {LOGITS_RTOL[kv_quantize]})")
         require(max(decode_errs) < DECODE_RTOL,
                 f"kernel vs plain logits, kernels in decode only ({pool}): {decode_errs} "
@@ -966,6 +1174,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         lap(f"phase4_{run_name(kv_layout, kv_quantize)}")
 
+    admission = serve_admission(torch, cuda, model)
+    emit("phase4_serve_paged_admission", admission)
+    served["paged_admission"] = admission
+    lap("phase4_paged_admission")
+
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
@@ -981,7 +1194,8 @@ def main() -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "wall_s": wall,
-                   "serve": {run_name(*r): run for r, run in served.items()}}, f, indent=1)
+                   "serve": {r if isinstance(r, str) else run_name(*r): run
+                             for r, run in served.items()}}, f, indent=1)
     emit("wall_time", {"seconds": time.perf_counter() - start, "by_phase": wall})
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

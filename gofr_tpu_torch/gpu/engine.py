@@ -4,28 +4,37 @@ cache (counterpart of gofr_tpu/tpu/engine.py ``GenerateEngine`` and
 
 A device thread owns the model, the cache and every slot. Callers
 ``submit`` prompts onto a queue and get a ``Request`` future back. Each
-loop turn the thread
+loop turn the thread, in the JAX engine's order (engine.py:3338-3361),
 
-1. moves queued requests into a pending list, rejecting bad prompts;
-2. admits pending requests while a slot (and, on the paged layout, enough
-   free pages) exists, and prefills the batch at once, padded to its
-   longest prompt and masked by lengths;
-3. runs ``decode_chunk`` decode steps over every slot and hands each slot its
-   tokens until EOS or its length limit; a finished request frees its slot
-   (and its pages) at once.
+1. admits: moves queued requests into the pending list (a prompt longer
+   than the largest prefill bucket into the chunked list), claims a free
+   slot for each waiting long prompt, then lets ``plan_prefill`` (EDF plus
+   bucket affinity, ``gpu/planner.py``) choose one batch of the rest and
+   prefills it at once, padded to its longest chosen prompt;
+2. prefills one chunk of the oldest-admitted long prompt, so decode keeps
+   stepping between its chunks;
+3. runs ``decode_chunk`` decode steps over every decoding slot and hands
+   each slot its tokens until EOS or its length limit; a finished request
+   frees its slot at once.
 
 ``kv_layout`` picks the cache. On the paged layout (the default, as
-engine.py:4118 picks it for llama) the pages a request can ever write
-(prompt plus ``max_new_tokens``, capped at ``max_len``) are taken from the
-free list at admission, and lanes without a request keep an all-OOB table
-row, so their writes drop. On the slot layout each slot owns ``cache_len``
-positions (engine.py:1321), a request needs only a free slot, and lanes
-without a request sit at position ``cache_len``, so their writes drop
-(tpu/decode.py:309-315). Reserving pages at admission means a running
-request never waits for pages and nothing is preempted; the JAX engine
-allocates on demand and preempts instead, which this slice leaves for
-later, with the prefix cache, chunked admission, speculative decoding,
-QoS, adapters, handoff, lockstep, autotune and the perf plane.
+engine.py:4118 picks it for llama) pages are taken on demand: a batched
+prompt gets its prompt's pages at admission (when the most urgent prompt
+cannot, admission stops), a chunk gets its chunk's, and a decoding lane
+grows its table before each decode chunk. When the pool runs short the
+prefix cache gives up its least-recently-used pages, and then the newest
+slot is preempted: freed and requeued with what it generated folded into
+its prompt, to be prefilled again (preemption by recompute). Pages are
+refcounted, since the prefix cache (``gpu/prefix.py``, on by default)
+splices a cached prompt prefix into several slots' tables; a prompt whose
+hit covers at least half of it takes the chunked path, which prefills only
+the rest. The decode table goes out with every row but the decoding lanes'
+all OOB, so those lanes' writes drop. On the slot layout each slot owns
+``cache_len`` positions (engine.py:1321), a request needs only a free
+slot, long prompts chunk too, and lanes that do not decode sit at position
+``cache_len``, so their writes drop (tpu/decode.py:309-315). Speculative
+decoding, QoS, adapters, handoff, lockstep, the prefix cache's host tier,
+autotune and the perf plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.gpu.device import resolve_device
-from gofr_tpu_torch.gpu.programs import decode_chunk, prefill_sample
+from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
+from gofr_tpu_torch.gpu.prefix import PrefixCache
+from gofr_tpu_torch.gpu.programs import decode_chunk, prefill_chunk, prefill_sample
 from gofr_tpu_torch.models.llama import AnyKVCache, Llama, LlamaConfig, init, params_from_jax
 
 log = logging.getLogger(__name__)
@@ -51,6 +62,11 @@ log = logging.getLogger(__name__)
 # cache formats: the model's dtype, int8 rows, packed int4 rows (paged only)
 KV_QUANTIZE = ("", "int8", "int4")
 KV_LAYOUTS = ("paged", "slot")
+# ``GenerateEngine.counters``: preemptions, tokens served from the prefix
+# cache, prefix lookups and misses (engine.py's app_tpu_prefix_* metrics),
+# pages evicted from it, and prefill chunks (those at a non-zero offset too)
+COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_lookups", "prefix_misses",
+            "prefix_evicted_pages", "prefill_chunks", "prefill_chunks_at_offset")
 
 
 def make_pool(model: Llama, kv_quantize: str, rows: int, row_len: int,
@@ -125,22 +141,27 @@ class Request:
 
 
 class _Slot:
-    """One admitted generation. ``generated`` holds every output token so
-    far; ``pos`` is where the last one's K/V goes on the next decode step."""
+    """One admitted generation. While it prefills, ``written`` is how much
+    of the prompt the cache holds (a prefix hit starts it past 0) and
+    ``generated`` is empty; from its first token on, ``generated`` holds
+    every output token of this admission and ``pos`` is where the last one's
+    K/V goes on the next decode step."""
 
-    __slots__ = ("request", "prompt_len", "max_total", "eos", "temperature",
-                 "generated", "pos", "first_token_at")
+    __slots__ = ("request", "prompt_tokens", "prompt_len", "max_total", "eos", "temperature",
+                 "admit_seq", "written", "generated", "pos")
 
-    def __init__(self, request: Request, prompt_len: int, max_total: int,
-                 eos: int | None, temperature: float, first_token: int):
+    def __init__(self, request: Request, toks: np.ndarray, max_len: int,
+                 eos: int | None, admit_seq: int):
         self.request = request
-        self.prompt_len = prompt_len
-        self.max_total = max_total
+        self.prompt_tokens = toks
+        self.prompt_len = int(toks.shape[0])
+        self.max_total = min(self.prompt_len + request.kw["max_new_tokens"], max_len)
         self.eos = eos
-        self.temperature = temperature
-        self.generated = [first_token]
-        self.pos = prompt_len
-        self.first_token_at = time.monotonic()
+        self.temperature = request.kw["temperature"]
+        self.admit_seq = admit_seq
+        self.written = 0
+        self.generated: list[int] = []
+        self.pos = self.prompt_len
 
 
 class GenerateEngine:
@@ -151,18 +172,23 @@ class GenerateEngine:
     the CPU) and must be the model's device. ``max_len`` caps prompt plus
     generation per request. ``kv_layout`` is ``"paged"`` (``page_size`` and
     ``total_pages`` size the pool; default: every slot can hold a
-    ``max_len`` request) or ``"slot"`` (``cache_len`` positions per slot).
+    ``max_len`` request; fewer pages serve the usual load and preempt under
+    a burst) or ``"slot"`` (``cache_len`` positions per slot).
     ``kv_quantize`` picks the cache's format: ``""`` the model's dtype,
     ``"int8"`` or, on the paged layout only, ``"int4"`` quantized rows with
-    bf16 scales (2x or 4x the positions in the same memory)."""
+    bf16 scales (2x or 4x the positions in the same memory).
+    ``prefill_buckets`` (default 16, 32, ... up to ``max_len``) are the
+    planner's length buckets; a prompt longer than the largest is prefilled
+    in chunks of that length. ``prefix_cache`` keeps full prompt pages for
+    later prompts that share them (paged layout only)."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
-                 slots: int = 8, max_len: int = 2048, max_prefill_batch: int = 4,
-                 decode_chunk: int = 8, eos_token_id: int | None = None, top_k: int = 0,
-                 top_p: float = 1.0, tokenizer: Any = None,
-                 default_timeout: float | None = None, seed: int = 0,
+                 slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
+                 max_prefill_batch: int = 4, decode_chunk: int = 8,
+                 eos_token_id: int | None = None, top_k: int = 0, top_p: float = 1.0,
+                 tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
                  page_size: int = 128, total_pages: int | None = None,
-                 kv_quantize: str = "", kv_layout: str = "paged"):
+                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged"):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -180,26 +206,38 @@ class GenerateEngine:
         self.decode_chunk = max(1, decode_chunk)
         # positions written in a chunk run up to max_len + decode_chunk - 2
         self.max_len = min(max_len, self.cfg.max_seq_len - self.decode_chunk)
+        self.prefill_buckets = (sorted(prefill_buckets) if prefill_buckets
+                                else pow2_buckets(16, self.max_len))
+        # a prompt past the largest bucket is prefilled this much per turn
+        self.prefill_chunk = self.prefill_buckets[-1]
         self.max_prefill_batch = max_prefill_batch
         self.eos_token_id = eos_token_id
         self.top_k, self.top_p = top_k, top_p
         self.tokenizer = tokenizer
         self.default_timeout = default_timeout
         self.kv_layout = kv_layout
+        self._prefix: PrefixCache | None = None
         if kv_layout == "paged":
             self.page_size = page_size
-            self.pages_per_slot = math.ceil(self.max_len / page_size)
+            # a decode chunk writes up to decode_chunk - 1 positions past
+            # max_len; the table covers them (engine.py:1201)
+            self.pages_per_slot = math.ceil((self.max_len + self.decode_chunk) / page_size)
             self.total_pages = total_pages or slots * self.pages_per_slot
             if self.total_pages < self.pages_per_slot:
                 raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
                                  f"{self.pages_per_slot}: one max-length request cannot fit")
             self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
             self._free_pages = list(range(self.total_pages))
+            # slots and the prefix cache hold shares of a page; it returns to
+            # the free list when its count reaches 0
+            self._page_refs = np.zeros(self.total_pages, np.int64)
             self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
             # OOB convention: unallocated entries point one past the pool
             self._table: np.ndarray | None = np.full((slots, self.pages_per_slot),
                                                      self.total_pages, np.int32)
             self._idle_position = 0
+            if prefix_cache:
+                self._prefix = PrefixCache(page_size)
         else:
             # a chunk never writes past the slot; a multiple of 128 where the
             # model allows it (engine.py:1321)
@@ -207,12 +245,20 @@ class GenerateEngine:
                                  self.cfg.max_seq_len)
             self.cache = make_pool(model, kv_quantize, slots, self.cache_len, "slot")
             self._table = None
-            # idle lanes write at and past the slot's end, where the append drops
+            # lanes that do not decode write at and past the slot's end,
+            # where the append drops (tpu/decode.py:309-315)
             self._idle_position = self.cache_len
         self.slots: list[_Slot | None] = [None] * slots
+        self._admit_seq = 0
+        # what admission did, for callers and the smoke run
+        self.counters = dict.fromkeys(COUNTERS, 0)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: queue.Queue[Request] = queue.Queue()
-        self._pending: list[tuple[Request, list[int]]] = []
+        # prompts that fit a bucket, and longer ones that chunk
+        self._pending: list[tuple[Request, np.ndarray]] = []
+        self._pending_long: list[tuple[Request, np.ndarray]] = []
+        # held by the device thread through each loop turn, and by the audits
+        self._state_lock = threading.Lock()
         self._stop = threading.Event()
         self._error: BaseException | None = None
         self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
@@ -235,7 +281,8 @@ class GenerateEngine:
     def generate(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
                  timeout: float | None = None, **kw: Any) -> dict:
         """Blocking generate: ``{"tokens", "text", "finish_reason", "ttft_s",
-        "decode_s"}``. Greedy when temperature is 0."""
+        "decode_s", "prefix_hit_tokens", "preemptions"}``. Greedy when
+        temperature is 0."""
         req = self.submit(prompt, max_new_tokens, temperature, timeout, **kw)
         return req.result(timeout if timeout is not None else self.default_timeout)
 
@@ -249,20 +296,74 @@ class GenerateEngine:
             raise RuntimeError("the slot layout has no pages")
         return len(self._free_pages)
 
+    def page_pool_stats(self) -> dict | None:
+        """The pool's pages by holder (engine.py:1938): free, held by slots
+        (a shared page once per slot), held by the prefix cache; occupancy
+        (the share not free) and fragmentation (the share of slot-held
+        positions no live sequence has written yet). None on the slot
+        layout."""
+        if self._table is None:
+            return None
+        with self._state_lock:
+            free = len(self._free_pages)
+            held = sum(len(p) for p in self._slot_pages)
+            cached = len(self._prefix) if self._prefix is not None else 0
+            live = sum(s.pos if s.generated else s.written for s in self.slots if s is not None)
+        covered = held * self.page_size
+        pool_bytes = sum(t.nbytes for t in vars(self.cache).values())
+        return {"total_pages": self.total_pages, "free_pages": free, "slot_pages": held,
+                "prefix_pages": cached, "page_bytes": pool_bytes // self.total_pages,
+                "pool_bytes": pool_bytes, "occupancy": 1.0 - free / self.total_pages,
+                "fragmentation": 1.0 - min(1.0, live / covered) if covered else 0.0}
+
+    def check_page_refs(self) -> None:
+        """Audit the pool's accounting (gofr_tpu/testutil.py:47-110, device
+        tier); raises AssertionError on the first breach. Each page's count
+        equals its holders (slot page lists and prefix-cache nodes), a page
+        is free exactly when its count is 0, the free list holds no page
+        twice, each table row lists its slot's pages with OOB entries past
+        them, and an empty slot holds no pages. No-op on the slot layout."""
+        if self._table is None:
+            return
+        with self._state_lock:
+            refs = np.zeros(self.total_pages, np.int64)
+            for pages in self._slot_pages:
+                np.add.at(refs, pages, 1)
+            if self._prefix is not None:
+                np.add.at(refs, self._prefix.pages(), 1)
+            _audit((refs == self._page_refs).all(),
+                   f"refcounts {self._page_refs.tolist()} differ from the holders {refs.tolist()}")
+            free = set(self._free_pages)
+            _audit(len(free) == len(self._free_pages), "the free list holds a page twice")
+            for p in range(self.total_pages):
+                _audit((p in free) == (refs[p] == 0), f"page {p}: free and held disagree")
+            for i, pages in enumerate(self._slot_pages):
+                row = self._table[i]
+                _audit(list(row[:len(pages)]) == pages,
+                       f"slot {i}: table row differs from its pages")
+                _audit(bool((row[len(pages):] == self.total_pages).all()),
+                       f"slot {i}: table entries past its pages are not OOB")
+                _audit(self.slots[i] is not None or not pages, f"empty slot {i} holds pages")
+
     # -- device thread ---------------------------------------------------------
 
     def _run(self) -> None:
+        """The loop keeps the JAX order (engine.py:3338-3361): admit, then one
+        chunk of one long prompt, then one decode chunk, so decode keeps
+        stepping between the chunks of a long prompt."""
         try:
             while not self._stop.is_set():
-                self._drain()
-                admitted = self._admit()
-                if any(s is not None for s in self.slots):
-                    self._decode()
-                elif not admitted:
+                with self._state_lock:
+                    busy = self._admit()
+                    busy = self._advance_chunked() or busy
+                    busy = self._decode() or busy
+                if not busy:
                     try:
-                        self._accept(self._queue.get(timeout=0.05))
+                        req = self._queue.get(timeout=0.05)
                     except queue.Empty:
-                        pass
+                        continue
+                    with self._state_lock:
+                        self._accept(req)
         except Exception as e:  # noqa: BLE001 - the loop's boundary: fail every waiter
             log.exception("generate engine loop crashed")
             self._error = e
@@ -273,39 +374,46 @@ class GenerateEngine:
             if s is not None:
                 s.request.complete(error=error)
                 self._free_slot(i)
-        for req, _ in self._pending:
+        for req, _ in self._pending + self._pending_long:
             req.complete(error=error)
-        self._pending = []
+        self._pending, self._pending_long = [], []
         while True:
             try:
                 self._queue.get_nowait().complete(error=error)
             except queue.Empty:
                 break
 
-    def _encode(self, inputs: Any) -> list[int]:
+    def _encode(self, inputs: Any) -> np.ndarray:
         if isinstance(inputs, str):
             if self.tokenizer is None:
                 raise ValueError("string prompt but the engine has no tokenizer")
-            return list(self.tokenizer.encode(inputs))
-        return [int(t) for t in np.asarray(inputs).reshape(-1)]
+            inputs = self.tokenizer.encode(inputs)
+        return np.asarray(inputs, dtype=np.int64).reshape(-1)
 
     def _accept(self, req: Request) -> None:
-        """Move a queued request to the pending list, or complete it with the
-        error its prompt raises."""
+        """Move a queued request to the pending list (or, when longer than
+        the largest bucket, the chunked one; engine.py:3390), or complete it
+        with the error its prompt raises."""
         try:
             toks = self._encode(req.inputs)
-            if not toks:
+            if not toks.shape[0]:
                 raise ValueError("prompt must be a non-empty token sequence")
-            if len(toks) >= self.max_len:
-                raise ValueError(f"prompt length {len(toks)} >= engine max_len {self.max_len}")
-            if min(toks) < 0 or max(toks) >= self.cfg.vocab_size:
+            if toks.shape[0] >= self.max_len:
+                raise ValueError(f"prompt length {toks.shape[0]} >= engine max_len {self.max_len}")
+            if toks.min() < 0 or toks.max() >= self.cfg.vocab_size:
                 raise ValueError(f"prompt token outside [0, {self.cfg.vocab_size})")
             if req.kw["max_new_tokens"] < 1:
                 raise ValueError("max_new_tokens must be >= 1")
         except ValueError as e:
             req.complete(error=e)
             return
-        self._pending.append((req, toks))
+        self._enqueue(req, toks)
+
+    def _enqueue(self, req: Request, toks: np.ndarray) -> None:
+        if toks.shape[0] > self.prefill_buckets[-1]:
+            self._pending_long.append((req, toks))
+        else:
+            self._pending.append((req, toks))
 
     def _drain(self) -> None:
         while True:
@@ -314,85 +422,226 @@ class GenerateEngine:
             except queue.Empty:
                 return
 
-    def _admit(self) -> bool:
-        """Prefill as many pending requests as slots, pages (on the paged
-        layout) and the batch cap allow, in arrival order. Returns whether
-        any were admitted."""
-        batch: list[tuple[int, Request, list[int], int]] = []
-        while self._pending and len(batch) < self.max_prefill_batch:
-            req, toks = self._pending[0]
-            if req.cancelled or req.expired(time.monotonic()):
-                self._pending.pop(0)
-                req.complete(error=RequestTimeout() if req.expired(time.monotonic())
-                             else RequestCancelled(req.cancel_reason))
-                continue
-            free = [i for i, s in enumerate(self.slots)
-                    if s is None and i not in {b[0] for b in batch}]
-            max_total = min(len(toks) + req.kw["max_new_tokens"], self.max_len)
-            if not free:
-                break
-            idx = free[0]
-            if self._table is not None:
-                need = math.ceil(max_total / self.page_size)
-                if need > len(self._free_pages):
-                    break
-                pages, self._free_pages = self._free_pages[:need], self._free_pages[need:]
-                self._slot_pages[idx] = pages
-                self._table[idx, :need] = pages
-            self._pending.pop(0)
-            batch.append((idx, req, toks, max_total))
-        if not batch:
+    @staticmethod
+    def _dropped(req: Request, now: float) -> bool:
+        """Complete a cancelled or expired request with its error; returns
+        whether it was."""
+        if req.expired(now):
+            req.complete(error=RequestTimeout(f"request {req.id} timed out"))
+        elif req.cancelled:
+            req.complete(error=RequestCancelled(req.cancel_reason))
+        else:
             return False
+        return True
 
-        width = max(len(toks) for _, _, toks, _ in batch)
-        tokens = np.zeros((len(batch), width), np.int64)
-        for row, (_, _, toks, _) in enumerate(batch):
-            tokens[row, :len(toks)] = toks
-        temps = [req.kw["temperature"] for _, req, _, _ in batch]
-        idxs = np.array([idx for idx, *_ in batch], np.int64)
+    def _free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _claim(self, idx: int, req: Request, toks: np.ndarray) -> _Slot:
+        slot = _Slot(req, toks, self.max_len, req.kw.get("eos_token_id", self.eos_token_id),
+                     self._admit_seq)
+        self._admit_seq += 1
+        self.slots[idx] = slot
+        return slot
+
+    # -- admission (engine.py:3390-3832) -----------------------------------------
+
+    def _admit(self) -> bool:
+        """One admission round: drain the queue, claim slots for waiting long
+        prompts, then plan and run one batched prefill. Returns whether a
+        slot was claimed."""
+        self._drain()
+        claimed = self._admit_long()
+        return self._admit_prefill() or claimed
+
+    def _admit_long(self) -> bool:
+        """Claim a free slot for each waiting long prompt, with its prefix
+        hit (engine.py:3424). No device work: ``_advance_chunked`` streams
+        the prompt into the cache one chunk per loop turn."""
+        claimed = False
+        while self._pending_long and None in self.slots:
+            req, toks = self._pending_long.pop(0)
+            if self._dropped(req, time.monotonic()):
+                continue
+            idx = self._free_slots()[0]
+            self._prefix_hit(idx, self._claim(idx, req, toks), toks)
+            claimed = True
+        return claimed
+
+    def _admit_prefill(self) -> bool:
+        """Plan, claim and prefill one batch (engine.py:3624-3832).
+
+        ``plan_prefill`` picks the batch over the pending prompts' lengths
+        and deadlines (EDF, bucket affinity); expired requests fail. A prompt
+        whose prefix hit covers at least half of it takes the chunked path,
+        which prefills only the rest. On the paged layout each remaining
+        prompt needs pages for its prompt now; when the leader cannot get
+        them, admission stops and the rest wait, so later arrivals cannot
+        starve it. The batch is padded to its longest chosen prompt, not to
+        the plan's length bucket: the bucket bounds XLA's compile cache,
+        and eager PyTorch has none; the chosen set is the reference's."""
+        if not self._pending:
+            return False
+        now = time.monotonic()
+        self._pending = [(r, t) for r, t in self._pending if not (r.cancelled and
+                                                                  self._dropped(r, now))]
+        free = self._free_slots()
+        plan = plan_prefill([t.shape[0] for _, t in self._pending],
+                            [int(r.deadline * 1e6) if r.deadline else 0 for r, _ in self._pending],
+                            int(now * 1e6), len(free), self.max_prefill_batch,
+                            self.prefill_buckets)
+        for i in plan.expired:
+            self._pending[i][0].complete(error=RequestTimeout("deadline passed before admission"))
+        ready = [self._pending[i] for i in plan.chosen]
+        taken = set(plan.chosen) | set(plan.expired)
+        self._pending = [p for i, p in enumerate(self._pending) if i not in taken]
+
+        claimed = False
+        if self._prefix is not None:
+            still = []
+            for req, toks in ready:
+                chain = self._usable_hit(toks)
+                if 2 * len(chain) * self.page_size >= toks.shape[0]:
+                    idx = self._free_slots()[0]
+                    self._prefix_hit(idx, self._claim(idx, req, toks), toks, chain)
+                    claimed = True
+                else:
+                    still.append((req, toks))
+            ready = still
+            free = self._free_slots()
+        if self._table is not None:
+            admitted, exhausted = [], False
+            for req, toks in ready:
+                if not exhausted and self._ensure_pages(free[len(admitted)], toks.shape[0] - 1):
+                    admitted.append((req, toks))
+                else:
+                    exhausted = True
+                    self._pending.append((req, toks))
+            ready = admitted
+        if not ready:
+            return claimed
+        if self._prefix is not None:
+            # a batched admission serves nothing from the cache
+            self.counters["prefix_lookups"] += len(ready)
+            self.counters["prefix_misses"] += len(ready)
+
+        rows = free[:len(ready)]
+        batch = [(idx, self._claim(idx, req, toks)) for idx, (req, toks) in zip(rows, ready)]
+        tokens = np.zeros((len(batch), max(s.prompt_len for _, s in batch)), np.int64)
+        for row, (_, s) in enumerate(batch):
+            tokens[row, :s.prompt_len] = s.prompt_tokens
+        temps = [s.temperature for _, s in batch]
+        idxs = np.array(rows, np.int64)
         first = prefill_sample(
             self.model, self.cache, self._to_device(tokens),
-            self._to_device(np.array([len(t) for _, _, t, _ in batch], np.int64)),
+            self._to_device(np.array([s.prompt_len for _, s in batch], np.int64)),
             self._to_device(idxs if self._table is None else self._table[idxs]),
             self._to_device(np.array(temps, np.float32)), self._generator,
             top_k=self.top_k, top_p=self.top_p, do_sample=max(temps) > 0,
         ).tolist()
-        for (idx, req, toks, max_total), tok in zip(batch, first):
-            self.slots[idx] = _Slot(req, len(toks), max_total,
-                                    req.kw.get("eos_token_id", self.eos_token_id),
-                                    req.kw["temperature"], int(tok))
-            self._maybe_finish(idx)
+        for (idx, s), tok in zip(batch, first):
+            self._activate_lane(idx, s, int(tok))
         return True
 
-    def _decode(self) -> None:
+    def _advance_chunked(self) -> bool:
+        """Prefill the next chunk of the oldest-admitted prefilling slot
+        (engine.py:3467 and its fold :3522, in one synchronous step): pages
+        for the chunk first, preempting newer slots if the pool is short;
+        the last chunk samples the first token and starts the slot
+        decoding. Returns whether a slot changed."""
+        pre = [i for i, s in enumerate(self.slots) if s is not None and s.written < s.prompt_len]
+        if not pre:
+            return False
+        idx = min(pre, key=lambda i: self.slots[i].admit_seq)
+        s = self.slots[idx]
+        if self._dropped(s.request, time.monotonic()):
+            self._free_slot(idx)
+            return True
+        offset = s.written
+        chunk = min(s.prompt_len - offset, self.prefill_chunk)
+        if self._table is not None:
+            while not self._ensure_pages(idx, offset + chunk - 1):
+                if not self._preempt_newest(except_slot=idx):
+                    self._free_slot(idx)
+                    s.request.complete(error=RuntimeError(
+                        "KV page pool exhausted for a single request"))
+                    return True
+            rows = self._table[idx:idx + 1]
+        else:
+            rows = np.array([idx], np.int64)
+        last = offset + chunk == s.prompt_len
+        tok = prefill_chunk(
+            self.model, self.cache, self._to_device(s.prompt_tokens[None, offset:offset + chunk]),
+            self._to_device(np.array([offset], np.int64)), self._to_device(rows),
+            self._to_device(np.array([s.temperature], np.float32)), self._generator, last,
+            top_k=self.top_k, top_p=self.top_p, do_sample=s.temperature > 0)
+        s.written += chunk
+        self.counters["prefill_chunks"] += 1
+        self.counters["prefill_chunks_at_offset"] += offset > 0
+        if last:
+            self._activate_lane(idx, s, int(tok.item()))
+        return True
+
+    def _activate_lane(self, idx: int, s: _Slot, tok: int) -> None:
+        """The slot's prompt is in the cache: give it its first token, keep
+        its full prompt pages in the prefix cache, and start it decoding
+        (engine.py:3042)."""
+        s.written = s.prompt_len
+        s.generated = [tok]
+        s.pos = s.prompt_len
+        # a preempted request keeps the time of its first token
+        s.request.kw.setdefault("_first_token_at", time.monotonic())
+        self._prefix_insert(idx)
+        self._maybe_finish(idx)
+
+    # -- decode (tpu/decode.py:265-340) -------------------------------------------
+
+    def _decode(self) -> bool:
+        """One decode chunk over every decoding slot. On the paged layout each
+        lane first gets pages for the chunk's writes, preempting newer slots
+        if the pool is short, and the table goes out with every other row
+        OOB: a slot mid-chunked-prefill owns real pages that an idle lane's
+        write at position 0 would corrupt. Returns whether a slot changed."""
         now = time.monotonic()
+        changed = False
         for i, s in enumerate(self.slots):
-            if s is not None and (s.request.cancelled or s.request.expired(now)):
-                s.request.complete(error=RequestTimeout() if s.request.expired(now)
-                                   else RequestCancelled(s.request.cancel_reason))
+            if s is not None and self._dropped(s.request, now):
                 self._free_slot(i)
-        active = [i for i, s in enumerate(self.slots) if s is not None]
-        if not active:
-            return
+                changed = True
+        lanes = [(i, s) for i, s in enumerate(self.slots) if s is not None and s.generated]
+        if self._table is not None:
+            for i, s in lanes:
+                self._alloc_lane_pages(i, s, s.pos + self.decode_chunk - 1)
+            changed = changed or any(self.slots[i] is not s for i, s in lanes)
+            lanes = [(i, s) for i, s in lanes if self.slots[i] is s]
+        if not lanes:
+            return changed
         tokens = np.zeros(self.num_slots, np.int64)
         positions = np.full(self.num_slots, self._idle_position, np.int64)
         temps = np.zeros(self.num_slots, np.float32)
-        for i in active:
-            s = self.slots[i]
+        for i, s in lanes:
             tokens[i], positions[i], temps[i] = s.generated[-1], s.pos, s.temperature
         out = decode_chunk(
             self.model, self.cache, self._to_device(tokens), self._to_device(positions),
-            None if self._table is None else self._to_device(self._table),
+            None if self._table is None else self._to_device(self._masked_table(lanes)),
             self._to_device(temps), self.decode_chunk,
             self._generator, top_k=self.top_k, top_p=self.top_p, do_sample=bool(temps.max() > 0),
         ).cpu().numpy()
-        for i in active:
-            s = self.slots[i]
+        for i, s in lanes:
             for tok in out[i]:
                 s.generated.append(int(tok))
                 s.pos += 1
                 if self._maybe_finish(i):
                     break
+        return True
+
+    def _masked_table(self, lanes: list[tuple[int, _Slot]]) -> np.ndarray:
+        """The block table with every row but the decoding lanes' all OOB
+        (engine.py:2966)."""
+        table = np.full_like(self._table, self.total_pages)
+        live = [i for i, _ in lanes]
+        table[live] = self._table[live]
+        return table
 
     def _maybe_finish(self, idx: int) -> bool:
         s = self.slots[idx]
@@ -404,24 +653,158 @@ class GenerateEngine:
             return False
         now = time.monotonic()
         self._free_slot(idx)
+        kw = s.request.kw
+        # tokens generated before a preemption lead the result (engine.py:3920)
+        tokens = list(kw.get("_prior_tokens", [])) + tokens
         s.request.complete(result={
             "tokens": tokens,
             "text": self.tokenizer.decode(tokens) if self.tokenizer is not None else None,
             "finish_reason": finish,
-            "ttft_s": s.first_token_at - s.request.enqueued_at,
-            "decode_s": now - s.first_token_at,
+            "ttft_s": kw["_first_token_at"] - s.request.enqueued_at,
+            "decode_s": now - kw["_first_token_at"],
+            "prefix_hit_tokens": kw.get("_prefix_hit_tokens", 0),
+            "preemptions": kw.get("_preemptions", 0),
         })
         return True
 
+    # -- pages (engine.py:2658-3022) -------------------------------------------
+
+    def _ref_page(self, p: int) -> None:
+        self._page_refs[p] += 1
+
+    def _unref_page(self, p: int) -> None:
+        self._page_refs[p] -= 1
+        if self._page_refs[p] == 0:
+            self._free_pages.append(p)
+
     def _free_slot(self, idx: int) -> None:
+        """Vacate a slot; on the paged layout it gives up its share of each
+        page (a page the prefix cache or another slot holds stays)."""
         if self._table is not None:
-            self._free_pages.extend(self._slot_pages[idx])
-            self._slot_pages[idx] = []
+            pages, self._slot_pages[idx] = self._slot_pages[idx], []
             self._table[idx] = self.total_pages
+            for p in pages:
+                self._unref_page(p)
         self.slots[idx] = None
 
+    def _evict_prefix_page(self) -> bool:
+        """Evict least-recently-used prefix-cache leaves until a page lands on
+        the free list (an evicted page a slot still holds frees nothing);
+        False when the cache runs out first (engine.py:2752, without the
+        host tier's spill)."""
+        if self._prefix is None:
+            return False
+        while not self._free_pages:
+            p = self._prefix.evict_lru()
+            if p is None:
+                break
+            self.counters["prefix_evicted_pages"] += 1
+            self._unref_page(p)
+        return bool(self._free_pages)
+
+    def _ensure_pages(self, idx: int, upto_pos: int) -> bool:
+        """Grow slot ``idx``'s table until it covers position ``upto_pos``;
+        False when the pool runs out, after giving back the pages this call
+        took, so a slot left unclaimed strands none (engine.py:2794)."""
+        need = upto_pos // self.page_size + 1
+        cur = self._slot_pages[idx]
+        added = 0
+        while len(cur) < need:
+            if not self._free_pages and not self._evict_prefix_page():
+                for _ in range(added):
+                    p = cur.pop()
+                    self._table[idx, len(cur)] = self.total_pages
+                    self._unref_page(p)
+                return False
+            p = self._free_pages.pop()
+            self._page_refs[p] = 1
+            self._table[idx, len(cur)] = p
+            cur.append(p)
+            added += 1
+        return True
+
+    def _alloc_lane_pages(self, idx: int, s: _Slot, upto_pos: int) -> None:
+        """Grow a decoding lane's table to cover ``upto_pos``, preempting the
+        newest other slot while the pool is short (engine.py:2926)."""
+        if self.slots[idx] is not s:
+            return  # preempted by an earlier lane's growth
+        while not self._ensure_pages(idx, upto_pos):
+            if not self._preempt_newest(except_slot=idx):
+                self._free_slot(idx)
+                s.request.complete(error=RuntimeError("KV page pool exhausted for a single request"))
+                return
+
+    def _preempt_newest(self, except_slot: int | None = None) -> bool:
+        """Free the most recently admitted slot other than ``except_slot``,
+        decoding or prefilling (LIFO keeps nearly done requests running), and
+        requeue its request with what it generated folded into its prompt:
+        preemption by recompute (engine.py:2977). Greedy decoding resumes
+        where it stopped."""
+        candidates = [(s.admit_seq, i) for i, s in enumerate(self.slots)
+                      if s is not None and i != except_slot]
+        if not candidates:
+            return False
+        _, idx = max(candidates)
+        s = self.slots[idx]
+        self._free_slot(idx)
+        kw = s.request.kw
+        kw["_preemptions"] = kw.get("_preemptions", 0) + 1
+        kw["_prior_tokens"] = list(kw.get("_prior_tokens", [])) + s.generated
+        kw["max_new_tokens"] = max(1, kw["max_new_tokens"] - len(s.generated))
+        self._enqueue(s.request, np.concatenate([s.prompt_tokens,
+                                                 np.asarray(s.generated, np.int64)]))
+        self.counters["preemptions"] += 1
+        return True
+
+    # -- the prefix cache, device tier (engine.py:2817-2924) ------------------------
+
+    def _usable_hit(self, toks: np.ndarray) -> list:
+        """The cached chain covering a prefix of ``toks``, capped below the
+        prompt's length so its last token's logits are recomputed."""
+        if self._prefix is None:
+            return []
+        chain = self._prefix.lookup_tiered(toks)
+        return chain[:(toks.shape[0] - 1) // self.page_size]
+
+    def _prefix_hit(self, idx: int, slot: _Slot, toks: np.ndarray,
+                    chain: list | None = None) -> None:
+        """Splice the cached prefix of ``toks`` into a freshly claimed slot's
+        table, taking a share of each page; its prefill starts after it."""
+        if self._prefix is None:
+            return
+        self.counters["prefix_lookups"] += 1
+        if chain is None:
+            chain = self._usable_hit(toks)
+        if not chain:
+            self.counters["prefix_misses"] += 1
+            return
+        pages = [node.page_id for _, node in chain]
+        for p in pages:
+            self._ref_page(p)
+        self._slot_pages[idx] = pages
+        self._table[idx, :len(pages)] = pages
+        slot.written = len(pages) * self.page_size
+        self.counters["prefix_hit_tokens"] += slot.written
+        kw = slot.request.kw
+        kw["_prefix_hit_tokens"] = kw.get("_prefix_hit_tokens", 0) + slot.written
+
+    def _prefix_insert(self, idx: int) -> None:
+        """Keep the full prompt pages of a slot that just finished its
+        prefill; the cache takes a share of each page it did not hold."""
+        s = self.slots[idx]
+        if self._prefix is None or s is None:
+            return
+        n_full = s.prompt_len // self.page_size
+        for p in self._prefix.insert(s.prompt_tokens, self._slot_pages[idx][:n_full]):
+            self._ref_page(p)
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device, non_blocking=False)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=False)
+
+
+def _audit(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(f"page pool audit: {msg}")
 
 
 _PRESETS = {"llama3_8b": LlamaConfig.llama3_8b, "one_b": LlamaConfig.one_b,

@@ -7,6 +7,9 @@ take tensors, run eagerly, and hand back only sampled token ids.
 
 - ``prefill_sample``: a batched whole-prompt prefill, then the first token
   of each row (programs.py ``_prefill_sample``).
+- ``prefill_chunk``: one chunk of a long (or prefix-hit) prompt written at
+  its offsets, attending to everything the cache holds before it, and the
+  first token only after the last chunk (programs.py ``_chunk_prefill``).
 - ``decode_chunk``: ``steps`` decode steps over every slot with sampling
   fused in, the next step's input being the previous step's output on the
   device (programs.py ``_decode_chunk``). The host reads ``[slots, steps]``
@@ -34,6 +37,23 @@ def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
     logits, _ = model.prefill(tokens, lengths, cache, rows)
     return sample_token(logits, generator, temperature=temps, top_k=top_k,
                         top_p=top_p, do_sample=do_sample)
+
+
+def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+                  offsets: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
+                  generator: torch.Generator | None, last: bool, *, top_k: int = 0,
+                  top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor | None:
+    """tokens [B, S] of one chunk per row (every row S live tokens) written
+    at positions ``offsets`` [B] .. + S through ``rows`` (slot ids [B], or
+    block-table rows [B, MaxP]) → the sampled token per row [B] int32 when
+    ``last`` (the chunk ends the prompt), else None."""
+    lengths = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.long,
+                         device=tokens.device)
+    logits, _ = model.prefill(tokens, lengths, cache, rows, offsets)
+    if not last:
+        return None
+    return sample_token(logits, generator, temperature=temps, top_k=top_k, top_p=top_p,
+                        do_sample=do_sample)
 
 
 def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,

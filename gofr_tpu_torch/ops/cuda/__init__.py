@@ -176,3 +176,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["flash_attention"].offset_launches = 0

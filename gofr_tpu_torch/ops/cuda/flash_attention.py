@@ -67,7 +67,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             out.data_ptr(), b, sq, skv, hq, hkv, int(causal), scale, cuda.stream_of(q))
     cuda.check(rc, "flash_attention")
     flash_attention.launches += 1
+    # chunked prefill passes its offsets as a tensor, whole prompts as 0
+    flash_attention.offset_launches += not isinstance(q_offset, int)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0  # of those, launches with per-row offsets

@@ -106,8 +106,8 @@ def _prompt_targets(slots: torch.Tensor, b: int, s: int, num_slots: int, smax: i
     return row, pos, src[row, pos]
 
 
-def _write_rows(layer: torch.Tensor, row: torch.Tensor, pos: torch.Tensor,
-                source: torch.Tensor, new: torch.Tensor) -> None:
+def write_rows(layer: torch.Tensor, row: torch.Tensor, pos: torch.Tensor,
+               source: torch.Tensor, new: torch.Tensor) -> None:
     """layer[row, :, pos] = new[source] where source >= 0, else what is
     there; ``new`` is [M, Hkv, ...] in the layer's dtype."""
     old = layer[row, :, pos]
@@ -140,7 +140,7 @@ def write_prompts(k_layer: torch.Tensor, v_layer: torch.Tensor, slots: torch.Ten
     b, s = k_new.shape[:2]
     row, pos, source = _prompt_targets(slots, b, s, k_layer.shape[0], k_layer.shape[2], offsets)
     for layer, new in ((k_layer, k_new), (v_layer, v_new)):
-        _write_rows(layer, row, pos, source, new.reshape(b * s, *new.shape[2:]).to(layer.dtype))
+        write_rows(layer, row, pos, source, new.reshape(b * s, *new.shape[2:]).to(layer.dtype))
     return k_layer, v_layer
 
 
@@ -173,8 +173,8 @@ def write_prompts_q(cache_q: torch.Tensor, cache_s: torch.Tensor, slots: torch.T
     b, s = new.shape[:2]
     q, sc = quantize_row(new)
     row, pos, source = _prompt_targets(slots, b, s, cache_q.shape[0], cache_q.shape[2], offsets)
-    _write_rows(cache_q, row, pos, source, q.reshape(b * s, *q.shape[2:]))
-    _write_rows(cache_s, row, pos, source, sc.reshape(b * s, -1).to(cache_s.dtype))
+    write_rows(cache_q, row, pos, source, q.reshape(b * s, *q.shape[2:]))
+    write_rows(cache_s, row, pos, source, sc.reshape(b * s, -1).to(cache_s.dtype))
     return cache_q, cache_s
 
 

@@ -21,7 +21,9 @@ kv_append_q`` / ``kv_append_q4``, which the TPU ran as XLA), bit-exact
 against those plain appends and free of host syncs. Each pool class
 carries its format's per-layer operations (``write``, ``append``,
 ``stored``, ``read``, ``planes``), so the model never branches on the
-format.
+format. The prompt writes make no host sync on any format: they drop OOB
+rows by the slot cache's source map (``_prompt_targets``), not by a
+boolean-mask index.
 
 Unlike the JAX package, whose arrays are immutable, the port writes the
 pool IN PLACE: a layer slice ``cache.k[l]`` is a view, and the write paths
@@ -37,7 +39,7 @@ from typing import ClassVar
 import torch
 
 from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_q, kv_append_q4
-from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row, quantize_row
+from gofr_tpu_torch.ops.kvcache import dequantize_view, fake_quant_row, quantize_row, write_rows
 from gofr_tpu_torch.ops.quant import fake_quant_row_int4, pack_int4, quantize_row_int4, unpack_int4
 
 
@@ -179,14 +181,24 @@ def _locate(pages: torch.Tensor, pos: torch.Tensor, page: int) -> tuple[torch.Te
 
 def _prompt_targets(pages: torch.Tensor, b: int, s: int, pool: int, page: int,
                     offsets: torch.Tensor | None):
-    """Where prompt rows [B, S] land: (keep [B, S], page, in-page offset of
-    each kept row). Rows whose page is P are dropped (paged.py:495)."""
+    """Where prompt rows [B, S] land: (page [B, S], in-page offset [B, S],
+    source [B, S]), where source is the flat index b * S + s of the prompt
+    row that location ends the call holding, or -1 if it keeps its own.
+    Rows whose page is not a pool page (P, the OOB entry) are dropped
+    (paged.py:495) without a host sync, as the slot cache drops them
+    (``ops.kvcache._prompt_targets``): each is aimed at its clamped location,
+    whose source names the row a kept write puts there, if any, so every
+    write to one location carries the same value."""
     pos = torch.arange(s, device=pages.device)[None, :].expand(b, s)
     if offsets is not None:
-        pos = pos + offsets[:, None]
+        pos = pos + offsets.long()[:, None]
     pp, off = _locate(pages.long(), pos.long(), page)
-    keep = pp < pool
-    return keep, pp[keep], off[keep]
+    keep = (pp >= 0) & (pp < pool)
+    # one spare page takes the dropped rows' writes
+    src = torch.full((pool + 1, page), -1, dtype=torch.long, device=pages.device)
+    src[torch.where(keep, pp, pool), off] = torch.arange(b * s, device=pages.device).view(b, s)
+    pp = pp.clamp(0, pool - 1)
+    return pp, off, src[pp, off]
 
 
 def _append_targets(table: torch.Tensor, positions: torch.Tensor, pool: int, page: int):
@@ -221,9 +233,10 @@ def write_prompts_paged(k_layer: torch.Tensor, v_layer: torch.Tensor, pages: tor
     block-table rows ``pages`` [B, MaxP] into a layer slice [P, Hkv, page, D],
     in place. Rows whose page is P are dropped (paged.py:495)."""
     pool, _, page, _ = k_layer.shape
-    keep, rows, offs = _prompt_targets(pages, *k_new.shape[:2], pool, page, offsets)
-    k_layer[rows, :, offs] = k_new[keep].to(k_layer.dtype)
-    v_layer[rows, :, offs] = v_new[keep].to(v_layer.dtype)
+    b, s = k_new.shape[:2]
+    rows, offs, source = _prompt_targets(pages, b, s, pool, page, offsets)
+    for layer, new in ((k_layer, k_new), (v_layer, v_new)):
+        write_rows(layer, rows, offs, source, new.reshape(b * s, *new.shape[2:]).to(layer.dtype))
     return k_layer, v_layer
 
 
@@ -263,9 +276,10 @@ def _write_quantized(cache_q: torch.Tensor, cache_s: torch.Tensor, pages: torch.
                      rows_q: torch.Tensor, rows_s: torch.Tensor,
                      offsets: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
     pool, _, page = cache_s.shape
-    keep, rows, offs = _prompt_targets(pages, *rows_q.shape[:2], pool, page, offsets)
-    cache_q[rows, :, offs] = rows_q[keep]
-    cache_s[rows, :, offs] = rows_s[keep].to(cache_s.dtype)
+    b, s = rows_q.shape[:2]
+    rows, offs, source = _prompt_targets(pages, b, s, pool, page, offsets)
+    write_rows(cache_q, rows, offs, source, rows_q.reshape(b * s, *rows_q.shape[2:]))
+    write_rows(cache_s, rows, offs, source, rows_s.reshape(b * s, -1).to(cache_s.dtype))
     return cache_q, cache_s
 
 

@@ -83,7 +83,11 @@ def test_concurrent_callers_match_sequential_and_free_every_page(weights):
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
         assert [r["tokens"] for r in results] == [seq[i % len(PROMPTS)] for i in range(10)]
-        assert eng.free_pages() == eng.total_pages
+        # every page is free but those the prefix cache keeps
+        stats = eng.page_pool_stats()
+        assert stats["slot_pages"] == 0
+        assert eng.free_pages() + stats["prefix_pages"] == eng.total_pages
+        eng.check_page_refs()
     finally:
         eng.stop()
 

@@ -359,7 +359,9 @@ def test_greedy_tokens_equal_the_jax_paged_engine(tiny, kind):
                          page_size=8, kv_quantize=kind)
     try:
         got = [r.result(timeout=120) for r in [eng.submit(p, max_new_tokens=7) for p in PROMPTS]]
-        assert eng.free_pages() == eng.total_pages
+        # every page is free but those the prefix cache keeps
+        assert eng.free_pages() + eng.page_pool_stats()["prefix_pages"] == eng.total_pages
+        eng.check_page_refs()
     finally:
         eng.stop()
     assert [g["tokens"] for g in got] == [w["tokens"] for w in want]

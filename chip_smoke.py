@@ -18,15 +18,16 @@ result line:
    2176 positions per slot, with a lane past the slot; lanes on and one
    past the split boundaries of the slot and paged decodes; 4 x 512
    and 4 x 1024 prefills, full and ragged, a chunk of 200 queries after
-   cached offsets and one of 512 at offset 512 (phase 4's chunk); the five
-   appends, bf16 and quantizing, on edge lanes: a position of -1, past the
-   table, through an OOB or negative entry, at and past Smax, an all-zero
-   row and a row whose max is one element): each held against its plain
-   PyTorch version on the same inputs (the appends bit for bit, values and
-   scales), timed with CUDA events and by device
-   time beside the plain version, a library yardstick where one PyTorch
-   call computes the same function, and the least time the card could take
-   (its bound);
+   cached offsets and one of 512 at offset 512 (phase 4's chunk), and the
+   verify forward of speculative decoding, 5 queries at each live slot's
+   length against 2176 keys; the five appends, bf16 and quantizing, on
+   edge lanes: a position of -1, past the table, through an OOB or
+   negative entry, at and past Smax, an all-zero row and a row whose max
+   is one element): each held against its plain PyTorch version on the
+   same inputs (the appends bit for bit, values and scales), timed with
+   CUDA events and by device time beside the plain version, a library
+   yardstick where one PyTorch call computes the same function, and the
+   least time the card could take (its bound);
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -35,7 +36,19 @@ result line:
    (``kv_layout="slot"``); every launch counter is set to 0 just before
    each run and read just after it, and each kernel of that cache's path
    (``ON_PATH``) must be > 0, the decode-step kernels equally often, and
-   every other kernel 0. Then ``paged_admission``: the same model on a
+   every other kernel 0. Then the speculative runs (``SPEC_RUNS``, g = 4)
+   on the same prompts: ``paged_spec``, prompt lookup on the bf16 pool,
+   must launch C alone (on verify rows once a layer a round), and
+   ``slot_spec_draft``, a draft of Llama-3-8B's widths cut to 2 layers on
+   the bf16 slot cache, C, F and G (the draft's steps); each prints its
+   accept rate, tokens per lane and verify forward, and the share of
+   requests whose tokens equal the plain run's on its cache with the logit
+   margins at the first differences, the share not held; at each first
+   difference the token the spec run chose must lie within ``SPEC_TIE_GAP``
+   of the top logit of a whole-sequence forward (a bf16 near tie, not a
+   wrong acceptance); one request of ``paged_spec`` is streamed, and its
+   ids must equal that request's own result. Then
+   ``paged_admission``: the same model on a
    bf16 pool of 40 pages (``ADMISSION``), where a warm request leaves a
    768-token system prefix in the prefix cache and a burst of 8 prompts
    that share it (896..1408 tokens, so all chunk) and 4 that do not must
@@ -43,17 +56,21 @@ result line:
    them, every request must end with 64 tokens, each of the 8 must be
    served 6 pages from the cache, and the pool's audit must pass. The
    share of requests whose tokens equal an unconstrained run's (no prefix
-   cache, no chunking, the full pool) is printed, not held;
+   cache, no chunking, the full pool) is printed with the margins, not held;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
    only, and with the kernels and the prompt prefilled in two chunks of
    128 (``PHASE5_RUNS``); the kernel runs' logits, the chunked one's too,
    must agree with the plain whole-prompt run's within the limits below,
-   and each step's error of every run is reported;
-6. no host sync: a prefill of two 128-token chunks and two ``decode_step``
-   steps on each cache inside ``torch.cuda.set_sync_debug_mode("error")``,
-   which raises on any call that makes the host wait on the card.
+   and each step's error of every run is reported; a ``verify_step`` of 5
+   tokens after the prompt, with the kernels, must agree with its plain
+   version within the same limits, and the plain verify with the plain
+   decode steps' logits within ``DECODE_RTOL``;
+6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
+   steps and one speculative round with a sampled lane on each cache
+   inside ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+   call that makes the host wait on the card.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -89,6 +106,11 @@ SEED = 0
 # flash kernel reads 60% there (PERF.md, scripts/torch_kernel_mutants.py).
 LOGITS_RTOL = {"": 5e-2, "int8": 5e-2, "int4": 1e-1}
 DECODE_RTOL = 5e-2
+# A spec run and the plain run round bf16 logits through different kernels
+# (C over a dense view against A/F), so a near tie can flip: at a first
+# difference the spec run's token must lie within four bf16 ulps of the top
+# logit (one ulp is 1/32 at |logit| in [4, 8), where these logits lie).
+SPEC_TIE_GAP = 0.125
 PHASE5_PROMPTS = 3
 
 
@@ -393,6 +415,35 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         lenc = torch.tensor([1024], device=dev, dtype=torch.int32)
         checks["chunk_512_at_512"] = flash_agree("chunk 512 at 512", qc, kc, vc, q_offset=offc,
                                                  kv_lengths=lenc)[0]
+        # speculative decoding's verify forward (Llama.verify_step, phase 4's
+        # paged_spec): g + 1 = 5 queries a lane at each of the 8 live lanes'
+        # lengths, against the dense view of its 17 pages (2176 keys)
+        nv, gp1, view = 8, 5, 17 * page
+        qv = torch.randn(nv, gp1, hq, d, device=dev, generator=gen).to(bf)
+        kv, vv = (torch.randn(nv, view, hkv, d, device=dev, generator=gen).to(bf) for _ in range(2))
+        offv = lengths[:nv].contiguous()
+        lenv = offv + gp1
+        checks["verify"] = flash_agree("verify", qv, kv, vv, q_offset=offv, kv_lengths=lenv)[0]
+        # bound: the keys each lane attends read once (K and V), q and out, and
+        # query i of a lane at length L attending L + i + 1 keys
+        live = c["lengths_cpu"][:nv].long()
+        keys, pairs = int((live + gp1).sum()), int((gp1 * live + gp1 * (gp1 + 1) // 2).sum())
+        b_ms_v, b_by_v = bound_ms(2 * 2 * qv.numel() + 2 * keys * hkv * d * 2 + 2 * nv * 4,
+                                  4 * hq * d * pairs)
+        # yardstick only: SDPA with the rows' causal mask as a bool mask and
+        # enable_gqa, on head-major views made outside the timed call
+        verify_mask = (torch.arange(view, device=dev)[None, None, :]
+                       <= (offv[:, None] + torch.arange(gp1, device=dev)[None, :])[:, :, None])
+        qvh, kvh, vvh = (t.transpose(1, 2) for t in (qv, kv, vv))
+        verify = {"shape": {"batch": nv, "queries": gp1, "offsets": offv.tolist(), "keys": view},
+                  "bound_ms": b_ms_v, "bound_by": b_by_v,
+                  **timing(lambda i: flash_attention(qv, kv, vv, causal=True, q_offset=offv,
+                                                     kv_lengths=lenv),
+                           lambda i: mha_attention_plain(qv, kv, vv, causal=True, q_offset=offv,
+                                                         kv_lengths=lenv),
+                           lambda i: F.scaled_dot_product_attention(
+                               qvh, kvh, vvh, attn_mask=verify_mask[:, None], enable_gqa=True),
+                           iters=50, plain_iters=5)}
         # query i at position 512 + i attends keys 0 .. 512 + i
         b_ms_c, b_by_c = bound_ms(2 * (2 * qc.numel() + 2 * kc.numel()),
                                   4 * hq * d * (512 * 513 + 512 * 511 // 2))
@@ -428,6 +479,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                      lambda i: mha_attention_plain(qf, kf, vf, causal=True), sdpa(qf, kf, vf),
                      iters=20, plain_iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long, "chunk_512_at_512": chunk,
+            "verify_5_at_live": verify,
             "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
 
@@ -746,6 +798,18 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            ("slot", ""): ("decode_attention", "kv_append_slot", "flash_attention"),
            ("slot", "int8"): ("kv_append_slot_q", "flash_attention")}
 PREFILL_KERNELS = ("flash_attention",)
+# Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
+# runs above and the prompts of the plain run on its cache: prompt lookup
+# on the bf16 pool, and a draft model on the bf16 slot cache, Llama-3-8B's
+# widths cut to ``DRAFT_LAYERS`` layers with random weights from seed 1.
+# The target's decode step gives way to one verify forward a round, C over
+# g + 1 queries a lane: the pool's A and B never launch; the draft's decode
+# steps launch F and G.
+SPEC_G = 4
+DRAFT_LAYERS = 2
+SPEC_RUNS = {"paged_spec": ("paged", ""), "slot_spec_draft": ("slot", "")}
+ON_PATH_SPEC = {"paged_spec": ("flash_attention",),
+                "slot_spec_draft": ("flash_attention", "decode_attention", "kv_append_slot")}
 
 
 def run_name(kv_layout: str, kv_quantize: str) -> str:
@@ -753,51 +817,104 @@ def run_name(kv_layout: str, kv_quantize: str) -> str:
     return pool if kv_layout == "paged" else f"slot_{pool}"
 
 
-def serve(torch, cuda, model=None, kv_quantize: str = "",
-          kv_layout: str = "paged") -> tuple[object, dict, dict]:
+def phase4_prompts(torch, vocab: int) -> list[list[int]]:
+    """The 8 prompts of phase 4's runs, 64..1024 tokens, from the seed."""
+    rng = torch.Generator().manual_seed(SEED)
+    lens = torch.randint(64, 1025, (8,), generator=rng).tolist()
+    return [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in lens]
+
+
+def token_agreement(torch, model, prompts, outs, want) -> dict:
+    """How a run's greedy tokens compare with another run's on the same
+    prompts: the share of requests whose tokens are equal, the index of each
+    request's first difference (None: equal), and there the top-2 margin of
+    the logits of one whole-sequence forward over the prompt and the other
+    run's tokens before it (bf16 runs that round differently flip a near
+    tie), with the gap between the two tokens the runs chose and how far
+    this run's token lies below the top logit."""
+    first = [next((j for j, (a, b) in enumerate(zip(o["tokens"], w["tokens"])) if a != b), None)
+             for o, w in zip(outs, want)]
+    margins = []
+    for p, o, w, j in zip(prompts, outs, want, first):
+        if j is None:
+            margins.append(None)
+            continue
+        seq = torch.tensor([p + w["tokens"][:j]], device="cuda")
+        logits = model.forward(seq)[0, -1]
+        top = logits.topk(2).values
+        margins.append({"top2_margin": (top[0] - top[1]).item(),
+                        "chosen_gap": (logits[w["tokens"][j]] - logits[o["tokens"][j]]).item(),
+                        "chosen_below_top1": (top[0] - logits[o["tokens"][j]]).item(),
+                        "top1": top[0].item()})
+        del logits
+    return {"tokens_equal": sum(j is None for j in first) / len(first), "first_difference": first,
+            "margin_at_first_difference": margins}
+
+
+def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "paged",
+          spec: str | None = None, draft=None) -> tuple[object, dict, dict, list]:
     """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
     cache ``kv_layout`` in the format ``kv_quantize``; a new model with
-    random weights from the seed, or ``model`` when given. Returns (engine,
-    launches, metrics)."""
+    random weights from the seed, or ``model`` when given. ``spec`` names a
+    run of ``SPEC_RUNS``: speculative decoding, with ``draft`` as its draft
+    model if given. Returns (engine, launches, metrics, the results)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 
     cfg = LlamaConfig.llama3_8b() if model is None else model.cfg
+    spec_kw = {} if spec is None else {"spec_tokens": SPEC_G}
+    if draft is not None:
+        spec_kw["spec_draft"] = (draft.cfg, draft)
     t0 = time.perf_counter()
     eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
                        max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize,
-                       kv_layout=kv_layout)
+                       kv_layout=kv_layout, **spec_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
     require(warm["finish_reason"] == "length", f"warm-up request: {warm}")
 
-    rng = torch.Generator().manual_seed(SEED)
-    lens = torch.randint(64, 1025, (8,), generator=rng).tolist()
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
+    prompts = phase4_prompts(torch, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
     torch.cuda.synchronize()
+    before = dict(eng.counters)
     cuda.reset_launch_counts()
     t_submit = time.monotonic()
     reqs = [eng.submit(p, max_new_tokens=64, temperature=0.0) for p in prompts]
     outs = [r.result(timeout=900) for r in reqs]
     torch.cuda.synchronize()
     t_done = time.monotonic()
-    counts = cuda.launch_counts()
-    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
+    did = {k: v - before[k] for k, v in eng.counters.items()}
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}" + (f" ({spec})" if spec else "")
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
                 f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                 f"{pool} request {i}: token out of range")
+    on_path = ON_PATH[kv_layout, kv_quantize] if spec is None else ON_PATH_SPEC[spec]
     for name, launches in counts.items():
-        if name in ON_PATH[kv_layout, kv_quantize]:
+        if name in on_path:
             require(launches > 0, f"kernel {name} was not launched on the {pool} cache's path")
         else:
             require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
                                    f"cache's path")
-    per_step = {counts[name] for name in ON_PATH[kv_layout, kv_quantize] if name not in PREFILL_KERNELS}
-    require(len(per_step) == 1 and per_step.pop() % cfg.num_layers == 0,
-            f"{pool} cache: the decode-step kernels' launches differ or are not whole steps: {counts}")
+    per_step = {counts[name] for name in on_path if name not in PREFILL_KERNELS}
+    if spec is None:
+        require(len(per_step) == 1 and per_step.pop() % cfg.num_layers == 0,
+                f"{pool} cache: the decode-step kernels' launches differ or are not whole steps: "
+                f"{counts}")
+    else:
+        # C on verify rows once a layer a round (no prompt here chunks), and
+        # the draft's F and G once a layer for each of its g + 1 steps a round
+        rounds = did["spec_rounds"]
+        require(did["prefill_chunks"] == 0 and rounds > 0 and
+                offset_launches == rounds * cfg.num_layers,
+                f"{pool}: C launched {offset_launches} times on verify rows for {rounds} rounds")
+        if draft is not None:
+            require(per_step == {rounds * (SPEC_G + 1) * draft.cfg.num_layers},
+                    f"{pool}: the draft's kernels launched {counts} for {rounds} rounds")
     from gofr_tpu_torch.ops.paged import kv_plane_bytes_per_position
 
     cache = eng.cache
@@ -824,7 +941,17 @@ def serve(torch, cuda, model=None, kv_quantize: str = "",
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "note": "smoke run, not a benchmark",
     }
-    return eng, counts, metrics
+    if spec is not None:
+        # one lane-round proposes g tokens and emits acc + 1
+        lane_rounds = did["spec_proposed"] / SPEC_G
+        metrics.update({
+            "spec_tokens": SPEC_G, "draft_layers": draft.cfg.num_layers if draft else None,
+            "spec": {k: v for k, v in did.items() if k.startswith("spec_")},
+            "verify_launches_of_c": offset_launches,
+            "accept_rate": did["spec_accepted"] / did["spec_proposed"],
+            "tokens_per_lane_verify": (did["spec_accepted"] + lane_rounds) / lane_rounds,
+        })
+    return eng, counts, metrics, outs
 
 
 # Phase 4's admission run: a pool too small for the burst unshared, so the
@@ -941,13 +1068,79 @@ def serve_admission(torch, cuda, model) -> dict:
         "prefill_chunks": did["prefill_chunks"],
         "chunk_launches_at_offset": did["prefill_chunks_at_offset"] * cfg.num_layers,
         "flash_offset_launches": offset_launches, "launches": counts, "pool_after": pool,
-        "tokens_equal_unconstrained": sum(o["tokens"] == f["tokens"]
-                                          for o, f in zip(outs, free_outs)) / len(outs),
-        # per request, the index of the first token that differs (None: equal)
-        "first_difference": [next((j for j, (a, b) in enumerate(zip(o["tokens"], f["tokens"]))
-                                   if a != b), None) for o, f in zip(outs, free_outs)],
+        # against the unconstrained run: the equal share, per request the
+        # index of the first token that differs (None: equal) and the margin
+        **{f"{k}_unconstrained" if k == "tokens_equal" else k: v
+           for k, v in token_agreement(torch, model, burst, outs, free_outs).items()},
         "note": "smoke run, not a benchmark",
     }
+
+
+def serve_spec(torch, cuda, model, results: dict) -> dict:
+    """Phase 4's speculative runs (``SPEC_RUNS``), each held to its
+    ``ON_PATH_SPEC`` and compared with the plain run on its cache: the
+    equal share and the margins at the first differences are printed, the
+    share not held (C over a dense view rounds otherwise than the decode
+    kernels); at each first difference the spec run's token must lie within
+    ``SPEC_TIE_GAP`` of the top logit. On the first, one request is also
+    streamed: its ids, joined, must equal that request's own result."""
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    out = {}
+    for name, (kv_layout, kv_quantize) in SPEC_RUNS.items():
+        draft = None
+        if name == "slot_spec_draft":
+            draft = init(LlamaConfig.llama3_8b(num_layers=DRAFT_LAYERS),
+                         torch.Generator(device="cuda").manual_seed(SEED + 1), "cuda")
+        eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, kv_layout, spec=name,
+                                           draft=draft)
+        if name == "paged_spec":
+            prompt = prompts[0][:128]
+            it = eng.generate(prompt, max_new_tokens=32, timeout=600, stream=True)
+            streamed = list(it)
+            whole = it.result()["tokens"]
+            require(streamed == whole and len(whole) == 32,
+                    f"{name}: the streamed ids {streamed} differ from the result {whole}")
+            metrics["stream"] = {"prompt_len": len(prompt), "tokens": len(whole),
+                                 "equal_to_result": True}
+        eng.stop()
+        del eng, draft
+        torch.cuda.empty_cache()
+        metrics.update(token_agreement(torch, model, prompts, outs, results[kv_layout, kv_quantize]))
+        metrics["compared_with"] = run_name(kv_layout, kv_quantize)
+        emit(f"phase4_serve_{name}", {**metrics, "launches": counts})
+        gaps = [m["chosen_below_top1"] for m in metrics["margin_at_first_difference"] if m]
+        require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+                f"{name}: at a first difference from the plain run the spec run chose a token "
+                f"{gaps} below the top logit (limit {SPEC_TIE_GAP})")
+        out[name] = {"metrics": metrics, "launches": counts}
+    return out
+
+
+def fresh_cache(torch, model, kv_quantize: str, kv_layout: str) -> tuple:
+    """(cache, prefill rows, decode table) of one lane of 512 positions: 4
+    pages of 128, or one slot."""
+    from gofr_tpu_torch.gpu.engine import make_pool
+
+    if kv_layout == "paged":
+        rows = table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+        return make_pool(model, kv_quantize, 4, 128), rows, table
+    rows = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return make_pool(model, kv_quantize, 1, 512, "slot"), rows, None
+
+
+def verify_logits(torch, model, kv_quantize: str, prompt, seq, kernels: bool,
+                  kv_layout: str):
+    """Logits [T, V] of one ``verify_step`` over ``seq`` (1 x T) right after
+    ``prompt`` was prefilled into a fresh cache, the kernels or their plain
+    versions in both."""
+    cache, rows, table = fresh_cache(torch, model, kv_quantize, kv_layout)
+    model.prefill(prompt, torch.tensor([prompt.shape[1]], device="cuda"), cache, rows,
+                  kernels=kernels)
+    logits, _ = model.verify_step(seq, torch.tensor([prompt.shape[1]], device="cuda"), cache,
+                                  table, kernels=kernels)
+    return logits[0]
 
 
 def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
@@ -961,14 +1154,7 @@ def model_steps(torch, model, kv_quantize: str, prompt, prefill_kernels: bool,
     tokens. Returns (logits, the tokens fed, the K/V the cache holds at the
     end as its read path returns them, f32 [L, 2, Hkv, written positions,
     D])."""
-    from gofr_tpu_torch.gpu.engine import make_pool
-
-    if kv_layout == "paged":
-        rows = table = torch.arange(4, dtype=torch.int32, device="cuda")[None]
-        cache = make_pool(model, kv_quantize, 4, 128)
-    else:
-        rows, table = torch.zeros(1, dtype=torch.int32, device="cuda"), None
-        cache = make_pool(model, kv_quantize, 1, 512, "slot")
+    cache, rows, table = fresh_cache(torch, model, kv_quantize, kv_layout)
     if chunks == 1:
         lengths = torch.tensor([prompt.shape[1]], device="cuda")
         logits, _ = model.prefill(prompt, lengths, cache, rows, kernels=prefill_kernels)
@@ -1001,17 +1187,21 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     go to lane 0's table row (or slot). Eight lanes decode with int64
     positions, as the engine hands them; the last lane is idle as the engine
     parks one (its table row all OOB at position 0 on the pool, at the
-    slot's end on the slot cache), so its writes drop. The chunks must
-    launch C once per layer each, the decode steps the decode kernels of
-    the cache's path once per layer and step, and the logits must be
-    finite."""
+    slot's end on the slot cache), so its writes drop. Then one
+    speculative round (``spec_chunk``, g = 4, prompt lookup in a random
+    history) over those lanes, lane 0 sampled with top-k and top-p. The
+    chunks must launch C once per layer each, the decode steps the decode
+    kernels of the cache's path once per layer and step, the round C on
+    verify rows once per layer and nothing else; the logits must be finite
+    and the round's tokens and accept counts in range."""
     from gofr_tpu_torch.gpu.engine import make_pool
+    from gofr_tpu_torch.gpu.programs import new_history, spec_chunk
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 
     n, page, pages = 8, 128, 4
     rng = torch.Generator().manual_seed(SEED + 4)
     tokens = torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).cuda()
-    positions = torch.randint(0, pages * page - 2, (n,), generator=rng)
+    positions = torch.randint(0, pages * page - 2 - 2 * SPEC_G, (n,), generator=rng)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
     if kv_layout == "paged":
         cache = make_pool(model, kv_quantize, n * pages, page)
@@ -1060,15 +1250,44 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
             logits, _ = model.decode_step(tokens, positions + step, cache, table)
         return logits
 
-    counts = unsynced(decode)
+    counts = counts_decode = unsynced(decode)
     decode_kernels = [k for k in ON_PATH[kv_layout, kv_quantize] if k not in PREFILL_KERNELS]
     require(all(counts[k] == steps * layers for k in decode_kernels)
             and sum(counts.values()) == steps * layers * len(decode_kernels),
             f"{pool}: decode_step did not go through its kernels once per layer: {counts}")
+
+    # one speculative round (prompt lookup in a random history) over the same
+    # lanes, the idle lane's history length past the history, lane 0
+    # sampled with top-k and top-p, the others greedy
+    width = pages * page
+    hist = new_history(n, width, "cuda")
+    hist[:, :width] = torch.randint(0, model.cfg.vocab_size, (n, width), generator=rng).cuda()
+    hlen = positions + 1
+    hlen[n - 1] = width + 1
+    temps = torch.zeros(n, device="cuda")
+    temps[0] = 0.8
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    emitted = []
+
+    def spec_round():
+        toks, accs = spec_chunk(model, cache, hist, tokens, hlen, table, temps, 1, SPEC_G, gen,
+                                top_k=50, top_p=0.95)
+        emitted.append((toks, accs))
+        return toks.float()
+
+    counts = unsynced(spec_round)
+    require(counts["flash_attention"] == flash_attention.offset_launches == layers
+            and sum(counts.values()) == layers,
+            f"{pool}: a spec round did not launch C on verify rows once per layer alone: {counts}")
+    toks, accs = (t.cpu() for t in emitted[0])
+    require(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all())
+            and bool(((accs >= 0) & (accs <= SPEC_G)).all()),
+            f"{pool}: a spec round emitted {toks.tolist()}, accepted {accs.tolist()}")
     return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "chunks": 2,
-            "steps": steps, "sync_debug_mode": "error",
+            "steps": steps, "spec_rounds": 1, "spec_sampled_lanes": 1, "sync_debug_mode": "error",
             "launches": {"flash_attention (chunks)": chunk_launches,
-                         **{k: counts[k] for k in decode_kernels}}}
+                         **{k: counts_decode[k] for k in decode_kernels},
+                         "flash_attention (verify)": counts["flash_attention"]}}
 
 
 # Phase 5's runs besides the plain one: (prefill kernels, decode kernels,
@@ -1085,17 +1304,20 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
     ``kv_layout`` of the format ``kv_quantize``: each of ``PHASE5_PROMPTS``
     prompts of 256 tokens through ``prefill`` and four ``decode_step`` steps
     with the plain versions, with the kernels, and with the kernels in one
-    half of the step only, every run fed the kernel run's greedy tokens.
+    half of the step only, every run fed the kernel run's greedy tokens;
+    and through ``prefill`` and one ``verify_step`` over five of those
+    tokens, with the kernels and with the plain versions.
     Reports, for each run and step, max |logits - plain logits| over max
     |plain logit|, and how the K/V stored by the kernel run differ from the
     plain run's (the share of elements that differ, and the RMS of the
     difference over the RMS of the stored values). With ``enforce``, the
-    kernel run's largest error must stay under the pool's limit, and the
-    decode-only run's under ``DECODE_RTOL``."""
+    kernel run's and the kernel verify's largest errors must stay under the
+    pool's limit, and the decode-only run's and the plain verify's against
+    the plain decode steps under ``DECODE_RTOL``."""
     pool = f"{kv_layout} {kv_quantize or 'bf16'}"
     rng = torch.Generator().manual_seed(SEED + 1)
     steps = {name: [] for name in PHASE5_RUNS}
-    agree, differ, stored_rel = [], [], []
+    agree, differ, stored_rel, verify_errs, verify_vs_decode = [], [], [], [], []
     for _ in range(PHASE5_PROMPTS):
         prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
         k_run, fed, k_kv = model_steps(torch, model, kv_quantize, prompt, True, True,
@@ -1108,6 +1330,14 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
             run = k_run if name == "kernels" else model_steps(
                 torch, model, kv_quantize, prompt, pk, dk, fed, kv_layout, chunks)[0]
             steps[name].append(((run - p_run).abs().amax(dim=(1, 2)) / top).tolist())
+        # speculative decoding's verify forward over the 5 tokens the kernel
+        # run chose (g + 1 = 5): the kernels against the plain versions, and
+        # the plain verify against the plain decode steps' logits
+        seq = torch.stack(fed + [k_run[4].argmax(-1).to(torch.int32)], dim=1)
+        k_ver, p_ver = (verify_logits(torch, model, kv_quantize, prompt, seq, kernels, kv_layout)
+                        for kernels in (True, False))
+        verify_errs.append(((k_ver - p_ver).abs().amax(dim=-1) / top).tolist())
+        verify_vs_decode.append(((p_ver[:4] - p_run[1:, 0]).abs().amax(dim=-1) / top).tolist())
         agree.append((k_run.argmax(-1) == p_run.argmax(-1)).float().mean().item())
         differ.append((k_kv != p_kv).float().mean().item())
         stored_rel.append(((k_kv - p_kv).pow(2).mean() / p_kv.pow(2).mean()).sqrt().item())
@@ -1119,7 +1349,9 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
            "steps": 5, "rel_err": rel_errs, "chunked_rel_err": chunked_errs,
            "tol_rel": LOGITS_RTOL[kv_quantize], "decode_only_rel_err": decode_errs,
            "decode_only_tol_rel": DECODE_RTOL, "argmax_agree": agree, "rel_err_by_step": steps,
-           "stored_differ": differ, "stored_rms_rel": stored_rel}
+           "stored_differ": differ, "stored_rms_rel": stored_rel,
+           "verify_rel_err": [max(e) for e in verify_errs], "verify_rel_err_by_row": verify_errs,
+           "plain_verify_vs_plain_decode_rel_err": [max(e) for e in verify_vs_decode]}
     if enforce:
         require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
                 f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
@@ -1129,6 +1361,13 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
                 f"(limit {LOGITS_RTOL[kv_quantize]})")
         require(max(decode_errs) < DECODE_RTOL,
                 f"kernel vs plain logits, kernels in decode only ({pool}): {decode_errs} "
+                f"(limit {DECODE_RTOL})")
+        require(max(out["verify_rel_err"]) < LOGITS_RTOL[kv_quantize],
+                f"verify_step with the kernels vs plain ({pool}): {out['verify_rel_err']} "
+                f"(limit {LOGITS_RTOL[kv_quantize]})")
+        ver_dec = out["plain_verify_vs_plain_decode_rel_err"]
+        require(max(ver_dec) < DECODE_RTOL,
+                f"plain verify_step vs plain decode steps ({pool}): {ver_dec} "
                 f"(limit {DECODE_RTOL})")
     return out
 
@@ -1163,16 +1402,20 @@ def main() -> None:
     lap("phase3")
 
     # the same 8 requests on each cache, one model
-    model, served = None, {}
+    model, served, results = None, {}, {}
     for kv_layout, kv_quantize in RUNS:
-        eng, counts, metrics = serve(torch, cuda, model, kv_quantize, kv_layout)
+        eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, kv_layout)
         emit(f"phase4_serve_{run_name(kv_layout, kv_quantize)}", {**metrics, "launches": counts})
         eng.stop()
         model = eng.model
         served[kv_layout, kv_quantize] = {"metrics": metrics, "launches": counts}
+        results[kv_layout, kv_quantize] = outs
         del eng
         torch.cuda.empty_cache()
         lap(f"phase4_{run_name(kv_layout, kv_quantize)}")
+
+    served.update(serve_spec(torch, cuda, model, results))
+    lap("phase4_spec")
 
     admission = serve_admission(torch, cuda, model)
     emit("phase4_serve_paged_admission", admission)

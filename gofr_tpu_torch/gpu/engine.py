@@ -32,9 +32,24 @@ the rest. The decode table goes out with every row but the decoding lanes'
 all OOB, so those lanes' writes drop. On the slot layout each slot owns
 ``cache_len`` positions (engine.py:1321), a request needs only a free
 slot, long prompts chunk too, and lanes that do not decode sit at position
-``cache_len``, so their writes drop (tpu/decode.py:309-315). Speculative
-decoding, QoS, adapters, handoff, lockstep, the prefix cache's host tier,
-autotune and the perf plane are not ported yet.
+``cache_len``, so their writes drop (tpu/decode.py:309-315).
+
+``spec_tokens`` = g > 0 turns on speculative decoding (engine.py:1022):
+step 3 becomes ``decode_chunk`` speculative rounds (``gpu/decode.py``,
+``gpu/programs.spec_chunk``), each proposing g tokens per lane and
+verifying them in one forward, so a round emits 1 .. g + 1 tokens. The
+proposal is prompt lookup in the lane's token history, which the prefills
+write on the device, or, with ``spec_draft`` (slot layout only), g + 1
+steps of a small draft model on its own slot cache, which the prefills
+fill too. Greedy tokens equal plain decode's; sampled ones are
+distributed as plain decode's. On the paged layout a round first claims
+pages for its worst case, ``pos + chunk_span - 1``, and gives back what
+the accepted tokens did not need after it (engine.py:2943).
+
+``generate(stream=True)`` returns an iterator of the tokens as they are
+decoded: ids, or text pieces by incremental detokenization with a
+tokenizer (engine.py:3872). QoS, adapters, handoff, lockstep, the prefix
+cache's host tier, autotune and the perf plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,10 +65,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch.gpu import decode
 from gofr_tpu_torch.gpu.device import resolve_device
-from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
+from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
-from gofr_tpu_torch.gpu.programs import decode_chunk, prefill_chunk, prefill_sample
+from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history, prefill_chunk, prefill_sample
 from gofr_tpu_torch.models.llama import AnyKVCache, Llama, LlamaConfig, init, params_from_jax
 
 log = logging.getLogger(__name__)
@@ -64,9 +80,14 @@ KV_QUANTIZE = ("", "int8", "int4")
 KV_LAYOUTS = ("paged", "slot")
 # ``GenerateEngine.counters``: preemptions, tokens served from the prefix
 # cache, prefix lookups and misses (engine.py's app_tpu_prefix_* metrics),
-# pages evicted from it, and prefill chunks (those at a non-zero offset too)
+# pages evicted from it, prefill chunks (those at a non-zero offset too),
+# and speculation's draft tokens proposed, accepted and rejected, the
+# over-claimed pages given back after a round (app_tpu_spec_*), and its
+# rounds, one verify forward each
 COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_lookups", "prefix_misses",
-            "prefix_evicted_pages", "prefill_chunks", "prefill_chunks_at_offset")
+            "prefix_evicted_pages", "prefill_chunks", "prefill_chunks_at_offset",
+            "spec_proposed", "spec_accepted", "spec_rejected", "spec_pages_trimmed",
+            "spec_rounds")
 
 
 def make_pool(model: Llama, kv_quantize: str, rows: int, row_len: int,
@@ -94,16 +115,20 @@ class RequestCancelled(RuntimeError):
 
 class Request:
     """The future of one generation: ``result()`` blocks, ``cancel()`` frees
-    its slot at the device loop's next turn."""
+    its slot at the device loop's next turn. A streamed request also gets
+    each token (or text piece) on ``stream_q`` as it is decoded, and None
+    once it completes."""
 
     _ids = itertools.count()
 
-    def __init__(self, inputs: Any, kw: dict[str, Any], timeout: float | None):
+    def __init__(self, inputs: Any, kw: dict[str, Any], timeout: float | None,
+                 stream: bool = False):
         self.id = next(Request._ids)
         self.inputs = inputs
         self.kw = kw
         self.enqueued_at = time.monotonic()
         self.deadline = self.enqueued_at + timeout if timeout else None
+        self.stream_q: queue.SimpleQueue | None = queue.SimpleQueue() if stream else None
         self.cancelled = False
         self.cancel_reason: str | None = None
         self._done = threading.Event()
@@ -117,6 +142,8 @@ class Request:
             if self._done.is_set():
                 return
             self._result, self._error = result, error
+            if self.stream_q is not None:
+                self.stream_q.put(None)  # the end of the stream
             self._done.set()
 
     def cancel(self, reason: str = "cancelled") -> None:
@@ -138,6 +165,41 @@ class Request:
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now > self.deadline
+
+
+class StreamIterator:
+    """The tokens (or text pieces) of a streamed generation as they are
+    decoded (engine.py:909). ``cancel()`` frees the slot, for a transport
+    whose client went away; the iterator then raises the request's
+    error."""
+
+    def __init__(self, req: Request, per_token_timeout: float | None):
+        self._req = req
+        self._timeout = per_token_timeout or 3600.0
+
+    def __iter__(self) -> "StreamIterator":
+        return self
+
+    def __next__(self) -> Any:
+        try:
+            item = self._req.stream_q.get(timeout=self._timeout)
+        except queue.Empty:
+            self._req.cancel("timeout")
+            raise RequestTimeout(f"request {self._req.id}: no token within "
+                                 f"{self._timeout} s") from None
+        if item is None:
+            self._req.stream_q.put(None)  # a finished stream stays finished
+            if self._req._error is not None:
+                raise self._req._error
+            raise StopIteration
+        return item
+
+    def cancel(self, reason: str = "client_disconnect") -> None:
+        self._req.cancel(reason)
+
+    def result(self, timeout: float | None = None) -> dict:
+        """The streamed request's own result, as ``generate`` returns it."""
+        return self._req.result(timeout if timeout is not None else self._timeout)
 
 
 class _Slot:
@@ -180,7 +242,11 @@ class GenerateEngine:
     ``prefill_buckets`` (default 16, 32, ... up to ``max_len``) are the
     planner's length buckets; a prompt longer than the largest is prefilled
     in chunks of that length. ``prefix_cache`` keeps full prompt pages for
-    later prompts that share them (paged layout only)."""
+    later prompts that share them (paged layout only). ``spec_tokens`` > 0
+    decodes speculatively, proposing that many tokens a round by prompt
+    lookup, or by the draft model of ``spec_draft`` = (its ``LlamaConfig``,
+    its ``Llama``; slot layout only, on the engine's device, sharing the
+    target's vocabulary)."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -188,7 +254,8 @@ class GenerateEngine:
                  eos_token_id: int | None = None, top_k: int = 0, top_p: float = 1.0,
                  tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
                  page_size: int = 128, total_pages: int | None = None,
-                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged"):
+                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
+                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -196,6 +263,15 @@ class GenerateEngine:
         if kv_quantize == "int4" and kv_layout != "paged":
             raise ValueError("kv_quantize='int4' needs kv_layout='paged' (packed-nibble "
                              "pages); the slot layout supports '' or 'int8'")
+        self.spec_tokens = max(0, int(spec_tokens))
+        if spec_draft is not None:
+            if not self.spec_tokens:
+                raise ValueError("spec_draft requires spec_tokens > 0")
+            if kv_layout != "slot":
+                raise ValueError(
+                    "spec_draft (draft-model speculative decoding) is slot-layout only (v1): "
+                    "the paged layout's page allocation would need the draft cache paged "
+                    "too — use kv_layout='slot' or drop spec_draft")
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
@@ -204,8 +280,12 @@ class GenerateEngine:
         self.cfg: LlamaConfig = model.cfg
         self.num_slots = slots
         self.decode_chunk = max(1, decode_chunk)
-        # positions written in a chunk run up to max_len + decode_chunk - 2
-        self.max_len = min(max_len, self.cfg.max_seq_len - self.decode_chunk)
+        # positions one chunk can write past max_len: decode_chunk steps, or
+        # decode_chunk rounds of g + 1 positions and g for the draft's
+        # last step (engine.py:1113)
+        g = self.spec_tokens
+        self.chunk_span = self.decode_chunk * (g + 1) + g if g else self.decode_chunk
+        self.max_len = min(max_len, self.cfg.max_seq_len - self.chunk_span)
         self.prefill_buckets = (sorted(prefill_buckets) if prefill_buckets
                                 else pow2_buckets(16, self.max_len))
         # a prompt past the largest bucket is prefilled this much per turn
@@ -219,9 +299,9 @@ class GenerateEngine:
         self._prefix: PrefixCache | None = None
         if kv_layout == "paged":
             self.page_size = page_size
-            # a decode chunk writes up to decode_chunk - 1 positions past
-            # max_len; the table covers them (engine.py:1201)
-            self.pages_per_slot = math.ceil((self.max_len + self.decode_chunk) / page_size)
+            # the table covers the positions a chunk writes past max_len
+            # (engine.py:1201)
+            self.pages_per_slot = math.ceil((self.max_len + self.chunk_span) / page_size)
             self.total_pages = total_pages or slots * self.pages_per_slot
             if self.total_pages < self.pages_per_slot:
                 raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
@@ -241,13 +321,22 @@ class GenerateEngine:
         else:
             # a chunk never writes past the slot; a multiple of 128 where the
             # model allows it (engine.py:1321)
-            self.cache_len = min(math.ceil((self.max_len + self.decode_chunk) / 128) * 128,
+            self.cache_len = min(math.ceil((self.max_len + self.chunk_span) / 128) * 128,
                                  self.cfg.max_seq_len)
             self.cache = make_pool(model, kv_quantize, slots, self.cache_len, "slot")
             self._table = None
             # lanes that do not decode write at and past the slot's end,
             # where the append drops (tpu/decode.py:309-315)
             self._idle_position = self.cache_len
+        # the proposer's state: the token history (its width the slot's
+        # positions), or the draft model and its slot cache (engine.py:2549)
+        self._aux: SpecAux = None
+        if spec_draft is not None:
+            self._aux = self._draft(*spec_draft)
+        elif self.spec_tokens:
+            width = (self.pages_per_slot * page_size if kv_layout == "paged"
+                     else self.cache_len)
+            self._aux = new_history(slots, width, self.device)
         self.slots: list[_Slot | None] = [None] * slots
         self._admit_seq = 0
         # what admission did, for callers and the smoke run
@@ -264,32 +353,63 @@ class GenerateEngine:
         self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
         self._thread.start()
 
+    def _draft(self, cfg: LlamaConfig, model: Llama) -> Draft:
+        """Check a draft model against the engine (engine.py:1328) and give it
+        a slot cache of the engine's slots and cache length."""
+        if model.cfg != cfg:
+            raise ValueError("spec_draft's model was built for another config than its cfg")
+        if cfg.max_seq_len < self.cache_len:
+            raise ValueError(f"spec_draft max_seq_len {cfg.max_seq_len} < engine cache length "
+                             f"{self.cache_len}: the draft cache must cover every position the "
+                             "target serves")
+        if cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(f"spec_draft vocabulary {cfg.vocab_size} differs from the target's "
+                             f"{self.cfg.vocab_size}: its proposals are the target's token ids")
+        if model.device != self.model.device:
+            raise ValueError(f"spec_draft lives on {model.device}, the engine on "
+                             f"{self.model.device}")
+        return Draft(model, make_pool(model, "", self.num_slots, self.cache_len, "slot"))
+
     # -- caller side -----------------------------------------------------------
 
     def submit(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
-               timeout: float | None = None, **kw: Any) -> Request:
-        """Non-blocking enqueue; returns the Request future. ``eos_token_id``
-        in ``kw`` overrides the engine's."""
+               timeout: float | None = None, stream: bool = False, **kw: Any) -> Request:
+        """Non-blocking enqueue; returns the Request future (with
+        ``stream``, one whose ``stream_q`` gets the tokens as they come).
+        ``eos_token_id`` in ``kw`` overrides the engine's."""
         if self._stop.is_set() or self._error is not None:
             raise EngineClosed("engine stopped") from self._error
         req = Request(prompt, {**kw, "max_new_tokens": int(max_new_tokens),
                                "temperature": float(temperature)},
-                      timeout if timeout is not None else self.default_timeout)
+                      timeout if timeout is not None else self.default_timeout, stream)
         self._queue.put(req)
         return req
 
     def generate(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
-                 timeout: float | None = None, **kw: Any) -> dict:
+                 timeout: float | None = None, stream: bool = False,
+                 **kw: Any) -> dict | StreamIterator:
         """Blocking generate: ``{"tokens", "text", "finish_reason", "ttft_s",
         "decode_s", "prefix_hit_tokens", "preemptions"}``. Greedy when
-        temperature is 0."""
-        req = self.submit(prompt, max_new_tokens, temperature, timeout, **kw)
-        return req.result(timeout if timeout is not None else self.default_timeout)
+        temperature is 0. ``stream=True`` returns a ``StreamIterator`` over
+        the tokens as they come (text pieces with a tokenizer), ``timeout``
+        then bounding the wait for each."""
+        req = self.submit(prompt, max_new_tokens, temperature, timeout, stream, **kw)
+        timeout = timeout if timeout is not None else self.default_timeout
+        return StreamIterator(req, timeout) if stream else req.result(timeout)
 
     def stop(self) -> None:
         self._stop.set()
         self._thread.join(timeout=30.0)
         self._fail_all(EngineClosed("engine stopped"))
+
+    def spec_accept_totals(self) -> dict[str, tuple[float, float]]:
+        """Lifetime (accepted, proposed) draft tokens of speculative decoding
+        by adapter, "base" being no adapter, the only one here (engine.py:
+        1877); empty before the first round."""
+        with self._state_lock:
+            proposed = self.counters["spec_proposed"]
+            accepted = self.counters["spec_accepted"]
+        return {"base": (float(accepted), float(proposed))} if proposed else {}
 
     def free_pages(self) -> int:
         if self._table is None:
@@ -356,7 +476,8 @@ class GenerateEngine:
                 with self._state_lock:
                     busy = self._admit()
                     busy = self._advance_chunked() or busy
-                    busy = self._decode() or busy
+                    step = decode.spec_round if self.spec_tokens else decode.decode_round
+                    busy = step(self) or busy
                 if not busy:
                     try:
                         req = self._queue.get(timeout=0.05)
@@ -532,12 +653,18 @@ class GenerateEngine:
             tokens[row, :s.prompt_len] = s.prompt_tokens
         temps = [s.temperature for _, s in batch]
         idxs = np.array(rows, np.int64)
+        # the slot ids are the rows on the slot layout, and the proposer's
+        # rows; the history takes the padding of the plan's length bucket,
+        # as the JAX program writes it (programs.seed_history)
+        slot_ids = (self._to_device(idxs) if self._table is None or self._aux is not None
+                    else None)
         first = prefill_sample(
             self.model, self.cache, self._to_device(tokens),
             self._to_device(np.array([s.prompt_len for _, s in batch], np.int64)),
-            self._to_device(idxs if self._table is None else self._table[idxs]),
+            slot_ids if self._table is None else self._to_device(self._table[idxs]),
             self._to_device(np.array(temps, np.float32)), self._generator,
             top_k=self.top_k, top_p=self.top_p, do_sample=max(temps) > 0,
+            aux=self._aux, slots=slot_ids, width=plan.len_bucket,
         ).tolist()
         for (idx, s), tok in zip(batch, first):
             self._activate_lane(idx, s, int(tok))
@@ -574,7 +701,9 @@ class GenerateEngine:
             self.model, self.cache, self._to_device(s.prompt_tokens[None, offset:offset + chunk]),
             self._to_device(np.array([offset], np.int64)), self._to_device(rows),
             self._to_device(np.array([s.temperature], np.float32)), self._generator, last,
-            top_k=self.top_k, top_p=self.top_p, do_sample=s.temperature > 0)
+            top_k=self.top_k, top_p=self.top_p, do_sample=s.temperature > 0, aux=self._aux,
+            slots=None if self._aux is None else self._to_device(np.array([idx], np.int64)),
+            width=next_bucket(chunk, self.prefill_buckets))
         s.written += chunk
         self.counters["prefill_chunks"] += 1
         self.counters["prefill_chunks_at_offset"] += offset > 0
@@ -592,16 +721,17 @@ class GenerateEngine:
         # a preempted request keeps the time of its first token
         s.request.kw.setdefault("_first_token_at", time.monotonic())
         self._prefix_insert(idx)
+        self._emit(s, tok)
         self._maybe_finish(idx)
 
-    # -- decode (tpu/decode.py:265-340) -------------------------------------------
+    # -- decode (tpu/decode.py; the rounds live in gpu/decode.py) -------------------
 
-    def _decode(self) -> bool:
-        """One decode chunk over every decoding slot. On the paged layout each
-        lane first gets pages for the chunk's writes, preempting newer slots
-        if the pool is short, and the table goes out with every other row
-        OOB: a slot mid-chunked-prefill owns real pages that an idle lane's
-        write at position 0 would corrupt. Returns whether a slot changed."""
+    def _decoding_lanes(self, span: int) -> tuple[list[tuple[int, _Slot]], bool]:
+        """The lanes of the next decode chunk, each grown (on the paged
+        layout) to cover the ``span`` positions from its own: first the
+        cancelled and expired slots are freed, then each decoding lane gets
+        its pages, preempting newer slots if the pool is short. Returns (the
+        lanes still decoding, whether a slot changed)."""
         now = time.monotonic()
         changed = False
         for i, s in enumerate(self.slots):
@@ -611,29 +741,10 @@ class GenerateEngine:
         lanes = [(i, s) for i, s in enumerate(self.slots) if s is not None and s.generated]
         if self._table is not None:
             for i, s in lanes:
-                self._alloc_lane_pages(i, s, s.pos + self.decode_chunk - 1)
+                self._alloc_lane_pages(i, s, s.pos + span - 1)
             changed = changed or any(self.slots[i] is not s for i, s in lanes)
             lanes = [(i, s) for i, s in lanes if self.slots[i] is s]
-        if not lanes:
-            return changed
-        tokens = np.zeros(self.num_slots, np.int64)
-        positions = np.full(self.num_slots, self._idle_position, np.int64)
-        temps = np.zeros(self.num_slots, np.float32)
-        for i, s in lanes:
-            tokens[i], positions[i], temps[i] = s.generated[-1], s.pos, s.temperature
-        out = decode_chunk(
-            self.model, self.cache, self._to_device(tokens), self._to_device(positions),
-            None if self._table is None else self._to_device(self._masked_table(lanes)),
-            self._to_device(temps), self.decode_chunk,
-            self._generator, top_k=self.top_k, top_p=self.top_p, do_sample=bool(temps.max() > 0),
-        ).cpu().numpy()
-        for i, s in lanes:
-            for tok in out[i]:
-                s.generated.append(int(tok))
-                s.pos += 1
-                if self._maybe_finish(i):
-                    break
-        return True
+        return lanes, changed
 
     def _masked_table(self, lanes: list[tuple[int, _Slot]]) -> np.ndarray:
         """The block table with every row but the decoding lanes' all OOB
@@ -643,6 +754,43 @@ class GenerateEngine:
         table[live] = self._table[live]
         return table
 
+    # the stream detokenizer's bounds (engine.py:3872): the flushed tokens
+    # kept as context for the next piece, and the most held back at once
+    STREAM_CTX_TOKENS = 8
+    STREAM_TAIL_MAX = 32
+
+    def _stream_diff(self, kw: dict, tail: list[int]) -> str:
+        """decode(ctx + tail) minus decode(ctx): the next piece."""
+        ctx = kw.get("_stream_ctx", [])
+        if not ctx:
+            return self.tokenizer.decode(tail)
+        return self.tokenizer.decode(ctx + tail)[len(self.tokenizer.decode(ctx)):]
+
+    def _emit(self, s: _Slot, tok: int) -> None:
+        """Stream one decoded token (engine.py:3882): its id without a
+        tokenizer, else the text it completes. Ids wait in a tail while
+        their text ends in U+FFFD (a split UTF-8 character), up to
+        ``STREAM_TAIL_MAX`` of them; a piece is decoded against the last
+        ``STREAM_CTX_TOKENS`` flushed ids, so a tokenizer whose text depends
+        on context streams the text ``decode`` gives the whole. The state
+        lives on the request, so it survives a preemption; EOS is not
+        streamed."""
+        q = s.request.stream_q
+        if q is None or tok == s.eos:
+            return
+        if self.tokenizer is None:
+            q.put(tok)
+            return
+        kw = s.request.kw
+        tail = kw.setdefault("_stream_tail", [])
+        tail.append(tok)
+        piece = self._stream_diff(kw, tail)
+        if (piece and not piece.endswith("\ufffd")) or len(tail) > self.STREAM_TAIL_MAX:
+            if piece:
+                q.put(piece)
+            kw["_stream_ctx"] = (kw.get("_stream_ctx", []) + tail)[-self.STREAM_CTX_TOKENS:]
+            tail.clear()
+
     def _maybe_finish(self, idx: int) -> bool:
         s = self.slots[idx]
         if s.eos is not None and s.generated[-1] == s.eos:
@@ -651,6 +799,13 @@ class GenerateEngine:
             finish, tokens = "length", list(s.generated)
         else:
             return False
+        tail = s.request.kw.get("_stream_tail")
+        if tail and s.request.stream_q is not None:
+            # what the tail still holds, so the joined stream is the text
+            piece = self._stream_diff(s.request.kw, tail)
+            if piece:
+                s.request.stream_q.put(piece)
+            tail.clear()
         now = time.monotonic()
         self._free_slot(idx)
         kw = s.request.kw
@@ -734,6 +889,21 @@ class GenerateEngine:
                 s.request.complete(error=RuntimeError("KV page pool exhausted for a single request"))
                 return
 
+    def _trim_lane_pages(self, idx: int, keep_pos: int) -> int:
+        """Give back slot ``idx``'s pages past the one holding ``keep_pos``
+        (engine.py:2943): the surplus of a speculative round's worst-case
+        claim. A page the prefix cache or another slot holds stays. Returns
+        the shares given back."""
+        keep = keep_pos // self.page_size + 1
+        cur = self._slot_pages[idx]
+        released = 0
+        while len(cur) > keep:
+            p = cur.pop()
+            self._table[idx, len(cur)] = self.total_pages
+            self._unref_page(p)
+            released += 1
+        return released
+
     def _preempt_newest(self, except_slot: int | None = None) -> bool:
         """Free the most recently admitted slot other than ``except_slot``,
         decoding or prefilling (LIFO keeps nearly done requests running), and
@@ -811,20 +981,33 @@ _PRESETS = {"llama3_8b": LlamaConfig.llama3_8b, "one_b": LlamaConfig.one_b,
             "tiny": LlamaConfig.tiny}
 
 
+def _model(cfg: LlamaConfig, params: Any, dev: torch.device, seed: int) -> Llama:
+    """``params`` as a ``Llama`` already built, a JAX parameter tree as
+    numpy arrays (``params_from_jax``), or None for random weights drawn on
+    ``dev`` from ``seed``."""
+    if isinstance(params, Llama):
+        return params
+    if params is not None:
+        return params_from_jax(cfg, params, dev)
+    return init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
 def build_engine(config: str | LlamaConfig = "llama3_8b", *, params: Any = None,
                  device: str | torch.device | None = None, seed: int = 0,
+                 spec_draft: tuple[str | LlamaConfig, Any] | None = None,
                  **kw: Any) -> GenerateEngine:
     """An engine for a Llama config (a preset name or a ``LlamaConfig``).
     Weights: ``params`` as a ``Llama`` already built, a JAX parameter tree
     as numpy arrays (``params_from_jax``), or — when None — random weights
-    drawn on ``device`` from ``seed``. Runs on the card unless ``device``
-    says otherwise; ``kw`` goes to ``GenerateEngine``."""
+    drawn on ``device`` from ``seed``. ``spec_draft`` = (a config, its
+    weights in any of those forms) is the draft model of speculative
+    decoding (engine.py:4140), its random weights drawn from ``seed`` + 1.
+    Runs on the card unless ``device`` says otherwise; ``kw`` goes to
+    ``GenerateEngine`` (``spec_tokens`` among them)."""
     dev = resolve_device(device)
     cfg = _PRESETS[config]() if isinstance(config, str) else config
-    if isinstance(params, Llama):
-        model = params
-    elif params is not None:
-        model = params_from_jax(cfg, params, dev)
-    else:
-        model = init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    return GenerateEngine(model, device=dev, seed=seed, **kw)
+    model = _model(cfg, params, dev, seed)
+    if spec_draft is not None:
+        dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
+        spec_draft = (dcfg, _model(dcfg, spec_draft[1], dev, seed + 1))
+    return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, **kw)

@@ -14,46 +14,131 @@ take tensors, run eagerly, and hand back only sampled token ids.
   fused in, the next step's input being the previous step's output on the
   device (programs.py ``_decode_chunk``). The host reads ``[slots, steps]``
   ids once per chunk.
+- ``spec_chunk``: ``steps`` speculative rounds over every slot (programs.py
+  ``_spec_chunk``, both layouts): each proposes g tokens, by prompt lookup
+  in the lane's token history or by g + 1 steps of a draft model, verifies
+  them in one ``verify_step``, and accepts by ``speculative_sample``. The
+  (token, history length) carry stays on the device; the host reads
+  ``[steps, slots, g+1]`` ids and ``[steps, slots]`` accept counts once per
+  chunk.
 
-Both serve either cache layout: the slot cache takes slot ids where the
-paged pool takes block-table rows, and no table at decode.
+All serve either cache layout: the slot cache takes slot ids where the
+paged pool takes block-table rows, and no table at decode. With
+speculation on, the prefills also bring the proposer up to date
+(``seed_aux``): they write each prompt into the device-resident history
+(``seed_history``), or prefill the draft model's own slot cache over the
+same tokens (programs.py ``_seed_hist``, ``_seed_aux``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+import torch.nn.functional as F
 
 from gofr_tpu_torch.models.llama import AnyKVCache, Llama
-from gofr_tpu_torch.ops.sampling import sample_token
+from gofr_tpu_torch.ops.kvcache import SlotKVCache
+from gofr_tpu_torch.ops.sampling import sample_token, speculative_sample
+
+
+@dataclass
+class Draft:
+    """A draft model and its own slot cache, one slot per engine slot
+    (programs.py ``draft``: the draft's cache takes the history's place)."""
+
+    model: Llama
+    cache: SlotKVCache
+
+
+# the proposer's state: a token history [slots, H + 1] int32 (its last
+# column a sink for dropped writes), or a draft model; None without
+# speculation
+SpecAux = torch.Tensor | Draft | None
+
+
+def new_history(slots: int, width: int, device: torch.device) -> torch.Tensor:
+    """An empty token history of ``width`` positions per slot, plus the
+    sink column where writes past ``width`` land (JAX drops them; the sink
+    is never read)."""
+    return torch.zeros((slots, width + 1), dtype=torch.int32, device=device)
+
+
+def seed_history(hist: torch.Tensor, slots: torch.Tensor, tokens: torch.Tensor,
+                 lengths: torch.Tensor, toks: torch.Tensor, offsets: torch.Tensor | None = None,
+                 width: int | None = None) -> None:
+    """Write an admitted prompt chunk and its sampled token into the history,
+    in place (programs.py:256, 388): tokens [B, S] at columns offsets ..
+    offsets + S of rows ``slots`` [B], then ``toks`` [B] at offsets +
+    lengths (garbage the next chunk overwrites, on a chunk that is not the
+    last). ``width`` pads the chunk with zeros to that many columns, as the JAX
+    programs write the padding of their length bucket: the lookup reads up
+    to g columns past the history's length, so the padding is part of what
+    it proposes."""
+    if width is not None and width > tokens.shape[1]:
+        tokens = F.pad(tokens, (0, width - tokens.shape[1]))
+    b, s = tokens.shape
+    sink = hist.shape[1] - 1
+    base = (torch.zeros(b, dtype=torch.long, device=hist.device) if offsets is None
+            else offsets.long())
+    rows = slots.long()
+    cols = (base[:, None] + torch.arange(s, device=hist.device)[None]).clamp(max=sink)
+    hist[rows[:, None], cols] = tokens.to(hist.dtype)
+    hist[rows, (base + lengths.long()).clamp(max=sink)] = toks.to(hist.dtype)
+
+
+def seed_aux(aux: SpecAux, slots: torch.Tensor, tokens: torch.Tensor, lengths: torch.Tensor,
+             toks: torch.Tensor | None, offsets: torch.Tensor | None = None,
+             width: int | None = None) -> None:
+    """Bring the proposer up to date with an admitted prompt chunk
+    (programs.py:400): prefill the draft model's cache over the same tokens
+    at slots ``slots``, or seed the history."""
+    if aux is None:
+        return
+    if isinstance(aux, Draft):
+        aux.model.prefill(tokens, lengths, aux.cache, slots, offsets)
+    else:
+        seed_history(aux, slots, tokens, lengths, toks, offsets, width)
 
 
 def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                    lengths: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                    generator: torch.Generator | None, *, top_k: int = 0,
-                   top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
+                   top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
+                   slots: torch.Tensor | None = None, width: int | None = None) -> torch.Tensor:
     """tokens [B, S] padded, lengths [B], rows (slot ids [B], or block-table
     rows [B, MaxP]), temps [B] → first sampled token per row [B] int32 (the
-    cache is written in place)."""
+    cache is written in place). With ``aux``, the prompts and their tokens
+    also go to the proposer's rows ``slots`` [B] (``seed_aux``)."""
     logits, _ = model.prefill(tokens, lengths, cache, rows)
-    return sample_token(logits, generator, temperature=temps, top_k=top_k,
+    toks = sample_token(logits, generator, temperature=temps, top_k=top_k,
                         top_p=top_p, do_sample=do_sample)
+    seed_aux(aux, slots, tokens, lengths, toks, width=width)
+    return toks
 
 
 def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                   offsets: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                   generator: torch.Generator | None, last: bool, *, top_k: int = 0,
-                  top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor | None:
+                  top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
+                  slots: torch.Tensor | None = None, width: int | None = None
+                  ) -> torch.Tensor | None:
     """tokens [B, S] of one chunk per row (every row S live tokens) written
     at positions ``offsets`` [B] .. + S through ``rows`` (slot ids [B], or
     block-table rows [B, MaxP]) → the sampled token per row [B] int32 when
-    ``last`` (the chunk ends the prompt), else None."""
+    ``last`` (the chunk ends the prompt), else None. With ``aux``, the chunk
+    also goes to the proposer's rows ``slots`` [B] (``seed_aux``); a
+    history takes a sampled token after every chunk, as the JAX program
+    writes one, which the next chunk overwrites."""
     lengths = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.long,
                          device=tokens.device)
     logits, _ = model.prefill(tokens, lengths, cache, rows, offsets)
-    if not last:
-        return None
-    return sample_token(logits, generator, temperature=temps, top_k=top_k, top_p=top_p,
-                        do_sample=do_sample)
+    toks = None
+    if last or isinstance(aux, torch.Tensor):
+        toks = sample_token(logits, generator, temperature=temps, top_k=top_k, top_p=top_p,
+                            do_sample=do_sample)
+    seed_aux(aux, slots, tokens, lengths, toks, offsets, width)
+    return toks if last else None
 
 
 def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
@@ -71,3 +156,66 @@ def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
         positions = positions + 1
         out.append(tokens)
     return torch.stack(out, dim=1)
+
+
+def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, tokens: torch.Tensor,
+               hlen: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor, steps: int,
+               g: int, generator: torch.Generator | None, *, top_k: int = 0,
+               top_p: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` speculative rounds over every slot (programs.py:329, 475).
+
+    ``tokens`` [N] are the lanes' input tokens and ``hlen`` [N] their
+    history lengths: the input token is history position hlen - 1, where
+    its K/V go. A lane that does not decode passes hlen past the cache (and,
+    on the paged pool, an all-OOB ``table`` row), so every write it makes
+    drops. Each round proposes g tokens: with a history ``aux``, the g that
+    followed the most recent EARLIER occurrence of the input token (a
+    deterministic proposal; a miss proposes from column 0); with a
+    ``Draft``, g + 1 draft decode steps sampled at each lane's temperature,
+    the last only to write the g-th draft's K/V. One ``verify_step`` over
+    the input and the drafts and ``speculative_sample`` then emit acc + 1
+    tokens a lane, which the round writes into the history. Returns
+    (tokens [steps, N, g+1] int32, accepted [steps, N] int32), still on the
+    device: ``tokens[k, n, :acc+1]`` are what lane n emitted in round k."""
+    n = tokens.shape[0]
+    dev = tokens.device
+    steps_g = torch.arange(g, device=dev)
+    tok, hl = tokens.to(torch.int32), hlen.long()
+    if isinstance(aux, Draft):
+        width = None
+    else:
+        width = aux.shape[1] - 1
+        cols = torch.arange(width, device=dev)
+    outs, accs = [], []
+    for _ in range(steps):
+        pos = hl - 1
+        q_logits = None
+        if width is not None:
+            match = (aux[:, :width] == tok[:, None]) & (cols[None] < pos[:, None])
+            j = torch.where(match, cols[None], -1).amax(dim=1)  # -1: a miss
+            take = (j[:, None] + 1 + steps_g[None]).clamp(0, width - 1)
+            drafts = aux.gather(1, take)
+        else:
+            dtok, dpos, dtoks, dlogits = tok, pos, [], []
+            for _ in range(g + 1):
+                logits, _ = aux.model.decode_step(dtok, dpos, aux.cache)
+                dtok = sample_token(logits, generator, temperature=temps, top_k=top_k,
+                                    top_p=top_p)
+                dpos = dpos + 1
+                dtoks.append(dtok)
+                dlogits.append(logits)
+            drafts = torch.stack(dtoks[:g], dim=1)
+            q_logits = torch.stack(dlogits[:g], dim=1)
+        seq = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)
+        p_logits, _ = model.verify_step(seq, pos, cache, table)
+        out, acc = speculative_sample(p_logits, drafts, temps, generator, q_logits,
+                                      top_k, top_p)
+        if width is not None:
+            emit = torch.arange(g + 1, device=dev)[None] <= acc[:, None]
+            wpos = torch.where(emit, hl[:, None] + torch.arange(g + 1, device=dev)[None], width)
+            aux.scatter_(1, wpos.clamp(max=width), out)
+        tok = out.gather(1, acc.long()[:, None])[:, 0]
+        hl = hl + acc.long() + 1
+        outs.append(out)
+        accs.append(acc)
+    return torch.stack(outs), torch.stack(accs)

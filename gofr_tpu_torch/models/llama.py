@@ -19,15 +19,19 @@ Entry points, each a method of ``Llama``:
                          position: lane n is slot n on the slot cache
                          (llama.py:453), or through the block table on the
                          paged pool (``decode_step_paged``, llama.py:710)
+- ``verify_step``        speculative decoding's verify forward: T tokens
+                         per lane at its position, logits for all T
+                         (llama.py:389; ``verify_step_paged``, :525)
 - ``make_cache``         an empty slot cache (llama.py:505) and
   ``make_cache_q`` its int8 form (llama.py:512); ``make_paged_cache``
   an empty pool (llama.py:587), and ``make_paged_cache_q`` /
   ``make_paged_cache_q4`` its int8 and packed int4 forms (llama.py:595,
   605). Where the JAX functions branch on the cache's type (llama.py:
-  333-378, 644-685, 735-739), ``prefill`` and ``decode_step`` call the
-  cache's own per-layer operations (``ops.kvcache``, ``ops.paged``) and
-  its format's decode attention (``ops.attention.DECODE_ATTENTION``), so
-  one body serves both layouts and every format.
+  333-378, 644-685, 735-739), ``prefill``, ``verify_step`` and
+  ``decode_step`` call the cache's own per-layer operations
+  (``ops.kvcache``, ``ops.paged``) and its format's decode attention
+  (``ops.attention.DECODE_ATTENTION``), so one body serves both layouts
+  and every format; ``prefill`` and ``verify_step`` share one layer loop.
 
 Attention and the KV append go through ``ops`` and so through the CUDA
 kernels on the card. ``kernels=False`` runs the same step on their plain
@@ -37,7 +41,7 @@ cache is plain PyTorch either way (the TPU ran it as XLA). On the card a
 decode step makes no host sync on any cache: ``decode_step`` converts the
 positions, lengths and table to int32 once per step, so no launcher casts
 them per layer. This slice serves bf16 weights (no int8 weights or LoRA
-deltas); ``verify_step`` waits for speculative decoding.
+deltas).
 """
 
 from __future__ import annotations
@@ -182,6 +186,35 @@ class Llama(nn.Module):
             x = x + self._mlp(lp, x)
         return self._logits(x)
 
+    def _cached_layers(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
+                       rows: torch.Tensor, offsets: torch.Tensor | None,
+                       attn) -> torch.Tensor:
+        """The layer loop of ``prefill`` and ``verify_step``: tokens [B, S]
+        written into the cache at ``offsets`` (0 when None) through ``rows``
+        and attended, each row to its first ``lengths`` tokens; returns the
+        hidden states [B, S, E] before the final norm. Rope angles clamp to
+        the table's last row, as JAX's gather clamps them, since an idle
+        verify lane sits past the cache."""
+        b, s = tokens.shape
+        off = (torch.zeros(b, dtype=torch.long, device=tokens.device) if offsets is None
+               else offsets.long())
+        positions = off[:, None] + torch.arange(s, device=tokens.device)[None]
+        rope_pos = positions.clamp(max=self.cfg.max_seq_len - 1)
+        x = self.embed[tokens]
+        for layer, lp in enumerate(self.blocks):
+            q, k, v = self._qkv(lp, x)
+            q, k = self._rope(q, rope_pos), self._rope(k, rope_pos)
+            cache.write(layer, rows, k, v, offsets)
+            if offsets is None:
+                a = attn(q, cache.stored(k), cache.stored(v), causal=True, kv_lengths=lengths)
+            else:
+                k_view, v_view = cache.read(layer, rows, self.cfg.dtype)
+                a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
+                         causal=True, q_offset=off, kv_lengths=off + lengths)
+            x = x + lp.wo(a.reshape(b, s, -1))
+            x = x + self._mlp(lp, x)
+        return x
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
                 rows: torch.Tensor, offsets: torch.Tensor | None = None, *,
@@ -199,25 +232,32 @@ class Llama(nn.Module):
         644-685). Returns (last-token logits [B, V] f32, cache), the cache
         written in place."""
         attn = mha_attention if kernels else mha_attention_plain
-        b, s = tokens.shape
-        off = (torch.zeros(b, dtype=torch.long, device=tokens.device) if offsets is None
-               else offsets.long())
-        positions = off[:, None] + torch.arange(s, device=tokens.device)[None]
-        x = self.embed[tokens]
-        for layer, lp in enumerate(self.blocks):
-            q, k, v = self._qkv(lp, x)
-            q, k = self._rope(q, positions), self._rope(k, positions)
-            cache.write(layer, rows, k, v, offsets)
-            if offsets is None:
-                a = attn(q, cache.stored(k), cache.stored(v), causal=True, kv_lengths=lengths)
-            else:
-                k_view, v_view = cache.read(layer, rows, self.cfg.dtype)
-                a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
-                         causal=True, q_offset=off, kv_lengths=off + lengths)
-            x = x + lp.wo(a.reshape(b, s, -1))
-            x = x + self._mlp(lp, x)
-        last = x[torch.arange(b, device=x.device), lengths.long() - 1]
+        x = self._cached_layers(tokens, lengths, cache, rows, offsets, attn)
+        last = x[torch.arange(tokens.shape[0], device=x.device), lengths.long() - 1]
         return self._logits(last), cache
+
+    @torch.no_grad()
+    def verify_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
+                    table: torch.Tensor | None = None, *,
+                    kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+        """Speculative decoding's verify forward (llama.py:389, 525): tokens
+        [N, T] per lane, the input token and T-1 drafts, written and attended
+        at ``positions[n]`` .. ``positions[n] + T - 1``: lane n in slot n of
+        a slot cache (``table`` None), or through ``table`` [N, MaxP] in a
+        paged pool. It is ``prefill`` with offsets, each lane attending to
+        the dense view of what its cache holds up to and including its T
+        tokens. Returns (logits [N, T, V] f32, the next-token distribution
+        after each of the T tokens; cache), the cache written in place.
+        Draft K/V past the accepted prefix go stale but are always
+        rewritten before they are attended: the next round writes from the
+        new input position. A lane whose writes drop (an all-OOB table row,
+        positions past the slot) gives logits the caller ignores."""
+        attn = mha_attention if kernels else mha_attention_plain
+        n, t = tokens.shape
+        rows = torch.arange(n, device=tokens.device) if table is None else table
+        lengths = torch.full((n,), t, dtype=torch.long, device=tokens.device)
+        x = self._cached_layers(tokens, lengths, cache, rows, positions, attn)
+        return self._logits(x), cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
@@ -252,6 +292,7 @@ class Llama(nn.Module):
     # the JAX package's names for the paged pool's entry points (the same bodies)
     prefill_paged = prefill
     decode_step_paged = decode_step
+    verify_step_paged = verify_step
 
     def make_cache(self, slots: int, max_len: int | None = None) -> SlotKVCache:
         """An empty slot cache of ``max_len`` positions per slot (default

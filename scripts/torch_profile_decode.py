@@ -2,7 +2,7 @@
 """Where a decode step of the PyTorch port spends its time on one card.
 
     python3 scripts/torch_profile_decode.py [--layers 32] [--steps 8] [--kv-quantize int8]
-                                            [--kv-layout slot]
+                                            [--kv-layout slot] [--spec-tokens 4]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, full width) on the
 card, prefills 8 prompts of 100..2000 tokens into the paged pool, or with
@@ -14,7 +14,17 @@ wall time per step without the profiler (and with it), device busy time
 per step (the sum of CUDA kernel times; one stream, so kernels do not
 overlap), the device idle share against the unprofiled wall time, the
 time of device-to-host copies, and device time by kernel name, largest
-first. Needs a CUDA card.
+first.
+
+With ``--spec-tokens g`` it compares one speculative round
+(``gpu.programs.spec_chunk``, prompt lookup in a random token history)
+with the g + 1 plain decode steps a round that accepts
+every draft replaces, in the order plain, spec, spec, plain, one JSON line
+each and per call: host wall, device busy and idle share, C's device ms
+(the verify forward's attention), the device ms of the dense K/V views
+the verify gathers every layer (``cache.read``, labelled ``dense_view`` in
+the trace), and of the verify's attention calls with the copies their
+launcher makes of those views (``attention``). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,12 +45,93 @@ from gofr_tpu_torch.gpu.programs import decode_chunk  # noqa: E402
 from gofr_tpu_torch.models.llama import LlamaConfig, init  # noqa: E402
 
 
+# regions of the spec round labelled in the trace
+LABELS = ("dense_view", "attention")
+
+
+def labelled(label: str, fn):
+    """``fn`` with each call inside a profiler range named ``label``."""
+    def call(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+    return call
+
+
+def profile(fn, iters: int = 3) -> dict:
+    """Host wall of one ``fn()`` without the profiler (mean of ``iters``
+    after a warm-up) and with it, and the device activity of one profiled
+    call: busy ms (kernels, copies and memsets on the one stream), the idle
+    share against the unprofiled wall, device-to-host copies, C's ms, the
+    device ms of each labelled region (``LABELS``), and ms by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    kernels, regions = {}, dict.fromkeys(LABELS, 0.0)
+    for evt in prof.key_averages():
+        if evt.key in LABELS:
+            # the host-side range holds the device time of the kernels it
+            # launched; its device-side copy is a span, not a kernel
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                regions[evt.key] += getattr(evt, "device_time_total", 0.0) / 1e3
+            continue
+        dt = getattr(evt, "self_device_time_total", None)
+        if dt is None:
+            dt = evt.self_cuda_time_total
+        if dt > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.key.removeprefix("void ")[:60]
+            kernels[name] = kernels.get(name, 0.0) + dt / 1e3  # us -> ms
+    busy = sum(kernels.values())
+    return {"wall_ms": wall * 1e3, "wall_ms_profiled": wall_profiled * 1e3,
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "memcpy_dtoh_ms": sum(v for k, v in kernels.items() if k.startswith("Memcpy DtoH")),
+            "flash_ms": sum(v for k, v in kernels.items() if "flash_kernel" in k),
+            **{f"{k}_ms": v for k, v in regions.items()},
+            "kernel_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
+
+
+def spec_rounds(args, info, model, cache, table, tokens, positions, temps, width: int) -> None:
+    """Plain, spec, spec, plain: g + 1 decode steps against one speculative
+    round on the same lanes, each profiled (``profile``); ``width`` is a
+    lane's positions."""
+    from gofr_tpu_torch.gpu.programs import new_history, spec_chunk
+    from gofr_tpu_torch.models import llama
+
+    g, n = args.spec_tokens, tokens.shape[0]
+    hist = new_history(n, width, tokens.device)
+    hist[:, :width] = torch.randint(0, model.cfg.vocab_size, (n, width),
+                                    generator=torch.Generator().manual_seed(1)).to(tokens.device)
+    type(cache).read = labelled("dense_view", type(cache).read)
+    llama.mha_attention = labelled("attention", llama.mha_attention)
+    runs = {"plain": lambda: decode_chunk(model, cache, tokens, positions, table, temps, g + 1,
+                                          None, do_sample=False),
+            "spec": lambda: spec_chunk(model, cache, hist, tokens, positions + 1, table, temps, 1,
+                                       g, None)}
+    for order, mode in enumerate(("plain", "spec", "spec", "plain")):
+        print(json.dumps({"device": info["nvidia_smi"], "layers": model.cfg.num_layers,
+                          "slots": n, "kv_layout": args.kv_layout,
+                          "kv_pool": args.kv_quantize or "bf16", "order": order, "mode": mode,
+                          "spec_tokens": g, "per_call": ("one round" if mode == "spec"
+                                                         else f"{g + 1} decode steps"),
+                          **profile(runs[mode])}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--kv-quantize", choices=KV_QUANTIZE, default="")
     ap.add_argument("--kv-layout", choices=KV_LAYOUTS, default="paged")
+    ap.add_argument("--spec-tokens", type=int, default=0)
     args = ap.parse_args()
     if args.kv_layout == "slot" and args.kv_quantize == "int4":
         ap.error("the slot layout has no int4 format")
@@ -63,46 +154,24 @@ def main() -> None:
         model.prefill(toks, lengths[i:i + 1].to(dev), cache, rows[i])
     tokens = torch.randint(0, cfg.vocab_size, (n,), generator=rng).to(dev)
     positions, temps = lengths.to(dev), torch.zeros(n, device=dev)
+    if args.spec_tokens:
+        spec_rounds(args, info, model, cache, table, tokens, positions, temps, maxp * page)
+        return
 
-    def run():
-        return decode_chunk(model, cache, tokens, positions, table, temps, args.steps,
-                            None, do_sample=False)
-
-    run()  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    wall_plain = (time.perf_counter() - t0) / 3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0  # inflated by the profiler's own cost
-    kernels = {}
-    for evt in prof.key_averages():
-        dt = getattr(evt, "self_device_time_total", None)
-        if dt is None:
-            dt = evt.self_cuda_time_total
-        if dt > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.key.removeprefix("void ")[:60]
-            kernels[name] = kernels.get(name, 0.0) + dt / 1e3  # us -> ms
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    r = profile(lambda: decode_chunk(model, cache, tokens, positions, table, temps, args.steps,
+                                     None, do_sample=False))
+    steps = args.steps
     print(json.dumps({
         "device": info["nvidia_smi"], "layers": cfg.num_layers, "slots": n,
         "kv_layout": args.kv_layout, "kv_pool": args.kv_quantize or "bf16",
-        "lengths": lengths.tolist(), "steps": args.steps,
-        "wall_ms_per_step": wall_plain * 1e3 / args.steps,
-        "wall_ms_per_step_profiled": wall * 1e3 / args.steps,
-        "device_busy_ms_per_step": busy / args.steps,
-        "device_idle_share": 1.0 - busy / (wall_plain * 1e3),
+        "lengths": lengths.tolist(), "steps": steps,
+        "wall_ms_per_step": r["wall_ms"] / steps,
+        "wall_ms_per_step_profiled": r["wall_ms_profiled"] / steps,
+        "device_busy_ms_per_step": r["device_busy_ms"] / steps,
+        "device_idle_share": r["device_idle_share"],
         # a device-to-host copy stalls the host on the card: none is expected
-        "memcpy_dtoh_ms_per_step": sum(v for k, v in kernels.items()
-                                       if k.startswith("Memcpy DtoH")) / args.steps,
-        "kernel_ms_per_step": {k: v / args.steps for k, v in top},
+        "memcpy_dtoh_ms_per_step": r["memcpy_dtoh_ms"] / steps,
+        "kernel_ms_per_step": {k: v / steps for k, v in r["kernel_ms"].items()},
     }))
 
 

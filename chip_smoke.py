@@ -56,7 +56,20 @@ result line:
    them, every request must end with 64 tokens, each of the 8 must be
    served 6 pages from the cache, and the pool's audit must pass. The
    share of requests whose tokens equal an unconstrained run's (no prefix
-   cache, no chunking, the full pool) is printed with the margins, not held;
+   cache, no chunking, the full pool) is printed with the margins, not held.
+   Then ``paged_lora``: ``bf16``'s traffic on an engine with the adapter
+   plane (4 pool slots of rank 16; three random adapters of ranks 8, 12
+   and 16), the requests on the base model and the three adapters in turn;
+   it must launch the ``bf16`` run's kernels, end every request with 64
+   tokens, give every adapter request other tokens than the ``bf16`` run's
+   on the same prompt, and leave 3 adapters resident and none referenced;
+   the share of base requests whose tokens equal the ``bf16`` run's and
+   tok/s beside it are printed. Last the adoption check: on Llama-3-8B's
+   widths cut to 2 layers, ``adopt_weights`` swaps in new random weights
+   while 4 requests decode; all 4 must end with 64 tokens, each preempted once,
+   ``weights_epoch`` must be 1, and a request after the swap must equal,
+   token for token, the same request on an engine built on the new
+   weights;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -66,11 +79,17 @@ result line:
    and each step's error of every run is reported; a ``verify_step`` of 5
    tokens after the prompt, with the kernels, must agree with its plain
    version within the same limits, and the plain verify with the plain
-   decode steps' logits within ``DECODE_RTOL``;
+   decode steps' logits within ``DECODE_RTOL``; then on each cache one
+   ``decode_step`` and one ``verify_step`` over 5 lanes on the base model
+   and the adapters (``LORA_SEL``): the base lanes' logits must be
+   bit-identical to the same call's without adapters, the adapter lanes'
+   within ``LOGITS_RTOL`` of the plain path's with adapters;
 6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
-   steps and one speculative round with a sampled lane on each cache
-   inside ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
-   call that makes the host wait on the card.
+   steps and one speculative round with a sampled lane on each cache, then
+   an adapter upload, a ``decode_step`` and a speculative round with the
+   lanes on the base model and adapters, inside
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
+   that makes the host wait on the card.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -810,6 +829,20 @@ DRAFT_LAYERS = 2
 SPEC_RUNS = {"paged_spec": ("paged", ""), "slot_spec_draft": ("slot", "")}
 ON_PATH_SPEC = {"paged_spec": ("flash_attention",),
                 "slot_spec_draft": ("flash_attention", "decode_attention", "kv_append_slot")}
+# The adapter plane: phase 4's ``paged_lora`` run is ``bf16`` with a pool of
+# 4 adapter slots of rank 16 and three random adapters of ranks 8, 12 and 16
+# (``random_adapter`` from seeds 40, 41, 42), the 8 requests on the base
+# model, ad0, ad1 and ad2 in turn; it must launch the ``bf16`` run's
+# kernels. Phases 5 and 6 use the same adapters over lanes ``LORA_SEL``.
+LORA_SLOTS = 4
+LORA_RANK = 16
+LORA_RANKS = (8, 12, 16)
+LORA_SEED = 40
+LORA_LANES = (None, "ad0", "ad1", "ad2")
+LORA_SEL = (0, 1, 2, 3, 0)
+# Phase 4's adoption check: Llama-3-8B's widths cut to ``ADOPT_LAYERS``
+# layers, old and new random weights from seeds 20 and 21.
+ADOPT_LAYERS = 2
 
 
 def run_name(kv_layout: str, kv_quantize: str) -> str:
@@ -851,13 +884,24 @@ def token_agreement(torch, model, prompts, outs, want) -> dict:
             "margin_at_first_difference": margins}
 
 
+def lora_specs(cfg) -> list:
+    """The smoke run's adapters at the model's widths (``LORA_RANKS``)."""
+    from gofr_tpu_torch.adapters import random_adapter
+
+    return [random_adapter(f"ad{i}", cfg.hidden_size, cfg.vocab_size, rank=r, seed=LORA_SEED + i)
+            for i, r in enumerate(LORA_RANKS)]
+
+
 def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "paged",
-          spec: str | None = None, draft=None) -> tuple[object, dict, dict, list]:
+          spec: str | None = None, draft=None, lora: bool = False
+          ) -> tuple[object, dict, dict, list]:
     """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
     cache ``kv_layout`` in the format ``kv_quantize``; a new model with
     random weights from the seed, or ``model`` when given. ``spec`` names a
     run of ``SPEC_RUNS``: speculative decoding, with ``draft`` as its draft
-    model if given. Returns (engine, launches, metrics, the results)."""
+    model if given. With ``lora`` the engine has the adapter plane and the
+    requests name ``LORA_LANES`` in turn. Returns (engine, launches,
+    metrics, the results)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -866,6 +910,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     spec_kw = {} if spec is None else {"spec_tokens": SPEC_G}
     if draft is not None:
         spec_kw["spec_draft"] = (draft.cfg, draft)
+    if lora:
+        spec_kw.update(adapter_slots=LORA_SLOTS, adapter_rank=LORA_RANK)
     t0 = time.perf_counter()
     eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
                        max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize,
@@ -874,6 +920,11 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     build_s = time.perf_counter() - t0
     warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
     require(warm["finish_reason"] == "length", f"warm-up request: {warm}")
+    lanes = [None] * 8
+    if lora:
+        for spec_ in lora_specs(cfg):
+            eng.register_adapter(spec_)
+        lanes = [LORA_LANES[i % len(LORA_LANES)] for i in range(8)]
 
     prompts = phase4_prompts(torch, cfg.vocab_size)
     lens = [len(p) for p in prompts]
@@ -881,13 +932,15 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     before = dict(eng.counters)
     cuda.reset_launch_counts()
     t_submit = time.monotonic()
-    reqs = [eng.submit(p, max_new_tokens=64, temperature=0.0) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=64, temperature=0.0, adapter_id=a)
+            for p, a in zip(prompts, lanes)]
     outs = [r.result(timeout=900) for r in reqs]
     torch.cuda.synchronize()
     t_done = time.monotonic()
     counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
     did = {k: v - before[k] for k, v in eng.counters.items()}
-    pool = f"{kv_layout} {kv_quantize or 'bf16'}" + (f" ({spec})" if spec else "")
+    pool = (f"{kv_layout} {kv_quantize or 'bf16'}" + (f" ({spec})" if spec else "")
+            + (" (lora)" if lora else ""))
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
                 f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
@@ -941,6 +994,13 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "note": "smoke run, not a benchmark",
     }
+    if lora:
+        stats = eng.adapter_stats()
+        require(stats["pool"]["resident"] == len(LORA_RANKS) and stats["pool"]["referenced"] == 0
+                and not stats["registry"]["inflight"],
+                f"{pool}: the adapter plane after the run: {stats}")
+        metrics.update({"adapter_lanes": lanes, "adapter_ranks": list(LORA_RANKS),
+                        "adapter_pool": stats["pool"]})
     if spec is not None:
         # one lane-round proposes g tokens and emits acc + 1
         lane_rounds = did["spec_proposed"] / SPEC_G
@@ -1118,6 +1178,138 @@ def serve_spec(torch, cuda, model, results: dict) -> dict:
     return out
 
 
+def serve_lora(torch, cuda, model, base: dict, base_outs: list) -> dict:
+    """Phase 4 ``paged_lora``: ``bf16``'s traffic with the requests on
+    ``LORA_LANES`` in turn, held as ``serve`` holds a run (the ``bf16`` run's
+    kernels, 64 tokens a request), to its adapter pool at the end (3
+    resident, none referenced), and to every adapter request's tokens
+    differing from the ``bf16`` run's on the same prompt (the adapters move
+    the logits far past bf16 ties, so a lane routed to the wrong slot shows).
+    Printed beside the ``bf16`` run of the same call: the share of base
+    requests whose tokens equal it, and tok/s."""
+    eng, counts, metrics, outs = serve(torch, cuda, model, lora=True)
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    lanes = metrics["adapter_lanes"]
+    same = [o["tokens"] == w["tokens"] for o, w in zip(outs, base_outs)]
+    on_base = [eq for eq, a in zip(same, lanes) if a is None]
+    on_adapters = [eq for eq, a in zip(same, lanes) if a is not None]
+    metrics.update({
+        "base_tokens_equal_bf16": sum(on_base) / len(on_base),
+        "adapter_tokens_differ_from_bf16": sum(not eq for eq in on_adapters) / len(on_adapters),
+        "bf16_decode_tok_s": base["decode_tok_s"], "bf16_output_tok_s": base["output_tok_s"],
+    })
+    require(metrics["adapter_tokens_differ_from_bf16"] == 1.0,
+            f"paged_lora: only {metrics['adapter_tokens_differ_from_bf16']} of the adapter "
+            f"requests differ from the bf16 run's tokens on the same prompt, so some lane "
+            f"was not routed to its adapter")
+    return {"metrics": metrics, "launches": counts}
+
+
+def adopt_check(torch, cuda) -> dict:
+    """Phase 4's adoption check: a bf16-pool engine on Llama-3-8B's widths
+    cut to ``ADOPT_LAYERS`` layers, random weights from seed 20, takes new
+    random weights (seed 21) by ``adopt_weights`` while 4 requests decode.
+    Held: all 4 end with 64 tokens, each preempted once and recomputed,
+    ``weights_epoch`` is 1, and a request after the swap equals, token for
+    token, the same request on an engine built on the new weights."""
+    from gofr_tpu_torch.gpu.engine import build_engine
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+
+    cfg = LlamaConfig.llama3_8b(num_layers=ADOPT_LAYERS)
+    old, new = (init(cfg, torch.Generator(device="cuda").manual_seed(SEED + s), "cuda")
+                for s in (20, 21))
+    knobs = dict(device="cuda", seed=SEED, slots=8, max_len=2048, max_prefill_batch=4,
+                 decode_chunk=8)
+    prompts = phase4_prompts(torch, cfg.vocab_size)
+    eng = build_engine(cfg, params=old, **knobs)
+    reqs = [eng.submit(p, max_new_tokens=64) for p in prompts[:4]]
+    deadline = time.monotonic() + 300
+    while sum(s is not None and bool(s.generated) for s in eng.slots) < 4:
+        require(time.monotonic() < deadline, "adoption: the 4 requests never all decoded")
+        time.sleep(0.001)
+    t0 = time.perf_counter()
+    epoch = eng.adopt_weights(new, timeout_s=300)
+    swap_s = time.perf_counter() - t0
+    outs = [r.result(timeout=600) for r in reqs]
+    require(all(o["finish_reason"] == "length" and len(o["tokens"]) == 64 for o in outs),
+            f"adoption: a request in flight did not complete: {[o['finish_reason'] for o in outs]}")
+    require(epoch == eng.weights_epoch == 1, f"adoption: weights epoch {eng.weights_epoch}")
+    require([o["preemptions"] for o in outs] == [1] * 4,
+            f"adoption: preemptions {[o['preemptions'] for o in outs]}")
+    after = eng.generate(prompts[4], max_new_tokens=32, timeout=600)["tokens"]
+    eng.check_page_refs()
+    eng.stop()
+    fresh = build_engine(cfg, params=new, **knobs)
+    want = fresh.generate(prompts[4], max_new_tokens=32, timeout=600)["tokens"]
+    fresh.stop()
+    del eng, fresh, old, new
+    torch.cuda.empty_cache()
+    require(after == want, f"adoption: tokens after the swap {after} differ from an engine built "
+                           f"on the new weights {want}")
+    return {"layers": ADOPT_LAYERS, "requests_in_flight": 4, "weights_epoch": epoch,
+            "adopt_s": swap_s, "preemptions": [o["preemptions"] for o in outs],
+            "after_swap_equals_new_engine": True, "tokens_compared": len(want)}
+
+
+def lora_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
+    """Phase 5's adapter holds on one cache: 5 lanes of 128-token prompts
+    prefilled together, then one ``decode_step`` and one ``verify_step`` of
+    5 tokens with the lanes on ``LORA_SEL`` (base, ad0, ad1, ad2, base),
+    each on its own copy of the cache: with the kernels and no adapters,
+    with the kernels and the adapters, and with the plain versions and the
+    adapters. The base lanes' logits must be bit-identical with and without
+    the adapters, and the adapter lanes' within the cache's
+    ``LOGITS_RTOL`` of the plain path's (max error over max |logit|)."""
+    import copy
+
+    from gofr_tpu_torch.adapters import AdapterPool
+    from gofr_tpu_torch.gpu.engine import make_pool
+
+    cfg, n, page, plen = model.cfg, len(LORA_SEL), 128, 128
+    rng = torch.Generator().manual_seed(SEED + 6)
+    prompts = torch.randint(0, cfg.vocab_size, (n, plen), generator=rng).cuda()
+    tokens = torch.randint(0, cfg.vocab_size, (n,), generator=rng).cuda()
+    seq = torch.randint(0, cfg.vocab_size, (n, 5), generator=rng).cuda()
+    if kv_layout == "paged":
+        cache = make_pool(model, kv_quantize, 2 * n, page)
+        table = torch.arange(2 * n, dtype=torch.int32, device="cuda").view(n, 2)
+        rows = table
+    else:
+        cache, table = make_pool(model, kv_quantize, n, 2 * page, "slot"), None
+        rows = torch.arange(n, dtype=torch.int32, device="cuda")
+    model.prefill(prompts, torch.full((n,), plen, device="cuda"), cache, rows)
+    pool = AdapterPool(LORA_SLOTS, cfg.hidden_size, cfg.vocab_size, LORA_RANK, device="cuda")
+    for spec in lora_specs(cfg):
+        pool.acquire(spec)
+    sel = torch.tensor(LORA_SEL, device="cuda")
+    ad = (sel, pool.a, pool.b, pool.scale)
+    base = sel == 0
+    pos = torch.full((n,), plen, device="cuda")
+    copies = [copy.deepcopy(cache) for _ in range(3)]
+    out = {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "sel": list(LORA_SEL),
+           "tol_rel": LOGITS_RTOL[kv_quantize]}
+    pool_name = f"{kv_layout} {kv_quantize or 'bf16'}"
+    for name, call in (("decode", lambda c, **kw: model.decode_step(tokens, pos, c, table, **kw)),
+                       ("verify", lambda c, **kw: model.verify_step(seq, pos + 1, c, table, **kw))):
+        plain, _ = call(copies[0])
+        with_ad, _ = call(copies[1], adapters=ad)
+        ref, _ = call(copies[2], adapters=ad, kernels=False)
+        require(bool(with_ad.isfinite().all()), f"{pool_name} {name}: non-finite logits")
+        rel = ((with_ad[~base] - ref[~base]).abs().max() / ref[~base].abs().max()).item()
+        moved = (with_ad[~base] - plain[~base]).abs().max().item()
+        require(torch.equal(with_ad[base], plain[base]),
+                f"{pool_name} {name}: base lanes' logits differ with the adapters on")
+        require(rel < LOGITS_RTOL[kv_quantize] and moved > 0,
+                f"{pool_name} {name}: adapter lanes vs plain {rel} (limit "
+                f"{LOGITS_RTOL[kv_quantize]}), moved by the adapters {moved}")
+        out[name] = {"base_bit_identical": True, "adapter_rel_err": rel,
+                     "adapter_max_logit_move": moved}
+    del copies, cache
+    return out
+
+
 def fresh_cache(torch, model, kv_quantize: str, kv_layout: str) -> tuple:
     """(cache, prefill rows, decode table) of one lane of 512 positions: 4
     pages of 128, or one slot."""
@@ -1283,11 +1475,43 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     require(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all())
             and bool(((accs >= 0) & (accs <= SPEC_G)).all()),
             f"{pool}: a spec round emitted {toks.tolist()}, accepted {accs.tolist()}")
+    spec_launches = counts["flash_attention"]
+
+    # the adapter plane: one upload (the third adapter into a pool holding
+    # two), then a decode step and a spec round with the lanes on base and
+    # adapters in turn
+    from gofr_tpu_torch.adapters import AdapterPool
+
+    specs = lora_specs(model.cfg)
+    lora_pool = AdapterPool(LORA_SLOTS, model.cfg.hidden_size, model.cfg.vocab_size, LORA_RANK,
+                            device="cuda")
+    for spec in specs[:-1]:
+        lora_pool.acquire(spec)
+    sel = torch.tensor([i % LORA_SLOTS for i in range(n)], device="cuda")
+    ad = (sel, lora_pool.a, lora_pool.b, lora_pool.scale)
+    torch.cuda.synchronize()
+
+    def lora_round():
+        lora_pool.acquire(specs[-1])
+        logits, _ = model.decode_step(tokens, positions + steps, cache, table, adapters=ad)
+        toks, _ = spec_chunk(model, cache, hist, tokens, hlen + steps, table, temps, 1, SPEC_G,
+                             gen, top_k=50, top_p=0.95, adapters=ad)
+        return torch.cat([logits.flatten(), toks.float().flatten()])
+
+    counts = unsynced(lora_round)
+    require(all(counts[k] == layers for k in decode_kernels)
+            and counts["flash_attention"] == flash_attention.offset_launches == layers
+            and sum(counts.values()) == layers * (len(decode_kernels) + 1)
+            and lora_pool.uploads == len(specs),
+            f"{pool}: a decode step and a spec round with adapters launched {counts}")
     return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "chunks": 2,
             "steps": steps, "spec_rounds": 1, "spec_sampled_lanes": 1, "sync_debug_mode": "error",
+            "adapters": {"uploads_in_check": 1, "decode_steps": 1, "spec_rounds": 1,
+                         "sel": sel.tolist()},
             "launches": {"flash_attention (chunks)": chunk_launches,
                          **{k: counts_decode[k] for k in decode_kernels},
-                         "flash_attention (verify)": counts["flash_attention"]}}
+                         "flash_attention (verify)": spec_launches,
+                         "with adapters": counts}}
 
 
 # Phase 5's runs besides the plain one: (prefill kernels, decode kernels,
@@ -1422,10 +1646,23 @@ def main() -> None:
     served["paged_admission"] = admission
     lap("phase4_paged_admission")
 
+    served["paged_lora"] = serve_lora(torch, cuda, model, served["paged", ""]["metrics"],
+                                      results["paged", ""])
+    emit("phase4_serve_paged_lora", {**served["paged_lora"]["metrics"],
+                                     "launches": served["paged_lora"]["launches"]})
+    lap("phase4_paged_lora")
+
+    adoption = adopt_check(torch, cuda)
+    emit("phase4_adopt_weights", adoption)
+    served["adopt_weights"] = adoption
+    lap("phase4_adopt_weights")
+
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
         lap(f"phase5_{run_name(kv_layout, kv_quantize)}")
+    emit("phase5_lora", [lora_check(torch, model, *run) for run in RUNS])
+    lap("phase5_lora")
 
     emit("phase6_no_sync", [no_sync_check(torch, cuda, model, *run) for run in RUNS])
     lap("phase6")

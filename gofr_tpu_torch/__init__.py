@@ -8,7 +8,11 @@ layout mirrors the JAX package so each module has an obvious counterpart:
 - ``gpu/programs.py``    the prefill and decode step functions (tpu/programs.py)
 - ``gpu/engine.py``      continuous batching over the paged pool (tpu/engine.py)
 - ``models/llama.py``    the Llama family as an ``nn.Module`` (models/llama.py)
-- ``ops/``               norms, rope, sampling, the paged pool, attention
+- ``adapters/``          multi-LoRA: the host registry and the device pool
+                         (adapters/__init__.py)
+- ``http/errors.py``     the typed errors the engine raises (http/errors.py)
+- ``ops/``               norms, rope, sampling, the paged pool, attention,
+                         the LoRA delta
 - ``ops/cuda/``          the hand-written Hopper kernels and their loader
 - ``csrc/``              the kernels' CUDA C++ sources, built with nvcc at
                          first use into ``build/`` (never committed)

@@ -10,7 +10,10 @@ the JAX engine does with no round in flight (decode.py:110), and gives back
 after the fold the pages that the tokens accepted did not reach
 (decode.py:95, engine.py:2943); preemption then decides as the JAX engine
 does. Both run on the device thread with the state lock held, and return
-whether a slot changed.
+whether a slot changed. With the adapter plane on, each lane's adapter-pool
+slot goes to the device with the other per-lane inputs (decode.py:28, 59:
+the packs' ``sel`` row); a lane without an adapter, and an idle lane,
+select the base slot 0.
 """
 
 from __future__ import annotations
@@ -38,13 +41,15 @@ def decode_round(eng: GenerateEngine) -> bool:
     tokens = np.zeros(n, np.int64)
     positions = np.full(n, eng._idle_position, np.int64)
     temps = np.zeros(n, np.float32)
+    sel = np.zeros(n, np.int64)
     for i, s in lanes:
         tokens[i], positions[i], temps[i] = s.generated[-1], s.pos, s.temperature
+        sel[i] = s.adapter_slot
     out = decode_chunk(
         eng.model, eng.cache, eng._to_device(tokens), eng._to_device(positions),
         None if eng._table is None else eng._to_device(eng._masked_table(lanes)),
         eng._to_device(temps), eng.decode_chunk, eng._generator, top_k=eng.top_k,
-        top_p=eng.top_p, do_sample=bool(temps.max() > 0),
+        top_p=eng.top_p, do_sample=bool(temps.max() > 0), adapters=eng._adapter_args(sel),
     ).cpu().numpy()
     for i, s in lanes:
         for tok in out[i]:
@@ -72,13 +77,15 @@ def spec_round(eng: GenerateEngine) -> bool:
     tokens = np.zeros(n, np.int64)
     hlen = np.full(n, idle, np.int64)
     temps = np.zeros(n, np.float32)
+    sel = np.zeros(n, np.int64)
     for i, s in lanes:
         tokens[i], hlen[i], temps[i] = s.generated[-1], s.pos + 1, s.temperature
+        sel[i] = s.adapter_slot
     toks, accs = spec_chunk(
         eng.model, eng.cache, eng._aux, eng._to_device(tokens), eng._to_device(hlen),
         None if eng._table is None else eng._to_device(eng._masked_table(lanes)),
         eng._to_device(temps), eng.decode_chunk, eng.spec_tokens, eng._generator,
-        top_k=eng.top_k, top_p=eng.top_p)
+        top_k=eng.top_k, top_p=eng.top_p, adapters=eng._adapter_args(sel))
     fold_spec(eng, toks.cpu().numpy(), accs.cpu().numpy(), lanes)
     return True
 
@@ -90,14 +97,18 @@ def fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
     a round until EOS or its length ends it, and the rest of the chunk is
     dropped. Every lane is charged K * g proposals and credited each
     round's accepts up to the round that ends it, as the JAX engine counts
-    them. A paged lane that goes on decoding gives back the pages past its
-    next write."""
+    them, in the engine's counters and on its request (which
+    ``spec_accept_totals`` sums by adapter when it completes). A paged lane
+    that goes on decoding gives back the pages past its next write."""
     k, g = accs.shape[0], eng.spec_tokens
     accepted = trimmed = 0
     for i, s in lanes:
+        kw = s.request.kw
+        kw["_spec_proposed"] = kw.get("_spec_proposed", 0) + k * g
         for kk in range(k):
             a = int(accs[kk, i])
             accepted += a
+            kw["_spec_accepted"] = kw.get("_spec_accepted", 0) + a
             for tok in toks[kk, i, :a + 1]:
                 s.generated.append(int(tok))
                 s.pos += 1

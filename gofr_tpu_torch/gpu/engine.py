@@ -48,8 +48,20 @@ the accepted tokens did not need after it (engine.py:2943).
 
 ``generate(stream=True)`` returns an iterator of the tokens as they are
 decoded: ids, or text pieces by incremental detokenization with a
-tokenizer (engine.py:3872). QoS, adapters, handoff, lockstep, the prefix
-cache's host tier, autotune and the perf plane are not ported yet.
+tokenizer (engine.py:3872).
+
+``adapter_slots`` (or ``adapter_pool_mb``) turns on the adapter plane
+(engine.py:1455-1493): requests may name a registered LoRA adapter
+(``submit(..., adapter_id=...)``), and each admission binds its adapter to
+a slot of the device pool (``adapters.AdapterPool``), so one step serves a
+batch that mixes adapters; when every pool slot is referenced the request
+waits, as on page exhaustion, and the reference drops when its slot is
+freed or preempted. The prefix cache stays shared across adapters: LoRA
+sits at the head, so K/V do not depend on it. ``adopt_weights`` swaps in
+new weights between loop turns with no request dropped: it preempts every
+slot, resets the caches and copies the weights in place
+(engine.py:2155-2264). QoS, handoff, lockstep, the prefix cache's host
+tier, checkpoint adoption, autotune and the perf plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,12 +77,20 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch.adapters import AdapterPool, AdapterRegistry, AdapterSpec
 from gofr_tpu_torch.gpu import decode
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history, prefill_chunk, prefill_sample
-from gofr_tpu_torch.models.llama import AnyKVCache, Llama, LlamaConfig, init, params_from_jax
+from gofr_tpu_torch.models.llama import (
+    AnyKVCache,
+    Llama,
+    LlamaConfig,
+    init,
+    jax_state,
+    params_from_jax,
+)
 
 log = logging.getLogger(__name__)
 
@@ -135,13 +155,26 @@ class Request:
         self._lock = threading.Lock()
         self._result: Any = None
         self._error: BaseException | None = None
+        self._callbacks: list = []
+
+    def add_done_callback(self, fn) -> None:
+        """Call ``fn(request)`` once it completes, however it ends (at once
+        if it has)."""
+        with self._lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
 
     def complete(self, result: Any = None, error: BaseException | None = None) -> None:
-        """First writer wins (a late result after ``stop`` is ignored)."""
+        """First writer wins (a late result after ``stop`` is ignored). The
+        done callbacks run before a waiter wakes."""
         with self._lock:
             if self._done.is_set():
                 return
             self._result, self._error = result, error
+            for fn in self._callbacks:
+                fn(self)
             if self.stream_q is not None:
                 self.stream_q.put(None)  # the end of the stream
             self._done.set()
@@ -207,13 +240,15 @@ class _Slot:
     of the prompt the cache holds (a prefix hit starts it past 0) and
     ``generated`` is empty; from its first token on, ``generated`` holds
     every output token of this admission and ``pos`` is where the last one's
-    K/V goes on the next decode step."""
+    K/V goes on the next decode step. ``adapter_id`` names its LoRA adapter
+    (None: the base model) and ``adapter_slot`` the adapter-pool slot it
+    holds a reference to (0: the base slot, never counted)."""
 
     __slots__ = ("request", "prompt_tokens", "prompt_len", "max_total", "eos", "temperature",
-                 "admit_seq", "written", "generated", "pos")
+                 "admit_seq", "written", "generated", "pos", "adapter_id", "adapter_slot")
 
     def __init__(self, request: Request, toks: np.ndarray, max_len: int,
-                 eos: int | None, admit_seq: int):
+                 eos: int | None, admit_seq: int, adapter: tuple[str | None, int] = (None, 0)):
         self.request = request
         self.prompt_tokens = toks
         self.prompt_len = int(toks.shape[0])
@@ -224,6 +259,7 @@ class _Slot:
         self.written = 0
         self.generated: list[int] = []
         self.pos = self.prompt_len
+        self.adapter_id, self.adapter_slot = adapter
 
 
 class GenerateEngine:
@@ -246,7 +282,10 @@ class GenerateEngine:
     decodes speculatively, proposing that many tokens a round by prompt
     lookup, or by the draft model of ``spec_draft`` = (its ``LlamaConfig``,
     its ``Llama``; slot layout only, on the engine's device, sharing the
-    target's vocabulary)."""
+    target's vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
+    from which the slots are derived) turns on the adapter plane: a device
+    pool of that many slots of rank up to ``adapter_rank``, slot 0 the base,
+    and a host registry of ``adapter_host_mb``."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -255,7 +294,9 @@ class GenerateEngine:
                  tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
                  page_size: int = 128, total_pages: int | None = None,
                  prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
-                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None):
+                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
+                 adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
+                 adapter_host_mb: float = 256.0):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -337,6 +378,27 @@ class GenerateEngine:
             width = (self.pages_per_slot * page_size if kv_layout == "paged"
                      else self.cache_len)
             self._aux = new_history(slots, width, self.device)
+        # the adapter plane (engine.py:1455-1493): off, nothing changes
+        ad_slots, ad_rank = int(adapter_slots), int(adapter_rank)
+        if (ad_slots or adapter_pool_mb) and ad_rank < 1:
+            raise ValueError(f"adapter_rank must be >= 1; got {adapter_rank}")
+        if adapter_pool_mb and not ad_slots:
+            ad_slots = AdapterPool.slots_for_budget(float(adapter_pool_mb), self.cfg.hidden_size,
+                                                    self.cfg.vocab_size, ad_rank)
+        self.adapters: AdapterRegistry | None = None
+        self._adapter_pool: AdapterPool | None = None
+        if ad_slots:
+            self._adapter_pool = AdapterPool(ad_slots, self.cfg.hidden_size,
+                                             self.cfg.vocab_size, ad_rank, device=self.device)
+            self.adapters = AdapterRegistry(host_budget_mb=float(adapter_host_mb))
+        # lifetime (accepted, proposed) draft tokens by adapter, summed from
+        # each request as it completes (engine.py:536)
+        self._spec_totals: dict[str, list[float]] = {}
+        self._totals_lock = threading.Lock()
+        # full-model adoptions so far, and one waiting for the loop
+        self.weights_epoch = 0
+        self._pending_weights: tuple[dict, threading.Event] | None = None
+        self._swap_lock = threading.Lock()
         self.slots: list[_Slot | None] = [None] * slots
         self._admit_seq = 0
         # what admission did, for callers and the smoke run
@@ -376,14 +438,43 @@ class GenerateEngine:
                timeout: float | None = None, stream: bool = False, **kw: Any) -> Request:
         """Non-blocking enqueue; returns the Request future (with
         ``stream``, one whose ``stream_q`` gets the tokens as they come).
-        ``eos_token_id`` in ``kw`` overrides the engine's."""
+        ``eos_token_id`` in ``kw`` overrides the engine's. ``adapter_id``
+        in ``kw`` names a registered LoRA adapter (engine.py:434-455): an
+        unknown one, or one named on an engine without the adapter plane,
+        raises ValueError, and one at its cap raises ``TooManyRequests``;
+        the request's share of the cap goes back when it completes,
+        however it ends."""
         if self._stop.is_set() or self._error is not None:
             raise EngineClosed("engine stopped") from self._error
+        if "adapter_id" in kw:  # the public spelling of the routing key
+            kw["_adapter"] = kw.pop("adapter_id")
+        aname = kw.get("_adapter") or None
+        if aname:
+            if self.adapters is None:
+                raise ValueError(f"request names adapter {aname!r} but this engine has no "
+                                 "adapter plane (set adapter_slots or adapter_pool_mb)")
+            try:
+                self.adapters.admit(aname)
+            except KeyError as e:
+                raise ValueError(str(e.args[0]) if e.args else str(e)) from None
         req = Request(prompt, {**kw, "max_new_tokens": int(max_new_tokens),
                                "temperature": float(temperature)},
                       timeout if timeout is not None else self.default_timeout, stream)
+        if aname:
+            req.add_done_callback(lambda _r, _n=aname: self.adapters.release(_n))
+        req.add_done_callback(self._observe_done)
         self._queue.put(req)
         return req
+
+    def _observe_done(self, req: Request) -> None:
+        """Add a completed request's draft tokens to its adapter's totals
+        (engine.py:534-543), however it ended."""
+        proposed = req.kw.get("_spec_proposed")
+        if proposed:
+            with self._totals_lock:
+                tot = self._spec_totals.setdefault(req.kw.get("_adapter") or "base", [0.0, 0.0])
+                tot[0] += float(req.kw.get("_spec_accepted", 0))
+                tot[1] += float(proposed)
 
     def generate(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
                  timeout: float | None = None, stream: bool = False,
@@ -404,12 +495,72 @@ class GenerateEngine:
 
     def spec_accept_totals(self) -> dict[str, tuple[float, float]]:
         """Lifetime (accepted, proposed) draft tokens of speculative decoding
-        by adapter, "base" being no adapter, the only one here (engine.py:
-        1877); empty before the first round."""
+        by adapter, "base" for requests without one, summed over completed
+        requests (engine.py:1877); empty before the first completes."""
+        with self._totals_lock:
+            return {k: (v[0], v[1]) for k, v in self._spec_totals.items()}
+
+    # -- the adapter plane (engine.py:2078-2152) ----------------------------------
+
+    def register_adapter(self, spec: AdapterSpec) -> None:
+        """Install (or replace) a named LoRA adapter. Registration is host
+        side; the upload happens at the first admission that names it.
+        Replacing an adapter that a live lane references raises, and so
+        does a rank above the pool's."""
+        if self.adapters is None:
+            raise RuntimeError("engine built without the adapter plane; set adapter_slots "
+                               "or adapter_pool_mb")
+        if spec.rank > self._adapter_pool.rank:
+            raise ValueError(f"adapter {spec.name!r} rank {spec.rank} exceeds the pool rank "
+                             f"{self._adapter_pool.rank} (adapter_rank)")
         with self._state_lock:
-            proposed = self.counters["spec_proposed"]
-            accepted = self.counters["spec_accepted"]
-        return {"base": (float(accepted), float(proposed))} if proposed else {}
+            self.adapters.register(spec, pool=self._adapter_pool)
+
+    def unregister_adapter(self, name: str) -> None:
+        """Remove an adapter from both tiers; raises while a lane references
+        it."""
+        if self.adapters is None:
+            return
+        with self._state_lock:
+            self.adapters.unregister(name, pool=self._adapter_pool)
+
+    def adapter_stats(self) -> dict[str, Any]:
+        """Both tiers' occupancy and the weights epoch."""
+        if self.adapters is None:
+            return {"enabled": False, "weights_epoch": self.weights_epoch}
+        with self._state_lock:
+            pool = self._adapter_pool.stats()
+        return {"enabled": True, "registry": self.adapters.stats(), "pool": pool,
+                "weights_epoch": self.weights_epoch}
+
+    def adapters_digest(self) -> str:
+        """The registered set's fingerprint ("" without the plane)."""
+        return self.adapters.digest() if self.adapters is not None else ""
+
+    def _adapter_args(self, sel: np.ndarray) -> tuple | None:
+        """The ``adapters`` argument of a step: the lanes' pool slots
+        ``sel`` on the device with the pool's tensors; None without the
+        plane, so the step runs exactly as before."""
+        p = self._adapter_pool
+        if p is None:
+            return None
+        return (self._to_device(sel.astype(np.int64)), p.a, p.b, p.scale)
+
+    def _acquire_adapter(self, req: Request) -> tuple[str | None, int] | str | None:
+        """Bind ``req``'s adapter to a pool slot at admission: ``(name,
+        slot)``, ``(None, 0)`` for the base model, ``"wait"`` when every pool
+        slot is referenced (the caller requeues), or None when the adapter
+        was unregistered since submission (the request fails here)."""
+        name = req.kw.get("_adapter")
+        if not name or self.adapters is None:
+            return (None, 0)
+        try:
+            spec = self.adapters.get(name)
+        except KeyError as e:
+            req.complete(error=ValueError(str(e.args[0]) if e.args else str(e)))
+            return None
+        slot = self._adapter_pool.acquire(spec)
+        return "wait" if slot is None else (name, slot)
 
     def free_pages(self) -> int:
         if self._table is None:
@@ -465,6 +616,99 @@ class GenerateEngine:
                        f"slot {i}: table entries past its pages are not OOB")
                 _audit(self.slots[i] is not None or not pages, f"empty slot {i} holds pages")
 
+    # -- live weight adoption (engine.py:2155-2264) --------------------------------
+
+    def adopt_weights(self, new_params: Any, *, timeout_s: float | None = 30.0) -> int:
+        """Serve new weights from the next loop turn on, with no restart and
+        no request dropped: the loop preempts every slot (its request goes
+        back to the queue with what it generated folded into its prompt, to
+        be prefilled again on the new weights), resets the KV cache, the
+        prefix cache and the proposer's state, copies the new weights into
+        the model's parameters in place (no buffer moves) and bumps
+        ``weights_epoch``, which it returns. ``new_params`` takes the forms
+        ``build_engine`` takes: a ``Llama``, or a JAX parameter tree as
+        numpy arrays; on a draft engine, the target alone (the draft keeps
+        its weights) or ``{"t": target, "d": draft}``. A tree of another
+        structure, shape or dtype raises ValueError. Blocks up to
+        ``timeout_s`` (None: stage and return); applied at once when the
+        loop is not running."""
+        staged = self._match_weights(new_params)
+        done = threading.Event()
+        with self._swap_lock:
+            self._pending_weights = (staged, done)
+        if not self._thread.is_alive():
+            self._apply_pending_weights()
+            return self.weights_epoch
+        if timeout_s is not None and not done.wait(timeout_s):
+            raise TimeoutError(f"weight adoption not applied within {timeout_s:.1f}s")
+        return self.weights_epoch
+
+    def _match_weights(self, new_params: Any) -> dict[str, dict[str, torch.Tensor]]:
+        """The replacement's tensors by model ("t", and "d" for a draft it
+        names), each checked against the serving parameters: the same names,
+        shapes and dtypes, or ValueError."""
+        draft = self._aux.model if isinstance(self._aux, Draft) else None
+        parts = (new_params if draft is not None and isinstance(new_params, dict)
+                 and set(new_params) == {"t", "d"} else {"t": new_params})
+        staged = {}
+        for key, new in parts.items():
+            model = self.model if key == "t" else draft
+            try:
+                state = (dict(new.named_parameters()) if isinstance(new, Llama)
+                         else jax_state(new))
+            except (KeyError, TypeError, IndexError) as e:
+                raise ValueError(f"adopt_weights: not a Llama or a Llama parameter tree ({e!r})"
+                                 ) from None
+            serving = dict(model.named_parameters())
+            if set(state) != set(serving):
+                raise ValueError("adopt_weights: replacement tree structure does not match the "
+                                 "serving tree (same config required)")
+            for name, old in serving.items():
+                t = state[name]
+                if tuple(t.shape) != tuple(old.shape) or t.dtype != old.dtype:
+                    raise ValueError(f"adopt_weights: {name} {tuple(t.shape)}/{t.dtype} != "
+                                     f"serving {tuple(old.shape)}/{old.dtype}")
+            staged[key] = state
+        return staged
+
+    def _apply_pending_weights(self) -> None:
+        """The loop's half of the adoption, at a turn boundary (nothing is
+        in flight between turns): preempt every slot, reset the per-epoch
+        device state, copy the weights, bump the epoch."""
+        with self._swap_lock:
+            pending, self._pending_weights = self._pending_weights, None
+        if pending is None:
+            return
+        staged, done = pending
+        with self._state_lock:
+            while self._preempt_newest():
+                pass
+            self._reset_device_state()
+            with torch.no_grad():
+                for key, state in staged.items():
+                    model = self.model if key == "t" else self._aux.model
+                    for name, p in model.named_parameters():
+                        p.copy_(state[name])
+            self.weights_epoch += 1
+        log.warning("weights adopted (weights epoch %d); slot-resident work requeued",
+                    self.weights_epoch)
+        done.set()
+
+    def _reset_device_state(self) -> None:
+        """Every per-epoch piece of device state back to a new engine's
+        (engine.py:2391), with every slot already empty: the KV cache and
+        the proposer's history or draft cache zeroed in place, and on the
+        paged layout the prefix cache emptied, its pages given back."""
+        caches = [self.cache] + ([self._aux.cache] if isinstance(self._aux, Draft) else [])
+        for cache in caches:
+            for t in vars(cache).values():
+                t.zero_()
+        if isinstance(self._aux, torch.Tensor):
+            self._aux.zero_()
+        if self._prefix is not None:
+            for p in self._prefix.clear():
+                self._unref_page(p)
+
     # -- device thread ---------------------------------------------------------
 
     def _run(self) -> None:
@@ -473,6 +717,8 @@ class GenerateEngine:
         stepping between the chunks of a long prompt."""
         try:
             while not self._stop.is_set():
+                if self._pending_weights is not None:
+                    self._apply_pending_weights()
                 with self._state_lock:
                     busy = self._admit()
                     busy = self._advance_chunked() or busy
@@ -558,9 +804,10 @@ class GenerateEngine:
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
-    def _claim(self, idx: int, req: Request, toks: np.ndarray) -> _Slot:
+    def _claim(self, idx: int, req: Request, toks: np.ndarray,
+               adapter: tuple[str | None, int] = (None, 0)) -> _Slot:
         slot = _Slot(req, toks, self.max_len, req.kw.get("eos_token_id", self.eos_token_id),
-                     self._admit_seq)
+                     self._admit_seq, adapter)
         self._admit_seq += 1
         self.slots[idx] = slot
         return slot
@@ -577,15 +824,23 @@ class GenerateEngine:
 
     def _admit_long(self) -> bool:
         """Claim a free slot for each waiting long prompt, with its prefix
-        hit (engine.py:3424). No device work: ``_advance_chunked`` streams
-        the prompt into the cache one chunk per loop turn."""
+        hit and its adapter (engine.py:3424). No device work:
+        ``_advance_chunked`` streams the prompt into the cache one chunk per
+        loop turn. When every adapter-pool slot is referenced, the prompt
+        goes back to the head of the queue."""
         claimed = False
         while self._pending_long and None in self.slots:
             req, toks = self._pending_long.pop(0)
             if self._dropped(req, time.monotonic()):
                 continue
+            ad = self._acquire_adapter(req)
+            if ad is None:
+                continue  # unregistered since submission; the request failed
+            if ad == "wait":
+                self._pending_long.insert(0, (req, toks))
+                break
             idx = self._free_slots()[0]
-            self._prefix_hit(idx, self._claim(idx, req, toks), toks)
+            self._prefix_hit(idx, self._claim(idx, req, toks, ad), toks)
             claimed = True
         return claimed
 
@@ -600,7 +855,13 @@ class GenerateEngine:
         them, admission stops and the rest wait, so later arrivals cannot
         starve it. The batch is padded to its longest chosen prompt, not to
         the plan's length bucket: the bucket bounds XLA's compile cache,
-        and eager PyTorch has none; the chosen set is the reference's."""
+        and eager PyTorch has none; the chosen set is the reference's.
+
+        With the adapter plane on, each chosen request first binds its
+        adapter (engine.py:3673-3766): once the pool is fully referenced,
+        it and the rest of the batch go back to the pending list, and a
+        request that page exhaustion bounces back gives its reference
+        up."""
         if not self._pending:
             return False
         now = time.monotonic()
@@ -617,6 +878,23 @@ class GenerateEngine:
         taken = set(plan.chosen) | set(plan.expired)
         self._pending = [p for i, p in enumerate(self._pending) if i not in taken]
 
+        # each chosen request's adapter, bound before any slot or page is
+        # claimed
+        ad_of: dict[int, tuple[str | None, int]] = {}
+        if self.adapters is not None:
+            bound, wait = [], False
+            for req, toks in ready:
+                ad = None if wait else self._acquire_adapter(req)
+                if ad is None and not wait:
+                    continue  # unregistered since submission; the request failed
+                if wait or ad == "wait":
+                    wait = True
+                    self._pending.append((req, toks))
+                    continue
+                ad_of[id(req)] = ad
+                bound.append((req, toks))
+            ready = bound
+
         claimed = False
         if self._prefix is not None:
             still = []
@@ -624,7 +902,8 @@ class GenerateEngine:
                 chain = self._usable_hit(toks)
                 if 2 * len(chain) * self.page_size >= toks.shape[0]:
                     idx = self._free_slots()[0]
-                    self._prefix_hit(idx, self._claim(idx, req, toks), toks, chain)
+                    slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
+                    self._prefix_hit(idx, slot, toks, chain)
                     claimed = True
                 else:
                     still.append((req, toks))
@@ -637,6 +916,8 @@ class GenerateEngine:
                     admitted.append((req, toks))
                 else:
                     exhausted = True
+                    if id(req) in ad_of:
+                        self._adapter_pool.release(ad_of.pop(id(req))[1])
                     self._pending.append((req, toks))
             ready = admitted
         if not ready:
@@ -647,7 +928,8 @@ class GenerateEngine:
             self.counters["prefix_misses"] += len(ready)
 
         rows = free[:len(ready)]
-        batch = [(idx, self._claim(idx, req, toks)) for idx, (req, toks) in zip(rows, ready)]
+        batch = [(idx, self._claim(idx, req, toks, ad_of.get(id(req), (None, 0))))
+                 for idx, (req, toks) in zip(rows, ready)]
         tokens = np.zeros((len(batch), max(s.prompt_len for _, s in batch)), np.int64)
         for row, (_, s) in enumerate(batch):
             tokens[row, :s.prompt_len] = s.prompt_tokens
@@ -665,6 +947,7 @@ class GenerateEngine:
             self._to_device(np.array(temps, np.float32)), self._generator,
             top_k=self.top_k, top_p=self.top_p, do_sample=max(temps) > 0,
             aux=self._aux, slots=slot_ids, width=plan.len_bucket,
+            adapters=self._adapter_args(np.array([s.adapter_slot for _, s in batch])),
         ).tolist()
         for (idx, s), tok in zip(batch, first):
             self._activate_lane(idx, s, int(tok))
@@ -703,7 +986,8 @@ class GenerateEngine:
             self._to_device(np.array([s.temperature], np.float32)), self._generator, last,
             top_k=self.top_k, top_p=self.top_p, do_sample=s.temperature > 0, aux=self._aux,
             slots=None if self._aux is None else self._to_device(np.array([idx], np.int64)),
-            width=next_bucket(chunk, self.prefill_buckets))
+            width=next_bucket(chunk, self.prefill_buckets),
+            adapters=self._adapter_args(np.array([s.adapter_slot])))
         s.written += chunk
         self.counters["prefill_chunks"] += 1
         self.counters["prefill_chunks_at_offset"] += offset > 0
@@ -834,12 +1118,16 @@ class GenerateEngine:
 
     def _free_slot(self, idx: int) -> None:
         """Vacate a slot; on the paged layout it gives up its share of each
-        page (a page the prefix cache or another slot holds stays)."""
+        page (a page the prefix cache or another slot holds stays), and its
+        adapter-pool reference drops (engine.py:2731)."""
         if self._table is not None:
             pages, self._slot_pages[idx] = self._slot_pages[idx], []
             self._table[idx] = self.total_pages
             for p in pages:
                 self._unref_page(p)
+        s = self.slots[idx]
+        if s is not None and self._adapter_pool is not None:
+            self._adapter_pool.release(s.adapter_slot)
         self.slots[idx] = None
 
     def _evict_prefix_page(self) -> bool:

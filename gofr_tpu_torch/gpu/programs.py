@@ -28,6 +28,14 @@ speculation on, the prefills also bring the proposer up to date
 (``seed_aux``): they write each prompt into the device-resident history
 (``seed_history``), or prefill the draft model's own slot cache over the
 same tokens (programs.py ``_seed_hist``, ``_seed_aux``).
+
+With the adapter plane on, every step takes ``adapters`` = (``sel``, the
+lanes' adapter-pool slots [B] or [N], and the pool's ``a``, ``b``,
+``scale``; programs.py:47-54, ``_akw``) and hands it to the target model's
+forward: every prefill chunk, not only the last (a history takes a token
+after every chunk), every decode step, and every verify. The draft model
+runs base weights: neither its prefill nor its g + 1 steps take adapters
+(programs.py:512-516).
 """
 
 from __future__ import annotations
@@ -105,12 +113,13 @@ def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                    lengths: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                    generator: torch.Generator | None, *, top_k: int = 0,
                    top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
-                   slots: torch.Tensor | None = None, width: int | None = None) -> torch.Tensor:
+                   slots: torch.Tensor | None = None, width: int | None = None,
+                   adapters=None) -> torch.Tensor:
     """tokens [B, S] padded, lengths [B], rows (slot ids [B], or block-table
     rows [B, MaxP]), temps [B] → first sampled token per row [B] int32 (the
     cache is written in place). With ``aux``, the prompts and their tokens
     also go to the proposer's rows ``slots`` [B] (``seed_aux``)."""
-    logits, _ = model.prefill(tokens, lengths, cache, rows)
+    logits, _ = model.prefill(tokens, lengths, cache, rows, adapters=adapters)
     toks = sample_token(logits, generator, temperature=temps, top_k=top_k,
                         top_p=top_p, do_sample=do_sample)
     seed_aux(aux, slots, tokens, lengths, toks, width=width)
@@ -121,8 +130,8 @@ def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                   offsets: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                   generator: torch.Generator | None, last: bool, *, top_k: int = 0,
                   top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
-                  slots: torch.Tensor | None = None, width: int | None = None
-                  ) -> torch.Tensor | None:
+                  slots: torch.Tensor | None = None, width: int | None = None,
+                  adapters=None) -> torch.Tensor | None:
     """tokens [B, S] of one chunk per row (every row S live tokens) written
     at positions ``offsets`` [B] .. + S through ``rows`` (slot ids [B], or
     block-table rows [B, MaxP]) → the sampled token per row [B] int32 when
@@ -132,7 +141,7 @@ def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
     writes one, which the next chunk overwrites."""
     lengths = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.long,
                          device=tokens.device)
-    logits, _ = model.prefill(tokens, lengths, cache, rows, offsets)
+    logits, _ = model.prefill(tokens, lengths, cache, rows, offsets, adapters=adapters)
     toks = None
     if last or isinstance(aux, torch.Tensor):
         toks = sample_token(logits, generator, temperature=temps, top_k=top_k, top_p=top_p,
@@ -144,13 +153,13 @@ def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
 def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor,
                  steps: int, generator: torch.Generator | None, *, top_k: int = 0,
-                 top_p: float = 1.0, do_sample: bool = True) -> torch.Tensor:
+                 top_p: float = 1.0, do_sample: bool = True, adapters=None) -> torch.Tensor:
     """``steps`` decode steps: tokens [N] are the inputs at ``positions``
     [N] (through ``table`` [N, MaxP] on the paged pool, None on the slot
     cache); returns the sampled ids [N, steps] int32, still on the device."""
     out = []
     for _ in range(steps):
-        logits, _ = model.decode_step(tokens, positions, cache, table)
+        logits, _ = model.decode_step(tokens, positions, cache, table, adapters=adapters)
         tokens = sample_token(logits, generator, temperature=temps, top_k=top_k,
                               top_p=top_p, do_sample=do_sample)
         positions = positions + 1
@@ -161,7 +170,7 @@ def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
 def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, tokens: torch.Tensor,
                hlen: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor, steps: int,
                g: int, generator: torch.Generator | None, *, top_k: int = 0,
-               top_p: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+               top_p: float = 1.0, adapters=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``steps`` speculative rounds over every slot (programs.py:329, 475).
 
     ``tokens`` [N] are the lanes' input tokens and ``hlen`` [N] their
@@ -207,7 +216,7 @@ def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, token
             drafts = torch.stack(dtoks[:g], dim=1)
             q_logits = torch.stack(dlogits[:g], dim=1)
         seq = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)
-        p_logits, _ = model.verify_step(seq, pos, cache, table)
+        p_logits, _ = model.verify_step(seq, pos, cache, table, adapters=adapters)
         out, acc = speculative_sample(p_logits, drafts, temps, generator, q_logits,
                                       top_k, top_p)
         if width is not None:

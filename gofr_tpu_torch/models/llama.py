@@ -56,6 +56,7 @@ from torch import nn
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.ops.attention import DECODE_ATTENTION, mha_attention, mha_attention_plain
 from gofr_tpu_torch.ops.kvcache import QSlotKVCache, SlotKVCache
+from gofr_tpu_torch.ops.lora import lora_logits_delta
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged import AnyPagedKVCache, PagedKVCache, Q4PagedKVCache, QPagedKVCache
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
@@ -164,10 +165,16 @@ class Llama(nn.Module):
         h = rms_norm(x, lp.mlp_norm, self.cfg.norm_eps)
         return lp.w_down(F.silu(lp.w_gate(h)) * lp.w_up(h))
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, adapters=None) -> torch.Tensor:
+        """f32 logits of hidden states ``x``, plus the lanes' LoRA delta
+        of the normed rows (in the model's dtype) when ``adapters`` is
+        given."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed if self.lm_head is None else self.lm_head.weight
-        return F.linear(x, head).float()
+        logits = F.linear(x, head).float()
+        if adapters is not None:
+            logits = logits + lora_logits_delta(x, adapters)
+        return logits
 
     # -- entry points ----------------------------------------------------------
 
@@ -218,7 +225,7 @@ class Llama(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
                 rows: torch.Tensor, offsets: torch.Tensor | None = None, *,
-                kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+                kernels: bool = True, adapters=None) -> tuple[torch.Tensor, AnyKVCache]:
         """Prefill prompts (or prompt chunks) into the cache.
 
         tokens [B, S] (padded), lengths [B] = live tokens in this call, rows
@@ -234,12 +241,12 @@ class Llama(nn.Module):
         attn = mha_attention if kernels else mha_attention_plain
         x = self._cached_layers(tokens, lengths, cache, rows, offsets, attn)
         last = x[torch.arange(tokens.shape[0], device=x.device), lengths.long() - 1]
-        return self._logits(last), cache
+        return self._logits(last, adapters), cache
 
     @torch.no_grad()
     def verify_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
                     table: torch.Tensor | None = None, *,
-                    kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+                    kernels: bool = True, adapters=None) -> tuple[torch.Tensor, AnyKVCache]:
         """Speculative decoding's verify forward (llama.py:389, 525): tokens
         [N, T] per lane, the input token and T-1 drafts, written and attended
         at ``positions[n]`` .. ``positions[n] + T - 1``: lane n in slot n of
@@ -257,12 +264,12 @@ class Llama(nn.Module):
         rows = torch.arange(n, device=tokens.device) if table is None else table
         lengths = torch.full((n,), t, dtype=torch.long, device=tokens.device)
         x = self._cached_layers(tokens, lengths, cache, rows, positions, attn)
-        return self._logits(x), cache
+        return self._logits(x, adapters), cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
                     table: torch.Tensor | None = None, *,
-                    kernels: bool = True) -> tuple[torch.Tensor, AnyKVCache]:
+                    kernels: bool = True, adapters=None) -> tuple[torch.Tensor, AnyKVCache]:
         """One decode step over every slot: tokens [N] go to ``positions``
         [N], lane n into slot n of a slot cache (``table`` None), or through
         ``table`` [N, MaxP] into a paged pool. Returns (logits [N, V] f32,
@@ -287,7 +294,7 @@ class Llama(nn.Module):
             a = attn(q, *cache.planes(layer, table), lengths)
             x = x + lp.wo(a.reshape(n, -1))
             x = x + self._mlp(lp, x)
-        return self._logits(x), cache
+        return self._logits(x, adapters), cache
 
     # the JAX package's names for the paged pool's entry points (the same bodies)
     prefill_paged = prefill
@@ -362,27 +369,34 @@ def tensor_from_numpy(a, device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def jax_state(np_params: dict) -> dict[str, torch.Tensor]:
+    """A JAX parameter tree (llama.py:123) given as numpy arrays, as CPU
+    tensors under the names of ``Llama.named_parameters()``, in the tree's
+    dtypes: stacked ``[L, ...]`` blocks split into layers, and each
+    ``x @ W`` weight [in, out] transposed into ``nn.Linear``'s [out, in]."""
+    state = {"embed": tensor_from_numpy(np_params["embed"]),
+             "final_norm": tensor_from_numpy(np_params["final_norm"])}
+    if "lm_head" in np_params:
+        state["lm_head.weight"] = tensor_from_numpy(np_params["lm_head"]).T
+    blocks = np_params["blocks"]
+    for layer in range(len(blocks["attn_norm"])):
+        for name in ("attn_norm", "mlp_norm"):
+            state[f"blocks.{layer}.{name}"] = tensor_from_numpy(blocks[name][layer])
+        for name in BLOCK_WEIGHTS:
+            state[f"blocks.{layer}.{name}.weight"] = tensor_from_numpy(blocks[name][layer]).T
+    return state
+
+
 def params_from_jax(cfg: LlamaConfig, np_params: dict,
                     device: str | torch.device | None = None) -> Llama:
     """A ``Llama`` holding the weights of a JAX parameter tree (llama.py:123)
-    given as numpy arrays: stacked ``[L, ...]`` blocks split into layers, and
-    each ``x @ W`` weight [in, out] transposed into ``nn.Linear``'s
-    [out, in]."""
+    given as numpy arrays (``jax_state``), cast to the config's dtype."""
     model = Llama(cfg, device)
-    dev = model.device
-
-    def t(a) -> torch.Tensor:
-        return tensor_from_numpy(a, dev).to(cfg.dtype)
-
-    blocks = np_params["blocks"]
+    state = jax_state(np_params)
     with torch.no_grad():
-        model.embed.copy_(t(np_params["embed"]))
-        model.final_norm.copy_(t(np_params["final_norm"]))
-        if model.lm_head is not None:
-            model.lm_head.weight.copy_(t(np_params["lm_head"]).T)
-        for layer, blk in enumerate(model.blocks):
-            blk.attn_norm.copy_(t(blocks["attn_norm"][layer]))
-            blk.mlp_norm.copy_(t(blocks["mlp_norm"][layer]))
-            for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-                getattr(blk, name).weight.copy_(t(blocks[name][layer]).T)
+        for name, p in model.named_parameters():
+            p.copy_(state[name].to(cfg.dtype))
     return model

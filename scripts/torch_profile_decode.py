@@ -2,7 +2,7 @@
 """Where a decode step of the PyTorch port spends its time on one card.
 
     python3 scripts/torch_profile_decode.py [--layers 32] [--steps 8] [--kv-quantize int8]
-                                            [--kv-layout slot] [--spec-tokens 4]
+                                            [--kv-layout slot] [--spec-tokens 4] [--adapters 3]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, full width) on the
 card, prefills 8 prompts of 100..2000 tokens into the paged pool, or with
@@ -24,7 +24,17 @@ each and per call: host wall, device busy and idle share, C's device ms
 (the verify forward's attention), the device ms of the dense K/V views
 the verify gathers every layer (``cache.read``, labelled ``dense_view`` in
 the trace), and of the verify's attention calls with the copies their
-launcher makes of those views (``attention``). Needs a CUDA card.
+launcher makes of those views (``attention``).
+
+With ``--adapters N`` every lane serves one of N random LoRA adapters of
+rank 16 (``adapters.random_adapter`` from seeds 40.., lane i on adapter
+i mod N) out of an adapter pool of N + 1 slots, in the decode steps and
+the spec rounds alike. Each line then also gives the device and host ms
+of the LoRA delta (``ops.lora.lora_logits_delta``, labelled
+``lora_delta``) and its share of the device busy time, and one more line
+profiles the delta alone at the decode shape, its device ms by kernel
+name (the gathers of the factors, the two batched products, the scale).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ from gofr_tpu_torch.models.llama import LlamaConfig, init  # noqa: E402
 
 
 # regions of the spec round labelled in the trace
-LABELS = ("dense_view", "attention")
+LABELS = ("dense_view", "attention", "lora_delta")
 
 
 def labelled(label: str, fn):
@@ -76,13 +86,14 @@ def profile(fn, iters: int = 3) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
-    kernels, regions = {}, dict.fromkeys(LABELS, 0.0)
+    kernels, regions, hosts = {}, dict.fromkeys(LABELS, 0.0), dict.fromkeys(LABELS, 0.0)
     for evt in prof.key_averages():
         if evt.key in LABELS:
             # the host-side range holds the device time of the kernels it
             # launched; its device-side copy is a span, not a kernel
             if evt.device_type == torch.autograd.DeviceType.CPU:
                 regions[evt.key] += getattr(evt, "device_time_total", 0.0) / 1e3
+                hosts[evt.key] += evt.cpu_time_total / 1e3
             continue
         dt = getattr(evt, "self_device_time_total", None)
         if dt is None:
@@ -96,10 +107,47 @@ def profile(fn, iters: int = 3) -> dict:
             "memcpy_dtoh_ms": sum(v for k, v in kernels.items() if k.startswith("Memcpy DtoH")),
             "flash_ms": sum(v for k, v in kernels.items() if "flash_kernel" in k),
             **{f"{k}_ms": v for k, v in regions.items()},
+            "lora_delta_host_ms_profiled": hosts["lora_delta"],
+            "lora_delta_share_of_busy": regions["lora_delta"] / busy if busy else 0.0,
             "kernel_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
 
 
-def spec_rounds(args, info, model, cache, table, tokens, positions, temps, width: int) -> None:
+def adapter_args(args, model, n: int) -> tuple | None:
+    """``adapters`` for every step: lane i on adapter i mod N of a pool of
+    N + 1 slots of rank 16 (slot 0 the base, unused here); None without
+    ``--adapters``. The delta is labelled ``lora_delta`` in the trace."""
+    if not args.adapters:
+        return None
+    from gofr_tpu_torch.adapters import AdapterPool, random_adapter
+    from gofr_tpu_torch.models import llama
+
+    cfg = model.cfg
+    pool = AdapterPool(args.adapters + 1, cfg.hidden_size, cfg.vocab_size, 16,
+                       device=model.device)
+    for i in range(args.adapters):
+        pool.acquire(random_adapter(f"ad{i}", cfg.hidden_size, cfg.vocab_size, rank=16,
+                                    seed=40 + i))
+    llama.lora_logits_delta = labelled("lora_delta", llama.lora_logits_delta)
+    sel = torch.tensor([1 + i % args.adapters for i in range(n)], device=model.device)
+    return sel, pool.a, pool.b, pool.scale
+
+
+def delta_alone(info, model, ad) -> None:
+    """One line: ``lora_logits_delta`` alone at the decode shape (the
+    lanes' normed hidden states, bf16), device ms by kernel name."""
+    from gofr_tpu_torch.ops.lora import lora_logits_delta
+
+    x = torch.randn(ad[0].shape[0], model.cfg.hidden_size, device=model.device,
+                    dtype=model.cfg.dtype)
+    r = profile(lambda: lora_logits_delta(x, ad))
+    print(json.dumps({"device": info["nvidia_smi"], "mode": "lora_delta_alone",
+                      "lanes": x.shape[0], "adapters": int(ad[0].max()), "rank": ad[1].shape[2],
+                      "host_wall_ms": r["wall_ms"], "device_busy_ms": r["device_busy_ms"],
+                      "kernel_ms": r["kernel_ms"]}), flush=True)
+
+
+def spec_rounds(args, info, model, cache, table, tokens, positions, temps, width: int,
+                ad=None) -> None:
     """Plain, spec, spec, plain: g + 1 decode steps against one speculative
     round on the same lanes, each profiled (``profile``); ``width`` is a
     lane's positions."""
@@ -113,15 +161,15 @@ def spec_rounds(args, info, model, cache, table, tokens, positions, temps, width
     type(cache).read = labelled("dense_view", type(cache).read)
     llama.mha_attention = labelled("attention", llama.mha_attention)
     runs = {"plain": lambda: decode_chunk(model, cache, tokens, positions, table, temps, g + 1,
-                                          None, do_sample=False),
+                                          None, do_sample=False, adapters=ad),
             "spec": lambda: spec_chunk(model, cache, hist, tokens, positions + 1, table, temps, 1,
-                                       g, None)}
+                                       g, None, adapters=ad)}
     for order, mode in enumerate(("plain", "spec", "spec", "plain")):
         print(json.dumps({"device": info["nvidia_smi"], "layers": model.cfg.num_layers,
                           "slots": n, "kv_layout": args.kv_layout,
                           "kv_pool": args.kv_quantize or "bf16", "order": order, "mode": mode,
-                          "spec_tokens": g, "per_call": ("one round" if mode == "spec"
-                                                         else f"{g + 1} decode steps"),
+                          "spec_tokens": g, "adapters": args.adapters,
+                          "per_call": ("one round" if mode == "spec" else f"{g + 1} decode steps"),
                           **profile(runs[mode])}), flush=True)
 
 
@@ -132,6 +180,7 @@ def main() -> None:
     ap.add_argument("--kv-quantize", choices=KV_QUANTIZE, default="")
     ap.add_argument("--kv-layout", choices=KV_LAYOUTS, default="paged")
     ap.add_argument("--spec-tokens", type=int, default=0)
+    ap.add_argument("--adapters", type=int, default=0)
     args = ap.parse_args()
     if args.kv_layout == "slot" and args.kv_quantize == "int4":
         ap.error("the slot layout has no int4 format")
@@ -154,12 +203,15 @@ def main() -> None:
         model.prefill(toks, lengths[i:i + 1].to(dev), cache, rows[i])
     tokens = torch.randint(0, cfg.vocab_size, (n,), generator=rng).to(dev)
     positions, temps = lengths.to(dev), torch.zeros(n, device=dev)
+    ad = adapter_args(args, model, n)
     if args.spec_tokens:
-        spec_rounds(args, info, model, cache, table, tokens, positions, temps, maxp * page)
+        spec_rounds(args, info, model, cache, table, tokens, positions, temps, maxp * page, ad)
+        if ad is not None:
+            delta_alone(info, model, ad)
         return
 
     r = profile(lambda: decode_chunk(model, cache, tokens, positions, table, temps, args.steps,
-                                     None, do_sample=False))
+                                     None, do_sample=False, adapters=ad))
     steps = args.steps
     print(json.dumps({
         "device": info["nvidia_smi"], "layers": cfg.num_layers, "slots": n,
@@ -171,8 +223,14 @@ def main() -> None:
         "device_idle_share": r["device_idle_share"],
         # a device-to-host copy stalls the host on the card: none is expected
         "memcpy_dtoh_ms_per_step": r["memcpy_dtoh_ms"] / steps,
+        "adapters": args.adapters,
+        "lora_delta_ms_per_step": r["lora_delta_ms"] / steps,
+        "lora_delta_host_ms_per_step_profiled": r["lora_delta_host_ms_profiled"] / steps,
+        "lora_delta_share_of_busy": r["lora_delta_share_of_busy"],
         "kernel_ms_per_step": {k: v / steps for k, v in r["kernel_ms"].items()},
-    }))
+    }), flush=True)
+    if ad is not None:
+        delta_alone(info, model, ad)
 
 
 if __name__ == "__main__":

@@ -69,7 +69,19 @@ result line:
    while 4 requests decode; all 4 must end with 64 tokens, each preempted once,
    ``weights_epoch`` must be 1, and a request after the swap must equal,
    token for token, the same request on an engine built on the new
-   weights;
+   weights. Then ``http_generate``: the port's App on localhost, its
+   engine built from a ``ModelSpec`` and ``ENGINE_*`` config
+   (``HTTP_CONFIG``; random weights from the seed, the phase's model),
+   takes the 8 prompts as 8 concurrent ``POST /generate`` (each 201, 64
+   tokens, compared with ``bf16``'s by the spec runs' tie rule), two
+   streamed over ``POST /generate/stream`` (``token`` frames, then
+   ``done``; ids held against the unary result by the same rule), a
+   0.001 s timeout (408) and an unknown path (404), each with its
+   envelope; alive and health answer, ``app_http_response`` counts the
+   POSTs, the launch counters show ``bf16``'s kernels and no other, and
+   after ``stop`` the engine's thread has ended; it prints the HTTP
+   overhead per request, the SSE first event against the engine's TTFT
+   and decode tok/s beside ``bf16``'s;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -1253,6 +1265,278 @@ def adopt_check(torch, cuda) -> dict:
             "after_swap_equals_new_engine": True, "tokens_compared": len(want)}
 
 
+# Phase 4's ``http_generate``: the bf16 run's traffic over localhost through
+# the port's App, the engine built from a ModelSpec and this config, as an
+# operator builds it (random weights from the seed: the phase's model).
+HTTP_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "ENGINE_SLOTS": "8",
+               "ENGINE_MAX_LEN": "2048", "ENGINE_PREFILL_BATCH": "4",
+               "ENGINE_DECODE_CHUNK": "8", "ENGINE_KV_DTYPE": "bf16", "LOG_LEVEL": "ERROR"}
+HTTP_STREAMS = 2
+
+
+def http_call(port: int, method: str, path: str, body: dict | None = None
+              ) -> tuple[int, dict, float, float]:
+    """One request on its own connection: (status, JSON body, client
+    seconds, the monotonic time it started)."""
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+        return resp.status, data, time.monotonic() - t0, t0
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, body: dict) -> dict:
+    """One ``POST /generate/stream``: the frames as (event, data), the
+    seconds to the first data frame and to the end, at the client."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        conn.request("POST", "/generate/stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        require(resp.status == 200 and resp.getheader("Content-Length") is None
+                and resp.getheader("Content-Type") == "text/event-stream",
+                f"http_generate stream: {resp.status} {resp.getheaders()}")
+        frames, event, first = [], None, None
+        while line := resp.readline():
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                if first is None:
+                    first = time.perf_counter() - t0
+                frames.append((event, json.loads(line[len("data: "):])))
+        return {"frames": frames, "first_event_s": first, "wall_s": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def http_generate(torch, cuda, model, base: dict, base_outs: list) -> dict:
+    """Phase 4 ``http_generate``: the port's App on localhost, its engine
+    built by ``serve_model("lm", ModelSpec(llama3_8b, bf16), seed=0)`` from
+    ``HTTP_CONFIG``. Held: alive and health (``model:lm`` UP); the 8 prompts
+    as 8 concurrent ``POST /generate``, each 201 with 64 tokens ended by
+    length, compared with the ``bf16`` run by ``token_agreement`` (at a
+    first difference the token within ``SPEC_TIE_GAP`` of the top logit:
+    HTTP arrival can batch otherwise); two prompts streamed, ``token``
+    frames then ``done``, their ids held against the same prompt's unary
+    result by the same rule; a 0.001 s timeout is a 408 and an unknown path
+    a 404, each with the error envelope; ``app_http_response`` counts >= 10
+    for ``POST /generate``; the launch counters, zeroed after the warm-up,
+    show the ``bf16`` run's kernels and no other; after ``stop`` the
+    engine's thread has ended. Printed, not held: per request the client
+    wall time, the engine's ttft and decode seconds and the HTTP overhead
+    (wall less both), the part before the submit split at the server's
+    times (accepted, read, handler entered, body bound) and as a share of
+    the TTFT the client sees, the SSE first event against the engine's
+    ttft, and decode tok/s beside ``bf16``'s."""
+    import asyncio
+    import threading
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models import ModelSpec
+    from gofr_tpu_torch.models.llama import LlamaConfig
+
+    app = App(config=DictConfig(HTTP_CONFIG))
+    t0 = time.perf_counter()
+    engine = app.serve_model("lm", ModelSpec("llama", LlamaConfig.llama3_8b(), dtype=torch.bfloat16),
+                             seed=SEED, eos_token_id=-1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    submitted, submit = [], engine.submit
+
+    def record(*a, **kw):
+        submitted.append(submit(*a, **kw))
+        return submitted[-1]
+
+    engine.submit = record
+    server_stamps: dict[tuple, tuple] = {}
+
+    async def generate(ctx):
+        t_handler = time.monotonic()
+        body = ctx.bind(dict)
+        stamps = ctx.request.context()
+        server_stamps[tuple(body["prompt"])] = (stamps["accepted_at"], stamps["read_at"], t_handler,
+                                                time.monotonic())
+        return await ctx.agenerate("lm", body["prompt"], max_new_tokens=int(body["max_new_tokens"]),
+                                   timeout=body.get("timeout", 900))
+
+    def generate_stream(ctx):
+        from gofr_tpu_torch.http.streaming import StreamingResponse
+
+        body = ctx.bind(dict)
+        return StreamingResponse(ctx.generate("lm", body["prompt"],
+                                              max_new_tokens=int(body["max_new_tokens"]),
+                                              timeout=900, stream=True), event="token")
+
+    app.post("/generate", generate)
+    app.post("/generate/stream", generate_stream)
+    loop, ready, failed = asyncio.new_event_loop(), threading.Event(), []
+
+    def run() -> None:
+        async def main() -> None:
+            started = asyncio.Event()
+            task = asyncio.ensure_future(app.arun(ready=started))
+            await started.wait()
+            ready.set()
+            await task
+
+        try:
+            loop.run_until_complete(main())
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            failed.append(e)
+            ready.set()
+        finally:
+            loop.close()
+
+    server = threading.Thread(target=run, name="http-generate", daemon=True)
+    server.start()
+    require(ready.wait(120) and not failed, f"http_generate: the App did not start: {failed}")
+    port = app.http_port
+    try:
+        status, alive, *_ = http_call(port, "GET", "/.well-known/alive")
+        require(status == 200 and alive == {"data": {"status": "UP"}}, f"alive: {status} {alive}")
+        status, health, *_ = http_call(port, "GET", "/.well-known/health")
+        require(status == 200 and health["data"]["services"]["model:lm"]["status"] == "UP",
+                f"health: {status} {health}")
+        status, warm, *_ = http_call(port, "POST", "/generate",
+                                    {"prompt": list(range(1, 65)), "max_new_tokens": 2})
+        require(status == 201 and warm["data"]["finish_reason"] == "length",
+                f"http warm-up: {status} {warm}")
+        prompts = phase4_prompts(torch, model.cfg.vocab_size)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        del submitted[:]
+        replies = [None] * len(prompts)
+
+        def one(i: int) -> None:
+            replies[i] = http_call(port, "POST", "/generate",
+                                   {"prompt": prompts[i], "max_new_tokens": 64})
+
+        t_submit = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        t_done = time.monotonic()
+        reqs = list(submitted)
+        stamps = [server_stamps[tuple(p)] for p in prompts]
+        for i, r in enumerate(replies):
+            require(r is not None and r[0] == 201, f"http request {i}: {r and r[:2]}")
+            o = r[1]["data"]
+            require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                    f"http request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+        outs = [r[1]["data"] for r in replies]
+        streams = [http_stream(port, {"prompt": prompts[i], "max_new_tokens": 64})
+                   for i in range(HTTP_STREAMS)]
+        stream_reqs = submitted[len(reqs):]
+        status, late, *_ = http_call(port, "POST", "/generate",
+                                    {"prompt": prompts[0], "max_new_tokens": 64, "timeout": 0.001})
+        require(status == 408 and late == {"error": {"message": "request timed out"}},
+                f"a 0.001 s timeout: {status} {late}")
+        status, lost, *_ = http_call(port, "GET", "/no/such/route")
+        require(status == 404 and lost == {"error": {"message": "route not registered"}},
+                f"an unknown path: {status} {lost}")
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{app.metrics_port}/metrics",
+                                    timeout=60) as r:
+            exposition = r.read().decode()
+        posts = sum(float(line.rsplit(" ", 1)[1]) for line in exposition.splitlines()
+                    if line.startswith("app_http_response_count{")
+                    and 'method="POST"' in line and 'path="/generate"' in line)
+        require(posts >= 10, f"app_http_response counts {posts} POST /generate")
+    finally:
+        loop.call_soon_threadsafe(app.stop)
+        server.join(120)
+    require(not server.is_alive() and not engine._thread.is_alive(),
+            "http_generate: the server or the engine's thread outlived stop()")
+    require(not failed, f"http_generate: the App failed: {failed}")
+    for name, launches in counts.items():
+        if name in ON_PATH["paged", ""]:
+            require(launches > 0, f"kernel {name} was not launched on the http_generate run")
+        else:
+            require(launches == 0, f"kernel {name} was launched {launches} times on the "
+                                   f"http_generate run")
+    agreement_ = token_agreement(torch, model, prompts, outs, base_outs)
+    gaps = [m["chosen_below_top1"] for m in agreement_["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"http_generate: at a first difference from the bf16 run the token lies {gaps} below "
+            f"the top logit (limit {SPEC_TIE_GAP})")
+    stream_outs, first_event = [], []
+    for s, req in zip(streams, stream_reqs):
+        frames = s["frames"]
+        require(len(frames) == 65 and frames[-1] == ("done", {})
+                and all(e == "token" and isinstance(d, int) for e, d in frames[:-1]),
+                f"http stream: {len(frames)} frames, last {frames[-1:]}")
+        result = req.outcome()[0]
+        stream_outs.append({"tokens": [d for _, d in frames[:-1]]})
+        first_event.append({"client_first_event_s": s["first_event_s"], "engine_ttft_s":
+                            result["ttft_s"], "gap_s": s["first_event_s"] - result["ttft_s"],
+                            "client_wall_s": s["wall_s"]})
+    stream_agreement = token_agreement(torch, model, prompts[:HTTP_STREAMS], stream_outs,
+                                       outs[:HTTP_STREAMS])
+    gaps = [m["chosen_below_top1"] for m in stream_agreement["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"http_generate: a streamed request's first difference from its unary result lies "
+            f"{gaps} below the top logit (limit {SPEC_TIE_GAP})")
+    walls = [r[2] for r in replies]
+    overhead = sorted(w - (o["ttft_s"] + o["decode_s"]) for w, o in zip(walls, outs))
+    # the overhead's two halves: client start to the engine's submit, and
+    # the engine's finish to the client's last byte
+    reqs = [next(q for q in reqs if q.inputs == p) for p in prompts]
+    to_submit = [q.enqueued_at - r[3] for q, r in zip(reqs, replies)]
+    # the part before the submit, broken down at the server's own times:
+    # the client's start, the connection accepted, the request read, the
+    # handler entered, the body bound, the engine's submit
+    marks = [(r[3], *s, q.enqueued_at) for r, s, q in zip(replies, stamps, reqs)]
+    spans = {name: [m[i + 1] - m[i] for m in marks] for i, name in enumerate(
+        ("client_to_accept_s", "accept_to_read_s", "read_to_handler_s", "handler_to_bind_s",
+         "bind_to_submit_s"))}
+    # each client thread's start after the first's: a span that falls as
+    # this rises ends at one moment for all
+    client_start = [r[3] - min(q[3] for q in replies) for r in replies]
+    # the user's TTFT is the client's start to the first token
+    pre_submit_share = [t / (t + o["ttft_s"]) for t, o in zip(to_submit, outs)]
+    after_finish = [r[3] + r[2] - (q.enqueued_at + o["ttft_s"] + o["decode_s"])
+                    for q, r, o in zip(reqs, replies, outs)]
+    first = [req.enqueued_at + o["ttft_s"] for req, o in zip(reqs, outs)]
+    done = [f + o["decode_s"] for f, o in zip(first, outs)]
+    decode_tok_s = sum(len(o["tokens"]) - 1 for o in outs) / (max(done) - min(first))
+    del engine, app
+    torch.cuda.empty_cache()
+    return {
+        "model": "llama3_8b (random bf16 weights, seed 0)", "config": HTTP_CONFIG,
+        "engine_build_s": build_s, "requests": len(outs), "new_tokens": 64,
+        "client_wall_s": walls, "ttft_s": [o["ttft_s"] for o in outs],
+        "decode_s": [o["decode_s"] for o in outs],
+        "http_overhead_p50_s": overhead[len(overhead) // 2], "http_overhead_max_s": overhead[-1],
+        "client_to_submit_s": to_submit, "client_start_s": client_start,
+        "pre_submit_spans": spans,
+        "pre_submit_share_of_ttft": pre_submit_share, "finish_to_client_s": after_finish,
+        "sse_first_event": first_event, "wall_s": t_done - t_submit,
+        "decode_tok_s": decode_tok_s, "bf16_decode_tok_s": base["decode_tok_s"],
+        "decode_tok_s_vs_bf16": decode_tok_s / base["decode_tok_s"],
+        **agreement_, "compared_with": "bf16",
+        "stream_tokens_equal_unary": stream_agreement["tokens_equal"],
+        "metrics_post_generate": posts, "launches": counts, "nvidia_smi": smi_line(),
+        "note": "smoke run, not a benchmark",
+    }
+
+
 def lora_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
     """Phase 5's adapter holds on one cache: 5 lanes of 128-token prompts
     prefilled together, then one ``decode_step`` and one ``verify_step`` of
@@ -1656,6 +1940,11 @@ def main() -> None:
     emit("phase4_adopt_weights", adoption)
     served["adopt_weights"] = adoption
     lap("phase4_adopt_weights")
+
+    served["http_generate"] = http_generate(torch, cuda, model, served["paged", ""]["metrics"],
+                                            results["paged", ""])
+    emit("phase4_http_generate", served["http_generate"])
+    lap("phase4_http_generate")
 
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",

@@ -66,6 +66,7 @@ tier, checkpoint adoption, autotune and the perf plane are not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import math
@@ -83,6 +84,8 @@ from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history, prefill_chunk, prefill_sample
+from gofr_tpu_torch.http import errors
+from gofr_tpu_torch.models import ModelSpec
 from gofr_tpu_torch.models.llama import (
     AnyKVCache,
     Llama,
@@ -125,8 +128,9 @@ class EngineClosed(RuntimeError):
     pass
 
 
-class RequestTimeout(TimeoutError):
-    pass
+class RequestTimeout(errors.RequestTimeout, TimeoutError):
+    """408 on HTTP, as the JAX engine's (http/errors.py); a TimeoutError
+    to a caller in Python."""
 
 
 class RequestCancelled(RuntimeError):
@@ -153,6 +157,7 @@ class Request:
         self.cancel_reason: str | None = None
         self._done = threading.Event()
         self._lock = threading.Lock()
+        self._finished = False
         self._result: Any = None
         self._error: BaseException | None = None
         self._callbacks: list = []
@@ -161,23 +166,35 @@ class Request:
         """Call ``fn(request)`` once it completes, however it ends (at once
         if it has)."""
         with self._lock:
-            if not self._done.is_set():
+            if not self._finished:
                 self._callbacks.append(fn)
                 return
         fn(self)
 
     def complete(self, result: Any = None, error: BaseException | None = None) -> None:
         """First writer wins (a late result after ``stop`` is ignored). The
-        done callbacks run before a waiter wakes."""
+        done callbacks run before a waiter wakes; one that raises is logged
+        and the rest still run."""
         with self._lock:
-            if self._done.is_set():
+            if self._finished:
                 return
             self._result, self._error = result, error
+            self._finished = True
             for fn in self._callbacks:
-                fn(self)
+                try:
+                    fn(self)
+                except Exception:  # noqa: BLE001 - a bad callback must not kill the loop
+                    log.exception("done callback of request %d failed", self.id)
             if self.stream_q is not None:
                 self.stream_q.put(None)  # the end of the stream
             self._done.set()
+
+    def outcome(self) -> tuple[Any, BaseException | None]:
+        """(result, error) once complete (engine.py:150): the non-blocking
+        accessor a done callback's waiter reads."""
+        if not self._finished:
+            raise RuntimeError("request is not complete")
+        return self._result, self._error
 
     def cancel(self, reason: str = "cancelled") -> None:
         if not self.cancelled:
@@ -191,7 +208,7 @@ class Request:
             wait = budget if wait is None else min(wait, budget)
         if not self._done.wait(wait):
             self.cancel("timeout")
-            raise RequestTimeout(f"request {self.id} timed out")
+            raise RequestTimeout()
         if self._error is not None:
             raise self._error
         return self._result
@@ -218,8 +235,7 @@ class StreamIterator:
             item = self._req.stream_q.get(timeout=self._timeout)
         except queue.Empty:
             self._req.cancel("timeout")
-            raise RequestTimeout(f"request {self._req.id}: no token within "
-                                 f"{self._timeout} s") from None
+            raise RequestTimeout() from None
         if item is None:
             self._req.stream_q.put(None)  # a finished stream stays finished
             if self._req._error is not None:
@@ -337,6 +353,7 @@ class GenerateEngine:
         self.tokenizer = tokenizer
         self.default_timeout = default_timeout
         self.kv_layout = kv_layout
+        self.kv_quantize = kv_quantize
         self._prefix: PrefixCache | None = None
         if kv_layout == "paged":
             self.page_size = page_size
@@ -378,17 +395,17 @@ class GenerateEngine:
             width = (self.pages_per_slot * page_size if kv_layout == "paged"
                      else self.cache_len)
             self._aux = new_history(slots, width, self.device)
-        # the adapter plane (engine.py:1455-1493): off, nothing changes
-        ad_slots, ad_rank = int(adapter_slots), int(adapter_rank)
-        if (ad_slots or adapter_pool_mb) and ad_rank < 1:
-            raise ValueError(f"adapter_rank must be >= 1; got {adapter_rank}")
+        # the adapter plane (engine.py:1455-1493): off, nothing changes. As
+        # there, any non-zero slot count turns it on with at least 2 slots,
+        # and the rank is at least 1
+        ad_slots, ad_rank = int(adapter_slots), max(1, int(adapter_rank))
         if adapter_pool_mb and not ad_slots:
             ad_slots = AdapterPool.slots_for_budget(float(adapter_pool_mb), self.cfg.hidden_size,
                                                     self.cfg.vocab_size, ad_rank)
         self.adapters: AdapterRegistry | None = None
         self._adapter_pool: AdapterPool | None = None
         if ad_slots:
-            self._adapter_pool = AdapterPool(ad_slots, self.cfg.hidden_size,
+            self._adapter_pool = AdapterPool(max(2, ad_slots), self.cfg.hidden_size,
                                              self.cfg.vocab_size, ad_rank, device=self.device)
             self.adapters = AdapterRegistry(host_budget_mb=float(adapter_host_mb))
         # lifetime (accepted, proposed) draft tokens by adapter, summed from
@@ -443,9 +460,18 @@ class GenerateEngine:
         unknown one, or one named on an engine without the adapter plane,
         raises ValueError, and one at its cap raises ``TooManyRequests``;
         the request's share of the cap goes back when it completes,
-        however it ends."""
+        however it ends. ``_on_submit`` in ``kw`` is called with the
+        Request as soon as it exists (a transport tracks it to cancel);
+        a ``timeout`` of 0 or less raises ``DeadlineExceeded`` (504)."""
         if self._stop.is_set() or self._error is not None:
             raise EngineClosed("engine stopped") from self._error
+        # a transport's hook: it gets the Request the moment it exists, to
+        # cancel it if the client goes away (engine.py:421)
+        on_submit = kw.pop("_on_submit", None)
+        timeout = timeout if timeout is not None else self.default_timeout
+        if timeout is not None and timeout <= 0:
+            # the propagated deadline is already spent (engine.py:426-432)
+            raise errors.DeadlineExceeded("request deadline already expired at submission")
         if "adapter_id" in kw:  # the public spelling of the routing key
             kw["_adapter"] = kw.pop("adapter_id")
         aname = kw.get("_adapter") or None
@@ -458,11 +484,12 @@ class GenerateEngine:
             except KeyError as e:
                 raise ValueError(str(e.args[0]) if e.args else str(e)) from None
         req = Request(prompt, {**kw, "max_new_tokens": int(max_new_tokens),
-                               "temperature": float(temperature)},
-                      timeout if timeout is not None else self.default_timeout, stream)
+                               "temperature": float(temperature)}, timeout, stream)
         if aname:
             req.add_done_callback(lambda _r, _n=aname: self.adapters.release(_n))
         req.add_done_callback(self._observe_done)
+        if on_submit is not None:
+            on_submit(req)
         self._queue.put(req)
         return req
 
@@ -488,10 +515,26 @@ class GenerateEngine:
         timeout = timeout if timeout is not None else self.default_timeout
         return StreamIterator(req, timeout) if stream else req.result(timeout)
 
+    def infer(self, inputs: Any, **kw: Any) -> dict | StreamIterator:
+        """``generate`` under the name every engine answers (engine.py:2006)."""
+        return self.generate(inputs, **kw)
+
     def stop(self) -> None:
         self._stop.set()
         self._thread.join(timeout=30.0)
         self._fail_all(EngineClosed("engine stopped"))
+
+    def health_check(self) -> dict[str, Any]:
+        """What ``Container.health`` reports for this engine
+        (engine.py:677): DOWN once the loop died with an error, DEGRADED
+        when its thread is not running (after ``stop``), else UP with the
+        requests not yet in a slot. The thread starts with the engine,
+        where the JAX App starts it in ``arun``."""
+        if self._error is not None:
+            return {"status": "DOWN", "details": {"error": str(self._error)}}
+        backlog = self._queue.qsize() + len(self._pending) + len(self._pending_long)
+        return {"status": "UP" if self._thread.is_alive() else "DEGRADED",
+                "details": {"queue_depth": backlog}}
 
     def spec_accept_totals(self) -> dict[str, tuple[float, float]]:
         """Lifetime (accepted, proposed) draft tokens of speculative decoding
@@ -794,7 +837,7 @@ class GenerateEngine:
         """Complete a cancelled or expired request with its error; returns
         whether it was."""
         if req.expired(now):
-            req.complete(error=RequestTimeout(f"request {req.id} timed out"))
+            req.complete(error=RequestTimeout())
         elif req.cancelled:
             req.complete(error=RequestCancelled(req.cancel_reason))
         else:
@@ -873,7 +916,7 @@ class GenerateEngine:
                             int(now * 1e6), len(free), self.max_prefill_batch,
                             self.prefill_buckets)
         for i in plan.expired:
-            self._pending[i][0].complete(error=RequestTimeout("deadline passed before admission"))
+            self._pending[i][0].complete(error=RequestTimeout())
         ready = [self._pending[i] for i in plan.chosen]
         taken = set(plan.chosen) | set(plan.expired)
         self._pending = [p for i, p in enumerate(self._pending) if i not in taken]
@@ -1280,20 +1323,137 @@ def _model(cfg: LlamaConfig, params: Any, dev: torch.device, seed: int) -> Llama
     return init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
 
 
-def build_engine(config: str | LlamaConfig = "llama3_8b", *, params: Any = None,
-                 device: str | torch.device | None = None, seed: int = 0,
+def engine_knobs(conf: Any, logger: Any, kw: dict[str, Any]) -> dict[str, Any]:
+    """The engine knobs of the ``ENGINE_*`` and ``ADAPTER_*`` keys of
+    ``conf``, read as the JAX ``build_engine`` reads them
+    (engine.py:4085-4370); a knob's keyword in ``kw`` wins over its key and
+    is popped.
+
+    A knob the port lacks and whose setting would change what is served
+    raises ValueError naming its ROADMAP.md item: ``ENGINE_QUANTIZE``,
+    ``ENGINE_ROLE`` other than ``both``, ``ADAPTER_HOTSWAP_DIR``. One that
+    changes only speed is logged once with ``logger.warn``, and only when
+    set to what the port does not do: ``ENGINE_PIPELINE`` /
+    ``ENGINE_DECODE_PIPELINE`` other than 1 (the port dispatches at depth
+    1) and ``ENGINE_PREFIX_HOST_MB`` above 0 (the port evicts prefix pages
+    where the JAX engine spills them to host memory)."""
+    quantize = str(kw.pop("quantize", None) or conf.get_or_default("ENGINE_QUANTIZE", ""))
+    if quantize == "int8":
+        raise ValueError("ENGINE_QUANTIZE=int8: weight-only int8 is not ported yet "
+                         "(ROADMAP.md Queue A 3)")
+    if quantize:
+        raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
+    role = str(kw.pop("role", None) or conf.get_or_default("ENGINE_ROLE", "both"))
+    if role != "both":
+        raise ValueError(f"ENGINE_ROLE={role!r}: disaggregated serving is not ported yet "
+                         "(ROADMAP.md Queue A 6); the port serves role 'both'")
+    if kw.pop("adapter_hotswap_dir", None) or conf.get_or_default("ADAPTER_HOTSWAP_DIR", ""):
+        raise ValueError("ADAPTER_HOTSWAP_DIR: checkpoint adoption is not ported yet "
+                         "(ROADMAP.md Queue A 9, train/); adopt_weights takes weights in memory")
+    depth = kw.pop("pipeline_depth", kw.pop("decode_pipeline", None))
+    if depth is None:
+        depth = conf.get_int("ENGINE_PIPELINE", 0) or conf.get_int("ENGINE_DECODE_PIPELINE", 0)
+    if depth and int(depth) != 1:
+        logger.warn(f"ENGINE_PIPELINE={depth} ignored: the port dispatches at pipeline depth 1 "
+                    "(ROADMAP.md Queue A 1); the tokens are the same at every depth")
+    host_mb = kw.pop("prefix_host_mb", None)
+    if host_mb is None:
+        host_mb = conf.get_float("ENGINE_PREFIX_HOST_MB", 0.0)
+    if host_mb and float(host_mb) > 0:
+        logger.warn(f"ENGINE_PREFIX_HOST_MB={host_mb} ignored: the port evicts prefix-cache "
+                    "pages where the JAX engine spills them to host memory "
+                    "(ROADMAP.md Queue A 4)")
+
+    # ENGINE_KV_DTYPE is the canonical spelling, ENGINE_KV_QUANTIZE its
+    # legacy alias (engine.py:4237-4250)
+    kv_quantize = kw.pop("kv_quantize", None)
+    kv_dtype = str(conf.get_or_default("ENGINE_KV_DTYPE", "")).lower()
+    if kv_quantize is None and kv_dtype:
+        if kv_dtype not in ("bf16", "bfloat16", "int8", "int4"):
+            raise ValueError(f"ENGINE_KV_DTYPE={kv_dtype!r}: use bf16, int8 or int4")
+        kv_quantize = "" if kv_dtype in ("bf16", "bfloat16") else kv_dtype
+    elif kv_quantize is None:
+        kv_quantize = conf.get_or_default("ENGINE_KV_QUANTIZE", "")
+
+    def pick(name: str, key: str, get, default):
+        return kw.pop(name) if name in kw else get(key, default)
+
+    return {
+        "slots": int(pick("slots", "ENGINE_SLOTS", conf.get_int, 8)),
+        "max_len": int(pick("max_len", "ENGINE_MAX_LEN", conf.get_int, 2048)),
+        "decode_chunk": int(pick("decode_chunk", "ENGINE_DECODE_CHUNK", conf.get_int, 8)),
+        "max_prefill_batch": int(pick("max_prefill_batch", "ENGINE_PREFILL_BATCH",
+                                      conf.get_int, 4)),
+        "kv_layout": str(pick("kv_layout", "ENGINE_KV_LAYOUT", conf.get_or_default, "paged")),
+        "kv_quantize": str(kv_quantize),
+        "page_size": int(pick("page_size", "ENGINE_PAGE_SIZE", conf.get_int, 128)),
+        "total_pages": int(pick("total_pages", "ENGINE_TOTAL_PAGES", conf.get_int, 0)) or None,
+        "prefix_cache": bool(pick("prefix_cache", "ENGINE_PREFIX_CACHE", conf.get_bool, True)),
+        "spec_tokens": int(pick("spec_tokens", "ENGINE_SPEC_TOKENS", conf.get_int, 0)),
+        "default_timeout": pick("default_timeout", "ENGINE_TIMEOUT", conf.get_float, 0.0) or None,
+        "adapter_slots": int(pick("adapter_slots", "ADAPTER_SLOTS", conf.get_int, 0)),
+        "adapter_rank": int(pick("adapter_rank", "ADAPTER_RANK", conf.get_int, 16)),
+        "adapter_pool_mb": float(pick("adapter_pool_mb", "ADAPTER_POOL_MB", conf.get_float, 0.0)),
+        "adapter_host_mb": float(pick("adapter_host_mb", "ADAPTER_HOST_MB", conf.get_float,
+                                      256.0)),
+    }
+
+
+def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container: Any = None, *,
+                 params: Any = None, device: str | torch.device | None = None, seed: int = 0,
                  spec_draft: tuple[str | LlamaConfig, Any] | None = None,
                  **kw: Any) -> GenerateEngine:
-    """An engine for a Llama config (a preset name or a ``LlamaConfig``).
-    Weights: ``params`` as a ``Llama`` already built, a JAX parameter tree
-    as numpy arrays (``params_from_jax``), or — when None — random weights
-    drawn on ``device`` from ``seed``. ``spec_draft`` = (a config, its
-    weights in any of those forms) is the draft model of speculative
-    decoding (engine.py:4140), its random weights drawn from ``seed`` + 1.
-    Runs on the card unless ``device`` says otherwise; ``kw`` goes to
-    ``GenerateEngine`` (``spec_tokens`` among them)."""
+    """An engine for a Llama model, in one of two forms.
+
+    ``build_engine(spec, container, **kw)`` is the App's (engine.py:4036):
+    the model is the ``ModelSpec``'s (its config, weights, tokenizer and
+    dtype), the knobs come from the container's config (``engine_knobs``)
+    with ``kw`` winning, the eos id from the tokenizer unless
+    ``eos_token_id`` is given, and a random model is announced with the
+    logger's warn.
+
+    ``build_engine(preset_or_config, params=..., **kw)`` is the direct one:
+    a preset name or a ``LlamaConfig``, and ``kw`` straight to
+    ``GenerateEngine``.
+
+    Weights (``params``, or the spec's ``weights``): a ``Llama`` already
+    built, a JAX parameter tree as numpy arrays (``params_from_jax``), or —
+    when None — random weights drawn on ``device`` from ``seed``.
+    ``spec_draft`` = (a config, its weights in any of those forms) is the
+    draft model of speculative decoding (engine.py:4140), its random
+    weights drawn from ``seed`` + 1. Runs on the card unless ``device``
+    says otherwise."""
+    if isinstance(config, ModelSpec):
+        spec = config
+        if container is None or params is not None:
+            raise TypeError("build_engine(spec, container): the knobs come from the container's "
+                            "config and the weights from spec.weights")
+        if spec.family != "llama":
+            raise ValueError(f"model family {spec.family!r} is not ported; the port serves "
+                             "'llama'")
+        if spec.task != "generate":
+            raise ValueError(f"task {spec.task!r}: BatchEngine (embed, classify) is not ported "
+                             "yet (ROADMAP.md Queue A 9)")
+        if isinstance(spec.weights, str) or isinstance(spec.tokenizer, str):
+            raise ValueError("checkpoint paths, Hugging Face ids and tokenizer names are not "
+                             "ported yet (ROADMAP.md Queue A 9): pass weights as a Llama or a "
+                             "parameter tree, and a tokenizer object")
+        cfg = spec.config
+        if spec.dtype is not None and cfg.dtype != spec.dtype:
+            cfg = dataclasses.replace(cfg, dtype=spec.dtype)
+        kw = {**engine_knobs(container.config, container.logger, kw), **kw}
+        if kw.get("eos_token_id") is None and spec.tokenizer is not None:
+            kw["eos_token_id"] = spec.tokenizer.eos_token_id
+        kw.setdefault("tokenizer", spec.tokenizer)
+        params = spec.weights
+        if params is None:
+            container.logger.warn(f"model {spec.family}: no weights given — randomly "
+                                  "initialized (dev/bench mode)")
+    elif container is not None:
+        raise TypeError("build_engine: a container goes with a ModelSpec")
+    else:
+        cfg = _PRESETS[config]() if isinstance(config, str) else config
     dev = resolve_device(device)
-    cfg = _PRESETS[config]() if isinstance(config, str) else config
     model = _model(cfg, params, dev, seed)
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]

@@ -1,2 +1,4 @@
-"""HTTP-facing pieces of the port (counterpart of gofr_tpu.http): for now
-only the typed errors the engine raises."""
+"""The port's HTTP layer (counterpart of gofr_tpu.http): typed errors, the
+request wrapper, the JSON-envelope responder, SSE, the middleware chain,
+and an HTTP/1.1 server on the standard library (``server.py``) in place of
+aiohttp."""

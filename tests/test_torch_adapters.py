@@ -597,17 +597,30 @@ def test_adapter_pool_mb_derives_the_slots(tiny):
         eng.stop()
 
 
-@pytest.mark.parametrize("knobs,match", [
-    (dict(adapter_slots=1), ">= 2 slots"),
-    (dict(adapter_slots=-3), ">= 2 slots"),
-    (dict(adapter_slots=4, adapter_rank=0), "adapter_rank"),
-    (dict(adapter_pool_mb=1.0, adapter_rank=-1), "adapter_rank"),
+@pytest.mark.parametrize("knobs", [
+    dict(adapter_slots=1),
+    dict(adapter_slots=-3),
+    dict(adapter_slots=4, adapter_rank=0),
+    dict(adapter_pool_mb=1.0, adapter_rank=-1),
 ])
-def test_out_of_range_adapter_knobs_are_rejected(tiny, knobs, match):
-    """A pool of fewer than 2 slots or a rank below 1 raises at
-    construction rather than being raised to the nearest legal value."""
-    with pytest.raises(ValueError, match=match):
-        _port_engine(tiny, **knobs).stop()
+def test_out_of_range_adapter_knobs_clamp_as_the_jax_engine(tiny, knobs):
+    """Any non-zero slot count turns the plane on with at least 2 pool
+    slots, and the rank is at least 1, the one derived from a pool budget
+    too (engine.py:1465, 1491): the port's pool has the JAX engine's slots
+    and rank for the same knobs, and serves."""
+    jeng = _jax_engine(tiny, **knobs)
+    try:
+        want = jeng.adapter_stats()["pool"]
+    finally:
+        jeng.stop()
+    eng = _port_engine(tiny, **knobs)
+    try:
+        got = eng.adapter_stats()["pool"]
+        assert eng.generate(PROMPTS[0], max_new_tokens=2, timeout=300)["finish_reason"] == "length"
+    finally:
+        eng.stop()
+    assert (got["slots"], got["rank"]) == (want["slots"], want["rank"])
+    assert got["slots"] >= 2 and got["rank"] >= 1
 
 
 def test_a_replaced_adapter_waits_for_its_lanes_and_a_vanished_one_fails(tiny):

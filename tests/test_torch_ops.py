@@ -39,13 +39,31 @@ def _needs_card():
 # -- import discipline -----------------------------------------------------------
 
 
+def _port_files():
+    """The port's package, its example and the card-side script."""
+    files = (sorted((REPO / "gofr_tpu_torch").rglob("*.py"))
+             + sorted((REPO / "examples" / "serving-llm-torch").rglob("*.py"))
+             + [REPO / "chip_smoke.py"])
+    assert len(files) > 10 and REPO / "examples" / "serving-llm-torch" / "main.py" in files
+    return files
+
+
 @pytest.mark.quick
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     bad = re.compile(r"^\s*(import\s+(jax|gofr_tpu)\b|from\s+(jax|gofr_tpu)[\s.])", re.M)
-    files = sorted((REPO / "gofr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
-    offenders = [str(p.relative_to(REPO)) for p in files if bad.search(p.read_text())]
+    offenders = [str(p.relative_to(REPO)) for p in _port_files() if bad.search(p.read_text())]
     assert not offenders, f"port files importing jax / gofr_tpu: {offenders}"
+
+
+@pytest.mark.quick
+def test_port_imports_no_http_library_outside_the_stdlib():
+    """The port depends on no HTTP library outside the standard library:
+    it serves on asyncio's streams (http/server.py), and chip_smoke.py's
+    client is http.client. aiohttp and httpx are not forbidden for want of
+    them on the card, where both import; the port simply needs neither."""
+    bad = re.compile(r"^\s*(import\s+(aiohttp|httpx)\b|from\s+(aiohttp|httpx)[\s.])", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in _port_files() if bad.search(p.read_text())]
+    assert not offenders, f"port files importing aiohttp / httpx: {offenders}"
 
 
 @pytest.mark.quick
@@ -57,8 +75,13 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert resolve_device("cpu").type == "cpu"
+    from gofr_tpu_torch.app import new_testing
+    from gofr_tpu_torch.models import ModelSpec
+
+    spec = ModelSpec("llama", LlamaConfig.tiny(), dtype=torch.float32)
     for call in (resolve_device, lambda: Llama(LlamaConfig.tiny()),
-                 lambda: build_engine("tiny")):
+                 lambda: build_engine("tiny"),
+                 lambda: new_testing().serve_model("lm", spec)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -57,6 +57,24 @@ result line:
    served 6 pages from the cache, and the pool's audit must pass. The
    share of requests whose tokens equal an unconstrained run's (no prefix
    cache, no chunking, the full pool) is printed with the margins, not held.
+   Then ``paged_prefix_host``: the same traffic on an engine with a host
+   tier of 512 MiB (``HOST_TIER``), then 4 prompts that need the whole
+   pool, then the 8 shared prompts again; the pressure must spill pages,
+   the second wave must swap pages in, serve each of its prompts the
+   768-token prefix from the cache and at least those 6 pages from the host
+   tier, every burst's tokens must equal the same traffic's with the tier
+   off by the tie rule, and the pool and tier audit must pass after each
+   burst; it prints the swap-ins' pages, bytes, ms on the card and GB/s
+   beside the host link's raw rate (the data sheet's PCIe Gen5 x16 where
+   nvidia-smi reports none). Then ``paged_pipeline``: pipeline depth
+   1 against 2 on the bf16 pool, in turns 1, 2, 2, 1, 16 prompts in 4 waves
+   of 4, each wave submitted once the previous one's first tokens are out;
+   each arm must launch A, B, C and no other kernel, carry at most depth -
+   1 calls across a loop turn (1 at depth 2), and give the first arm's
+   tokens by the tie rule; it prints each arm's tok/s, TTFT p50 and max,
+   host ms a loop turn, the folds' wait on their events, and the device's
+   idle share over one more wave run under ``torch.profiler`` after the
+   timed ones, holding none.
    Then ``paged_lora``: ``bf16``'s traffic on an engine with the adapter
    plane (4 pool slots of rank 16; three random adapters of ranks 8, 12
    and 16), the requests on the base model and the three adapters in turn;
@@ -101,7 +119,11 @@ result line:
    an adapter upload, a ``decode_step`` and a speculative round with the
    lanes on the base model and adapters, inside
    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
-   that makes the host wait on the card.
+   that makes the host wait on the card; then on a stopped engine of each
+   cache the engine's own dispatches under the same check: a batched
+   prefill, two prefill chunks, two decode chunks (the second from the
+   device carry), a swap-in on the pool (the page swapped in must equal its
+   source bit for bit) and two speculative rounds, the folds outside it.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -947,6 +969,7 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     reqs = [eng.submit(p, max_new_tokens=64, temperature=0.0, adapter_id=a)
             for p, a in zip(prompts, lanes)]
     outs = [r.result(timeout=900) for r in reqs]
+    wait_idle(eng)
     torch.cuda.synchronize()
     t_done = time.monotonic()
     counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
@@ -1080,6 +1103,7 @@ def serve_admission(torch, cuda, model) -> dict:
     cuda.reset_launch_counts()
     t_submit = time.monotonic()
     outs = [r.result(timeout=900) for r in [eng.submit(p, max_new_tokens=64) for p in burst]]
+    wait_idle(eng)
     torch.cuda.synchronize()
     t_done = time.monotonic()
     counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
@@ -1263,6 +1287,296 @@ def adopt_check(torch, cuda) -> dict:
     return {"layers": ADOPT_LAYERS, "requests_in_flight": 4, "weights_epoch": epoch,
             "adopt_s": swap_s, "preemptions": [o["preemptions"] for o in outs],
             "after_swap_equals_new_engine": True, "tokens_compared": len(want)}
+
+
+# Phase 4's ``paged_pipeline``: ``pipeline_depth`` 1 against 2 (the default)
+# on the bf16 pool, one engine per arm on the phase's model, in turns
+# ``DEPTHS``. 16 prompts of 64..1024 tokens from the seed, 64 greedy tokens
+# each, go in 4 waves of 4, each wave submitted once the previous wave's
+# first tokens are out, so its prefill lands while those lanes decode (the
+# requests stream, and the wait blocks on each one's first token: a loop
+# polling for it would take the interpreter lock from the engine's thread
+# every time it wakes). After the timed waves each arm
+# repeats a wave pair under ``torch.profiler``: the device's busy time over
+# the second wave, from its submit to its first tokens (the profiler's
+# stop and event processing hold the interpreter lock for seconds, so they
+# come after the timed part).
+PIPELINE = {"requests": 16, "waves": 4, "new_tokens": 64}
+DEPTHS = (1, 2, 2, 1)
+
+
+def wait_idle(eng, timeout: float = 120.0) -> dict:
+    """Wait until the engine has folded every call it dispatched (a
+    speculative round can go out for a lane that an older round's fold then
+    ends, and its launches are counted); returns ``pipeline_stats()``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = eng.pipeline_stats()
+        if st["folds"] == sum(st["dispatched"].values()):
+            return st
+        require(time.monotonic() < deadline, f"calls still in flight after the requests: {st}")
+        time.sleep(0.001)
+
+
+def pipeline_prompts(torch, vocab: int) -> list[list[int]]:
+    """The timed waves' prompts, then two more waves' for the profiled
+    pair (new prompts: the timed ones sit in the prefix cache)."""
+    n = PIPELINE["requests"] + 2 * PIPELINE["requests"] // PIPELINE["waves"]
+    rng = torch.Generator().manual_seed(SEED + 6)
+    lens = torch.randint(64, 1025, (n,), generator=rng).tolist()
+    return [torch.randint(0, vocab, (k,), generator=rng).tolist() for k in lens]
+
+
+def submit_wave(eng, prompts: list) -> list:
+    """Submit a wave of streamed requests and block until each has its
+    first token (its first streamed id)."""
+    wave = [eng.submit(p, max_new_tokens=PIPELINE["new_tokens"], stream=True) for p in prompts]
+    for r in wave:
+        require(r.stream_q.get(timeout=600) is not None, "a wave's request ended before a token")
+    return wave
+
+
+def profiled_wave(torch, eng, prompts: list) -> dict:
+    """Two waves after the timed ones, the second under torch.profiler:
+    the device's busy ms (kernels and copies) over the second wave's
+    window, its submit to its first tokens, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = PIPELINE["requests"] // PIPELINE["waves"]
+    first = submit_wave(eng, prompts[:per])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        second = submit_wave(eng, prompts[per:2 * per])
+        # the trace closes once the card has run what was launched in the
+        # window, so the window ends there too
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    for r in first + second:
+        r.result(timeout=900)
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    # the profiler does not always see the kernels the engine's thread
+    # launches (one arm in a few traced nothing); such a trace measures
+    # nothing
+    seen = busy_ms >= 0.01 * window_s * 1e3
+    return {"profiled_wave_s": window_s, "profiled_wave_device_busy_ms": busy_ms,
+            "profiled_wave_device_idle_share": 1.0 - busy_ms / (window_s * 1e3) if seen else None}
+
+
+def pipeline_arm(torch, cuda, model, depth: int, prompts: list) -> tuple[list, dict, dict]:
+    """One arm of ``paged_pipeline``: (results, metrics, launches)."""
+    from gofr_tpu_torch.gpu.engine import build_engine
+
+    eng = build_engine(model.cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                       max_prefill_batch=4, decode_chunk=8, pipeline_depth=depth)
+    warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+    require(warm["finish_reason"] == "length", f"pipeline depth {depth} warm-up: {warm}")
+    before = wait_idle(eng)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    per = PIPELINE["requests"] // PIPELINE["waves"]
+    reqs = []
+    t_submit = time.monotonic()
+    for w in range(PIPELINE["waves"]):
+        reqs += submit_wave(eng, prompts[w * per:(w + 1) * per])
+    outs = [r.result(timeout=900) for r in reqs]
+    st = wait_idle(eng)
+    torch.cuda.synchronize()
+    t_done = time.monotonic()
+    counts = cuda.launch_counts()
+    profiled = profiled_wave(torch, eng, prompts[PIPELINE["requests"]:])
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == PIPELINE["new_tokens"],
+                f"pipeline depth {depth} request {i}: {o['finish_reason']}, "
+                f"{len(o['tokens'])} tokens")
+    for name, launches in counts.items():
+        if name in ON_PATH["paged", ""]:
+            require(launches > 0, f"kernel {name} was not launched at pipeline depth {depth}")
+        else:
+            require(launches == 0, f"kernel {name} was launched {launches} times at pipeline "
+                                   f"depth {depth}")
+    # a turn leaves at most depth - 1 calls in flight while the host plans
+    # the next; within a turn the queue also takes that turn's dispatches
+    require(st["dq_carried_max"] == depth - 1 and (depth == 1 or st["dq_max"] >= depth),
+            f"pipeline depth {depth}: the queue carried {st['dq_carried_max']} calls across a "
+            f"turn at most, held {st['dq_max']} at most")
+    turns = st["busy_turns"] - before["busy_turns"]
+    folds = st["folds"] - before["folds"]
+    first = [t_submit + o["ttft_s"] for o in outs]
+    done = [f + o["decode_s"] for f, o in zip(first, outs)]
+    ttft = sorted(o["ttft_s"] for o in outs)
+    return outs, {
+        "pipeline_depth": depth, "requests": len(outs), "waves": PIPELINE["waves"],
+        "new_tokens": PIPELINE["new_tokens"], "wall_s": t_done - t_submit,
+        "output_tok_s": sum(len(o["tokens"]) for o in outs) / (t_done - t_submit),
+        "decode_tok_s": sum(len(o["tokens"]) - 1 for o in outs) / (max(done) - min(first)),
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "host_ms_per_turn": (st["busy_turn_s"] - before["busy_turn_s"]) / turns * 1e3,
+        "turns": turns, "folds": folds,
+        "fold_wait_ms": (st["fold_wait_s"] - before["fold_wait_s"]) * 1e3,
+        "fold_wait_ms_per_fold": (st["fold_wait_s"] - before["fold_wait_s"]) / folds * 1e3,
+        "dq_max": st["dq_max"], "dq_carried_max": st["dq_carried_max"],
+        "dispatched": {k: v - before["dispatched"].get(k, 0) for k, v in st["dispatched"].items()},
+        **profiled,
+    }, counts
+
+
+def serve_pipeline(torch, cuda, model) -> dict:
+    """Phase 4 ``paged_pipeline``: the arms in turns ``DEPTHS``; every arm's
+    tokens against the first depth-1 arm's by the tie rule. Nothing about
+    speed is held."""
+    prompts = pipeline_prompts(torch, model.cfg.vocab_size)
+    timed = prompts[:PIPELINE["requests"]]
+    arms, base = [], None
+    for depth in DEPTHS:
+        outs, metrics, counts = pipeline_arm(torch, cuda, model, depth, prompts)
+        if base is None:
+            base = outs
+        else:
+            agree = token_agreement(torch, model, timed, outs, base)
+            gaps = [m["chosen_below_top1"] for m in agree["margin_at_first_difference"] if m]
+            require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+                    f"paged_pipeline depth {depth}: at a first difference from depth 1 the run "
+                    f"chose a token {gaps} below the top logit (limit {SPEC_TIE_GAP})")
+            metrics.update(agree)
+        arms.append({**metrics, "launches": counts})
+    return {"model": "llama3_8b (random bf16 weights, seed 0)", "layers": model.cfg.num_layers,
+            "kv_layout": "paged", "kv_pool": "bf16", "prompt_lens": [len(p) for p in timed],
+            "order": list(DEPTHS), "arms": arms, "nvidia_smi": smi_line(),
+            "note": "an A/B in one call, not a benchmark; nothing about speed is held"}
+
+
+# Phase 4's ``paged_prefix_host``: ``paged_admission``'s warm request and burst
+# on its 40-page pool with a host tier of ``prefix_host_mb`` (the
+# ENGINE_PREFIX_HOST_MB knob; 512 MiB holds 32 of Llama-3-8B's 16 MiB bf16
+# pages, the shared prefix's 6 five times over), then a pressure burst that
+# needs the whole pool (4 prompts of 1025 tokens, 8 full pages, 200 new
+# tokens: 10 pages a request), which spills every page the cache holds,
+# and leaves 2 pages a request free when it ends; then the 8 shared prompts
+# again. The same traffic with the host tier off is the comparison.
+HOST_TIER = {"prefix_host_mb": 512, "pressure_prompt": 1025, "pressure_requests": 4,
+             "pressure_new": 200}
+# The card's host link, where nvidia-smi reports none: PCIe Gen5 x16 (H100
+# SXM data sheet), 32 GT/s a lane, 128b/130b, one direction.
+PCIE5_X16_BYTES_PER_S = 32e9 * 16 * 128 / 130 / 8
+
+
+def host_link_gb_s() -> tuple[float, str]:
+    """The host link's raw rate in GB/s, one direction, at the generation
+    and width nvidia-smi reports (``pcie.link.gen.max``,
+    ``pcie.link.width.max``), and where it came from; the data sheet's
+    Gen5 x16 where nvidia-smi answers N/A."""
+    line = subprocess.run(["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    try:
+        gen, width = (int(x) for x in line.split(","))
+    except ValueError:
+        return PCIE5_X16_BYTES_PER_S / 1e9, f"nvidia-smi: {line}; H100 SXM data sheet: Gen5 x16"
+    gt_s = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0}[gen]
+    return gt_s * width * (0.8 if gen < 3 else 128 / 130) / 8, f"nvidia-smi: {line}"
+
+
+def prefix_host_run(torch, model, host_mb: float) -> dict:
+    """The three bursts on one admission engine with a host tier of
+    ``host_mb`` MiB (0: off); the pool audit after each."""
+    cfg = model.cfg
+    warm, burst = admission_traffic(torch, cfg.vocab_size)
+    rng = torch.Generator().manual_seed(SEED + 7)
+    pressure = [torch.randint(0, cfg.vocab_size, (HOST_TIER["pressure_prompt"],),
+                              generator=rng).tolist()
+                for _ in range(HOST_TIER["pressure_requests"])]
+    second = burst[:len(ADMISSION["tails"])]
+    eng = admission_run(torch, model, warm, total_pages=ADMISSION["total_pages"],
+                        prefill_buckets=ADMISSION["prefill_buckets"], prefix_host_mb=host_mb)
+    outs, counters, pools = {}, {}, {}
+    for name, prompts, n_new in (("burst", burst, 64),
+                                 ("pressure", pressure, HOST_TIER["pressure_new"]),
+                                 ("second", second, 64)):
+        before = dict(eng.counters)
+        t0 = time.monotonic()
+        outs[name] = [r.result(timeout=900)
+                      for r in [eng.submit(p, max_new_tokens=n_new) for p in prompts]]
+        wait_idle(eng)
+        torch.cuda.synchronize()
+        counters[name] = {k: v - before[k] for k, v in eng.counters.items()}
+        counters[name]["wall_s"] = time.monotonic() - t0
+        eng.check_page_refs()
+        pools[name] = eng.page_pool_stats()
+        for i, o in enumerate(outs[name]):
+            require(o["finish_reason"] == "length" and len(o["tokens"]) == n_new,
+                    f"prefix_host ({host_mb} MiB) {name} request {i}: {o['finish_reason']}")
+    stats = eng.pipeline_stats()
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    return {"outs": outs, "counters": counters, "pools": pools, "stats": stats,
+            "prompts": {"burst": burst, "pressure": pressure, "second": second}}
+
+
+def serve_prefix_host(torch, cuda, model) -> dict:
+    """Phase 4 ``paged_prefix_host``: the traffic with the host tier on,
+    then off, the launch counters over both. Held: the pressure spilled
+    pages; the second wave swapped pages in, served the shared 768-token
+    prefix to each of its prompts from the cache and at least those 6 pages
+    from the host tier (its first prompt swaps them in; the others share
+    the swapped pages); every run's tokens against the host-tier-off run's
+    by the tie rule; the pool and tier audit after each burst; the bf16
+    pool's kernels and no other. Printed: the swap-ins' pages, bytes, time
+    on the card and GB/s beside the host link's raw rate."""
+    cuda.reset_launch_counts()
+    on = prefix_host_run(torch, model, HOST_TIER["prefix_host_mb"])
+    off = prefix_host_run(torch, model, 0.0)
+    counts = cuda.launch_counts()
+    prefix = ADMISSION["prefix"]
+    spilled = on["counters"]["pressure"]["prefix_spilled_pages"]
+    wave = on["counters"]["second"]
+    require(spilled > 0, f"paged_prefix_host: the pressure spilled nothing: {on['counters']}")
+    require(wave["prefix_swapin_pages"] > 0 and wave["prefix_host_hit_tokens"] >= prefix
+            and all(o["prefix_hit_tokens"] >= prefix for o in on["outs"]["second"]),
+            f"paged_prefix_host: the second wave's hits {[o['prefix_hit_tokens'] for o in on['outs']['second']]}, "
+            f"host {[o['prefix_host_tokens'] for o in on['outs']['second']]}: {wave}")
+    for name, launches in counts.items():
+        if name in ON_PATH["paged", ""]:
+            require(launches > 0, f"kernel {name} was not launched on the prefix_host runs")
+        else:
+            require(launches == 0, f"kernel {name} was launched {launches} times on the "
+                                   f"prefix_host runs")
+    agree = {}
+    for name in ("burst", "pressure", "second"):
+        agree[name] = token_agreement(torch, model, on["prompts"][name], on["outs"][name],
+                                      off["outs"][name])
+        gaps = [m["chosen_below_top1"] for m in agree[name]["margin_at_first_difference"] if m]
+        require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+                f"paged_prefix_host {name}: at a first difference from the host-tier-off run "
+                f"the run chose a token {gaps} below the top logit (limit {SPEC_TIE_GAP})")
+    swap_s = on["stats"]["swapin_s"]
+    nbytes = sum(c["prefix_swapin_bytes"] for c in on["counters"].values())
+    link, link_line = host_link_gb_s()
+    second_ttft = {arm: sorted(o["ttft_s"] for o in run["outs"]["second"])
+                   for arm, run in (("host_tier", on), ("off", off))}
+    return {
+        "model": "llama3_8b (random bf16 weights, seed 0)", "layers": model.cfg.num_layers,
+        "kv_pool": "bf16", **HOST_TIER, "total_pages": ADMISSION["total_pages"],
+        "counters": on["counters"], "counters_host_tier_off": off["counters"],
+        "pool_after": on["pools"], "host_pages_after": on["pools"]["second"]["prefix_host_pages"],
+        "second_wave_hit_tokens": [o["prefix_hit_tokens"] for o in on["outs"]["second"]],
+        "second_wave_host_tokens": [o["prefix_host_tokens"] for o in on["outs"]["second"]],
+        "second_wave_ttft_p50_s": {k: v[len(v) // 2] for k, v in second_ttft.items()},
+        "second_wave_ttft_max_s": {k: v[-1] for k, v in second_ttft.items()},
+        "swapin_pages": sum(c["prefix_swapin_pages"] for c in on["counters"].values()),
+        "swapin_bytes": nbytes, "swapin_ms": swap_s * 1e3,
+        "swapin_gb_s": nbytes / swap_s / 1e9 if swap_s else None,
+        "swapin_share_of_host_link": nbytes / swap_s / 1e9 / link if swap_s else None,
+        "host_link_gb_s": link, "host_link_source": link_line,
+        "tokens_equal_host_tier_off": {k: v["tokens_equal"] for k, v in agree.items()},
+        "first_difference": {k: v["first_difference"] for k, v in agree.items()},
+        "launches": counts, "nvidia_smi": smi_line(),
+        "note": "smoke run, not a benchmark",
+    }
 
 
 # Phase 4's ``http_generate``: the bf16 run's traffic over localhost through
@@ -1746,8 +2060,8 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     emitted = []
 
     def spec_round():
-        toks, accs = spec_chunk(model, cache, hist, tokens, hlen, table, temps, 1, SPEC_G, gen,
-                                top_k=50, top_p=0.95)
+        toks, accs, _ = spec_chunk(model, cache, hist, tokens, hlen, table, temps, 1, SPEC_G,
+                                   gen, top_k=50, top_p=0.95)
         emitted.append((toks, accs))
         return toks.float()
 
@@ -1778,8 +2092,8 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     def lora_round():
         lora_pool.acquire(specs[-1])
         logits, _ = model.decode_step(tokens, positions + steps, cache, table, adapters=ad)
-        toks, _ = spec_chunk(model, cache, hist, tokens, hlen + steps, table, temps, 1, SPEC_G,
-                             gen, top_k=50, top_p=0.95, adapters=ad)
+        toks, _, _ = spec_chunk(model, cache, hist, tokens, hlen + steps, table, temps, 1,
+                                SPEC_G, gen, top_k=50, top_p=0.95, adapters=ad)
         return torch.cat([logits.flatten(), toks.float().flatten()])
 
     counts = unsynced(lora_round)
@@ -1796,6 +2110,85 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
                          **{k: counts_decode[k] for k in decode_kernels},
                          "flash_attention (verify)": spec_launches,
                          "with adapters": counts}}
+
+
+def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
+    """The engine's dispatches on one cache, each inside
+    ``torch.cuda.set_sync_debug_mode("error")``: a batched prefill (one lane
+    sampled with top-k and top-p) with a long prompt's claim
+    (``dispatch_prefill``), that prompt's two chunks (``dispatch_chunk``),
+    two decode chunks, the second from the device carry
+    (``dispatch_decode``), and on the pool a swap-in of one page into a free
+    page (``dispatch_swapins``), then two speculative rounds on an engine
+    with ``spec_tokens`` (``dispatch_spec`` / ``dispatch_spec_paged``). Each
+    runs on a stopped engine of 2 slots, from this thread; the folds, whose
+    waits on their events are the intended ones, run outside the check. The
+    page swapped in must equal the page it was copied from, bit for bit."""
+    from gofr_tpu_torch.gpu import decode, executor
+    from gofr_tpu_torch.gpu.engine import GenerateEngine, Request
+    from gofr_tpu_torch.ops.paged import gather_page, page_planes
+
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    rng = torch.Generator().manual_seed(SEED + 8)
+    short, long = (torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).tolist()
+                   for n in (100, 300))
+    checked = []
+
+    def engine(**kw):
+        eng = GenerateEngine(model, device="cuda", slots=2, max_len=1024, max_prefill_batch=2,
+                             decode_chunk=2, prefill_buckets=[128, 256], top_k=50, top_p=0.95,
+                             kv_layout=kv_layout, kv_quantize=kv_quantize, **kw)
+        eng.stop()  # its loop ends: the dispatches below run from this thread
+        return eng
+
+    def submit(eng, prompt, temperature=0.0):
+        eng._accept(Request(prompt, {"max_new_tokens": 16, "temperature": temperature}, None))
+
+    def unsynced(name, fn) -> None:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            did = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(did is None or did, f"{pool}: {name} dispatched nothing")
+        checked.append(name)
+
+    def fold(eng) -> None:
+        while eng._dq:
+            decode.process_decode(eng)
+
+    eng = engine()
+    submit(eng, short, temperature=0.8)
+    submit(eng, long)
+    unsynced("dispatch_prefill", eng._admit_prefill)
+    unsynced("dispatch_chunk", eng._advance_chunked)
+    unsynced("dispatch_chunk", eng._advance_chunked)
+    fold(eng)
+    unsynced("dispatch_decode", lambda: decode.dispatch_decode(eng))
+    unsynced("dispatch_decode (carry)", lambda: decode.dispatch_decode(eng))
+    fold(eng)
+    if kv_layout == "paged":
+        src, dst = eng._slot_pages[0][0], eng._free_pages[-1]
+        host = executor.Readback(eng.device, *gather_page(eng.cache, src)).wait()
+        eng._pending_swapins = [(0, eng.slots[0], [], [dst], [tuple(host)])]
+        unsynced("dispatch_swapins", lambda: executor.dispatch_swapins(eng))
+        fold(eng)
+        require(all(bool((plane[:, dst] == plane[:, src]).all()) for plane in page_planes(eng.cache)),
+                f"{pool}: the page swapped in differs from the page it was copied from")
+    eng = engine(spec_tokens=SPEC_G)
+    submit(eng, short, temperature=0.8)
+    submit(eng, long[:200])
+    eng._admit_prefill()
+    fold(eng)
+    name = "dispatch_spec_paged" if kv_layout == "paged" else "dispatch_spec"
+    unsynced(name, lambda: getattr(decode, name)(eng))
+    unsynced(f"{name} (carry)", lambda: getattr(decode, name)(eng))
+    fold(eng)
+    require(eng.counters["spec_rounds"] == 2 * eng.decode_chunk,
+            f"{pool}: {eng.counters['spec_rounds']} spec rounds folded")
+    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
+            "sync_debug_mode": "error", "dispatches": checked}
 
 
 # Phase 5's runs besides the plain one: (prefill kernels, decode kernels,
@@ -1930,6 +2323,17 @@ def main() -> None:
     served["paged_admission"] = admission
     lap("phase4_paged_admission")
 
+    served["paged_prefix_host"] = serve_prefix_host(torch, cuda, model)
+    emit("phase4_serve_paged_prefix_host", {k: v for k, v in served["paged_prefix_host"].items()
+                                            if k not in ("counters_host_tier_off", "pool_after")})
+    lap("phase4_paged_prefix_host")
+
+    served["paged_pipeline"] = serve_pipeline(torch, cuda, model)
+    emit("phase4_serve_paged_pipeline", {**served["paged_pipeline"], "arms": [
+        {k: v for k, v in arm.items() if k != "margin_at_first_difference"}
+        for arm in served["paged_pipeline"]["arms"]]})
+    lap("phase4_paged_pipeline")
+
     served["paged_lora"] = serve_lora(torch, cuda, model, served["paged", ""]["metrics"],
                                       results["paged", ""])
     emit("phase4_serve_paged_lora", {**served["paged_lora"]["metrics"],
@@ -1954,6 +2358,7 @@ def main() -> None:
     lap("phase5_lora")
 
     emit("phase6_no_sync", [no_sync_check(torch, cuda, model, *run) for run in RUNS])
+    emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, model, *run) for run in RUNS])
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on

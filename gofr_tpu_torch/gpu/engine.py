@@ -4,18 +4,31 @@ cache (counterpart of gofr_tpu/tpu/engine.py ``GenerateEngine`` and
 
 A device thread owns the model, the cache and every slot. Callers
 ``submit`` prompts onto a queue and get a ``Request`` future back. Each
-loop turn the thread, in the JAX engine's order (engine.py:3338-3361),
+loop turn the thread, in the JAX engine's order (engine.py:3296-3386),
 
 1. admits: moves queued requests into the pending list (a prompt longer
    than the largest prefill bucket into the chunked list), claims a free
    slot for each waiting long prompt, then lets ``plan_prefill`` (EDF plus
    bucket affinity, ``gpu/planner.py``) choose one batch of the rest and
-   prefills it at once, padded to its longest chosen prompt;
-2. prefills one chunk of the oldest-admitted long prompt, so decode keeps
+   dispatches its prefill, padded to its longest chosen prompt; then the
+   host tier's spills and swap-ins (below);
+2. dispatches one chunk of the oldest-admitted long prompt, so decode keeps
    stepping between its chunks;
-3. runs ``decode_chunk`` decode steps over every decoding slot and hands
-   each slot its tokens until EOS or its length limit; a finished request
-   frees its slot at once.
+3. dispatches ``decode_chunk`` decode steps over every decoding slot;
+4. folds the oldest calls in flight until at most ``pipeline_depth`` - 1
+   remain (all of them when the turn dispatched nothing): each fold hands
+   the slots their first or next tokens, until EOS or their length limit;
+   a finished request frees its slot at once.
+
+Every device call rides one in-flight queue (``gpu/executor.py``,
+``gpu/decode.py``): a dispatch copies its token ids to the host behind the
+call and returns, and the fold of an older call waits only for that copy
+while the younger ones run on the card. At ``pipeline_depth`` 2 (the
+default, as engine.py:955 has it) one call stays in flight across turns;
+at 1 the turn folds each phase before the next: fully synchronous, the
+operator's debugging setting. Greedy tokens are the same at every depth.
+A lane whose chunk is in flight decodes on from the carry its last token
+left on the card.
 
 ``kv_layout`` picks the cache. On the paged layout (the default, as
 engine.py:4118 picks it for llama) pages are taken on demand: a batched
@@ -24,15 +37,20 @@ cannot, admission stops), a chunk gets its chunk's, and a decoding lane
 grows its table before each decode chunk. When the pool runs short the
 prefix cache gives up its least-recently-used pages, and then the newest
 slot is preempted: freed and requeued with what it generated folded into
-its prompt, to be prefilled again (preemption by recompute). Pages are
-refcounted, since the prefix cache (``gpu/prefix.py``, on by default)
-splices a cached prompt prefix into several slots' tables; a prompt whose
-hit covers at least half of it takes the chunked path, which prefills only
-the rest. The decode table goes out with every row but the decoding lanes'
-all OOB, so those lanes' writes drop. On the slot layout each slot owns
-``cache_len`` positions (engine.py:1321), a request needs only a free
-slot, long prompts chunk too, and lanes that do not decode sit at position
-``cache_len``, so their writes drop (tpu/decode.py:309-315).
+its prompt, to be prefilled again (preemption by recompute); its calls in
+flight are discarded at their folds. Pages are refcounted, since the
+prefix cache (``gpu/prefix.py``, on by default) splices a cached prompt
+prefix into several slots' tables; a prompt whose hit covers at least half
+of it takes the chunked path, which prefills only the rest. With
+``prefix_host_mb`` > 0 the cache spills the pages it gives up to pinned
+host memory instead of dropping them (engine.py:2752), and a later hit
+swaps them back into fresh pages on the in-flight queue, ahead of the
+chunk that reads them (engine.py:2834-2906, 3560). The decode table goes
+out with every row but the decoding lanes' all OOB, so those lanes' writes
+drop. On the slot layout each slot owns ``cache_len`` positions
+(engine.py:1321), a request needs only a free slot, long prompts chunk
+too, and lanes that do not decode sit at position ``cache_len``, so their
+writes drop (tpu/decode.py:309-315).
 
 ``spec_tokens`` = g > 0 turns on speculative decoding (engine.py:1022):
 step 3 becomes ``decode_chunk`` speculative rounds (``gpu/decode.py``,
@@ -43,8 +61,9 @@ write on the device, or, with ``spec_draft`` (slot layout only), g + 1
 steps of a small draft model on its own slot cache, which the prefills
 fill too. Greedy tokens equal plain decode's; sampled ones are
 distributed as plain decode's. On the paged layout a round first claims
-pages for its worst case, ``pos + chunk_span - 1``, and gives back what
-the accepted tokens did not need after it (engine.py:2943).
+pages for its worst case, ``pos + chunk_span * (inflight + 1) - 1``, and
+gives back what the accepted tokens did not need once no round of the lane
+is in flight (engine.py:2943).
 
 ``generate(stream=True)`` returns an iterator of the tokens as they are
 decoded: ids, or text pieces by incremental detokenization with a
@@ -60,12 +79,14 @@ freed or preempted. The prefix cache stays shared across adapters: LoRA
 sits at the head, so K/V do not depend on it. ``adopt_weights`` swaps in
 new weights between loop turns with no request dropped: it preempts every
 slot, resets the caches and copies the weights in place
-(engine.py:2155-2264). QoS, handoff, lockstep, the prefix cache's host
-tier, checkpoint adoption, autotune and the perf plane are not ported yet.
+(engine.py:2155-2264), after folding every call in flight. QoS, handoff,
+lockstep, checkpoint adoption, autotune and the perf plane are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import logging
@@ -79,11 +100,11 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.adapters import AdapterPool, AdapterRegistry, AdapterSpec
-from gofr_tpu_torch.gpu import decode
+from gofr_tpu_torch.gpu import decode, executor
 from gofr_tpu_torch.gpu.device import resolve_device
-from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
+from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
-from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history, prefill_chunk, prefill_sample
+from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
 from gofr_tpu_torch.http import errors
 from gofr_tpu_torch.models import ModelSpec
 from gofr_tpu_torch.models.llama import (
@@ -94,6 +115,7 @@ from gofr_tpu_torch.models.llama import (
     jax_state,
     params_from_jax,
 )
+from gofr_tpu_torch.ops.paged import gather_page
 
 log = logging.getLogger(__name__)
 
@@ -102,15 +124,18 @@ log = logging.getLogger(__name__)
 KV_QUANTIZE = ("", "int8", "int4")
 KV_LAYOUTS = ("paged", "slot")
 # ``GenerateEngine.counters``: preemptions, tokens served from the prefix
-# cache, prefix lookups and misses (engine.py's app_tpu_prefix_* metrics),
-# pages evicted from it, prefill chunks (those at a non-zero offset too),
-# and speculation's draft tokens proposed, accepted and rejected, the
-# over-claimed pages given back after a round (app_tpu_spec_*), and its
-# rounds, one verify forward each
-COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_lookups", "prefix_misses",
-            "prefix_evicted_pages", "prefill_chunks", "prefill_chunks_at_offset",
-            "spec_proposed", "spec_accepted", "spec_rejected", "spec_pages_trimmed",
-            "spec_rounds")
+# cache (those of them from its host tier too), prefix lookups and misses
+# (engine.py's app_tpu_prefix_* metrics), pages evicted from the device
+# tier (spilled or dropped) and of them spilled to the host tier, host
+# pages dropped to keep its budget, pages and bytes swapped back in,
+# prefill chunks (those at a non-zero offset too), and speculation's draft
+# tokens proposed, accepted and rejected, the over-claimed pages given back
+# after a round (app_tpu_spec_*), and its rounds, one verify forward each
+COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_host_hit_tokens", "prefix_lookups",
+            "prefix_misses", "prefix_evicted_pages", "prefix_spilled_pages",
+            "prefix_host_dropped_pages", "prefix_swapin_pages", "prefix_swapin_bytes",
+            "prefill_chunks", "prefill_chunks_at_offset", "spec_proposed", "spec_accepted",
+            "spec_rejected", "spec_pages_trimmed", "spec_rounds")
 
 
 def make_pool(model: Llama, kv_quantize: str, rows: int, row_len: int,
@@ -253,15 +278,20 @@ class StreamIterator:
 
 class _Slot:
     """One admitted generation. While it prefills, ``written`` is how much
-    of the prompt the cache holds (a prefix hit starts it past 0) and
-    ``generated`` is empty; from its first token on, ``generated`` holds
-    every output token of this admission and ``pos`` is where the last one's
-    K/V goes on the next decode step. ``adapter_id`` names its LoRA adapter
-    (None: the base model) and ``adapter_slot`` the adapter-pool slot it
-    holds a reference to (0: the base slot, never counted)."""
+    of the prompt the cache holds by the folds read so far (a prefix hit
+    starts it past 0), ``dispatched`` how much of it the calls dispatched
+    write (the chunk frontier, engine.py:885-888), ``generated`` is empty
+    and ``last_token`` None; from its first token on, ``generated`` holds
+    every output token of this admission folded so far, ``last_token`` the
+    last of them, ``pos`` is where its K/V go on the next decode step, and
+    ``inflight`` counts its decode chunks dispatched and not yet folded.
+    ``adapter_id`` names its LoRA adapter (None: the base model) and
+    ``adapter_slot`` the adapter-pool slot it holds a reference to (0: the
+    base slot, never counted)."""
 
     __slots__ = ("request", "prompt_tokens", "prompt_len", "max_total", "eos", "temperature",
-                 "admit_seq", "written", "generated", "pos", "adapter_id", "adapter_slot")
+                 "admit_seq", "written", "dispatched", "generated", "last_token", "pos",
+                 "inflight", "adapter_id", "adapter_slot")
 
     def __init__(self, request: Request, toks: np.ndarray, max_len: int,
                  eos: int | None, admit_seq: int, adapter: tuple[str | None, int] = (None, 0)):
@@ -273,8 +303,11 @@ class _Slot:
         self.temperature = request.kw["temperature"]
         self.admit_seq = admit_seq
         self.written = 0
+        self.dispatched = 0
         self.generated: list[int] = []
+        self.last_token: int | None = None
         self.pos = self.prompt_len
+        self.inflight = 0
         self.adapter_id, self.adapter_slot = adapter
 
 
@@ -301,7 +334,11 @@ class GenerateEngine:
     target's vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
     from which the slots are derived) turns on the adapter plane: a device
     pool of that many slots of rank up to ``adapter_rank``, slot 0 the base,
-    and a host registry of ``adapter_host_mb``."""
+    and a host registry of ``adapter_host_mb``. ``pipeline_depth`` (1..4,
+    default 2; ``decode_pipeline`` is its alias) bounds the device calls in
+    flight. ``prefix_host_mb`` > 0 gives the prefix cache a host tier of
+    that many MiB of pinned memory (at least one page, else it stays
+    off)."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -312,7 +349,8 @@ class GenerateEngine:
                  prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
                  spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
                  adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
-                 adapter_host_mb: float = 256.0):
+                 adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
+                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -354,6 +392,9 @@ class GenerateEngine:
         self.default_timeout = default_timeout
         self.kv_layout = kv_layout
         self.kv_quantize = kv_quantize
+        # the device calls in flight (engine.py:1086-1090)
+        depth = pipeline_depth if pipeline_depth is not None else decode_pipeline
+        self.pipeline_depth = max(1, min(4, int(depth)))
         self._prefix: PrefixCache | None = None
         if kv_layout == "paged":
             self.page_size = page_size
@@ -374,8 +415,16 @@ class GenerateEngine:
             self._table: np.ndarray | None = np.full((slots, self.pages_per_slot),
                                                      self.total_pages, np.int32)
             self._idle_position = 0
+            # a page's bytes over every plane: the host tier's unit
+            # (engine.py:1258)
+            self._page_bytes = sum(t.nbytes for t in vars(self.cache).values()) // self.total_pages
+            host_budget = int(max(0.0, float(prefix_host_mb)) * (1 << 20))
+            if host_budget and host_budget < self._page_bytes:
+                log.warning("prefix_host_mb=%g is below one page (%d bytes); host tier off",
+                            prefix_host_mb, self._page_bytes)
+                host_budget = 0
             if prefix_cache:
-                self._prefix = PrefixCache(page_size)
+                self._prefix = PrefixCache(page_size, host_budget_bytes=host_budget)
         else:
             # a chunk never writes past the slot; a multiple of 128 where the
             # model allows it (engine.py:1321)
@@ -420,12 +469,26 @@ class GenerateEngine:
         self._admit_seq = 0
         # what admission did, for callers and the smoke run
         self.counters = dict.fromkeys(COUNTERS, 0)
+        # the in-flight queue of device calls (``executor.Entry``), the
+        # carries on the card of the decode chunk and spec round last
+        # dispatched, the host tier's staged swap-ins and spills, and what
+        # the queue did (``pipeline_stats``)
+        self._dq: collections.deque[executor.Entry] = collections.deque()
+        self._prev_last: torch.Tensor | None = None
+        self._spec_carry: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._pending_swapins: list[tuple] = []
+        self._pending_spills: list[tuple] = []
+        self._pipeline: dict[str, Any] = {
+            "dq_max": 0, "dq_carried_max": 0, "dispatched": {}, "folds": 0, "fold_wait_s": 0.0,
+            "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0}
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: queue.Queue[Request] = queue.Queue()
         # prompts that fit a bucket, and longer ones that chunk
         self._pending: list[tuple[Request, np.ndarray]] = []
         self._pending_long: list[tuple[Request, np.ndarray]] = []
-        # held by the device thread through each loop turn, and by the audits
+        # guards the slots, pages and caches' bookkeeping: held by the
+        # device thread while it plans a dispatch or folds one (never while
+        # it waits on the card), and by the audits
         self._state_lock = threading.Lock()
         self._stop = threading.Event()
         self._error: BaseException | None = None
@@ -520,9 +583,24 @@ class GenerateEngine:
         return self.generate(inputs, **kw)
 
     def stop(self) -> None:
+        """End the loop (it settles its calls in flight on the way out) and
+        fail every request still queued or in a slot."""
         self._stop.set()
         self._thread.join(timeout=30.0)
         self._fail_all(EngineClosed("engine stopped"))
+
+    def pipeline_stats(self) -> dict[str, Any]:
+        """What the in-flight queue did: the depth; the longest queue seen,
+        right after a dispatch (``dq_max``: the calls left in flight plus
+        what one turn dispatches, a prefill, swap-ins, a chunk and a decode
+        chunk) and at the end of a turn (``dq_carried_max``: the calls in
+        flight while the host plans the next turn, at most depth - 1); the
+        calls dispatched by kind; the folds and the seconds they waited on
+        their readbacks; the loop turns that dispatched or folded work and
+        their host seconds; and the swap-ins' seconds on the card."""
+        with self._state_lock:
+            return {"depth": self.pipeline_depth, **self._pipeline,
+                    "dispatched": dict(self._pipeline["dispatched"])}
 
     def health_check(self) -> dict[str, Any]:
         """What ``Container.health`` reports for this engine
@@ -622,21 +700,26 @@ class GenerateEngine:
             free = len(self._free_pages)
             held = sum(len(p) for p in self._slot_pages)
             cached = len(self._prefix) if self._prefix is not None else 0
+            host = (self._prefix.host_pages, self._prefix.host_bytes) if self._prefix else (0, 0)
             live = sum(s.pos if s.generated else s.written for s in self.slots if s is not None)
         covered = held * self.page_size
         pool_bytes = sum(t.nbytes for t in vars(self.cache).values())
         return {"total_pages": self.total_pages, "free_pages": free, "slot_pages": held,
-                "prefix_pages": cached, "page_bytes": pool_bytes // self.total_pages,
+                "prefix_pages": cached, "prefix_host_pages": host[0], "prefix_host_bytes": host[1],
+                "page_bytes": pool_bytes // self.total_pages,
                 "pool_bytes": pool_bytes, "occupancy": 1.0 - free / self.total_pages,
                 "fragmentation": 1.0 - min(1.0, live / covered) if covered else 0.0}
 
     def check_page_refs(self) -> None:
-        """Audit the pool's accounting (gofr_tpu/testutil.py:47-110, device
-        tier); raises AssertionError on the first breach. Each page's count
-        equals its holders (slot page lists and prefix-cache nodes), a page
-        is free exactly when its count is 0, the free list holds no page
-        twice, each table row lists its slot's pages with OOB entries past
-        them, and an empty slot holds no pages. No-op on the slot layout."""
+        """Audit the pool's accounting (gofr_tpu/testutil.py:47-130); raises
+        AssertionError on the first breach. Each page's count equals its
+        holders (slot page lists and the prefix cache's device nodes), a
+        page is free exactly when its count is 0, the free list holds no
+        page twice, each table row lists its slot's pages with OOB entries
+        past them, and an empty slot holds no pages; in the prefix cache a
+        device node holds no payload and a host node one and no pending
+        upload, the child counts match the parent links, and the tiers'
+        page and byte counts match the nodes. No-op on the slot layout."""
         if self._table is None:
             return
         with self._state_lock:
@@ -658,6 +741,8 @@ class GenerateEngine:
                 _audit(bool((row[len(pages):] == self.total_pages).all()),
                        f"slot {i}: table entries past its pages are not OOB")
                 _audit(self.slots[i] is not None or not pages, f"empty slot {i} holds pages")
+            if self._prefix is not None:
+                _audit_tiers(self._prefix)
 
     # -- live weight adoption (engine.py:2155-2264) --------------------------------
 
@@ -715,78 +800,136 @@ class GenerateEngine:
         return staged
 
     def _apply_pending_weights(self) -> None:
-        """The loop's half of the adoption, at a turn boundary (nothing is
-        in flight between turns): preempt every slot, reset the per-epoch
-        device state, copy the weights, bump the epoch."""
+        """The loop's half of the adoption, at a turn boundary
+        (engine.py:2236): fold every call in flight, preempt every slot,
+        reset the per-epoch device state, copy the weights, bump the
+        epoch."""
         with self._swap_lock:
             pending, self._pending_weights = self._pending_weights, None
         if pending is None:
             return
         staged, done = pending
+        while self._dq:
+            decode.process_decode(self)
         with self._state_lock:
             while self._preempt_newest():
                 pass
-            self._reset_device_state()
-            with torch.no_grad():
-                for key, state in staged.items():
-                    model = self.model if key == "t" else self._aux.model
-                    for name, p in model.named_parameters():
-                        p.copy_(state[name])
-            self.weights_epoch += 1
+        self._reset_device_state()
+        with torch.no_grad():
+            for key, state in staged.items():
+                model = self.model if key == "t" else self._aux.model
+                for name, p in model.named_parameters():
+                    p.copy_(state[name])
+        self.weights_epoch += 1
         log.warning("weights adopted (weights epoch %d); slot-resident work requeued",
                     self.weights_epoch)
         done.set()
 
     def _reset_device_state(self) -> None:
         """Every per-epoch piece of device state back to a new engine's
-        (engine.py:2391), with every slot already empty: the KV cache and
-        the proposer's history or draft cache zeroed in place, and on the
-        paged layout the prefix cache emptied, its pages given back."""
+        (engine.py:2391), with every slot already empty: the calls in flight
+        settled and the carries dropped, the KV cache and the proposer's
+        history or draft cache zeroed in place, and on the paged layout the
+        prefix cache (both tiers) emptied, its pages given back, and the
+        host tier's staged work dropped."""
+        self._drain_device_state()
         caches = [self.cache] + ([self._aux.cache] if isinstance(self._aux, Draft) else [])
         for cache in caches:
             for t in vars(cache).values():
                 t.zero_()
         if isinstance(self._aux, torch.Tensor):
             self._aux.zero_()
-        if self._prefix is not None:
-            for p in self._prefix.clear():
-                self._unref_page(p)
+        with self._state_lock:
+            self._pending_swapins, self._pending_spills = [], []
+            if self._prefix is not None:
+                for p in self._prefix.clear():
+                    self._unref_page(p)
+
+    def _drain_device_state(self) -> None:
+        """Settle every call still in flight, then drop the queue and the
+        carries (engine.py:2342): a crashed or stopped loop may leave calls
+        running, and their buffers must not be handed to the next epoch's
+        work while they write. A call that failed is settled all the same.
+        Never under the state lock: a wedged call would hold it."""
+        for entry in list(self._dq):
+            try:
+                entry.result.wait()
+            except Exception:  # noqa: BLE001 - a failed call is settled either way
+                log.debug("an in-flight call failed while settling", exc_info=True)
+        self._dq.clear()
+        self._prev_last = None
+        self._spec_carry = None
 
     # -- device thread ---------------------------------------------------------
 
     def _run(self) -> None:
-        """The loop keeps the JAX order (engine.py:3338-3361): admit, then one
-        chunk of one long prompt, then one decode chunk, so decode keeps
-        stepping between the chunks of a long prompt."""
+        """The loop (engine.py:3296-3386): admit, then one chunk of one long
+        prompt, then one decode chunk, each dispatched onto the in-flight
+        queue; then fold the oldest calls until ``pipeline_depth`` - 1 are
+        left while work keeps coming, all of them when the turn found none.
+        At depth 1 each phase is folded before the next. On the way out,
+        stopped or crashed, the calls in flight are settled."""
         try:
             while not self._stop.is_set():
                 if self._pending_weights is not None:
                     self._apply_pending_weights()
-                with self._state_lock:
-                    busy = self._admit()
-                    busy = self._advance_chunked() or busy
-                    step = decode.spec_round if self.spec_tokens else decode.decode_round
-                    busy = step(self) or busy
-                if not busy:
-                    try:
-                        req = self._queue.get(timeout=0.05)
-                    except queue.Empty:
-                        continue
-                    with self._state_lock:
-                        self._accept(req)
+                self._turn()
         except Exception as e:  # noqa: BLE001 - the loop's boundary: fail every waiter
             log.exception("generate engine loop crashed")
             self._error = e
-            self._fail_all(e)
+        finally:
+            self._drain_device_state()
+        if self._error is not None:
+            self._fail_all(self._error)
+
+    def _turn(self) -> None:
+        depth = self.pipeline_depth
+        t = time.perf_counter()
+        processed = False
+        admitted = self._admit()
+        if depth == 1:
+            processed = self._fold_all() or processed
+        chunked = self._advance_chunked()
+        if depth == 1:
+            processed = self._fold_all() or processed
+        if not self.spec_tokens:
+            dispatched = decode.dispatch_decode(self)
+        elif self._table is None:
+            dispatched = decode.dispatch_spec(self)
+        else:
+            dispatched = decode.dispatch_spec_paged(self)
+        busy = admitted or chunked or dispatched
+        while len(self._dq) > (depth - 1 if busy else 0):
+            processed = decode.process_decode(self) or processed
+        st = self._pipeline
+        st["dq_carried_max"] = max(st["dq_carried_max"], len(self._dq))
+        if busy or processed:
+            st["busy_turns"] += 1
+            st["busy_turn_s"] += time.perf_counter() - t
+            return
+        try:
+            req = self._queue.get(timeout=0.05)
+        except queue.Empty:
+            return
+        with self._state_lock:
+            self._accept(req)
+
+    def _fold_all(self) -> bool:
+        folded = False
+        while self._dq:
+            folded = decode.process_decode(self) or folded
+        return folded
 
     def _fail_all(self, error: BaseException) -> None:
-        for i, s in enumerate(self.slots):
-            if s is not None:
-                s.request.complete(error=error)
-                self._free_slot(i)
-        for req, _ in self._pending + self._pending_long:
+        with self._state_lock:
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    s.request.complete(error=error)
+                    self._free_slot(i)
+            pending, self._pending, self._pending_long = (self._pending + self._pending_long,
+                                                          [], [])
+        for req, _ in pending:
             req.complete(error=error)
-        self._pending, self._pending_long = [], []
         while True:
             try:
                 self._queue.get_nowait().complete(error=error)
@@ -855,23 +998,29 @@ class GenerateEngine:
         self.slots[idx] = slot
         return slot
 
-    # -- admission (engine.py:3390-3832) -----------------------------------------
+    # -- admission (engine.py:3390-3866) -----------------------------------------
 
     def _admit(self) -> bool:
-        """One admission round: drain the queue, claim slots for waiting long
-        prompts, then plan and run one batched prefill. Returns whether a
-        slot was claimed."""
-        self._drain()
-        claimed = self._admit_long()
-        return self._admit_prefill() or claimed
+        """One admission round (engine.py:3560): plan, claim and dispatch a
+        batched prefill, then move the spills eviction staged to host
+        memory, then dispatch the swap-ins the prefix hits staged. A
+        swap-in goes out before any chunk of its slot can (the loop's next
+        step), so on the one stream the upload lands before its pages are
+        read. Returns whether work was dispatched or a slot claimed on the
+        chunked path."""
+        busy = self._admit_prefill()
+        if self._pending_spills:
+            executor.materialize_spills(self)
+        if self._pending_swapins:
+            busy = executor.dispatch_swapins(self) or busy
+        return busy
 
-    def _admit_long(self) -> bool:
+    def _admit_long(self) -> None:
         """Claim a free slot for each waiting long prompt, with its prefix
         hit and its adapter (engine.py:3424). No device work:
         ``_advance_chunked`` streams the prompt into the cache one chunk per
         loop turn. When every adapter-pool slot is referenced, the prompt
-        goes back to the head of the queue."""
-        claimed = False
+        goes back to the head of the queue. Caller holds the state lock."""
         while self._pending_long and None in self.slots:
             req, toks = self._pending_long.pop(0)
             if self._dropped(req, time.monotonic()):
@@ -884,11 +1033,12 @@ class GenerateEngine:
                 break
             idx = self._free_slots()[0]
             self._prefix_hit(idx, self._claim(idx, req, toks, ad), toks)
-            claimed = True
-        return claimed
 
     def _admit_prefill(self) -> bool:
-        """Plan, claim and prefill one batch (engine.py:3624-3832).
+        """Plan and claim one batch under the state lock, then dispatch its
+        prefill outside it (engine.py:3624-3832). The claimed slots stay
+        reserved, prefilling, until ``_fold_prefill`` gives them their first
+        tokens.
 
         ``plan_prefill`` picks the batch over the pending prompts' lengths
         and deadlines (EDF, bucket affinity); expired requests fail. A prompt
@@ -904,146 +1054,176 @@ class GenerateEngine:
         adapter (engine.py:3673-3766): once the pool is fully referenced,
         it and the rest of the batch go back to the pending list, and a
         request that page exhaustion bounces back gives its reference
-        up."""
-        if not self._pending:
-            return False
-        now = time.monotonic()
-        self._pending = [(r, t) for r, t in self._pending if not (r.cancelled and
-                                                                  self._dropped(r, now))]
-        free = self._free_slots()
-        plan = plan_prefill([t.shape[0] for _, t in self._pending],
-                            [int(r.deadline * 1e6) if r.deadline else 0 for r, _ in self._pending],
-                            int(now * 1e6), len(free), self.max_prefill_batch,
-                            self.prefill_buckets)
-        for i in plan.expired:
-            self._pending[i][0].complete(error=RequestTimeout())
-        ready = [self._pending[i] for i in plan.chosen]
-        taken = set(plan.chosen) | set(plan.expired)
-        self._pending = [p for i, p in enumerate(self._pending) if i not in taken]
-
-        # each chosen request's adapter, bound before any slot or page is
-        # claimed
-        ad_of: dict[int, tuple[str | None, int]] = {}
-        if self.adapters is not None:
-            bound, wait = [], False
-            for req, toks in ready:
-                ad = None if wait else self._acquire_adapter(req)
-                if ad is None and not wait:
-                    continue  # unregistered since submission; the request failed
-                if wait or ad == "wait":
-                    wait = True
-                    self._pending.append((req, toks))
-                    continue
-                ad_of[id(req)] = ad
-                bound.append((req, toks))
-            ready = bound
-
-        claimed = False
-        if self._prefix is not None:
-            still = []
-            for req, toks in ready:
-                chain = self._usable_hit(toks)
-                if 2 * len(chain) * self.page_size >= toks.shape[0]:
-                    idx = self._free_slots()[0]
-                    slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
-                    self._prefix_hit(idx, slot, toks, chain)
-                    claimed = True
-                else:
-                    still.append((req, toks))
-            ready = still
+        up. Returns whether a prefill was dispatched or a slot claimed on
+        the chunked path."""
+        with self._state_lock:
+            self._drain()
+            self._admit_long()
+            if not self._pending:
+                return False
+            now = time.monotonic()
+            self._pending = [(r, t) for r, t in self._pending
+                             if not (r.cancelled and self._dropped(r, now))]
             free = self._free_slots()
-        if self._table is not None:
-            admitted, exhausted = [], False
-            for req, toks in ready:
-                if not exhausted and self._ensure_pages(free[len(admitted)], toks.shape[0] - 1):
-                    admitted.append((req, toks))
-                else:
-                    exhausted = True
-                    if id(req) in ad_of:
-                        self._adapter_pool.release(ad_of.pop(id(req))[1])
-                    self._pending.append((req, toks))
-            ready = admitted
-        if not ready:
-            return claimed
-        if self._prefix is not None:
-            # a batched admission serves nothing from the cache
-            self.counters["prefix_lookups"] += len(ready)
-            self.counters["prefix_misses"] += len(ready)
+            plan = plan_prefill([t.shape[0] for _, t in self._pending],
+                                [int(r.deadline * 1e6) if r.deadline else 0
+                                 for r, _ in self._pending],
+                                int(now * 1e6), len(free), self.max_prefill_batch,
+                                self.prefill_buckets)
+            for i in plan.expired:
+                self._pending[i][0].complete(error=RequestTimeout())
+            ready = [self._pending[i] for i in plan.chosen]
+            taken = set(plan.chosen) | set(plan.expired)
+            self._pending = [p for i, p in enumerate(self._pending) if i not in taken]
 
-        rows = free[:len(ready)]
-        batch = [(idx, self._claim(idx, req, toks, ad_of.get(id(req), (None, 0))))
-                 for idx, (req, toks) in zip(rows, ready)]
-        tokens = np.zeros((len(batch), max(s.prompt_len for _, s in batch)), np.int64)
-        for row, (_, s) in enumerate(batch):
-            tokens[row, :s.prompt_len] = s.prompt_tokens
-        temps = [s.temperature for _, s in batch]
-        idxs = np.array(rows, np.int64)
-        # the slot ids are the rows on the slot layout, and the proposer's
-        # rows; the history takes the padding of the plan's length bucket,
-        # as the JAX program writes it (programs.seed_history)
-        slot_ids = (self._to_device(idxs) if self._table is None or self._aux is not None
-                    else None)
-        first = prefill_sample(
-            self.model, self.cache, self._to_device(tokens),
-            self._to_device(np.array([s.prompt_len for _, s in batch], np.int64)),
-            slot_ids if self._table is None else self._to_device(self._table[idxs]),
-            self._to_device(np.array(temps, np.float32)), self._generator,
-            top_k=self.top_k, top_p=self.top_p, do_sample=max(temps) > 0,
-            aux=self._aux, slots=slot_ids, width=plan.len_bucket,
-            adapters=self._adapter_args(np.array([s.adapter_slot for _, s in batch])),
-        ).tolist()
-        for (idx, s), tok in zip(batch, first):
-            self._activate_lane(idx, s, int(tok))
+            # each chosen request's adapter, bound before any slot or page
+            # is claimed
+            ad_of: dict[int, tuple[str | None, int]] = {}
+            if self.adapters is not None:
+                bound, wait = [], False
+                for req, toks in ready:
+                    ad = None if wait else self._acquire_adapter(req)
+                    if ad is None and not wait:
+                        continue  # unregistered since submission; the request failed
+                    if wait or ad == "wait":
+                        wait = True
+                        self._pending.append((req, toks))
+                        continue
+                    ad_of[id(req)] = ad
+                    bound.append((req, toks))
+                ready = bound
+
+            claimed = False
+            if self._prefix is not None:
+                still = []
+                for req, toks in ready:
+                    chain = self._usable_hit(toks)
+                    if 2 * len(chain) * self.page_size >= toks.shape[0]:
+                        idx = self._free_slots()[0]
+                        slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
+                        self._prefix_hit(idx, slot, toks, chain)
+                        claimed = True
+                    else:
+                        still.append((req, toks))
+                ready = still
+                free = self._free_slots()
+            if self._table is not None:
+                admitted, exhausted = [], False
+                for req, toks in ready:
+                    if not exhausted and self._ensure_pages(free[len(admitted)],
+                                                            toks.shape[0] - 1):
+                        admitted.append((req, toks))
+                    else:
+                        exhausted = True
+                        if id(req) in ad_of:
+                            self._adapter_pool.release(ad_of.pop(id(req))[1])
+                        self._pending.append((req, toks))
+                ready = admitted
+            if not ready:
+                return claimed
+            if self._prefix is not None:
+                # a batched admission serves nothing from the cache
+                self.counters["prefix_lookups"] += len(ready)
+                self.counters["prefix_misses"] += len(ready)
+            rows = free[:len(ready)]
+            batch = []
+            for idx, (req, toks) in zip(rows, ready):
+                slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
+                slot.dispatched = slot.prompt_len  # the whole prompt in this call
+                batch.append((idx, slot))
+            table_rows = None if self._table is None else self._table[rows].copy()
+            prefill = executor.PrefillPlan(batch, plan.len_bucket, table_rows, time.monotonic())
+        executor.dispatch_prefill(self, prefill)
         return True
+
+    def _fold_prefill(self, first: np.ndarray, batch: list[tuple[int, _Slot]]) -> None:
+        """A batched prefill's fold (engine.py:3834): each slot claimed at
+        its dispatch takes its first token and starts decoding; a slot freed
+        or reassigned since is skipped, one cancelled or expired freed."""
+        with self._state_lock:
+            now = time.monotonic()
+            for row, (idx, s) in enumerate(batch):
+                if self.slots[idx] is not s:
+                    continue  # freed, preempted or reassigned while in flight
+                if self._dropped(s.request, now):
+                    self._free_slot(idx)
+                    continue
+                self._activate_lane(idx, s, int(first[row]))
 
     def _advance_chunked(self) -> bool:
-        """Prefill the next chunk of the oldest-admitted prefilling slot
-        (engine.py:3467 and its fold :3522, in one synchronous step): pages
-        for the chunk first, preempting newer slots if the pool is short;
-        the last chunk samples the first token and starts the slot
-        decoding. Returns whether a slot changed."""
-        pre = [i for i, s in enumerate(self.slots) if s is not None and s.written < s.prompt_len]
-        if not pre:
-            return False
-        idx = min(pre, key=lambda i: self.slots[i].admit_seq)
-        s = self.slots[idx]
-        if self._dropped(s.request, time.monotonic()):
-            self._free_slot(idx)
-            return True
-        offset = s.written
-        chunk = min(s.prompt_len - offset, self.prefill_chunk)
-        if self._table is not None:
-            while not self._ensure_pages(idx, offset + chunk - 1):
-                if not self._preempt_newest(except_slot=idx):
-                    self._free_slot(idx)
-                    s.request.complete(error=RuntimeError(
-                        "KV page pool exhausted for a single request"))
-                    return True
-            rows = self._table[idx:idx + 1]
-        else:
-            rows = np.array([idx], np.int64)
-        last = offset + chunk == s.prompt_len
-        tok = prefill_chunk(
-            self.model, self.cache, self._to_device(s.prompt_tokens[None, offset:offset + chunk]),
-            self._to_device(np.array([offset], np.int64)), self._to_device(rows),
-            self._to_device(np.array([s.temperature], np.float32)), self._generator, last,
-            top_k=self.top_k, top_p=self.top_p, do_sample=s.temperature > 0, aux=self._aux,
-            slots=None if self._aux is None else self._to_device(np.array([idx], np.int64)),
-            width=next_bucket(chunk, self.prefill_buckets),
-            adapters=self._adapter_args(np.array([s.adapter_slot])))
-        s.written += chunk
-        self.counters["prefill_chunks"] += 1
-        self.counters["prefill_chunks_at_offset"] += offset > 0
-        if last:
-            self._activate_lane(idx, s, int(tok.item()))
+        """Dispatch the next chunk of the oldest-admitted prefilling slot
+        (engine.py:3467): pages for the chunk first, preempting newer slots
+        if the pool is short. ``dispatched`` moves on at once, so several
+        chunks of one prompt may be in flight; ``_fold_chunk`` moves
+        ``written``, and the last chunk's fold starts the slot decoding.
+        Returns whether a chunk was dispatched or a slot changed."""
+        with self._state_lock:
+            pre = [i for i, s in enumerate(self.slots)
+                   if s is not None and s.last_token is None and s.dispatched < s.prompt_len]
+            if not pre:
+                return False
+            idx = min(pre, key=lambda i: self.slots[i].admit_seq)
+            s = self.slots[idx]
+            if self._dropped(s.request, time.monotonic()):
+                self._free_slot(idx)
+                return True
+            offset = s.dispatched
+            chunk = min(s.prompt_len - offset, self.prefill_chunk)
+            if self._table is not None:
+                while not self._ensure_pages(idx, offset + chunk - 1):
+                    if not self._preempt_newest(except_slot=idx):
+                        self._free_slot(idx)
+                        s.request.complete(error=RuntimeError(
+                            "KV page pool exhausted for a single request"))
+                        return True
+                rows = self._table[idx:idx + 1].copy()
+            else:
+                rows = np.array([idx], np.int64)
+            last = offset + chunk == s.prompt_len
+            s.dispatched = offset + chunk
+            self.counters["prefill_chunks"] += 1
+            self.counters["prefill_chunks_at_offset"] += offset > 0
+            plan = executor.ChunkPlan(idx, s, chunk, offset, last, rows, time.monotonic())
+        executor.dispatch_chunk(self, plan)
         return True
+
+    def _fold_chunk(self, first: np.ndarray | None, meta: tuple) -> None:
+        """A prefill chunk's fold (engine.py:3522): the cache holds the
+        chunk; after the last one the slot takes its first token. A slot
+        freed or reassigned since is skipped, one cancelled or expired
+        freed."""
+        idx, s, chunk, _, last = meta
+        with self._state_lock:
+            if self.slots[idx] is not s:
+                return  # freed, preempted or reassigned while in flight
+            if self._dropped(s.request, time.monotonic()):
+                self._free_slot(idx)
+                return
+            s.written += chunk
+            if last:
+                self._activate_lane(idx, s, int(first[0]))
+
+    def _fold_swapin(self, meta: tuple) -> None:
+        """A swap-in's fold (engine.py:3592): the upload has landed, so its
+        promoted nodes settle, whatever became of the slot (the pages hold
+        what their nodes say; nothing needs undoing), and the upload is
+        counted."""
+        _, _, keys, n_pages, nbytes, timer = meta
+        with self._state_lock:
+            if self._prefix is not None:
+                for key in keys:
+                    self._prefix.settle(key)
+            self.counters["prefix_swapin_pages"] += n_pages
+            self.counters["prefix_swapin_bytes"] += nbytes
+            self._pipeline["swapin_s"] += executor.swapin_seconds(timer)
 
     def _activate_lane(self, idx: int, s: _Slot, tok: int) -> None:
         """The slot's prompt is in the cache: give it its first token, keep
         its full prompt pages in the prefix cache, and start it decoding
-        (engine.py:3042)."""
+        (engine.py:3031). Caller holds the state lock."""
         s.written = s.prompt_len
         s.generated = [tok]
+        s.last_token = tok
         s.pos = s.prompt_len
         # a preempted request keeps the time of its first token
         s.request.kw.setdefault("_first_token_at", time.monotonic())
@@ -1051,33 +1231,17 @@ class GenerateEngine:
         self._emit(s, tok)
         self._maybe_finish(idx)
 
-    # -- decode (tpu/decode.py; the rounds live in gpu/decode.py) -------------------
+    # -- decode (tpu/decode.py; dispatch and fold live in gpu/decode.py) ------------
 
-    def _decoding_lanes(self, span: int) -> tuple[list[tuple[int, _Slot]], bool]:
-        """The lanes of the next decode chunk, each grown (on the paged
-        layout) to cover the ``span`` positions from its own: first the
-        cancelled and expired slots are freed, then each decoding lane gets
-        its pages, preempting newer slots if the pool is short. Returns (the
-        lanes still decoding, whether a slot changed)."""
-        now = time.monotonic()
-        changed = False
-        for i, s in enumerate(self.slots):
-            if s is not None and self._dropped(s.request, now):
-                self._free_slot(i)
-                changed = True
-        lanes = [(i, s) for i, s in enumerate(self.slots) if s is not None and s.generated]
-        if self._table is not None:
-            for i, s in lanes:
-                self._alloc_lane_pages(i, s, s.pos + span - 1)
-            changed = changed or any(self.slots[i] is not s for i, s in lanes)
-            lanes = [(i, s) for i, s in lanes if self.slots[i] is s]
-        return lanes, changed
+    def _active(self) -> list[int]:
+        """The slots that decode: their prompt is in the cache
+        (engine.py:3027)."""
+        return [i for i, s in enumerate(self.slots) if s is not None and s.last_token is not None]
 
-    def _masked_table(self, lanes: list[tuple[int, _Slot]]) -> np.ndarray:
-        """The block table with every row but the decoding lanes' all OOB
-        (engine.py:2966)."""
+    def _masked_table(self, live: list[int]) -> np.ndarray:
+        """A copy of the block table with every row but the ``live`` lanes'
+        all OOB (engine.py:2966)."""
         table = np.full_like(self._table, self.total_pages)
-        live = [i for i, _ in lanes]
         table[live] = self._table[live]
         return table
 
@@ -1145,6 +1309,7 @@ class GenerateEngine:
             "ttft_s": kw["_first_token_at"] - s.request.enqueued_at,
             "decode_s": now - kw["_first_token_at"],
             "prefix_hit_tokens": kw.get("_prefix_hit_tokens", 0),
+            "prefix_host_tokens": kw.get("_prefix_host_tokens", 0),
             "preemptions": kw.get("_preemptions", 0),
         })
         return True
@@ -1174,16 +1339,32 @@ class GenerateEngine:
         self.slots[idx] = None
 
     def _evict_prefix_page(self) -> bool:
-        """Evict least-recently-used prefix-cache leaves until a page lands on
-        the free list (an evicted page a slot still holds frees nothing);
-        False when the cache runs out first (engine.py:2752, without the
-        host tier's spill)."""
+        """Take least-recently-used prefix-cache leaves off the device tier
+        until a page lands on the free list (a page a slot still holds frees
+        nothing); False when the cache runs out first (engine.py:2752).
+        With the host tier on, a page is spilled rather than dropped: a copy
+        of it is made on the card and its copy to pinned host memory started
+        here, with no wait (the state lock is held), and
+        ``executor.materialize_spills`` swaps the host copy into the node
+        outside the lock. Caller holds the state lock."""
         if self._prefix is None:
             return False
         while not self._free_pages:
-            p = self._prefix.evict_lru()
-            if p is None:
-                break
+            if self._prefix.host_budget:
+                picked = self._prefix.spill_lru()
+                if picked is None:
+                    break
+                key, p = picked
+                payload = gather_page(self.cache, p)
+                staged = executor.Readback(self.device, *payload)
+                self.counters["prefix_host_dropped_pages"] += self._prefix.commit_spill(
+                    key, payload, self._page_bytes)
+                self._pending_spills.append((key, staged))
+                self.counters["prefix_spilled_pages"] += 1
+            else:
+                p = self._prefix.evict_lru()
+                if p is None:
+                    break
             self.counters["prefix_evicted_pages"] += 1
             self._unref_page(p)
         return bool(self._free_pages)
@@ -1257,11 +1438,12 @@ class GenerateEngine:
         self.counters["preemptions"] += 1
         return True
 
-    # -- the prefix cache, device tier (engine.py:2817-2924) ------------------------
+    # -- the prefix cache (engine.py:2817-2924) -------------------------------------
 
     def _usable_hit(self, toks: np.ndarray) -> list:
-        """The cached chain covering a prefix of ``toks``, capped below the
-        prompt's length so its last token's logits are recomputed."""
+        """The cached chain, across both tiers, covering a prefix of
+        ``toks``, capped below the prompt's length so its last token's
+        logits are recomputed."""
         if self._prefix is None:
             return []
         chain = self._prefix.lookup_tiered(toks)
@@ -1270,24 +1452,47 @@ class GenerateEngine:
     def _prefix_hit(self, idx: int, slot: _Slot, toks: np.ndarray,
                     chain: list | None = None) -> None:
         """Splice the cached prefix of ``toks`` into a freshly claimed slot's
-        table, taking a share of each page; its prefill starts after it."""
+        table; its prefill starts after it (engine.py:2834-2906). A device
+        node's page takes a share; a host node takes a free page (the chain
+        stops where none is free: table rows stay contiguous), is promoted
+        onto it, pending, and its upload is staged for ``_admit`` to
+        dispatch. Caller holds the state lock."""
         if self._prefix is None:
             return
         self.counters["prefix_lookups"] += 1
         if chain is None:
             chain = self._usable_hit(toks)
-        if not chain:
+        pages: list[int] = []
+        keys, pids, payloads = [], [], []
+        for key, node in chain:
+            if node.page_id >= 0:
+                p = node.page_id
+                self._ref_page(p)
+            else:
+                if not self._free_pages:
+                    break  # no page to swap into: the tail recomputes
+                p = self._free_pages.pop()
+                # two shares at once: this slot's and the cache's
+                self._page_refs[p] = 2
+                keys.append(key)
+                pids.append(p)
+                payloads.append(node.host)
+                self._prefix.promote(key, p)
+            pages.append(p)
+        if not pages:
             self.counters["prefix_misses"] += 1
             return
-        pages = [node.page_id for _, node in chain]
-        for p in pages:
-            self._ref_page(p)
         self._slot_pages[idx] = pages
         self._table[idx, :len(pages)] = pages
-        slot.written = len(pages) * self.page_size
+        slot.written = slot.dispatched = len(pages) * self.page_size
+        host_tokens = len(pids) * self.page_size
         self.counters["prefix_hit_tokens"] += slot.written
+        self.counters["prefix_host_hit_tokens"] += host_tokens
         kw = slot.request.kw
         kw["_prefix_hit_tokens"] = kw.get("_prefix_hit_tokens", 0) + slot.written
+        kw["_prefix_host_tokens"] = kw.get("_prefix_host_tokens", 0) + host_tokens
+        if pids:
+            self._pending_swapins.append((idx, slot, keys, pids, payloads))
 
     def _prefix_insert(self, idx: int) -> None:
         """Keep the full prompt pages of a slot that just finished its
@@ -1300,12 +1505,39 @@ class GenerateEngine:
             self._ref_page(p)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=False)
+        return executor.to_device(a, self.device)
 
 
 def _audit(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(f"page pool audit: {msg}")
+
+
+def _audit_tiers(cache: PrefixCache) -> None:
+    """The prefix cache's two tiers against their nodes (testutil.py:
+    96-130)."""
+    dev = host = host_bytes = 0
+    children = {k: [0, 0] for k in cache._nodes}
+    for node in cache._nodes.values():
+        if node.page_id >= 0:
+            dev += 1
+            _audit(node.host is None and node.host_nbytes == 0,
+                   "a device-tier node holds a host payload")
+        else:
+            host += 1
+            _audit(node.host is not None and not node.pending,
+                   "a host-tier node lost its payload or waits on an upload")
+            host_bytes += node.host_nbytes
+        counts = children.get(node.parent_key)
+        if counts is not None:
+            counts[0] += 1
+            counts[1] += node.page_id >= 0
+    for key, node in cache._nodes.items():
+        _audit([node.children, node.dev_children] == children[key],
+               f"node {key}: child counts {node.children}/{node.dev_children} differ from "
+               f"its children {children[key]}")
+    _audit(len(cache) == dev and cache.host_pages == host and cache.host_bytes == host_bytes,
+           "the tiers' page or byte counts differ from their nodes")
 
 
 _PRESETS = {"llama3_8b": LlamaConfig.llama3_8b, "one_b": LlamaConfig.one_b,
@@ -1323,20 +1555,15 @@ def _model(cfg: LlamaConfig, params: Any, dev: torch.device, seed: int) -> Llama
     return init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
 
 
-def engine_knobs(conf: Any, logger: Any, kw: dict[str, Any]) -> dict[str, Any]:
+def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     """The engine knobs of the ``ENGINE_*`` and ``ADAPTER_*`` keys of
     ``conf``, read as the JAX ``build_engine`` reads them
     (engine.py:4085-4370); a knob's keyword in ``kw`` wins over its key and
     is popped.
 
-    A knob the port lacks and whose setting would change what is served
-    raises ValueError naming its ROADMAP.md item: ``ENGINE_QUANTIZE``,
-    ``ENGINE_ROLE`` other than ``both``, ``ADAPTER_HOTSWAP_DIR``. One that
-    changes only speed is logged once with ``logger.warn``, and only when
-    set to what the port does not do: ``ENGINE_PIPELINE`` /
-    ``ENGINE_DECODE_PIPELINE`` other than 1 (the port dispatches at depth
-    1) and ``ENGINE_PREFIX_HOST_MB`` above 0 (the port evicts prefix pages
-    where the JAX engine spills them to host memory)."""
+    A knob the port lacks raises ValueError naming its ROADMAP.md item:
+    ``ENGINE_QUANTIZE``, ``ENGINE_ROLE`` other than ``both``,
+    ``ADAPTER_HOTSWAP_DIR``. No knob is ignored."""
     quantize = str(kw.pop("quantize", None) or conf.get_or_default("ENGINE_QUANTIZE", ""))
     if quantize == "int8":
         raise ValueError("ENGINE_QUANTIZE=int8: weight-only int8 is not ported yet "
@@ -1352,17 +1579,10 @@ def engine_knobs(conf: Any, logger: Any, kw: dict[str, Any]) -> dict[str, Any]:
                          "(ROADMAP.md Queue A 9, train/); adopt_weights takes weights in memory")
     depth = kw.pop("pipeline_depth", kw.pop("decode_pipeline", None))
     if depth is None:
-        depth = conf.get_int("ENGINE_PIPELINE", 0) or conf.get_int("ENGINE_DECODE_PIPELINE", 0)
-    if depth and int(depth) != 1:
-        logger.warn(f"ENGINE_PIPELINE={depth} ignored: the port dispatches at pipeline depth 1 "
-                    "(ROADMAP.md Queue A 1); the tokens are the same at every depth")
+        depth = conf.get_int("ENGINE_PIPELINE", 0) or conf.get_int("ENGINE_DECODE_PIPELINE", 2)
     host_mb = kw.pop("prefix_host_mb", None)
     if host_mb is None:
         host_mb = conf.get_float("ENGINE_PREFIX_HOST_MB", 0.0)
-    if host_mb and float(host_mb) > 0:
-        logger.warn(f"ENGINE_PREFIX_HOST_MB={host_mb} ignored: the port evicts prefix-cache "
-                    "pages where the JAX engine spills them to host memory "
-                    "(ROADMAP.md Queue A 4)")
 
     # ENGINE_KV_DTYPE is the canonical spelling, ENGINE_KV_QUANTIZE its
     # legacy alias (engine.py:4237-4250)
@@ -1396,6 +1616,8 @@ def engine_knobs(conf: Any, logger: Any, kw: dict[str, Any]) -> dict[str, Any]:
         "adapter_pool_mb": float(pick("adapter_pool_mb", "ADAPTER_POOL_MB", conf.get_float, 0.0)),
         "adapter_host_mb": float(pick("adapter_host_mb", "ADAPTER_HOST_MB", conf.get_float,
                                       256.0)),
+        "pipeline_depth": int(depth),
+        "prefix_host_mb": float(host_mb),
     }
 
 
@@ -1441,7 +1663,7 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
         cfg = spec.config
         if spec.dtype is not None and cfg.dtype != spec.dtype:
             cfg = dataclasses.replace(cfg, dtype=spec.dtype)
-        kw = {**engine_knobs(container.config, container.logger, kw), **kw}
+        kw = {**engine_knobs(container.config, kw), **kw}
         if kw.get("eos_token_id") is None and spec.tokenizer is not None:
             kw["eos_token_id"] = spec.tokenizer.eos_token_id
         kw.setdefault("tokenizer", spec.tokenizer)

@@ -12,15 +12,20 @@ take tensors, run eagerly, and hand back only sampled token ids.
   first token only after the last chunk (programs.py ``_chunk_prefill``).
 - ``decode_chunk``: ``steps`` decode steps over every slot with sampling
   fused in, the next step's input being the previous step's output on the
-  device (programs.py ``_decode_chunk``). The host reads ``[slots, steps]``
-  ids once per chunk.
+  device (programs.py ``_decode_chunk``). A lane's first input is the
+  host's token, or, for a lane whose previous chunk is still in flight,
+  the last token of that chunk, carried on the device (``prev_last``).
+  Returns the ids [slots, steps] and the carry for the next chunk.
 - ``spec_chunk``: ``steps`` speculative rounds over every slot (programs.py
   ``_spec_chunk``, both layouts): each proposes g tokens, by prompt lookup
   in the lane's token history or by g + 1 steps of a draft model, verifies
   them in one ``verify_step``, and accepts by ``speculative_sample``. The
-  (token, history length) carry stays on the device; the host reads
-  ``[steps, slots, g+1]`` ids and ``[steps, slots]`` accept counts once per
-  chunk.
+  (token, history length) carry stays on the device: a lane with a round
+  in flight starts from it, the others from the host's values.
+
+Every step returns device tensors and reads nothing back: the engine's
+executor (``gpu/executor.py``) copies the ids to the host behind the call
+and folds them when it reads the oldest entry of its in-flight queue.
 
 All serve either cache layout: the slot cache takes slot ids where the
 paged pool takes block-table rows, and no table at decode. With
@@ -153,10 +158,17 @@ def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
 def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor,
                  steps: int, generator: torch.Generator | None, *, top_k: int = 0,
-                 top_p: float = 1.0, do_sample: bool = True, adapters=None) -> torch.Tensor:
-    """``steps`` decode steps: tokens [N] are the inputs at ``positions``
-    [N] (through ``table`` [N, MaxP] on the paged pool, None on the slot
-    cache); returns the sampled ids [N, steps] int32, still on the device."""
+                 top_p: float = 1.0, do_sample: bool = True, adapters=None,
+                 prev_last: torch.Tensor | None = None, use_host: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` decode steps at ``positions`` [N] (through ``table`` [N,
+    MaxP] on the paged pool, None on the slot cache). A lane's first input
+    is ``tokens`` [N] where ``use_host`` [N] is set (or everywhere without
+    it), else the device carry ``prev_last`` [N] (programs.py:304). Returns
+    the sampled ids [N, steps] int32 and their last column [N], the next
+    chunk's carry, still on the device."""
+    if use_host is not None and prev_last is not None:
+        tokens = torch.where(use_host.bool(), tokens, prev_last.to(tokens.dtype))
     out = []
     for _ in range(steps):
         logits, _ = model.decode_step(tokens, positions, cache, table, adapters=adapters)
@@ -164,32 +176,41 @@ def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
                               top_p=top_p, do_sample=do_sample)
         positions = positions + 1
         out.append(tokens)
-    return torch.stack(out, dim=1)
+    return torch.stack(out, dim=1), tokens
 
 
 def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, tokens: torch.Tensor,
                hlen: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor, steps: int,
                g: int, generator: torch.Generator | None, *, top_k: int = 0,
-               top_p: float = 1.0, adapters=None) -> tuple[torch.Tensor, torch.Tensor]:
+               top_p: float = 1.0, adapters=None,
+               carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+               use_host: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """``steps`` speculative rounds over every slot (programs.py:329, 475).
 
     ``tokens`` [N] are the lanes' input tokens and ``hlen`` [N] their
     history lengths: the input token is history position hlen - 1, where
-    its K/V go. A lane that does not decode passes hlen past the cache (and,
-    on the paged pool, an all-OOB ``table`` row), so every write it makes
-    drops. Each round proposes g tokens: with a history ``aux``, the g that
-    followed the most recent EARLIER occurrence of the input token (a
-    deterministic proposal; a miss proposes from column 0); with a
-    ``Draft``, g + 1 draft decode steps sampled at each lane's temperature,
-    the last only to write the g-th draft's K/V. One ``verify_step`` over
-    the input and the drafts and ``speculative_sample`` then emit acc + 1
-    tokens a lane, which the round writes into the history. Returns
-    (tokens [steps, N, g+1] int32, accepted [steps, N] int32), still on the
+    its K/V go. Where ``use_host`` [N] is clear, a lane takes both from the
+    device ``carry`` (token, hlen) of its round in flight instead
+    (programs.py:333-335). A lane that does not decode passes hlen past the
+    cache (and, on the paged pool, an all-OOB ``table`` row), so every
+    write it makes drops. Each round proposes g tokens: with a history
+    ``aux``, the g that followed the most recent EARLIER occurrence of the
+    input token (a deterministic proposal; a miss proposes from column 0);
+    with a ``Draft``, g + 1 draft decode steps sampled at each lane's
+    temperature, the last only to write the g-th draft's K/V. One
+    ``verify_step`` over the input and the drafts and ``speculative_sample``
+    then emit acc + 1 tokens a lane, which the round writes into the
+    history. Returns (tokens [steps, N, g+1] int32, accepted [steps, N]
+    int32, the (token, hlen) carry after the last round), still on the
     device: ``tokens[k, n, :acc+1]`` are what lane n emitted in round k."""
-    n = tokens.shape[0]
     dev = tokens.device
     steps_g = torch.arange(g, device=dev)
     tok, hl = tokens.to(torch.int32), hlen.long()
+    if use_host is not None and carry is not None:
+        host = use_host.bool()
+        tok = torch.where(host, tok, carry[0].to(torch.int32))
+        hl = torch.where(host, hl, carry[1].long())
     if isinstance(aux, Draft):
         width = None
     else:
@@ -227,4 +248,4 @@ def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, token
         hl = hl + acc.long() + 1
         outs.append(out)
         accs.append(acc)
-    return torch.stack(outs), torch.stack(accs)
+    return torch.stack(outs), torch.stack(accs), (tok, hl)

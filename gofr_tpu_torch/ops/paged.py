@@ -262,6 +262,46 @@ def append_tokens_paged(k_layer: torch.Tensor, v_layer: torch.Tensor, table: tor
     return append(k_layer, v_layer, table, positions, k_new, v_new)
 
 
+# -- the prefix cache's host tier: whole pages out of and back into the pool ----------
+#
+# Every plane of every pool format is [L, P, ...], the page axis second
+# (paged.py:581-590), so one definition serves the bf16, int8 and packed
+# int4 pools, scale planes included; int4 pages move as opaque bytes.
+
+
+def page_planes(cache) -> tuple[torch.Tensor, ...]:
+    """The pool's planes in field order (k, v, and ks, vs on a quantized
+    pool), as the JAX pool's pytree leaves."""
+    return tuple(vars(cache).values())
+
+
+def gather_page(cache, page_id: int) -> tuple[torch.Tensor, ...]:
+    """A copy of one page of every plane (paged.py:593): each [L, P, ...]
+    plane gives [L, ...]. A copy, not a view: the page may be written
+    again once it is given back."""
+    return tuple(plane[:, page_id].clone() for plane in page_planes(cache))
+
+
+def swap_in_pages(cache, page_ids: torch.Tensor, payload) -> None:
+    """Write page payloads back into the pool in place (paged.py:604):
+    ``payload`` has one [L, W, ...] stack per plane, ``page_ids`` [W] says
+    where each of its W pages goes. An id that is not a pool page (the OOB
+    padding P) is dropped, as XLA's scatter drops it, without a host sync:
+    its row is aimed at a clamped page and carries what a kept row writes
+    there, or what the page holds (the source map of ``_prompt_targets``)."""
+    for plane, new in zip(page_planes(cache), payload):
+        pool = plane.shape[1]
+        ids = page_ids.to(plane.device).long()
+        keep = (ids >= 0) & (ids < pool)
+        src = torch.full((pool + 1,), -1, dtype=torch.long, device=plane.device)
+        src[torch.where(keep, ids, pool)] = torch.arange(ids.shape[0], device=plane.device)
+        target = ids.clamp(0, pool - 1)
+        source = src[target]
+        new = new.to(plane.device, non_blocking=True).to(plane.dtype)
+        kept = (source >= 0).view(1, -1, *[1] * (plane.dim() - 2))
+        plane[:, target] = torch.where(kept, new[:, source.clamp(min=0)], plane[:, target])
+
+
 def gather_kv(k_layer: torch.Tensor, v_layer: torch.Tensor,
               table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Logical [N, Hkv, MaxP * page, D] view of each slot's cache (paged.py:

@@ -331,6 +331,8 @@ def _port_engine(tiny, **kw):
     kw.setdefault("slots", 4)
     kw.setdefault("max_len", 64)
     kw.setdefault("max_prefill_batch", 2)
+    # depth 1, as the JAX engine it is held against
+    kw.setdefault("pipeline_depth", 1)
     return GenerateEngine(tiny[2], device="cpu", **kw)
 
 

@@ -163,21 +163,22 @@ def test_a_dropped_sse_client_frees_its_slot(apps, monkeypatch):
     """The client drops the stream after its first token: the server
     cancels the request (it ends cancelled, not at its length) and the
     engine's slot is free again within 30 s (cf. tests/test_examples.py:102).
-    Each decode round is slowed, so the 50 tokens outlast the disconnect."""
+    Each decode dispatch is slowed, so the 50 tokens outlast the
+    disconnect."""
     from gofr_tpu_torch.gpu import decode
     from gofr_tpu_torch.gpu.engine import RequestCancelled
 
     _, pbase, papp = apps
     engine = papp.container.engines["lm"]
-    submitted, submit, plain_round = [], engine.submit, decode.decode_round
+    submitted, submit, plain_dispatch = [], engine.submit, decode.dispatch_decode
 
-    def slow_round(eng):
+    def slow_dispatch(eng):
         time.sleep(0.1)
-        return plain_round(eng)
+        return plain_dispatch(eng)
 
     monkeypatch.setattr(engine, "submit", lambda *a, **kw: submitted.append(submit(*a, **kw))
                         or submitted[-1])
-    monkeypatch.setattr(decode, "decode_round", slow_round)
+    monkeypatch.setattr(decode, "dispatch_decode", slow_dispatch)
     with httpx.stream("POST", f"{pbase}/generate/stream",
                       json={"prompt": [1, 2, 3], "max_new_tokens": 50, "timeout": 300},
                       timeout=300) as r:
@@ -279,6 +280,8 @@ ENVS = {
     "adapter_slots_1": {"ADAPTER_SLOTS": "1"},
     "adapter_pool_rank_0": {"ADAPTER_POOL_MB": "0.25", "ADAPTER_RANK": "0"},
     "timeout": {"ENGINE_TIMEOUT": "5"},
+    "pipeline_3_host_tier": {"ENGINE_PIPELINE": "3", "ENGINE_PREFIX_HOST_MB": "16"},
+    "pipeline_alias_1": {"ENGINE_DECODE_PIPELINE": "1"},
 }
 
 
@@ -290,7 +293,8 @@ def _knobs(eng) -> dict:
             "total_pages": eng.total_pages if paged else None, "spec_tokens": eng.spec_tokens,
             "prefix_cache": eng._prefix is not None if paged else None,
             "adapters": (pool["slots"], pool["rank"]) if pool else None,
-            "default_timeout": eng.default_timeout}
+            "default_timeout": eng.default_timeout, "pipeline_depth": eng.pipeline_depth,
+            "prefix_host_budget": eng._prefix.host_budget if paged and eng._prefix else None}
 
 
 def _jax_engine(env: dict):
@@ -317,8 +321,8 @@ def _port_engine(env: dict, params, **kw):
 @pytest.mark.parametrize("env", list(ENVS))
 def test_config_builds_the_jax_engine_s_knobs_and_tokens(env):
     """Each env set: the same slots, max_len, layout, KV format, page size,
-    pages, prefix cache, spec tokens, adapter pool slots and rank, and
-    default timeout as the JAX ``build_engine``, and the same greedy
+    pages, prefix cache, spec tokens, adapter pool slots and rank, default
+    timeout, pipeline depth and host-tier budget as the JAX ``build_engine``, and the same greedy
     tokens for one prompt (the port on the JAX engine's weights)."""
     prompt = [5, 3, 9, 17, 2]
     jeng = _jax_engine(ENVS[env])
@@ -348,21 +352,29 @@ def test_a_knob_that_changes_what_is_served_is_refused(env, item):
 
 
 @pytest.mark.quick
-@pytest.mark.parametrize("env", [{"ENGINE_PIPELINE": "2"}, {"ENGINE_DECODE_PIPELINE": "3"},
-                                 {"ENGINE_PREFIX_HOST_MB": "64"}])
-def test_a_speed_only_knob_starts_and_is_logged_once(env):
-    """The engine serves, and the logger's warn names the key once; the
-    JAX defaults (no such key) log nothing about it."""
-    key = next(iter(env))
-    for config, times in ((env, 1), ({}, 0)):
-        eng, container = _port_engine(config, None, max_len=32, slots=2)
-        try:
-            assert eng.generate([1, 2, 3], max_new_tokens=2, timeout=300)["finish_reason"] == "length"
-        finally:
-            eng.stop()
-        warned = [r for r in container.logger.records
-                  if r["level"] == "WARN" and key.replace("DECODE_", "") in r["message"]]
-        assert len(warned) == times, container.logger.records
+@pytest.mark.parametrize("env,depth,host_mb", [
+    ({"ENGINE_PIPELINE": "3"}, 3, 0.0),
+    ({"ENGINE_DECODE_PIPELINE": "1"}, 1, 0.0),
+    ({"ENGINE_PIPELINE": "4", "ENGINE_DECODE_PIPELINE": "1"}, 4, 0.0),
+    ({"ENGINE_PIPELINE": "9"}, 4, 0.0),
+    ({"ENGINE_PREFIX_HOST_MB": "64"}, 2, 64.0),
+    ({}, 2, 0.0),
+])
+def test_the_pipeline_and_host_tier_knobs_are_honoured(env, depth, host_mb):
+    """``ENGINE_PIPELINE`` (canonical), ``ENGINE_DECODE_PIPELINE`` (its
+    alias) and ``ENGINE_PREFIX_HOST_MB`` reach the engine as the JAX
+    ``build_engine`` reads them (depth clamped to 1..4, default 2; the host
+    tier's budget in MiB), the engine serves, and nothing is logged about
+    them."""
+    eng, container = _port_engine(env, None, max_len=32, slots=2, page_size=8)
+    try:
+        assert eng.pipeline_depth == depth
+        assert eng._prefix.host_budget == int(host_mb * (1 << 20))
+        assert eng.generate([1, 2, 3], max_new_tokens=2, timeout=300)["finish_reason"] == "length"
+    finally:
+        eng.stop()
+    assert not [r for r in container.logger.records if r["level"] == "WARN"
+                and ("PIPELINE" in r["message"] or "HOST_MB" in r["message"])]
 
 
 @pytest.mark.quick

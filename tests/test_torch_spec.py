@@ -260,7 +260,6 @@ def _jax_engine(tiny, **kw):
     kw.setdefault("slots", 4)
     kw.setdefault("max_len", 64)
     kw.setdefault("max_prefill_batch", 2)
-    # depth 1: the synchronous engine the port is
     return JaxEngine(llama, jcfg, params, new_mock_container(), decode_pipeline=1, **kw)
 
 
@@ -270,6 +269,8 @@ def _port_engine(tiny, **kw):
     kw.setdefault("slots", 4)
     kw.setdefault("max_len", 64)
     kw.setdefault("max_prefill_batch", 2)
+    # depth 1, as the JAX engine it is held against
+    kw.setdefault("pipeline_depth", 1)
     return GenerateEngine(tiny[2], device="cpu", **kw)
 
 

@@ -23,8 +23,10 @@ result line:
    length against 2176 keys; the five appends, bf16 and quantizing, on
    edge lanes: a position of -1, past the table, through an OOB or
    negative entry, at and past Smax, an all-zero row and a row whose max
-   is one element): each held against its plain PyTorch version on the
-   same inputs (the appends bit for bit, values and scales), timed with
+   is one element; the W8A16 linear at Llama-3-8B's five (N, K) for M =
+   8, 40 and 2048 rows, ``W8_SHAPES`` x ``W8_ROWS``): each held against its
+   plain PyTorch version on the same inputs (the appends bit for bit,
+   values and scales), timed with
    CUDA events and by device time beside the plain version, a library
    yardstick where one PyTorch call computes the same function, and the
    least time the card could take (its bound);
@@ -99,7 +101,15 @@ result line:
    POSTs, the launch counters show ``bf16``'s kernels and no other, and
    after ``stop`` the engine's thread has ended; it prints the HTTP
    overhead per request, the SSE first event against the engine's TTFT
-   and decode tok/s beside ``bf16``'s;
+   and decode tok/s beside ``bf16``'s. Last ``paged_w8``: the engine
+   built from a ``ModelSpec`` of the phase's bf16 model and a container
+   whose config is ``W8_CONFIG`` (``bf16``'s knobs, ``ENGINE_QUANTIZE=
+   int8``) serves ``bf16``'s traffic; the int8 model must hold
+   ``W8_BYTES``, the bf16 model stay as it was, every request end with 64
+   tokens, A, B and C launch and the W8A16 kernel 7 x 32 + 1 times a model
+   forward (it launches in no other run); it prints the share of requests
+   whose tokens equal ``bf16``'s (not held: int8 weights move the logits)
+   and tok/s and TTFT beside ``bf16``'s;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -113,7 +123,9 @@ result line:
    ``decode_step`` and one ``verify_step`` over 5 lanes on the base model
    and the adapters (``LORA_SEL``): the base lanes' logits must be
    bit-identical to the same call's without adapters, the adapter lanes'
-   within ``LOGITS_RTOL`` of the plain path's with adapters;
+   within ``LOGITS_RTOL`` of the plain path's with adapters; then
+   ``phase5_model_w8``, the runs above on the int8-weight model on the bf16
+   pool, W8A16 against ``qdot_plain`` end to end, within the same limits;
 6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
    steps and one speculative round with a sampled lane on each cache, then
    an adapter upload, a ``decode_step`` and a speculative round with the
@@ -123,7 +135,8 @@ result line:
    cache the engine's own dispatches under the same check: a batched
    prefill, two prefill chunks, two decode chunks (the second from the
    device carry), a swap-in on the pool (the page swapped in must equal its
-   source bit for bit) and two speculative rounds, the folds outside it.
+   source bit for bit) and two speculative rounds, the folds outside it;
+   both checks also on the int8-weight model on the bf16 pool.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -825,7 +838,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
               ("flash_attention", check_flash),
               ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
               ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
-              ("kv_append_slot_q", check_append_slot_q)]
+              ("kv_append_slot_q", check_append_slot_q),
+              ("w8a16", lambda: check_w8a16(torch, timing if timed else None))]
     results = []
     for name, check in checks:
         try:
@@ -838,6 +852,123 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     return results
 
 
+def w8_agreement(label: str, got, want) -> dict:
+    """Hold the W8A16 kernel against ``qdot_plain`` under its launcher's
+    limits, relative to the output's scale: max |err| over max |y|, the
+    RMS of the difference over the output's RMS, and the share of
+    outputs not bit-equal to the plain version's."""
+    from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
+
+    got, want = got.float(), want.float()
+    require(bool(got.isfinite().all()), f"{label} produced non-finite values")
+    diff = (got - want).abs()
+    top = want.abs().max().item()
+    err = diff.max().item()
+    numbers = {"max_abs_err": err, "max_rel_err": err / top,
+               "rms_rel_err": (diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item(),
+               "mismatch_share": (diff > 0).float().mean().item(), "out_max": top}
+    if not (numbers["max_rel_err"] <= w8_mod.MAX_REL and numbers["rms_rel_err"] <= w8_mod.RMS_REL
+            and numbers["mismatch_share"] <= w8_mod.MISMATCH_SHARE):
+        failure = SystemExit(f"chip_smoke FAILED: {label} disagrees with qdot_plain: {numbers} "
+                             f"(limits {w8_mod.MAX_REL}, {w8_mod.RMS_REL}, "
+                             f"{w8_mod.MISMATCH_SHARE})")
+        failure.numbers = numbers
+        raise failure
+    return numbers
+
+
+def int8pack(torch, x, qs, copies: int, iters: int) -> dict:
+    """Yardstick only (never called by the port): PyTorch's own
+    weight-only int8 product, ``torch._weight_int8pack_mm``, where this
+    torch has a CUDA implementation of it, timed over ``iters`` calls."""
+    scales = [w.s.to(torch.bfloat16) for w in qs]
+    try:
+        torch._weight_int8pack_mm(x, qs[0].q, scales[0])
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return {"ms": None, "device_ms": None, "unavailable": str(e).splitlines()[0][:160]}
+    fn = lambda i: torch._weight_int8pack_mm(x, qs[i % copies].q, scales[i % copies])  # noqa: E731
+    return {"ms": time_ms(torch, fn, iters, warmup=1), "device_ms": device_ms(torch, fn, iters)}
+
+
+def check_w8a16(torch, timing=None) -> dict:  # port: the weight-only int8 linear
+    """At Llama-3-8B's five (N, K) and the rows of a decode step, a
+    verify forward and a prefill (``W8_ROWS``): bf16 weights from the
+    seed with std K^-1/2 quantized by the port's ``quantize`` and bf16
+    rows of RMS 1, against ``qdot_plain`` on the same inputs (cuBLAS
+    reducing in f32). Timed on ``W8_COLD_BYTES`` of weight copies
+    cycled, so each launch finds its weight cold in L2 as a step
+    through 32 layers does; the yardsticks are cuBLAS on the bf16
+    weight (``F.linear``, the product without int8) and
+    ``torch._weight_int8pack_mm``. The row's ``ms``, ``device_ms``,
+    ``plain_ms``, ``library_ms`` and ``bound_ms`` are one decode step's
+    225 products at M = 8 (``W8_PER_STEP``), summed over the shapes.
+    ``timing`` is ``check_kernels``' timer; None leaves the check untimed."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
+    from gofr_tpu_torch.ops.cuda.w8a16 import w8a16
+    from gofr_tpu_torch.ops.quant import qdot_plain, quantize
+
+    dev, bf, timed = torch.device("cuda"), torch.bfloat16, timing is not None
+    wgen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    shapes = {}
+    try:
+        for name, (n_out, k_in) in W8_SHAPES.items():
+            copies = max(1, math.ceil(W8_COLD_BYTES / (n_out * k_in))) if timed else 1
+            ws = [(torch.randn(n_out, k_in, device=dev, generator=wgen) * k_in ** -0.5).to(bf)
+                  for _ in range(copies)]
+            qs = [quantize(w) for w in ws]
+            for m in W8_ROWS:
+                x = torch.randn(m, k_in, device=dev, generator=wgen).to(bf)
+                label = f"w8a16 {name} M={m}"
+                entry = {**w8_agreement(label, w8a16(x, qs[0].q, qs[0].s), qdot_plain(x, qs[0])),
+                         "n": n_out, "k": k_in, "m": m, "plan": w8_mod.plan(m, n_out, k_in)}
+                entry["bound_ms"], entry["bound_by"] = bound_ms(
+                    n_out * k_in + 4 * n_out + 2 * m * k_in + 2 * m * n_out, 2 * m * n_out * k_in)
+                if timed:
+                    entry.update(timing(
+                        lambda i: w8a16(x, qs[i % copies].q, qs[i % copies].s),
+                        lambda i: qdot_plain(x, qs[i % copies]),
+                        lambda i: F.linear(x, ws[i % copies]), iters=20, plain_iters=5))
+                    # seconds a call at prefill rows: two calls there
+                    entry["int8pack_mm"] = int8pack(torch, x, qs, copies, 20 if m <= 64 else 2)
+                shapes[f"{name}_m{m}"] = entry
+            del ws, qs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    row = {"name": "w8a16", "route": "cuda", "source": "gofr_tpu_torch/csrc/w8a16.cu",
+           "replaces": "port-only (XLA in JAX: gofr_tpu/ops/quant.py:52 qdot)",
+           **{key: max(e[key] for e in shapes.values())
+              for key in ("max_abs_err", "max_rel_err", "rms_rel_err", "mismatch_share")},
+           "tolerance": {"max_rel": w8_mod.MAX_REL, "rms_rel": w8_mod.RMS_REL,
+                         "mismatch_share": w8_mod.MISMATCH_SHARE},
+           "shapes": shapes, "bound_by": "bytes",
+           "per_call": "one decode step: the 225 products at M = 8, summed over the shapes"}
+    for key in ("bound_ms", *(("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
+                              if timed else ())):
+        row[key] = sum(W8_PER_STEP[name] * shapes[f"{name}_m8"][key] for name in W8_SHAPES)
+    return row
+
+
+# Phase 3's W8A16 shapes: Llama-3-8B's linears as (N, K), the launches of
+# each in one decode step (7 x 32 + the head), the rows of a decode step (8
+# slots), a verify forward (8 lanes x 5) and a prefill (4 x 512), and the
+# bytes of int8 weight copies cycled while timing (past the 50 MB L2).
+W8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (1024, 4096), "gate_up": (14336, 4096),
+             "down": (4096, 14336), "head": (128256, 4096)}
+W8_PER_STEP = {"wq_wo": 64, "wk_wv": 64, "gate_up": 64, "down": 32, "head": 1}
+W8_ROWS = (8, 40, 2048)
+W8_COLD_BYTES = 150e6
+# Phase 4's ``paged_w8``: ``bf16``'s engine knobs as a user sets them, and
+# weight-only int8; the int8 Llama-3-8B holds this many bytes.
+W8_CONFIG = {"ENGINE_SLOTS": "8", "ENGINE_MAX_LEN": "2048", "ENGINE_PREFILL_BATCH": "4",
+             "ENGINE_DECODE_CHUNK": "8", "ENGINE_KV_DTYPE": "bf16", "ENGINE_QUANTIZE": "int8"}
+W8_BYTES = 8_561_882_112
+
 # The serving runs of phase 4 and the checks of phase 5, one per cache:
 # (kv_layout, kv_quantize).
 RUNS = (("paged", ""), ("paged", "int8"), ("paged", "int4"), ("slot", ""), ("slot", "int8"))
@@ -849,7 +980,9 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            ("paged", "int8"): ("paged_decode_q", "kv_append_q", "flash_attention"),
            ("paged", "int4"): ("paged_decode_q4", "kv_append_q4", "flash_attention"),
            ("slot", ""): ("decode_attention", "kv_append_slot", "flash_attention"),
-           ("slot", "int8"): ("kv_append_slot_q", "flash_attention")}
+           ("slot", "int8"): ("kv_append_slot_q", "flash_attention"),
+           # the int8-weight model on the bf16 pool: every product through W8A16
+           "paged_w8": ("paged_decode", "kv_append", "flash_attention", "w8a16")}
 PREFILL_KERNELS = ("flash_attention",)
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
@@ -927,15 +1060,19 @@ def lora_specs(cfg) -> list:
 
 
 def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "paged",
-          spec: str | None = None, draft=None, lora: bool = False
+          spec: str | None = None, draft=None, lora: bool = False, w8: bool = False
           ) -> tuple[object, dict, dict, list]:
     """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
     cache ``kv_layout`` in the format ``kv_quantize``; a new model with
     random weights from the seed, or ``model`` when given. ``spec`` names a
     run of ``SPEC_RUNS``: speculative decoding, with ``draft`` as its draft
     model if given. With ``lora`` the engine has the adapter plane and the
-    requests name ``LORA_LANES`` in turn. Returns (engine, launches,
-    metrics, the results)."""
+    requests name ``LORA_LANES`` in turn. With ``w8`` (the run
+    ``paged_w8``) the engine is built as a user builds it, from a
+    ``ModelSpec`` of ``model`` and a container whose config is
+    ``W8_CONFIG``: ``bf16``'s knobs with ``ENGINE_QUANTIZE=int8``; every
+    product must then go through the W8A16 kernel, 7 x 32 + 1 launches a
+    model forward. Returns (engine, launches, metrics, the results)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -947,9 +1084,17 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     if lora:
         spec_kw.update(adapter_slots=LORA_SLOTS, adapter_rank=LORA_RANK)
     t0 = time.perf_counter()
-    eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
-                       max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize,
-                       kv_layout=kv_layout, **spec_kw)
+    if w8:
+        from gofr_tpu_torch.config import DictConfig
+        from gofr_tpu_torch.container import Container
+        from gofr_tpu_torch.models import ModelSpec
+
+        eng = build_engine(ModelSpec("llama", cfg, weights=model, dtype=cfg.dtype),
+                           Container(DictConfig(W8_CONFIG)), device="cuda", seed=SEED)
+    else:
+        eng = build_engine(cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                           max_prefill_batch=4, decode_chunk=8, kv_quantize=kv_quantize,
+                           kv_layout=kv_layout, **spec_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
@@ -975,20 +1120,28 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
     did = {k: v - before[k] for k, v in eng.counters.items()}
     pool = (f"{kv_layout} {kv_quantize or 'bf16'}" + (f" ({spec})" if spec else "")
-            + (" (lora)" if lora else ""))
+            + (" (lora)" if lora else "") + (" (int8 weights)" if w8 else ""))
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
                 f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                 f"{pool} request {i}: token out of range")
-    on_path = ON_PATH[kv_layout, kv_quantize] if spec is None else ON_PATH_SPEC[spec]
+    on_path = (ON_PATH["paged_w8"] if w8 else ON_PATH[kv_layout, kv_quantize] if spec is None
+               else ON_PATH_SPEC[spec])
     for name, launches in counts.items():
         if name in on_path:
             require(launches > 0, f"kernel {name} was not launched on the {pool} cache's path")
         else:
             require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
                                    f"cache's path")
-    per_step = {counts[name] for name in on_path if name not in PREFILL_KERNELS}
+    per_step = {counts[name] for name in on_path if name not in (*PREFILL_KERNELS, "w8a16")}
+    if w8:
+        # a forward is a prefill or chunk call (C once a layer) or a decode
+        # step (A once a layer); each makes 7 products a layer and the head's
+        forwards = (counts["paged_decode"] + counts["flash_attention"]) // cfg.num_layers
+        require(counts["w8a16"] == forwards * (7 * cfg.num_layers + 1),
+                f"{pool}: W8A16 launched {counts['w8a16']} times for {forwards} model forwards, "
+                f"not {7 * cfg.num_layers + 1} each")
     if spec is None:
         require(len(per_step) == 1 and per_step.pop() % cfg.num_layers == 0,
                 f"{pool} cache: the decode-step kernels' launches differ or are not whole steps: "
@@ -1017,7 +1170,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
     ttft = sorted(o["ttft_s"] for o in outs)
     metrics = {
-        "model": "llama3_8b (random bf16 weights, seed 0)", "layers": cfg.num_layers,
+        "model": ("llama3_8b (random bf16 weights, seed 0" + (", served in int8)" if w8 else ")")),
+        "layers": cfg.num_layers,
         "kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
         "pool_bytes": pool_bytes, "pool_positions": positions,
         "requests": len(outs), "prompt_lens": lens, "new_tokens": 64,
@@ -1029,6 +1183,16 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "note": "smoke run, not a benchmark",
     }
+    if w8:
+        from gofr_tpu_torch.ops.quant import quantized_bytes
+
+        held = quantized_bytes(eng.model)
+        require(held == W8_BYTES, f"{pool}: the int8 model holds {held} B, not {W8_BYTES}")
+        require(model is None or type(model.blocks[0].wq).__name__ == "Linear",
+                f"{pool}: quantizing changed the bf16 model it was given")
+        metrics.update({"weights": "int8", "quantized_bytes": held,
+                        "w8a16_launches_per_forward": 7 * cfg.num_layers + 1,
+                        "model_forwards": forwards})
     if lora:
         stats = eng.adapter_stats()
         require(stats["pool"]["resident"] == len(LORA_RANKS) and stats["pool"]["referenced"] == 0
@@ -1241,6 +1405,31 @@ def serve_lora(torch, cuda, model, base: dict, base_outs: list) -> dict:
             f"requests differ from the bf16 run's tokens on the same prompt, so some lane "
             f"was not routed to its adapter")
     return {"metrics": metrics, "launches": counts}
+
+
+def serve_w8(torch, cuda, model, base: dict, base_outs: list) -> tuple[dict, object]:
+    """Phase 4 ``paged_w8``: ``bf16``'s traffic on the engine built from a
+    ``ModelSpec`` of phase 4's bf16 model with ``ENGINE_QUANTIZE=int8``
+    (``serve`` with ``w8``), held as ``serve`` holds it (A, B, C and W8A16,
+    W8A16 7 x 32 + 1 times a model forward, 64 tokens a request, the int8
+    model's ``W8_BYTES``), the bf16 model left as it was. Printed beside the
+    ``bf16`` run of the same call, not held (int8 weights move the logits):
+    the share of requests whose tokens equal it, and tok/s and TTFT.
+    Returns (the run's record, the int8 model, its pool freed)."""
+    eng, counts, metrics, outs = serve(torch, cuda, model, w8=True)
+    eng.stop()
+    w8_model = eng.model
+    del eng
+    torch.cuda.empty_cache()
+    agree = token_agreement(torch, model, phase4_prompts(torch, model.cfg.vocab_size), outs,
+                            base_outs)
+    metrics.update({"tokens_equal_bf16": agree["tokens_equal"],
+                    "first_difference_vs_bf16": agree["first_difference"],
+                    "margin_at_first_difference_bf16_model": agree["margin_at_first_difference"],
+                    "bf16_decode_tok_s": base["decode_tok_s"],
+                    "bf16_output_tok_s": base["output_tok_s"],
+                    "bf16_ttft_p50_s": base["ttft_p50_s"], "bf16_ttft_max_s": base["ttft_max_s"]})
+    return {"metrics": metrics, "launches": counts}, w8_model
 
 
 def adopt_check(torch, cuda) -> dict:
@@ -1982,8 +2171,10 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     history) over those lanes, lane 0 sampled with top-k and top-p. The
     chunks must launch C once per layer each, the decode steps the decode
     kernels of the cache's path once per layer and step, the round C on
-    verify rows once per layer and nothing else; the logits must be finite
-    and the round's tokens and accept counts in range."""
+    verify rows once per layer and nothing else, and on a model of int8
+    weights each forward (a chunk, a step, a round's verify) the W8A16
+    kernel 7 x 32 + 1 times besides; the logits must be finite and the
+    round's tokens and accept counts in range."""
     from gofr_tpu_torch.gpu.engine import make_pool
     from gofr_tpu_torch.gpu.programs import new_history, spec_chunk
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -2006,8 +2197,11 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     positions = positions.cuda()
     chunk_len = torch.tensor([128], device="cuda")
     offsets = [torch.tensor([c * 128], device="cuda") for c in range(2)]
-    pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    int8 = type(model.blocks[0].wq).__name__ == "QLinear"
+    pool = f"{kv_layout} {kv_quantize or 'bf16'}" + (" (int8 weights)" if int8 else "")
     layers = model.cfg.num_layers
+    # W8A16 launches of one model forward (0 on bf16 weights)
+    lin = (7 * layers + 1) if int8 else 0
 
     def unsynced(fn) -> dict:
         torch.cuda.synchronize()
@@ -2029,7 +2223,7 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
 
     counts = unsynced(chunked)
     require(counts["flash_attention"] == flash_attention.offset_launches == 2 * layers
-            and sum(counts.values()) == 2 * layers,
+            and counts["w8a16"] == 2 * lin and sum(counts.values()) == 2 * (layers + lin),
             f"{pool}: the chunked prefill did not launch C once per layer and chunk: {counts}")
     chunk_launches = counts["flash_attention"]
 
@@ -2043,7 +2237,8 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     counts = counts_decode = unsynced(decode)
     decode_kernels = [k for k in ON_PATH[kv_layout, kv_quantize] if k not in PREFILL_KERNELS]
     require(all(counts[k] == steps * layers for k in decode_kernels)
-            and sum(counts.values()) == steps * layers * len(decode_kernels),
+            and counts["w8a16"] == steps * lin
+            and sum(counts.values()) == steps * (layers * len(decode_kernels) + lin),
             f"{pool}: decode_step did not go through its kernels once per layer: {counts}")
 
     # one speculative round (prompt lookup in a random history) over the same
@@ -2067,7 +2262,7 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
 
     counts = unsynced(spec_round)
     require(counts["flash_attention"] == flash_attention.offset_launches == layers
-            and sum(counts.values()) == layers,
+            and counts["w8a16"] == lin and sum(counts.values()) == layers + lin,
             f"{pool}: a spec round did not launch C on verify rows once per layer alone: {counts}")
     toks, accs = (t.cpu() for t in emitted[0])
     require(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all())
@@ -2099,15 +2294,17 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
     counts = unsynced(lora_round)
     require(all(counts[k] == layers for k in decode_kernels)
             and counts["flash_attention"] == flash_attention.offset_launches == layers
-            and sum(counts.values()) == layers * (len(decode_kernels) + 1)
+            and counts["w8a16"] == 2 * lin
+            and sum(counts.values()) == layers * (len(decode_kernels) + 1) + 2 * lin
             and lora_pool.uploads == len(specs),
             f"{pool}: a decode step and a spec round with adapters launched {counts}")
-    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "chunks": 2,
-            "steps": steps, "spec_rounds": 1, "spec_sampled_lanes": 1, "sync_debug_mode": "error",
+    return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
+            "weights": "int8" if int8 else "bf16", "chunks": 2, "steps": steps, "spec_rounds": 1,
+            "spec_sampled_lanes": 1, "sync_debug_mode": "error",
             "adapters": {"uploads_in_check": 1, "decode_steps": 1, "spec_rounds": 1,
                          "sel": sel.tolist()},
             "launches": {"flash_attention (chunks)": chunk_launches,
-                         **{k: counts_decode[k] for k in decode_kernels},
+                         **{k: counts_decode[k] for k in (*decode_kernels, "w8a16")},
                          "flash_attention (verify)": spec_launches,
                          "with adapters": counts}}
 
@@ -2188,6 +2385,7 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
     require(eng.counters["spec_rounds"] == 2 * eng.decode_chunk,
             f"{pool}: {eng.counters['spec_rounds']} spec rounds folded")
     return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
+            "weights": "int8" if type(model.blocks[0].wq).__name__ == "QLinear" else "bf16",
             "sync_debug_mode": "error", "dispatches": checked}
 
 
@@ -2350,20 +2548,31 @@ def main() -> None:
     emit("phase4_http_generate", served["http_generate"])
     lap("phase4_http_generate")
 
+    served["paged_w8"], w8_model = serve_w8(torch, cuda, model, served["paged", ""]["metrics"],
+                                            results["paged", ""])
+    emit("phase4_serve_paged_w8", {**served["paged_w8"]["metrics"],
+                                   "launches": served["paged_w8"]["launches"]})
+    lap("phase4_paged_w8")
+
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
         lap(f"phase5_{run_name(kv_layout, kv_quantize)}")
     emit("phase5_lora", [lora_check(torch, model, *run) for run in RUNS])
     lap("phase5_lora")
+    # the int8-weight model on the bf16 pool: W8A16 against qdot_plain end to end
+    emit("phase5_model_w8", {"weights": "int8", **model_check(torch, w8_model, "")})
+    lap("phase5_w8")
 
-    emit("phase6_no_sync", [no_sync_check(torch, cuda, model, *run) for run in RUNS])
-    emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, model, *run) for run in RUNS])
+    emit("phase6_no_sync", [no_sync_check(torch, cuda, m, *run)
+                            for m, run in [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
+    emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, m, *run) for m, run in
+                                     [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on
     for k in kernels:
-        run = next(r for r in RUNS if k["name"] in ON_PATH[r])
+        run = next(r for r in (*RUNS, "paged_w8") if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -17,7 +17,7 @@ layout mirrors the JAX package so each module has an obvious counterpart:
 - ``adapters/``          multi-LoRA: the host registry and the device pool
                          (adapters/__init__.py)
 - ``ops/``               norms, rope, sampling, the paged pool, attention,
-                         the LoRA delta
+                         the LoRA delta, weight-only int8 (ops/quant.py)
 - ``ops/cuda/``          the hand-written Hopper kernels and their loader
 - ``csrc/``              the kernels' CUDA C++ sources, built with nvcc at
                          first use into ``build/`` (never committed)

@@ -116,6 +116,7 @@ from gofr_tpu_torch.models.llama import (
     params_from_jax,
 )
 from gofr_tpu_torch.ops.paged import gather_page
+from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree
 
 log = logging.getLogger(__name__)
 
@@ -756,8 +757,11 @@ class GenerateEngine:
         ``weights_epoch``, which it returns. ``new_params`` takes the forms
         ``build_engine`` takes: a ``Llama``, or a JAX parameter tree as
         numpy arrays; on a draft engine, the target alone (the draft keeps
-        its weights) or ``{"t": target, "d": draft}``. A tree of another
-        structure, shape or dtype raises ValueError. Blocks up to
+        its weights) or ``{"t": target, "d": draft}``. Raw weights for a
+        model that serves weight-only int8 are quantized first, as the JAX
+        engine's checkpoint path does (``_prepare_weights``,
+        engine.py:2219-2234; its in-memory ``adopt_weights`` refuses them). A
+        tree of another structure, shape or dtype raises ValueError. Blocks up to
         ``timeout_s`` (None: stage and return); applied at once when the
         loop is not running."""
         staged = self._match_weights(new_params)
@@ -773,8 +777,10 @@ class GenerateEngine:
 
     def _match_weights(self, new_params: Any) -> dict[str, dict[str, torch.Tensor]]:
         """The replacement's tensors by model ("t", and "d" for a draft it
-        names), each checked against the serving parameters: the same names,
-        shapes and dtypes, or ValueError."""
+        names), each checked against the serving model's state (parameters,
+        and a ``QLinear``'s ``q`` and ``s`` buffers): the same names, shapes
+        and dtypes, or ValueError. A raw replacement for an int8 model is
+        quantized first (``ops.quant.quantize_state``)."""
         draft = self._aux.model if isinstance(self._aux, Draft) else None
         parts = (new_params if draft is not None and isinstance(new_params, dict)
                  and set(new_params) == {"t", "d"} else {"t": new_params})
@@ -782,12 +788,13 @@ class GenerateEngine:
         for key, new in parts.items():
             model = self.model if key == "t" else draft
             try:
-                state = (dict(new.named_parameters()) if isinstance(new, Llama)
-                         else jax_state(new))
+                state = new.state_dict() if isinstance(new, Llama) else jax_state(new)
             except (KeyError, TypeError, IndexError) as e:
                 raise ValueError(f"adopt_weights: not a Llama or a Llama parameter tree ({e!r})"
                                  ) from None
-            serving = dict(model.named_parameters())
+            serving = model.state_dict()
+            if set(state) != set(serving) and any(name.endswith(".q") for name in serving):
+                state = quantize_state(state)
             if set(state) != set(serving):
                 raise ValueError("adopt_weights: replacement tree structure does not match the "
                                  "serving tree (same config required)")
@@ -818,8 +825,8 @@ class GenerateEngine:
         with torch.no_grad():
             for key, state in staged.items():
                 model = self.model if key == "t" else self._aux.model
-                for name, p in model.named_parameters():
-                    p.copy_(state[name])
+                for name, t in model.state_dict().items():
+                    t.copy_(state[name])
         self.weights_epoch += 1
         log.warning("weights adopted (weights epoch %d); slot-resident work requeued",
                     self.weights_epoch)
@@ -1561,20 +1568,26 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     (engine.py:4085-4370); a knob's keyword in ``kw`` wins over its key and
     is popped.
 
+    ``quantize`` ("" or "int8"; ``ENGINE_QUANTIZE``) is weight-only int8
+    of the target (``build_engine``); any other mode raises, as in JAX
+    (engine.py:4107). A keyword wins over the config even when it is
+    empty, as JAX reads it: ``quantize=""`` serves bf16 under
+    ``ENGINE_QUANTIZE=int8`` (engine.py:4084), ``role=""`` is ``both``
+    (:4270), ``adapter_hotswap_dir=""`` is off (:4335).
+
     A knob the port lacks raises ValueError naming its ROADMAP.md item:
-    ``ENGINE_QUANTIZE``, ``ENGINE_ROLE`` other than ``both``,
-    ``ADAPTER_HOTSWAP_DIR``. No knob is ignored."""
-    quantize = str(kw.pop("quantize", None) or conf.get_or_default("ENGINE_QUANTIZE", ""))
-    if quantize == "int8":
-        raise ValueError("ENGINE_QUANTIZE=int8: weight-only int8 is not ported yet "
-                         "(ROADMAP.md Queue A 3)")
-    if quantize:
+    ``ENGINE_ROLE`` other than ``both``, ``ADAPTER_HOTSWAP_DIR``. No knob is
+    ignored."""
+    quantize_kw = kw.pop("quantize", None)
+    quantize = str(quantize_kw if quantize_kw is not None
+                   else conf.get_or_default("ENGINE_QUANTIZE", ""))
+    if quantize not in ("", "int8"):
         raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
-    role = str(kw.pop("role", None) or conf.get_or_default("ENGINE_ROLE", "both"))
+    role = str(kw.pop("role", conf.get_or_default("ENGINE_ROLE", "both")) or "both")
     if role != "both":
         raise ValueError(f"ENGINE_ROLE={role!r}: disaggregated serving is not ported yet "
                          "(ROADMAP.md Queue A 6); the port serves role 'both'")
-    if kw.pop("adapter_hotswap_dir", None) or conf.get_or_default("ADAPTER_HOTSWAP_DIR", ""):
+    if kw.pop("adapter_hotswap_dir", conf.get_or_default("ADAPTER_HOTSWAP_DIR", "")):
         raise ValueError("ADAPTER_HOTSWAP_DIR: checkpoint adoption is not ported yet "
                          "(ROADMAP.md Queue A 9, train/); adopt_weights takes weights in memory")
     depth = kw.pop("pipeline_depth", kw.pop("decode_pipeline", None))
@@ -1599,6 +1612,7 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
         return kw.pop(name) if name in kw else get(key, default)
 
     return {
+        "quantize": quantize,
         "slots": int(pick("slots", "ENGINE_SLOTS", conf.get_int, 8)),
         "max_len": int(pick("max_len", "ENGINE_MAX_LEN", conf.get_int, 2048)),
         "decode_chunk": int(pick("decode_chunk", "ENGINE_DECODE_CHUNK", conf.get_int, 8)),
@@ -1643,8 +1657,12 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
     when None — random weights drawn on ``device`` from ``seed``.
     ``spec_draft`` = (a config, its weights in any of those forms) is the
     draft model of speculative decoding (engine.py:4140), its random
-    weights drawn from ``seed`` + 1. Runs on the card unless ``device``
-    says otherwise."""
+    weights drawn from ``seed`` + 1. ``quantize="int8"`` (in the spec form
+    also ``ENGINE_QUANTIZE=int8``) serves the target in weight-only int8
+    (``ops.quant.quantize_tree``, engine.py:4087-4106): a new model, the
+    given one left as it is; the draft stays in its dtype (a small draft's
+    weight reads are noise). Runs on the card unless ``device`` says
+    otherwise."""
     if isinstance(config, ModelSpec):
         spec = config
         if container is None or params is not None:
@@ -1675,8 +1693,13 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
         raise TypeError("build_engine: a container goes with a ModelSpec")
     else:
         cfg = _PRESETS[config]() if isinstance(config, str) else config
+    quantize = str(kw.pop("quantize", "") or "")
+    if quantize not in ("", "int8"):
+        raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
     dev = resolve_device(device)
     model = _model(cfg, params, dev, seed)
+    if quantize:
+        model = quantize_tree(model)
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
         spec_draft = (dcfg, _model(dcfg, spec_draft[1], dev, seed + 1))

@@ -40,8 +40,16 @@ against the plain path end to end. Decode attention on the int8 slot
 cache is plain PyTorch either way (the TPU ran it as XLA). On the card a
 decode step makes no host sync on any cache: ``decode_step`` converts the
 positions, lengths and table to int32 once per step, so no launcher casts
-them per layer. This slice serves bf16 weights (no int8 weights or LoRA
-deltas).
+them per layer.
+
+Every linear site is ``ops.quant.qdot`` on the layer's weight, as every
+site of the JAX model is (llama.py:190-199, 230, 237, 300): an
+``nn.Linear``'s weight, or the ``QTensor`` of a ``QLinear`` when the model
+holds weight-only int8 (``ops.quant.quantize_tree``, or ``params_from_jax``
+of a quantized JAX tree), which on the card goes through the W8A16
+kernel; ``kernels=False`` takes ``qdot``'s plain version there too. The
+entry points' ``adapters`` (the LoRA pool's lanes) add their delta of the
+normed rows to the logits after the head product (``ops.lora``).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from gofr_tpu_torch.ops.kvcache import QSlotKVCache, SlotKVCache
 from gofr_tpu_torch.ops.lora import lora_logits_delta
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.paged import AnyPagedKVCache, PagedKVCache, Q4PagedKVCache, QPagedKVCache
+from gofr_tpu_torch.ops.quant import QLinear, qdot, qdot_plain
 from gofr_tpu_torch.ops.rope import apply_rope, rope_table
 
 
@@ -108,36 +117,46 @@ class LlamaConfig:
         ), **kw})
 
 
+def _linear(in_features: int, out_features: int, int8: bool, **factory) -> nn.Module:
+    """A bias-free linear layer: ``nn.Linear``, or an empty ``QLinear``."""
+    if int8:
+        return QLinear.empty(out_features, in_features, factory["device"])
+    return nn.Linear(in_features, out_features, bias=False, **factory)
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig, **factory):
+    def __init__(self, cfg: LlamaConfig, int8: bool = False, **factory):
         super().__init__()
         e, m = cfg.hidden_size, cfg.intermediate_size
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
         self.attn_norm = nn.Parameter(torch.empty(e, **factory))
-        self.wq = nn.Linear(e, hq * d, bias=False, **factory)
-        self.wk = nn.Linear(e, hkv * d, bias=False, **factory)
-        self.wv = nn.Linear(e, hkv * d, bias=False, **factory)
-        self.wo = nn.Linear(hq * d, e, bias=False, **factory)
+        self.wq = _linear(e, hq * d, int8, **factory)
+        self.wk = _linear(e, hkv * d, int8, **factory)
+        self.wv = _linear(e, hkv * d, int8, **factory)
+        self.wo = _linear(hq * d, e, int8, **factory)
         self.mlp_norm = nn.Parameter(torch.empty(e, **factory))
-        self.w_gate = nn.Linear(e, m, bias=False, **factory)
-        self.w_up = nn.Linear(e, m, bias=False, **factory)
-        self.w_down = nn.Linear(m, e, bias=False, **factory)
+        self.w_gate = _linear(e, m, int8, **factory)
+        self.w_up = _linear(e, m, int8, **factory)
+        self.w_down = _linear(m, e, int8, **factory)
 
 
 class Llama(nn.Module):
     """Weights are uninitialised after construction: build with ``init``
-    (random, from a generator) or ``params_from_jax`` (the JAX tree)."""
+    (random, from a generator) or ``params_from_jax`` (the JAX tree). With
+    ``int8`` the block linears and the head are ``QLinear``s (a tied head
+    stays the embedding)."""
 
-    def __init__(self, cfg: LlamaConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: LlamaConfig, device: str | torch.device | None = None,
+                 int8: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         meta = dict(device="meta", dtype=cfg.dtype)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size, **meta))
-        self.blocks = nn.ModuleList(Block(cfg, **meta) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, int8, **meta) for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.empty(cfg.hidden_size, **meta))
         self.lm_head = (None if cfg.tie_embeddings
-                        else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **meta))
+                        else _linear(cfg.hidden_size, cfg.vocab_size, int8, **meta))
         self.to_empty(device=dev)
         self.requires_grad_(False)
         cos, sin = rope_table(cfg.max_seq_len, cfg.head_size, theta=cfg.rope_theta, device=dev)
@@ -150,28 +169,29 @@ class Llama(nn.Module):
 
     # -- pieces ----------------------------------------------------------------
 
-    def _qkv(self, lp: Block, x: torch.Tensor):
-        """x [B, S, E] → q [B, S, Hq, D], k/v [B, S, Hkv, D] (pre-rope)."""
+    def _qkv(self, lp: Block, x: torch.Tensor, dot=qdot):
+        """x [B, S, E] → q [B, S, Hq, D], k/v [B, S, Hkv, D] (pre-rope);
+        ``dot`` is ``qdot`` or its plain version."""
         b, s, _ = x.shape
         d = self.cfg.head_size
         h = rms_norm(x, lp.attn_norm, self.cfg.norm_eps)
-        return (lp.wq(h).view(b, s, -1, d), lp.wk(h).view(b, s, -1, d),
-                lp.wv(h).view(b, s, -1, d))
+        return (dot(h, lp.wq.weight).view(b, s, -1, d), dot(h, lp.wk.weight).view(b, s, -1, d),
+                dot(h, lp.wv.weight).view(b, s, -1, d))
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return apply_rope(x, positions, self.rope_cos, self.rope_sin)
 
-    def _mlp(self, lp: Block, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, lp: Block, x: torch.Tensor, dot=qdot) -> torch.Tensor:
         h = rms_norm(x, lp.mlp_norm, self.cfg.norm_eps)
-        return lp.w_down(F.silu(lp.w_gate(h)) * lp.w_up(h))
+        return dot(F.silu(dot(h, lp.w_gate.weight)) * dot(h, lp.w_up.weight), lp.w_down.weight)
 
-    def _logits(self, x: torch.Tensor, adapters=None) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, adapters=None, dot=qdot) -> torch.Tensor:
         """f32 logits of hidden states ``x``, plus the lanes' LoRA delta
         of the normed rows (in the model's dtype) when ``adapters`` is
         given."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed if self.lm_head is None else self.lm_head.weight
-        logits = F.linear(x, head).float()
+        logits = dot(x, head).float()
         if adapters is not None:
             logits = logits + lora_logits_delta(x, adapters)
         return logits
@@ -189,13 +209,13 @@ class Llama(nn.Module):
             q, k, v = self._qkv(lp, x)
             a = mha_attention(self._rope(q, positions), self._rope(k, positions), v,
                               causal=True, kv_lengths=lengths)
-            x = x + lp.wo(a.reshape(b, s, -1))
+            x = x + qdot(a.reshape(b, s, -1), lp.wo.weight)
             x = x + self._mlp(lp, x)
         return self._logits(x)
 
     def _cached_layers(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
                        rows: torch.Tensor, offsets: torch.Tensor | None,
-                       attn) -> torch.Tensor:
+                       attn, dot) -> torch.Tensor:
         """The layer loop of ``prefill`` and ``verify_step``: tokens [B, S]
         written into the cache at ``offsets`` (0 when None) through ``rows``
         and attended, each row to its first ``lengths`` tokens; returns the
@@ -209,7 +229,7 @@ class Llama(nn.Module):
         rope_pos = positions.clamp(max=self.cfg.max_seq_len - 1)
         x = self.embed[tokens]
         for layer, lp in enumerate(self.blocks):
-            q, k, v = self._qkv(lp, x)
+            q, k, v = self._qkv(lp, x, dot)
             q, k = self._rope(q, rope_pos), self._rope(k, rope_pos)
             cache.write(layer, rows, k, v, offsets)
             if offsets is None:
@@ -218,8 +238,8 @@ class Llama(nn.Module):
                 k_view, v_view = cache.read(layer, rows, self.cfg.dtype)
                 a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
                          causal=True, q_offset=off, kv_lengths=off + lengths)
-            x = x + lp.wo(a.reshape(b, s, -1))
-            x = x + self._mlp(lp, x)
+            x = x + dot(a.reshape(b, s, -1), lp.wo.weight)
+            x = x + self._mlp(lp, x, dot)
         return x
 
     @torch.no_grad()
@@ -239,9 +259,10 @@ class Llama(nn.Module):
         644-685). Returns (last-token logits [B, V] f32, cache), the cache
         written in place."""
         attn = mha_attention if kernels else mha_attention_plain
-        x = self._cached_layers(tokens, lengths, cache, rows, offsets, attn)
+        dot = qdot if kernels else qdot_plain
+        x = self._cached_layers(tokens, lengths, cache, rows, offsets, attn, dot)
         last = x[torch.arange(tokens.shape[0], device=x.device), lengths.long() - 1]
-        return self._logits(last, adapters), cache
+        return self._logits(last, adapters, dot), cache
 
     @torch.no_grad()
     def verify_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
@@ -260,11 +281,12 @@ class Llama(nn.Module):
         new input position. A lane whose writes drop (an all-OOB table row,
         positions past the slot) gives logits the caller ignores."""
         attn = mha_attention if kernels else mha_attention_plain
+        dot = qdot if kernels else qdot_plain
         n, t = tokens.shape
         rows = torch.arange(n, device=tokens.device) if table is None else table
         lengths = torch.full((n,), t, dtype=torch.long, device=tokens.device)
-        x = self._cached_layers(tokens, lengths, cache, rows, positions, attn)
-        return self._logits(x, adapters), cache
+        x = self._cached_layers(tokens, lengths, cache, rows, positions, attn, dot)
+        return self._logits(x, adapters, dot), cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: AnyKVCache,
@@ -280,6 +302,7 @@ class Llama(nn.Module):
         ``max_seq_len``. Positions, lengths and the table go to the kernels
         as int32, converted here once per step."""
         attn = DECODE_ATTENTION[type(cache)][0 if kernels else 1]
+        dot = qdot if kernels else qdot_plain
         n = tokens.shape[0]
         pos1 = positions.long().clamp(max=self.cfg.max_seq_len - 1)[:, None]
         positions = positions.to(torch.int32).contiguous()
@@ -288,13 +311,13 @@ class Llama(nn.Module):
             table = table.to(torch.int32).contiguous()
         x = self.embed[tokens]
         for layer, lp in enumerate(self.blocks):
-            q, k, v = self._qkv(lp, x[:, None])
+            q, k, v = self._qkv(lp, x[:, None], dot)
             q, k, v = self._rope(q, pos1)[:, 0], self._rope(k, pos1)[:, 0], v[:, 0]
             cache.append(layer, table, positions, k, v, kernels=kernels)
             a = attn(q, *cache.planes(layer, table), lengths)
-            x = x + lp.wo(a.reshape(n, -1))
-            x = x + self._mlp(lp, x)
-        return self._logits(x, adapters), cache
+            x = x + dot(a.reshape(n, -1), lp.wo.weight)
+            x = x + self._mlp(lp, x, dot)
+        return self._logits(x, adapters, dot), cache
 
     # the JAX package's names for the paged pool's entry points (the same bodies)
     prefill_paged = prefill
@@ -372,31 +395,46 @@ def tensor_from_numpy(a, device: str | torch.device = "cpu") -> torch.Tensor:
 BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+def _linear_state(prefix: str, w, layer: int | None = None) -> dict[str, torch.Tensor]:
+    """A JAX ``x @ W`` weight as the port's linear layer's tensors: W [in,
+    out] transposed into ``nn.Linear``'s [out, in]; a quantized leaf (a
+    ``QTensor`` with ``q`` [in, out] int8 and ``s`` [1, out] f32) as a
+    ``QLinear``'s ``q`` [out, in] and ``s`` [out], bit for bit. ``layer``
+    picks one layer of a stacked ``[L, ...]`` leaf."""
+    pick = (lambda a: a) if layer is None else (lambda a: a[layer])
+    if hasattr(w, "q") and hasattr(w, "s"):
+        return {f"{prefix}.q": tensor_from_numpy(pick(w.q)).T.contiguous(),
+                f"{prefix}.s": tensor_from_numpy(pick(w.s))[0]}
+    return {f"{prefix}.weight": tensor_from_numpy(pick(w)).T}
+
+
 def jax_state(np_params: dict) -> dict[str, torch.Tensor]:
     """A JAX parameter tree (llama.py:123) given as numpy arrays, as CPU
-    tensors under the names of ``Llama.named_parameters()``, in the tree's
-    dtypes: stacked ``[L, ...]`` blocks split into layers, and each
-    ``x @ W`` weight [in, out] transposed into ``nn.Linear``'s [out, in]."""
+    tensors under the names of ``Llama.state_dict()``, in the tree's
+    dtypes: stacked ``[L, ...]`` blocks split into layers, and each linear
+    weight in the port's layout (``_linear_state``), quantized or not."""
     state = {"embed": tensor_from_numpy(np_params["embed"]),
              "final_norm": tensor_from_numpy(np_params["final_norm"])}
     if "lm_head" in np_params:
-        state["lm_head.weight"] = tensor_from_numpy(np_params["lm_head"]).T
+        state.update(_linear_state("lm_head", np_params["lm_head"]))
     blocks = np_params["blocks"]
     for layer in range(len(blocks["attn_norm"])):
         for name in ("attn_norm", "mlp_norm"):
             state[f"blocks.{layer}.{name}"] = tensor_from_numpy(blocks[name][layer])
         for name in BLOCK_WEIGHTS:
-            state[f"blocks.{layer}.{name}.weight"] = tensor_from_numpy(blocks[name][layer]).T
+            state.update(_linear_state(f"blocks.{layer}.{name}", blocks[name], layer))
     return state
 
 
 def params_from_jax(cfg: LlamaConfig, np_params: dict,
                     device: str | torch.device | None = None) -> Llama:
     """A ``Llama`` holding the weights of a JAX parameter tree (llama.py:123)
-    given as numpy arrays (``jax_state``), cast to the config's dtype."""
-    model = Llama(cfg, device)
+    given as numpy arrays (``jax_state``): floating weights cast to the
+    config's dtype; a tree quantized by ``quantize_tree`` gives a model of
+    ``QLinear``s holding its int8 weights and f32 scales as they are."""
     state = jax_state(np_params)
+    model = Llama(cfg, device, int8="blocks.0.wq.q" in state)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(state[name].to(cfg.dtype))
+        for name, t in model.state_dict().items():
+            t.copy_(state[name].to(t.dtype))
     return model

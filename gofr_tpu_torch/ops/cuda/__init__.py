@@ -153,6 +153,7 @@ def _wrappers() -> dict:
         paged_decode,
         paged_decode_q,
         paged_decode_q4,
+        w8a16,
     )
 
     return {"paged_decode": paged_decode.paged_decode,
@@ -164,7 +165,8 @@ def _wrappers() -> dict:
             "kv_append_slot": kv_append.kv_append_slot,
             "kv_append_q": kv_append.kv_append_q,
             "kv_append_q4": kv_append.kv_append_q4,
-            "kv_append_slot_q": kv_append.kv_append_slot_q}
+            "kv_append_slot_q": kv_append.kv_append_slot_q,
+            "w8a16": w8a16.w8a16}
 
 
 def launch_counts() -> dict[str, int]:

@@ -18,7 +18,8 @@ D and E (the page pool's decodes) are one template in
 ``paged_decode_q.cu``, so a fault in its shared body lands in all three;
 the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
 D and E; the five appends (B, G, B-q, B-q4, G-q) are one template in
-``kv_append.cu``, held bit for bit.
+``kv_append.cu``, held bit for bit. The W8A16 linear's two tilings and
+its split's second pass are one source, ``w8a16.cu``.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -126,6 +127,30 @@ MUTANTS = [
      "kLoShift = 0, kHiShift = 4", "kLoShift = 4, kHiShift = 0", True),
     ("paged_decode_q4: bias of 7 instead of 8", "paged_decode_q.cu",
      "kBias = 8", "kBias = 7", True),
+    # the W8A16 linear: the stream (M <= 64, split over K or not), the
+    # split's second pass and the tiles (M > 64) are one source
+    ("w8a16: the next channel's scale after a split", "w8a16.cu",
+     "scaled(acc, s[i % n])", "scaled(acc, s[(i + 1) % n])", True),
+    ("w8a16: the last chunk of K dropped (stream)", "w8a16.cu",
+     "const int c_end = min(chunks, c_begin + per_split);",
+     "const int c_end = min(chunks - 1, c_begin + per_split);", True),
+    ("w8a16: the last k tile dropped (tiles)", "w8a16.cu",
+     "const int tiles = (k + kBK - 1) / kBK;", "const int tiles = (k - 1) / kBK;", True),
+    ("w8a16: the first split's partial summed twice", "w8a16.cu",
+     "float acc = 0.f;", "float acc = partial[i];", True),
+    # y = bf16(acc * bf16(s)): one rounding instead of two, an ulp off where
+    # bf16(acc) rounds away
+    ("w8a16: the sum's rounding to bf16 skipped", "w8a16.cu",
+     "return __float2bfloat16(__bfloat162float(__float2bfloat16(acc)) *",
+     "return __float2bfloat16(acc *", True),
+    ("w8a16: every fourth weight one code off (the int8 bias)", "w8a16.cu",
+     "__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f",
+     "__byte_perm(u, 0x4B000000u, 0x7650)) - 8388735.f", True),
+    ("w8a16: the X pairs of a step swapped (stream)", "w8a16.cu",
+     "mma_bf16(acc[mt], frag[t], xw[2 * t], xw[2 * t + 1]);",
+     "mma_bf16(acc[mt], frag[t], xw[2 * t + 1], xw[2 * t]);", True),
+    ("w8a16: a B fragment's upper k pair read from the lower (tiles)", "w8a16.cu",
+     "*reinterpret_cast<const uint16_t*>(qr + 8)", "*reinterpret_cast<const uint16_t*>(qr)", True),
     # p kept in f32 instead of rounded to bf16 before P.V (A packs it for
     # the tensor cores by truncation, F multiplies it in f32): a relative
     # change of at most 2^-8 on each probability, averaged over hundreds of

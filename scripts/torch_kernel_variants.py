@@ -13,8 +13,9 @@ A B ... then ... B A, on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
 4 x 1024 causal, the slot decode (F), the paged decode (A) and the
 quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
-one, and the five appends (B, G, B-q, B-q4, G-q) at those slots' next
-positions. Times are device times
+one, the five appends (B, G, B-q, B-q4, G-q) at those slots' next
+positions, and the W8A16 linear at Llama-3-8B's wq/wo, gate/up and head
+for 8 rows (decode) and 2048 (prefill). Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
 kernel's.
 
@@ -269,6 +270,16 @@ VARIANTS = [
          "      static_cast<const int*>(positions), hkv, smax, d);\n"
          "  return static_cast<int>(cudaGetLastError());\n"),
     ]),
+    # W8A16's tiles as first written: tiles of 32 k, warps of 64 rows x 32
+    # channels (each Q fragment converted by both row halves of the block)
+    ("w8a16 tiles: the first tiling (32 k a tile, warps of 64 x 32)", [
+        ("w8a16.cu", "kBK = 64, kStages", "kBK = 32, kStages"),
+        ("w8a16.cu", "constexpr int kWM = 128, kWN = 16;", "constexpr int kWM = 64, kWN = 32;"),
+    ]),
+    # W8A16's tiles with the warps of 128 x 16 but tiles of 32 k
+    ("w8a16 tiles: 32 k a tile", [
+        ("w8a16.cu", "kBK = 64, kStages", "kBK = 32, kStages"),
+    ]),
     # all five appends: one launch per plane instead of one for both
     ("kv_append (all five): separate K and V launches", [
         ("kv_append.cu",
@@ -353,6 +364,17 @@ def cases(torch) -> dict:
     out["kv_append_slot_q"] = lambda i: kv_append_slot_q(
         qslot.k[i % layers], qslot.v[i % layers], qslot.ks[i % layers], qslot.vs[i % layers], lengths,
         k_new, v_new)
+    # the W8A16 linear at a decode step's wq/wo and head and a prefill's
+    # wq/wo and gate/up (chip_smoke's phase-3 shapes; one weight each)
+    from gofr_tpu_torch.ops.cuda.w8a16 import w8a16
+    from gofr_tpu_torch.ops.quant import quantize
+
+    for label, (n_out, k_in) in (("wq_wo", (4096, 4096)), ("gate_up", (14336, 4096)),
+                                 ("head", (128256, 4096))):
+        w = quantize((torch.randn(n_out, k_in, device=dev, generator=gen) * k_in ** -0.5).to(bf))
+        for m in ((8, 2048) if label != "head" else (8,)):
+            x = torch.randn(m, k_in, device=dev, generator=gen).to(bf)
+            out[f"w8a16_{label}_m{m}"] = lambda i, x=x, w=w: w8a16(x, w.q, w.s)
     return out
 
 

@@ -22,6 +22,13 @@ slots, 8 KV heads of 128, pages of 128) and timed three ways:
 - ``device_ms``: the device time the calls leave in a ``torch.profiler``
   trace, per call.
 
+Where the checkout has weight-only int8, ``w8a16`` is ``ops.quant.qdot``
+on an int8 QTensor at a decode step's wq (8 rows, 4096 x 4096, split over
+K) and ``w8a16_head`` at its head (128256 x 4096), the path every linear
+of the int8 model takes; ``linear_bf16`` and ``linear_bf16_head`` are
+``F.linear`` on the bf16 weights of the same shapes (cuBLAS), the path of
+the bf16 model.
+
 ``int64`` rows repeat B, G, A and F with int64 positions, lengths and
 table, as the engine hands them to ``Llama.decode_step``: a launcher that
 casts them per call shows the cast's cost, one that refuses them shows
@@ -126,6 +133,15 @@ def child(tree: str, iters: int) -> dict:
             torch.zeros(layers, N, HKV, SMAX, dtype=bf, device=dev),) * 2
         calls["kv_append_slot_q"] = lambda i, p=planes: kv_append.kv_append_slot_q(
             *(t[i % layers] for t in p), lengths, k_new, v_new)
+    from gofr_tpu_torch.ops import quant
+
+    x8 = torch.randn(8, 4096, device=dev, generator=g).to(bf)
+    for label, n_out in (("", 4096), ("_head", 128256)):
+        w = (torch.randn(n_out, 4096, device=dev, generator=g) * 4096 ** -0.5).to(bf)
+        calls[f"linear_bf16{label}"] = lambda i, w=w: torch.nn.functional.linear(x8, w)
+        if hasattr(quant, "qdot"):
+            wq = quant.quantize(w)
+            calls[f"w8a16{label}"] = lambda i, wq=wq: quant.qdot(x8, wq)
     out = {"tree": tree, "iters": iters}
     for name, fn in calls.items():
         out[name] = _timed(torch, fn, iters)

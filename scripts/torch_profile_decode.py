@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile_decode.py [--layers 32] [--steps 8] [--kv-quantize int8]
                                             [--kv-layout slot] [--spec-tokens 4] [--adapters 3]
+                                            [--quantize int8]
 
 Builds Llama-3-8B (random bf16 weights from seed 0, full width) on the
 card, prefills 8 prompts of 100..2000 tokens into the paged pool, or with
@@ -25,6 +26,12 @@ each and per call: host wall, device busy and idle share, C's device ms
 the verify gathers every layer (``cache.read``, labelled ``dense_view`` in
 the trace), and of the verify's attention calls with the copies their
 launcher makes of those views (``attention``).
+
+With ``--quantize int8`` the model serves weight-only int8
+(``ops.quant.quantize_tree``), its 225 products a step through the W8A16
+kernel. Every line gives the device ms a step of the products: the W8A16
+kernels' (``w8a16_ms``) and cuBLAS's on bf16 weights (``cublas_ms``, the
+``nvjet_*`` / gemm kernels), beside the bound of the int8 weights' bytes.
 
 With ``--adapters N`` every lane serves one of N random LoRA adapters of
 rank 16 (``adapters.random_adapter`` from seeds 40.., lane i on adapter
@@ -53,7 +60,9 @@ from gofr_tpu_torch.gpu.device import device_info  # noqa: E402
 from gofr_tpu_torch.gpu.engine import KV_LAYOUTS, KV_QUANTIZE, make_pool  # noqa: E402
 from gofr_tpu_torch.gpu.programs import decode_chunk  # noqa: E402
 from gofr_tpu_torch.models.llama import LlamaConfig, init  # noqa: E402
+from gofr_tpu_torch.ops.quant import quantize_tree  # noqa: E402
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 # regions of the spec round labelled in the trace
 LABELS = ("dense_view", "attention", "lora_delta")
@@ -87,6 +96,7 @@ def profile(fn, iters: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
     kernels, regions, hosts = {}, dict.fromkeys(LABELS, 0.0), dict.fromkeys(LABELS, 0.0)
+    products = {"w8a16_ms": 0.0, "cublas_ms": 0.0}
     for evt in prof.key_averages():
         if evt.key in LABELS:
             # the host-side range holds the device time of the kernels it
@@ -101,6 +111,10 @@ def profile(fn, iters: int = 3) -> dict:
         if dt > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             name = evt.key.removeprefix("void ")[:60]
             kernels[name] = kernels.get(name, 0.0) + dt / 1e3  # us -> ms
+            if any(k in evt.key for k in ("stream_kernel", "finish_kernel", "tile_kernel")):
+                products["w8a16_ms"] += dt / 1e3
+            elif any(k in evt.key.lower() for k in ("nvjet", "gemm", "cutlass")):
+                products["cublas_ms"] += dt / 1e3
     busy = sum(kernels.values())
     return {"wall_ms": wall * 1e3, "wall_ms_profiled": wall_profiled * 1e3,
             "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (wall * 1e3),
@@ -109,7 +123,22 @@ def profile(fn, iters: int = 3) -> dict:
             **{f"{k}_ms": v for k, v in regions.items()},
             "lora_delta_host_ms_profiled": hosts["lora_delta"],
             "lora_delta_share_of_busy": regions["lora_delta"] / busy if busy else 0.0,
+            **products,
             "kernel_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])}
+
+
+def linear_bytes(model, weight_bytes: int) -> int:
+    """The bytes a step reads of the linear weights (block linears and the
+    head) stored with ``weight_bytes`` per weight, plus f32 scales per
+    output channel when that is 1 (int8)."""
+    cfg = model.cfg
+    e, m, hq, hkv = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.num_kv_heads
+    d = cfg.head_size
+    shapes = [(hq * d, e), (hkv * d, e), (hkv * d, e), (e, hq * d), (m, e), (m, e), (e, m)]
+    per_layer = sum(n * (k * weight_bytes + (4 if weight_bytes == 1 else 0)) for n, k in shapes)
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * (e * weight_bytes
+                                                           + (4 if weight_bytes == 1 else 0))
+    return cfg.num_layers * per_layer + head
 
 
 def adapter_args(args, model, n: int) -> tuple | None:
@@ -181,6 +210,7 @@ def main() -> None:
     ap.add_argument("--kv-layout", choices=KV_LAYOUTS, default="paged")
     ap.add_argument("--spec-tokens", type=int, default=0)
     ap.add_argument("--adapters", type=int, default=0)
+    ap.add_argument("--quantize", choices=("", "int8"), default="")
     args = ap.parse_args()
     if args.kv_layout == "slot" and args.kv_quantize == "int4":
         ap.error("the slot layout has no int4 format")
@@ -188,6 +218,9 @@ def main() -> None:
     cfg = LlamaConfig.llama3_8b(num_layers=args.layers)
     dev = torch.device("cuda")
     model = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if args.quantize:
+        model = quantize_tree(model)
+        torch.cuda.empty_cache()
     n, page, maxp = 8, 128, 17
     rng = torch.Generator().manual_seed(0)
     lengths = torch.randint(100, 2001, (n,), generator=rng)
@@ -216,13 +249,18 @@ def main() -> None:
     print(json.dumps({
         "device": info["nvidia_smi"], "layers": cfg.num_layers, "slots": n,
         "kv_layout": args.kv_layout, "kv_pool": args.kv_quantize or "bf16",
-        "lengths": lengths.tolist(), "steps": steps,
+        "weights": args.quantize or "bf16", "lengths": lengths.tolist(), "steps": steps,
         "wall_ms_per_step": r["wall_ms"] / steps,
         "wall_ms_per_step_profiled": r["wall_ms_profiled"] / steps,
         "device_busy_ms_per_step": r["device_busy_ms"] / steps,
         "device_idle_share": r["device_idle_share"],
         # a device-to-host copy stalls the host on the card: none is expected
         "memcpy_dtoh_ms_per_step": r["memcpy_dtoh_ms"] / steps,
+        "w8a16_ms_per_step": r["w8a16_ms"] / steps,
+        "cublas_ms_per_step": r["cublas_ms"] / steps,
+        # every linear weight read once a step, int8 plus the f32 scales
+        "int8_weight_bytes_bound_ms_per_step": linear_bytes(model, 1) / HBM_BYTES_PER_S * 1e3,
+        "bf16_weight_bytes_bound_ms_per_step": linear_bytes(model, 2) / HBM_BYTES_PER_S * 1e3,
         "adapters": args.adapters,
         "lora_delta_ms_per_step": r["lora_delta_ms"] / steps,
         "lora_delta_host_ms_per_step_profiled": r["lora_delta_host_ms_profiled"] / steps,

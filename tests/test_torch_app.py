@@ -282,13 +282,33 @@ ENVS = {
     "timeout": {"ENGINE_TIMEOUT": "5"},
     "pipeline_3_host_tier": {"ENGINE_PIPELINE": "3", "ENGINE_PREFIX_HOST_MB": "16"},
     "pipeline_alias_1": {"ENGINE_DECODE_PIPELINE": "1"},
+    "quantize_int8": {"ENGINE_QUANTIZE": "int8"},
+    "quantize_int8_slot_spec": {"ENGINE_QUANTIZE": "int8", "ENGINE_KV_LAYOUT": "slot",
+                                "ENGINE_SPEC_TOKENS": "2"},
+    # an explicit keyword wins over the config even when empty, as the JAX
+    # build_engine reads it (engine.py:4084, 4270, 4335)
+    "quantize_kw_empty_wins": {"ENGINE_QUANTIZE": "int8"},
+    "role_kw_empty_wins": {"ENGINE_ROLE": "prefill"},
+    "hotswap_kw_empty_wins": {"ADAPTER_HOTSWAP_DIR": "/nowhere"},
 }
+# the keywords each set passes to both build_engines
+KWARGS = {"quantize_kw_empty_wins": {"quantize": ""}, "role_kw_empty_wins": {"role": ""},
+          "hotswap_kw_empty_wins": {"adapter_hotswap_dir": ""}}
+
+
+def _int8_weights(eng) -> bool:
+    """Whether the engine serves weight-only int8: the JAX engine's tree
+    holds ``QTensor``s, the port's model ``QLinear``s."""
+    if hasattr(eng, "params"):
+        return type(eng.params["blocks"]["wq"]).__name__ == "QTensor"
+    return type(eng.model.blocks[0].wq).__name__ == "QLinear"
 
 
 def _knobs(eng) -> dict:
     paged = eng.kv_layout == "paged"
     pool = eng.adapter_stats().get("pool")
-    return {"slots": eng.num_slots, "max_len": eng.max_len, "layout": eng.kv_layout,
+    return {"int8_weights": _int8_weights(eng), "slots": eng.num_slots, "max_len": eng.max_len,
+            "layout": eng.kv_layout,
             "kv_quantize": eng.kv_quantize, "page_size": eng.page_size if paged else None,
             "total_pages": eng.total_pages if paged else None, "spec_tokens": eng.spec_tokens,
             "prefix_cache": eng._prefix is not None if paged else None,
@@ -297,14 +317,14 @@ def _knobs(eng) -> dict:
             "prefix_host_budget": eng._prefix.host_budget if paged and eng._prefix else None}
 
 
-def _jax_engine(env: dict):
+def _jax_engine(env: dict, **kw):
     import jax.numpy as jnp
     from gofr_tpu.container import new_mock_container
     from gofr_tpu.models import LlamaConfig, ModelSpec
     from gofr_tpu.tpu.engine import build_engine
 
     spec = ModelSpec("llama", LlamaConfig.tiny(vocab_size=300), dtype=jnp.float32)
-    return build_engine(spec, new_mock_container(env), seed=3)
+    return build_engine(spec, new_mock_container(env), seed=3, **kw)
 
 
 def _port_engine(env: dict, params, **kw):
@@ -320,19 +340,21 @@ def _port_engine(env: dict, params, **kw):
 
 @pytest.mark.parametrize("env", list(ENVS))
 def test_config_builds_the_jax_engine_s_knobs_and_tokens(env):
-    """Each env set: the same slots, max_len, layout, KV format, page size,
-    pages, prefix cache, spec tokens, adapter pool slots and rank, default
-    timeout, pipeline depth and host-tier budget as the JAX ``build_engine``, and the same greedy
-    tokens for one prompt (the port on the JAX engine's weights)."""
+    """Each env set (with its ``KWARGS``): the same weight format (int8 or
+    not), slots, max_len, layout, KV format, page size, pages, prefix
+    cache, spec tokens, adapter pool slots and rank, default timeout,
+    pipeline depth and host-tier budget as the JAX ``build_engine``, and
+    the same greedy tokens for one prompt (the port on the JAX engine's
+    weights, quantized or not)."""
     prompt = [5, 3, 9, 17, 2]
-    jeng = _jax_engine(ENVS[env])
+    jeng = _jax_engine(ENVS[env], **KWARGS.get(env, {}))
     try:
         want_knobs = _knobs(jeng)
         want = jeng.generate(prompt, max_new_tokens=N_NEW, timeout=300)["tokens"]
         params = jax.tree.map(np.asarray, jeng.params)
     finally:
         jeng.stop()
-    eng, _ = _port_engine(ENVS[env], params)
+    eng, _ = _port_engine(ENVS[env], params, **KWARGS.get(env, {}))
     try:
         assert _knobs(eng) == want_knobs
         assert eng.generate(prompt, max_new_tokens=N_NEW, timeout=300)["tokens"] == want
@@ -340,9 +362,15 @@ def test_config_builds_the_jax_engine_s_knobs_and_tokens(env):
         eng.stop()
 
 
+def test_an_unknown_quantize_mode_raises_in_both():
+    with pytest.raises(ValueError, match="only 'int8' is supported"):
+        _jax_engine({"ENGINE_QUANTIZE": "fp4"})
+    with pytest.raises(ValueError, match="only 'int8' is supported"):
+        _port_engine({"ENGINE_QUANTIZE": "fp4"}, None)
+
+
 @pytest.mark.quick
 @pytest.mark.parametrize("env,item", [
-    ({"ENGINE_QUANTIZE": "int8"}, "Queue A 3"),
     ({"ENGINE_ROLE": "prefill"}, "Queue A 6"),
     ({"ADAPTER_HOTSWAP_DIR": "/nowhere"}, "Queue A 9"),
 ])

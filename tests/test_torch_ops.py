@@ -24,7 +24,8 @@ torch = pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 2e-5
 _KERNELS = ("paged_decode", "kv_append", "flash_attention", "paged_decode_q", "paged_decode_q4",
-            "decode_attention", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q")
+            "decode_attention", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q",
+            "w8a16")
 
 
 def _t(a):

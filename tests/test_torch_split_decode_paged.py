@@ -123,6 +123,7 @@ def test_launchers_declare_the_c_entry_points_arguments():
         kv_append,
         paged_decode,
         paged_decode_q,
+        w8a16,
     )
 
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
@@ -141,6 +142,7 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_kv_append_q": kv_append._Q_ARGTYPES,
         "gofr_kv_append_q4": kv_append._Q_ARGTYPES,
         "gofr_kv_append_slot_q": kv_append._SLOT_Q_ARGTYPES,
+        "gofr_w8a16": w8a16._ARGTYPES,
     }
 
 

@@ -153,8 +153,6 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 SEED = 0
 # Kernel vs plain: each kernel's limits (MAX_ABS on any element, RMS_REL on
 # the RMS of the difference over the RMS of the output) are stated beside
@@ -229,7 +227,12 @@ def smi_line() -> str:
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    """The least time the card could take: bytes over the H100 SXM's HBM
+    rate or operations over its dense bf16 peak, whichever is longer (the
+    data-sheet pair the perf plane's ``device_peaks`` prices it by)."""
+    from gofr_tpu_torch.metrics.perf import H100_SXM_BF16_FLOPS, H100_SXM_HBM_BYTES_PER_S
+
+    t_bytes, t_ops = nbytes / H100_SXM_HBM_BYTES_PER_S, flops / H100_SXM_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1525,21 +1528,26 @@ def submit_wave(eng, prompts: list) -> list:
     return wave
 
 
-def profiled_wave(torch, eng, prompts: list) -> dict:
+def profiled_wave(torch, eng, prompts: list, marks: list | None = None) -> dict:
     """Two waves after the timed ones, the second under torch.profiler:
     the device's busy ms (kernels and copies) over the second wave's
-    window, its submit to its first tokens, and the idle share."""
+    window, its submit to its first tokens, and the idle share. ``marks``
+    gets the window's start and end on the monotonic clock."""
     from torch.profiler import ProfilerActivity, profile
 
     per = PIPELINE["requests"] // PIPELINE["waves"]
     first = submit_wave(eng, prompts[:per])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        if marks is not None:
+            marks.append(time.monotonic())
         second = submit_wave(eng, prompts[per:2 * per])
         # the trace closes once the card has run what was launched in the
         # window, so the window ends there too
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+        if marks is not None:
+            marks.append(time.monotonic())
     for r in first + second:
         r.result(timeout=900)
     busy_ms = sum(e.device_time_total for e in prof.key_averages()
@@ -1777,22 +1785,66 @@ HTTP_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "ENGINE_SLOTS": "8",
 HTTP_STREAMS = 2
 
 
-def http_call(port: int, method: str, path: str, body: dict | None = None
-              ) -> tuple[int, dict, float, float]:
+def http_call(port: int, method: str, path: str, body: dict | None = None,
+              headers: dict | None = None) -> tuple[int, dict, float, float, dict]:
     """One request on its own connection: (status, JSON body, client
-    seconds, the monotonic time it started)."""
+    seconds, the monotonic time it started, the response's headers)."""
     import http.client
 
     t0 = time.monotonic()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
     try:
         conn.request(method, path, body=None if body is None else json.dumps(body),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         data = json.loads(resp.read())
-        return resp.status, data, time.monotonic() - t0, t0
+        return resp.status, data, time.monotonic() - t0, t0, dict(resp.getheaders())
     finally:
         conn.close()
+
+
+class AppThread:
+    """An App's servers on an event loop of their own thread, as
+    ``app.run()`` serves them; leaving the block stops the App (its servers,
+    then the container: the engines and the tracer) and joins the thread."""
+
+    def __init__(self, app, name: str):
+        import asyncio
+        import threading
+
+        self.app, self.failed, self.ready = app, [], threading.Event()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, name=name, daemon=True)
+
+    def _run(self) -> None:
+        import asyncio
+
+        async def main() -> None:
+            started = asyncio.Event()
+            task = asyncio.ensure_future(self.app.arun(ready=started))
+            await started.wait()
+            self.ready.set()
+            await task
+
+        try:
+            self.loop.run_until_complete(main())
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            self.failed.append(e)
+            self.ready.set()
+        finally:
+            self.loop.close()
+
+    def __enter__(self) -> "AppThread":
+        self.thread.start()
+        require(self.ready.wait(120) and not self.failed,
+                f"{self.thread.name}: the App did not start: {self.failed}")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.loop.call_soon_threadsafe(self.app.stop)
+        self.thread.join(120)
+        require(not self.thread.is_alive() and not self.failed,
+                f"{self.thread.name}: the App did not stop cleanly: {self.failed}")
 
 
 def http_stream(port: int, body: dict) -> dict:
@@ -1842,7 +1894,6 @@ def http_generate(torch, cuda, model, base: dict, base_outs: list) -> dict:
     times (accepted, read, handler entered, body bound) and as a share of
     the TTFT the client sees, the SSE first event against the engine's
     ttft, and decode tok/s beside ``bf16``'s."""
-    import asyncio
     import threading
 
     from gofr_tpu_torch.app import App
@@ -1884,29 +1935,8 @@ def http_generate(torch, cuda, model, base: dict, base_outs: list) -> dict:
 
     app.post("/generate", generate)
     app.post("/generate/stream", generate_stream)
-    loop, ready, failed = asyncio.new_event_loop(), threading.Event(), []
-
-    def run() -> None:
-        async def main() -> None:
-            started = asyncio.Event()
-            task = asyncio.ensure_future(app.arun(ready=started))
-            await started.wait()
-            ready.set()
-            await task
-
-        try:
-            loop.run_until_complete(main())
-        except BaseException as e:  # noqa: BLE001 - reported by the caller
-            failed.append(e)
-            ready.set()
-        finally:
-            loop.close()
-
-    server = threading.Thread(target=run, name="http-generate", daemon=True)
-    server.start()
-    require(ready.wait(120) and not failed, f"http_generate: the App did not start: {failed}")
-    port = app.http_port
-    try:
+    with AppThread(app, "http-generate"):
+        port = app.http_port
         status, alive, *_ = http_call(port, "GET", "/.well-known/alive")
         require(status == 200 and alive == {"data": {"status": "UP"}}, f"alive: {status} {alive}")
         status, health, *_ = http_call(port, "GET", "/.well-known/health")
@@ -1962,12 +1992,7 @@ def http_generate(torch, cuda, model, base: dict, base_outs: list) -> dict:
                     if line.startswith("app_http_response_count{")
                     and 'method="POST"' in line and 'path="/generate"' in line)
         require(posts >= 10, f"app_http_response counts {posts} POST /generate")
-    finally:
-        loop.call_soon_threadsafe(app.stop)
-        server.join(120)
-    require(not server.is_alive() and not engine._thread.is_alive(),
-            "http_generate: the server or the engine's thread outlived stop()")
-    require(not failed, f"http_generate: the App failed: {failed}")
+    require(not engine._thread.is_alive(), "http_generate: the engine's thread outlived stop()")
     for name, launches in counts.items():
         if name in ON_PATH["paged", ""]:
             require(launches > 0, f"kernel {name} was not launched on the http_generate run")
@@ -2038,6 +2063,294 @@ def http_generate(torch, cuda, model, base: dict, base_outs: list) -> dict:
         "metrics_post_generate": posts, "launches": counts, "nvidia_smi": smi_line(),
         "note": "smoke run, not a benchmark",
     }
+
+
+# Phase 4's ``http_planes``: ``http_generate``'s App with the request planes
+# on (``PLANES_CONFIG``: spans in memory, QoS with a tenant limit, the SLO
+# engine and the debug routes) against ``HTTP_CONFIG`` alone (the planes a
+# container always has: metrics, flight recorder, perf plane, SLO), in turns
+# off, on, on, off. The engine serves the phase's bf16 model
+# (``ModelSpec(weights=model)``, no second draw). Each arm sends
+# ``phase4_prompts`` as batch work and, without waiting, the first 8 of
+# ``pipeline_prompts`` as interactive work, 64 new tokens each.
+PLANES_CONFIG = {**HTTP_CONFIG, "APP_ENV": "DEBUG", "TRACE_EXPORTER": "memory",
+                 "SLO_ENABLED": "true", "QOS_ENABLED": "true", "QOS_TENANT_RPS": "1"}
+PLANES_ARMS = ("off", "on", "on", "off")
+PLANES_NEW = 64
+# the tenant whose second request in a second is past QOS_TENANT_RPS
+PLANES_TENANT = "burst"
+SPAN_ORDER = ["engine.queue_wait", "engine.prefill", "engine.decode", "engine.finish"]
+# the perf plane's MFU / MBU must read at most this (1 + a rounding margin)
+PLANES_MAX_RATIO = 1.05
+
+
+def scrape(port: int) -> dict[str, float]:
+    """The metrics server's exposition: {series with its labels: value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return {line.rpartition(" ")[0]: float(line.rpartition(" ")[2])
+            for line in text.splitlines() if line and not line.startswith("#")}
+
+
+def series_sum(metrics: dict, name: str, **labels: str) -> float:
+    """The sum of ``name``'s series that carry ``labels``."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(v for k, v in metrics.items()
+               if (k == name or k.startswith(name + "{")) and all(w in k for w in want))
+
+
+def planes_arm(torch, cuda, model, arm: str, base_outs: list) -> dict:
+    """One arm of ``http_planes``; the holds are ``http_planes``'."""
+    import threading
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models import ModelSpec
+
+    on = arm == "on"
+    vocab = model.cfg.vocab_size
+    batch, others = phase4_prompts(torch, vocab), pipeline_prompts(torch, vocab)
+    interactive, profiled = others[:8], others[PIPELINE["requests"]:]
+    app = App(config=DictConfig(PLANES_CONFIG if on else HTTP_CONFIG))
+    engine = app.serve_model("lm", ModelSpec("llama", model.cfg, weights=model,
+                                             dtype=model.cfg.dtype), seed=SEED, eos_token_id=-1)
+    require(engine.perf is not None and engine.flight is not None,
+            f"http_planes {arm}: the engine has no perf plane or flight recorder")
+    submitted, submit = [], engine.submit
+
+    def record(*a, **kw):
+        submitted.append(submit(*a, **kw))
+        return submitted[-1]
+
+    engine.submit = record
+
+    async def generate(ctx):
+        body = ctx.bind(dict)
+        return await ctx.agenerate("lm", body["prompt"], max_new_tokens=int(body["max_new_tokens"]),
+                                   timeout=body.get("timeout", 900))
+
+    app.post("/generate", generate)
+    out: dict = {"arm": arm}
+    with AppThread(app, f"http-planes-{arm}"):
+        port = app.http_port
+        status, warm, *_ = http_call(port, "POST", "/generate",
+                                     {"prompt": list(range(1, 65)), "max_new_tokens": 2})
+        require(status == 201, f"http_planes {arm} warm-up: {status} {warm}")
+        wait_idle(engine)
+        if on:
+            burst = [http_call(port, "GET", "/no/such/route", headers={"X-Tenant-ID": PLANES_TENANT})
+                     for _ in range(2)]
+            require(burst[0][0] == 404 and burst[1][0] == 429 and burst[1][1] == {
+                "error": {"message": "rate limit exceeded; retry later"}}
+                and burst[1][4].get("Retry-After") == "1",
+                    f"http_planes: a tenant burst past QOS_TENANT_RPS: {[b[:2] for b in burst]} "
+                    f"{burst[1][4]}")
+        torch.cuda.synchronize()
+        before, st0 = scrape(app.metrics_port), engine.pipeline_stats()
+        cuda.reset_launch_counts()
+        del submitted[:]
+        replies: dict = {}
+
+        def one(key, prompt, cls):
+            replies[key] = http_call(port, "POST", "/generate",
+                                     {"prompt": prompt, "max_new_tokens": PLANES_NEW},
+                                     headers={"X-QoS-Class": cls})
+
+        jobs = [(("batch", i), p, "batch") for i, p in enumerate(batch)] + [
+            (("interactive", i), p, "interactive") for i, p in enumerate(interactive)]
+        threads = [threading.Thread(target=one, args=job) for job in jobs]
+        t_submit = time.monotonic()
+        for th in threads:
+            th.start()
+        if on:
+            # while the 16 queue, a request whose deadline is below the
+            # predicted wait: the JAX verdict, 504 before it takes a slot
+            # (qos/__init__.py: admit_engine)
+            deadline, wait = time.monotonic() + 60, 0.0
+            while wait <= 0 and time.monotonic() < deadline:
+                wait = app.container.qos.predicted_wait(engine)
+                time.sleep(0.001)
+            require(wait > 0, "http_planes: the predicted wait stayed 0 while 16 requests queued")
+            probe = http_call(port, "POST", "/generate", {
+                "prompt": interactive[0][:100], "max_new_tokens": PLANES_NEW, "timeout": wait / 4},
+                headers={"X-QoS-Class": "interactive"})
+            require(probe[0] == 504 and probe[1]["error"]["message"].startswith(
+                "predicted queue wait") and "Retry-After" not in probe[4],
+                    f"http_planes: the request past its deadline: {probe[:2]} {probe[4]}")
+            out["deadline_probe"] = {"predicted_wait_s": wait, "timeout_s": wait / 4,
+                                     "status": probe[0], "message": probe[1]["error"]["message"]}
+        for th in threads:
+            th.join(900)
+        st1 = wait_idle(engine)
+        torch.cuda.synchronize()
+        t_done = time.monotonic()
+        counts = cuda.launch_counts()
+        after = scrape(app.metrics_port)
+        reqs = list(submitted)
+        require(len(reqs) == len(jobs), f"http_planes {arm}: {len(reqs)} engine requests for "
+                                        f"{len(jobs)} POSTs (the probe took a slot?)")
+        for key, *_ in jobs:
+            r = replies.get(key)
+            require(r is not None and r[0] == 201 and len(r[1]["data"]["tokens"]) == PLANES_NEW
+                    and r[1]["data"]["finish_reason"] == "length",
+                    f"http_planes {arm} request {key}: {r and (r[0], r[1].get('error'))}")
+        outs = {key: replies[key][1]["data"] for key, *_ in jobs}
+        for name in ("app_tpu_ttft_seconds_count", "app_tpu_queue_wait_seconds_count"):
+            n = series_sum(after, name) - series_sum(before, name)
+            require(n == len(jobs), f"http_planes {arm}: {name} counted {n} samples")
+        tokens = series_sum(after, "app_tpu_tokens_total") - series_sum(before, "app_tpu_tokens_total")
+        want_tokens = sum(len(p) for _, p, _ in jobs) + len(jobs) * PLANES_NEW
+        require(tokens == want_tokens, f"http_planes {arm}: app_tpu_tokens_total rose {tokens}, "
+                                       f"prompts + folded tokens are {want_tokens}")
+        for name, launches in counts.items():
+            if name in ON_PATH["paged", ""]:
+                require(launches > 0, f"kernel {name} was not launched on http_planes {arm}")
+            else:
+                require(launches == 0, f"kernel {name} was launched {launches} times on "
+                                       f"http_planes {arm}")
+        if on:
+            out.update(planes_holds(app, jobs, replies, outs, after))
+        turns = st1["busy_turns"] - st0["busy_turns"]
+        req_of = {tuple(q.inputs): q for q in reqs}
+        first = {key: req_of[tuple(p)].enqueued_at + outs[key]["ttft_s"] for key, p, _ in jobs}
+        done = [first[k] + outs[k]["decode_s"] for k in first]
+        out.update({
+            "wall_s": t_done - t_submit, "requests": len(jobs),
+            "ttft_p50_s": {c: sorted(o["ttft_s"] for k, o in outs.items() if k[0] == c)[4]
+                           for c in ("batch", "interactive")},
+            "decode_tok_s": sum(len(o["tokens"]) - 1 for o in outs.values())
+            / (max(done) - min(first.values())),
+            "host_ms_per_busy_turn": (st1["busy_turn_s"] - st0["busy_turn_s"]) / turns * 1e3,
+            "busy_turns": turns, "launches": counts,
+            **{f"batch_{k}": v for k, v in token_agreement(
+                torch, model, batch, [outs["batch", i] for i in range(len(batch))],
+                base_outs).items()},
+        })
+        gaps = [m["chosen_below_top1"] for m in out["batch_margin_at_first_difference"] if m]
+        require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+                f"http_planes {arm}: at a first difference from the bf16 run the token lies "
+                f"{gaps} below the top logit (limit {SPEC_TIE_GAP})")
+        out.update(plane_vs_profiler(torch, engine, profiled))
+    tracer_worker = app.container.tracer._worker
+    require(not engine._thread.is_alive() and (tracer_worker is None or not tracer_worker.is_alive()),
+            f"http_planes {arm}: the engine's or the tracer's thread outlived stop()")
+    del engine, app
+    torch.cuda.empty_cache()
+    return out
+
+
+def planes_holds(app, jobs, replies, outs, metrics) -> dict:
+    """The on arm's holds on the planes themselves: each request's trace,
+    its flight entry, the steps, the perf plane's ratios, the QoS and SLO
+    series, and health."""
+    spans = list(app.container.tracer._exporter.spans)
+    port = app.http_port
+    for key, *_ in jobs:
+        tid = replies[key][4].get("X-Trace-Id")
+        servers = [s for s in spans if s.trace_id == tid and s.kind == "SERVER"]
+        require(len(servers) == 1, f"http_planes {key}: {len(servers)} server spans for X-Trace-Id "
+                                   f"{tid}")
+        children = sorted((s for s in spans if s.parent_id == servers[0].span_id),
+                          key=lambda s: s.start)
+        require([s.name for s in children] == SPAN_ORDER and all(
+            s.trace_id == tid for s in children),
+                f"http_planes {key}: engine spans {[s.name for s in children]}")
+    _, flight, *_ = http_call(port, "GET", "/debug/requests?n=256")
+    by_trace = {e["trace_id"]: e for e in flight["data"]["requests"]}
+    ttft_gap = []
+    for key, *_ in jobs:
+        entry = by_trace.get(replies[key][4]["X-Trace-Id"])
+        require(entry is not None, f"http_planes {key}: no /debug/requests entry")
+        ttft_gap.append(abs(entry["ttft_s"] - outs[key]["ttft_s"]))
+    require(max(ttft_gap) <= 1e-3, f"http_planes: flight ttft_s vs the result's, gaps {ttft_gap}")
+    _, steps, *_ = http_call(port, "GET", "/debug/engine?n=512")
+    kinds = {s["kind"] for s in steps["data"]["steps"]}
+    require({"prefill", "decode"} <= kinds, f"http_planes: /debug/engine step kinds {kinds}")
+    _, perf, *_ = http_call(port, "GET", "/debug/perf")
+    plane = perf["data"]["engines"]["lm"]
+    mbu = plane["kinds"]["decode"]["mbu"]
+    mfu = plane["kinds"]["prefill"]["mfu"]
+    require(plane["peaks"]["flops"] == 989e12 and plane["peaks"]["hbm_bytes_per_s"] == 3.35e12,
+            f"http_planes: /debug/perf peaks {plane['peaks']} (device {plane['device_kind']})")
+    require(mbu is not None and 0 < mbu <= PLANES_MAX_RATIO and mfu is not None
+            and 0 < mfu <= PLANES_MAX_RATIO, f"http_planes: decode MBU {mbu}, prefill MFU {mfu}")
+    admitted = series_sum(metrics, "app_qos_admitted_total")
+    require(admitted >= len(jobs), f"http_planes: app_qos_admitted_total {admitted}")
+    for cls in ("batch", "interactive"):
+        require(any(k.startswith("app_slo_attainment{") and f'class="{cls}"' in k
+                    for k in metrics), f"http_planes: no app_slo_attainment series for {cls}")
+    _, health, *_ = http_call(port, "GET", "/.well-known/health")
+    require({"qos", "slo", "model:lm"} <= set(health["data"]["services"]),
+            f"http_planes: health lists {sorted(health['data']['services'])}")
+    return {"plane_decode_mbu": mbu, "plane_prefill_mfu": mfu,
+            "plane_bubble_ratio": plane["bubble"]["ratio"],
+            "flight_ttft_gap_max_s": max(ttft_gap), "qos_admitted": admitted,
+            "health": health["data"]["status"], "step_kinds": sorted(kinds)}
+
+
+def plane_vs_profiler(torch, engine, prompts: list) -> dict:
+    """Over ``profiled_wave``'s window: the perf plane's device seconds per
+    step (residency, dispatch to readback, clipped) and the MBU it gives,
+    beside torch.profiler's device busy per step and the MBU that gives,
+    the same steps' bytes over the H100's 3.35 TB/s."""
+    from gofr_tpu_torch.metrics.perf import H100_SXM_HBM_BYTES_PER_S
+
+    noted, note, marks = [], engine.perf.note, []
+
+    def recording(p, now, band=None):
+        out = note(p, now, band)
+        noted.append((now, p.kind, p.device_s, p.bytes))
+        return out
+
+    engine.perf.note = recording
+    try:
+        wave = profiled_wave(torch, engine, prompts, marks)
+    finally:
+        engine.perf.note = note
+    steps = [n for n in noted if marks[0] <= n[0] <= marks[1]]
+    decode = [n for n in steps if n[1] == "decode"]
+    plane_s = sum(n[2] for n in steps)
+    busy_s = wave["profiled_wave_device_busy_ms"] / 1e3
+    nbytes = sum(n[3] for n in steps)
+    return {**wave, "window_steps": len(steps), "window_decode_steps": len(decode),
+            "plane_device_ms_per_step": plane_s / len(steps) * 1e3 if steps else None,
+            "plane_decode_device_ms_per_step": (sum(n[2] for n in decode) / len(decode) * 1e3
+                                                if decode else None),
+            "profiler_busy_ms_per_step": busy_s / len(steps) * 1e3 if steps else None,
+            "plane_mbu": nbytes / plane_s / H100_SXM_HBM_BYTES_PER_S if plane_s else None,
+            "profiler_mbu": (nbytes / busy_s / H100_SXM_HBM_BYTES_PER_S
+                             if busy_s and wave["profiled_wave_device_idle_share"] is not None
+                             else None)}
+
+
+def http_planes(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``http_planes``: the arms in turns ``PLANES_ARMS``. Held in
+    every arm: each of the 16 POSTs answers 201 with 64 tokens; the 8 batch
+    requests' tokens agree with the ``bf16`` run's by the tie rule;
+    ``app_tpu_ttft_seconds`` and ``app_tpu_queue_wait_seconds`` take 16
+    samples; ``app_tpu_tokens_total`` rises by the prompts' tokens plus the
+    64 each request's folds emitted; the launch counters show ``bf16``'s
+    kernels and no other; after ``stop`` the engine's and the tracer's
+    threads have ended. Held in the on arm: a tenant's second request in a
+    second answers 429 with ``Retry-After`` and the envelope; a request
+    sent while the 16 queue, its deadline a quarter of the predicted wait,
+    answers 504 (the JAX verdict) and takes no slot; each request's trace
+    (``X-Trace-Id``) has the server span with ``engine.queue_wait``,
+    ``engine.prefill``, ``engine.decode`` and ``engine.finish`` under it in
+    that order; each has a ``/debug/requests`` entry whose ``ttft_s`` is
+    its result's within 1 ms; ``/debug/engine`` has prefill and decode
+    steps; ``/debug/perf`` prices against the H100 row, decode MBU and
+    prefill MFU in (0, 1.05]; ``app_qos_admitted_total`` >= 16;
+    ``app_slo_attainment`` has both classes; health lists ``qos`` and
+    ``slo``. Printed: TTFT p50 by class, decode tok/s, host ms per busy loop
+    turn, and over one profiled wave the plane's device ms per step and MBU
+    beside the profiler's."""
+    arms = [planes_arm(torch, cuda, model, arm, base_outs) for arm in PLANES_ARMS]
+    return {"model": "llama3_8b (random bf16 weights, seed 0)", "order": list(PLANES_ARMS),
+            "config_on": PLANES_CONFIG, "arms": arms, "nvidia_smi": smi_line(),
+            "note": "an A/B in one call, not a benchmark; nothing about speed is held"}
 
 
 def lora_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
@@ -2309,7 +2622,8 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
                          "with adapters": counts}}
 
 
-def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
+def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str,
+                        planes: bool = False) -> dict:
     """The engine's dispatches on one cache, each inside
     ``torch.cuda.set_sync_debug_mode("error")``: a batched prefill (one lane
     sampled with top-k and top-p) with a long prompt's claim
@@ -2320,10 +2634,17 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
     with ``spec_tokens`` (``dispatch_spec`` / ``dispatch_spec_paged``). Each
     runs on a stopped engine of 2 slots, from this thread; the folds, whose
     waits on their events are the intended ones, run outside the check. The
-    page swapped in must equal the page it was copied from, bit for bit."""
+    page swapped in must equal the page it was copied from, bit for bit.
+    With ``planes`` each engine has every request plane on: a container
+    with spans kept in memory, the flight recorder, the SLO engine and the
+    perf plane, and a QoS controller bound; each request opens its span
+    timeline as ``submit`` would."""
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.container import Container
     from gofr_tpu_torch.gpu import decode, executor
     from gofr_tpu_torch.gpu.engine import GenerateEngine, Request
     from gofr_tpu_torch.ops.paged import gather_page, page_planes
+    from gofr_tpu_torch.qos import AdmissionController, QoSPolicy
 
     pool = f"{kv_layout} {kv_quantize or 'bf16'}"
     rng = torch.Generator().manual_seed(SEED + 8)
@@ -2332,14 +2653,27 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
     checked = []
 
     def engine(**kw):
+        container = None
+        if planes:
+            container = Container.create(DictConfig({"TRACE_EXPORTER": "memory",
+                                                     "SLO_ENABLED": "true", "LOG_LEVEL": "ERROR"}))
         eng = GenerateEngine(model, device="cuda", slots=2, max_len=1024, max_prefill_batch=2,
                              decode_chunk=2, prefill_buckets=[128, 256], top_k=50, top_p=0.95,
-                             kv_layout=kv_layout, kv_quantize=kv_quantize, **kw)
+                             kv_layout=kv_layout, kv_quantize=kv_quantize, container=container,
+                             **kw)
         eng.stop()  # its loop ends: the dispatches below run from this thread
+        if planes:
+            container.register_engine("lm", eng)
+            container.register_qos(AdmissionController(QoSPolicy(), container.metrics))
+            require(eng.perf is not None and eng.qos is not None and eng.tracer.enabled,
+                    f"{pool}: a plane is off on the planes check")
         return eng
 
     def submit(eng, prompt, temperature=0.0):
-        eng._accept(Request(prompt, {"max_new_tokens": 16, "temperature": temperature}, None))
+        req = Request(prompt, {"max_new_tokens": 16, "temperature": temperature}, None)
+        if planes:
+            eng._observe_submit(req, None)
+        eng._accept(req)
 
     def unsynced(name, fn) -> None:
         torch.cuda.synchronize()
@@ -2386,7 +2720,7 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
             f"{pool}: {eng.counters['spec_rounds']} spec rounds folded")
     return {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
             "weights": "int8" if type(model.blocks[0].wq).__name__ == "QLinear" else "bf16",
-            "sync_debug_mode": "error", "dispatches": checked}
+            "planes": planes, "sync_debug_mode": "error", "dispatches": checked}
 
 
 # Phase 5's runs besides the plain one: (prefill kernels, decode kernels,
@@ -2548,6 +2882,12 @@ def main() -> None:
     emit("phase4_http_generate", served["http_generate"])
     lap("phase4_http_generate")
 
+    served["http_planes"] = http_planes(torch, cuda, model, results["paged", ""])
+    emit("phase4_http_planes", {**served["http_planes"], "arms": [
+        {k: v for k, v in arm.items() if k != "batch_margin_at_first_difference"}
+        for arm in served["http_planes"]["arms"]]})
+    lap("phase4_http_planes")
+
     served["paged_w8"], w8_model = serve_w8(torch, cuda, model, served["paged", ""]["metrics"],
                                             results["paged", ""])
     emit("phase4_serve_paged_w8", {**served["paged_w8"]["metrics"],
@@ -2567,7 +2907,8 @@ def main() -> None:
     emit("phase6_no_sync", [no_sync_check(torch, cuda, m, *run)
                             for m, run in [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
     emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, m, *run) for m, run in
-                                     [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
+                                     [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]]
+         + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on

@@ -47,13 +47,16 @@ class AdapterSpec:
 
     ``a`` is the down-projection ``[embed, rank]`` and ``b`` the
     up-projection ``[rank, vocab]`` (LoRA at the head, ``ops/lora.py``);
-    ``scale`` is the usual alpha / rank. ``max_concurrency`` caps its
-    submitted but unfinished requests (0 = no cap)."""
+    ``scale`` is the usual alpha / rank. ``qos_class`` (optional) is the
+    default QoS class of requests naming this adapter, so the SLO plane
+    keys on it. ``max_concurrency`` caps its submitted but unfinished
+    requests (0 = no cap)."""
 
     name: str
     a: np.ndarray
     b: np.ndarray
     scale: float = 1.0
+    qos_class: str | None = None
     max_concurrency: int = 0
 
     def __post_init__(self):

@@ -1,20 +1,31 @@
 """App facade: build the servers from config, register routes, run them
 (the port's own copy of gofr_tpu/app.py for HTTP serving).
 
-``App`` owns the HTTP server (logging → CORS → metrics middlewares), the
-metrics server on its own port and one Container, and serves handlers
-through ``Context``. ``app.serve_model(...)`` registers a continuous-batching
-engine on the container; handlers then call ``ctx.agenerate`` /
-``ctx.generate`` / ``ctx.infer``. Both servers are ``http/server.py`` on the
-standard library, where the JAX App runs aiohttp.
+``App`` owns the HTTP server (tracer → logging → CORS → metrics → QoS
+middlewares), the metrics server on its own port and one Container, and
+serves handlers through ``Context``. ``app.serve_model(...)`` registers a
+continuous-batching engine on the container; handlers then call
+``ctx.agenerate`` / ``ctx.generate`` / ``ctx.infer``. Both servers are
+``http/server.py`` on the standard library, where the JAX App runs
+aiohttp.
 
 Differences from the JAX App: the engine's device thread starts when the
 engine is built, so ``/.well-known/health`` reads UP before ``arun`` (the
 JAX App starts its engines in ``arun`` and reads DEGRADED until then);
 ``HTTP_PORT`` / ``METRICS_PORT`` 0 bind a free port, which ``http_port`` /
-``metrics_port`` then read. Not ported yet: websocket routes
-(``App.websocket``), the tracer, auth and QoS middlewares, static files,
-the OpenAPI and ``/debug/*`` routes, gRPC, pub/sub, cron and the CLI.
+``metrics_port`` then read.
+
+The request planes, under the JAX App's config keys: ``TRACE_EXPORTER``
+(the tracer middleware's server span, the engine's spans under it),
+``QOS_ENABLED`` / ``QOS_*`` (``enable_qos``: 429/503 with
+``Retry-After`` before the handler, weighted-fair scheduling in the
+engine), ``SLO_ENABLED`` / ``SLO_*`` (attainment and burn gauges, health
+DEGRADED on a burn), and under ``APP_ENV=DEBUG`` the flight recorder's
+``/debug/requests`` and ``/debug/engine`` and the perf plane's
+``/debug/perf``. Not ported yet: websocket routes (``App.websocket``), the
+auth middlewares, static files, the OpenAPI routes, ``/debug/profile``,
+``/debug/quality`` and ``/debug/control``, gRPC, pub/sub, cron and the
+CLI.
 """
 
 from __future__ import annotations
@@ -22,19 +33,30 @@ from __future__ import annotations
 import asyncio
 import inspect
 import signal
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
+from urllib.parse import parse_qs
 
 from gofr_tpu_torch import deadline
 from gofr_tpu_torch.config import DictConfig, EnvConfig
 from gofr_tpu_torch.container import Container, new_mock_container
 from gofr_tpu_torch.context import Context
 from gofr_tpu_torch.http.errors import DeadlineExceeded, RequestTimeout
-from gofr_tpu_torch.http.middleware import cors_middleware, logging_middleware, metrics_middleware
+from gofr_tpu_torch.http.middleware import (
+    QOS_KEY,
+    SPAN_KEY,
+    cors_middleware,
+    logging_middleware,
+    metrics_middleware,
+    qos_middleware,
+    tracer_middleware,
+)
 from gofr_tpu_torch.http.request import HTTPRequest
 from gofr_tpu_torch.http.responder import respond, to_json
 from gofr_tpu_torch.http.server import HTTPServer, Router, ServerRequest, ServerResponse
 from gofr_tpu_torch.http.streaming import StreamingResponse
+from gofr_tpu_torch.metrics import perf as perf_mod
 
 Handler = Callable[[Context], Any]
 
@@ -57,6 +79,8 @@ class App:
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.get_int("HANDLER_THREADS", 32), thread_name_prefix="gofr-handler"
         )
+        if self.config.get_bool("QOS_ENABLED"):
+            self.enable_qos()
         self._shutdown = asyncio.Event()
         self._servers: list[HTTPServer] = []
 
@@ -79,6 +103,24 @@ class App:
 
     def delete(self, path: str, handler: Handler) -> None:
         self.add_route("DELETE", path, handler)
+
+    # -- QoS: admission control / rate limiting / load shedding ----------------
+
+    def enable_qos(self, policy=None, **overrides: Any):
+        """Turn on the QoS subsystem (also by ``QOS_ENABLED=true``): rate
+        limits and load shedding at the HTTP middleware (429/503 +
+        ``Retry-After``), weighted-fair priority scheduling and
+        deadline-aware admission on every served engine (app.py:157-172).
+        ``policy`` is a prebuilt ``QoSPolicy``; otherwise one is built from
+        ``QOS_*`` config keys with ``overrides`` applied. Returns the
+        AdmissionController."""
+        from gofr_tpu_torch.qos import AdmissionController, QoSPolicy
+
+        if policy is None:
+            policy = QoSPolicy.from_config(self.config, **overrides)
+        controller = AdmissionController(policy, self.container.metrics, logger=self.logger)
+        self.container.register_qos(controller)
+        return controller
 
     # -- model serving ---------------------------------------------------------
 
@@ -110,13 +152,23 @@ class App:
         router.add("GET", "/.well-known/health", self._health_handler)
         router.add("GET", "/.well-known/alive", self._alive_handler)
         router.add("GET", "/favicon.ico", self._favicon_handler)
+        if self._debug_env():
+            # the flight recorder's and the perf plane's read endpoints,
+            # gated like the reference's pprof routes
+            router.add("GET", "/debug/requests", self._debug_requests_handler)
+            router.add("GET", "/debug/engine", self._debug_engine_handler)
+            router.add("GET", "/debug/perf", self._debug_perf_handler)
         for method, path, handler in self._routes:
             router.add(method, path, self._wrap(handler))
         middlewares = [
+            tracer_middleware(self.container.tracer),
             logging_middleware(self.logger),
             cors_middleware(self.config, self._registered_methods),
             metrics_middleware(self.container.metrics),
         ]
+        if self.container.qos is not None:
+            # after metrics (rejections show in app_http_response)
+            middlewares.append(qos_middleware(self.container.qos))
         return HTTPServer(router, middlewares, on_error=self._on_server_error)
 
     def _build_metrics_server(self) -> HTTPServer:
@@ -151,6 +203,10 @@ class App:
         # when the server accepted the connection and had read the request
         # (monotonic), for a handler that breaks its latency down
         req.context().update(accepted_at=request.accepted_at, read_at=request.read_at)
+        qos_class = request.state.get(QOS_KEY)
+        if qos_class:
+            # resolved by the QoS middleware; ctx.generate picks it up
+            req.context()["qos_class"] = qos_class
         return req
 
     def _wrap(self, handler: Handler):
@@ -162,11 +218,13 @@ class App:
 
         async def route_handler(request: ServerRequest) -> ServerResponse:
             req = self._materialize(request)
-            ctx = Context(req, self.container)
+            ctx = Context(req, self.container, span=request.state.get(SPAN_KEY))
             result, err = None, None
             remaining = deadline.remaining(req.context())
             deadline_bound = False
             if remaining is not None and remaining <= 0:
+                self.container.metrics.increment_counter(
+                    "app_request_deadline_exceeded_total", 1, where="edge")
                 err = DeadlineExceeded("request deadline already expired")
                 remaining = None
             budget = self.request_timeout if self.request_timeout > 0 else None
@@ -184,6 +242,8 @@ class App:
                         result = await coro
             except asyncio.TimeoutError:
                 if deadline_bound:
+                    self.container.metrics.increment_counter(
+                        "app_request_deadline_exceeded_total", 1, where="edge")
                     ctx.cancel_inflight("deadline")
                     err = DeadlineExceeded()
                 else:
@@ -262,6 +322,65 @@ class App:
     async def _not_found_handler(self, _request: ServerRequest) -> ServerResponse:
         return _json({"error": {"message": "route not registered"}}, 404)
 
+    # -- /debug/* (APP_ENV=DEBUG; app.py:724-822) ------------------------------
+
+    def _debug_env(self) -> bool:
+        return self.config.get_or_default("APP_ENV", "").upper() == "DEBUG"
+
+    @staticmethod
+    def _debug_limit(request: ServerRequest) -> int | None:
+        try:
+            n = int(parse_qs(request.query_string).get("n", ["0"])[0])
+        except ValueError:
+            n = 0
+        return n if n > 0 else None
+
+    async def _debug_requests_handler(self, request: ServerRequest) -> ServerResponse:
+        """GET /debug/requests?n=K: the last K completed request timelines
+        (newest first) from the flight recorder: queue wait, TTFT, TPOT,
+        e2e, slot, preemptions, trace id."""
+        entries = self.container.flight.requests(limit=self._debug_limit(request))
+        return _json({"data": {"count": len(entries), "requests": entries}})
+
+    async def _debug_engine_handler(self, request: ServerRequest) -> ServerResponse:
+        """GET /debug/engine?n=K: the last K device steps (kind, wall time,
+        occupancy, signature, backlog, perf-plane residency) and a health
+        snapshot of every served engine with its KV layout and dtype and
+        its adapter plane."""
+        steps = self.container.flight.steps(limit=self._debug_limit(request))
+        engines = {}
+        for name, engine in self.container.engines.items():
+            snap = dict(engine.health_check() if hasattr(engine, "health_check") else {})
+            layout = getattr(engine, "kv_layout", None)
+            if layout is not None:
+                snap["kv"] = {"layout": layout,
+                              "dtype": getattr(engine, "kv_quantize", "") or "bf16"}
+            ad_stats = getattr(engine, "adapter_stats", None)
+            if callable(ad_stats):
+                snap["adapters"] = ad_stats()
+            engines[name] = snap
+        return _json({"data": {"count": len(steps), "steps": steps, "engines": engines}})
+
+    async def _debug_perf_handler(self, _request: ServerRequest) -> ServerResponse:
+        """GET /debug/perf: per engine the perf plane's windowed MFU/MBU by
+        step kind, the pipeline bubble ratio and the page pool's waste;
+        and the container's exact rollup with its derived ratios."""
+        now = time.monotonic()
+        engines = {}
+        for name, engine in self.container.engines.items():
+            plane = getattr(engine, "perf", None)
+            if plane is None:
+                continue
+            snap = plane.snapshot(now)
+            stats_fn = getattr(engine, "page_pool_stats", None)
+            stats = stats_fn() if callable(stats_fn) else None
+            if stats:
+                snap["page_pool"] = stats
+            engines[name] = snap
+        totals = self.container.perf_totals()
+        rollup = None if totals is None else {"totals": totals, **perf_mod.derive(totals)}
+        return _json({"data": {"engines": engines, "rollup": rollup}})
+
     # -- run -------------------------------------------------------------------
 
     def run(self) -> None:
@@ -273,7 +392,8 @@ class App:
 
     async def arun(self, ready: asyncio.Event | None = None) -> None:
         """Serve until ``stop()``: the metrics server on ``METRICS_PORT``,
-        the HTTP server on ``HTTP_PORT`` when a route is registered; then
+        the HTTP server on ``HTTP_PORT`` when a route is registered or
+        ``APP_ENV=DEBUG`` serves the debug routes; then
         ``ready`` is set. On the way out the servers close, the container
         stops the engines, and the executor shuts down."""
         loop = asyncio.get_running_loop()
@@ -288,7 +408,7 @@ class App:
             self._servers.append(metrics)
             self.metrics_port = metrics.port
             self.logger.infof("metrics server on :%d/metrics", self.metrics_port)
-            if self._routes:
+            if self._routes or self._debug_env():
                 http = self._build_http_server()
                 await http.start(port=self.http_port)
                 self._servers.append(http)

@@ -7,10 +7,12 @@ user handler ``def handler(ctx) -> result``. Handlers reach the request
 (``bind``, ``param``, ``path_param``, ``header``), the container
 (``logger``, ``config``, ``metrics``) and the served models (``infer``,
 ``generate``, ``agenerate``) through it. What each engine call takes from
-the request (``_request_kw``): the propagated deadline, the
-``X-Adapter-ID`` header and the tracking of the submitted Request, so a
-timeout or a client that goes away cancels it. QoS classes and tracing
-spans come back with their planes.
+the request (``_request_kw``, context.py:143-200): the request's server
+span (``_parent_span``: the engine hangs its spans under it), the
+propagated deadline, the ``X-Adapter-ID`` header, the QoS class the QoS
+middleware resolved, and the tracking of the submitted Request, so a
+timeout or a client that goes away cancels it. ``ctx.trace(name)`` opens
+a user span under the request's.
 """
 
 from __future__ import annotations
@@ -20,17 +22,19 @@ from typing import TYPE_CHECKING, Any
 
 from gofr_tpu_torch import deadline as _deadline
 from gofr_tpu_torch.http.errors import RequestTimeout
+from gofr_tpu_torch.tracing import Span
 
 if TYPE_CHECKING:
     from gofr_tpu_torch.container import Container
 
 
 class Context:
-    __slots__ = ("request", "container", "_engine_requests")
+    __slots__ = ("request", "container", "span", "_engine_requests")
 
-    def __init__(self, request: Any, container: "Container"):
+    def __init__(self, request: Any, container: "Container", span: Span | None = None):
         self.request = request
         self.container = container
+        self.span = span
         # engine Requests submitted through this context, so the transport
         # can cancel them all when the client disconnects mid-handler;
         # populated via the engine's _on_submit hook
@@ -83,10 +87,14 @@ class Context:
         return n
 
     def _request_kw(self, kw: dict[str, Any]) -> dict[str, Any]:
-        """The engine kwargs the request adds (context.py:143-200, reduced):
-        the remaining deadline tightens ``timeout``, the submitted Request
-        is tracked, and the ``X-Adapter-ID`` header routes to an adapter
-        unless the handler named one."""
+        """The engine kwargs the request adds (context.py:143-200): the
+        server span goes along as the engine's parent span, the remaining
+        deadline tightens ``timeout``, the submitted Request is tracked,
+        the ``X-Adapter-ID`` header routes to an adapter unless the handler
+        named one, and the class the QoS middleware resolved schedules it
+        unless the handler set one."""
+        if self.span is not None and "_parent_span" not in kw:
+            kw["_parent_span"] = self.span
         rem = _deadline.remaining(self.request.context())
         if rem is not None:
             t = kw.get("timeout")
@@ -96,6 +104,10 @@ class Context:
             ad = self.header("X-Adapter-ID")
             if ad:
                 kw["adapter_id"] = ad
+        if "qos_class" not in kw and "_qos_class" not in kw:
+            cls = self.request.context().get("qos_class")
+            if cls:
+                kw["_qos_class"] = cls
         return kw
 
     def infer(self, model: str, inputs: Any, **kw: Any):
@@ -149,3 +161,11 @@ class Context:
         except asyncio.CancelledError:
             req.cancel("client_disconnect")
             raise
+
+    # -- tracing ---------------------------------------------------------------
+
+    def trace(self, name: str) -> Span:
+        """Open a user span as a child of the request span (gofr
+        `context.go:45-55`). Use as a context manager:
+        ``with ctx.trace("work"): ...``"""
+        return self.container.tracer.start_span(name, parent=self.span)

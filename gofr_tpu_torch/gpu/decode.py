@@ -28,6 +28,13 @@ reassigned), by identity. With the adapter plane on, each lane's
 adapter-pool slot goes to the device with the other per-lane inputs
 (decode.py:28, 59); a lane without an adapter, and an idle lane, select the
 base slot 0.
+
+Each dispatch prices its call for the perf plane from host state (lanes,
+chunk length, the pages or positions its attention streams; decode.py:
+191, 258, 354), and ``process_decode`` stamps the entry's ready time as
+soon as its readback's wait returns (decode.py:377-380). Each fold then
+records its step (``eng._record_step``: histograms, perf plane, flight
+recorder) and counts its tokens and speculation as the JAX folds do.
 """
 
 from __future__ import annotations
@@ -84,6 +91,12 @@ def dispatch_decode(eng: GenerateEngine) -> bool:
         table = None if eng._table is None else eng._masked_table([i for i, _, _ in lanes])
         for _, s, _ in lanes:
             s.inflight += 1
+        # the positions this chunk's attention streams, a dispatch-time
+        # floor: pages touched on the pool, positions on the slot cache
+        if eng._table is not None:
+            hist = sum(len(eng._slot_pages[i]) for i, _, _ in lanes) * eng.page_size
+        else:
+            hist = sum(p + 1 for _, _, p in lanes)
         t0 = time.monotonic()
     dev = eng.device
     prev = eng._prev_last if eng._prev_last is not None else torch.zeros(
@@ -93,7 +106,9 @@ def dispatch_decode(eng: GenerateEngine) -> bool:
         None if table is None else to_device(table, dev), to_device(temps, dev), k,
         eng._generator, top_k=eng.top_k, top_p=eng.top_p, do_sample=bool(temps.max() > 0),
         adapters=eng._adapter_args(sel), prev_last=prev, use_host=to_device(use_host, dev))
-    enqueue(eng, Entry("plain", Readback(dev, out), [(i, s) for i, s, _ in lanes], t0))
+    pstep = eng.perf.step_decode(len(lanes), k, hist, t0) if eng.perf is not None else None
+    enqueue(eng, Entry("plain", Readback(dev, out), [(i, s) for i, s, _ in lanes], t0,
+                       len(lanes) / n, ("decode", n, k), pstep))
     return True
 
 
@@ -146,6 +161,12 @@ def _dispatch_spec(eng: GenerateEngine, paged: bool) -> bool:
         table = eng._masked_table([i for i, _ in lanes]) if paged else None
         for _, s in lanes:
             s.inflight += 1
+        # the positions this round's attention streams: the pages it can
+        # touch on the pool, each lane's worst case on the slot cache
+        if paged:
+            hist = sum(len(eng._slot_pages[i]) for i, _ in lanes) * eng.page_size
+        else:
+            hist = sum(min(s.pos + span * s.inflight + 1, s.max_total) for _, s in lanes)
         t0 = time.monotonic()
     dev = eng.device
     carry = eng._spec_carry
@@ -157,7 +178,9 @@ def _dispatch_spec(eng: GenerateEngine, paged: bool) -> bool:
         None if table is None else to_device(table, dev), to_device(temps, dev), k, g,
         eng._generator, top_k=eng.top_k, top_p=eng.top_p, adapters=eng._adapter_args(sel),
         carry=carry, use_host=to_device(use_host, dev))
-    enqueue(eng, Entry("spec", Readback(dev, toks, accs), (lanes, g), t0))
+    pstep = eng.perf.step_spec(len(lanes), k, g, hist, t0) if eng.perf is not None else None
+    enqueue(eng, Entry("spec", Readback(dev, toks, accs), (lanes, g), t0, len(lanes) / n,
+                       ("decode_spec", n, k, g), pstep))
     return True
 
 
@@ -171,41 +194,59 @@ def process_decode(eng: GenerateEngine) -> bool:
     entry = eng._dq.popleft()
     t = time.perf_counter()
     host = [h.numpy() for h in entry.result.wait()]
+    if entry.pstep is not None:
+        # the result is on the host: from here on it is fold time, not
+        # device time
+        entry.pstep.t_ready = time.monotonic()
     st = eng._pipeline
     st["fold_wait_s"] += time.perf_counter() - t
-    kind, meta = entry.kind, entry.meta
+    kind = entry.kind
     if kind == "swapin":
-        eng._fold_swapin(meta)
+        eng._fold_swapin(entry)
     elif kind == "prefill":
-        eng._fold_prefill(host[0], meta)
+        eng._fold_prefill(host[0], entry)
     elif kind == "chunk":
-        eng._fold_chunk(host[0] if host else None, meta)
-    elif kind == "spec":
-        with eng._state_lock:
-            _fold_spec(eng, host[0], host[1], *meta)
+        eng._fold_chunk(host[0] if host else None, entry)
     else:
         with eng._state_lock:
-            _fold_plain(eng, host[0], meta)
+            # attributed over the lanes dispatched: a lane freed in flight
+            # still had device time spent on its behalf
+            lanes = entry.meta[0] if kind == "spec" else entry.meta
+            dev_s = eng._record_step("decode_spec" if kind == "spec" else "decode",
+                                     time.monotonic() - entry.t0, entry.occupancy, entry.sig,
+                                     entry.pstep, eng._adapter_ids([s for _, s in lanes]))
+            if kind == "spec":
+                _fold_spec(eng, host[0], host[1], *entry.meta, dev_s)
+            else:
+                _fold_plain(eng, host[0], entry.meta, dev_s)
     st["folds"] += 1  # last: a reader that sees every call folded sees its effects
     return True
 
 
-def _fold_plain(eng: GenerateEngine, out: np.ndarray, lanes: list[tuple[int, _Slot]]) -> None:
+def _fold_plain(eng: GenerateEngine, out: np.ndarray, lanes: list[tuple[int, _Slot]],
+                dev_s: float = 0.0) -> None:
     """Hand each lane its chunk's tokens [N, k] until EOS or its length
-    ends it; the rest of the chunk is dropped. Caller holds the state
-    lock."""
+    ends it; the rest of the chunk is dropped. Each live lane is charged
+    the step's device seconds, and every token taken is counted. Caller
+    holds the state lock."""
     now = time.monotonic()
+    taken = 0
     for i, s in lanes:
         if eng.slots[i] is not s:
             continue  # freed, preempted or reassigned while in flight
         s.inflight -= 1
+        if dev_s:
+            kw = s.request.kw
+            kw["_dev_decode_s"] = kw.get("_dev_decode_s", 0.0) + dev_s
         if eng._dropped(s.request, now):
             eng._free_slot(i)
             continue
         for tok in out[i]:
             _take(eng, s, int(tok))
+            taken += 1
             if eng._maybe_finish(i):
                 break
+    eng.metrics.increment_counter("app_tpu_tokens_total", taken)
 
 
 def _take(eng: GenerateEngine, s: _Slot, tok: int) -> None:
@@ -216,7 +257,7 @@ def _take(eng: GenerateEngine, s: _Slot, tok: int) -> None:
 
 
 def _fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
-               lanes: list[tuple[int, _Slot]], g: int) -> None:
+               lanes: list[tuple[int, _Slot]], g: int, dev_s: float = 0.0) -> None:
     """Replay a chunk's rounds into the slots (decode.py:39): ``toks`` [K,
     n, g+1], ``accs`` [K, n], ``g`` the round length at dispatch. A lane
     emits acc + 1 tokens a round until EOS or its length ends it, and the
@@ -226,10 +267,12 @@ def _fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
     request (which ``spec_accept_totals`` sums by adapter when it
     completes); a lane discarded in flight counts on neither side. A paged
     lane that goes on decoding with no round left in flight gives back the
-    pages past its next write. Caller holds the state lock."""
+    pages past its next write. A folded lane is charged the round's
+    device seconds, and the tokens emitted are counted. Caller holds the
+    state lock."""
     k = accs.shape[0]
     now = time.monotonic()
-    accepted = trimmed = folded = 0
+    accepted = trimmed = folded = emitted = 0
     for i, s in lanes:
         if eng.slots[i] is not s:
             continue  # freed, preempted or reassigned while in flight
@@ -239,6 +282,8 @@ def _fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
             continue
         folded += 1
         kw = s.request.kw
+        if dev_s:
+            kw["_dev_decode_s"] = kw.get("_dev_decode_s", 0.0) + dev_s
         kw["_spec_proposed"] = kw.get("_spec_proposed", 0) + k * g
         for kk in range(k):
             a = int(accs[kk, i])
@@ -246,6 +291,7 @@ def _fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
             kw["_spec_accepted"] = kw.get("_spec_accepted", 0) + a
             for tok in toks[kk, i, :a + 1]:
                 _take(eng, s, int(tok))
+                emitted += 1
                 if eng._maybe_finish(i):
                     break
             if eng.slots[i] is not s:
@@ -260,3 +306,10 @@ def _fold_spec(eng: GenerateEngine, toks: np.ndarray, accs: np.ndarray,
     eng.counters["spec_rejected"] += proposed - accepted
     eng.counters["spec_pages_trimmed"] += trimmed
     eng.counters["spec_rounds"] += k
+    eng.metrics.increment_counter("app_tpu_tokens_total", emitted)
+    eng.metrics.increment_counter("app_tpu_spec_proposed", proposed)
+    eng.metrics.increment_counter("app_tpu_spec_accepted", accepted)
+    if trimmed:
+        eng.metrics.increment_counter("app_tpu_spec_pages_trimmed_total", trimmed)
+    if proposed - accepted > 0:
+        eng.metrics.increment_counter("app_tpu_spec_tokens_rejected_total", proposed - accepted)

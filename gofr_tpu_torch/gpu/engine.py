@@ -79,9 +79,22 @@ freed or preempted. The prefix cache stays shared across adapters: LoRA
 sits at the head, so K/V do not depend on it. ``adopt_weights`` swaps in
 new weights between loop turns with no request dropped: it preempts every
 slot, resets the caches and copies the weights in place
-(engine.py:2155-2264), after folding every call in flight. QoS, handoff,
-lockstep, checkpoint adoption, autotune and the perf plane are not ported
-yet.
+(engine.py:2155-2264), after folding every call in flight.
+
+``container`` gives the engine the request planes the JAX engine threads
+through every request (engine.py:189-215, 402-675): its metrics (the
+``app_tpu_*`` family at the JAX call sites), tracer (the
+``engine.queue_wait`` → ``engine.prefill`` → ``engine.decode`` →
+``engine.finish`` span timeline under the caller's span, built only while
+``Tracer.enabled``), flight recorder (a request entry at completion, a
+step entry at each fold), SLO engine, and the perf plane (a ``StepPerf``
+priced at each dispatch, its device-queue residency noted at the fold).
+``App.enable_qos`` binds an admission controller: the queue becomes
+weighted-fair by class and the drain is bounded so late interactive work
+can overtake queued batch work. Without a container (the direct form) the
+engine records into a private registry with every plane off. Handoff,
+lockstep, checkpoint adoption, autotune and the quality plane are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -106,6 +119,8 @@ from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
 from gofr_tpu_torch.http import errors
+from gofr_tpu_torch.metrics import Registry
+from gofr_tpu_torch.metrics.perf import CostModel, PerfPlane, StepPerf
 from gofr_tpu_torch.models import ModelSpec
 from gofr_tpu_torch.models.llama import (
     AnyKVCache,
@@ -116,7 +131,9 @@ from gofr_tpu_torch.models.llama import (
     params_from_jax,
 )
 from gofr_tpu_torch.ops.paged import gather_page
-from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree
+from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree, quantized_bytes
+from gofr_tpu_torch.qos.scheduler import QoSQueue
+from gofr_tpu_torch.tracing import RequestTrace, current_span
 
 log = logging.getLogger(__name__)
 
@@ -339,7 +356,9 @@ class GenerateEngine:
     default 2; ``decode_pipeline`` is its alias) bounds the device calls in
     flight. ``prefix_host_mb`` > 0 gives the prefix cache a host tier of
     that many MiB of pinned memory (at least one page, else it stays
-    off)."""
+    off). ``container`` (the App's) supplies the metrics, logger, tracer,
+    flight recorder and SLO engine, and turns the perf plane on; without
+    one the engine records into a private registry, every plane off."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -351,7 +370,7 @@ class GenerateEngine:
                  spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
                  adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
                  adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
-                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0):
+                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -369,6 +388,17 @@ class GenerateEngine:
                     "the paged layout's page allocation would need the draft cache paged "
                     "too — use kv_layout='slot' or drop spec_draft")
         self.device = resolve_device(device)
+        # the request planes (engine.py:189-215): the container's metrics,
+        # logger, tracer (spans only while it is enabled), flight recorder
+        # and SLO engine; without a container a private registry, where
+        # every record is a name lookup that finds nothing, and no planes
+        self.container = container
+        self.metrics = container.metrics if container is not None else Registry()
+        self.logger = getattr(container, "logger", None)
+        self.tracer = getattr(container, "tracer", None)
+        self.flight = getattr(container, "flight", None)
+        self.slo = getattr(container, "slo", None)
+        self.qos = None  # an AdmissionController once one binds the engine
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
@@ -459,9 +489,12 @@ class GenerateEngine:
                                              self.cfg.vocab_size, ad_rank, device=self.device)
             self.adapters = AdapterRegistry(host_budget_mb=float(adapter_host_mb))
         # lifetime (accepted, proposed) draft tokens by adapter, summed from
-        # each request as it completes (engine.py:536)
+        # each request as it completes (engine.py:536), and the requests
+        # submitted and not yet complete (the app_tpu_inflight_requests
+        # gauge sums them over engines at a scrape)
         self._spec_totals: dict[str, list[float]] = {}
-        self._totals_lock = threading.Lock()
+        self._inflight_requests = 0
+        self._obs_lock = threading.Lock()
         # full-model adoptions so far, and one waiting for the loop
         self.weights_epoch = 0
         self._pending_weights: tuple[dict, threading.Event] | None = None
@@ -483,7 +516,9 @@ class GenerateEngine:
             "dq_max": 0, "dq_carried_max": 0, "dispatched": {}, "folds": 0, "fold_wait_s": 0.0,
             "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0}
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._queue: queue.Queue[Request] = queue.Queue()
+        # FIFO until an AdmissionController binds the engine and flips it
+        # into weighted-fair priority mode (qos/scheduler.py)
+        self._queue: QoSQueue = QoSQueue()
         # prompts that fit a bucket, and longer ones that chunk
         self._pending: list[tuple[Request, np.ndarray]] = []
         self._pending_long: list[tuple[Request, np.ndarray]] = []
@@ -493,6 +528,9 @@ class GenerateEngine:
         self._state_lock = threading.Lock()
         self._stop = threading.Event()
         self._error: BaseException | None = None
+        self.perf: PerfPlane | None = self._perf_plane() if container is not None else None
+        if self._prefix is not None:
+            self._set_prefix_gauges()
         self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
         self._thread.start()
 
@@ -513,28 +551,68 @@ class GenerateEngine:
                              f"{self.model.device}")
         return Draft(model, make_pool(model, "", self.num_slots, self.cache_len, "slot"))
 
+    def _perf_plane(self) -> PerfPlane | None:
+        """The live perf plane (engine.py:1347-1387): a cost model from the
+        engine's actual geometry — parameter count and bytes (the draft's
+        too, as JAX's one parameter tree holds both; an int8 ``QLinear``'s
+        scales count as the ``QTensor`` leaves do) and the pool's bytes
+        per position read off its tensors — priced against the card's
+        peaks. As in JAX a meter that cannot be built leaves the engine
+        serving without one."""
+        try:
+            models = [self.model] + ([self._aux.model] if isinstance(self._aux, Draft) else [])
+            positions = (self.total_pages * self.page_size if self._table is not None
+                         else self.num_slots * self.cache_len)
+            pool_bytes = sum(t.nbytes for t in vars(self.cache).values())
+            kind = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                    else self.device.type)
+            return PerfPlane(CostModel(
+                n_params=sum(t.numel() for m in models for t in m.state_dict().values()),
+                weight_bytes=sum(quantized_bytes(m) for m in models),
+                kv_bytes_per_pos=pool_bytes / max(1, positions),
+                page_bytes=getattr(self, "_page_bytes", 0.0),
+                page_size=self.page_size if self._table is not None else 0,
+                kv_dtype=self.kv_quantize or "bf16"), kind)
+        except Exception as e:  # noqa: BLE001 - the meter must not gate serving
+            (self.logger.warn if self.logger is not None else log.warning)(
+                f"perf plane disabled: {e}")
+            return None
+
     # -- caller side -----------------------------------------------------------
 
     def submit(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
                timeout: float | None = None, stream: bool = False, **kw: Any) -> Request:
-        """Non-blocking enqueue; returns the Request future (with
-        ``stream``, one whose ``stream_q`` gets the tokens as they come).
-        ``eos_token_id`` in ``kw`` overrides the engine's. ``adapter_id``
-        in ``kw`` names a registered LoRA adapter (engine.py:434-455): an
-        unknown one, or one named on an engine without the adapter plane,
-        raises ValueError, and one at its cap raises ``TooManyRequests``;
-        the request's share of the cap goes back when it completes,
-        however it ends. ``_on_submit`` in ``kw`` is called with the
-        Request as soon as it exists (a transport tracks it to cancel);
-        a ``timeout`` of 0 or less raises ``DeadlineExceeded`` (504)."""
+        """Non-blocking enqueue (engine.py:401-484); returns the Request
+        future (with ``stream``, one whose ``stream_q`` gets the tokens as
+        they come). ``eos_token_id`` in ``kw`` overrides the engine's.
+        ``qos_class`` in ``kw`` names the request's QoS class.
+        ``adapter_id`` in ``kw`` names a registered LoRA adapter: an unknown
+        one, or one named on an engine without the adapter plane, raises
+        ValueError, and one at its cap raises ``TooManyRequests``; the
+        request's share of the cap goes back when it completes, however it
+        ends; an adapter's declared ``qos_class`` is the request's default
+        class. With QoS bound, admission runs before the request exists:
+        the backlog cap and a class's concurrency cap raise 503 / 429 with a
+        retry hint, and a ``timeout`` below the predicted queue wait raises
+        ``DeadlineExceeded`` (504). ``_on_submit`` in ``kw`` is called with
+        the Request as soon as it exists (a transport tracks it to cancel),
+        and ``_parent_span`` is the caller's span the engine's spans hang
+        under; a ``timeout`` of 0 or less raises ``DeadlineExceeded``."""
         if self._stop.is_set() or self._error is not None:
             raise EngineClosed("engine stopped") from self._error
+        if "qos_class" in kw:  # the public spelling of the routing key
+            kw["_qos_class"] = kw.pop("qos_class")
+        # the inbound server span, carried explicitly (contextvars do not
+        # cross into the device thread); popped even with tracing off
+        parent_span = kw.pop("_parent_span", None)
         # a transport's hook: it gets the Request the moment it exists, to
         # cancel it if the client goes away (engine.py:421)
         on_submit = kw.pop("_on_submit", None)
         timeout = timeout if timeout is not None else self.default_timeout
         if timeout is not None and timeout <= 0:
             # the propagated deadline is already spent (engine.py:426-432)
+            self.metrics.increment_counter("app_request_deadline_exceeded_total", 1,
+                                           where="engine")
             raise errors.DeadlineExceeded("request deadline already expired at submission")
         if "adapter_id" in kw:  # the public spelling of the routing key
             kw["_adapter"] = kw.pop("adapter_id")
@@ -544,28 +622,186 @@ class GenerateEngine:
                 raise ValueError(f"request names adapter {aname!r} but this engine has no "
                                  "adapter plane (set adapter_slots or adapter_pool_mb)")
             try:
-                self.adapters.admit(aname)
+                aspec = self.adapters.admit(aname)
             except KeyError as e:
                 raise ValueError(str(e.args[0]) if e.args else str(e)) from None
+            if aspec.qos_class and not kw.get("_qos_class"):
+                kw["_qos_class"] = aspec.qos_class
+        # which weights answered, for the flight recorder
+        kw["_weights_epoch"] = self.weights_epoch
+        qos, cls = self.qos, None
+        if qos is not None:
+            try:
+                cls = qos.admit_engine(self, kw.get("_qos_class"), timeout)
+            except Exception:
+                if aname:
+                    self.adapters.release(aname)  # the class gate shed us first
+                raise
+            kw["_qos_class"] = cls.name
         req = Request(prompt, {**kw, "max_new_tokens": int(max_new_tokens),
                                "temperature": float(temperature)}, timeout, stream)
+        if cls is not None:
+            qos.track(req, cls)
         if aname:
             req.add_done_callback(lambda _r, _n=aname: self.adapters.release(_n))
-        req.add_done_callback(self._observe_done)
         if on_submit is not None:
             on_submit(req)
+        self._observe_submit(req, parent_span)
         self._queue.put(req)
+        self.metrics.set_gauge("app_tpu_queue_depth", self._backlog())
         return req
 
+    # -- request-lifecycle observability (engine.py:488-675) -------------------
+
+    def _backlog(self) -> int:
+        return self._queue.qsize() + len(self._pending) + len(self._pending_long)
+
+    def _observe_submit(self, req: Request, parent_span) -> None:
+        """Open the request's span timeline (only while the tracer is
+        enabled: off, this costs one branch and allocates nothing), count
+        it in flight, and hook ``_observe_done`` to its completion."""
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            if parent_span is None:
+                parent_span = current_span()
+            if parent_span is None or parent_span.sampled:
+                rt = RequestTrace(tracer, parent_span)
+                req.kw["_rt"] = rt
+                rt.begin("engine.queue_wait",
+                         **{"qos.class": req.kw.get("_qos_class") or "none",
+                            "queue.depth": self._backlog()})
+        with self._obs_lock:
+            self._inflight_requests += 1
+        req.add_done_callback(self._observe_done)
+
     def _observe_done(self, req: Request) -> None:
-        """Add a completed request's draft tokens to its adapter's totals
-        (engine.py:534-543), however it ended."""
-        proposed = req.kw.get("_spec_proposed")
+        """However a request ended: close its spans, record e2e and the SLO
+        samples, add its draft tokens to its adapter's totals, and write
+        its flight-recorder entry (engine.py:512-598)."""
+        now = time.monotonic()
+        with self._obs_lock:
+            self._inflight_requests -= 1
+        result, error = req.outcome()
+        kw = req.kw
+        rt = kw.pop("_rt", None)
+        if rt is not None:
+            rt.close_all(error)
+        e2e = now - req.enqueued_at
+        if self.slo is not None:
+            self.slo.observe_outcome(kw.get("_qos_class"), error is None)
+        if error is None:
+            self.metrics.record_histogram("app_tpu_e2e_seconds", e2e,
+                                          qos_class=kw.get("_qos_class") or "none")
+            if self.slo is not None:
+                self.slo.observe(kw.get("_qos_class"), "e2e", e2e)
+        proposed = kw.get("_spec_proposed")
         if proposed:
-            with self._totals_lock:
-                tot = self._spec_totals.setdefault(req.kw.get("_adapter") or "base", [0.0, 0.0])
-                tot[0] += float(req.kw.get("_spec_accepted", 0))
+            with self._obs_lock:
+                tot = self._spec_totals.setdefault(kw.get("_adapter") or "base", [0.0, 0.0])
+                tot[0] += float(kw.get("_spec_accepted", 0))
                 tot[1] += float(proposed)
+        if self.flight is None:
+            return
+        admitted = kw.get("_admitted_at")
+        first = kw.get("_first_token_at")
+        entry: dict[str, Any] = {
+            "id": req.id,
+            "completed_at": time.time(),
+            "qos_class": kw.get("_qos_class"),
+            "e2e_s": round(e2e, 6),
+            "queue_wait_s": round(admitted - req.enqueued_at, 6) if admitted is not None else None,
+            "ttft_s": round(first - req.enqueued_at, 6) if first is not None else None,
+            "slot": kw.get("_slot"),
+            "prompt_len": kw.get("_prompt_len"),
+            "preemptions": kw.get("_preemptions", 0),
+            "trace_id": rt.trace_id if rt is not None else None,
+        }
+        if kw.get("_adapter"):
+            entry["adapter"] = kw.get("_adapter")
+        if kw.get("_weights_epoch") is not None:
+            entry["weights_epoch"] = kw.get("_weights_epoch")
+        dev = {label: round(kw[f], 6) for label, f in (
+            ("prefill_s", "_dev_prefill_s"), ("decode_s", "_dev_decode_s"),
+            ("swapin_s", "_dev_swapin_s")) if kw.get(f)}
+        if dev:
+            # device-queue residency while this request had work in flight,
+            # per phase, from the perf plane's clipped step times
+            entry["device"] = dev
+        if proposed:
+            entry["spec_accept_rate"] = round(kw.get("_spec_accepted", 0) / proposed, 4)
+        prefix = kw.get("_prefix")
+        if prefix:
+            entry["prefix"] = prefix
+        if req.cancelled and req.cancel_reason:
+            entry["cancel_reason"] = req.cancel_reason
+        if error is not None:
+            entry["error"] = type(error).__name__
+        elif isinstance(result, dict) and "finish_reason" in result:
+            entry["finish_reason"] = result.get("finish_reason")
+            toks = result.get("tokens")
+            if toks is not None:
+                entry["new_tokens"] = len(toks)
+                if first is not None and len(toks) > 1:
+                    entry["tpot_s"] = round((now - first) / (len(toks) - 1), 6)
+        self.flight.record_request(entry)
+
+    def _mark_admitted(self, req: Request, now: float) -> None:
+        """First pick-up by the device loop closes the queue wait; a
+        re-admission after a preemption records nothing more."""
+        if "_admitted_at" not in req.kw:
+            req.kw["_admitted_at"] = now
+            self.metrics.record_histogram("app_tpu_queue_wait_seconds", now - req.enqueued_at)
+        rt = req.kw.get("_rt")
+        if rt is not None:
+            rt.end("engine.queue_wait")
+
+    def _mark_first_token(self, req: Request) -> None:
+        """Stamp TTFT exactly once (a preempted request keeps its first)."""
+        if "_first_token_at" not in req.kw:
+            ft = time.monotonic()
+            req.kw["_first_token_at"] = ft
+            self.metrics.record_histogram("app_tpu_ttft_seconds", ft - req.enqueued_at)
+            if self.slo is not None:
+                self.slo.observe(req.kw.get("_qos_class"), "ttft", ft - req.enqueued_at)
+
+    def _record_step(self, kind: str, seconds: float, occupancy: float, signature: tuple,
+                     pstep: StepPerf | None = None, adapter_ids: list | None = None) -> float:
+        """One folded device call (engine.py:623-675): its wall span
+        (dispatch to fold) and occupancy histograms; its perf-plane
+        residency, split by adapter; its flight step entry; the QoS wait
+        estimator. Returns the step's device seconds (0 without the perf
+        plane). The step is not filed under its occupancy band (JAX's
+        ``band=``): only the step controller reads band rows, and the port
+        has no controller yet."""
+        self.metrics.record_histogram("app_tpu_step_seconds", seconds, kind=kind)
+        self.metrics.record_histogram("app_tpu_batch_occupancy", occupancy, kind=kind)
+        device_s = 0.0
+        perf = self.perf
+        if pstep is not None and perf is not None:
+            now_perf = time.monotonic()
+            perf.note(pstep, now_perf)
+            if adapter_ids:
+                perf.note_adapters(adapter_ids, pstep, now_perf)
+            device_s = pstep.device_s
+            self.metrics.record_histogram("app_tpu_step_device_seconds", device_s, kind=kind)
+        if self.flight is not None:
+            if pstep is not None and perf is not None:
+                self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
+                                        len(self._dq), device_s=device_s, bytes_=pstep.bytes,
+                                        flops=pstep.flops, bubble_s=pstep.bubble_s)
+            else:
+                self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
+                                        len(self._dq))
+        if self.qos is not None:
+            self.qos.observe_step(seconds)  # feeds the queue-wait estimator
+        return device_s
+
+    def _adapter_ids(self, slots: list) -> list | None:
+        """One adapter id a dispatched lane ("base" without one) for the
+        perf plane's attribution; None without the adapter plane."""
+        if self.adapters is None:
+            return None
+        return [s.adapter_id or "base" for s in slots]
 
     def generate(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
                  timeout: float | None = None, stream: bool = False,
@@ -611,15 +847,14 @@ class GenerateEngine:
         where the JAX App starts it in ``arun``."""
         if self._error is not None:
             return {"status": "DOWN", "details": {"error": str(self._error)}}
-        backlog = self._queue.qsize() + len(self._pending) + len(self._pending_long)
         return {"status": "UP" if self._thread.is_alive() else "DEGRADED",
-                "details": {"queue_depth": backlog}}
+                "details": {"queue_depth": self._backlog()}}
 
     def spec_accept_totals(self) -> dict[str, tuple[float, float]]:
         """Lifetime (accepted, proposed) draft tokens of speculative decoding
         by adapter, "base" for requests without one, summed over completed
         requests (engine.py:1877); empty before the first completes."""
-        with self._totals_lock:
+        with self._obs_lock:
             return {k: (v[0], v[1]) for k, v in self._spec_totals.items()}
 
     # -- the adapter plane (engine.py:2078-2152) ----------------------------------
@@ -637,6 +872,7 @@ class GenerateEngine:
                              f"{self._adapter_pool.rank} (adapter_rank)")
         with self._state_lock:
             self.adapters.register(spec, pool=self._adapter_pool)
+        self.metrics.set_gauge("app_tpu_adapters_registered", len(self.adapters.names()))
 
     def unregister_adapter(self, name: str) -> None:
         """Remove an adapter from both tiers; raises while a lane references
@@ -645,6 +881,7 @@ class GenerateEngine:
             return
         with self._state_lock:
             self.adapters.unregister(name, pool=self._adapter_pool)
+        self.metrics.set_gauge("app_tpu_adapters_registered", len(self.adapters.names()))
 
     def adapter_stats(self) -> dict[str, Any]:
         """Both tiers' occupancy and the weights epoch."""
@@ -828,6 +1065,8 @@ class GenerateEngine:
                 for name, t in model.state_dict().items():
                     t.copy_(state[name])
         self.weights_epoch += 1
+        self.metrics.set_gauge("app_tpu_weights_epoch", self.weights_epoch)
+        self.metrics.increment_counter("app_tpu_weight_swaps_total", 1)
         log.warning("weights adopted (weights epoch %d); slot-resident work requeued",
                     self.weights_epoch)
         done.set()
@@ -851,6 +1090,7 @@ class GenerateEngine:
             if self._prefix is not None:
                 for p in self._prefix.clear():
                     self._unref_page(p)
+                self._set_prefix_gauges()
 
     def _drain_device_state(self) -> None:
         """Settle every call still in flight, then drop the queue and the
@@ -914,12 +1154,14 @@ class GenerateEngine:
             st["busy_turns"] += 1
             st["busy_turn_s"] += time.perf_counter() - t
             return
-        try:
-            req = self._queue.get(timeout=0.05)
-        except queue.Empty:
-            return
-        with self._state_lock:
-            self._accept(req)
+        # idle: wait for work without taking it (engine.py:3381): a get and
+        # put back would skew QoS's fair credits and its wait metrics, and
+        # could reorder arrivals of one class; the next turn's admission
+        # drains it
+        self._queue.wait_nonempty(0.2)
+        if self.perf is not None:
+            # nothing queued, nothing in flight: true idleness is not bubble
+            self.perf.mark_no_work(time.monotonic())
 
     def _fold_all(self) -> bool:
         folded = False
@@ -976,7 +1218,14 @@ class GenerateEngine:
             self._pending.append((req, toks))
 
     def _drain(self) -> None:
-        while True:
+        """Move queued requests to the pending lists (engine.py:3390). With
+        QoS on, at most two admission rounds' worth a turn: a full drain
+        would freeze the classes' order at arrival inside the pending list,
+        where a bounded one lets late interactive work overtake queued
+        batch work."""
+        budget = 2 * self.num_slots + self.max_prefill_batch if self.qos is not None else -1
+        while budget != 0:
+            budget -= 1
             try:
                 self._accept(self._queue.get_nowait())
             except queue.Empty:
@@ -1039,7 +1288,14 @@ class GenerateEngine:
                 self._pending_long.insert(0, (req, toks))
                 break
             idx = self._free_slots()[0]
-            self._prefix_hit(idx, self._claim(idx, req, toks, ad), toks)
+            slot = self._claim(idx, req, toks, ad)
+            self._mark_admitted(req, time.monotonic())
+            req.kw["_slot"], req.kw["_prompt_len"] = idx, slot.prompt_len
+            rt = req.kw.get("_rt")
+            if rt is not None:
+                rt.begin("engine.prefill", **{"slot": idx, "prompt.tokens": slot.prompt_len,
+                                              "prefill.chunked": True})
+            self._prefix_hit(idx, slot, toks)
 
     def _admit_prefill(self) -> bool:
         """Plan and claim one batch under the state lock, then dispatch its
@@ -1065,6 +1321,7 @@ class GenerateEngine:
         the chunked path."""
         with self._state_lock:
             self._drain()
+            self.metrics.set_gauge("app_tpu_queue_depth", self._backlog())
             self._admit_long()
             if not self._pending:
                 return False
@@ -1108,7 +1365,17 @@ class GenerateEngine:
                     if 2 * len(chain) * self.page_size >= toks.shape[0]:
                         idx = self._free_slots()[0]
                         slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
+                        self._mark_admitted(req, time.monotonic())
+                        req.kw["_slot"], req.kw["_prompt_len"] = idx, slot.prompt_len
                         self._prefix_hit(idx, slot, toks, chain)
+                        rt = req.kw.get("_rt")
+                        if rt is not None:
+                            # the pages spliced: the chain stops short where a
+                            # host node finds no free page
+                            rt.begin("engine.prefill",
+                                     **{"slot": idx, "prompt.tokens": slot.prompt_len,
+                                        "prefill.chunked": True,
+                                        "prefix.hit_pages": len(self._slot_pages[idx])})
                         claimed = True
                     else:
                         still.append((req, toks))
@@ -1132,30 +1399,56 @@ class GenerateEngine:
                 # a batched admission serves nothing from the cache
                 self.counters["prefix_lookups"] += len(ready)
                 self.counters["prefix_misses"] += len(ready)
+                self.metrics.increment_counter("app_tpu_prefix_lookup_total", len(ready))
+                self.metrics.increment_counter("app_tpu_prefix_miss_total", len(ready))
             rows = free[:len(ready)]
             batch = []
+            t0 = time.monotonic()
             for idx, (req, toks) in zip(rows, ready):
+                self._mark_admitted(req, t0)
+                req.kw["_slot"], req.kw["_prompt_len"] = idx, int(toks.shape[0])
+                rt = req.kw.get("_rt")
+                if rt is not None:
+                    rt.begin("engine.prefill", **{"prefill.len_bucket": plan.len_bucket,
+                                                  "prefill.batch": plan.batch_bucket})
                 slot = self._claim(idx, req, toks, ad_of.get(id(req), (None, 0)))
                 slot.dispatched = slot.prompt_len  # the whole prompt in this call
                 batch.append((idx, slot))
             table_rows = None if self._table is None else self._table[rows].copy()
-            prefill = executor.PrefillPlan(batch, plan.len_bucket, table_rows, time.monotonic())
+            prefill = executor.PrefillPlan(batch, plan.len_bucket, plan.batch_bucket, table_rows,
+                                           t0)
         executor.dispatch_prefill(self, prefill)
         return True
 
-    def _fold_prefill(self, first: np.ndarray, batch: list[tuple[int, _Slot]]) -> None:
+    def _fold_prefill(self, first: np.ndarray, entry: executor.Entry) -> None:
         """A batched prefill's fold (engine.py:3834): each slot claimed at
         its dispatch takes its first token and starts decoding; a slot freed
-        or reassigned since is skipped, one cancelled or expired freed."""
+        or reassigned since is skipped, one cancelled or expired freed.
+        The step is recorded first; each lane folded counts its prompt and
+        first token."""
+        batch = entry.meta
         with self._state_lock:
+            dev_s = self._record_step("prefill", time.monotonic() - entry.t0, entry.occupancy,
+                                      entry.sig, entry.pstep,
+                                      self._adapter_ids([s for _, s in batch]))
             now = time.monotonic()
+            tokens = 0
             for row, (idx, s) in enumerate(batch):
                 if self.slots[idx] is not s:
                     continue  # freed, preempted or reassigned while in flight
                 if self._dropped(s.request, now):
                     self._free_slot(idx)
                     continue
+                kw = s.request.kw
+                if dev_s:
+                    kw["_dev_prefill_s"] = kw.get("_dev_prefill_s", 0.0) + dev_s
+                tokens += s.prompt_len + 1
+                rt = kw.get("_rt")
+                if rt is not None:
+                    rt.end("engine.prefill", **{"slot": idx, "batch.occupancy": entry.occupancy})
+                    rt.begin("engine.decode", **{"slot": idx})
                 self._activate_lane(idx, s, int(first[row]))
+            self.metrics.increment_counter("app_tpu_tokens_total", tokens)
 
     def _advance_chunked(self) -> bool:
         """Dispatch the next chunk of the oldest-admitted prefilling slot
@@ -1194,35 +1487,63 @@ class GenerateEngine:
         executor.dispatch_chunk(self, plan)
         return True
 
-    def _fold_chunk(self, first: np.ndarray | None, meta: tuple) -> None:
+    def _fold_chunk(self, first: np.ndarray | None, entry: executor.Entry) -> None:
         """A prefill chunk's fold (engine.py:3522): the cache holds the
         chunk; after the last one the slot takes its first token. A slot
         freed or reassigned since is skipped, one cancelled or expired
         freed."""
-        idx, s, chunk, _, last = meta
+        idx, s, chunk, offset, last = entry.meta
         with self._state_lock:
+            dev_s = self._record_step("prefill_chunk", time.monotonic() - entry.t0,
+                                      entry.occupancy, entry.sig, entry.pstep,
+                                      self._adapter_ids([s]))
             if self.slots[idx] is not s:
                 return  # freed, preempted or reassigned while in flight
             if self._dropped(s.request, time.monotonic()):
                 self._free_slot(idx)
                 return
+            kw = s.request.kw
+            if dev_s:
+                kw["_dev_prefill_s"] = kw.get("_dev_prefill_s", 0.0) + dev_s
+            self.metrics.increment_counter("app_tpu_tokens_total", chunk)
             s.written += chunk
+            rt = kw.get("_rt")
+            if rt is not None:
+                rt.event("engine.prefill", "chunk", offset=offset, tokens=chunk,
+                         bucket=entry.sig[1])
             if last:
+                if rt is not None:
+                    rt.end("engine.prefill")
+                    rt.begin("engine.decode", **{"slot": idx})
                 self._activate_lane(idx, s, int(first[0]))
 
-    def _fold_swapin(self, meta: tuple) -> None:
+    def _fold_swapin(self, entry: executor.Entry) -> None:
         """A swap-in's fold (engine.py:3592): the upload has landed, so its
         promoted nodes settle, whatever became of the slot (the pages hold
         what their nodes say; nothing needs undoing), and the upload is
         counted."""
-        _, _, keys, n_pages, nbytes, timer = meta
+        idx, s, keys, n_pages, nbytes, timer = entry.meta
+        now = time.monotonic()
         with self._state_lock:
+            dev_s = self._record_step("swapin", now - entry.t0, entry.occupancy, entry.sig,
+                                      entry.pstep)
             if self._prefix is not None:
                 for key in keys:
                     self._prefix.settle(key)
             self.counters["prefix_swapin_pages"] += n_pages
             self.counters["prefix_swapin_bytes"] += nbytes
             self._pipeline["swapin_s"] += executor.swapin_seconds(timer)
+            self.metrics.increment_counter("app_tpu_prefix_swapin_pages_total", n_pages)
+            self.metrics.record_histogram("app_tpu_prefix_swapin_seconds", now - entry.t0)
+            self.metrics.record_histogram("app_tpu_prefix_swapin_bytes", nbytes)
+            if self.slots[idx] is not s:
+                return  # freed, preempted or cancelled mid-swap-in
+            kw = s.request.kw
+            if dev_s:
+                kw["_dev_swapin_s"] = kw.get("_dev_swapin_s", 0.0) + dev_s
+            rt = kw.get("_rt")
+            if rt is not None:
+                rt.event("engine.prefill", "swapin", pages=n_pages, bytes=nbytes)
 
     def _activate_lane(self, idx: int, s: _Slot, tok: int) -> None:
         """The slot's prompt is in the cache: give it its first token, keep
@@ -1233,7 +1554,7 @@ class GenerateEngine:
         s.last_token = tok
         s.pos = s.prompt_len
         # a preempted request keeps the time of its first token
-        s.request.kw.setdefault("_first_token_at", time.monotonic())
+        self._mark_first_token(s.request)
         self._prefix_insert(idx)
         self._emit(s, tok)
         self._maybe_finish(idx)
@@ -1309,6 +1630,21 @@ class GenerateEngine:
         kw = s.request.kw
         # tokens generated before a preemption lead the result (engine.py:3920)
         tokens = list(kw.get("_prior_tokens", [])) + tokens
+        ft = kw["_first_token_at"]
+        if len(tokens) > 1:
+            # the decode pace, the first token excluded (TTFT's job)
+            self.metrics.record_histogram("app_tpu_tpot_seconds", (now - ft) / (len(tokens) - 1))
+            if self.slo is not None:
+                self.slo.observe(kw.get("_qos_class"), "tpot", (now - ft) / (len(tokens) - 1))
+        rt = kw.get("_rt")
+        if rt is not None:
+            attrs: dict[str, Any] = {"tokens": len(tokens), "finish.reason": finish}
+            proposed = kw.get("_spec_proposed", 0)
+            if proposed:
+                attrs["spec.accept_rate"] = round(kw.get("_spec_accepted", 0) / proposed, 4)
+            rt.end("engine.decode", **attrs)
+            # detokenization and completion; the done callback closes it
+            rt.begin("engine.finish")
         s.request.complete(result={
             "tokens": tokens,
             "text": self.tokenizer.decode(tokens) if self.tokenizer is not None else None,
@@ -1340,6 +1676,7 @@ class GenerateEngine:
             self._table[idx] = self.total_pages
             for p in pages:
                 self._unref_page(p)
+            self.metrics.set_gauge("app_tpu_kv_pages_free", len(self._free_pages))
         s = self.slots[idx]
         if s is not None and self._adapter_pool is not None:
             self._adapter_pool.release(s.adapter_slot)
@@ -1356,6 +1693,7 @@ class GenerateEngine:
         outside the lock. Caller holds the state lock."""
         if self._prefix is None:
             return False
+        freed = False
         while not self._free_pages:
             if self._prefix.host_budget:
                 picked = self._prefix.spill_lru()
@@ -1364,8 +1702,11 @@ class GenerateEngine:
                 key, p = picked
                 payload = gather_page(self.cache, p)
                 staged = executor.Readback(self.device, *payload)
-                self.counters["prefix_host_dropped_pages"] += self._prefix.commit_spill(
-                    key, payload, self._page_bytes)
+                dropped = self._prefix.commit_spill(key, payload, self._page_bytes)
+                self.counters["prefix_host_dropped_pages"] += dropped
+                if dropped:
+                    self.metrics.increment_counter("app_tpu_prefix_evicted_pages_total", dropped,
+                                                   tier="host")
                 self._pending_spills.append((key, staged))
                 self.counters["prefix_spilled_pages"] += 1
             else:
@@ -1373,8 +1714,19 @@ class GenerateEngine:
                 if p is None:
                     break
             self.counters["prefix_evicted_pages"] += 1
+            self.metrics.increment_counter("app_tpu_prefix_evicted_pages_total", 1, tier="hbm")
             self._unref_page(p)
+            freed = True
+        if freed:
+            self._set_prefix_gauges()
         return bool(self._free_pages)
+
+    def _set_prefix_gauges(self) -> None:
+        """Every prefix-cache occupancy gauge in one write (engine.py:2740):
+        eviction, insertion, promotion and clearing all end here."""
+        self.metrics.set_gauge("app_tpu_prefix_cached_pages", len(self._prefix))
+        self.metrics.set_gauge("app_tpu_prefix_host_pages", self._prefix.host_pages)
+        self.metrics.set_gauge("app_tpu_prefix_host_bytes", self._prefix.host_bytes)
 
     def _ensure_pages(self, idx: int, upto_pos: int) -> bool:
         """Grow slot ``idx``'s table until it covers position ``upto_pos``;
@@ -1421,6 +1773,8 @@ class GenerateEngine:
             self._table[idx, len(cur)] = self.total_pages
             self._unref_page(p)
             released += 1
+        if released:
+            self.metrics.set_gauge("app_tpu_kv_pages_free", len(self._free_pages))
         return released
 
     def _preempt_newest(self, except_slot: int | None = None) -> bool:
@@ -1438,11 +1792,18 @@ class GenerateEngine:
         self._free_slot(idx)
         kw = s.request.kw
         kw["_preemptions"] = kw.get("_preemptions", 0) + 1
+        rt = kw.get("_rt")
+        if rt is not None:
+            # whichever phase the slot was in ends here (end() no-ops on the
+            # other); re-admission opens a fresh engine.prefill span
+            rt.end("engine.prefill", preempted=True)
+            rt.end("engine.decode", preempted=True)
         kw["_prior_tokens"] = list(kw.get("_prior_tokens", [])) + s.generated
         kw["max_new_tokens"] = max(1, kw["max_new_tokens"] - len(s.generated))
         self._enqueue(s.request, np.concatenate([s.prompt_tokens,
                                                  np.asarray(s.generated, np.int64)]))
         self.counters["preemptions"] += 1
+        self.metrics.increment_counter("app_tpu_preemptions", 1)
         return True
 
     # -- the prefix cache (engine.py:2817-2924) -------------------------------------
@@ -1467,6 +1828,7 @@ class GenerateEngine:
         if self._prefix is None:
             return
         self.counters["prefix_lookups"] += 1
+        self.metrics.increment_counter("app_tpu_prefix_lookup_total", 1)
         if chain is None:
             chain = self._usable_hit(toks)
         pages: list[int] = []
@@ -1488,18 +1850,28 @@ class GenerateEngine:
             pages.append(p)
         if not pages:
             self.counters["prefix_misses"] += 1
+            self.metrics.increment_counter("app_tpu_prefix_miss_total", 1)
             return
         self._slot_pages[idx] = pages
         self._table[idx, :len(pages)] = pages
         slot.written = slot.dispatched = len(pages) * self.page_size
         host_tokens = len(pids) * self.page_size
+        hbm_tokens = slot.written - host_tokens
         self.counters["prefix_hit_tokens"] += slot.written
         self.counters["prefix_host_hit_tokens"] += host_tokens
+        if hbm_tokens:
+            self.metrics.increment_counter("app_tpu_prefix_hit_tokens", hbm_tokens, tier="hbm")
+        if host_tokens:
+            self.metrics.increment_counter("app_tpu_prefix_hit_tokens", host_tokens, tier="host")
         kw = slot.request.kw
         kw["_prefix_hit_tokens"] = kw.get("_prefix_hit_tokens", 0) + slot.written
         kw["_prefix_host_tokens"] = kw.get("_prefix_host_tokens", 0) + host_tokens
+        # this admission's tiers, for the flight recorder (engine.py:2898)
+        kw["_prefix"] = {"hbm_tokens": hbm_tokens, "host_tokens": host_tokens,
+                         "swapin_pages": len(pids)}
         if pids:
             self._pending_swapins.append((idx, slot, keys, pids, payloads))
+            self._set_prefix_gauges()  # host bytes shrank at the promotion
 
     def _prefix_insert(self, idx: int) -> None:
         """Keep the full prompt pages of a slot that just finished its
@@ -1508,8 +1880,11 @@ class GenerateEngine:
         if self._prefix is None or s is None:
             return
         n_full = s.prompt_len // self.page_size
-        for p in self._prefix.insert(s.prompt_tokens, self._slot_pages[idx][:n_full]):
+        new = self._prefix.insert(s.prompt_tokens, self._slot_pages[idx][:n_full])
+        for p in new:
             self._ref_page(p)
+        if new:
+            self._set_prefix_gauges()
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return executor.to_device(a, self.device)
@@ -1645,8 +2020,9 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
     the model is the ``ModelSpec``'s (its config, weights, tokenizer and
     dtype), the knobs come from the container's config (``engine_knobs``)
     with ``kw`` winning, the eos id from the tokenizer unless
-    ``eos_token_id`` is given, and a random model is announced with the
-    logger's warn.
+    ``eos_token_id`` is given, a random model is announced with the
+    logger's warn, and the engine takes its request planes from the
+    container.
 
     ``build_engine(preset_or_config, params=..., **kw)`` is the direct one:
     a preset name or a ``LlamaConfig``, and ``kw`` straight to
@@ -1703,4 +2079,5 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
         spec_draft = (dcfg, _model(dcfg, spec_draft[1], dev, seed + 1))
-    return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, **kw)
+    return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, container=container,
+                          **kw)

@@ -30,6 +30,11 @@ from the data dependencies on its donated cache).
 Locking, as in the JAX executor: the scheduler (``gpu/engine.py``)
 snapshots what a dispatch needs into a plan under the state lock; the
 dispatch runs outside it, on the engine's device thread.
+
+With the perf plane on (``eng.perf``), each dispatch prices its call from
+host state alone (prompt lengths, chunk offsets, bytes uploaded) into a
+``StepPerf`` that rides the entry; the fold stamps its ready time where
+the readback's wait returns.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from gofr_tpu_torch.gpu.planner import next_bucket
 from gofr_tpu_torch.gpu.programs import prefill_chunk, prefill_sample
+from gofr_tpu_torch.metrics.perf import StepPerf
 from gofr_tpu_torch.ops.paged import swap_in_pages
 
 if TYPE_CHECKING:
@@ -87,12 +93,17 @@ class Readback:
 class Entry:
     """One device call in flight on ``eng._dq``: its kind ("prefill",
     "chunk", "swapin", "plain" or "spec"), its ``Readback``, what its fold
-    needs (``meta``) and the monotonic time it was dispatched."""
+    needs (``meta``), the monotonic time it was dispatched, its batch
+    occupancy and signature (the flight recorder's step entry, as the JAX
+    queue's entries carry them) and its perf-plane record (None with the
+    plane off)."""
 
-    __slots__ = ("kind", "result", "meta", "t0")
+    __slots__ = ("kind", "result", "meta", "t0", "occupancy", "sig", "pstep")
 
-    def __init__(self, kind: str, result: Readback, meta: Any, t0: float):
+    def __init__(self, kind: str, result: Readback, meta: Any, t0: float,
+                 occupancy: float = 1.0, sig: tuple = (), pstep: StepPerf | None = None):
         self.kind, self.result, self.meta, self.t0 = kind, result, meta, t0
+        self.occupancy, self.sig, self.pstep = occupancy, sig, pstep
 
 
 def enqueue(eng: GenerateEngine, entry: Entry) -> None:
@@ -107,14 +118,16 @@ class PrefillPlan:
     """One batched prefill, taken under the state lock by
     ``engine._admit_prefill`` (executor.py:52): the claimed (slot index,
     slot) pairs in batch order, the plan's length bucket (the width of the
-    token history's seed) and, on the paged layout, a copy of their table
-    rows."""
+    token history's seed) and batch bucket (the occupancy's denominator,
+    as the JAX batch is padded to it) and, on the paged layout, a copy of
+    their table rows."""
 
-    __slots__ = ("batch", "len_bucket", "table_rows", "t0")
+    __slots__ = ("batch", "len_bucket", "batch_bucket", "table_rows", "t0")
 
-    def __init__(self, batch: list[tuple[int, _Slot]], len_bucket: int,
+    def __init__(self, batch: list[tuple[int, _Slot]], len_bucket: int, batch_bucket: int,
                  table_rows: np.ndarray | None, t0: float):
-        self.batch, self.len_bucket, self.table_rows, self.t0 = batch, len_bucket, table_rows, t0
+        self.batch, self.len_bucket, self.batch_bucket = batch, len_bucket, batch_bucket
+        self.table_rows, self.t0 = table_rows, t0
 
 
 class ChunkPlan:
@@ -152,7 +165,11 @@ def dispatch_prefill(eng: GenerateEngine, plan: PrefillPlan) -> None:
         to_device(temps, dev), eng._generator, top_k=eng.top_k, top_p=eng.top_p,
         do_sample=bool(temps.max() > 0), aux=eng._aux, slots=slot_ids, width=plan.len_bucket,
         adapters=eng._adapter_args(np.array([s.adapter_slot for _, s in batch])))
-    enqueue(eng, Entry("prefill", Readback(dev, first), batch, plan.t0))
+    pstep = (eng.perf.step_prefill(sum(s.prompt_len for _, s in batch), plan.t0)
+             if eng.perf is not None else None)
+    enqueue(eng, Entry("prefill", Readback(dev, first), batch, plan.t0,
+                       len(batch) / plan.batch_bucket,
+                       ("prefill", plan.len_bucket, plan.batch_bucket), pstep))
 
 
 def dispatch_chunk(eng: GenerateEngine, plan: ChunkPlan) -> None:
@@ -160,6 +177,7 @@ def dispatch_chunk(eng: GenerateEngine, plan: ChunkPlan) -> None:
     sampled token rides the queue to ``engine._fold_chunk``, an earlier
     chunk's entry only marks that it has run."""
     s, offset, chunk = plan.slot, plan.offset, plan.chunk
+    lb = next_bucket(chunk, eng.prefill_buckets)
     dev = eng.device
     tok = prefill_chunk(
         eng.model, eng.cache, to_device(s.prompt_tokens[None, offset:offset + chunk], dev),
@@ -167,10 +185,11 @@ def dispatch_chunk(eng: GenerateEngine, plan: ChunkPlan) -> None:
         to_device(np.array([s.temperature], np.float32), dev), eng._generator, plan.last,
         top_k=eng.top_k, top_p=eng.top_p, do_sample=s.temperature > 0, aux=eng._aux,
         slots=None if eng._aux is None else to_device(np.array([plan.idx], np.int64), dev),
-        width=next_bucket(chunk, eng.prefill_buckets),
-        adapters=eng._adapter_args(np.array([s.adapter_slot])))
+        width=lb, adapters=eng._adapter_args(np.array([s.adapter_slot])))
     result = Readback(dev) if tok is None else Readback(dev, tok)
-    enqueue(eng, Entry("chunk", result, (plan.idx, s, chunk, offset, plan.last), plan.t0))
+    pstep = eng.perf.step_chunk(chunk, offset, plan.t0) if eng.perf is not None else None
+    enqueue(eng, Entry("chunk", result, (plan.idx, s, chunk, offset, plan.last), plan.t0,
+                       chunk / lb, ("prefill_chunk", lb, 1), pstep))
 
 
 def dispatch_swapins(eng: GenerateEngine) -> bool:
@@ -181,7 +200,9 @@ def dispatch_swapins(eng: GenerateEngine) -> bool:
     hit; ``engine._fold_swapin`` settles the nodes. Each upload is timed on
     the card by a pair of events (on the CPU by the host clock, the copy
     being done when it returns). Every id is a pool page, so none is
-    padded. Returns whether one was dispatched."""
+    padded (JAX pads the upload to a bucket of pages, so its occupancy
+    falls below 1 and its bytes count the padding). Returns whether one
+    was dispatched."""
     items, eng._pending_swapins = eng._pending_swapins, []
     dev = eng.device
     for idx, slot, keys, pids, payloads in items:
@@ -199,8 +220,9 @@ def dispatch_swapins(eng: GenerateEngine) -> bool:
         else:
             timer = time.perf_counter() - timer
         nbytes = len(pids) * eng._page_bytes
-        enqueue(eng, Entry("swapin", Readback(dev),
-                           (idx, slot, keys, len(pids), nbytes, timer), t0))
+        pstep = eng.perf.step_swapin(nbytes, t0) if eng.perf is not None else None
+        enqueue(eng, Entry("swapin", Readback(dev), (idx, slot, keys, len(pids), nbytes, timer),
+                           t0, 1.0, ("swapin", len(pids)), pstep))
     return bool(items)
 
 

@@ -1,10 +1,14 @@
-"""HTTP middleware chain (the port's own copy of the logging, CORS and
-metrics middlewares of gofr_tpu/http/middleware/__init__.py, written
-against ``http/server.py``'s middleware signature instead of aiohttp's).
+"""HTTP middleware chain (the port's own copy of gofr_tpu/http/
+middleware/__init__.py, written against ``http/server.py``'s middleware
+signature instead of aiohttp's).
 
-Order (outermost first), as the JAX App builds it (app.py:357-363) less
-the tracer: logging → CORS → metrics → handler. The tracer, auth and QoS
-middlewares are not ported yet.
+Order (outermost first), as the JAX App builds it (app.py:273-286):
+tracer → logging → CORS → metrics → QoS (when enabled) → handler. The
+tracer middleware opens the request's server span (inbound
+``traceparent`` honoured, ``X-Trace-Id`` on the response) and hands it on
+in ``request.state``, where logging fills its ``trace_id`` / ``span_id``
+and the route handler passes it to the engine. The auth middlewares are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -14,8 +18,43 @@ import traceback
 import uuid
 from typing import Any, Callable
 
+from gofr_tpu_torch.http.errors import retry_after_hint
+from gofr_tpu_torch.http.request import _CIDict
 from gofr_tpu_torch.http.server import Handler, ServerRequest, ServerResponse
 from gofr_tpu_torch.http.responder import to_json
+from gofr_tpu_torch.tracing import Tracer
+
+# ``ServerRequest.state`` keys (the JAX middlewares' request keys)
+SPAN_KEY = "gofr_span"
+QOS_KEY = "gofr_qos_class"
+
+
+def tracer_middleware(tracer: Tracer):
+    """A SERVER span per request, joined to an inbound ``traceparent``;
+    its trace id goes back as ``X-Trace-Id`` (http/middleware/__init__.py:
+    27-52)."""
+
+    async def mw(request: ServerRequest, handler: Handler) -> ServerResponse:
+        span = tracer.start_span(f"{request.method} {request.path}",
+                                 traceparent=request.headers.get("traceparent"), kind="SERVER",
+                                 set_current=False)
+        span.set_attribute("http.method", request.method)
+        span.set_attribute("http.target", request.path_qs)
+        request.state[SPAN_KEY] = span
+        try:
+            response = await handler(request)
+            span.set_attribute("http.status_code", response.status)
+            # clients (and support tickets) can quote the trace without a
+            # propagation-aware client library
+            response.headers.setdefault("X-Trace-Id", span.trace_id)
+            return response
+        except Exception:
+            span.set_status("ERROR")
+            raise
+        finally:
+            span.finish()
+
+    return mw
 
 
 class RequestLog:
@@ -59,7 +98,10 @@ def logging_middleware(logger):
 
     async def mw(request: ServerRequest, handler: Handler) -> ServerResponse:
         start = time.perf_counter()
-        correlation = uuid.uuid4().hex  # the trace id, once a tracer is ported
+        span = request.state.get(SPAN_KEY)
+        trace_id = span.trace_id if span else ""
+        span_id = span.span_id if span else ""
+        correlation = trace_id or uuid.uuid4().hex
         ip = request.headers.get("x-forwarded-for", request.remote)
         if "," in ip:
             ip = ip.split(",")[0].strip()
@@ -70,7 +112,7 @@ def logging_middleware(logger):
                 "message": "panic recovered",
                 "error": repr(exc),
                 "stack": traceback.format_exc(),
-                "trace_id": "",
+                "trace_id": trace_id,
                 "uri": request.path_qs,
             })
             if request.stream is not None:
@@ -80,7 +122,7 @@ def logging_middleware(logger):
         response.headers["X-Correlation-ID"] = correlation
         duration_us = int((time.perf_counter() - start) * 1e6)
         log_fn = logger.info if response.status < 500 else logger.error
-        log_fn(RequestLog("", "", request.method, request.path_qs, response.status,
+        log_fn(RequestLog(trace_id, span_id, request.method, request.path_qs, response.status,
                           duration_us, ip))
         return response
 
@@ -124,5 +166,41 @@ def metrics_middleware(metrics):
                 "app_http_response", time.perf_counter() - start,
                 path=request.route_template, method=request.method, status=str(status),
             )
+
+    return mw
+
+
+def qos_middleware(controller):
+    """Admission at the transport edge (http/middleware/__init__.py:150-191):
+    rate limits and backlog shedding answer 429/503 with ``Retry-After``
+    and the JSON envelope BEFORE the handler (and so the engine) sees the
+    request. The resolved class rides ``request.state`` so
+    ``ctx.generate`` / ``ctx.agenerate`` schedule it without the handler's
+    help. Well-known routes always pass: a load balancer probing an
+    overloaded instance must still see its health."""
+
+    async def mw(request: ServerRequest, handler: Handler) -> ServerResponse:
+        if request.path.startswith("/.well-known/") or request.path == "/favicon.ico":
+            return await handler(request)
+        headers = _CIDict(dict(request.raw_headers))
+        cls_name = controller.classify(headers)
+        span = request.state.get(SPAN_KEY)
+        if span is not None:
+            # a shed request's span shows WHY it never reached the engine
+            span.set_attribute("qos.class", cls_name)
+        decision = controller.admit_transport(
+            route=request.route_template,
+            api_key=headers.get("X-API-KEY", ""),
+            tenant=headers.get(controller.policy.tenant_header, ""),
+            cls_name=cls_name,
+        )
+        if not decision.allowed:
+            if span is not None:
+                span.set_attribute("qos.rejected", decision.reason)
+            return ServerResponse(decision.status,
+                                  to_json({"error": {"message": decision.message}}),
+                                  headers={"Retry-After": retry_after_hint(decision.retry_after)})
+        request.state[QOS_KEY] = cls_name
+        return await handler(request)
 
     return mw

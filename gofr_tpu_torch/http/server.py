@@ -91,7 +91,9 @@ class ServerRequest:
     lower-cased names to values (``raw_headers`` keeps the wire's names);
     ``route_template`` and ``path_params`` are the matched route's.
     ``accepted_at`` and ``read_at`` are the monotonic times the server
-    accepted the connection and had read the whole request."""
+    accepted the connection and had read the whole request. ``state``
+    carries what a middleware hands the layers inside it (the server span,
+    the QoS class)."""
 
     def __init__(self, method: str, target: str, raw_headers: list[tuple[str, str]], body: bytes,
                  remote: str, reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
@@ -108,6 +110,7 @@ class ServerRequest:
         self._reader, self._writer = reader, writer
         self.stream: ChunkedStream | None = None
         self.accepted_at, self.read_at = accepted_at, time.monotonic()
+        self.state: dict[str, Any] = {}
 
     @property
     def path_qs(self) -> str:

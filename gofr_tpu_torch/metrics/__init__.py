@@ -6,8 +6,10 @@ counter / up-down counter / histogram / settable gauge registered by name
 (`store.go:7-34`, `register.go:41-46`), label-cardinality warning past 20 distinct
 label sets (`register.go:249-268`), and a Prometheus exposition endpoint served on
 a dedicated port (`exporters/exporter.go:14-29`) that also samples process runtime
-gauges per scrape (`handler.go:22-35`). The flight recorder, the SLO, perf
-and quality planes and fleet federation are not ported yet.
+gauges per scrape (`handler.go:22-35`). The flight recorder
+(``metrics/flight.py``), the SLO plane (``metrics/slo.py``) and the perf
+plane (``metrics/perf.py``) sit beside it; the quality plane waits for
+ROADMAP.md Queue A 5b, and fleet federation for the fleet.
 """
 
 from __future__ import annotations
@@ -240,6 +242,15 @@ class Registry:
     def add_collect_hook(self, hook: Callable[["Registry"], None]) -> None:
         """Hook invoked on every scrape (runtime/HBM gauges sample here)."""
         self._collect_hooks.append(hook)
+
+    def remove_collect_hook(self, hook: Callable[["Registry"], None]) -> None:
+        """Unregister a scrape hook (no-op if absent) — replacing a
+        component (e.g. re-enabling QoS) must not leave its stale sampler
+        writing gauges on every scrape."""
+        try:
+            self._collect_hooks.remove(hook)
+        except ValueError:
+            pass
 
     def expose_text(self) -> str:
         for hook in list(self._collect_hooks):

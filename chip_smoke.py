@@ -20,7 +20,8 @@ result line:
    and 4 x 1024 prefills, full and ragged, a chunk of 200 queries after
    cached offsets and one of 512 at offset 512 (phase 4's chunk), and the
    verify forward of speculative decoding, 5 queries at each live slot's
-   length against 2176 keys; the five appends, bf16 and quantizing, on
+   length against 2176 keys, and the quality plane's teacher-forced
+   forward, one sequence of 1088 keys in a bucket of 2048; the five appends, bf16 and quantizing, on
    edge lanes: a position of -1, past the table, through an OOB or
    negative entry, at and past Smax, an all-zero row and a row whose max
    is one element; the W8A16 linear at Llama-3-8B's five (N, K) for M =
@@ -101,7 +102,7 @@ result line:
    POSTs, the launch counters show ``bf16``'s kernels and no other, and
    after ``stop`` the engine's thread has ended; it prints the HTTP
    overhead per request, the SSE first event against the engine's TTFT
-   and decode tok/s beside ``bf16``'s. Last ``paged_w8``: the engine
+   and decode tok/s beside ``bf16``'s. Then ``paged_w8``: the engine
    built from a ``ModelSpec`` of the phase's bf16 model and a container
    whose config is ``W8_CONFIG`` (``bf16``'s knobs, ``ENGINE_QUANTIZE=
    int8``) serves ``bf16``'s traffic; the int8 model must hold
@@ -109,7 +110,32 @@ result line:
    tokens, A, B and C launch and the W8A16 kernel 7 x 32 + 1 times a model
    forward (it launches in no other run); it prints the share of requests
    whose tokens equal ``bf16``'s (not held: int8 weights move the logits)
-   and tok/s and TTFT beside ``bf16``'s;
+   and tok/s and TTFT beside ``bf16``'s. Then ``paged_warmup``: on
+   ``bf16``'s knobs and model, ``warmup()`` after a request left pages in
+   the prefix cache must run JAX's count of calls, launch A, B and C, and
+   leave the pool's bytes and books and the prefix cache as they were;
+   ``bf16``'s prompts after it end with ``bf16``'s tokens by the tie rule.
+   Then ``paged_restart``:
+   ``bf16``'s knobs and model with a host-side fault planted in the decode
+   dispatch once the 8 requests are in slots; they must fail with it,
+   health read DEGRADED inside the backoff, the 8 prompts submitted after
+   the fault end with 64 tokens, equal to ``bf16``'s by the tie rule,
+   ``app_tpu_engine_restarts`` read 1, the pool's audit pass and A, B, C
+   launch; it prints the seconds from the fault to the next token. Then
+   ``paged_quality`` and ``int8_quality``: the engine from a ``ModelSpec``
+   and ``QUALITY_CONFIG`` (every finished request shadow-scored) on the
+   bf16 and the int8 pool serves the 8 prompts and drains its plane: 8
+   samples, no error, the tokens of the run without the plane by the tie
+   rule, each arm launching C once a layer, on the bf16 pool the arms
+   equal (KL 0), at every top-1 disagreement the emitted token within
+   ``SPEC_TIE_GAP`` of the serving arm's top logit; on the bf16 pool the App
+   serves the engine under ``CAPTURE_CONFIG``, and the capture bundle a 1
+   ms interactive TTFT objective writes, and a ``/debug/profile`` taken
+   during a second wave, must each hold a trace with C's and A's kernel
+   events; it prints each sample's bucket, each arm's device ms and C's
+   share. Last ``cold_start``: ``scripts/torch_cold_start.py`` in two fresh
+   processes, ``ENGINE_WARMUP`` false and true, prints warmup's seconds and
+   count and the first and a second request's TTFT;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -531,6 +557,32 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                           lambda i: F.scaled_dot_product_attention(qch, kch, vch,
                                                                    attn_mask=chunk_mask),
                           iters=50, plain_iters=5)}
+        # the quality plane's teacher-forced forward (metrics/quality.py,
+        # phase 4's quality runs): batch 1, a bucket of 2048 padded
+        # positions, keys masked by the sequence's length (phase 4's
+        # longest, 1024 + 64); every query row attends min(i + 1, length)
+        # keys, the padded rows included
+        tf = 1024 + 64
+        qt = torch.randn(1, 2048, hq, d, device=dev, generator=gen).to(bf)
+        kt, vt = (torch.randn(1, 2048, hkv, d, device=dev, generator=gen).to(bf) for _ in range(2))
+        lent = torch.tensor([tf], device=dev, dtype=torch.int32)
+        checks["teacher_forced_2048"] = flash_agree("teacher-forced 2048", qt, kt, vt,
+                                                    kv_lengths=lent)[0]
+        b_ms_t, b_by_t = bound_ms(2 * 2 * qt.numel() + 2 * tf * hkv * d * 2 + 4,
+                                  4 * hq * d * (tf * (tf + 1) // 2 + (2048 - tf) * tf))
+        # yardstick only: SDPA with the causal and length mask as a bool mask
+        # and enable_gqa, on head-major views made outside the timed call
+        pos = torch.arange(2048, device=dev)
+        tf_mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < tf)
+        qth, kth, vth = (t.transpose(1, 2) for t in (qt, kt, vt))
+        teacher = {"shape": {"batch": 1, "bucket": 2048, "kv_length": tf, "causal": True},
+                   "bound_ms": b_ms_t, "bound_by": b_by_t,
+                   **timing(lambda i: flash_attention(qt, kt, vt, causal=True, kv_lengths=lent),
+                            lambda i: mha_attention_plain(qt, kt, vt, causal=True,
+                                                          kv_lengths=lent),
+                            lambda i: F.scaled_dot_product_attention(
+                                qth, kth, vth, attn_mask=tf_mask, enable_gqa=True),
+                            iters=20, plain_iters=3)}
         long = {"shape": {"batch": 4, "seq": 1024, "causal": True}, "bound_ms": b_ms_l,
                 "bound_by": b_by_l,
                 **timing(lambda i: flash_attention(q2, k2, v2, causal=True),
@@ -548,7 +600,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                      lambda i: mha_attention_plain(qf, kf, vf, causal=True), sdpa(qf, kf, vf),
                      iters=20, plain_iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "seq_1024": long, "chunk_512_at_512": chunk,
-            "verify_5_at_live": verify,
+            "verify_5_at_live": verify, "teacher_forced_2048": teacher,
             "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
 
@@ -1497,14 +1549,18 @@ PIPELINE = {"requests": 16, "waves": 4, "new_tokens": 64}
 DEPTHS = (1, 2, 2, 1)
 
 
-def wait_idle(eng, timeout: float = 120.0) -> dict:
+def wait_idle(eng, timeout: float = 120.0, allow_dropped: bool = False) -> dict:
     """Wait until the engine has folded every call it dispatched (a
     speculative round can go out for a lane that an older round's fold then
-    ends, and its launches are counted); returns ``pipeline_stats()``."""
+    ends, and its launches are counted); returns ``pipeline_stats()``. A
+    call settled without a fold fails the hold, unless ``allow_dropped``
+    says that a crash in this run dropped the calls in flight."""
     deadline = time.monotonic() + timeout
     while True:
         st = eng.pipeline_stats()
-        if st["folds"] == sum(st["dispatched"].values()):
+        dropped = st["dropped"] if allow_dropped else 0
+        require(allow_dropped or st["dropped"] == 0, f"calls dropped without a crash: {st}")
+        if st["folds"] + dropped == sum(st["dispatched"].values()):
             return st
         require(time.monotonic() < deadline, f"calls still in flight after the requests: {st}")
         time.sleep(0.001)
@@ -2353,6 +2409,461 @@ def http_planes(torch, cuda, model, base_outs: list) -> dict:
             "note": "an A/B in one call, not a benchmark; nothing about speed is held"}
 
 
+# Phase 4's life cycle and quality runs. ``paged_restart``: ``bf16``'s
+# knobs and model with one host-side fault planted in the decode dispatch
+# once the 8 requests are all in slots; the loop fails them, backs off,
+# restarts and serves the same 8 prompts submitted after the fault.
+# ``paged_quality`` / ``int8_quality``: ``bf16``'s and ``int8``'s pools
+# with ``QUALITY_CONFIG`` (every finished request shadow-scored, up to 64
+# emitted tokens), and on the bf16 pool an SLO capture with a trace and a
+# ``/debug/profile`` through the App. ``cold_start``: two fresh processes of
+# ``scripts/torch_cold_start.py``.
+RESTART_FAULT = "planted host-side fault in the decode dispatch"
+QUALITY_CONFIG = {**HTTP_CONFIG, "QUALITY_SHADOW_RATE": "1", "QUALITY_MAX_TOKENS": "64"}
+# the capture run: an interactive TTFT objective of 1 ms that no request
+# meets, judged from the first sample on (the other latency objectives
+# off, so no other sample breaches first); the wave's second half is sent
+# once the capture's trace runs, so the trace takes its prefill and decode
+CAPTURE_CONFIG = {"APP_ENV": "DEBUG", "SLO_CAPTURE": "true", "SLO_CAPTURE_TRACE_S": "3",
+                  "SLO_INTERACTIVE_TTFT_MS": "1", "SLO_MIN_SAMPLES": "1",
+                  "SLO_CHECK_INTERVAL_S": "0",
+                  **{f"SLO_{cls}_{obj}_MS": "0" for cls, obj in (
+                      ("DEFAULT", "TTFT"), ("DEFAULT", "TPOT"), ("DEFAULT", "E2E"),
+                      ("INTERACTIVE", "TPOT"), ("INTERACTIVE", "E2E"))}}
+PROFILE_S = 2
+# the kernels' names in a trace: C and, on the bf16 pool, A
+TRACE_KERNELS = {"flash_attention": "flash_kernel", "paged_decode": "paged_decode_kernel"}
+COLD_START = {"layers": 2, "prompt": 512, "new": 16}
+
+
+def serve_warmup(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``paged_warmup``: ``bf16``'s knobs and model; a 300-token
+    request leaves two pages in the prefix cache, then ``warmup()``. Held:
+    it runs JAX's count for the knobs (every length bucket x batch bucket,
+    every chunk, one decode chunk), launches A, B and C and no other
+    kernel, and leaves the pool's bytes, refcounts, free list, table and
+    prefix cache as they were and the pool's audit clean; then ``bf16``'s 8
+    prompts end with 64 tokens, equal to ``bf16``'s (a cold engine's) by
+    the tie rule. Printed: warmup's seconds and count."""
+    from gofr_tpu_torch.gpu.engine import build_engine
+    from gofr_tpu_torch.gpu.planner import pow2_buckets
+
+    eng = build_engine(model.cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                       max_prefill_batch=4, decode_chunk=8)
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    try:
+        first = eng.generate(list(range(1, 301)), max_new_tokens=2, timeout=600)
+        require(first["finish_reason"] == "length", f"paged_warmup first request: {first}")
+        wait_idle(eng)
+        torch.cuda.synchronize()
+        pool = [t.clone() for t in vars(eng.cache).values()]
+        books = (eng._page_refs.copy(), eng._table.copy(), sorted(eng._free_pages),
+                 sorted(eng._prefix._nodes))
+        require(books[3], "paged_warmup: the prefix cache holds nothing to keep")
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        count = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        counts = cuda.launch_counts()
+        same_pool = all(torch.equal(a, b) for a, b in zip(pool, vars(eng.cache).values()))
+        del pool
+        after = (eng._page_refs, eng._table, sorted(eng._free_pages), sorted(eng._prefix._nodes))
+        same_books = (all((a == b).all() for a, b in zip(books[:2], after[:2]))
+                      and books[2:] == after[2:])
+        eng.check_page_refs()
+        reqs = [eng.submit(p, max_new_tokens=64) for p in prompts]
+        outs = [r.result(timeout=900) for r in reqs]
+        wait_idle(eng)
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    want = len(pow2_buckets(16, 2048)) * (len(pow2_buckets(1, 4)) + 1) + 1
+    require(count == want, f"paged_warmup: warmup ran {count} calls, JAX's count is {want}")
+    require(same_pool and same_books,
+            f"paged_warmup: warmup changed the pool's bytes ({not same_pool}) or its books "
+            f"({not same_books})")
+    for name, launches in counts.items():
+        require((launches > 0) == (name in ON_PATH["paged", ""]),
+                f"paged_warmup: warmup launched kernel {name} {launches} times")
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                f"paged_warmup request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+    agree = token_agreement(torch, model, prompts, outs, base_outs)
+    gaps = [m["chosen_below_top1"] for m in agree["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"paged_warmup: at a first difference from bf16 the run chose a token {gaps} below "
+            f"the top logit (limit {SPEC_TIE_GAP})")
+    return {"model": "llama3_8b (random bf16 weights, seed 0)", "kv_pool": "bf16",
+            "warmup_s": warm_s, "warmup_count": count, "warmup_launches": counts,
+            "pool_unchanged": same_pool, "books_unchanged": same_books, **agree,
+            "nvidia_smi": smi_line()}
+
+
+def serve_restart(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``paged_restart``. Held: the 8 slot-resident requests fail
+    with the planted error; health reads DEGRADED with ``restarting`` inside
+    the backoff (read from the restart hook); the 8 prompts submitted after
+    the fault all end with 64 tokens, equal to the ``bf16`` run's by the tie
+    rule; ``app_tpu_engine_restarts`` is 1, health UP with ``restarts`` 1,
+    the pool's audit passes; A, B and C launch and no other kernel. Printed:
+    the seconds from the fault to the first token served after it."""
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.gpu import decode
+    from gofr_tpu_torch.gpu.engine import GenerateEngine
+
+    c = Container.create(DictConfig({"LOG_LEVEL": "ERROR"}))
+    eng = GenerateEngine(model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                         max_prefill_batch=4, decode_chunk=8, container=c)
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    real, fault, seen = decode.dispatch_decode, {}, []
+
+    def planted(e):
+        if not fault and len(e._active()) == len(prompts):
+            fault["t"] = time.monotonic()
+            raise RuntimeError(RESTART_FAULT)
+        return real(e)
+
+    eng._restart_hook = lambda attempt: seen.append(eng.health_check())
+    try:
+        warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+        require(warm["finish_reason"] == "length", f"paged_restart warm-up: {warm}")
+        wait_idle(eng)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        decode.dispatch_decode = planted
+        try:
+            first, errors = [eng.submit(p, max_new_tokens=64) for p in prompts], []
+            for r in first:
+                try:
+                    r.result(timeout=900)
+                    errors.append(None)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            t_resubmit = time.monotonic()
+            second = [eng.submit(p, max_new_tokens=64) for p in prompts]
+            outs = [r.result(timeout=900) for r in second]
+        finally:
+            decode.dispatch_decode = real
+        wait_idle(eng, allow_dropped=True)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        health = eng.health_check()
+        st = eng.pipeline_stats()
+        eng.check_page_refs()
+        restarts = c.metrics.get("app_tpu_engine_restarts").value()
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    require(errors == [RESTART_FAULT] * len(prompts),
+            f"paged_restart: the slot-resident requests ended {errors}")
+    require(seen[:1] == [{"status": "DEGRADED", "details": {"restarting": True, "restarts": 1}}],
+            f"paged_restart: health inside the backoff read {seen}")
+    require(restarts == 1 and health == {"status": "UP",
+                                         "details": {"queue_depth": 0, "restarts": 1}},
+            f"paged_restart: {restarts} restarts, health {health}")
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                f"paged_restart request {i} after the fault: {o['finish_reason']}, "
+                f"{len(o['tokens'])} tokens")
+    for name, launches in counts.items():
+        on = name in ON_PATH["paged", ""]
+        require((launches > 0) == on, f"paged_restart: kernel {name} launched {launches} times")
+    agree = token_agreement(torch, model, prompts, outs, base_outs)
+    gaps = [m["chosen_below_top1"] for m in agree["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"paged_restart: at a first difference from bf16 the run chose a token {gaps} below "
+            f"the top logit (limit {SPEC_TIE_GAP})")
+    first_token = min(r.enqueued_at + o["ttft_s"] for r, o in zip(second, outs))
+    return {"model": "llama3_8b (random bf16 weights, seed 0)", "kv_pool": "bf16",
+            "fault": RESTART_FAULT, "failed_in_slots": len(errors),
+            "health_in_backoff": seen[0], "health_after": health, "restarts": restarts,
+            "resubmitted_after_fault_s": t_resubmit - fault["t"],
+            "fault_to_first_token_s": first_token - fault["t"],
+            "ttft_after_fault_s": sorted(o["ttft_s"] for o in outs),
+            "host_ms_per_busy_turn": st["busy_turn_s"] / st["busy_turns"] * 1e3,
+            "busy_turns": st["busy_turns"], "calls_dropped": st["dropped"],
+            "launches": counts, **agree, "nvidia_smi": smi_line()}
+
+
+def trace_kernels(path: str) -> dict[str, int]:
+    """Kernel events of a Chrome trace by name prefix (up to the template
+    arguments)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    names: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")
+            names[name[:60]] = names.get(name[:60], 0) + 1
+    return names
+
+
+def hold_trace(label: str, path: str) -> dict:
+    """Hold that the trace at ``path`` has C's and A's kernel events;
+    returns their counts and the trace's kernel events."""
+    names = trace_kernels(path)
+    found = {k: sum(v for n, v in names.items() if pat in n) for k, pat in TRACE_KERNELS.items()}
+    require(all(found.values()), f"{label}: the trace at {path} lacks kernel events of "
+                                 f"{[k for k, v in found.items() if not v]}: {names}")
+    return {"kernel_events": sum(names.values()), "events_of": found,
+            "trace_mb": os.path.getsize(path) / 1e6}
+
+
+def arm_device_ms(torch, model, sample: dict, kv_quantize: str) -> dict:
+    """One shadow sample's two arms again, each under ``torch.profiler``:
+    the bucket, each arm's device ms and C's share of it; and each arm's
+    rows, for the tie rule."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.metrics.quality import (
+        _pow2_bucket,
+        make_serving_attn_fn,
+        teacher_forced_rows,
+    )
+
+    out = {"bucket": _pow2_bucket(len(sample["prompt"]) + len(sample["emitted"]),
+                                  model.cfg.max_seq_len)}
+    rows = {}
+    for arm, attn_fn in (("serving", make_serving_attn_fn(kv_quantize)), ("reference", None)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rows[arm] = teacher_forced_rows(model, sample["prompt"], sample["emitted"],
+                                            attn_fn=attn_fn)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.device_time_total for e in events) / 1e3
+        flash = sum(e.device_time_total for e in events if "flash_kernel" in e.key) / 1e3
+        out[f"{arm}_device_ms"] = total
+        out[f"{arm}_c_share"] = flash / total if total else None
+    return out, rows
+
+
+def quality_run(torch, cuda, model, kv_quantize: str, base_outs: list, capture: bool) -> dict:
+    """Phase 4 ``paged_quality`` (``capture``) or ``int8_quality``: the
+    engine built from a ``ModelSpec`` of the phase's model and
+    ``QUALITY_CONFIG`` on the pool ``kv_quantize``, ``bf16``'s 8 prompts,
+    then ``drain()``. Held: 8 samples scored, ``errors`` 0; tokens equal to
+    the run of the same pool without the plane by the tie rule; each arm
+    launched C once a layer; on the bf16 pool the arms equal (KL and log-prob
+    delta 0, one computation); at every ``top1`` disagreement the emitted
+    token's reference logit within ``SPEC_TIE_GAP`` of the top. With
+    ``capture`` the engine is served by the App under ``CAPTURE_CONFIG``:
+    the 8 requests, interactive, breach the 1 ms TTFT objective; exactly one
+    bundle is written, with the quality snapshot and a trace whose kernel
+    events hold C and A; then ``GET /debug/profile?seconds=2`` while a
+    second wave of 8 is prefilled and decoded, its trace held the same.
+    Printed: each sample's bucket, each arm's device ms and C's share, its
+    KL mean and top-1 agreement."""
+    import shutil
+    import tempfile
+    import threading
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.models import ModelSpec
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    pool = kv_quantize or "bf16"
+    tmp = tempfile.mkdtemp(prefix="gofr-smoke-quality-")
+    conf = {**QUALITY_CONFIG, "ENGINE_KV_DTYPE": pool, "PROFILER_DIR": tmp,
+            "SLO_CAPTURE_DIR": os.path.join(tmp, "capture"),
+            **(CAPTURE_CONFIG if capture else {})}
+    c = Container.create(DictConfig(conf))
+    app = App(config=DictConfig(conf), container=c)
+    eng = app.serve_model("lm", ModelSpec("llama", model.cfg, weights=model, dtype=model.cfg.dtype),
+                          device="cuda", seed=SEED)
+    plane = eng._quality
+    real_score, arms = plane._score, []
+
+    def scored(s, *, serving):
+        before = flash_attention.launches
+        rows = real_score(s, serving=serving)
+        arms.append({"serving": serving, "request_id": s["request_id"],
+                     "c_launches": flash_attention.launches - before})
+        return rows
+
+    plane._score = scored
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    out: dict = {"model": "llama3_8b (random bf16 weights, seed 0)", "kv_pool": pool,
+                 "config": {k: v for k, v in conf.items() if k.startswith(("QUALITY", "SLO"))}}
+    try:
+        with AppThread(app, f"{pool}_quality"):
+            warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+            require(warm["finish_reason"] == "length", f"{pool}_quality warm-up: {warm}")
+            require(plane.drain(300), f"{pool}_quality: the warm request was not scored")
+            wait_idle(eng)
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            arms.clear()
+            base = plane.samples
+            t0 = time.monotonic()
+            if capture:
+                # the first half's first token breaches the objective; the
+                # second half goes out once the capture's trace runs
+                half = len(prompts) // 2
+                reqs = [eng.submit(p, max_new_tokens=64, qos_class="interactive")
+                        for p in prompts[:half]]
+                out["capture_trace_started_after_s"] = wait_for_profiler(torch, 120)
+                reqs += [eng.submit(p, max_new_tokens=64, qos_class="interactive")
+                         for p in prompts[half:]]
+            else:
+                reqs = [eng.submit(p, max_new_tokens=64, qos_class="interactive")
+                        for p in prompts]
+            outs = [r.result(timeout=900) for r in reqs]
+            t_done = time.monotonic()
+            require(plane.drain(600), f"{pool}_quality: the plane did not drain")
+            scored_s = time.monotonic() - t_done
+            # wave 1's (the profiled wave is scored too)
+            scorer, scored = list(arms), plane.samples - base
+            wait_idle(eng)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            snap, st = eng.quality_snapshot(), eng.pipeline_stats()
+            if capture:
+                watcher = c.slo_capture
+                if watcher._trace_thread is not None:
+                    watcher._trace_thread.join(120)
+                bundles = sorted(os.listdir(conf["SLO_CAPTURE_DIR"]))
+                require(len(bundles) == 1, f"paged_quality: {len(bundles)} capture bundles")
+                bdir = os.path.join(conf["SLO_CAPTURE_DIR"], bundles[0])
+                with open(os.path.join(bdir, "bundle.json")) as f:
+                    bundle = json.load(f)
+                require([(r["class"], r["objective"]) for r in bundle["reason"]]
+                        == [("interactive", "ttft")] and bundle["quality"]["lm"]["rate"] == 1.0,
+                        f"paged_quality: the bundle's reason {bundle['reason']} or quality "
+                        f"{bundle.get('quality')}")
+                out["capture"] = {"bundle_keys": sorted(bundle), "reason": bundle["reason"],
+                                  "files": sorted(os.listdir(bdir)),
+                                  **hold_trace("the capture trace",
+                                               os.path.join(bdir, "trace", "trace.json"))}
+                out["debug_profile"] = profile_during_wave(torch, app, eng, prompts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    samples = snap["recent"][-len(prompts):]
+    require(snap["errors"] == 0 and scored == len(prompts),
+            f"{pool}_quality: {scored} samples scored, {snap['errors']} errors")
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                f"{pool}_quality request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+    require(len(scorer) == 2 * len(prompts)
+            and all(a["c_launches"] == model.cfg.num_layers for a in scorer),
+            f"{pool}_quality: the scorer's arms launched C {[a['c_launches'] for a in scorer]}")
+    on_path = ON_PATH["paged", kv_quantize]
+    for name, launches in counts.items():
+        require((launches > 0) == (name in on_path),
+                f"{pool}_quality: kernel {name} launched {launches} times")
+    agree = token_agreement(torch, model, prompts, outs, base_outs)
+    gaps = [m["chosen_below_top1"] for m in agree["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"{pool}_quality: at a first difference from the run without the plane the run "
+            f"chose a token {gaps} below the top logit (limit {SPEC_TIE_GAP})")
+    per_sample = []
+    for s in samples:
+        rep = s["report"]
+        if not kv_quantize:
+            require(rep["kl_max"] == 0.0 and rep["logprob_delta_max_abs"] == 0.0,
+                    f"bf16_quality: the arms differ on the bf16 pool: {rep}")
+        timing, rows = arm_device_ms(torch, model, s, kv_quantize)
+        # where the reference's argmax is not the emitted token, how far the
+        # emitted token lies below the top logit in each arm; the tie rule
+        # holds the serving arm, the one that computes what served the
+        # request (on the bf16 pool it is the reference)
+        below = {arm: [float(r[j].max() - r[j][tok]) for j, (tok, ok) in
+                       enumerate(zip(s["emitted"], rep["agree"])) if not ok]
+                 for arm, r in rows.items()}
+        require(all(b <= SPEC_TIE_GAP for b in below["serving"]),
+                f"{pool}_quality: at a top-1 disagreement the emitted token lies "
+                f"{below['serving']} below the serving arm's top logit (limit {SPEC_TIE_GAP})")
+        per_sample.append({**timing, "prompt_len": len(s["prompt"]), "tokens": rep["tokens"],
+                           "kl_mean": rep["kl_mean"], "top1_agree": rep["top1_agree"],
+                           "first_divergence": rep["first_divergence"],
+                           "disagreement_below_top1": below})
+    out.update({"samples": len(samples), "errors": snap["errors"],
+                "good": sum(bool(s["ok"]) for s in samples),
+                "backend": snap["backend"],
+                "scorer_c_launches": sum(a["c_launches"] for a in scorer),
+                "scoring_wall_s": scored_s, "serve_wall_s": t_done - t0,
+                "host_ms_per_busy_turn": st["busy_turn_s"] / st["busy_turns"] * 1e3,
+                "per_sample": per_sample, "launches": counts, **agree,
+                "nvidia_smi": smi_line()})
+    return out
+
+
+def wait_for_profiler(torch, timeout: float) -> float:
+    """Wait until a ``torch.profiler`` session another thread started runs,
+    then a margin; returns the seconds waited. The profiler's start flag is
+    a module global (its own enabled check answers for the starting thread
+    only) and flips just before the profiler starts."""
+    import torch.autograd.profiler as autograd_profiler
+
+    t0 = time.monotonic()
+    if not hasattr(autograd_profiler, "_is_profiler_enabled"):
+        time.sleep(1.0)
+        return time.monotonic() - t0
+    while not autograd_profiler._is_profiler_enabled:
+        require(time.monotonic() - t0 < timeout, "no profiler started")
+        time.sleep(0.002)
+    time.sleep(0.3)
+    return time.monotonic() - t0
+
+
+def profile_during_wave(torch, app, eng, prompts: list) -> dict:
+    """``GET /debug/profile?seconds=PROFILE_S`` through the App, with a wave
+    of 8 new prompts submitted once the profiler runs; the trace it wrote
+    must hold C's and A's kernel events."""
+    import threading
+
+    reply = {}
+
+    def get() -> None:
+        reply["r"] = http_call(app.http_port, "GET", f"/debug/profile?seconds={PROFILE_S}")
+
+    t = threading.Thread(target=get, name="debug-profile")
+    t.start()
+    started_s = wait_for_profiler(torch, 30)
+    wave = pipeline_prompts(torch, eng.cfg.vocab_size)[:len(prompts)]
+    reqs = [eng.submit(p, max_new_tokens=64) for p in wave]
+    t.join(120)
+    for r in reqs:
+        r.result(timeout=900)
+    status, body = reply["r"][:2]
+    require(status == 200, f"/debug/profile answered {status}: {body}")
+    return {"seconds": body["data"]["seconds"], "wave_sent_after_s": started_s,
+            **hold_trace("/debug/profile", os.path.join(body["data"]["trace_dir"], "trace.json"))}
+
+
+def cold_start(torch) -> dict:
+    """Phase 4 ``cold_start``: ``scripts/torch_cold_start.py`` in two fresh
+    processes, ``ENGINE_WARMUP`` false then true (``COLD_START``: Llama-3-8B's
+    widths cut to 2 layers, one request of 512 tokens, then a second as the
+    warm reference). Held: each ends with its requests' tokens and warmup
+    runs its calls; printed: warmup's seconds and count and both TTFTs."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_cold_start.py")
+    runs = {}
+    for warm in ("false", "true"):
+        done = subprocess.run([sys.executable, script, "--warmup", warm,
+                               "--layers", str(COLD_START["layers"]),
+                               "--prompt", str(COLD_START["prompt"]),
+                               "--new", str(COLD_START["new"])],
+                              capture_output=True, text=True, timeout=600)
+        require(done.returncode == 0, f"cold_start --warmup {warm}: exit {done.returncode}\n"
+                                      f"{done.stdout[-2000:]}{done.stderr[-4000:]}")
+        runs[warm] = json.loads(done.stdout.strip().splitlines()[-1])
+    require(runs["true"]["warmup_count"] > 0 and runs["false"]["warmup_count"] == 0,
+            f"cold_start: warmup counts {runs}")
+    return {"warmup_false": runs["false"], "warmup_true": runs["true"],
+            "first_ttft_cold_over_warmed": runs["false"]["first_ttft_s"]
+            / runs["true"]["first_ttft_s"]}
+
+
 def lora_check(torch, model, kv_layout: str, kv_quantize: str) -> dict:
     """Phase 5's adapter holds on one cache: 5 lanes of 128-token prompts
     prefilled together, then one ``decode_step`` and one ``verify_step`` of
@@ -2893,6 +3404,28 @@ def main() -> None:
     emit("phase4_serve_paged_w8", {**served["paged_w8"]["metrics"],
                                    "launches": served["paged_w8"]["launches"]})
     lap("phase4_paged_w8")
+
+    served["paged_warmup"] = serve_warmup(torch, cuda, model, results["paged", ""])
+    emit("phase4_serve_paged_warmup", {k: v for k, v in served["paged_warmup"].items()
+                                       if k != "margin_at_first_difference"})
+    lap("phase4_paged_warmup")
+
+    served["paged_restart"] = serve_restart(torch, cuda, model, results["paged", ""])
+    emit("phase4_serve_paged_restart", {k: v for k, v in served["paged_restart"].items()
+                                        if k != "margin_at_first_difference"})
+    lap("phase4_paged_restart")
+
+    for kv_quantize, capture in (("", True), ("int8", False)):
+        name = f"{kv_quantize or 'paged'}_quality"
+        served[name] = quality_run(torch, cuda, model, kv_quantize, results["paged", kv_quantize],
+                                   capture)
+        emit(f"phase4_serve_{name}", {k: v for k, v in served[name].items()
+                                      if k != "margin_at_first_difference"})
+        lap(f"phase4_{name}")
+
+    served["cold_start"] = cold_start(torch)
+    emit("phase4_cold_start", served["cold_start"])
+    lap("phase4_cold_start")
 
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",

@@ -20,19 +20,27 @@ The request planes, under the JAX App's config keys: ``TRACE_EXPORTER``
 ``QOS_ENABLED`` / ``QOS_*`` (``enable_qos``: 429/503 with
 ``Retry-After`` before the handler, weighted-fair scheduling in the
 engine), ``SLO_ENABLED`` / ``SLO_*`` (attainment and burn gauges, health
-DEGRADED on a burn), and under ``APP_ENV=DEBUG`` the flight recorder's
-``/debug/requests`` and ``/debug/engine`` and the perf plane's
-``/debug/perf``. Not ported yet: websocket routes (``App.websocket``), the
-auth middlewares, static files, the OpenAPI routes, ``/debug/profile``,
-``/debug/quality`` and ``/debug/control``, gRPC, pub/sub, cron and the
-CLI.
+DEGRADED on a burn; ``SLO_CAPTURE*``, the burn-breach capture bundles),
+and under ``APP_ENV=DEBUG`` the flight recorder's ``/debug/requests`` and
+``/debug/engine``, the perf plane's ``/debug/perf``, the quality plane's
+``/debug/quality`` and ``/debug/profile?seconds=N``, a ``torch.profiler``
+Chrome trace under ``PROFILER_DIR`` (one at a time: 409 while one runs).
+``ENGINE_WARMUP=true`` warms every engine (``GenerateEngine.warmup``)
+before the servers start. Not ported yet: websocket routes
+(``App.websocket``), the auth middlewares, static files, the OpenAPI
+routes, ``/debug/control``, JAX's ``jax.profiler`` server on
+``PROFILER_PORT`` (it has no torch counterpart), gRPC, pub/sub, cron and
+the CLI.
 """
 
 from __future__ import annotations
 
 import asyncio
 import inspect
+import math
+import os
 import signal
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
@@ -57,6 +65,7 @@ from gofr_tpu_torch.http.responder import respond, to_json
 from gofr_tpu_torch.http.server import HTTPServer, Router, ServerRequest, ServerResponse
 from gofr_tpu_torch.http.streaming import StreamingResponse
 from gofr_tpu_torch.metrics import perf as perf_mod
+from gofr_tpu_torch.metrics.slo import record_trace
 
 Handler = Callable[[Context], Any]
 
@@ -83,6 +92,8 @@ class App:
             self.enable_qos()
         self._shutdown = asyncio.Event()
         self._servers: list[HTTPServer] = []
+        # one /debug/profile capture at a time (409 while held)
+        self._profile_busy = threading.Lock()
 
     # -- route registration (gofr.go:244-276) ----------------------------------
 
@@ -158,6 +169,8 @@ class App:
             router.add("GET", "/debug/requests", self._debug_requests_handler)
             router.add("GET", "/debug/engine", self._debug_engine_handler)
             router.add("GET", "/debug/perf", self._debug_perf_handler)
+            router.add("GET", "/debug/quality", self._debug_quality_handler)
+            router.add("GET", "/debug/profile", self._profile_handler)
         for method, path, handler in self._routes:
             router.add(method, path, self._wrap(handler))
         middlewares = [
@@ -381,6 +394,67 @@ class App:
         rollup = None if totals is None else {"totals": totals, **perf_mod.derive(totals)}
         return _json({"data": {"engines": engines, "rollup": rollup}})
 
+    async def _debug_quality_handler(self, _request: ServerRequest) -> ServerResponse:
+        """GET /debug/quality (app.py:843-880): per engine the quality
+        plane's totals and recent divergence reports (replay payloads
+        trimmed; the capture bundles carry them) and the speculative
+        accept totals by adapter; and each class's quality SLO windows."""
+        engines = {}
+        for name, engine in self.container.engines.items():
+            entry: dict = {}
+            snap_fn = getattr(engine, "quality_snapshot", None)
+            snap = snap_fn() if callable(snap_fn) else None
+            if snap is not None:
+                snap = dict(snap)
+                snap["recent"] = [{k: v for k, v in e.items() if k not in ("prompt", "emitted")}
+                                  for e in snap.get("recent", [])]
+                entry["shadow"] = snap
+            totals_fn = getattr(engine, "spec_accept_totals", None)
+            totals = totals_fn() if callable(totals_fn) else None
+            if totals:
+                entry["spec_accept"] = {
+                    adapter: {"accepted": acc, "proposed": prop,
+                              "ratio": round(acc / prop, 4) if prop else None}
+                    for adapter, (acc, prop) in totals.items()}
+            if entry:
+                engines[name] = entry
+        slo = self.container.slo
+        objectives = None
+        if slo is not None:
+            objectives = {cls: {"quality": objs["quality"]}
+                          for cls, objs in slo.snapshot().items() if "quality" in objs}
+        return _json({"data": {"engines": engines, "slo": objectives}})
+
+    async def _profile_handler(self, request: ServerRequest) -> ServerResponse:
+        """GET /debug/profile?seconds=N (app.py:681-722): record N seconds
+        of the process with ``torch.profiler`` (``metrics.slo.
+        record_trace``: CUDA activity on the card, every kernel launched
+        from any thread) and write a Chrome trace to a new directory under
+        ``PROFILER_DIR``, which the reply names. N is 2 by default; a
+        non-finite N or one outside (0, 300] is a 400, others clamp to
+        [0.1, 60]; a second capture while one runs is a 409."""
+        try:
+            seconds = float(parse_qs(request.query_string).get("seconds", ["2"])[0])
+            if not math.isfinite(seconds):
+                raise ValueError(seconds)
+        except ValueError:
+            return _json({"error": {"message": "seconds must be a finite number"}}, 400)
+        if seconds <= 0 or seconds > 300.0:
+            return _json({"error": {"message": "seconds must be in (0, 300]"}}, 400)
+        seconds = min(max(seconds, 0.1), 60.0)
+        if not self._profile_busy.acquire(blocking=False):
+            return _json({"error": {"message": "a profile capture is already running"}}, 409)
+        out_root = self.config.get_or_default("PROFILER_DIR", "/tmp/gofr_tpu_profile")
+        path = os.path.join(out_root, time.strftime("trace-%Y%m%d-%H%M%S"))
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor, record_trace, path, seconds)
+        except Exception as e:  # noqa: BLE001
+            return _json({"error": {"message": str(e)}}, 500)
+        finally:
+            self._profile_busy.release()
+        return _json({"data": {"trace_dir": path, "seconds": seconds}})
+
     # -- run -------------------------------------------------------------------
 
     def run(self) -> None:
@@ -390,8 +464,36 @@ class App:
         except KeyboardInterrupt:
             pass
 
+    async def _warm_engines(self) -> None:
+        """``ENGINE_WARMUP=true`` (app.py:965-993): warm each engine whose
+        ``warmup`` needs no example input, before the servers start, and
+        log its count. A warmup that fails is logged with its traceback and
+        the engine still serves; no kernel has a fallback, so a first
+        request that meets the same fault fails loudly too."""
+        if self.config.get_or_default("ENGINE_WARMUP", "false").lower() != "true":
+            return
+        loop = asyncio.get_running_loop()
+        for name, engine in self.container.engines.items():
+            if not hasattr(engine, "warmup"):
+                continue
+            try:
+                needs_example = any(
+                    p.default is p.empty
+                    and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                    for p in inspect.signature(engine.warmup).parameters.values())
+            except (TypeError, ValueError):
+                needs_example = True
+            if needs_example:
+                continue
+            try:
+                n = await loop.run_in_executor(self._executor, engine.warmup)
+                self.logger.infof("model engine %s warmed (%d programs)", name, n)
+            except Exception as e:  # noqa: BLE001 - logged; the engine still serves
+                self.logger.log_exception(e, f"engine {name} warmup failed")
+
     async def arun(self, ready: asyncio.Event | None = None) -> None:
-        """Serve until ``stop()``: the metrics server on ``METRICS_PORT``,
+        """Serve until ``stop()``: the engines warmed first under
+        ``ENGINE_WARMUP``, then the metrics server on ``METRICS_PORT``,
         the HTTP server on ``HTTP_PORT`` when a route is registered or
         ``APP_ENV=DEBUG`` serves the debug routes; then
         ``ready`` is set. On the way out the servers close, the container
@@ -403,6 +505,7 @@ class App:
             except (NotImplementedError, RuntimeError, ValueError):
                 pass
         try:
+            await self._warm_engines()
             metrics = self._build_metrics_server()
             await metrics.start(port=self.metrics_port)
             self._servers.append(metrics)

@@ -1,8 +1,9 @@
 """Container: the dependency-injection hub (gofr `pkg/gofr/container/
 container.go`), the port's own copy of gofr_tpu/container/__init__.py
 reduced to what serving needs: config, logger, metrics, the tracer, the
-flight recorder, the SLO engine, the QoS admission controller and the
-model engines, their health and their shutdown.
+flight recorder, the SLO engine and its capture watcher, the QoS
+admission controller and the model engines, their health and their
+shutdown.
 
 The engines take ``metrics``, ``logger``, ``tracer``, ``flight`` and
 ``slo`` from here (``GenerateEngine(model, container=...)``). The metric
@@ -10,8 +11,8 @@ families are the JAX package's ``app_tpu_*`` / ``app_qos_*`` /
 ``app_slo_*`` names, registered where the port has their producer; the
 compile counters (``app_tpu_compile_total``, ``app_tpu_compile_cache_hits``)
 have no eager counterpart and are left out. Datasources, pub/sub,
-inter-service clients, the quality plane, the controller's gauges and
-fleet federation are not ported yet.
+inter-service clients, the controller's gauges and fleet federation (the
+quality counters' included) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from gofr_tpu_torch.config import DictConfig
 from gofr_tpu_torch.logging import Level, Logger, MockLogger, new_logger
 from gofr_tpu_torch.metrics import Registry, perf as perf_mod, sample_runtime_metrics
 from gofr_tpu_torch.metrics.flight import FlightRecorder
-from gofr_tpu_torch.metrics.slo import SLOEngine
+from gofr_tpu_torch.metrics.slo import CaptureWatcher, SLOEngine
 from gofr_tpu_torch.tracing import Tracer, tracer_from_config
 
 
@@ -45,6 +46,7 @@ class Container:
         self._engines: dict[str, Any] = {}
         self.qos = None  # AdmissionController once App.enable_qos runs
         self.slo: SLOEngine | None = None  # once _maybe_slo runs (SLO_ENABLED)
+        self.slo_capture: CaptureWatcher | None = None  # once SLO_CAPTURE opts in
 
     @classmethod
     def create(cls, config) -> "Container":
@@ -74,6 +76,7 @@ class Container:
         m.new_counter("app_tpu_tokens_total", "tokens processed (prefill+decode)")
         m.new_gauge("app_tpu_kv_pages_free", "free pages in the paged KV pool")
         m.new_counter("app_tpu_preemptions", "slots preempted under KV pool pressure")
+        m.new_counter("app_tpu_engine_restarts", "engine device-thread restarts")
         # hierarchical prefix cache: hit tokens carry a tier label (hbm =
         # pages already in the pool, host = pages swapped back in)
         m.new_counter("app_tpu_prefix_hit_tokens", "prompt tokens served from the prefix cache (by tier)")
@@ -99,6 +102,31 @@ class Container:
                       "spec draft tokens the target verification rejected")
         m.new_gauge("app_tpu_spec_accept_ratio",
                     "lifetime speculative-decode acceptance ratio (adapter)")
+        # the quality plane (metrics/quality.py): shadow re-score divergence
+        # against the reference arm, by what served the request
+        m.new_histogram("app_tpu_quality_logprob_delta",
+                        "mean |serving - reference| log-prob of the emitted "
+                        "tokens, per shadow sample (kv_dtype, backend, adapter)",
+                        buckets=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 2.0, 5.0])
+        m.new_histogram("app_tpu_quality_kl",
+                        "mean per-token KL(serving || reference), per shadow "
+                        "sample (kv_dtype, backend, adapter)",
+                        buckets=[0.0001, 0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0])
+        m.new_gauge("app_tpu_quality_top1_agree",
+                    "fraction of emitted tokens matching the reference "
+                    "argmax, last shadow sample (kv_dtype, backend, adapter)")
+        m.new_histogram("app_tpu_quality_first_divergence_token",
+                        "token index of the first reference-argmax "
+                        "disagreement (diverged samples only)",
+                        buckets=[0, 1, 2, 4, 8, 16, 32, 64, 128])
+        m.new_counter("app_tpu_quality_samples_total",
+                      "shadow-scored requests (kv_dtype, backend, adapter)")
+        m.new_counter("app_tpu_quality_good_total",
+                      "shadow samples within divergence thresholds "
+                      "(kv_dtype, backend, adapter)")
+        m.new_counter("app_tpu_quality_shadow_dropped_total",
+                      "sampled requests evicted from the bounded shadow "
+                      "queue before scoring (back-pressure, never blocking)")
         # SLO latency family: recorded by the engine's device loop /
         # completion path regardless of QoS or tracing state
         m.new_histogram("app_tpu_queue_wait_seconds",
@@ -132,6 +160,10 @@ class Container:
                     "error-budget burn rate; 1.0 = sustainable pace (class, objective, window)")
         m.new_gauge("app_slo_budget_remaining",
                     "slow-window error budget left, clamped to [0,1] (class, objective)")
+        m.new_counter("app_slo_captures_total",
+                      "burn-breach anomaly bundles written (SLO_CAPTURE)")
+        m.new_counter("app_slo_captures_suppressed_total",
+                      "burn-breach captures suppressed by the token-bucket rate limit")
         # live performance plane (metrics/perf.py): windowed roofline
         # utilization per step kind, derived at scrape time from the
         # engines' exact numerator/denominator sums
@@ -262,11 +294,15 @@ class Container:
     def _maybe_slo(self) -> None:
         """Wire the SLO engine: on by default (``SLO_ENABLED``, as in JAX),
         since it is pure bookkeeping over samples the engines already
-        record."""
+        record; and, only when the app opts in with ``SLO_CAPTURE``, the
+        burn-breach capture watcher as its breach listener."""
         if not self.config.get_bool("SLO_ENABLED", True):
             return
-        self.slo = SLOEngine.from_config(self.config, metrics=self.metrics)
+        self.slo = SLOEngine.from_config(self.config, metrics=self.metrics, logger=self.logger)
         self.metrics.add_collect_hook(self.slo.sample_gauges)
+        if self.config.get_bool("SLO_CAPTURE"):
+            self.slo_capture = CaptureWatcher.from_config(self.config, self, self.slo)
+            self.slo.add_breach_listener(self.slo_capture.on_breach)
 
     # -- QoS / admission control -----------------------------------------------
 
@@ -333,10 +369,11 @@ class Container:
         status = "UP" if down == 0 else ("DEGRADED" if down < max(len(services), 1) else "DOWN")
         models = [h for name, h in services.items() if name.startswith("model:")]
         if models and all(h.get("status") == "DOWN" for h in models):
-            # An instance whose every model engine is DOWN serves nothing,
-            # so it reads DOWN (503) whatever the QoS and SLO planes say.
-            # JAX's aggregate counts those planes' UP and reads DEGRADED
-            # (200) here: a deliberate deviation (ROADMAP Queue C).
+            # An instance whose every model engine is DOWN (its restart
+            # budget spent) serves nothing, so it reads DOWN (503) whatever
+            # the QoS and SLO planes say. JAX's aggregate counts those
+            # planes' UP and reads DEGRADED (200) here: a deliberate
+            # deviation (ROADMAP Queue C).
             status = "DOWN"
         return {
             "status": status,

@@ -92,9 +92,21 @@ priced at each dispatch, its device-queue residency noted at the fold).
 ``App.enable_qos`` binds an admission controller: the queue becomes
 weighted-fair by class and the drain is bounded so late interactive work
 can overtake queued batch work. Without a container (the direct form) the
-engine records into a private registry with every plane off. Handoff,
-lockstep, checkpoint adoption, autotune and the quality plane are not
-ported yet.
+engine records into a private registry with every plane off.
+
+The loop survives its own faults (engine.py:337-395, 2324-2420): a turn
+that raises fails the requests in slots (their device state is suspect),
+resets the pool, its tables and the prefix cache, backs off ``min(0.1 *
+2^n, 5)`` s and serves again, while queued requests wait it out; up to
+``max_restarts`` (``ENGINE_MAX_RESTARTS``) crashes within
+``restart_window_s``, after which it reads DOWN and fails every waiter.
+Health reads DEGRADED during the backoff, and QoS sheds new work with a
+503 there. ``warmup()`` runs every call the engine can dispatch once on
+out-of-bounds rows before traffic (``ENGINE_WARMUP``; ``gpu/executor.
+warmup``). ``quality_shadow_rate`` > 0 builds the quality plane
+(``metrics/quality.py``): a sampled share of finished requests is
+re-scored teacher-forced on idle loop turns. Handoff, lockstep,
+checkpoint adoption and autotune are not ported yet.
 """
 
 from __future__ import annotations
@@ -358,7 +370,13 @@ class GenerateEngine:
     that many MiB of pinned memory (at least one page, else it stays
     off). ``container`` (the App's) supplies the metrics, logger, tracer,
     flight recorder and SLO engine, and turns the perf plane on; without
-    one the engine records into a private registry, every plane off."""
+    one the engine records into a private registry, every plane off.
+    ``max_restarts`` crashes of the loop within ``restart_window_s`` (60 s)
+    are survived; the next one ends it (DOWN). ``quality_shadow_rate`` > 0
+    shadow-scores that share of finished requests (``metrics/quality.
+    QualityPlane``, seeded by ``quality_seed``, the engine's ``seed`` when
+    None or negative; the other ``quality_*`` knobs are its bounds and
+    thresholds)."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -370,7 +388,11 @@ class GenerateEngine:
                  spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
                  adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
                  adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
-                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None):
+                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None,
+                 max_restarts: int = 3, quality_shadow_rate: float = 0.0,
+                 quality_seed: int | None = None, quality_max_pending: int = 16,
+                 quality_max_tokens: int = 64, quality_top1_min: float = 0.9,
+                 quality_kl_max: float = 1.0, quality_recent: int = 32):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         if kv_quantize not in KV_QUANTIZE:
@@ -514,7 +536,8 @@ class GenerateEngine:
         self._pending_spills: list[tuple] = []
         self._pipeline: dict[str, Any] = {
             "dq_max": 0, "dq_carried_max": 0, "dispatched": {}, "folds": 0, "fold_wait_s": 0.0,
-            "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0}
+            "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0, "dropped": 0}
+        self._seed = seed
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         # FIFO until an AdmissionController binds the engine and flips it
         # into weighted-fair priority mode (qos/scheduler.py)
@@ -527,8 +550,25 @@ class GenerateEngine:
         # it waits on the card), and by the audits
         self._state_lock = threading.Lock()
         self._stop = threading.Event()
+        # supervision (engine.py:226-243): the loop restarts after a crash
+        # unless ``max_restarts`` crashes came within ``restart_window_s``
+        # (crashes further apart are isolated faults); ``_error`` is the
+        # fault that ended it (DOWN). ``_restart_hook(attempt=n)`` runs
+        # inside each backoff window (JAX's "engine.restart" chaos point)
         self._error: BaseException | None = None
+        self.max_restarts = max(0, int(max_restarts))
+        self.restart_window_s = 60.0
+        self._restarts = 0
+        self._restarting = False
+        self._last_crash_at = 0.0
+        self._restart_hook = None
+        # a warmup waiting for the loop's next turn boundary
+        self._pending_warmup: dict | None = None
         self.perf: PerfPlane | None = self._perf_plane() if container is not None else None
+        self._quality = self._quality_plane(
+            quality_shadow_rate, quality_seed, max_pending=quality_max_pending,
+            max_tokens=quality_max_tokens, top1_min=quality_top1_min, kl_max=quality_kl_max,
+            recent=quality_recent)
         if self._prefix is not None:
             self._set_prefix_gauges()
         self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
@@ -577,6 +617,37 @@ class GenerateEngine:
             (self.logger.warn if self.logger is not None else log.warning)(
                 f"perf plane disabled: {e}")
             return None
+
+    def _quality_plane(self, rate: float, seed: int | None, **bounds: Any):
+        """The quality plane (engine.py:1515-1561), or None at rate 0, where
+        the loop pays one branch an idle turn. The model is read at each
+        scored arm, so an adoption is scored with the weights it installed;
+        an adapter's factors are read when its request is sampled."""
+        rate = max(0.0, min(1.0, float(rate)))
+        if rate <= 0.0:
+            return None
+        from gofr_tpu_torch.metrics.quality import QualityPlane
+
+        def adapter_factors(name: str):
+            if self.adapters is None:
+                return None
+            try:
+                spec = self.adapters.get(name)
+            except KeyError:
+                return None
+            return (spec.a, spec.b, spec.scale)
+
+        return QualityPlane(
+            lambda: self.model, metrics=self.metrics, slo=self.slo, rate=rate,
+            seed=self._seed if seed is None or int(seed) < 0 else int(seed),
+            kv_dtype=self.kv_quantize or "bf16", backend_fn=self._quality_backend,
+            adapter_fn=adapter_factors, **bounds)
+
+    def _quality_backend(self) -> str:
+        """The quality labels' backend: the route the kernels take, ``cuda``
+        on the card and ``plain`` on the CPU (JAX names its autotune pins,
+        ``pallas`` / ``xla``)."""
+        return "cuda" if self.device.type == "cuda" else "plain"
 
     # -- caller side -----------------------------------------------------------
 
@@ -834,21 +905,106 @@ class GenerateEngine:
         flight while the host plans the next turn, at most depth - 1); the
         calls dispatched by kind; the folds and the seconds they waited on
         their readbacks; the loop turns that dispatched or folded work and
-        their host seconds; and the swap-ins' seconds on the card."""
+        their host seconds; the swap-ins' seconds on the card; and the
+        calls settled without a fold (``dropped``: in flight when the loop
+        crashed or stopped)."""
         with self._state_lock:
             return {"depth": self.pipeline_depth, **self._pipeline,
                     "dispatched": dict(self._pipeline["dispatched"])}
 
     def health_check(self) -> dict[str, Any]:
         """What ``Container.health`` reports for this engine
-        (engine.py:677): DOWN once the loop died with an error, DEGRADED
-        when its thread is not running (after ``stop``), else UP with the
-        requests not yet in a slot. The thread starts with the engine,
-        where the JAX App starts it in ``arun``."""
+        (engine.py:677-690): DOWN once the loop spent its restart budget,
+        DEGRADED with ``restarting`` during a crash's backoff or when its
+        thread is not running (after ``stop``), else UP with the requests
+        not yet in a slot and the restarts so far. The thread starts with
+        the engine, where the JAX App starts it in ``arun``."""
         if self._error is not None:
             return {"status": "DOWN", "details": {"error": str(self._error)}}
+        if self._restarting:
+            return {"status": "DEGRADED",
+                    "details": {"restarting": True, "restarts": self._restarts}}
         return {"status": "UP" if self._thread.is_alive() else "DEGRADED",
-                "details": {"queue_depth": self._backlog()}}
+                "details": {"queue_depth": self._backlog(), "restarts": self._restarts}}
+
+    def warmup(self, len_buckets: list[int] | None = None,
+               batch_buckets: list[int] | None = None) -> int:
+        """Run every call the engine can dispatch once before traffic
+        (engine.py:1685-1715; the body is ``executor.warmup``), so the first
+        requests do not pay what first use costs. ``len_buckets`` default to
+        the prefill buckets, ``batch_buckets`` to 1, 2, 4, ... up to
+        ``max_prefill_batch``. Nothing live is written. The loop runs it at
+        its next turn boundary, with every call in flight folded; the caller
+        blocks until it ends and gets its count, or its error. Returns the
+        number of calls run, JAX's count for the same knobs."""
+        job = {"lbs": sorted(len_buckets) if len_buckets else list(self.prefill_buckets),
+               "bbs": (sorted(batch_buckets) if batch_buckets
+                       else pow2_buckets(1, self.max_prefill_batch)),
+               "done": threading.Event(), "count": None, "error": None}
+        with self._swap_lock:
+            self._pending_warmup = job
+        while not job["done"].wait(0.05):
+            if not self._thread.is_alive() and not job["done"].is_set():
+                raise EngineClosed("engine stopped before its warmup ran") from self._error
+        if job["error"] is not None:
+            raise job["error"]
+        return job["count"]
+
+    def _apply_pending_warmup(self) -> None:
+        """The loop's half of ``warmup``: fold every call in flight, run
+        it, hand the count (or the error) back."""
+        with self._swap_lock:
+            job, self._pending_warmup = self._pending_warmup, None
+        if job is None:
+            return
+        try:
+            while self._dq:
+                decode.process_decode(self)
+            t = time.perf_counter()
+            job["count"] = executor.warmup(self, job["lbs"], job["bbs"])
+            log.info("warmup ran %d calls in %.3f s", job["count"], time.perf_counter() - t)
+        except Exception as e:  # noqa: BLE001 - the caller raises it
+            job["error"] = e
+        finally:
+            job["done"].set()
+
+    def quality_snapshot(self) -> dict | None:
+        """``/debug/quality`` and the capture bundles (engine.py:1884): the
+        quality plane's totals and recent reports with the state that
+        served them (weights epoch, backend, kv dtype) and the engine's
+        configuration; None without the plane. The port has no autotune,
+        so ``autotune_pins`` is empty."""
+        if self._quality is None:
+            return None
+        snap = self._quality.snapshot()
+        snap["autotune_pins"] = {}
+        snap["weights_epoch"] = self.weights_epoch
+        snap["backend"] = self._quality_backend()
+        snap["replay"] = self.replay_config()
+        return snap
+
+    def replay_config(self) -> dict:
+        """The engine's configuration beside its quality samples
+        (engine.py:1897): model family and config, sampler seed, the knobs
+        that shape its calls, weights epoch and adapter digest, and a
+        fingerprint of them. ``chaos`` is empty: the port has no chaos
+        points, and no ``scripts/replay_bundle.py`` replays it yet."""
+        import hashlib
+        import json
+
+        cfg = dataclasses.asdict(self.cfg)
+        cfg["dtype"] = str(self.cfg.dtype).removeprefix("torch.")
+        knobs = {"slots": self.num_slots, "max_len": self.max_len,
+                 "decode_chunk": self.decode_chunk, "kv_layout": self.kv_layout,
+                 "page_size": self.page_size if self._table is not None else 0,
+                 "total_pages": getattr(self, "total_pages", 0),
+                 "spec_tokens": self.spec_tokens, "kv_quantize": self.kv_quantize,
+                 "kv_shards": 1, "top_k": self.top_k, "top_p": self.top_p}
+        fingerprint = hashlib.sha256(json.dumps([cfg, self._seed, knobs], sort_keys=True)
+                                     .encode()).hexdigest()[:16]
+        return {"family": "llama", "config": cfg, "seed": self._seed, "engine": knobs,
+                "weights_epoch": self.weights_epoch, "adapter_digest": self.adapters_digest(),
+                "fingerprint": fingerprint, "chaos": ""}
 
     def spec_accept_totals(self) -> dict[str, tuple[float, float]]:
         """Lifetime (accepted, proposed) draft tokens of speculative decoding
@@ -1073,24 +1229,33 @@ class GenerateEngine:
 
     def _reset_device_state(self) -> None:
         """Every per-epoch piece of device state back to a new engine's
-        (engine.py:2391), with every slot already empty: the calls in flight
-        settled and the carries dropped, the KV cache and the proposer's
-        history or draft cache zeroed in place, and on the paged layout the
-        prefix cache (both tiers) emptied, its pages given back, and the
-        host tier's staged work dropped."""
+        (engine.py:2391), with every slot already empty (failed by a crash
+        or preempted by an adoption): the calls in flight settled and the
+        carries dropped; on the paged layout the free list, the slots'
+        page lists, the table (every entry OOB) and the refcounts rebuilt,
+        the host tier's staged work dropped and the prefix cache (both
+        tiers) emptied, its gauges updated; then the KV cache and the
+        proposer's history or draft cache zeroed in place. The bookkeeping
+        comes first, so a card that faults on the zeroing leaves it
+        consistent."""
         self._drain_device_state()
+        with self._state_lock:
+            if self._table is not None:
+                self._free_pages = list(range(self.total_pages))
+                self._slot_pages = [[] for _ in range(self.num_slots)]
+                self._table[:] = self.total_pages
+                self._page_refs[:] = 0
+                self._pending_swapins, self._pending_spills = [], []
+                if self._prefix is not None:
+                    self._prefix.clear()
+                    self._set_prefix_gauges()
+                self.metrics.set_gauge("app_tpu_kv_pages_free", len(self._free_pages))
         caches = [self.cache] + ([self._aux.cache] if isinstance(self._aux, Draft) else [])
         for cache in caches:
             for t in vars(cache).values():
                 t.zero_()
         if isinstance(self._aux, torch.Tensor):
             self._aux.zero_()
-        with self._state_lock:
-            self._pending_swapins, self._pending_spills = [], []
-            if self._prefix is not None:
-                for p in self._prefix.clear():
-                    self._unref_page(p)
-                self._set_prefix_gauges()
 
     def _drain_device_state(self) -> None:
         """Settle every call still in flight, then drop the queue and the
@@ -1103,6 +1268,7 @@ class GenerateEngine:
                 entry.result.wait()
             except Exception:  # noqa: BLE001 - a failed call is settled either way
                 log.debug("an in-flight call failed while settling", exc_info=True)
+        self._pipeline["dropped"] += len(self._dq)
         self._dq.clear()
         self._prev_last = None
         self._spec_carry = None
@@ -1114,20 +1280,94 @@ class GenerateEngine:
         prompt, then one decode chunk, each dispatched onto the in-flight
         queue; then fold the oldest calls until ``pipeline_depth`` - 1 are
         left while work keeps coming, all of them when the turn found none.
-        At depth 1 each phase is folded before the next. On the way out,
-        stopped or crashed, the calls in flight are settled."""
+        At depth 1 each phase is folded before the next. A turn that
+        raises crashes the loop, which restarts (``_restart_after``) or
+        ends. On the way out, stopped or ended, the calls in flight are
+        settled, and an ended loop fails every waiter."""
+        try:
+            while self._serve():
+                pass
+        finally:
+            self._drain_device_state()
+            if self._error is not None:
+                self._fail_all(self._error)
+
+    def _serve(self) -> bool:
+        """One life of the loop (engine.py:337-395); returns whether it
+        restarts."""
         try:
             while not self._stop.is_set():
                 if self._pending_weights is not None:
                     self._apply_pending_weights()
+                if self._pending_warmup is not None:
+                    self._apply_pending_warmup()
                 self._turn()
-        except Exception as e:  # noqa: BLE001 - the loop's boundary: fail every waiter
-            log.exception("generate engine loop crashed")
-            self._error = e
-        finally:
-            self._drain_device_state()
-        if self._error is not None:
-            self._fail_all(self._error)
+            return False
+        except Exception as e:  # noqa: BLE001 - the loop's boundary
+            return self._restart_after(e)
+
+    def _restart_after(self, error: Exception) -> bool:
+        """After a crash: log it, fail the slot-resident requests and reset
+        the device state (``_crash_recover``), then restart after a backoff
+        of ``min(0.1 * 2^n, 5)`` s unless the engine is stopping or
+        ``max_restarts`` crashes came within ``restart_window_s``; else set
+        the error that reads DOWN. Never raises: a fault here would end the
+        thread without failing the queued callers, who would hang to their
+        timeouts (engine.py:384-389). A recovery that fails itself (a card
+        whose fault is sticky fails every later call) spends the budget."""
+        try:
+            self._log_crash(error, "model engine step crashed")
+            recovered = True
+            try:
+                self._crash_recover(error)
+            except Exception as e2:  # noqa: BLE001 - the state cannot be trusted
+                self._log_crash(e2, "engine crash recovery failed")
+                recovered = False
+            now = time.monotonic()
+            if now - self._last_crash_at > self.restart_window_s:
+                self._restarts = 0  # an isolated fault, not a crash loop
+            self._last_crash_at = now
+            if self._stop.is_set() or not recovered or self._restarts >= self.max_restarts:
+                self._error = error
+                return False
+            self._restarts += 1
+            self.metrics.increment_counter("app_tpu_engine_restarts", 1)
+            self._restarting = True
+            try:
+                if self._restart_hook is not None:
+                    self._restart_hook(attempt=self._restarts)
+            except Exception as e2:  # noqa: BLE001 - never outranks the restart
+                self._log_crash(e2, "engine restart path")
+            self._stop.wait(min(0.1 * (2 ** self._restarts), 5.0))
+            self._restarting = False
+            msg = (f"engine device loop restarting (attempt {self._restarts}/"
+                   f"{self.max_restarts})")
+            (self.logger.warn if self.logger is not None else log.warning)(msg)
+            return True
+        except Exception:  # noqa: BLE001 - the last line: end, failing every waiter
+            log.exception("engine restart path failed")
+            self._restarting = False
+            self._error = error
+            return False
+
+    def _log_crash(self, error: BaseException, note: str) -> None:
+        if self.logger is not None:
+            self.logger.log_exception(error, note)
+        else:
+            log.error(note, exc_info=error)
+
+    def _crash_recover(self, error: Exception) -> None:
+        """A crash's cleanup (engine.py:2324-2340): the requests in slots,
+        decoding or mid-way through a chunked prompt, rode the crashed
+        device state, so they fail and their slots and pages are freed;
+        requests still queued or pending survive and are planned again
+        after the restart. Then ``_reset_device_state``."""
+        with self._state_lock:
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    self._free_slot(i)
+                    s.request.complete(error=error)
+        self._reset_device_state()
 
     def _turn(self) -> None:
         depth = self.pipeline_depth
@@ -1153,6 +1393,12 @@ class GenerateEngine:
         if busy or processed:
             st["busy_turns"] += 1
             st["busy_turn_s"] += time.perf_counter() - t
+            return
+        if self._quality is not None and self._quality.step():
+            # one shadow-scoring arm an idle turn (engine.py:3371-3377),
+            # then back to the top: work that arrived during the forward is
+            # admitted before the next arm, and the scorer holds no slot
+            # or page
             return
         # idle: wait for work without taking it (engine.py:3381): a get and
         # put back would skew QoS's fair credits and its wait metrics, and
@@ -1626,6 +1872,15 @@ class GenerateEngine:
                 s.request.stream_q.put(piece)
             tail.clear()
         now = time.monotonic()
+        if self._quality is not None:
+            # the shadow sampler's dice (engine.py:3960-3976), before the
+            # slot is freed, with this life's prompt and emitted tokens
+            # (after a preemption the prompt holds the earlier ones)
+            self._quality.maybe_capture(
+                s.prompt_tokens.tolist(), tokens, adapter=s.adapter_id,
+                qos_class=s.request.kw.get("_qos_class"),
+                weights_epoch=s.request.kw.get("_weights_epoch", self.weights_epoch) or 0,
+                request_id=s.request.id)
         self._free_slot(idx)
         kw = s.request.kw
         # tokens generated before a preemption lead the result (engine.py:3920)
@@ -1950,6 +2205,10 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     ``ENGINE_QUANTIZE=int8`` (engine.py:4084), ``role=""`` is ``both``
     (:4270), ``adapter_hotswap_dir=""`` is off (:4335).
 
+    ``ENGINE_MAX_RESTARTS`` (3) bounds the loop's restarts, and
+    ``QUALITY_*`` are the quality plane's knobs (``QUALITY_SHADOW_RATE`` 0:
+    no plane). ``ENGINE_WARMUP`` is the App's (``App.arun``).
+
     A knob the port lacks raises ValueError naming its ROADMAP.md item:
     ``ENGINE_ROLE`` other than ``both``, ``ADAPTER_HOTSWAP_DIR``. No knob is
     ignored."""
@@ -2007,6 +2266,20 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
                                       256.0)),
         "pipeline_depth": int(depth),
         "prefix_host_mb": float(host_mb),
+        # supervision (engine.py:4112) and the quality plane (:4341-4363):
+        # rate 0 builds no plane; a QUALITY_SEED below 0 is the engine's seed
+        "max_restarts": int(pick("max_restarts", "ENGINE_MAX_RESTARTS", conf.get_int, 3)),
+        "quality_shadow_rate": float(pick("quality_shadow_rate", "QUALITY_SHADOW_RATE",
+                                          conf.get_float, 0.0)),
+        "quality_seed": pick("quality_seed", "QUALITY_SEED", conf.get_int, -1),
+        "quality_max_pending": int(pick("quality_max_pending", "QUALITY_MAX_PENDING",
+                                        conf.get_int, 16)),
+        "quality_max_tokens": int(pick("quality_max_tokens", "QUALITY_MAX_TOKENS",
+                                       conf.get_int, 64)),
+        "quality_top1_min": float(pick("quality_top1_min", "QUALITY_TOP1_MIN",
+                                       conf.get_float, 0.9)),
+        "quality_kl_max": float(pick("quality_kl_max", "QUALITY_KL_MAX", conf.get_float, 1.0)),
+        "quality_recent": int(pick("quality_recent", "QUALITY_RECENT", conf.get_int, 32)),
     }
 
 

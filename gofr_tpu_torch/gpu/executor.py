@@ -35,6 +35,10 @@ With the perf plane on (``eng.perf``), each dispatch prices its call from
 host state alone (prompt lengths, chunk offsets, bytes uploaded) into a
 ``StepPerf`` that rides the entry; the fold stamps its ready time where
 the readback's wait returns.
+
+``warmup`` is the body of ``GenerateEngine.warmup`` (executor.py:258
+``warmup_compile``): every call the engine can dispatch, once at each shape
+the planner can pick, on rows that are all out of bounds.
 """
 
 from __future__ import annotations
@@ -45,10 +49,17 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 import torch
 
-from gofr_tpu_torch.gpu.planner import next_bucket
-from gofr_tpu_torch.gpu.programs import prefill_chunk, prefill_sample
+from gofr_tpu_torch.gpu.planner import next_bucket, pow2_buckets
+from gofr_tpu_torch.gpu.programs import (
+    Draft,
+    decode_chunk,
+    prefill_chunk,
+    prefill_sample,
+    spec_chunk,
+)
 from gofr_tpu_torch.metrics.perf import StepPerf
-from gofr_tpu_torch.ops.paged import swap_in_pages
+from gofr_tpu_torch.ops import cuda
+from gofr_tpu_torch.ops.paged import gather_page, page_planes, swap_in_pages
 
 if TYPE_CHECKING:
     from gofr_tpu_torch.gpu.engine import GenerateEngine, _Slot
@@ -246,3 +257,87 @@ def materialize_spills(eng: GenerateEngine) -> None:
         with eng._state_lock:
             if eng._prefix is not None:
                 eng._prefix.replace_host_payload(key, host)
+
+
+def warmup(eng: GenerateEngine, lbs: list[int], bbs: list[int]) -> int:
+    """Run every call the engine can dispatch once, as JAX's
+    ``warmup_compile`` (executor.py:258-381) compiles each program, and
+    return how many: a batched prefill at each length bucket x batch bucket;
+    a chunk at each length bucket (both layouts chunk); one decode chunk,
+    or one speculative round with ``spec_tokens``; and with the prefix
+    cache's host tier, a page gather and an upload at each swap-in width
+    of JAX's ladder (powers of two up to ``pages_per_slot``). On the card
+    the kernel library is loaded (built where stale) first.
+
+    What the calls cost the first time (the library, cuBLAS's handles and
+    heuristics per shape, the caching allocator's growth, pinned staging)
+    is paid here and not by the first requests. Nothing live is touched:
+    every prefill and chunk row goes through an out-of-bounds table row
+    (paged) or slot id (slot), whose writes the source maps drop; every
+    decode lane is masked as an idle lane is (an all-OOB table row at
+    position 0, or the slot's end; a speculative lane's history length
+    past the cache); every swap-in id is out of bounds. No carry is kept,
+    and sampling draws from a generator of its own, so the engine's sampled
+    streams are those of an engine never warmed. A token history is not
+    seeded (its rows are slot ids, which have no out-of-bounds row); a
+    draft model's slot cache is, through the same dropped rows. The engine
+    runs this with nothing in flight (``GenerateEngine.warmup``)."""
+    dev = eng.device
+    if dev.type == "cuda":
+        cuda.lib()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    paged = eng._table is not None
+    n, k = eng.num_slots, eng.decode_chunk
+    draft = eng._aux if isinstance(eng._aux, Draft) else None
+    sampling = dict(top_k=eng.top_k, top_p=eng.top_p, do_sample=False)
+
+    def host(shape, value, dtype=np.int64) -> torch.Tensor:
+        return to_device(np.full(shape, value, dtype), dev)
+
+    def prompt_args(b: int) -> dict:
+        """A prefill's rows (all OOB), its draft's slots (all OOB) and its
+        base-adapter lanes, for a batch of ``b``."""
+        rows = (host((b, eng.pages_per_slot), eng.total_pages, np.int32) if paged
+                else host(b, n))
+        return dict(rows=rows, temps=host(b, 0, np.float32), aux=draft,
+                    slots=None if draft is None else host(b, n),
+                    adapters=eng._adapter_args(np.zeros(b, np.int64)), **sampling)
+
+    count = 0
+    for lb in lbs:
+        for nb in bbs:
+            first = prefill_sample(eng.model, eng.cache, host((nb, lb), 0), host(nb, 1),
+                                   generator=gen, width=lb, **prompt_args(nb))
+            Readback(dev, first).wait()
+            count += 1
+    for lb in lbs:
+        tok = prefill_chunk(eng.model, eng.cache, host((1, lb), 0), host(1, 0), generator=gen,
+                            last=True, width=lb, **prompt_args(1))
+        Readback(dev, tok).wait()
+        count += 1
+    table = host((n, eng.pages_per_slot), eng.total_pages, np.int32) if paged else None
+    lanes = dict(table=table, temps=host(n, 0, np.float32), steps=k, generator=gen,
+                 top_k=eng.top_k, top_p=eng.top_p, adapters=eng._adapter_args(np.zeros(n, np.int64)),
+                 use_host=host(n, True, np.bool_))
+    if not eng.spec_tokens:
+        out, _carry = decode_chunk(eng.model, eng.cache, host(n, 0), host(n, eng._idle_position),
+                                   do_sample=False, prev_last=host(n, 0, np.int32), **lanes)
+        Readback(dev, out).wait()
+    else:
+        idle = (eng.pages_per_slot * eng.page_size if paged else eng.cache_len) + 1
+        toks, accs, _carry = spec_chunk(eng.model, eng.cache, eng._aux, host(n, 0), host(n, idle),
+                                        g=eng.spec_tokens, carry=(host(n, 0, np.int32), host(n, 0)),
+                                        **lanes)
+        Readback(dev, toks, accs).wait()
+    count += 1
+    if paged and eng._prefix is not None and eng._prefix.host_budget:
+        Readback(dev, *gather_page(eng.cache, 0)).wait()
+        count += 1
+        for wb in pow2_buckets(1, eng.pages_per_slot):
+            payload = [torch.zeros((plane.shape[0], wb, *plane.shape[2:]), dtype=plane.dtype,
+                                   pin_memory=dev.type == "cuda")
+                       for plane in page_planes(eng.cache)]
+            swap_in_pages(eng.cache, host(wb, eng.total_pages), payload)
+            Readback(dev).wait()
+            count += 1
+    return count

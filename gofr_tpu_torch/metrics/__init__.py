@@ -7,9 +7,9 @@ counter / up-down counter / histogram / settable gauge registered by name
 label sets (`register.go:249-268`), and a Prometheus exposition endpoint served on
 a dedicated port (`exporters/exporter.go:14-29`) that also samples process runtime
 gauges per scrape (`handler.go:22-35`). The flight recorder
-(``metrics/flight.py``), the SLO plane (``metrics/slo.py``) and the perf
-plane (``metrics/perf.py``) sit beside it; the quality plane waits for
-ROADMAP.md Queue A 5b, and fleet federation for the fleet.
+(``metrics/flight.py``), the SLO plane (``metrics/slo.py``), the perf
+plane (``metrics/perf.py``) and the quality plane (``metrics/quality.py``)
+sit beside it; fleet federation waits for the fleet (ROADMAP.md Queue A 9).
 """
 
 from __future__ import annotations

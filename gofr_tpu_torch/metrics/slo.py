@@ -1,6 +1,5 @@
 """SLO engine: per-QoS-class objectives, rolling attainment, error budgets
-(the port's own copy of gofr_tpu/metrics/slo.py, its ``CaptureWatcher``
-left for the quality plane's slice).
+(the port's own copy of gofr_tpu/metrics/slo.py).
 
 The engine records raw latency histograms (``app_tpu_{ttft,tpot,e2e}
 _seconds``); this module turns those same samples into the signal operators
@@ -29,23 +28,39 @@ flips ``health_check()`` to DEGRADED with the breaching (class, objective,
 burn) as a structured reason; the container joins it into ``/.well-known/
 health``. QoS's admission controller may consult ``should_shed`` as a
 pressure signal (``QOS_SHED_ON_BURN``: shed lower classes while a higher
-class burns). The JAX engine's breach listeners (its capture watcher's
-hook, ``SLO_CHECK_INTERVAL_S``) come with that watcher.
+class burns). Breach listeners hear the breach list at most once per
+``SLO_CHECK_INTERVAL_S`` while one persists.
+
+``CaptureWatcher`` is the trigger-fired anomaly capture (off unless
+``SLO_CAPTURE=true``): on a burn-rate breach it writes the flight recorder
+rings, the engines' health, their perf and quality snapshots and the SLO
+state to a timestamped bundle under ``SLO_CAPTURE_DIR`` (else
+``PROFILER_DIR``), token-bucket rate-limited (``SLO_CAPTURE_MIN_INTERVAL_S``,
+``SLO_CAPTURE_BURST``) and swept to ``SLO_CAPTURE_MAX_BUNDLES``. With
+``SLO_CAPTURE_TRACE_S`` > 0 it also records that many seconds of the card
+with ``torch.profiler`` (CUDA activity, which the profiler takes for the
+whole process, the engine's thread included) into the bundle's
+``trace/trace.json``, where JAX records a ``jax.profiler`` trace.
 
 Feed points: the engine's device loop / completion path (gpu/engine.py
 ``_mark_first_token`` → ttft, ``_maybe_finish`` → tpot, ``_observe_done`` →
 e2e + availability) — the exact callsites that record the raw histograms,
-so the two views can never disagree about what was measured.
+so the two views can never disagree about what was measured — and the
+quality plane's ``observe_quality`` (``metrics/quality.py``) for
+``SLO_<CLASS>_QUALITY``.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
-__all__ = ["Objective", "SLOEngine", "SLOTracker"]
+__all__ = ["CaptureWatcher", "Objective", "SLOEngine", "SLOTracker"]
 
 LATENCY_OBJECTIVES = ("ttft", "tpot", "e2e")
 
@@ -151,17 +166,20 @@ class SLOTracker:
 class SLOEngine:
     """The per-process SLO brain: owns the (class, objective) trackers,
     exports the three ``app_slo_*`` gauge families on every scrape and
-    flips health to DEGRADED on sustained fast-window burn. Thread-safe;
-    ``now`` is injectable for tests."""
+    flips health to DEGRADED on sustained fast-window burn; breach
+    listeners hear the breaches at most once per ``check_interval_s``.
+    Thread-safe; ``now`` is injectable for tests."""
 
     def __init__(self, objectives: list[Objective], *, metrics=None,
-                 fast_window_s: float = 60.0,
+                 logger=None, fast_window_s: float = 60.0,
                  slow_window_s: float = 3600.0, burn_threshold: float = 10.0,
-                 min_samples: int = 10,
+                 min_samples: int = 10, check_interval_s: float = 1.0,
                  default_class: str = "default",
                  rank: dict[str, int] | None = None,
                  now: Callable[[], float] = time.monotonic):
         self.metrics = metrics
+        self.logger = logger
+        self.check_interval_s = float(check_interval_s)
         self.fast_window_s = float(fast_window_s)
         self.slow_window_s = float(slow_window_s)
         self.burn_threshold = float(burn_threshold)
@@ -180,11 +198,13 @@ class SLOEngine:
             self.default_class = min(
                 self._classes, key=lambda c: -self._rank.get(c, 0))
         self._lock = threading.Lock()
+        self._listeners: list[Callable[[list[dict]], Any]] = []
+        self._last_check = 0.0
 
     # -- construction ----------------------------------------------------------
 
     @classmethod
-    def from_config(cls, config, *, metrics=None,
+    def from_config(cls, config, *, metrics=None, logger=None,
                     now: Callable[[], float] = time.monotonic) -> "SLOEngine":
         """Build from ``SLO_*`` config. The class vocabulary (and the
         priority rank ``should_shed`` uses) comes from the same ``QOS_*``
@@ -212,19 +232,18 @@ class SLOEngine:
                 _DEFAULT_AVAILABILITY.get(name, _DEFAULT_AVAILABILITY["default"]))
             if 0.0 < avail < 1.0:
                 objectives.append(Objective(name, "availability", avail))
-            # quality objective: the JAX package's shadow scorer feeds it,
-            # which comes with the quality plane (ROADMAP.md Queue A 5b);
-            # declared here so the objective set is the JAX engine's for
-            # the same config. Default 0 = off.
+            # quality objective, fed by the quality plane's shadow scorer
+            # (metrics/quality.py, QUALITY_SHADOW_RATE). Default 0 = off.
             quality = config.get_float(f"SLO_{up}_QUALITY", 0.0)
             if 0.0 < quality < 1.0:
                 objectives.append(Objective(name, "quality", quality))
         return cls(
-            objectives, metrics=metrics,
+            objectives, metrics=metrics, logger=logger,
             fast_window_s=config.get_float("SLO_FAST_WINDOW_S", 60.0),
             slow_window_s=config.get_float("SLO_SLOW_WINDOW_S", 3600.0),
             burn_threshold=config.get_float("SLO_BURN_THRESHOLD", 10.0),
             min_samples=config.get_int("SLO_MIN_SAMPLES", 10),
+            check_interval_s=config.get_float("SLO_CHECK_INTERVAL_S", 1.0),
             default_class=qpol.default_class, rank=rank, now=now)
 
     # -- feeds (engine record points) ------------------------------------------
@@ -245,6 +264,7 @@ class SLOEngine:
         now = self._now()
         with self._lock:
             tr.observe(seconds <= tr.objective.threshold_s, now)
+        self._maybe_check(now)
 
     def observe_outcome(self, cls_name: str | None, ok: bool) -> None:
         """One availability sample: did the request complete without error
@@ -255,6 +275,19 @@ class SLOEngine:
         now = self._now()
         with self._lock:
             tr.observe(bool(ok), now)
+        self._maybe_check(now)
+
+    def observe_quality(self, cls_name: str | None, ok: bool) -> None:
+        """One shadow-scored quality sample (metrics/quality.py): did the
+        request's re-score stay within the divergence thresholds. It rides
+        the windows, burn and breach listeners of every other objective."""
+        tr = self._trackers.get((self._canon(cls_name), "quality"))
+        if tr is None:
+            return
+        now = self._now()
+        with self._lock:
+            tr.observe(bool(ok), now)
+        self._maybe_check(now)
 
     # -- derived views ---------------------------------------------------------
 
@@ -352,3 +385,229 @@ class SLOEngine:
                                   entry["budget_remaining"], **labels)
 
     # -- breach notification ---------------------------------------------------
+
+    # -- breach notification ---------------------------------------------------
+
+    def add_breach_listener(self, fn: Callable[[list[dict]], Any]) -> None:
+        """Register a callback invoked (outside the lock, on the observing
+        thread) with the current breach list, at most once per
+        ``check_interval_s`` while a breach persists."""
+        self._listeners.append(fn)
+
+    def _maybe_check(self, now: float) -> None:
+        if not self._listeners:
+            return
+        with self._lock:
+            if now - self._last_check < self.check_interval_s:
+                return
+            self._last_check = now
+        br = self.breaches(now)
+        if not br:
+            return
+        for fn in list(self._listeners):
+            try:
+                fn(br)
+            except Exception as e:  # noqa: BLE001 - a listener must not poison the record path
+                if self.logger is not None:
+                    self.logger.warnf("slo breach listener failed: %r", e)
+
+
+class CaptureWatcher:
+    """Trigger-fired anomaly capture (slo.py:434-625): on a burn-rate
+    breach, write the flight recorder rings, the engines' health, perf and
+    quality snapshots and the SLO state to a timestamped bundle directory.
+
+    Token-bucket rate-limited: ``burst`` captures up front, one refilled
+    every ``min_interval_s``. Old bundles are swept past ``max_bundles``.
+    Off unless the app opts in (``SLO_CAPTURE=true``); both clocks are
+    injectable for tests."""
+
+    def __init__(self, container, slo: SLOEngine, *, out_dir: str,
+                 min_interval_s: float = 600.0, burst: int = 1,
+                 trace_s: float = 0.0, flight_requests: int = 64,
+                 flight_steps: int = 128, max_bundles: int = 32,
+                 now: Callable[[], float] = time.monotonic,
+                 clock: Callable[[], float] = time.time):
+        self.container = container
+        self.slo = slo
+        self.out_dir = out_dir
+        self.min_interval_s = max(float(min_interval_s), 1e-9)
+        self.burst = max(1, int(burst))
+        self.trace_s = float(trace_s)
+        self.flight_requests = int(flight_requests)
+        self.flight_steps = int(flight_steps)
+        # bundles kept on disk (0 = unbounded): the bucket bounds them per
+        # interval, this across days
+        self.max_bundles = int(max_bundles)
+        self._now = now
+        self._clock = clock
+        self._tokens = float(self.burst)
+        self._refill_at = now()
+        self._seq = 0
+        self._tracing = False
+        self._trace_thread: threading.Thread | None = None
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_config(cls, config, container, slo: SLOEngine, **kw: Any) -> "CaptureWatcher":
+        out_dir = config.get_or_default(
+            "SLO_CAPTURE_DIR", config.get_or_default("PROFILER_DIR", "/tmp/gofr_tpu_profile"))
+        return cls(
+            container, slo, out_dir=out_dir,
+            min_interval_s=config.get_float("SLO_CAPTURE_MIN_INTERVAL_S", 600.0),
+            burst=config.get_int("SLO_CAPTURE_BURST", 1),
+            trace_s=config.get_float("SLO_CAPTURE_TRACE_S", 0.0),
+            max_bundles=config.get_int("SLO_CAPTURE_MAX_BUNDLES", 32), **kw)
+
+    # -- token bucket ----------------------------------------------------------
+
+    def _acquire(self) -> bool:
+        with self._lock:
+            now = self._now()
+            self._tokens = min(float(self.burst),
+                               self._tokens + (now - self._refill_at) / self.min_interval_s)
+            self._refill_at = now
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+            return False
+
+    # -- the capture -----------------------------------------------------------
+
+    def on_breach(self, breaches: list[dict]) -> str | None:
+        """The breach listener: write one bundle if the bucket has a token,
+        else count the suppression. Returns the bundle's directory (None
+        when rate-limited or the write failed)."""
+        metrics = getattr(self.container, "metrics", None)
+        logger = getattr(self.container, "logger", None)
+        if not self._acquire():
+            if metrics is not None:
+                metrics.increment_counter("app_slo_captures_suppressed_total", 1)
+            return None
+        try:
+            path = self._write_bundle(breaches)
+        except Exception as e:  # noqa: BLE001 - capture is best-effort diagnostics
+            if logger is not None:
+                logger.warnf("slo anomaly capture failed: %r", e)
+            return None
+        if metrics is not None:
+            metrics.increment_counter("app_slo_captures_total", 1)
+        if self.trace_s > 0:
+            self._start_trace(path)
+        if logger is not None:
+            logger.warnf("slo burn breach: anomaly bundle written to %s (%d objectives burning)",
+                         path, len(breaches))
+        return path
+
+    def _write_bundle(self, breaches: list[dict]) -> str:
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+        stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime(self._clock()))
+        path = os.path.join(self.out_dir, f"slo-capture-{stamp}-{seq:03d}")
+        os.makedirs(path, exist_ok=True)
+        flight = getattr(self.container, "flight", None)
+        served = getattr(self.container, "engines", {})
+        engines = {}
+        for name, engine in served.items():
+            try:
+                engines[name] = engine.health_check() if hasattr(engine, "health_check") else {}
+            except Exception as e:  # noqa: BLE001 - a broken probe is itself evidence
+                engines[name] = {"status": "DOWN", "error": repr(e)}
+        perf = None
+        try:
+            # the roofline state at the breach: was the card starved or full?
+            planes = {name: e.perf.snapshot(time.monotonic()) for name, e in served.items()
+                      if getattr(e, "perf", None) is not None}
+            perf_fn = getattr(self.container, "perf_totals", None)
+            totals = perf_fn() if callable(perf_fn) else None
+            if planes or totals:
+                perf = {"engines": planes, "totals": totals}
+        except Exception:  # noqa: BLE001 - capture is best-effort diagnostics
+            perf = None
+        quality = {}
+        for name, e in served.items():
+            # each engine's shadow samples with their replay payloads
+            try:
+                snap_fn = getattr(e, "quality_snapshot", None)
+                snap = snap_fn() if callable(snap_fn) else None
+            except Exception:  # noqa: BLE001 - capture is best-effort diagnostics
+                snap = None
+            if snap is not None:
+                quality[name] = snap
+        bundle = {
+            "ts": self._clock(),
+            "reason": breaches,
+            "slo": self.slo.snapshot(),
+            "flight": {
+                "requests": flight.requests(self.flight_requests) if flight is not None else [],
+                "steps": flight.steps(self.flight_steps) if flight is not None else [],
+            },
+            "engines": engines,
+            "perf": perf,
+        }
+        if quality:
+            bundle["quality"] = quality
+        with open(os.path.join(path, "bundle.json"), "w") as f:
+            json.dump(bundle, f, indent=1, default=str)
+        self._sweep()
+        return path
+
+    def _sweep(self) -> None:
+        """Drop the oldest ``slo-capture-*`` directories past
+        ``max_bundles`` (their stamp-and-sequence names sort by age)."""
+        if self.max_bundles <= 0:
+            return
+        try:
+            names = sorted(d for d in os.listdir(self.out_dir) if d.startswith("slo-capture-"))
+        except OSError:
+            return
+        for name in names[:-self.max_bundles]:
+            shutil.rmtree(os.path.join(self.out_dir, name), ignore_errors=True)
+
+    def _start_trace(self, path: str) -> None:
+        """``trace_s`` seconds of ``torch.profiler`` on a thread of its own
+        (the breach was seen on a latency-critical path), exported as a
+        Chrome trace to ``<bundle>/trace/trace.json``. One trace at a
+        time."""
+        with self._lock:
+            if self._tracing:
+                return
+            self._tracing = True
+
+        def run() -> None:
+            try:
+                record_trace(os.path.join(path, "trace"), self.trace_s)
+            except Exception as e:  # noqa: BLE001 - diagnostics only
+                logger = getattr(self.container, "logger", None)
+                if logger is not None:
+                    logger.warnf("slo capture trace failed: %r", e)
+            finally:
+                with self._lock:
+                    self._tracing = False
+
+        self._trace_thread = threading.Thread(target=run, daemon=True,
+                                              name="gofr-slo-capture-trace")
+        self._trace_thread.start()
+
+
+def record_trace(out_dir: str, seconds: float) -> str:
+    """Record ``seconds`` of the process with ``torch.profiler`` and export
+    a Chrome trace to ``out_dir/trace.json``; returns its path. On a card
+    the profiler takes CUDA activity, every kernel the process launches
+    from any thread; the window ends once the card has run what was
+    launched in it. Without a card it takes CPU activity. The SLO capture
+    trace and ``/debug/profile`` both record with it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]
+    with profile(activities=activities) as prof:
+        time.sleep(seconds)
+        if on_card:
+            torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    return trace

@@ -10,7 +10,8 @@ bias, so a JAX ``x @ W`` with W [in, out] becomes a weight of [out, in]
 
 Entry points, each a method of ``Llama``:
 
-- ``forward``            full causal pass, no cache (llama.py:206)
+- ``forward``            full causal pass, no cache (llama.py:206), with
+                         JAX's ``attn_fn`` / ``head_fn`` hooks
 - ``prefill``            prompts (or chunks at ``offsets``) written into
                          the cache, last-token logits: slot rows on the slot
                          cache (llama.py:304), block-table rows on the paged
@@ -199,19 +200,29 @@ class Llama(nn.Module):
     # -- entry points ----------------------------------------------------------
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor | None = None,
+                attn_fn=None, head_fn=None) -> torch.Tensor:
         """tokens [B, S] → logits [B, S, V] (f32); ``lengths`` masks padded
-        keys."""
+        keys. ``attn_fn`` replaces ``mha_attention`` (same contract), and
+        ``head_fn(x, head)`` the head product of the normed states ``x``
+        with the head weight (the embedding when tied, a ``QTensor`` in
+        int8), as JAX's hooks do (llama.py:206-239): the quality plane's
+        fake-quantized K/V and LoRA head."""
         b, s = tokens.shape
+        attn = attn_fn or mha_attention
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = self.embed[tokens]
         for lp in self.blocks:
             q, k, v = self._qkv(lp, x)
-            a = mha_attention(self._rope(q, positions), self._rope(k, positions), v,
-                              causal=True, kv_lengths=lengths)
+            a = attn(self._rope(q, positions), self._rope(k, positions), v,
+                     causal=True, kv_lengths=lengths)
             x = x + qdot(a.reshape(b, s, -1), lp.wo.weight)
             x = x + self._mlp(lp, x)
-        return self._logits(x)
+        if head_fn is None:
+            return self._logits(x)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        head = self.embed if self.lm_head is None else self.lm_head.weight
+        return head_fn(x, head).float()
 
     def _cached_layers(self, tokens: torch.Tensor, lengths: torch.Tensor, cache: AnyKVCache,
                        rows: torch.Tensor, offsets: torch.Tensor | None,
@@ -227,6 +238,11 @@ class Llama(nn.Module):
                else offsets.long())
         positions = off[:, None] + torch.arange(s, device=tokens.device)[None]
         rope_pos = positions.clamp(max=self.cfg.max_seq_len - 1)
+        view_rows = rows
+        if offsets is not None and rows.dim() == 1:
+            # an OOB slot id (a warmup row) reads the last slot, as JAX's
+            # gather clamps: its writes drop and its output is discarded
+            view_rows = rows.long().clamp(0, cache.num_slots - 1)
         x = self.embed[tokens]
         for layer, lp in enumerate(self.blocks):
             q, k, v = self._qkv(lp, x, dot)
@@ -235,7 +251,7 @@ class Llama(nn.Module):
             if offsets is None:
                 a = attn(q, cache.stored(k), cache.stored(v), causal=True, kv_lengths=lengths)
             else:
-                k_view, v_view = cache.read(layer, rows, self.cfg.dtype)
+                k_view, v_view = cache.read(layer, view_rows, self.cfg.dtype)
                 a = attn(q, k_view.transpose(1, 2), v_view.transpose(1, 2),
                          causal=True, q_offset=off, kv_lengths=off + lengths)
             x = x + dot(a.reshape(b, s, -1), lp.wo.weight)

@@ -8,8 +8,11 @@ The CUDA C++ sources live in ``gofr_tpu_torch/csrc``. At first use each
 takes minutes. Pointers and the stream go over as ``c_void_p``.
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
-``check`` raises on anything but 0. A failed build raises too: the kernels
-never fall back to their plain versions on the card.
+``check`` raises ``KernelError`` on anything but 0. A failed build raises it
+too, and ``require`` raises ``KernelInputError`` (a ``ValueError`` as well)
+on input a kernel does not take: the kernels never fall back to their
+plain versions on the card, and a caller that absorbs other failures (the
+quality plane's scorer) lets these through.
 
 Importing this package builds nothing and needs no CUDA toolkit; the CPU
 tests import it.
@@ -36,6 +39,14 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """Input a kernel does not take (checked before any pointer reaches C)."""
+
+
 def nvcc() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else /usr/local/cuda's,
     else the one on PATH."""
@@ -44,7 +55,7 @@ def nvcc() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+        raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
     return found
 
 
@@ -76,10 +87,10 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD) -> dict:
     reports = [proc.communicate()[0] for proc in procs]
     for cmd, proc, report in zip(compiles, procs, reports):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-3]}:\n{report}")
+            raise KernelError(f"nvcc failed ({proc.returncode}) on {cmd[-3]}:\n{report}")
     linked = subprocess.run(link, capture_output=True, text=True)
     if linked.returncode != 0:
-        raise RuntimeError(f"link failed ({linked.returncode}):\n{linked.stdout}{linked.stderr}")
+        raise KernelError(f"link failed ({linked.returncode}):\n{linked.stdout}{linked.stderr}")
     os.replace(str(library) + ".tmp", library)
     return {"seconds": time.perf_counter() - start, "ptxas": "".join(reports), "library": library}
 
@@ -136,13 +147,13 @@ def require(cond: bool, msg: str) -> None:
     """Reject input a kernel does not take (wrappers validate before any
     pointer reaches C)."""
     if not cond:
-        raise ValueError(msg)
+        raise KernelInputError(msg)
 
 
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} ({lib().gofr_error_string(rc).decode()})")
+        raise KernelError(f"{name}: CUDA error {rc} ({lib().gofr_error_string(rc).decode()})")
 
 
 def _wrappers() -> dict:

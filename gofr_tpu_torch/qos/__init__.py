@@ -286,8 +286,16 @@ class AdmissionController:
         class (capacity acquired; released by the request's done
         callback via ``track``)."""
         cls = self.policy.resolve(cls_name)
-        # (JAX sheds "restart" here while its loop backs off after a crash;
-        # the port's loop does not restart)
+        if getattr(engine, "_restarting", False):
+            # shed-during-restart: the device loop is inside its crash-
+            # recovery backoff window — new work would only deepen the
+            # backlog the restarted loop must drain (queued work already
+            # there survives the restart; docs/qos.md)
+            wait = self._ewma_step or 1.0
+            self._reject(cls, "restart", 503, wait)
+            raise ServiceUnavailable(
+                "engine restarting after a device fault; retry later",
+                retry_after=wait)
         if self.policy.shed_on_burn:
             # SLO pressure signal (metrics/slo.py, QOS_SHED_ON_BURN): while
             # a strictly higher-priority class is burning its fast-window
@@ -348,7 +356,7 @@ class AdmissionController:
                 retry_after: float) -> None:
         self.metrics.increment_counter("app_qos_rejected_total", 1,
                                        reason=reason, qos_class=cls.name)
-        if reason in ("queue", "deadline_exceeded", "capacity", "slo_burn"):
+        if reason in ("queue", "deadline_exceeded", "capacity", "slo_burn", "restart"):
             # overload-driven (we turned away feasible work because of
             # load), as opposed to a client exceeding its rate budget —
             # this is what flips health to DEGRADED for the shed window

@@ -316,14 +316,16 @@ def test_stop_in_the_middle_of_mixed_traffic_frees_every_slot_and_page(tiny):
 
 
 def test_a_crash_settles_the_calls_in_flight_and_fails_every_request(tiny, monkeypatch):
-    """A fold that raises kills the loop: the queue and the carries are
-    dropped, every request fails with the error, and health reads DOWN."""
+    """A fold that raises kills the loop when no restart is left
+    (``max_restarts=0``; a restart is tests/test_torch_lifecycle.py's):
+    the queue and the carries are dropped, every request fails with the
+    error, and health reads DOWN."""
     from gofr_tpu_torch.gpu import decode
 
     def broken(*_):
         raise RuntimeError("fold fault")
 
-    eng = _port_engine(tiny, page_size=PAGE)
+    eng = _port_engine(tiny, page_size=PAGE, max_restarts=0)
     monkeypatch.setattr(decode, "_fold_plain", broken)
     with eng._state_lock:  # all three queued before the loop admits any
         reqs = [eng.submit([i + 1, 2, 3], max_new_tokens=20) for i in range(3)]

@@ -135,7 +135,24 @@ result line:
    events; it prints each sample's bucket, each arm's device ms and C's
    share. Last ``cold_start``: ``scripts/torch_cold_start.py`` in two fresh
    processes, ``ENGINE_WARMUP`` false and true, prints warmup's seconds and
-   count and the first and a second request's TTFT;
+   count and the first and a second request's TTFT. Before it
+   ``paged_control`` (``serve_control``): ``bf16``'s pool from a
+   ``ModelSpec`` with the step controller on (``CONTROL_CONFIG``), under
+   ``paged_pipeline``'s waves for 15 s, then a wave of ``bf16``'s prompts
+   with pipeline depth 1, chunk 128 and batch 1 queued mid-wave, the boot
+   values queued in the next, and a spec engine (g 4) moved to g 2
+   mid-wave: at least one trial and one commit or revert, every knob of
+   every decision and flight step within its boot envelope, the waves'
+   tokens ``bf16``'s by the tie rule, the decisions counter equal to the
+   ring; and ``paged_handoff`` (``serve_handoff``): a prefill worker and a
+   decode worker of ``bf16``'s knobs in one process, streamed, blob, an
+   int8 pair and 2 prompts of 1536 tokens in 3 chunks each: each prompt of
+   a page or more ends on the prefill worker with ``finish_reason=
+   "handoff"`` and one token, the decode worker's tokens are its cache's
+   run's by the tie rule, pages exported = imported = Σ⌊len/128⌋ (pinned
+   on the import), bytes = pages × page bytes, host-tier tokens 128 ×
+   Σ⌊(len−1)/128⌋, both pools audit clean; it prints each arm's readback
+   and wire GB/s, overlap ratio and the decode worker's TTFT p50;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -161,7 +178,9 @@ result line:
    cache the engine's own dispatches under the same check: a batched
    prefill, two prefill chunks, two decode chunks (the second from the
    device carry), a swap-in on the pool (the page swapped in must equal its
-   source bit for bit) and two speculative rounds, the folds outside it;
+   source bit for bit), on the pool a prefill worker's handoff export (the
+   page copies staged at a chunk fold and at activation, each equal to its
+   pool page bit for bit) and two speculative rounds, the folds outside it;
    both checks also on the int8-weight model on the bf16 pool.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
@@ -1037,7 +1056,14 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            ("slot", ""): ("decode_attention", "kv_append_slot", "flash_attention"),
            ("slot", "int8"): ("kv_append_slot_q", "flash_attention"),
            # the int8-weight model on the bf16 pool: every product through W8A16
-           "paged_w8": ("paged_decode", "kv_append", "flash_attention", "w8a16")}
+           "paged_w8": ("paged_decode", "kv_append", "flash_attention", "w8a16"),
+           # the step controller on the bf16 pool, and on a spec engine (C alone)
+           "paged_control": ("paged_decode", "kv_append", "flash_attention"),
+           "paged_control_spec": ("flash_attention",),
+           # a prefill worker (C; its pool's decode kernels only for a prompt
+           # under a page, served colocated) and a decode worker, bf16 pool
+           "paged_handoff_prefill": ("flash_attention",),
+           "paged_handoff_decode": ("paged_decode", "kv_append", "flash_attention")}
 PREFILL_KERNELS = ("flash_attention",)
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
@@ -2588,6 +2614,425 @@ def serve_restart(torch, cuda, model, base_outs: list) -> dict:
             "launches": counts, **agree, "nvidia_smi": smi_line()}
 
 
+# Phase 4's ``paged_control``: ``bf16``'s pool from a ``ModelSpec`` with the
+# step controller on (``CONTROL_CONFIG``: a tick every 0.5 s on at least 4
+# steps; sustain, cooldown and backoff keep their interval-scaled defaults),
+# served by the App under ``APP_ENV=DEBUG`` for ``/debug/control``.
+CONTROL_CONFIG = {**HTTP_CONFIG, "APP_ENV": "DEBUG", "CONTROL_ENABLE": "1",
+                  "CONTROL_INTERVAL_S": "0.5", "CONTROL_MIN_STEPS": "4"}
+CONTROL_TRAFFIC_S = 15.0
+# the drill's knob moves, restored to the boot values in the next wave
+CONTROL_DRILL = {"pipeline_depth": 1, "prefill_chunk": 128, "prefill_batch": 1}
+CONTROL_SPEC_G = (SPEC_G, 2)
+
+
+def knob_envelope(eng) -> dict:
+    """Each knob's allowed values: 1 up to the boot value, a bucket for
+    ``prefill_chunk``."""
+    env = {"pipeline_depth": set(range(1, eng._boot_pipeline_depth + 1)),
+           "prefill_chunk": set(eng.prefill_buckets),
+           "prefill_batch": set(range(1, eng._boot_prefill_batch + 1))}
+    if eng._boot_spec_tokens:
+        env["spec_tokens"] = set(range(1, eng._boot_spec_tokens + 1))
+    return env
+
+
+def hold_knobs(label: str, eng, flight) -> dict:
+    """Every decision's and every flight step's knob values within the
+    engine's boot envelope; returns the knob values the steps ran under."""
+    env = knob_envelope(eng)
+    for d in flight.controls():
+        if d.get("knob"):
+            require(d["from"] in env[d["knob"]] and d["to"] in env[d["knob"]],
+                    f"{label}: decision {d} moves {d['knob']} outside {sorted(env[d['knob']])}")
+    seen: dict = {k: set() for k in env}
+    for st in flight.steps():
+        knobs = st.get("knobs")
+        require(knobs is not None and set(knobs) == set(env),
+                f"{label}: a flight step without the knob vector: {st}")
+        for k, v in knobs.items():
+            require(v in env[k], f"{label}: a step ran at {k}={v}, outside {sorted(env[k])}")
+            seen[k].add(v)
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def timed_ticks(ctl) -> list:
+    """Wrap the controller's evaluating tick (``maybe_tick`` between ticks
+    returns at once) so each one's host seconds are kept."""
+    spent, tick = [], ctl._tick
+
+    def timed(now):
+        t0 = time.perf_counter()
+        try:
+            return tick(now)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    ctl._tick = timed
+    return spent
+
+
+def drill_wave(eng, prompts: list, knobs: dict) -> list:
+    """Submit ``prompts``, queue ``knobs`` once half of them are in, and
+    return the results."""
+    reqs = []
+    for i, p in enumerate(prompts):
+        reqs.append(eng.submit(p, max_new_tokens=64))
+        if i == len(prompts) // 2 - 1:
+            eng.request_knobs(**knobs)
+    return [r.result(timeout=900) for r in reqs]
+
+
+def hold_tie(label: str, torch, model, prompts, outs, want) -> dict:
+    """Every request 64 tokens; tokens against ``want`` by the tie rule."""
+    for i, o in enumerate(outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                f"{label} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+    agree = token_agreement(torch, model, prompts, outs, want)
+    gaps = [m["chosen_below_top1"] for m in agree["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"{label}: at a first difference the run chose a token {gaps} below the top logit "
+            f"(limit {SPEC_TIE_GAP})")
+    return agree
+
+
+def serve_control(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``paged_control``. ``paged_pipeline``'s 16 prompts in waves of
+    4 for ``CONTROL_TRAFFIC_S`` with the controller on, then the drill: a
+    wave of ``bf16``'s 8 prompts with ``CONTROL_DRILL`` queued after the
+    fourth, and the next wave of the same prompts with the boot values
+    queued there; then, on a second engine of the same config with
+    ``ENGINE_SPEC_TOKENS=4``, ``bf16``'s 8 prompts with ``spec_tokens`` moved
+    to 2 after the fourth. Held: at least one ``try`` and one ``commit`` or
+    ``revert``; every knob value in every decision and flight step within
+    the boot envelope (1..boot, a bucket for the chunk size); each drill
+    wave's and the spec wave's tokens equal to ``bf16``'s by the tie rule;
+    the spec engine's steps ran at g 2 after the move; no call dropped and
+    both pools' audits clean; ``app_tpu_control_decisions_total`` equal to
+    the flight ring's count; A, B and C launch on the first engine and no
+    other kernel, C alone on the spec engine. Printed: the decisions, the
+    host ms of a controller tick, ``/debug/control``'s payload size."""
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.gpu.engine import build_engine
+    from gofr_tpu_torch.models import ModelSpec
+
+    vocab = model.cfg.vocab_size
+    traffic, drill = pipeline_prompts(torch, vocab)[:PIPELINE["requests"]], phase4_prompts(
+        torch, vocab)
+    spec = ModelSpec("llama", model.cfg, weights=model, dtype=model.cfg.dtype)
+    app = App(config=DictConfig(CONTROL_CONFIG))
+    eng = app.serve_model("lm", spec, seed=SEED, eos_token_id=-1)
+    require(eng._control is not None, "paged_control: CONTROL_ENABLE=1 built no controller")
+    ticks = timed_ticks(eng._control)
+    boot = dict(eng.knob_vector())
+    out: dict = {"model": "llama3_8b (random bf16 weights, seed 0)", "kv_pool": "bf16",
+                 "config": {k: v for k, v in CONTROL_CONFIG.items() if k.startswith("CONTROL")},
+                 "boot_knobs": boot}
+    with AppThread(app, "paged-control"):
+        warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+        require(warm["finish_reason"] == "length", f"paged_control warm-up: {warm}")
+        wait_idle(eng)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        per, t0, waves, reqs = PIPELINE["requests"] // PIPELINE["waves"], time.monotonic(), 0, []
+        while time.monotonic() - t0 < CONTROL_TRAFFIC_S:
+            w = waves % PIPELINE["waves"]
+            reqs += submit_wave(eng, traffic[w * per:(w + 1) * per])
+            waves += 1
+        traffic_outs = [r.result(timeout=900) for r in reqs]
+        traffic_s = time.monotonic() - t0
+        drilled = drill_wave(eng, drill, CONTROL_DRILL)
+        restored = drill_wave(eng, drill, boot)
+        st = wait_idle(eng)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        eng.check_page_refs()
+        status, payload, *_ = http_call(app.http_port, "GET", "/debug/control")
+        require(status == 200, f"paged_control: /debug/control answered {status}")
+    # the engine stopped with the App: the ring and the counter hold still
+    decisions = app.container.flight.controls()
+    counted = sum(app.container.metrics.get("app_tpu_control_decisions_total")._values.values())
+    seen = hold_knobs("paged_control", eng, app.container.flight)
+    final = eng.knob_vector()
+    del eng, app
+    torch.cuda.empty_cache()
+    verdicts = [d["verdict"] for d in decisions]
+    require("try" in verdicts and ("commit" in verdicts or "revert" in verdicts),
+            f"paged_control: the decisions were {verdicts}")
+    require(counted == len(decisions),
+            f"paged_control: app_tpu_control_decisions_total counted {counted}, the ring holds "
+            f"{len(decisions)}")
+    # newest first: decisions made after the GET lead the ring
+    shown = payload["data"]["decisions"]
+    require(payload["data"]["engines"]["lm"]["enabled"] is True and shown
+            and shown == decisions[len(decisions) - len(shown):],
+            "paged_control: /debug/control's decisions differ from the flight ring")
+    require(st["dropped"] == 0, f"paged_control: calls dropped {st}")
+    for i, o in enumerate(traffic_outs):
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == PIPELINE["new_tokens"],
+                f"paged_control traffic request {i}: {o['finish_reason']}")
+    for name, launches in counts.items():
+        require((launches > 0) == (name in ON_PATH["paged_control"]),
+                f"paged_control: kernel {name} launched {launches} times")
+    out.update({
+        "traffic_s": traffic_s, "traffic_waves": waves, "traffic_requests": len(traffic_outs),
+        "decisions": decisions, "verdicts": {v: verdicts.count(v) for v in sorted(set(verdicts))},
+        "decisions_counted": counted, "ticks": len(ticks),
+        "tick_host_ms": {"mean": sum(ticks) / len(ticks) * 1e3, "max": max(ticks) * 1e3}
+        if ticks else None,
+        "debug_control_bytes": len(json.dumps(payload).encode()),
+        "knob_values_stepped": seen, "final_knobs": final,
+        "drill": {k: v for k, v in hold_tie("paged_control drill", torch, model, drill, drilled,
+                                            base_outs).items()
+                  if k != "margin_at_first_difference"},
+        "restored": {k: v for k, v in hold_tie("paged_control restore", torch, model, drill,
+                                               restored, base_outs).items()
+                     if k != "margin_at_first_difference"},
+        "launches": counts})
+    # the spec engine: g moved from 4 to 2 in the middle of a wave
+    c = Container(DictConfig({**CONTROL_CONFIG, "ENGINE_SPEC_TOKENS": str(CONTROL_SPEC_G[0]),
+                              "LOG_LEVEL": "ERROR"}))
+    eng = build_engine(spec, c, device="cuda", seed=SEED, eos_token_id=-1)
+    try:
+        warm = eng.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+        require(warm["finish_reason"] == "length", f"paged_control spec warm-up: {warm}")
+        wait_idle(eng)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        spec_outs = drill_wave(eng, drill, {"spec_tokens": CONTROL_SPEC_G[1]})
+        st = wait_idle(eng)
+        torch.cuda.synchronize()
+        spec_counts = cuda.launch_counts()
+        eng.check_page_refs()
+        spec_seen = hold_knobs("paged_control spec", eng, c.flight)
+        spec_decisions = c.flight.controls()
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    require(st["dropped"] == 0, f"paged_control spec: calls dropped {st}")
+    require(CONTROL_SPEC_G[1] in spec_seen["spec_tokens"],
+            f"paged_control spec: no step ran at g {CONTROL_SPEC_G[1]}: {spec_seen}")
+    for name, launches in spec_counts.items():
+        require((launches > 0) == (name in ON_PATH["paged_control_spec"]),
+                f"paged_control spec: kernel {name} launched {launches} times")
+    out["spec"] = {"boot_g": CONTROL_SPEC_G[0], "moved_to": CONTROL_SPEC_G[1],
+                   "knob_values_stepped": spec_seen, "decisions": spec_decisions,
+                   **{k: v for k, v in hold_tie("paged_control spec", torch, model, drill,
+                                                spec_outs, base_outs).items()
+                      if k != "margin_at_first_difference"},
+                   "launches": spec_counts}
+    out["nvidia_smi"] = smi_line()
+    return out
+
+
+# Phase 4's ``paged_handoff``: a prefill worker and a decode worker of
+# ``bf16``'s knobs in one process on one card, both on the phase's model,
+# built from a ``ModelSpec`` and their ``ENGINE_ROLE`` / ``HANDOFF_*``
+# config. The decode worker's host tier is ``HANDOFF_DECODE_HOST_MB``: the
+# default 256 MiB holds 16 of Llama-3-8B's 16 MiB bf16 pages, and the 8
+# prompts ship 32. Each arm: its prompts at once to the prefill worker,
+# then the same prompts at once to the decode worker.
+HANDOFF_BASE = {"LOG_LEVEL": "ERROR", "ENGINE_SLOTS": "8", "ENGINE_MAX_LEN": "2048",
+                "ENGINE_PREFILL_BATCH": "4", "ENGINE_DECODE_CHUNK": "8"}
+HANDOFF_DECODE_HOST_MB = 1024
+HANDOFF_LONG = {"prompts": 2, "tokens": 1536, "buckets": [128, 256, 512]}
+HANDOFF_ARMS = {
+    "stream": {"HANDOFF_STREAMS": "2", "HANDOFF_CHUNK_PAGES": "4"},
+    "blob": {"HANDOFF_STREAMS": "0"},
+    "int8_stream": {"HANDOFF_STREAMS": "2", "HANDOFF_CHUNK_PAGES": "4", "ENGINE_KV_DTYPE": "int8"},
+    "long_stream": {"HANDOFF_STREAMS": "2", "HANDOFF_CHUNK_PAGES": "4"},
+}
+
+
+def long_prompts(torch, vocab: int) -> list[list[int]]:
+    rng = torch.Generator().manual_seed(SEED + 9)
+    return [torch.randint(0, vocab, (HANDOFF_LONG["tokens"],), generator=rng).tolist()
+            for _ in range(HANDOFF_LONG["prompts"])]
+
+
+def handoff_arm(torch, cuda, model, arm: str, prompts: list, want: list) -> dict:
+    """One arm of ``paged_handoff``; returns its numbers, holds inside."""
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.gpu.engine import build_engine
+    from gofr_tpu_torch.models import ModelSpec
+
+    spec = ModelSpec("llama", model.cfg, weights=model, dtype=model.cfg.dtype)
+    kw = {"prefill_buckets": HANDOFF_LONG["buckets"]} if arm == "long_stream" else {}
+    conf = {**HANDOFF_BASE, **HANDOFF_ARMS[arm]}
+    page = 128
+    n_pages = [len(p) // page for p in prompts]
+    dec = build_engine(spec, Container(DictConfig({**conf, "ENGINE_ROLE": "decode",
+                                                   "ENGINE_PREFIX_HOST_MB": str(
+                                                       HANDOFF_DECODE_HOST_MB)})),
+                       device="cuda", seed=SEED, eos_token_id=-1, **kw)
+    pre = None
+    try:
+        pre = build_engine(spec, Container(DictConfig({**conf, "ENGINE_ROLE": "prefill",
+                                                       "HANDOFF_TARGET": dec.handoff_addr})),
+                           device="cuda", seed=SEED, eos_token_id=-1, **kw)
+        require(pre.role == "prefill" and dec.role == "decode" and pre._handoff_exporter,
+                f"paged_handoff {arm}: the workers' roles {pre.role}/{dec.role}")
+        for e in (pre, dec):
+            warm = e.generate(list(range(1, 65)), max_new_tokens=2, timeout=600)
+            require(warm["finish_reason"] == "length", f"paged_handoff {arm} warm-up: {warm}")
+            wait_idle(e)
+        kicks, kick = [], pre._handoff_exporter.kick
+        pre._handoff_exporter.kick = lambda t: (kicks.append(t.staged_pages), kick(t))
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.monotonic()
+        first = [r.result(timeout=900) for r in [pre.submit(p, max_new_tokens=64)
+                                                 for p in prompts]]
+        pre_s = time.monotonic() - t0
+        wait_idle(pre)
+        torch.cuda.synchronize()
+        pre_counts = cuda.launch_counts()
+        exported = pre._handoff_exporter.stats()
+        imported = dec._handoff_server.stats()
+        pinned = all(t.is_pinned() for node in dec._prefix._nodes.values() if node.page_id < 0
+                     for t in node.host)
+        host_pages = dec._prefix.host_pages
+        perf = pre.perf.window_totals(time.monotonic())["kinds"]
+        seconds = pre.metrics.get("app_tpu_kv_handoff_seconds")
+        cuda.reset_launch_counts()
+        t0 = time.monotonic()
+        outs = [r.result(timeout=900) for r in [dec.submit(p, max_new_tokens=64)
+                                                for p in prompts]]
+        dec_s = time.monotonic() - t0
+        wait_idle(dec)
+        torch.cuda.synchronize()
+        dec_counts = cuda.launch_counts()
+        pre.check_page_refs()
+        dec.check_page_refs()
+        page_bytes = dec._page_bytes
+    finally:
+        if pre is not None:
+            pre.stop()
+        dec.stop()
+    del pre, dec
+    torch.cuda.empty_cache()
+    label = f"paged_handoff {arm}"
+    for i, (o, n) in enumerate(zip(first, n_pages)):
+        if n:
+            require(o["finish_reason"] == "handoff" and len(o["tokens"]) == 1,
+                    f"{label} prefill request {i} ({len(prompts[i])} tokens): "
+                    f"{o['finish_reason']}, {len(o['tokens'])} tokens")
+        else:
+            require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
+                    f"{label} prefill request {i} (under a page): served {o['finish_reason']}")
+    firsts = token_agreement(torch, model, prompts, first, want)
+    gaps = [m["chosen_below_top1"] for m in firsts["margin_at_first_difference"] if m]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"{label}: a prefill worker's first token lies {gaps} below the top logit")
+    agree = hold_tie(f"{label} decode", torch, model, prompts, outs, want)
+    pages = sum(n_pages)
+    require(exported["exported"] == sum(1 for n in n_pages if n) and exported["failed"] == 0
+            and exported["pages"] == pages,
+            f"{label}: exported {exported}, want {pages} pages")
+    require(imported["imported"] == exported["exported"] and imported["pages"] == pages
+            and imported["bytes"] == pages * page_bytes and host_pages == pages,
+            f"{label}: imported {imported} ({host_pages} host pages), want {pages} pages of "
+            f"{page_bytes} B")
+    require(pinned, f"{label}: the imported pages are not in pinned host memory")
+    hit = sum(o["prefix_host_tokens"] for o in outs)
+    want_hit = page * sum((len(p) - 1) // page for p in prompts)
+    require(hit == want_hit, f"{label}: the decode worker served {hit} host-tier tokens, want "
+                             f"{want_hit}")
+    pool = "int8" if "int8" in arm else ""
+    # C on every prompt; the pool's decode kernels only for a prompt under a
+    # page, which the prefill worker serves colocated
+    on_pre = set(ON_PATH["paged_handoff_prefill"]) | (
+        set(ON_PATH["paged", pool]) if 0 in n_pages else set())
+    for name, launches in pre_counts.items():
+        require((launches > 0) == (name in on_pre),
+                f"{label}: the prefill worker launched {name} {launches} times")
+    for name, launches in dec_counts.items():
+        require((launches > 0) == (name in ON_PATH["paged", pool]),
+                f"{label}: the decode worker launched {name} {launches} times")
+    if HANDOFF_ARMS[arm].get("HANDOFF_STREAMS") != "0":
+        require(exported["mode"] == "stream" and exported["streams"] == 2,
+                f"{label}: the exporter runs {exported['mode']} over {exported['streams']}")
+    if arm == "long_stream":
+        # each prompt's pages staged at its two non-final chunk folds, 4 at
+        # each (the staged count after the first and the second)
+        require(sorted(kicks) == sorted([4, 8] * len(prompts)),
+                f"{label}: pages staged at the chunk folds: {kicks}")
+    rb = perf.get(f"handoff_export|{pool or 'bf16'}", {})
+    wire = perf.get(f"handoff_stream|{pool or 'bf16'}", {})
+    ttft = sorted(o["ttft_s"] for o in outs)
+    return {"arm": arm, "config": HANDOFF_ARMS[arm], "prompt_lens": [len(p) for p in prompts],
+            "pages": pages, "page_bytes": page_bytes, "pinned_import": pinned,
+            "export": exported, "import": imported, "kicks": kicks,
+            "readback_ms": rb.get("device_s", 0.0) * 1e3,
+            "readback_gb_s": rb["bytes"] / rb["device_s"] / 1e9 if rb.get("device_s") else None,
+            "wire_s": wire.get("device_s"),
+            "wire_gb_s": wire["bytes"] / wire["device_s"] / 1e9 if wire.get("device_s") else None,
+            "handoff_s_sum": seconds.sum(), "handoff_count": seconds.count(),
+            "prefill_wall_s": pre_s, "decode_wall_s": dec_s,
+            "decode_ttft_p50_s": ttft[len(ttft) // 2], "decode_ttft_s": ttft,
+            "host_hit_tokens": hit, "first_tokens": {k: v for k, v in firsts.items()
+                                                     if k != "margin_at_first_difference"},
+            **{k: v for k, v in agree.items() if k != "margin_at_first_difference"},
+            "launches_prefill": pre_counts, "launches_decode": dec_counts}
+
+
+def serve_handoff(torch, cuda, model, results: dict, served: dict) -> dict:
+    """Phase 4 ``paged_handoff``: the arms of ``HANDOFF_ARMS``, streamed
+    (2 streams, 4 pages a chunk), blob, an int8 pair, and 2 prompts of 1536
+    tokens on ``paged_admission``'s buckets (each prefilled in 3 chunks,
+    its pages staged at the chunk folds). Held in each arm: every prompt of
+    a full page or more ends on the prefill worker with ``finish_reason=
+    "handoff"`` and one token, ``bf16``'s first (``int8``'s on the int8
+    pair; the long arm's against an unsplit engine's) by the tie rule, and
+    a shorter one is served there colocated; the decode worker's tokens
+    equal the same by the tie rule; pages exported = pages imported =
+    Σ⌊len/128⌋, the import's bytes = pages × the pool's page bytes, the
+    imported planes in pinned memory; the decode worker's host-tier tokens
+    = 128 × Σ⌊(len−1)/128⌋ (a prompt of whole pages re-prefills its last
+    page, so its last token's logits are computed); both pools' audits
+    clean, no call dropped; the prefill worker launches C (and the decode
+    kernels only for a prompt it serves colocated), the decode worker its
+    pool's decode kernels and C. Printed per arm: the export's readback ms
+    and GB/s on the card's events, wire seconds and GB/s over loopback,
+    the overlap ratio, the decode worker's TTFT p50 beside ``bf16``'s."""
+    from gofr_tpu_torch.gpu.engine import build_engine
+
+    vocab = model.cfg.vocab_size
+    prompts = phase4_prompts(torch, vocab)
+    longs = long_prompts(torch, vocab)
+    eng = build_engine(model.cfg, params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                       max_prefill_batch=4, decode_chunk=8)
+    try:
+        long_want = [r.result(timeout=900) for r in [eng.submit(p, max_new_tokens=64)
+                                                     for p in longs]]
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    arms = []
+    for arm in HANDOFF_ARMS:
+        if arm == "long_stream":
+            arms.append(handoff_arm(torch, cuda, model, arm, longs, long_want))
+        else:
+            pool = "int8" if "int8" in arm else ""
+            arms.append(handoff_arm(torch, cuda, model, arm, prompts, results["paged", pool]))
+    launches = {"prefill": {}, "decode": {}}
+    for a in arms:
+        for side in launches:
+            for k, v in a[f"launches_{side}"].items():
+                launches[side][k] = launches[side].get(k, 0) + v
+    return {"model": "llama3_8b (random bf16 weights, seed 0)", "layers": model.cfg.num_layers,
+            "decode_host_mb": HANDOFF_DECODE_HOST_MB, "arms": arms,
+            "colocated_ttft_p50_s": {"bf16": served["paged", ""]["metrics"]["ttft_p50_s"],
+                                     "int8": served["paged", "int8"]["metrics"]["ttft_p50_s"]},
+            "launches": launches, "nvidia_smi": smi_line(),
+            "note": "one call, not a benchmark; nothing about speed is held"}
+
+
 def trace_kernels(path: str) -> dict[str, int]:
     """Kernel events of a Chrome trace by name prefix (up to the template
     arguments)."""
@@ -3133,6 +3578,84 @@ def no_sync_check(torch, cuda, model, kv_layout: str, kv_quantize: str) -> dict:
                          "with adapters": counts}}
 
 
+class StagingExporter:
+    """A handoff exporter that keeps what a prefill worker stages (its page
+    readbacks) and ships nothing: phase 6's stand-in for the wire."""
+
+    def __init__(self):
+        self.finished = []
+
+    def known_blob(self) -> bool:
+        return False
+
+    def begin_stream(self, request, prompt_tokens, nbytes_page, t0):
+        from gofr_tpu_torch.gpu.handoff import StreamTransfer
+
+        return StreamTransfer(request, prompt_tokens, nbytes_page, t0, "phase6")
+
+    def kick(self, transfer) -> None:
+        pass
+
+    def finish(self, transfer, first_token, now) -> None:
+        self.finished.append(transfer)
+
+    def abort(self, transfer) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def export_sync_check(torch, engine, submit, unsynced, fold, pool: str) -> None:
+    """A prefill worker's export calls under ``dispatch_sync_check``'s
+    check: a 400-token prompt prefilled in chunks of 256, the copies of the
+    pages its first chunk made whole staged as its fold would
+    (``_stream_handoff_chunk``), then at its activation the tail's and the
+    slot freed (``_export_handoff``), each under the state lock, with the
+    folds outside the check; every staged page must equal its pool page bit
+    for bit."""
+    from gofr_tpu_torch.ops.paged import page_planes
+
+    eng = engine(role="prefill")
+    exp = eng._handoff_exporter = StagingExporter()
+    rng = torch.Generator().manual_seed(SEED + 10)
+    submit(eng, torch.randint(0, eng.cfg.vocab_size, (400,), generator=rng).tolist())
+    eng._admit_prefill()
+    idx, s = 0, eng.slots[0]
+
+    def chunk_then_fold() -> None:
+        # the fold without its role's staging, which runs checked below
+        eng.role = "both"
+        try:
+            eng._advance_chunked()
+            fold(eng)
+        finally:
+            eng.role = "prefill"
+
+    def locked(fn):
+        def call():
+            with eng._state_lock:
+                return fn()
+        return call
+
+    chunk_then_fold()
+    unsynced("stream_handoff_chunk", locked(lambda: eng._stream_handoff_chunk(idx, s)))
+    require(s.handoff is not None and s.handoff.staged_pages == 2,
+            f"{pool}: the first chunk's fold staged no whole page")
+    chunk_then_fold()
+    pages = list(eng._slot_pages[idx][:3])
+    unsynced("export_handoff", locked(lambda: eng._export_handoff(idx, s, s.last_token)))
+    t = exp.finished[0]
+    require(t.staged_pages == 3 and eng.slots[idx] is None,
+            f"{pool}: the export staged {t.staged_pages} pages, want 3, and kept its slot")
+    for p, rb in zip(pages, t.staged):
+        host = rb.wait()
+        require(all(torch.equal(h, plane[:, p].cpu()) for h, plane in
+                    zip(host, page_planes(eng.cache))),
+                f"{pool}: a staged handoff page differs from pool page {p}")
+    eng.check_page_refs()
+
+
 def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str,
                         planes: bool = False) -> dict:
     """The engine's dispatches on one cache, each inside
@@ -3141,7 +3664,8 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str,
     (``dispatch_prefill``), that prompt's two chunks (``dispatch_chunk``),
     two decode chunks, the second from the device carry
     (``dispatch_decode``), and on the pool a swap-in of one page into a free
-    page (``dispatch_swapins``), then two speculative rounds on an engine
+    page (``dispatch_swapins``) and a prefill worker's handoff export
+    (``export_sync_check``), then two speculative rounds on an engine
     with ``spec_tokens`` (``dispatch_spec`` / ``dispatch_spec_paged``). Each
     runs on a stopped engine of 2 slots, from this thread; the folds, whose
     waits on their events are the intended ones, run outside the check. The
@@ -3218,6 +3742,7 @@ def dispatch_sync_check(torch, model, kv_layout: str, kv_quantize: str,
         fold(eng)
         require(all(bool((plane[:, dst] == plane[:, src]).all()) for plane in page_planes(eng.cache)),
                 f"{pool}: the page swapped in differs from the page it was copied from")
+        export_sync_check(torch, engine, submit, unsynced, fold, pool)
     eng = engine(spec_tokens=SPEC_G)
     submit(eng, short, temperature=0.8)
     submit(eng, long[:200])
@@ -3313,6 +3838,23 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
         require(max(ver_dec) < DECODE_RTOL,
                 f"plain verify_step vs plain decode steps ({pool}): {ver_dec} "
                 f"(limit {DECODE_RTOL})")
+    return out
+
+
+def launches_by_run(served: dict) -> dict[str, dict[str, int]]:
+    """Each phase-4 run's launch counts by kernel: the runs that record one
+    set, the spec engine of ``paged_control`` and the two sides of
+    ``paged_handoff`` (summed over its arms)."""
+    out = {}
+    for r, v in served.items():
+        counts = v.get("launches") if isinstance(v, dict) else None
+        if isinstance(counts, dict) and counts and all(isinstance(n, int)
+                                                       for n in counts.values()):
+            out[r if isinstance(r, str) else run_name(*r)] = counts
+    if "paged_control" in served:
+        out["paged_control_spec"] = served["paged_control"]["spec"]["launches"]
+    for side, counts in served.get("paged_handoff", {}).get("launches", {}).items():
+        out[f"paged_handoff_{side}"] = counts
     return out
 
 
@@ -3423,6 +3965,14 @@ def main() -> None:
                                       if k != "margin_at_first_difference"})
         lap(f"phase4_{name}")
 
+    served["paged_control"] = serve_control(torch, cuda, model, results["paged", ""])
+    emit("phase4_serve_paged_control", served["paged_control"])
+    lap("phase4_paged_control")
+
+    served["paged_handoff"] = serve_handoff(torch, cuda, model, results, served)
+    emit("phase4_serve_paged_handoff", served["paged_handoff"])
+    lap("phase4_paged_handoff")
+
     served["cold_start"] = cold_start(torch)
     emit("phase4_cold_start", served["cold_start"])
     lap("phase4_cold_start")
@@ -3444,10 +3994,13 @@ def main() -> None:
          + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
     lap("phase6")
 
-    # each kernel's launches from the first serving run whose path it is on
+    # each kernel's launches from the first serving run whose path it is on,
+    # and from every run that launched it
+    by_run = launches_by_run(served)
     for k in kernels:
         run = next(r for r in (*RUNS, "paged_w8") if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
+        k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "wall_s": wall,
@@ -3456,7 +4009,7 @@ def main() -> None:
     emit("wall_time", {"seconds": time.perf_counter() - start, "by_phase": wall})
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for k in kernels]}))
+        "bound_ms", "bound_by", "library_ms", "launches_by_run")} for k in kernels]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,13 +22,14 @@ The request planes, under the JAX App's config keys: ``TRACE_EXPORTER``
 engine), ``SLO_ENABLED`` / ``SLO_*`` (attainment and burn gauges, health
 DEGRADED on a burn; ``SLO_CAPTURE*``, the burn-breach capture bundles),
 and under ``APP_ENV=DEBUG`` the flight recorder's ``/debug/requests`` and
-``/debug/engine``, the perf plane's ``/debug/perf``, the quality plane's
-``/debug/quality`` and ``/debug/profile?seconds=N``, a ``torch.profiler``
-Chrome trace under ``PROFILER_DIR`` (one at a time: 409 while one runs).
-``ENGINE_WARMUP=true`` warms every engine (``GenerateEngine.warmup``)
-before the servers start. Not ported yet: websocket routes
-(``App.websocket``), the auth middlewares, static files, the OpenAPI
-routes, ``/debug/control``, JAX's ``jax.profiler`` server on
+``/debug/engine``, the perf plane's ``/debug/perf`` (with a role worker's
+handoff counters), the quality plane's ``/debug/quality``, the step
+controller's ``/debug/control`` and ``/debug/profile?seconds=N``, a
+``torch.profiler`` Chrome trace under ``PROFILER_DIR`` (one at a time: 409
+while one runs). ``ENGINE_WARMUP=true`` warms every engine
+(``GenerateEngine.warmup``) before the servers start. Not ported yet:
+websocket routes (``App.websocket``), the auth middlewares, static files,
+the OpenAPI routes, JAX's ``jax.profiler`` server on
 ``PROFILER_PORT`` (it has no torch counterpart), gRPC, pub/sub, cron and
 the CLI.
 """
@@ -170,6 +171,7 @@ class App:
             router.add("GET", "/debug/engine", self._debug_engine_handler)
             router.add("GET", "/debug/perf", self._debug_perf_handler)
             router.add("GET", "/debug/quality", self._debug_quality_handler)
+            router.add("GET", "/debug/control", self._debug_control_handler)
             router.add("GET", "/debug/profile", self._profile_handler)
         for method, path, handler in self._routes:
             router.add(method, path, self._wrap(handler))
@@ -357,9 +359,9 @@ class App:
 
     async def _debug_engine_handler(self, request: ServerRequest) -> ServerResponse:
         """GET /debug/engine?n=K: the last K device steps (kind, wall time,
-        occupancy, signature, backlog, perf-plane residency) and a health
-        snapshot of every served engine with its KV layout and dtype and
-        its adapter plane."""
+        occupancy, signature, backlog, perf-plane residency, knob vector)
+        and a health snapshot of every served engine with its KV layout and
+        dtype, its adapter plane, and a role worker's handoff counters."""
         steps = self.container.flight.steps(limit=self._debug_limit(request))
         engines = {}
         for name, engine in self.container.engines.items():
@@ -371,13 +373,18 @@ class App:
             ad_stats = getattr(engine, "adapter_stats", None)
             if callable(ad_stats):
                 snap["adapters"] = ad_stats()
+            handoff = _handoff_snapshot(engine)
+            if handoff:
+                snap["handoff"] = handoff
             engines[name] = snap
         return _json({"data": {"count": len(steps), "steps": steps, "engines": engines}})
 
     async def _debug_perf_handler(self, _request: ServerRequest) -> ServerResponse:
         """GET /debug/perf: per engine the perf plane's windowed MFU/MBU by
-        step kind, the pipeline bubble ratio and the page pool's waste;
-        and the container's exact rollup with its derived ratios."""
+        step kind, the pipeline bubble ratio, the page pool's waste and a
+        role worker's handoff transfer plane (mode, streams, bytes and
+        seconds a stream, overlap ratio; app.py:805-813); and the
+        container's exact rollup with its derived ratios."""
         now = time.monotonic()
         engines = {}
         for name, engine in self.container.engines.items():
@@ -389,10 +396,28 @@ class App:
             stats = stats_fn() if callable(stats_fn) else None
             if stats:
                 snap["page_pool"] = stats
+            handoff = _handoff_snapshot(engine)
+            if handoff:
+                snap["handoff"] = handoff
             engines[name] = snap
         totals = self.container.perf_totals()
         rollup = None if totals is None else {"totals": totals, **perf_mod.derive(totals)}
         return _json({"data": {"engines": engines, "rollup": rollup}})
+
+    async def _debug_control_handler(self, request: ServerRequest) -> ServerResponse:
+        """GET /debug/control?n=K (app.py:823-845): per engine the step
+        controller's live state (each knob's value, allowed range and frozen
+        flag, this engine's pins, the gate, the trial in progress, the last
+        judged evidence and its decisions; an engine without a controller
+        reports ``{"enabled": false}`` and its knob vector), and the flight
+        recorder's last K decisions."""
+        engines = {}
+        for name, engine in self.container.engines.items():
+            report = getattr(engine, "control_report", None)
+            if callable(report):
+                engines[name] = report()
+        decisions = self.container.flight.controls(limit=self._debug_limit(request))
+        return _json({"data": {"engines": engines, "decisions": decisions}})
 
     async def _debug_quality_handler(self, _request: ServerRequest) -> ServerResponse:
         """GET /debug/quality (app.py:843-880): per engine the quality
@@ -530,6 +555,14 @@ class App:
 
     def stop(self) -> None:
         self._shutdown.set()
+
+
+def _handoff_snapshot(engine) -> dict | None:
+    """A role worker's handoff counters (``GenerateEngine.handoff_stats``),
+    or None for a colocated engine."""
+    stats_fn = getattr(engine, "handoff_stats", None)
+    stats = stats_fn() if callable(stats_fn) else None
+    return stats if stats and ("export" in stats or "import" in stats) else None
 
 
 def new_testing(config: dict[str, str] | None = None) -> App:

@@ -203,6 +203,15 @@ class Container:
                     "allocated fraction of the paged KV pool (engine)")
         m.new_gauge("app_tpu_kv_pool_fragmentation",
                     "claimed-but-unwritten fraction of slot-held pages (engine)")
+        # the online step controller (gofr_tpu_torch.control): decisions by
+        # verdict, and the live knob vector per knob, so dashboards can
+        # overlay knob moves on the MFU/bubble timelines they were judged by
+        m.new_counter("app_tpu_control_decisions_total",
+                      "step-controller decisions (verdict: try|commit|revert|resume|standdown)")
+        m.new_gauge("app_tpu_control_knob", "live value of one engine tuning knob (engine, knob)")
+        m.new_gauge("app_tpu_control_active",
+                    "1 when the engine's step controller is constructed and not stood down "
+                    "(engine)")
 
     def _sample_tpu_metrics(self, _registry=None) -> None:
         """Collect hook: the card's memory on every /metrics scrape — read
@@ -241,6 +250,19 @@ class Container:
         for adapter, (acc, prop) in spec.items():
             if prop > 0:
                 self.metrics.set_gauge("app_tpu_spec_accept_ratio", acc / prop, adapter=adapter)
+        # the controller's surface: knob vectors are engine attributes, so
+        # sampling them at scrape time keeps the device loop free of
+        # metric writes on the knob-apply path
+        for name, e in self._engines.items():
+            kv_fn = getattr(e, "knob_vector", None)
+            if not callable(kv_fn):
+                continue
+            for knob, value in kv_fn().items():
+                self.metrics.set_gauge("app_tpu_control_knob", value, engine=name, knob=knob)
+            ctl = getattr(e, "_control", None)
+            self.metrics.set_gauge("app_tpu_control_active",
+                                   1 if (ctl is not None and ctl.standdown is None) else 0,
+                                   engine=name)
         self._sample_perf_metrics()
 
     def perf_totals(self) -> dict | None:

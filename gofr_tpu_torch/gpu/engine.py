@@ -105,7 +105,25 @@ Health reads DEGRADED during the backoff, and QoS sheds new work with a
 out-of-bounds rows before traffic (``ENGINE_WARMUP``; ``gpu/executor.
 warmup``). ``quality_shadow_rate`` > 0 builds the quality plane
 (``metrics/quality.py``): a sampled share of finished requests is
-re-scored teacher-forced on idle loop turns. Handoff, lockstep,
+re-scored teacher-forced on idle loop turns.
+
+``control_enable`` (``CONTROL_ENABLE``; needs a container, for the perf
+plane) builds the online step controller (``gofr_tpu_torch.control``,
+engine.py:3176-3314): it ticks at the top of each loop turn on the perf
+plane's occupancy-banded evidence and moves ``pipeline_depth``,
+``prefill_chunk``, ``prefill_batch`` and ``spec_tokens`` one bounded step
+at a time, each within the value the engine was built with. Every knob
+move, the controller's or a caller's (``request_knobs``), lands at that
+seam, never under a dispatch.
+
+``role`` (``ENGINE_ROLE``) splits serving across two engines
+(``gpu/handoff.py``, engine.py:1153-1171, 1641-1690, 3030-3172): a
+``prefill`` worker prefills each prompt, ships its full KV pages to the
+decode worker at ``handoff_target`` and completes the request with its
+first token (``finish_reason="handoff"``), streaming a chunked prompt's
+pages while its later chunks still prefill; a ``decode`` worker listens on
+``handoff_listen`` and parks the pages in its prefix cache's host tier,
+where the prompt's next admission finds them and swaps them in. Lockstep,
 checkpoint adoption and autotune are not ported yet.
 """
 
@@ -125,14 +143,16 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.adapters import AdapterPool, AdapterRegistry, AdapterSpec
+from gofr_tpu_torch.control.controller import ControlPolicy, KnobSpec, StepController
 from gofr_tpu_torch.gpu import decode, executor
 from gofr_tpu_torch.gpu.device import resolve_device
+from gofr_tpu_torch.gpu.handoff import HandoffExporter, HandoffJob, HandoffServer
 from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
 from gofr_tpu_torch.http import errors
 from gofr_tpu_torch.metrics import Registry
-from gofr_tpu_torch.metrics.perf import CostModel, PerfPlane, StepPerf
+from gofr_tpu_torch.metrics.perf import CostModel, PerfPlane, StepPerf, occupancy_band
 from gofr_tpu_torch.models import ModelSpec
 from gofr_tpu_torch.models.llama import (
     AnyKVCache,
@@ -142,7 +162,7 @@ from gofr_tpu_torch.models.llama import (
     jax_state,
     params_from_jax,
 )
-from gofr_tpu_torch.ops.paged import gather_page
+from gofr_tpu_torch.ops.paged import gather_page, page_planes
 from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree, quantized_bytes
 from gofr_tpu_torch.qos.scheduler import QoSQueue
 from gofr_tpu_torch.tracing import RequestTrace, current_span
@@ -153,6 +173,7 @@ log = logging.getLogger(__name__)
 # cache formats: the model's dtype, int8 rows, packed int4 rows (paged only)
 KV_QUANTIZE = ("", "int8", "int4")
 KV_LAYOUTS = ("paged", "slot")
+ROLES = ("both", "prefill", "decode")
 # ``GenerateEngine.counters``: preemptions, tokens served from the prefix
 # cache (those of them from its host tier too), prefix lookups and misses
 # (engine.py's app_tpu_prefix_* metrics), pages evicted from the device
@@ -317,11 +338,13 @@ class _Slot:
     ``inflight`` counts its decode chunks dispatched and not yet folded.
     ``adapter_id`` names its LoRA adapter (None: the base model) and
     ``adapter_slot`` the adapter-pool slot it holds a reference to (0: the
-    base slot, never counted)."""
+    base slot, never counted). On a prefill worker ``handoff`` is the
+    streaming export of its pages while it still prefills (None before its
+    first full page, or without one)."""
 
     __slots__ = ("request", "prompt_tokens", "prompt_len", "max_total", "eos", "temperature",
                  "admit_seq", "written", "dispatched", "generated", "last_token", "pos",
-                 "inflight", "adapter_id", "adapter_slot")
+                 "inflight", "adapter_id", "adapter_slot", "handoff")
 
     def __init__(self, request: Request, toks: np.ndarray, max_len: int,
                  eos: int | None, admit_seq: int, adapter: tuple[str | None, int] = (None, 0)):
@@ -339,6 +362,7 @@ class _Slot:
         self.pos = self.prompt_len
         self.inflight = 0
         self.adapter_id, self.adapter_slot = adapter
+        self.handoff = None
 
 
 class GenerateEngine:
@@ -376,7 +400,18 @@ class GenerateEngine:
     shadow-scores that share of finished requests (``metrics/quality.
     QualityPlane``, seeded by ``quality_seed``, the engine's ``seed`` when
     None or negative; the other ``quality_*`` knobs are its bounds and
-    thresholds)."""
+    thresholds). ``control_enable`` builds the step controller (with a
+    container; its policy is the container config's ``CONTROL_*``).
+    ``role`` is ``"both"`` (colocated), ``"prefill"`` or ``"decode"`` (paged
+    layout only): a prefill worker exports to the decode worker at
+    ``handoff_target`` (without one it serves colocated), a decode worker
+    imports on ``handoff_listen`` (default an ephemeral localhost port,
+    ``handoff_addr`` once bound) into its host tier, which defaults to
+    max(one page, 256 MiB) and needs the prefix cache. ``handoff_timeout_s``
+    bounds each wire write and ACK wait (and the request's deadline, where
+    tighter); ``handoff_streams`` > 0 streams over that many connections
+    (0: one blob frame a prompt), ``handoff_chunk_pages`` pages a chunk,
+    ``handoff_pace_mbps`` > 0 caps the exporter's rate."""
 
     def __init__(self, model: Llama, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
@@ -392,9 +427,21 @@ class GenerateEngine:
                  max_restarts: int = 3, quality_shadow_rate: float = 0.0,
                  quality_seed: int | None = None, quality_max_pending: int = 16,
                  quality_max_tokens: int = 64, quality_top1_min: float = 0.9,
-                 quality_kl_max: float = 1.0, quality_recent: int = 32):
+                 quality_kl_max: float = 1.0, quality_recent: int = 32,
+                 control_enable: bool = False, role: str = "both",
+                 handoff_target: str | None = None, handoff_listen: str | None = None,
+                 handoff_timeout_s: float = 5.0, handoff_streams: int = 2,
+                 handoff_chunk_pages: int = 4, handoff_pace_mbps: float = 0.0):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
+        # disaggregated serving (engine.py:1153-1171): role workers need the
+        # paged layout, since the handoff payload IS pool pages
+        if role not in ROLES:
+            raise ValueError(f"ENGINE_ROLE {role!r}: use 'both', 'prefill' or 'decode'")
+        if role != "both" and kv_layout != "paged":
+            raise ValueError(f"ENGINE_ROLE={role} needs kv_layout='paged' (the KV handoff ships "
+                             "pool pages)")
+        self.role = role
         if kv_quantize not in KV_QUANTIZE:
             raise ValueError(f"kv_quantize={kv_quantize!r}: use '', 'int8' or 'int4'")
         if kv_quantize == "int4" and kv_layout != "paged":
@@ -448,6 +495,16 @@ class GenerateEngine:
         # the device calls in flight (engine.py:1086-1090)
         depth = pipeline_depth if pipeline_depth is not None else decode_pipeline
         self.pipeline_depth = max(1, min(4, int(depth)))
+        # the step controller's knobs (engine.py:1091-1106): the values the
+        # engine was built with are the ceilings it explores below, never
+        # past. Moves queue here and land only at the loop-top seam
+        # (``_apply_pending_knobs``). ``chunk_span``, the history and the
+        # pages stay sized for the boot ``spec_tokens``.
+        self._boot_pipeline_depth = self.pipeline_depth
+        self._boot_prefill_batch = self.max_prefill_batch
+        self._boot_spec_tokens = self.spec_tokens
+        self._knob_requests: collections.deque = collections.deque()
+        self._control = None
         self._prefix: PrefixCache | None = None
         if kv_layout == "paged":
             self.page_size = page_size
@@ -476,8 +533,17 @@ class GenerateEngine:
                 log.warning("prefix_host_mb=%g is below one page (%d bytes); host tier off",
                             prefix_host_mb, self._page_bytes)
                 host_budget = 0
+            if role == "decode" and prefix_cache and not host_budget:
+                # a decode worker imports handed-off pages as host-tier
+                # nodes (engine.py:1278-1291): without a budget every
+                # transfer would be dropped at the door; the budget is a
+                # cap, not an allocation
+                host_budget = max(self._page_bytes, 256 << 20)
             if prefix_cache:
                 self._prefix = PrefixCache(page_size, host_budget_bytes=host_budget)
+            if role == "decode" and (self._prefix is None or not self._prefix.host_budget):
+                raise ValueError("ENGINE_ROLE=decode needs the prefix cache with a host tier "
+                                 "(the handoff import target); keep ENGINE_PREFIX_CACHE on")
         else:
             # a chunk never writes past the slot; a multiple of 128 where the
             # model allows it (engine.py:1321)
@@ -571,8 +637,50 @@ class GenerateEngine:
             recent=quality_recent)
         if self._prefix is not None:
             self._set_prefix_gauges()
+        # the step controller (engine.py:1603-1613): off unless asked, and
+        # only with the perf plane it reads; a controller that cannot be
+        # built leaves the engine serving without one
+        if control_enable and self.perf is not None:
+            try:
+                self._control = self._build_controller()
+            except Exception as e:  # noqa: BLE001 - control must not gate serving
+                self._warn(f"step controller disabled: {e}")
+        self._handoff_plumbing(handoff_target, handoff_listen, handoff_timeout_s,
+                               handoff_streams, handoff_chunk_pages, handoff_pace_mbps)
         self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
         self._thread.start()
+
+    def _warn(self, msg: str) -> None:
+        (self.logger.warn if self.logger is not None else log.warning)(msg)
+
+    def _handoff_plumbing(self, target: str | None, listen: str | None, timeout_s: float,
+                          streams: int, chunk_pages: int, pace_mbps: float) -> None:
+        """The handoff endpoints (engine.py:1641-1690): a decode worker
+        listens for prefill workers' pages, a prefill worker exports to
+        ``target``, and without one serves colocated (a mis-wired worker
+        stays correct while the decode pool comes up)."""
+        self.handoff_timeout_s = float(timeout_s)
+        self.handoff_streams = max(0, int(streams))
+        self.handoff_chunk_pages = max(1, int(chunk_pages))
+        self.handoff_pace_mbps = max(0.0, float(pace_mbps))
+        self._handoff_exporter: HandoffExporter | None = None
+        self._handoff_server: HandoffServer | None = None
+        self.handoff_addr = ""
+        if self.role == "decode":
+            self._handoff_server = HandoffServer(self, listen or "127.0.0.1:0",
+                                                 logger=self.logger, metrics=self.metrics)
+            self.handoff_addr = self._handoff_server.addr
+            (self.logger.infof if self.logger is not None else log.info)(
+                "kv handoff import listening at %s", self.handoff_addr)
+        elif self.role == "prefill":
+            if target:
+                self._handoff_exporter = HandoffExporter(
+                    target, engine=self, timeout_s=self.handoff_timeout_s,
+                    streams=self.handoff_streams, chunk_pages=self.handoff_chunk_pages,
+                    pace_mbps=self.handoff_pace_mbps, logger=self.logger, metrics=self.metrics)
+            else:
+                self._warn("ENGINE_ROLE=prefill without HANDOFF_TARGET: prompts decode locally "
+                           "(colocated fallback)")
 
     def _draft(self, cfg: LlamaConfig, model: Llama) -> Draft:
         """Check a draft model against the engine (engine.py:1328) and give it
@@ -839,30 +947,31 @@ class GenerateEngine:
                      pstep: StepPerf | None = None, adapter_ids: list | None = None) -> float:
         """One folded device call (engine.py:623-675): its wall span
         (dispatch to fold) and occupancy histograms; its perf-plane
-        residency, split by adapter; its flight step entry; the QoS wait
-        estimator. Returns the step's device seconds (0 without the perf
-        plane). The step is not filed under its occupancy band (JAX's
-        ``band=``): only the step controller reads band rows, and the port
-        has no controller yet."""
+        residency, filed under its occupancy band (the step controller's
+        evidence: a knob can win at high occupancy and lose near empty) and
+        split by adapter; its flight step entry, with the knob vector it ran
+        under; the QoS wait estimator. Returns the step's device seconds (0
+        without the perf plane)."""
         self.metrics.record_histogram("app_tpu_step_seconds", seconds, kind=kind)
         self.metrics.record_histogram("app_tpu_batch_occupancy", occupancy, kind=kind)
         device_s = 0.0
         perf = self.perf
         if pstep is not None and perf is not None:
             now_perf = time.monotonic()
-            perf.note(pstep, now_perf)
+            perf.note(pstep, now_perf, band=occupancy_band(occupancy))
             if adapter_ids:
                 perf.note_adapters(adapter_ids, pstep, now_perf)
             device_s = pstep.device_s
             self.metrics.record_histogram("app_tpu_step_device_seconds", device_s, kind=kind)
         if self.flight is not None:
+            knobs = self.knob_vector()
             if pstep is not None and perf is not None:
                 self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
                                         len(self._dq), device_s=device_s, bytes_=pstep.bytes,
-                                        flops=pstep.flops, bubble_s=pstep.bubble_s)
+                                        flops=pstep.flops, bubble_s=pstep.bubble_s, knobs=knobs)
             else:
                 self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
-                                        len(self._dq))
+                                        len(self._dq), knobs=knobs)
         if self.qos is not None:
             self.qos.observe_step(seconds)  # feeds the queue-wait estimator
         return device_s
@@ -891,11 +1000,16 @@ class GenerateEngine:
         return self.generate(inputs, **kw)
 
     def stop(self) -> None:
-        """End the loop (it settles its calls in flight on the way out) and
-        fail every request still queued or in a slot."""
+        """End the loop (it settles its calls in flight on the way out),
+        fail every request still queued or in a slot, and close the handoff
+        endpoints."""
         self._stop.set()
         self._thread.join(timeout=30.0)
         self._fail_all(EngineClosed("engine stopped"))
+        if self._handoff_exporter is not None:
+            self._handoff_exporter.close()
+        if self._handoff_server is not None:
+            self._handoff_server.close()
 
     def pipeline_stats(self) -> dict[str, Any]:
         """What the in-flight queue did: the depth; the longest queue seen,
@@ -1370,6 +1484,13 @@ class GenerateEngine:
         self._reset_device_state()
 
     def _turn(self) -> None:
+        # the loop-top seam (engine.py:3300-3314): no dispatch is being
+        # built here, so queued knob moves land before anything reads them,
+        # and the controller ticks on this thread; its moves queue and land
+        # at the next turn's top. ``depth`` is read after, every turn
+        self._apply_pending_knobs()
+        if self._control is not None:
+            self._control.maybe_tick(time.monotonic())
         depth = self.pipeline_depth
         t = time.perf_counter()
         processed = False
@@ -1762,6 +1883,10 @@ class GenerateEngine:
                     rt.end("engine.prefill")
                     rt.begin("engine.decode", **{"slot": idx})
                 self._activate_lane(idx, s, int(first[0]))
+            elif self.role == "prefill":
+                # the pages this fold made whole start shipping now, while
+                # the prompt's later chunks still prefill (engine.py:3554)
+                self._stream_handoff_chunk(idx, s)
 
     def _fold_swapin(self, entry: executor.Entry) -> None:
         """A swap-in's fold (engine.py:3592): the upload has landed, so its
@@ -1794,7 +1919,8 @@ class GenerateEngine:
     def _activate_lane(self, idx: int, s: _Slot, tok: int) -> None:
         """The slot's prompt is in the cache: give it its first token, keep
         its full prompt pages in the prefix cache, and start it decoding
-        (engine.py:3031). Caller holds the state lock."""
+        (engine.py:3031); on a prefill worker, export them instead and end
+        the request there. Caller holds the state lock."""
         s.written = s.prompt_len
         s.generated = [tok]
         s.last_token = tok
@@ -1802,8 +1928,206 @@ class GenerateEngine:
         # a preempted request keeps the time of its first token
         self._mark_first_token(s.request)
         self._prefix_insert(idx)
+        if self.role == "prefill" and self._export_handoff(idx, s, tok):
+            return
         self._emit(s, tok)
         self._maybe_finish(idx)
+
+    # -- the KV handoff (engine.py:3048-3172; gpu/handoff.py) -------------------------
+
+    def _stream_handoff_chunk(self, idx: int, s: _Slot) -> None:
+        """Streaming handoff, mid-prefill half (engine.py:3048): stage the
+        copies of the pages this non-final chunk's fold made whole on the
+        slot's transfer and wake the exporter. The copies are enqueued
+        here, under the state lock, so they are on the stream ahead of any
+        call that could reuse a page (the pool is written in place); the
+        exporter waits on them outside every lock, while the next chunk
+        runs. Caller holds the state lock."""
+        exp = self._handoff_exporter
+        if (exp is None or self.handoff_streams <= 0 or self._prefix is None
+                or exp.known_blob()):
+            return  # a blob peer or blob config: pages ship at activation
+        n_full = min(s.written, s.prompt_len) // self.page_size
+        t = s.handoff
+        if t is None:
+            if n_full == 0:
+                return  # no whole page yet
+            t = s.handoff = exp.begin_stream(s.request, s.prompt_tokens, self._page_bytes,
+                                             time.monotonic())
+        ready = min(n_full, len(self._slot_pages[idx]))
+        if ready > t.staged_pages:
+            t.add(executor.gather_pages(self, self._slot_pages[idx][t.staged_pages:ready]))
+            exp.kick(t)
+
+    def _export_handoff(self, idx: int, s: _Slot, tok: int) -> bool:
+        """A prefill worker's terminal (engine.py:3075): ship the slot's
+        full KV pages to the decode worker and complete the request with
+        its first token (``finish_reason="handoff"``). False, the colocated
+        fallback: no exporter, or a prompt shorter than one page.
+
+        The pages outlive ``_free_slot`` because ``_prefix_insert`` just
+        took the cache's share of them; their copies are enqueued here,
+        under the state lock, before any later call can write them. With
+        streaming most pages left at the chunk folds; this stages the tail,
+        detaches the transfer from the slot (so ``_free_slot`` does not
+        abort it) and hands the exporter the first token."""
+        exp = self._handoff_exporter
+        if exp is None or self._prefix is None:
+            return False
+        n_full = s.prompt_len // self.page_size
+        if n_full == 0 or len(self._slot_pages[idx]) < n_full:
+            if s.handoff is not None:
+                t, s.handoff = s.handoff, None
+                exp.abort(t)  # the partial stream of a slot that fell back
+            return False
+        now = time.monotonic()
+        pages = self._slot_pages[idx][:n_full]
+        rt = s.request.kw.get("_rt")
+        if rt is not None:
+            rt.end("engine.decode")
+            rt.begin("engine.handoff", **{"pages": n_full})
+        if self.handoff_streams > 0 and not exp.known_blob():
+            # the streaming path (which also ships a negotiated-down
+            # transfer as one frame at its end)
+            t = s.handoff
+            if t is None:
+                t = exp.begin_stream(s.request, s.prompt_tokens, self._page_bytes, now)
+            else:
+                s.handoff = None  # detach before _free_slot's abort hook
+            if n_full > t.staged_pages:
+                t.add(executor.gather_pages(self, pages[t.staged_pages:]))
+            self._free_slot(idx)
+            exp.finish(t, tok, now)
+            return True
+        payloads = executor.gather_pages(self, pages)
+        self._free_slot(idx)
+        exp.submit(HandoffJob(request=s.request, prompt_tokens=s.prompt_tokens, first_token=tok,
+                              payloads=payloads, nbytes_page=self._page_bytes, t0=now))
+        return True
+
+    def handoff_import(self, toks, payloads: list[tuple], nbytes_page: int) -> int:
+        """A decode worker's ingest (engine.py:3133; called from the
+        handoff server's threads): park the shipped pages, one tuple of host
+        tensors a page in the pool's plane order, as host-tier prefix nodes
+        of ``toks``' chain. The prompt's next admission claims them and
+        uploads them through the swap-in, on the in-flight queue. Returns
+        the chain positions newly registered."""
+        if self._table is None or self._prefix is None:
+            raise ValueError("handoff import needs the paged prefix cache")
+        if not self._prefix.host_budget:
+            raise ValueError("handoff import needs a host-tier budget")
+        want = [((p.shape[0], *p.shape[2:]), p.dtype) for p in page_planes(self.cache)]
+        for planes in payloads:
+            if len(planes) != len(want):
+                raise ValueError(f"handoff page has {len(planes)} planes, pool has {len(want)}")
+            for plane, (shape, dtype) in zip(planes, want):
+                if tuple(plane.shape) != shape or plane.dtype != dtype:
+                    raise ValueError(f"handoff plane {plane.dtype}{tuple(plane.shape)} != "
+                                     f"pool {dtype}{shape}")
+        with self._state_lock:
+            # this pool's own page bytes: both sides agree on geometry for
+            # the planes to pass above, and the budget is this pool's
+            added = self._prefix.insert_host(np.asarray(toks), payloads, self._page_bytes)
+            self._set_prefix_gauges()
+        return added
+
+    def handoff_stats(self) -> dict:
+        """The role and the transfer counters (engine.py:3164)."""
+        out: dict[str, Any] = {"role": self.role}
+        if self._handoff_exporter is not None:
+            out["export"] = self._handoff_exporter.stats()
+        if self._handoff_server is not None:
+            out["import"] = self._handoff_server.stats()
+            out["addr"] = self.handoff_addr
+        return out
+
+    # -- online knob actuation (engine.py:3176-3294; gofr_tpu_torch.control) ----------
+
+    def _build_controller(self):
+        """A ``StepController`` on this engine's knob seams, its policy the
+        container config's ``CONTROL_*``. Each knob's apply queues through
+        ``request_knobs``: the controller ticks on the loop's thread, so the
+        move lands at the next loop top, and controller, debug pokes and
+        drills share one audited mutation path."""
+        policy = ControlPolicy.from_config(self.container.config)
+        specs = [
+            KnobSpec("pipeline_depth", tuple(range(1, self._boot_pipeline_depth + 1)),
+                     lambda: self.pipeline_depth, lambda v: self.request_knobs(pipeline_depth=v)),
+            KnobSpec("prefill_chunk", tuple(self.prefill_buckets), lambda: self.prefill_chunk,
+                     lambda v: self.request_knobs(prefill_chunk=v)),
+            KnobSpec("prefill_batch", tuple(range(1, self._boot_prefill_batch + 1)),
+                     lambda: self.max_prefill_batch,
+                     lambda v: self.request_knobs(prefill_batch=v)),
+        ]
+        if self._boot_spec_tokens:
+            # g = 0 <-> g > 0 is not a knob move (it changes the cache's
+            # companions and the dispatch path): explore [1 .. boot g]
+            specs.append(KnobSpec("spec_tokens", tuple(range(1, self._boot_spec_tokens + 1)),
+                                  lambda: self.spec_tokens,
+                                  lambda v: self.request_knobs(spec_tokens=v)))
+
+        def on_decision(d):
+            if self.flight is not None:
+                self.flight.record_control(d.to_dict())
+            self.metrics.increment_counter("app_tpu_control_decisions_total", 1,
+                                           verdict=d.verdict)
+
+        # the port has no lockstep (JAX stands the controller down on a
+        # lockstep role), so no stand-down reason is wired
+        return StepController(policy, specs, kv_dtype=self.perf.model.kv_dtype,
+                              device_kind=self.perf.device_kind, shard="tp1",
+                              window_fn=self.perf.band_totals, on_decision=on_decision,
+                              logger=self.logger)
+
+    def request_knobs(self, **knobs: Any) -> None:
+        """Thread-safe: queue knob moves for the loop to apply at its
+        loop-top seam, so every dispatch reads one consistent knob vector."""
+        self._knob_requests.append(dict(knobs))
+
+    def _apply_pending_knobs(self) -> None:
+        while self._knob_requests:
+            req = self._knob_requests.popleft()
+            for name, value in req.items():
+                try:
+                    self._apply_knob_now(name, value)
+                except Exception as e:  # noqa: BLE001 - a bad knob must never kill the loop
+                    self._warn(f"knob {name}={value!r} rejected: {e}")
+
+    def _apply_knob_now(self, name: str, value: Any) -> None:
+        """Loop thread only. Clamps each move to the boot ceiling and snaps
+        ``prefill_chunk`` down to a bucket (engine.py:3251-3278). A move of
+        ``spec_tokens`` changes nothing but the round length the next
+        dispatch reads: a round in flight folds with the g it was dispatched
+        at, and the span, pages and history stay sized for the boot g."""
+        v = int(value)
+        if name == "pipeline_depth":
+            self.pipeline_depth = max(1, min(v, self._boot_pipeline_depth))
+        elif name == "prefill_chunk":
+            allowed = [b for b in self.prefill_buckets if b <= v]
+            self.prefill_chunk = allowed[-1] if allowed else self.prefill_buckets[0]
+        elif name == "prefill_batch":
+            self.max_prefill_batch = max(1, min(v, self._boot_prefill_batch))
+        elif name == "spec_tokens":
+            if not self._boot_spec_tokens:
+                raise ValueError("spec is off at boot; g=0<->g>0 changes the proposer's state "
+                                 "and the dispatch path")
+            self.spec_tokens = max(1, min(v, self._boot_spec_tokens))
+        else:
+            raise ValueError(f"unknown knob {name!r}")
+
+    def knob_vector(self) -> dict[str, int]:
+        """The live knob values, stamped on every flight step entry."""
+        out = {"pipeline_depth": self.pipeline_depth, "prefill_chunk": self.prefill_chunk,
+               "prefill_batch": self.max_prefill_batch}
+        if self._boot_spec_tokens:
+            out["spec_tokens"] = self.spec_tokens
+        return out
+
+    def control_report(self) -> dict[str, Any]:
+        """The ``/debug/control`` payload of this engine."""
+        if self._control is None:
+            return {"enabled": False, "knobs": self.knob_vector()}
+        return self._control.report()
 
     # -- decode (tpu/decode.py; dispatch and fold live in gpu/decode.py) ------------
 
@@ -1935,6 +2259,13 @@ class GenerateEngine:
         s = self.slots[idx]
         if s is not None and self._adapter_pool is not None:
             self._adapter_pool.release(s.adapter_slot)
+        if s is not None and s.handoff is not None:
+            # a streaming export whose slot died mid-prefill (preemption,
+            # cancel, deadline, crash): tear down the wire state only; the
+            # request is settled by whoever freed the slot, and a preempted
+            # prompt re-streams from page 0 (engine.py:2733-2740)
+            t, s.handoff = s.handoff, None
+            self._handoff_exporter.abort(t)
         self.slots[idx] = None
 
     def _evict_prefix_page(self) -> bool:
@@ -2208,19 +2539,22 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     ``ENGINE_MAX_RESTARTS`` (3) bounds the loop's restarts, and
     ``QUALITY_*`` are the quality plane's knobs (``QUALITY_SHADOW_RATE`` 0:
     no plane). ``ENGINE_WARMUP`` is the App's (``App.arun``).
+    ``CONTROL_ENABLE`` (0) builds the step controller, whose other
+    ``CONTROL_*`` keys the engine reads from the container's config
+    (``ControlPolicy.from_config``). ``ENGINE_ROLE`` (``both``) and
+    ``HANDOFF_TARGET`` / ``HANDOFF_LISTEN`` / ``HANDOFF_TIMEOUT_S`` (5) /
+    ``HANDOFF_STREAMS`` (2) / ``HANDOFF_CHUNK_PAGES`` (4) /
+    ``HANDOFF_PACE_MBPS`` (0) configure disaggregated serving
+    (engine.py:4266-4285, 4364-4367).
 
     A knob the port lacks raises ValueError naming its ROADMAP.md item:
-    ``ENGINE_ROLE`` other than ``both``, ``ADAPTER_HOTSWAP_DIR``. No knob is
-    ignored."""
+    ``ADAPTER_HOTSWAP_DIR``. No knob is ignored."""
     quantize_kw = kw.pop("quantize", None)
     quantize = str(quantize_kw if quantize_kw is not None
                    else conf.get_or_default("ENGINE_QUANTIZE", ""))
     if quantize not in ("", "int8"):
         raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
     role = str(kw.pop("role", conf.get_or_default("ENGINE_ROLE", "both")) or "both")
-    if role != "both":
-        raise ValueError(f"ENGINE_ROLE={role!r}: disaggregated serving is not ported yet "
-                         "(ROADMAP.md Queue A 6); the port serves role 'both'")
     if kw.pop("adapter_hotswap_dir", conf.get_or_default("ADAPTER_HOTSWAP_DIR", "")):
         raise ValueError("ADAPTER_HOTSWAP_DIR: checkpoint adoption is not ported yet "
                          "(ROADMAP.md Queue A 9, train/); adopt_weights takes weights in memory")
@@ -2280,6 +2614,21 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
                                        conf.get_float, 0.9)),
         "quality_kl_max": float(pick("quality_kl_max", "QUALITY_KL_MAX", conf.get_float, 1.0)),
         "quality_recent": int(pick("quality_recent", "QUALITY_RECENT", conf.get_int, 32)),
+        # the step controller (engine.py:4364-4367): off unless set
+        "control_enable": bool(pick("control_enable", "CONTROL_ENABLE", conf.get_int, 0)),
+        # disaggregated serving (engine.py:4266-4285)
+        "role": role,
+        "handoff_target": kw.pop("handoff_target",
+                                 conf.get_or_default("HANDOFF_TARGET", "")) or None,
+        "handoff_listen": kw.pop("handoff_listen",
+                                 conf.get_or_default("HANDOFF_LISTEN", "")) or None,
+        "handoff_timeout_s": float(pick("handoff_timeout_s", "HANDOFF_TIMEOUT_S",
+                                        conf.get_float, 5.0)),
+        "handoff_streams": int(pick("handoff_streams", "HANDOFF_STREAMS", conf.get_int, 2)),
+        "handoff_chunk_pages": int(pick("handoff_chunk_pages", "HANDOFF_CHUNK_PAGES",
+                                        conf.get_int, 4)),
+        "handoff_pace_mbps": float(pick("handoff_pace_mbps", "HANDOFF_PACE_MBPS",
+                                        conf.get_float, 0.0)),
     }
 
 

@@ -80,25 +80,41 @@ class Readback:
     non-blocking copy of each into pinned memory and an event recorded
     after the copies; on the CPU, plain copies. ``wait`` blocks on the event
     alone, then hands the host tensors over. With no tensors it is a marker
-    that the work dispatched before it has run."""
+    that the work dispatched before it has run. A ``timed`` readback also
+    records an event before its copies, so ``seconds`` gives the copies'
+    time on the card (the host clock's on the CPU)."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "start", "cpu_s")
 
-    def __init__(self, device: torch.device, *tensors: torch.Tensor):
+    def __init__(self, device: torch.device, *tensors: torch.Tensor, timed: bool = False):
+        self.start, self.cpu_s = None, 0.0
         if device.type == "cuda":
             self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            if timed:
+                # after the pinned buffers exist: a first use allocates them
+                # on the host, which must not count as the copies' time
+                self.start = torch.cuda.Event(enable_timing=True)
+                self.start.record()
             for h, t in zip(self.host, tensors):
                 h.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=timed)
             self.event.record()
         else:
+            t0 = time.perf_counter()
             self.host = [t.detach().clone() for t in tensors]
             self.event = None
+            self.cpu_s = time.perf_counter() - t0
 
     def wait(self) -> list[torch.Tensor]:
         if self.event is not None:
             self.event.synchronize()
         return self.host
+
+    def seconds(self) -> float:
+        """A timed readback's copy time, once ``wait`` has returned."""
+        if self.start is not None:
+            return self.start.elapsed_time(self.event) / 1e3
+        return self.cpu_s
 
 
 class Entry:
@@ -259,6 +275,18 @@ def materialize_spills(eng: GenerateEngine) -> None:
                 eng._prefix.replace_host_payload(key, host)
 
 
+def gather_pages(eng: GenerateEngine, pages: list[int]) -> list[Readback]:
+    """Copy each pool page of ``pages`` out for a KV handoff (executor.py:245
+    ``gather_pages``): one ``ops.paged.gather_page`` clone a page and a timed
+    ``Readback`` of it into pinned memory, dispatched and never waited on.
+    The caller holds the state lock: the pool is written in place, so the
+    clones must be enqueued on the stream before any later call can reuse a
+    page (JAX's functional updates give it that for free); the exporter
+    waits on the readbacks outside every engine lock. Each page arrives as
+    a host-tier payload, one tensor per plane, [L, ...]."""
+    return [Readback(eng.device, *gather_page(eng.cache, p), timed=True) for p in pages]
+
+
 def warmup(eng: GenerateEngine, lbs: list[int], bbs: list[int]) -> int:
     """Run every call the engine can dispatch once, as JAX's
     ``warmup_compile`` (executor.py:258-381) compiles each program, and
@@ -266,8 +294,12 @@ def warmup(eng: GenerateEngine, lbs: list[int], bbs: list[int]) -> int:
     a chunk at each length bucket (both layouts chunk); one decode chunk,
     or one speculative round with ``spec_tokens``; and with the prefix
     cache's host tier, a page gather and an upload at each swap-in width
-    of JAX's ladder (powers of two up to ``pages_per_slot``). On the card
-    the kernel library is loaded (built where stale) first.
+    of JAX's ladder (powers of two up to ``pages_per_slot``). Scoped by the
+    engine's role, as JAX's: a prefill worker skips the decode chunk (and
+    warms the page gather its handoff export makes, host tier or not), a
+    decode worker the batched-prefill ladder; both keep the chunks (the
+    decode side prefills what a handed-off prefix leaves through them). On
+    the card the kernel library is loaded (built where stale) first.
 
     What the calls cost the first time (the library, cuBLAS's handles and
     heuristics per shape, the caching allocator's growth, pinned staging)
@@ -304,7 +336,7 @@ def warmup(eng: GenerateEngine, lbs: list[int], bbs: list[int]) -> int:
                     adapters=eng._adapter_args(np.zeros(b, np.int64)), **sampling)
 
     count = 0
-    for lb in lbs:
+    for lb in lbs if eng.role != "decode" else ():
         for nb in bbs:
             first = prefill_sample(eng.model, eng.cache, host((nb, lb), 0), host(nb, 1),
                                    generator=gen, width=lb, **prompt_args(nb))
@@ -319,20 +351,24 @@ def warmup(eng: GenerateEngine, lbs: list[int], bbs: list[int]) -> int:
     lanes = dict(table=table, temps=host(n, 0, np.float32), steps=k, generator=gen,
                  top_k=eng.top_k, top_p=eng.top_p, adapters=eng._adapter_args(np.zeros(n, np.int64)),
                  use_host=host(n, True, np.bool_))
-    if not eng.spec_tokens:
-        out, _carry = decode_chunk(eng.model, eng.cache, host(n, 0), host(n, eng._idle_position),
-                                   do_sample=False, prev_last=host(n, 0, np.int32), **lanes)
-        Readback(dev, out).wait()
-    else:
-        idle = (eng.pages_per_slot * eng.page_size if paged else eng.cache_len) + 1
-        toks, accs, _carry = spec_chunk(eng.model, eng.cache, eng._aux, host(n, 0), host(n, idle),
-                                        g=eng.spec_tokens, carry=(host(n, 0, np.int32), host(n, 0)),
-                                        **lanes)
-        Readback(dev, toks, accs).wait()
-    count += 1
-    if paged and eng._prefix is not None and eng._prefix.host_budget:
-        Readback(dev, *gather_page(eng.cache, 0)).wait()
+    if eng.role != "prefill":
+        if not eng.spec_tokens:
+            out, _carry = decode_chunk(eng.model, eng.cache, host(n, 0),
+                                       host(n, eng._idle_position), do_sample=False,
+                                       prev_last=host(n, 0, np.int32), **lanes)
+            Readback(dev, out).wait()
+        else:
+            idle = (eng.pages_per_slot * eng.page_size if paged else eng.cache_len) + 1
+            toks, accs, _carry = spec_chunk(eng.model, eng.cache, eng._aux, host(n, 0),
+                                            host(n, idle), g=eng.spec_tokens,
+                                            carry=(host(n, 0, np.int32), host(n, 0)), **lanes)
+            Readback(dev, toks, accs).wait()
         count += 1
+    host_tier = paged and eng._prefix is not None and bool(eng._prefix.host_budget)
+    if paged and eng._prefix is not None and (host_tier or eng.role == "prefill"):
+        gather_pages(eng, [0])[0].wait()
+        count += 1
+    if host_tier:
         for wb in pow2_buckets(1, eng.pages_per_slot):
             payload = [torch.zeros((plane.shape[0], wb, *plane.shape[2:]), dtype=plane.dtype,
                                    pin_memory=dev.type == "cuda")

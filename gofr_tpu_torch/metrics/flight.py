@@ -7,8 +7,9 @@ timeline (queue wait, TTFT, TPOT, e2e, slot, preemptions, trace id) and
 every device step (kind, wall time, occupancy, signature) into two bounded
 deques (``FLIGHT_REQUESTS``, ``FLIGHT_STEPS``), so ``GET /debug/requests``
 / ``GET /debug/engine`` can answer "what just happened" on a production
-box with nothing but curl. The JAX recorder's third ring, the online
-controller's decisions, comes with the controller.
+box with nothing but curl. A third ring (128 deep) keeps the
+online step controller's decisions for ``GET /debug/control``, and every
+step entry carries the knob vector it ran under.
 
 Cost discipline: one uncontended lock acquisition + a dict append per
 completed request / device step — never per token. The lock exists only
@@ -25,11 +26,14 @@ from typing import Any
 
 
 class FlightRecorder:
-    def __init__(self, max_requests: int = 256, max_steps: int = 512):
+    def __init__(self, max_requests: int = 256, max_steps: int = 512,
+                 max_controls: int = 128):
         self._requests: collections.deque[dict[str, Any]] = collections.deque(
             maxlen=max(1, int(max_requests)))
         self._steps: collections.deque[dict[str, Any]] = collections.deque(
             maxlen=max(1, int(max_steps)))
+        self._controls: collections.deque[dict[str, Any]] = collections.deque(
+            maxlen=max(1, int(max_controls)))
         self._lock = threading.Lock()
 
     # -- recording (engine side) -----------------------------------------------
@@ -42,7 +46,8 @@ class FlightRecorder:
                     signature: Any, backlog: int = 0, inflight: int = 0,
                     device_s: float | None = None, bytes_: float | None = None,
                     flops: float | None = None,
-                    bubble_s: float | None = None) -> None:
+                    bubble_s: float | None = None,
+                    knobs: dict[str, Any] | None = None) -> None:
         # Steps are recorded at COMPLETION (fold) time; `seconds` spans
         # dispatch→fold and `inflight` is the in-flight queue depth left
         # after this entry was taken off it — 0 on every step means the
@@ -65,8 +70,15 @@ class FlightRecorder:
             entry["bytes"] = float(bytes_ or 0.0)
             entry["flops"] = float(flops or 0.0)
             entry["bubble"] = round(float(bubble_s or 0.0), 6)
+        if knobs:
+            entry["knobs"] = dict(knobs)
         with self._lock:
             self._steps.append(entry)
+
+    def record_control(self, decision: dict[str, Any]) -> None:
+        """One controller decision (already to_dict()-flattened)."""
+        with self._lock:
+            self._controls.append(decision)
 
     # -- inspection (debug endpoints / tests) ----------------------------------
 
@@ -81,5 +93,12 @@ class FlightRecorder:
         """Device steps, newest first."""
         with self._lock:
             out = list(self._steps)
+        out.reverse()
+        return out[:limit] if limit else out
+
+    def controls(self, limit: int | None = None) -> list[dict[str, Any]]:
+        """Controller decisions, newest first."""
+        with self._lock:
+            out = list(self._controls)
         out.reverse()
         return out[:limit] if limit else out

@@ -203,6 +203,11 @@ class CostModel:
         """Host->device page upload: pure transfer, no FLOPs."""
         return 0.0, float(nbytes)
 
+    def handoff_export(self, pages: int) -> tuple[float, float]:
+        """Device->host copy of ``pages`` pool pages for a prefill-role
+        KV handoff: pure transfer, no FLOPs."""
+        return 0.0, pages * self.page_bytes
+
     def describe(self) -> dict[str, float | str]:
         return {
             "n_params": self.n_params,
@@ -392,6 +397,20 @@ class PerfPlane:
                        f"ad.{aid}.bytes": p.bytes * f,
                        f"ad.{aid}.device_s": p.device_s * f,
                        f"ad.{aid}.steps": f})
+
+    def note_external(self, kind: str, device_s: float, flops: float,
+                      bytes_: float, now: float) -> None:
+        """Account work measured off the device thread (the handoff
+        exporter's page readbacks and wire writes). It rides a different
+        timeline, so it contributes flops/bytes/device_s but never moves
+        the ``_dq`` bubble floor."""
+        with self._lock:
+            self._ring.add(
+                now,
+                **{f"{kind}.flops": float(flops),
+                   f"{kind}.bytes": float(bytes_),
+                   f"{kind}.device_s": max(float(device_s), 1e-9),
+                   f"{kind}.steps": 1.0})
 
     def mark_no_work(self, now: float) -> None:
         """Engine loop idle branch: nothing queued, nothing in flight —

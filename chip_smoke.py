@@ -30,7 +30,10 @@ result line:
    values and scales), timed with
    CUDA events and by device time beside the plain version, a library
    yardstick where one PyTorch call computes the same function, and the
-   least time the card could take (its bound);
+   least time the card could take (its bound); and the split decode
+   kernels A, D, E and F at every plan the warmup autotuner races
+   (``split_candidates``), each pinned by a decision scope, held against
+   their split plain versions at that plan and timed (``plans``);
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -152,7 +155,27 @@ result line:
    run's by the tie rule, pages exported = imported = Σ⌊len/128⌋ (pinned
    on the import), bytes = pages × page bytes, host-tier tokens 128 ×
    Σ⌊(len−1)/128⌋, both pools audit clean; it prints each arm's readback
-   and wire GB/s, overlap ratio and the decode worker's TTFT p50;
+   and wire GB/s, overlap ratio and the decode worker's TTFT p50. After
+   ``cold_start``, ``paged_autotune`` (``serve_autotune``): the split-plan
+   autotuner at warmup on four engines of Llama-3-8B's widths cut to 2
+   layers (bf16, int8 and int4 pools, bf16 slot cache); each pins one of
+   its candidates from its own timings with none disqualified (another
+   plan than the rule's only past the timer's spread), a second
+   engine of the same shapes pins from the cache file without timing, and
+   under ``GOFR_AUTOTUNE=0`` there is no report; it prints each
+   candidate's ms and spread and the winner beside ``split_plan``'s. Last
+   ``app_transports``: the App's other entry points on the phase's model
+   behind Basic auth (``TRANSPORTS_CONFIG``, warmed, so A runs on the plan
+   pinned at 32 layers): 8 concurrent ``/ws/generate`` clients and a ninth
+   that leaves mid-stream (cancelled, its slot freed), 4 unary gRPC calls
+   and a stream, 4 prompts through pub/sub (generate, publish, collect), a
+   cron job, 401 / 201 / 101 and a static file and the OpenAPI spec; every
+   path's tokens are ``bf16``'s by the tie rule, a stream is one frame per
+   token then ``{"done": true}``, ``app_pubsub_*`` read 8 each, the pool
+   audits clean, A, B and C launch and A only on the pinned plan, and after
+   ``stop`` no thread the App started is left; it prints the websocket
+   first frame against the engine's TTFT, the frame gap against its TPOT,
+   the gRPC overhead and pub/sub publish to completion;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -402,6 +425,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         append_tokens_paged_q4,
         gather_kv,
     )
+    from gofr_tpu_torch.ops import autotune
     from gofr_tpu_torch.ops.quant import unpack_int4
 
     def timing(kernel, plain, library=None, iters: int = 50, plain_iters: int = 10) -> dict:
@@ -424,6 +448,24 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                     "lengths": c["lengths_cpu"].tolist()}
     # bytes every decode kernel moves besides K/V: q and out, table, lengths
     decode_io = 2 * q.numel() * 2 + table.numel() * 4 + n * 4
+
+    def plan_holds(op: str, mod, launch, split_plain, span: int, dims: tuple) -> dict:
+        """Split decode kernel ``op`` (A, D, E or F) at every plan the warmup
+        autotuner races (``split_candidates``), each pinned by a decision
+        scope at the launch's own shape key: the plan must be the one the
+        launcher takes, its output is held against the split's plain
+        version at that plan within the launcher's limits, and (if
+        ``timed``) it is timed with CUDA events over the layers."""
+        key, out = autotune.shape_key(*dims), {}
+        for rows in slot_decode_mod.split_candidates(n, hkv, span):
+            name = autotune.plan_name(rows)
+            with autotune.decision_scope({op: name}, {op: key}):
+                require(slot_decode_mod.split_scratch(q, hkv, span, op, dims)[0] == rows,
+                        f"{op}: the pinned plan {name} is not the one its launcher takes")
+                agree = agreement(f"{op} (plan {name})", launch(0), split_plain(rows), mod)
+                ms = time_ms(torch, launch, 50) if timed else None
+            out[name] = {**agree, "ms": ms}
+        return out
 
     def edge_case(pool: int, maxp: int) -> tuple:
         """(split_rows, splits, lengths, table) of a paged decode's split
@@ -467,6 +509,12 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
             "checks": {"ragged": agree, "split_boundaries": agree_e},
             "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "paged_decode", decode_mod,
+                lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table, lengths),
+                lambda rows: paged_decode_attention_split_plain(q, k_pool[0], v_pool[0], table,
+                                                                lengths, rows),
+                table.shape[1] * page, (n, hq, hkv, d, page, table.shape[1], k_pool.shape[1])),
             "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
             **timing(lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table,
                                             lengths),
@@ -657,6 +705,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
             "checks": {"ragged": agree, "split_boundaries": agree_e},
             "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                name, mod, lambda i: launch(*args(i % layers)),
+                lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=bits),
+                table.shape[1] * page, (n, hq, hkv, d, page, table.shape[1], cache.k.shape[1])),
             "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
             **timing(lambda i: launch(*args(i % layers)), lambda i: plain(*args(i % layers))),
@@ -709,6 +761,11 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_o, agree_e)),
             "checks": {"ragged": agree, "past_the_slot": agree_o, "split_boundaries": agree_e},
             "split": {"split_rows": rows_per_split, "splits": splits},
+            "plans": plan_holds(
+                "decode", slot_decode_mod,
+                lambda i: slot_decode(q, sk[i % layers], sv[i % layers], lengths),
+                lambda rows: decode_attention_split_plain(q, sk[0], sv[0], lengths, rows),
+                smax, (n, hq, hkv, d, smax)),
             "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
             **timing(lambda i: slot_decode(q, sk[i % layers], sv[i % layers], lengths),
                      lambda i: decode_attention_plain(q, sk[i % layers], sv[i % layers], lengths),
@@ -1063,7 +1120,15 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            # a prefill worker (C; its pool's decode kernels only for a prompt
            # under a page, served colocated) and a decode worker, bf16 pool
            "paged_handoff_prefill": ("flash_attention",),
-           "paged_handoff_decode": ("paged_decode", "kv_append", "flash_attention")}
+           "paged_handoff_decode": ("paged_decode", "kv_append", "flash_attention"),
+           # each autotuned engine's warmup (the tuner's candidates, then the
+           # warmup body), on its cache's kernels; the App's other entry
+           # points on the bf16 pool
+           "paged_autotune_bf16": ("paged_decode", "kv_append", "flash_attention"),
+           "paged_autotune_int8": ("paged_decode_q", "kv_append_q", "flash_attention"),
+           "paged_autotune_int4": ("paged_decode_q4", "kv_append_q4", "flash_attention"),
+           "paged_autotune_slot_bf16": ("decode_attention", "kv_append_slot", "flash_attention"),
+           "app_transports": ("paged_decode", "kv_append", "flash_attention")}
 PREFILL_KERNELS = ("flash_attention",)
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
@@ -3841,6 +3906,528 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
     return out
 
 
+# Phase 4's ``paged_autotune``: the warmup autotuner (ops/autotune.py) on
+# four engines of Llama-3-8B's widths cut to ``COLD_START``'s 2 layers (what
+# it measures is one layer's decode attention, at the engine's real slots,
+# heads and positions), ``bf16``'s other knobs, one per cache with a split
+# kernel: the op it tunes and the kernel that op launches.
+AUTOTUNE_RUNS = {("paged", ""): "paged_decode", ("paged", "int8"): "paged_decode_q",
+                 ("paged", "int4"): "paged_decode_q4", ("slot", ""): "decode"}
+
+
+def serve_autotune(torch, cuda) -> dict:
+    """Phase 4 ``paged_autotune``: each engine of ``AUTOTUNE_RUNS`` runs
+    ``warmup()`` (one length and one batch bucket: the tuner runs first in
+    any warmup) with ``GOFR_AUTOTUNE_CACHE`` in a temporary directory, then
+    a second engine of the same shapes. Held: the first pins one of its
+    candidates (``split_candidates``, ``split_plan``'s first) from its own
+    timings, with none disqualified, and another plan than the rule's
+    only when it beats the rule by more than the larger spread; the
+    second reports ``source:
+    "cache"`` and times nothing (its timer raises); each warmup launches
+    only kernels of its cache's path, the tuned op's among them; and under
+    ``GOFR_AUTOTUNE=0`` the report is None. Printed: every candidate's ms
+    (best of 3 bursts on CUDA events) and spread, and the winner beside
+    ``split_plan``'s."""
+    import tempfile
+
+    from gofr_tpu_torch.gpu.engine import build_engine
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+    from gofr_tpu_torch.ops import autotune
+    from gofr_tpu_torch.ops.cuda.decode_attention import split_candidates
+
+    cfg = LlamaConfig.llama3_8b(num_layers=COLD_START["layers"])
+    model = init(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    knobs = dict(params=model, device="cuda", seed=SEED, slots=8, max_len=2048,
+                 max_prefill_batch=4, decode_chunk=8)
+
+    def refuse(fn):
+        raise AssertionError("paged_autotune: a cached engine timed a candidate")
+
+    saved = {k: os.environ.get(k) for k in ("GOFR_AUTOTUNE", "GOFR_AUTOTUNE_CACHE")}
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ.pop("GOFR_AUTOTUNE", None)
+            os.environ["GOFR_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+            for (layout, quant), op in AUTOTUNE_RUNS.items():
+                name = run_name(layout, quant)
+                reports, counts = [], None
+                for arm in ("measured", "cache"):
+                    eng = build_engine(cfg, kv_layout=layout, kv_quantize=quant, **knobs)
+                    if arm == "cache":
+                        eng._autotune_timer = refuse
+                    try:
+                        torch.cuda.synchronize()
+                        cuda.reset_launch_counts()
+                        t0 = time.perf_counter()
+                        eng.warmup(len_buckets=[128], batch_buckets=[1])
+                        torch.cuda.synchronize()
+                        warm_s = time.perf_counter() - t0
+                        if arm == "measured":
+                            counts = cuda.launch_counts()
+                        reports.append((eng.autotune_report(), warm_s))
+                        span = (eng.pages_per_slot * eng.page_size if layout == "paged"
+                                else eng.cache_len)
+                    finally:
+                        eng.stop()
+                    del eng
+                plans = [autotune.plan_name(r) for r in split_candidates(8, cfg.num_kv_heads, span)]
+                (rep, warm_s), (rep2, warm2_s) = reports
+                rec, rec2 = rep["decisions"][op], rep2["decisions"][op]
+                require(rec["source"] == "measured" and rec["backend"] in plans
+                        and list(rec["timings_ms"]) == plans and rep["rule"] == plans[0],
+                        f"paged_autotune {name}: {rep}")
+                require(not rec.get("errors"), f"paged_autotune {name}: candidates disqualified: "
+                                               f"{rec.get('errors')}")
+                # a pin other than the rule's beats it by more than the spread
+                t, spread = rec["timings_ms"], rec.get("spread_ms", {})
+                require(rec["backend"] == plans[0] or t[rec["backend"]] + max(
+                    spread.get(rec["backend"], 0.0), spread.get(plans[0], 0.0)) < t[plans[0]],
+                        f"paged_autotune {name}: pinned {rec['backend']} inside the spread: {rec}")
+                require(rec2["source"] == "cache" and rec2["backend"] == rec["backend"],
+                        f"paged_autotune {name}: the second engine's report {rep2}")
+                kernel = {"decode": "decode_attention"}.get(op, op)
+                require(counts[kernel] > 0, f"paged_autotune {name}: {kernel} never launched")
+                for k, launches in counts.items():
+                    require(launches == 0 or k in ON_PATH[f"paged_autotune_{name}"],
+                            f"paged_autotune {name}: warmup launched kernel {k} {launches} times")
+                out[name] = {"op": op, "span": span, "rule": plans[0], "pinned": rec["backend"],
+                             "timings_ms": rec["timings_ms"], "spread_ms": rec.get("spread_ms"),
+                             "pinned_over_rule": (rec["timings_ms"][rec["backend"]]
+                                                  / rec["timings_ms"][plans[0]]),
+                             "warmup_s": warm_s, "cached_warmup_s": warm2_s,
+                             "tune_s": rep["elapsed_s"], "cached_tune_s": rep2["elapsed_s"],
+                             "launches": counts}
+            os.environ["GOFR_AUTOTUNE"] = "0"
+            eng = build_engine(cfg, **knobs)
+            try:
+                eng.warmup(len_buckets=[128], batch_buckets=[1])
+                off = eng.autotune_report()
+            finally:
+                eng.stop()
+            require(off is None, f"paged_autotune: GOFR_AUTOTUNE=0 still reported {off}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del model
+    torch.cuda.empty_cache()
+    return {"model": f"llama3_8b widths, {COLD_START['layers']} layers (random bf16, seed 0)",
+            "runs": out, "gofr_autotune_0_report": None, "nvidia_smi": smi_line()}
+
+
+# Phase 4's ``app_transports``: the App's other entry points on the phase's
+# Llama-3-8B (32 layers, ``ModelSpec(weights=model)``), all in one App.
+TRANSPORTS_CONFIG = {**HTTP_CONFIG, "APP_ENV": "DEBUG", "ENGINE_WARMUP": "true",
+                     "PUBSUB_BACKEND": "inmemory", "GRPC_PORT": "0", "SUBSCRIBER_WORKERS": "4"}
+TRANSPORTS_USER = ("smoke", "s3cret")
+# a schedule the cron thread's own ticks never meet; the phase fires it by
+# ``app.cron.tick`` at the minute it names
+TRANSPORTS_CRON = ("0 0 1 1 *", (2027, 1, 1, 0, 0, 30, 0, 0, -1))
+
+
+class WSClient:
+    """A websocket client on a stdlib socket: the RFC 6455 upgrade, masked
+    text frames out, the server's unmasked frames in."""
+
+    def __init__(self, port: int, path: str, headers: dict | None = None):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=900)
+        key = base64.b64encode(os.urandom(16)).decode()
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+        self.sock.sendall((f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                           f"Sec-WebSocket-Version: 13\r\n{extra}\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = self.sock.recv(1)
+            if not chunk:
+                break
+            head += chunk
+        self.status = int(head.split(b" ", 2)[1]) if head else 0
+
+    def send_text(self, text: str) -> None:
+        import struct
+
+        payload, mask = text.encode(), os.urandom(4)
+        n = len(payload)
+        if n < 126:
+            head = bytes([0x81, 0x80 | n])
+        elif n < 1 << 16:
+            head = bytes([0x81, 0x80 | 126]) + struct.pack("!H", n)
+        else:
+            head = bytes([0x81, 0x80 | 127]) + struct.pack("!Q", n)
+        key = (mask * (n // 4 + 1))[:n]
+        body = (int.from_bytes(payload, "big") ^ int.from_bytes(key, "big")).to_bytes(n, "big")
+        self.sock.sendall(head + mask + body)
+
+    def _exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the server closed the connection")
+            buf += chunk
+        return buf
+
+    def recv_text(self) -> str:
+        import struct
+
+        b0, b1 = self._exact(2)
+        n = b1 & 0x7F
+        if n == 126:
+            n = struct.unpack("!H", self._exact(2))[0]
+        elif n == 127:
+            n = struct.unpack("!Q", self._exact(8))[0]
+        payload = self._exact(n)
+        require(b0 & 0x0F == 0x1 and not b1 & 0x80, f"websocket: frame opcode {b0 & 0x0F}")
+        return payload.decode()
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _basic(user: tuple) -> dict:
+    import base64
+
+    return {"Authorization": "Basic " + base64.b64encode(":".join(user).encode()).decode()}
+
+
+def _grpc_service(grpc, current):
+    """A JSON-over-gRPC ``gen.Gen`` service (as examples/grpc-server
+    registers its own): unary ``Generate`` and server-streaming
+    ``GenerateStream``, each through ``current_grpc_context().generate``."""
+    def generate(request, context):
+        o = current().generate("lm", request["prompt"], max_new_tokens=request["n"], timeout=900)
+        return {"tokens": o["tokens"], "ttft_s": o["ttft_s"], "decode_s": o["decode_s"]}
+
+    def generate_stream(request, context):
+        for tok in current().generate("lm", request["prompt"], max_new_tokens=request["n"],
+                                      timeout=900, stream=True):
+            yield {"token": tok}
+
+    def add(server):
+        codec = dict(request_deserializer=lambda b: json.loads(b.decode()),
+                     response_serializer=lambda o: json.dumps(o).encode())
+        server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler("gen.Gen", {
+            "Generate": grpc.unary_unary_rpc_method_handler(generate, **codec),
+            "GenerateStream": grpc.unary_stream_rpc_method_handler(generate_stream, **codec),
+        }),))
+
+    return add
+
+
+def p50(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def app_transports(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``app_transports``: the port's App on localhost serving the
+    phase's Llama-3-8B (``TRANSPORTS_CONFIG``: ``HTTP_CONFIG``,
+    ``APP_ENV=DEBUG``, ``ENGINE_WARMUP=true`` so the autotuner pins A's
+    plan at 32 layers, in-memory pub/sub with 4 consumers a topic, gRPC on
+    a free port) behind Basic auth, its entry points in turn: ``bf16``'s 8
+    prompts as 8 concurrent ``/ws/generate`` clients (stdlib sockets,
+    masked frames), 64 new tokens each, then a ninth that closes after two
+    frames; 4 unary gRPC ``Generate`` calls at once and one
+    ``GenerateStream``; prompts 4..7 published to ``prompts``, whose
+    subscriber generates and publishes to ``completions``, whose subscriber
+    collects them; a cron job fired by ``app.cron.tick``; and auth, a
+    static file and the OpenAPI spec. Held: every websocket, gRPC, pub/sub
+    and cron request's tokens equal ``bf16``'s by the tie rule; a stream is
+    one frame per token then ``{"done": true}``; the ninth request ends
+    cancelled and the slots empty; the pool audit clean and nothing
+    dropped; the four ``app_pubsub_*`` counters 8 each; the engine launched
+    A, B and C and nothing else, A only on the plan it pinned at warmup;
+    401 without credentials (``/generate`` and the upgrade), 201 / 101 with
+    them, health open, the static file served, the spec listing the
+    routes; and after ``stop`` every thread the App started has ended.
+    Printed: the websocket first frame's p50 less the engine's TTFT p50,
+    the frame gap's p50 beside the engine's TPOT p50, the gRPC overhead
+    p50 (client wall less ``ttft_s`` and ``decode_s``), pub/sub publish to
+    completion p50, and A's pinned plan."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import grpc
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.gpu.engine import RequestCancelled
+    from gofr_tpu_torch.grpc.server import current_grpc_context
+    from gofr_tpu_torch.http.streaming import StreamingResponse
+    from gofr_tpu_torch.models import ModelSpec
+    from gofr_tpu_torch.ops import autotune
+    from gofr_tpu_torch.ops.cuda import paged_decode as paged_decode_mod
+
+    threads_before = set(threading.enumerate())
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    app = App(config=DictConfig(TRANSPORTS_CONFIG))
+    engine = app.serve_model("lm", ModelSpec("llama", model.cfg, weights=model,
+                                             dtype=model.cfg.dtype), seed=SEED, eos_token_id=-1)
+    submitted, submit = [], engine.submit
+
+    def record(*a, **kw):
+        submitted.append(submit(*a, **kw))
+        return submitted[-1]
+
+    engine.submit = record
+    app.enable_basic_auth(dict([TRANSPORTS_USER]))
+
+    async def generate(ctx):
+        body = ctx.bind(dict)
+        return await ctx.agenerate("lm", body["prompt"], max_new_tokens=int(body["max_new_tokens"]),
+                                   timeout=900)
+
+    def ws_generate(ctx):
+        body = ctx.bind(dict)
+        return StreamingResponse(ctx.generate("lm", body["prompt"],
+                                              max_new_tokens=int(body["max_new_tokens"]),
+                                              timeout=900, stream=True))
+
+    completions, lock = {}, threading.Lock()
+
+    def on_prompt(ctx):
+        body = ctx.bind(dict)
+        o = ctx.generate("lm", body["prompt"], max_new_tokens=64, timeout=900)
+        ctx.publish("completions", {"i": body["i"], "sent": body["sent"], "tokens": o["tokens"]})
+
+    def on_completion(ctx):
+        body = ctx.bind(dict)
+        with lock:
+            completions[body["i"]] = {**body, "arrived": time.monotonic()}
+
+    cron_out = []
+    static_dir = tempfile.TemporaryDirectory(prefix="gofr-smoke-static-")
+    static = static_dir.name
+    with open(os.path.join(static, "index.html"), "w") as f:
+        f.write("<h1>gofr_tpu_torch</h1>")
+    app.post("/generate", generate)
+    app.websocket("/ws/generate", ws_generate)
+    app.subscribe("prompts", on_prompt)
+    app.subscribe("completions", on_completion)
+    app.add_cron_job(TRANSPORTS_CRON[0], "smoke", lambda ctx: cron_out.append(
+        ctx.generate("lm", prompts[0], max_new_tokens=64, timeout=900)))
+    app.add_static_files("/static", static)
+    app.register_grpc_service(_grpc_service(grpc, current_grpc_context))
+    auth = _basic(TRANSPORTS_USER)
+    pinned_rows, real_scratch = [], paged_decode_mod.split_scratch
+
+    def watch_scratch(q, hkv, smax, op=None, dims=()):
+        rows, splits, scratch = real_scratch(q, hkv, smax, op, dims)
+        pinned_rows.append(rows)
+        return rows, splits, scratch
+
+    with static_dir, AppThread(app, "app-transports"):
+        port = app.http_port
+        report = engine.autotune_report()
+        require(report is not None and "paged_decode" in report["decisions"],
+                f"app_transports: warmup pinned nothing: {report}")
+        pin = report["decisions"]["paged_decode"]
+        _, dbg, *_ = http_call(port, "GET", "/debug/engine", headers=auth)
+        require(dbg["data"]["engines"]["lm"]["autotune"]["decisions"]["paged_decode"]["backend"]
+                == pin["backend"], "app_transports: /debug/engine lacks the pin")
+        # auth, health, the spec and a static file
+        status_plain = http_call(port, "POST", "/generate",
+                                 {"prompt": prompts[1], "max_new_tokens": 2})[0]
+        status_auth = http_call(port, "POST", "/generate",
+                                {"prompt": prompts[1], "max_new_tokens": 2}, auth)[0]
+        ws_plain, ws_auth = WSClient(port, "/ws/generate"), WSClient(port, "/ws/generate", auth)
+        statuses = {"generate": (status_plain, status_auth), "upgrade": (ws_plain.status,
+                                                                         ws_auth.status)}
+        ws_plain.close()
+        ws_auth.close()
+        status, health, *_ = http_call(port, "GET", "/.well-known/health")
+        statuses["health"] = status
+        status, spec, *_ = http_call(port, "GET", "/.well-known/openapi.json")
+        statuses["openapi"] = status
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/static/index.html", headers=auth), timeout=60) as r:
+            statuses["static"], static_body = r.status, r.read().decode()
+        require(statuses == {"generate": (401, 201), "upgrade": (401, 101), "health": 200,
+                             "openapi": 200, "static": 200}, f"app_transports: {statuses}")
+        require("/generate" in spec["paths"] and static_body == "<h1>gofr_tpu_torch</h1>",
+                f"app_transports: spec {spec} static {static_body!r}")
+
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        paged_decode_mod.split_scratch = watch_scratch
+        del submitted[:]
+        try:
+            # 8 websocket clients at once
+            streams = [None] * len(prompts)
+
+            def ws_one(i: int) -> None:
+                c = WSClient(port, "/ws/generate", auth)
+                t0 = time.perf_counter()
+                c.send_text(json.dumps({"prompt": prompts[i], "max_new_tokens": 64}))
+                frames, stamps = [], []
+                while True:
+                    frames.append(json.loads(c.recv_text()))
+                    stamps.append(time.perf_counter() - t0)
+                    if isinstance(frames[-1], dict):
+                        break
+                c.close()
+                streams[i] = (frames, stamps)
+
+            threads = [threading.Thread(target=ws_one, args=(i,)) for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            ws_reqs = [next(q for q in submitted if q.inputs == p) for p in prompts]
+            wait_idle(engine)
+            # the ninth: two frames, then gone
+            ninth = WSClient(port, "/ws/generate", auth)
+            ninth.send_text(json.dumps({"prompt": pipeline_prompts(torch, model.cfg.vocab_size)[0],
+                                        "max_new_tokens": 512}))
+            ninth_frames = [json.loads(ninth.recv_text()) for _ in range(2)]
+            ninth.close()
+            ninth_req = submitted[-1]
+            try:
+                ninth_req.result(timeout=300)
+                ninth_error = None
+            except RequestCancelled as e:
+                ninth_error = e
+            wait_idle(engine)
+            slots_free = all(s is None for s in engine.slots)
+
+            # gRPC: 4 unary calls at once, then one stream
+            grpc_replies = [None] * 4
+            with grpc.insecure_channel(f"127.0.0.1:{app.grpc_port}") as ch:
+                codec = dict(request_serializer=lambda o: json.dumps(o).encode(),
+                             response_deserializer=lambda b: json.loads(b.decode()))
+                unary = ch.unary_unary("/gen.Gen/Generate", **codec)
+                stream = ch.unary_stream("/gen.Gen/GenerateStream", **codec)
+
+                def grpc_one(i: int) -> None:
+                    t0 = time.perf_counter()
+                    reply = unary({"prompt": prompts[i], "n": 64}, timeout=900)
+                    grpc_replies[i] = (reply, time.perf_counter() - t0)
+
+                threads = [threading.Thread(target=grpc_one, args=(i,)) for i in range(4)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(900)
+                grpc_stream = [m["token"] for m in stream({"prompt": prompts[4], "n": 64},
+                                                          timeout=900)]
+
+            # pub/sub: prompts 4..7 through both topics
+            for i in range(4, 8):
+                app.container.publish("prompts", {"i": i, "prompt": prompts[i],
+                                                  "sent": time.monotonic()})
+            deadline = time.monotonic() + 900
+            while len(completions) < 4 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            # cron: the job at the minute its schedule names
+            fired = app.cron.tick(time.mktime(TRANSPORTS_CRON[1]))
+            while not cron_out and time.monotonic() < deadline:
+                time.sleep(0.01)
+            wait_idle(engine)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+        finally:
+            paged_decode_mod.split_scratch = real_scratch
+        engine.check_page_refs()
+        dropped = engine.pipeline_stats()["dropped"]
+        m = app.container.metrics
+        pubsub_counts = {name: sum(m.get(name).value(topic=t) for t in ("prompts", "completions"))
+                         for name in ("app_pubsub_publish_total_count",
+                                      "app_pubsub_publish_success_count",
+                                      "app_pubsub_subscribe_total_count",
+                                      "app_pubsub_subscribe_success_count")}
+    # every thread the App started has ended (the handler pool's idle
+    # threads leave as its shutdown reaches them)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+        if not left:
+            break
+        time.sleep(0.1)
+    require(not left, f"app_transports: threads outlived stop(): {left}")
+    require(not engine._thread.is_alive(), "app_transports: the engine's thread outlived stop()")
+
+    # the holds on what came back
+    ws_outs, ws_first, ws_gaps = [], [], []
+    for i, (frames, stamps) in enumerate(streams):
+        require(len(frames) == 65 and frames[-1] == {"done": True}
+                and all(isinstance(t, int) for t in frames[:-1]),
+                f"app_transports websocket {i}: {len(frames)} frames, last {frames[-1:]}")
+        ws_outs.append({"tokens": frames[:-1]})
+        ws_first.append(stamps[0])
+        ws_gaps += [b - a for a, b in zip(stamps[:-2], stamps[1:-1])]
+    ws_results = [q.outcome()[0] for q in ws_reqs]
+    require(all(isinstance(f, int) for f in ninth_frames) and ninth_error is not None
+            and ninth_req.cancelled and slots_free,
+            f"app_transports: the ninth client's request ended {ninth_error!r}, cancelled "
+            f"{ninth_req.cancelled}, slots free {slots_free}")
+    require(all(r is not None for r in grpc_replies), "app_transports: a gRPC call failed")
+    grpc_outs = [r[0] for r in grpc_replies]
+    require(len(grpc_stream) == 64 and all(len(o["tokens"]) == 64 for o in grpc_outs),
+            f"app_transports gRPC: {[len(o['tokens']) for o in grpc_outs]}, stream "
+            f"{len(grpc_stream)}")
+    require(sorted(completions) == [4, 5, 6, 7]
+            and all(len(c["tokens"]) == 64 for c in completions.values()),
+            f"app_transports pub/sub: {sorted(completions)}")
+    require(fired == ["smoke"] and len(cron_out) == 1 and len(cron_out[0]["tokens"]) == 64,
+            f"app_transports cron: fired {fired}, {len(cron_out)} results")
+    require(all(v == 8 for v in pubsub_counts.values()), f"app_transports: {pubsub_counts}")
+    require(dropped == 0, f"app_transports: {dropped} calls dropped")
+    for name, launches in counts.items():
+        require((launches > 0) == (name in ON_PATH["app_transports"]),
+                f"app_transports: kernel {name} launched {launches} times")
+    pinned = autotune.plan_rows(pin["backend"])
+    require(pinned_rows and set(pinned_rows) == {pinned},
+            f"app_transports: A ran on plans {sorted(set(pinned_rows))}, pinned {pinned}")
+    by_path = {
+        "websocket": token_agreement(torch, model, prompts, ws_outs, base_outs),
+        "grpc": token_agreement(torch, model, prompts[:4], grpc_outs, base_outs[:4]),
+        "grpc_stream": token_agreement(torch, model, prompts[4:5], [{"tokens": grpc_stream}],
+                                       base_outs[4:5]),
+        "pubsub": token_agreement(torch, model, prompts[4:8],
+                                  [completions[i] for i in range(4, 8)], base_outs[4:8]),
+        "cron": token_agreement(torch, model, prompts[:1], cron_out, base_outs[:1]),
+    }
+    for path, agree in by_path.items():
+        gaps = [mm["chosen_below_top1"] for mm in agree["margin_at_first_difference"] if mm]
+        require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+                f"app_transports {path}: at a first difference from bf16 the token lies {gaps} "
+                f"below the top logit (limit {SPEC_TIE_GAP})")
+    ttft = [r["ttft_s"] for r in ws_results]
+    tpot = [r["decode_s"] / (len(r["tokens"]) - 1) for r in ws_results]
+    grpc_overhead = [wall - (o["ttft_s"] + o["decode_s"]) for o, wall in
+                     ((r[0], r[1]) for r in grpc_replies)]
+    pub_to_done = [c["arrived"] - c["sent"] for c in completions.values()]
+    del engine, app
+    torch.cuda.empty_cache()
+    return {
+        "model": "llama3_8b (random bf16 weights, seed 0)", "config": TRANSPORTS_CONFIG,
+        "autotune": report, "pinned_plan": pin["backend"], "rule_plan": report["rule"],
+        "statuses": statuses,
+        "ws_first_frame_p50_s": p50(ws_first), "engine_ttft_p50_s": p50(ttft),
+        "ws_first_frame_minus_ttft_p50_s": p50(ws_first) - p50(ttft),
+        "ws_frame_gap_p50_s": p50(ws_gaps), "engine_tpot_p50_s": p50(tpot),
+        "ws_frame_gap_max_s": max(ws_gaps),
+        "grpc_overhead_p50_s": p50(grpc_overhead), "grpc_overhead_s": grpc_overhead,
+        "pubsub_publish_to_completion_p50_s": p50(pub_to_done),
+        "pubsub_counts": pubsub_counts, "cron_fired": fired,
+        "ninth_client": {"frames_read": len(ninth_frames), "ended": repr(ninth_error)},
+        "tokens_equal_bf16": {k: v["tokens_equal"] for k, v in by_path.items()},
+        "first_difference": {k: v["first_difference"] for k, v in by_path.items()},
+        "a_launches_by_plan": {autotune.plan_name(r): pinned_rows.count(r)
+                               for r in sorted(set(pinned_rows))},
+        "launches": counts, "nvidia_smi": smi_line(), "note": "smoke run, not a benchmark",
+    }
+
+
 def launches_by_run(served: dict) -> dict[str, dict[str, int]]:
     """Each phase-4 run's launch counts by kernel: the runs that record one
     set, the spec engine of ``paged_control`` and the two sides of
@@ -3976,6 +4563,16 @@ def main() -> None:
     served["cold_start"] = cold_start(torch)
     emit("phase4_cold_start", served["cold_start"])
     lap("phase4_cold_start")
+
+    autotuned = serve_autotune(torch, cuda)
+    emit("phase4_serve_paged_autotune", autotuned)
+    for name, run in autotuned["runs"].items():
+        served[f"paged_autotune_{name}"] = run
+    lap("phase4_paged_autotune")
+
+    served["app_transports"] = app_transports(torch, cuda, model, results["paged", ""])
+    emit("phase4_app_transports", served["app_transports"])
+    lap("phase4_app_transports")
 
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",

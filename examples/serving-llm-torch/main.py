@@ -1,8 +1,8 @@
 """The serving example on the PyTorch port (examples/serving-llm/main.py with
 gofr_tpu_torch underneath): a Llama generate endpoint behind the
-continuous-batching engine, ``POST /generate`` and ``POST /generate/stream``
-(server-sent events). The websocket route ``/ws/generate`` waits for an
-RFC 6455 layer on the port's stdlib server.
+continuous-batching engine, ``POST /generate``, ``POST /generate/stream``
+(server-sent events) and the websocket route ``/ws/generate`` (one frame
+per token, then ``{"done": true}``; RFC 6455 on the port's stdlib server).
 
     python examples/serving-llm-torch/main.py            # on the card
 
@@ -72,8 +72,22 @@ def build_app(config=None, *, preset: str = "tiny", params=None, device=None) ->
         )
         return StreamingResponse(it, event="token")
 
+    def ws_generate(ctx):
+        """Websocket: one message per token (websocket.go:37-53 parity)."""
+        from gofr_tpu_torch.http.streaming import StreamingResponse
+
+        body = ctx.bind(dict)
+        it = ctx.generate(
+            "lm", body["prompt"],
+            max_new_tokens=int(body.get("max_new_tokens", 8)),
+            timeout=body.get("timeout", 120),
+            stream=True,
+        )
+        return StreamingResponse(it)
+
     app.post("/generate", generate)
     app.post("/generate/stream", generate_stream)
+    app.websocket("/ws/generate", ws_generate)
     return app
 
 

@@ -1,9 +1,10 @@
 """App facade: build the servers from config, register routes, run them
-(the port's own copy of gofr_tpu/app.py for HTTP serving).
+(the port's own copy of gofr_tpu/app.py).
 
-``App`` owns the HTTP server (tracer → logging → CORS → metrics → QoS
-middlewares), the metrics server on its own port and one Container, and
-serves handlers through ``Context``. ``app.serve_model(...)`` registers a
+``App`` owns the HTTP server (tracer → logging → CORS → metrics → QoS →
+auth middlewares), the metrics server on its own port, the gRPC server, the
+pub/sub subscription manager, the cron table and one Container, and serves
+handlers through ``Context``. ``app.serve_model(...)`` registers a
 continuous-batching engine on the container; handlers then call
 ``ctx.agenerate`` / ``ctx.generate`` / ``ctx.infer``. Both servers are
 ``http/server.py`` on the standard library, where the JAX App runs
@@ -27,11 +28,23 @@ handoff counters), the quality plane's ``/debug/quality``, the step
 controller's ``/debug/control`` and ``/debug/profile?seconds=N``, a
 ``torch.profiler`` Chrome trace under ``PROFILER_DIR`` (one at a time: 409
 while one runs). ``ENGINE_WARMUP=true`` warms every engine
-(``GenerateEngine.warmup``) before the servers start. Not ported yet:
-websocket routes (``App.websocket``), the auth middlewares, static files,
-the OpenAPI routes, JAX's ``jax.profiler`` server on
-``PROFILER_PORT`` (it has no torch counterpart), gRPC, pub/sub, cron and
-the CLI.
+(``GenerateEngine.warmup``, with its split-plan autotuner) before the
+servers start; ``/debug/engine`` and ``/debug/perf`` show each engine's
+``autotune`` report.
+
+The other entry points, each feeding the engines through the same
+``Context``: ``websocket`` routes (RFC 6455 on the stdlib server; a
+``StreamingResponse`` goes out one frame per token, then ``{"done":
+true}``), ``enable_basic_auth`` / ``enable_api_key_auth`` (each
+``_with_validator``), ``enable_oauth`` (RS256 through a JWKS endpoint) and
+``enable_jwt_hs256``, ``add_static_files``, ``/.well-known/openapi.json``
+and ``/.well-known/swagger``, ``register_grpc_service`` (``GRPC_PORT``, 0
+binds a free port that ``grpc_port`` then reads; ``GRPC_THREADS``),
+``subscribe`` (``SUBSCRIBER_WORKERS`` consumer threads a topic in
+``CONSUMER_GROUP``, a message committed only when its handler succeeds)
+and ``add_cron_job``. Not ported yet: JAX's ``jax.profiler`` server on
+``PROFILER_PORT`` (it has no torch counterpart), the ``pubsub.commit`` and
+``client.disconnect`` chaos points, the raw proxy stream and the CLI.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import os
 import signal
 import threading
 import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 from urllib.parse import parse_qs
@@ -61,12 +75,14 @@ from gofr_tpu_torch.http.middleware import (
     qos_middleware,
     tracer_middleware,
 )
+from gofr_tpu_torch.http.middleware.auth import AUTH_KEY
 from gofr_tpu_torch.http.request import HTTPRequest
 from gofr_tpu_torch.http.responder import respond, to_json
 from gofr_tpu_torch.http.server import HTTPServer, Router, ServerRequest, ServerResponse
 from gofr_tpu_torch.http.streaming import StreamingResponse
 from gofr_tpu_torch.metrics import perf as perf_mod
 from gofr_tpu_torch.metrics.slo import record_trace
+from gofr_tpu_torch.websocket import ConnectionHub, WSConnection
 
 Handler = Callable[[Context], Any]
 
@@ -83,16 +99,30 @@ class App:
 
         self.http_port = self.config.get_int("HTTP_PORT", 8000)
         self.metrics_port = self.config.get_int("METRICS_PORT", 2121)
+        self.grpc_port = self.config.get_int("GRPC_PORT", 9000)
         self.request_timeout = self.config.get_float("REQUEST_TIMEOUT", 0.0)
 
         self._routes: list[tuple[str, str, Handler]] = []
+        self._ws_routes: list[tuple[str, Handler]] = []
+        self._static: list[tuple[str, str]] = []
+        self._auth_middlewares: list[Any] = []
+        self._jwks: list[Any] = []  # JWKS pollers, stopped with the app
+        self._subscriptions: dict[str, Handler] = {}
+        self._grpc_services: list[Any] = []
         self._executor = ThreadPoolExecutor(
             max_workers=self.config.get_int("HANDLER_THREADS", 32), thread_name_prefix="gofr-handler"
         )
+        self.ws_hub = ConnectionHub()
+
+        from gofr_tpu_torch.cron import Crontab
+
+        self.cron = Crontab(self.container)
         if self.config.get_bool("QOS_ENABLED"):
             self.enable_qos()
         self._shutdown = asyncio.Event()
         self._servers: list[HTTPServer] = []
+        self._sub_threads: list[threading.Thread] = []
+        self._sub_stop = threading.Event()
         # one /debug/profile capture at a time (409 while held)
         self._profile_busy = threading.Lock()
 
@@ -116,6 +146,53 @@ class App:
     def delete(self, path: str, handler: Handler) -> None:
         self.add_route("DELETE", path, handler)
 
+    def websocket(self, path: str, handler: Handler) -> None:
+        self._ws_routes.append((path, handler))
+
+    def add_static_files(self, route: str, directory: str) -> None:
+        self._static.append((route if route.startswith("/") else f"/{route}", directory))
+
+    # -- auth (gofr.go:436-507; app.py:120-155) ---------------------------------
+
+    def enable_basic_auth(self, users: dict[str, str]) -> None:
+        from gofr_tpu_torch.http.middleware.auth import basic_auth_middleware
+
+        self._auth_middlewares.append(basic_auth_middleware(users=users))
+
+    def enable_basic_auth_with_validator(self, validator: Callable[..., bool]) -> None:
+        from gofr_tpu_torch.http.middleware.auth import basic_auth_middleware
+
+        self._auth_middlewares.append(basic_auth_middleware(validator=validator,
+                                                            container=self.container))
+
+    def enable_api_key_auth(self, *keys: str) -> None:
+        from gofr_tpu_torch.http.middleware.auth import apikey_auth_middleware
+
+        self._auth_middlewares.append(apikey_auth_middleware(keys=list(keys)))
+
+    def enable_api_key_auth_with_validator(self, validator: Callable[..., bool]) -> None:
+        from gofr_tpu_torch.http.middleware.auth import apikey_auth_middleware
+
+        self._auth_middlewares.append(apikey_auth_middleware(validator=validator,
+                                                             container=self.container))
+
+    def enable_oauth(self, jwks_url: str, refresh_interval: float = 300.0,
+                     audience: str | None = None, issuer: str | None = None) -> None:
+        from gofr_tpu_torch.http.middleware.auth import JWKSCache, oauth_middleware
+
+        jwks = JWKSCache(jwks_url, refresh_interval)
+        jwks.start()
+        self._jwks.append(jwks)
+        self._auth_middlewares.append(oauth_middleware(jwks=jwks, audience=audience, issuer=issuer))
+
+    def enable_jwt_hs256(self, secret: bytes | str, audience: str | None = None,
+                         issuer: str | None = None) -> None:
+        from gofr_tpu_torch.http.middleware.auth import oauth_middleware
+
+        secret_b = secret.encode() if isinstance(secret, str) else secret
+        self._auth_middlewares.append(oauth_middleware(hs_secret=secret_b, audience=audience,
+                                                       issuer=issuer))
+
     # -- QoS: admission control / rate limiting / load shedding ----------------
 
     def enable_qos(self, policy=None, **overrides: Any):
@@ -133,6 +210,22 @@ class App:
         controller = AdmissionController(policy, self.container.metrics, logger=self.logger)
         self.container.register_qos(controller)
         return controller
+
+    # -- other entry points (app.py:197-214) ------------------------------------
+
+    def subscribe(self, topic: str, handler: Handler) -> None:
+        if self.container.pubsub is None:
+            self.logger.error(f"subscribe({topic!r}) ignored: no PUBSUB_BACKEND configured")
+            return
+        self._subscriptions[topic] = handler
+
+    def add_cron_job(self, schedule: str, name: str, handler: Handler) -> None:
+        self.cron.add_job(schedule, name, handler)
+
+    def register_grpc_service(self, adder: Callable[[Any], None] | Any, servicer: Any = None) -> None:
+        """Register a gRPC service: ``(add_fn, servicer)`` from generated
+        code, or an ``add_fn(server)`` alone."""
+        self._grpc_services.append((adder, servicer))
 
     # -- model serving ---------------------------------------------------------
 
@@ -164,6 +257,10 @@ class App:
         router.add("GET", "/.well-known/health", self._health_handler)
         router.add("GET", "/.well-known/alive", self._alive_handler)
         router.add("GET", "/favicon.ico", self._favicon_handler)
+        from gofr_tpu_torch.swagger import openapi_handler, swagger_ui_handler
+
+        router.add("GET", "/.well-known/openapi.json", openapi_handler(self))
+        router.add("GET", "/.well-known/swagger", swagger_ui_handler(self))
         if self._debug_env():
             # the flight recorder's and the perf plane's read endpoints,
             # gated like the reference's pprof routes
@@ -175,6 +272,11 @@ class App:
             router.add("GET", "/debug/profile", self._profile_handler)
         for method, path, handler in self._routes:
             router.add(method, path, self._wrap(handler))
+        for path, handler in self._ws_routes:
+            router.add("GET", path, self._wrap_ws(handler))
+        for route, directory in self._static:
+            router.add("GET", f"{route.rstrip('/')}/{{static_tail:.*}}",
+                       self._static_handler(directory))
         middlewares = [
             tracer_middleware(self.container.tracer),
             logging_middleware(self.logger),
@@ -182,8 +284,10 @@ class App:
             metrics_middleware(self.container.metrics),
         ]
         if self.container.qos is not None:
-            # after metrics (rejections show in app_http_response)
+            # after metrics (rejections show in app_http_response), before
+            # auth: shed load never pays the auth path
             middlewares.append(qos_middleware(self.container.qos))
+        middlewares.extend(self._auth_middlewares)
         return HTTPServer(router, middlewares, on_error=self._on_server_error)
 
     def _build_metrics_server(self) -> HTTPServer:
@@ -218,6 +322,10 @@ class App:
         # when the server accepted the connection and had read the request
         # (monotonic), for a handler that breaks its latency down
         req.context().update(accepted_at=request.accepted_at, read_at=request.read_at)
+        auth = request.state.get(AUTH_KEY)
+        if auth:
+            # the verified identity (user, method, JWT claims)
+            req.context().update(auth)
         qos_class = request.state.get(QOS_KEY)
         if qos_class:
             # resolved by the QoS middleware; ctx.generate picks it up
@@ -322,6 +430,71 @@ class App:
         if callable(cancel):
             cancel()
 
+    def _wrap_ws(self, handler: Handler):
+        """The websocket route around a user handler (app.py:518-578): the
+        upgrade (a plain GET gets the 404 envelope), a server-generated
+        connection id in ``ws_hub``, then the handler once per message, sync
+        ones on the executor. A handler error is answered in band and the
+        connection survives; a ``StreamingResponse`` goes out one frame per
+        item (``encode_ws``, pulled on the executor), then ``{"done":
+        true}``; an engine error mid-stream becomes an in-band error frame
+        with ``done``, and a transport error cancels the generation, so the
+        engine frees the slot and its pages."""
+        is_coro = inspect.iscoroutinefunction(handler)
+
+        async def ws_handler(request: ServerRequest) -> ServerResponse:
+            ws = await request.upgrade_websocket()
+            if ws is None:
+                return await self._not_found_handler(request)
+            # server-generated id: the Sec-WebSocket-Key header is client
+            # controlled, and duplicates would cross-wire hub entries
+            conn_id = uuid.uuid4().hex
+            self.ws_hub.add(conn_id, ws)
+            loop = asyncio.get_running_loop()
+            try:
+                async for msg in ws:
+                    conn = WSConnection(conn_id, ws, msg.data, loop)
+                    ctx = Context(conn, self.container)
+                    try:
+                        if is_coro:
+                            result = await handler(ctx)
+                        else:
+                            result = await loop.run_in_executor(self._executor, handler, ctx)
+                    except Exception as e:  # noqa: BLE001
+                        self.logger.log_exception(e, "websocket handler")
+                        await ws.send_str(to_json({"error": {"message": "handler error"}}).decode())
+                        continue
+                    if isinstance(result, StreamingResponse):
+                        await self._stream_ws(ws, result)
+                    elif result is not None:
+                        payload = result if isinstance(result, str) else to_json(result).decode()
+                        await ws.send_str(payload)
+            except ConnectionError:
+                pass  # the client went away; a generation it streamed is cancelled
+            finally:
+                self.ws_hub.remove(conn_id)
+            return ServerResponse(101, content_type=None, streamed=True)
+
+        return ws_handler
+
+    async def _stream_ws(self, ws, stream: StreamingResponse) -> None:
+        loop = asyncio.get_running_loop()
+        sentinel = object()
+        try:
+            while True:
+                item = await loop.run_in_executor(self._executor, next, stream.iterator, sentinel)
+                if item is sentinel:
+                    break
+                await ws.send_str(stream.encode_ws(item))
+            await ws.send_str(to_json({"done": True}).decode())
+        except (ConnectionError, asyncio.CancelledError):
+            self._cancel_stream(stream)
+            raise
+        except Exception as e:  # noqa: BLE001 - surface mid-stream failure in-band
+            self.logger.log_exception(e, "websocket token stream")
+            self._cancel_stream(stream)
+            await ws.send_str(to_json({"error": {"message": str(e)}, "done": True}).decode())
+
     # -- built-in handlers -----------------------------------------------------
 
     async def _health_handler(self, _request: ServerRequest) -> ServerResponse:
@@ -336,6 +509,37 @@ class App:
 
     async def _not_found_handler(self, _request: ServerRequest) -> ServerResponse:
         return _json({"error": {"message": "route not registered"}}, 404)
+
+    def _static_handler(self, directory: str):
+        """Static files with the reference's hardening (app.py:594-625):
+        ``openapi.json`` is never served from a static mount (403; the spec
+        lives at ``/.well-known/openapi.json``), and a path that resolves
+        outside the mounted directory is a 404 like any absent file."""
+        import mimetypes
+        import pathlib
+
+        base = pathlib.Path(directory).resolve()
+
+        def read(target: pathlib.Path) -> bytes:
+            return target.read_bytes()
+
+        async def handler(request: ServerRequest) -> ServerResponse:
+            tail = request.path_params.get("static_tail", "")
+            if pathlib.PurePosixPath(tail).name == "openapi.json":
+                return _json({"error": {"message": "openapi.json is not downloadable from "
+                                                   "static routes; use /.well-known/openapi.json"}},
+                             403)
+            try:
+                target = (base / tail).resolve()
+            except (OSError, ValueError):
+                return await self._not_found_handler(request)
+            if (base not in target.parents and target != base) or not target.is_file():
+                return await self._not_found_handler(request)
+            body = await asyncio.get_running_loop().run_in_executor(self._executor, read, target)
+            ctype = mimetypes.guess_type(target.name)[0] or "application/octet-stream"
+            return ServerResponse(200, body, content_type=ctype)
+
+        return handler
 
     # -- /debug/* (APP_ENV=DEBUG; app.py:724-822) ------------------------------
 
@@ -376,6 +580,10 @@ class App:
             handoff = _handoff_snapshot(engine)
             if handoff:
                 snap["handoff"] = handoff
+            report = getattr(engine, "autotune_report", None)
+            rep = report() if callable(report) else None
+            if rep:
+                snap["autotune"] = rep
             engines[name] = snap
         return _json({"data": {"count": len(steps), "steps": steps, "engines": engines}})
 
@@ -396,6 +604,16 @@ class App:
             stats = stats_fn() if callable(stats_fn) else None
             if stats:
                 snap["page_pool"] = stats
+            report = getattr(engine, "autotune_report", None)
+            rep = report() if callable(report) else None
+            if rep and rep.get("decisions"):
+                # every pinned op is a decode attention kernel, so each pin
+                # joins the roofline of the step kinds it runs in
+                kinds = snap.get("kinds", {})
+                snap["autotune"] = {
+                    op: {"pin": rec, "roofline": {k: kinds[k] for k in ("decode", "spec")
+                                                  if k in kinds} or None}
+                    for op, rec in rep["decisions"].items()}
             handoff = _handoff_snapshot(engine)
             if handoff:
                 snap["handoff"] = handoff
@@ -480,6 +698,69 @@ class App:
             self._profile_busy.release()
         return _json({"data": {"trace_dir": path, "seconds": seconds}})
 
+    # -- subscription manager (gofr subscriber.go; app.py:889-945) -------------
+
+    def _start_subscribers(self) -> None:
+        # SUBSCRIBER_WORKERS > 1 runs N consumer threads a topic: with a
+        # model engine in the handler, N messages in flight can share one
+        # device batch instead of queueing one behind another
+        workers = max(1, self.config.get_int("SUBSCRIBER_WORKERS", 1))
+        for topic, handler in self._subscriptions.items():
+            for w in range(workers):
+                t = threading.Thread(target=self._subscribe_loop, args=(topic, handler),
+                                     name=f"gofr-sub-{topic}-{w}", daemon=True)
+                t.start()
+                self._sub_threads.append(t)
+
+    def _subscribe_loop(self, topic: str, handler: Handler) -> None:
+        container = self.container
+        group = self.config.get_or_default("CONSUMER_GROUP", container.app_name)
+        while not self._sub_stop.is_set():
+            try:
+                msg = container.pubsub.subscribe(topic, group=group, timeout=0.5)
+            except Exception as e:  # noqa: BLE001
+                container.logger.errorf("subscribe %s failed: %r", topic, e)
+                self._sub_stop.wait(1.0)
+                continue
+            if msg is None:
+                continue
+            container.metrics.increment_counter("app_pubsub_subscribe_total_count", 1, topic=topic)
+            # join the publisher's trace when the message carries one
+            span = container.tracer.start_span(
+                f"subscribe {topic}", kind="CONSUMER", set_current=False,
+                traceparent=msg.param("traceparent") or None)
+            ctx = Context(msg, container, span=span)
+            try:
+                result = handler(ctx)
+                if inspect.iscoroutine(result):
+                    result.close()
+                    raise TypeError("subscribe handlers must be synchronous (they run on a "
+                                    "consumer thread)")
+                msg.commit()  # at-least-once: commit only on success (subscriber.go:54-56)
+                container.metrics.increment_counter("app_pubsub_subscribe_success_count", 1,
+                                                    topic=topic)
+                span.set_status("OK")
+            except Exception as e:  # noqa: BLE001
+                span.set_status("ERROR")
+                container.logger.errorf("subscriber for %s failed: %r", topic, e)
+            finally:
+                span.finish()
+
+    def _stop_entry_points(self, grpc_server) -> None:
+        """Stop what ``arun`` started beside the HTTP servers and join its
+        threads: the consumers, the cron table, the gRPC server and the JWKS
+        pollers."""
+        self._sub_stop.set()
+        for t in self._sub_threads:
+            t.join(timeout=5.0)
+        self._sub_threads = []
+        self.cron.stop()
+        if grpc_server is not None:
+            grpc_server.stop(grace=2).wait(5.0)
+            grpc_server.gofr_pool.shutdown(wait=True)
+        for jwks in self._jwks:
+            jwks.stop()
+
     # -- run -------------------------------------------------------------------
 
     def run(self) -> None:
@@ -519,16 +800,21 @@ class App:
     async def arun(self, ready: asyncio.Event | None = None) -> None:
         """Serve until ``stop()``: the engines warmed first under
         ``ENGINE_WARMUP``, then the metrics server on ``METRICS_PORT``,
-        the HTTP server on ``HTTP_PORT`` when a route is registered or
-        ``APP_ENV=DEBUG`` serves the debug routes; then
-        ``ready`` is set. On the way out the servers close, the container
-        stops the engines, and the executor shuts down."""
+        the HTTP server on ``HTTP_PORT`` when a route, a websocket route or
+        a static mount is registered or ``APP_ENV=DEBUG`` serves the debug
+        routes, the gRPC server on ``GRPC_PORT`` when a service is
+        registered, the subscribers and the cron table; then ``ready`` is
+        set. A server that cannot bind raises. On the way out the
+        consumers, cron, gRPC and the JWKS pollers stop and their threads
+        are joined, the servers close, the container stops the engines and
+        the broker, and the executor shuts down."""
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             try:
                 loop.add_signal_handler(sig, self._shutdown.set)
             except (NotImplementedError, RuntimeError, ValueError):
                 pass
+        grpc_server = None
         try:
             await self._warm_engines()
             metrics = self._build_metrics_server()
@@ -536,17 +822,25 @@ class App:
             self._servers.append(metrics)
             self.metrics_port = metrics.port
             self.logger.infof("metrics server on :%d/metrics", self.metrics_port)
-            if self._routes or self._debug_env():
+            if self._routes or self._ws_routes or self._static or self._debug_env():
                 http = self._build_http_server()
                 await http.start(port=self.http_port)
                 self._servers.append(http)
                 self.http_port = http.port
                 self.logger.infof("HTTP server on :%d", self.http_port)
+            if self._grpc_services:
+                from gofr_tpu_torch.grpc.server import start_grpc_server
+
+                grpc_server = start_grpc_server(self)
+                self.logger.infof("gRPC server on :%d", self.grpc_port)
+            self._start_subscribers()
+            self.cron.start()
             if ready is not None:
                 ready.set()
             await self._shutdown.wait()
             self.logger.info("shutting down")
         finally:
+            self._stop_entry_points(grpc_server)
             for server in self._servers:
                 await server.close()
             self._servers = []

@@ -3,14 +3,16 @@ container.go`), the port's own copy of gofr_tpu/container/__init__.py
 reduced to what serving needs: config, logger, metrics, the tracer, the
 flight recorder, the SLO engine and its capture watcher, the QoS
 admission controller and the model engines, their health and their
-shutdown.
+shutdown, and since the App's other entry points the pub/sub backbone
+(``PUBSUB_BACKEND``: ``inmemory`` or ``file``; ``publish`` with the
+traceparent header and the four ``app_pubsub_*`` counters).
 
 The engines take ``metrics``, ``logger``, ``tracer``, ``flight`` and
 ``slo`` from here (``GenerateEngine(model, container=...)``). The metric
 families are the JAX package's ``app_tpu_*`` / ``app_qos_*`` /
 ``app_slo_*`` names, registered where the port has their producer; the
 compile counters (``app_tpu_compile_total``, ``app_tpu_compile_cache_hits``)
-have no eager counterpart and are left out. Datasources, pub/sub,
+have no eager counterpart and are left out. Datasources,
 inter-service clients, the controller's gauges and fleet federation (the
 quality counters' included) are not ported yet.
 """
@@ -47,6 +49,7 @@ class Container:
         self.qos = None  # AdmissionController once App.enable_qos runs
         self.slo: SLOEngine | None = None  # once _maybe_slo runs (SLO_ENABLED)
         self.slo_capture: CaptureWatcher | None = None  # once SLO_CAPTURE opts in
+        self.pubsub = None  # a broker once _maybe_pubsub wires PUBSUB_BACKEND
 
     @classmethod
     def create(cls, config) -> "Container":
@@ -56,6 +59,7 @@ class Container:
         c.metrics.add_collect_hook(c._sample_tpu_metrics)
         c.tracer = tracer_from_config(config, c.logger, c.app_name)
         c._maybe_slo()
+        c._maybe_pubsub()
         return c
 
     def _register_framework_metrics(self) -> None:
@@ -64,6 +68,10 @@ class Container:
         g.set(1, app=self.app_name, version=self.app_version,
               framework=f"gofr_tpu_torch-{gofr_tpu_torch.__version__}")
         m.new_histogram("app_http_response", "HTTP handler latency (s)")
+        m.new_counter("app_pubsub_publish_total_count", "pubsub publish attempts")
+        m.new_counter("app_pubsub_publish_success_count", "pubsub publish successes")
+        m.new_counter("app_pubsub_subscribe_total_count", "pubsub messages received")
+        m.new_counter("app_pubsub_subscribe_success_count", "pubsub messages handled ok")
         # serving metrics under the JAX package's names (the card is the
         # "tpu" of app_tpu_*: dashboards written for it read the port)
         m.new_gauge("app_tpu_device_count", "visible CUDA devices")
@@ -212,6 +220,11 @@ class Container:
         m.new_gauge("app_tpu_control_active",
                     "1 when the engine's step controller is constructed and not stood down "
                     "(engine)")
+        # the split-plan autotuner (ops/autotune.py): info-style gauge, 1 on
+        # the plan warmup pinned for an op, 0 on each candidate it beat
+        m.new_gauge("app_tpu_kernel_backend",
+                    "pinned attention-kernel backend per op (1 = op resolves "
+                    "backend='auto' to this backend; labels: op, backend)")
 
     def _sample_tpu_metrics(self, _registry=None) -> None:
         """Collect hook: the card's memory on every /metrics scrape — read
@@ -326,6 +339,25 @@ class Container:
             self.slo_capture = CaptureWatcher.from_config(self.config, self, self.slo)
             self.slo.add_breach_listener(self.slo_capture.on_breach)
 
+    def _maybe_pubsub(self) -> None:
+        backend = (self.config.get("PUBSUB_BACKEND") or "").lower()
+        if not backend:
+            return
+        from gofr_tpu_torch.pubsub import connect_pubsub
+
+        self.pubsub = connect_pubsub(backend, self.config, self.logger, self.metrics)
+
+    # -- pub/sub (container/__init__.py:623-660) --------------------------------
+
+    def publish(self, topic: str, payload: Any, headers: dict[str, str] | None = None) -> None:
+        if self.pubsub is None:
+            raise RuntimeError("no pubsub backend configured (set PUBSUB_BACKEND)")
+        self.metrics.increment_counter("app_pubsub_publish_total_count", 1, topic=topic)
+        # the W3C traceparent rides as a message header (both in-tree
+        # brokers take headers), so the subscriber's span joins the trace
+        self.pubsub.publish(topic, payload, headers=headers)
+        self.metrics.increment_counter("app_pubsub_publish_success_count", 1, topic=topic)
+
     # -- QoS / admission control -----------------------------------------------
 
     def register_qos(self, controller: Any) -> None:
@@ -384,6 +416,7 @@ class Container:
             if h.get("status") != "UP":
                 down += 1
 
+        check("pubsub", self.pubsub)
         check("qos", self.qos)
         check("slo", self.slo)
         for name, engine in self._engines.items():
@@ -407,19 +440,28 @@ class Container:
     # -- shutdown --------------------------------------------------------------
 
     def close(self) -> None:
-        """Stop every engine, then the tracer (its exporter thread flushes
-        and ends)."""
+        """Stop every engine, close the pub/sub broker, then the tracer (its
+        exporter thread flushes and ends)."""
         for engine in self._engines.values():
             if hasattr(engine, "stop"):
                 engine.stop()
+        if self.pubsub is not None and hasattr(self.pubsub, "close"):
+            try:
+                self.pubsub.close()
+            except Exception:  # noqa: BLE001 - shutdown goes on
+                pass
         self.tracer.shutdown()
 
 
 def new_mock_container(config: dict[str, str] | None = None) -> Container:
     """Hermetic container for handler tests (gofr `NewMockContainer`): mock
-    logger, real metrics registry, the SLO engine as ``SLO_ENABLED`` says."""
+    logger, real metrics registry, the SLO engine as ``SLO_ENABLED`` says,
+    in-memory pub/sub."""
+    from gofr_tpu_torch.pubsub.inmemory import InMemoryBroker
+
     c = Container(DictConfig(config or {}), logger=MockLogger(level=Level.DEBUG))
     c._register_framework_metrics()
     c.metrics.add_collect_hook(c._sample_tpu_metrics)
     c._maybe_slo()  # mock containers skip create(); SLO must still wire
+    c.pubsub = InMemoryBroker()
     return c

@@ -5,8 +5,10 @@ transport.
 The server builds a Context from (request, container) and passes it to the
 user handler ``def handler(ctx) -> result``. Handlers reach the request
 (``bind``, ``param``, ``path_param``, ``header``), the container
-(``logger``, ``config``, ``metrics``) and the served models (``infer``,
-``generate``, ``agenerate``) through it. What each engine call takes from
+(``logger``, ``config``, ``metrics``, ``publish``) and the served models
+(``infer``, ``generate``, ``agenerate``) through it. The request is any
+transport's: an HTTP request, a websocket message, a pub/sub message, a gRPC
+call or a cron firing's empty request. What each engine call takes from
 the request (``_request_kw``, context.py:143-200): the request's server
 span (``_parent_span``: the engine hangs its spans under it), the
 propagated deadline, the ``X-Adapter-ID`` header, the QoS class the QoS
@@ -58,6 +60,15 @@ class Context:
         headers = getattr(self.request, "headers", None)
         return headers.get(key) if headers else None
 
+    @property
+    def claims(self) -> dict[str, Any]:
+        """JWT claims the OAuth middleware verified (empty without them)."""
+        return self.request.context().get("jwt_claims", {})
+
+    @property
+    def auth_user(self) -> str | None:
+        return self.request.context().get("auth_user")
+
     # -- container passthrough -------------------------------------------------
 
     @property
@@ -71,6 +82,16 @@ class Context:
     @property
     def metrics(self):
         return self.container.metrics
+
+    # -- pub/sub ---------------------------------------------------------------
+
+    def publish(self, topic: str, payload: Any) -> None:
+        """Publish through the container's broker; a sampled span's trace
+        context rides the message, so the subscriber's span joins it."""
+        headers = None
+        if self.span is not None and self.span.sampled:
+            headers = {"traceparent": self.span.traceparent()}
+        self.container.publish(topic, payload, headers=headers)
 
     # -- model inference -------------------------------------------------------
 

@@ -123,8 +123,17 @@ decode worker at ``handoff_target`` and completes the request with its
 first token (``finish_reason="handoff"``), streaming a chunked prompt's
 pages while its later chunks still prefill; a ``decode`` worker listens on
 ``handoff_listen`` and parks the pages in its prefix cache's host tier,
-where the prompt's next admission finds them and swaps them in. Lockstep,
-checkpoint adoption and autotune are not ported yet.
+where the prompt's next admission finds them and swaps them in.
+
+``warmup()`` first runs the split-plan autotuner (``ops/autotune.py``,
+engine.py:1717-1869) on the card: kernel A, D, E or F, whichever serves
+the engine's cache, is timed at ``split_plan``'s plan and the other
+candidates on the engine's own shapes; the rule's plan stays unless a plan
+agreeing with it is faster by more than the timer's spread, and the pin
+holds for every launch the loop drives
+(``_decision_scope``); ``GOFR_AUTOTUNE=0`` turns it off, and without
+warmup every launch keeps the rule's plan. Lockstep and checkpoint
+adoption are not ported yet.
 """
 
 from __future__ import annotations
@@ -162,7 +171,21 @@ from gofr_tpu_torch.models.llama import (
     jax_state,
     params_from_jax,
 )
-from gofr_tpu_torch.ops.paged import gather_page, page_planes
+from gofr_tpu_torch.ops import autotune
+from gofr_tpu_torch.ops.attention import DECODE_ATTENTION
+from gofr_tpu_torch.ops.cuda import decode_attention as slot_decode_mod
+from gofr_tpu_torch.ops.cuda import paged_decode as paged_decode_mod
+from gofr_tpu_torch.ops.cuda import paged_decode_q as paged_decode_q_mod
+from gofr_tpu_torch.ops.cuda import paged_decode_q4 as paged_decode_q4_mod
+from gofr_tpu_torch.ops.cuda.decode_attention import split_candidates
+from gofr_tpu_torch.ops.kvcache import SlotKVCache
+from gofr_tpu_torch.ops.paged import (
+    PagedKVCache,
+    Q4PagedKVCache,
+    QPagedKVCache,
+    gather_page,
+    page_planes,
+)
 from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree, quantized_bytes
 from gofr_tpu_torch.qos.scheduler import QoSQueue
 from gofr_tpu_torch.tracing import RequestTrace, current_span
@@ -630,6 +653,16 @@ class GenerateEngine:
         self._restart_hook = None
         # a warmup waiting for the loop's next turn boundary
         self._pending_warmup: dict | None = None
+        # the split plans warmup's autotuner pinned ({op: plan}, each at its
+        # shape key), its report (None until it ran), and an injectable
+        # timer and candidate launcher (the tests' fake timings and split
+        # plain versions; None is the events timer and the kernel); a
+        # restart keeps the pins
+        self._autotune_pins: dict[str, str] = {}
+        self._autotune_shapes: dict[str, str] = {}
+        self._autotune: dict | None = None
+        self._autotune_timer = None
+        self._autotune_launch = None
         self.perf: PerfPlane | None = self._perf_plane() if container is not None else None
         self._quality = self._quality_plane(
             quality_shadow_rate, quality_seed, max_pending=quality_max_pending,
@@ -1074,24 +1107,143 @@ class GenerateEngine:
         try:
             while self._dq:
                 decode.process_decode(self)
+            # the plans are measured before the warmup body, which then
+            # runs under them (engine.py:1704-1706)
+            self._autotune_kernels()
             t = time.perf_counter()
-            job["count"] = executor.warmup(self, job["lbs"], job["bbs"])
+            with self._decision_scope():
+                job["count"] = executor.warmup(self, job["lbs"], job["bbs"])
             log.info("warmup ran %d calls in %.3f s", job["count"], time.perf_counter() - t)
         except Exception as e:  # noqa: BLE001 - the caller raises it
             job["error"] = e
         finally:
             job["done"].set()
 
+    # -- the split-plan autotuner (engine.py:1717-1869) ----------------------------
+
+    _AUTOTUNE_OPS = {PagedKVCache: ("paged_decode", paged_decode_mod),
+                     QPagedKVCache: ("paged_decode_q", paged_decode_q_mod),
+                     Q4PagedKVCache: ("paged_decode_q4", paged_decode_q4_mod),
+                     SlotKVCache: ("decode", slot_decode_mod)}
+
+    def _decision_scope(self):
+        """The scope every launch of the loop runs under: the pinned plans,
+        each at the shape it was measured at (JAX's ``_trace_scope``)."""
+        return autotune.decision_scope(self._autotune_pins, self._autotune_shapes)
+
+    def _autotune_kernels(self) -> None:
+        """Measure the split plans of this engine's decode attention kernel
+        on its shapes and pin one (``ops/autotune.py``: the rule's plan
+        unless another beats it by more than the timer's spread). The
+        candidates run on the engine's own layer-0 planes with a full
+        block table and full lengths, q from a seeded generator
+        (engine.py:1758-1779): JAX's worst case at these shapes, not the
+        ragged lengths served. Each candidate's output is held against the
+        rule's plan's within the launcher's ``MAX_ABS`` / ``RMS_REL``, and
+        one outside them is disqualified, its error recorded. Stands down
+        off the card, under ``GOFR_AUTOTUNE=0``, once pins exist (a
+        restart's re-warm) and on a cache with no split kernel (the int8
+        slot cache); a prefill worker records why it skipped. Any other
+        failure of a candidate, and any failure of the rule's plan,
+        raises, and so does ``warmup``."""
+        if self._autotune_pins or not autotune.enabled(self.device):
+            return
+        if self.role == "prefill":
+            self._autotune = {"skipped": "prefill role: no decode ops to tune"}
+            return
+        entry = self._AUTOTUNE_OPS.get(type(self.cache))
+        if entry is None:
+            return
+        op, mod = entry
+        cfg, n = self.cfg, self.num_slots
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+        gen = torch.Generator().manual_seed(0)
+        q = torch.randn(n, hq, d, generator=gen).to(self.device, cfg.dtype)
+        if self._table is not None:
+            maxp, page, pool = self.pages_per_slot, self.page_size, self.total_pages
+            span = maxp * page
+            table = (torch.randperm(n * maxp, generator=gen) % pool).to(torch.int32)
+            planes = self.cache.planes(0, table.reshape(n, maxp).to(self.device))
+            skey = autotune.shape_key(n, hq, hkv, d, page, maxp, pool)
+        else:
+            span = self.cache_len
+            planes = self.cache.planes(0)
+            skey = autotune.shape_key(n, hq, hkv, d, span)
+        lengths = torch.full((n,), span, dtype=torch.int32, device=self.device)
+        kind = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                else self.device.type)
+        tuner = autotune.Autotuner(device_kind=kind, cache_file=autotune.cache_path(),
+                                   timer=self._autotune_timer, logger=self.logger,
+                                   role=self.role)
+        plans = split_candidates(n, hkv, span)
+        ref: list[torch.Tensor] = []
+        cands = {autotune.plan_name(r): self._at_fn(op, mod, r, skey, q, planes, lengths, ref)
+                 for r in plans}
+        t0 = time.monotonic()
+        kv_dtype = self.kv_quantize or str(planes[0].dtype).removeprefix("torch.")
+        winner = tuner.measure(op, skey, kv_dtype, cands)
+        self._autotune_pins, self._autotune_shapes = tuner.pins(), tuner.shapes()
+        self._autotune = {"elapsed_s": round(time.monotonic() - t0, 3),
+                          "rule": autotune.plan_name(plans[0]), **tuner.report()}
+        autotune.set_last_report(self._autotune)
+        for name in cands:
+            # info-style gauge: 1 on the pinned plan, 0 on every loser
+            self.metrics.set_gauge("app_tpu_kernel_backend", 1.0 if name == winner else 0.0,
+                                   op=op, backend=name, kv_dtype=kv_dtype)
+        rec = tuner.decisions[op]
+        (self.logger.infof if self.logger is not None else log.info)(
+            "autotune: %s -> %s (%s, shapes %s, %s)", op, winner, rec["source"], skey,
+            rec.get("timings_ms") or "untimed")
+
+    def _at_fn(self, op: str, mod, rows: int, skey: str, q: torch.Tensor, planes: tuple,
+               lengths: torch.Tensor, ref: list):
+        """A candidate: the engine's decode attention at plan ``rows``
+        (``_autotune_launch``, the kernel under a scope pinning ``rows`` at
+        ``skey``; the tests put the split plain version there). Its first
+        call holds the output against the first candidate's (the rule's
+        plan) and raises ``Disqualified`` outside the launcher's limits."""
+        launch = self._autotune_launch or self._launch_plan
+        checked = []
+
+        def run():
+            out = launch(op, rows, skey, q, planes, lengths)
+            if not checked:
+                if not ref:
+                    ref.append(out)
+                err = (out.float() - ref[0].float())
+                max_abs = err.abs().max().item()
+                rms = (err.square().mean().sqrt() / ref[0].float().square().mean().sqrt()
+                       .clamp_min(1e-30)).item()
+                if not (max_abs <= mod.MAX_ABS and rms <= mod.RMS_REL):
+                    raise autotune.Disqualified(
+                        f"plan rows{rows} disagrees with the rule's plan: max abs {max_abs:.3g} "
+                        f"(limit {mod.MAX_ABS}), RMS ratio {rms:.3g} (limit {mod.RMS_REL})")
+                checked.append(True)
+            return out
+
+        return run
+
+    def _launch_plan(self, op: str, rows: int, skey: str, q: torch.Tensor, planes: tuple,
+                     lengths: torch.Tensor) -> torch.Tensor:
+        """The cache's decode attention kernel with plan ``rows`` pinned."""
+        with autotune.decision_scope({op: autotune.plan_name(rows)}, {op: skey}):
+            return DECODE_ATTENTION[type(self.cache)][0](q, *planes, lengths)
+
+    def autotune_report(self) -> dict | None:
+        """The warmup autotuner's decision table (None until warmup ran it,
+        or when it stood down): surfaced at ``/debug/engine`` and
+        ``/debug/perf``."""
+        return self._autotune
+
     def quality_snapshot(self) -> dict | None:
         """``/debug/quality`` and the capture bundles (engine.py:1884): the
         quality plane's totals and recent reports with the state that
-        served them (weights epoch, backend, kv dtype) and the engine's
-        configuration; None without the plane. The port has no autotune,
-        so ``autotune_pins`` is empty."""
+        served them (autotune pins, weights epoch, backend, kv dtype) and
+        the engine's configuration; None without the plane."""
         if self._quality is None:
             return None
         snap = self._quality.snapshot()
-        snap["autotune_pins"] = {}
+        snap["autotune_pins"] = dict(self._autotune_pins)
         snap["weights_epoch"] = self.weights_epoch
         snap["backend"] = self._quality_backend()
         snap["replay"] = self.replay_config()
@@ -1415,7 +1567,8 @@ class GenerateEngine:
                     self._apply_pending_weights()
                 if self._pending_warmup is not None:
                     self._apply_pending_warmup()
-                self._turn()
+                with self._decision_scope():
+                    self._turn()
             return False
         except Exception as e:  # noqa: BLE001 - the loop's boundary
             return self._restart_after(e)

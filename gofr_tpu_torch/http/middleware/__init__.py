@@ -7,8 +7,8 @@ tracer → logging → CORS → metrics → QoS (when enabled) → handler. The
 tracer middleware opens the request's server span (inbound
 ``traceparent`` honoured, ``X-Trace-Id`` on the response) and hands it on
 in ``request.state``, where logging fills its ``trace_id`` / ``span_id``
-and the route handler passes it to the engine. The auth middlewares are
-not ported yet.
+and the route handler passes it to the engine. The auth middlewares
+(``auth.py``) go after QoS, so shed load never pays the auth path.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def logging_middleware(logger):
                 "trace_id": trace_id,
                 "uri": request.path_qs,
             })
-            if request.stream is not None:
+            if request.stream is not None or request.websocket is not None:
                 raise  # the status line is on the wire already
             response = ServerResponse(
                 500, to_json({"error": {"message": "some unexpected error has occurred"}}))

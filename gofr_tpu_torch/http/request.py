@@ -19,6 +19,29 @@ from gofr_tpu_torch.http.errors import InvalidParam
 from gofr_tpu_torch.utils import bind as binder
 
 
+class Request:
+    """The transport-neutral request interface with nothing in it: the
+    request of a cron firing's context (gofr `pkg/gofr/gofr.go` Request)."""
+
+    def param(self, key: str) -> str:
+        return ""
+
+    def params(self, key: str) -> list[str]:
+        return []
+
+    def path_param(self, key: str) -> str:
+        return ""
+
+    def bind(self, target: Any) -> Any:
+        raise NotImplementedError
+
+    def host_name(self) -> str:
+        return ""
+
+    def context(self) -> dict[str, Any]:
+        return {}
+
+
 class HTTPRequest:
     """The HTTP request a handler's context reads (the transport-neutral
     interface of gofr `pkg/gofr/gofr.go` Request)."""

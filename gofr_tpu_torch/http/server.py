@@ -13,7 +13,10 @@ HTTP/1.1 for a JSON API and server-sent events:
   transfer (``ServerRequest.prepare_stream``), each chunk flushed as it is
   written and no ``Content-Length`` sent;
 - every response says ``Connection: close`` and the connection closes after
-  it (no keep-alive);
+  it (no keep-alive), with one exception: a handler may upgrade a ``GET``
+  to a websocket (``ServerRequest.upgrade_websocket``, RFC 6455 with
+  ``hashlib``, ``base64`` and ``struct``), and then owns the connection
+  until the session ends (``WebSocket``);
 - ``Router`` matches a method and a path template whose segments may be
   ``{name}`` parameters (``ServerRequest.path_params``); an unmatched
   request goes to the router's fallback.
@@ -29,9 +32,12 @@ the work behind it.
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
+import hashlib
 import json
 import re
+import struct
 import time
 from http import HTTPStatus
 from typing import Any, Awaitable, Callable
@@ -42,6 +48,15 @@ Middleware = Callable[["ServerRequest", Handler], Awaitable["ServerResponse"]]
 
 MAX_LINE = 16 * 1024
 MAX_HEADERS = 128
+# RFC 6455: the GUID the accept key hashes in, and the largest message a
+# session takes (aiohttp's default, which the JAX App serves with)
+WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+WS_MAX_MESSAGE = 4 * 1024 * 1024
+WS_TEXT, WS_BINARY, WS_CONTINUATION = 0x1, 0x2, 0x0
+WS_CLOSE, WS_PING, WS_PONG = 0x8, 0x9, 0xA
+# close codes: normal, going away, protocol error, bad UTF-8, too big
+WS_NORMAL, WS_GOING_AWAY, WS_PROTOCOL_ERROR, WS_INVALID_DATA, WS_TOO_BIG = (
+    1000, 1001, 1002, 1007, 1009)
 
 
 class BadRequest(Exception):
@@ -86,6 +101,178 @@ class ChunkedStream:
         await self._writer.drain()
 
 
+def ws_accept_key(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client's ``Sec-WebSocket-Key``."""
+    return base64.b64encode(hashlib.sha1((key + WS_GUID).encode("latin-1")).digest()).decode()
+
+
+def ws_frame(opcode: int, payload: bytes, *, fin: bool = True, mask: bytes | None = None) -> bytes:
+    """One frame: FIN, the opcode, the 7-, 16- or 64-bit length, and the
+    payload, masked with ``mask`` when one is given (a client's frames)."""
+    n = len(payload)
+    head = bytes([(0x80 if fin else 0) | opcode])
+    bit = 0x80 if mask is not None else 0
+    if n < 126:
+        head += bytes([bit | n])
+    elif n < 1 << 16:
+        head += bytes([bit | 126]) + struct.pack("!H", n)
+    else:
+        head += bytes([bit | 127]) + struct.pack("!Q", n)
+    if mask is not None:
+        head += mask
+        payload = ws_unmask(payload, mask)
+    return head + payload
+
+
+def ws_unmask(payload: bytes, mask: bytes) -> bytes:
+    """XOR ``payload`` with the 4-byte ``mask`` (its own inverse)."""
+    n = len(payload)
+    if not n:
+        return payload
+    key = (mask * (n // 4 + 1))[:n]
+    return (int.from_bytes(payload, "big") ^ int.from_bytes(key, "big")).to_bytes(n, "big")
+
+
+@dataclasses.dataclass
+class WSMessage:
+    """A whole received message: ``text`` (str data) or ``binary``."""
+
+    type: str
+    data: str | bytes
+
+
+class WebSocket:
+    """The server side of one RFC 6455 session over the connection's
+    streams. ``receive`` (or ``async for``) yields whole messages: fragments
+    are reassembled, pings answered with pongs, and the close handshake
+    echoes the peer's code; it yields None once the session is over. A
+    protocol fault closes the session with its code: an unmasked client
+    frame, a reserved bit, an unknown opcode or a stray continuation 1002,
+    text that is not UTF-8 1007, a message over ``max_message`` 1009.
+    ``send_str`` / ``send_bytes`` write one unmasked frame each and raise
+    ``ConnectionResetError`` once the client has gone."""
+
+    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
+                 max_message: int = WS_MAX_MESSAGE):
+        self._reader, self._writer = reader, writer
+        self.max_message = max_message
+        self.close_code: int | None = None
+        self._close_sent = False
+
+    @property
+    def closed(self) -> bool:
+        return self.close_code is not None or self._close_sent
+
+    def _check(self) -> None:
+        if self._close_sent or self._writer.is_closing() or self._reader.at_eof():
+            raise ConnectionResetError("websocket closed")
+
+    async def _write(self, opcode: int, payload: bytes) -> None:
+        self._writer.write(ws_frame(opcode, payload))
+        await self._writer.drain()
+
+    async def send_str(self, data: str) -> None:
+        self._check()
+        await self._write(WS_TEXT, data.encode())
+
+    async def send_bytes(self, data: bytes) -> None:
+        self._check()
+        await self._write(WS_BINARY, bytes(data))
+
+    async def close(self, code: int = WS_NORMAL, reason: str = "") -> None:
+        """Send a close frame (once); the peer's answer ends ``receive``."""
+        if self._close_sent:
+            return
+        self._close_sent = True
+        try:
+            await self._write(WS_CLOSE, struct.pack("!H", code) + reason.encode()[:120])
+        except (ConnectionError, RuntimeError):
+            pass
+
+    async def _fail(self, code: int, reason: str) -> None:
+        self.close_code = code
+        await self.close(code, reason)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg is None:
+            raise StopAsyncIteration
+        return msg
+
+    async def receive(self) -> WSMessage | None:
+        parts: list[bytes] = []
+        kind = None
+        size = 0
+        while self.close_code is None:
+            try:
+                head = await self._reader.readexactly(2)
+                fin, opcode = head[0] & 0x80, head[0] & 0x0F
+                masked, n = head[1] & 0x80, head[1] & 0x7F
+                if head[0] & 0x70:
+                    await self._fail(WS_PROTOCOL_ERROR, "reserved bits set")
+                    break
+                if not masked:
+                    await self._fail(WS_PROTOCOL_ERROR, "client frames must be masked")
+                    break
+                if n == 126:
+                    n = struct.unpack("!H", await self._reader.readexactly(2))[0]
+                elif n == 127:
+                    n = struct.unpack("!Q", await self._reader.readexactly(8))[0]
+                if opcode >= WS_CLOSE and (not fin or n > 125):
+                    await self._fail(WS_PROTOCOL_ERROR, "bad control frame")
+                    break
+                if opcode < WS_CLOSE and size + n > self.max_message:
+                    await self._fail(WS_TOO_BIG, "message too big")
+                    break
+                mask = await self._reader.readexactly(4)
+                payload = ws_unmask(await self._reader.readexactly(n), mask)
+            except (asyncio.IncompleteReadError, ConnectionError):
+                self.close_code = 1006  # gone without a close frame
+                break
+            if opcode == WS_PING:
+                try:
+                    await self._write(WS_PONG, payload)
+                except ConnectionError:
+                    self.close_code = 1006
+                    break
+                continue
+            if opcode == WS_PONG:
+                continue
+            if opcode == WS_CLOSE:
+                code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else WS_NORMAL
+                self.close_code = code
+                await self.close(code)  # the echo, unless this side began the close
+                break
+            if opcode == WS_CONTINUATION:
+                if kind is None:
+                    await self._fail(WS_PROTOCOL_ERROR, "continuation without a message")
+                    break
+            elif opcode in (WS_TEXT, WS_BINARY):
+                if kind is not None:
+                    await self._fail(WS_PROTOCOL_ERROR, "new message inside a fragmented one")
+                    break
+                kind = opcode
+            else:
+                await self._fail(WS_PROTOCOL_ERROR, f"unknown opcode {opcode}")
+                break
+            parts.append(payload)
+            size += n
+            if not fin:
+                continue
+            data = b"".join(parts)
+            if kind == WS_BINARY:
+                return WSMessage("binary", data)
+            try:
+                return WSMessage("text", data.decode("utf-8"))
+            except UnicodeDecodeError:
+                await self._fail(WS_INVALID_DATA, "text is not UTF-8")
+                break
+        return None
+
+
 class ServerRequest:
     """One parsed request. ``path`` is percent-decoded; ``headers`` maps
     lower-cased names to values (``raw_headers`` keeps the wire's names);
@@ -109,6 +296,9 @@ class ServerRequest:
         self.path_params: dict[str, str] = {}
         self._reader, self._writer = reader, writer
         self.stream: ChunkedStream | None = None
+        self.websocket: WebSocket | None = None
+        # the server's live sessions, so closing it can close them
+        self.websockets: set[WebSocket] | None = None
         self.accepted_at, self.read_at = accepted_at, time.monotonic()
         self.state: dict[str, Any] = {}
 
@@ -124,6 +314,28 @@ class ServerRequest:
         await self._writer.drain()
         self.stream = ChunkedStream(self._reader, self._writer)
         return self.stream
+
+    def is_websocket_upgrade(self) -> bool:
+        h = self.headers
+        return (self.method == "GET" and h.get("upgrade", "").lower() == "websocket"
+                and "upgrade" in h.get("connection", "").lower()
+                and h.get("sec-websocket-version") == "13" and bool(h.get("sec-websocket-key")))
+
+    async def upgrade_websocket(self) -> WebSocket | None:
+        """Answer an RFC 6455 upgrade with ``101 Switching Protocols`` and
+        return the session, which then owns the connection; None (nothing
+        written) when the request is not a version-13 upgrade."""
+        if not self.is_websocket_upgrade():
+            return None
+        accept = ws_accept_key(self.headers["sec-websocket-key"])
+        self._writer.write(("HTTP/1.1 101 Switching Protocols\r\nUpgrade: websocket\r\n"
+                            f"Connection: Upgrade\r\nSec-WebSocket-Accept: {accept}\r\n\r\n")
+                           .encode("latin-1"))
+        await self._writer.drain()
+        self.websocket = WebSocket(self._reader, self._writer)
+        if self.websockets is not None:
+            self.websockets.add(self.websocket)
+        return self.websocket
 
 
 def _head(status: int, headers: dict[str, str]) -> bytes:
@@ -150,11 +362,12 @@ def _wire(resp: ServerResponse, method: str) -> bytes:
 
 class Router:
     """Routes by method and path template. A template segment ``{name}``
-    matches one path segment. The first route registered for a (method,
-    path) wins; a request no route matches goes to ``fallback`` with
-    ``fallback_template``."""
+    matches one path segment, ``{name:regex}`` what the regex matches (as
+    in aiohttp: ``{tail:.*}`` takes the rest of the path). The first route
+    registered for a (method, path) wins; a request no route matches goes
+    to ``fallback`` with ``fallback_template``."""
 
-    _PARAM = re.compile(r"\{(\w+)\}")
+    _PARAM = re.compile(r"\{(\w+)(?::([^{}]+))?\}")
 
     def __init__(self, fallback: Handler, fallback_template: str = "/{tail}"):
         self._routes: list[tuple[str, re.Pattern, str, Handler]] = []
@@ -164,7 +377,7 @@ class Router:
         pattern, pos = "", 0
         for m in self._PARAM.finditer(template):
             pattern += re.escape(template[pos:m.start()])
-            pattern += f"(?P<{m.group(1)}>[^/]+)"
+            pattern += f"(?P<{m.group(1)}>{m.group(2) or '[^/]+'})"
             pos = m.end()
         pattern += re.escape(template[pos:])
         self._routes.append((method.upper(), re.compile(f"^{pattern}$"), template, handler))
@@ -203,6 +416,7 @@ class HTTPServer:
         self.port: int | None = None
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
+        self._websockets: set[WebSocket] = set()
 
     async def start(self, host: str = "0.0.0.0", port: int = 0) -> None:
         self._server = await asyncio.start_server(self._client, host, port, limit=MAX_LINE * 4)
@@ -212,6 +426,8 @@ class HTTPServer:
         if self._server is None:
             return
         self._server.close()
+        for ws in list(self._websockets):
+            await ws.close(WS_GOING_AWAY)
         conns = [t for t in self._conns if not t.done()]
         if conns:
             _, pending = await asyncio.wait(conns, timeout=grace)
@@ -250,6 +466,7 @@ class HTTPServer:
             return
         if request is None:
             return
+        request.websockets = self._websockets
         handler = chain(self.middlewares, self.router.resolve(request))
         try:
             resp = await handler(request)
@@ -258,9 +475,12 @@ class HTTPServer:
         except Exception as e:  # noqa: BLE001 - a handler's fault is the client's 500
             if self.on_error is not None:
                 self.on_error(e)
-            if request.stream is not None:
+            if request.stream is not None or request.websocket is not None:
                 return  # the status line is on the wire already
             resp = ServerResponse(500, _error_body("some unexpected error has occurred"))
+        finally:
+            if request.websocket is not None:
+                self._websockets.discard(request.websocket)
         if not resp.streamed:
             writer.write(_wire(resp, request.method))
             await writer.drain()

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from gofr_tpu_torch.ops import cuda
+from gofr_tpu_torch.ops import autotune, cuda
 
 HEAD_DIM = 128
 MAX_GROUP = 8
@@ -61,14 +61,37 @@ def split_plan(n: int, hkv: int, smax: int) -> tuple[int, int]:
     return split_rows, max(1, math.ceil(smax / split_rows))
 
 
-def split_scratch(q: torch.Tensor, hkv: int, smax: int) -> tuple[int, int, torch.Tensor]:
-    """``split_plan``'s (split_rows, splits) for ``q``'s N lanes of ``hkv``
-    KV heads over ``smax`` positions, and the f32 scratch of each split's
-    (acc[D], m, l) per query row, [N, Hq, splits, D + 2], that only the
-    merge reads (empty with one split). Shared by the split decode
+def split_candidates(n: int, hkv: int, smax: int) -> list[int]:
+    """The ``split_rows`` the warmup autotuner races (``ops/autotune.py``):
+    ``split_plan``'s first, so that it wins a tie, then a half, twice and
+    four times it and one split over the whole slot, each a whole number of
+    64-row tiles, at least one tile and at most the whole slot, without
+    repeats."""
+    rows = split_plan(n, hkv, smax)[0]
+    whole = TILE * max(1, math.ceil(smax / TILE))
+    out: list[int] = []
+    for r in (rows, rows // 2, rows * 2, rows * 4, whole):
+        r = min(whole, max(TILE, r // TILE * TILE))
+        if r not in out:
+            out.append(r)
+    return out
+
+
+def split_scratch(q: torch.Tensor, hkv: int, smax: int, op: str | None = None,
+                  dims: tuple = ()) -> tuple[int, int, torch.Tensor]:
+    """(split_rows, splits) for ``q``'s N lanes of ``hkv`` KV heads over
+    ``smax`` positions, and the f32 scratch of each split's (acc[D], m, l)
+    per query row, [N, Hq, splits, D + 2], that only the merge reads (empty
+    with one split). The rows are the plan the autotuner pinned for ``op``
+    when the launch's shape (``dims``, the tuner's shape key) is the one it
+    was measured at, else ``split_plan``'s. Shared by the split decode
     launchers (kernels A, D, E and F)."""
     n, hq, d = q.shape
-    split_rows, splits = split_plan(n, hkv, smax)
+    split_rows = autotune.pinned_plan(op, dims) if op else None
+    if split_rows is None:
+        split_rows, splits = split_plan(n, hkv, smax)
+    else:
+        splits = max(1, math.ceil(smax / split_rows))
     scratch = torch.empty(n * hq * splits * (d + 2) if splits > 1 else 0, dtype=torch.float32,
                           device=q.device)
     return split_rows, splits, scratch
@@ -103,7 +126,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     out = torch.empty_like(q)
     if b == 0:
         return out
-    split_rows, splits, scratch = split_scratch(q, hkv, smax)
+    split_rows, splits, scratch = split_scratch(q, hkv, smax, "decode", (b, hq, hkv, d, smax))
     fn = cuda.bind("gofr_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), b, hkv, hq // hkv, smax, split_rows, splits, scale,

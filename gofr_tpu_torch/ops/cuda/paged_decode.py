@@ -73,7 +73,8 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if n == 0:
         return out
     maxp = table.shape[1]
-    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page)
+    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page, "paged_decode",
+                                               (n, hq, hkv, d, page, maxp, pool))
     fn = cuda.bind("gofr_paged_decode", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, hkv, hq // hkv, pool, page,

@@ -81,7 +81,8 @@ def launch_quantized(wrapper, entry: str, values_dtype: torch.dtype, row_width: 
     if n == 0:
         return out
     maxp = table.shape[1]
-    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page)
+    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page, name,
+                                               (n, hq, hkv, d, page, maxp, pool))
     fn = cuda.bind(entry, _ARGTYPES)
     rc = fn(q.data_ptr(), kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
             vs_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -29,6 +29,11 @@ of the int8 model takes; ``linear_bf16`` and ``linear_bf16_head`` are
 ``F.linear`` on the bf16 weights of the same shapes (cuBLAS), the path of
 the bf16 model.
 
+``paged_decode_pinned`` and ``decode_attention_pinned`` repeat A and F
+inside a decision scope that pins ``split_plan``'s own plan at their shape
+(``ops/autotune.py``, where the checkout has it): the same kernel work, and
+the pin lookup a warmed engine's launch makes.
+
 ``int64`` rows repeat B, G, A and F with int64 positions, lengths and
 table, as the engine hands them to ``Llama.decode_step``: a launcher that
 casts them per call shows the cast's cost, one that refuses them shows
@@ -150,6 +155,21 @@ def child(tree: str, iters: int) -> dict:
             out[name + "_int64"] = _timed(torch, fn, iters)
         except ValueError:
             out[name + "_int64"] = "refused"
+    try:
+        from gofr_tpu_torch.ops import autotune
+    except ImportError:  # a checkout from before the autotuner
+        autotune = None
+    if autotune is not None:
+        # A and F under a scope pinning split_plan's own plan at their
+        # shape: the same kernel work, plus the lookup a warmed engine's
+        # launch makes (a shape key and a compare)
+        pins = {"paged_decode": autotune.plan_name(decode_attention.split_plan(N, HKV, MAXP * PAGE)[0]),
+                "decode": autotune.plan_name(decode_attention.split_plan(N, HKV, SMAX)[0])}
+        shapes = {"paged_decode": autotune.shape_key(N, HQ, HKV, D, PAGE, MAXP, POOL),
+                  "decode": autotune.shape_key(N, HQ, HKV, D, SMAX)}
+        with autotune.decision_scope(pins, shapes):
+            for name in ("paged_decode", "decode_attention"):
+                out[name + "_pinned"] = _timed(torch, calls[name], iters)
     t0 = time.perf_counter()
     for _ in range(iters):
         cuda.stream_of(q)

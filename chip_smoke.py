@@ -25,7 +25,12 @@ result line:
    edge lanes: a position of -1, past the table, through an OOB or
    negative entry, at and past Smax, an all-zero row and a row whose max
    is one element; the W8A16 linear at Llama-3-8B's five (N, K) for M =
-   8, 40 and 2048 rows, ``W8_SHAPES`` x ``W8_ROWS``): each held against its
+   8, 40 and 2048 rows, ``W8_SHAPES`` x ``W8_ROWS``; and C's head-dim-64
+   build, ``flash_attention_d64``, at ``D64_SHAPES``: a full BERT-base
+   step of the batch engine, 256 rows of 64 keys masked by lengths 8..64
+   with 16 padded rows of length 1, a batch of 32 ViT-L/16 images of 197
+   positions, and GPT-2's causal 4 x 512, full and ragged with offsets and
+   a fully masked row): each held against its
    plain PyTorch version on the same inputs (the appends bit for bit,
    values and scales), timed with
    CUDA events and by device time beside the plain version, a library
@@ -175,7 +180,21 @@ result line:
    audits clean, A, B and C launch and A only on the pinned plan, and after
    ``stop`` no thread the App started is left; it prints the websocket
    first frame against the engine's TTFT, the frame gap against its TPOT,
-   the gRPC overhead and pub/sub publish to completion;
+   the gRPC overhead and pub/sub publish to completion. Then the encoders
+   on the batch engine, built by the App from a ``ModelSpec`` with random
+   bf16 weights from the seed: ``bert_embed`` (BASELINE.md configuration
+   #1: BERT-base, 12 layers of 768, ``ENGINE_MAX_BATCH=256``,
+   ``ENGINE_MAX_WAIT_MS=2``, warmed on the 64 bucket) takes 512 unary
+   JSON-over-gRPC calls of 64 token ids from 64 client threads, and
+   ``vit_classify`` (configuration #3: ViT-L/16 at 224, 24 layers of 1024,
+   ``ENGINE_MAX_BATCH=32``) 64 uint8 images through the in-memory broker
+   to 32 consumer threads: every call answers (embeddings of norm 1 within
+   1e-3), every message is handled and committed, a BERT step holds 8
+   requests or more, C's 64 build launches once a layer a step and no
+   other kernel launches (every Llama run holds it at 0), and the outputs
+   agree with the plain path on the same inputs, and a request alone with
+   one inside a batch, within 5% of the plain outputs' range; each prints
+   its rate, latency and step occupancy;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -671,6 +690,78 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             "shape": {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True},
         }
 
+    def check_flash_d64() -> dict:  # C's head-dim-64 build: BERT-base's, ViT-L/16's, GPT-2's calls
+        d64 = D64_SHAPES
+        cpu_rng = torch.Generator().manual_seed(SEED + 5)
+
+        def qkv(b: int, s: int, h: int) -> tuple:
+            return tuple(torch.randn(b, s, h, 64, device=dev, generator=gen).to(bf) for _ in range(3))
+
+        def agree64(label: str, qx, kx, vx, **kw) -> dict:
+            got = flash_attention(qx, kx, vx, **kw)
+            return agreement(f"flash_attention_d64 ({label})", got,
+                             mha_attention_plain(qx, kx, vx, **kw), flash_mod), got
+
+        checks = {}
+        # configuration #1: a full BatchEngine step of BERT-base (batch bucket
+        # 256, length bucket 64, 12 heads, keys masked by each request's
+        # length), ragged lengths 8..64 and the padded rows the engine gives
+        # length 1
+        b, s, h = d64["bert"]["batch"], d64["bert"]["seq"], d64["bert"]["heads"]
+        lens_cpu = torch.randint(8, s + 1, (b,), generator=cpu_rng, dtype=torch.int32)
+        lens_cpu[-d64["bert"]["padded_rows"]:] = 1
+        lens_b = lens_cpu.to(dev)
+        qb, kb, vb = qkv(b, s, h)
+        checks["bert"], _ = agree64("BERT", qb, kb, vb, causal=False, kv_lengths=lens_b)
+        live = int(lens_cpu.sum())
+        # q and out whole, K and V up to each row's length, the lengths; every
+        # query attends its row's keys
+        b_ms, b_by = bound_ms(2 * 2 * qb.numel() + 2 * live * h * 64 * 2 + b * 4,
+                              4 * h * 64 * s * live)
+        # yardstick only (never called by the port): SDPA with the length
+        # mask as a bool mask, on head-major views made outside the timed call
+        bert_mask = (torch.arange(s, device=dev)[None, :] < lens_b[:, None])[:, None, None, :]
+        qbh, kbh, vbh = (t.transpose(1, 2) for t in (qb, kb, vb))
+        # configuration #3: a batch of 32 ViT-L/16 images, 197 positions (the
+        # last query and key tiles partial), 16 heads, no mask
+        b, s, h = d64["vit"]["batch"], d64["vit"]["seq"], d64["vit"]["heads"]
+        qv, kv, vv = qkv(b, s, h)
+        checks["vit"], _ = agree64("ViT", qv, kv, vv, causal=False)
+        v_ms, v_by = bound_ms(4 * 2 * qv.numel(), 4 * h * 64 * s * s * b)
+        qvh, kvh, vvh = (t.transpose(1, 2) for t in (qv, kv, vv))
+        vit = {"shape": d64["vit"], "bound_ms": v_ms, "bound_by": v_by,
+               **timing(lambda i: flash_attention(qv, kv, vv, causal=False),
+                        lambda i: mha_attention_plain(qv, kv, vv, causal=False),
+                        lambda i: F.scaled_dot_product_attention(qvh, kvh, vvh),
+                        iters=50, plain_iters=5)}
+        # GPT-2's causal prefill (the next family), 4 x 512 at 12 heads: full,
+        # and ragged with offsets and a fully masked row
+        b, s, h = d64["gpt2"]["batch"], d64["gpt2"]["seq"], d64["gpt2"]["heads"]
+        qg, kg, vg = qkv(b, s, h)
+        checks["gpt2_causal"], _ = agree64("GPT-2 causal", qg, kg, vg, causal=True)
+        lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
+        offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+        checks["gpt2_ragged"], got_r = agree64("GPT-2 ragged", qg, kg, vg, causal=True,
+                                               q_offset=offs, kv_lengths=lens)
+        require(torch.all(got_r[3] == 0).item(), "flash_attention_d64: fully masked rows are not zero")
+        return {
+            "name": "flash_attention_d64", "route": "cuda",
+            "source": "gofr_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "rms_rel_err": max(c["rms_rel_err"] for c in checks.values()),
+            "checks": checks,
+            "tolerance": {"max_abs": flash_mod.MAX_ABS, "rms_rel": flash_mod.RMS_REL},
+            **timing(lambda i: flash_attention(qb, kb, vb, causal=False, kv_lengths=lens_b),
+                     lambda i: mha_attention_plain(qb, kb, vb, causal=False, kv_lengths=lens_b),
+                     lambda i: F.scaled_dot_product_attention(qbh, kbh, vbh, attn_mask=bert_mask),
+                     iters=50, plain_iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "vit_197": vit,
+            "shape": {**d64["bert"], "d": 64, "causal": False,
+                      "kv_lengths": {"min": int(lens_cpu.min()), "max": int(lens_cpu.max()),
+                                     "live_keys": live}},
+        }
+
     def check_decode_q(bits: int) -> dict:  # D (int8) and E (int4)
         name, mod, launch, plain, replaces = (
             ("paged_decode_q", decode_q_mod, decode_q_mod.paged_decode_q,
@@ -966,7 +1057,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
-              ("flash_attention", check_flash),
+              ("flash_attention", check_flash), ("flash_attention_d64", check_flash_d64),
               ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
               ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
               ("kv_append_slot_q", check_append_slot_q),
@@ -981,6 +1072,16 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             results.append({"name": name, "passed": False, "failure": str(failure),
                             **getattr(failure, "numbers", {})})
     return results
+
+
+# Phase 3's shapes for C's head-dim-64 build: a full step of configuration
+# #1 (BERT-base: batch bucket 256, length bucket 64, 12 heads; 16 of the
+# rows padded, length 1), a batch of configuration #3 (ViT-L/16 at 224: 32
+# images, 197 positions, 16 heads) and GPT-2's causal prefill (4 x 512, 12
+# heads).
+D64_SHAPES = {"bert": {"batch": 256, "seq": 64, "heads": 12, "padded_rows": 16},
+              "vit": {"batch": 32, "seq": 197, "heads": 16},
+              "gpt2": {"batch": 4, "seq": 512, "heads": 12}}
 
 
 def w8_agreement(label: str, got, want) -> dict:
@@ -1128,7 +1229,10 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            "paged_autotune_int8": ("paged_decode_q", "kv_append_q", "flash_attention"),
            "paged_autotune_int4": ("paged_decode_q4", "kv_append_q4", "flash_attention"),
            "paged_autotune_slot_bf16": ("decode_attention", "kv_append_slot", "flash_attention"),
-           "app_transports": ("paged_decode", "kv_append", "flash_attention")}
+           "app_transports": ("paged_decode", "kv_append", "flash_attention"),
+           # the encoders on the BatchEngine: C's head-dim-64 build alone
+           "bert_embed": ("flash_attention_d64",),
+           "vit_classify": ("flash_attention_d64",)}
 PREFILL_KERNELS = ("flash_attention",)
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
@@ -4428,6 +4532,274 @@ def app_transports(torch, cuda, model, base_outs: list) -> dict:
     }
 
 
+# Phase 4's encoder runs, on the BatchEngine (the port's embed and classify
+# path). ``bert_embed``, BASELINE.md configuration #1: BERT-base at full
+# width and depth (12 layers, 768 wide, 12 heads of 64), random bf16
+# weights from the seed, served by the App from a ``ModelSpec`` with
+# ``ENCODER_CONFIG`` and ``ENGINE_MAX_BATCH`` 256, warmed on the 64 bucket,
+# takes ``BERT_REQUESTS`` unary JSON-over-gRPC calls of 64 token ids each
+# from ``BERT_CLIENTS`` client threads. ``vit_classify``, configuration
+# #3: ViT-L/16 at 224 (24 layers, 1024 wide, 16 heads of 64), random bf16
+# weights from the seed, ``ENGINE_MAX_BATCH`` 32, takes ``VIT_IMAGES``
+# 224 x 224 x 3 uint8 images published to the in-memory broker and read by
+# ``SUBSCRIBER_WORKERS`` 32 consumer threads. Each run's outputs are held
+# against the plain path (``kernels=False``) on the same inputs within
+# ``ENCODER_RTOL`` of the plain outputs' range, the rule phase 5 holds the
+# Llama logits to.
+ENCODER_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR"}
+BERT_CONFIG = {**ENCODER_CONFIG, "GRPC_PORT": "0", "GRPC_THREADS": "64",
+               "ENGINE_MAX_BATCH": "256", "ENGINE_MAX_WAIT_MS": "2"}
+BERT_REQUESTS, BERT_CLIENTS, BERT_TOKENS = 512, 64, 64
+VIT_CONFIG = {**ENCODER_CONFIG, "PUBSUB_BACKEND": "inmemory", "SUBSCRIBER_WORKERS": "32",
+              "ENGINE_MAX_BATCH": "32", "ENGINE_MAX_WAIT_MS": "2"}
+VIT_IMAGES = 64
+ENCODER_RTOL = 5e-2
+
+
+def range_err(got, want) -> dict:
+    """Largest |got - want| over the range of ``want``."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    span = (want.max() - want.min()).item()
+    return {"max_abs_err": err, "range": span, "rel_to_range": err / max(span, 1e-30)}
+
+
+def step_recorder(engine) -> list:
+    """The real requests of each step the engine runs from now on."""
+    sizes, step = [], engine._step
+
+    def record(batch):
+        sizes.append(len(batch))
+        return step(batch)
+
+    engine._step = record
+    return sizes
+
+
+def step_seconds(app, steps: int) -> dict:
+    """The wall seconds of the last ``steps`` batch steps (the flight
+    recorder's, encode to readback on the engine's thread), p50 and max,
+    and their mean occupancy."""
+    recorded = [s for s in app.container.flight.steps() if s["kind"] == "batch"][:steps]
+    wall = [s["seconds"] for s in recorded]
+    return {"step_wall_p50_s": p50(wall), "step_wall_max_s": max(wall),
+            "mean_occupancy": sum(s["occupancy"] for s in recorded) / len(recorded)}
+
+
+def forward_alone_ms(torch, fn) -> float:
+    """One forward's time on CUDA events with nothing else running (the
+    mean of 5 after 2 untimed)."""
+    with torch.inference_mode():
+        return time_ms(torch, lambda i: fn(), 5, warmup=2)
+
+
+def encoder_holds(name: str, counts: dict, sizes: list, layers: int) -> None:
+    """C's 64 build once a layer a step, and no other kernel."""
+    for kernel, launches in counts.items():
+        require((launches > 0) == (kernel in ON_PATH[name]),
+                f"{name}: kernel {kernel} launched {launches} times")
+    require(counts["flash_attention_d64"] == layers * len(sizes),
+            f"{name}: C at 64 launched {counts['flash_attention_d64']} times for {len(sizes)} "
+            f"steps of {layers} layers")
+
+
+def bert_embed(torch, cuda) -> dict:
+    """Phase 4 ``bert_embed`` (configuration #1, see above). Held: every
+    call answers with an embedding of norm 1 within 1e-3; at least one step
+    holds 8 requests or more; C's 64 build launches 12 times a step and no
+    other kernel launches; a full batch of the requests through the plain
+    path, and one request alone through the kernels (batch invariance),
+    agree with the served embeddings within ``ENCODER_RTOL``. Printed:
+    requests a second, client latency p50 and p99, the steps' mean size,
+    occupancy and wall seconds, and a forward of ``BERT_CLIENTS`` requests
+    alone on CUDA events."""
+    import threading
+
+    import grpc
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.grpc.server import current_grpc_context
+    from gofr_tpu_torch.models import BertConfig, ModelSpec
+
+    cfg = BertConfig.base(dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    requests = torch.randint(1000, cfg.vocab_size, (BERT_REQUESTS, BERT_TOKENS),
+                             generator=gen).tolist()
+    app = App(config=DictConfig(BERT_CONFIG))
+    engine = app.serve_model("bert", ModelSpec("bert", cfg, task="embed", dtype=torch.bfloat16),
+                             seed=SEED)
+
+    def embed(request, context):
+        return {"embedding": current_grpc_context().infer("bert", request["tokens"],
+                                                          timeout=300).tolist()}
+
+    def add(server):
+        codec = dict(request_deserializer=lambda b: json.loads(b.decode()),
+                     response_serializer=lambda o: json.dumps(o).encode())
+        server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler("embed.Embed", {
+            "Embed": grpc.unary_unary_rpc_method_handler(embed, **codec)}),))
+
+    app.register_grpc_service(add)
+    replies, latency = [None] * BERT_REQUESTS, [0.0] * BERT_REQUESTS
+    with AppThread(app, "bert-embed"):
+        warmed = engine.warmup(requests[0], len_buckets=[BERT_TOKENS])
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        sizes = step_recorder(engine)
+        with grpc.insecure_channel(f"127.0.0.1:{app.grpc_port}") as ch:
+            call = ch.unary_unary("/embed.Embed/Embed",
+                                  request_serializer=lambda o: json.dumps(o).encode(),
+                                  response_deserializer=lambda b: json.loads(b.decode()))
+
+            def client(c: int) -> None:
+                for i in range(c, BERT_REQUESTS, BERT_CLIENTS):
+                    t0 = time.perf_counter()
+                    replies[i] = call({"tokens": requests[i]}, timeout=300)["embedding"]
+                    latency[i] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(BERT_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        del engine._step  # the recorder off: the class method again
+        model = engine.model
+        require(all(r is not None for r in replies), "bert_embed: a call did not answer")
+        served = torch.tensor(replies, dtype=torch.float32)
+        norms = served.norm(dim=-1)
+        require(bool(((norms - 1).abs() <= 1e-3).all()),
+                f"bert_embed: embedding norms {norms.min().item()}..{norms.max().item()}")
+        require(max(sizes) >= 8, f"bert_embed: no step held 8 requests: {sizes}")
+        encoder_holds("bert_embed", counts, sizes, cfg.num_layers)
+        # the plain path on a full batch of the same requests, and one
+        # request alone through the kernels
+        n = min(engine.max_batch, BERT_REQUESTS)
+        tokens = torch.tensor(requests[:n], device="cuda")
+        lengths = torch.full((n,), BERT_TOKENS, dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            plain = model.embed_pooled(tokens, lengths, kernels=False).cpu()
+            alone = model.embed_pooled(tokens[:1], lengths[:1]).cpu()
+        agree = {"plain_full_batch": range_err(served[:n], plain),
+                 "alone_vs_in_batch": range_err(alone, served[:1])}
+        for label, a in agree.items():
+            require(a["rel_to_range"] <= ENCODER_RTOL,
+                    f"bert_embed {label}: {a} (limit {ENCODER_RTOL} of the range)")
+        walls = step_seconds(app, len(sizes))
+        # a step of the clients' count alone, beside the served steps' wall
+        alone_ms = forward_alone_ms(torch, lambda: model.embed_pooled(tokens[:BERT_CLIENTS],
+                                                                      lengths[:BERT_CLIENTS]))
+    require(not engine._thread.is_alive(), "bert_embed: the engine's thread outlived stop()")
+    del engine, app, model
+    torch.cuda.empty_cache()
+    return {"model": "bert-base (random bf16 weights, seed 0)", "config": BERT_CONFIG,
+            "requests": BERT_REQUESTS, "clients": BERT_CLIENTS, "tokens": BERT_TOKENS,
+            "warmup_steps": warmed, "steps": len(sizes), "step_sizes": sizes,
+            "mean_step_size": sum(sizes) / len(sizes), **walls,
+            f"forward_alone_ms_batch_{BERT_CLIENTS}": alone_ms,
+            "req_per_s": BERT_REQUESTS / wall, "latency_p50_s": p50(latency),
+            "latency_p99_s": sorted(latency)[int(0.99 * len(latency))],
+            "agreement": agree, "launches": counts, "nvidia_smi": smi_line(),
+            "note": "smoke run, not a benchmark"}
+
+
+def vit_classify(torch, cuda) -> dict:
+    """Phase 4 ``vit_classify`` (configuration #3, see above). Held: every
+    message is handled and committed (``app_pubsub_*``: ``VIT_IMAGES``
+    published, received and handled); every logit row is finite and within
+    ``ENCODER_RTOL`` of the plain path's range on a batch of the same
+    images; C's 64 build launches 24 times a step and no other kernel.
+    Printed: messages a second, the steps' mean size, occupancy and wall
+    seconds, and a forward of 32 images alone on CUDA events."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models import ModelSpec, ViTConfig
+
+    cfg = ViTConfig.large(dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    images = torch.randint(0, 256, (VIT_IMAGES, cfg.image_size, cfg.image_size, 3),
+                           generator=gen, dtype=torch.uint8).numpy()
+    app = App(config=DictConfig(VIT_CONFIG))
+    engine = app.serve_model("vit", ModelSpec("vit", cfg, task="classify", dtype=torch.bfloat16),
+                             seed=SEED)
+    logits, done, lock = {}, {}, threading.Lock()
+
+    def pixels(raw: bytes):
+        """uint8 HWC → float32 in [-1, 1], ViT's normalisation."""
+        img = np.frombuffer(raw, np.uint8).reshape(cfg.image_size, cfg.image_size, 3)
+        return (img.astype(np.float32) / 255.0 - 0.5) / 0.5
+
+    def on_image(ctx):
+        body = ctx.bind(dict)
+        out = ctx.infer("vit", pixels(base64.b64decode(body["image"])), timeout=300)
+        with lock:
+            logits[body["i"]] = out
+            done[body["i"]] = time.perf_counter()
+
+    app.subscribe("images", on_image)
+    payloads = [{"i": i, "image": base64.b64encode(images[i].tobytes()).decode()}
+                for i in range(VIT_IMAGES)]
+    with AppThread(app, "vit-classify"):
+        warmed = engine.warmup(pixels(images[0].tobytes()))
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        sizes = step_recorder(engine)
+        t0 = time.perf_counter()
+        for body in payloads:
+            app.container.publish("images", body)
+        deadline = time.monotonic() + 600
+        while len(logits) < VIT_IMAGES and time.monotonic() < deadline:
+            time.sleep(0.01)
+        wall = max(done.values(), default=t0) - t0
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        del engine._step  # the recorder off: the class method again
+        model = engine.model
+        m = app.container.metrics
+        pubsub_counts = {name: m.get(name).value(topic="images")
+                         for name in ("app_pubsub_publish_total_count",
+                                      "app_pubsub_publish_success_count",
+                                      "app_pubsub_subscribe_total_count",
+                                      "app_pubsub_subscribe_success_count")}
+        require(sorted(logits) == list(range(VIT_IMAGES)),
+                f"vit_classify: {len(logits)} of {VIT_IMAGES} images classified")
+        require(all(v == VIT_IMAGES for v in pubsub_counts.values()),
+                f"vit_classify: {pubsub_counts}")
+        served = torch.tensor(np.stack([logits[i] for i in range(VIT_IMAGES)]))
+        require(served.shape == (VIT_IMAGES, cfg.num_classes) and bool(served.isfinite().all()),
+                f"vit_classify: logits {tuple(served.shape)}, finite {bool(served.isfinite().all())}")
+        encoder_holds("vit_classify", counts, sizes, cfg.num_layers)
+        n = min(engine.max_batch, VIT_IMAGES)
+        batch = torch.tensor(np.stack([pixels(images[i].tobytes()) for i in range(n)]),
+                             device="cuda")
+        with torch.inference_mode():
+            plain = model(batch, kernels=False).cpu()
+        agree = range_err(served[:n], plain)
+        require(agree["rel_to_range"] <= ENCODER_RTOL,
+                f"vit_classify: served logits vs plain {agree} (limit {ENCODER_RTOL} of the range)")
+        walls = step_seconds(app, len(sizes))
+        alone_ms = forward_alone_ms(torch, lambda: model(batch))
+    require(not engine._thread.is_alive(), "vit_classify: the engine's thread outlived stop()")
+    del engine, app, model
+    torch.cuda.empty_cache()
+    return {"model": "vit-large-16-224 (random bf16 weights, seed 0)", "config": VIT_CONFIG,
+            "images": VIT_IMAGES, "warmup_steps": warmed, "steps": len(sizes),
+            "step_sizes": sizes, "mean_step_size": sum(sizes) / len(sizes), **walls,
+            f"forward_alone_ms_batch_{n}": alone_ms,
+            "msgs_per_s": VIT_IMAGES / max(wall, 1e-9), "agreement": agree,
+            "pubsub_counts": pubsub_counts, "launches": counts, "nvidia_smi": smi_line(),
+            "note": "smoke run, not a benchmark"}
+
+
 def launches_by_run(served: dict) -> dict[str, dict[str, int]]:
     """Each phase-4 run's launch counts by kernel: the runs that record one
     set, the spec engine of ``paged_control`` and the two sides of
@@ -4574,6 +4946,14 @@ def main() -> None:
     emit("phase4_app_transports", served["app_transports"])
     lap("phase4_app_transports")
 
+    served["bert_embed"] = bert_embed(torch, cuda)
+    emit("phase4_bert_embed", {k: v for k, v in served["bert_embed"].items() if k != "step_sizes"})
+    lap("phase4_bert_embed")
+
+    served["vit_classify"] = vit_classify(torch, cuda)
+    emit("phase4_vit_classify", served["vit_classify"])
+    lap("phase4_vit_classify")
+
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
@@ -4595,7 +4975,7 @@ def main() -> None:
     # and from every run that launched it
     by_run = launches_by_run(served)
     for k in kernels:
-        run = next(r for r in (*RUNS, "paged_w8") if k["name"] in ON_PATH[r])
+        run = next(r for r in (*RUNS, "paged_w8", "bert_embed") if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
         k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}
     os.makedirs("chiprun_out", exist_ok=True)

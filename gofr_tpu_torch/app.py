@@ -230,15 +230,18 @@ class App:
     # -- model serving ---------------------------------------------------------
 
     def serve_model(self, name: str, spec: Any = None, *, engine: Any = None, **engine_kw: Any):
-        """Attach a model to the app behind a continuous-batching engine.
+        """Attach a model to the app behind an engine: continuous batching
+        for a ``generate`` model, drain-and-batch for an ``embed`` or
+        ``classify`` one.
 
         ``spec`` is a ``models.ModelSpec``, built into an engine by
         ``gpu.engine.build_engine(spec, container, **engine_kw)`` (the
         container's ``ENGINE_*`` / ``ADAPTER_*`` config, ``engine_kw``
         winning; on the card unless ``device`` says otherwise); or pass a
         prebuilt ``engine``. Handlers reach it as ``ctx.agenerate(name,
-        ...)`` / ``ctx.generate(name, ...)``. If the engine cannot be built,
-        this raises: there is no fallback."""
+        ...)`` / ``ctx.generate(name, ...)``, and an encoder as
+        ``ctx.infer(name, inputs)``. If the engine cannot be built, this
+        raises: there is no fallback."""
         if engine is None:
             from gofr_tpu_torch.gpu.engine import build_engine
 

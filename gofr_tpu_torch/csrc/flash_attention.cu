@@ -1,5 +1,5 @@
 // Flash (blocked online-softmax) prefill attention with GQA, on the tensor
-// cores.
+// cores, at head dim 128 (Llama) and 64 (BERT-base, ViT-L/16, GPT-2).
 //
 // Replaces gofr_tpu/ops/pallas/flash_attention.py flash_attention (:108,
 // pallas_call :159, body _flash_kernel :45), reached from the JAX package
@@ -40,6 +40,15 @@
 //     masked.
 //   - The output tile goes back through the (then free) Q tile in shared
 //     memory, so it is written to device memory in 16-byte rows.
+//   - The head dim is a template parameter, instantiated at 128 and 64;
+//     the entry point picks the instantiation by its ``d`` argument. Only
+//     the row (its padded stride and 16-byte chunks) and the register
+//     fragments of Q and O follow it: qf[kD/16], o[kD/8], and the P V
+//     product in kD/64 passes of four ldmatrix.trans fragments. The tiles
+//     stay 64 x 64, so the 64 build's shared memory is 46,080 B.
+//     Non-causal calls with kv_lengths are BERT's (keys padded to the length
+//     bucket) and ViT's (197 positions: the last query and key tiles hold 5
+//     rows; rows past Sq and Skv are zero-filled on load and never stored).
 // The next step, if this still loses to a library kernel of the same shape:
 // wgmma on shared-memory descriptors fed by TMA, with warp specialisation.
 #include <cstdint>
@@ -55,18 +64,24 @@ using gofr::ldmatrix_x4;
 using gofr::ldmatrix_x4_trans;
 using gofr::mma_bf16;
 
-constexpr int kD = 128;            // head_dim (the wrapper checks)
 constexpr int kBQ = 64;            // query rows per block
 constexpr int kBK = 64;            // KV rows per tile
 constexpr int kWarps = kBQ / 16;   // one warp per 16 query rows
 constexpr int kThreads = 32 * kWarps;
-constexpr int kStride = kD + 8;    // padded bf16 row in shared memory (272 B)
-constexpr int kChunks = kD / 8;    // 16-byte chunks per row
 constexpr int kStages = 2;         // K/V ring depth
-constexpr int kTileElems = kBK * kStride;
-constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;  // 87,040 B
 
 static_assert(kBQ == kBK, "stage_rows copies 64-row tiles of Q, K and V alike");
+
+// What follows the head dim kD (the wrapper checks it is 64 or 128).
+template <int kD>
+struct Dims {
+  static_assert(kD % 64 == 0, "P V runs in passes of 64 columns");
+  static constexpr int kStride = kD + 8;  // padded bf16 row in shared memory (272 or 144 B)
+  static constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+  static constexpr int kTileElems = kBK * kStride;
+  // 87,040 B at 128, 46,080 B at 64
+  static constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;
+};
 
 // Two f32 values as one register of bf16 pair, `lo` in the low half (the
 // lower column of an mma fragment).
@@ -77,8 +92,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Issue the copies of rows row0 .. row0+63 of a [rows, pitch] bf16 matrix
 // into a padded shared tile; rows at or past `valid` are zero-filled.
+template <int kD>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0, int valid,
                                            size_t pitch) {
+  constexpr int kChunks = Dims<kD>::kChunks, kStride = Dims<kD>::kStride;
   for (int c = threadIdx.x; c < kBK * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const bool ok = row0 + r < valid;
@@ -86,6 +103,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0,
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
     const bf16* __restrict__ q,           // [B, Sq, Hq, D]
     const bf16* __restrict__ k,           // [B, Skv, Hkv, D]
@@ -94,6 +112,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const int* __restrict__ kv_lengths,   // [B]
     bf16* __restrict__ out,               // [B, Sq, Hq, D]
     int sq, int skv, int hq, int hkv, int group, int causal, float scale) {
+  constexpr int kStride = Dims<kD>::kStride, kChunks = Dims<kD>::kChunks;
+  constexpr int kTileElems = Dims<kD>::kTileElems;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBQ][kStride], then the output tile
   bf16* k_s = q_s + kBQ * kStride;            // [kStages][kBK][kStride]
@@ -115,10 +135,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   // query positions of this thread's two rows (gid and gid + 8 of the warp's 16)
   const int pos_lo = qo + q0 + warp * 16 + gid, pos_hi = pos_lo + 8;
 
-  stage_rows(q_s, qb, q0, sq, q_pitch);
+  stage_rows<kD>(q_s, qb, q0, sq, q_pitch);
   if (n_tiles > 0) {
-    stage_rows(k_s, kb, 0, skv, kv_pitch);
-    stage_rows(v_s, vb, 0, skv, kv_pitch);
+    stage_rows<kD>(k_s, kb, 0, skv, kv_pitch);
+    stage_rows<kD>(v_s, vb, 0, skv, kv_pitch);
   }
   gofr::cp_async_commit();
 
@@ -135,8 +155,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const int k0 = i * kBK;
     if (i + 1 < n_tiles) {
       const int next = (i + 1) % kStages;
-      stage_rows(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
-      stage_rows(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
+      stage_rows<kD>(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
+      stage_rows<kD>(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
     }
     gofr::cp_async_commit();  // possibly empty, so one wait depth serves every step
     gofr::cp_async_wait<1>();
@@ -203,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);  // row gid + 8
     }
 
-    // O = O * alpha + P V: 16 rows x 128 columns per warp
+    // O = O * alpha + P V: 16 rows x kD columns per warp
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];
@@ -211,16 +231,16 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < kD / 64; ++half) {
         // four fragments (64 columns of d) first, so their loads overlap
         // transposed matrices: keys +0..7 / +8..15 (mat & 1) by d +0..7 / +8..15 (mat >> 1)
-        uint32_t vf[kD / 32][4];
+        uint32_t vf[4][4];
 #pragma unroll
-        for (int j = 0; j < kD / 32; ++j)
+        for (int j = 0; j < 4; ++j)
           ldmatrix_x4_trans(vf[j], vs + (kk * 16 + mrow + (mat & 1) * 8) * kStride +
                                        (half * 4 + j) * 16 + (mat >> 1) * 8);
 #pragma unroll
-        for (int j = 0; j < kD / 32; ++j) {
+        for (int j = 0; j < 4; ++j) {
           const int dp = half * 4 + j;
           mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);
           mma_bf16(o[2 * dp + 1], pf[kk], vf[j][2], vf[j][3]);
@@ -252,23 +272,37 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
-                                    const void* q_offset, const void* kv_lengths, void* out,
-                                    int b, int sq, int skv, int hq, int hkv, int causal,
-                                    float scale, void* stream) {
-  static bool configured = false;
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* q_offset,
+           const void* kv_lengths, void* out, int b, int sq, int skv, int hq, int hkv, int causal,
+           float scale, cudaStream_t stream) {
+  static bool configured = false;  // one flag per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Dims<kD>::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(hq, b, (sq + kBQ - 1) / kBQ);
-  flash_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel<kD><<<grid, kThreads, Dims<kD>::kSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lengths),
       static_cast<bf16*>(out), sq, skv, hq, hkv, hq / hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// d is the head dim: 128 or 64 (the wrapper checks; any other is refused
+// here too, as cudaErrorInvalidValue).
+extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
+                                    const void* q_offset, const void* kv_lengths, void* out,
+                                    int b, int sq, int skv, int hq, int hkv, int d, int causal,
+                                    float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return launch<128>(q, k, v, q_offset, kv_lengths, out, b, sq, skv, hq, hkv, causal, scale, s);
+  if (d == 64)
+    return launch<64>(q, k, v, q_offset, kv_lengths, out, b, sq, skv, hq, hkv, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

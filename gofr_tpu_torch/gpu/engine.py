@@ -1,6 +1,17 @@
 """Continuous-batching generation over the paged KV pool or the slot KV
-cache (counterpart of gofr_tpu/tpu/engine.py ``GenerateEngine`` and
+cache, and drain-and-batch serving of stateless encoders (counterpart of
+gofr_tpu/tpu/engine.py ``GenerateEngine``, ``BatchEngine`` and
 ``build_engine``).
+
+Both engines subclass ``_EngineBase`` (engine.py:186-541): the container's
+request planes, the QoS-capable queue and its submission path, each
+request's completion record, health, and the supervised device loop. A
+``BatchEngine`` (engine.py:695-845) serves BERT embeddings (``task=
+"embed"``) and ViT classes (``task="classify"``): each turn it blocks for
+one request, gathers what arrives within ``max_wait_ms`` up to
+``max_batch``, pads to a length bucket and a batch bucket and runs one
+forward, whose attention is kernel C's head-dim-64 build on the card. The
+rest of this note is about ``GenerateEngine``.
 
 A device thread owns the model, the cache and every slot. Callers
 ``submit`` prompts onto a queue and get a ``Request`` future back. Each
@@ -156,20 +167,19 @@ from gofr_tpu_torch.control.controller import ControlPolicy, KnobSpec, StepContr
 from gofr_tpu_torch.gpu import decode, executor
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.handoff import HandoffExporter, HandoffJob, HandoffServer
-from gofr_tpu_torch.gpu.planner import plan_prefill, pow2_buckets
+from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
 from gofr_tpu_torch.http import errors
 from gofr_tpu_torch.metrics import Registry
 from gofr_tpu_torch.metrics.perf import CostModel, PerfPlane, StepPerf, occupancy_band
-from gofr_tpu_torch.models import ModelSpec
+from gofr_tpu_torch.models import TASKS, ModelSpec, get_family, resolve_config
+from gofr_tpu_torch.models import llama as llama_family
 from gofr_tpu_torch.models.llama import (
     AnyKVCache,
     Llama,
     LlamaConfig,
-    init,
     jax_state,
-    params_from_jax,
 )
 from gofr_tpu_torch.ops import autotune
 from gofr_tpu_torch.ops.attention import DECODE_ATTENTION
@@ -237,8 +247,9 @@ class RequestCancelled(RuntimeError):
 
 
 class Request:
-    """The future of one generation: ``result()`` blocks, ``cancel()`` frees
-    its slot at the device loop's next turn. A streamed request also gets
+    """The future of one request (a generation, or one input of a batch
+    engine): ``result()`` blocks, ``cancel()`` frees its slot at the device
+    loop's next turn (a batch engine fails it at its next drain). A streamed request also gets
     each token (or text piece) on ``stream_q`` as it is decoded, and None
     once it completes."""
 
@@ -388,97 +399,25 @@ class _Slot:
         self.handoff = None
 
 
-class GenerateEngine:
-    """Continuous batching for a ``Llama`` on the paged pool or the slot
-    cache.
+class _EngineBase:
+    """The queue, the device thread and the request planes every engine
+    shares (engine.py:186-541): ``GenerateEngine`` (continuous batching)
+    and ``BatchEngine`` (embed and classify) subclass it.
 
-    ``device`` is where the engine runs (the card unless the caller asks for
-    the CPU) and must be the model's device. ``max_len`` caps prompt plus
-    generation per request. ``kv_layout`` is ``"paged"`` (``page_size`` and
-    ``total_pages`` size the pool; default: every slot can hold a
-    ``max_len`` request; fewer pages serve the usual load and preempt under
-    a burst) or ``"slot"`` (``cache_len`` positions per slot).
-    ``kv_quantize`` picks the cache's format: ``""`` the model's dtype,
-    ``"int8"`` or, on the paged layout only, ``"int4"`` quantized rows with
-    bf16 scales (2x or 4x the positions in the same memory).
-    ``prefill_buckets`` (default 16, 32, ... up to ``max_len``) are the
-    planner's length buckets; a prompt longer than the largest is prefilled
-    in chunks of that length. ``prefix_cache`` keeps full prompt pages for
-    later prompts that share them (paged layout only). ``spec_tokens`` > 0
-    decodes speculatively, proposing that many tokens a round by prompt
-    lookup, or by the draft model of ``spec_draft`` = (its ``LlamaConfig``,
-    its ``Llama``; slot layout only, on the engine's device, sharing the
-    target's vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
-    from which the slots are derived) turns on the adapter plane: a device
-    pool of that many slots of rank up to ``adapter_rank``, slot 0 the base,
-    and a host registry of ``adapter_host_mb``. ``pipeline_depth`` (1..4,
-    default 2; ``decode_pipeline`` is its alias) bounds the device calls in
-    flight. ``prefix_host_mb`` > 0 gives the prefix cache a host tier of
-    that many MiB of pinned memory (at least one page, else it stays
-    off). ``container`` (the App's) supplies the metrics, logger, tracer,
-    flight recorder and SLO engine, and turns the perf plane on; without
-    one the engine records into a private registry, every plane off.
-    ``max_restarts`` crashes of the loop within ``restart_window_s`` (60 s)
-    are survived; the next one ends it (DOWN). ``quality_shadow_rate`` > 0
-    shadow-scores that share of finished requests (``metrics/quality.
-    QualityPlane``, seeded by ``quality_seed``, the engine's ``seed`` when
-    None or negative; the other ``quality_*`` knobs are its bounds and
-    thresholds). ``control_enable`` builds the step controller (with a
-    container; its policy is the container config's ``CONTROL_*``).
-    ``role`` is ``"both"`` (colocated), ``"prefill"`` or ``"decode"`` (paged
-    layout only): a prefill worker exports to the decode worker at
-    ``handoff_target`` (without one it serves colocated), a decode worker
-    imports on ``handoff_listen`` (default an ephemeral localhost port,
-    ``handoff_addr`` once bound) into its host tier, which defaults to
-    max(one page, 256 MiB) and needs the prefix cache. ``handoff_timeout_s``
-    bounds each wire write and ACK wait (and the request's deadline, where
-    tighter); ``handoff_streams`` > 0 streams over that many connections
-    (0: one blob frame a prompt), ``handoff_chunk_pages`` pages a chunk,
-    ``handoff_pace_mbps`` > 0 caps the exporter's rate."""
+    It holds the container's planes, the QoS-capable queue, the submission
+    path (``_submit``: deadline shed, QoS admission, an adapter's share of
+    its cap, the span timeline and in-flight count), each request's
+    completion record (``_observe_done``), the step record
+    (``_record_step``), health, and the supervised loop: ``_run`` serves
+    ``_loop`` until ``stop``, and a crash fails the work whose device state
+    it made suspect (``_crash_recover``), backs off ``min(0.1 * 2^n, 5)`` s
+    and serves again, up to ``max_restarts`` crashes within
+    ``restart_window_s``; then the engine reads DOWN and fails every
+    waiter. A subclass calls ``_start_loop`` at the end of its
+    constructor."""
 
-    def __init__(self, model: Llama, *, device: str | torch.device | None = None,
-                 slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
-                 max_prefill_batch: int = 4, decode_chunk: int = 8,
-                 eos_token_id: int | None = None, top_k: int = 0, top_p: float = 1.0,
-                 tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
-                 page_size: int = 128, total_pages: int | None = None,
-                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
-                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
-                 adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
-                 adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
-                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None,
-                 max_restarts: int = 3, quality_shadow_rate: float = 0.0,
-                 quality_seed: int | None = None, quality_max_pending: int = 16,
-                 quality_max_tokens: int = 64, quality_top1_min: float = 0.9,
-                 quality_kl_max: float = 1.0, quality_recent: int = 32,
-                 control_enable: bool = False, role: str = "both",
-                 handoff_target: str | None = None, handoff_listen: str | None = None,
-                 handoff_timeout_s: float = 5.0, handoff_streams: int = 2,
-                 handoff_chunk_pages: int = 4, handoff_pace_mbps: float = 0.0):
-        if kv_layout not in KV_LAYOUTS:
-            raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
-        # disaggregated serving (engine.py:1153-1171): role workers need the
-        # paged layout, since the handoff payload IS pool pages
-        if role not in ROLES:
-            raise ValueError(f"ENGINE_ROLE {role!r}: use 'both', 'prefill' or 'decode'")
-        if role != "both" and kv_layout != "paged":
-            raise ValueError(f"ENGINE_ROLE={role} needs kv_layout='paged' (the KV handoff ships "
-                             "pool pages)")
-        self.role = role
-        if kv_quantize not in KV_QUANTIZE:
-            raise ValueError(f"kv_quantize={kv_quantize!r}: use '', 'int8' or 'int4'")
-        if kv_quantize == "int4" and kv_layout != "paged":
-            raise ValueError("kv_quantize='int4' needs kv_layout='paged' (packed-nibble "
-                             "pages); the slot layout supports '' or 'int8'")
-        self.spec_tokens = max(0, int(spec_tokens))
-        if spec_draft is not None:
-            if not self.spec_tokens:
-                raise ValueError("spec_draft requires spec_tokens > 0")
-            if kv_layout != "slot":
-                raise ValueError(
-                    "spec_draft (draft-model speculative decoding) is slot-layout only (v1): "
-                    "the paged layout's page allocation would need the draft cache paged "
-                    "too — use kv_layout='slot' or drop spec_draft")
+    def __init__(self, container: Any, *, device: str | torch.device | None,
+                 default_timeout: float | None, max_restarts: int):
         self.device = resolve_device(device)
         # the request planes (engine.py:189-215): the container's metrics,
         # logger, tracer (spans only while it is enabled), flight recorder
@@ -491,152 +430,18 @@ class GenerateEngine:
         self.flight = getattr(container, "flight", None)
         self.slo = getattr(container, "slo", None)
         self.qos = None  # an AdmissionController once one binds the engine
-        if model.device.type != self.device.type or (
-                self.device.index is not None and model.device.index != self.device.index):
-            raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
-        self.model = model
-        self.cfg: LlamaConfig = model.cfg
-        self.num_slots = slots
-        self.decode_chunk = max(1, decode_chunk)
-        # positions one chunk can write past max_len: decode_chunk steps, or
-        # decode_chunk rounds of g + 1 positions and g for the draft's
-        # last step (engine.py:1113)
-        g = self.spec_tokens
-        self.chunk_span = self.decode_chunk * (g + 1) + g if g else self.decode_chunk
-        self.max_len = min(max_len, self.cfg.max_seq_len - self.chunk_span)
-        self.prefill_buckets = (sorted(prefill_buckets) if prefill_buckets
-                                else pow2_buckets(16, self.max_len))
-        # a prompt past the largest bucket is prefilled this much per turn
-        self.prefill_chunk = self.prefill_buckets[-1]
-        self.max_prefill_batch = max_prefill_batch
-        self.eos_token_id = eos_token_id
-        self.top_k, self.top_p = top_k, top_p
-        self.tokenizer = tokenizer
+        self.perf: PerfPlane | None = None
         self.default_timeout = default_timeout
-        self.kv_layout = kv_layout
-        self.kv_quantize = kv_quantize
-        # the device calls in flight (engine.py:1086-1090)
-        depth = pipeline_depth if pipeline_depth is not None else decode_pipeline
-        self.pipeline_depth = max(1, min(4, int(depth)))
-        # the step controller's knobs (engine.py:1091-1106): the values the
-        # engine was built with are the ceilings it explores below, never
-        # past. Moves queue here and land only at the loop-top seam
-        # (``_apply_pending_knobs``). ``chunk_span``, the history and the
-        # pages stay sized for the boot ``spec_tokens``.
-        self._boot_pipeline_depth = self.pipeline_depth
-        self._boot_prefill_batch = self.max_prefill_batch
-        self._boot_spec_tokens = self.spec_tokens
-        self._knob_requests: collections.deque = collections.deque()
-        self._control = None
-        self._prefix: PrefixCache | None = None
-        if kv_layout == "paged":
-            self.page_size = page_size
-            # the table covers the positions a chunk writes past max_len
-            # (engine.py:1201)
-            self.pages_per_slot = math.ceil((self.max_len + self.chunk_span) / page_size)
-            self.total_pages = total_pages or slots * self.pages_per_slot
-            if self.total_pages < self.pages_per_slot:
-                raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
-                                 f"{self.pages_per_slot}: one max-length request cannot fit")
-            self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
-            self._free_pages = list(range(self.total_pages))
-            # slots and the prefix cache hold shares of a page; it returns to
-            # the free list when its count reaches 0
-            self._page_refs = np.zeros(self.total_pages, np.int64)
-            self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
-            # OOB convention: unallocated entries point one past the pool
-            self._table: np.ndarray | None = np.full((slots, self.pages_per_slot),
-                                                     self.total_pages, np.int32)
-            self._idle_position = 0
-            # a page's bytes over every plane: the host tier's unit
-            # (engine.py:1258)
-            self._page_bytes = sum(t.nbytes for t in vars(self.cache).values()) // self.total_pages
-            host_budget = int(max(0.0, float(prefix_host_mb)) * (1 << 20))
-            if host_budget and host_budget < self._page_bytes:
-                log.warning("prefix_host_mb=%g is below one page (%d bytes); host tier off",
-                            prefix_host_mb, self._page_bytes)
-                host_budget = 0
-            if role == "decode" and prefix_cache and not host_budget:
-                # a decode worker imports handed-off pages as host-tier
-                # nodes (engine.py:1278-1291): without a budget every
-                # transfer would be dropped at the door; the budget is a
-                # cap, not an allocation
-                host_budget = max(self._page_bytes, 256 << 20)
-            if prefix_cache:
-                self._prefix = PrefixCache(page_size, host_budget_bytes=host_budget)
-            if role == "decode" and (self._prefix is None or not self._prefix.host_budget):
-                raise ValueError("ENGINE_ROLE=decode needs the prefix cache with a host tier "
-                                 "(the handoff import target); keep ENGINE_PREFIX_CACHE on")
-        else:
-            # a chunk never writes past the slot; a multiple of 128 where the
-            # model allows it (engine.py:1321)
-            self.cache_len = min(math.ceil((self.max_len + self.chunk_span) / 128) * 128,
-                                 self.cfg.max_seq_len)
-            self.cache = make_pool(model, kv_quantize, slots, self.cache_len, "slot")
-            self._table = None
-            # lanes that do not decode write at and past the slot's end,
-            # where the append drops (tpu/decode.py:309-315)
-            self._idle_position = self.cache_len
-        # the proposer's state: the token history (its width the slot's
-        # positions), or the draft model and its slot cache (engine.py:2549)
-        self._aux: SpecAux = None
-        if spec_draft is not None:
-            self._aux = self._draft(*spec_draft)
-        elif self.spec_tokens:
-            width = (self.pages_per_slot * page_size if kv_layout == "paged"
-                     else self.cache_len)
-            self._aux = new_history(slots, width, self.device)
-        # the adapter plane (engine.py:1455-1493): off, nothing changes. As
-        # there, any non-zero slot count turns it on with at least 2 slots,
-        # and the rank is at least 1
-        ad_slots, ad_rank = int(adapter_slots), max(1, int(adapter_rank))
-        if adapter_pool_mb and not ad_slots:
-            ad_slots = AdapterPool.slots_for_budget(float(adapter_pool_mb), self.cfg.hidden_size,
-                                                    self.cfg.vocab_size, ad_rank)
-        self.adapters: AdapterRegistry | None = None
-        self._adapter_pool: AdapterPool | None = None
-        if ad_slots:
-            self._adapter_pool = AdapterPool(max(2, ad_slots), self.cfg.hidden_size,
-                                             self.cfg.vocab_size, ad_rank, device=self.device)
-            self.adapters = AdapterRegistry(host_budget_mb=float(adapter_host_mb))
-        # lifetime (accepted, proposed) draft tokens by adapter, summed from
-        # each request as it completes (engine.py:536), and the requests
-        # submitted and not yet complete (the app_tpu_inflight_requests
-        # gauge sums them over engines at a scrape)
-        self._spec_totals: dict[str, list[float]] = {}
+        # the requests submitted and not yet complete (the
+        # app_tpu_inflight_requests gauge sums them over engines at a scrape)
         self._inflight_requests = 0
         self._obs_lock = threading.Lock()
-        # full-model adoptions so far, and one waiting for the loop
-        self.weights_epoch = 0
-        self._pending_weights: tuple[dict, threading.Event] | None = None
-        self._swap_lock = threading.Lock()
-        self.slots: list[_Slot | None] = [None] * slots
-        self._admit_seq = 0
-        # what admission did, for callers and the smoke run
-        self.counters = dict.fromkeys(COUNTERS, 0)
-        # the in-flight queue of device calls (``executor.Entry``), the
-        # carries on the card of the decode chunk and spec round last
-        # dispatched, the host tier's staged swap-ins and spills, and what
-        # the queue did (``pipeline_stats``)
-        self._dq: collections.deque[executor.Entry] = collections.deque()
-        self._prev_last: torch.Tensor | None = None
-        self._spec_carry: tuple[torch.Tensor, torch.Tensor] | None = None
-        self._pending_swapins: list[tuple] = []
-        self._pending_spills: list[tuple] = []
-        self._pipeline: dict[str, Any] = {
-            "dq_max": 0, "dq_carried_max": 0, "dispatched": {}, "folds": 0, "fold_wait_s": 0.0,
-            "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0, "dropped": 0}
-        self._seed = seed
-        self._generator = torch.Generator(device=self.device).manual_seed(seed)
         # FIFO until an AdmissionController binds the engine and flips it
         # into weighted-fair priority mode (qos/scheduler.py)
         self._queue: QoSQueue = QoSQueue()
-        # prompts that fit a bucket, and longer ones that chunk
-        self._pending: list[tuple[Request, np.ndarray]] = []
-        self._pending_long: list[tuple[Request, np.ndarray]] = []
-        # guards the slots, pages and caches' bookkeeping: held by the
-        # device thread while it plans a dispatch or folds one (never while
-        # it waits on the card), and by the audits
+        # guards the engine's bookkeeping (a GenerateEngine's slots, pages
+        # and caches): held by the device thread while it plans a dispatch
+        # or folds one (never while it waits on the card), and by the audits
         self._state_lock = threading.Lock()
         self._stop = threading.Event()
         # supervision (engine.py:226-243): the loop restarts after a crash
@@ -651,165 +456,27 @@ class GenerateEngine:
         self._restarting = False
         self._last_crash_at = 0.0
         self._restart_hook = None
-        # a warmup waiting for the loop's next turn boundary
-        self._pending_warmup: dict | None = None
-        # the split plans warmup's autotuner pinned ({op: plan}, each at its
-        # shape key), its report (None until it ran), and an injectable
-        # timer and candidate launcher (the tests' fake timings and split
-        # plain versions; None is the events timer and the kernel); a
-        # restart keeps the pins
-        self._autotune_pins: dict[str, str] = {}
-        self._autotune_shapes: dict[str, str] = {}
-        self._autotune: dict | None = None
-        self._autotune_timer = None
-        self._autotune_launch = None
-        self.perf: PerfPlane | None = self._perf_plane() if container is not None else None
-        self._quality = self._quality_plane(
-            quality_shadow_rate, quality_seed, max_pending=quality_max_pending,
-            max_tokens=quality_max_tokens, top1_min=quality_top1_min, kl_max=quality_kl_max,
-            recent=quality_recent)
-        if self._prefix is not None:
-            self._set_prefix_gauges()
-        # the step controller (engine.py:1603-1613): off unless asked, and
-        # only with the perf plane it reads; a controller that cannot be
-        # built leaves the engine serving without one
-        if control_enable and self.perf is not None:
-            try:
-                self._control = self._build_controller()
-            except Exception as e:  # noqa: BLE001 - control must not gate serving
-                self._warn(f"step controller disabled: {e}")
-        self._handoff_plumbing(handoff_target, handoff_listen, handoff_timeout_s,
-                               handoff_streams, handoff_chunk_pages, handoff_pace_mbps)
-        self._thread = threading.Thread(target=self._run, name="gofr-torch-engine", daemon=True)
+        self._thread: threading.Thread | None = None
+        # the requests inside a device call that a crash or ``stop`` fails
+        # with the loop (a BatchEngine's batch; a GenerateEngine's live in
+        # its slots)
+        self._inflight: list[Request] = []
+
+    def _start_loop(self, name: str) -> None:
+        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
         self._thread.start()
 
     def _warn(self, msg: str) -> None:
         (self.logger.warn if self.logger is not None else log.warning)(msg)
 
-    def _handoff_plumbing(self, target: str | None, listen: str | None, timeout_s: float,
-                          streams: int, chunk_pages: int, pace_mbps: float) -> None:
-        """The handoff endpoints (engine.py:1641-1690): a decode worker
-        listens for prefill workers' pages, a prefill worker exports to
-        ``target``, and without one serves colocated (a mis-wired worker
-        stays correct while the decode pool comes up)."""
-        self.handoff_timeout_s = float(timeout_s)
-        self.handoff_streams = max(0, int(streams))
-        self.handoff_chunk_pages = max(1, int(chunk_pages))
-        self.handoff_pace_mbps = max(0.0, float(pace_mbps))
-        self._handoff_exporter: HandoffExporter | None = None
-        self._handoff_server: HandoffServer | None = None
-        self.handoff_addr = ""
-        if self.role == "decode":
-            self._handoff_server = HandoffServer(self, listen or "127.0.0.1:0",
-                                                 logger=self.logger, metrics=self.metrics)
-            self.handoff_addr = self._handoff_server.addr
-            (self.logger.infof if self.logger is not None else log.info)(
-                "kv handoff import listening at %s", self.handoff_addr)
-        elif self.role == "prefill":
-            if target:
-                self._handoff_exporter = HandoffExporter(
-                    target, engine=self, timeout_s=self.handoff_timeout_s,
-                    streams=self.handoff_streams, chunk_pages=self.handoff_chunk_pages,
-                    pace_mbps=self.handoff_pace_mbps, logger=self.logger, metrics=self.metrics)
-            else:
-                self._warn("ENGINE_ROLE=prefill without HANDOFF_TARGET: prompts decode locally "
-                           "(colocated fallback)")
-
-    def _draft(self, cfg: LlamaConfig, model: Llama) -> Draft:
-        """Check a draft model against the engine (engine.py:1328) and give it
-        a slot cache of the engine's slots and cache length."""
-        if model.cfg != cfg:
-            raise ValueError("spec_draft's model was built for another config than its cfg")
-        if cfg.max_seq_len < self.cache_len:
-            raise ValueError(f"spec_draft max_seq_len {cfg.max_seq_len} < engine cache length "
-                             f"{self.cache_len}: the draft cache must cover every position the "
-                             "target serves")
-        if cfg.vocab_size != self.cfg.vocab_size:
-            raise ValueError(f"spec_draft vocabulary {cfg.vocab_size} differs from the target's "
-                             f"{self.cfg.vocab_size}: its proposals are the target's token ids")
-        if model.device != self.model.device:
-            raise ValueError(f"spec_draft lives on {model.device}, the engine on "
-                             f"{self.model.device}")
-        return Draft(model, make_pool(model, "", self.num_slots, self.cache_len, "slot"))
-
-    def _perf_plane(self) -> PerfPlane | None:
-        """The live perf plane (engine.py:1347-1387): a cost model from the
-        engine's actual geometry — parameter count and bytes (the draft's
-        too, as JAX's one parameter tree holds both; an int8 ``QLinear``'s
-        scales count as the ``QTensor`` leaves do) and the pool's bytes
-        per position read off its tensors — priced against the card's
-        peaks. As in JAX a meter that cannot be built leaves the engine
-        serving without one."""
-        try:
-            models = [self.model] + ([self._aux.model] if isinstance(self._aux, Draft) else [])
-            positions = (self.total_pages * self.page_size if self._table is not None
-                         else self.num_slots * self.cache_len)
-            pool_bytes = sum(t.nbytes for t in vars(self.cache).values())
-            kind = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
-                    else self.device.type)
-            return PerfPlane(CostModel(
-                n_params=sum(t.numel() for m in models for t in m.state_dict().values()),
-                weight_bytes=sum(quantized_bytes(m) for m in models),
-                kv_bytes_per_pos=pool_bytes / max(1, positions),
-                page_bytes=getattr(self, "_page_bytes", 0.0),
-                page_size=self.page_size if self._table is not None else 0,
-                kv_dtype=self.kv_quantize or "bf16"), kind)
-        except Exception as e:  # noqa: BLE001 - the meter must not gate serving
-            (self.logger.warn if self.logger is not None else log.warning)(
-                f"perf plane disabled: {e}")
-            return None
-
-    def _quality_plane(self, rate: float, seed: int | None, **bounds: Any):
-        """The quality plane (engine.py:1515-1561), or None at rate 0, where
-        the loop pays one branch an idle turn. The model is read at each
-        scored arm, so an adoption is scored with the weights it installed;
-        an adapter's factors are read when its request is sampled."""
-        rate = max(0.0, min(1.0, float(rate)))
-        if rate <= 0.0:
-            return None
-        from gofr_tpu_torch.metrics.quality import QualityPlane
-
-        def adapter_factors(name: str):
-            if self.adapters is None:
-                return None
-            try:
-                spec = self.adapters.get(name)
-            except KeyError:
-                return None
-            return (spec.a, spec.b, spec.scale)
-
-        return QualityPlane(
-            lambda: self.model, metrics=self.metrics, slo=self.slo, rate=rate,
-            seed=self._seed if seed is None or int(seed) < 0 else int(seed),
-            kv_dtype=self.kv_quantize or "bf16", backend_fn=self._quality_backend,
-            adapter_fn=adapter_factors, **bounds)
-
-    def _quality_backend(self) -> str:
-        """The quality labels' backend: the route the kernels take, ``cuda``
-        on the card and ``plain`` on the CPU (JAX names its autotune pins,
-        ``pallas`` / ``xla``)."""
-        return "cuda" if self.device.type == "cuda" else "plain"
-
     # -- caller side -----------------------------------------------------------
 
-    def submit(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
-               timeout: float | None = None, stream: bool = False, **kw: Any) -> Request:
-        """Non-blocking enqueue (engine.py:401-484); returns the Request
-        future (with ``stream``, one whose ``stream_q`` gets the tokens as
-        they come). ``eos_token_id`` in ``kw`` overrides the engine's.
-        ``qos_class`` in ``kw`` names the request's QoS class.
-        ``adapter_id`` in ``kw`` names a registered LoRA adapter: an unknown
-        one, or one named on an engine without the adapter plane, raises
-        ValueError, and one at its cap raises ``TooManyRequests``; the
-        request's share of the cap goes back when it completes, however it
-        ends; an adapter's declared ``qos_class`` is the request's default
-        class. With QoS bound, admission runs before the request exists:
-        the backlog cap and a class's concurrency cap raise 503 / 429 with a
-        retry hint, and a ``timeout`` below the predicted queue wait raises
-        ``DeadlineExceeded`` (504). ``_on_submit`` in ``kw`` is called with
-        the Request as soon as it exists (a transport tracks it to cancel),
-        and ``_parent_span`` is the caller's span the engine's spans hang
-        under; a ``timeout`` of 0 or less raises ``DeadlineExceeded``."""
+    def _submit(self, inputs: Any, timeout: float | None, stream: bool, kw: dict[str, Any],
+                **fixed: Any) -> Request:
+        """Non-blocking enqueue (engine.py:401-484) of a Request whose
+        keywords are ``kw`` and ``fixed``: the routing keys of ``kw``
+        (``qos_class``, ``adapter_id``, ``_parent_span``, ``_on_submit``)
+        as ``GenerateEngine.submit`` documents them."""
         if self._stop.is_set() or self._error is not None:
             raise EngineClosed("engine stopped") from self._error
         if "qos_class" in kw:  # the public spelling of the routing key
@@ -828,34 +495,36 @@ class GenerateEngine:
             raise errors.DeadlineExceeded("request deadline already expired at submission")
         if "adapter_id" in kw:  # the public spelling of the routing key
             kw["_adapter"] = kw.pop("adapter_id")
+        registry = getattr(self, "adapters", None)
         aname = kw.get("_adapter") or None
         if aname:
-            if self.adapters is None:
+            if registry is None:
                 raise ValueError(f"request names adapter {aname!r} but this engine has no "
                                  "adapter plane (set adapter_slots or adapter_pool_mb)")
             try:
-                aspec = self.adapters.admit(aname)
+                aspec = registry.admit(aname)
             except KeyError as e:
                 raise ValueError(str(e.args[0]) if e.args else str(e)) from None
             if aspec.qos_class and not kw.get("_qos_class"):
                 kw["_qos_class"] = aspec.qos_class
-        # which weights answered, for the flight recorder
-        kw["_weights_epoch"] = self.weights_epoch
+        epoch = getattr(self, "weights_epoch", None)
+        if epoch is not None:
+            # which weights answered, for the flight recorder
+            kw["_weights_epoch"] = epoch
         qos, cls = self.qos, None
         if qos is not None:
             try:
                 cls = qos.admit_engine(self, kw.get("_qos_class"), timeout)
             except Exception:
                 if aname:
-                    self.adapters.release(aname)  # the class gate shed us first
+                    registry.release(aname)  # the class gate shed us first
                 raise
             kw["_qos_class"] = cls.name
-        req = Request(prompt, {**kw, "max_new_tokens": int(max_new_tokens),
-                               "temperature": float(temperature)}, timeout, stream)
+        req = Request(inputs, {**kw, **fixed}, timeout, stream)
         if cls is not None:
             qos.track(req, cls)
         if aname:
-            req.add_done_callback(lambda _r, _n=aname: self.adapters.release(_n))
+            req.add_done_callback(lambda _r, _n=aname: registry.release(_n))
         if on_submit is not None:
             on_submit(req)
         self._observe_submit(req, parent_span)
@@ -866,7 +535,7 @@ class GenerateEngine:
     # -- request-lifecycle observability (engine.py:488-675) -------------------
 
     def _backlog(self) -> int:
-        return self._queue.qsize() + len(self._pending) + len(self._pending_long)
+        return self._queue.qsize()
 
     def _observe_submit(self, req: Request, parent_span) -> None:
         """Open the request's span timeline (only while the tracer is
@@ -997,17 +666,749 @@ class GenerateEngine:
             device_s = pstep.device_s
             self.metrics.record_histogram("app_tpu_step_device_seconds", device_s, kind=kind)
         if self.flight is not None:
-            knobs = self.knob_vector()
+            # a BatchEngine has no knobs and no in-flight queue
+            kv_fn = getattr(self, "knob_vector", None)
+            knobs = kv_fn() if kv_fn is not None else None
+            inflight = len(getattr(self, "_dq", ()))
             if pstep is not None and perf is not None:
                 self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
-                                        len(self._dq), device_s=device_s, bytes_=pstep.bytes,
+                                        inflight, device_s=device_s, bytes_=pstep.bytes,
                                         flops=pstep.flops, bubble_s=pstep.bubble_s, knobs=knobs)
             else:
                 self.flight.record_step(kind, seconds, occupancy, signature, self._backlog(),
-                                        len(self._dq), knobs=knobs)
+                                        inflight, knobs=knobs)
         if self.qos is not None:
             self.qos.observe_step(seconds)  # feeds the queue-wait estimator
         return device_s
+
+    def health_check(self) -> dict[str, Any]:
+        """What ``Container.health`` reports for this engine
+        (engine.py:677-690): DOWN once the loop spent its restart budget,
+        DEGRADED with ``restarting`` during a crash's backoff or when its
+        thread is not running (after ``stop``), else UP with the requests
+        not yet in a slot (or a batch) and the restarts so far. The thread
+        starts with the engine, where the JAX App starts it in ``arun``."""
+        if self._error is not None:
+            return {"status": "DOWN", "details": {"error": str(self._error)}}
+        if self._restarting:
+            return {"status": "DEGRADED",
+                    "details": {"restarting": True, "restarts": self._restarts}}
+        return {"status": "UP" if self._thread.is_alive() else "DEGRADED",
+                "details": {"queue_depth": self._backlog(), "restarts": self._restarts}}
+
+    def stop(self) -> None:
+        """End the loop (it settles what it has on the card on the way out)
+        and fail every request still queued or in flight."""
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+        self._fail_all(EngineClosed("engine stopped"))
+
+    # -- device thread ---------------------------------------------------------
+
+    def _run(self) -> None:
+        """Serve ``_loop`` (engine.py:337-395). A loop that raises crashes,
+        and restarts (``_restart_after``) or ends. On the way out, stopped
+        or ended, what the loop left on the card is settled
+        (``_drain_device_state``), and an ended loop fails every waiter."""
+        try:
+            while self._serve():
+                pass
+        finally:
+            self._drain_device_state()
+            if self._error is not None:
+                self._fail_all(self._error)
+
+    def _serve(self) -> bool:
+        """One life of the loop; returns whether it restarts."""
+        try:
+            self._loop()
+            return False
+        except Exception as e:  # noqa: BLE001 - the loop's boundary
+            return self._restart_after(e)
+
+    def _loop(self) -> None:  # pragma: no cover - each engine has its own
+        raise NotImplementedError
+
+    def _drain_device_state(self) -> None:
+        """Settle what a stopped or crashed loop left running on the card
+        (nothing here: a ``BatchEngine`` step reads its result back before
+        it returns)."""
+
+    def _restart_after(self, error: Exception) -> bool:
+        """After a crash: log it, fail the slot-resident requests and reset
+        the device state (``_crash_recover``), then restart after a backoff
+        of ``min(0.1 * 2^n, 5)`` s unless the engine is stopping or
+        ``max_restarts`` crashes came within ``restart_window_s``; else set
+        the error that reads DOWN. Never raises: a fault here would end the
+        thread without failing the queued callers, who would hang to their
+        timeouts (engine.py:384-389). A recovery that fails itself (a card
+        whose fault is sticky fails every later call) spends the budget."""
+        try:
+            self._log_crash(error, "model engine step crashed")
+            recovered = True
+            try:
+                self._crash_recover(error)
+            except Exception as e2:  # noqa: BLE001 - the state cannot be trusted
+                self._log_crash(e2, "engine crash recovery failed")
+                recovered = False
+            now = time.monotonic()
+            if now - self._last_crash_at > self.restart_window_s:
+                self._restarts = 0  # an isolated fault, not a crash loop
+            self._last_crash_at = now
+            if self._stop.is_set() or not recovered or self._restarts >= self.max_restarts:
+                self._error = error
+                return False
+            self._restarts += 1
+            self.metrics.increment_counter("app_tpu_engine_restarts", 1)
+            self._restarting = True
+            try:
+                if self._restart_hook is not None:
+                    self._restart_hook(attempt=self._restarts)
+            except Exception as e2:  # noqa: BLE001 - never outranks the restart
+                self._log_crash(e2, "engine restart path")
+            self._stop.wait(min(0.1 * (2 ** self._restarts), 5.0))
+            self._restarting = False
+            msg = (f"engine device loop restarting (attempt {self._restarts}/"
+                   f"{self.max_restarts})")
+            (self.logger.warn if self.logger is not None else log.warning)(msg)
+            return True
+        except Exception:  # noqa: BLE001 - the last line: end, failing every waiter
+            log.exception("engine restart path failed")
+            self._restarting = False
+            self._error = error
+            return False
+
+    def _log_crash(self, error: BaseException, note: str) -> None:
+        if self.logger is not None:
+            self.logger.log_exception(error, note)
+        else:
+            log.error(note, exc_info=error)
+
+    def _crash_recover(self, error: Exception) -> None:
+        """A crash's cleanup (engine.py:150-157): the batch in flight rode
+        the crashed step, so it fails; queued requests survive and are
+        served after the restart."""
+        with self._state_lock:
+            inflight, self._inflight = self._inflight, []
+        for req in inflight:
+            req.complete(error=error)
+
+    def _fail_all(self, error: BaseException) -> None:
+        """Fail everything waiting: the batch in flight and the queue."""
+        with self._state_lock:
+            inflight, self._inflight = self._inflight, []
+        for req in inflight:
+            req.complete(error=error)
+        self._fail_queued(error)
+
+    def _fail_queued(self, error: BaseException) -> None:
+        while True:
+            try:
+                self._queue.get_nowait().complete(error=error)
+            except queue.Empty:
+                break
+
+
+# -- stateless batching (embed / classify) -------------------------------------
+
+
+class BatchEngine(_EngineBase):
+    """Drain-and-batch engine for stateless models (engine.py:695-845):
+    BERT embeddings and ViT classes.
+
+    ``apply_fn(tokens, lengths)`` (token sequences: int64 [B, L] and int32
+    [B] on the engine's device) or ``apply_fn(images)`` (fixed-shape
+    inputs, stacked [B, ...]) returns the batch's outputs [B, ...].
+    ``encode_fn`` turns one request's inputs into a numpy array: 1-D token
+    ids, which are padded to a length bucket (``len_buckets``, default 16,
+    32, ... 512), or a fixed-shape array (an image), for which only the
+    batch is bucketed. ``decode_fn`` turns one output row (a CPU tensor)
+    into the request's result (default: the row as a numpy array).
+
+    Each loop turn blocks for one request, gathers whatever else arrives
+    within ``max_wait_ms`` up to ``max_batch``, fails the expired and
+    cancelled ones with ``RequestTimeout`` (and a request whose input does
+    not encode, or is longer than the largest length bucket, with its own
+    error), pads the rest to the next batch bucket (1, 2, 4, ... ``max_batch``; padded token rows get length
+    1) and runs one step. On the card the step's inputs go up from pinned
+    memory without blocking and its one device-to-host copy is the
+    result. A step that raises fails its batch only; the loop goes on.
+    ``container``, ``device``, ``default_timeout`` and ``max_restarts`` are
+    as for ``GenerateEngine``."""
+
+    def __init__(self, apply_fn: Any, container: Any = None, *,
+                 device: str | torch.device | None = None, encode_fn: Any = None,
+                 decode_fn: Any = None, max_batch: int = 32, len_buckets: list[int] | None = None,
+                 max_wait_ms: float = 2.0, default_timeout: float | None = None,
+                 max_restarts: int = 3):
+        super().__init__(container, device=device, default_timeout=default_timeout,
+                         max_restarts=max_restarts)
+        self.apply_fn = apply_fn
+        self.encode_fn = encode_fn or np.asarray
+        self.decode_fn = decode_fn or (lambda row: row.numpy())
+        self.max_batch = max_batch
+        self.len_buckets = sorted(len_buckets) if len_buckets else pow2_buckets(16, 512)
+        self.max_wait = max_wait_ms / 1000.0
+        self.batch_buckets = pow2_buckets(1, max_batch)
+        # the step signatures run so far, by warmup or by traffic
+        self._compiled: set[tuple] = set()
+        self._pending_warmup: dict | None = None
+        self._start_loop("gofr-torch-batch-engine")
+
+    def infer(self, inputs: Any, timeout: float | None = None, **kw: Any) -> Any:
+        """Blocking: one request's result, ``decode_fn`` of its output row."""
+        req = self._submit(inputs, timeout, False, kw)
+        return req.result(timeout if timeout is not None else self.default_timeout)
+
+    def warmup(self, example: Any, len_buckets: list[int] | None = None,
+               batch_buckets: list[int] | None = None) -> int:
+        """Run every step signature once before traffic (engine.py:733-763):
+        token sequences at each (length bucket, batch bucket) pair, on zero
+        tokens of length 1; fixed-shape inputs (images) at each batch
+        bucket, on zeros shaped like ``example``. The loop runs it between
+        steps, on its own thread (where a step's first use of the card's
+        libraries happens); the caller blocks until it ends. Returns the
+        number of steps run."""
+        arr = np.asarray(self.encode_fn(example))
+        job = {"arr": arr,
+               "lbs": sorted(len_buckets) if len_buckets else list(self.len_buckets),
+               "bbs": sorted(batch_buckets) if batch_buckets else list(self.batch_buckets),
+               "done": threading.Event(), "count": None, "error": None}
+        self._pending_warmup = job
+        while not job["done"].wait(0.05):
+            if not self._thread.is_alive():
+                raise EngineClosed("engine stopped before its warmup ran") from self._error
+        if job["error"] is not None:
+            raise job["error"]
+        return job["count"]
+
+    def _apply_pending_warmup(self) -> None:
+        job, self._pending_warmup = self._pending_warmup, None
+        arr, count = job["arr"], 0
+        try:
+            with torch.inference_mode():
+                if arr.ndim == 1:
+                    for lb in job["lbs"]:
+                        for nb in job["bbs"]:
+                            self._readback(self.apply_fn(
+                                self._to_device(np.zeros((nb, lb), np.int64)),
+                                self._to_device(np.ones((nb,), np.int32))))
+                            self._compiled.add(("batch", lb, nb))
+                            count += 1
+                else:
+                    for nb in job["bbs"]:
+                        self._readback(self.apply_fn(
+                            self._to_device(np.zeros((nb, *arr.shape), arr.dtype))))
+                        self._compiled.add(("batch", arr.shape, nb))
+                        count += 1
+            job["count"] = count
+        except Exception as e:  # noqa: BLE001 - the caller raises it
+            job["error"] = e
+        finally:
+            job["done"].set()
+
+    def _drain(self) -> list[Request]:
+        """Block for one request, then take whatever arrives within
+        ``max_wait`` (the micro-batch window), up to ``max_batch``; the
+        expired and cancelled ones fail with ``RequestTimeout``."""
+        try:
+            first = self._queue.get(timeout=0.2)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.monotonic() + self.max_wait
+        while len(batch) < self.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(self._queue.get(timeout=remaining))
+            except queue.Empty:
+                break
+        self.metrics.set_gauge("app_tpu_queue_depth", self._queue.qsize())
+        now = time.monotonic()
+        live = []
+        for r in batch:
+            if r.cancelled or r.expired(now):
+                r.complete(error=RequestTimeout())
+            else:
+                live.append(r)
+        return live
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            if self._pending_warmup is not None:
+                self._apply_pending_warmup()
+            batch = self._drain()
+            if not batch:
+                continue
+            try:
+                self._step(batch)
+            except Exception as e:  # noqa: BLE001 - a bad batch fails alone
+                self._log_crash(e, "batch engine step")
+                with self._state_lock:
+                    self._inflight = []
+                for r in batch:
+                    r.complete(error=e)
+
+    def _step(self, batch: list[Request]) -> None:
+        """One batch (engine.py:801-845): encode, pad to the buckets, run
+        ``apply_fn``, read the result back once, complete each request with
+        its row."""
+        arrays, live = [], []
+        for r in batch:
+            try:
+                a = np.asarray(self.encode_fn(r.inputs))
+                if a.ndim == 1 and a.shape[0] > self.len_buckets[-1]:
+                    raise ValueError(f"input length {a.shape[0]} exceeds max bucket "
+                                     f"{self.len_buckets[-1]}")
+            except Exception as e:  # noqa: BLE001 - this request's own fault
+                r.complete(error=e)
+                continue
+            arrays.append(a)
+            live.append(r)
+        if not live:
+            return
+        batch = live
+        n = len(arrays)
+        nb = next_bucket(n, self.batch_buckets)
+        now = time.monotonic()
+        for r in batch:
+            self._mark_admitted(r, now)
+            rt = r.kw.get("_rt")
+            if rt is not None:
+                rt.begin("engine.infer", **{"batch.size": n, "batch.bucket": nb})
+        with self._state_lock:
+            self._inflight = list(batch)
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            if arrays[0].ndim == 1:  # token sequences: pad to a length bucket
+                lengths = np.array([a.shape[0] for a in arrays], np.int32)
+                lb = next_bucket(int(lengths.max()), self.len_buckets)
+                tokens = np.zeros((nb, lb), np.int64)
+                for i, a in enumerate(arrays):
+                    tokens[i, :a.shape[0]] = a
+                lens = np.ones((nb,), np.int32)  # padded rows: length 1, no empty mean
+                lens[:n] = lengths
+                signature = ("batch", lb, nb)
+                out = self.apply_fn(self._to_device(tokens), self._to_device(lens))
+            else:  # fixed-shape inputs (images): batch bucket only
+                stacked = np.zeros((nb, *arrays[0].shape), arrays[0].dtype)
+                for i, a in enumerate(arrays):
+                    stacked[i] = a
+                signature = ("batch", arrays[0].shape, nb)
+                out = self.apply_fn(self._to_device(stacked))
+            out = self._readback(out)
+        with self._state_lock:
+            self._inflight = []
+        self._compiled.add(signature)
+        self._record_step("batch", time.monotonic() - t0, n / nb, signature)
+        self.metrics.increment_counter("app_tpu_tokens_total", n)
+        for i, r in enumerate(batch):
+            rt = r.kw.get("_rt")
+            if rt is not None:
+                rt.end("engine.infer", **{"batch.occupancy": n / nb})
+            r.complete(result=self.decode_fn(out[i]))  # a no-op if it already failed
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return executor.to_device(a, self.device)
+
+    def _readback(self, out: torch.Tensor) -> torch.Tensor:
+        """The step's one device-to-host copy: pinned, then waited on."""
+        return executor.Readback(self.device, out).wait()[0]
+
+
+# -- continuous batching (generate) --------------------------------------------
+
+
+class GenerateEngine(_EngineBase):
+    """Continuous batching for a ``Llama`` on the paged pool or the slot
+    cache.
+
+    ``device`` is where the engine runs (the card unless the caller asks for
+    the CPU) and must be the model's device. ``max_len`` caps prompt plus
+    generation per request. ``kv_layout`` is ``"paged"`` (``page_size`` and
+    ``total_pages`` size the pool; default: every slot can hold a
+    ``max_len`` request; fewer pages serve the usual load and preempt under
+    a burst) or ``"slot"`` (``cache_len`` positions per slot).
+    ``kv_quantize`` picks the cache's format: ``""`` the model's dtype,
+    ``"int8"`` or, on the paged layout only, ``"int4"`` quantized rows with
+    bf16 scales (2x or 4x the positions in the same memory).
+    ``prefill_buckets`` (default 16, 32, ... up to ``max_len``) are the
+    planner's length buckets; a prompt longer than the largest is prefilled
+    in chunks of that length. ``prefix_cache`` keeps full prompt pages for
+    later prompts that share them (paged layout only). ``spec_tokens`` > 0
+    decodes speculatively, proposing that many tokens a round by prompt
+    lookup, or by the draft model of ``spec_draft`` = (its ``LlamaConfig``,
+    its ``Llama``; slot layout only, on the engine's device, sharing the
+    target's vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
+    from which the slots are derived) turns on the adapter plane: a device
+    pool of that many slots of rank up to ``adapter_rank``, slot 0 the base,
+    and a host registry of ``adapter_host_mb``. ``pipeline_depth`` (1..4,
+    default 2; ``decode_pipeline`` is its alias) bounds the device calls in
+    flight. ``prefix_host_mb`` > 0 gives the prefix cache a host tier of
+    that many MiB of pinned memory (at least one page, else it stays
+    off). ``container`` (the App's) supplies the metrics, logger, tracer,
+    flight recorder and SLO engine, and turns the perf plane on; without
+    one the engine records into a private registry, every plane off.
+    ``max_restarts`` crashes of the loop within ``restart_window_s`` (60 s)
+    are survived; the next one ends it (DOWN). ``quality_shadow_rate`` > 0
+    shadow-scores that share of finished requests (``metrics/quality.
+    QualityPlane``, seeded by ``quality_seed``, the engine's ``seed`` when
+    None or negative; the other ``quality_*`` knobs are its bounds and
+    thresholds). ``control_enable`` builds the step controller (with a
+    container; its policy is the container config's ``CONTROL_*``).
+    ``role`` is ``"both"`` (colocated), ``"prefill"`` or ``"decode"`` (paged
+    layout only): a prefill worker exports to the decode worker at
+    ``handoff_target`` (without one it serves colocated), a decode worker
+    imports on ``handoff_listen`` (default an ephemeral localhost port,
+    ``handoff_addr`` once bound) into its host tier, which defaults to
+    max(one page, 256 MiB) and needs the prefix cache. ``handoff_timeout_s``
+    bounds each wire write and ACK wait (and the request's deadline, where
+    tighter); ``handoff_streams`` > 0 streams over that many connections
+    (0: one blob frame a prompt), ``handoff_chunk_pages`` pages a chunk,
+    ``handoff_pace_mbps`` > 0 caps the exporter's rate."""
+
+    def __init__(self, model: Llama, *, device: str | torch.device | None = None,
+                 slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
+                 max_prefill_batch: int = 4, decode_chunk: int = 8,
+                 eos_token_id: int | None = None, top_k: int = 0, top_p: float = 1.0,
+                 tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
+                 page_size: int = 128, total_pages: int | None = None,
+                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
+                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
+                 adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
+                 adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
+                 decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None,
+                 max_restarts: int = 3, quality_shadow_rate: float = 0.0,
+                 quality_seed: int | None = None, quality_max_pending: int = 16,
+                 quality_max_tokens: int = 64, quality_top1_min: float = 0.9,
+                 quality_kl_max: float = 1.0, quality_recent: int = 32,
+                 control_enable: bool = False, role: str = "both",
+                 handoff_target: str | None = None, handoff_listen: str | None = None,
+                 handoff_timeout_s: float = 5.0, handoff_streams: int = 2,
+                 handoff_chunk_pages: int = 4, handoff_pace_mbps: float = 0.0):
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
+        # disaggregated serving (engine.py:1153-1171): role workers need the
+        # paged layout, since the handoff payload IS pool pages
+        if role not in ROLES:
+            raise ValueError(f"ENGINE_ROLE {role!r}: use 'both', 'prefill' or 'decode'")
+        if role != "both" and kv_layout != "paged":
+            raise ValueError(f"ENGINE_ROLE={role} needs kv_layout='paged' (the KV handoff ships "
+                             "pool pages)")
+        self.role = role
+        if kv_quantize not in KV_QUANTIZE:
+            raise ValueError(f"kv_quantize={kv_quantize!r}: use '', 'int8' or 'int4'")
+        if kv_quantize == "int4" and kv_layout != "paged":
+            raise ValueError("kv_quantize='int4' needs kv_layout='paged' (packed-nibble "
+                             "pages); the slot layout supports '' or 'int8'")
+        self.spec_tokens = max(0, int(spec_tokens))
+        if spec_draft is not None:
+            if not self.spec_tokens:
+                raise ValueError("spec_draft requires spec_tokens > 0")
+            if kv_layout != "slot":
+                raise ValueError(
+                    "spec_draft (draft-model speculative decoding) is slot-layout only (v1): "
+                    "the paged layout's page allocation would need the draft cache paged "
+                    "too — use kv_layout='slot' or drop spec_draft")
+        super().__init__(container, device=device, default_timeout=default_timeout,
+                         max_restarts=max_restarts)
+        if model.device.type != self.device.type or (
+                self.device.index is not None and model.device.index != self.device.index):
+            raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
+        self.model = model
+        self.cfg: LlamaConfig = model.cfg
+        self.num_slots = slots
+        self.decode_chunk = max(1, decode_chunk)
+        # positions one chunk can write past max_len: decode_chunk steps, or
+        # decode_chunk rounds of g + 1 positions and g for the draft's
+        # last step (engine.py:1113)
+        g = self.spec_tokens
+        self.chunk_span = self.decode_chunk * (g + 1) + g if g else self.decode_chunk
+        self.max_len = min(max_len, self.cfg.max_seq_len - self.chunk_span)
+        self.prefill_buckets = (sorted(prefill_buckets) if prefill_buckets
+                                else pow2_buckets(16, self.max_len))
+        # a prompt past the largest bucket is prefilled this much per turn
+        self.prefill_chunk = self.prefill_buckets[-1]
+        self.max_prefill_batch = max_prefill_batch
+        self.eos_token_id = eos_token_id
+        self.top_k, self.top_p = top_k, top_p
+        self.tokenizer = tokenizer
+        self.kv_layout = kv_layout
+        self.kv_quantize = kv_quantize
+        # the device calls in flight (engine.py:1086-1090)
+        depth = pipeline_depth if pipeline_depth is not None else decode_pipeline
+        self.pipeline_depth = max(1, min(4, int(depth)))
+        # the step controller's knobs (engine.py:1091-1106): the values the
+        # engine was built with are the ceilings it explores below, never
+        # past. Moves queue here and land only at the loop-top seam
+        # (``_apply_pending_knobs``). ``chunk_span``, the history and the
+        # pages stay sized for the boot ``spec_tokens``.
+        self._boot_pipeline_depth = self.pipeline_depth
+        self._boot_prefill_batch = self.max_prefill_batch
+        self._boot_spec_tokens = self.spec_tokens
+        self._knob_requests: collections.deque = collections.deque()
+        self._control = None
+        self._prefix: PrefixCache | None = None
+        if kv_layout == "paged":
+            self.page_size = page_size
+            # the table covers the positions a chunk writes past max_len
+            # (engine.py:1201)
+            self.pages_per_slot = math.ceil((self.max_len + self.chunk_span) / page_size)
+            self.total_pages = total_pages or slots * self.pages_per_slot
+            if self.total_pages < self.pages_per_slot:
+                raise ValueError(f"total_pages {self.total_pages} < pages_per_slot "
+                                 f"{self.pages_per_slot}: one max-length request cannot fit")
+            self.cache = make_pool(model, kv_quantize, self.total_pages, page_size)
+            self._free_pages = list(range(self.total_pages))
+            # slots and the prefix cache hold shares of a page; it returns to
+            # the free list when its count reaches 0
+            self._page_refs = np.zeros(self.total_pages, np.int64)
+            self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            # OOB convention: unallocated entries point one past the pool
+            self._table: np.ndarray | None = np.full((slots, self.pages_per_slot),
+                                                     self.total_pages, np.int32)
+            self._idle_position = 0
+            # a page's bytes over every plane: the host tier's unit
+            # (engine.py:1258)
+            self._page_bytes = sum(t.nbytes for t in vars(self.cache).values()) // self.total_pages
+            host_budget = int(max(0.0, float(prefix_host_mb)) * (1 << 20))
+            if host_budget and host_budget < self._page_bytes:
+                log.warning("prefix_host_mb=%g is below one page (%d bytes); host tier off",
+                            prefix_host_mb, self._page_bytes)
+                host_budget = 0
+            if role == "decode" and prefix_cache and not host_budget:
+                # a decode worker imports handed-off pages as host-tier
+                # nodes (engine.py:1278-1291): without a budget every
+                # transfer would be dropped at the door; the budget is a
+                # cap, not an allocation
+                host_budget = max(self._page_bytes, 256 << 20)
+            if prefix_cache:
+                self._prefix = PrefixCache(page_size, host_budget_bytes=host_budget)
+            if role == "decode" and (self._prefix is None or not self._prefix.host_budget):
+                raise ValueError("ENGINE_ROLE=decode needs the prefix cache with a host tier "
+                                 "(the handoff import target); keep ENGINE_PREFIX_CACHE on")
+        else:
+            # a chunk never writes past the slot; a multiple of 128 where the
+            # model allows it (engine.py:1321)
+            self.cache_len = min(math.ceil((self.max_len + self.chunk_span) / 128) * 128,
+                                 self.cfg.max_seq_len)
+            self.cache = make_pool(model, kv_quantize, slots, self.cache_len, "slot")
+            self._table = None
+            # lanes that do not decode write at and past the slot's end,
+            # where the append drops (tpu/decode.py:309-315)
+            self._idle_position = self.cache_len
+        # the proposer's state: the token history (its width the slot's
+        # positions), or the draft model and its slot cache (engine.py:2549)
+        self._aux: SpecAux = None
+        if spec_draft is not None:
+            self._aux = self._draft(*spec_draft)
+        elif self.spec_tokens:
+            width = (self.pages_per_slot * page_size if kv_layout == "paged"
+                     else self.cache_len)
+            self._aux = new_history(slots, width, self.device)
+        # the adapter plane (engine.py:1455-1493): off, nothing changes. As
+        # there, any non-zero slot count turns it on with at least 2 slots,
+        # and the rank is at least 1
+        ad_slots, ad_rank = int(adapter_slots), max(1, int(adapter_rank))
+        if adapter_pool_mb and not ad_slots:
+            ad_slots = AdapterPool.slots_for_budget(float(adapter_pool_mb), self.cfg.hidden_size,
+                                                    self.cfg.vocab_size, ad_rank)
+        self.adapters: AdapterRegistry | None = None
+        self._adapter_pool: AdapterPool | None = None
+        if ad_slots:
+            self._adapter_pool = AdapterPool(max(2, ad_slots), self.cfg.hidden_size,
+                                             self.cfg.vocab_size, ad_rank, device=self.device)
+            self.adapters = AdapterRegistry(host_budget_mb=float(adapter_host_mb))
+        # lifetime (accepted, proposed) draft tokens by adapter, summed from
+        # each request as it completes (engine.py:536)
+        self._spec_totals: dict[str, list[float]] = {}
+        # full-model adoptions so far, and one waiting for the loop
+        self.weights_epoch = 0
+        self._pending_weights: tuple[dict, threading.Event] | None = None
+        self._swap_lock = threading.Lock()
+        self.slots: list[_Slot | None] = [None] * slots
+        self._admit_seq = 0
+        # what admission did, for callers and the smoke run
+        self.counters = dict.fromkeys(COUNTERS, 0)
+        # the in-flight queue of device calls (``executor.Entry``), the
+        # carries on the card of the decode chunk and spec round last
+        # dispatched, the host tier's staged swap-ins and spills, and what
+        # the queue did (``pipeline_stats``)
+        self._dq: collections.deque[executor.Entry] = collections.deque()
+        self._prev_last: torch.Tensor | None = None
+        self._spec_carry: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._pending_swapins: list[tuple] = []
+        self._pending_spills: list[tuple] = []
+        self._pipeline: dict[str, Any] = {
+            "dq_max": 0, "dq_carried_max": 0, "dispatched": {}, "folds": 0, "fold_wait_s": 0.0,
+            "busy_turns": 0, "busy_turn_s": 0.0, "swapin_s": 0.0, "dropped": 0}
+        self._seed = seed
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        # prompts that fit a bucket, and longer ones that chunk
+        self._pending: list[tuple[Request, np.ndarray]] = []
+        self._pending_long: list[tuple[Request, np.ndarray]] = []
+        # a warmup waiting for the loop's next turn boundary
+        self._pending_warmup: dict | None = None
+        # the split plans warmup's autotuner pinned ({op: plan}, each at its
+        # shape key), its report (None until it ran), and an injectable
+        # timer and candidate launcher (the tests' fake timings and split
+        # plain versions; None is the events timer and the kernel); a
+        # restart keeps the pins
+        self._autotune_pins: dict[str, str] = {}
+        self._autotune_shapes: dict[str, str] = {}
+        self._autotune: dict | None = None
+        self._autotune_timer = None
+        self._autotune_launch = None
+        self.perf: PerfPlane | None = self._perf_plane() if container is not None else None
+        self._quality = self._quality_plane(
+            quality_shadow_rate, quality_seed, max_pending=quality_max_pending,
+            max_tokens=quality_max_tokens, top1_min=quality_top1_min, kl_max=quality_kl_max,
+            recent=quality_recent)
+        if self._prefix is not None:
+            self._set_prefix_gauges()
+        # the step controller (engine.py:1603-1613): off unless asked, and
+        # only with the perf plane it reads; a controller that cannot be
+        # built leaves the engine serving without one
+        if control_enable and self.perf is not None:
+            try:
+                self._control = self._build_controller()
+            except Exception as e:  # noqa: BLE001 - control must not gate serving
+                self._warn(f"step controller disabled: {e}")
+        self._handoff_plumbing(handoff_target, handoff_listen, handoff_timeout_s,
+                               handoff_streams, handoff_chunk_pages, handoff_pace_mbps)
+        self._start_loop("gofr-torch-engine")
+
+    def _handoff_plumbing(self, target: str | None, listen: str | None, timeout_s: float,
+                          streams: int, chunk_pages: int, pace_mbps: float) -> None:
+        """The handoff endpoints (engine.py:1641-1690): a decode worker
+        listens for prefill workers' pages, a prefill worker exports to
+        ``target``, and without one serves colocated (a mis-wired worker
+        stays correct while the decode pool comes up)."""
+        self.handoff_timeout_s = float(timeout_s)
+        self.handoff_streams = max(0, int(streams))
+        self.handoff_chunk_pages = max(1, int(chunk_pages))
+        self.handoff_pace_mbps = max(0.0, float(pace_mbps))
+        self._handoff_exporter: HandoffExporter | None = None
+        self._handoff_server: HandoffServer | None = None
+        self.handoff_addr = ""
+        if self.role == "decode":
+            self._handoff_server = HandoffServer(self, listen or "127.0.0.1:0",
+                                                 logger=self.logger, metrics=self.metrics)
+            self.handoff_addr = self._handoff_server.addr
+            (self.logger.infof if self.logger is not None else log.info)(
+                "kv handoff import listening at %s", self.handoff_addr)
+        elif self.role == "prefill":
+            if target:
+                self._handoff_exporter = HandoffExporter(
+                    target, engine=self, timeout_s=self.handoff_timeout_s,
+                    streams=self.handoff_streams, chunk_pages=self.handoff_chunk_pages,
+                    pace_mbps=self.handoff_pace_mbps, logger=self.logger, metrics=self.metrics)
+            else:
+                self._warn("ENGINE_ROLE=prefill without HANDOFF_TARGET: prompts decode locally "
+                           "(colocated fallback)")
+
+    def _draft(self, cfg: LlamaConfig, model: Llama) -> Draft:
+        """Check a draft model against the engine (engine.py:1328) and give it
+        a slot cache of the engine's slots and cache length."""
+        if model.cfg != cfg:
+            raise ValueError("spec_draft's model was built for another config than its cfg")
+        if cfg.max_seq_len < self.cache_len:
+            raise ValueError(f"spec_draft max_seq_len {cfg.max_seq_len} < engine cache length "
+                             f"{self.cache_len}: the draft cache must cover every position the "
+                             "target serves")
+        if cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(f"spec_draft vocabulary {cfg.vocab_size} differs from the target's "
+                             f"{self.cfg.vocab_size}: its proposals are the target's token ids")
+        if model.device != self.model.device:
+            raise ValueError(f"spec_draft lives on {model.device}, the engine on "
+                             f"{self.model.device}")
+        return Draft(model, make_pool(model, "", self.num_slots, self.cache_len, "slot"))
+
+    def _perf_plane(self) -> PerfPlane | None:
+        """The live perf plane (engine.py:1347-1387): a cost model from the
+        engine's actual geometry — parameter count and bytes (the draft's
+        too, as JAX's one parameter tree holds both; an int8 ``QLinear``'s
+        scales count as the ``QTensor`` leaves do) and the pool's bytes
+        per position read off its tensors — priced against the card's
+        peaks. As in JAX a meter that cannot be built leaves the engine
+        serving without one."""
+        try:
+            models = [self.model] + ([self._aux.model] if isinstance(self._aux, Draft) else [])
+            positions = (self.total_pages * self.page_size if self._table is not None
+                         else self.num_slots * self.cache_len)
+            pool_bytes = sum(t.nbytes for t in vars(self.cache).values())
+            kind = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                    else self.device.type)
+            return PerfPlane(CostModel(
+                n_params=sum(t.numel() for m in models for t in m.state_dict().values()),
+                weight_bytes=sum(quantized_bytes(m) for m in models),
+                kv_bytes_per_pos=pool_bytes / max(1, positions),
+                page_bytes=getattr(self, "_page_bytes", 0.0),
+                page_size=self.page_size if self._table is not None else 0,
+                kv_dtype=self.kv_quantize or "bf16"), kind)
+        except Exception as e:  # noqa: BLE001 - the meter must not gate serving
+            (self.logger.warn if self.logger is not None else log.warning)(
+                f"perf plane disabled: {e}")
+            return None
+
+    def _quality_plane(self, rate: float, seed: int | None, **bounds: Any):
+        """The quality plane (engine.py:1515-1561), or None at rate 0, where
+        the loop pays one branch an idle turn. The model is read at each
+        scored arm, so an adoption is scored with the weights it installed;
+        an adapter's factors are read when its request is sampled."""
+        rate = max(0.0, min(1.0, float(rate)))
+        if rate <= 0.0:
+            return None
+        from gofr_tpu_torch.metrics.quality import QualityPlane
+
+        def adapter_factors(name: str):
+            if self.adapters is None:
+                return None
+            try:
+                spec = self.adapters.get(name)
+            except KeyError:
+                return None
+            return (spec.a, spec.b, spec.scale)
+
+        return QualityPlane(
+            lambda: self.model, metrics=self.metrics, slo=self.slo, rate=rate,
+            seed=self._seed if seed is None or int(seed) < 0 else int(seed),
+            kv_dtype=self.kv_quantize or "bf16", backend_fn=self._quality_backend,
+            adapter_fn=adapter_factors, **bounds)
+
+    def _quality_backend(self) -> str:
+        """The quality labels' backend: the route the kernels take, ``cuda``
+        on the card and ``plain`` on the CPU (JAX names its autotune pins,
+        ``pallas`` / ``xla``)."""
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    # -- caller side -----------------------------------------------------------
+
+    def submit(self, prompt: Any, max_new_tokens: int = 64, temperature: float = 0.0,
+               timeout: float | None = None, stream: bool = False, **kw: Any) -> Request:
+        """Non-blocking enqueue (engine.py:401-484); returns the Request
+        future (with ``stream``, one whose ``stream_q`` gets the tokens as
+        they come). ``eos_token_id`` in ``kw`` overrides the engine's.
+        ``qos_class`` in ``kw`` names the request's QoS class.
+        ``adapter_id`` in ``kw`` names a registered LoRA adapter: an unknown
+        one, or one named on an engine without the adapter plane, raises
+        ValueError, and one at its cap raises ``TooManyRequests``; the
+        request's share of the cap goes back when it completes, however it
+        ends; an adapter's declared ``qos_class`` is the request's default
+        class. With QoS bound, admission runs before the request exists:
+        the backlog cap and a class's concurrency cap raise 503 / 429 with a
+        retry hint, and a ``timeout`` below the predicted queue wait raises
+        ``DeadlineExceeded`` (504). ``_on_submit`` in ``kw`` is called with
+        the Request as soon as it exists (a transport tracks it to cancel),
+        and ``_parent_span`` is the caller's span the engine's spans hang
+        under; a ``timeout`` of 0 or less raises ``DeadlineExceeded``."""
+        return self._submit(prompt, timeout, stream, kw, max_new_tokens=int(max_new_tokens),
+                            temperature=float(temperature))
+
+    def _backlog(self) -> int:
+        return self._queue.qsize() + len(self._pending) + len(self._pending_long)
 
     def _adapter_ids(self, slots: list) -> list | None:
         """One adapter id a dispatched lane ("base" without one) for the
@@ -1036,9 +1437,7 @@ class GenerateEngine:
         """End the loop (it settles its calls in flight on the way out),
         fail every request still queued or in a slot, and close the handoff
         endpoints."""
-        self._stop.set()
-        self._thread.join(timeout=30.0)
-        self._fail_all(EngineClosed("engine stopped"))
+        super().stop()
         if self._handoff_exporter is not None:
             self._handoff_exporter.close()
         if self._handoff_server is not None:
@@ -1058,21 +1457,6 @@ class GenerateEngine:
         with self._state_lock:
             return {"depth": self.pipeline_depth, **self._pipeline,
                     "dispatched": dict(self._pipeline["dispatched"])}
-
-    def health_check(self) -> dict[str, Any]:
-        """What ``Container.health`` reports for this engine
-        (engine.py:677-690): DOWN once the loop spent its restart budget,
-        DEGRADED with ``restarting`` during a crash's backoff or when its
-        thread is not running (after ``stop``), else UP with the requests
-        not yet in a slot and the restarts so far. The thread starts with
-        the engine, where the JAX App starts it in ``arun``."""
-        if self._error is not None:
-            return {"status": "DOWN", "details": {"error": str(self._error)}}
-        if self._restarting:
-            return {"status": "DEGRADED",
-                    "details": {"restarting": True, "restarts": self._restarts}}
-        return {"status": "UP" if self._thread.is_alive() else "DEGRADED",
-                "details": {"queue_depth": self._backlog(), "restarts": self._restarts}}
 
     def warmup(self, len_buckets: list[int] | None = None,
                batch_buckets: list[int] | None = None) -> int:
@@ -1541,87 +1925,21 @@ class GenerateEngine:
 
     # -- device thread ---------------------------------------------------------
 
-    def _run(self) -> None:
-        """The loop (engine.py:3296-3386): admit, then one chunk of one long
-        prompt, then one decode chunk, each dispatched onto the in-flight
-        queue; then fold the oldest calls until ``pipeline_depth`` - 1 are
-        left while work keeps coming, all of them when the turn found none.
-        At depth 1 each phase is folded before the next. A turn that
-        raises crashes the loop, which restarts (``_restart_after``) or
-        ends. On the way out, stopped or ended, the calls in flight are
-        settled, and an ended loop fails every waiter."""
-        try:
-            while self._serve():
-                pass
-        finally:
-            self._drain_device_state()
-            if self._error is not None:
-                self._fail_all(self._error)
-
-    def _serve(self) -> bool:
-        """One life of the loop (engine.py:337-395); returns whether it
-        restarts."""
-        try:
-            while not self._stop.is_set():
-                if self._pending_weights is not None:
-                    self._apply_pending_weights()
-                if self._pending_warmup is not None:
-                    self._apply_pending_warmup()
-                with self._decision_scope():
-                    self._turn()
-            return False
-        except Exception as e:  # noqa: BLE001 - the loop's boundary
-            return self._restart_after(e)
-
-    def _restart_after(self, error: Exception) -> bool:
-        """After a crash: log it, fail the slot-resident requests and reset
-        the device state (``_crash_recover``), then restart after a backoff
-        of ``min(0.1 * 2^n, 5)`` s unless the engine is stopping or
-        ``max_restarts`` crashes came within ``restart_window_s``; else set
-        the error that reads DOWN. Never raises: a fault here would end the
-        thread without failing the queued callers, who would hang to their
-        timeouts (engine.py:384-389). A recovery that fails itself (a card
-        whose fault is sticky fails every later call) spends the budget."""
-        try:
-            self._log_crash(error, "model engine step crashed")
-            recovered = True
-            try:
-                self._crash_recover(error)
-            except Exception as e2:  # noqa: BLE001 - the state cannot be trusted
-                self._log_crash(e2, "engine crash recovery failed")
-                recovered = False
-            now = time.monotonic()
-            if now - self._last_crash_at > self.restart_window_s:
-                self._restarts = 0  # an isolated fault, not a crash loop
-            self._last_crash_at = now
-            if self._stop.is_set() or not recovered or self._restarts >= self.max_restarts:
-                self._error = error
-                return False
-            self._restarts += 1
-            self.metrics.increment_counter("app_tpu_engine_restarts", 1)
-            self._restarting = True
-            try:
-                if self._restart_hook is not None:
-                    self._restart_hook(attempt=self._restarts)
-            except Exception as e2:  # noqa: BLE001 - never outranks the restart
-                self._log_crash(e2, "engine restart path")
-            self._stop.wait(min(0.1 * (2 ** self._restarts), 5.0))
-            self._restarting = False
-            msg = (f"engine device loop restarting (attempt {self._restarts}/"
-                   f"{self.max_restarts})")
-            (self.logger.warn if self.logger is not None else log.warning)(msg)
-            return True
-        except Exception:  # noqa: BLE001 - the last line: end, failing every waiter
-            log.exception("engine restart path failed")
-            self._restarting = False
-            self._error = error
-            return False
-
-    def _log_crash(self, error: BaseException, note: str) -> None:
-        if self.logger is not None:
-            self.logger.log_exception(error, note)
-        else:
-            log.error(note, exc_info=error)
+    def _loop(self) -> None:
+        """One life of the loop (engine.py:3296-3386): admit, then one chunk
+        of one long prompt, then one decode chunk, each dispatched onto the
+        in-flight queue; then fold the oldest calls until
+        ``pipeline_depth`` - 1 are left while work keeps coming, all of them
+        when the turn found none. At depth 1 each phase is folded before the
+        next. An adoption or a warmup waiting for the loop runs at a turn
+        boundary."""
+        while not self._stop.is_set():
+            if self._pending_weights is not None:
+                self._apply_pending_weights()
+            if self._pending_warmup is not None:
+                self._apply_pending_warmup()
+            with self._decision_scope():
+                self._turn()
 
     def _crash_recover(self, error: Exception) -> None:
         """A crash's cleanup (engine.py:2324-2340): the requests in slots,
@@ -1699,11 +2017,7 @@ class GenerateEngine:
                                                           [], [])
         for req, _ in pending:
             req.complete(error=error)
-        while True:
-            try:
-                self._queue.get_nowait().complete(error=error)
-            except queue.Empty:
-                break
+        self._fail_queued(error)
 
     def _encode(self, inputs: Any) -> np.ndarray:
         if isinstance(inputs, str):
@@ -2665,15 +2979,16 @@ _PRESETS = {"llama3_8b": LlamaConfig.llama3_8b, "one_b": LlamaConfig.one_b,
             "tiny": LlamaConfig.tiny}
 
 
-def _model(cfg: LlamaConfig, params: Any, dev: torch.device, seed: int) -> Llama:
-    """``params`` as a ``Llama`` already built, a JAX parameter tree as
-    numpy arrays (``params_from_jax``), or None for random weights drawn on
-    ``dev`` from ``seed``."""
-    if isinstance(params, Llama):
+def _model(family: Any, cfg: Any, params: Any, dev: torch.device, seed: int) -> torch.nn.Module:
+    """A family's model: ``params`` as the model already built (a ``Llama``,
+    ``Bert`` or ``ViT``), a JAX parameter tree as numpy arrays (the family's
+    ``params_from_jax``), or None for random weights drawn on ``dev`` from
+    ``seed`` (its ``init``)."""
+    if isinstance(params, torch.nn.Module):
         return params
     if params is not None:
-        return params_from_jax(cfg, params, dev)
-    return init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        return family.params_from_jax(cfg, params, dev)
+    return family.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
 
 
 def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
@@ -2785,19 +3100,80 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     }
 
 
+def build_batch_engine(spec: ModelSpec, container: Any, cfg: Any, *,
+                       device: str | torch.device | None = None, seed: int = 0,
+                       **kw: Any) -> BatchEngine:
+    """The embed and classify branches of ``build_engine``
+    (engine.py:4370-4401): a ``BatchEngine`` over the spec's encoder, with
+    ``max_batch`` (``ENGINE_MAX_BATCH``, 32), ``max_wait_ms``
+    (``ENGINE_MAX_WAIT_MS``, 2.0), ``default_timeout`` (``ENGINE_TIMEOUT``)
+    and ``max_restarts`` (``ENGINE_MAX_RESTARTS``, 3) from the container's
+    config, ``kw`` winning; other ``kw`` go to ``BatchEngine``. An embed
+    engine encodes a string with the spec's tokenizer (and raises without
+    one), and refuses ids outside the vocabulary; a classify engine takes
+    an image [H, W, C] as float32. The card's kernel C takes bf16 only, so
+    an encoder in another dtype raises there rather than be converted."""
+    conf = container.config
+    family = get_family(spec.family)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{spec.family} in {cfg.dtype} on the card: kernel C takes bf16 only (ROADMAP.md "
+            "Queue B 7, 'C on f32 inputs'); serve ModelSpec(..., dtype=torch.bfloat16)")
+    quantize = kw.pop("quantize", None)
+    if quantize:
+        raise ValueError(f"family {spec.family!r} does not support weight-only quantization")
+    if quantize is None and conf.get_or_default("ENGINE_QUANTIZE", ""):
+        container.logger.warn(f"ENGINE_QUANTIZE ignored for family {spec.family!r} "
+                              "(no quantized linears)")
+    knobs = {"max_batch": int(kw.pop("max_batch", conf.get_int("ENGINE_MAX_BATCH", 32))),
+             "max_wait_ms": float(kw.pop("max_wait_ms", conf.get_float("ENGINE_MAX_WAIT_MS", 2.0))),
+             "default_timeout": kw.pop("default_timeout",
+                                       conf.get_float("ENGINE_TIMEOUT", 0.0) or None),
+             "max_restarts": int(kw.pop("max_restarts", conf.get_int("ENGINE_MAX_RESTARTS", 3)))}
+    if spec.weights is None:
+        container.logger.warn(f"model {spec.family}: no weights given — randomly initialized "
+                              "(dev/bench mode)")
+    model = _model(family, cfg, spec.weights, dev, seed)
+    if model.device.type != dev.type:
+        raise ValueError(f"model lives on {model.device}, engine device is {dev}")
+    if spec.task == "embed":
+        tokenizer, vocab = spec.tokenizer, cfg.vocab_size
+
+        def encode(inputs: Any) -> np.ndarray:
+            if isinstance(inputs, str):
+                if tokenizer is None:
+                    raise ValueError("string input but no tokenizer on the embed engine")
+                inputs = tokenizer.encode(inputs)
+            ids = np.asarray(inputs, np.int32).reshape(-1)
+            if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+                raise ValueError(f"token id outside [0, {vocab})")
+            return ids
+
+        engine = BatchEngine(model.embed_pooled, container, device=dev, encode_fn=encode,
+                             **knobs, **kw)
+    else:
+        engine = BatchEngine(model, container, device=dev,
+                             encode_fn=lambda x: np.asarray(x, np.float32), **knobs, **kw)
+    engine.model = model
+    return engine
+
+
 def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container: Any = None, *,
                  params: Any = None, device: str | torch.device | None = None, seed: int = 0,
                  spec_draft: tuple[str | LlamaConfig, Any] | None = None,
-                 **kw: Any) -> GenerateEngine:
-    """An engine for a Llama model, in one of two forms.
+                 **kw: Any) -> GenerateEngine | BatchEngine:
+    """An engine for a model, in one of two forms.
 
     ``build_engine(spec, container, **kw)`` is the App's (engine.py:4036):
-    the model is the ``ModelSpec``'s (its config, weights, tokenizer and
-    dtype), the knobs come from the container's config (``engine_knobs``)
-    with ``kw`` winning, the eos id from the tokenizer unless
-    ``eos_token_id`` is given, a random model is announced with the
+    the model is the ``ModelSpec``'s (its family, config, weights,
+    tokenizer and dtype), the knobs come from the container's config
+    (``engine_knobs``) with ``kw`` winning, the eos id from the tokenizer
+    unless ``eos_token_id`` is given, a random model is announced with the
     logger's warn, and the engine takes its request planes from the
-    container.
+    container. A ``generate`` spec (llama) builds a ``GenerateEngine``; an
+    ``embed`` (bert) or ``classify`` (vit) spec a ``BatchEngine``
+    (``build_batch_engine``).
 
     ``build_engine(preset_or_config, params=..., **kw)`` is the direct one:
     a preset name or a ``LlamaConfig``, and ``kw`` straight to
@@ -2819,19 +3195,21 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
         if container is None or params is not None:
             raise TypeError("build_engine(spec, container): the knobs come from the container's "
                             "config and the weights from spec.weights")
-        if spec.family != "llama":
-            raise ValueError(f"model family {spec.family!r} is not ported; the port serves "
-                             "'llama'")
-        if spec.task != "generate":
-            raise ValueError(f"task {spec.task!r}: BatchEngine (embed, classify) is not ported "
-                             "yet (ROADMAP.md Queue A 9)")
+        if spec.task not in TASKS:
+            raise ValueError(f"unknown task {spec.task!r}; use generate|embed|classify")
+        family = get_family(spec.family)
+        if spec.task not in family.TASKS:
+            raise ValueError(f"family {spec.family!r} serves {'|'.join(family.TASKS)}, not task "
+                             f"{spec.task!r}")
         if isinstance(spec.weights, str) or isinstance(spec.tokenizer, str):
             raise ValueError("checkpoint paths, Hugging Face ids and tokenizer names are not "
-                             "ported yet (ROADMAP.md Queue A 9): pass weights as a Llama or a "
-                             "parameter tree, and a tokenizer object")
-        cfg = spec.config
+                             "ported yet (ROADMAP.md Queue A 9, models/convert.py): pass weights "
+                             "as the family's model or a parameter tree, and a tokenizer object")
+        cfg = resolve_config(spec.family, spec.config)
         if spec.dtype is not None and cfg.dtype != spec.dtype:
             cfg = dataclasses.replace(cfg, dtype=spec.dtype)
+        if spec.task != "generate":
+            return build_batch_engine(spec, container, cfg, device=device, seed=seed, **kw)
         kw = {**engine_knobs(container.config, kw), **kw}
         if kw.get("eos_token_id") is None and spec.tokenizer is not None:
             kw["eos_token_id"] = spec.tokenizer.eos_token_id
@@ -2848,11 +3226,11 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
     if quantize not in ("", "int8"):
         raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
     dev = resolve_device(device)
-    model = _model(cfg, params, dev, seed)
+    model = _model(llama_family, cfg, params, dev, seed)
     if quantize:
         model = quantize_tree(model)
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
-        spec_draft = (dcfg, _model(dcfg, spec_draft[1], dev, seed + 1))
+        spec_draft = (dcfg, _model(llama_family, dcfg, spec_draft[1], dev, seed + 1))
     return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, container=container,
                           **kw)

@@ -1,5 +1,13 @@
-"""Model families of the port (counterpart of gofr_tpu.models), and
-``ModelSpec``, what ``App.serve_model`` consumes (models/base.py:55)."""
+"""Model families of the port (counterpart of gofr_tpu.models), the family
+registry (models/__init__.py:22-26, base.py:81-90), and ``ModelSpec``, what
+``App.serve_model`` consumes (models/base.py:55).
+
+A family is a module with its config class (``CONFIG``), the tasks its
+model serves (``TASKS``), ``init(cfg, generator, device)`` for random
+weights and ``params_from_jax(cfg, tree, device)`` for a JAX parameter
+tree given as numpy arrays: ``llama`` generates, ``bert`` embeds (a
+``BatchEngine``), ``vit`` classifies images (a ``BatchEngine``).
+"""
 
 from __future__ import annotations
 
@@ -8,27 +16,68 @@ from typing import Any
 
 import torch
 
+from gofr_tpu_torch.models import bert, llama, vit
+from gofr_tpu_torch.models.bert import BertConfig
+from gofr_tpu_torch.models.llama import LlamaConfig
+from gofr_tpu_torch.models.vit import ViTConfig
+
+TASKS = ("generate", "embed", "classify")
+
 
 @dataclass
 class ModelSpec:
     """The serving-side description of a model that ``gpu.engine.
     build_engine`` turns into a running engine.
 
-    family: "llama" (the one family ported so far)
-    config: the family's config (``models.llama.LlamaConfig``)
-    task: "generate" (embed and classify wait for BatchEngine)
-    weights: None for random weights drawn from the engine's ``seed``; a
-             ``Llama`` already built; or a JAX parameter tree as numpy
-             arrays (``models.llama.params_from_jax``). Checkpoint paths
-             and Hugging Face ids wait for ``train/`` and ``convert.py``.
+    family: "llama" | "bert" | "vit" (``register_family`` adds more)
+    config: the family's config (``LlamaConfig``, ``BertConfig``,
+            ``ViTConfig``), a dict of overrides of its defaults, or None
+            for the defaults (``resolve_config``)
+    task: "generate" (llama), "embed" (bert) or "classify" (vit)
+    weights: None for random weights drawn from the engine's ``seed``; the
+             family's model already built; or a JAX parameter tree as numpy
+             arrays (the family's ``params_from_jax``). Checkpoint paths and
+             Hugging Face ids wait for ``train/`` and ``convert.py``.
     tokenizer: an object with ``encode``/``decode`` (e.g.
-             ``utils.tokenizer.ByteTokenizer``), or None for id prompts
-    dtype: the weights' torch dtype
+             ``utils.tokenizer.ByteTokenizer``), or None for id inputs
+    dtype: the weights' torch dtype (it replaces the config's; the card
+             serves an encoder in bf16 only)
     """
 
     family: str
-    config: Any
+    config: Any = None
     task: str = "generate"
     weights: Any = None
     tokenizer: Any = None
     dtype: torch.dtype = torch.bfloat16
+
+
+_FAMILIES: dict[str, Any] = {}
+
+
+def register_family(name: str, module: Any) -> None:
+    _FAMILIES[name] = module
+
+
+def get_family(name: str):
+    try:
+        return _FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"unknown model family {name!r}; registered: {sorted(_FAMILIES)}") from None
+
+
+def resolve_config(family: str, config: Any):
+    """The config a spec names (engine.py:3984): a config as it is, a dict
+    as overrides of the family's defaults, None as the defaults."""
+    if config is not None and not isinstance(config, dict):
+        return config
+    cls = get_family(family).CONFIG
+    return cls(**config) if isinstance(config, dict) else cls()
+
+
+register_family("llama", llama)
+register_family("bert", bert)
+register_family("vit", vit)
+
+__all__ = ["TASKS", "ModelSpec", "BertConfig", "LlamaConfig", "ViTConfig", "bert", "llama", "vit",
+           "get_family", "register_family", "resolve_config"]

@@ -125,6 +125,11 @@ def _linear(in_features: int, out_features: int, int8: bool, **factory) -> nn.Mo
     return nn.Linear(in_features, out_features, bias=False, **factory)
 
 
+# the family's registry entries (models/__init__.py)
+CONFIG = LlamaConfig
+TASKS = ("generate",)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: LlamaConfig, int8: bool = False, **factory):
         super().__init__()

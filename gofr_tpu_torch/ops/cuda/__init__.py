@@ -170,6 +170,7 @@ def _wrappers() -> dict:
     return {"paged_decode": paged_decode.paged_decode,
             "kv_append": kv_append.kv_append,
             "flash_attention": flash_attention.flash_attention,
+            "flash_attention_d64": flash_attention.flash_attention_d64,
             "paged_decode_q": paged_decode_q.paged_decode_q,
             "paged_decode_q4": paged_decode_q4.paged_decode_q4,
             "decode_attention": decode_attention.decode_attention,

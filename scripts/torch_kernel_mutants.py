@@ -19,7 +19,10 @@ D and E (the page pool's decodes) are one template in
 the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
 D and E; the five appends (B, G, B-q, B-q4, G-q) are one template in
 ``kv_append.cu``, held bit for bit. The W8A16 linear's two tilings and
-its split's second pass are one source, ``w8a16.cu``.
+its split's second pass are one source, ``w8a16.cu``. Kernel C is one
+template at head dims 128 and 64, so a fault in its body lands in both
+builds; the mutants in ``ONLY`` plant a fault in the 64 build alone, which
+must fail its check while the 128 build passes.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -97,6 +100,12 @@ MUTANTS = [
     ("flash_attention: online rescale of O skipped", "flash_attention.cu",
      "o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];",
      "(void)alpha;", True),
+    # faults in the head-dim-64 build alone (BERT, ViT, GPT-2): the 128 build
+    # must still pass (``ONLY``)
+    ("flash_attention_d64: one key past kv_length", "flash_attention.cu",
+     "!(kv < kl &&", "!(kv < kl + (kD == 64) &&", True),
+    ("flash_attention_d64: causal diagonal masked", "flash_attention.cu",
+     "(!causal || pos >= kv)", "(!causal || pos >= kv + (kD == 64))", True),
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
      "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
@@ -160,6 +169,11 @@ MUTANTS = [
      "row[lane] = pa;\n  row[lane + 32] = pb;", False),
 ]
 
+# Mutants whose fault lies in one kernel's instantiation: (that kernel, a
+# kernel built from the same source that must still pass)
+ONLY = {"flash_attention_d64: one key past kv_length": ("flash_attention_d64", "flash_attention"),
+        "flash_attention_d64: causal diagonal masked": ("flash_attention_d64", "flash_attention")}
+
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the
 # nearest fault of each decode kernel and a fault of the prefill kernel, to
@@ -213,6 +227,10 @@ def main() -> None:
         results.append(row)
         if (fname is None and not row["passed"]) or (must_catch and row["passed"]):
             bad.append(name)
+        if name in ONLY:
+            failing, passing = ONLY[name]
+            if row["kernels"][failing]["passed"] or not row["kernels"][passing]["passed"]:
+                bad.append(name)
     torch.cuda.empty_cache()
     model = init(LlamaConfig.llama3_8b(), torch.Generator(device="cuda").manual_seed(chip_smoke.SEED),
                  "cuda")

@@ -29,8 +29,14 @@ result line:
    build, ``flash_attention_d64``, at ``D64_SHAPES``: a full BERT-base
    step of the batch engine, 256 rows of 64 keys masked by lengths 8..64
    with 16 padded rows of length 1, a batch of 32 ViT-L/16 images of 197
-   positions, and GPT-2's causal 4 x 512, full and ragged with offsets and
-   a fully masked row): each held against its
+   positions, GPT-2's causal 4 x 512, full and ragged with offsets and
+   a fully masked row, and GPT-2's prefill chunk of 512 at offset 256);
+   the head-dim-64 builds of A and B at Llama one_b's decode step (Hq 32,
+   Hkv 4, the pool of page 128 and the 8 live slots and empty one above)
+   and of F and G at GPT-2 small's (Hq = Hkv 12, a slot cache of 1024
+   positions, 8 live lengths of 256..1024 and an empty slot), with the
+   same edge lanes and split boundaries as their 128 builds, each on layer
+   0 of a stack of layers (``D64_DECODE``): each held against its
    plain PyTorch version on the same inputs (the appends bit for bit,
    values and scales), timed with
    CUDA events and by device time beside the plain version, a library
@@ -194,7 +200,22 @@ result line:
    other kernel launches (every Llama run holds it at 0), and the outputs
    agree with the plain path on the same inputs, and a request alone with
    one inside a batch, within 5% of the plain outputs' range; each prints
-   its rate, latency and step occupancy;
+   its rate, latency and step occupancy. Last the head-dim-64 generate
+   runs: ``gpt2_generate``, GPT-2 small (12 layers of 768, 12 heads of 64)
+   with random bf16 weights from the seed, built by the App from a
+   ``ModelSpec`` and ``GPT2_CONFIG`` onto the family's bf16 slot cache of
+   1024 positions, 8 concurrent ``POST /generate`` of 64..768-token
+   prompts (those past the 512 bucket in chunks at an offset), 64 new
+   tokens each: C, F and G's 64 builds and no other kernel launch, F and G
+   equally often, whole decode steps x 12 layers, and the tokens equal the
+   plain path's on the card (``plain_tokens``, every kernel off) by the
+   tie rule; ``gpt2_w8``, the same with ``ENGINE_QUANTIZE=int8``: W8A16
+   6 x 12 times a model forward besides (the tied head stays bf16), fewer
+   weight bytes, tokens against ``gpt2_generate``'s printed, not held; and
+   ``one_b_bf16``, Llama one_b (22 layers of 2048, 32 heads of 64, 4 KV
+   heads) on ``bf16``'s pool and knobs and prompts: A, B and C's 64 builds,
+   A and B equally often, whole steps x 22 layers, no 128 build, tokens
+   the plain path's by the tie rule;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -223,7 +244,10 @@ result line:
    source bit for bit), on the pool a prefill worker's handoff export (the
    page copies staged at a chunk fold and at activation, each equal to its
    pool page bit for bit) and two speculative rounds, the folds outside it;
-   both checks also on the int8-weight model on the bf16 pool.
+   both checks also on the int8-weight model on the bf16 pool; and GPT-2's
+   slot path: a prefill in two chunks of 128 (C's 64 build once a layer
+   each) and two ``decode_step`` steps (F and G's 64 builds once a layer
+   each) under the same check.
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -431,12 +455,14 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
     from gofr_tpu_torch.ops.cuda.kv_append import (
         kv_append,
+        kv_append_d64,
         kv_append_q,
         kv_append_q4,
         kv_append_slot,
+        kv_append_slot_d64,
         kv_append_slot_q,
     )
-    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode
+    from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode, paged_decode_d64
     from gofr_tpu_torch.ops.kvcache import QSlotKVCache, append_tokens_plain, append_tokens_q
     from gofr_tpu_torch.ops.paged import (
         append_tokens_paged_plain,
@@ -468,25 +494,29 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     # bytes every decode kernel moves besides K/V: q and out, table, lengths
     decode_io = 2 * q.numel() * 2 + table.numel() * 4 + n * 4
 
-    def plan_holds(op: str, mod, launch, split_plain, span: int, dims: tuple) -> dict:
+    def plan_holds(op: str, mod, launch, split_plain, span: int, dims: tuple,
+                   qx=None, kv_heads: int | None = None) -> dict:
         """Split decode kernel ``op`` (A, D, E or F) at every plan the warmup
         autotuner races (``split_candidates``), each pinned by a decision
         scope at the launch's own shape key: the plan must be the one the
         launcher takes, its output is held against the split's plain
         version at that plan within the launcher's limits, and (if
-        ``timed``) it is timed with CUDA events over the layers."""
+        ``timed``) it is timed with CUDA events over the layers. ``qx``
+        and ``kv_heads`` are the launch's q and KV heads (the phase's
+        Llama-3-8B shapes when None)."""
+        qx, kv_heads = (q if qx is None else qx), (hkv if kv_heads is None else kv_heads)
         key, out = autotune.shape_key(*dims), {}
-        for rows in slot_decode_mod.split_candidates(n, hkv, span):
+        for rows in slot_decode_mod.split_candidates(qx.shape[0], kv_heads, span):
             name = autotune.plan_name(rows)
             with autotune.decision_scope({op: name}, {op: key}):
-                require(slot_decode_mod.split_scratch(q, hkv, span, op, dims)[0] == rows,
+                require(slot_decode_mod.split_scratch(qx, kv_heads, span, op, dims)[0] == rows,
                         f"{op}: the pinned plan {name} is not the one its launcher takes")
                 agree = agreement(f"{op} (plan {name})", launch(0), split_plain(rows), mod)
                 ms = time_ms(torch, launch, 50) if timed else None
             out[name] = {**agree, "ms": ms}
         return out
 
-    def edge_case(pool: int, maxp: int) -> tuple:
+    def edge_case(pool: int, maxp: int, kv_heads: int | None = None) -> tuple:
         """(split_rows, splits, lengths, table) of a paged decode's split
         edges: lanes on and one past the first three split boundaries, the
         whole table row, the empty slot and past the table, through a table
@@ -494,7 +524,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         inside two live lanes. Lanes this short are held against the split's
         plain version, which keeps the scores in f32 and splits as the
         kernels do."""
-        r, splits = slot_decode_mod.split_plan(n, hkv, maxp * page)
+        r, splits = slot_decode_mod.split_plan(n, hkv if kv_heads is None else kv_heads, maxp * page)
         edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, maxp * page, 0, maxp * page + 5, 3 * r,
                               3 * r + 1], device=dev, dtype=torch.int32)
         edge_table = torch.randint(0, pool, (n, maxp), generator=torch.Generator().manual_seed(SEED + 2),
@@ -744,6 +774,31 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
         checks["gpt2_ragged"], got_r = agree64("GPT-2 ragged", qg, kg, vg, causal=True,
                                                q_offset=offs, kv_lengths=lens)
         require(torch.all(got_r[3] == 0).item(), "flash_attention_d64: fully masked rows are not zero")
+        # GPT-2's chunked prefill in phase 4 (buckets 128/256/512): a chunk of
+        # 512 queries at offset 256 against the 768 keys of the slot's view
+        ch = d64["gpt2_chunk"]
+        c_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        sq, off, h = ch["queries"], ch["offset"], ch["heads"]
+        qc = torch.randn(1, sq, h, 64, device=dev, generator=c_gen).to(bf)
+        kc, vc = (torch.randn(1, off + sq, h, 64, device=dev, generator=c_gen).to(bf) for _ in range(2))
+        offc = torch.tensor([off], device=dev, dtype=torch.int32)
+        lenc = torch.tensor([off + sq], device=dev, dtype=torch.int32)
+        checks["gpt2_chunk_512_at_256"], _ = agree64("GPT-2 chunk 512 at 256", qc, kc, vc,
+                                                     causal=True, q_offset=offc, kv_lengths=lenc)
+        # query i at position off + i attends keys 0 .. off + i
+        c_ms, c_by = bound_ms(2 * (2 * qc.numel() + 2 * kc.numel()),
+                              4 * h * 64 * (sq * off + sq * (sq + 1) // 2))
+        chunk_mask = (torch.arange(off + sq, device=dev)[None, :]
+                      <= off + torch.arange(sq, device=dev)[:, None])
+        qch, kch, vch = (t.transpose(1, 2) for t in (qc, kc, vc))
+        gpt2_chunk = {"shape": ch, "bound_ms": c_ms, "bound_by": c_by,
+                      **timing(lambda i: flash_attention(qc, kc, vc, causal=True, q_offset=offc,
+                                                         kv_lengths=lenc),
+                               lambda i: mha_attention_plain(qc, kc, vc, causal=True, q_offset=offc,
+                                                             kv_lengths=lenc),
+                               lambda i: F.scaled_dot_product_attention(qch, kch, vch,
+                                                                        attn_mask=chunk_mask),
+                               iters=50, plain_iters=5)}
         return {
             "name": "flash_attention_d64", "route": "cuda",
             "source": "gofr_tpu_torch/csrc/flash_attention.cu",
@@ -757,6 +812,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
                      lambda i: F.scaled_dot_product_attention(qbh, kbh, vbh, attn_mask=bert_mask),
                      iters=50, plain_iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "vit_197": vit,
+            "gpt2_chunk_512_at_256": gpt2_chunk,
             "shape": {**d64["bert"], "d": 64, "causal": False,
                       "kv_lengths": {"min": int(lens_cpu.min()), "max": int(lens_cpu.max()),
                                      "live_keys": live}},
@@ -870,18 +926,19 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     pool_pages = k_pool.shape[1]
     table_cpu = table.cpu()
 
-    def append_rows() -> tuple:
+    def append_rows(kv_heads: int = hkv, dim: int = d) -> tuple:
         """k_new, v_new [N, Hkv, D] bf16, rows of max |x| 0.01..30; lane 4 all
         zero (codes 0, scale bf16(1e-8 / qmax)) and lane 5 a row whose max |x|
         is one element (its code reaches +-qmax), in the row's first half on
         K and its second half on V, the sign alternating by head."""
-        mag = torch.rand(2, n, hkv, 1, device=dev, generator=rows_gen) * 30 + 0.01
-        k_new, v_new = (torch.randn(2, n, hkv, d, device=dev, generator=rows_gen) * mag).to(bf)
-        for new, half in ((k_new, 0), (v_new, d // 2)):
+        mag = torch.rand(2, n, kv_heads, 1, device=dev, generator=rows_gen) * 30 + 0.01
+        k_new, v_new = (torch.randn(2, n, kv_heads, dim, device=dev, generator=rows_gen)
+                        * mag).to(bf)
+        for new, half in ((k_new, 0), (v_new, dim // 2)):
             new[4] = 0
             new[5] *= 1e-3
-            for h in range(hkv):
-                new[5, h, half + (h * 37) % (d // 2)] = (1 + h) * (-1) ** h
+            for h in range(kv_heads):
+                new[5, h, half + (h * 37) % (dim // 2)] = (1 + h) * (-1) ** h
         return k_new, v_new
 
     def pool_edges(pool: int) -> tuple:
@@ -937,12 +994,13 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
     # position lies in [0, MaxP x page)
     entries_timed = int(((c["lengths_cpu"] >= 0) & (c["lengths_cpu"] < table.shape[1] * page)).sum())
 
-    def append_bytes(entries: int, kept: int, row_out: int, scale: int) -> int:
+    def append_bytes(entries: int, kept: int, row_out: int, scale: int, kv_heads: int = hkv,
+                     dim: int = d) -> int:
         """What an append must move: the N positions, ``entries`` table
         entries, and for each of the ``kept`` lanes' Hkv rows of both planes
         the bf16 row read and the ``row_out``-byte row and ``scale``-byte
         scale written (a dropped lane's row need not be read)."""
-        return n * 4 + entries * 4 + 2 * kept * hkv * (d * 2 + row_out + scale)
+        return n * 4 + entries * 4 + 2 * kept * kv_heads * (dim * 2 + row_out + scale)
 
     def check_kv_append() -> dict:  # B
         k_new, v_new = append_rows()
@@ -1054,6 +1112,150 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
             (lambda i: kv_append_slot_q(*planes(i), lengths, k_new, v_new), plain_both),
             append_bytes(0, kept_slot, d, 2), {**slot_append_shape, "kv_bits": 8})
 
+    # -- the head-dim-64 builds: A and B at Llama one_b's decode step, F and G
+    # at GPT-2 small's (``_d64_case``) ------------------------------------------------
+    dc = _d64_case(torch, c)
+    q1b, k1b, v1b, hkv1b = dc["q_one_b"], dc["k_one_b"], dc["v_one_b"], dc["hkv_one_b"]
+    qg, gk, gv, glen, glen_cpu = (dc[k] for k in ("q_gpt2", "k_gpt2", "v_gpt2", "lengths_gpt2",
+                                                  "lengths_gpt2_cpu"))
+    gsmax, hg = gk.shape[3], qg.shape[1]
+    live_g = int(glen_cpu.sum())
+    one_b_shape = {**decode_shape, "hq": q1b.shape[1], "hkv": hkv1b, "d": 64}
+    gpt2_shape = {"slots": n, "hq": hg, "hkv": hg, "d": 64, "smax": gsmax,
+                  "lengths": glen_cpu.tolist()}
+
+    def check_paged_decode_d64() -> dict:  # A's 64 build (Llama one_b)
+        hq1b = q1b.shape[1]
+        got = paged_decode_d64(q1b, k1b[0], v1b[0], table, lengths)
+        agree = agreement("paged_decode_d64", got,
+                          paged_decode_attention_plain(q1b, k1b[0], v1b[0], table, lengths), decode_mod)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(),
+                "paged_decode_d64: empty slots not zero")
+        r, splits, edges, edge_table = edge_case(k1b.shape[1], table.shape[1], hkv1b)
+        got_e = paged_decode_d64(q1b, k1b[0], v1b[0], edge_table, edges)
+        agree_e = agreement("paged_decode_d64 (split boundaries)", got_e,
+                            paged_decode_attention_split_plain(q1b, k1b[0], v1b[0], edge_table,
+                                                               edges, r), decode_mod)
+        require(torch.all(got_e[5] == 0).item(), "paged_decode_d64: the empty slot is not zero")
+        io = 2 * q1b.numel() * 2 + table.numel() * 4 + n * 4
+        b_ms, b_by = bound_ms(c["live"] * hkv1b * 64 * 2 * 2 + io, 4 * c["live"] * hq1b * 64)
+        # yardstick only (never called by the port): SDPA with a length mask
+        # and enable_gqa on each layer's view, gathered outside the timed call
+        views = ([gather_kv(k1b[layer], v1b[layer], table) for layer in range(layers)]
+                 if timed else [])
+        mask = (torch.arange(table.shape[1] * page, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        q1 = q1b[:, :, None]
+        return {
+            "name": "paged_decode_d64", "route": "cuda",
+            "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
+            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
+            "checks": {"ragged": agree, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "paged_decode", decode_mod,
+                lambda i: paged_decode_d64(q1b, k1b[i % layers], v1b[i % layers], table, lengths),
+                lambda rows: paged_decode_attention_split_plain(q1b, k1b[0], v1b[0], table,
+                                                                lengths, rows),
+                table.shape[1] * page, (n, hq1b, hkv1b, 64, page, table.shape[1], k1b.shape[1]),
+                qx=q1b, kv_heads=hkv1b),
+            "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
+            **timing(lambda i: paged_decode_d64(q1b, k1b[i % layers], v1b[i % layers], table,
+                                                lengths),
+                     lambda i: paged_decode_attention_plain(q1b, k1b[i % layers], v1b[i % layers],
+                                                            table, lengths),
+                     lambda i: F.scaled_dot_product_attention(q1, *views[i % layers], attn_mask=mask,
+                                                              enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": one_b_shape,
+        }
+
+    def check_kv_append_d64() -> dict:  # B's 64 build (Llama one_b)
+        k_new, v_new = append_rows(hkv1b, 64)
+        pos, etable, _, _ = pool_edges(pool_pages)
+        # layer 0 of a two-layer copy, held whole: a write off its slice
+        # lands in layer 1 and is seen there
+        got = [k1b[:2].clone(), v1b[:2].clone()]
+        want = [t.clone() for t in got]
+        kv_append_d64(got[0][0], got[1][0], etable, pos, k_new, v_new)
+        append_tokens_paged_plain(want[0][0], want[1][0], etable, pos, k_new, v_new)
+        require(same_bits(got, want), "kv_append_d64 pool differs from the plain write")
+        require(not torch.equal(got[0][0], k1b[0]), "kv_append_d64 wrote nothing")
+        del got, want
+        return append_entry(
+            "kv_append_d64", append_src, "gofr_tpu/ops/pallas/kv_append.py:110",
+            (lambda i: kv_append_d64(k1b[i % layers], v1b[i % layers], table, lengths, k_new, v_new),
+             lambda i: append_tokens_paged_plain(k1b[i % layers], v1b[i % layers], table, lengths,
+                                                 k_new, v_new)),
+            append_bytes(entries_timed, kept_timed, 64 * 2, 0, hkv1b, 64),
+            {**append_shape, "hkv": hkv1b, "d": 64})
+
+    def check_slot_decode_d64() -> dict:  # F's 64 build (GPT-2)
+        got = slot_decode_mod.decode_attention_d64(qg, gk[0], gv[0], glen)
+        agree = agreement("decode_attention_d64", got,
+                          decode_attention_plain(qg, gk[0], gv[0], glen), slot_decode_mod)
+        require(torch.all(got[glen_cpu == 0] == 0).item(), "decode_attention_d64: empty slots not zero")
+        over = glen.clone()
+        over[0] = gsmax + 5
+        agree_o = agreement("decode_attention_d64 (length past the slot)",
+                            slot_decode_mod.decode_attention_d64(qg, gk[0], gv[0], over)[:1],
+                            decode_attention_plain(qg, gk[0], gv[0], over)[:1], slot_decode_mod)
+        r, splits = slot_decode_mod.split_plan(n, hg, gsmax)
+        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, gsmax, 0, gsmax + 5, 3 * r, 3 * r + 1],
+                             device=dev, dtype=torch.int32)
+        got_e = slot_decode_mod.decode_attention_d64(qg, gk[0], gv[0], edges)
+        agree_e = agreement("decode_attention_d64 (split boundaries)", got_e,
+                            decode_attention_split_plain(qg, gk[0], gv[0], edges, r), slot_decode_mod)
+        require(torch.all(got_e[5] == 0).item(), "decode_attention_d64: the empty slot is not zero")
+        b_ms, b_by = bound_ms(live_g * hg * 64 * 2 * 2 + 2 * qg.numel() * 2 + n * 4,
+                              4 * live_g * hg * 64)
+        # yardstick only (never called by the port): SDPA with a length mask
+        mask = (torch.arange(gsmax, device=dev)[None, :] < glen[:, None])[:, None, None, :]
+        q1 = qg[:, :, None]
+        launch = slot_decode_mod.decode_attention_d64
+        return {
+            "name": "decode_attention_d64", "route": "cuda",
+            "source": "gofr_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/pallas/decode_attention.py:85",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_o, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_o, agree_e)),
+            "checks": {"ragged": agree, "past_the_slot": agree_o, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "decode", slot_decode_mod,
+                lambda i: launch(qg, gk[i % layers], gv[i % layers], glen),
+                lambda rows: decode_attention_split_plain(qg, gk[0], gv[0], glen, rows),
+                gsmax, (n, hg, hg, 64, gsmax), qx=qg, kv_heads=hg),
+            "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
+            **timing(lambda i: launch(qg, gk[i % layers], gv[i % layers], glen),
+                     lambda i: decode_attention_plain(qg, gk[i % layers], gv[i % layers], glen),
+                     lambda i: F.scaled_dot_product_attention(q1, gk[i % layers], gv[i % layers],
+                                                              attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": gpt2_shape,
+        }
+
+    kept_g = int(((glen_cpu >= 0) & (glen_cpu < gsmax)).sum())
+
+    def check_kv_append_slot_d64() -> dict:  # G's 64 build (GPT-2)
+        k_new, v_new = append_rows(hg, 64)
+        pos = glen.clone()
+        pos[0], pos[1], pos[2] = gsmax, -1, gsmax + 7
+        got = [gk[:2].clone(), gv[:2].clone()]
+        want = [t.clone() for t in got]
+        kv_append_slot_d64(got[0][0], got[1][0], pos, k_new, v_new)
+        append_tokens_plain(want[0][0], want[1][0], pos, k_new, v_new)
+        require(same_bits(got, want), "kv_append_slot_d64 cache differs from the plain write")
+        require(all(torch.equal(a[0][i], b[0][i]) for a, b in zip(got, (gk, gv)) for i in (0, 1, 2)),
+                "kv_append_slot_d64 wrote a lane whose position lies outside the slot")
+        require(not torch.equal(got[0][0], gk[0]), "kv_append_slot_d64 wrote nothing")
+        del got, want
+        return append_entry(
+            "kv_append_slot_d64", append_src, "gofr_tpu/ops/pallas/kv_append.py:61",
+            (lambda i: kv_append_slot_d64(gk[i % layers], gv[i % layers], glen, k_new, v_new),
+             lambda i: append_tokens_plain(gk[i % layers], gv[i % layers], glen, k_new, v_new)),
+            append_bytes(0, kept_g, 64 * 2, 0, hg, 64),
+            {"slots": n, "hkv": hg, "d": 64, "smax": gsmax})
+
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
@@ -1061,6 +1263,9 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
               ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
               ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
               ("kv_append_slot_q", check_append_slot_q),
+              ("paged_decode_d64", check_paged_decode_d64), ("kv_append_d64", check_kv_append_d64),
+              ("decode_attention_d64", check_slot_decode_d64),
+              ("kv_append_slot_d64", check_kv_append_slot_d64),
               ("w8a16", lambda: check_w8a16(torch, timing if timed else None))]
     results = []
     for name, check in checks:
@@ -1081,7 +1286,42 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False) -> list[d
 # heads).
 D64_SHAPES = {"bert": {"batch": 256, "seq": 64, "heads": 12, "padded_rows": 16},
               "vit": {"batch": 32, "seq": 197, "heads": 16},
-              "gpt2": {"batch": 4, "seq": 512, "heads": 12}}
+              "gpt2": {"batch": 4, "seq": 512, "heads": 12},
+              "gpt2_chunk": {"queries": 512, "offset": 256, "heads": 12}}
+# Phase 3's shapes for the head-dim-64 builds of the decode kernels and
+# appends: Llama one_b's heads (A, B) on ``_decode_case``'s pool layout, and
+# GPT-2 small's (F, G) on a slot cache of the length phase 4's GPT-2 engine
+# gives it (max_len 1016 + a decode chunk of 8).
+D64_DECODE = {"one_b": {"hq": 32, "hkv": 4}, "gpt2": {"heads": 12, "smax": 1024}}
+
+
+def _d64_case(torch, c: dict) -> dict:
+    """The 64 builds' inputs, from their own seed: q and ``layers`` bf16
+    pool slices of Llama one_b's heads over ``_decode_case``'s pages, table
+    and lengths (8 live slots, an empty one); and q, lengths and ``layers``
+    slot-cache slices [9, 12, 1024, 64] of GPT-2 small's heads, the 8 live
+    lengths drawn over the slot's last three quarters, the ninth slot
+    empty. Every row is
+    random, so a lane read past its length reads data."""
+    dev, bf, layers, n = torch.device("cuda"), torch.bfloat16, c["layers"], c["n"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    ob, g2 = D64_DECODE["one_b"], D64_DECODE["gpt2"]
+    pool_shape = (layers, c["k_pool"].shape[1], ob["hkv"], c["page"], 64)
+    # lengths of a quarter of the slot and more: at shorter ones the plain
+    # version's bf16 scores alone move an output by more than an ulp (the
+    # split-boundary lanes, held against the split's plain version, are short)
+    lengths_cpu = torch.randint(g2["smax"] // 4, g2["smax"] + 1, (n,),
+                                generator=torch.Generator().manual_seed(SEED + 9), dtype=torch.int32)
+    lengths_cpu[-1] = 0
+    slot_shape = (layers, n, g2["heads"], g2["smax"], 64)
+    return {"q_one_b": torch.randn(n, ob["hq"], 64, device=dev, generator=gen).to(bf),
+            "k_one_b": torch.randn(pool_shape, device=dev, generator=gen).to(bf),
+            "v_one_b": torch.randn(pool_shape, device=dev, generator=gen).to(bf),
+            "hkv_one_b": ob["hkv"],
+            "q_gpt2": torch.randn(n, g2["heads"], 64, device=dev, generator=gen).to(bf),
+            "k_gpt2": torch.randn(slot_shape, device=dev, generator=gen).to(bf),
+            "v_gpt2": torch.randn(slot_shape, device=dev, generator=gen).to(bf),
+            "lengths_gpt2_cpu": lengths_cpu, "lengths_gpt2": lengths_cpu.to(dev), "gen": gen}
 
 
 def w8_agreement(label: str, got, want) -> dict:
@@ -1232,8 +1472,14 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            "app_transports": ("paged_decode", "kv_append", "flash_attention"),
            # the encoders on the BatchEngine: C's head-dim-64 build alone
            "bert_embed": ("flash_attention_d64",),
-           "vit_classify": ("flash_attention_d64",)}
-PREFILL_KERNELS = ("flash_attention",)
+           "vit_classify": ("flash_attention_d64",),
+           # the head-dim-64 generate runs: GPT-2 small on the bf16 slot
+           # cache (and in int8 weights), Llama one_b on the bf16 pool
+           "gpt2_generate": ("decode_attention_d64", "kv_append_slot_d64", "flash_attention_d64"),
+           "gpt2_w8": ("decode_attention_d64", "kv_append_slot_d64", "flash_attention_d64",
+                       "w8a16"),
+           "one_b_bf16": ("paged_decode_d64", "kv_append_d64", "flash_attention_d64")}
+PREFILL_KERNELS = ("flash_attention", "flash_attention_d64")
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
 # on the bf16 pool, and a draft model on the bf16 slot cache, Llama-3-8B's
@@ -1310,8 +1556,8 @@ def lora_specs(cfg) -> list:
 
 
 def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "paged",
-          spec: str | None = None, draft=None, lora: bool = False, w8: bool = False
-          ) -> tuple[object, dict, dict, list]:
+          spec: str | None = None, draft=None, lora: bool = False, w8: bool = False,
+          run: str | None = None) -> tuple[object, dict, dict, list]:
     """Serve 8 concurrent greedy requests on a Llama-3-8B engine with the
     cache ``kv_layout`` in the format ``kv_quantize``; a new model with
     random weights from the seed, or ``model`` when given. ``spec`` names a
@@ -1322,7 +1568,9 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     ``ModelSpec`` of ``model`` and a container whose config is
     ``W8_CONFIG``: ``bf16``'s knobs with ``ENGINE_QUANTIZE=int8``; every
     product must then go through the W8A16 kernel, 7 x 32 + 1 launches a
-    model forward. Returns (engine, launches, metrics, the results)."""
+    model forward. ``run`` names another model's run of ``ON_PATH``
+    (``one_b_bf16``: the kernels of that run, its model's layers).
+    Returns (engine, launches, metrics, the results)."""
     from gofr_tpu_torch.gpu.engine import build_engine
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -1376,8 +1624,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
                 f"{pool} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
         require(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                 f"{pool} request {i}: token out of range")
-    on_path = (ON_PATH["paged_w8"] if w8 else ON_PATH[kv_layout, kv_quantize] if spec is None
-               else ON_PATH_SPEC[spec])
+    on_path = (ON_PATH[run] if run else ON_PATH["paged_w8"] if w8
+               else ON_PATH[kv_layout, kv_quantize] if spec is None else ON_PATH_SPEC[spec])
     for name, launches in counts.items():
         if name in on_path:
             require(launches > 0, f"kernel {name} was not launched on the {pool} cache's path")
@@ -1420,7 +1668,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
     ttft = sorted(o["ttft_s"] for o in outs)
     metrics = {
-        "model": ("llama3_8b (random bf16 weights, seed 0" + (", served in int8)" if w8 else ")")),
+        "model": ((run or "llama3_8b") + " (random bf16 weights, seed 0"
+                  + (", served in int8)" if w8 else ")")),
         "layers": cfg.num_layers,
         "kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
         "pool_bytes": pool_bytes, "pool_positions": positions,
@@ -4800,6 +5049,252 @@ def vit_classify(torch, cuda) -> dict:
             "note": "smoke run, not a benchmark"}
 
 
+# Phase 4's head-dim-64 generate runs. ``gpt2_generate``: GPT-2 small
+# (``GPT2Config.small``: 12 layers of 768, 12 heads of 64, MHA), random
+# bf16 weights from the seed, served by the App's ``/generate`` from a
+# ``ModelSpec`` and ``GPT2_CONFIG`` on the family's default layout, the bf16
+# slot cache: ``ENGINE_MAX_LEN`` 1016 puts each slot at GPT-2's 1024
+# positions (1016 + a decode chunk of 8), the prefill buckets are
+# ``GPT2_BUCKETS``, so a prompt past 512 tokens prefills in chunks, the
+# second at an offset. ``gpt2_w8``: the same with ``ENGINE_QUANTIZE=int8``.
+# ``one_b_bf16``: Llama one_b (22 layers of 2048, 32 heads of 64, 4 KV
+# heads) on the bf16 pool with ``bf16``'s knobs and prompts. The tokens of
+# the bf16 runs are held by the tie rule against the plain path's on the
+# card (``plain_tokens``).
+GPT2_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR", "ENGINE_SLOTS": "8",
+               "ENGINE_MAX_LEN": "1016", "ENGINE_PREFILL_BATCH": "4", "ENGINE_DECODE_CHUNK": "8"}
+GPT2_BUCKETS = [128, 256, 512]
+GPT2_NEW = 64
+
+
+def gpt2_prompts(torch, vocab: int) -> list[list[int]]:
+    """8 prompts of 64..768 tokens from the seed; at least one past the
+    largest bucket, so it prefills in chunks."""
+    rng = torch.Generator().manual_seed(SEED + 11)
+    lens = torch.randint(64, 769, (8,), generator=rng).tolist()
+    require(max(lens) > GPT2_BUCKETS[-1], f"gpt2 prompts {lens}: none chunks")
+    return [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in lens]
+
+
+def plain_tokens(torch, model, prompts: list, new: int) -> list[dict]:
+    """Greedy tokens of ``prompts`` on the plain path on the card: one
+    padded prefill and ``new`` - 1 decode steps with ``kernels=False`` (no
+    kernel, plain attention, appends and products) on a slot cache of one
+    slot a prompt."""
+    n, width = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros(n, width, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor([len(p) for p in prompts], device="cuda")
+    cache = model.make_cache(n, width + new)
+    with torch.inference_mode():
+        logits, _ = model.prefill(tokens.cuda(), lengths, cache, torch.arange(n, device="cuda"),
+                                  kernels=False)
+        out = [logits.argmax(-1)]
+        for step in range(new - 1):
+            logits, _ = model.decode_step(out[-1], lengths + step, cache, kernels=False)
+            out.append(logits.argmax(-1))
+    ids = torch.stack(out, dim=1).cpu().tolist()
+    del cache
+    return [{"tokens": t} for t in ids]
+
+
+def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
+    """Phase 4 ``gpt2_generate`` (``w8`` False) or ``gpt2_w8``. Held: every
+    POST is a 201 with ``GPT2_NEW`` tokens ended by length; the launches
+    are the run's ``ON_PATH`` kernels and no other: C, F and G's 64 builds,
+    F and G equally often, a whole number of decode steps x 12 layers, C on
+    chunk rows at an offset too; with ``w8`` the W8A16 kernel 6 x 12 times
+    a model forward (the tied head stays bf16), and the int8 model smaller
+    than the bf16 one. The bf16 run's tokens equal the plain path's on the
+    card by the tie rule; the w8 run's are compared with ``base``'s (the
+    bf16 run), not held. Printed: TTFT, decode tok/s, weight bytes."""
+    import threading
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models import GPT2Config, ModelSpec
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+
+    name = "gpt2_w8" if w8 else "gpt2_generate"
+    config = {**GPT2_CONFIG, **({"ENGINE_QUANTIZE": "int8"} if w8 else {})}
+    cfg = GPT2Config.small(dtype=torch.bfloat16)
+    app = App(config=DictConfig(config))
+    t0 = time.perf_counter()
+    engine = app.serve_model("gpt2", ModelSpec("gpt2", cfg, dtype=torch.bfloat16), seed=SEED,
+                             eos_token_id=-1, prefill_buckets=GPT2_BUCKETS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    async def generate(ctx):
+        body = ctx.bind(dict)
+        return await ctx.agenerate("gpt2", body["prompt"], max_new_tokens=int(body["max_new_tokens"]),
+                                   timeout=900)
+
+    app.post("/generate", generate)
+    prompts = gpt2_prompts(torch, cfg.vocab_size)
+    with AppThread(app, name):
+        port = app.http_port
+        status, warm, *_ = http_call(port, "POST", "/generate",
+                                    {"prompt": list(range(1, 65)), "max_new_tokens": 2})
+        require(status == 201 and warm["data"]["finish_reason"] == "length",
+                f"{name} warm-up: {status} {warm}")
+        wait_idle(engine)
+        torch.cuda.synchronize()
+        before = dict(engine.counters)
+        cuda.reset_launch_counts()
+        replies = [None] * len(prompts)
+
+        def one(i: int) -> None:
+            replies[i] = http_call(port, "POST", "/generate",
+                                   {"prompt": prompts[i], "max_new_tokens": GPT2_NEW})
+
+        t_submit = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wait_idle(engine)
+        torch.cuda.synchronize()
+        t_done = time.monotonic()
+        counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
+        did = {k: v - before[k] for k, v in engine.counters.items()}
+        model, cache_len, kv_layout = engine.model, engine.cache_len, engine.kv_layout
+    require(not engine._thread.is_alive(), f"{name}: the engine's thread outlived stop()")
+    for i, r in enumerate(replies):
+        require(r is not None and r[0] == 201, f"{name} request {i}: {r and r[:2]}")
+        o = r[1]["data"]
+        require(o["finish_reason"] == "length" and len(o["tokens"]) == GPT2_NEW,
+                f"{name} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
+    outs = [r[1]["data"] for r in replies]
+    require(kv_layout == "slot" and cache_len == cfg.max_seq_len,
+            f"{name}: served on {kv_layout} of {cache_len} positions, not GPT-2's slot of "
+            f"{cfg.max_seq_len}")
+    for kernel, launches in counts.items():
+        require((launches > 0) == (kernel in ON_PATH[name]),
+                f"{name}: kernel {kernel} launched {launches} times")
+    layers = cfg.num_layers
+    require(counts["decode_attention_d64"] == counts["kv_append_slot_d64"]
+            and counts["decode_attention_d64"] % layers == 0,
+            f"{name}: F and G's 64 builds launched {counts['decode_attention_d64']} and "
+            f"{counts['kv_append_slot_d64']} times, not decode steps x {layers}")
+    require(did["prefill_chunks_at_offset"] > 0 and offset_launches > 0,
+            f"{name}: no prompt prefilled in chunks at an offset ({did}, C {offset_launches})")
+    forwards = (counts["decode_attention_d64"] + counts["flash_attention_d64"]) // layers
+    held = quantized_bytes(model)
+    metrics = {"model": "gpt2 small (random bf16 weights, seed 0"
+                        + (", served in int8)" if w8 else ")"),
+               "config": config, "prefill_buckets": GPT2_BUCKETS, "layers": layers,
+               "kv_layout": kv_layout, "slot_positions": cache_len, "engine_build_s": build_s,
+               "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
+               "new_tokens": GPT2_NEW, "decode_steps": counts["decode_attention_d64"] // layers,
+               "prefill_chunks_at_offset": did["prefill_chunks_at_offset"],
+               "flash_offset_launches": offset_launches, "weight_bytes": held}
+    if w8:
+        per_forward = 6 * layers
+        require(counts["w8a16"] == forwards * per_forward,
+                f"{name}: W8A16 launched {counts['w8a16']} times for {forwards} model forwards, "
+                f"not {per_forward} each")
+        require(type(model.blocks[0].w_fc).__name__ == "QLinear" and model.wte.dtype == torch.bfloat16,
+                f"{name}: the served model is not int8 with a bf16 head")
+        metrics.update({"w8a16_launches_per_forward": per_forward, "model_forwards": forwards})
+        if base is not None:
+            require(held < base["metrics"]["weight_bytes"],
+                    f"{name}: the int8 model holds {held} B, the bf16 one "
+                    f"{base['metrics']['weight_bytes']}")
+            metrics["weight_bytes_vs_bf16"] = held / base["metrics"]["weight_bytes"]
+            metrics["vs_gpt2_generate"] = token_agreement(torch, model, prompts, outs,
+                                                          base["outs"])
+    else:
+        want = plain_tokens(torch, model, prompts, GPT2_NEW)
+        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want)
+    first = [t_submit + o["ttft_s"] for o in outs]
+    done = [f + o["decode_s"] for f, o in zip(first, outs)]
+    ttft = sorted(o["ttft_s"] for o in outs)
+    metrics.update({"ttft_s": [o["ttft_s"] for o in outs], "ttft_p50_s": ttft[len(ttft) // 2],
+                    "decode_tok_s": sum(len(o["tokens"]) - 1 for o in outs) / (max(done) - min(first)),
+                    "wall_s": t_done - t_submit, "nvidia_smi": smi_line(),
+                    "note": "smoke run, not a benchmark"})
+    result = {"metrics": metrics, "launches": counts, "outs": outs, "model": model}
+    del engine, app
+    torch.cuda.empty_cache()
+    return result
+
+
+def one_b_run(torch, cuda) -> dict:
+    """Phase 4 ``one_b_bf16``: Llama one_b with random bf16 weights from
+    the seed on the bf16 pool, ``serve``'s knobs and prompts (A and B's 64
+    builds equally often, decode steps x 22 layers, C's 64 build, no 128
+    build); its tokens equal the plain path's on the card by the tie rule."""
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+
+    model = init(LlamaConfig.one_b(), torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    eng, counts, metrics, outs = serve(torch, cuda, model, run="one_b_bf16")
+    eng.stop()
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    want = plain_tokens(torch, model, prompts, 64)
+    metrics["vs_plain_path"] = hold_tie("one_b_bf16", torch, model, prompts, outs, want)
+    metrics["nvidia_smi"] = smi_line()
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "launches": counts}
+
+
+def gpt2_no_sync_check(torch, cuda, model) -> dict:
+    """Phase 6 on GPT-2's slot path: a prefill of 256 tokens in two chunks of
+    128 at their offsets, then two ``decode_step`` steps over 8 lanes (the
+    last idle at the slot's end, so its writes drop), each inside
+    ``torch.cuda.set_sync_debug_mode("error")``; the chunks launch C's 64
+    build once a layer each, the steps F's and G's 64 builds once a layer
+    each, and nothing else launches."""
+    n, smax = 8, 1024
+    layers = model.cfg.num_layers
+    rng = torch.Generator().manual_seed(SEED + 12)
+    tokens = torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).cuda()
+    positions = torch.randint(0, smax - 4, (n,), generator=rng)
+    positions[n - 1] = smax
+    positions = positions.cuda()
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 256), generator=rng).cuda()
+    cache = model.make_cache(n, smax)
+    rows = torch.zeros(1, dtype=torch.int32, device="cuda")
+    chunk_len = torch.tensor([128], device="cuda")
+    offsets = [torch.tensor([c * 128], device="cuda") for c in range(2)]
+
+    def unsynced(fn) -> dict:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        require(bool(out.isfinite().all()), "gpt2: non-finite logits under the sync check")
+        return {k: v for k, v in cuda.launch_counts().items() if v}
+
+    def chunked():
+        for c in range(2):
+            logits, _ = model.prefill(prompt[:, c * 128:(c + 1) * 128], chunk_len, cache, rows,
+                                      offsets[c])
+        return logits
+
+    def decode():
+        for step in range(2):
+            logits, _ = model.decode_step(tokens, positions + step, cache)
+        return logits
+
+    chunks, steps = unsynced(chunked), unsynced(decode)
+    require(chunks == {"flash_attention_d64": 2 * layers},
+            f"gpt2: the chunked prefill launched {chunks}")
+    require(steps == {"decode_attention_d64": 2 * layers, "kv_append_slot_d64": 2 * layers},
+            f"gpt2: two decode steps launched {steps}")
+    del cache
+    return {"model": "gpt2 small", "kv_layout": "slot", "kv_pool": "bf16", "chunks": 2,
+            "steps": 2, "sync_debug_mode": "error", "launches": {"chunks": chunks, "steps": steps}}
+
+
 def launches_by_run(served: dict) -> dict[str, dict[str, int]]:
     """Each phase-4 run's launch counts by kernel: the runs that record one
     set, the spec engine of ``paged_control`` and the two sides of
@@ -4954,6 +5449,20 @@ def main() -> None:
     emit("phase4_vit_classify", served["vit_classify"])
     lap("phase4_vit_classify")
 
+    gpt2 = gpt2_serve(torch, cuda)
+    served["gpt2_generate"] = {"metrics": gpt2["metrics"], "launches": gpt2["launches"]}
+    emit("phase4_gpt2_generate", served["gpt2_generate"])
+    lap("phase4_gpt2_generate")
+    gpt2_w8 = gpt2_serve(torch, cuda, w8=True, base=gpt2)
+    served["gpt2_w8"] = {"metrics": gpt2_w8["metrics"], "launches": gpt2_w8["launches"]}
+    emit("phase4_gpt2_w8", served["gpt2_w8"])
+    del gpt2_w8
+    lap("phase4_gpt2_w8")
+
+    served["one_b_bf16"] = one_b_run(torch, cuda)
+    emit("phase4_serve_one_b_bf16", served["one_b_bf16"])
+    lap("phase4_one_b_bf16")
+
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
              model_check(torch, model, kv_quantize, kv_layout=kv_layout))
@@ -4969,13 +5478,16 @@ def main() -> None:
     emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, m, *run) for m, run in
                                      [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]]
          + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
+    emit("phase6_gpt2_no_sync", gpt2_no_sync_check(torch, cuda, gpt2["model"]))
+    del gpt2
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on,
     # and from every run that launched it
     by_run = launches_by_run(served)
     for k in kernels:
-        run = next(r for r in (*RUNS, "paged_w8", "bert_embed") if k["name"] in ON_PATH[r])
+        run = next(r for r in (*RUNS, "paged_w8", "bert_embed", "gpt2_generate", "one_b_bf16")
+                   if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
         k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -3,12 +3,14 @@
 // the five cache formats, by one template over a row policy and an address
 // policy:
 //
-//   kernel   entry point             rows       cache
-//   B        gofr_kv_append          Bf16Rows   PoolAddr  bf16 paged pool
-//   G        gofr_kv_append_slot     Bf16Rows   SlotAddr  bf16 slot cache
-//   B-q      gofr_kv_append_q        Int8Rows   PoolAddr  int8 paged pool
-//   B-q4     gofr_kv_append_q4       Int4Rows   PoolAddr  packed int4 paged pool
-//   G-q      gofr_kv_append_slot_q   Int8Rows   SlotAddr  int8 slot cache
+//   kernel   entry point                 rows           cache
+//   B        gofr_kv_append              Bf16Rows<128>  PoolAddr  bf16 paged pool
+//   G        gofr_kv_append_slot         Bf16Rows<128>  SlotAddr  bf16 slot cache
+//   B (64)   gofr_kv_append_d64          Bf16Rows<64>   PoolAddr  bf16 pool, head dim 64
+//   G (64)   gofr_kv_append_slot_d64     Bf16Rows<64>   SlotAddr  bf16 slot cache, head dim 64
+//   B-q      gofr_kv_append_q            Int8Rows       PoolAddr  int8 paged pool
+//   B-q4     gofr_kv_append_q4           Int4Rows       PoolAddr  packed int4 paged pool
+//   G-q      gofr_kv_append_slot_q       Int8Rows       SlotAddr  int8 slot cache
 //
 // Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
 // (:110, pallas_call :160) and append_tokens_inplace (:61, pallas_call :80,
@@ -39,7 +41,9 @@
 //     two 4-byte loads (Int4Rows: elements 2l, 2l + 1 and 64 + 2l, 65 + 2l,
 //     the pair one packed byte holds). Stores are 8, 4 or 2 bytes a lane:
 //     the warp writes its 256-, 128- or 64-byte row in one coalesced store.
-//     No shared memory.
+//     No shared memory. A 64-wide bf16 row (GPT-2, Llama one_b) is 128 B:
+//     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>); the
+//     quantizing rows are built at 128 only.
 //   - The row's load is issued before the address chain (positions[n], then
 //     the table entry, then the store) resolves: the row does not depend on
 //     where it lands, so the two latencies overlap instead of adding up.
@@ -75,7 +79,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;                   // head_dim (the launchers check)
 constexpr int kWarps = 4;                 // (slot, head) rows per block and plane
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -113,26 +116,35 @@ __device__ __forceinline__ uint32_t nibbles(int lo, int hi) {
   return static_cast<uint32_t>(lo + kBias) | (static_cast<uint32_t>(hi + kBias) << 4);
 }
 
-// bf16 rows (kernels B, G): the 16-bit patterns copied as they are, lane l
-// elements 4l .. 4l + 3.
+// bf16 rows (kernels B, G) of head dim D: the 16-bit patterns copied as
+// they are, lane l elements 4l .. 4l + 3 at D 128 (one 8-byte word), 2l,
+// 2l + 1 at D 64 (one 4-byte word, in raw.x).
+template <int D>
 struct Bf16Rows {
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  static constexpr int kD = D;
   static constexpr int kRowBytes = kD * 2;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
-    return __ldg(reinterpret_cast<const uint2*>(row) + lane);
+    if constexpr (kD == 128) return __ldg(reinterpret_cast<const uint2*>(row) + lane);
+    else return make_uint2(__ldg(row + lane), 0u);
   }
 
   __device__ static void store(uint8_t* dst, bf16*, uint2 raw, int lane) {
-    reinterpret_cast<uint2*>(dst)[lane] = raw;
+    if constexpr (kD == 128) reinterpret_cast<uint2*>(dst)[lane] = raw;
+    else reinterpret_cast<uint32_t*>(dst)[lane] = raw.x;
   }
 };
 
 // int8 rows with one bf16 scale (kernels B-q, G-q): lane l quantizes
 // elements 4l .. 4l + 3 into bytes 4l .. 4l + 3.
 struct Int8Rows {
+  static constexpr int kD = 128;
   static constexpr int kRowBytes = kD;
 
-  __device__ static uint2 load(const uint32_t* row, int lane) { return Bf16Rows::load(row, lane); }
+  __device__ static uint2 load(const uint32_t* row, int lane) {
+    return Bf16Rows<128>::load(row, lane);
+  }
 
   __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
     float x[4];
@@ -150,6 +162,7 @@ struct Int8Rows {
 // elements 2l, 2l + 1 (word l) and 64 + 2l, 65 + 2l (word 32 + l) and
 // writes packed bytes 2l and 2l + 1.
 struct Int4Rows {
+  static constexpr int kD = 128;
   static constexpr int kRowBytes = kD / 2;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
@@ -212,7 +225,8 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Planes p, const int* _
   const int slot = nh / hkv, h = nh - slot * hkv;
   const int pos = __ldg(positions + slot);
   // the row goes out before the table entry comes back
-  const uint2 raw = Rows::load((is_v ? p.v_new : p.k_new) + static_cast<size_t>(nh) * (kD / 2), lane);
+  const uint2 raw = Rows::load((is_v ? p.v_new : p.k_new) + static_cast<size_t>(nh) * (Rows::kD / 2),
+                               lane);
   const long long row = addr.row(slot, h, hkv, pos);
   if (row < 0) return;                                      // the same for the whole warp
   uint8_t* values = is_v ? p.v : p.k;
@@ -222,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Planes p, const int* _
 
 template <class Rows, class Addr>
 int launch(Planes planes, const void* positions, Addr addr, int n, int hkv, int d, void* stream) {
-  if (d != kD || n <= 0 || hkv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != Rows::kD || n <= 0 || hkv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   // the rows' 8-byte loads and stores; refused here, before the launch, so
   // the launchers need not ask each tensor for its address
   if ((reinterpret_cast<uintptr_t>(planes.k) | reinterpret_cast<uintptr_t>(planes.v) |
@@ -250,15 +264,31 @@ PoolAddr pool_addr(const void* table, int maxp, int pool, int page) {
 extern "C" int gofr_kv_append(void* k_pool, void* v_pool, const void* k_new, const void* v_new,
                               const void* table, const void* positions, int n, int maxp,
                               int pool, int hkv, int page, int d, void* stream) {
-  return launch<Bf16Rows>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,
-                          pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+  return launch<Bf16Rows<128>>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,
+                               pool_addr(table, maxp, pool, page), n, hkv, d, stream);
 }
 
 extern "C" int gofr_kv_append_slot(void* k_layer, void* v_layer, const void* k_new,
                                    const void* v_new, const void* positions, int n, int hkv,
                                    int smax, int d, void* stream) {
-  return launch<Bf16Rows>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
-                          SlotAddr{smax}, n, hkv, d, stream);
+  return launch<Bf16Rows<128>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
+                               SlotAddr{smax}, n, hkv, d, stream);
+}
+
+// B and G at head dim 64 (GPT-2's slot cache, Llama one_b's pool)
+extern "C" int gofr_kv_append_d64(void* k_pool, void* v_pool, const void* k_new,
+                                  const void* v_new, const void* table, const void* positions,
+                                  int n, int maxp, int pool, int hkv, int page, int d,
+                                  void* stream) {
+  return launch<Bf16Rows<64>>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,
+                              pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+}
+
+extern "C" int gofr_kv_append_slot_d64(void* k_layer, void* v_layer, const void* k_new,
+                                       const void* v_new, const void* positions, int n, int hkv,
+                                       int smax, int d, void* stream) {
+  return launch<Bf16Rows<64>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
+                              SlotAddr{smax}, n, hkv, d, stream);
 }
 
 extern "C" int gofr_kv_append_q(void* k_pool, void* v_pool, void* k_scale, void* v_scale,

@@ -42,6 +42,12 @@
 //   - A length is clamped to Smax: an idle slot-layout lane asks for Smax + 1
 //     + k, and an unclamped length would read the next head's rows. Smax need
 //     not be a multiple of 64: rows past the length are never loaded.
+//   - The head dim kD is a template parameter, built at 128 (Llama) and 64
+//     (GPT-2): a block has kD threads, one output column each, so a 64 build
+//     runs two warps; its padded shared row is 144 B, whose 36-word step puts
+//     the eight rows a quarter-warp's 16-byte score reads touch on distinct
+//     banks, as the 272-byte row does at 128. GPT-2's group of 1 leaves seven
+//     of q_s's eight rows unused: correct, not fast.
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -52,18 +58,24 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;          // head_dim (the wrapper checks)
 constexpr int kTile = 64;        // KV positions per staged tile
-constexpr int kThreads = 128;    // == kD: one output column per thread
 constexpr int kMaxGroup = 8;     // query heads per KV head
-constexpr int kStride = kD + 8;  // padded smem row, in bf16 elements
-constexpr int kChunks = kD / 8;  // 16-byte chunks per row
-constexpr int kTileElems = kTile * kStride;
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kRingBytes = kStages * 2 * kTileElems * 2;  // K and V: 69,632 B
-constexpr int kState = kD + 2;   // one split's scratch per query row: acc[D], m, l
 
-// The slot cache's layer slice [N, Hkv, Smax, D]: lane n is slot n.
+// What follows the head dim kD (the wrapper checks it is 128 or 64).
+template <int kD>
+struct Dims {
+  static_assert(kD == 128 || kD == 64, "built at head dims 128 and 64");
+  static constexpr int kThreads = kD;              // one output column per thread
+  static constexpr int kStride = kD + 8;           // padded smem row, in bf16 elements
+  static constexpr int kChunks = kD / 8;           // 16-byte chunks per row
+  static constexpr int kTileElems = kTile * kStride;
+  static constexpr int kRingBytes = kStages * 2 * kTileElems * 2;  // K and V: 69,632 or 36,864 B
+  static constexpr int kState = kD + 2;            // one split's scratch per query row: acc[D], m, l
+};
+
+// The slot cache's layer slice [N, Hkv, Smax, kD]: lane n is slot n.
+template <int kD>
 struct SlotRows {
   int smax;
 
@@ -76,15 +88,19 @@ struct SlotRows {
   }
 };
 
-__global__ void __launch_bounds__(kThreads) decode_kernel(
+template <int kD>
+__global__ void __launch_bounds__(kD) decode_kernel(
     const bf16* __restrict__ q,      // [N, Hq, D]
     const bf16* __restrict__ k,      // [N, Hkv, Smax, D]
     const bf16* __restrict__ v,      // [N, Hkv, Smax, D]
-    const SlotRows rows,
+    const SlotRows<kD> rows,
     const int* __restrict__ lengths,  // [N]
     bf16* __restrict__ out,           // [N, Hq, D], written here when there is one split
     float* __restrict__ part,         // [N, Hq, splits, kState], written when there are more
     int hkv, int group, int split_rows, float scale) {
+  constexpr int kThreads = Dims<kD>::kThreads, kStride = Dims<kD>::kStride;
+  constexpr int kChunks = Dims<kD>::kChunks, kTileElems = Dims<kD>::kTileElems;
+  constexpr int kState = Dims<kD>::kState;
   extern __shared__ __align__(16) unsigned char ring[];  // [kStages][K, V][kTile][kStride]
   __shared__ float q_s[kMaxGroup][kD];
   __shared__ float p_s[kMaxGroup][kTile];
@@ -141,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     // scores: one (query row, position) pair per thread and step
     for (int j = tid; j < group * kTile; j += kThreads) {
       const int g = j / kTile, t = j % kTile;
-      // 16-byte reads: the 272-byte row stride puts the 8 rows a
+      // 16-byte reads: the 272- or 144-byte row stride puts the 8 rows a
       // quarter-warp reads on distinct banks
       const uint4* kr = reinterpret_cast<const uint4*>(&k_s[t * kStride]);
       const float* qr = q_s[g];
@@ -198,18 +214,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-int launch(const void* q, const void* k, const void* v, const SlotRows& rows, const void* lengths,
-           void* out, void* scratch, int n, int hkv, int group, int split_rows, int splits,
-           float scale, void* stream) {
+template <int kD>
+int launch(const void* q, const void* k, const void* v, int smax, const void* lengths, void* out,
+           void* scratch, int n, int hkv, int group, int split_rows, int splits, float scale,
+           void* stream) {
+  constexpr int kRingBytes = Dims<kD>::kRingBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+        decode_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  decode_kernel<<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
+  const SlotRows<kD> rows{smax};
+  decode_kernel<kD><<<dim3(n, hkv, splits), Dims<kD>::kThreads, kRingBytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), rows,
       static_cast<const int*>(lengths), static_cast<bf16*>(out), static_cast<float*>(scratch),
       hkv, group, split_rows, scale);
@@ -227,11 +246,19 @@ int launch(const void* q, const void* k, const void* v, const SlotRows& rows, co
 
 // `splits` runs of `split_rows` positions (splits x split_rows >=
 // smax), then the merge; `scratch` holds n x Hq x splits x (D + 2) floats.
+// One entry point a head dim: 128 (Llama) and 64 (GPT-2).
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* lengths, void* out, void* scratch, int n, int hkv,
                                      int group, int smax, int split_rows, int splits, float scale,
                                      void* stream) {
-  const SlotRows rows{smax};
-  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, split_rows,
-                splits, scale, stream);
+  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,
+                     splits, scale, stream);
+}
+
+extern "C" int gofr_decode_attention_d64(const void* q, const void* k_cache, const void* v_cache,
+                                         const void* lengths, void* out, void* scratch, int n,
+                                         int hkv, int group, int smax, int split_rows, int splits,
+                                         float scale, void* stream) {
+  return launch<64>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,
+                    splits, scale, stream);
 }

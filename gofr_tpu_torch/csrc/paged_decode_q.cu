@@ -76,6 +76,13 @@
 //     summing the unrounded p, and p rounded to bf16 before P.V (bf16) or
 //     kept f32 and multiplied by vs[t] (the v_scale fold); out = acc /
 //     max(l, 1e-20); len == 0 gives zeros.
+//   - The head dim is the row policy's kD. Bf16Rows is a template built at
+//     128 (Llama-3-8B) and 64 (Llama one_b): a 64-wide row is 128 B, eight
+//     16-byte chunks under the same three-bit swizzle (the two rows a
+//     quarter-warp's score loads read still cover all 32 banks, and eight
+//     consecutive rows still differ in bits 0..2 for ldmatrix), kD / 16 mma
+//     steps over the head dimension, and kD / 4 output columns a warp in
+//     the P.V. Int8Rows and Int4Rows are built at 128 only.
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -87,21 +94,17 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;                       // head_dim (the wrapper checks)
 constexpr int kTile = 64;                     // KV positions per staged tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpRows = kTile / kWarps;     // positions per warp: two m16n8 score tiles
-constexpr int kWarpCols = kD / kWarps;        // output columns per warp of the mma P.V
 constexpr int kMaxGroup = 8;                  // query heads per KV head (mma rows 0..7)
-constexpr int kSteps = kD / 16;               // m16n8k16 steps over the head dimension
 constexpr int kStages = 2;                    // K/V ring depth
 // Table entries are copied two tiles ahead of their rows, so the buffer a
 // step refills was last read before the previous step's __syncthreads.
 constexpr int kEntryBufs = 4;
 // p_s row stride in floats: the query rows' same positions eight banks apart
 constexpr int kPRow = kTile + 8;
-constexpr int kState = kD + 2;                // one split's scratch per query row: acc[D], m, l
 constexpr float kTwo23 = 8388608.f;           // f32 bits 0x4B000000 | u read as 2^23 + u
 
 // Two f32 that are exact in bf16 (at most 8 significant bits) as one bf16
@@ -115,12 +118,17 @@ __device__ __forceinline__ float two23_plus(uint32_t u, int i) {
   return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i));
 }
 
-// bf16 rows (kernel A): element c is bf16 c. A row's sixteen 16-byte chunks
-// are stored unpadded, chunk j of tile row r at chunk j ^ swizzle(r): rows
-// 2m and 2m + 1 differ in bit 2 of the swizzle, so the two rows a
-// quarter-warp's score loads read cover all 32 banks, and eight consecutive
-// rows differ in bits 0..2, so each matrix of an ldmatrix does too.
+// bf16 rows (kernel A) of head dim D (128 or 64): element c is bf16 c. A
+// row's D / 8 16-byte chunks are stored unpadded, chunk j of tile row r at
+// chunk j ^ swizzle(r): rows 2m and 2m + 1 differ in bit 2 of the swizzle,
+// so the two rows a quarter-warp's score loads read cover all 32 banks, and
+// eight consecutive rows differ in bits 0..2, so each matrix of an ldmatrix
+// does too.
+template <int D>
 struct Bf16Rows {
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  static constexpr int kD = D;
+  static constexpr int kSteps = kD / 16;         // m16n8k16 steps over the head dimension
   static constexpr bool kScaled = false;
   static constexpr bool kMmaPV = true;
   static constexpr int kBytes = kD * 2;
@@ -133,9 +141,9 @@ struct Bf16Rows {
     return r * kStride + (byte ^ (swizzle << 4));
   }
 
-  // Quad thread c reads chunks c, 4 + c, 8 + c, 12 + c of a row: step s
-  // takes columns col, col + 1 (a[0]/b0) and col + 2, col + 3 (a[2]/b1) of
-  // chunk 4 (s / 2) + c.
+  // Quad thread c reads chunks c, 4 + c, ... of a row: step s takes columns
+  // col, col + 1 (a[0]/b0) and col + 2, col + 3 (a[2]/b1) of chunk
+  // 4 (s / 2) + c.
   __device__ static int frag_col(int c, int s) { return (s >> 1) * 32 + c * 8 + (s & 1) * 4; }
 
   __device__ static void k_frags(const uint8_t* tile, int r, int c, uint32_t (&b)[kSteps][2]) {
@@ -162,6 +170,8 @@ struct Bf16Rows {
 
 // int8 rows (kernel D): element c is byte c.
 struct Int8Rows {
+  static constexpr int kD = 128;
+  static constexpr int kSteps = kD / 16;
   static constexpr bool kScaled = true;
   static constexpr bool kMmaPV = false;
   static constexpr int kBytes = kD;
@@ -204,6 +214,8 @@ struct Int8Rows {
 // packed int4 rows (kernel E), split-half (ops/quant.py pack_int4): byte j
 // holds element j in its low nibble and element j + D/2 in its high nibble
 struct Int4Rows {
+  static constexpr int kD = 128;
+  static constexpr int kSteps = kD / 16;
   static constexpr bool kScaled = true;
   static constexpr bool kMmaPV = false;
   static constexpr int kBytes = kD / 2;
@@ -278,6 +290,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     bf16* __restrict__ out,              // [N, Hq, D], written here when there is one split
     float* __restrict__ part,            // [N, Hq, splits, kState], written when there are more
     int hkv, int group, int pool, int page, int split_rows, int vector_scales, float scale) {
+  constexpr int kD = Rows::kD;
+  constexpr int kSteps = Rows::kSteps;
+  constexpr int kWarpCols = kD / kWarps;                 // output columns per warp of the mma P.V
+  constexpr int kState = kD + 2;                         // one split's scratch per query row: acc[D], m, l
   using Word = typename Rows::Word;
   constexpr int kChunks = Rows::kBytes / 16;             // 16-byte chunks per row
   constexpr int kTileBytes = kTile * Rows::kStride;
@@ -544,7 +560,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            const void* v_scale, const void* table, const void* lengths, void* out, void* scratch,
            int n, int hkv, int group, int pool, int page, int maxp, int split_rows, int splits,
            float scale, void* stream) {
-  // K and V rows: 65,536 (bf16), 36,864 (int8), 16,384 B (int4)
+  // K and V rows: 65,536 (bf16, D 128), 32,768 (bf16, D 64), 36,864 (int8), 16,384 B (int4)
   constexpr int kRingBytes = kStages * 2 * kTile * Rows::kStride;
   static bool configured = false;
   if (!configured) {
@@ -566,7 +582,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    gofr::merge_splits<kD><<<dim3(n, hkv * group), kD, 0, s>>>(
+    gofr::merge_splits<Rows::kD><<<dim3(n, hkv * group), Rows::kD, 0, s>>>(
         static_cast<const float*>(scratch), pool_len, static_cast<const int*>(lengths),
         static_cast<bf16*>(out), split_rows, splits);
   }
@@ -579,13 +595,23 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
 // split_rows >= maxp x page), then the merge when splits > 1; `scratch`
 // holds n x Hq x splits x (D + 2) floats.
 
-// Kernel A: the bf16 pool has no scale planes.
+// Kernel A: the bf16 pool has no scale planes. One entry point a head dim:
+// 128 (Llama-3-8B) and 64 (Llama one_b).
 extern "C" int gofr_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const void* table, const void* lengths, void* out, void* scratch,
                                  int n, int hkv, int group, int pool, int page, int maxp,
                                  int split_rows, int splits, float scale, void* stream) {
-  return launch<Bf16Rows>(q, k_pool, v_pool, nullptr, nullptr, table, lengths, out, scratch, n,
-                          hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+  return launch<Bf16Rows<128>>(q, k_pool, v_pool, nullptr, nullptr, table, lengths, out, scratch,
+                               n, hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_paged_decode_d64(const void* q, const void* k_pool, const void* v_pool,
+                                     const void* table, const void* lengths, void* out,
+                                     void* scratch, int n, int hkv, int group, int pool, int page,
+                                     int maxp, int split_rows, int splits, float scale,
+                                     void* stream) {
+  return launch<Bf16Rows<64>>(q, k_pool, v_pool, nullptr, nullptr, table, lengths, out, scratch,
+                              n, hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_paged_decode_q(const void* q, const void* k_pool, const void* v_pool,

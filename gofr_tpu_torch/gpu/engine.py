@@ -173,14 +173,15 @@ from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
 from gofr_tpu_torch.http import errors
 from gofr_tpu_torch.metrics import Registry
 from gofr_tpu_torch.metrics.perf import CostModel, PerfPlane, StepPerf, occupancy_band
-from gofr_tpu_torch.models import TASKS, ModelSpec, get_family, resolve_config
-from gofr_tpu_torch.models import llama as llama_family
-from gofr_tpu_torch.models.llama import (
-    AnyKVCache,
-    Llama,
-    LlamaConfig,
-    jax_state,
+from gofr_tpu_torch.models import (
+    TASKS,
+    ModelSpec,
+    family_of,
+    family_of_config,
+    get_family,
+    resolve_config,
 )
+from gofr_tpu_torch.models.llama import AnyKVCache, LlamaConfig
 from gofr_tpu_torch.ops import autotune
 from gofr_tpu_torch.ops.attention import DECODE_ATTENTION
 from gofr_tpu_torch.ops.cuda import decode_attention as slot_decode_mod
@@ -222,15 +223,32 @@ COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_host_hit_tokens", "prefi
             "spec_rejected", "spec_pages_trimmed", "spec_rounds")
 
 
-def make_pool(model: Llama, kv_quantize: str, rows: int, row_len: int,
+# the model method that makes each cache, by (kv_layout, kv_quantize)
+MAKE_CACHE = {("paged", ""): "make_paged_cache", ("paged", "int8"): "make_paged_cache_q",
+              ("paged", "int4"): "make_paged_cache_q4", ("slot", ""): "make_cache",
+              ("slot", "int8"): "make_cache_q"}
+# kernels D, E, B-q, B-q4 and G-q are built at head dim 128 only
+_QUANTIZED_D64 = ("kv_quantize={q!r} at head dim {d} on the card: the quantized caches' kernels "
+                  "(D, E, B-q, B-q4, G-q) are built at head dim 128 only (ROADMAP.md Queue B 9, "
+                  "'the quantized caches at head dim 64'); serve kv_quantize='' or on the CPU")
+
+
+def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
               kv_layout: str = "paged") -> AnyKVCache:
     """An empty KV cache for ``model`` in the format ``kv_quantize`` (one of
     ``KV_QUANTIZE``): ``rows`` pages of ``row_len`` positions on the paged
     layout, ``rows`` slots of ``row_len`` positions on the slot layout."""
-    make = {("paged", ""): model.make_paged_cache, ("paged", "int8"): model.make_paged_cache_q,
-            ("paged", "int4"): model.make_paged_cache_q4, ("slot", ""): model.make_cache,
-            ("slot", "int8"): model.make_cache_q}[kv_layout, kv_quantize]
-    return make(rows, row_len)
+    return getattr(model, MAKE_CACHE[kv_layout, kv_quantize])(rows, row_len)
+
+
+def refuse_unbuilt_kernels(cfg: Any, kv_quantize: str, device: torch.device) -> None:
+    """Raise before anything is allocated when the card has no kernel for
+    the cache asked for: an int8 or int4 cache at a head dim other than
+    128 (D, E, B-q, B-q4 and G-q are built at 128 only). The CPU serves it
+    through the plain path."""
+    d = getattr(cfg, "head_size", 128)
+    if device.type == "cuda" and kv_quantize and d != 128:
+        raise ValueError(_QUANTIZED_D64.format(q=kv_quantize, d=d))
 
 
 class EngineClosed(RuntimeError):
@@ -1022,15 +1040,22 @@ class BatchEngine(_EngineBase):
 
 
 class GenerateEngine(_EngineBase):
-    """Continuous batching for a ``Llama`` on the paged pool or the slot
-    cache.
+    """Continuous batching for a generate family's model (a ``Llama``, a
+    ``GPT2``) on the paged pool or the slot cache.
 
     ``device`` is where the engine runs (the card unless the caller asks for
     the CPU) and must be the model's device. ``max_len`` caps prompt plus
     generation per request. ``kv_layout`` is ``"paged"`` (``page_size`` and
     ``total_pages`` size the pool; default: every slot can hold a
     ``max_len`` request; fewer pages serve the usual load and preempt under
-    a burst) or ``"slot"`` (``cache_len`` positions per slot).
+    a burst) or ``"slot"`` (``cache_len`` positions per slot); None takes
+    the family's default, as JAX's ``build_engine`` does (engine.py:4119):
+    the pool where the model has one (Llama), else the slot cache (GPT-2).
+    The engine refuses what the model's family lacks, with JAX's verdicts:
+    a paged layout without ``make_paged_cache``, an int8 slot cache without
+    ``make_cache_q``, speculation without ``verify_step``, adapters without
+    the family's ``SUPPORTS_ADAPTERS``; and, on the card, an int8 or int4
+    cache at a head dim its kernels are not built for.
     ``kv_quantize`` picks the cache's format: ``""`` the model's dtype,
     ``"int8"`` or, on the paged layout only, ``"int4"`` quantized rows with
     bf16 scales (2x or 4x the positions in the same memory).
@@ -1039,9 +1064,9 @@ class GenerateEngine(_EngineBase):
     in chunks of that length. ``prefix_cache`` keeps full prompt pages for
     later prompts that share them (paged layout only). ``spec_tokens`` > 0
     decodes speculatively, proposing that many tokens a round by prompt
-    lookup, or by the draft model of ``spec_draft`` = (its ``LlamaConfig``,
-    its ``Llama``; slot layout only, on the engine's device, sharing the
-    target's vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
+    lookup, or by the draft model of ``spec_draft`` = (its config, its
+    model; slot layout only, on the engine's device, sharing the target's
+    vocabulary). ``adapter_slots`` > 0 (or ``adapter_pool_mb``,
     from which the slots are derived) turns on the adapter plane: a device
     pool of that many slots of rank up to ``adapter_rank``, slot 0 the base,
     and a host registry of ``adapter_host_mb``. ``pipeline_depth`` (1..4,
@@ -1069,14 +1094,14 @@ class GenerateEngine(_EngineBase):
     (0: one blob frame a prompt), ``handoff_chunk_pages`` pages a chunk,
     ``handoff_pace_mbps`` > 0 caps the exporter's rate."""
 
-    def __init__(self, model: Llama, *, device: str | torch.device | None = None,
+    def __init__(self, model: torch.nn.Module, *, device: str | torch.device | None = None,
                  slots: int = 8, max_len: int = 2048, prefill_buckets: list[int] | None = None,
                  max_prefill_batch: int = 4, decode_chunk: int = 8,
                  eos_token_id: int | None = None, top_k: int = 0, top_p: float = 1.0,
                  tokenizer: Any = None, default_timeout: float | None = None, seed: int = 0,
                  page_size: int = 128, total_pages: int | None = None,
-                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str = "paged",
-                 spec_tokens: int = 0, spec_draft: tuple[LlamaConfig, Llama] | None = None,
+                 prefix_cache: bool = True, kv_quantize: str = "", kv_layout: str | None = None,
+                 spec_tokens: int = 0, spec_draft: tuple[Any, torch.nn.Module] | None = None,
                  adapter_slots: int = 0, adapter_rank: int = 16, adapter_pool_mb: float = 0.0,
                  adapter_host_mb: float = 256.0, pipeline_depth: int | None = None,
                  decode_pipeline: int = 2, prefix_host_mb: float = 0.0, container: Any = None,
@@ -1088,6 +1113,8 @@ class GenerateEngine(_EngineBase):
                  handoff_target: str | None = None, handoff_listen: str | None = None,
                  handoff_timeout_s: float = 5.0, handoff_streams: int = 2,
                  handoff_chunk_pages: int = 4, handoff_pace_mbps: float = 0.0):
+        family = family_of(model)
+        kv_layout = kv_layout or ("paged" if hasattr(model, "make_paged_cache") else "slot")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout {kv_layout!r}: use 'slot' or 'paged'")
         # disaggregated serving (engine.py:1153-1171): role workers need the
@@ -1104,6 +1131,18 @@ class GenerateEngine(_EngineBase):
             raise ValueError("kv_quantize='int4' needs kv_layout='paged' (packed-nibble "
                              "pages); the slot layout supports '' or 'int8'")
         self.spec_tokens = max(0, int(spec_tokens))
+        # what the family lacks, refused with JAX's verdicts (engine.py:1035-1039,
+        # 1149-1150, 1327-1330, 1479-1483)
+        if self.spec_tokens and not hasattr(model, "verify_step"):
+            raise ValueError(f"family {family.__name__!r} has no verify_step; speculative "
+                             "decoding needs it")
+        if kv_layout == "paged" and not hasattr(model, "make_paged_cache"):
+            raise ValueError(f"model family {family.__name__} has no paged-cache support")
+        if kv_quantize and kv_layout == "slot" and not hasattr(model, "make_cache_q"):
+            raise ValueError(f"family {family.__name__!r} has no int8 KV support")
+        if (adapter_slots or adapter_pool_mb) and not getattr(family, "SUPPORTS_ADAPTERS", False):
+            raise ValueError(f"family {family.__name__!r} does not support per-lane adapters (no "
+                             "SUPPORTS_ADAPTERS entry points); drop ADAPTER_SLOTS/ADAPTER_POOL_MB")
         if spec_draft is not None:
             if not self.spec_tokens:
                 raise ValueError("spec_draft requires spec_tokens > 0")
@@ -1114,11 +1153,13 @@ class GenerateEngine(_EngineBase):
                     "too — use kv_layout='slot' or drop spec_draft")
         super().__init__(container, device=device, default_timeout=default_timeout,
                          max_restarts=max_restarts)
+        refuse_unbuilt_kernels(model.cfg, kv_quantize, self.device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
         self.model = model
-        self.cfg: LlamaConfig = model.cfg
+        self.family = family
+        self.cfg: Any = model.cfg
         self.num_slots = slots
         self.decode_chunk = max(1, decode_chunk)
         # positions one chunk can write past max_len: decode_chunk steps, or
@@ -1309,7 +1350,7 @@ class GenerateEngine(_EngineBase):
                 self._warn("ENGINE_ROLE=prefill without HANDOFF_TARGET: prompts decode locally "
                            "(colocated fallback)")
 
-    def _draft(self, cfg: LlamaConfig, model: Llama) -> Draft:
+    def _draft(self, cfg: Any, model: torch.nn.Module) -> Draft:
         """Check a draft model against the engine (engine.py:1328) and give it
         a slot cache of the engine's slots and cache length."""
         if model.cfg != cfg:
@@ -1540,7 +1581,10 @@ class GenerateEngine(_EngineBase):
             return
         op, mod = entry
         cfg, n = self.cfg, self.num_slots
-        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+        # the geometry as JAX reads it (engine.py:1743-1747): MHA families
+        # (GPT-2) have as many KV heads as query heads
+        hq = cfg.num_heads
+        hkv, d = getattr(cfg, "num_kv_heads", hq), cfg.head_size
         gen = torch.Generator().manual_seed(0)
         q = torch.randn(n, hq, d, generator=gen).to(self.device, cfg.dtype)
         if self._table is not None:
@@ -1652,7 +1696,8 @@ class GenerateEngine(_EngineBase):
                  "kv_shards": 1, "top_k": self.top_k, "top_p": self.top_p}
         fingerprint = hashlib.sha256(json.dumps([cfg, self._seed, knobs], sort_keys=True)
                                      .encode()).hexdigest()[:16]
-        return {"family": "llama", "config": cfg, "seed": self._seed, "engine": knobs,
+        return {"family": self.family.__name__.rsplit(".", 1)[-1], "config": cfg,
+                "seed": self._seed, "engine": knobs,
                 "weights_epoch": self.weights_epoch, "adapter_digest": self.adapters_digest(),
                 "fingerprint": fingerprint, "chaos": ""}
 
@@ -1798,9 +1843,10 @@ class GenerateEngine(_EngineBase):
         prefix cache and the proposer's state, copies the new weights into
         the model's parameters in place (no buffer moves) and bumps
         ``weights_epoch``, which it returns. ``new_params`` takes the forms
-        ``build_engine`` takes: a ``Llama``, or a JAX parameter tree as
-        numpy arrays; on a draft engine, the target alone (the draft keeps
-        its weights) or ``{"t": target, "d": draft}``. Raw weights for a
+        ``build_engine`` takes: the family's model, or a JAX parameter tree
+        as numpy arrays (the family's ``jax_state``); on a draft engine, the
+        target alone (the draft keeps its weights) or ``{"t": target, "d":
+        draft}``. Raw weights for a
         model that serves weight-only int8 are quantized first, as the JAX
         engine's checkpoint path does (``_prepare_weights``,
         engine.py:2219-2234; its in-memory ``adopt_weights`` refuses them). A
@@ -1830,11 +1876,14 @@ class GenerateEngine(_EngineBase):
         staged = {}
         for key, new in parts.items():
             model = self.model if key == "t" else draft
+            family = family_of(model)
+            name = type(model).__name__
             try:
-                state = new.state_dict() if isinstance(new, Llama) else jax_state(new)
+                state = (new.state_dict() if isinstance(new, torch.nn.Module)
+                         else family.jax_state(new))
             except (KeyError, TypeError, IndexError) as e:
-                raise ValueError(f"adopt_weights: not a Llama or a Llama parameter tree ({e!r})"
-                                 ) from None
+                raise ValueError(f"adopt_weights: not a {name} or a {name} parameter tree "
+                                 f"({e!r})") from None
             serving = model.state_dict()
             if set(state) != set(serving) and any(name.endswith(".q") for name in serving):
                 state = quantize_state(state)
@@ -2981,7 +3030,7 @@ _PRESETS = {"llama3_8b": LlamaConfig.llama3_8b, "one_b": LlamaConfig.one_b,
 
 def _model(family: Any, cfg: Any, params: Any, dev: torch.device, seed: int) -> torch.nn.Module:
     """A family's model: ``params`` as the model already built (a ``Llama``,
-    ``Bert`` or ``ViT``), a JAX parameter tree as numpy arrays (the family's
+    ``GPT2``, ``Bert`` or ``ViT``), a JAX parameter tree as numpy arrays (the family's
     ``params_from_jax``), or None for random weights drawn on ``dev`` from
     ``seed`` (its ``init``)."""
     if isinstance(params, torch.nn.Module):
@@ -2991,7 +3040,7 @@ def _model(family: Any, cfg: Any, params: Any, dev: torch.device, seed: int) -> 
     return family.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
 
 
-def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
+def engine_knobs(conf: Any, kw: dict[str, Any], default_layout: str = "paged") -> dict[str, Any]:
     """The engine knobs of the ``ENGINE_*`` and ``ADAPTER_*`` keys of
     ``conf``, read as the JAX ``build_engine`` reads them
     (engine.py:4085-4370); a knob's keyword in ``kw`` wins over its key and
@@ -3013,7 +3062,8 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
     ``HANDOFF_TARGET`` / ``HANDOFF_LISTEN`` / ``HANDOFF_TIMEOUT_S`` (5) /
     ``HANDOFF_STREAMS`` (2) / ``HANDOFF_CHUNK_PAGES`` (4) /
     ``HANDOFF_PACE_MBPS`` (0) configure disaggregated serving
-    (engine.py:4266-4285, 4364-4367).
+    (engine.py:4266-4285, 4364-4367). ``ENGINE_KV_LAYOUT`` defaults to
+    ``default_layout``, the family's (engine.py:4119).
 
     A knob the port lacks raises ValueError naming its ROADMAP.md item:
     ``ADAPTER_HOTSWAP_DIR``. No knob is ignored."""
@@ -3054,7 +3104,8 @@ def engine_knobs(conf: Any, kw: dict[str, Any]) -> dict[str, Any]:
         "decode_chunk": int(pick("decode_chunk", "ENGINE_DECODE_CHUNK", conf.get_int, 8)),
         "max_prefill_batch": int(pick("max_prefill_batch", "ENGINE_PREFILL_BATCH",
                                       conf.get_int, 4)),
-        "kv_layout": str(pick("kv_layout", "ENGINE_KV_LAYOUT", conf.get_or_default, "paged")),
+        "kv_layout": str(pick("kv_layout", "ENGINE_KV_LAYOUT", conf.get_or_default,
+                              default_layout)),
         "kv_quantize": str(kv_quantize),
         "page_size": int(pick("page_size", "ENGINE_PAGE_SIZE", conf.get_int, 128)),
         "total_pages": int(pick("total_pages", "ENGINE_TOTAL_PAGES", conf.get_int, 0)) or None,
@@ -3159,9 +3210,9 @@ def build_batch_engine(spec: ModelSpec, container: Any, cfg: Any, *,
     return engine
 
 
-def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container: Any = None, *,
+def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
                  params: Any = None, device: str | torch.device | None = None, seed: int = 0,
-                 spec_draft: tuple[str | LlamaConfig, Any] | None = None,
+                 spec_draft: tuple[str | Any, Any] | None = None,
                  **kw: Any) -> GenerateEngine | BatchEngine:
     """An engine for a model, in one of two forms.
 
@@ -3171,25 +3222,32 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
     (``engine_knobs``) with ``kw`` winning, the eos id from the tokenizer
     unless ``eos_token_id`` is given, a random model is announced with the
     logger's warn, and the engine takes its request planes from the
-    container. A ``generate`` spec (llama) builds a ``GenerateEngine``; an
-    ``embed`` (bert) or ``classify`` (vit) spec a ``BatchEngine``
-    (``build_batch_engine``).
+    container. A ``generate`` spec (llama, gpt2) builds a
+    ``GenerateEngine`` on the family's default layout unless
+    ``ENGINE_KV_LAYOUT`` says otherwise (engine.py:4119: the pool where the
+    model has one, else the slot cache); an ``embed`` (bert) or
+    ``classify`` (vit) spec a ``BatchEngine`` (``build_batch_engine``).
 
     ``build_engine(preset_or_config, params=..., **kw)`` is the direct one:
-    a preset name or a ``LlamaConfig``, and ``kw`` straight to
+    a preset name (``_PRESETS``) or a generate family's config
+    (``LlamaConfig``, ``GPT2Config``), and ``kw`` straight to
     ``GenerateEngine``.
 
-    Weights (``params``, or the spec's ``weights``): a ``Llama`` already
-    built, a JAX parameter tree as numpy arrays (``params_from_jax``), or —
-    when None — random weights drawn on ``device`` from ``seed``.
+    Weights (``params``, or the spec's ``weights``): the family's model
+    already built, a JAX parameter tree as numpy arrays
+    (``params_from_jax``), or — when None — random weights drawn on
+    ``device`` from ``seed``.
     ``spec_draft`` = (a config, its weights in any of those forms) is the
     draft model of speculative decoding (engine.py:4140), its random
     weights drawn from ``seed`` + 1. ``quantize="int8"`` (in the spec form
     also ``ENGINE_QUANTIZE=int8``) serves the target in weight-only int8
     (``ops.quant.quantize_tree``, engine.py:4087-4106): a new model, the
     given one left as it is; the draft stays in its dtype (a small draft's
-    weight reads are noise). Runs on the card unless ``device`` says
-    otherwise."""
+    weight reads are noise). A family without ``QUANTIZABLE`` refuses a
+    ``quantize`` keyword, and ``ENGINE_QUANTIZE`` only warns there, as JAX
+    reads it (engine.py:4084-4109). An int8 or int4 cache that the card has
+    no kernel for (``refuse_unbuilt_kernels``) raises before any weight is
+    drawn. Runs on the card unless ``device`` says otherwise."""
     if isinstance(config, ModelSpec):
         spec = config
         if container is None or params is not None:
@@ -3210,7 +3268,9 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
             cfg = dataclasses.replace(cfg, dtype=spec.dtype)
         if spec.task != "generate":
             return build_batch_engine(spec, container, cfg, device=device, seed=seed, **kw)
-        kw = {**engine_knobs(container.config, kw), **kw}
+        quantize_kw = "quantize" in kw
+        default_layout = "paged" if hasattr(family.MODEL, "make_paged_cache") else "slot"
+        kw = {**engine_knobs(container.config, kw, default_layout), **kw}
         if kw.get("eos_token_id") is None and spec.tokenizer is not None:
             kw["eos_token_id"] = spec.tokenizer.eos_token_id
         kw.setdefault("tokenizer", spec.tokenizer)
@@ -3222,15 +3282,23 @@ def build_engine(config: str | LlamaConfig | ModelSpec = "llama3_8b", container:
         raise TypeError("build_engine: a container goes with a ModelSpec")
     else:
         cfg = _PRESETS[config]() if isinstance(config, str) else config
+        family, quantize_kw = family_of_config(cfg), True
     quantize = str(kw.pop("quantize", "") or "")
     if quantize not in ("", "int8"):
         raise ValueError(f"ENGINE_QUANTIZE={quantize!r}: only 'int8' is supported")
+    name = family.__name__.rsplit(".", 1)[-1]
+    if quantize and not getattr(family, "QUANTIZABLE", False):
+        if quantize_kw:
+            raise ValueError(f"family {name!r} does not support weight-only quantization")
+        container.logger.warn(f"ENGINE_QUANTIZE=int8 ignored for family {name!r} (no qdot support)")
+        quantize = ""
     dev = resolve_device(device)
-    model = _model(llama_family, cfg, params, dev, seed)
+    refuse_unbuilt_kernels(cfg, kw.get("kv_quantize", ""), dev)
+    model = _model(family, cfg, params, dev, seed)
     if quantize:
         model = quantize_tree(model)
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
-        spec_draft = (dcfg, _model(llama_family, dcfg, spec_draft[1], dev, seed + 1))
+        spec_draft = (dcfg, _model(family_of_config(dcfg), dcfg, spec_draft[1], dev, seed + 1))
     return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, container=container,
                           **kw)

@@ -50,7 +50,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from gofr_tpu_torch.models.llama import AnyKVCache, Llama
+from gofr_tpu_torch.models.llama import AnyKVCache
 from gofr_tpu_torch.ops.kvcache import SlotKVCache
 from gofr_tpu_torch.ops.sampling import sample_token, speculative_sample
 
@@ -60,7 +60,7 @@ class Draft:
     """A draft model and its own slot cache, one slot per engine slot
     (programs.py ``draft``: the draft's cache takes the history's place)."""
 
-    model: Llama
+    model: torch.nn.Module
     cache: SlotKVCache
 
 
@@ -114,7 +114,7 @@ def seed_aux(aux: SpecAux, slots: torch.Tensor, tokens: torch.Tensor, lengths: t
         seed_history(aux, slots, tokens, lengths, toks, offsets, width)
 
 
-def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+def prefill_sample(model: torch.nn.Module, cache: AnyKVCache, tokens: torch.Tensor,
                    lengths: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                    generator: torch.Generator | None, *, top_k: int = 0,
                    top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
@@ -131,7 +131,7 @@ def prefill_sample(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
     return toks
 
 
-def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+def prefill_chunk(model: torch.nn.Module, cache: AnyKVCache, tokens: torch.Tensor,
                   offsets: torch.Tensor, rows: torch.Tensor, temps: torch.Tensor,
                   generator: torch.Generator | None, last: bool, *, top_k: int = 0,
                   top_p: float = 1.0, do_sample: bool = True, aux: SpecAux = None,
@@ -155,7 +155,7 @@ def prefill_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
     return toks if last else None
 
 
-def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
+def decode_chunk(model: torch.nn.Module, cache: AnyKVCache, tokens: torch.Tensor,
                  positions: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor,
                  steps: int, generator: torch.Generator | None, *, top_k: int = 0,
                  top_p: float = 1.0, do_sample: bool = True, adapters=None,
@@ -179,7 +179,7 @@ def decode_chunk(model: Llama, cache: AnyKVCache, tokens: torch.Tensor,
     return torch.stack(out, dim=1), tokens
 
 
-def spec_chunk(model: Llama, cache: AnyKVCache, aux: torch.Tensor | Draft, tokens: torch.Tensor,
+def spec_chunk(model: torch.nn.Module, cache: AnyKVCache, aux: torch.Tensor | Draft, tokens: torch.Tensor,
                hlen: torch.Tensor, table: torch.Tensor | None, temps: torch.Tensor, steps: int,
                g: int, generator: torch.Generator | None, *, top_k: int = 0,
                top_p: float = 1.0, adapters=None,

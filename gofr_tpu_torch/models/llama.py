@@ -125,9 +125,14 @@ def _linear(in_features: int, out_features: int, int8: bool, **factory) -> nn.Mo
     return nn.Linear(in_features, out_features, bias=False, **factory)
 
 
-# the family's registry entries (models/__init__.py)
+# the family's registry entries (models/__init__.py) and flags
+# (llama.py:64, 150, 153): per-lane adapters, every linear site ``qdot``,
+# ``prefill`` taking chunk offsets on the slot cache
 CONFIG = LlamaConfig
 TASKS = ("generate",)
+SUPPORTS_ADAPTERS = True
+QUANTIZABLE = True
+SLOT_CHUNKED_PREFILL = True
 
 
 class Block(nn.Module):
@@ -375,6 +380,10 @@ class Llama(nn.Module):
         cfg = self.cfg
         return Q4PagedKVCache.create(cfg.num_layers, pages, page_size, cfg.num_kv_heads,
                                      cfg.head_size, device=self.device)
+
+
+# the model class the engine builds and looks its layouts up on
+MODEL = Llama
 
 
 # -- weights --------------------------------------------------------------------

@@ -168,13 +168,17 @@ def _wrappers() -> dict:
     )
 
     return {"paged_decode": paged_decode.paged_decode,
+            "paged_decode_d64": paged_decode.paged_decode_d64,
             "kv_append": kv_append.kv_append,
+            "kv_append_d64": kv_append.kv_append_d64,
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_d64": flash_attention.flash_attention_d64,
             "paged_decode_q": paged_decode_q.paged_decode_q,
             "paged_decode_q4": paged_decode_q4.paged_decode_q4,
             "decode_attention": decode_attention.decode_attention,
+            "decode_attention_d64": decode_attention.decode_attention_d64,
             "kv_append_slot": kv_append.kv_append_slot,
+            "kv_append_slot_d64": kv_append.kv_append_slot_d64,
             "kv_append_q": kv_append.kv_append_q,
             "kv_append_q4": kv_append.kv_append_q4,
             "kv_append_slot_q": kv_append.kv_append_slot_q,

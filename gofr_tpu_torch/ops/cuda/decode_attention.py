@@ -10,6 +10,11 @@ how the design answers that. Its plain version is
 chooses between the two by the tensor's device.
 ``ops.attention.decode_attention_split_plain`` repeats the split and merge
 arithmetic in PyTorch for the tests.
+
+The kernel is one template built at head dim 128 (Llama) and 64 (GPT-2);
+``decode_attention`` takes either and any other raises. Each build counts
+its launches under its own name: ``decode_attention.launches`` those at
+128, ``decode_attention_d64.launches`` those at 64.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from gofr_tpu_torch.ops import autotune, cuda
 
-HEAD_DIM = 128
+HEAD_DIMS = (128, 64)
 MAX_GROUP = 8
 # Agreement with the plain version on the same bf16 inputs. The arithmetic
 # is kernel A's (paged_decode_q.cu), and so is the plain version's, so the
@@ -37,7 +42,13 @@ MAX_GROUP = 8
 # not clamped to Smax, read 8.0e-3 / 3.6% on the lane past the slot; split
 # boundaries overlapping by one row 0.058 / 6.6%, the last split left out
 # of the merge 0.14 / 34% (scripts/torch_kernel_mutants.py). Limits: those
-# of A, 5e-3 on any element and 1.2% on the RMS ratio.
+# of A, 5e-3 on any element and 1.2% on the RMS ratio. The 64 build, held to
+# the same limits, read 1.95e-3 and 0.49% at GPT-2's step (8 live slots of
+# 297..908 and an empty one, Hq = Hkv 12, Smax 1024; 128 rows x 8 splits),
+# the nearest planted fault, the last live key dropped, 0.031 / 3.3%, split
+# boundaries overlapping by one row 0.042 / 6.9%, and its own faults, half
+# of each output row never summed and a 128-wide row stride, 0.42 / 71% and
+# 0.69 / 140% (the same H100, scripts/torch_kernel_mutants.py).
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 TILE = 64
@@ -47,6 +58,8 @@ TILE = 64
 # no live row and exit at once.
 SPLIT_BLOCKS = 1024
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# the C entry point of each build
+ENTRY = {128: "gofr_decode_attention", 64: "gofr_decode_attention_d64"}
 
 
 def split_plan(n: int, hkv: int, smax: int) -> tuple[int, int]:
@@ -101,9 +114,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
     """q [B, Hq, D] against slot-cache layer slices [B, Hkv, Smax, D],
     attending to positions < lengths[b] (clamped to [0, Smax]) →
-    [B, Hq, D]. ``lengths`` is int32 and contiguous on the card
-    (``Llama.decode_step`` converts it once per step). Launches the kernel
-    (and its merge), or raises."""
+    [B, Hq, D]. D is 128 or 64. ``lengths`` is int32 and contiguous on the
+    card (the models' ``decode_step`` converts it once per step). Launches
+    the kernel (and its merge), or raises."""
     cuda.require(q.is_cuda and k_cache.is_cuda and v_cache.is_cuda,
                  "decode_attention takes tensors on the card")
     b, hq, d = q.shape
@@ -111,8 +124,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     cuda.require(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
                  f"decode_attention takes bf16 q and caches, got "
                  f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
-    cuda.require(d == HEAD_DIM and k_cache.shape == (b, hkv, smax, d) and v_cache.shape == k_cache.shape,
-                 f"decode_attention takes head_dim {HEAD_DIM} and one cache row per query row, "
+    cuda.require(d in HEAD_DIMS and k_cache.shape == (b, hkv, smax, d) and v_cache.shape == k_cache.shape,
+                 f"decode_attention takes head_dim 128 or 64 and one cache row per query row, "
                  f"got q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
     cuda.require(hq % hkv == 0 and hq // hkv <= MAX_GROUP,
                  f"decode_attention takes up to {MAX_GROUP} query heads per KV head, got {hq}/{hkv}")
@@ -127,13 +140,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if b == 0:
         return out
     split_rows, splits, scratch = split_scratch(q, hkv, smax, "decode", (b, hq, hkv, d, smax))
-    fn = cuda.bind("gofr_decode_attention", _ARGTYPES)
+    fn = cuda.bind(ENTRY[d], _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), b, hkv, hq // hkv, smax, split_rows, splits, scale,
             cuda.stream_of(q))
     cuda.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    _COUNTED[d].launches += 1
     return out
 
 
+def decode_attention_d64(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel F's head-dim-64 build under its own name: ``decode_attention``
+    on q and caches of head dim 64 (any other raises)."""
+    cuda.require(q.shape[-1] == 64, f"decode_attention_d64 takes head_dim 64, got {q.shape[-1]}")
+    return decode_attention(q, k_cache, v_cache, lengths, **kw)
+
+
 decode_attention.launches = 0
+decode_attention_d64.launches = 0
+_COUNTED = {128: decode_attention, 64: decode_attention_d64}

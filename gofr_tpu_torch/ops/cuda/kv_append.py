@@ -18,8 +18,13 @@ bit-exact, values and scales. B and G copy 16-bit patterns; the others
 quantize in f32 with IEEE division and round half to even, as the plain
 versions do.
 
+B and G are built at head dim 128 (Llama-3-8B) and 64 (GPT-2, Llama
+``one_b``), each build counted under its own name (``kv_append`` /
+``kv_append_d64``, ``kv_append_slot`` / ``kv_append_slot_d64``); the
+quantizing appends at 128 only.
+
 The launchers take what the model hands them and convert nothing: rows
-[N, Hkv, 128] in the cache's 16-bit type (bf16 for the quantized caches),
+[N, Hkv, D] in the cache's 16-bit type (bf16 for the quantized caches),
 ``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
 (``Llama.decode_step`` converts both once per step). They validate, launch
 and count, with one check each of what the pointers they pass need (on
@@ -35,7 +40,11 @@ import torch
 
 from gofr_tpu_torch.ops import cuda
 
-HEAD_DIM = 128
+HEAD_DIM = 128           # the quantizing appends
+HEAD_DIMS = (128, 64)    # B and G
+# the C entry point of each build of B and G
+ENTRY = {128: "gofr_kv_append", 64: "gofr_kv_append_d64"}
+SLOT_ENTRY = {128: "gofr_kv_append_slot", 64: "gofr_kv_append_slot_d64"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -43,10 +52,10 @@ _SLOT_Q_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p
 # what each launcher takes, the message of its one check
 _TAKES = "takes contiguous tensors on the card: "
 _POOL_INDEX = "int32 table [N, MaxP] and positions [N]"
-_B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, 128] of one type, rows "
-            f"[N, Hkv, 128] of that type, {_POOL_INDEX}")
-_G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit caches [N, Hkv, Smax, 128] of one type, rows "
-            "[N, Hkv, 128] of that type, int32 positions [N]")
+_B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, D] of one type, rows "
+            f"[N, Hkv, D] of that type, D 128 or 64, {_POOL_INDEX}")
+_G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit caches [N, Hkv, Smax, D] of one type, rows "
+            "[N, Hkv, D] of that type, D 128 or 64, int32 positions [N]")
 _BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, 128] with bf16 scales [P, Hkv, page], "
              f"bf16 rows [N, Hkv, 128], {_POOL_INDEX}")
 _BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, 64] with bf16 scales [P, Hkv, page], "
@@ -70,10 +79,11 @@ def _scales(k_scale: torch.Tensor, v_scale: torch.Tensor, shape: torch.Size) -> 
             and k_scale.is_contiguous() and v_scale.is_contiguous())
 
 
-def _rows(k_new: torch.Tensor, v_new: torch.Tensor, n: int, hkv: int, dtype: torch.dtype) -> bool:
-    """New rows [N, Hkv, 128] of ``dtype``, contiguous on the card."""
+def _rows(k_new: torch.Tensor, v_new: torch.Tensor, n: int, hkv: int, dtype: torch.dtype,
+          d: int = HEAD_DIM) -> bool:
+    """New rows [N, Hkv, d] of ``dtype``, contiguous on the card."""
     return (k_new.is_cuda and v_new.is_cuda and k_new.dtype == v_new.dtype == dtype
-            and k_new.shape == v_new.shape == (n, hkv, HEAD_DIM)
+            and k_new.shape == v_new.shape == (n, hkv, d)
             and k_new.is_contiguous() and v_new.is_contiguous())
 
 
@@ -99,20 +109,31 @@ def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
     raises."""
     pool, hkv, page, d = k_layer.shape
     n = k_new.shape[0]
-    cuda.require(_planes(k_layer, v_layer, k_layer.dtype, HEAD_DIM) and k_layer.element_size() == 2
-                 and _rows(k_new, v_new, n, hkv, k_layer.dtype) and _pool_index(table, positions, n),
-                 _B_TAKES)
+    cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, k_layer.dtype, d)
+                 and k_layer.element_size() == 2 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
+                 and _pool_index(table, positions, n), _B_TAKES)
     if n == 0:
         return k_layer, v_layer
-    fn = cuda.bind("gofr_kv_append", _ARGTYPES)
+    fn = cuda.bind(ENTRY[d], _ARGTYPES)
     cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                   table.data_ptr(), positions.data_ptr(), n, table.shape[1], pool, hkv, page, d,
                   cuda.stream_of(k_layer)), "kv_append")
-    kv_append.launches += 1
+    _COUNTED[d].launches += 1
     return k_layer, v_layer
 
 
+def kv_append_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
+                  positions: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's head-dim-64 build under its own name: ``kv_append`` on
+    pools and rows of head dim 64 (any other raises)."""
+    cuda.require(k_layer.shape[-1] == 64, f"kv_append_d64 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append(k_layer, v_layer, table, positions, k_new, v_new)
+
+
 kv_append.launches = 0
+kv_append_d64.launches = 0
+_COUNTED = {128: kv_append, 64: kv_append_d64}
 
 
 def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
@@ -122,19 +143,30 @@ def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torc
     position outside [0, Smax), and return the slices. Launches the kernel,
     or raises."""
     n, hkv, smax, d = k_layer.shape
-    cuda.require(_planes(k_layer, v_layer, k_layer.dtype, HEAD_DIM) and k_layer.element_size() == 2
-                 and _rows(k_new, v_new, n, hkv, k_layer.dtype) and _slot_index(positions, n),
-                 _G_TAKES)
+    cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, k_layer.dtype, d)
+                 and k_layer.element_size() == 2 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
+                 and _slot_index(positions, n), _G_TAKES)
     if n == 0:
         return k_layer, v_layer
-    fn = cuda.bind("gofr_kv_append_slot", _SLOT_ARGTYPES)
+    fn = cuda.bind(SLOT_ENTRY[d], _SLOT_ARGTYPES)
     cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                   positions.data_ptr(), n, hkv, smax, d, cuda.stream_of(k_layer)), "kv_append_slot")
-    kv_append_slot.launches += 1
+    _SLOT_COUNTED[d].launches += 1
     return k_layer, v_layer
 
 
+def kv_append_slot_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's head-dim-64 build under its own name: ``kv_append_slot``
+    on caches and rows of head dim 64 (any other raises)."""
+    cuda.require(k_layer.shape[-1] == 64,
+                 f"kv_append_slot_d64 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append_slot(k_layer, v_layer, positions, k_new, v_new)
+
+
 kv_append_slot.launches = 0
+kv_append_slot_d64.launches = 0
+_SLOT_COUNTED = {128: kv_append_slot, 64: kv_append_slot_d64}
 
 
 def _pool_q(launcher, entry: str, values_dtype: torch.dtype, row_bytes: int, takes: str,

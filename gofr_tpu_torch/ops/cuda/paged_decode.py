@@ -13,6 +13,11 @@ point. Its plain version is ``ops.attention.paged_decode_attention_plain``
 chooses between the two by the tensor's device.
 ``ops.attention.paged_decode_attention_split_plain`` repeats the split and
 merge arithmetic in PyTorch for the tests.
+
+``Bf16Rows`` is a template built at head dim 128 (Llama-3-8B) and 64 (Llama
+``one_b``); ``paged_decode`` takes either and any other raises. Each build
+counts its launches under its own name: ``paged_decode.launches`` those at
+128, ``paged_decode_d64.launches`` those at 64.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from gofr_tpu_torch.ops import cuda
 from gofr_tpu_torch.ops.cuda.decode_attention import split_scratch
 
-HEAD_DIM = 128
+HEAD_DIMS = (128, 64)
 MAX_GROUP = 8
 # Agreement with the plain version on the same bf16 inputs. The plain
 # version rounds the scores to bf16 where the kernel keeps them in f32, and
@@ -37,10 +42,17 @@ MAX_GROUP = 8
 # last live key dropped, moved the outputs by 0.035 and 3.0% of their RMS;
 # split boundaries overlapping by one row by 0.049 and 6.8%; one key past
 # the length (a whole row in the empty slot) by 3.2 and 7.1x
-# (scripts/torch_kernel_mutants.py).
+# (scripts/torch_kernel_mutants.py). The 64 build, held to the same
+# limits, read 2.0e-3 and 0.48% at Llama one_b's step (the same lengths,
+# Hq 32, Hkv 4, page 128; 128 rows x 16 splits), the nearest planted fault,
+# the last live key dropped, 0.019 / 2.4%, split boundaries overlapping by
+# one row 0.041 / 7.8%, and its own faults, half of each output row never
+# summed and a 128-wide row stride, 0.25 / 70% and 0.39 / 141%.
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# the C entry point of each build
+ENTRY = {128: "gofr_paged_decode", 64: "gofr_paged_decode_d64"}
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -48,17 +60,18 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  scale: float | None = None) -> torch.Tensor:
     """q [N, Hq, D] against pool layer slices [P, Hkv, page, D] through the
     block table [N, MaxP] (OOB entries == P), masked by lengths [N] →
-    [N, Hq, D]. Table and lengths are int32 and contiguous on the card
-    (``Llama.decode_step`` converts them once per step). Launches the
-    kernel (and its merge), or raises."""
+    [N, Hq, D]. D is 128 or 64. Table and lengths are int32 and contiguous
+    on the card (``Llama.decode_step`` converts them once per step).
+    Launches the kernel (and its merge), or raises."""
     cuda.require(q.is_cuda and k_pool.is_cuda and v_pool.is_cuda,
                  "paged_decode takes tensors on the card")
     n, hq, d = q.shape
     pool, hkv, page, _ = k_pool.shape
     cuda.require(q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16,
                  f"paged_decode takes bf16 q and pools, got {q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
-    cuda.require(d == HEAD_DIM and k_pool.shape[3] == d and v_pool.shape == k_pool.shape,
-                 f"paged_decode takes head_dim {HEAD_DIM}, got q {tuple(q.shape)} pool {tuple(k_pool.shape)}")
+    cuda.require(d in HEAD_DIMS and k_pool.shape[3] == d and v_pool.shape == k_pool.shape,
+                 f"paged_decode takes head_dim 128 or 64, got q {tuple(q.shape)} "
+                 f"pool {tuple(k_pool.shape)}")
     cuda.require(hq % hkv == 0 and hq // hkv <= MAX_GROUP,
                  f"paged_decode takes up to {MAX_GROUP} query heads per KV head, got {hq}/{hkv}")
     cuda.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (k_pool, v_pool)),
@@ -75,13 +88,23 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     maxp = table.shape[1]
     split_rows, splits, scratch = split_scratch(q, hkv, maxp * page, "paged_decode",
                                                (n, hq, hkv, d, page, maxp, pool))
-    fn = cuda.bind("gofr_paged_decode", _ARGTYPES)
+    fn = cuda.bind(ENTRY[d], _ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, hkv, hq // hkv, pool, page,
             maxp, split_rows, splits, scale, cuda.stream_of(q))
     cuda.check(rc, "paged_decode")
-    paged_decode.launches += 1
+    _COUNTED[d].launches += 1
     return out
 
 
+def paged_decode_d64(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     table: torch.Tensor, lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel A's head-dim-64 build under its own name: ``paged_decode`` on
+    q and pools of head dim 64 (any other raises)."""
+    cuda.require(q.shape[-1] == 64, f"paged_decode_d64 takes head_dim 64, got {q.shape[-1]}")
+    return paged_decode(q, k_pool, v_pool, table, lengths, **kw)
+
+
 paged_decode.launches = 0
+paged_decode_d64.launches = 0
+_COUNTED = {128: paged_decode, 64: paged_decode_d64}

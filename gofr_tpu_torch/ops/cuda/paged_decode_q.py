@@ -23,7 +23,10 @@ import torch
 
 from gofr_tpu_torch.ops import cuda
 from gofr_tpu_torch.ops.cuda.decode_attention import split_scratch
-from gofr_tpu_torch.ops.cuda.paged_decode import HEAD_DIM, MAX_GROUP
+from gofr_tpu_torch.ops.cuda.paged_decode import MAX_GROUP
+
+# the quantized pools' kernels (D, E) are built at head dim 128 only
+HEAD_DIM = 128
 
 # Agreement with the plain version on the same inputs (q bf16, a pool
 # written by ops.paged.write_prompts_paged_q from random bf16 K/V). The

@@ -109,10 +109,11 @@ class QLinear(nn.Module):
         return qdot(x, self.weight)
 
 
-# the linears quantize_tree replaces, by attribute name: the Llama's of
-# JAX's _DEFAULT_KEYS (gofr_tpu/ops/quant.py:73), which also names the
-# linears of families the port does not have yet
-QUANTIZED_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+# the linears quantize_tree replaces, by attribute name: the Llama's and
+# GPT-2's of JAX's _DEFAULT_KEYS (gofr_tpu/ops/quant.py:73), which also
+# names Mixtral's, a family the port does not have yet. GPT-2's tied head
+# is its embedding, which is no key, so it stays in the model's dtype
+QUANTIZED_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head", "w_fc", "w_proj")
 
 
 def quantize_tree(model: nn.Module) -> nn.Module:

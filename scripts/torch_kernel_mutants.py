@@ -19,10 +19,13 @@ D and E (the page pool's decodes) are one template in
 the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
 D and E; the five appends (B, G, B-q, B-q4, G-q) are one template in
 ``kv_append.cu``, held bit for bit. The W8A16 linear's two tilings and
-its split's second pass are one source, ``w8a16.cu``. Kernel C is one
-template at head dims 128 and 64, so a fault in its body lands in both
-builds; the mutants in ``ONLY`` plant a fault in the 64 build alone, which
-must fail its check while the 128 build passes.
+its split's second pass are one source, ``w8a16.cu``. Kernels C, A, F,
+B and G are each one template at head dims 128 and 64, so a fault in
+their bodies lands in both builds; the mutants in ``ONLY`` plant a fault
+in the 64 builds alone (C's masks; A's, F's, B's and G's half row and a
+128-wide row stride), which must fail their checks while the 128 builds
+pass. Phase 3 holds each 64 build on layer 0 of a stack of layers, so a
+row read or written at twice its stride stays inside the stack.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -106,6 +109,27 @@ MUTANTS = [
      "!(kv < kl &&", "!(kv < kl + (kD == 64) &&", True),
     ("flash_attention_d64: causal diagonal masked", "flash_attention.cu",
      "(!causal || pos >= kv)", "(!causal || pos >= kv + (kD == 64))", True),
+    # A, F, B and G's 64 builds alone (``ONLY``): half of each row, and a
+    # row stride of 128 elements (the 128 build's) in the 64 build
+    ("paged_decode_d64: half of each output row never summed", "paged_decode_q.cu",
+     "gofr::mma_bf16(pv[2 * pair + 1], a, vf[2], vf[3]);",
+     "if (kD == 128) gofr::mma_bf16(pv[2 * pair + 1], a, vf[2], vf[3]);", True),
+    ("paged_decode_d64: a 128-wide row stride", "paged_decode_q.cu",
+     "const size_t base = (ok ? at(t) * Rows::kBytes : 0) + col;",
+     "const size_t base = (ok ? at(t) * Rows::kBytes * (kD == 64 ? 2 : 1) : 0) + col;", True),
+    ("decode_attention_d64: half of each output row never summed", "paged_decode.cu",
+     "if (g < group) acc[g] = fmaf(p_s[g][t], vt, acc[g]);",
+     "if (g < group && (kD == 128 || tid < kD / 2)) acc[g] = fmaf(p_s[g][t], vt, acc[g]);", True),
+    ("decode_attention_d64: a 128-wide row stride", "paged_decode.cu",
+     "return (((size_t)n * hkv + h) * smax + t) * kD;",
+     "return (((size_t)n * hkv + h) * smax + t) * (kD == 64 ? 128 : kD);", True),
+    ("kv_append_d64/_slot_d64: half of each row left unwritten", "kv_append.cu",
+     "else reinterpret_cast<uint32_t*>(dst)[lane] = raw.x;",
+     "else if (lane < 16) reinterpret_cast<uint32_t*>(dst)[lane] = raw.x;", True),
+    ("kv_append_d64/_slot_d64: a 128-wide row stride", "kv_append.cu",
+     "Rows::store(values + row * Rows::kRowBytes, scales + row, raw, lane);",
+     "Rows::store(values + row * Rows::kRowBytes * (Rows::kD == 64 ? 2 : 1), scales + row, raw, lane);",
+     True),
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
      "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
@@ -169,10 +193,21 @@ MUTANTS = [
      "row[lane] = pa;\n  row[lane + 32] = pb;", False),
 ]
 
-# Mutants whose fault lies in one kernel's instantiation: (that kernel, a
-# kernel built from the same source that must still pass)
-ONLY = {"flash_attention_d64: one key past kv_length": ("flash_attention_d64", "flash_attention"),
-        "flash_attention_d64: causal diagonal masked": ("flash_attention_d64", "flash_attention")}
+# Mutants whose fault lies in the head-dim-64 instantiations: (the kernels
+# that must fail, the kernels built from the same source that must pass)
+_C64 = (("flash_attention_d64",), ("flash_attention",))
+_A64 = (("paged_decode_d64",), ("paged_decode", "paged_decode_q", "paged_decode_q4"))
+_F64 = (("decode_attention_d64",), ("decode_attention",))
+_BG64 = (("kv_append_d64", "kv_append_slot_d64"),
+         ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q"))
+ONLY = {"flash_attention_d64: one key past kv_length": _C64,
+        "flash_attention_d64: causal diagonal masked": _C64,
+        "paged_decode_d64: half of each output row never summed": _A64,
+        "paged_decode_d64: a 128-wide row stride": _A64,
+        "decode_attention_d64: half of each output row never summed": _F64,
+        "decode_attention_d64: a 128-wide row stride": _F64,
+        "kv_append_d64/_slot_d64: half of each row left unwritten": _BG64,
+        "kv_append_d64/_slot_d64: a 128-wide row stride": _BG64}
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the
@@ -229,7 +264,8 @@ def main() -> None:
             bad.append(name)
         if name in ONLY:
             failing, passing = ONLY[name]
-            if row["kernels"][failing]["passed"] or not row["kernels"][passing]["passed"]:
+            if (any(row["kernels"][k]["passed"] for k in failing)
+                    or not all(row["kernels"][k]["passed"] for k in passing)):
                 bad.append(name)
     torch.cuda.empty_cache()
     model = init(LlamaConfig.llama3_8b(), torch.Generator(device="cuda").manual_seed(chip_smoke.SEED),

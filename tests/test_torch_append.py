@@ -187,6 +187,8 @@ def test_append_launchers_declare_the_c_entry_points_arguments(monkeypatch):
     declared = {name: [c_types[" ".join(p.split()[:-1])] for p in params.split(",")]
                 for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)}
     assert declared == {"gofr_kv_append": mod._ARGTYPES, "gofr_kv_append_slot": mod._SLOT_ARGTYPES,
+                        "gofr_kv_append_d64": mod._ARGTYPES,
+                        "gofr_kv_append_slot_d64": mod._SLOT_ARGTYPES,
                         "gofr_kv_append_q": mod._Q_ARGTYPES, "gofr_kv_append_q4": mod._Q_ARGTYPES,
                         "gofr_kv_append_slot_q": mod._SLOT_Q_ARGTYPES}
 

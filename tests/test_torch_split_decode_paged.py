@@ -133,12 +133,16 @@ def test_launchers_declare_the_c_entry_points_arguments():
                 for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)}
     assert declared == {
         "gofr_paged_decode": paged_decode._ARGTYPES,
+        "gofr_paged_decode_d64": paged_decode._ARGTYPES,
         "gofr_paged_decode_q": paged_decode_q._ARGTYPES,
         "gofr_paged_decode_q4": paged_decode_q._ARGTYPES,
         "gofr_decode_attention": decode_attention._ARGTYPES,
+        "gofr_decode_attention_d64": decode_attention._ARGTYPES,
         "gofr_flash_attention": flash_attention._ARGTYPES,
         "gofr_kv_append": kv_append._ARGTYPES,
+        "gofr_kv_append_d64": kv_append._ARGTYPES,
         "gofr_kv_append_slot": kv_append._SLOT_ARGTYPES,
+        "gofr_kv_append_slot_d64": kv_append._SLOT_ARGTYPES,
         "gofr_kv_append_q": kv_append._Q_ARGTYPES,
         "gofr_kv_append_q4": kv_append._Q_ARGTYPES,
         "gofr_kv_append_slot_q": kv_append._SLOT_Q_ARGTYPES,

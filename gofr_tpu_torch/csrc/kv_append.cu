@@ -8,9 +8,12 @@
 //   G        gofr_kv_append_slot         Bf16Rows<128>  SlotAddr  bf16 slot cache
 //   B (64)   gofr_kv_append_d64          Bf16Rows<64>   PoolAddr  bf16 pool, head dim 64
 //   G (64)   gofr_kv_append_slot_d64     Bf16Rows<64>   SlotAddr  bf16 slot cache, head dim 64
-//   B-q      gofr_kv_append_q            Int8Rows       PoolAddr  int8 paged pool
-//   B-q4     gofr_kv_append_q4           Int4Rows       PoolAddr  packed int4 paged pool
-//   G-q      gofr_kv_append_slot_q       Int8Rows       SlotAddr  int8 slot cache
+//   B-q      gofr_kv_append_q            Int8Rows<128>  PoolAddr  int8 paged pool
+//   B-q4     gofr_kv_append_q4           Int4Rows<128>  PoolAddr  packed int4 paged pool
+//   G-q      gofr_kv_append_slot_q       Int8Rows<128>  SlotAddr  int8 slot cache
+//   B-q (64) gofr_kv_append_q_d64        Int8Rows<64>   PoolAddr  int8 pool, head dim 64
+//   B-q4(64) gofr_kv_append_q4_d64       Int4Rows<64>   PoolAddr  int4 pool, head dim 64
+//   G-q (64) gofr_kv_append_slot_q_d64   Int8Rows<64>   SlotAddr  int8 slot cache, head dim 64
 //
 // Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
 // (:110, pallas_call :160) and append_tokens_inplace (:61, pallas_call :80,
@@ -42,8 +45,12 @@
 //     the pair one packed byte holds). Stores are 8, 4 or 2 bytes a lane:
 //     the warp writes its 256-, 128- or 64-byte row in one coalesced store.
 //     No shared memory. A 64-wide bf16 row (GPT-2, Llama one_b) is 128 B:
-//     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>); the
-//     quantizing rows are built at 128 only.
+//     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>). The
+//     quantizing rows at 64 keep all 32 lanes on the row: an int8 lane
+//     quantizes elements 2l, 2l + 1 (one 4-byte load) into a 2-byte store,
+//     an int4 lane elements l and 32 + l (two 2-byte loads, the pair one
+//     packed byte holds) into a 1-byte store, so the warp's max covers the
+//     whole row and every lane writes its part of the 64- or 32-byte row.
 //   - The row's load is issued before the address chain (positions[n], then
 //     the table entry, then the store) resolves: the row does not depend on
 //     where it lands, so the two latencies overlap instead of adding up.
@@ -94,22 +101,29 @@ __device__ __forceinline__ float warp_amax(float a) {
   return a;
 }
 
-// Symmetric per-row quantization to +-kMax of the lane's four elements x:
-// the codes q and (from every lane) the row's f32 scale.
-template <int kMax>
-__device__ __forceinline__ float quantize(const float (&x)[4], int (&q)[4]) {
-  const float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+// Symmetric per-row quantization to +-kMax of the lane's N elements x (4 at
+// head dim 128, 2 at 64; every lane of the warp holds part of the row): the
+// codes q and (from every lane) the row's f32 scale.
+template <int kMax, int N>
+__device__ __forceinline__ float quantize(const float (&x)[N], int (&q)[N]) {
+  float a = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) a = fmaxf(a, fabsf(x[i]));
   const float s = fmaxf(warp_amax(a), 1e-8f) / static_cast<float>(kMax);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = min(max(__float2int_rn(x[i] / s), -kMax), kMax);
+  for (int i = 0; i < N; ++i) q[i] = min(max(__float2int_rn(x[i] / s), -kMax), kMax);
   return s;
 }
 
-__device__ __forceinline__ void unpack(uint2 raw, float (&x)[4]) {
+// The first N bf16 elements of raw (x's low half first) as f32.
+template <int N>
+__device__ __forceinline__ void unpack(uint2 raw, float (&x)[N]) {
   x[0] = lo_bf16(raw.x);
   x[1] = hi_bf16(raw.x);
-  x[2] = lo_bf16(raw.y);
-  x[3] = hi_bf16(raw.y);
+  if constexpr (N == 4) {
+    x[2] = lo_bf16(raw.y);
+    x[3] = hi_bf16(raw.y);
+  }
 }
 
 __device__ __forceinline__ uint32_t nibbles(int lo, int hi) {
@@ -136,46 +150,66 @@ struct Bf16Rows {
   }
 };
 
-// int8 rows with one bf16 scale (kernels B-q, G-q): lane l quantizes
-// elements 4l .. 4l + 3 into bytes 4l .. 4l + 3.
+// int8 rows with one bf16 scale (kernels B-q, G-q) of head dim D: lane l
+// quantizes Bf16Rows<D>'s elements (4l .. 4l + 3 at 128, 2l, 2l + 1 at 64)
+// into the bytes of the same index, a 4- or 2-byte store.
+template <int D>
 struct Int8Rows {
-  static constexpr int kD = 128;
+  static constexpr int kD = D;
   static constexpr int kRowBytes = kD;
+  static constexpr int kPerLane = kD / 32;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
-    return Bf16Rows<128>::load(row, lane);
+    return Bf16Rows<D>::load(row, lane);
   }
 
   __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
-    float x[4];
-    int q[4];
+    float x[kPerLane];
+    int q[kPerLane];
     unpack(raw, x);
     const float s = quantize<127>(x, q);
-    reinterpret_cast<uint32_t*>(dst)[lane] =
-        static_cast<uint32_t>(q[0] & 0xFF) | (static_cast<uint32_t>(q[1] & 0xFF) << 8) |
-        (static_cast<uint32_t>(q[2] & 0xFF) << 16) | (static_cast<uint32_t>(q[3] & 0xFF) << 24);
+    uint32_t bytes = 0;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) bytes |= static_cast<uint32_t>(q[i] & 0xFF) << (8 * i);
+    if constexpr (kPerLane == 4) reinterpret_cast<uint32_t*>(dst)[lane] = bytes;
+    else reinterpret_cast<uint16_t*>(dst)[lane] = static_cast<uint16_t>(bytes);
     if (lane == 0) *scale = __float2bfloat16_rn(s);
   }
 };
 
-// packed int4 rows with one bf16 scale (kernel B-q4): lane l holds
+// packed int4 rows with one bf16 scale (kernel B-q4) of head dim D,
+// split-half (byte j holds elements j and j + D/2). At 128 lane l holds
 // elements 2l, 2l + 1 (word l) and 64 + 2l, 65 + 2l (word 32 + l) and
-// writes packed bytes 2l and 2l + 1.
+// writes packed bytes 2l and 2l + 1; at 64 it holds elements l and 32 + l
+// (two 2-byte loads) and writes packed byte l.
+template <int D>
 struct Int4Rows {
-  static constexpr int kD = 128;
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  static constexpr int kD = D;
   static constexpr int kRowBytes = kD / 2;
+  static constexpr int kPerLane = kD / 32;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
-    return make_uint2(__ldg(row + lane), __ldg(row + kD / 4 + lane));
+    if constexpr (kD == 128) {
+      return make_uint2(__ldg(row + lane), __ldg(row + kD / 4 + lane));
+    } else {
+      const unsigned short* half = reinterpret_cast<const unsigned short*>(row);
+      return make_uint2(static_cast<uint32_t>(__ldg(half + lane)) |
+                            (static_cast<uint32_t>(__ldg(half + kD / 2 + lane)) << 16),
+                        0u);
+    }
   }
 
   __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
-    float x[4];
-    int q[4];
+    float x[kPerLane];
+    int q[kPerLane];
     unpack(raw, x);
     const float s = quantize<7>(x, q);
-    reinterpret_cast<uint16_t*>(dst)[lane] =
-        static_cast<uint16_t>(nibbles(q[0], q[2]) | (nibbles(q[1], q[3]) << 8));
+    if constexpr (kPerLane == 4)
+      reinterpret_cast<uint16_t*>(dst)[lane] =
+          static_cast<uint16_t>(nibbles(q[0], q[2]) | (nibbles(q[1], q[3]) << 8));
+    else
+      dst[lane] = static_cast<uint8_t>(nibbles(q[0], q[1]));
     if (lane == 0) *scale = __float2bfloat16_rn(s);
   }
 };
@@ -295,21 +329,47 @@ extern "C" int gofr_kv_append_q(void* k_pool, void* v_pool, void* k_scale, void*
                                 const void* k_new, const void* v_new, const void* table,
                                 const void* positions, int n, int maxp, int pool, int hkv,
                                 int page, int d, void* stream) {
-  return launch<Int8Rows>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
-                          pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+  return launch<Int8Rows<128>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
+                               pool_addr(table, maxp, pool, page), n, hkv, d, stream);
 }
 
 extern "C" int gofr_kv_append_q4(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
                                  const void* k_new, const void* v_new, const void* table,
                                  const void* positions, int n, int maxp, int pool, int hkv,
                                  int page, int d, void* stream) {
-  return launch<Int4Rows>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
-                          pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+  return launch<Int4Rows<128>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
+                               pool_addr(table, maxp, pool, page), n, hkv, d, stream);
 }
 
 extern "C" int gofr_kv_append_slot_q(void* k_layer, void* v_layer, void* k_scale, void* v_scale,
                                      const void* k_new, const void* v_new, const void* positions,
                                      int n, int hkv, int smax, int d, void* stream) {
-  return launch<Int8Rows>(planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new), positions,
-                          SlotAddr{smax}, n, hkv, d, stream);
+  return launch<Int8Rows<128>>(planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new), positions,
+                               SlotAddr{smax}, n, hkv, d, stream);
+}
+
+// B-q, B-q4 and G-q at head dim 64 (Llama one_b's int8 and int4 pools and
+// int8 slot cache)
+extern "C" int gofr_kv_append_q_d64(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                    const void* k_new, const void* v_new, const void* table,
+                                    const void* positions, int n, int maxp, int pool, int hkv,
+                                    int page, int d, void* stream) {
+  return launch<Int8Rows<64>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
+                              pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+}
+
+extern "C" int gofr_kv_append_q4_d64(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                     const void* k_new, const void* v_new, const void* table,
+                                     const void* positions, int n, int maxp, int pool, int hkv,
+                                     int page, int d, void* stream) {
+  return launch<Int4Rows<64>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new), positions,
+                              pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+}
+
+extern "C" int gofr_kv_append_slot_q_d64(void* k_layer, void* v_layer, void* k_scale,
+                                         void* v_scale, const void* k_new, const void* v_new,
+                                         const void* positions, int n, int hkv, int smax, int d,
+                                         void* stream) {
+  return launch<Int8Rows<64>>(planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new), positions,
+                              SlotAddr{smax}, n, hkv, d, stream);
 }

@@ -82,8 +82,14 @@
 //     quarter-warp's score loads read still cover all 32 banks, and eight
 //     consecutive rows still differ in bits 0..2 for ldmatrix), kD / 16 mma
 //     steps over the head dimension, and kD / 4 output columns a warp in
-//     the P.V. Int8Rows and Int4Rows are built at 128 only.
+//     the P.V. Int8Rows and Int4Rows are templates at 128 and 64 too: a
+//     64-wide int8 row is 64 B (one 16-byte fragment load a quad thread,
+//     unpadded), a packed int4 row 32 B (one 8-byte load, the high nibbles
+//     32 columns up); their f32 P.V runs 16 (int8) or 8 (int4) lanes a row,
+//     2 or 4 rows a step, and the final sum writes one column a thread, so
+//     threads kD..127 write nothing.
 #include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "mma.cuh"
@@ -168,14 +174,19 @@ struct Bf16Rows {
   __device__ static int col(int j, int i) { return j / 2 + i; }
 };
 
-// int8 rows (kernel D): element c is byte c.
+// int8 rows (kernel D) of head dim D (128 or 64): element c is byte c. At
+// 128 a row is padded to 144 B: a quarter-warp's score loads then read two
+// rows 144 B apart, on distinct banks. At 64 the row stays at 64 B: the two
+// rows are 128 contiguous bytes, and a 16-byte pad would collide at byte 128.
+template <int D>
 struct Int8Rows {
-  static constexpr int kD = 128;
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  static constexpr int kD = D;
   static constexpr int kSteps = kD / 16;
   static constexpr bool kScaled = true;
   static constexpr bool kMmaPV = false;
   static constexpr int kBytes = kD;
-  static constexpr int kStride = kBytes + 16;    // padded shared row, bytes
+  static constexpr int kStride = kD == 128 ? kBytes + 16 : kBytes;  // shared row, bytes
   static constexpr int kFragBytes = kBytes / 4;  // bytes of a row one thread of a quad reads
   using Word = uint32_t;
   static constexpr int kCols = 4;                // P.V columns in a 4-byte word
@@ -194,41 +205,52 @@ struct Int8Rows {
     for (int i = 0; i < 4; ++i) v[i] = two23_plus(u, i) - (kTwo23 + 128.f);
   }
 
-  // B fragments of every step from this thread's bytes of staged row r.
+  // B fragments of every step from this thread's kFragBytes of staged row
+  // r: one 16-byte load per four steps (two at 128, one at 64).
   __device__ static void k_frags(const uint8_t* tile, int r, int c, uint32_t (&b)[kSteps][2]) {
     const uint4* p = reinterpret_cast<const uint4*>(tile + offset(r, c * kFragBytes));
-    const uint4 w0 = p[0], w1 = p[1];
-    const uint32_t w[kSteps] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      float v[kCols];
-      values(w[s], v);
-      b[s][0] = bf16_pair(v[0], v[1]);
-      b[s][1] = bf16_pair(v[2], v[3]);
+    for (int k = 0; k < kSteps / 4; ++k) {
+      const uint4 w4 = p[k];
+      const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float v[kCols];
+        values(w[s], v);
+        b[4 * k + s][0] = bf16_pair(v[0], v[1]);
+        b[4 * k + s][1] = bf16_pair(v[2], v[3]);
+      }
     }
   }
 
   __device__ static int col(int j, int i) { return j + i; }
 };
 
-// packed int4 rows (kernel E), split-half (ops/quant.py pack_int4): byte j
-// holds element j in its low nibble and element j + D/2 in its high nibble
+// packed int4 rows (kernel E) of head dim D (128 or 64), split-half
+// (ops/quant.py pack_int4): byte j holds element j in its low nibble and
+// element j + D/2 in its high nibble. A row is 64 B at 128 and 32 B at 64,
+// unpadded: a quarter-warp's 16-byte loads (128) read two rows, a
+// half-warp's 8-byte loads (64) four, 128 contiguous bytes either way.
+template <int D>
 struct Int4Rows {
-  static constexpr int kD = 128;
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  static constexpr int kD = D;
   static constexpr int kSteps = kD / 16;
   static constexpr bool kScaled = true;
   static constexpr bool kMmaPV = false;
   static constexpr int kBytes = kD / 2;
-  static constexpr int kStride = kBytes;  // two rows a quarter-warp reads: 128 contiguous B
-  static constexpr int kFragBytes = kBytes / 4;
+  static constexpr int kStride = kBytes;
+  static constexpr int kFragBytes = kBytes / 4;  // 16 B (128) or 8 B (64) a quad thread
   using Word = uint32_t;
   static constexpr int kCols = 8;
   static constexpr int kBias = 8;
   static constexpr int kLoShift = 0, kHiShift = 4;
+  using Frag = typename std::conditional<kFragBytes == 16, uint4, uint2>::type;
 
   __device__ static int offset(int r, int byte) { return r * kStride + byte; }
 
-  // steps 0..3 take low nibbles, 4..7 the high nibbles of the same bytes
+  // steps below kSteps / 2 take low nibbles, the others the high nibbles of
+  // the same bytes
   __device__ static int frag_col(int c, int s) {
     return (s >= kSteps / 2 ? kBytes : 0) + c * kFragBytes + (s % (kSteps / 2)) * 4;
   }
@@ -252,8 +274,8 @@ struct Int4Rows {
   }
 
   __device__ static void k_frags(const uint8_t* tile, int r, int c, uint32_t (&b)[kSteps][2]) {
-    const uint4 w = *reinterpret_cast<const uint4*>(tile + offset(r, c * kFragBytes));
-    const uint32_t words[kSteps / 2] = {w.x, w.y, w.z, w.w};
+    const Frag w = *reinterpret_cast<const Frag*>(tile + offset(r, c * kFragBytes));
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(&w);
 #pragma unroll
     for (int s = 0; s < kSteps / 2; ++s) {
       const uint32_t b01 = __byte_perm(words[s], 0, 0x4140), b23 = __byte_perm(words[s], 0, 0x4342);
@@ -540,16 +562,21 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       }
     }
     __syncthreads();
-    for (int g = 0; g < group; ++g) {
-      float o = 0.f;
+    // one output column a thread: at head dim 64 threads 64..127 have none
+    // (their column would be the next query row's)
+    if (tid < kD) {
+      for (int g = 0; g < group; ++g) {
+        float o = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) o += sums[(w * kMaxGroup + g) * kD + tid];
-      if (gridDim.z == 1) {
-        out[((size_t)n * hq + h * group + g) * kD + tid] = __float2bfloat16(gofr::row_finish(o, l_s[g]));
-      } else {
-        float* st = part + (((size_t)n * hq + h * group + g) * gridDim.z + split) * kState;
-        st[tid] = o;
-        if (tid == 0) st[kD] = m_s[g], st[kD + 1] = l_s[g];
+        for (int w = 0; w < kWarps; ++w) o += sums[(w * kMaxGroup + g) * kD + tid];
+        if (gridDim.z == 1) {
+          out[((size_t)n * hq + h * group + g) * kD + tid] =
+              __float2bfloat16(gofr::row_finish(o, l_s[g]));
+        } else {
+          float* st = part + (((size_t)n * hq + h * group + g) * gridDim.z + split) * kState;
+          st[tid] = o;
+          if (tid == 0) st[kD] = m_s[g], st[kD + 1] = l_s[g];
+        }
       }
     }
   }
@@ -560,7 +587,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
            const void* v_scale, const void* table, const void* lengths, void* out, void* scratch,
            int n, int hkv, int group, int pool, int page, int maxp, int split_rows, int splits,
            float scale, void* stream) {
-  // K and V rows: 65,536 (bf16, D 128), 32,768 (bf16, D 64), 36,864 (int8), 16,384 B (int4)
+  // K and V rows: 65,536 (bf16, D 128), 32,768 (bf16, D 64), 36,864 (int8,
+  // D 128), 16,384 (int8, D 64; int4, D 128), 8,192 B (int4, D 64)
   constexpr int kRingBytes = kStages * 2 * kTile * Rows::kStride;
   static bool configured = false;
   if (!configured) {
@@ -614,13 +642,24 @@ extern "C" int gofr_paged_decode_d64(const void* q, const void* k_pool, const vo
                               n, hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }
 
+// Kernels D (int8) and E (int4), one entry point a head dim: 128
+// (Llama-3-8B) and 64 (Llama one_b).
 extern "C" int gofr_paged_decode_q(const void* q, const void* k_pool, const void* v_pool,
                                    const void* k_scale, const void* v_scale, const void* table,
                                    const void* lengths, void* out, void* scratch, int n, int hkv,
                                    int group, int pool, int page, int maxp, int split_rows,
                                    int splits, float scale, void* stream) {
-  return launch<Int8Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
-                          hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+  return launch<Int8Rows<128>>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                               hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_paged_decode_q_d64(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* k_scale, const void* v_scale, const void* table,
+                                       const void* lengths, void* out, void* scratch, int n,
+                                       int hkv, int group, int pool, int page, int maxp,
+                                       int split_rows, int splits, float scale, void* stream) {
+  return launch<Int8Rows<64>>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                              hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_paged_decode_q4(const void* q, const void* k_pool, const void* v_pool,
@@ -628,6 +667,16 @@ extern "C" int gofr_paged_decode_q4(const void* q, const void* k_pool, const voi
                                     const void* lengths, void* out, void* scratch, int n, int hkv,
                                     int group, int pool, int page, int maxp, int split_rows,
                                     int splits, float scale, void* stream) {
-  return launch<Int4Rows>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
-                          hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+  return launch<Int4Rows<128>>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                               hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_paged_decode_q4_d64(const void* q, const void* k_pool, const void* v_pool,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* table, const void* lengths, void* out,
+                                        void* scratch, int n, int hkv, int group, int pool,
+                                        int page, int maxp, int split_rows, int splits,
+                                        float scale, void* stream) {
+  return launch<Int4Rows<64>>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
+                              hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
 }

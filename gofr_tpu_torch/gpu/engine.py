@@ -227,10 +227,9 @@ COUNTERS = ("preemptions", "prefix_hit_tokens", "prefix_host_hit_tokens", "prefi
 MAKE_CACHE = {("paged", ""): "make_paged_cache", ("paged", "int8"): "make_paged_cache_q",
               ("paged", "int4"): "make_paged_cache_q4", ("slot", ""): "make_cache",
               ("slot", "int8"): "make_cache_q"}
-# kernels D, E, B-q, B-q4 and G-q are built at head dim 128 only
-_QUANTIZED_D64 = ("kv_quantize={q!r} at head dim {d} on the card: the quantized caches' kernels "
-                  "(D, E, B-q, B-q4, G-q) are built at head dim 128 only (ROADMAP.md Queue B 9, "
-                  "'the quantized caches at head dim 64'); serve kv_quantize='' or on the CPU")
+# the head dims every decode kernel and append is built at (A, B, D, E, F,
+# G and the quantizing appends; C too)
+KERNEL_HEAD_DIMS = (128, 64)
 
 
 def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
@@ -241,14 +240,24 @@ def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
     return getattr(model, MAKE_CACHE[kv_layout, kv_quantize])(rows, row_len)
 
 
-def refuse_unbuilt_kernels(cfg: Any, kv_quantize: str, device: torch.device) -> None:
+def refuse_unbuilt_kernels(cfg: Any, device: torch.device) -> None:
     """Raise before anything is allocated when the card has no kernel for
-    the cache asked for: an int8 or int4 cache at a head dim other than
-    128 (D, E, B-q, B-q4 and G-q are built at 128 only). The CPU serves it
-    through the plain path."""
-    d = getattr(cfg, "head_size", 128)
-    if device.type == "cuda" and kv_quantize and d != 128:
-        raise ValueError(_QUANTIZED_D64.format(q=kv_quantize, d=d))
+    the model, on any cache: weights in a dtype other than bf16 (every
+    kernel takes bf16 only) or a head dim the kernels are not built at
+    (``KERNEL_HEAD_DIMS``). Without it such a model would pass the build
+    and fail at its first launch, inside the engine's loop or its warmup.
+    The CPU serves both through the plain path."""
+    if device.type != "cuda":
+        return
+    if cfg.dtype != torch.bfloat16:
+        raise ValueError(
+            f"a model in {cfg.dtype} on the card: the kernels take bf16 only (ROADMAP.md "
+            "Queue B 7, 'every kernel on f32 inputs'); serve ModelSpec(..., "
+            "dtype=torch.bfloat16) or on the CPU")
+    d = cfg.head_size
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} on the card: the decode kernels and appends are built at "
+                         f"head dims {KERNEL_HEAD_DIMS} only; serve on the CPU")
 
 
 class EngineClosed(RuntimeError):
@@ -1153,7 +1162,9 @@ class GenerateEngine(_EngineBase):
                     "too — use kv_layout='slot' or drop spec_draft")
         super().__init__(container, device=device, default_timeout=default_timeout,
                          max_restarts=max_restarts)
-        refuse_unbuilt_kernels(model.cfg, kv_quantize, self.device)
+        for m in (model, spec_draft and spec_draft[1]):
+            if m is not None:
+                refuse_unbuilt_kernels(m.cfg, self.device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
@@ -3245,8 +3256,9 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     given one left as it is; the draft stays in its dtype (a small draft's
     weight reads are noise). A family without ``QUANTIZABLE`` refuses a
     ``quantize`` keyword, and ``ENGINE_QUANTIZE`` only warns there, as JAX
-    reads it (engine.py:4084-4109). An int8 or int4 cache that the card has
-    no kernel for (``refuse_unbuilt_kernels``) raises before any weight is
+    reads it (engine.py:4084-4109). A model (or draft) the card has no
+    kernel for, in a dtype other than bf16 or at a head dim other than 128
+    and 64 (``refuse_unbuilt_kernels``), raises before any weight is
     drawn. Runs on the card unless ``device`` says otherwise."""
     if isinstance(config, ModelSpec):
         spec = config
@@ -3293,12 +3305,16 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
         container.logger.warn(f"ENGINE_QUANTIZE=int8 ignored for family {name!r} (no qdot support)")
         quantize = ""
     dev = resolve_device(device)
-    refuse_unbuilt_kernels(cfg, kw.get("kv_quantize", ""), dev)
+    dcfg = None
+    if spec_draft is not None:
+        dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
+    for c in (cfg, dcfg):
+        if c is not None:
+            refuse_unbuilt_kernels(c, dev)
     model = _model(family, cfg, params, dev, seed)
     if quantize:
         model = quantize_tree(model)
     if spec_draft is not None:
-        dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
         spec_draft = (dcfg, _model(family_of_config(dcfg), dcfg, spec_draft[1], dev, seed + 1))
     return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, container=container,
                           **kw)

@@ -14,7 +14,11 @@ launch the engine drives inside its ``decision_scope`` at the measured shape
 takes the pinned plan. The op keys are JAX's: ``decode`` (F, the bf16 slot
 cache), ``paged_decode`` (A), ``paged_decode_q`` (D) and ``paged_decode_q4``
 (E). A record's ``backend`` field holds the plan's name, ``rows<N>``
-(``plan_name``), so the cache file keeps JAX's format.
+(``plan_name``), so the cache file keeps JAX's format. An op names the
+kernel at both head dims: its 128 and 64 builds count their launches
+apart (``paged_decode_q`` / ``paged_decode_q_d64``), and the head dim is
+part of the shape key, so a head-dim-64 engine's warmup times and pins the
+64 build.
 
 Differences from JAX:
 

@@ -174,14 +174,19 @@ def _wrappers() -> dict:
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_d64": flash_attention.flash_attention_d64,
             "paged_decode_q": paged_decode_q.paged_decode_q,
+            "paged_decode_q_d64": paged_decode_q.paged_decode_q_d64,
             "paged_decode_q4": paged_decode_q4.paged_decode_q4,
+            "paged_decode_q4_d64": paged_decode_q4.paged_decode_q4_d64,
             "decode_attention": decode_attention.decode_attention,
             "decode_attention_d64": decode_attention.decode_attention_d64,
             "kv_append_slot": kv_append.kv_append_slot,
             "kv_append_slot_d64": kv_append.kv_append_slot_d64,
             "kv_append_q": kv_append.kv_append_q,
+            "kv_append_q_d64": kv_append.kv_append_q_d64,
             "kv_append_q4": kv_append.kv_append_q4,
+            "kv_append_q4_d64": kv_append.kv_append_q4_d64,
             "kv_append_slot_q": kv_append.kv_append_slot_q,
+            "kv_append_slot_q_d64": kv_append.kv_append_slot_q_d64,
             "w8a16": w8a16.w8a16}
 
 

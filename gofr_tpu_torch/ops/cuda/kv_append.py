@@ -18,10 +18,11 @@ bit-exact, values and scales. B and G copy 16-bit patterns; the others
 quantize in f32 with IEEE division and round half to even, as the plain
 versions do.
 
-B and G are built at head dim 128 (Llama-3-8B) and 64 (GPT-2, Llama
-``one_b``), each build counted under its own name (``kv_append`` /
-``kv_append_d64``, ``kv_append_slot`` / ``kv_append_slot_d64``); the
-quantizing appends at 128 only.
+All five are built at head dim 128 (Llama-3-8B) and 64 (GPT-2, Llama
+``one_b``), each build counted under its own name: ``kv_append`` /
+``kv_append_d64``, ``kv_append_slot`` / ``kv_append_slot_d64``,
+``kv_append_q`` / ``kv_append_q_d64``, ``kv_append_q4`` /
+``kv_append_q4_d64`` and ``kv_append_slot_q`` / ``kv_append_slot_q_d64``.
 
 The launchers take what the model hands them and convert nothing: rows
 [N, Hkv, D] in the cache's 16-bit type (bf16 for the quantized caches),
@@ -40,11 +41,13 @@ import torch
 
 from gofr_tpu_torch.ops import cuda
 
-HEAD_DIM = 128           # the quantizing appends
-HEAD_DIMS = (128, 64)    # B and G
-# the C entry point of each build of B and G
+HEAD_DIMS = (128, 64)
+# the C entry point of each build
 ENTRY = {128: "gofr_kv_append", 64: "gofr_kv_append_d64"}
 SLOT_ENTRY = {128: "gofr_kv_append_slot", 64: "gofr_kv_append_slot_d64"}
+Q_ENTRY = {128: "gofr_kv_append_q", 64: "gofr_kv_append_q_d64"}
+Q4_ENTRY = {128: "gofr_kv_append_q4", 64: "gofr_kv_append_q4_d64"}
+SLOT_Q_ENTRY = {128: "gofr_kv_append_slot_q", 64: "gofr_kv_append_slot_q_d64"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -56,12 +59,12 @@ _B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, D] of one type, 
             f"[N, Hkv, D] of that type, D 128 or 64, {_POOL_INDEX}")
 _G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit caches [N, Hkv, Smax, D] of one type, rows "
             "[N, Hkv, D] of that type, D 128 or 64, int32 positions [N]")
-_BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, 128] with bf16 scales [P, Hkv, page], "
-             f"bf16 rows [N, Hkv, 128], {_POOL_INDEX}")
-_BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, 64] with bf16 scales [P, Hkv, page], "
-              f"bf16 rows [N, Hkv, 128], {_POOL_INDEX}")
-_GQ_TAKES = (f"kv_append_slot_q {_TAKES}int8 caches [N, Hkv, Smax, 128] with bf16 scales "
-             "[N, Hkv, Smax], bf16 rows [N, Hkv, 128], int32 positions [N]")
+_BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, D] with bf16 scales [P, Hkv, page], "
+             f"bf16 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
+_BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, D/2] with bf16 scales "
+              f"[P, Hkv, page], bf16 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
+_GQ_TAKES = (f"kv_append_slot_q {_TAKES}int8 caches [N, Hkv, Smax, D] with bf16 scales "
+             "[N, Hkv, Smax], bf16 rows [N, Hkv, D], D 128 or 64, int32 positions [N]")
 
 
 def _planes(k_layer: torch.Tensor, v_layer: torch.Tensor, dtype: torch.dtype, row: int) -> bool:
@@ -80,7 +83,7 @@ def _scales(k_scale: torch.Tensor, v_scale: torch.Tensor, shape: torch.Size) -> 
 
 
 def _rows(k_new: torch.Tensor, v_new: torch.Tensor, n: int, hkv: int, dtype: torch.dtype,
-          d: int = HEAD_DIM) -> bool:
+          d: int) -> bool:
     """New rows [N, Hkv, d] of ``dtype``, contiguous on the card."""
     return (k_new.is_cuda and v_new.is_cuda and k_new.dtype == v_new.dtype == dtype
             and k_new.shape == v_new.shape == (n, hkv, d)
@@ -169,21 +172,21 @@ kv_append_slot_d64.launches = 0
 _SLOT_COUNTED = {128: kv_append_slot, 64: kv_append_slot_d64}
 
 
-def _pool_q(launcher, entry: str, values_dtype: torch.dtype, row_bytes: int, takes: str,
+def _pool_q(counted: dict, entries: dict, values_dtype: torch.dtype, per_byte: int, takes: str,
             k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new) -> tuple:
     pool, hkv, page, _ = k_layer.shape
-    n = k_new.shape[0]
-    cuda.require(_planes(k_layer, v_layer, values_dtype, row_bytes)
+    n, d = k_new.shape[0], k_new.shape[-1]
+    cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, values_dtype, d // per_byte)
                  and _scales(k_scale, v_scale, k_layer.shape[:-1])
-                 and _rows(k_new, v_new, n, hkv, torch.bfloat16) and _pool_index(table, positions, n),
-                 takes)
+                 and _rows(k_new, v_new, n, hkv, torch.bfloat16, d)
+                 and _pool_index(table, positions, n), takes)
     if n > 0:
-        fn = cuda.bind(entry, _Q_ARGTYPES)
+        fn = cuda.bind(entries[d], _Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                       k_new.data_ptr(), v_new.data_ptr(), table.data_ptr(), positions.data_ptr(), n,
-                      table.shape[1], pool, hkv, page, HEAD_DIM, cuda.stream_of(k_layer)),
-                   launcher.__name__)
-        launcher.launches += 1
+                      table.shape[1], pool, hkv, page, d, cuda.stream_of(k_layer)),
+                   counted[d].__name__)
+        counted[d].launches += 1
     return k_layer, v_layer, k_scale, v_scale
 
 
@@ -193,13 +196,24 @@ def kv_append_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Ten
     """Kernel B-q: quantize k_new/v_new [N, Hkv, D] bf16 to int8 rows and
     append them, with their bf16 scales, to the int8 pool's layer slices
     (values [P, Hkv, page, D], scales [P, Hkv, page]) through ``table``, in
-    place, by B's drop rule; returns the four slices. Launches the kernel,
-    or raises."""
-    return _pool_q(kv_append_q, "gofr_kv_append_q", torch.int8, HEAD_DIM, _BQ_TAKES,
+    place, by B's drop rule; returns the four slices. D is 128 or 64.
+    Launches the kernel, or raises."""
+    return _pool_q(_Q_COUNTED, Q_ENTRY, torch.int8, 1, _BQ_TAKES,
                    k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
+def kv_append_q_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                    v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q's head-dim-64 build under its own name: ``kv_append_q``
+    on rows of head dim 64 (any other raises)."""
+    cuda.require(k_new.shape[-1] == 64, f"kv_append_q_d64 takes head_dim 64, got {k_new.shape[-1]}")
+    return kv_append_q(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
 kv_append_q.launches = 0
+kv_append_q_d64.launches = 0
+_Q_COUNTED = {128: kv_append_q, 64: kv_append_q_d64}
 
 
 def kv_append_q4(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
@@ -207,11 +221,23 @@ def kv_append_q4(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Te
                  k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Kernel B-q4: as ``kv_append_q`` into the packed int4 pool (values
     uint8 [P, Hkv, page, D//2], byte j holding elements j and j + D/2)."""
-    return _pool_q(kv_append_q4, "gofr_kv_append_q4", torch.uint8, HEAD_DIM // 2, _BQ4_TAKES,
+    return _pool_q(_Q4_COUNTED, Q4_ENTRY, torch.uint8, 2, _BQ4_TAKES,
                    k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
+def kv_append_q4_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q4's head-dim-64 build under its own name: ``kv_append_q4``
+    on rows of head dim 64 (any other raises)."""
+    cuda.require(k_new.shape[-1] == 64,
+                 f"kv_append_q4_d64 takes head_dim 64, got {k_new.shape[-1]}")
+    return kv_append_q4(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
 kv_append_q4.launches = 0
+kv_append_q4_d64.launches = 0
+_Q4_COUNTED = {128: kv_append_q4, 64: kv_append_q4_d64}
 
 
 def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
@@ -221,19 +247,32 @@ def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torc
     append them, with their bf16 scales, to the int8 slot cache's layer
     slices (values [N, Hkv, Smax, D], scales [N, Hkv, Smax]) at
     ``positions``, in place, dropping a position outside [0, Smax); returns
-    the four slices. Launches the kernel, or raises."""
-    n, hkv, smax, _ = k_layer.shape
-    cuda.require(_planes(k_layer, v_layer, torch.int8, HEAD_DIM)
+    the four slices. D is 128 or 64. Launches the kernel, or raises."""
+    n, hkv, smax, d = k_layer.shape
+    cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, torch.int8, d)
                  and _scales(k_scale, v_scale, k_layer.shape[:-1])
-                 and _rows(k_new, v_new, n, hkv, torch.bfloat16) and _slot_index(positions, n),
+                 and _rows(k_new, v_new, n, hkv, torch.bfloat16, d) and _slot_index(positions, n),
                  _GQ_TAKES)
     if n > 0:
-        fn = cuda.bind("gofr_kv_append_slot_q", _SLOT_Q_ARGTYPES)
+        fn = cuda.bind(SLOT_Q_ENTRY[d], _SLOT_Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                      k_new.data_ptr(), v_new.data_ptr(), positions.data_ptr(), n, hkv, smax, HEAD_DIM,
-                      cuda.stream_of(k_layer)), "kv_append_slot_q")
-        kv_append_slot_q.launches += 1
+                      k_new.data_ptr(), v_new.data_ptr(), positions.data_ptr(), n, hkv, smax, d,
+                      cuda.stream_of(k_layer)), _SLOT_Q_COUNTED[d].__name__)
+        _SLOT_Q_COUNTED[d].launches += 1
     return k_layer, v_layer, k_scale, v_scale
 
 
+def kv_append_slot_q_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, positions: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel G-q's head-dim-64 build under its own name:
+    ``kv_append_slot_q`` on caches and rows of head dim 64 (any other
+    raises)."""
+    cuda.require(k_layer.shape[-1] == 64,
+                 f"kv_append_slot_q_d64 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append_slot_q(k_layer, v_layer, k_scale, v_scale, positions, k_new, v_new)
+
+
 kv_append_slot_q.launches = 0
+kv_append_slot_q_d64.launches = 0
+_SLOT_Q_COUNTED = {128: kv_append_slot_q, 64: kv_append_slot_q_d64}

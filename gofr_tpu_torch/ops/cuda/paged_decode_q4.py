@@ -7,13 +7,18 @@ row format of ``ops/quant.py``, split and merged as kernel D is. Its plain
 version is ``ops.attention.paged_decode_attention_q4_plain`` (gather,
 unpack, dense decode); ``ops.attention.paged_decode_attention_q4`` chooses
 between the two by the tensor's device.
+
+Built at head dim 128 and 64, as kernel D: ``paged_decode_q4.launches``
+counts the launches at 128, ``paged_decode_q4_d64.launches`` those at 64,
+and both take the split plan the autotuner pinned for ``paged_decode_q4``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gofr_tpu_torch.ops.cuda.paged_decode_q import HEAD_DIM, launch_quantized
+from gofr_tpu_torch.ops import cuda
+from gofr_tpu_torch.ops.cuda.paged_decode_q import launch_quantized
 
 # Agreement with the plain version on the same inputs (q bf16, a pool
 # written by ops.paged.write_prompts_paged_q4 from random bf16 K/V); the
@@ -25,9 +30,15 @@ from gofr_tpu_torch.ops.cuda.paged_decode_q import HEAD_DIM, launch_quantized
 # fault, split boundaries overlapping by one row, moved the outputs by 0.036
 # and 6.6% of their RMS; swapped nibble halves by 0.35 and 1.4x; a bias of
 # 7, a scale left out and one key past the length (a whole row in the empty
-# slot) by 0.40..4.0 and 1.5..7.9x (scripts/torch_kernel_mutants.py).
+# slot) by 0.40..4.0 and 1.5..7.9x (scripts/torch_kernel_mutants.py). The
+# 64 build, held to the same limits at Llama one_b's step, read 2.0e-3 and
+# 0.48% on an H100 (700 W), split boundaries 9.8e-4; its own planted faults,
+# the high nibbles' columns 64 up instead of 32 (for q) and a 128-wide row
+# stride, moved the outputs by 0.22 / 89% and 1.0 / 160%.
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
+# the C entry point of each build
+ENTRY = {128: "gofr_paged_decode_q4", 64: "gofr_paged_decode_q4_d64"}
 
 
 def paged_decode_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
@@ -36,9 +47,20 @@ def paged_decode_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tenso
     """q [N, Hq, D] bf16 against packed uint8 pool layer slices
     [P, Hkv, page, D//2] with bf16 scales [P, Hkv, page], through the block
     table [N, MaxP] (OOB entries == P), masked by lengths [N] → [N, Hq, D].
-    Launches the kernel, or raises."""
-    return launch_quantized(paged_decode_q4, "gofr_paged_decode_q4", torch.uint8, HEAD_DIM // 2,
+    D is 128 or 64. Launches the kernel, or raises."""
+    return launch_quantized("paged_decode_q4", _COUNTED, ENTRY, torch.uint8, 2,
                             q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale)
 
 
+def paged_decode_q4_d64(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                        ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
+                        lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel E's head-dim-64 build under its own name: ``paged_decode_q4``
+    on q and pools of head dim 64 (any other raises)."""
+    cuda.require(q.shape[-1] == 64, f"paged_decode_q4_d64 takes head_dim 64, got {q.shape[-1]}")
+    return paged_decode_q4(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, **kw)
+
+
 paged_decode_q4.launches = 0
+paged_decode_q4_d64.launches = 0
+_COUNTED = {128: paged_decode_q4, 64: paged_decode_q4_d64}

@@ -25,7 +25,10 @@ their bodies lands in both builds; the mutants in ``ONLY`` plant a fault
 in the 64 builds alone (C's masks; A's, F's, B's and G's half row and a
 128-wide row stride), which must fail their checks while the 128 builds
 pass. Phase 3 holds each 64 build on layer 0 of a stack of layers, so a
-row read or written at twice its stride stays inside the stack.
+row read or written at twice its stride stays inside the stack. Since D,
+E, B-q, B-q4 and G-q are built at 64 too, their 64 builds have faults of
+their own in ``ONLY``; those that read or write past a buffer
+(``ISOLATED``) have their faulting kernels checked in a child process.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -38,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -130,6 +134,27 @@ MUTANTS = [
      "Rows::store(values + row * Rows::kRowBytes, scales + row, raw, lane);",
      "Rows::store(values + row * Rows::kRowBytes * (Rows::kD == 64 ? 2 : 1), scales + row, raw, lane);",
      True),
+    # D, E, B-q, B-q4 and G-q's 64 builds alone (``ONLY``): the final sum of
+    # D and E writing a column a thread for all 128 threads (at 64, threads
+    # 64..127 write the next query row's columns and read past the warps'
+    # sums); D64 walking a 64-byte row as the 128 build walks its 128 bytes
+    # (32 a quad thread: the other half of its K fragments from the next
+    # row, of its Q fragments past the head); E64's high nibbles taken as
+    # columns 64 up, the 128 build's half, for q; the quantizer's max over
+    # one of a lane's two elements (half the row: the odd columns of an
+    # int8 row, the second half of an int4 one)
+    ("paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64",
+     "paged_decode_q.cu", "if (tid < kD) {", "if (true) {", True),
+    ("paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)",
+     "paged_decode_q.cu",
+     "static constexpr int kFragBytes = kBytes / 4;  // bytes of a row one thread of a quad reads",
+     "static constexpr int kFragBytes = 32;", True),
+    ("paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)", "paged_decode_q.cu",
+     "return (s >= kSteps / 2 ? kBytes : 0) + c * kFragBytes + (s % (kSteps / 2)) * 4;",
+     "return (s >= kSteps / 2 ? 64 : 0) + c * kFragBytes + (s % (kSteps / 2)) * 4;", True),
+    ("kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row", "kv_append.cu",
+     "for (int i = 0; i < N; ++i) a = fmaxf(a, fabsf(x[i]));",
+     "for (int i = 0; i < (N == 2 ? 1 : N); ++i) a = fmaxf(a, fabsf(x[i]));", True),
     # keys 8..15 of every 16-key step left out of P.V (for half the columns)
     ("flash_attention: second k16-half of a fragment dropped from P.V", "flash_attention.cu",
      "mma_bf16(o[2 * dp], pf[kk], vf[j][0], vf[j][1]);", "mma_bf16(o[2 * dp], pf[kk], vf[j][0], 0u);", True),
@@ -196,18 +221,38 @@ MUTANTS = [
 # Mutants whose fault lies in the head-dim-64 instantiations: (the kernels
 # that must fail, the kernels built from the same source that must pass)
 _C64 = (("flash_attention_d64",), ("flash_attention",))
-_A64 = (("paged_decode_d64",), ("paged_decode", "paged_decode_q", "paged_decode_q4"))
+_DECODE128 = ("paged_decode", "paged_decode_q", "paged_decode_q4")
+_APPEND128 = ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q")
+_QAPPEND64 = ("kv_append_q_d64", "kv_append_q4_d64", "kv_append_slot_q_d64")
 _F64 = (("decode_attention_d64",), ("decode_attention",))
-_BG64 = (("kv_append_d64", "kv_append_slot_d64"),
-         ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q"))
 ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "flash_attention_d64: causal diagonal masked": _C64,
-        "paged_decode_d64: half of each output row never summed": _A64,
-        "paged_decode_d64: a 128-wide row stride": _A64,
+        "paged_decode_d64: half of each output row never summed":
+            (("paged_decode_d64",), (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64")),
+        "paged_decode_d64: a 128-wide row stride":
+            (("paged_decode_d64", "paged_decode_q_d64", "paged_decode_q4_d64"), _DECODE128),
         "decode_attention_d64: half of each output row never summed": _F64,
         "decode_attention_d64: a 128-wide row stride": _F64,
-        "kv_append_d64/_slot_d64: half of each row left unwritten": _BG64,
-        "kv_append_d64/_slot_d64: a 128-wide row stride": _BG64}
+        "kv_append_d64/_slot_d64: half of each row left unwritten":
+            (("kv_append_d64", "kv_append_slot_d64"), (*_APPEND128, *_QAPPEND64)),
+        "kv_append_d64/_slot_d64: a 128-wide row stride":
+            (("kv_append_d64", "kv_append_slot_d64", *_QAPPEND64), _APPEND128),
+        "paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64":
+            (("paged_decode_q_d64", "paged_decode_q4_d64"), (*_DECODE128, "paged_decode_d64")),
+        "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)":
+            (("paged_decode_q_d64",), (*_DECODE128, "paged_decode_q4_d64")),
+        "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)":
+            (("paged_decode_q4_d64",), (*_DECODE128, "paged_decode_q_d64")),
+        "kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row":
+            (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64"))}
+# Mutants whose 64 build reads or writes past a buffer (global memory past
+# q or the output, shared memory past the ring): the kernels ``ONLY`` says
+# must fail are checked in a child process, so a launch that faults the
+# CUDA context fails there, as a caught mutant, and the other kernels are
+# checked here as usual.
+ISOLATED = {"paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64",
+            "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)",
+            "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)"}
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the
@@ -233,15 +278,37 @@ def make(index: int, mutant) -> dict:
     return cuda.build(root / "csrc", root / "build")
 
 
-def verdict(torch, library: Path) -> dict:
-    """Every kernel's check on one library: passed only if all pass; each
-    kernel's verdict, error numbers and failure."""
+def kernel_verdicts(torch, library: Path, only: set | None = None,
+                    skip: set = frozenset()) -> dict:
+    """Each kernel's check on one library (``chip_smoke.check_kernels``'s
+    ``only`` and ``skip``): its verdict, error numbers and failure."""
     cuda.load(library)
-    kernels = chip_smoke.check_kernels(torch, timed=False, keep_going=True)
-    return {"passed": all(k["passed"] for k in kernels),
-            "kernels": {k["name"]: {m: k[m] for m in ("passed", "max_abs_err", "rms_rel_err",
-                                                     "failure") if m in k}
-                        for k in kernels}}
+    kernels = chip_smoke.check_kernels(torch, timed=False, keep_going=True, only=only, skip=skip)
+    return {k["name"]: {m: k[m] for m in ("passed", "max_abs_err", "rms_rel_err", "failure")
+                        if m in k} for k in kernels}
+
+
+def isolated_verdicts(library: Path, names: tuple) -> dict:
+    """``kernel_verdicts`` of ``names`` in a child process; a child that
+    dies (a launch that faulted the CUDA context) fails each of them."""
+    child = subprocess.run([sys.executable, __file__, "--verdicts", str(library), ",".join(names)],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode == 0:
+        return json.loads(child.stdout.strip().splitlines()[-1])
+    died = (child.stderr.strip().splitlines() or ["no output"])[-1]
+    return {k: {"passed": False, "failure": f"the checking process died: {died}"} for k in names}
+
+
+def verdict(torch, name: str, library: Path) -> dict:
+    """Every kernel's check on one library, the faulting ones of an
+    ``ISOLATED`` mutant in a child: passed only if all pass."""
+    if name in ISOLATED:
+        apart = ONLY[name][0]
+        kernels = {**kernel_verdicts(torch, library, skip=set(apart)),
+                   **isolated_verdicts(library, apart)}
+    else:
+        kernels = kernel_verdicts(torch, library)
+    return {"passed": all(k["passed"] for k in kernels.values()), "kernels": kernels}
 
 
 def main() -> None:
@@ -250,6 +317,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_mutants: no CUDA device available")
     os.chdir(REPO)
+    if sys.argv[1:2] == ["--verdicts"]:
+        print(json.dumps(kernel_verdicts(torch, Path(sys.argv[2]), set(sys.argv[3].split(",")))))
+        return
     plan = [("unmodified", None, None, None, False), *MUTANTS]
     with ThreadPoolExecutor(max_workers=4) as pool:
         clean = pool.submit(cuda.build)
@@ -257,7 +327,8 @@ def main() -> None:
         libraries = [b.result()["library"] for b in builds]
     results, bad = [], []
     for (name, fname, _, _, must_catch), library in zip(plan, libraries):
-        row = {"mutant": name, "file": fname, "must_catch": must_catch, **verdict(torch, library)}
+        row = {"mutant": name, "file": fname, "must_catch": must_catch,
+               **verdict(torch, name, library)}
         print(json.dumps(row), flush=True)
         results.append(row)
         if (fname is None and not row["passed"]) or (must_catch and row["passed"]):

@@ -13,7 +13,8 @@ A B ... then ... B A, on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
 4 x 1024 causal, the slot decode (F), the paged decode (A) and the
 quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
-one, the five appends (B, G, B-q, B-q4, G-q) at those slots' next
+one (and D and E's head-dim-64 builds at Llama one_b's step), the five
+appends (B, G, B-q, B-q4, G-q) at those slots' next
 positions, and the W8A16 linear at Llama-3-8B's wq/wo, gate/up and head
 for 8 rows (decode) and 2048 (prefill). Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
@@ -155,10 +156,10 @@ VARIANTS = [
          "      {\n        ldmatrix_x4(kf[np], ks + (np * 16 + mrow + (mat >> 1) * 8) * kStride + "
          "kk * 16 + (mat & 1) * 8);\n"),
         ("flash_attention.cu",
-         "        for (int j = 0; j < kD / 32; ++j)\n          ldmatrix_x4_trans(",
-         "        for (int j = 0; j < kD / 32; ++j) {\n          ldmatrix_x4_trans("),
+         "        for (int j = 0; j < 4; ++j)\n          ldmatrix_x4_trans(",
+         "        for (int j = 0; j < 4; ++j) {\n          ldmatrix_x4_trans("),
         ("flash_attention.cu",
-         "(half * 4 + j) * 16 + (mat >> 1) * 8);\n#pragma unroll\n        for (int j = 0; j < kD / 32; ++j) {\n",
+         "(half * 4 + j) * 16 + (mat >> 1) * 8);\n#pragma unroll\n        for (int j = 0; j < 4; ++j) {\n",
          "(half * 4 + j) * 16 + (mat >> 1) * 8);\n"),
     ]),
     # C: three blocks per SM (Q staged in stage 1's K tile, 168 registers)
@@ -204,10 +205,10 @@ VARIANTS = [
     # F: one split per (slot, head), finished in place
     ("decode_attention: one split", [
         ("paged_decode.cu",
-         "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, split_rows,\n"
-         "                splits, scale, stream);",
-         "  return launch(q, k_cache, v_cache, rows, lengths, out, scratch, n, hkv, group, smax, 1,\n"
-         "                scale, stream);"),
+         "  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,\n"
+         "                     splits, scale, stream);",
+         "  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, smax, 1,\n"
+         "                     scale, stream);"),
     ]),
     # A, D and E: one split per (slot, head), finished in place
     ("paged_decode/_q/_q4: one split", [
@@ -253,8 +254,8 @@ VARIANTS = [
     ("kv_append/_slot: one block per slot, 2-byte copies, loads after the table", [
         ("kv_append.cu", "}  // namespace\n", OLD_APPENDS),
         ("kv_append.cu",
-         "  return launch<Bf16Rows>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,\n"
-         "                          pool_addr(table, maxp, pool, page), n, hkv, d, stream);\n",
+         "  return launch<Bf16Rows<128>>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,\n"
+         "                               pool_addr(table, maxp, pool, page), n, hkv, d, stream);\n",
          "  kv_append_kernel<<<n, kOldThreads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
          "      static_cast<uint16_t*>(k_pool), static_cast<uint16_t*>(v_pool),\n"
          "      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),\n"
@@ -262,13 +263,28 @@ VARIANTS = [
          "      page, d);\n"
          "  return static_cast<int>(cudaGetLastError());\n"),
         ("kv_append.cu",
-         "  return launch<Bf16Rows>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,\n"
-         "                          SlotAddr{smax}, n, hkv, d, stream);\n",
+         "  return launch<Bf16Rows<128>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,\n"
+         "                               SlotAddr{smax}, n, hkv, d, stream);\n",
          "  kv_append_slot_kernel<<<n, kOldThreads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
          "      static_cast<uint16_t*>(k_layer), static_cast<uint16_t*>(v_layer),\n"
          "      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),\n"
          "      static_cast<const int*>(positions), hkv, smax, d);\n"
          "  return static_cast<int>(cudaGetLastError());\n"),
+    ]),
+    # D64: int8 rows of 64 B padded to 80 B, as the 128 build pads its rows
+    # (a quarter-warp's two rows then meet at byte 128 of the banks)
+    ("paged_decode_q_d64: rows padded by 16 B", [
+        ("paged_decode_q.cu",
+         "static constexpr int kStride = kD == 128 ? kBytes + 16 : kBytes;  // shared row, bytes",
+         "static constexpr int kStride = kBytes + 16;  // shared row, bytes"),
+    ]),
+    # E64: packed rows of 32 B padded to 48 B (at 128 they stay unpadded)
+    ("paged_decode_q4_d64: rows padded by 16 B", [
+        ("paged_decode_q.cu",
+         "  static constexpr int kStride = kBytes;\n  static constexpr int kFragBytes = kBytes / 4;"
+         "  // 16 B (128) or 8 B (64) a quad thread",
+         "  static constexpr int kStride = kD == 64 ? kBytes + 16 : kBytes;\n"
+         "  static constexpr int kFragBytes = kBytes / 4;"),
     ]),
     # W8A16's tiles as first written: tiles of 32 k, warps of 64 rows x 32
     # channels (each Q fragment converted by both row halves of the block)
@@ -348,6 +364,15 @@ def cases(torch) -> dict:
         out[name] = lambda i, pool=pool, launch=launch: launch(
             q, pool.k[i % layers], pool.v[i % layers], pool.ks[i % layers], pool.vs[i % layers], table,
             lengths)
+    # D and E's 64 builds at Llama one_b's step (chip_smoke._d64_case)
+    dc = chip_smoke._d64_case(torch, c)
+    q1b = dc["q_one_b"]
+    for name, launch, bits in (("paged_decode_q_d64", paged_decode_q, 8),
+                               ("paged_decode_q4_d64", paged_decode_q4, 4)):
+        pool = dc["pools_one_b"][bits]
+        out[name] = lambda i, pool=pool, launch=launch: launch(
+            q1b, pool.k[i % layers], pool.v[i % layers], pool.ks[i % layers], pool.vs[i % layers],
+            table, lengths)
     # the appends at each slot's next position (rows past the decodes' lengths)
     k_new, v_new = (torch.randn(c["n"], c["hkv"], c["d"], device=dev, generator=gen).to(bf)
                     for _ in range(2))

@@ -11,7 +11,9 @@ arithmetic in PyTorch, are held against the Pallas kernels at D 64
 serves the JAX paged engine's tokens. The launchers are checked without a
 launch: the 64 call binds the ``_d64`` entry point and counts under the
 ``_d64`` name. The ``cuda``-marked tests hold each 64 build against its
-plain version on the card.
+plain version on the card. The quantized caches' kernels at 64 (D, E,
+B-q, B-q4, G-q) and the card's refusals are held in
+tests/test_torch_quantized_d64.py.
 
 Tolerances:
 - decode attention, f32: 1e-5 (only the order of the f32 sums differs);
@@ -252,37 +254,6 @@ def test_llama_d64_greedy_tokens_equal_the_jax_paged_engine(llama64, kind):
     finally:
         eng.stop()
     assert [g["tokens"] for g in got] == [w["tokens"] for w in want]
-
-
-@pytest.mark.quick
-@pytest.mark.parametrize("kind", ["int8", "int4"])
-@pytest.mark.parametrize("layout", ["paged", "slot"])
-def test_quantized_caches_at_d64_are_refused_on_the_card_before_any_weight(llama64, kind, layout,
-                                                                           monkeypatch):
-    """D, E, B-q, B-q4 and G-q are built at head dim 128 only: on the card
-    an int8 or int4 cache of a head-dim-64 model raises, naming the ROADMAP
-    item, before any weight is drawn (``init`` is never called); a
-    head-dim-128 model is not refused by this check."""
-    from gofr_tpu_torch.gpu import engine
-    from gofr_tpu_torch.models import llama
-    from gofr_tpu_torch.models.llama import LlamaConfig
-
-    if kind == "int4" and layout == "slot":
-        pytest.skip("int4 needs the paged layout on every device (its own refusal)")
-    monkeypatch.setattr(engine, "resolve_device", lambda device=None: torch.device("cuda"))
-    drawn = []
-    monkeypatch.setattr(llama, "init", lambda *a, **k: drawn.append(a) or pytest.fail("drawn"))
-    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2)
-    with pytest.raises(ValueError, match="Queue B 9"):
-        engine.build_engine(cfg, kv_quantize=kind, kv_layout=layout)
-    assert not drawn
-    engine.refuse_unbuilt_kernels(LlamaConfig.tiny(head_dim=128), kind, torch.device("cuda"))
-    engine.refuse_unbuilt_kernels(cfg, kind, torch.device("cpu"))
-    engine.refuse_unbuilt_kernels(cfg, "", torch.device("cuda"))
-    # the engine itself refuses before it makes a pool
-    _, _, model = llama64
-    with pytest.raises(ValueError, match="Queue B 9"):
-        engine.GenerateEngine(model, device="cuda", kv_quantize=kind, kv_layout=layout)
 
 
 # -- the launchers: each 64 call binds its own entry point and count ------------------------

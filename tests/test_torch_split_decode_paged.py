@@ -135,7 +135,9 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_paged_decode": paged_decode._ARGTYPES,
         "gofr_paged_decode_d64": paged_decode._ARGTYPES,
         "gofr_paged_decode_q": paged_decode_q._ARGTYPES,
+        "gofr_paged_decode_q_d64": paged_decode_q._ARGTYPES,
         "gofr_paged_decode_q4": paged_decode_q._ARGTYPES,
+        "gofr_paged_decode_q4_d64": paged_decode_q._ARGTYPES,
         "gofr_decode_attention": decode_attention._ARGTYPES,
         "gofr_decode_attention_d64": decode_attention._ARGTYPES,
         "gofr_flash_attention": flash_attention._ARGTYPES,
@@ -144,8 +146,11 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_kv_append_slot": kv_append._SLOT_ARGTYPES,
         "gofr_kv_append_slot_d64": kv_append._SLOT_ARGTYPES,
         "gofr_kv_append_q": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_q_d64": kv_append._Q_ARGTYPES,
         "gofr_kv_append_q4": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_q4_d64": kv_append._Q_ARGTYPES,
         "gofr_kv_append_slot_q": kv_append._SLOT_Q_ARGTYPES,
+        "gofr_kv_append_slot_q_d64": kv_append._SLOT_Q_ARGTYPES,
         "gofr_w8a16": w8a16._ARGTYPES,
     }
 

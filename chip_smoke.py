@@ -47,7 +47,17 @@ result line:
    least time the card could take (its bound); and the split decode
    kernels A, D, E and F at every plan the warmup autotuner races
    (``split_candidates``), each pinned by a decision scope, held against
-   their split plain versions at that plan and timed (``plans``);
+   their split plain versions at that plan and timed (``plans``); and
+   the f32 builds of C, F and G on unit-scale inputs drawn in f32 (the
+   ``*_f32`` rows): C at Llama-3-8B's heads on 4 x 512 (full and ragged)
+   and 4 x 1024 causal prompts and a chunk of 512 at offset 512, its 64
+   build at BERT's step, ViT's 32 x 197 and GPT-2's causal and chunked
+   calls; F at the slot case's step and at GPT-2's, with a lane past the
+   slot, the split's boundaries and every plan; G on the slot appends'
+   edge lanes; held to their launchers' f32 limits (``F32``) against the
+   f32 plain versions, G bit for bit, and timed beside SDPA in f32, their
+   bounds counting f32 bytes and C's operations at the TF32 peak over
+   three;
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -226,7 +236,20 @@ result line:
    whole steps x 22 layers, no other kernel, the cache's bytes a position
    at ``ONE_B_KV_BYTES``, and tokens the plain path's on the same cache by
    the tie rule read on that path's own logits (against ``one_b_bf16``'s
-   printed, not held);
+   printed, not held). Then the f32 models in their configs' own dtype,
+   each launching its f32 builds of C, F and G and no other kernel (and
+   every run before them none of those): ``bert_embed_f32`` and
+   ``vit_classify_f32``, the two encoder runs in f32 with
+   ``BERT_REQUESTS_F32`` calls and ``VIT_IMAGES_F32`` images, outputs
+   within ``ENCODER_RTOL_F32`` of the plain path's range, alone and in a
+   batch; ``gpt2_f32``, GPT-2 small in f32 through the same App,
+   ``/generate`` and prompts as ``gpt2_generate``, C, F and G's 64 f32
+   builds (F = G, whole steps x 12), ``GPT2_KV_BYTES`` a position of the f32
+   slot cache, and tokens the f32 plain path's by the tie rule at
+   ``F32_TIE_GAP`` on that path's logits; and ``llama_slot_f32``,
+   Llama-3-8B's widths cut to ``LLAMA_F32_LAYERS`` layers in f32 on the
+   slot cache with ``bf16``'s knobs and prompts, the 128 f32 builds, held
+   the same way;
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -245,7 +268,9 @@ result line:
    pool, W8A16 against ``qdot_plain`` end to end, within the same limits;
    and ``phase5_model_one_b_int8`` / ``_int4``, the runs above on one_b on
    the int8 and int4 pools (D, E and the appends at 64), within the same
-   limits;
+   limits; and ``phase5_model_gpt2_f32``, the runs above on GPT-2 small in
+   f32 on its slot cache (C, F and G's f32 builds), every error taken over
+   the plain logits' range and held to ``F32_TIE_GAP``;
 6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
    steps and one speculative round with a sampled lane on each cache, then
    an adapter upload, a ``decode_step`` and a speculative round with the
@@ -261,9 +286,9 @@ result line:
    both checks also on the int8-weight model on the bf16 pool; and GPT-2's
    slot path: a prefill in two chunks of 128 (C's 64 build once a layer
    each) and two ``decode_step`` steps (F and G's 64 builds once a layer
-   each) under the same check, and the same on one_b's int8 and int4 pools
-   (C's 64 build for the chunks, D or E and B-q or B-q4 at 64 for the
-   steps).
+   each) under the same check, the same on GPT-2 in f32 (the f32 builds),
+   and the same on one_b's int8 and int4 pools (C's 64 build for the
+   chunks, D or E and B-q or B-q4 at 64 for the steps).
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -353,13 +378,23 @@ def smi_line() -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+# The H100 SXM's peaks for the f32 builds' operations (NVIDIA's data sheet,
+# dense, at 700 W): C's f32 products run as three TF32 tensor-core products
+# each (3xTF32), so an f32 multiply-add costs three at 495 TFLOP/s; F's f32
+# build multiplies on the CUDA cores, 67 TFLOP/s in f32.
+H100_SXM_TF32X3_FLOPS = 495e12 / 3
+H100_SXM_F32_FLOPS = 67e12
+
+
+def bound_ms(nbytes: float, flops: float, peak: float | None = None) -> tuple[float, str]:
     """The least time the card could take: bytes over the H100 SXM's HBM
-    rate or operations over its dense bf16 peak, whichever is longer (the
-    data-sheet pair the perf plane's ``device_peaks`` prices it by)."""
+    rate or operations over its dense peak for their type (bf16 unless
+    ``peak`` says otherwise), whichever is longer (the data-sheet pair the
+    perf plane's ``device_peaks`` prices it by)."""
     from gofr_tpu_torch.metrics.perf import H100_SXM_BF16_FLOPS, H100_SXM_HBM_BYTES_PER_S
 
-    t_bytes, t_ops = nbytes / H100_SXM_HBM_BYTES_PER_S, flops / H100_SXM_BF16_FLOPS
+    t_bytes = nbytes / H100_SXM_HBM_BYTES_PER_S
+    t_ops = flops / (peak or H100_SXM_BF16_FLOPS)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -477,6 +512,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
         kv_append_d64,
         kv_append_slot,
         kv_append_slot_d64,
+        kv_append_slot_d64_f32,
+        kv_append_slot_f32,
     )
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode, paged_decode_d64
     from gofr_tpu_torch.ops.kvcache import QSlotKVCache, append_tokens_plain, append_tokens_q
@@ -514,17 +551,18 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                    qx=None, kv_heads: int | None = None) -> dict:
         """Split decode kernel ``op`` (A, D, E or F) at every plan the warmup
         autotuner races (``split_candidates``), each pinned by a decision
-        scope at the launch's own shape key: the plan must be the one the
+        scope at the launch's own shape key and cache dtype (``dims``: the
+        key's numbers, then the dtype's name): the plan must be the one the
         launcher takes, its output is held against the split's plain
-        version at that plan within the launcher's limits, and (if
-        ``timed``) it is timed with CUDA events over the layers. ``qx``
-        and ``kv_heads`` are the launch's q and KV heads (the phase's
-        Llama-3-8B shapes when None)."""
+        version at that plan within the launcher's limits (``mod``'s, or
+        a ``cuda.Limits``), and (if ``timed``) it is timed with CUDA events
+        over the layers. ``qx`` and ``kv_heads`` are the launch's q and KV
+        heads (the phase's Llama-3-8B shapes when None)."""
         qx, kv_heads = (q if qx is None else qx), (hkv if kv_heads is None else kv_heads)
-        key, out = autotune.shape_key(*dims), {}
+        key, out = autotune.shape_key(*dims[:-1]), {}
         for rows in slot_decode_mod.split_candidates(qx.shape[0], kv_heads, span):
             name = autotune.plan_name(rows)
-            with autotune.decision_scope({op: name}, {op: key}):
+            with autotune.decision_scope({op: name}, {op: key}, {op: dims[-1]}):
                 require(slot_decode_mod.split_scratch(qx, kv_heads, span, op, dims)[0] == rows,
                         f"{op}: the pinned plan {name} is not the one its launcher takes")
                 agree = agreement(f"{op} (plan {name})", launch(0), split_plain(rows), mod)
@@ -579,7 +617,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table, lengths),
                 lambda rows: paged_decode_attention_split_plain(q, k_pool[0], v_pool[0], table,
                                                                 lengths, rows),
-                table.shape[1] * page, (n, hq, hkv, d, page, table.shape[1], k_pool.shape[1])),
+                table.shape[1] * page,
+                (n, hq, hkv, d, page, table.shape[1], k_pool.shape[1], "bfloat16")),
             "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
             **timing(lambda i: paged_decode(q, k_pool[i % layers], v_pool[i % layers], table,
                                             lengths),
@@ -878,7 +917,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
             "plans": plan_holds(
                 op, mod, lambda i: launch(*args(i % layers)),
                 lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=bits),
-                table.shape[1] * page, (n, hqx, kv_heads, dim, page, table.shape[1], cache.k.shape[1]),
+                table.shape[1] * page, (n, hqx, kv_heads, dim, page, table.shape[1],
+                                        cache.k.shape[1], "int8" if bits == 8 else "int4"),
                 qx=qx, kv_heads=kv_heads),
             "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
@@ -937,7 +977,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 "decode", slot_decode_mod,
                 lambda i: slot_decode(q, sk[i % layers], sv[i % layers], lengths),
                 lambda rows: decode_attention_split_plain(q, sk[0], sv[0], lengths, rows),
-                smax, (n, hq, hkv, d, smax)),
+                smax, (n, hq, hkv, d, smax, "bfloat16")),
             "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
             **timing(lambda i: slot_decode(q, sk[i % layers], sv[i % layers], lengths),
                      lambda i: decode_attention_plain(q, sk[i % layers], sv[i % layers], lengths),
@@ -1020,12 +1060,14 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
     entries_timed = int(((c["lengths_cpu"] >= 0) & (c["lengths_cpu"] < table.shape[1] * page)).sum())
 
     def append_bytes(entries: int, kept: int, row_out: int, scale: int, kv_heads: int = hkv,
-                     dim: int = d) -> int:
+                     dim: int = d, row_in: int | None = None) -> int:
         """What an append must move: the N positions, ``entries`` table
         entries, and for each of the ``kept`` lanes' Hkv rows of both planes
-        the bf16 row read and the ``row_out``-byte row and ``scale``-byte
-        scale written (a dropped lane's row need not be read)."""
-        return n * 4 + entries * 4 + 2 * kept * kv_heads * (dim * 2 + row_out + scale)
+        the row read (``row_in`` bytes, a bf16 row's by default) and the
+        ``row_out``-byte row and ``scale``-byte scale written (a dropped
+        lane's row need not be read)."""
+        row_in = dim * 2 if row_in is None else row_in
+        return n * 4 + entries * 4 + 2 * kept * kv_heads * (row_in + row_out + scale)
 
     def check_kv_append() -> dict:  # B
         k_new, v_new = append_rows()
@@ -1203,7 +1245,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 lambda i: paged_decode_d64(q1b, k1b[i % layers], v1b[i % layers], table, lengths),
                 lambda rows: paged_decode_attention_split_plain(q1b, k1b[0], v1b[0], table,
                                                                 lengths, rows),
-                table.shape[1] * page, (n, hq1b, hkv1b, 64, page, table.shape[1], k1b.shape[1]),
+                table.shape[1] * page,
+                (n, hq1b, hkv1b, 64, page, table.shape[1], k1b.shape[1], "bfloat16"),
                 qx=q1b, kv_heads=hkv1b),
             "tolerance": {"max_abs": decode_mod.MAX_ABS, "rms_rel": decode_mod.RMS_REL},
             **timing(lambda i: paged_decode_d64(q1b, k1b[i % layers], v1b[i % layers], table,
@@ -1270,7 +1313,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 "decode", slot_decode_mod,
                 lambda i: launch(qg, gk[i % layers], gv[i % layers], glen),
                 lambda rows: decode_attention_split_plain(qg, gk[0], gv[0], glen, rows),
-                gsmax, (n, hg, hg, 64, gsmax), qx=qg, kv_heads=hg),
+                gsmax, (n, hg, hg, 64, gsmax, "bfloat16"), qx=qg, kv_heads=hg),
             "tolerance": {"max_abs": slot_decode_mod.MAX_ABS, "rms_rel": slot_decode_mod.RMS_REL},
             **timing(lambda i: launch(qg, gk[i % layers], gv[i % layers], glen),
                      lambda i: decode_attention_plain(qg, gk[i % layers], gv[i % layers], glen),
@@ -1301,6 +1344,233 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
             append_bytes(0, kept_g, 64 * 2, 0, hg, 64),
             {"slots": n, "hkv": hg, "d": 64, "smax": gsmax})
 
+    # -- the f32 builds of C, F and G (the f32 models in their own dtype: GPT-2
+    # small, BERT-base and ViT-L/16 at head dim 64, Llama at 128 on the slot
+    # cache): unit-scale inputs drawn in f32 (values rounded to bf16 would
+    # leave the 3xTF32 split's lo terms 0 and hide a dropped lo product),
+    # held to the launchers' f32 limits (``F32``) against the f32 plain
+    # versions, whose products run in full f32 (allow_tf32 False). The
+    # bounds count f32 bytes, and C's operations at the TF32 peak over
+    # three, F's at the f32 peak of the CUDA cores.
+    f32 = torch.float32
+    g32 = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def randn32(*shape):
+        return torch.randn(*shape, device=dev, generator=g32, dtype=f32)
+
+    def flash32_agree(label: str, qx, kx, vx, **kw) -> tuple:
+        """(agreement of C's f32 build with the f32 plain version, the
+        kernel's output, which must be f32)."""
+        got = flash_attention(qx, kx, vx, **kw)
+        require(got.dtype == f32, f"{label}: the output is {got.dtype}, not f32")
+        return agreement(label, got, mha_attention_plain(qx, kx, vx, **kw), flash_mod.F32), got
+
+    def flash32_timed(qx, kx, vx, n_bytes: float, pairs: int, library, iters: int = 20,
+                      plain_iters: int = 3, **kw) -> dict:
+        """An f32 C call timed beside its plain version and ``library``,
+        with its bound: ``n_bytes``, and 4 x Hq x D operations for each of
+        the ``pairs`` (query, key) pairs it attends at the 3xTF32 peak."""
+        b_ms, b_by = bound_ms(n_bytes, 4 * qx.shape[2] * qx.shape[3] * pairs, H100_SXM_TF32X3_FLOPS)
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                **timing(lambda i: flash_attention(qx, kx, vx, **kw),
+                         lambda i: mha_attention_plain(qx, kx, vx, **kw), library, iters=iters,
+                         plain_iters=plain_iters)}
+
+    def flash32_row(name: str, checks: dict, main: dict, shape: dict, **subs) -> dict:
+        return {"name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
+                "max_abs_err": max(a["max_abs_err"] for a in checks.values()),
+                "rms_rel_err": max(a["rms_rel_err"] for a in checks.values()),
+                "checks": checks,
+                "tolerance": {"max_abs": flash_mod.F32.MAX_ABS, "rms_rel": flash_mod.F32.RMS_REL},
+                **main, **subs, "shape": shape}
+
+    def check_flash_f32() -> dict:  # C's f32 build at 128: Llama-3-8B's heads, 4 x 512 and 4 x 1024
+        qf, kf, vf = randn32(4, 512, hq, d), randn32(4, 512, hkv, d), randn32(4, 512, hkv, d)
+        checks = {"causal": flash32_agree("flash_attention_f32 (causal)", qf, kf, vf,
+                                          causal=True)[0]}
+        lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
+        offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+        checks["ragged"], got_r = flash32_agree("flash_attention_f32 (ragged)", qf, kf, vf,
+                                                causal=True, q_offset=offs, kv_lengths=lens)
+        require(torch.all(got_r[3] == 0).item(), "flash_attention_f32: fully masked rows are not zero")
+        q2, k2, v2 = randn32(4, 1024, hq, d), randn32(4, 1024, hkv, d), randn32(4, 1024, hkv, d)
+        checks["causal_1024"] = flash32_agree("flash_attention_f32 (causal 4 x 1024)", q2, k2, v2,
+                                              causal=True)[0]
+        # a chunk of 512 queries at offset 512 against 1024 keys
+        qc, kc, vc = randn32(1, 512, hq, d), randn32(1, 1024, hkv, d), randn32(1, 1024, hkv, d)
+        offc = torch.tensor([512], device=dev, dtype=torch.int32)
+        lenc = torch.tensor([1024], device=dev, dtype=torch.int32)
+        checks["chunk_512_at_512"] = flash32_agree("flash_attention_f32 (chunk 512 at 512)", qc, kc,
+                                                   vc, causal=True, q_offset=offc,
+                                                   kv_lengths=lenc)[0]
+        chunk_mask = (torch.arange(1024, device=dev)[None, :]
+                      <= 512 + torch.arange(512, device=dev)[:, None])
+        qch = qc.transpose(1, 2)
+        kch, vch = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1) for t in (kc, vc))
+        return flash32_row(
+            "flash_attention_f32", checks,
+            flash32_timed(qf, kf, vf, 4 * (2 * qf.numel() + 2 * kf.numel()), 4 * 512 * 513 // 2,
+                          sdpa(qf, kf, vf), iters=20, plain_iters=5, causal=True),
+            {"batch": 4, "seq": 512, "hq": hq, "hkv": hkv, "d": d, "causal": True, "dtype": "f32"},
+            seq_1024={"shape": {"batch": 4, "seq": 1024, "causal": True},
+                      **flash32_timed(q2, k2, v2, 4 * (2 * q2.numel() + 2 * k2.numel()),
+                                      4 * 1024 * 1025 // 2, sdpa(q2, k2, v2), causal=True)},
+            chunk_512_at_512={"shape": {"batch": 1, "queries": 512, "offset": 512, "keys": 1024},
+                              **flash32_timed(qc, kc, vc, 4 * (2 * qc.numel() + 2 * kc.numel()),
+                                              512 * 513 + 512 * 511 // 2,
+                                              lambda i: F.scaled_dot_product_attention(
+                                                  qch, kch, vch, attn_mask=chunk_mask),
+                                              causal=True, q_offset=offc, kv_lengths=lenc)})
+
+    def check_flash_d64_f32() -> dict:  # C's f32 build at 64: BERT-base's, ViT-L/16's, GPT-2's calls
+        d64, cpu_rng = D64_SHAPES, torch.Generator().manual_seed(SEED + 22)
+
+        def qkv(b: int, s: int, h: int) -> tuple:
+            return tuple(randn32(b, s, h, 64) for _ in range(3))
+
+        name = "flash_attention_d64_f32"
+        b, s, h = d64["bert"]["batch"], d64["bert"]["seq"], d64["bert"]["heads"]
+        lens_cpu = torch.randint(8, s + 1, (b,), generator=cpu_rng, dtype=torch.int32)
+        lens_cpu[-d64["bert"]["padded_rows"]:] = 1
+        lens_b = lens_cpu.to(dev)
+        qb, kb, vb = qkv(b, s, h)
+        checks = {"bert": flash32_agree(f"{name} (BERT)", qb, kb, vb, causal=False,
+                                        kv_lengths=lens_b)[0]}
+        live = int(lens_cpu.sum())
+        bert_mask = (torch.arange(s, device=dev)[None, :] < lens_b[:, None])[:, None, None, :]
+        qbh, kbh, vbh = (t.transpose(1, 2) for t in (qb, kb, vb))
+        main = flash32_timed(qb, kb, vb, 2 * 4 * qb.numel() + 2 * live * h * 64 * 4 + b * 4,
+                             s * live, lambda i: F.scaled_dot_product_attention(
+                                 qbh, kbh, vbh, attn_mask=bert_mask),
+                             iters=50, plain_iters=5, causal=False, kv_lengths=lens_b)
+        b, s, h = d64["vit"]["batch"], d64["vit"]["seq"], d64["vit"]["heads"]
+        qv, kv, vv = qkv(b, s, h)
+        checks["vit"] = flash32_agree(f"{name} (ViT)", qv, kv, vv, causal=False)[0]
+        qvh, kvh, vvh = (t.transpose(1, 2) for t in (qv, kv, vv))
+        vit = {"shape": d64["vit"],
+               **flash32_timed(qv, kv, vv, 4 * 4 * qv.numel(), s * s * b,
+                               lambda i: F.scaled_dot_product_attention(qvh, kvh, vvh),
+                               iters=50, plain_iters=5, causal=False)}
+        b, s, h = d64["gpt2"]["batch"], d64["gpt2"]["seq"], d64["gpt2"]["heads"]
+        qg2, kg2, vg2 = qkv(b, s, h)
+        checks["gpt2_causal"] = flash32_agree(f"{name} (GPT-2 causal)", qg2, kg2, vg2,
+                                              causal=True)[0]
+        lens = torch.tensor([512, 300, 77, 0], device=dev, dtype=torch.int32)
+        offs = torch.tensor([0, 40, 0, 0], device=dev, dtype=torch.int32)
+        checks["gpt2_ragged"], got_r = flash32_agree(f"{name} (GPT-2 ragged)", qg2, kg2, vg2,
+                                                     causal=True, q_offset=offs, kv_lengths=lens)
+        require(torch.all(got_r[3] == 0).item(), f"{name}: fully masked rows are not zero")
+        ch = d64["gpt2_chunk"]
+        sq, off, h = ch["queries"], ch["offset"], ch["heads"]
+        qc, kc, vc = randn32(1, sq, h, 64), randn32(1, off + sq, h, 64), randn32(1, off + sq, h, 64)
+        offc = torch.tensor([off], device=dev, dtype=torch.int32)
+        lenc = torch.tensor([off + sq], device=dev, dtype=torch.int32)
+        checks["gpt2_chunk_512_at_256"] = flash32_agree(f"{name} (GPT-2 chunk 512 at 256)", qc, kc,
+                                                        vc, causal=True, q_offset=offc,
+                                                        kv_lengths=lenc)[0]
+        chunk_mask = (torch.arange(off + sq, device=dev)[None, :]
+                      <= off + torch.arange(sq, device=dev)[:, None])
+        qch, kch, vch = (t.transpose(1, 2) for t in (qc, kc, vc))
+        gpt2_chunk = {"shape": ch,
+                      **flash32_timed(qc, kc, vc, 4 * (2 * qc.numel() + 2 * kc.numel()),
+                                      sq * off + sq * (sq + 1) // 2,
+                                      lambda i: F.scaled_dot_product_attention(
+                                          qch, kch, vch, attn_mask=chunk_mask),
+                                      iters=50, plain_iters=5, causal=True, q_offset=offc,
+                                      kv_lengths=lenc)}
+        return flash32_row(name, checks, main,
+                           {**d64["bert"], "d": 64, "causal": False, "dtype": "f32",
+                            "kv_lengths": {"min": int(lens_cpu.min()), "max": int(lens_cpu.max()),
+                                           "live_keys": live}},
+                           vit_197=vit, gpt2_chunk_512_at_256=gpt2_chunk)
+
+    def check_slot_decode_f32(d64: bool = False) -> dict:  # F's f32 builds
+        """F's f32 build at Llama-3-8B's step (``_slot_case``'s 9 lanes of
+        Smax 2176, Hq 32, Hkv 8), or (``d64``) at GPT-2 small's (Hq = Hkv
+        12, Smax 1024, ``_d64_case``'s lengths): ragged, a lane past the
+        slot, the split's boundaries, every plan the autotuner races."""
+        heads, kv_heads, dim, span = (hg, hg, 64, gsmax) if d64 else (hq, hkv, d, smax)
+        lens, lens_cpu = (glen, glen_cpu) if d64 else (lengths, c["lengths_cpu"])
+        name = "decode_attention_d64_f32" if d64 else "decode_attention_f32"
+        launch = slot_decode_mod.decode_attention_d64_f32 if d64 else slot_decode_mod.decode_attention_f32
+        lim = slot_decode_mod.F32
+        qx = randn32(n, heads, dim)
+        kx, vx = randn32(layers, n, kv_heads, span, dim), randn32(layers, n, kv_heads, span, dim)
+        got = launch(qx, kx[0], vx[0], lens)
+        require(got.dtype == f32, f"{name}: the output is {got.dtype}, not f32")
+        agree = agreement(name, got, decode_attention_plain(qx, kx[0], vx[0], lens), lim)
+        require(torch.all(got[lens_cpu == 0] == 0).item(), f"{name}: empty slots not zero")
+        over = lens.clone()
+        over[0] = span + 5
+        agree_o = agreement(f"{name} (length past the slot)", launch(qx, kx[0], vx[0], over)[:1],
+                            decode_attention_plain(qx, kx[0], vx[0], over)[:1], lim)
+        r, splits = slot_decode_mod.split_plan(n, kv_heads, span)
+        edges = torch.tensor([r, r + 1, 2 * r, 2 * r + 1, span, 0, span + 5, 3 * r, 3 * r + 1],
+                             device=dev, dtype=torch.int32)
+        got_e = launch(qx, kx[0], vx[0], edges)
+        agree_e = agreement(f"{name} (split boundaries)", got_e,
+                            decode_attention_split_plain(qx, kx[0], vx[0], edges, r), lim)
+        require(torch.all(got_e[5] == 0).item(), f"{name}: the empty slot is not zero")
+        live = int(lens_cpu.clamp(0, span).sum())
+        b_ms, b_by = bound_ms(live * kv_heads * dim * 4 * 2 + 2 * qx.numel() * 4 + n * 4,
+                              4 * live * heads * dim, H100_SXM_F32_FLOPS)
+        # yardstick only (never called by the port): SDPA in f32 with a length
+        # mask built outside the timed call
+        mask = (torch.arange(span, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        q1 = qx[:, :, None]
+        return {
+            "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/pallas/decode_attention.py:85",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_o, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_o, agree_e)),
+            "checks": {"ragged": agree, "past_the_slot": agree_o, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "decode", lim, lambda i: launch(qx, kx[i % layers], vx[i % layers], lens),
+                lambda rows: decode_attention_split_plain(qx, kx[0], vx[0], lens, rows),
+                span, (n, heads, kv_heads, dim, span, "float32"), qx=qx, kv_heads=kv_heads),
+            "tolerance": {"max_abs": lim.MAX_ABS, "rms_rel": lim.RMS_REL},
+            **timing(lambda i: launch(qx, kx[i % layers], vx[i % layers], lens),
+                     lambda i: decode_attention_plain(qx, kx[i % layers], vx[i % layers], lens),
+                     lambda i: F.scaled_dot_product_attention(q1, kx[i % layers], vx[i % layers],
+                                                              attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {**(gpt2_shape if d64 else slot_shape), "dtype": "f32"},
+        }
+
+    def check_kv_append_slot_f32(d64: bool = False) -> dict:  # G's f32 builds
+        """G's f32 build on an f32 slot cache of Llama-3-8B's KV heads (Smax
+        2176) or (``d64``) of GPT-2 small's (Smax 1024): layer 0 of a
+        two-layer copy, held whole, bit for bit against the plain append,
+        on the slot appends' edge lanes."""
+        kv_heads, dim, span = (hg, 64, gsmax) if d64 else (hkv, d, smax)
+        lens, lens_cpu = (glen, glen_cpu) if d64 else (lengths, c["lengths_cpu"])
+        name = "kv_append_slot_d64_f32" if d64 else "kv_append_slot_f32"
+        launch = kv_append_slot_d64_f32 if d64 else kv_append_slot_f32
+        kx, vx = randn32(layers, n, kv_heads, span, dim), randn32(layers, n, kv_heads, span, dim)
+        mag = torch.rand(2, n, kv_heads, 1, device=dev, generator=g32) * 30 + 0.01
+        k_new, v_new = (randn32(n, kv_heads, dim) * m for m in mag)
+        pos = lens.clone()
+        pos[0], pos[1], pos[2] = span, -1, span + 7
+        got = [kx[:2].clone(), vx[:2].clone()]
+        want = [t.clone() for t in got]
+        launch(got[0][0], got[1][0], pos, k_new, v_new)
+        append_tokens_plain(want[0][0], want[1][0], pos, k_new, v_new)
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want)),
+                f"{name} cache differs from the plain write")
+        require(all(torch.equal(a[0][i], b[0][i]) for a, b in zip(got, (kx, vx)) for i in (0, 1, 2)),
+                f"{name} wrote a lane whose position lies outside the slot")
+        require(not torch.equal(got[0][0], kx[0]), f"{name} wrote nothing")
+        del got, want
+        kept = int(((lens_cpu >= 0) & (lens_cpu < span)).sum())
+        return append_entry(
+            name, append_src, "gofr_tpu/ops/pallas/kv_append.py:61",
+            (lambda i: launch(kx[i % layers], vx[i % layers], lens, k_new, v_new),
+             lambda i: append_tokens_plain(kx[i % layers], vx[i % layers], lens, k_new, v_new)),
+            append_bytes(0, kept, dim * 4, 0, kv_heads, dim, row_in=dim * 4),
+            {"slots": n, "hkv": kv_heads, "d": dim, "smax": span, "dtype": "f32"})
+
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
@@ -1316,6 +1586,12 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
               ("kv_append_q_d64", lambda: check_append_q(8, d64=True)),
               ("kv_append_q4_d64", lambda: check_append_q(4, d64=True)),
               ("kv_append_slot_q_d64", lambda: check_append_slot_q(d64=True)),
+              ("flash_attention_f32", check_flash_f32),
+              ("flash_attention_d64_f32", check_flash_d64_f32),
+              ("decode_attention_f32", check_slot_decode_f32),
+              ("decode_attention_d64_f32", lambda: check_slot_decode_f32(d64=True)),
+              ("kv_append_slot_f32", check_kv_append_slot_f32),
+              ("kv_append_slot_d64_f32", lambda: check_kv_append_slot_f32(d64=True)),
               ("w8a16", lambda: check_w8a16(torch, timing if timed else None))]
     results = []
     for name, check in checks:
@@ -1553,14 +1829,30 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            # whose decode attention is plain PyTorch, as at 128
            "one_b_int8": ("paged_decode_q_d64", "kv_append_q_d64", "flash_attention_d64"),
            "one_b_int4": ("paged_decode_q4_d64", "kv_append_q4_d64", "flash_attention_d64"),
-           "one_b_slot_int8": ("kv_append_slot_q_d64", "flash_attention_d64")}
+           "one_b_slot_int8": ("kv_append_slot_q_d64", "flash_attention_d64"),
+           # the f32 models in their own dtype: GPT-2 small on the f32 slot
+           # cache, BERT-base and ViT-L/16 on the BatchEngine, Llama-3-8B's
+           # widths cut to 2 layers on the f32 slot cache: the f32 builds of
+           # C, F and G alone (every bf16 run holds them at 0, and they hold
+           # every bf16 build at 0)
+           "gpt2_f32": ("decode_attention_d64_f32", "kv_append_slot_d64_f32",
+                        "flash_attention_d64_f32"),
+           "bert_embed_f32": ("flash_attention_d64_f32",),
+           "vit_classify_f32": ("flash_attention_d64_f32",),
+           "llama_slot_f32": ("decode_attention_f32", "kv_append_slot_f32", "flash_attention_f32")}
 # one_b's runs, by (kv_layout, kv_quantize), and the KV bytes a position
 # of its cache formats (22 layers x 4 KV heads x K and V x a row of 64 bf16,
 # of 64 int8 + a bf16 scale, or of 32 packed bytes + a bf16 scale)
 ONE_B_RUNS = {("paged", ""): "one_b_bf16", ("paged", "int8"): "one_b_int8",
               ("paged", "int4"): "one_b_int4", ("slot", "int8"): "one_b_slot_int8"}
 ONE_B_KV_BYTES = {"": 22_528, "int8": 11_616, "int4": 5_984}
-PREFILL_KERNELS = ("flash_attention", "flash_attention_d64")
+PREFILL_KERNELS = ("flash_attention", "flash_attention_d64", "flash_attention_f32",
+                   "flash_attention_d64_f32")
+# The f32 runs' tie rule: f32 logits through the kernels and through the
+# plain path differ by a few f32 ulps, so at a first difference from the
+# plain path's tokens the run's token lies within this of that path's top
+# logit (a near tie, not a wrong token).
+F32_TIE_GAP = 1e-3
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
 # on the bf16 pool, and a draft model on the bf16 slot cache, Llama-3-8B's
@@ -1744,6 +2036,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     pool_bytes = sum(t.nbytes for t in vars(cache).values())
     per = kv_plane_bytes_per_position(cfg.num_layers, cfg.num_kv_heads, cfg.head_size,
                                       kv_quantize or "bf16")
+    if not kv_quantize and cfg.dtype == torch.float32:
+        per *= 2  # f32 K and V planes
     require(pool_bytes == per * positions,
             f"{pool} cache holds {pool_bytes} B for {positions} positions, not {per} B each")
     first = [t_submit + o["ttft_s"] for o in outs]
@@ -1751,10 +2045,12 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
     ttft = sorted(o["ttft_s"] for o in outs)
     metrics = {
-        "model": ((run or "llama3_8b") + " (random bf16 weights, seed 0"
+        "model": ((run or "llama3_8b") + " (random "
+                  + ("f32" if cfg.dtype == torch.float32 else "bf16") + " weights, seed 0"
                   + (", served in int8)" if w8 else ")")),
         "layers": cfg.num_layers,
-        "kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16",
+        "kv_layout": kv_layout,
+        "kv_pool": kv_quantize or ("f32" if cfg.dtype == torch.float32 else "bf16"),
         "pool_bytes": pool_bytes, "pool_positions": positions,
         "requests": len(outs), "prompt_lens": lens, "new_tokens": 64,
         "engine_build_s": build_s, "wall_s": t_done - t_submit,
@@ -3185,11 +3481,12 @@ def drill_wave(eng, prompts: list, knobs: dict) -> list:
 
 
 def hold_tie(label: str, torch, model, prompts, outs, want, logits=None,
-             rtol: float | None = None) -> dict:
+             rtol: float | None = None, gap: float = SPEC_TIE_GAP) -> dict:
     """Every request 64 tokens; tokens against ``want`` by the tie rule: at
-    a first difference the run's token lies within ``SPEC_TIE_GAP`` of the
-    top logit (``token_agreement``'s, of ``logits`` when given), or with
-    ``rtol`` within ``rtol`` of the largest |logit| (phase 5's measure)."""
+    a first difference the run's token lies within ``gap`` (``SPEC_TIE_GAP``
+    unless given) of the top logit (``token_agreement``'s, of ``logits``
+    when given), or with ``rtol`` within ``rtol`` of the largest |logit|
+    (phase 5's measure)."""
     for i, o in enumerate(outs):
         require(o["finish_reason"] == "length" and len(o["tokens"]) == 64,
                 f"{label} request {i}: {o['finish_reason']}, {len(o['tokens'])} tokens")
@@ -3197,7 +3494,7 @@ def hold_tie(label: str, torch, model, prompts, outs, want, logits=None,
     over = []
     for m in agree["margin_at_first_difference"]:
         if m:
-            m["limit"] = SPEC_TIE_GAP if rtol is None else rtol * m["max_abs_logit"]
+            m["limit"] = gap if rtol is None else rtol * m["max_abs_logit"]
             if m["chosen_below_top1"] > m["limit"]:
                 over.append((m["chosen_below_top1"], m["limit"]))
     require(not over, f"{label}: at a first difference the run chose a token below the top logit "
@@ -4277,7 +4574,7 @@ PHASE5_RUNS = {"kernels": (True, True, 1), "plain_prefill": (False, True, 1),
 
 
 def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
-                kv_layout: str = "paged") -> dict:
+                kv_layout: str = "paged", tol: float | None = None) -> dict:
     """Kernels vs plain versions, end to end through the model, on a cache
     ``kv_layout`` of the format ``kv_quantize``: each of ``PHASE5_PROMPTS``
     prompts of 256 tokens through ``prefill`` and four ``decode_step`` steps
@@ -4291,8 +4588,11 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
     difference over the RMS of the stored values). With ``enforce``, the
     kernel run's and the kernel verify's largest errors must stay under the
     pool's limit, and the decode-only run's and the plain verify's against
-    the plain decode steps under ``DECODE_RTOL``."""
+    the plain decode steps under ``DECODE_RTOL``. With ``tol`` (the f32
+    models) every error is taken over the range of the plain logits instead
+    and every run is held to ``tol``."""
     pool = f"{kv_layout} {kv_quantize or 'bf16'}"
+    lim, dlim = (LOGITS_RTOL[kv_quantize], DECODE_RTOL) if tol is None else (tol, tol)
     rng = torch.Generator().manual_seed(SEED + 1)
     steps = {name: [] for name in PHASE5_RUNS}
     agree, differ, stored_rel, verify_errs, verify_vs_decode = [], [], [], [], []
@@ -4303,7 +4603,7 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
         p_run, _, p_kv = model_steps(torch, model, kv_quantize, prompt, False, False, fed,
                                      kv_layout)
         require(torch.isfinite(k_run).all().item(), f"non-finite logits with the kernels ({pool})")
-        top = p_run.abs().max().item()
+        top = (p_run.abs().max() if tol is None else p_run.max() - p_run.min()).item()
         for name, (pk, dk, chunks) in PHASE5_RUNS.items():
             run = k_run if name == "kernels" else model_steps(
                 torch, model, kv_quantize, prompt, pk, dk, fed, kv_layout, chunks)[0]
@@ -4323,30 +4623,33 @@ def model_check(torch, model, kv_quantize: str = "", enforce: bool = True,
     rel_errs = [max(s) for s in steps["kernels"]]
     chunked_errs = [max(s) for s in steps["chunked"]]
     decode_errs = [max(s[1:]) for s in steps["plain_prefill"]]
-    out = {"kv_layout": kv_layout, "kv_pool": kv_quantize or "bf16", "prompts": PHASE5_PROMPTS,
+    out = {"kv_layout": kv_layout,
+           "kv_pool": kv_quantize or ("f32" if model.cfg.dtype == torch.float32 else "bf16"),
+           "prompts": PHASE5_PROMPTS,
            "steps": 5, "rel_err": rel_errs, "chunked_rel_err": chunked_errs,
-           "tol_rel": LOGITS_RTOL[kv_quantize], "decode_only_rel_err": decode_errs,
-           "decode_only_tol_rel": DECODE_RTOL, "argmax_agree": agree, "rel_err_by_step": steps,
+           "tol_rel": lim, "decode_only_rel_err": decode_errs, "decode_only_tol_rel": dlim,
+           "rel_to": "max |logit|" if tol is None else "logit range",
+           "argmax_agree": agree, "rel_err_by_step": steps,
            "stored_differ": differ, "stored_rms_rel": stored_rel,
            "verify_rel_err": [max(e) for e in verify_errs], "verify_rel_err_by_row": verify_errs,
            "plain_verify_vs_plain_decode_rel_err": [max(e) for e in verify_vs_decode]}
     if enforce:
-        require(max(rel_errs) < LOGITS_RTOL[kv_quantize],
+        require(max(rel_errs) < lim,
                 f"kernel vs plain logits ({pool}): max err / max |logit| {rel_errs} "
-                f"(limit {LOGITS_RTOL[kv_quantize]})")
-        require(max(chunked_errs) < LOGITS_RTOL[kv_quantize],
+                f"(limit {lim})")
+        require(max(chunked_errs) < lim,
                 f"chunked prefill through the kernels vs plain logits ({pool}): {chunked_errs} "
-                f"(limit {LOGITS_RTOL[kv_quantize]})")
-        require(max(decode_errs) < DECODE_RTOL,
+                f"(limit {lim})")
+        require(max(decode_errs) < dlim,
                 f"kernel vs plain logits, kernels in decode only ({pool}): {decode_errs} "
-                f"(limit {DECODE_RTOL})")
-        require(max(out["verify_rel_err"]) < LOGITS_RTOL[kv_quantize],
+                f"(limit {dlim})")
+        require(max(out["verify_rel_err"]) < lim,
                 f"verify_step with the kernels vs plain ({pool}): {out['verify_rel_err']} "
-                f"(limit {LOGITS_RTOL[kv_quantize]})")
+                f"(limit {lim})")
         ver_dec = out["plain_verify_vs_plain_decode_rel_err"]
-        require(max(ver_dec) < DECODE_RTOL,
+        require(max(ver_dec) < dlim,
                 f"plain verify_step vs plain decode steps ({pool}): {ver_dec} "
-                f"(limit {DECODE_RTOL})")
+                f"(limit {dlim})")
     return out
 
 
@@ -4894,6 +5197,13 @@ VIT_CONFIG = {**ENCODER_CONFIG, "PUBSUB_BACKEND": "inmemory", "SUBSCRIBER_WORKER
               "ENGINE_MAX_BATCH": "32", "ENGINE_MAX_WAIT_MS": "2"}
 VIT_IMAGES = 64
 ENCODER_RTOL = 5e-2
+# The encoders in f32 (their configs' own dtype): ``bert_embed_f32`` and
+# ``vit_classify_f32`` serve less traffic over the same transports, and
+# their outputs are held within ``ENCODER_RTOL_F32`` of the plain path's
+# range (f32 through the kernels and through the plain path differ by a few
+# f32 ulps a layer).
+BERT_REQUESTS_F32, VIT_IMAGES_F32 = 128, 32
+ENCODER_RTOL_F32 = 1e-4
 
 
 def range_err(got, want) -> dict:
@@ -4934,17 +5244,21 @@ def forward_alone_ms(torch, fn) -> float:
 
 
 def encoder_holds(name: str, counts: dict, sizes: list, layers: int) -> None:
-    """C's 64 build once a layer a step, and no other kernel."""
+    """The run's build of C at 64 (bf16, or f32) once a layer a step, and no
+    other kernel."""
     for kernel, launches in counts.items():
         require((launches > 0) == (kernel in ON_PATH[name]),
                 f"{name}: kernel {kernel} launched {launches} times")
-    require(counts["flash_attention_d64"] == layers * len(sizes),
-            f"{name}: C at 64 launched {counts['flash_attention_d64']} times for {len(sizes)} "
+    build = ON_PATH[name][0]
+    require(counts[build] == layers * len(sizes),
+            f"{name}: {build} launched {counts[build]} times for {len(sizes)} "
             f"steps of {layers} layers")
 
 
-def bert_embed(torch, cuda) -> dict:
-    """Phase 4 ``bert_embed`` (configuration #1, see above). Held: every
+def bert_embed(torch, cuda, dtype=None) -> dict:
+    """Phase 4 ``bert_embed``, or in f32 (``dtype``) ``bert_embed_f32``
+    with ``BERT_REQUESTS_F32`` calls, C's f32 build and ``ENCODER_RTOL_F32``
+    (configuration #1, see above). Held: every
     call answers with an embedding of norm 1 within 1e-3; at least one step
     holds 8 requests or more; C's 64 build launches 12 times a step and no
     other kernel launches; a full batch of the requests through the plain
@@ -4962,13 +5276,16 @@ def bert_embed(torch, cuda) -> dict:
     from gofr_tpu_torch.grpc.server import current_grpc_context
     from gofr_tpu_torch.models import BertConfig, ModelSpec
 
-    cfg = BertConfig.base(dtype=torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    name, n_req = ("bert_embed_f32", BERT_REQUESTS_F32) if f32 else ("bert_embed", BERT_REQUESTS)
+    rtol = ENCODER_RTOL_F32 if f32 else ENCODER_RTOL
+    cfg = BertConfig.base(dtype=dtype)
     gen = torch.Generator().manual_seed(SEED + 7)
-    requests = torch.randint(1000, cfg.vocab_size, (BERT_REQUESTS, BERT_TOKENS),
+    requests = torch.randint(1000, cfg.vocab_size, (n_req, BERT_TOKENS),
                              generator=gen).tolist()
     app = App(config=DictConfig(BERT_CONFIG))
-    engine = app.serve_model("bert", ModelSpec("bert", cfg, task="embed", dtype=torch.bfloat16),
-                             seed=SEED)
+    engine = app.serve_model("bert", ModelSpec("bert", cfg, task="embed", dtype=dtype), seed=SEED)
 
     def embed(request, context):
         return {"embedding": current_grpc_context().infer("bert", request["tokens"],
@@ -4981,7 +5298,7 @@ def bert_embed(torch, cuda) -> dict:
             "Embed": grpc.unary_unary_rpc_method_handler(embed, **codec)}),))
 
     app.register_grpc_service(add)
-    replies, latency = [None] * BERT_REQUESTS, [0.0] * BERT_REQUESTS
+    replies, latency = [None] * n_req, [0.0] * n_req
     with AppThread(app, "bert-embed"):
         warmed = engine.warmup(requests[0], len_buckets=[BERT_TOKENS])
         torch.cuda.synchronize()
@@ -4993,7 +5310,7 @@ def bert_embed(torch, cuda) -> dict:
                                   response_deserializer=lambda b: json.loads(b.decode()))
 
             def client(c: int) -> None:
-                for i in range(c, BERT_REQUESTS, BERT_CLIENTS):
+                for i in range(c, n_req, BERT_CLIENTS):
                     t0 = time.perf_counter()
                     replies[i] = call({"tokens": requests[i]}, timeout=300)["embedding"]
                     latency[i] = time.perf_counter() - t0
@@ -5009,16 +5326,16 @@ def bert_embed(torch, cuda) -> dict:
         counts = cuda.launch_counts()
         del engine._step  # the recorder off: the class method again
         model = engine.model
-        require(all(r is not None for r in replies), "bert_embed: a call did not answer")
+        require(all(r is not None for r in replies), f"{name}: a call did not answer")
         served = torch.tensor(replies, dtype=torch.float32)
         norms = served.norm(dim=-1)
         require(bool(((norms - 1).abs() <= 1e-3).all()),
-                f"bert_embed: embedding norms {norms.min().item()}..{norms.max().item()}")
-        require(max(sizes) >= 8, f"bert_embed: no step held 8 requests: {sizes}")
-        encoder_holds("bert_embed", counts, sizes, cfg.num_layers)
+                f"{name}: embedding norms {norms.min().item()}..{norms.max().item()}")
+        require(max(sizes) >= 8, f"{name}: no step held 8 requests: {sizes}")
+        encoder_holds(name, counts, sizes, cfg.num_layers)
         # the plain path on a full batch of the same requests, and one
         # request alone through the kernels
-        n = min(engine.max_batch, BERT_REQUESTS)
+        n = min(engine.max_batch, n_req)
         tokens = torch.tensor(requests[:n], device="cuda")
         lengths = torch.full((n,), BERT_TOKENS, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
@@ -5027,28 +5344,31 @@ def bert_embed(torch, cuda) -> dict:
         agree = {"plain_full_batch": range_err(served[:n], plain),
                  "alone_vs_in_batch": range_err(alone, served[:1])}
         for label, a in agree.items():
-            require(a["rel_to_range"] <= ENCODER_RTOL,
-                    f"bert_embed {label}: {a} (limit {ENCODER_RTOL} of the range)")
+            require(a["rel_to_range"] <= rtol,
+                    f"{name} {label}: {a} (limit {rtol} of the range)")
         walls = step_seconds(app, len(sizes))
         # a step of the clients' count alone, beside the served steps' wall
         alone_ms = forward_alone_ms(torch, lambda: model.embed_pooled(tokens[:BERT_CLIENTS],
                                                                       lengths[:BERT_CLIENTS]))
-    require(not engine._thread.is_alive(), "bert_embed: the engine's thread outlived stop()")
+    require(not engine._thread.is_alive(), f"{name}: the engine's thread outlived stop()")
     del engine, app, model
     torch.cuda.empty_cache()
-    return {"model": "bert-base (random bf16 weights, seed 0)", "config": BERT_CONFIG,
-            "requests": BERT_REQUESTS, "clients": BERT_CLIENTS, "tokens": BERT_TOKENS,
+    return {"model": f"bert-base (random {'f32' if f32 else 'bf16'} weights, seed 0)",
+            "config": BERT_CONFIG, "requests": n_req, "clients": BERT_CLIENTS,
+            "tokens": BERT_TOKENS, "tolerance_rel_to_range": rtol,
             "warmup_steps": warmed, "steps": len(sizes), "step_sizes": sizes,
             "mean_step_size": sum(sizes) / len(sizes), **walls,
             f"forward_alone_ms_batch_{BERT_CLIENTS}": alone_ms,
-            "req_per_s": BERT_REQUESTS / wall, "latency_p50_s": p50(latency),
+            "req_per_s": n_req / wall, "latency_p50_s": p50(latency),
             "latency_p99_s": sorted(latency)[int(0.99 * len(latency))],
             "agreement": agree, "launches": counts, "nvidia_smi": smi_line(),
             "note": "smoke run, not a benchmark"}
 
 
-def vit_classify(torch, cuda) -> dict:
-    """Phase 4 ``vit_classify`` (configuration #3, see above). Held: every
+def vit_classify(torch, cuda, dtype=None) -> dict:
+    """Phase 4 ``vit_classify``, or in f32 (``dtype``) ``vit_classify_f32``
+    with ``VIT_IMAGES_F32`` images, C's f32 build and ``ENCODER_RTOL_F32``
+    (configuration #3, see above). Held: every
     message is handled and committed (``app_pubsub_*``: ``VIT_IMAGES``
     published, received and handled); every logit row is finite and within
     ``ENCODER_RTOL`` of the plain path's range on a batch of the same
@@ -5064,13 +5384,16 @@ def vit_classify(torch, cuda) -> dict:
     from gofr_tpu_torch.config import DictConfig
     from gofr_tpu_torch.models import ModelSpec, ViTConfig
 
-    cfg = ViTConfig.large(dtype=torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    name, n_img = ("vit_classify_f32", VIT_IMAGES_F32) if f32 else ("vit_classify", VIT_IMAGES)
+    rtol = ENCODER_RTOL_F32 if f32 else ENCODER_RTOL
+    cfg = ViTConfig.large(dtype=dtype)
     gen = torch.Generator().manual_seed(SEED + 8)
-    images = torch.randint(0, 256, (VIT_IMAGES, cfg.image_size, cfg.image_size, 3),
+    images = torch.randint(0, 256, (n_img, cfg.image_size, cfg.image_size, 3),
                            generator=gen, dtype=torch.uint8).numpy()
     app = App(config=DictConfig(VIT_CONFIG))
-    engine = app.serve_model("vit", ModelSpec("vit", cfg, task="classify", dtype=torch.bfloat16),
-                             seed=SEED)
+    engine = app.serve_model("vit", ModelSpec("vit", cfg, task="classify", dtype=dtype), seed=SEED)
     logits, done, lock = {}, {}, threading.Lock()
 
     def pixels(raw: bytes):
@@ -5087,7 +5410,7 @@ def vit_classify(torch, cuda) -> dict:
 
     app.subscribe("images", on_image)
     payloads = [{"i": i, "image": base64.b64encode(images[i].tobytes()).decode()}
-                for i in range(VIT_IMAGES)]
+                for i in range(n_img)]
     with AppThread(app, "vit-classify"):
         warmed = engine.warmup(pixels(images[0].tobytes()))
         torch.cuda.synchronize()
@@ -5097,7 +5420,7 @@ def vit_classify(torch, cuda) -> dict:
         for body in payloads:
             app.container.publish("images", body)
         deadline = time.monotonic() + 600
-        while len(logits) < VIT_IMAGES and time.monotonic() < deadline:
+        while len(logits) < n_img and time.monotonic() < deadline:
             time.sleep(0.01)
         wall = max(done.values(), default=t0) - t0
         torch.cuda.synchronize()
@@ -5110,32 +5433,32 @@ def vit_classify(torch, cuda) -> dict:
                                       "app_pubsub_publish_success_count",
                                       "app_pubsub_subscribe_total_count",
                                       "app_pubsub_subscribe_success_count")}
-        require(sorted(logits) == list(range(VIT_IMAGES)),
-                f"vit_classify: {len(logits)} of {VIT_IMAGES} images classified")
-        require(all(v == VIT_IMAGES for v in pubsub_counts.values()),
-                f"vit_classify: {pubsub_counts}")
-        served = torch.tensor(np.stack([logits[i] for i in range(VIT_IMAGES)]))
-        require(served.shape == (VIT_IMAGES, cfg.num_classes) and bool(served.isfinite().all()),
-                f"vit_classify: logits {tuple(served.shape)}, finite {bool(served.isfinite().all())}")
-        encoder_holds("vit_classify", counts, sizes, cfg.num_layers)
-        n = min(engine.max_batch, VIT_IMAGES)
+        require(sorted(logits) == list(range(n_img)),
+                f"{name}: {len(logits)} of {n_img} images classified")
+        require(all(v == n_img for v in pubsub_counts.values()), f"{name}: {pubsub_counts}")
+        served = torch.tensor(np.stack([logits[i] for i in range(n_img)]))
+        require(served.shape == (n_img, cfg.num_classes) and bool(served.isfinite().all()),
+                f"{name}: logits {tuple(served.shape)}, finite {bool(served.isfinite().all())}")
+        encoder_holds(name, counts, sizes, cfg.num_layers)
+        n = min(engine.max_batch, n_img)
         batch = torch.tensor(np.stack([pixels(images[i].tobytes()) for i in range(n)]),
                              device="cuda")
         with torch.inference_mode():
             plain = model(batch, kernels=False).cpu()
         agree = range_err(served[:n], plain)
-        require(agree["rel_to_range"] <= ENCODER_RTOL,
-                f"vit_classify: served logits vs plain {agree} (limit {ENCODER_RTOL} of the range)")
+        require(agree["rel_to_range"] <= rtol,
+                f"{name}: served logits vs plain {agree} (limit {rtol} of the range)")
         walls = step_seconds(app, len(sizes))
         alone_ms = forward_alone_ms(torch, lambda: model(batch))
-    require(not engine._thread.is_alive(), "vit_classify: the engine's thread outlived stop()")
+    require(not engine._thread.is_alive(), f"{name}: the engine's thread outlived stop()")
     del engine, app, model
     torch.cuda.empty_cache()
-    return {"model": "vit-large-16-224 (random bf16 weights, seed 0)", "config": VIT_CONFIG,
-            "images": VIT_IMAGES, "warmup_steps": warmed, "steps": len(sizes),
+    return {"model": f"vit-large-16-224 (random {'f32' if f32 else 'bf16'} weights, seed 0)",
+            "config": VIT_CONFIG, "images": n_img, "tolerance_rel_to_range": rtol,
+            "warmup_steps": warmed, "steps": len(sizes),
             "step_sizes": sizes, "mean_step_size": sum(sizes) / len(sizes), **walls,
             f"forward_alone_ms_batch_{n}": alone_ms,
-            "msgs_per_s": VIT_IMAGES / max(wall, 1e-9), "agreement": agree,
+            "msgs_per_s": n_img / max(wall, 1e-9), "agreement": agree,
             "pubsub_counts": pubsub_counts, "launches": counts, "nvidia_smi": smi_line(),
             "note": "smoke run, not a benchmark"}
 
@@ -5156,6 +5479,11 @@ GPT2_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "ERROR", "ENG
                "ENGINE_MAX_LEN": "1016", "ENGINE_PREFILL_BATCH": "4", "ENGINE_DECODE_CHUNK": "8"}
 GPT2_BUCKETS = [128, 256, 512]
 GPT2_NEW = 64
+# ``gpt2_f32``: the same App, knobs and prompts with GPT-2 small in its own
+# f32 (``ModelSpec("gpt2", dtype=torch.float32)``) on the f32 slot cache.
+# The KV bytes of one position of each run's cache: 12 layers x 12 heads x
+# K and V x 64 elements of 2 or 4 bytes.
+GPT2_KV_BYTES = {False: 36_864, True: 73_728}
 
 
 def gpt2_prompts(torch, vocab: int) -> list[list[int]]:
@@ -5203,8 +5531,12 @@ def plain_tokens(torch, model, prompts: list, new: int, kv_quantize: str = "",
     return [{"tokens": t} for t in ids], steps
 
 
-def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
-    """Phase 4 ``gpt2_generate`` (``w8`` False) or ``gpt2_w8``. Held: every
+def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None,
+               f32: bool = False) -> dict:
+    """Phase 4 ``gpt2_generate``, ``gpt2_w8`` (``w8``) or ``gpt2_f32``
+    (``f32``: GPT-2 small in its own f32, C, F and G's 64 f32 builds, the
+    cache at ``GPT2_KV_BYTES`` a position, the tokens the f32 plain path's
+    by the tie rule at ``F32_TIE_GAP`` on that path's logits). Held: every
     POST is a 201 with ``GPT2_NEW`` tokens ended by length; the launches
     are the run's ``ON_PATH`` kernels and no other: C, F and G's 64 builds,
     F and G equally often, a whole number of decode steps x 12 layers, C on
@@ -5221,12 +5553,15 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
     from gofr_tpu_torch.ops.quant import quantized_bytes
 
-    name = "gpt2_w8" if w8 else "gpt2_generate"
+    name = "gpt2_w8" if w8 else "gpt2_f32" if f32 else "gpt2_generate"
     config = {**GPT2_CONFIG, **({"ENGINE_QUANTIZE": "int8"} if w8 else {})}
-    cfg = GPT2Config.small(dtype=torch.bfloat16)
+    cfg = GPT2Config.small() if f32 else GPT2Config.small(dtype=torch.bfloat16)
+    # the run's builds of F, G and C at 64
+    f_64, g_64, c_64 = (k + ("_f32" if f32 else "") for k in (
+        "decode_attention_d64", "kv_append_slot_d64", "flash_attention_d64"))
     app = App(config=DictConfig(config))
     t0 = time.perf_counter()
-    engine = app.serve_model("gpt2", ModelSpec("gpt2", cfg, dtype=torch.bfloat16), seed=SEED,
+    engine = app.serve_model("gpt2", ModelSpec("gpt2", cfg, dtype=cfg.dtype), seed=SEED,
                              eos_token_id=-1, prefill_buckets=GPT2_BUCKETS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -5266,6 +5601,8 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
         counts, offset_launches = cuda.launch_counts(), flash_attention.offset_launches
         did = {k: v - before[k] for k, v in engine.counters.items()}
         model, cache_len, kv_layout = engine.model, engine.cache_len, engine.kv_layout
+        kv_bytes = (sum(t.nbytes for t in vars(engine.cache).values())
+                    / (engine.cache.k.shape[1] * engine.cache.k.shape[3]))
     require(not engine._thread.is_alive(), f"{name}: the engine's thread outlived stop()")
     for i, r in enumerate(replies):
         require(r is not None and r[0] == 201, f"{name} request {i}: {r and r[:2]}")
@@ -5280,20 +5617,22 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
         require((launches > 0) == (kernel in ON_PATH[name]),
                 f"{name}: kernel {kernel} launched {launches} times")
     layers = cfg.num_layers
-    require(counts["decode_attention_d64"] == counts["kv_append_slot_d64"]
-            and counts["decode_attention_d64"] % layers == 0,
-            f"{name}: F and G's 64 builds launched {counts['decode_attention_d64']} and "
-            f"{counts['kv_append_slot_d64']} times, not decode steps x {layers}")
+    require(counts[f_64] == counts[g_64] and counts[f_64] % layers == 0,
+            f"{name}: F and G's 64 builds launched {counts[f_64]} and {counts[g_64]} times, not "
+            f"decode steps x {layers}")
+    require(kv_bytes == GPT2_KV_BYTES[f32],
+            f"{name}: {kv_bytes} KV bytes a position, not {GPT2_KV_BYTES[f32]}")
     require(did["prefill_chunks_at_offset"] > 0 and offset_launches > 0,
             f"{name}: no prompt prefilled in chunks at an offset ({did}, C {offset_launches})")
-    forwards = (counts["decode_attention_d64"] + counts["flash_attention_d64"]) // layers
+    forwards = (counts[f_64] + counts[c_64]) // layers
     held = quantized_bytes(model)
-    metrics = {"model": "gpt2 small (random bf16 weights, seed 0"
+    metrics = {"model": f"gpt2 small (random {'f32' if f32 else 'bf16'} weights, seed 0"
                         + (", served in int8)" if w8 else ")"),
                "config": config, "prefill_buckets": GPT2_BUCKETS, "layers": layers,
                "kv_layout": kv_layout, "slot_positions": cache_len, "engine_build_s": build_s,
                "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
-               "new_tokens": GPT2_NEW, "decode_steps": counts["decode_attention_d64"] // layers,
+               "new_tokens": GPT2_NEW, "decode_steps": counts[f_64] // layers,
+               "kv_bytes_per_position": kv_bytes,
                "prefill_chunks_at_offset": did["prefill_chunks_at_offset"],
                "flash_offset_launches": offset_launches, "weight_bytes": held}
     if w8:
@@ -5311,6 +5650,11 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
             metrics["weight_bytes_vs_bf16"] = held / base["metrics"]["weight_bytes"]
             metrics["vs_gpt2_generate"] = token_agreement(torch, model, prompts, outs,
                                                           base["outs"])
+    elif f32:
+        want, logits = plain_tokens(torch, model, prompts, GPT2_NEW)
+        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+                                            gap=F32_TIE_GAP)
+        del logits
     else:
         want, _ = plain_tokens(torch, model, prompts, GPT2_NEW)
         metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want)
@@ -5325,6 +5669,40 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None) -> dict:
     del engine, app
     torch.cuda.empty_cache()
     return result
+
+
+# Phase 4's ``llama_slot_f32``: Llama-3-8B's widths (32 heads, 8 KV heads
+# of 128) cut to ``LLAMA_F32_LAYERS`` layers (a kernel's first-use costs go
+# by shape, not by layer), random f32 weights from the seed, on the f32 slot
+# cache with ``serve``'s knobs and ``bf16``'s prompts: the 128 f32 builds of
+# C, F and G on a served path.
+LLAMA_F32_LAYERS = 2
+
+
+def llama_slot_f32(torch, cuda) -> dict:
+    """Phase 4 ``llama_slot_f32``. Held (``serve``): C, F and G's 128 f32
+    builds and no other kernel, F and G equally often in whole steps x 2
+    layers, the f32 cache's bytes a position; and the tokens the f32 plain
+    path's on the slot cache by the tie rule at ``F32_TIE_GAP`` on that
+    path's own logits."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_F32_LAYERS,
+                              dtype=torch.float32)
+    model = init(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    eng, counts, metrics, outs = serve(torch, cuda, model, "", "slot", run="llama_slot_f32")
+    eng.stop()
+    del eng
+    prompts = phase4_prompts(torch, cfg.vocab_size)
+    want, logits = plain_tokens(torch, model, prompts, 64)
+    metrics["vs_plain_path"] = hold_tie("llama_slot_f32", torch, model, prompts, outs, want, logits,
+                                        gap=F32_TIE_GAP)
+    metrics["nvidia_smi"] = smi_line()
+    del logits, model
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "launches": counts}
 
 
 def one_b_run(torch, cuda, model, kv_quantize: str = "", kv_layout: str = "paged",
@@ -5440,9 +5818,10 @@ def gpt2_no_sync_check(torch, cuda, model) -> dict:
     last idle at the slot's end, so its writes drop), each inside
     ``torch.cuda.set_sync_debug_mode("error")``; the chunks launch C's 64
     build once a layer each, the steps F's and G's 64 builds once a layer
-    each, and nothing else launches."""
+    each, and nothing else launches; on the f32 model, the f32 builds."""
     n, smax = 8, 1024
     layers = model.cfg.num_layers
+    sfx = "_f32" if model.cfg.dtype == torch.float32 else ""
     rng = torch.Generator().manual_seed(SEED + 12)
     tokens = torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).cuda()
     positions = torch.randint(0, smax - 4, (n,), generator=rng)
@@ -5478,12 +5857,14 @@ def gpt2_no_sync_check(torch, cuda, model) -> dict:
         return logits
 
     chunks, steps = unsynced(chunked), unsynced(decode)
-    require(chunks == {"flash_attention_d64": 2 * layers},
+    require(chunks == {"flash_attention_d64" + sfx: 2 * layers},
             f"gpt2: the chunked prefill launched {chunks}")
-    require(steps == {"decode_attention_d64": 2 * layers, "kv_append_slot_d64": 2 * layers},
+    require(steps == {"decode_attention_d64" + sfx: 2 * layers,
+                      "kv_append_slot_d64" + sfx: 2 * layers},
             f"gpt2: two decode steps launched {steps}")
     del cache
-    return {"model": "gpt2 small", "kv_layout": "slot", "kv_pool": "bf16", "chunks": 2,
+    return {"model": "gpt2 small", "kv_layout": "slot", "kv_pool": "f32" if sfx else "bf16",
+            "chunks": 2,
             "steps": 2, "sync_debug_mode": "error", "launches": {"chunks": chunks, "steps": steps}}
 
 
@@ -5641,6 +6022,16 @@ def main() -> None:
     emit("phase4_vit_classify", served["vit_classify"])
     lap("phase4_vit_classify")
 
+    # the f32 models in their own dtype: the encoders, then GPT-2 small
+    for name, run in (("bert_embed_f32", bert_embed), ("vit_classify_f32", vit_classify)):
+        served[name] = run(torch, cuda, torch.float32)
+        emit(f"phase4_{name}", {k: v for k, v in served[name].items() if k != "step_sizes"})
+        lap(f"phase4_{name}")
+    gpt2_32 = gpt2_serve(torch, cuda, f32=True)
+    served["gpt2_f32"] = {"metrics": gpt2_32["metrics"], "launches": gpt2_32["launches"]}
+    emit("phase4_gpt2_f32", served["gpt2_f32"])
+    lap("phase4_gpt2_f32")
+
     gpt2 = gpt2_serve(torch, cuda)
     served["gpt2_generate"] = {"metrics": gpt2["metrics"], "launches": gpt2["launches"]}
     emit("phase4_gpt2_generate", served["gpt2_generate"])
@@ -5659,6 +6050,9 @@ def main() -> None:
                                  served.get("one_b_bf16"))
         emit(f"phase4_serve_{name}", {k: v for k, v in served[name].items() if k != "outs"})
         lap(f"phase4_{name}")
+    served["llama_slot_f32"] = llama_slot_f32(torch, cuda)
+    emit("phase4_serve_llama_slot_f32", served["llama_slot_f32"])
+    lap("phase4_llama_slot_f32")
 
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
@@ -5674,16 +6068,22 @@ def main() -> None:
         emit(f"phase5_model_one_b_{kv_quantize}",
              {"model": "one_b", **model_check(torch, one_b, kv_quantize)})
         lap(f"phase5_one_b_{kv_quantize}")
+    # GPT-2 small in f32 on its slot cache: C, F and G's f32 builds end to end,
+    # within 1e-3 of the plain path's logit range
+    emit("phase5_model_gpt2_f32", {"model": "gpt2 small (f32)", **model_check(
+        torch, gpt2_32["model"], kv_layout="slot", tol=F32_TIE_GAP)})
+    lap("phase5_gpt2_f32")
 
     emit("phase6_no_sync", [no_sync_check(torch, cuda, m, *run)
                             for m, run in [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
     emit("phase6_dispatch_no_sync", [dispatch_sync_check(torch, m, *run) for m, run in
                                      [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]]
          + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
-    emit("phase6_gpt2_no_sync", gpt2_no_sync_check(torch, cuda, gpt2["model"]))
+    emit("phase6_gpt2_no_sync", [gpt2_no_sync_check(torch, cuda, m["model"])
+                                 for m in (gpt2, gpt2_32)])
     emit("phase6_one_b_no_sync", [one_b_no_sync_check(torch, cuda, one_b, q)
                                    for q in ("int8", "int4")])
-    del gpt2, one_b
+    del gpt2, gpt2_32, one_b
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on,
@@ -5691,7 +6091,8 @@ def main() -> None:
     by_run = launches_by_run(served)
     for k in kernels:
         run = next(r for r in (*RUNS, "paged_w8", "bert_embed", "gpt2_generate",
-                               *ONE_B_RUNS.values()) if k["name"] in ON_PATH[r])
+                               *ONE_B_RUNS.values(), "gpt2_f32", "llama_slot_f32")
+                   if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
         k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -14,6 +14,8 @@
 //   B-q (64) gofr_kv_append_q_d64        Int8Rows<64>   PoolAddr  int8 pool, head dim 64
 //   B-q4(64) gofr_kv_append_q4_d64       Int4Rows<64>   PoolAddr  int4 pool, head dim 64
 //   G-q (64) gofr_kv_append_slot_q_d64   Int8Rows<64>   SlotAddr  int8 slot cache, head dim 64
+//   G (f32)  gofr_kv_append_slot_f32     F32Rows<128>   SlotAddr  f32 slot cache
+//   G (f32, 64) gofr_kv_append_slot_d64_f32 F32Rows<64> SlotAddr  f32 slot cache, head dim 64
 //
 // Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
 // (:110, pallas_call :160) and append_tokens_inplace (:61, pallas_call :80,
@@ -45,7 +47,10 @@
 //     the pair one packed byte holds). Stores are 8, 4 or 2 bytes a lane:
 //     the warp writes its 256-, 128- or 64-byte row in one coalesced store.
 //     No shared memory. A 64-wide bf16 row (GPT-2, Llama one_b) is 128 B:
-//     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>). The
+//     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>). An
+//     f32 row (F32Rows: the f32 models, GPT-2 small in its own dtype) is
+//     512 B at 128, one 16-byte load and store a lane, and 256 B at 64, one
+//     8-byte load and store a lane; its bits are copied as they are. The
 //     quantizing rows at 64 keep all 32 lanes on the row: an int8 lane
 //     quantizes elements 2l, 2l + 1 (one 4-byte load) into a 2-byte store,
 //     an int4 lane elements l and 32 + l (two 2-byte loads, the pair one
@@ -81,6 +86,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -130,14 +136,22 @@ __device__ __forceinline__ uint32_t nibbles(int lo, int hi) {
   return static_cast<uint32_t>(lo + kBias) | (static_cast<uint32_t>(hi + kBias) << 4);
 }
 
+// What every row policy names besides load and store: the head dim kD, the
+// stored row's bytes kRowBytes, the new row's 32-bit words kInWords, the
+// alignment kAlign its loads and stores need (the launcher's check) and the
+// register type Raw that a lane carries from the load to the store.
+//
 // bf16 rows (kernels B, G) of head dim D: the 16-bit patterns copied as
 // they are, lane l elements 4l .. 4l + 3 at D 128 (one 8-byte word), 2l,
 // 2l + 1 at D 64 (one 4-byte word, in raw.x).
 template <int D>
 struct Bf16Rows {
   static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  using Raw = uint2;
   static constexpr int kD = D;
   static constexpr int kRowBytes = kD * 2;
+  static constexpr int kInWords = kD / 2;
+  static constexpr int kAlign = 8;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
     if constexpr (kD == 128) return __ldg(reinterpret_cast<const uint2*>(row) + lane);
@@ -155,8 +169,11 @@ struct Bf16Rows {
 // into the bytes of the same index, a 4- or 2-byte store.
 template <int D>
 struct Int8Rows {
+  using Raw = uint2;
   static constexpr int kD = D;
   static constexpr int kRowBytes = kD;
+  static constexpr int kInWords = kD / 2;
+  static constexpr int kAlign = 8;
   static constexpr int kPerLane = kD / 32;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
@@ -185,8 +202,11 @@ struct Int8Rows {
 template <int D>
 struct Int4Rows {
   static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  using Raw = uint2;
   static constexpr int kD = D;
   static constexpr int kRowBytes = kD / 2;
+  static constexpr int kInWords = kD / 2;
+  static constexpr int kAlign = 8;
   static constexpr int kPerLane = kD / 32;
 
   __device__ static uint2 load(const uint32_t* row, int lane) {
@@ -211,6 +231,27 @@ struct Int4Rows {
     else
       dst[lane] = static_cast<uint8_t>(nibbles(q[0], q[1]));
     if (lane == 0) *scale = __float2bfloat16_rn(s);
+  }
+};
+
+// f32 rows (kernel G on an f32 slot cache) of head dim D: the 32-bit
+// patterns copied as they are, lane l elements 4l .. 4l + 3 at D 128 (one
+// 16-byte word), 2l, 2l + 1 at D 64 (one 8-byte word).
+template <int D>
+struct F32Rows {
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  using Raw = std::conditional_t<D == 128, uint4, uint2>;
+  static constexpr int kD = D;
+  static constexpr int kRowBytes = kD * 4;
+  static constexpr int kInWords = kD;
+  static constexpr int kAlign = sizeof(Raw);
+
+  __device__ static Raw load(const uint32_t* row, int lane) {
+    return __ldg(reinterpret_cast<const Raw*>(row) + lane);
+  }
+
+  __device__ static void store(uint8_t* dst, bf16*, Raw raw, int lane) {
+    reinterpret_cast<Raw*>(dst)[lane] = raw;
   }
 };
 
@@ -245,7 +286,7 @@ struct Planes {
   uint8_t* v;
   bf16* ks;                // their scales (null for bf16 rows)
   bf16* vs;
-  const uint32_t* k_new;   // [N, Hkv, D] bf16, as 32-bit words
+  const uint32_t* k_new;   // [N, Hkv, D] bf16 (f32 for F32Rows), as 32-bit words
   const uint32_t* v_new;
 };
 
@@ -259,8 +300,8 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Planes p, const int* _
   const int slot = nh / hkv, h = nh - slot * hkv;
   const int pos = __ldg(positions + slot);
   // the row goes out before the table entry comes back
-  const uint2 raw = Rows::load((is_v ? p.v_new : p.k_new) + static_cast<size_t>(nh) * (Rows::kD / 2),
-                               lane);
+  const typename Rows::Raw raw =
+      Rows::load((is_v ? p.v_new : p.k_new) + static_cast<size_t>(nh) * Rows::kInWords, lane);
   const long long row = addr.row(slot, h, hkv, pos);
   if (row < 0) return;                                      // the same for the whole warp
   uint8_t* values = is_v ? p.v : p.k;
@@ -271,10 +312,11 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Planes p, const int* _
 template <class Rows, class Addr>
 int launch(Planes planes, const void* positions, Addr addr, int n, int hkv, int d, void* stream) {
   if (d != Rows::kD || n <= 0 || hkv <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the rows' 8-byte loads and stores; refused here, before the launch, so
-  // the launchers need not ask each tensor for its address
+  // the rows' 8- or 16-byte loads and stores; refused here, before the
+  // launch, so the launchers need not ask each tensor for its address
   if ((reinterpret_cast<uintptr_t>(planes.k) | reinterpret_cast<uintptr_t>(planes.v) |
-       reinterpret_cast<uintptr_t>(planes.k_new) | reinterpret_cast<uintptr_t>(planes.v_new)) & 7)
+       reinterpret_cast<uintptr_t>(planes.k_new) | reinterpret_cast<uintptr_t>(planes.v_new)) &
+      (Rows::kAlign - 1))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n * hkv + kWarps - 1) / kWarps, 2);
@@ -323,6 +365,22 @@ extern "C" int gofr_kv_append_slot_d64(void* k_layer, void* v_layer, const void*
                                        int smax, int d, void* stream) {
   return launch<Bf16Rows<64>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
                               SlotAddr{smax}, n, hkv, d, stream);
+}
+
+// G on the f32 slot cache (the f32 models: GPT-2 small in its own dtype,
+// Llama at 128)
+extern "C" int gofr_kv_append_slot_f32(void* k_layer, void* v_layer, const void* k_new,
+                                       const void* v_new, const void* positions, int n, int hkv,
+                                       int smax, int d, void* stream) {
+  return launch<F32Rows<128>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
+                              SlotAddr{smax}, n, hkv, d, stream);
+}
+
+extern "C" int gofr_kv_append_slot_d64_f32(void* k_layer, void* v_layer, const void* k_new,
+                                           const void* v_new, const void* positions, int n,
+                                           int hkv, int smax, int d, void* stream) {
+  return launch<F32Rows<64>>(planes(k_layer, v_layer, nullptr, nullptr, k_new, v_new), positions,
+                             SlotAddr{smax}, n, hkv, d, stream);
 }
 
 extern "C" int gofr_kv_append_q(void* k_pool, void* v_pool, void* k_scale, void* v_scale,

@@ -13,9 +13,11 @@
 //     against 0, so exp(kNegInf - 0) underflows to 0 instead of exp(0) == 1;
 //   - the final divide clamps the normaliser at 1e-20.
 // The bf16 kernels round probabilities to bf16 before the P.V product
-// (common.py:57); the quantized-pool kernels instead fold the per-position
-// value scale into them, in f32 and unrounded (common.py:56-60). Either
-// way the normaliser sums the plain probabilities, unrounded, in f32.
+// (common.py:57 casts P to v.dtype); the f32 builds of kernels C and F keep
+// them in f32, unrounded, as the same cast does at f32; the quantized-pool
+// kernels fold the per-position value scale into them, in f32 and
+// unrounded (common.py:56-60). Either way the normaliser sums the plain
+// probabilities, unrounded, in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -112,6 +114,28 @@ __device__ __forceinline__ void fold_row64(float* row, float* m, float* l, float
   const float pa = p.x, pb = p.y;
   row[lane] = round_bf16(pa);
   row[lane + 32] = round_bf16(pb);
+  __syncwarp();
+}
+
+// The f32 form of fold_row64 for kernel F's f32 build, whose tiles are 32
+// rows: one warp folds a 32-wide tile row (one position a lane) into the
+// running state and overwrites it with its probabilities, unrounded (P is
+// cast to v.dtype, f32 here, common.py:57).
+__device__ __forceinline__ void fold_row32(float* row, float* m, float* l, float* alpha) {
+  const int lane = threadIdx.x & 31;
+  const float a = row[lane];
+  RowState st{*m, *l};
+  float safe;
+  const float scale = row_rescale(st, warp_max(a), &safe);
+  const float pa = row_prob(a, safe);
+  const float sum = warp_sum(pa);
+  __syncwarp();
+  if (lane == 0) {
+    *m = st.m;
+    *l = st.l + sum;
+    *alpha = scale;
+  }
+  row[lane] = pa;
   __syncwarp();
 }
 

@@ -1,17 +1,17 @@
-// Decode attention over the bf16 slot cache: one new token per slot (kernel
-// F). The page pool's decode attention (kernels A, D and E) lives in
+// Decode attention over the slot cache, bf16 or f32: one new token per slot
+// (kernel F). The page pool's decode attention (kernels A, D and E) lives in
 // paged_decode_q.cu.
 //
 // Replaces gofr_tpu/ops/pallas/decode_attention.py decode_attention (:85,
 // pallas_call :111, body _decode_kernel :46).
 //
 // What bounds it on the card: device-memory bytes. Each slot's live K and V
-// rows (len x Hkv x D x 2 planes x 2 B per layer) are read once and used for
-// G = Hq/Hkv query rows only, about one multiply-add per byte, far below the
-// ~295 operations per byte where an H100 turns compute-bound. At the slot
-// cache's engine shapes (8 slots, Hkv 8, lengths in the hundreds to
-// thousands) that is 37 MB, 11 us at 3.35 TB/s; reaching it takes tens of KB
-// in flight on every one of the 132 SMs.
+// rows (len x Hkv x D x 2 planes x 2 B per layer; 4 B at f32) are read once
+// and used for G = Hq/Hkv query rows only, about one multiply-add per byte,
+// far below the ~295 operations per byte where an H100 turns compute-bound.
+// At the slot cache's engine shapes (8 slots, Hkv 8, lengths in the hundreds
+// to thousands) that is 37 MB, 11 us at 3.35 TB/s; reaching it takes tens
+// of KB in flight on every one of the 132 SMs.
 //
 // Design:
 //   - One thread block per (slot, KV head, split of the sequence). The G
@@ -37,8 +37,10 @@
 //     (async_copy.cuh): the next tile loads while the current one is
 //     scored and folded. Rows are padded by 16 B so the score loop reads
 //     them without bank conflicts.
-//   - The online-softmax state is f32 (online_softmax.cuh); probabilities are
-//     rounded to bf16 before the P.V product, as the TPU kernel does.
+//   - The online-softmax state is f32 (online_softmax.cuh). The bf16 build
+//     rounds probabilities to bf16 before the P.V product, as the TPU kernel
+//     does (common.py:57 casts P to v.dtype); the f32 build keeps them
+//     unrounded, as the same cast does at f32.
 //   - A length is clamped to Smax: an idle slot-layout lane asks for Smax + 1
 //     + k, and an unclamped length would read the next head's rows. Smax need
 //     not be a multiple of 64: rows past the length are never loaded.
@@ -48,6 +50,15 @@
 //     the eight rows a quarter-warp's 16-byte score reads touch on distinct
 //     banks, as the 272-byte row does at 128. GPT-2's group of 1 leaves seven
 //     of q_s's eight rows unused: correct, not fast.
+//   - The element type T is the second template parameter, bf16 or float
+//     (the f32 models: GPT-2 small in its own dtype, Llama at 128). A tile
+//     keeps its bytes, not its rows: 64 rows of bf16, 32 of f32, so the f32
+//     ring is 67,584 B at 128 and three blocks still fit on an SM; a split
+//     run stays a whole number of 64 rows, two f32 tiles. K and V come in by
+//     16-byte cp.async of 8 bf16 or 4 floats. The f32 row is padded by 16 B
+//     as well: its 132- or 68-word step is 4 words mod 32, so the eight rows
+//     a quarter-warp's 16-byte score reads touch fall on distinct banks
+//     again. An f32 tile row is folded by fold_row32 (one position a lane).
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -58,21 +69,58 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;        // KV positions per staged tile
 constexpr int kMaxGroup = 8;     // query heads per KV head
 constexpr int kStages = 2;       // K/V ring depth
 
-// What follows the head dim kD (the wrapper checks it is 128 or 64).
-template <int kD>
+// What follows the head dim kD and the element type T (the wrapper checks
+// 128 or 64, bf16 or f32).
+template <int kD, class T>
 struct Dims {
   static_assert(kD == 128 || kD == 64, "built at head dims 128 and 64");
+  static constexpr int kTile = 128 / sizeof(T);    // KV positions per tile: 64 bf16, 32 f32
   static constexpr int kThreads = kD;              // one output column per thread
-  static constexpr int kStride = kD + 8;           // padded smem row, in bf16 elements
-  static constexpr int kChunks = kD / 8;           // 16-byte chunks per row
+  static constexpr int kPerChunk = 16 / sizeof(T); // elements per 16-byte chunk
+  static constexpr int kStride = kD + kPerChunk;   // padded smem row (16 B of padding)
+  static constexpr int kChunks = kD / kPerChunk;   // 16-byte chunks per row
   static constexpr int kTileElems = kTile * kStride;
-  static constexpr int kRingBytes = kStages * 2 * kTileElems * 2;  // K and V: 69,632 or 36,864 B
+  // K and V: 69,632 / 36,864 B (bf16 at 128 / 64), 67,584 / 34,816 B (f32)
+  static constexpr int kRingBytes = kStages * 2 * kTileElems * sizeof(T);
   static constexpr int kState = kD + 2;            // one split's scratch per query row: acc[D], m, l
 };
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+// s + q . (the elements of one 16-byte chunk w of a K row), qr[0] first
+__device__ __forceinline__ float dot_chunk(const float* qr, uint4 w, float s, const bf16*) {
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 kf = __bfloat1622float2(k2[e]);
+    s = fmaf(qr[2 * e], kf.x, s);
+    s = fmaf(qr[2 * e + 1], kf.y, s);
+  }
+  return s;
+}
+
+__device__ __forceinline__ float dot_chunk(const float* qr, uint4 w, float s, const float*) {
+  s = fmaf(qr[0], __uint_as_float(w.x), s);
+  s = fmaf(qr[1], __uint_as_float(w.y), s);
+  s = fmaf(qr[2], __uint_as_float(w.z), s);
+  return fmaf(qr[3], __uint_as_float(w.w), s);
+}
+
+// Fold one tile row of scores into the running state and leave the P.V
+// weights in it: bf16-rounded for the bf16 build, f32 for the f32 build.
+__device__ __forceinline__ void fold_tile_row(float* row, float* m, float* l, float* alpha,
+                                              const bf16*) {
+  gofr::fold_row64(row, m, l, alpha);
+}
+
+__device__ __forceinline__ void fold_tile_row(float* row, float* m, float* l, float* alpha,
+                                              const float*) {
+  gofr::fold_row32(row, m, l, alpha);
+}
 
 // The slot cache's layer slice [N, Hkv, Smax, kD]: lane n is slot n.
 template <int kD>
@@ -88,19 +136,20 @@ struct SlotRows {
   }
 };
 
-template <int kD>
+template <int kD, class T>
 __global__ void __launch_bounds__(kD) decode_kernel(
-    const bf16* __restrict__ q,      // [N, Hq, D]
-    const bf16* __restrict__ k,      // [N, Hkv, Smax, D]
-    const bf16* __restrict__ v,      // [N, Hkv, Smax, D]
+    const T* __restrict__ q,         // [N, Hq, D]
+    const T* __restrict__ k,         // [N, Hkv, Smax, D]
+    const T* __restrict__ v,         // [N, Hkv, Smax, D]
     const SlotRows<kD> rows,
     const int* __restrict__ lengths,  // [N]
-    bf16* __restrict__ out,           // [N, Hq, D], written here when there is one split
+    T* __restrict__ out,              // [N, Hq, D], written here when there is one split
     float* __restrict__ part,         // [N, Hq, splits, kState], written when there are more
     int hkv, int group, int split_rows, float scale) {
-  constexpr int kThreads = Dims<kD>::kThreads, kStride = Dims<kD>::kStride;
-  constexpr int kChunks = Dims<kD>::kChunks, kTileElems = Dims<kD>::kTileElems;
-  constexpr int kState = Dims<kD>::kState;
+  using Dm = Dims<kD, T>;
+  constexpr int kTile = Dm::kTile, kThreads = Dm::kThreads, kStride = Dm::kStride;
+  constexpr int kChunks = Dm::kChunks, kPerChunk = Dm::kPerChunk, kTileElems = Dm::kTileElems;
+  constexpr int kState = Dm::kState;
   extern __shared__ __align__(16) unsigned char ring[];  // [kStages][K, V][kTile][kStride]
   __shared__ float q_s[kMaxGroup][kD];
   __shared__ float p_s[kMaxGroup][kTile];
@@ -114,16 +163,16 @@ __global__ void __launch_bounds__(kD) decode_kernel(
   const int t_end = min(len, t_begin + split_rows);
   if (gridDim.z > 1 && t_begin >= len) return;  // no live row: the merge never reads this split
   const int n_tiles = (max(t_end - t_begin, 0) + kTile - 1) / kTile;
-  bf16* const ring_s = reinterpret_cast<bf16*>(ring);
+  T* const ring_s = reinterpret_cast<T*>(ring);
 
-  // copy rows t_begin + 64 i .. of this (slot, head) into stage i % 2; rows
-  // at or past t_end are zero-filled
+  // copy rows t_begin + kTile i .. of this (slot, head) into stage i % 2;
+  // rows at or past t_end are zero-filled
   auto stage = [&](int i) {
-    bf16* k_s = ring_s + (i % kStages) * 2 * kTileElems;
-    bf16* v_s = k_s + kTileElems;
+    T* k_s = ring_s + (i % kStages) * 2 * kTileElems;
+    T* v_s = k_s + kTileElems;
     const int t0 = t_begin + i * kTile;
     for (int c = tid; c < kTile * kChunks; c += kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8, t = t0 + r;
+      const int r = c / kChunks, col = (c % kChunks) * kPerChunk, t = t0 + r;
       const bool ok = t < t_end;
       const size_t base = (ok ? rows.row(n, h, hkv, t) : 0) + col;
       gofr::cp_async16(k_s + r * kStride + col, k + base, ok);
@@ -135,7 +184,7 @@ __global__ void __launch_bounds__(kD) decode_kernel(
 
   for (int i = tid; i < group * kD; i += kThreads) {
     const int g = i / kD, j = i % kD;
-    q_s[g][j] = __bfloat162float(q[((size_t)n * hq + h * group + g) * kD + j]);
+    q_s[g][j] = to_float(q[((size_t)n * hq + h * group + g) * kD + j]);
   }
   if (tid < group) {
     m_s[tid] = gofr::kNegInf;
@@ -151,34 +200,25 @@ __global__ void __launch_bounds__(kD) decode_kernel(
     gofr::cp_async_commit();  // possibly empty, so one wait depth serves every step
     gofr::cp_async_wait<1>();
     __syncthreads();
-    const bf16* k_s = ring_s + (i % kStages) * 2 * kTileElems;
-    const bf16* v_s = k_s + kTileElems;
+    const T* k_s = ring_s + (i % kStages) * 2 * kTileElems;
+    const T* v_s = k_s + kTileElems;
 
     // scores: one (query row, position) pair per thread and step
     for (int j = tid; j < group * kTile; j += kThreads) {
       const int g = j / kTile, t = j % kTile;
-      // 16-byte reads: the 272- or 144-byte row stride puts the 8 rows a
-      // quarter-warp reads on distinct banks
+      // 16-byte reads: the padded row stride (4 words mod 32) puts the 8
+      // rows a quarter-warp reads on distinct banks
       const uint4* kr = reinterpret_cast<const uint4*>(&k_s[t * kStride]);
       const float* qr = q_s[g];
       float s = 0.f;
 #pragma unroll 4
-      for (int c = 0; c < kChunks; ++c) {
-        const uint4 w = kr[c];
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 kf = __bfloat1622float2(k2[e]);
-          s = fmaf(qr[8 * c + 2 * e], kf.x, s);
-          s = fmaf(qr[8 * c + 2 * e + 1], kf.y, s);
-        }
-      }
+      for (int c = 0; c < kChunks; ++c) s = dot_chunk(qr + kPerChunk * c, kr[c], s, k_s);
       p_s[g][t] = (t0 + t < t_end) ? s * scale : gofr::kNegInf;
     }
     __syncthreads();
 
     for (int g = warp; g < group; g += kThreads / 32)
-      gofr::fold_row64(p_s[g], &m_s[g], &l_s[g], &alpha_s[g]);
+      fold_tile_row(p_s[g], &m_s[g], &l_s[g], &alpha_s[g], k_s);
     __syncthreads();
 
     // P.V: this thread owns output column `tid` of every query row
@@ -186,7 +226,7 @@ __global__ void __launch_bounds__(kD) decode_kernel(
     for (int g = 0; g < kMaxGroup; ++g)
       if (g < group) acc[g] *= alpha_s[g];
     for (int t = 0; t < kTile; ++t) {
-      const float vt = __bfloat162float(v_s[t * kStride + tid]);
+      const float vt = to_float(v_s[t * kStride + tid]);
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
         if (g < group) acc[g] = fmaf(p_s[g][t], vt, acc[g]);
@@ -200,8 +240,8 @@ __global__ void __launch_bounds__(kD) decode_kernel(
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g)
       if (g < group)
-        out[((size_t)n * hq + h * group + g) * kD + tid] =
-            __float2bfloat16(gofr::row_finish(acc[g], l_s[g]));
+        gofr::store_out(out + ((size_t)n * hq + h * group + g) * kD + tid,
+                        gofr::row_finish(acc[g], l_s[g]));
     return;
   }
 #pragma unroll
@@ -214,30 +254,30 @@ __global__ void __launch_bounds__(kD) decode_kernel(
   }
 }
 
-template <int kD>
+template <int kD, class T>
 int launch(const void* q, const void* k, const void* v, int smax, const void* lengths, void* out,
            void* scratch, int n, int hkv, int group, int split_rows, int splits, float scale,
            void* stream) {
-  constexpr int kRingBytes = Dims<kD>::kRingBytes;
-  static bool configured = false;
+  constexpr int kRingBytes = Dims<kD, T>::kRingBytes;
+  static bool configured = false;  // one flag per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+        decode_kernel<kD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SlotRows<kD> rows{smax};
-  decode_kernel<kD><<<dim3(n, hkv, splits), Dims<kD>::kThreads, kRingBytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), rows,
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), static_cast<float*>(scratch),
-      hkv, group, split_rows, scale);
+  decode_kernel<kD, T><<<dim3(n, hkv, splits), Dims<kD, T>::kThreads, kRingBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), rows,
+      static_cast<const int*>(lengths), static_cast<T*>(out), static_cast<float*>(scratch), hkv,
+      group, split_rows, scale);
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     gofr::merge_splits<kD><<<dim3(n, hkv * group), kD, 0, s>>>(
         static_cast<const float*>(scratch), rows, static_cast<const int*>(lengths),
-        static_cast<bf16*>(out), split_rows, splits);
+        static_cast<T*>(out), split_rows, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,19 +286,37 @@ int launch(const void* q, const void* k, const void* v, int smax, const void* le
 
 // `splits` runs of `split_rows` positions (splits x split_rows >=
 // smax), then the merge; `scratch` holds n x Hq x splits x (D + 2) floats.
-// One entry point a head dim: 128 (Llama) and 64 (GPT-2).
+// One entry point a build: head dim 128 (Llama) and 64 (GPT-2), each on
+// bf16 and on f32 planes.
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* lengths, void* out, void* scratch, int n, int hkv,
                                      int group, int smax, int split_rows, int splits, float scale,
                                      void* stream) {
-  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,
-                     splits, scale, stream);
+  return launch<128, bf16>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
+                           split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_d64(const void* q, const void* k_cache, const void* v_cache,
                                          const void* lengths, void* out, void* scratch, int n,
                                          int hkv, int group, int smax, int split_rows, int splits,
                                          float scale, void* stream) {
-  return launch<64>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,
-                    splits, scale, stream);
+  return launch<64, bf16>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
+                          split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_decode_attention_f32(const void* q, const void* k_cache, const void* v_cache,
+                                         const void* lengths, void* out, void* scratch, int n,
+                                         int hkv, int group, int smax, int split_rows, int splits,
+                                         float scale, void* stream) {
+  return launch<128, float>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
+                            split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_decode_attention_d64_f32(const void* q, const void* k_cache,
+                                             const void* v_cache, const void* lengths, void* out,
+                                             void* scratch, int n, int hkv, int group, int smax,
+                                             int split_rows, int splits, float scale,
+                                             void* stream) {
+  return launch<64, float>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
+                           split_rows, splits, scale, stream);
 }

@@ -10,18 +10,23 @@
 // clamps it (`Rows::length`), rescales run s by exp(m_s - M) with M safe as
 // in online_softmax.cuh, sums, and divides with the 1e-20 clamp. It never
 // reads a run that was not written, so the scratch needs no clearing; a slot
-// of length 0 has no live run and gets zeros.
+// of length 0 has no live run and gets zeros. The output is written in the
+// decode's input type: bf16, or f32 for kernel F's f32 build (the TPU
+// kernel writes its output in q.dtype).
 #pragma once
 
 #include "online_softmax.cuh"
 
 namespace gofr {
 
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
 // Thread j merges output column j over the slot's live runs.
-template <int kD, class Rows>
+template <int kD, class Rows, class Out>
 __global__ void __launch_bounds__(kD) merge_splits(
     const float* __restrict__ part, const Rows rows, const int* __restrict__ lengths,
-    __nv_bfloat16* __restrict__ out, int split_rows, int splits) {
+    Out* __restrict__ out, int split_rows, int splits) {
   constexpr int kState = kD + 2;
   const int n = blockIdx.x, hq = gridDim.y, head = blockIdx.y, tid = threadIdx.x;
   const int live = (rows.length(lengths, n) + split_rows - 1) / split_rows;
@@ -35,7 +40,7 @@ __global__ void __launch_bounds__(kD) merge_splits(
     l = fmaf(w, st[s * kState + kD + 1], l);
     acc = fmaf(w, st[s * kState + tid], acc);
   }
-  out[((size_t)n * hq + head) * kD + tid] = __float2bfloat16(row_finish(acc, l));
+  store_out(out + ((size_t)n * hq + head) * kD + tid, row_finish(acc, l));
 }
 
 }  // namespace gofr

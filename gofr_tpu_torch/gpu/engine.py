@@ -197,7 +197,7 @@ from gofr_tpu_torch.ops.paged import (
     gather_page,
     page_planes,
 )
-from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree, quantized_bytes
+from gofr_tpu_torch.ops.quant import QLinear, quantize_state, quantize_tree, quantized_bytes
 from gofr_tpu_torch.qos.scheduler import QoSQueue
 from gofr_tpu_torch.tracing import RequestTrace, current_span
 
@@ -230,6 +230,10 @@ MAKE_CACHE = {("paged", ""): "make_paged_cache", ("paged", "int8"): "make_paged_
 # the head dims every decode kernel and append is built at (A, B, D, E, F,
 # G and the quantizing appends; C too)
 KERNEL_HEAD_DIMS = (128, 64)
+# the model dtypes the card serves: bf16 on every cache, f32 on the slot
+# cache alone (C, F and G have f32 builds; A, B, D, E, the quantizing
+# appends and W8A16 take bf16 only: ROADMAP Queue B 7b)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
@@ -240,20 +244,36 @@ def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
     return getattr(model, MAKE_CACHE[kv_layout, kv_quantize])(rows, row_len)
 
 
-def refuse_unbuilt_kernels(cfg: Any, device: torch.device) -> None:
+def refuse_unbuilt_kernels(cfg: Any, device: torch.device, kv_layout: str = "slot",
+                           kv_quantize: str = "", quantize: str = "") -> None:
     """Raise before anything is allocated when the card has no kernel for
-    the model, on any cache: weights in a dtype other than bf16 (every
-    kernel takes bf16 only) or a head dim the kernels are not built at
-    (``KERNEL_HEAD_DIMS``). Without it such a model would pass the build
-    and fail at its first launch, inside the engine's loop or its warmup.
-    The CPU serves both through the plain path."""
+    the model on the cache it asks for: weights in a dtype other than bf16
+    and f32 (``KERNEL_DTYPES``); f32 on the paged layout, on a quantized
+    cache (``kv_quantize``) or with int8 weights (``quantize``), whose
+    kernels (A, B, D, E, the quantizing appends, W8A16) take bf16 only; or
+    a head dim the kernels are not built at (``KERNEL_HEAD_DIMS``). f32 on
+    the slot cache with no KV quantization and bf16 weights passes: C, F
+    and G have f32 builds. Without the refusal such a model would pass the
+    build and fail at its first launch, inside the engine's loop or its
+    warmup. The CPU serves all of them through the plain path."""
     if device.type != "cuda":
         return
-    if cfg.dtype != torch.bfloat16:
+    if cfg.dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"a model in {cfg.dtype} on the card: the kernels take bf16 only (ROADMAP.md "
-            "Queue B 7, 'every kernel on f32 inputs'); serve ModelSpec(..., "
-            "dtype=torch.bfloat16) or on the CPU")
+            f"a model in {cfg.dtype} on the card: the kernels take bf16, and f32 on the slot "
+            "cache (ROADMAP.md Queue B 7); serve ModelSpec(..., dtype=torch.bfloat16) or on "
+            "the CPU")
+    if cfg.dtype == torch.float32:
+        unbuilt = [what for what, asked in (
+            ("the paged layout (kernels A and B)", kv_layout == "paged"),
+            (f"the {kv_quantize} KV cache (kernels D, E and the quantizing appends)", kv_quantize),
+            ("int8 weights (W8A16 takes bf16 activations)", quantize)) if asked]
+        if unbuilt:
+            raise ValueError(
+                f"an f32 model on the card with {' and '.join(unbuilt)}: those kernels take bf16 "
+                "only (ROADMAP.md Queue B 7, 'f32 inputs'); serve ModelSpec(..., "
+                "dtype=torch.bfloat16), or the f32 model on kv_layout='slot' with no KV or "
+                "weight quantization, or on the CPU")
     d = cfg.head_size
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} on the card: the decode kernels and appends are built at "
@@ -1162,9 +1182,12 @@ class GenerateEngine(_EngineBase):
                     "too — use kv_layout='slot' or drop spec_draft")
         super().__init__(container, device=device, default_timeout=default_timeout,
                          max_restarts=max_restarts)
-        for m in (model, spec_draft and spec_draft[1]):
-            if m is not None:
-                refuse_unbuilt_kernels(m.cfg, self.device)
+        refuse_unbuilt_kernels(model.cfg, self.device, kv_layout, kv_quantize,
+                               "int8" if any(isinstance(m, QLinear) for m in model.modules())
+                               else "")
+        if spec_draft is not None:
+            # the draft's cache is a plain slot cache (``_make_draft``)
+            refuse_unbuilt_kernels(spec_draft[1].cfg, self.device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
             raise ValueError(f"model lives on {model.device}, engine device is {self.device}")
@@ -1310,6 +1333,7 @@ class GenerateEngine(_EngineBase):
         # restart keeps the pins
         self._autotune_pins: dict[str, str] = {}
         self._autotune_shapes: dict[str, str] = {}
+        self._autotune_kv_dtypes: dict[str, str] = {}
         self._autotune: dict | None = None
         self._autotune_timer = None
         self._autotune_launch = None
@@ -1565,7 +1589,8 @@ class GenerateEngine(_EngineBase):
     def _decision_scope(self):
         """The scope every launch of the loop runs under: the pinned plans,
         each at the shape it was measured at (JAX's ``_trace_scope``)."""
-        return autotune.decision_scope(self._autotune_pins, self._autotune_shapes)
+        return autotune.decision_scope(self._autotune_pins, self._autotune_shapes,
+                                       self._autotune_kv_dtypes)
 
     def _autotune_kernels(self) -> None:
         """Measure the split plans of this engine's decode attention kernel
@@ -1616,12 +1641,15 @@ class GenerateEngine(_EngineBase):
                                    role=self.role)
         plans = split_candidates(n, hkv, span)
         ref: list[torch.Tensor] = []
-        cands = {autotune.plan_name(r): self._at_fn(op, mod, r, skey, q, planes, lengths, ref)
+        # an f32 slot cache's F is held to its f32 build's limits
+        lim = slot_decode_mod.F32 if mod is slot_decode_mod and cfg.dtype == torch.float32 else mod
+        cands = {autotune.plan_name(r): self._at_fn(op, lim, r, skey, q, planes, lengths, ref)
                  for r in plans}
         t0 = time.monotonic()
-        kv_dtype = self.kv_quantize or str(planes[0].dtype).removeprefix("torch.")
+        kv_dtype = self._kv_dtype()
         winner = tuner.measure(op, skey, kv_dtype, cands)
         self._autotune_pins, self._autotune_shapes = tuner.pins(), tuner.shapes()
+        self._autotune_kv_dtypes = tuner.kv_dtypes()
         self._autotune = {"elapsed_s": round(time.monotonic() - t0, 3),
                           "rule": autotune.plan_name(plans[0]), **tuner.report()}
         autotune.set_last_report(self._autotune)
@@ -1662,10 +1690,17 @@ class GenerateEngine(_EngineBase):
 
         return run
 
+    def _kv_dtype(self) -> str:
+        """The cache's dtype as the tuner's records and pins name it:
+        ``int8`` / ``int4`` on a quantized cache, else the planes' dtype
+        (``bfloat16``, ``float32``)."""
+        return self.kv_quantize or autotune.dtype_name(self.cache.k.dtype)
+
     def _launch_plan(self, op: str, rows: int, skey: str, q: torch.Tensor, planes: tuple,
                      lengths: torch.Tensor) -> torch.Tensor:
         """The cache's decode attention kernel with plan ``rows`` pinned."""
-        with autotune.decision_scope({op: autotune.plan_name(rows)}, {op: skey}):
+        with autotune.decision_scope({op: autotune.plan_name(rows)}, {op: skey},
+                                     {op: self._kv_dtype()}):
             return DECODE_ATTENTION[type(self.cache)][0](q, *planes, lengths)
 
     def autotune_report(self) -> dict | None:
@@ -3173,15 +3208,16 @@ def build_batch_engine(spec: ModelSpec, container: Any, cfg: Any, *,
     config, ``kw`` winning; other ``kw`` go to ``BatchEngine``. An embed
     engine encodes a string with the spec's tokenizer (and raises without
     one), and refuses ids outside the vocabulary; a classify engine takes
-    an image [H, W, C] as float32. The card's kernel C takes bf16 only, so
-    an encoder in another dtype raises there rather than be converted."""
+    an image [H, W, C] as float32. The card's kernel C is built for bf16 and
+    f32, so an encoder in another dtype raises there rather than be
+    converted."""
     conf = container.config
     family = get_family(spec.family)
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.dtype != torch.bfloat16:
+    if dev.type == "cuda" and cfg.dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"{spec.family} in {cfg.dtype} on the card: kernel C takes bf16 only (ROADMAP.md "
-            "Queue B 7, 'C on f32 inputs'); serve ModelSpec(..., dtype=torch.bfloat16)")
+            f"{spec.family} in {cfg.dtype} on the card: kernel C takes bf16 or f32 only; serve "
+            "ModelSpec(..., dtype=torch.bfloat16) or dtype=torch.float32")
     quantize = kw.pop("quantize", None)
     if quantize:
         raise ValueError(f"family {spec.family!r} does not support weight-only quantization")
@@ -3257,9 +3293,10 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     weight reads are noise). A family without ``QUANTIZABLE`` refuses a
     ``quantize`` keyword, and ``ENGINE_QUANTIZE`` only warns there, as JAX
     reads it (engine.py:4084-4109). A model (or draft) the card has no
-    kernel for, in a dtype other than bf16 or at a head dim other than 128
-    and 64 (``refuse_unbuilt_kernels``), raises before any weight is
-    drawn. Runs on the card unless ``device`` says otherwise."""
+    kernel for (``refuse_unbuilt_kernels``: a dtype other than bf16 and
+    f32, f32 on the paged pool, a quantized cache or with int8 weights, a
+    head dim other than 128 and 64) raises before any weight is drawn.
+    Runs on the card unless ``device`` says otherwise."""
     if isinstance(config, ModelSpec):
         spec = config
         if container is None or params is not None:
@@ -3308,9 +3345,11 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     dcfg = None
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
-    for c in (cfg, dcfg):
-        if c is not None:
-            refuse_unbuilt_kernels(c, dev)
+    layout = kw.get("kv_layout") or ("paged" if hasattr(family.MODEL, "make_paged_cache")
+                                     else "slot")
+    refuse_unbuilt_kernels(cfg, dev, layout, kw.get("kv_quantize", ""), quantize)
+    if dcfg is not None:
+        refuse_unbuilt_kernels(dcfg, dev)  # the draft's cache is a plain slot cache
     model = _model(family, cfg, params, dev, seed)
     if quantize:
         model = quantize_tree(model)

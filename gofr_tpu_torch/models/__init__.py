@@ -48,7 +48,7 @@ class ModelSpec:
     tokenizer: an object with ``encode``/``decode`` (e.g.
              ``utils.tokenizer.ByteTokenizer``), or None for id inputs
     dtype: the weights' torch dtype (it replaces the config's; the card
-             serves an encoder in bf16 only)
+             serves bf16 and f32)
     """
 
     family: str

@@ -55,9 +55,12 @@ Differences from JAX:
   ``xla`` and its ``_persist`` rewrites the file from that filtered read,
   so one shared file would lose each package's entries to the other's next
   write. This module's ``_load_cache`` keeps only ``rows<N>`` entries.
-- A pin carries the shape it was measured at (``decision_scope(pins,
-  shapes)``): ``pinned_plan(op, dims)`` answers only for those dims, so a
-  launch of another shape (a spec draft's, a test's) keeps the rule's plan.
+- A pin carries the shape and the cache dtype it was measured at
+  (``decision_scope(pins, shapes, kv_dtypes)``), as the cache file's key
+  does: ``pinned_plan(op, dims)`` answers only for those dims, the shape
+  key's numbers then the dtype's name (``pin_dims``), so a launch of
+  another shape (a spec draft's, a test's) or of another dtype (an f32
+  engine's beside a bf16 one's, F built for both) keeps the rule's plan.
 - The engine times each plan as JAX does, at full occupancy and full
   lengths: the worst case the shapes allow, not the ragged lengths it
   serves, which the shape key cannot see. Whether a pin moves decode
@@ -84,9 +87,9 @@ CACHE_SUFFIX = ".torch"
 BURST = 10
 _PLAN = re.compile(r"^rows(\d+)$")
 
-# {op: (split_rows, shape dims)} pinned for the launches inside a
+# {op: (split_rows, pin_dims)} pinned for the launches inside a
 # decision_scope, read by ops/cuda/decode_attention.split_scratch
-_PINS: contextvars.ContextVar[dict[str, tuple[int, tuple[int, ...]]] | None] = (
+_PINS: contextvars.ContextVar[dict[str, tuple[int, tuple]] | None] = (
     contextvars.ContextVar("gofr_torch_autotune_pins", default=None))
 
 # the most recent report an engine's tuner produced in this process
@@ -129,11 +132,24 @@ def plan_rows(name: str) -> int | None:
     return int(m.group(1)) if m else None
 
 
+def dtype_name(dtype: Any) -> str:
+    """A cache dtype's name as the cache file and the pins carry it
+    (``bfloat16``, ``float32``; the quantized caches go by ``int8`` and
+    ``int4``)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def pin_dims(shape: str, kv_dtype: str) -> tuple:
+    """What a launch inside a scope is matched on: the shape key's numbers,
+    then the cache dtype's name (the launchers build the same tuple)."""
+    return (*(int(d) for d in shape.split("x")), str(kv_dtype))
+
+
 @contextlib.contextmanager
-def decision_scope(pins: dict[str, str], shapes: dict[str, str]):
+def decision_scope(pins: dict[str, str], shapes: dict[str, str], kv_dtypes: dict[str, str]):
     """Pin ``{op: plan}`` for every launch inside the scope, each at its
-    shape key in ``shapes``."""
-    tok = _PINS.set({op: (plan_rows(name), tuple(int(d) for d in shapes[op].split("x")))
+    shape key in ``shapes`` and cache dtype in ``kv_dtypes``."""
+    tok = _PINS.set({op: (plan_rows(name), pin_dims(shapes[op], kv_dtypes[op]))
                      for op, name in pins.items()} or None)
     try:
         yield
@@ -142,9 +158,10 @@ def decision_scope(pins: dict[str, str], shapes: dict[str, str]):
 
 
 def pinned_plan(op: str, dims: tuple[int, ...]) -> int | None:
-    """The ``split_rows`` pinned for ``op`` when the launch's ``dims`` are
-    the ones it was measured at; else None. One context-variable read
-    when nothing is pinned, a tuple compare when something is."""
+    """The ``split_rows`` pinned for ``op`` when the launch's ``dims`` (its
+    shape, then its cache dtype's name: ``pin_dims``) are the ones it was
+    measured at; else None. One context-variable read when nothing is
+    pinned, a tuple compare when something is."""
     pins = _PINS.get()
     if pins:
         pin = pins.get(op)
@@ -308,6 +325,9 @@ class Autotuner:
     def shapes(self) -> dict[str, str]:
         return {op: rec["shape"] for op, rec in self.decisions.items()}
 
+    def kv_dtypes(self) -> dict[str, str]:
+        return {op: rec["kv_dtype"] for op, rec in self.decisions.items()}
+
     def report(self) -> dict[str, Any]:
         out: dict[str, Any] = {"device_kind": self.device_kind, "decisions": dict(self.decisions)}
         if self.role:
@@ -316,7 +336,7 @@ class Autotuner:
 
 
 __all__ = [
-    "Autotuner", "Disqualified", "Timing", "cache_path", "decision_scope", "enabled",
-    "entry_key", "last_report", "pinned_plan", "plan_name", "plan_rows", "set_last_report",
-    "shape_key",
+    "Autotuner", "Disqualified", "Timing", "cache_path", "decision_scope", "dtype_name",
+    "enabled", "entry_key", "last_report", "pin_dims", "pinned_plan", "plan_name", "plan_rows",
+    "set_last_report", "shape_key",
 ]

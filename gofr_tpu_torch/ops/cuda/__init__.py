@@ -27,6 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
@@ -37,6 +38,16 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+class Limits(NamedTuple):
+    """A kernel's agreement with its plain version on the same inputs: no
+    element off by more than ``MAX_ABS``, and the RMS of the difference
+    under ``RMS_REL`` of the output's RMS (the names of a launcher module's
+    own bf16 limits, so either can be handed to a check)."""
+
+    MAX_ABS: float
+    RMS_REL: float
 
 
 class KernelError(RuntimeError):
@@ -173,14 +184,20 @@ def _wrappers() -> dict:
             "kv_append_d64": kv_append.kv_append_d64,
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_d64": flash_attention.flash_attention_d64,
+            "flash_attention_f32": flash_attention.flash_attention_f32,
+            "flash_attention_d64_f32": flash_attention.flash_attention_d64_f32,
             "paged_decode_q": paged_decode_q.paged_decode_q,
             "paged_decode_q_d64": paged_decode_q.paged_decode_q_d64,
             "paged_decode_q4": paged_decode_q4.paged_decode_q4,
             "paged_decode_q4_d64": paged_decode_q4.paged_decode_q4_d64,
             "decode_attention": decode_attention.decode_attention,
             "decode_attention_d64": decode_attention.decode_attention_d64,
+            "decode_attention_f32": decode_attention.decode_attention_f32,
+            "decode_attention_d64_f32": decode_attention.decode_attention_d64_f32,
             "kv_append_slot": kv_append.kv_append_slot,
             "kv_append_slot_d64": kv_append.kv_append_slot_d64,
+            "kv_append_slot_f32": kv_append.kv_append_slot_f32,
+            "kv_append_slot_d64_f32": kv_append.kv_append_slot_d64_f32,
             "kv_append_q": kv_append.kv_append_q,
             "kv_append_q_d64": kv_append.kv_append_q_d64,
             "kv_append_q4": kv_append.kv_append_q4,

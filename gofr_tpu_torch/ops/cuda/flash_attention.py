@@ -9,10 +9,14 @@ is ``ops.attention.mha_attention_plain``; ``ops.attention.mha_attention``
 chooses between the two by the tensor's device.
 
 The kernel is one template instantiated at head dim 128 (Llama) and 64
-(BERT-base, ViT-L/16, GPT-2); ``flash_attention`` takes either and any
-other raises. Each instantiation counts its launches under its own name:
-``flash_attention.launches`` those at 128, ``flash_attention_d64.launches``
-those at 64 (``cuda.launch_counts()`` lists them apart).
+(BERT-base, ViT-L/16, GPT-2), each on bf16 and on f32 inputs (the f32
+build: products in 3xTF32 on ``mma.sync`` m16n8k8, P unrounded; the
+source's header note says how); ``flash_attention`` takes any of the four
+and any other head dim or type raises. Each build counts its launches
+under its own name: ``flash_attention`` (128, bf16),
+``flash_attention_d64`` (64, bf16), ``flash_attention_f32`` (128, f32)
+and ``flash_attention_d64_f32`` (``cuda.launch_counts()`` lists them
+apart).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from gofr_tpu_torch.ops import cuda
 
 HEAD_DIMS = (128, 64)
+DTYPES = (torch.bfloat16, torch.float32)
 # Agreement with the plain version on the same bf16 inputs. The two differ
 # by where they round to bf16 (the kernel's P is rounded to bf16 for the
 # tensor cores as the plain version's probabilities are, but its scores stay
@@ -39,7 +44,20 @@ HEAD_DIMS = (128, 64)
 # limits (its rows sum half the products, so its error is no larger).
 MAX_ABS = 3e-2
 RMS_REL = 1.2e-2
+# The f32 build against the f32 plain version on the same f32 inputs: the
+# 3xTF32 products leave out only lo * lo (under 2^-20 of a product) and P
+# is not rounded, so the two differ by about 1e-7 of the output's scale (a
+# numpy emulation of the fragment walk: 2.8e-6 on scores of order 10, 1.1e-7
+# relative on P V). Limits: 1e-4 on any element, the f32 parity contract
+# (the CPU tests hold the plain version to the Pallas kernel at 1e-5), and
+# 2e-5 on the RMS ratio. One pass of TF32 (the lo terms dropped) moves
+# scores of order 10 by 1e-2, an output by ~1e-3.
+F32 = cuda.Limits(MAX_ABS=1e-4, RMS_REL=2e-5)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# the C entry point of each build, by (head dim, type)
+ENTRY = {(128, torch.bfloat16): "gofr_flash_attention", (64, torch.bfloat16): "gofr_flash_attention",
+         (128, torch.float32): "gofr_flash_attention_f32",
+         (64, torch.float32): "gofr_flash_attention_d64_f32"}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,12 +66,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] → [B, Sq, Hq, D], causal with a
     per-batch ``q_offset``, keys masked by ``kv_lengths`` [B]; fully masked
-    rows give zeros. D is 128 or 64. Launches the kernel, or raises."""
+    rows give zeros. D is 128 or 64; q/k/v are all bf16 or all f32, and the
+    output is in their type. Launches the kernel, or raises."""
     cuda.require(q.is_cuda and k.is_cuda and v.is_cuda, "flash_attention takes tensors on the card")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-                 f"flash_attention takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    cuda.require(q.dtype == k.dtype == v.dtype and q.dtype in DTYPES,
+                 f"flash_attention takes bf16 or f32 q/k/v of one type, got "
+                 f"{q.dtype}/{k.dtype}/{v.dtype}")
     cuda.require(d in HEAD_DIMS and k.shape == v.shape == (b, skv, hkv, d),
                  f"flash_attention takes head_dim 128 or 64, got q {tuple(q.shape)} "
                  f"k {tuple(k.shape)}")
@@ -70,11 +90,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = cuda.bind("gofr_flash_attention", _ARGTYPES)
+    build = d, q.dtype
+    fn = cuda.bind(ENTRY[build], _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), scale, cuda.stream_of(q))
     cuda.check(rc, "flash_attention")
-    _COUNTED[d].launches += 1
+    _COUNTED[build].launches += 1
     # chunked prefill passes its offsets as a tensor, whole prompts as 0
     flash_attention.offset_launches += not isinstance(q_offset, int)
     return out
@@ -88,7 +109,28 @@ def flash_attention_d64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q, k, v, **kw)
 
 
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        **kw) -> torch.Tensor:
+    """Kernel C's f32 build under its own name: ``flash_attention`` on f32
+    q/k/v (any other type raises); counted by head dim as
+    ``flash_attention_f32`` (128) or ``flash_attention_d64_f32``."""
+    cuda.require(q.dtype == torch.float32, f"flash_attention_f32 takes f32 q, got {q.dtype}")
+    return flash_attention(q, k, v, **kw)
+
+
+def flash_attention_d64_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            **kw) -> torch.Tensor:
+    """Kernel C's f32 build at head dim 64 under its own name (any other
+    type or head dim raises)."""
+    cuda.require(q.shape[-1] == 64, f"flash_attention_d64_f32 takes head_dim 64, got {q.shape[-1]}")
+    return flash_attention_f32(q, k, v, **kw)
+
+
 flash_attention.launches = 0
 flash_attention.offset_launches = 0  # of all launches, those with per-row offsets
 flash_attention_d64.launches = 0
-_COUNTED = {128: flash_attention, 64: flash_attention_d64}
+flash_attention_f32.launches = 0
+flash_attention_d64_f32.launches = 0
+_COUNTED = {(128, torch.bfloat16): flash_attention, (64, torch.bfloat16): flash_attention_d64,
+            (128, torch.float32): flash_attention_f32,
+            (64, torch.float32): flash_attention_d64_f32}

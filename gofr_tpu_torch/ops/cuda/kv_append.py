@@ -23,14 +23,19 @@ All five are built at head dim 128 (Llama-3-8B) and 64 (GPT-2, Llama
 ``kv_append_d64``, ``kv_append_slot`` / ``kv_append_slot_d64``,
 ``kv_append_q`` / ``kv_append_q_d64``, ``kv_append_q4`` /
 ``kv_append_q4_d64`` and ``kv_append_slot_q`` / ``kv_append_slot_q_d64``.
+G is also built for f32 caches (the f32 models: GPT-2 small in its own
+dtype), counted as ``kv_append_slot_f32`` / ``kv_append_slot_d64_f32``:
+``kv_append_slot`` routes 4-byte planes there. B and the quantizing
+appends take 16-bit rows only; the engine refuses an f32 model on the
+pools (ROADMAP Queue B 7b).
 
 The launchers take what the model hands them and convert nothing: rows
-[N, Hkv, D] in the cache's 16-bit type (bf16 for the quantized caches),
+[N, Hkv, D] in the cache's type (bf16 for the quantized caches),
 ``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
 (``Llama.decode_step`` converts both once per step). They validate, launch
 and count, with one check each of what the pointers they pass need (on
 the card, shapes, types, contiguous); the C entry points refuse rows that
-are not 8-byte aligned before they launch.
+are not 8-byte aligned (16 for f32 rows of 128) before they launch.
 """
 
 from __future__ import annotations
@@ -44,7 +49,10 @@ from gofr_tpu_torch.ops import cuda
 HEAD_DIMS = (128, 64)
 # the C entry point of each build
 ENTRY = {128: "gofr_kv_append", 64: "gofr_kv_append_d64"}
-SLOT_ENTRY = {128: "gofr_kv_append_slot", 64: "gofr_kv_append_slot_d64"}
+SLOT_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_slot",
+              (64, torch.bfloat16): "gofr_kv_append_slot_d64",
+              (128, torch.float32): "gofr_kv_append_slot_f32",
+              (64, torch.float32): "gofr_kv_append_slot_d64_f32"}
 Q_ENTRY = {128: "gofr_kv_append_q", 64: "gofr_kv_append_q_d64"}
 Q4_ENTRY = {128: "gofr_kv_append_q4", 64: "gofr_kv_append_q4_d64"}
 SLOT_Q_ENTRY = {128: "gofr_kv_append_slot_q", 64: "gofr_kv_append_slot_q_d64"}
@@ -57,8 +65,8 @@ _TAKES = "takes contiguous tensors on the card: "
 _POOL_INDEX = "int32 table [N, MaxP] and positions [N]"
 _B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, D] of one type, rows "
             f"[N, Hkv, D] of that type, D 128 or 64, {_POOL_INDEX}")
-_G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit caches [N, Hkv, Smax, D] of one type, rows "
-            "[N, Hkv, D] of that type, D 128 or 64, int32 positions [N]")
+_G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit or f32 caches [N, Hkv, Smax, D] of one type, "
+            "rows [N, Hkv, D] of that type, D 128 or 64, int32 positions [N]")
 _BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, D] with bf16 scales [P, Hkv, page], "
              f"bf16 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
 _BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, D/2] with bf16 scales "
@@ -142,19 +150,23 @@ _COUNTED = {128: kv_append, 64: kv_append_d64}
 def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
                    k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel G: write k_new/v_new [N, Hkv, D] into slot-cache layer slices
-    [N, Hkv, Smax, D] (16-bit) at ``positions`` [N], in place, dropping a
-    position outside [0, Smax), and return the slices. Launches the kernel,
-    or raises."""
+    [N, Hkv, Smax, D] (16-bit, or f32) at ``positions`` [N], in place,
+    dropping a position outside [0, Smax), and return the slices. 16-bit
+    planes go to the bf16 rows' build, f32 planes to the f32 build.
+    Launches the kernel, or raises."""
     n, hkv, smax, d = k_layer.shape
+    size = k_layer.element_size()
     cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, k_layer.dtype, d)
-                 and k_layer.element_size() == 2 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
+                 and (size == 2 or k_layer.dtype == torch.float32)
+                 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
                  and _slot_index(positions, n), _G_TAKES)
     if n == 0:
         return k_layer, v_layer
-    fn = cuda.bind(SLOT_ENTRY[d], _SLOT_ARGTYPES)
+    build = d, torch.bfloat16 if size == 2 else torch.float32
+    fn = cuda.bind(SLOT_ENTRY[build], _SLOT_ARGTYPES)
     cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                   positions.data_ptr(), n, hkv, smax, d, cuda.stream_of(k_layer)), "kv_append_slot")
-    _SLOT_COUNTED[d].launches += 1
+    _SLOT_COUNTED[build].launches += 1
     return k_layer, v_layer
 
 
@@ -167,9 +179,33 @@ def kv_append_slot_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: 
     return kv_append_slot(k_layer, v_layer, positions, k_new, v_new)
 
 
+def kv_append_slot_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's f32 build under its own name: ``kv_append_slot`` on f32
+    caches and rows (any other type raises); counted by head dim as
+    ``kv_append_slot_f32`` (128) or ``kv_append_slot_d64_f32``."""
+    cuda.require(k_layer.dtype == torch.float32,
+                 f"kv_append_slot_f32 takes f32 caches, got {k_layer.dtype}")
+    return kv_append_slot(k_layer, v_layer, positions, k_new, v_new)
+
+
+def kv_append_slot_d64_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
+                           k_new: torch.Tensor,
+                           v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's f32 build at head dim 64 under its own name (any other
+    type or head dim raises)."""
+    cuda.require(k_layer.shape[-1] == 64,
+                 f"kv_append_slot_d64_f32 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append_slot_f32(k_layer, v_layer, positions, k_new, v_new)
+
+
 kv_append_slot.launches = 0
 kv_append_slot_d64.launches = 0
-_SLOT_COUNTED = {128: kv_append_slot, 64: kv_append_slot_d64}
+kv_append_slot_f32.launches = 0
+kv_append_slot_d64_f32.launches = 0
+_SLOT_COUNTED = {(128, torch.bfloat16): kv_append_slot, (64, torch.bfloat16): kv_append_slot_d64,
+                 (128, torch.float32): kv_append_slot_f32,
+                 (64, torch.float32): kv_append_slot_d64_f32}
 
 
 def _pool_q(counted: dict, entries: dict, values_dtype: torch.dtype, per_byte: int, takes: str,

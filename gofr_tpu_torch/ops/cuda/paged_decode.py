@@ -87,7 +87,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         return out
     maxp = table.shape[1]
     split_rows, splits, scratch = split_scratch(q, hkv, maxp * page, "paged_decode",
-                                               (n, hq, hkv, d, page, maxp, pool))
+                                               (n, hq, hkv, d, page, maxp, pool, "bfloat16"))
     fn = cuda.bind(ENTRY[d], _ARGTYPES)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, hkv, hq // hkv, pool, page,

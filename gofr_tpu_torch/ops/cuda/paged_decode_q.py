@@ -99,8 +99,10 @@ def launch_quantized(op: str, counted: dict, entries: dict, values_dtype: torch.
     if n == 0:
         return out
     maxp = table.shape[1]
-    split_rows, splits, scratch = split_scratch(q, hkv, maxp * page, op,
-                                               (n, hq, hkv, d, page, maxp, pool))
+    # the pin's dims end with the pool's kv dtype, as the engine names it
+    split_rows, splits, scratch = split_scratch(
+        q, hkv, maxp * page, op,
+        (n, hq, hkv, d, page, maxp, pool, "int8" if per_byte == 1 else "int4"))
     fn = cuda.bind(entries[d], _ARGTYPES)
     rc = fn(q.data_ptr(), kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
             vs_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

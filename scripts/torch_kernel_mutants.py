@@ -29,6 +29,13 @@ row read or written at twice its stride stays inside the stack. Since D,
 E, B-q, B-q4 and G-q are built at 64 too, their 64 builds have faults of
 their own in ``ONLY``; those that read or write past a buffer
 (``ISOLATED``) have their faulting kernels checked in a child process.
+C, F and G also have f32 builds: F and G's are their templates' f32
+instantiations, so a fault in those bodies lands in the f32 builds too;
+C's f32 build is a kernel of its own beside the bf16 one in the same
+source, written the same way, so a C mutant's text occurs in both bodies
+(``OCCURS``) and is planted in both. The f32-only mutants in ``ONLY`` (C's
+lo products dropped, F's P rounded to bf16, G's half row) must fail the
+f32 checks while the bf16 checks pass.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -209,6 +216,16 @@ MUTANTS = [
      "mma_bf16(acc[mt], frag[t], xw[2 * t + 1], xw[2 * t]);", True),
     ("w8a16: a B fragment's upper k pair read from the lower (tiles)", "w8a16.cu",
      "*reinterpret_cast<const uint16_t*>(qr + 8)", "*reinterpret_cast<const uint16_t*>(qr)", True),
+    # faults in the f32 builds alone (``ONLY``): C's products in one pass of
+    # TF32 (the lo terms dropped), F's P rounded to bf16 before P.V (as the
+    # bf16 build does), G's f32 rows half written
+    ("flash_attention_f32: the lo terms dropped (plain TF32)", "mma.cuh",
+     "  mma_tf32(d, a_lo, b0.hi, b1.hi);\n  mma_tf32(d, a_hi, b0.lo, b1.lo);\n", "", True),
+    ("decode_attention_f32: P rounded to bf16", "online_softmax.cuh",
+     "row[lane] = pa;", "row[lane] = round_bf16(pa);", True),
+    ("kv_append_slot_f32: half of each row left unwritten", "kv_append.cu",
+     "reinterpret_cast<Raw*>(dst)[lane] = raw;",
+     "if (lane < 16) reinterpret_cast<Raw*>(dst)[lane] = raw;", True),
     # p kept in f32 instead of rounded to bf16 before P.V (A packs it for
     # the tensor cores by truncation, F multiplies it in f32): a relative
     # change of at most 2^-8 on each probability, averaged over hundreds of
@@ -220,11 +237,12 @@ MUTANTS = [
 
 # Mutants whose fault lies in the head-dim-64 instantiations: (the kernels
 # that must fail, the kernels built from the same source that must pass)
-_C64 = (("flash_attention_d64",), ("flash_attention",))
+_C64 = (("flash_attention_d64", "flash_attention_d64_f32"), ("flash_attention", "flash_attention_f32"))
 _DECODE128 = ("paged_decode", "paged_decode_q", "paged_decode_q4")
 _APPEND128 = ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q")
 _QAPPEND64 = ("kv_append_q_d64", "kv_append_q4_d64", "kv_append_slot_q_d64")
 _F64 = (("decode_attention_d64",), ("decode_attention",))
+_C32 = ("flash_attention_f32", "flash_attention_d64_f32")
 ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "flash_attention_d64: causal diagonal masked": _C64,
         "paged_decode_d64: half of each output row never summed":
@@ -244,7 +262,23 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)":
             (("paged_decode_q4_d64",), (*_DECODE128, "paged_decode_q_d64")),
         "kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row":
-            (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64"))}
+            (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64")),
+        "flash_attention_f32: the lo terms dropped (plain TF32)":
+            (_C32, ("flash_attention", "flash_attention_d64")),
+        "decode_attention_f32: P rounded to bf16":
+            (("decode_attention_f32", "decode_attention_d64_f32"),
+             ("decode_attention", "decode_attention_d64", *_DECODE128)),
+        "kv_append_slot_f32: half of each row left unwritten":
+            (("kv_append_slot_f32", "kv_append_slot_d64_f32"),
+             (*_APPEND128, "kv_append_d64", "kv_append_slot_d64", *_QAPPEND64))}
+# Mutants whose text occurs in both of C's bodies (the bf16 and the f32
+# kernel), planted in both: how many times it occurs
+OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",
+                               "flash_attention: one key past kv_length",
+                               "flash_attention: last key tile skipped",
+                               "flash_attention: online rescale of O skipped",
+                               "flash_attention_d64: one key past kv_length",
+                               "flash_attention_d64: causal diagonal masked")}
 # Mutants whose 64 build reads or writes past a buffer (global memory past
 # q or the output, shared memory past the ring): the kernels ``ONLY`` says
 # must fail are checked in a child process, so a launch that faults the
@@ -272,7 +306,7 @@ def make(index: int, mutant) -> dict:
     shutil.copytree(cuda.CSRC, root / "csrc")
     path = root / "csrc" / fname
     text = path.read_text()
-    if text.count(old) != 1:
+    if text.count(old) != OCCURS.get(name, 1):
         raise SystemExit(f"mutant {name!r}: the text to replace occurs {text.count(old)} times in {fname}")
     path.write_text(text.replace(old, new))
     return cuda.build(root / "csrc", root / "build")

@@ -47,6 +47,7 @@ writes both to ``chiprun_out/launcher_cost.json``.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -167,7 +168,10 @@ def child(tree: str, iters: int) -> dict:
                 "decode": autotune.plan_name(decode_attention.split_plan(N, HKV, SMAX)[0])}
         shapes = {"paged_decode": autotune.shape_key(N, HQ, HKV, D, PAGE, MAXP, POOL),
                   "decode": autotune.shape_key(N, HQ, HKV, D, SMAX)}
-        with autotune.decision_scope(pins, shapes):
+        # the cache dtype the pins carry, where the tree's autotuner takes one
+        kv = ({op: "bfloat16" for op in pins}
+              if "kv_dtypes" in inspect.signature(autotune.decision_scope).parameters else None)
+        with autotune.decision_scope(pins, shapes, *([kv] if kv else [])):
             for name in ("paged_decode", "decode_attention"):
                 out[name + "_pinned"] = _timed(torch, calls[name], iters)
     t0 = time.perf_counter()

@@ -193,7 +193,9 @@ def test_append_launchers_declare_the_c_entry_points_arguments(monkeypatch):
                         "gofr_kv_append_slot_q": mod._SLOT_Q_ARGTYPES,
                         "gofr_kv_append_q_d64": mod._Q_ARGTYPES,
                         "gofr_kv_append_q4_d64": mod._Q_ARGTYPES,
-                        "gofr_kv_append_slot_q_d64": mod._SLOT_Q_ARGTYPES}
+                        "gofr_kv_append_slot_q_d64": mod._SLOT_Q_ARGTYPES,
+                        "gofr_kv_append_slot_f32": mod._SLOT_ARGTYPES,
+                        "gofr_kv_append_slot_d64_f32": mod._SLOT_ARGTYPES}
 
     calls = []
     monkeypatch.setattr(cuda, "require", lambda cond, msg: None)

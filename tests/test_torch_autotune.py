@@ -263,26 +263,30 @@ def test_candidates_start_with_the_rule_and_are_whole_tiles(n, hkv, smax):
 
 @pytest.mark.quick
 def test_a_pin_is_honoured_only_at_its_shape_key():
-    """``split_scratch`` takes the pinned rows for the op at the shape it
-    was measured at; another shape, another op or no scope keeps
-    ``split_plan``'s plan, and the scratch follows the plan's splits."""
+    """``split_scratch`` takes the pinned rows for the op at the shape (and
+    cache dtype) it was measured at; another shape, another op or no scope
+    keeps ``split_plan``'s plan, and the scratch follows the plan's
+    splits."""
     from gofr_tpu_torch.ops import autotune
     from gofr_tpu_torch.ops.cuda.decode_attention import split_plan, split_scratch
 
     n, hq, hkv, d, page, maxp, pool = 9, 32, 8, 128, 128, 16, 144
     q = torch.zeros(n, hq, d)
-    dims = (n, hq, hkv, d, page, maxp, pool)
+    shape = (n, hq, hkv, d, page, maxp, pool)
+    dims = (*shape, "bfloat16")
     rule = split_plan(n, hkv, maxp * page)
-    key = autotune.shape_key(*dims)
+    key = autotune.shape_key(*shape)
+    assert autotune.pin_dims(key, "bfloat16") == dims
+    kv = {"paged_decode": "bfloat16"}
     assert split_scratch(q, hkv, maxp * page, "paged_decode", dims)[:2] == rule
-    with autotune.decision_scope({"paged_decode": "rows1024"}, {"paged_decode": key}):
+    with autotune.decision_scope({"paged_decode": "rows1024"}, {"paged_decode": key}, kv):
         rows, splits, scratch = split_scratch(q, hkv, maxp * page, "paged_decode", dims)
         assert (rows, splits) == (1024, 2) and scratch.numel() == n * hq * 2 * (d + 2)
-        other = (n, hq, hkv, d, page, maxp, pool + 1)
+        other = (n, hq, hkv, d, page, maxp, pool + 1, "bfloat16")
         assert split_scratch(q, hkv, maxp * page, "paged_decode", other)[:2] == rule
         assert split_scratch(q, hkv, maxp * page, "paged_decode_q", dims)[:2] == rule
         assert autotune.pinned_plan("paged_decode", dims) == 1024
-        with autotune.decision_scope({"paged_decode": "rows2048"}, {"paged_decode": key}):
+        with autotune.decision_scope({"paged_decode": "rows2048"}, {"paged_decode": key}, kv):
             rows, splits, scratch = split_scratch(q, hkv, maxp * page, "paged_decode", dims)
             assert (rows, splits, scratch.numel()) == (2048, 1, 0)
     assert split_scratch(q, hkv, maxp * page, "paged_decode", dims)[:2] == rule

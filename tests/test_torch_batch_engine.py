@@ -327,9 +327,9 @@ def test_a_task_the_family_does_not_serve_is_refused(family, task, match):
 @pytest.mark.quick
 @pytest.mark.parametrize("family", ["bert", "vit"])
 def test_an_f32_encoder_on_the_card_is_refused(monkeypatch, family):
-    """Kernel C takes bf16: an f32 encoder on the card raises at build time
-    naming the Queue B item, before any weight is drawn; bf16 passes that
-    check."""
+    """Kernel C is built for bf16 and f32: an encoder in another dtype
+    (fp16) on the card raises at build time, before any weight is drawn;
+    f32, the encoders' own default, and bf16 pass that check."""
     from gofr_tpu_torch.container import new_mock_container
     from gofr_tpu_torch.gpu import engine
     from gofr_tpu_torch.models import ModelSpec, get_family
@@ -341,12 +341,13 @@ def test_an_f32_encoder_on_the_card_is_refused(monkeypatch, family):
 
     monkeypatch.setattr(engine, "_model", no_weights)
     task = "embed" if family == "bert" else "classify"
-    spec = ModelSpec(family, get_family(family).CONFIG.tiny(), task=task, dtype=torch.float32)
-    with pytest.raises(ValueError, match="C on f32 inputs"):
+    spec = ModelSpec(family, get_family(family).CONFIG.tiny(), task=task, dtype=torch.float16)
+    with pytest.raises(ValueError, match="kernel C takes bf16 or f32 only"):
         engine.build_engine(spec, new_mock_container())
-    spec.dtype = torch.bfloat16
-    with pytest.raises(AssertionError, match="weights drawn"):
-        engine.build_engine(spec, new_mock_container())
+    for dtype in (torch.float32, torch.bfloat16):
+        spec.dtype = dtype
+        with pytest.raises(AssertionError, match="weights drawn"):
+            engine.build_engine(spec, new_mock_container())
 
 
 @pytest.mark.quick

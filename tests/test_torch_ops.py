@@ -24,10 +24,13 @@ torch = pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 2e-5
 _KERNELS = ("paged_decode", "paged_decode_d64", "kv_append", "kv_append_d64", "flash_attention",
-            "flash_attention_d64", "paged_decode_q", "paged_decode_q_d64", "paged_decode_q4",
-            "paged_decode_q4_d64", "decode_attention", "decode_attention_d64", "kv_append_slot",
-            "kv_append_slot_d64", "kv_append_q", "kv_append_q_d64", "kv_append_q4",
-            "kv_append_q4_d64", "kv_append_slot_q", "kv_append_slot_q_d64", "w8a16")
+            "flash_attention_d64", "flash_attention_f32", "flash_attention_d64_f32",
+            "paged_decode_q", "paged_decode_q_d64", "paged_decode_q4",
+            "paged_decode_q4_d64", "decode_attention", "decode_attention_d64",
+            "decode_attention_f32", "decode_attention_d64_f32", "kv_append_slot",
+            "kv_append_slot_d64", "kv_append_slot_f32", "kv_append_slot_d64_f32", "kv_append_q",
+            "kv_append_q_d64", "kv_append_q4", "kv_append_q4_d64", "kv_append_slot_q",
+            "kv_append_slot_q_d64", "w8a16")
 
 
 def _t(a):

@@ -12,8 +12,10 @@ and a Llama of head dim 64 serves the JAX engine's greedy tokens on the
 int4 pool and the int8 slot cache. The launchers are checked without a
 launch: a 64 call binds the ``_d64`` entry point and counts under the
 ``_d64`` name. ``refuse_unbuilt_kernels`` is checked with the device
-patched to ``cuda``: a model in a dtype other than bf16, or at a head dim
-other than 128 and 64, raises before any weight is drawn. The
+patched to ``cuda``: a model in a dtype other than bf16 and f32, an f32
+model on the paged pool, a quantized cache or with int8 weights, or a model
+at a head dim other than 128 and 64, raises before any weight is drawn; an
+f32 model on the slot cache passes (C, F and G have f32 builds). The
 ``cuda``-marked tests hold each 64 build against its plain version on the
 card (``python -m pytest tests/test_torch_quantized_d64.py -m cuda``).
 
@@ -451,7 +453,8 @@ def test_the_64_builds_take_the_plan_the_autotuner_pinned(op, monkeypatch):
     rule = split_plan(n, hkv, maxp * page)[0]
     pinned = 512 if rule != 512 else 256
     key = autotune.shape_key(n, hq, hkv, D, page, maxp, pool)
-    with autotune.decision_scope({op: autotune.plan_name(pinned)}, {op: key}):
+    with autotune.decision_scope({op: autotune.plan_name(pinned)}, {op: key},
+                                 {op: "int8" if per_byte == 1 else "int4"}):
         launch(q, plane, plane, s, s, table, lengths)
         launch(q, plane[:-1].contiguous(), plane[:-1].contiguous(), s[:-1].contiguous(),
                s[:-1].contiguous(), table, lengths)
@@ -486,38 +489,70 @@ def _configs():
     from gofr_tpu_torch.models import GPT2Config, LlamaConfig
 
     bf = torch.bfloat16
-    return {"gpt2_small_f32": GPT2Config.small(), "llama_tiny_f32": LlamaConfig.tiny(),
+    d64 = {"hidden_size": 256, "num_heads": 4, "num_kv_heads": 2}
+    return {"gpt2_small_f32": GPT2Config.small(), "llama_tiny_f32": LlamaConfig.tiny(**d64),
             "llama_d32": LlamaConfig.tiny(hidden_size=128, dtype=bf),
             "llama_d16": LlamaConfig.tiny(dtype=bf),
-            "llama_d64": LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2, dtype=bf),
+            "llama_d64": LlamaConfig.tiny(**d64, dtype=bf),
             "llama_d128": LlamaConfig.tiny(head_dim=128, dtype=bf),
-            "gpt2_small_bf16": GPT2Config.small(dtype=bf)}
+            "gpt2_small_bf16": GPT2Config.small(dtype=bf),
+            "gpt2_small_fp16": GPT2Config.small(dtype=torch.float16),
+            "llama_d128_f32": LlamaConfig.tiny(head_dim=128)}
+
+
+# the caches (layout, kv_quantize) and weight quantization an f32 model
+# asks for that have no f32 kernel (A, B; D, E and the quantizing appends;
+# W8A16), and those every model asks for
+_F32_UNBUILT = {"gpt2": [("paged", "", ""), ("slot", "int8", ""), ("slot", "", "int8")],
+                "llama": [("paged", "", ""), ("paged", "int8", ""), ("paged", "int4", ""),
+                          ("slot", "int8", ""), ("slot", "", "int8"), ("paged", "", "int8")]}
+_ALL_CACHES = {"gpt2": [("paged", "", ""), ("slot", "", "")],
+               "llama": [("paged", "", ""), ("paged", "int8", ""), ("paged", "int4", ""),
+                         ("slot", "", ""), ("slot", "int8", "")]}
 
 
 @pytest.mark.quick
 @pytest.mark.parametrize("name,match", [("gpt2_small_f32", "Queue B 7"),
                                         ("llama_tiny_f32", "Queue B 7"),
                                         ("llama_d32", "head dim 32"),
-                                        ("llama_d16", "head dim 16")])
+                                        ("llama_d16", "head dim 16"),
+                                        ("gpt2_small_fp16", "take bf16, and f32")])
 def test_unbuilt_models_are_refused_on_the_card_before_any_weight(on_the_card, name, match):
     """An f32 generate model (its config's default dtype: GPT-2 small, the
-    tiny Llama) names Queue B 7 and the fix; a head dim other than 128 and
-    64 is refused on every cache; both before a weight is drawn. The CPU
-    refuses neither."""
+    tiny Llama at head dim 64) on the paged pool, a quantized cache or with
+    int8 weights names Queue B 7 and the fix; a head dim other than 128 and
+    64, and a dtype other than bf16 and f32 (fp16), is refused on every
+    cache; all before a weight is drawn. The CPU refuses none of them."""
     from gofr_tpu_torch.models import GPT2Config
 
     cfg = _configs()[name]
-    assert (cfg.dtype == torch.float32) == (match == "Queue B 7")
+    family = "gpt2" if isinstance(cfg, GPT2Config) else "llama"
     if isinstance(cfg, GPT2Config):
         assert cfg.head_size == D
-    kinds = [("paged", ""), ("slot", "")] if isinstance(cfg, GPT2Config) else [
-        ("paged", ""), ("paged", "int8"), ("paged", "int4"), ("slot", ""), ("slot", "int8")]
-    for layout, kind in kinds:
+    kinds = _F32_UNBUILT[family] if cfg.dtype == torch.float32 else _ALL_CACHES[family]
+    for layout, kind, quantize in kinds:
         with pytest.raises(ValueError, match=match) as err:
-            on_the_card.build_engine(cfg, kv_quantize=kind, kv_layout=layout)
+            on_the_card.build_engine(cfg, kv_quantize=kind, kv_layout=layout, quantize=quantize)
         if match == "Queue B 7":
-            assert "dtype=torch.bfloat16" in str(err.value)
-    on_the_card.refuse_unbuilt_kernels(cfg, torch.device("cpu"))
+            assert "dtype=torch.bfloat16" in str(err.value) and "kv_layout='slot'" in str(err.value)
+    on_the_card.refuse_unbuilt_kernels(cfg, torch.device("cpu"), "paged", "int4", "int8")
+
+
+@pytest.mark.quick
+@pytest.mark.parametrize("name", ["gpt2_small_f32", "llama_tiny_f32", "llama_d128_f32"])
+def test_f32_models_on_the_slot_cache_pass_the_refusal(on_the_card, name):
+    """An f32 model at head dim 64 or 128 on the slot cache with no KV or
+    weight quantization passes (C, F and G have f32 builds, the model's own
+    dtype is served): the build goes on to draw the weights; so does its
+    layout's default for GPT-2 (the slot cache)."""
+    cfg = _configs()[name]
+    assert cfg.dtype == torch.float32
+    with pytest.raises(_Drawn):
+        on_the_card.build_engine(cfg, kv_layout="slot")
+    if name == "gpt2_small_f32":
+        with pytest.raises(_Drawn):
+            on_the_card.build_engine(cfg)
+    on_the_card.refuse_unbuilt_kernels(cfg, torch.device("cuda"), "slot", "", "")
 
 
 @pytest.mark.quick
@@ -540,15 +575,29 @@ def test_bf16_models_at_built_head_dims_pass_the_refusal(on_the_card, name):
 @pytest.mark.quick
 def test_the_model_spec_route_refuses_f32_before_any_weight(on_the_card):
     """``build_engine(ModelSpec(...), container)``, the App's route: GPT-2
-    asked for in f32 raises, naming Queue B 7, before a weight is drawn;
+    asked for in f32 goes on to draw on its default layout, the slot cache,
+    and raises, naming Queue B 7, before a weight is drawn with
+    ``ENGINE_QUANTIZE=int8`` or an int8 slot cache; Llama one_b in f32 is
+    refused on its default layout, the pool, and drawn on the slot cache;
     ``ModelSpec("gpt2")`` takes the spec's default dtype, bf16, and goes on
-    to draw; so does Llama one_b on the int4 pool."""
+    to draw; so does bf16 Llama one_b on the int4 pool."""
     from gofr_tpu_torch.container import new_mock_container
     from gofr_tpu_torch.models import LlamaConfig, ModelSpec
 
     c = new_mock_container()
+    f32 = torch.float32
+    with pytest.raises(_Drawn):
+        on_the_card.build_engine(ModelSpec("gpt2", dtype=f32), c)
     with pytest.raises(ValueError, match="Queue B 7"):
-        on_the_card.build_engine(ModelSpec("gpt2", dtype=torch.float32), c)
+        on_the_card.build_engine(ModelSpec("gpt2", dtype=f32), new_mock_container(
+            {"ENGINE_QUANTIZE": "int8"}))
+    with pytest.raises(ValueError, match="Queue B 7"):
+        on_the_card.build_engine(ModelSpec("gpt2", dtype=f32), c, kv_quantize="int8")
+    with pytest.raises(ValueError, match="Queue B 7"):
+        on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c)
+    with pytest.raises(_Drawn):
+        on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c,
+                                 kv_layout="slot")
     assert ModelSpec("gpt2").dtype == torch.bfloat16
     with pytest.raises(_Drawn):
         on_the_card.build_engine(ModelSpec("gpt2"), c)
@@ -559,22 +608,38 @@ def test_the_model_spec_route_refuses_f32_before_any_weight(on_the_card):
 @pytest.mark.quick
 def test_the_engine_refuses_an_f32_model_or_draft_before_its_cache(on_the_card, llama64):
     """``GenerateEngine`` itself refuses a model (or a speculative draft)
-    the card has no kernel for before it makes a pool; a bf16 model at head
-    dim 64 with an int8 pool passes the refusal and meets the next check
-    (the model lives on the CPU)."""
+    the card has no kernel for before it makes a pool: the f32 model on an
+    int8 pool, on its default layout (the pool) and with int8 weights
+    (``QLinear`` in it), an fp16 draft, a draft at head dim 16; a bf16 model
+    at head dim 64 with an int8 pool, the f32 model on the slot cache and a
+    bf16 target with the f32 draft pass the refusal and meet the next check
+    (the model lives on the CPU, or on meta)."""
     from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.ops.quant import quantize_tree
 
     _, _, model = llama64
+    assert model.cfg.dtype == torch.float32
     with pytest.raises(ValueError, match="Queue B 7"):
         on_the_card.GenerateEngine(model, device="cuda", kv_quantize="int8")
+    with pytest.raises(ValueError, match="Queue B 7"):
+        on_the_card.GenerateEngine(model, device="cuda")
+    with pytest.raises(ValueError, match="int8 weights"):
+        on_the_card.GenerateEngine(quantize_tree(model), device="cuda", kv_layout="slot")
+    with pytest.raises(ValueError, match="model lives on cpu"):
+        on_the_card.GenerateEngine(model, device="cuda", kv_layout="slot")
     bf16 = type(model)(LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
                                         dtype=torch.bfloat16), "meta")
     with pytest.raises(ValueError, match="model lives on meta"):
         on_the_card.GenerateEngine(bf16, device="cuda", kv_quantize="int8")
-    with pytest.raises(ValueError, match="Queue B 7"):
+    with pytest.raises(ValueError, match="model lives on meta"):
         on_the_card.GenerateEngine(bf16, device="cuda", kv_layout="slot", spec_tokens=2,
                                    spec_draft=(model.cfg, model))
-    with pytest.raises(ValueError, match="Queue B 7"):
+    fp16 = type(model)(LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                                        dtype=torch.float16), "meta")
+    with pytest.raises(ValueError, match="take bf16, and f32"):
+        on_the_card.GenerateEngine(bf16, device="cuda", kv_layout="slot", spec_tokens=2,
+                                   spec_draft=(fp16.cfg, fp16))
+    with pytest.raises(ValueError, match="head dim 16"):
         on_the_card.build_engine(bf16.cfg, spec_draft=(LlamaConfig.tiny(), None),
                                  spec_tokens=2, kv_layout="slot")
 

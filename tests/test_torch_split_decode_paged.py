@@ -140,7 +140,11 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_paged_decode_q4_d64": paged_decode_q._ARGTYPES,
         "gofr_decode_attention": decode_attention._ARGTYPES,
         "gofr_decode_attention_d64": decode_attention._ARGTYPES,
+        "gofr_decode_attention_f32": decode_attention._ARGTYPES,
+        "gofr_decode_attention_d64_f32": decode_attention._ARGTYPES,
         "gofr_flash_attention": flash_attention._ARGTYPES,
+        "gofr_flash_attention_f32": flash_attention._ARGTYPES,
+        "gofr_flash_attention_d64_f32": flash_attention._ARGTYPES,
         "gofr_kv_append": kv_append._ARGTYPES,
         "gofr_kv_append_d64": kv_append._ARGTYPES,
         "gofr_kv_append_slot": kv_append._SLOT_ARGTYPES,
@@ -151,6 +155,8 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_kv_append_q4_d64": kv_append._Q_ARGTYPES,
         "gofr_kv_append_slot_q": kv_append._SLOT_Q_ARGTYPES,
         "gofr_kv_append_slot_q_d64": kv_append._SLOT_Q_ARGTYPES,
+        "gofr_kv_append_slot_f32": kv_append._SLOT_ARGTYPES,
+        "gofr_kv_append_slot_d64_f32": kv_append._SLOT_ARGTYPES,
         "gofr_w8a16": w8a16._ARGTYPES,
     }
 

@@ -57,7 +57,14 @@ result line:
    edge lanes; held to their launchers' f32 limits (``F32``) against the
    f32 plain versions, G bit for bit, and timed beside SDPA in f32, their
    bounds counting f32 bytes and C's operations at the TF32 peak over
-   three;
+   three; and the f32 builds of A, B, D and B-q: A on f32 pool slices of
+   the decode case's pages, table and lengths (its 64 build at one_b's
+   heads), with the split's edges and every plan; B on the same f32 pools
+   on the pool appends' edge lanes; D with an f32 q on the int8 pools
+   above, split edges and plans; B-q on f32 rows on the same edge lanes;
+   held to the launchers' ``F32`` limits against the f32 plain versions
+   (B and B-q bit for bit), A beside SDPA in f32 on gathered views, their
+   bounds counting f32 bytes and operations at the f32 peak;
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -249,7 +256,18 @@ result line:
    ``F32_TIE_GAP`` on that path's logits; and ``llama_slot_f32``,
    Llama-3-8B's widths cut to ``LLAMA_F32_LAYERS`` layers in f32 on the
    slot cache with ``bf16``'s knobs and prompts, the 128 f32 builds, held
-   the same way;
+   the same way; and an f32 Llama on the paged pools (``F32_POOL_RUNS``):
+   ``one_b_f32`` (one_b at full width and depth, random f32 weights, on the
+   f32 pool: A, B and C's 64 f32 builds), ``one_b_int8_f32`` (the same
+   model on the int8 pool: D, B-q and C's 64 f32 builds),
+   ``llama_paged_f32`` and ``llama_int8_f32`` (Llama-3-8B's widths cut to
+   ``LLAMA_F32_LAYERS`` layers: the 128 f32 builds), each with ``bf16``'s
+   knobs and prompts, its decode-step builds equally often in whole steps
+   x layers, no other kernel, the pool's own bytes a position at
+   ``F32_POOL_KV_BYTES``, and tokens the f32 plain path's by the tie rule
+   at ``F32_TIE_GAP`` (on the int8 pool the plain decode's after C's
+   prefill at ``INT8_F32_TIE_RTOL`` of the largest |logit|, and the whole
+   plain path's at the pool's phase-5 limit);
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -270,7 +288,10 @@ result line:
    the int8 and int4 pools (D, E and the appends at 64), within the same
    limits; and ``phase5_model_gpt2_f32``, the runs above on GPT-2 small in
    f32 on its slot cache (C, F and G's f32 builds), every error taken over
-   the plain logits' range and held to ``F32_TIE_GAP``;
+   the plain logits' range and held to ``F32_TIE_GAP``; the same on one_b
+   in f32 on the f32 pool (``phase5_model_one_b_f32``: A, B and C's 64 f32
+   builds) and on the int8 pool at that pool's limits
+   (``phase5_model_one_b_int8_f32``: D and B-q's);
 6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
    steps and one speculative round with a sampled lane on each cache, then
    an adapter upload, a ``decode_step`` and a speculative round with the
@@ -288,7 +309,8 @@ result line:
    each) and two ``decode_step`` steps (F and G's 64 builds once a layer
    each) under the same check, the same on GPT-2 in f32 (the f32 builds),
    and the same on one_b's int8 and int4 pools (C's 64 build for the
-   chunks, D or E and B-q or B-q4 at 64 for the steps).
+   chunks, D or E and B-q or B-q4 at 64 for the steps) and on one_b in f32
+   on the f32 pool and the int8 pool (their f32 builds).
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -510,6 +532,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
     from gofr_tpu_torch.ops.cuda.kv_append import (
         kv_append,
         kv_append_d64,
+        kv_append_d64_f32,
+        kv_append_f32,
         kv_append_slot,
         kv_append_slot_d64,
         kv_append_slot_d64_f32,
@@ -538,6 +562,7 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 "library_device_ms": library and device_ms(torch, library, iters)}
 
     c = _decode_case(torch)
+    f32 = torch.float32
     hq, hkv, d, page, n, layers = (c[k] for k in ("hq", "hkv", "d", "page", "n", "layers"))
     q, table, lengths, k_pool, v_pool, gen = (c[k] for k in ("q", "table", "lengths", "k_pool",
                                                              "v_pool", "gen"))
@@ -918,7 +943,9 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                 op, mod, lambda i: launch(*args(i % layers)),
                 lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=bits),
                 table.shape[1] * page, (n, hqx, kv_heads, dim, page, table.shape[1],
-                                        cache.k.shape[1], "int8" if bits == 8 else "int4"),
+                                        cache.k.shape[1],
+                                        decode_q_mod.pin_dtype("int8" if bits == 8 else "int4",
+                                                               qx.dtype)),
                 qx=qx, kv_heads=kv_heads),
             "tolerance": {"max_abs": mod.MAX_ABS, "rms_rel": mod.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
@@ -991,14 +1018,15 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
     pool_pages = k_pool.shape[1]
     table_cpu = table.cpu()
 
-    def append_rows(kv_heads: int = hkv, dim: int = d) -> tuple:
-        """k_new, v_new [N, Hkv, D] bf16, rows of max |x| 0.01..30; lane 4 all
-        zero (codes 0, scale bf16(1e-8 / qmax)) and lane 5 a row whose max |x|
-        is one element (its code reaches +-qmax), in the row's first half on
-        K and its second half on V, the sign alternating by head."""
+    def append_rows(kv_heads: int = hkv, dim: int = d, dtype=bf) -> tuple:
+        """k_new, v_new [N, Hkv, D] bf16 (or ``dtype``), rows of max |x|
+        0.01..30; lane 4 all zero (codes 0, scale bf16(1e-8 / qmax)) and
+        lane 5 a row whose max |x| is one element (its code reaches +-qmax),
+        in the row's first half on K and its second half on V, the sign
+        alternating by head."""
         mag = torch.rand(2, n, kv_heads, 1, device=dev, generator=rows_gen) * 30 + 0.01
         k_new, v_new = (torch.randn(2, n, kv_heads, dim, device=dev, generator=rows_gen)
-                        * mag).to(bf)
+                        * mag).to(dtype)
         for new, half in ((k_new, 0), (v_new, dim // 2)):
             new[4] = 0
             new[5] *= 1e-3
@@ -1087,17 +1115,19 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                                                  k_new, v_new)),
             append_bytes(entries_timed, kept_timed, d * 2, 0), append_shape)
 
-    def check_append_q(bits: int, d64: bool = False) -> dict:  # B-q (int8) and B-q4 (int4)
-        """B-q or B-q4 at Llama-3-8B's step, or (``d64``) its 64 build at
-        Llama one_b's; layer 0 of a two-layer copy, held whole, so a write
-        off its slice lands in layer 1 and is seen there."""
+    def check_append_q(bits: int, d64: bool = False, f32_rows: bool = False) -> dict:
+        """B-q (int8) or B-q4 (int4) at Llama-3-8B's step, or (``d64``) its
+        64 build at Llama one_b's, on bf16 rows or (B-q's ``f32_rows``
+        build, an f32 model's) f32 rows; layer 0 of a two-layer copy, held
+        whole, so a write off its slice lands in layer 1 and is seen
+        there."""
         base, plain, qmax = (("kv_append_q", append_tokens_paged_q, 127) if bits == 8 else
                              ("kv_append_q4", append_tokens_paged_q4, 7))
-        name = base + ("_d64" if d64 else "")
+        name = base + ("_d64" if d64 else "") + ("_f32" if f32_rows else "")
         launch = getattr(append_mod, name)
         cache, kv_heads, dim = ((dc["pools_one_b"][bits], hkv1b, 64) if d64
                                 else (c["pools"][bits], hkv, d))
-        k_new, v_new = append_rows(kv_heads, dim)
+        k_new, v_new = append_rows(kv_heads, dim, f32 if f32_rows else bf)
         pos, etable, pos_cpu, etable_cpu = pool_edges(cache.k.shape[1])
         got = [t[:2].clone() for t in (cache.k, cache.v, cache.ks, cache.vs)]
         want = [t.clone() for t in got]
@@ -1123,8 +1153,10 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
             name, append_src, "port-only (XLA in JAX: gofr_tpu/ops/paged.py:"
                               f"{344 if bits == 8 else 438})",
             (lambda i: launch(*planes(i), table, lengths, k_new, v_new), plain_both),
-            append_bytes(entries_timed, kept_timed, cache.k.shape[-1], 2, kv_heads, dim),
-            {**append_shape, "hkv": kv_heads, "d": dim, "kv_bits": bits})
+            append_bytes(entries_timed, kept_timed, cache.k.shape[-1], 2, kv_heads, dim,
+                         row_in=dim * k_new.element_size()),
+            {**append_shape, "hkv": kv_heads, "d": dim, "kv_bits": bits,
+             "rows": "f32" if f32_rows else "bf16"})
 
     def slot_edges() -> torch.Tensor:
         """Positions of the slot appends' edge lanes: 0 at Smax, 1 at -1, 2 at
@@ -1352,7 +1384,6 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
     # versions, whose products run in full f32 (allow_tf32 False). The
     # bounds count f32 bytes, and C's operations at the TF32 peak over
     # three, F's at the f32 peak of the CUDA cores.
-    f32 = torch.float32
     g32 = torch.Generator(device=dev).manual_seed(SEED + 21)
 
     def randn32(*shape):
@@ -1571,9 +1602,162 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
             append_bytes(0, kept, dim * 4, 0, kv_heads, dim, row_in=dim * 4),
             {"slots": n, "hkv": kv_heads, "d": dim, "smax": span, "dtype": "f32"})
 
+    # -- the f32 builds of A, B, D and B-q (an f32 Llama on the paged pool and
+    # on the int8 pool): A and B at Llama-3-8B's step on f32 pool slices of
+    # ``_decode_case``'s pages, table and lengths (page 128), D with an f32 q
+    # on its int8 pool and B-q on f32 rows; their 64 builds at Llama one_b's
+    # (Hq 32, Hkv 4). Unit-scale inputs drawn in f32 (``g32``), held to the
+    # launchers' f32 limits against the f32 plain versions (B and B-q bit
+    # for bit), A and D also against their split plain versions at the
+    # split's edges and at every plan; the bounds count f32 bytes (int8 rows
+    # and bf16 scales for D) and the operations at the f32 peak.
+    pools32: dict = {}
+
+    def pool32(d64: bool) -> tuple:
+        """(q, K, V) of A's and B's f32 checks: q [9, Hq, D] and ``layers``
+        f32 pool slices of ``_decode_case``'s pages, drawn once a head dim."""
+        if d64 not in pools32:
+            heads, kv_heads, dim = (q1b.shape[1], hkv1b, 64) if d64 else (hq, hkv, d)
+            shape = (layers, k_pool.shape[1], kv_heads, page, dim)
+            pools32[d64] = (randn32(n, heads, dim), randn32(*shape), randn32(*shape))
+        return pools32[d64]
+
+    def check_paged_decode_f32(d64: bool = False) -> dict:  # A's f32 builds
+        """A's f32 build at Llama-3-8B's step, or (``d64``) at Llama
+        one_b's: ragged, the split's edges (with OOB and repeated table
+        entries), every plan the autotuner races; SDPA in f32 on views
+        gathered outside the timed call as the yardstick."""
+        qx, kx, vx = pool32(d64)
+        heads, kv_heads, dim = qx.shape[1], kx.shape[2], qx.shape[2]
+        name = "paged_decode_d64_f32" if d64 else "paged_decode_f32"
+        launch = decode_mod.paged_decode_d64_f32 if d64 else decode_mod.paged_decode_f32
+        lim, pool, maxp = decode_mod.F32, kx.shape[1], table.shape[1]
+        got = launch(qx, kx[0], vx[0], table, lengths)
+        require(got.dtype == f32, f"{name}: the output is {got.dtype}, not f32")
+        agree = agreement(name, got, paged_decode_attention_plain(qx, kx[0], vx[0], table, lengths),
+                          lim)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
+        r, splits, edges, edge_table = edge_case(pool, maxp, kv_heads)
+        got_e = launch(qx, kx[0], vx[0], edge_table, edges)
+        agree_e = agreement(f"{name} (split boundaries)", got_e,
+                            paged_decode_attention_split_plain(qx, kx[0], vx[0], edge_table, edges,
+                                                               r), lim)
+        require(torch.all(got_e[5] == 0).item(), f"{name}: the empty slot is not zero")
+        io = 2 * qx.numel() * 4 + table.numel() * 4 + n * 4
+        b_ms, b_by = bound_ms(c["live"] * kv_heads * dim * 4 * 2 + io, 4 * c["live"] * heads * dim,
+                              H100_SXM_F32_FLOPS)
+        # yardstick only (never called by the port): SDPA in f32 with a length
+        # mask and enable_gqa on each layer's view, gathered outside the timed
+        # call; it returns NaN for the empty slot
+        views = [gather_kv(kx[layer], vx[layer], table) for layer in range(layers)] if timed else []
+        mask = (torch.arange(maxp * page, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        q1 = qx[:, :, None]
+        return {
+            "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:94",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
+            "checks": {"ragged": agree, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "paged_decode", lim, lambda i: launch(qx, kx[i % layers], vx[i % layers], table,
+                                                      lengths),
+                lambda rows: paged_decode_attention_split_plain(qx, kx[0], vx[0], table, lengths,
+                                                                rows),
+                maxp * page, (n, heads, kv_heads, dim, page, maxp, pool, "float32"),
+                qx=qx, kv_heads=kv_heads),
+            "tolerance": {"max_abs": lim.MAX_ABS, "rms_rel": lim.RMS_REL},
+            **timing(lambda i: launch(qx, kx[i % layers], vx[i % layers], table, lengths),
+                     lambda i: paged_decode_attention_plain(qx, kx[i % layers], vx[i % layers],
+                                                            table, lengths),
+                     lambda i: F.scaled_dot_product_attention(q1, *views[i % layers],
+                                                              attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {**(one_b_shape if d64 else decode_shape), "dtype": "f32"},
+        }
+
+    def check_kv_append_f32(d64: bool = False) -> dict:  # B's f32 builds
+        """B's f32 build on A's f32 pool slices (layer 0 of a two-layer
+        copy, held whole) on the pool appends' edge lanes, bit for bit
+        against the plain append."""
+        _, kx, vx = pool32(d64)
+        kv_heads, dim = kx.shape[2], kx.shape[4]
+        name = "kv_append_d64_f32" if d64 else "kv_append_f32"
+        launch = kv_append_d64_f32 if d64 else kv_append_f32
+        k_new, v_new = append_rows(kv_heads, dim, f32)
+        pos, etable, _, _ = pool_edges(kx.shape[1])
+        got = [kx[:2].clone(), vx[:2].clone()]
+        want = [t.clone() for t in got]
+        launch(got[0][0], got[1][0], etable, pos, k_new, v_new)
+        append_tokens_paged_plain(want[0][0], want[1][0], etable, pos, k_new, v_new)
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want)),
+                f"{name} pool differs from the plain write")
+        require(not torch.equal(got[0][0], kx[0]), f"{name} wrote nothing")
+        del got, want
+        return append_entry(
+            name, append_src, "gofr_tpu/ops/pallas/kv_append.py:110",
+            (lambda i: launch(kx[i % layers], vx[i % layers], table, lengths, k_new, v_new),
+             lambda i: append_tokens_paged_plain(kx[i % layers], vx[i % layers], table, lengths,
+                                                 k_new, v_new)),
+            append_bytes(entries_timed, kept_timed, dim * 4, 0, kv_heads, dim, row_in=dim * 4),
+            {**append_shape, "hkv": kv_heads, "d": dim, "dtype": "f32"})
+
+    def check_decode_q_f32(d64: bool = False) -> dict:  # D's f32-q builds
+        """D with an f32 q on ``check_decode_q``'s int8 pools at Llama-3-8B's
+        step, or (``d64``) at Llama one_b's: ragged, the split's edges,
+        every plan, at the launcher's f32 limits against the f32 plain
+        version (q.k and p * vs in f32)."""
+        name = "paged_decode_q_d64_f32" if d64 else "paged_decode_q_f32"
+        launch = getattr(decode_q_mod, name)
+        cache, heads, kv_heads, dim = ((dc["pools_one_b"][8], q1b.shape[1], hkv1b, 64) if d64
+                                       else (c["pools"][8], hq, hkv, d))
+        lim = decode_q_mod.F32
+        qx = randn32(n, heads, dim)
+
+        def args(layer: int) -> tuple:
+            return (qx, cache.k[layer], cache.v[layer], cache.ks[layer], cache.vs[layer], table,
+                    lengths)
+
+        got = launch(*args(0))
+        require(got.dtype == f32, f"{name}: the output is {got.dtype}, not f32")
+        agree = agreement(name, got, paged_decode_attention_q_plain(*args(0)), lim)
+        require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
+        r, splits, edges, edge_table = edge_case(cache.k.shape[1], table.shape[1], kv_heads)
+        edge_args = (*args(0)[:5], edge_table, edges)
+        agree_e = agreement(f"{name} (split boundaries)", launch(*edge_args),
+                            paged_decode_attention_q_split_plain(*edge_args, r, bits=8), lim)
+        io = 2 * qx.numel() * 4 + table.numel() * 4 + n * 4
+        b_ms, b_by = bound_ms(c["live"] * kv_heads * (2 * dim + 2 * 2) + io,
+                              4 * c["live"] * heads * dim, H100_SXM_F32_FLOPS)
+        return {
+            "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
+            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:195",
+            "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
+            "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
+            "checks": {"ragged": agree, "split_boundaries": agree_e},
+            "split": {"split_rows": r, "splits": splits},
+            "plans": plan_holds(
+                "paged_decode_q", lim, lambda i: launch(*args(i % layers)),
+                lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=8),
+                table.shape[1] * page, (n, heads, kv_heads, dim, page, table.shape[1],
+                                        cache.k.shape[1], decode_q_mod.pin_dtype("int8", f32)),
+                qx=qx, kv_heads=kv_heads),
+            "tolerance": {"max_abs": lim.MAX_ABS, "rms_rel": lim.RMS_REL},
+            # no one PyTorch call computes attention over quantized rows
+            **timing(lambda i: launch(*args(i % layers)),
+                     lambda i: paged_decode_attention_q_plain(*args(i % layers))),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {**(one_b_shape if d64 else decode_shape), "kv_bits": 8, "dtype": "f32"},
+        }
+
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
               ("paged_decode_q", lambda: check_decode_q(8)),
               ("paged_decode_q4", lambda: check_decode_q(4)),
+              # D's f32-q builds before the quantizing appends' timed launches
+              # write rows of up to 30 into the same int8 pools (the other
+              # f32 rows follow the f32 checks of C, F and G below)
+              ("paged_decode_q_f32", check_decode_q_f32),
+              ("paged_decode_q_d64_f32", lambda: check_decode_q_f32(d64=True)),
               ("flash_attention", check_flash), ("flash_attention_d64", check_flash_d64),
               ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
               ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
@@ -1592,6 +1776,12 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
               ("decode_attention_d64_f32", lambda: check_slot_decode_f32(d64=True)),
               ("kv_append_slot_f32", check_kv_append_slot_f32),
               ("kv_append_slot_d64_f32", lambda: check_kv_append_slot_f32(d64=True)),
+              ("paged_decode_f32", check_paged_decode_f32),
+              ("paged_decode_d64_f32", lambda: check_paged_decode_f32(d64=True)),
+              ("kv_append_f32", check_kv_append_f32),
+              ("kv_append_d64_f32", lambda: check_kv_append_f32(d64=True)),
+              ("kv_append_q_f32", lambda: check_append_q(8, f32_rows=True)),
+              ("kv_append_q_d64_f32", lambda: check_append_q(8, d64=True, f32_rows=True)),
               ("w8a16", lambda: check_w8a16(torch, timing if timed else None))]
     results = []
     for name, check in checks:
@@ -1839,13 +2029,32 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
                         "flash_attention_d64_f32"),
            "bert_embed_f32": ("flash_attention_d64_f32",),
            "vit_classify_f32": ("flash_attention_d64_f32",),
-           "llama_slot_f32": ("decode_attention_f32", "kv_append_slot_f32", "flash_attention_f32")}
+           "llama_slot_f32": ("decode_attention_f32", "kv_append_slot_f32", "flash_attention_f32"),
+           # an f32 Llama on the f32 pool and on the int8 pool: one_b at full
+           # width and depth (the 64 f32 builds), Llama-3-8B's widths cut to
+           # 2 layers (the 128 ones): A and B, or D and B-q, and C in f32
+           "one_b_f32": ("paged_decode_d64_f32", "kv_append_d64_f32", "flash_attention_d64_f32"),
+           "one_b_int8_f32": ("paged_decode_q_d64_f32", "kv_append_q_d64_f32",
+                              "flash_attention_d64_f32"),
+           "llama_paged_f32": ("paged_decode_f32", "kv_append_f32", "flash_attention_f32"),
+           "llama_int8_f32": ("paged_decode_q_f32", "kv_append_q_f32", "flash_attention_f32")}
 # one_b's runs, by (kv_layout, kv_quantize), and the KV bytes a position
 # of its cache formats (22 layers x 4 KV heads x K and V x a row of 64 bf16,
 # of 64 int8 + a bf16 scale, or of 32 packed bytes + a bf16 scale)
 ONE_B_RUNS = {("paged", ""): "one_b_bf16", ("paged", "int8"): "one_b_int8",
               ("paged", "int4"): "one_b_int4", ("slot", "int8"): "one_b_slot_int8"}
 ONE_B_KV_BYTES = {"": 22_528, "int8": 11_616, "int4": 5_984}
+# The f32 pool runs, by (model, kv_quantize), and the KV bytes a position of
+# their pools, read from the pools' own planes: one_b's f32 pool 22 x 4 x
+# 64 x 2 x 4 B, its int8 pool as in bf16 (int8 rows, bf16 scales); the
+# same at Llama-3-8B's widths cut to 2 layers, 2 x 8 x 128 x 2 x 4 B and
+# 2 x 8 x (2 x 128 + 4) B. ``ops.paged.kv_plane_bytes_per_position``
+# mirrors the JAX package's function, which has no f32 case and reports
+# bf16 bytes for an f32 pool (ROADMAP Queue C); it is printed beside them.
+F32_POOL_RUNS = {("one_b", ""): "one_b_f32", ("one_b", "int8"): "one_b_int8_f32",
+                 ("llama", ""): "llama_paged_f32", ("llama", "int8"): "llama_int8_f32"}
+F32_POOL_KV_BYTES = {"one_b_f32": 45_056, "one_b_int8_f32": 11_616, "llama_paged_f32": 16_384,
+                     "llama_int8_f32": 4_160}
 PREFILL_KERNELS = ("flash_attention", "flash_attention_d64", "flash_attention_f32",
                    "flash_attention_d64_f32")
 # The f32 runs' tie rule: f32 logits through the kernels and through the
@@ -1853,6 +2062,15 @@ PREFILL_KERNELS = ("flash_attention", "flash_attention_d64", "flash_attention_f3
 # plain path's tokens the run's token lies within this of that path's top
 # logit (a near tie, not a wrong token).
 F32_TIE_GAP = 1e-3
+# The same rule on the int8 pool under an f32 model, relative to the
+# largest |logit|: two prefills of one prompt in other batches (the
+# engine's buckets against ``plain_tokens``' one batch) round their
+# activations apart in the last f32 bits, which flips int8 codes, and a
+# flipped code moves one_b's f32 logits by up to 9.1e-4 of max |logit|
+# (phase 5's chunked run on that pool, H100, 700 W); twice that. At
+# F32_TIE_GAP one_b's run chose a token 9.4e-4 (plain decode after C's
+# prefill) and 1.19e-3 (whole plain path) below a near tie's top logit.
+INT8_F32_TIE_RTOL = 2e-3
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
 # on the bf16 pool, and a draft model on the bf16 slot cache, Llama-3-8B's
@@ -2034,12 +2252,19 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
     cache = eng.cache
     positions = cache.k.shape[1] * cache.k.shape[3]  # pages x page size, or slots x Smax
     pool_bytes = sum(t.nbytes for t in vars(cache).values())
-    per = kv_plane_bytes_per_position(cfg.num_layers, cfg.num_kv_heads, cfg.head_size,
-                                      kv_quantize or "bf16")
-    if not kv_quantize and cfg.dtype == torch.float32:
-        per *= 2  # f32 K and V planes
+    # a position's bytes read from the cache's own planes: a K and a V row
+    # of its row type, and a K and a V scale on a quantized cache
+    per = cfg.num_layers * cfg.num_kv_heads * (
+        2 * cache.k.shape[-1] * cache.k.element_size()
+        + (2 * cache.ks.element_size() if hasattr(cache, "ks") else 0))
+    mirrored = kv_plane_bytes_per_position(cfg.num_layers, cfg.num_kv_heads, cfg.head_size,
+                                           kv_quantize or "bf16")
     require(pool_bytes == per * positions,
             f"{pool} cache holds {pool_bytes} B for {positions} positions, not {per} B each")
+    # the JAX function's bytes, which it gives for bf16 K/V whatever the
+    # model's dtype (mirrored; ROADMAP Queue C), hold on every other cache
+    require(per == mirrored or (not kv_quantize and cfg.dtype == torch.float32),
+            f"{pool} cache: {per} B a position, kv_plane_bytes_per_position says {mirrored}")
     first = [t_submit + o["ttft_s"] for o in outs]
     done = [f + o["decode_s"] for f, o in zip(first, outs)]
     decoded = sum(len(o["tokens"]) - 1 for o in outs)
@@ -2051,7 +2276,8 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
         "layers": cfg.num_layers,
         "kv_layout": kv_layout,
         "kv_pool": kv_quantize or ("f32" if cfg.dtype == torch.float32 else "bf16"),
-        "pool_bytes": pool_bytes, "pool_positions": positions,
+        "pool_bytes": pool_bytes, "pool_positions": positions, "kv_bytes_per_position": per,
+        "kv_plane_bytes_per_position": mirrored,
         "requests": len(outs), "prompt_lens": lens, "new_tokens": 64,
         "engine_build_s": build_s, "wall_s": t_done - t_submit,
         "ttft_s": [o["ttft_s"] for o in outs], "ttft_p50_s": ttft[len(ttft) // 2],
@@ -5705,6 +5931,51 @@ def llama_slot_f32(torch, cuda) -> dict:
     return {"metrics": metrics, "launches": counts}
 
 
+def f32_pool_run(torch, cuda, model, name: str, kv_quantize: str = "") -> dict:
+    """Phase 4 ``one_b_f32``, ``one_b_int8_f32``, ``llama_paged_f32`` or
+    ``llama_int8_f32`` (``F32_POOL_RUNS``): an f32 Llama (``model``: one_b
+    at full width and depth, or Llama-3-8B's widths cut to
+    ``LLAMA_F32_LAYERS`` layers) on the f32 pool or the int8 pool with
+    ``serve``'s knobs and prompts. Held (``serve``): the run's ``ON_PATH``
+    f32 builds and no other kernel, A and B (D and B-q) equally often in
+    whole steps x layers; the pool's bytes a position at
+    ``F32_POOL_KV_BYTES``; and the tokens the f32 plain path's on the same
+    cache by the tie rule at ``F32_TIE_GAP`` on that path's own logits (on
+    the int8 pool the plain decode's after C's prefill at
+    ``INT8_F32_TIE_RTOL``, the whole plain path's at the pool's phase-5
+    limit)."""
+    eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, "paged", run=name)
+    eng.stop()
+    del eng
+    per = metrics["kv_bytes_per_position"]
+    require(per == F32_POOL_KV_BYTES[name],
+            f"{name}: {per} KV bytes a position, not {F32_POOL_KV_BYTES[name]}")
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    want, logits = plain_tokens(torch, model, prompts, 64, kv_quantize, "paged")
+    if kv_quantize:
+        # prefills in other batches store K/V from activations a few f32
+        # ulps apart, which flips int8 codes (2-3% of the stored elements
+        # between C's prefill and the plain one on one_b): so D and B-q are
+        # held by the tie rule at INT8_F32_TIE_RTOL against the plain decode
+        # after C's prefill, and the whole plain path by phase 5's limit for
+        # this pool, as the int4 pool's are
+        want_d, logits_d = plain_tokens(torch, model, prompts, 64, kv_quantize, "paged",
+                                        prefill_kernels=True)
+        metrics["vs_plain_decode"] = hold_tie(f"{name} (C's prefill, plain decode)", torch,
+                                              model, prompts, outs, want_d, logits_d,
+                                              rtol=INT8_F32_TIE_RTOL)
+        del logits_d
+        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+                                            rtol=LOGITS_RTOL[kv_quantize])
+    else:
+        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+                                            gap=F32_TIE_GAP)
+    metrics["nvidia_smi"] = smi_line()
+    del logits
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "launches": counts}
+
+
 def one_b_run(torch, cuda, model, kv_quantize: str = "", kv_layout: str = "paged",
               base: dict | None = None) -> dict:
     """Phase 4 ``one_b_bf16``, ``one_b_int8``, ``one_b_int4`` or
@@ -5756,12 +6027,13 @@ def one_b_run(torch, cuda, model, kv_quantize: str = "", kv_layout: str = "paged
 
 
 def one_b_no_sync_check(torch, cuda, model, kv_quantize: str) -> dict:
-    """Phase 6 on one_b's quantized pools: a prefill of 256 tokens in two
-    chunks of 128 at their offsets, then two ``decode_step`` steps over 8
-    lanes (the last idle, its table row all OOB, so its writes drop), each
-    inside ``torch.cuda.set_sync_debug_mode("error")``; the chunks launch
-    C's 64 build once a layer each, the steps the pool's decode kernel and
-    append at 64 once a layer each, and nothing else launches."""
+    """Phase 6 on one_b's pools: a prefill of 256 tokens in two chunks of
+    128 at their offsets, then two ``decode_step`` steps over 8 lanes (the
+    last idle, its table row all OOB, so its writes drop), each inside
+    ``torch.cuda.set_sync_debug_mode("error")``; the chunks launch C's 64
+    build once a layer each, the steps the pool's decode kernel and append
+    at 64 once a layer each, and nothing else launches; on the f32 model
+    (the f32 pool and the int8 pool under f32) the f32 builds."""
     from gofr_tpu_torch.gpu.engine import make_pool
 
     n, page, pages = 8, 128, 4
@@ -5802,13 +6074,15 @@ def one_b_no_sync_check(torch, cuda, model, kv_quantize: str) -> dict:
         return logits
 
     chunks, steps = unsynced(chunked), unsynced(decode)
-    run = ONE_B_RUNS["paged", kv_quantize]
-    require(chunks == {"flash_attention_d64": 2 * layers},
+    f32 = model.cfg.dtype == torch.float32
+    run = F32_POOL_RUNS["one_b", kv_quantize] if f32 else ONE_B_RUNS["paged", kv_quantize]
+    require(chunks == {"flash_attention_d64" + ("_f32" if f32 else ""): 2 * layers},
             f"one_b {kv_quantize}: the chunked prefill launched {chunks}")
     require(steps == {k: 2 * layers for k in ON_PATH[run] if k not in PREFILL_KERNELS},
             f"one_b {kv_quantize}: two decode steps launched {steps}")
     del cache
-    return {"model": "one_b", "kv_layout": "paged", "kv_pool": kv_quantize, "chunks": 2,
+    return {"model": "one_b" + (" (f32)" if f32 else ""), "kv_layout": "paged",
+            "kv_pool": kv_quantize or ("f32" if f32 else "bf16"), "chunks": 2,
             "steps": 2, "sync_debug_mode": "error", "launches": {"chunks": chunks, "steps": steps}}
 
 
@@ -6053,6 +6327,19 @@ def main() -> None:
     served["llama_slot_f32"] = llama_slot_f32(torch, cuda)
     emit("phase4_serve_llama_slot_f32", served["llama_slot_f32"])
     lap("phase4_llama_slot_f32")
+    # an f32 Llama on the f32 pool and on the int8 pool: one_b at full width
+    # and depth, then Llama-3-8B's widths cut to 2 layers
+    one_b32 = init(LlamaConfig.one_b(dtype=torch.float32),
+                   torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    llama32 = init(LlamaConfig.llama3_8b(num_layers=LLAMA_F32_LAYERS, dtype=torch.float32),
+                   torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    for (which, kv_quantize), name in F32_POOL_RUNS.items():
+        served[name] = f32_pool_run(torch, cuda, one_b32 if which == "one_b" else llama32, name,
+                                    kv_quantize)
+        emit(f"phase4_serve_{name}", served[name])
+        lap(f"phase4_{name}")
+    del llama32
+    torch.cuda.empty_cache()
 
     for kv_layout, kv_quantize in RUNS:
         emit(f"phase5_model_{run_name(kv_layout, kv_quantize)}",
@@ -6073,6 +6360,14 @@ def main() -> None:
     emit("phase5_model_gpt2_f32", {"model": "gpt2 small (f32)", **model_check(
         torch, gpt2_32["model"], kv_layout="slot", tol=F32_TIE_GAP)})
     lap("phase5_gpt2_f32")
+    # one_b in f32 on the f32 pool (A, B and C's 64 f32 builds: within
+    # F32_TIE_GAP of the plain logits' range) and on the int8 pool (D and
+    # B-q's f32 builds: the int8 pool's limit)
+    emit("phase5_model_one_b_f32", {"model": "one_b (f32)", **model_check(
+        torch, one_b32, "", tol=F32_TIE_GAP)})
+    emit("phase5_model_one_b_int8_f32", {"model": "one_b (f32)", **model_check(
+        torch, one_b32, "int8")})
+    lap("phase5_one_b_f32")
 
     emit("phase6_no_sync", [no_sync_check(torch, cuda, m, *run)
                             for m, run in [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
@@ -6081,9 +6376,9 @@ def main() -> None:
          + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
     emit("phase6_gpt2_no_sync", [gpt2_no_sync_check(torch, cuda, m["model"])
                                  for m in (gpt2, gpt2_32)])
-    emit("phase6_one_b_no_sync", [one_b_no_sync_check(torch, cuda, one_b, q)
-                                   for q in ("int8", "int4")])
-    del gpt2, gpt2_32, one_b
+    emit("phase6_one_b_no_sync", [one_b_no_sync_check(torch, cuda, m, q) for m, q in (
+        (one_b, "int8"), (one_b, "int4"), (one_b32, ""), (one_b32, "int8"))])
+    del gpt2, gpt2_32, one_b, one_b32
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on,
@@ -6091,7 +6386,8 @@ def main() -> None:
     by_run = launches_by_run(served)
     for k in kernels:
         run = next(r for r in (*RUNS, "paged_w8", "bert_embed", "gpt2_generate",
-                               *ONE_B_RUNS.values(), "gpt2_f32", "llama_slot_f32")
+                               *ONE_B_RUNS.values(), "gpt2_f32", "llama_slot_f32",
+                               *F32_POOL_RUNS.values())
                    if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
         k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}

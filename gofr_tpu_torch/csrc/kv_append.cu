@@ -16,6 +16,10 @@
 //   G-q (64) gofr_kv_append_slot_q_d64   Int8Rows<64>   SlotAddr  int8 slot cache, head dim 64
 //   G (f32)  gofr_kv_append_slot_f32     F32Rows<128>   SlotAddr  f32 slot cache
 //   G (f32, 64) gofr_kv_append_slot_d64_f32 F32Rows<64> SlotAddr  f32 slot cache, head dim 64
+//   B (f32)  gofr_kv_append_f32          F32Rows<128>   PoolAddr  f32 paged pool
+//   B (f32, 64) gofr_kv_append_d64_f32   F32Rows<64>    PoolAddr  f32 pool, head dim 64
+//   B-q (f32)   gofr_kv_append_q_f32     Int8Rows<128, F32Rows<128>>  PoolAddr  int8 pool, f32 rows
+//   B-q (f32, 64) gofr_kv_append_q_d64_f32 Int8Rows<64, F32Rows<64>>  PoolAddr  the same at 64
 //
 // Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
 // (:110, pallas_call :160) and append_tokens_inplace (:61, pallas_call :80,
@@ -50,12 +54,19 @@
 //     one 4-byte word a lane, loaded and stored as it is (Bf16Rows<64>). An
 //     f32 row (F32Rows: the f32 models, GPT-2 small in its own dtype) is
 //     512 B at 128, one 16-byte load and store a lane, and 256 B at 64, one
-//     8-byte load and store a lane; its bits are copied as they are. The
+//     8-byte load and store a lane; its bits are copied as they are, into
+//     the f32 slot cache (G) or the f32 pool (B). The
 //     quantizing rows at 64 keep all 32 lanes on the row: an int8 lane
 //     quantizes elements 2l, 2l + 1 (one 4-byte load) into a 2-byte store,
 //     an int4 lane elements l and 32 + l (two 2-byte loads, the pair one
 //     packed byte holds) into a 1-byte store, so the warp's max covers the
 //     whole row and every lane writes its part of the 64- or 32-byte row.
+//   - The int8 rows take their input through a row policy of their own
+//     (Int8Rows' second parameter): bf16 rows (Bf16Rows, the bf16 models),
+//     or f32 rows (F32Rows, an f32 model on the int8 pool: B-q on f32
+//     rows), loaded as G's f32 rows are, the same elements a lane, so the
+//     quantization, already f32 math, sees the row's own f32 values. The
+//     scales stay bf16, as on the JAX package's int8 pool.
 //   - The row's load is issued before the address chain (positions[n], then
 //     the table entry, then the store) resolves: the row does not depend on
 //     where it lands, so the two latencies overlap instead of adding up.
@@ -121,17 +132,6 @@ __device__ __forceinline__ float quantize(const float (&x)[N], int (&q)[N]) {
   return s;
 }
 
-// The first N bf16 elements of raw (x's low half first) as f32.
-template <int N>
-__device__ __forceinline__ void unpack(uint2 raw, float (&x)[N]) {
-  x[0] = lo_bf16(raw.x);
-  x[1] = hi_bf16(raw.x);
-  if constexpr (N == 4) {
-    x[2] = lo_bf16(raw.y);
-    x[3] = hi_bf16(raw.y);
-  }
-}
-
 __device__ __forceinline__ uint32_t nibbles(int lo, int hi) {
   return static_cast<uint32_t>(lo + kBias) | (static_cast<uint32_t>(hi + kBias) << 4);
 }
@@ -162,28 +162,70 @@ struct Bf16Rows {
     if constexpr (kD == 128) reinterpret_cast<uint2*>(dst)[lane] = raw;
     else reinterpret_cast<uint32_t*>(dst)[lane] = raw.x;
   }
+
+  // the lane's elements (4 at 128, 2 at 64, raw.x's low half first) as f32
+  template <int N>
+  __device__ static void unpack(uint2 raw, float (&x)[N]) {
+    x[0] = lo_bf16(raw.x);
+    x[1] = hi_bf16(raw.x);
+    if constexpr (N == 4) {
+      x[2] = lo_bf16(raw.y);
+      x[3] = hi_bf16(raw.y);
+    }
+  }
+};
+
+// f32 rows (kernel G on an f32 slot cache, B on an f32 pool) of head dim
+// D: the 32-bit patterns copied as they are, lane l elements 4l .. 4l + 3
+// at D 128 (one 16-byte word), 2l, 2l + 1 at D 64 (one 8-byte word).
+template <int D>
+struct F32Rows {
+  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
+  using Raw = std::conditional_t<D == 128, uint4, uint2>;
+  static constexpr int kD = D;
+  static constexpr int kRowBytes = kD * 4;
+  static constexpr int kInWords = kD;
+  static constexpr int kAlign = sizeof(Raw);
+
+  __device__ static Raw load(const uint32_t* row, int lane) {
+    return __ldg(reinterpret_cast<const Raw*>(row) + lane);
+  }
+
+  __device__ static void store(uint8_t* dst, bf16*, Raw raw, int lane) {
+    reinterpret_cast<Raw*>(dst)[lane] = raw;
+  }
+
+  // the lane's elements as f32, as they are (N: 4 at 128, 2 at 64)
+  template <int N>
+  __device__ static void unpack(Raw raw, float (&x)[N]) {
+    x[0] = __uint_as_float(raw.x);
+    x[1] = __uint_as_float(raw.y);
+    if constexpr (N == 4) {
+      x[2] = __uint_as_float(raw.z);
+      x[3] = __uint_as_float(raw.w);
+    }
+  }
 };
 
 // int8 rows with one bf16 scale (kernels B-q, G-q) of head dim D: lane l
-// quantizes Bf16Rows<D>'s elements (4l .. 4l + 3 at 128, 2l, 2l + 1 at 64)
-// into the bytes of the same index, a 4- or 2-byte store.
-template <int D>
+// quantizes its input rows' elements (In: Bf16Rows<D> or F32Rows<D>; 4l ..
+// 4l + 3 at 128, 2l, 2l + 1 at 64) into the bytes of the same index, a 4-
+// or 2-byte store.
+template <int D, class In = Bf16Rows<D>>
 struct Int8Rows {
-  using Raw = uint2;
+  using Raw = typename In::Raw;
   static constexpr int kD = D;
   static constexpr int kRowBytes = kD;
-  static constexpr int kInWords = kD / 2;
-  static constexpr int kAlign = 8;
+  static constexpr int kInWords = In::kInWords;
+  static constexpr int kAlign = In::kAlign;
   static constexpr int kPerLane = kD / 32;
 
-  __device__ static uint2 load(const uint32_t* row, int lane) {
-    return Bf16Rows<D>::load(row, lane);
-  }
+  __device__ static Raw load(const uint32_t* row, int lane) { return In::load(row, lane); }
 
-  __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
+  __device__ static void store(uint8_t* dst, bf16* scale, Raw raw, int lane) {
     float x[kPerLane];
     int q[kPerLane];
-    unpack(raw, x);
+    In::unpack(raw, x);
     const float s = quantize<127>(x, q);
     uint32_t bytes = 0;
 #pragma unroll
@@ -223,7 +265,7 @@ struct Int4Rows {
   __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
     float x[kPerLane];
     int q[kPerLane];
-    unpack(raw, x);
+    Bf16Rows<D>::unpack(raw, x);
     const float s = quantize<7>(x, q);
     if constexpr (kPerLane == 4)
       reinterpret_cast<uint16_t*>(dst)[lane] =
@@ -231,27 +273,6 @@ struct Int4Rows {
     else
       dst[lane] = static_cast<uint8_t>(nibbles(q[0], q[1]));
     if (lane == 0) *scale = __float2bfloat16_rn(s);
-  }
-};
-
-// f32 rows (kernel G on an f32 slot cache) of head dim D: the 32-bit
-// patterns copied as they are, lane l elements 4l .. 4l + 3 at D 128 (one
-// 16-byte word), 2l, 2l + 1 at D 64 (one 8-byte word).
-template <int D>
-struct F32Rows {
-  static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
-  using Raw = std::conditional_t<D == 128, uint4, uint2>;
-  static constexpr int kD = D;
-  static constexpr int kRowBytes = kD * 4;
-  static constexpr int kInWords = kD;
-  static constexpr int kAlign = sizeof(Raw);
-
-  __device__ static Raw load(const uint32_t* row, int lane) {
-    return __ldg(reinterpret_cast<const Raw*>(row) + lane);
-  }
-
-  __device__ static void store(uint8_t* dst, bf16*, Raw raw, int lane) {
-    reinterpret_cast<Raw*>(dst)[lane] = raw;
   }
 };
 
@@ -286,7 +307,7 @@ struct Planes {
   uint8_t* v;
   bf16* ks;                // their scales (null for bf16 rows)
   bf16* vs;
-  const uint32_t* k_new;   // [N, Hkv, D] bf16 (f32 for F32Rows), as 32-bit words
+  const uint32_t* k_new;   // [N, Hkv, D] bf16 (f32 for F32Rows and Int8Rows<D, F32Rows<D>>), as 32-bit words
   const uint32_t* v_new;
 };
 
@@ -383,6 +404,22 @@ extern "C" int gofr_kv_append_slot_d64_f32(void* k_layer, void* v_layer, const v
                              SlotAddr{smax}, n, hkv, d, stream);
 }
 
+// B on the f32 pool (an f32 Llama on kv_layout="paged")
+extern "C" int gofr_kv_append_f32(void* k_pool, void* v_pool, const void* k_new, const void* v_new,
+                                  const void* table, const void* positions, int n, int maxp,
+                                  int pool, int hkv, int page, int d, void* stream) {
+  return launch<F32Rows<128>>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,
+                              pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+}
+
+extern "C" int gofr_kv_append_d64_f32(void* k_pool, void* v_pool, const void* k_new,
+                                      const void* v_new, const void* table, const void* positions,
+                                      int n, int maxp, int pool, int hkv, int page, int d,
+                                      void* stream) {
+  return launch<F32Rows<64>>(planes(k_pool, v_pool, nullptr, nullptr, k_new, v_new), positions,
+                             pool_addr(table, maxp, pool, page), n, hkv, d, stream);
+}
+
 extern "C" int gofr_kv_append_q(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
                                 const void* k_new, const void* v_new, const void* table,
                                 const void* positions, int n, int maxp, int pool, int hkv,
@@ -430,4 +467,23 @@ extern "C" int gofr_kv_append_slot_q_d64(void* k_layer, void* v_layer, void* k_s
                                          void* stream) {
   return launch<Int8Rows<64>>(planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new), positions,
                               SlotAddr{smax}, n, hkv, d, stream);
+}
+
+// B-q on f32 rows (an f32 Llama on the int8 pool), head dims 128 and 64
+extern "C" int gofr_kv_append_q_f32(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                    const void* k_new, const void* v_new, const void* table,
+                                    const void* positions, int n, int maxp, int pool, int hkv,
+                                    int page, int d, void* stream) {
+  return launch<Int8Rows<128, F32Rows<128>>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new),
+                                             positions, pool_addr(table, maxp, pool, page), n, hkv,
+                                             d, stream);
+}
+
+extern "C" int gofr_kv_append_q_d64_f32(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                        const void* k_new, const void* v_new, const void* table,
+                                        const void* positions, int n, int maxp, int pool, int hkv,
+                                        int page, int d, void* stream) {
+  return launch<Int8Rows<64, F32Rows<64>>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new),
+                                           positions, pool_addr(table, maxp, pool, page), n, hkv,
+                                           d, stream);
 }

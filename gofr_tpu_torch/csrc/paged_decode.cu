@@ -1,9 +1,12 @@
 // Decode attention over the slot cache, bf16 or f32: one new token per slot
-// (kernel F). The page pool's decode attention (kernels A, D and E) lives in
-// paged_decode_q.cu.
+// (kernel F); and over the f32 page pool (kernel A's f32 build), whose rows
+// this body reaches through the block table. The page pool's other decode
+// builds (kernel A on bf16 pages, D and E) live in paged_decode_q.cu.
 //
 // Replaces gofr_tpu/ops/pallas/decode_attention.py decode_attention (:85,
-// pallas_call :111, body _decode_kernel :46).
+// pallas_call :111, body _decode_kernel :46), and for f32 pages
+// gofr_tpu/ops/pallas/paged_decode.py paged_decode_attention (:94,
+// pallas_call :122, body _paged_decode_kernel :54).
 //
 // What bounds it on the card: device-memory bytes. Each slot's live K and V
 // rows (len x Hkv x D x 2 planes x 2 B per layer; 4 B at f32) are read once
@@ -17,8 +20,10 @@
 //   - One thread block per (slot, KV head, split of the sequence). The G
 //     query rows of the head share every K/V tile the block stages, so K/V
 //     are read once per head, not once per query head (the TPU kernel's [G,
-//     d] tile). Row t of (slot n, KV head h) lies at a fixed step from the
-//     slot's base (SlotRows).
+//     d] tile). Where a tile's rows lie is the address policy's: on the
+//     slot cache (SlotRows) row t of (slot n, KV head h) lies at a fixed
+//     step from the slot's base; on the f32 pool (PoolRows) a tile's rows
+//     lie in one page, found through one block-table entry a tile.
 //   - The split: the launcher cuts each slot into `splits` runs of
 //     `split_rows` positions (a multiple of the 64-row tile), a number the
 //     host takes from the shapes alone, never from the lengths (reading them
@@ -41,24 +46,33 @@
 //     rounds probabilities to bf16 before the P.V product, as the TPU kernel
 //     does (common.py:57 casts P to v.dtype); the f32 build keeps them
 //     unrounded, as the same cast does at f32.
-//   - A length is clamped to Smax: an idle slot-layout lane asks for Smax + 1
-//     + k, and an unclamped length would read the next head's rows. Smax need
-//     not be a multiple of 64: rows past the length are never loaded.
+//   - A length is clamped to what the lane holds: Smax on the slot cache
+//     (an idle slot-layout lane asks for Smax + 1 + k, and an unclamped
+//     length would read the next head's rows), MaxP x page on the pool.
+//     Smax need not be a multiple of 64: rows past the length are never
+//     loaded.
 //   - The head dim kD is a template parameter, built at 128 (Llama) and 64
-//     (GPT-2): a block has kD threads, one output column each, so a 64 build
-//     runs two warps; its padded shared row is 144 B, whose 36-word step puts
-//     the eight rows a quarter-warp's 16-byte score reads touch on distinct
-//     banks, as the 272-byte row does at 128. GPT-2's group of 1 leaves seven
-//     of q_s's eight rows unused: correct, not fast.
+//     (GPT-2, Llama one_b): a block has kD threads, one output column each,
+//     so a 64 build runs two warps; its padded shared row is 144 B, whose
+//     36-word step puts the eight rows a quarter-warp's 16-byte score reads
+//     touch on distinct banks, as the 272-byte row does at 128. GPT-2's
+//     group of 1 leaves seven of q_s's eight rows unused: correct, not fast.
 //   - The element type T is the second template parameter, bf16 or float
-//     (the f32 models: GPT-2 small in its own dtype, Llama at 128). A tile
-//     keeps its bytes, not its rows: 64 rows of bf16, 32 of f32, so the f32
-//     ring is 67,584 B at 128 and three blocks still fit on an SM; a split
-//     run stays a whole number of 64 rows, two f32 tiles. K and V come in by
-//     16-byte cp.async of 8 bf16 or 4 floats. The f32 row is padded by 16 B
-//     as well: its 132- or 68-word step is 4 words mod 32, so the eight rows
-//     a quarter-warp's 16-byte score reads touch fall on distinct banks
+//     (the f32 models: GPT-2 small in its own dtype, Llama at 128 and 64). A
+//     tile keeps its bytes, not its rows: 64 rows of bf16, 32 of f32, so the
+//     f32 ring is 67,584 B at 128 and three blocks still fit on an SM; a
+//     split run stays a whole number of 64 rows, two f32 tiles. K and V come
+//     in by 16-byte cp.async of 8 bf16 or 4 floats. The f32 row is padded by
+//     16 B as well: its 132- or 68-word step is 4 words mod 32, so the eight
+//     rows a quarter-warp's 16-byte score reads touch fall on distinct banks
 //     again. An f32 tile row is folded by fold_row32 (one position a lane).
+//   - The f32 pool (PoolRows, f32 only): a 32-row f32 tile starts at a
+//     multiple of 32, so when page % 32 == 0 (the launcher's condition) it
+//     never straddles a page, and each thread of the block reads the tile's
+//     one table entry once, not once per 16-byte chunk. An entry outside the
+//     pool (the OOB id P, or negative) clamps to a pool page (read, then
+//     masked by the length), as kernel A's bf16 build does. P stays
+//     unrounded, the merge runs in f32, the output is f32.
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -122,6 +136,12 @@ __device__ __forceinline__ void fold_tile_row(float* row, float* m, float* l, fl
   gofr::fold_row32(row, m, l, alpha);
 }
 
+// The address policies, for the decode kernel and the merge alike:
+// `length(lengths, n)`, lane n's length clamped to what it holds, and
+// `tile(n, h, hkv, t0)`, the element offset of row t0 of (lane n, KV head h)
+// in its layer slice, the start of a tile whose live rows follow at a step
+// of kD elements.
+//
 // The slot cache's layer slice [N, Hkv, Smax, kD]: lane n is slot n.
 template <int kD>
 struct SlotRows {
@@ -131,17 +151,36 @@ struct SlotRows {
     return min(max(lengths[n], 0), smax);
   }
 
-  __device__ size_t row(int n, int h, int hkv, int t) const {
+  __device__ size_t tile(int n, int h, int hkv, int t) const {
     return (((size_t)n * hkv + h) * smax + t) * kD;
   }
 };
 
-template <int kD, class T>
+// The f32 pool's layer slice [P, Hkv, page, kD] through the block table
+// [N, MaxP]; a tile (32 f32 rows from a multiple of 32) lies in one page
+// when page % 32 == 0.
+template <int kD>
+struct PoolRows {
+  const int* table;
+  int maxp, page, pool;
+
+  __device__ int length(const int* lengths, int n) const {
+    return min(max(lengths[n], 0), maxp * page);
+  }
+
+  __device__ size_t tile(int n, int h, int hkv, int t) const {
+    const int logical = t / page;
+    const int entry = min(max(__ldg(table + (size_t)n * maxp + logical), 0), pool - 1);
+    return (((size_t)entry * hkv + h) * page + t % page) * kD;
+  }
+};
+
+template <int kD, class T, class Rows>
 __global__ void __launch_bounds__(kD) decode_kernel(
     const T* __restrict__ q,         // [N, Hq, D]
-    const T* __restrict__ k,         // [N, Hkv, Smax, D]
-    const T* __restrict__ v,         // [N, Hkv, Smax, D]
-    const SlotRows<kD> rows,
+    const T* __restrict__ k,         // the layer slice Rows addresses
+    const T* __restrict__ v,
+    const Rows rows,
     const int* __restrict__ lengths,  // [N]
     T* __restrict__ out,              // [N, Hq, D], written here when there is one split
     float* __restrict__ part,         // [N, Hq, splits, kState], written when there are more
@@ -171,10 +210,11 @@ __global__ void __launch_bounds__(kD) decode_kernel(
     T* k_s = ring_s + (i % kStages) * 2 * kTileElems;
     T* v_s = k_s + kTileElems;
     const int t0 = t_begin + i * kTile;
+    const size_t first = rows.tile(n, h, hkv, t0);  // t0 < t_end: a live row
     for (int c = tid; c < kTile * kChunks; c += kThreads) {
       const int r = c / kChunks, col = (c % kChunks) * kPerChunk, t = t0 + r;
       const bool ok = t < t_end;
-      const size_t base = (ok ? rows.row(n, h, hkv, t) : 0) + col;
+      const size_t base = (ok ? first + (size_t)r * kD : 0) + col;
       gofr::cp_async16(k_s + r * kStride + col, k + base, ok);
       gofr::cp_async16(v_s + r * kStride + col, v + base, ok);
     }
@@ -254,21 +294,20 @@ __global__ void __launch_bounds__(kD) decode_kernel(
   }
 }
 
-template <int kD, class T>
-int launch(const void* q, const void* k, const void* v, int smax, const void* lengths, void* out,
-           void* scratch, int n, int hkv, int group, int split_rows, int splits, float scale,
-           void* stream) {
+template <int kD, class T, class Rows>
+int launch(const void* q, const void* k, const void* v, const Rows rows, const void* lengths,
+           void* out, void* scratch, int n, int hkv, int group, int split_rows, int splits,
+           float scale, void* stream) {
   constexpr int kRingBytes = Dims<kD, T>::kRingBytes;
   static bool configured = false;  // one flag per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<kD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+        decode_kernel<kD, T, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SlotRows<kD> rows{smax};
-  decode_kernel<kD, T><<<dim3(n, hkv, splits), Dims<kD, T>::kThreads, kRingBytes, s>>>(
+  decode_kernel<kD, T, Rows><<<dim3(n, hkv, splits), Dims<kD, T>::kThreads, kRingBytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), rows,
       static_cast<const int*>(lengths), static_cast<T*>(out), static_cast<float*>(scratch), hkv,
       group, split_rows, scale);
@@ -282,6 +321,18 @@ int launch(const void* q, const void* k, const void* v, int smax, const void* le
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int launch_pool_f32(const void* q, const void* k_pool, const void* v_pool, const void* table,
+                    const void* lengths, void* out, void* scratch, int n, int hkv, int group,
+                    int pool, int page, int maxp, int split_rows, int splits, float scale,
+                    void* stream) {
+  // a 32-row f32 tile must not straddle a page (the launcher checks too)
+  if (page % Dims<kD, float>::kTile != 0 || pool <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const PoolRows<kD> rows{static_cast<const int*>(table), maxp, page, pool};
+  return launch<kD, float>(q, k_pool, v_pool, rows, lengths, out, scratch, n, hkv, group,
+                           split_rows, splits, scale, stream);
+}
+
 }  // namespace
 
 // `splits` runs of `split_rows` positions (splits x split_rows >=
@@ -292,24 +343,24 @@ extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const v
                                      const void* lengths, void* out, void* scratch, int n, int hkv,
                                      int group, int smax, int split_rows, int splits, float scale,
                                      void* stream) {
-  return launch<128, bf16>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
-                           split_rows, splits, scale, stream);
+  return launch<128, bf16>(q, k_cache, v_cache, SlotRows<128>{smax}, lengths, out, scratch, n,
+                           hkv, group, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_d64(const void* q, const void* k_cache, const void* v_cache,
                                          const void* lengths, void* out, void* scratch, int n,
                                          int hkv, int group, int smax, int split_rows, int splits,
                                          float scale, void* stream) {
-  return launch<64, bf16>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
-                          split_rows, splits, scale, stream);
+  return launch<64, bf16>(q, k_cache, v_cache, SlotRows<64>{smax}, lengths, out, scratch, n, hkv,
+                          group, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_f32(const void* q, const void* k_cache, const void* v_cache,
                                          const void* lengths, void* out, void* scratch, int n,
                                          int hkv, int group, int smax, int split_rows, int splits,
                                          float scale, void* stream) {
-  return launch<128, float>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
-                            split_rows, splits, scale, stream);
+  return launch<128, float>(q, k_cache, v_cache, SlotRows<128>{smax}, lengths, out, scratch, n,
+                            hkv, group, split_rows, splits, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_d64_f32(const void* q, const void* k_cache,
@@ -317,6 +368,28 @@ extern "C" int gofr_decode_attention_d64_f32(const void* q, const void* k_cache,
                                              void* scratch, int n, int hkv, int group, int smax,
                                              int split_rows, int splits, float scale,
                                              void* stream) {
-  return launch<64, float>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group,
-                           split_rows, splits, scale, stream);
+  return launch<64, float>(q, k_cache, v_cache, SlotRows<64>{smax}, lengths, out, scratch, n, hkv,
+                           group, split_rows, splits, scale, stream);
+}
+
+// Kernel A on the f32 pool, head dims 128 (Llama-3-8B's widths) and 64
+// (Llama one_b): the arguments of paged_decode_q.cu's gofr_paged_decode
+// (`splits` runs of `split_rows` positions over the MaxP x page a table row
+// holds); page % 32 == 0.
+extern "C" int gofr_paged_decode_f32(const void* q, const void* k_pool, const void* v_pool,
+                                     const void* table, const void* lengths, void* out,
+                                     void* scratch, int n, int hkv, int group, int pool, int page,
+                                     int maxp, int split_rows, int splits, float scale,
+                                     void* stream) {
+  return launch_pool_f32<128>(q, k_pool, v_pool, table, lengths, out, scratch, n, hkv, group, pool,
+                              page, maxp, split_rows, splits, scale, stream);
+}
+
+extern "C" int gofr_paged_decode_d64_f32(const void* q, const void* k_pool, const void* v_pool,
+                                         const void* table, const void* lengths, void* out,
+                                         void* scratch, int n, int hkv, int group, int pool,
+                                         int page, int maxp, int split_rows, int splits,
+                                         float scale, void* stream) {
+  return launch_pool_f32<64>(q, k_pool, v_pool, table, lengths, out, scratch, n, hkv, group, pool,
+                             page, maxp, split_rows, splits, scale, stream);
 }

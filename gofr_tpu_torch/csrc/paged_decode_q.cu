@@ -88,6 +88,20 @@
 //     32 columns up); their f32 P.V runs 16 (int8) or 8 (int4) lanes a row,
 //     2 or 4 rows a step, and the final sum writes one column a thread, so
 //     threads kD..127 write nothing.
+//   - The query's type TQ is the kernel's second template parameter: bf16,
+//     or f32 for kernel D under an f32 model (Int8Rows at 128 and 64; A's
+//     f32 build is paged_decode.cu's, E's has none yet). The TPU kernel
+//     takes k.astype(q.dtype) against the f32 q with f32 accumulation
+//     (paged_decode.py:148). Here an f32 q is split as it is loaded into
+//     three bf16 pieces, h = bf16(q), m = bf16(q - h), l = bf16(q - h - m),
+//     which together hold all 24 of its significand bits, and the scores run
+//     three mma.sync per step (l.k, m.k, then h.k) against the same K
+//     fragments: an int8 value is exact in bf16 and each bf16 x int8 product
+//     is exact in f32, so K needs no split and the scores are the f32
+//     product up to the order of the f32 sums. The pieces are three sets of
+//     A fragments in registers (kQPieces). P.V is unchanged (already f32 on
+//     the unrounded p * vs); the output and the merge's are written in f32
+//     through store_out's f32 overload.
 #include <cstdint>
 #include <type_traits>
 
@@ -299,9 +313,45 @@ struct PoolLength {
   }
 };
 
-template <class Rows>
+// The three bf16 pieces of two f32 query elements (a in the low halves):
+// h = bf16(x), m = bf16(x - h), l = bf16(x - h - m), each an A-fragment
+// register; x - h and x - h - m are exact in f32.
+__device__ __forceinline__ void split_pair(float2 x, uint32_t& h, uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h2);
+  const float2 r = make_float2(x.x - hf.x, x.y - hf.y);
+  const __nv_bfloat162 m2 = __floats2bfloat162_rn(r.x, r.y);
+  const float2 mf = __bfloat1622float2(m2);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(r.x - mf.x, r.y - mf.y);
+  h = *reinterpret_cast<const uint32_t*>(&h2);
+  m = *reinterpret_cast<const uint32_t*>(&m2);
+  l = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// The query's A fragments: step s's two registers of quad thread c (columns
+// col, col + 1 and col + 2, col + 3 of its row), as bf16 pairs read from a
+// bf16 q, or (kQPieces 3) the pieces h, m, l of an f32 q.
+template <class TQ>
+struct QFrags {
+  static constexpr int kQPieces = 1;
+  __device__ static void load(const bf16* qr, int col, uint32_t (&a)[kQPieces][2]) {
+    a[0][0] = *reinterpret_cast<const uint32_t*>(qr + col);
+    a[0][1] = *reinterpret_cast<const uint32_t*>(qr + col + 2);
+  }
+};
+
+template <>
+struct QFrags<float> {
+  static constexpr int kQPieces = 3;
+  __device__ static void load(const float* qr, int col, uint32_t (&a)[kQPieces][2]) {
+    split_pair(*reinterpret_cast<const float2*>(qr + col), a[0][0], a[1][0], a[2][0]);
+    split_pair(*reinterpret_cast<const float2*>(qr + col + 2), a[0][1], a[1][1], a[2][1]);
+  }
+};
+
+template <class Rows, class TQ>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const bf16* __restrict__ q,          // [N, Hq, D]
+    const TQ* __restrict__ q,            // [N, Hq, D]
     const uint8_t* __restrict__ k_pool,  // [P, Hkv, page, Rows::kBytes]
     const uint8_t* __restrict__ v_pool,  // [P, Hkv, page, Rows::kBytes]
     const bf16* __restrict__ k_scale,    // [P, Hkv, page] (read only if Rows::kScaled)
@@ -309,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ table,       // [N, MaxP]
     const int* __restrict__ lengths,     // [N]
     const PoolLength pool_len,
-    bf16* __restrict__ out,              // [N, Hq, D], written here when there is one split
+    TQ* __restrict__ out,                // [N, Hq, D], written here when there is one split
     float* __restrict__ part,            // [N, Hq, splits, kState], written when there are more
     int hkv, int group, int pool, int page, int split_rows, int vector_scales, float scale) {
   constexpr int kD = Rows::kD;
@@ -322,6 +372,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   constexpr int kLanesPerRow = Rows::kBytes / sizeof(Word);  // f32 P.V: one word per lane
   constexpr int kRowsPerStep = 32 / kLanesPerRow;
   constexpr int kScaleSlots = Rows::kScaled ? kTile : 1;
+  constexpr int kQPieces = QFrags<TQ>::kQPieces;         // 1 (bf16 q) or 3 (f32 q: h, m, l)
   static_assert(kStages * 2 * kTileBytes >= kWarps * kMaxGroup * kD * 4,
                 "the warps' partial sums reuse the ring");
   extern __shared__ __align__(16) uint8_t ring_smem[];
@@ -388,16 +439,17 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   stage_entries(1);
   gofr::cp_async_commit();
 
-  // Q as the A fragments of every step, rows >= group zero (read while the
-  // first entries arrive)
-  uint32_t qa[kSteps][2];
+  // Q as the A fragments of every step (of every piece of an f32 q), rows
+  // >= group zero (read while the first entries arrive)
+  uint32_t qa[kSteps][kQPieces][2];
   {
-    const bf16* qr = q + ((size_t)n * hq + h * group + min(quad, group - 1)) * kD;
+    const TQ* qr = q + ((size_t)n * hq + h * group + min(quad, group - 1)) * kD;
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      const int col = Rows::frag_col(c, s);
-      qa[s][0] = quad < group ? *reinterpret_cast<const uint32_t*>(qr + col) : 0u;
-      qa[s][1] = quad < group ? *reinterpret_cast<const uint32_t*>(qr + col + 2) : 0u;
+      QFrags<TQ>::load(qr, Rows::frag_col(c, s), qa[s]);
+#pragma unroll
+      for (int p = 0; p < kQPieces; ++p)
+        if (quad >= group) qa[s][p][0] = qa[s][p][1] = 0u;
     }
   }
   if (tid < group) {
@@ -447,8 +499,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int s = 0; s < kSteps; ++s) {
-        const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};
-        gofr::mma_bf16(sc, a, b[s][0], b[s][1]);
+        // the smallest piece first
+#pragma unroll
+        for (int p = kQPieces - 1; p >= 0; --p) {
+          const uint32_t a[4] = {qa[s][p][0], 0u, qa[s][p][1], 0u};
+          gofr::mma_bf16(sc, a, b[s][0], b[s][1]);
+        }
       }
       if (quad < group) {
 #pragma unroll
@@ -570,8 +626,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) o += sums[(w * kMaxGroup + g) * kD + tid];
         if (gridDim.z == 1) {
-          out[((size_t)n * hq + h * group + g) * kD + tid] =
-              __float2bfloat16(gofr::row_finish(o, l_s[g]));
+          gofr::store_out(out + ((size_t)n * hq + h * group + g) * kD + tid,
+                          gofr::row_finish(o, l_s[g]));
         } else {
           float* st = part + (((size_t)n * hq + h * group + g) * gridDim.z + split) * kState;
           st[tid] = o;
@@ -582,7 +638,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <class Rows>
+template <class Rows, class TQ = bf16>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* table, const void* lengths, void* out, void* scratch,
            int n, int hkv, int group, int pool, int page, int maxp, int split_rows, int splits,
@@ -593,18 +649,18 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+        paged_decode_kernel<Rows, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PoolLength pool_len{maxp, page};
   const bool aligned = (reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale)) % 16 == 0;
-  paged_decode_kernel<Rows><<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const uint8_t*>(k_pool),
+  paged_decode_kernel<Rows, TQ><<<dim3(n, hkv, splits), kThreads, kRingBytes, s>>>(
+      static_cast<const TQ*>(q), static_cast<const uint8_t*>(k_pool),
       static_cast<const uint8_t*>(v_pool), static_cast<const bf16*>(k_scale),
       static_cast<const bf16*>(v_scale), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), pool_len, static_cast<bf16*>(out),
+      static_cast<const int*>(lengths), pool_len, static_cast<TQ*>(out),
       static_cast<float*>(scratch), hkv, group, pool, page, split_rows,
       page % 8 == 0 && aligned, scale);
   if (splits > 1) {
@@ -612,7 +668,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
     if (err != cudaSuccess) return static_cast<int>(err);
     gofr::merge_splits<Rows::kD><<<dim3(n, hkv * group), Rows::kD, 0, s>>>(
         static_cast<const float*>(scratch), pool_len, static_cast<const int*>(lengths),
-        static_cast<bf16*>(out), split_rows, splits);
+        static_cast<TQ*>(out), split_rows, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -624,7 +680,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
 // holds n x Hq x splits x (D + 2) floats.
 
 // Kernel A: the bf16 pool has no scale planes. One entry point a head dim:
-// 128 (Llama-3-8B) and 64 (Llama one_b).
+// 128 (Llama-3-8B) and 64 (Llama one_b). (A's f32 build is paged_decode.cu's.)
 extern "C" int gofr_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const void* table, const void* lengths, void* out, void* scratch,
                                  int n, int hkv, int group, int pool, int page, int maxp,
@@ -660,6 +716,29 @@ extern "C" int gofr_paged_decode_q_d64(const void* q, const void* k_pool, const 
                                        int split_rows, int splits, float scale, void* stream) {
   return launch<Int8Rows<64>>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out, scratch, n,
                               hkv, group, pool, page, maxp, split_rows, splits, scale, stream);
+}
+
+// Kernel D under an f32 model: an f32 q (split into three bf16 pieces)
+// against the int8 pool, f32 out; head dims 128 and 64.
+extern "C" int gofr_paged_decode_q_f32(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* k_scale, const void* v_scale, const void* table,
+                                       const void* lengths, void* out, void* scratch, int n,
+                                       int hkv, int group, int pool, int page, int maxp,
+                                       int split_rows, int splits, float scale, void* stream) {
+  return launch<Int8Rows<128>, float>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out,
+                                      scratch, n, hkv, group, pool, page, maxp, split_rows, splits,
+                                      scale, stream);
+}
+
+extern "C" int gofr_paged_decode_q_d64_f32(const void* q, const void* k_pool, const void* v_pool,
+                                           const void* k_scale, const void* v_scale,
+                                           const void* table, const void* lengths, void* out,
+                                           void* scratch, int n, int hkv, int group, int pool,
+                                           int page, int maxp, int split_rows, int splits,
+                                           float scale, void* stream) {
+  return launch<Int8Rows<64>, float>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out,
+                                     scratch, n, hkv, group, pool, page, maxp, split_rows, splits,
+                                     scale, stream);
 }
 
 extern "C" int gofr_paged_decode_q4(const void* q, const void* k_pool, const void* v_pool,

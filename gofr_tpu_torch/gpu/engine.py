@@ -230,10 +230,12 @@ MAKE_CACHE = {("paged", ""): "make_paged_cache", ("paged", "int8"): "make_paged_
 # the head dims every decode kernel and append is built at (A, B, D, E, F,
 # G and the quantizing appends; C too)
 KERNEL_HEAD_DIMS = (128, 64)
-# the model dtypes the card serves: bf16 on every cache, f32 on the slot
-# cache alone (C, F and G have f32 builds; A, B, D, E, the quantizing
-# appends and W8A16 take bf16 only: ROADMAP Queue B 7b)
+# the model dtypes the card serves: bf16 on every cache; f32 on the slot
+# cache, the paged pool and the int8 pool (C, F, G, A, B, D and B-q have
+# f32 builds; E, B-q4, G-q and W8A16 take bf16 only: ROADMAP Queue B 7c)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the (kv_layout, kv_quantize) caches an f32 model is served on
+KERNEL_F32_CACHES = (("slot", ""), ("paged", ""), ("paged", "int8"))
 
 
 def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
@@ -248,32 +250,33 @@ def refuse_unbuilt_kernels(cfg: Any, device: torch.device, kv_layout: str = "slo
                            kv_quantize: str = "", quantize: str = "") -> None:
     """Raise before anything is allocated when the card has no kernel for
     the model on the cache it asks for: weights in a dtype other than bf16
-    and f32 (``KERNEL_DTYPES``); f32 on the paged layout, on a quantized
-    cache (``kv_quantize``) or with int8 weights (``quantize``), whose
-    kernels (A, B, D, E, the quantizing appends, W8A16) take bf16 only; or
-    a head dim the kernels are not built at (``KERNEL_HEAD_DIMS``). f32 on
-    the slot cache with no KV quantization and bf16 weights passes: C, F
-    and G have f32 builds. Without the refusal such a model would pass the
-    build and fail at its first launch, inside the engine's loop or its
-    warmup. The CPU serves all of them through the plain path."""
+    and f32 (``KERNEL_DTYPES``); f32 on the packed int4 pool or the int8
+    slot cache, or with int8 weights (``quantize``), whose kernels (E and
+    B-q4, G-q, W8A16) take bf16 only; or a head dim the kernels are not
+    built at (``KERNEL_HEAD_DIMS``). f32 on the slot cache, the paged pool
+    and the int8 pool (``KERNEL_F32_CACHES``) with no weight quantization
+    passes: C, F, G, A, B, D and B-q have f32 builds. Without the refusal
+    such a model would pass the build and fail at its first launch, inside
+    the engine's loop or its warmup. The CPU serves all of them through the
+    plain path."""
     if device.type != "cuda":
         return
     if cfg.dtype not in KERNEL_DTYPES:
         raise ValueError(
             f"a model in {cfg.dtype} on the card: the kernels take bf16, and f32 on the slot "
-            "cache (ROADMAP.md Queue B 7); serve ModelSpec(..., dtype=torch.bfloat16) or on "
-            "the CPU")
+            "cache, the paged pool and the int8 pool (ROADMAP.md Queue B 7); serve "
+            "ModelSpec(..., dtype=torch.bfloat16) or on the CPU")
     if cfg.dtype == torch.float32:
         unbuilt = [what for what, asked in (
-            ("the paged layout (kernels A and B)", kv_layout == "paged"),
-            (f"the {kv_quantize} KV cache (kernels D, E and the quantizing appends)", kv_quantize),
+            (f"the {kv_quantize} KV cache on kv_layout={kv_layout!r} (kernels E and B-q4, "
+             "G-q)", (kv_layout, kv_quantize) not in KERNEL_F32_CACHES),
             ("int8 weights (W8A16 takes bf16 activations)", quantize)) if asked]
         if unbuilt:
             raise ValueError(
                 f"an f32 model on the card with {' and '.join(unbuilt)}: those kernels take bf16 "
-                "only (ROADMAP.md Queue B 7, 'f32 inputs'); serve ModelSpec(..., "
-                "dtype=torch.bfloat16), or the f32 model on kv_layout='slot' with no KV or "
-                "weight quantization, or on the CPU")
+                "only (ROADMAP.md Queue B 7c, 'f32 inputs'); serve ModelSpec(..., "
+                "dtype=torch.bfloat16), or the f32 model on kv_layout='slot' or 'paged' with "
+                "kv_quantize '' (or 'int8' on the pool) and no weight quantization, or on the CPU")
     d = cfg.head_size
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} on the card: the decode kernels and appends are built at "
@@ -1641,8 +1644,8 @@ class GenerateEngine(_EngineBase):
                                    role=self.role)
         plans = split_candidates(n, hkv, span)
         ref: list[torch.Tensor] = []
-        # an f32 slot cache's F is held to its f32 build's limits
-        lim = slot_decode_mod.F32 if mod is slot_decode_mod and cfg.dtype == torch.float32 else mod
+        # an f32 model's builds (F, A, D) are held to their f32 limits
+        lim = getattr(mod, "F32", mod) if cfg.dtype == torch.float32 else mod
         cands = {autotune.plan_name(r): self._at_fn(op, lim, r, skey, q, planes, lengths, ref)
                  for r in plans}
         t0 = time.monotonic()
@@ -1691,10 +1694,13 @@ class GenerateEngine(_EngineBase):
         return run
 
     def _kv_dtype(self) -> str:
-        """The cache's dtype as the tuner's records and pins name it:
-        ``int8`` / ``int4`` on a quantized cache, else the planes' dtype
-        (``bfloat16``, ``float32``)."""
-        return self.kv_quantize or autotune.dtype_name(self.cache.k.dtype)
+        """The cache's dtype as the tuner's records and pins name it: on a
+        quantized cache its format and the query's dtype (``int8/bfloat16``,
+        ``int8/float32``: kernel D has a build for each), else the planes'
+        dtype (``bfloat16``, ``float32``), as the launchers name them."""
+        if self.kv_quantize:
+            return paged_decode_q_mod.pin_dtype(self.kv_quantize, self.cfg.dtype)
+        return autotune.dtype_name(self.cache.k.dtype)
 
     def _launch_plan(self, op: str, rows: int, skey: str, q: torch.Tensor, planes: tuple,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -3294,8 +3300,8 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     ``quantize`` keyword, and ``ENGINE_QUANTIZE`` only warns there, as JAX
     reads it (engine.py:4084-4109). A model (or draft) the card has no
     kernel for (``refuse_unbuilt_kernels``: a dtype other than bf16 and
-    f32, f32 on the paged pool, a quantized cache or with int8 weights, a
-    head dim other than 128 and 64) raises before any weight is drawn.
+    f32, f32 on the int4 pool or the int8 slot cache or with int8 weights,
+    a head dim other than 128 and 64) raises before any weight is drawn.
     Runs on the card unless ``device`` says otherwise."""
     if isinstance(config, ModelSpec):
         spec = config

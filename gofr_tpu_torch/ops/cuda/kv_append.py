@@ -23,19 +23,27 @@ All five are built at head dim 128 (Llama-3-8B) and 64 (GPT-2, Llama
 ``kv_append_d64``, ``kv_append_slot`` / ``kv_append_slot_d64``,
 ``kv_append_q`` / ``kv_append_q_d64``, ``kv_append_q4`` /
 ``kv_append_q4_d64`` and ``kv_append_slot_q`` / ``kv_append_slot_q_d64``.
-G is also built for f32 caches (the f32 models: GPT-2 small in its own
-dtype), counted as ``kv_append_slot_f32`` / ``kv_append_slot_d64_f32``:
-``kv_append_slot`` routes 4-byte planes there. B and the quantizing
-appends take 16-bit rows only; the engine refuses an f32 model on the
-pools (ROADMAP Queue B 7b).
+G and B are also built for f32 caches (the f32 models: GPT-2 small in its
+own dtype, Llama on the f32 slot cache and the f32 pool), counted as
+``kv_append_slot_f32`` / ``kv_append_slot_d64_f32`` and ``kv_append_f32``
+/ ``kv_append_d64_f32``: ``kv_append_slot`` and ``kv_append`` route 4-byte
+planes there. B-q takes f32 rows too (an f32 model on the int8 pool: the
+row quantized from its own f32 values), counted as ``kv_append_q_f32`` /
+``kv_append_q_d64_f32``. B-q4 and G-q take bf16 rows only; the engine
+refuses an f32 model on the int4 pool and the int8 slot cache (ROADMAP
+Queue B 7c).
 
 The launchers take what the model hands them and convert nothing: rows
-[N, Hkv, D] in the cache's type (bf16 for the quantized caches),
+[N, Hkv, D] in the cache's type (the model's, bf16 or f32 on the int8
+pool, bf16 on the other quantized caches),
 ``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
 (``Llama.decode_step`` converts both once per step). They validate, launch
 and count, with one check each of what the pointers they pass need (on
 the card, shapes, types, contiguous); the C entry points refuse rows that
 are not 8-byte aligned (16 for f32 rows of 128) before they launch.
+Limit against the plain versions on f32 rows: bit for bit, as on bf16
+rows; the nearest planted fault (scripts/torch_kernel_mutants.py), B-q
+reading its f32 rows as bf16 halves, is caught by that check.
 """
 
 from __future__ import annotations
@@ -48,13 +56,16 @@ from gofr_tpu_torch.ops import cuda
 
 HEAD_DIMS = (128, 64)
 # the C entry point of each build
-ENTRY = {128: "gofr_kv_append", 64: "gofr_kv_append_d64"}
+ENTRY = {(128, torch.bfloat16): "gofr_kv_append", (64, torch.bfloat16): "gofr_kv_append_d64",
+         (128, torch.float32): "gofr_kv_append_f32", (64, torch.float32): "gofr_kv_append_d64_f32"}
 SLOT_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_slot",
               (64, torch.bfloat16): "gofr_kv_append_slot_d64",
               (128, torch.float32): "gofr_kv_append_slot_f32",
               (64, torch.float32): "gofr_kv_append_slot_d64_f32"}
-Q_ENTRY = {128: "gofr_kv_append_q", 64: "gofr_kv_append_q_d64"}
-Q4_ENTRY = {128: "gofr_kv_append_q4", 64: "gofr_kv_append_q4_d64"}
+Q_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_q", (64, torch.bfloat16): "gofr_kv_append_q_d64",
+           (128, torch.float32): "gofr_kv_append_q_f32",
+           (64, torch.float32): "gofr_kv_append_q_d64_f32"}
+Q4_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_q4", (64, torch.bfloat16): "gofr_kv_append_q4_d64"}
 SLOT_Q_ENTRY = {128: "gofr_kv_append_slot_q", 64: "gofr_kv_append_slot_q_d64"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -63,16 +74,18 @@ _SLOT_Q_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p
 # what each launcher takes, the message of its one check
 _TAKES = "takes contiguous tensors on the card: "
 _POOL_INDEX = "int32 table [N, MaxP] and positions [N]"
-_B_TAKES = (f"kv_append {_TAKES}two 16-bit pools [P, Hkv, page, D] of one type, rows "
+_B_TAKES = (f"kv_append {_TAKES}two 16-bit or f32 pools [P, Hkv, page, D] of one type, rows "
             f"[N, Hkv, D] of that type, D 128 or 64, {_POOL_INDEX}")
 _G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit or f32 caches [N, Hkv, Smax, D] of one type, "
             "rows [N, Hkv, D] of that type, D 128 or 64, int32 positions [N]")
 _BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, D] with bf16 scales [P, Hkv, page], "
-             f"bf16 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
+             f"bf16 or f32 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
 _BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, D/2] with bf16 scales "
-              f"[P, Hkv, page], bf16 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
+              f"[P, Hkv, page], bf16 rows [N, Hkv, D] (f32 rows: ROADMAP.md Queue B 7c), "
+              f"D 128 or 64, {_POOL_INDEX}")
 _GQ_TAKES = (f"kv_append_slot_q {_TAKES}int8 caches [N, Hkv, Smax, D] with bf16 scales "
-             "[N, Hkv, Smax], bf16 rows [N, Hkv, D], D 128 or 64, int32 positions [N]")
+             "[N, Hkv, Smax], bf16 rows [N, Hkv, D] (f32 rows: ROADMAP.md Queue B 7c), D 128 or "
+             "64, int32 positions [N]")
 
 
 def _planes(k_layer: torch.Tensor, v_layer: torch.Tensor, dtype: torch.dtype, row: int) -> bool:
@@ -115,21 +128,25 @@ def kv_append(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
               positions: torch.Tensor, k_new: torch.Tensor,
               v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: write k_new/v_new [N, Hkv, D] into the layer slices
-    [P, Hkv, page, D] (16-bit) at each slot's position through ``table``
-    [N, MaxP], in place, and return the slices. Launches the kernel, or
-    raises."""
+    [P, Hkv, page, D] (16-bit, or f32) at each slot's position through
+    ``table`` [N, MaxP], in place, and return the slices. 16-bit pools go
+    to the bf16 rows' build, f32 pools to the f32 build. Launches the
+    kernel, or raises."""
     pool, hkv, page, d = k_layer.shape
     n = k_new.shape[0]
+    size = k_layer.element_size()
     cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, k_layer.dtype, d)
-                 and k_layer.element_size() == 2 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
+                 and (size == 2 or k_layer.dtype == torch.float32)
+                 and _rows(k_new, v_new, n, hkv, k_layer.dtype, d)
                  and _pool_index(table, positions, n), _B_TAKES)
     if n == 0:
         return k_layer, v_layer
-    fn = cuda.bind(ENTRY[d], _ARGTYPES)
+    build = d, torch.bfloat16 if size == 2 else torch.float32
+    fn = cuda.bind(ENTRY[build], _ARGTYPES)
     cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                   table.data_ptr(), positions.data_ptr(), n, table.shape[1], pool, hkv, page, d,
-                  cuda.stream_of(k_layer)), "kv_append")
-    _COUNTED[d].launches += 1
+                  cuda.stream_of(k_layer)), _COUNTED[build].__name__)
+    _COUNTED[build].launches += 1
     return k_layer, v_layer
 
 
@@ -142,9 +159,32 @@ def kv_append_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Ten
     return kv_append(k_layer, v_layer, table, positions, k_new, v_new)
 
 
+def kv_append_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
+                  positions: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's f32 build under its own name: ``kv_append`` on f32 pools
+    and rows (any other type raises); counted by head dim as
+    ``kv_append_f32`` (128) or ``kv_append_d64_f32``."""
+    cuda.require(k_layer.dtype == torch.float32, f"kv_append_f32 takes f32 pools, got {k_layer.dtype}")
+    return kv_append(k_layer, v_layer, table, positions, k_new, v_new)
+
+
+def kv_append_d64_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, table: torch.Tensor,
+                      positions: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's f32 build at head dim 64 under its own name (any other
+    type or head dim raises)."""
+    cuda.require(k_layer.shape[-1] == 64,
+                 f"kv_append_d64_f32 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append_f32(k_layer, v_layer, table, positions, k_new, v_new)
+
+
 kv_append.launches = 0
 kv_append_d64.launches = 0
-_COUNTED = {128: kv_append, 64: kv_append_d64}
+kv_append_f32.launches = 0
+kv_append_d64_f32.launches = 0
+_COUNTED = {(128, torch.bfloat16): kv_append, (64, torch.bfloat16): kv_append_d64,
+            (128, torch.float32): kv_append_f32, (64, torch.float32): kv_append_d64_f32}
 
 
 def kv_append_slot(k_layer: torch.Tensor, v_layer: torch.Tensor, positions: torch.Tensor,
@@ -210,30 +250,34 @@ _SLOT_COUNTED = {(128, torch.bfloat16): kv_append_slot, (64, torch.bfloat16): kv
 
 def _pool_q(counted: dict, entries: dict, values_dtype: torch.dtype, per_byte: int, takes: str,
             k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new) -> tuple:
+    """A quantizing pool append: its checks (rows of a type ``entries``
+    builds), then the C entry point ``entries[D, rows' dtype]``, counted on
+    ``counted`` under the same key."""
     pool, hkv, page, _ = k_layer.shape
     n, d = k_new.shape[0], k_new.shape[-1]
     cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, values_dtype, d // per_byte)
                  and _scales(k_scale, v_scale, k_layer.shape[:-1])
-                 and _rows(k_new, v_new, n, hkv, torch.bfloat16, d)
+                 and (d, k_new.dtype) in entries and _rows(k_new, v_new, n, hkv, k_new.dtype, d)
                  and _pool_index(table, positions, n), takes)
+    build = d, k_new.dtype
     if n > 0:
-        fn = cuda.bind(entries[d], _Q_ARGTYPES)
+        fn = cuda.bind(entries[build], _Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                       k_new.data_ptr(), v_new.data_ptr(), table.data_ptr(), positions.data_ptr(), n,
                       table.shape[1], pool, hkv, page, d, cuda.stream_of(k_layer)),
-                   counted[d].__name__)
-        counted[d].launches += 1
+                   counted[build].__name__)
+        counted[build].launches += 1
     return k_layer, v_layer, k_scale, v_scale
 
 
 def kv_append_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
                 v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
                 k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Kernel B-q: quantize k_new/v_new [N, Hkv, D] bf16 to int8 rows and
-    append them, with their bf16 scales, to the int8 pool's layer slices
-    (values [P, Hkv, page, D], scales [P, Hkv, page]) through ``table``, in
-    place, by B's drop rule; returns the four slices. D is 128 or 64.
-    Launches the kernel, or raises."""
+    """Kernel B-q: quantize k_new/v_new [N, Hkv, D] bf16 or f32 to int8
+    rows and append them, with their bf16 scales, to the int8 pool's layer
+    slices (values [P, Hkv, page, D], scales [P, Hkv, page]) through
+    ``table``, in place, by B's drop rule; returns the four slices. D is 128
+    or 64. Launches the kernel, or raises."""
     return _pool_q(_Q_COUNTED, Q_ENTRY, torch.int8, 1, _BQ_TAKES,
                    k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
@@ -247,9 +291,32 @@ def kv_append_q_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch
     return kv_append_q(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
+def kv_append_q_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                    v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q's f32-row build under its own name: ``kv_append_q`` on f32
+    rows (any other type raises); counted by head dim as
+    ``kv_append_q_f32`` (128) or ``kv_append_q_d64_f32``."""
+    cuda.require(k_new.dtype == torch.float32, f"kv_append_q_f32 takes f32 rows, got {k_new.dtype}")
+    return kv_append_q(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
+def kv_append_q_d64_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                        v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q's f32-row build at head dim 64 under its own name (any
+    other type or head dim raises)."""
+    cuda.require(k_new.shape[-1] == 64,
+                 f"kv_append_q_d64_f32 takes head_dim 64, got {k_new.shape[-1]}")
+    return kv_append_q_f32(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
 kv_append_q.launches = 0
 kv_append_q_d64.launches = 0
-_Q_COUNTED = {128: kv_append_q, 64: kv_append_q_d64}
+kv_append_q_f32.launches = 0
+kv_append_q_d64_f32.launches = 0
+_Q_COUNTED = {(128, torch.bfloat16): kv_append_q, (64, torch.bfloat16): kv_append_q_d64,
+              (128, torch.float32): kv_append_q_f32, (64, torch.float32): kv_append_q_d64_f32}
 
 
 def kv_append_q4(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
@@ -273,7 +340,7 @@ def kv_append_q4_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torc
 
 kv_append_q4.launches = 0
 kv_append_q4_d64.launches = 0
-_Q4_COUNTED = {128: kv_append_q4, 64: kv_append_q4_d64}
+_Q4_COUNTED = {(128, torch.bfloat16): kv_append_q4, (64, torch.bfloat16): kv_append_q4_d64}
 
 
 def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,

@@ -10,7 +10,9 @@ between the two by the tensor's device.
 
 Built at head dim 128 and 64, as kernel D: ``paged_decode_q4.launches``
 counts the launches at 128, ``paged_decode_q4_d64.launches`` those at 64,
-and both take the split plan the autotuner pinned for ``paged_decode_q4``.
+and both take the split plan the autotuner pinned for ``paged_decode_q4``
+at ``int4/bfloat16``. The query is bf16 only: an f32 q raises (its build
+is ROADMAP.md Queue B 7c).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from gofr_tpu_torch.ops.cuda.paged_decode_q import launch_quantized
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
 # the C entry point of each build
-ENTRY = {128: "gofr_paged_decode_q4", 64: "gofr_paged_decode_q4_d64"}
+ENTRY = {(128, torch.bfloat16): "gofr_paged_decode_q4",
+         (64, torch.bfloat16): "gofr_paged_decode_q4_d64"}
 
 
 def paged_decode_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
@@ -63,4 +66,4 @@ def paged_decode_q4_d64(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.T
 
 paged_decode_q4.launches = 0
 paged_decode_q4_d64.launches = 0
-_COUNTED = {128: paged_decode_q4, 64: paged_decode_q4_d64}
+_COUNTED = {(128, torch.bfloat16): paged_decode_q4, (64, torch.bfloat16): paged_decode_q4_d64}

@@ -29,13 +29,18 @@ row read or written at twice its stride stays inside the stack. Since D,
 E, B-q, B-q4 and G-q are built at 64 too, their 64 builds have faults of
 their own in ``ONLY``; those that read or write past a buffer
 (``ISOLATED``) have their faulting kernels checked in a child process.
-C, F and G also have f32 builds: F and G's are their templates' f32
-instantiations, so a fault in those bodies lands in the f32 builds too;
-C's f32 build is a kernel of its own beside the bf16 one in the same
-source, written the same way, so a C mutant's text occurs in both bodies
-(``OCCURS``) and is planted in both. The f32-only mutants in ``ONLY`` (C's
-lo products dropped, F's P rounded to bf16, G's half row) must fail the
-f32 checks while the bf16 checks pass.
+C, F, G, A, B, D and B-q also have f32 builds: F and G's are their
+templates' f32 instantiations, A's f32 build is F's f32 body with the
+pool's address policy and B's G's f32 rows with the pool's address, D's
+f32-q build is D's template with a three-piece q and B-q's f32-row build
+B-q's with F32Rows as its input, so a fault in those bodies lands in the
+f32 builds too; C's f32 build is a kernel of its own beside the bf16 one
+in the same source, written the same way, so a C mutant's text occurs in
+both bodies (``OCCURS``) and is planted in both. The f32-only mutants in
+``ONLY`` (C's lo products dropped, F's and A's P rounded to bf16, G's and
+B's half row, A reading the next page's table entry for the last tile of
+each page, D's q rounded to bf16 once, B-q's f32 rows read as bf16
+halves) must fail the f32 checks while the bf16 checks pass.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -221,11 +226,22 @@ MUTANTS = [
     # bf16 build does), G's f32 rows half written
     ("flash_attention_f32: the lo terms dropped (plain TF32)", "mma.cuh",
      "  mma_tf32(d, a_lo, b0.hi, b1.hi);\n  mma_tf32(d, a_hi, b0.lo, b1.lo);\n", "", True),
-    ("decode_attention_f32: P rounded to bf16", "online_softmax.cuh",
+    ("decode_attention_f32/paged_decode_f32: P rounded to bf16", "online_softmax.cuh",
      "row[lane] = pa;", "row[lane] = round_bf16(pa);", True),
-    ("kv_append_slot_f32: half of each row left unwritten", "kv_append.cu",
+    ("kv_append_slot_f32/kv_append_f32: half of each row left unwritten", "kv_append.cu",
      "reinterpret_cast<Raw*>(dst)[lane] = raw;",
      "if (lane < 16) reinterpret_cast<Raw*>(dst)[lane] = raw;", True),
+    # A's f32 build (the pool's address policy): the last 32-row tile of
+    # each page read through the next page's table entry
+    ("paged_decode_f32: the next table entry at a page edge", "paged_decode.cu",
+     "const int logical = t / page;", "const int logical = (t + 32) / page;", True),
+    # D's f32-q build: q rounded to bf16 once (the m and l pieces dropped)
+    ("paged_decode_q_f32: q rounded to bf16 once", "paged_decode_q.cu",
+     "  m = *reinterpret_cast<const uint32_t*>(&m2);\n  l = *reinterpret_cast<const uint32_t*>(&l2);\n",
+     "  m = l = 0u;\n", True),
+    # B-q's f32-row build: its f32 rows read as bf16 halves
+    ("kv_append_q_f32: f32 rows read as bf16 halves", "kv_append.cu",
+     "    In::unpack(raw, x);\n", "    Bf16Rows<D>::unpack(make_uint2(raw.x, raw.y), x);\n", True),
     # p kept in f32 instead of rounded to bf16 before P.V (A packs it for
     # the tensor cores by truncation, F multiplies it in f32): a relative
     # change of at most 2^-8 on each probability, averaged over hundreds of
@@ -243,6 +259,9 @@ _APPEND128 = ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_
 _QAPPEND64 = ("kv_append_q_d64", "kv_append_q4_d64", "kv_append_slot_q_d64")
 _F64 = (("decode_attention_d64",), ("decode_attention",))
 _C32 = ("flash_attention_f32", "flash_attention_d64_f32")
+_F_BF16 = ("decode_attention", "decode_attention_d64")
+_F32 = ("decode_attention_f32", "decode_attention_d64_f32")
+_A32 = ("paged_decode_f32", "paged_decode_d64_f32")
 ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "flash_attention_d64: causal diagonal masked": _C64,
         "paged_decode_d64: half of each output row never summed":
@@ -256,21 +275,28 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "kv_append_d64/_slot_d64: a 128-wide row stride":
             (("kv_append_d64", "kv_append_slot_d64", *_QAPPEND64), _APPEND128),
         "paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64":
-            (("paged_decode_q_d64", "paged_decode_q4_d64"), (*_DECODE128, "paged_decode_d64")),
+            (("paged_decode_q_d64", "paged_decode_q4_d64", "paged_decode_q_d64_f32"),
+             (*_DECODE128, "paged_decode_d64")),
         "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)":
-            (("paged_decode_q_d64",), (*_DECODE128, "paged_decode_q4_d64")),
+            (("paged_decode_q_d64", "paged_decode_q_d64_f32"), (*_DECODE128, "paged_decode_q4_d64")),
         "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)":
             (("paged_decode_q4_d64",), (*_DECODE128, "paged_decode_q_d64")),
         "kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row":
             (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64")),
         "flash_attention_f32: the lo terms dropped (plain TF32)":
             (_C32, ("flash_attention", "flash_attention_d64")),
-        "decode_attention_f32: P rounded to bf16":
-            (("decode_attention_f32", "decode_attention_d64_f32"),
-             ("decode_attention", "decode_attention_d64", *_DECODE128)),
-        "kv_append_slot_f32: half of each row left unwritten":
-            (("kv_append_slot_f32", "kv_append_slot_d64_f32"),
-             (*_APPEND128, "kv_append_d64", "kv_append_slot_d64", *_QAPPEND64))}
+        "decode_attention_f32/paged_decode_f32: P rounded to bf16":
+            ((*_F32, *_A32), (*_F_BF16, *_DECODE128)),
+        "kv_append_slot_f32/kv_append_f32: half of each row left unwritten":
+            (("kv_append_slot_f32", "kv_append_slot_d64_f32", "kv_append_f32", "kv_append_d64_f32"),
+             (*_APPEND128, "kv_append_d64", "kv_append_slot_d64", *_QAPPEND64)),
+        "paged_decode_f32: the next table entry at a page edge":
+            (_A32, (*_F_BF16, *_F32, *_DECODE128)),
+        "paged_decode_q_f32: q rounded to bf16 once":
+            (("paged_decode_q_f32", "paged_decode_q_d64_f32"),
+             (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64")),
+        "kv_append_q_f32: f32 rows read as bf16 halves":
+            (("kv_append_q_f32", "kv_append_q_d64_f32"), (*_APPEND128, *_QAPPEND64))}
 # Mutants whose text occurs in both of C's bodies (the bf16 and the f32
 # kernel), planted in both: how many times it occurs
 OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",

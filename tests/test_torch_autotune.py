@@ -418,7 +418,9 @@ def test_engine_warmup_measures_pins_reports_and_caches(tuned, kv):
     rec = rep["decisions"][op]
     assert rec["source"] == "measured" and rep["rule"] == f"rows{plans[0]}"
     assert list(rec["timings_ms"]) == [f"rows{r}" for r in plans] and "errors" not in rec
-    assert rec["kv_dtype"] == (quant or "float32")
+    # a quantized pool's pins carry the query's dtype too (kernel D has an
+    # f32-q build): the tiny model is f32
+    assert rec["kv_dtype"] == (f"{quant}/float32" if quant else "float32")
     gauge = c.metrics.get("app_tpu_kernel_backend")
     vals = {dict(ls)["backend"]: v for ls, v in gauge._values.items() if dict(ls)["op"] == op}
     assert vals == {f"rows{r}": (1.0 if f"rows{r}" == winner else 0.0) for r in plans}

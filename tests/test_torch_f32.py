@@ -181,8 +181,9 @@ def as_if_on_the_card(monkeypatch):
 def test_f32_launchers_bind_their_builds_and_count_apart(as_if_on_the_card, d):
     """C, F and G on f32 tensors bind the f32 entry points and count under
     the ``_f32`` names (``_d64_f32`` at 64); the same calls in bf16 bind
-    the bf16 builds; fp16 is refused by C and F, and f32 planes by the paged
-    append B, before any pointer reaches C."""
+    the bf16 builds; fp16 is refused by C and F, and the paged append B,
+    which takes f32 pools too, refuses f32 pools with bf16 rows and pools
+    of 8-byte elements, before any pointer reaches C."""
     from gofr_tpu_torch.ops import cuda
     from gofr_tpu_torch.ops.cuda.decode_attention import decode_attention, decode_attention_f32
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_f32
@@ -224,10 +225,14 @@ def test_f32_launchers_bind_their_builds_and_count_apart(as_if_on_the_card, d):
     bf_cache = torch.zeros(n, hkv, smax, d, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="f32"):
         kv_append_slot_f32(bf_cache, bf_cache, lengths, bf_cache[:, :, 0], bf_cache[:, :, 0])
-    pool = torch.zeros(5, hkv, 16, d)
-    with pytest.raises(ValueError, match="16-bit pools"):
-        kv_append(pool, pool, torch.zeros(n, 4, dtype=torch.int32), lengths, pool[:n, :, 0],
-                  pool[:n, :, 0])
+    pool, table = torch.zeros(5, hkv, 16, d), torch.zeros(n, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-bit or f32 pools"):
+        kv_append(pool, pool, table, lengths, pool[:n, :, 0].to(torch.bfloat16),
+                  pool[:n, :, 0].to(torch.bfloat16))
+    wide = pool.to(torch.float64)
+    with pytest.raises(ValueError, match="16-bit or f32 pools"):
+        kv_append(wide, wide, table, lengths, wide[:n, :, 0].contiguous(),
+                  wide[:n, :, 0].contiguous())
     assert sum(cuda.launch_counts().values()) == 6
 
 

@@ -30,7 +30,9 @@ _KERNELS = ("paged_decode", "paged_decode_d64", "kv_append", "kv_append_d64", "f
             "decode_attention_f32", "decode_attention_d64_f32", "kv_append_slot",
             "kv_append_slot_d64", "kv_append_slot_f32", "kv_append_slot_d64_f32", "kv_append_q",
             "kv_append_q_d64", "kv_append_q4", "kv_append_q4_d64", "kv_append_slot_q",
-            "kv_append_slot_q_d64", "w8a16")
+            "kv_append_slot_q_d64", "paged_decode_f32", "paged_decode_d64_f32", "kv_append_f32",
+            "kv_append_d64_f32", "paged_decode_q_f32", "paged_decode_q_d64_f32", "kv_append_q_f32",
+            "kv_append_q_d64_f32", "w8a16")
 
 
 def _t(a):

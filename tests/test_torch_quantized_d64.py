@@ -454,7 +454,7 @@ def test_the_64_builds_take_the_plan_the_autotuner_pinned(op, monkeypatch):
     pinned = 512 if rule != 512 else 256
     key = autotune.shape_key(n, hq, hkv, D, page, maxp, pool)
     with autotune.decision_scope({op: autotune.plan_name(pinned)}, {op: key},
-                                 {op: "int8" if per_byte == 1 else "int4"}):
+                                 {op: "int8/bfloat16" if per_byte == 1 else "int4/bfloat16"}):
         launch(q, plane, plane, s, s, table, lengths)
         launch(q, plane[:-1].contiguous(), plane[:-1].contiguous(), s[:-1].contiguous(),
                s[:-1].contiguous(), table, lengths)
@@ -501,11 +501,14 @@ def _configs():
 
 
 # the caches (layout, kv_quantize) and weight quantization an f32 model
-# asks for that have no f32 kernel (A, B; D, E and the quantizing appends;
-# W8A16), and those every model asks for
-_F32_UNBUILT = {"gpt2": [("paged", "", ""), ("slot", "int8", ""), ("slot", "", "int8")],
-                "llama": [("paged", "", ""), ("paged", "int8", ""), ("paged", "int4", ""),
-                          ("slot", "int8", ""), ("slot", "", "int8"), ("paged", "", "int8")]}
+# asks for that have no f32 kernel (E and B-q4; G-q; W8A16), those that do
+# (A and B on the f32 pool, D and B-q on the int8 pool: the refusal lets
+# them through to the weight draw; GPT-2, which has no pool, is refused
+# after it, by the engine, as in bf16), and those every model asks for
+_F32_UNBUILT = {"gpt2": [("slot", "int8", ""), ("slot", "", "int8")],
+                "llama": [("paged", "int4", ""), ("slot", "int8", ""), ("slot", "", "int8"),
+                          ("paged", "", "int8")]}
+_F32_BUILT = {"gpt2": [("paged", "", "")], "llama": [("paged", "", ""), ("paged", "int8", "")]}
 _ALL_CACHES = {"gpt2": [("paged", "", ""), ("slot", "", "")],
                "llama": [("paged", "", ""), ("paged", "int8", ""), ("paged", "int4", ""),
                          ("slot", "", ""), ("slot", "int8", "")]}
@@ -519,9 +522,10 @@ _ALL_CACHES = {"gpt2": [("paged", "", ""), ("slot", "", "")],
                                         ("gpt2_small_fp16", "take bf16, and f32")])
 def test_unbuilt_models_are_refused_on_the_card_before_any_weight(on_the_card, name, match):
     """An f32 generate model (its config's default dtype: GPT-2 small, the
-    tiny Llama at head dim 64) on the paged pool, a quantized cache or with
-    int8 weights names Queue B 7 and the fix; a head dim other than 128 and
-    64, and a dtype other than bf16 and f32 (fp16), is refused on every
+    tiny Llama at head dim 64) on the int4 pool, the int8 slot cache or
+    with int8 weights names Queue B 7 and the fix; on the paged pool and
+    the int8 pool it goes on to the weight draw; a head dim other than 128
+    and 64, and a dtype other than bf16 and f32 (fp16), is refused on every
     cache; all before a weight is drawn. The CPU refuses none of them."""
     from gofr_tpu_torch.models import GPT2Config
 
@@ -535,6 +539,11 @@ def test_unbuilt_models_are_refused_on_the_card_before_any_weight(on_the_card, n
             on_the_card.build_engine(cfg, kv_quantize=kind, kv_layout=layout, quantize=quantize)
         if match == "Queue B 7":
             assert "dtype=torch.bfloat16" in str(err.value) and "kv_layout='slot'" in str(err.value)
+    if cfg.dtype == torch.float32:
+        for layout, kind, quantize in _F32_BUILT[family]:
+            with pytest.raises(_Drawn):
+                on_the_card.build_engine(cfg, kv_quantize=kind, kv_layout=layout,
+                                         quantize=quantize)
     on_the_card.refuse_unbuilt_kernels(cfg, torch.device("cpu"), "paged", "int4", "int8")
 
 
@@ -577,8 +586,9 @@ def test_the_model_spec_route_refuses_f32_before_any_weight(on_the_card):
     """``build_engine(ModelSpec(...), container)``, the App's route: GPT-2
     asked for in f32 goes on to draw on its default layout, the slot cache,
     and raises, naming Queue B 7, before a weight is drawn with
-    ``ENGINE_QUANTIZE=int8`` or an int8 slot cache; Llama one_b in f32 is
-    refused on its default layout, the pool, and drawn on the slot cache;
+    ``ENGINE_QUANTIZE=int8`` or an int8 slot cache; Llama one_b in f32 goes
+    on to draw on its default layout, the pool (A and B's f32 builds), on
+    the int8 pool and on the slot cache, and is refused on the int4 pool;
     ``ModelSpec("gpt2")`` takes the spec's default dtype, bf16, and goes on
     to draw; so does bf16 Llama one_b on the int4 pool."""
     from gofr_tpu_torch.container import new_mock_container
@@ -593,8 +603,14 @@ def test_the_model_spec_route_refuses_f32_before_any_weight(on_the_card):
             {"ENGINE_QUANTIZE": "int8"}))
     with pytest.raises(ValueError, match="Queue B 7"):
         on_the_card.build_engine(ModelSpec("gpt2", dtype=f32), c, kv_quantize="int8")
-    with pytest.raises(ValueError, match="Queue B 7"):
+    with pytest.raises(_Drawn):
         on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c)
+    with pytest.raises(_Drawn):
+        on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c,
+                                 kv_quantize="int8")
+    with pytest.raises(ValueError, match="Queue B 7"):
+        on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c,
+                                 kv_quantize="int4")
     with pytest.raises(_Drawn):
         on_the_card.build_engine(ModelSpec("llama", LlamaConfig.one_b(), dtype=f32), c,
                                  kv_layout="slot")
@@ -609,20 +625,23 @@ def test_the_model_spec_route_refuses_f32_before_any_weight(on_the_card):
 def test_the_engine_refuses_an_f32_model_or_draft_before_its_cache(on_the_card, llama64):
     """``GenerateEngine`` itself refuses a model (or a speculative draft)
     the card has no kernel for before it makes a pool: the f32 model on an
-    int8 pool, on its default layout (the pool) and with int8 weights
-    (``QLinear`` in it), an fp16 draft, a draft at head dim 16; a bf16 model
-    at head dim 64 with an int8 pool, the f32 model on the slot cache and a
-    bf16 target with the f32 draft pass the refusal and meet the next check
-    (the model lives on the CPU, or on meta)."""
+    int4 pool and with int8 weights (``QLinear`` in it), an fp16 draft, a
+    draft at head dim 16; the f32 model on an int8 pool and on its default
+    layout (the pool), a bf16 model at head dim 64 with an int8 pool, the
+    f32 model on the slot cache and a bf16 target with the f32 draft pass
+    the refusal and meet the next check (the model lives on the CPU, or on
+    meta)."""
     from gofr_tpu_torch.models.llama import LlamaConfig
     from gofr_tpu_torch.ops.quant import quantize_tree
 
     _, _, model = llama64
     assert model.cfg.dtype == torch.float32
-    with pytest.raises(ValueError, match="Queue B 7"):
+    with pytest.raises(ValueError, match="model lives on cpu"):
         on_the_card.GenerateEngine(model, device="cuda", kv_quantize="int8")
-    with pytest.raises(ValueError, match="Queue B 7"):
+    with pytest.raises(ValueError, match="model lives on cpu"):
         on_the_card.GenerateEngine(model, device="cuda")
+    with pytest.raises(ValueError, match="Queue B 7"):
+        on_the_card.GenerateEngine(model, device="cuda", kv_quantize="int4")
     with pytest.raises(ValueError, match="int8 weights"):
         on_the_card.GenerateEngine(quantize_tree(model), device="cuda", kv_layout="slot")
     with pytest.raises(ValueError, match="model lives on cpu"):

@@ -157,6 +157,14 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_kv_append_slot_q_d64": kv_append._SLOT_Q_ARGTYPES,
         "gofr_kv_append_slot_f32": kv_append._SLOT_ARGTYPES,
         "gofr_kv_append_slot_d64_f32": kv_append._SLOT_ARGTYPES,
+        "gofr_paged_decode_f32": paged_decode._ARGTYPES,
+        "gofr_paged_decode_d64_f32": paged_decode._ARGTYPES,
+        "gofr_paged_decode_q_f32": paged_decode_q._ARGTYPES,
+        "gofr_paged_decode_q_d64_f32": paged_decode_q._ARGTYPES,
+        "gofr_kv_append_f32": kv_append._ARGTYPES,
+        "gofr_kv_append_d64_f32": kv_append._ARGTYPES,
+        "gofr_kv_append_q_f32": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_q_d64_f32": kv_append._Q_ARGTYPES,
         "gofr_w8a16": w8a16._ARGTYPES,
     }
 

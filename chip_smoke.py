@@ -64,7 +64,16 @@ result line:
    above, split edges and plans; B-q on f32 rows on the same edge lanes;
    held to the launchers' ``F32`` limits against the f32 plain versions
    (B and B-q bit for bit), A beside SDPA in f32 on gathered views, their
-   bounds counting f32 bytes and operations at the f32 peak;
+   bounds counting f32 bytes and operations at the f32 peak; and the f32
+   builds of E, B-q4, G-q and W8A16: E with an f32 q on the int4 pools
+   above at Llama-3-8B's step and one_b's, split edges and plans, before
+   the quantizing appends' timed launches write those pools; B-q4 and G-q
+   on f32 rows on their edge lanes at both head dims, bit for bit; W8A16
+   on f32 rows at Llama-3-8B's five (N, K) for M = 8 and 2048
+   (``W8_ROWS_F32``), held to its ``F32`` limits relative to max |y|
+   against the f32 ``qdot_plain``, timed beside cuBLAS's f32 ``F.linear``
+   on the dequantized f32 weight (TF32 off), its bound's operations at
+   three bf16 products each;
 4. the main path, once per cache (``RUNS``): a full-width, full-depth
    Llama-3-8B engine with random bf16 weights from a seed serves 8
    concurrent requests (prompts of 64..1024 tokens, 64 new greedy tokens
@@ -256,18 +265,28 @@ result line:
    ``F32_TIE_GAP`` on that path's logits; and ``llama_slot_f32``,
    Llama-3-8B's widths cut to ``LLAMA_F32_LAYERS`` layers in f32 on the
    slot cache with ``bf16``'s knobs and prompts, the 128 f32 builds, held
-   the same way; and an f32 Llama on the paged pools (``F32_POOL_RUNS``):
-   ``one_b_f32`` (one_b at full width and depth, random f32 weights, on the
-   f32 pool: A, B and C's 64 f32 builds), ``one_b_int8_f32`` (the same
-   model on the int8 pool: D, B-q and C's 64 f32 builds),
-   ``llama_paged_f32`` and ``llama_int8_f32`` (Llama-3-8B's widths cut to
-   ``LLAMA_F32_LAYERS`` layers: the 128 f32 builds), each with ``bf16``'s
-   knobs and prompts, its decode-step builds equally often in whole steps
-   x layers, no other kernel, the pool's own bytes a position at
-   ``F32_POOL_KV_BYTES``, and tokens the f32 plain path's by the tie rule
-   at ``F32_TIE_GAP`` (on the int8 pool the plain decode's after C's
-   prefill at ``INT8_F32_TIE_RTOL`` of the largest |logit|, and the whole
-   plain path's at the pool's phase-5 limit);
+   the same way; ``gpt2_w8_f32``, GPT-2 small in f32 with
+   ``ENGINE_QUANTIZE=int8`` through the same App: W8A16's f32 build 6 x 12
+   times a model forward besides C, F and G's 64 f32 builds (the tied head
+   stays f32), tokens the f32 plain path's on its int8 model at
+   ``F32_TIE_GAP``; and an f32 Llama on every cache and with int8 weights
+   (``F32_LLAMA_RUNS``): ``one_b_f32`` (one_b at full width and depth,
+   random f32 weights, on the f32 pool: A, B and C's 64 f32 builds),
+   ``one_b_int8_f32`` (the same model on the int8 pool: D, B-q and C's 64
+   f32 builds), ``one_b_int4_f32`` (the int4 pool: E, B-q4 and C's),
+   ``one_b_slot_int8_f32`` (the int8 slot cache: G-q and C's, its decode
+   attention plain PyTorch as in bf16), and Llama-3-8B's widths cut to
+   ``LLAMA_F32_LAYERS`` layers on the same caches (``llama_paged_f32``,
+   ``llama_int8_f32``, ``llama_int4_f32``, ``llama_slot_int8_f32``: the
+   128 f32 builds) and with int8 weights on the f32 pool
+   (``llama_w8_f32``: A, B, C and W8A16's f32 builds, 7 x 2 + 1 W8A16
+   launches a forward), each with ``bf16``'s knobs and prompts, its
+   decode-step builds equally often in whole steps x layers, no other
+   kernel, the cache's own bytes a position at ``F32_LLAMA_KV_BYTES``, and
+   tokens the f32 plain path's by the tie rule at ``F32_TIE_GAP`` (on a
+   quantized cache the plain decode's after C's prefill at
+   ``INT8_F32_TIE_RTOL`` or ``INT4_F32_TIE_RTOL`` of the largest |logit|,
+   and the whole plain path's at the cache's phase-5 limit);
 5. the model on the card, on each cache: three prompts through
    ``prefill`` and four ``decode_step`` steps with the kernels, with
    their plain versions, with the kernels in prefill only and in decode
@@ -290,8 +309,11 @@ result line:
    f32 on its slot cache (C, F and G's f32 builds), every error taken over
    the plain logits' range and held to ``F32_TIE_GAP``; the same on one_b
    in f32 on the f32 pool (``phase5_model_one_b_f32``: A, B and C's 64 f32
-   builds) and on the int8 pool at that pool's limits
-   (``phase5_model_one_b_int8_f32``: D and B-q's);
+   builds) and on the int8 and int4 pools at those pools' limits
+   (``phase5_model_one_b_int8_f32``: D and B-q's;
+   ``phase5_model_one_b_int4_f32``: E and B-q4's); and GPT-2 small in f32
+   with int8 weights (``phase5_model_gpt2_w8_f32``: W8A16's f32 build
+   against ``qdot_plain``, at ``F32_TIE_GAP`` of the logit range);
 6. no host sync: a prefill of two 128-token chunks, two ``decode_step``
    steps and one speculative round with a sampled lane on each cache, then
    an adapter upload, a ``decode_step`` and a speculative round with the
@@ -307,10 +329,11 @@ result line:
    both checks also on the int8-weight model on the bf16 pool; and GPT-2's
    slot path: a prefill in two chunks of 128 (C's 64 build once a layer
    each) and two ``decode_step`` steps (F and G's 64 builds once a layer
-   each) under the same check, the same on GPT-2 in f32 (the f32 builds),
-   and the same on one_b's int8 and int4 pools (C's 64 build for the
-   chunks, D or E and B-q or B-q4 at 64 for the steps) and on one_b in f32
-   on the f32 pool and the int8 pool (their f32 builds).
+   each) under the same check, the same on GPT-2 in f32 (the f32 builds)
+   and in f32 with int8 weights (W8A16's f32 build besides, 6 x 12 a
+   forward), and the same on one_b's int8 and int4 pools (C's 64 build for
+   the chunks, D or E and B-q or B-q4 at 64 for the steps) and on one_b in
+   f32 on the f32, int8 and int4 pools (their f32 builds).
 
 Then the ``wall_time`` line (seconds of each phase), the ``kernels`` line,
 the ``nvidia-smi`` name and power limit line and, last, ``{"ok": true,
@@ -402,21 +425,27 @@ def smi_line() -> str:
 
 # The H100 SXM's peaks for the f32 builds' operations (NVIDIA's data sheet,
 # dense, at 700 W): C's f32 products run as three TF32 tensor-core products
-# each (3xTF32), so an f32 multiply-add costs three at 495 TFLOP/s; F's f32
-# build multiplies on the CUDA cores, 67 TFLOP/s in f32.
+# each (3xTF32), so an f32 multiply-add costs three at 495 TFLOP/s; W8A16's
+# f32 build and D's and E's f32-q q.k run three bf16 tensor-core products
+# for each (x or q split into three bf16 pieces), three at 989 TFLOP/s;
+# F's f32 build, and D's and E's P.V, multiply on the CUDA cores, 67
+# TFLOP/s in f32.
 H100_SXM_TF32X3_FLOPS = 495e12 / 3
+H100_SXM_BF16X3_FLOPS = 989e12 / 3
 H100_SXM_F32_FLOPS = 67e12
 
 
-def bound_ms(nbytes: float, flops: float, peak: float | None = None) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops, peak: float | None = None) -> tuple[float, str]:
     """The least time the card could take: bytes over the H100 SXM's HBM
     rate or operations over its dense peak for their type (bf16 unless
     ``peak`` says otherwise), whichever is longer (the data-sheet pair the
-    perf plane's ``device_peaks`` prices it by)."""
+    perf plane's ``device_peaks`` prices it by). ``flops`` may instead be
+    (operations, peak) pairs, for work of several types: their times add."""
     from gofr_tpu_torch.metrics.perf import H100_SXM_BF16_FLOPS, H100_SXM_HBM_BYTES_PER_S
 
     t_bytes = nbytes / H100_SXM_HBM_BYTES_PER_S
-    t_ops = flops / (peak or H100_SXM_BF16_FLOPS)
+    t_ops = (sum(ops / rate for ops, rate in flops) if isinstance(flops, (list, tuple))
+             else flops / (peak or H100_SXM_BF16_FLOPS))
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1117,8 +1146,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
 
     def check_append_q(bits: int, d64: bool = False, f32_rows: bool = False) -> dict:
         """B-q (int8) or B-q4 (int4) at Llama-3-8B's step, or (``d64``) its
-        64 build at Llama one_b's, on bf16 rows or (B-q's ``f32_rows``
-        build, an f32 model's) f32 rows; layer 0 of a two-layer copy, held
+        64 build at Llama one_b's, on bf16 rows or (the ``f32_rows``
+        builds, an f32 model's) f32 rows; layer 0 of a two-layer copy, held
         whole, so a write off its slice lands in layer 1 and is seen
         there."""
         base, plain, qmax = (("kv_append_q", append_tokens_paged_q, 127) if bits == 8 else
@@ -1187,19 +1216,21 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
              lambda i: append_tokens_plain(sk[i % layers], sv[i % layers], lengths, k_new, v_new)),
             append_bytes(0, kept_slot, d * 2, 0), slot_append_shape)
 
-    def check_append_slot_q(d64: bool = False) -> dict:  # G-q
+    def check_append_slot_q(d64: bool = False, f32_rows: bool = False) -> dict:  # G-q
         """G-q at Llama-3-8B's step (``_slot_case``'s 9 lanes of Smax 2176),
         or (``d64``) its 64 build on an 8 x 1024 slot cache of Llama one_b's
-        KV heads at ``_d64_case``'s GPT-2 lengths; layer 0 of a two-layer
+        KV heads at ``_d64_case``'s GPT-2 lengths, on bf16 rows or (the
+        ``f32_rows`` build, an f32 model's) f32 rows; layer 0 of a two-layer
         copy, held whole."""
-        name = "kv_append_slot_q" + ("_d64" if d64 else "")
+        name = "kv_append_slot_q" + ("_d64" if d64 else "") + ("_f32" if f32_rows else "")
         launch = getattr(append_mod, name)
         if d64:
             lanes, smax_q, kv_heads, dim, live = 8, gsmax, hkv1b, 64, glen[:8]
         else:
             lanes, smax_q, kv_heads, dim, live = n, smax, hkv, d, lengths
         cache = QSlotKVCache.create(layers, lanes, smax_q, kv_heads, dim, device=dev)
-        k_new, v_new = (t[:lanes].contiguous() for t in append_rows(kv_heads, dim))
+        k_new, v_new = (t[:lanes].contiguous()
+                        for t in append_rows(kv_heads, dim, f32 if f32_rows else bf))
         # lane 0 at Smax, 1 at -1, 2 at Smax + 7 (dropped), the others live
         pos = live.clone()
         pos[0], pos[1], pos[2] = smax_q, -1, smax_q + 7
@@ -1228,8 +1259,9 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
         return append_entry(
             name, append_src, "port-only (XLA in JAX: gofr_tpu/ops/kvcache.py:132)",
             (lambda i: launch(*planes(i), live, k_new, v_new), plain_both),
-            lanes * 4 + 2 * kept * kv_heads * (dim * 2 + dim + 2),
-            {"slots": lanes, "hkv": kv_heads, "d": dim, "smax": smax_q, "kv_bits": 8})
+            lanes * 4 + 2 * kept * kv_heads * (dim * k_new.element_size() + dim + 2),
+            {"slots": lanes, "hkv": kv_heads, "d": dim, "smax": smax_q, "kv_bits": 8,
+             "rows": "f32" if f32_rows else "bf16"})
 
     # -- the head-dim-64 builds: A and B at Llama one_b's decode step, F and G
     # at GPT-2 small's (``_d64_case``) ------------------------------------------------
@@ -1702,16 +1734,21 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
             append_bytes(entries_timed, kept_timed, dim * 4, 0, kv_heads, dim, row_in=dim * 4),
             {**append_shape, "hkv": kv_heads, "d": dim, "dtype": "f32"})
 
-    def check_decode_q_f32(d64: bool = False) -> dict:  # D's f32-q builds
-        """D with an f32 q on ``check_decode_q``'s int8 pools at Llama-3-8B's
-        step, or (``d64``) at Llama one_b's: ragged, the split's edges,
-        every plan, at the launcher's f32 limits against the f32 plain
-        version (q.k and p * vs in f32)."""
-        name = "paged_decode_q_d64_f32" if d64 else "paged_decode_q_f32"
-        launch = getattr(decode_q_mod, name)
-        cache, heads, kv_heads, dim = ((dc["pools_one_b"][8], q1b.shape[1], hkv1b, 64) if d64
-                                       else (c["pools"][8], hq, hkv, d))
-        lim = decode_q_mod.F32
+    def check_decode_q_f32(d64: bool = False, bits: int = 8) -> dict:  # D's and E's f32-q builds
+        """D (``bits`` 8) or E (4) with an f32 q on ``check_decode_q``'s int8
+        or int4 pools at Llama-3-8B's step, or (``d64``) at Llama one_b's:
+        ragged, the split's edges, every plan, at the launcher's f32 limits
+        against the f32 plain version (q.k and p * vs in f32)."""
+        op, mod, plain, replaces = (
+            ("paged_decode_q", decode_q_mod, paged_decode_attention_q_plain,
+             "gofr_tpu/ops/pallas/paged_decode.py:195") if bits == 8 else
+            ("paged_decode_q4", decode_q4_mod, paged_decode_attention_q4_plain,
+             "gofr_tpu/ops/pallas/paged_decode.py:314"))
+        name = op + ("_d64" if d64 else "") + "_f32"
+        launch = getattr(mod, name)
+        cache, heads, kv_heads, dim = ((dc["pools_one_b"][bits], q1b.shape[1], hkv1b, 64) if d64
+                                       else (c["pools"][bits], hq, hkv, d))
+        lim = mod.F32
         qx = randn32(n, heads, dim)
 
         def args(layer: int) -> tuple:
@@ -1720,34 +1757,40 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
 
         got = launch(*args(0))
         require(got.dtype == f32, f"{name}: the output is {got.dtype}, not f32")
-        agree = agreement(name, got, paged_decode_attention_q_plain(*args(0)), lim)
+        agree = agreement(name, got, plain(*args(0)), lim)
         require(torch.all(got[c["lengths_cpu"] == 0] == 0).item(), f"{name}: empty slots not zero")
         r, splits, edges, edge_table = edge_case(cache.k.shape[1], table.shape[1], kv_heads)
         edge_args = (*args(0)[:5], edge_table, edges)
         agree_e = agreement(f"{name} (split boundaries)", launch(*edge_args),
-                            paged_decode_attention_q_split_plain(*edge_args, r, bits=8), lim)
+                            paged_decode_attention_q_split_plain(*edge_args, r, bits=bits), lim)
         io = 2 * qx.numel() * 4 + table.numel() * 4 + n * 4
-        b_ms, b_by = bound_ms(c["live"] * kv_heads * (2 * dim + 2 * 2) + io,
-                              4 * c["live"] * heads * dim, H100_SXM_F32_FLOPS)
+        # K and V rows of D (int8) or D/2 (packed) bytes plus two bf16 scales;
+        # q.k as three bf16 products on the tensor cores (the exact codes
+        # against q's pieces), P.V in f32 on the CUDA cores
+        qk = pv = 2 * c["live"] * heads * dim
+        b_ms, b_by = bound_ms(c["live"] * kv_heads * (2 * cache.k.shape[-1] + 2 * 2) + io,
+                              [(qk, H100_SXM_BF16X3_FLOPS), (pv, H100_SXM_F32_FLOPS)])
         return {
             "name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/paged_decode_q.cu",
-            "replaces": "gofr_tpu/ops/pallas/paged_decode.py:195",
+            "replaces": replaces,
             "max_abs_err": max(a["max_abs_err"] for a in (agree, agree_e)),
             "rms_rel_err": max(a["rms_rel_err"] for a in (agree, agree_e)),
             "checks": {"ragged": agree, "split_boundaries": agree_e},
             "split": {"split_rows": r, "splits": splits},
             "plans": plan_holds(
-                "paged_decode_q", lim, lambda i: launch(*args(i % layers)),
-                lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=8),
+                op, lim, lambda i: launch(*args(i % layers)),
+                lambda rows: paged_decode_attention_q_split_plain(*args(0), rows, bits=bits),
                 table.shape[1] * page, (n, heads, kv_heads, dim, page, table.shape[1],
-                                        cache.k.shape[1], decode_q_mod.pin_dtype("int8", f32)),
+                                        cache.k.shape[1],
+                                        decode_q_mod.pin_dtype("int8" if bits == 8 else "int4",
+                                                               f32)),
                 qx=qx, kv_heads=kv_heads),
             "tolerance": {"max_abs": lim.MAX_ABS, "rms_rel": lim.RMS_REL},
             # no one PyTorch call computes attention over quantized rows
             **timing(lambda i: launch(*args(i % layers)),
-                     lambda i: paged_decode_attention_q_plain(*args(i % layers))),
+                     lambda i: plain(*args(i % layers))),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {**(one_b_shape if d64 else decode_shape), "kv_bits": 8, "dtype": "f32"},
+            "shape": {**(one_b_shape if d64 else decode_shape), "kv_bits": bits, "dtype": "f32"},
         }
 
     checks = [("paged_decode", check_paged_decode), ("kv_append", check_kv_append),
@@ -1758,6 +1801,9 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
               # f32 rows follow the f32 checks of C, F and G below)
               ("paged_decode_q_f32", check_decode_q_f32),
               ("paged_decode_q_d64_f32", lambda: check_decode_q_f32(d64=True)),
+              # and E's, before the quantizing appends write the int4 pools
+              ("paged_decode_q4_f32", lambda: check_decode_q_f32(bits=4)),
+              ("paged_decode_q4_d64_f32", lambda: check_decode_q_f32(d64=True, bits=4)),
               ("flash_attention", check_flash), ("flash_attention_d64", check_flash_d64),
               ("decode_attention", check_slot_decode), ("kv_append_slot", check_kv_append_slot),
               ("kv_append_q", lambda: check_append_q(8)), ("kv_append_q4", lambda: check_append_q(4)),
@@ -1782,7 +1828,12 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
               ("kv_append_d64_f32", lambda: check_kv_append_f32(d64=True)),
               ("kv_append_q_f32", lambda: check_append_q(8, f32_rows=True)),
               ("kv_append_q_d64_f32", lambda: check_append_q(8, d64=True, f32_rows=True)),
-              ("w8a16", lambda: check_w8a16(torch, timing if timed else None))]
+              ("kv_append_q4_f32", lambda: check_append_q(4, f32_rows=True)),
+              ("kv_append_q4_d64_f32", lambda: check_append_q(4, d64=True, f32_rows=True)),
+              ("kv_append_slot_q_f32", lambda: check_append_slot_q(f32_rows=True)),
+              ("kv_append_slot_q_d64_f32", lambda: check_append_slot_q(d64=True, f32_rows=True)),
+              ("w8a16", lambda: check_w8a16(torch, timing if timed else None)),
+              ("w8a16_f32", lambda: check_w8a16(torch, timing if timed else None, f32=True))]
     results = []
     for name, check in checks:
         if (only is not None and name not in only) or name in skip:
@@ -1860,11 +1911,12 @@ def _d64_case(torch, c: dict) -> dict:
             "lengths_gpt2_cpu": lengths_cpu, "lengths_gpt2": lengths_cpu.to(dev), "gen": gen}
 
 
-def w8_agreement(label: str, got, want) -> dict:
+def w8_agreement(label: str, got, want, f32: bool = False) -> dict:
     """Hold the W8A16 kernel against ``qdot_plain`` under its launcher's
     limits, relative to the output's scale: max |err| over max |y|, the
-    RMS of the difference over the output's RMS, and the share of
-    outputs not bit-equal to the plain version's."""
+    RMS of the difference over the output's RMS, and (bf16) the share of
+    outputs not bit-equal to the plain version's; ``f32``: the f32
+    build's limits (``F32``), max |err| over max |y| and the RMS ratio."""
     from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
 
     got, want = got.float(), want.float()
@@ -1875,11 +1927,12 @@ def w8_agreement(label: str, got, want) -> dict:
     numbers = {"max_abs_err": err, "max_rel_err": err / top,
                "rms_rel_err": (diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item(),
                "mismatch_share": (diff > 0).float().mean().item(), "out_max": top}
-    if not (numbers["max_rel_err"] <= w8_mod.MAX_REL and numbers["rms_rel_err"] <= w8_mod.RMS_REL
-            and numbers["mismatch_share"] <= w8_mod.MISMATCH_SHARE):
+    limits = ((w8_mod.F32.MAX_ABS, w8_mod.F32.RMS_REL, 1.0) if f32 else
+              (w8_mod.MAX_REL, w8_mod.RMS_REL, w8_mod.MISMATCH_SHARE))
+    if not (numbers["max_rel_err"] <= limits[0] and numbers["rms_rel_err"] <= limits[1]
+            and numbers["mismatch_share"] <= limits[2]):
         failure = SystemExit(f"chip_smoke FAILED: {label} disagrees with qdot_plain: {numbers} "
-                             f"(limits {w8_mod.MAX_REL}, {w8_mod.RMS_REL}, "
-                             f"{w8_mod.MISMATCH_SHARE})")
+                             f"(limits {limits})")
         failure.numbers = numbers
         raise failure
     return numbers
@@ -1899,7 +1952,7 @@ def int8pack(torch, x, qs, copies: int, iters: int) -> dict:
     return {"ms": time_ms(torch, fn, iters, warmup=1), "device_ms": device_ms(torch, fn, iters)}
 
 
-def check_w8a16(torch, timing=None) -> dict:  # port: the weight-only int8 linear
+def check_w8a16(torch, timing=None, f32: bool = False) -> dict:  # port: the weight-only int8 linear
     """At Llama-3-8B's five (N, K) and the rows of a decode step, a
     verify forward and a prefill (``W8_ROWS``): bf16 weights from the
     seed with std K^-1/2 quantized by the port's ``quantize`` and bf16
@@ -1908,52 +1961,64 @@ def check_w8a16(torch, timing=None) -> dict:  # port: the weight-only int8 linea
     cycled, so each launch finds its weight cold in L2 as a step
     through 32 layers does; the yardsticks are cuBLAS on the bf16
     weight (``F.linear``, the product without int8) and
-    ``torch._weight_int8pack_mm``. The row's ``ms``, ``device_ms``,
-    ``plain_ms``, ``library_ms`` and ``bound_ms`` are one decode step's
-    225 products at M = 8 (``W8_PER_STEP``), summed over the shapes.
-    ``timing`` is ``check_kernels``' timer; None leaves the check untimed."""
+    ``torch._weight_int8pack_mm``. With ``f32``, the f32-activation build
+    (``w8a16_f32``) at ``W8_ROWS_F32`` on f32 weights and rows, held to its
+    ``F32`` limits against the f32 ``qdot_plain`` (cuBLAS in f32, TF32
+    off), the yardstick cuBLAS's f32 ``F.linear`` on the dequantized f32
+    weight (TF32 off), the bound's operations at three bf16 products
+    each. The row's ``ms``, ``device_ms``, ``plain_ms``, ``library_ms``
+    and ``bound_ms`` are one decode step's 225 products at M = 8
+    (``W8_PER_STEP``), summed over the shapes. ``timing`` is
+    ``check_kernels``' timer; None leaves the check untimed."""
     import torch.nn.functional as F
 
     from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
-    from gofr_tpu_torch.ops.cuda.w8a16 import w8a16
     from gofr_tpu_torch.ops.quant import qdot_plain, quantize
 
-    dev, bf, timed = torch.device("cuda"), torch.bfloat16, timing is not None
-    wgen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    dev, timed = torch.device("cuda"), timing is not None
+    dtype = torch.float32 if f32 else torch.bfloat16
+    launch = w8_mod.w8a16_f32 if f32 else w8_mod.w8a16
+    wgen = torch.Generator(device=dev).manual_seed(SEED + (10 if f32 else 9))
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     shapes = {}
     try:
         for name, (n_out, k_in) in W8_SHAPES.items():
             copies = max(1, math.ceil(W8_COLD_BYTES / (n_out * k_in))) if timed else 1
-            ws = [(torch.randn(n_out, k_in, device=dev, generator=wgen) * k_in ** -0.5).to(bf)
+            ws = [(torch.randn(n_out, k_in, device=dev, generator=wgen) * k_in ** -0.5).to(dtype)
                   for _ in range(copies)]
             qs = [quantize(w) for w in ws]
-            for m in W8_ROWS:
-                x = torch.randn(m, k_in, device=dev, generator=wgen).to(bf)
-                label = f"w8a16 {name} M={m}"
-                entry = {**w8_agreement(label, w8a16(x, qs[0].q, qs[0].s), qdot_plain(x, qs[0])),
-                         "n": n_out, "k": k_in, "m": m, "plan": w8_mod.plan(m, n_out, k_in)}
+            if f32:  # the library's operand: the dequantized f32 weight
+                ws = [w.q.float() * w.s[:, None] for w in qs]
+            for m in W8_ROWS_F32 if f32 else W8_ROWS:
+                x = torch.randn(m, k_in, device=dev, generator=wgen).to(dtype)
+                label = f"{launch.__name__} {name} M={m}"
+                entry = {**w8_agreement(label, launch(x, qs[0].q, qs[0].s), qdot_plain(x, qs[0]), f32),
+                         "n": n_out, "k": k_in, "m": m,
+                         "plan": w8_mod.plan(m, n_out, k_in, x.element_size())}
                 entry["bound_ms"], entry["bound_by"] = bound_ms(
-                    n_out * k_in + 4 * n_out + 2 * m * k_in + 2 * m * n_out, 2 * m * n_out * k_in)
+                    n_out * k_in + 4 * n_out + x.element_size() * (m * k_in + m * n_out),
+                    2 * m * n_out * k_in, H100_SXM_BF16X3_FLOPS if f32 else None)
                 if timed:
                     entry.update(timing(
-                        lambda i: w8a16(x, qs[i % copies].q, qs[i % copies].s),
+                        lambda i: launch(x, qs[i % copies].q, qs[i % copies].s),
                         lambda i: qdot_plain(x, qs[i % copies]),
                         lambda i: F.linear(x, ws[i % copies]), iters=20, plain_iters=5))
-                    # seconds a call at prefill rows: two calls there
-                    entry["int8pack_mm"] = int8pack(torch, x, qs, copies, 20 if m <= 64 else 2)
+                    if not f32:  # seconds a call at prefill rows: two calls there
+                        entry["int8pack_mm"] = int8pack(torch, x, qs, copies, 20 if m <= 64 else 2)
                 shapes[f"{name}_m{m}"] = entry
             del ws, qs
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-    row = {"name": "w8a16", "route": "cuda", "source": "gofr_tpu_torch/csrc/w8a16.cu",
-           "replaces": "port-only (XLA in JAX: gofr_tpu/ops/quant.py:52 qdot)",
+    lim = w8_mod.F32 if f32 else None
+    row = {"name": launch.__name__, "route": "cuda", "source": "gofr_tpu_torch/csrc/w8a16.cu",
+           "replaces": "port-only (XLA in JAX: gofr_tpu/ops/quant.py:61 qdot)",
            **{key: max(e[key] for e in shapes.values())
               for key in ("max_abs_err", "max_rel_err", "rms_rel_err", "mismatch_share")},
-           "tolerance": {"max_rel": w8_mod.MAX_REL, "rms_rel": w8_mod.RMS_REL,
-                         "mismatch_share": w8_mod.MISMATCH_SHARE},
+           "tolerance": ({"max_rel": lim.MAX_ABS, "rms_rel": lim.RMS_REL} if f32 else
+                         {"max_rel": w8_mod.MAX_REL, "rms_rel": w8_mod.RMS_REL,
+                          "mismatch_share": w8_mod.MISMATCH_SHARE}),
            "shapes": shapes, "bound_by": "bytes",
            "per_call": "one decode step: the 225 products at M = 8, summed over the shapes"}
     for key in ("bound_ms", *(("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
@@ -1970,12 +2035,27 @@ W8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (1024, 4096), "gate_up": (14336, 40
              "down": (4096, 14336), "head": (128256, 4096)}
 W8_PER_STEP = {"wq_wo": 64, "wk_wv": 64, "gate_up": 64, "down": 32, "head": 1}
 W8_ROWS = (8, 40, 2048)
+# The f32 build's rows: a decode step and a prefill.
+W8_ROWS_F32 = (8, 2048)
 W8_COLD_BYTES = 150e6
 # Phase 4's ``paged_w8``: ``bf16``'s engine knobs as a user sets them, and
 # weight-only int8; the int8 Llama-3-8B holds this many bytes.
 W8_CONFIG = {"ENGINE_SLOTS": "8", "ENGINE_MAX_LEN": "2048", "ENGINE_PREFILL_BATCH": "4",
              "ENGINE_DECODE_CHUNK": "8", "ENGINE_KV_DTYPE": "bf16", "ENGINE_QUANTIZE": "int8"}
 W8_BYTES = 8_561_882_112
+
+
+def llama_w8_bytes(cfg) -> int:
+    """The bytes an int8-weight Llama holds, in closed form, apart from the
+    quantizer under test: each layer's seven products and the untied head
+    as N x K int8 codes and N f32 scales, the embedding and the RMS norms'
+    weights in the model's dtype. Llama-3-8B in bf16: ``W8_BYTES``."""
+    h, hd = cfg.hidden_size, cfg.head_dim or cfg.hidden_size // cfg.num_heads
+    q_out, kv_out, inter = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.intermediate_size
+    layer = ((q_out, h), (kv_out, h), (kv_out, h), (h, q_out), (inter, h), (inter, h), (h, inter))
+    products = (*layer * cfg.num_layers, (cfg.vocab_size, h))
+    plain = cfg.vocab_size * h + (2 * cfg.num_layers + 1) * h
+    return sum(n * k + 4 * n for n, k in products) + cfg.dtype.itemsize * plain
 
 # The serving runs of phase 4 and the checks of phase 5, one per cache:
 # (kv_layout, kv_quantize).
@@ -2037,24 +2117,51 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            "one_b_int8_f32": ("paged_decode_q_d64_f32", "kv_append_q_d64_f32",
                               "flash_attention_d64_f32"),
            "llama_paged_f32": ("paged_decode_f32", "kv_append_f32", "flash_attention_f32"),
-           "llama_int8_f32": ("paged_decode_q_f32", "kv_append_q_f32", "flash_attention_f32")}
+           "llama_int8_f32": ("paged_decode_q_f32", "kv_append_q_f32", "flash_attention_f32"),
+           # the f32 models on the rest: one_b at full width and depth on the
+           # int4 pool (E and B-q4's 64 f32 builds) and the int8 slot cache
+           # (G-q's; its decode attention plain PyTorch, as in bf16),
+           # Llama-3-8B's widths cut to 2 layers on the same caches and with
+           # int8 weights on the f32 pool, and GPT-2 small with int8 weights
+           # on its f32 slot cache: W8A16's f32 build for every product
+           "one_b_int4_f32": ("paged_decode_q4_d64_f32", "kv_append_q4_d64_f32",
+                              "flash_attention_d64_f32"),
+           "one_b_slot_int8_f32": ("kv_append_slot_q_d64_f32", "flash_attention_d64_f32"),
+           "llama_int4_f32": ("paged_decode_q4_f32", "kv_append_q4_f32", "flash_attention_f32"),
+           "llama_slot_int8_f32": ("kv_append_slot_q_f32", "flash_attention_f32"),
+           "llama_w8_f32": ("paged_decode_f32", "kv_append_f32", "flash_attention_f32",
+                            "w8a16_f32"),
+           "gpt2_w8_f32": ("decode_attention_d64_f32", "kv_append_slot_d64_f32",
+                           "flash_attention_d64_f32", "w8a16_f32")}
 # one_b's runs, by (kv_layout, kv_quantize), and the KV bytes a position
 # of its cache formats (22 layers x 4 KV heads x K and V x a row of 64 bf16,
 # of 64 int8 + a bf16 scale, or of 32 packed bytes + a bf16 scale)
 ONE_B_RUNS = {("paged", ""): "one_b_bf16", ("paged", "int8"): "one_b_int8",
               ("paged", "int4"): "one_b_int4", ("slot", "int8"): "one_b_slot_int8"}
 ONE_B_KV_BYTES = {"": 22_528, "int8": 11_616, "int4": 5_984}
-# The f32 pool runs, by (model, kv_quantize), and the KV bytes a position of
-# their pools, read from the pools' own planes: one_b's f32 pool 22 x 4 x
-# 64 x 2 x 4 B, its int8 pool as in bf16 (int8 rows, bf16 scales); the
-# same at Llama-3-8B's widths cut to 2 layers, 2 x 8 x 128 x 2 x 4 B and
-# 2 x 8 x (2 x 128 + 4) B. ``ops.paged.kv_plane_bytes_per_position``
-# mirrors the JAX package's function, which has no f32 case and reports
-# bf16 bytes for an f32 pool (ROADMAP Queue C); it is printed beside them.
-F32_POOL_RUNS = {("one_b", ""): "one_b_f32", ("one_b", "int8"): "one_b_int8_f32",
-                 ("llama", ""): "llama_paged_f32", ("llama", "int8"): "llama_int8_f32"}
-F32_POOL_KV_BYTES = {"one_b_f32": 45_056, "one_b_int8_f32": 11_616, "llama_paged_f32": 16_384,
-                     "llama_int8_f32": 4_160}
+# The f32 Llama runs: name -> (model, kv_layout, kv_quantize, quantize),
+# and the KV bytes a position of their caches, read from the caches' own
+# planes: one_b's f32 pool 22 x 4 x 64 x 2 x 4 B, its int8 pool and int8
+# slot cache as in bf16 (int8 rows, bf16 scales), its int4 pool 22 x 4 x
+# (2 x 32 + 4) B; the same at Llama-3-8B's widths cut to 2 layers, 2 x 8
+# x 128 x 2 x 4 B (the f32 pool, with int8 weights too), 2 x 8 x (2 x 128
+# + 4) B and 2 x 8 x (2 x 64 + 4) B. ``ops.paged.kv_plane_bytes_per_
+# position`` mirrors the JAX package's function, which has no f32 case and
+# reports bf16 bytes for an f32 pool (ROADMAP Queue C); it is printed
+# beside them.
+F32_LLAMA_RUNS = {"one_b_f32": ("one_b", "paged", "", ""),
+                  "one_b_int8_f32": ("one_b", "paged", "int8", ""),
+                  "llama_paged_f32": ("llama", "paged", "", ""),
+                  "llama_int8_f32": ("llama", "paged", "int8", ""),
+                  "one_b_int4_f32": ("one_b", "paged", "int4", ""),
+                  "one_b_slot_int8_f32": ("one_b", "slot", "int8", ""),
+                  "llama_int4_f32": ("llama", "paged", "int4", ""),
+                  "llama_slot_int8_f32": ("llama", "slot", "int8", ""),
+                  "llama_w8_f32": ("llama", "paged", "", "int8")}
+F32_LLAMA_KV_BYTES = {"one_b_f32": 45_056, "one_b_int8_f32": 11_616, "llama_paged_f32": 16_384,
+                      "llama_int8_f32": 4_160, "one_b_int4_f32": 5_984,
+                      "one_b_slot_int8_f32": 11_616, "llama_int4_f32": 2_112,
+                      "llama_slot_int8_f32": 4_160, "llama_w8_f32": 16_384}
 PREFILL_KERNELS = ("flash_attention", "flash_attention_d64", "flash_attention_f32",
                    "flash_attention_d64_f32")
 # The f32 runs' tie rule: f32 logits through the kernels and through the
@@ -2070,7 +2177,15 @@ F32_TIE_GAP = 1e-3
 # (phase 5's chunked run on that pool, H100, 700 W); twice that. At
 # F32_TIE_GAP one_b's run chose a token 9.4e-4 (plain decode after C's
 # prefill) and 1.19e-3 (whole plain path) below a near tie's top logit.
+# The int8 slot cache under an f32 model is held the same way.
 INT8_F32_TIE_RTOL = 2e-3
+# The same rule on the int4 pool under an f32 model: a flipped 4-bit code
+# moves its element by max |x| / 7 where an int8 code moves it by
+# max |x| / 127, 18 times as far, so a flip there may move the logits by
+# about 18 x 9.1e-4 of max |logit|; 2e-2 (a prediction written before the
+# pool's first f32 run; the pool's phase-5 limit, LOGITS_RTOL["int4"],
+# holds the whole plain path).
+INT4_F32_TIE_RTOL = 2e-2
 # Phase 4's speculative runs (spec_tokens g = 4), each on the model of the
 # runs above and the prompts of the plain run on its cache: prompt lookup
 # on the bf16 pool, and a draft model on the bf16 slot cache, Llama-3-8B's
@@ -2219,20 +2334,22 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
                 f"{pool} request {i}: token out of range")
     on_path = (ON_PATH[run] if run else ON_PATH["paged_w8"] if w8
                else ON_PATH[kv_layout, kv_quantize] if spec is None else ON_PATH_SPEC[spec])
+    sfx = "_f32" if cfg.dtype == torch.float32 else ""
     for name, launches in counts.items():
         if name in on_path:
             require(launches > 0, f"kernel {name} was not launched on the {pool} cache's path")
         else:
             require(launches == 0, f"kernel {name} was launched {launches} times on the {pool} "
                                    f"cache's path")
-    per_step = {counts[name] for name in on_path if name not in (*PREFILL_KERNELS, "w8a16")}
+    per_step = {counts[name] for name in on_path
+                if name not in (*PREFILL_KERNELS, "w8a16", "w8a16_f32")}
     if w8:
         # a forward is a prefill or chunk call (C once a layer) or a decode
         # step (A once a layer); each makes 7 products a layer and the head's
-        forwards = (counts["paged_decode"] + counts["flash_attention"]) // cfg.num_layers
-        require(counts["w8a16"] == forwards * (7 * cfg.num_layers + 1),
-                f"{pool}: W8A16 launched {counts['w8a16']} times for {forwards} model forwards, "
-                f"not {7 * cfg.num_layers + 1} each")
+        forwards = (counts["paged_decode" + sfx] + counts["flash_attention" + sfx]) // cfg.num_layers
+        require(counts["w8a16" + sfx] == forwards * (7 * cfg.num_layers + 1),
+                f"{pool}: W8A16 launched {counts['w8a16' + sfx]} times for {forwards} model "
+                f"forwards, not {7 * cfg.num_layers + 1} each")
     if spec is None:
         require(len(per_step) == 1 and per_step.pop() % cfg.num_layers == 0,
                 f"{pool} cache: the decode-step kernels' launches differ or are not whole steps: "
@@ -2291,7 +2408,10 @@ def serve(torch, cuda, model=None, kv_quantize: str = "", kv_layout: str = "page
         from gofr_tpu_torch.ops.quant import quantized_bytes
 
         held = quantized_bytes(eng.model)
-        require(held == W8_BYTES, f"{pool}: the int8 model holds {held} B, not {W8_BYTES}")
+        expect = llama_w8_bytes(cfg)
+        require(run is not None or expect == W8_BYTES,
+                f"{pool}: the closed form gives {expect} B for Llama-3-8B, not {W8_BYTES}")
+        require(held == expect, f"{pool}: the int8 model holds {held} B, not {expect}")
         require(model is None or type(model.blocks[0].wq).__name__ == "Linear",
                 f"{pool}: quantizing changed the bf16 model it was given")
         metrics.update({"weights": "int8", "quantized_bytes": held,
@@ -5759,18 +5879,23 @@ def plain_tokens(torch, model, prompts: list, new: int, kv_quantize: str = "",
 
 def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None,
                f32: bool = False) -> dict:
-    """Phase 4 ``gpt2_generate``, ``gpt2_w8`` (``w8``) or ``gpt2_f32``
+    """Phase 4 ``gpt2_generate``, ``gpt2_w8`` (``w8``), ``gpt2_f32``
     (``f32``: GPT-2 small in its own f32, C, F and G's 64 f32 builds, the
     cache at ``GPT2_KV_BYTES`` a position, the tokens the f32 plain path's
-    by the tie rule at ``F32_TIE_GAP`` on that path's logits). Held: every
-    POST is a 201 with ``GPT2_NEW`` tokens ended by length; the launches
-    are the run's ``ON_PATH`` kernels and no other: C, F and G's 64 builds,
-    F and G equally often, a whole number of decode steps x 12 layers, C on
-    chunk rows at an offset too; with ``w8`` the W8A16 kernel 6 x 12 times
-    a model forward (the tied head stays bf16), and the int8 model smaller
-    than the bf16 one. The bf16 run's tokens equal the plain path's on the
-    card by the tie rule; the w8 run's are compared with ``base``'s (the
-    bf16 run), not held. Printed: TTFT, decode tok/s, weight bytes."""
+    by the tie rule at ``F32_TIE_GAP`` on that path's logits) or
+    ``gpt2_w8_f32`` (both: the f32 model with int8 weights, W8A16's f32
+    build). Held: every POST is a 201 with ``GPT2_NEW`` tokens ended by
+    length; the launches are the run's ``ON_PATH`` kernels and no other:
+    C, F and G's 64 builds, F and G equally often, a whole number of decode
+    steps x 12 layers, C on chunk rows at an offset too; with ``w8`` the
+    W8A16 kernel 6 x 12 times a model forward, on prefill and decode rows
+    (the tied head stays in the model's dtype), and the int8 model smaller
+    than ``base``'s. The bf16 run's tokens equal the plain path's on the
+    card by the tie rule; the bf16 w8 run's are compared with ``base``'s
+    (the bf16 run), not held; the f32 w8 run's are held against the f32
+    plain path's on its own int8 model at ``F32_TIE_GAP``, and compared
+    with ``base``'s (``gpt2_f32``). Printed: TTFT, decode tok/s, weight
+    bytes."""
     import threading
 
     from gofr_tpu_torch.app import App
@@ -5779,7 +5904,7 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None,
     from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
     from gofr_tpu_torch.ops.quant import quantized_bytes
 
-    name = "gpt2_w8" if w8 else "gpt2_f32" if f32 else "gpt2_generate"
+    name = ("gpt2_w8" if w8 else "gpt2") + ("_f32" if f32 else "" if w8 else "_generate")
     config = {**GPT2_CONFIG, **({"ENGINE_QUANTIZE": "int8"} if w8 else {})}
     cfg = GPT2Config.small() if f32 else GPT2Config.small(dtype=torch.bfloat16)
     # the run's builds of F, G and C at 64
@@ -5863,19 +5988,26 @@ def gpt2_serve(torch, cuda, w8: bool = False, base: dict | None = None,
                "flash_offset_launches": offset_launches, "weight_bytes": held}
     if w8:
         per_forward = 6 * layers
-        require(counts["w8a16"] == forwards * per_forward,
-                f"{name}: W8A16 launched {counts['w8a16']} times for {forwards} model forwards, "
+        w8_name = "w8a16" + ("_f32" if f32 else "")
+        require(counts[w8_name] == forwards * per_forward,
+                f"{name}: W8A16 launched {counts[w8_name]} times for {forwards} model forwards, "
                 f"not {per_forward} each")
-        require(type(model.blocks[0].w_fc).__name__ == "QLinear" and model.wte.dtype == torch.bfloat16,
-                f"{name}: the served model is not int8 with a bf16 head")
+        require(type(model.blocks[0].w_fc).__name__ == "QLinear" and model.wte.dtype == cfg.dtype,
+                f"{name}: the served model is not int8 with a {cfg.dtype} head")
         metrics.update({"w8a16_launches_per_forward": per_forward, "model_forwards": forwards})
         if base is not None:
             require(held < base["metrics"]["weight_bytes"],
                     f"{name}: the int8 model holds {held} B, the bf16 one "
                     f"{base['metrics']['weight_bytes']}")
-            metrics["weight_bytes_vs_bf16"] = held / base["metrics"]["weight_bytes"]
-            metrics["vs_gpt2_generate"] = token_agreement(torch, model, prompts, outs,
-                                                          base["outs"])
+            metrics["weight_bytes_vs_" + ("f32" if f32 else "bf16")] = (
+                held / base["metrics"]["weight_bytes"])
+            metrics["vs_gpt2_" + ("f32" if f32 else "generate")] = token_agreement(
+                torch, model, prompts, outs, base["outs"])
+        if f32:
+            want, logits = plain_tokens(torch, model, prompts, GPT2_NEW)
+            metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+                                                gap=F32_TIE_GAP)
+            del logits
     elif f32:
         want, logits = plain_tokens(torch, model, prompts, GPT2_NEW)
         metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
@@ -5931,47 +6063,52 @@ def llama_slot_f32(torch, cuda) -> dict:
     return {"metrics": metrics, "launches": counts}
 
 
-def f32_pool_run(torch, cuda, model, name: str, kv_quantize: str = "") -> dict:
-    """Phase 4 ``one_b_f32``, ``one_b_int8_f32``, ``llama_paged_f32`` or
-    ``llama_int8_f32`` (``F32_POOL_RUNS``): an f32 Llama (``model``: one_b
-    at full width and depth, or Llama-3-8B's widths cut to
-    ``LLAMA_F32_LAYERS`` layers) on the f32 pool or the int8 pool with
-    ``serve``'s knobs and prompts. Held (``serve``): the run's ``ON_PATH``
-    f32 builds and no other kernel, A and B (D and B-q) equally often in
-    whole steps x layers; the pool's bytes a position at
-    ``F32_POOL_KV_BYTES``; and the tokens the f32 plain path's on the same
-    cache by the tie rule at ``F32_TIE_GAP`` on that path's own logits (on
-    the int8 pool the plain decode's after C's prefill at
-    ``INT8_F32_TIE_RTOL``, the whole plain path's at the pool's phase-5
-    limit)."""
-    eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, "paged", run=name)
+def f32_llama_run(torch, cuda, model, name: str) -> dict:
+    """Phase 4's f32 Llama runs (``F32_LLAMA_RUNS``): an f32 Llama
+    (``model``: one_b at full width and depth, or Llama-3-8B's widths cut
+    to ``LLAMA_F32_LAYERS`` layers) on the run's cache, with int8 weights
+    for ``llama_w8_f32`` (``serve``'s ``w8`` route: a ``ModelSpec`` and
+    ``ENGINE_QUANTIZE=int8``), with ``serve``'s knobs and prompts. Held
+    (``serve``): the run's ``ON_PATH`` f32 builds and no other kernel, its
+    decode-step builds equally often in whole steps x layers (W8A16's 7 x
+    layers + 1 a forward); the cache's bytes a position at
+    ``F32_LLAMA_KV_BYTES``; and the tokens the f32 plain path's on the same
+    cache (and weights) by the tie rule at ``F32_TIE_GAP`` on that path's
+    own logits; on a quantized cache the plain decode's after C's prefill at
+    ``INT8_F32_TIE_RTOL`` (int8) or ``INT4_F32_TIE_RTOL`` (int4), and the
+    whole plain path's at the cache's phase-5 limit."""
+    _, kv_layout, kv_quantize, weights = F32_LLAMA_RUNS[name]
+    eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, kv_layout, run=name,
+                                       w8=bool(weights))
+    served_model = eng.model
     eng.stop()
     del eng
     per = metrics["kv_bytes_per_position"]
-    require(per == F32_POOL_KV_BYTES[name],
-            f"{name}: {per} KV bytes a position, not {F32_POOL_KV_BYTES[name]}")
+    require(per == F32_LLAMA_KV_BYTES[name],
+            f"{name}: {per} KV bytes a position, not {F32_LLAMA_KV_BYTES[name]}")
     prompts = phase4_prompts(torch, model.cfg.vocab_size)
-    want, logits = plain_tokens(torch, model, prompts, 64, kv_quantize, "paged")
+    want, logits = plain_tokens(torch, served_model, prompts, 64, kv_quantize, kv_layout)
     if kv_quantize:
         # prefills in other batches store K/V from activations a few f32
-        # ulps apart, which flips int8 codes (2-3% of the stored elements
-        # between C's prefill and the plain one on one_b): so D and B-q are
-        # held by the tie rule at INT8_F32_TIE_RTOL against the plain decode
-        # after C's prefill, and the whole plain path by phase 5's limit for
-        # this pool, as the int4 pool's are
-        want_d, logits_d = plain_tokens(torch, model, prompts, 64, kv_quantize, "paged",
+        # ulps apart, which flips stored codes (2-3% of the int8 elements
+        # between C's prefill and the plain one on one_b): so the decode
+        # kernels are held by the tie rule against the plain decode after
+        # C's prefill, and the whole plain path by phase 5's limit for this
+        # cache
+        rtol = INT8_F32_TIE_RTOL if kv_quantize == "int8" else INT4_F32_TIE_RTOL
+        want_d, logits_d = plain_tokens(torch, served_model, prompts, 64, kv_quantize, kv_layout,
                                         prefill_kernels=True)
         metrics["vs_plain_decode"] = hold_tie(f"{name} (C's prefill, plain decode)", torch,
-                                              model, prompts, outs, want_d, logits_d,
-                                              rtol=INT8_F32_TIE_RTOL)
+                                              served_model, prompts, outs, want_d, logits_d,
+                                              rtol=rtol)
         del logits_d
-        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+        metrics["vs_plain_path"] = hold_tie(name, torch, served_model, prompts, outs, want, logits,
                                             rtol=LOGITS_RTOL[kv_quantize])
     else:
-        metrics["vs_plain_path"] = hold_tie(name, torch, model, prompts, outs, want, logits,
+        metrics["vs_plain_path"] = hold_tie(name, torch, served_model, prompts, outs, want, logits,
                                             gap=F32_TIE_GAP)
     metrics["nvidia_smi"] = smi_line()
-    del logits
+    del logits, served_model
     torch.cuda.empty_cache()
     return {"metrics": metrics, "launches": counts}
 
@@ -6075,7 +6212,8 @@ def one_b_no_sync_check(torch, cuda, model, kv_quantize: str) -> dict:
 
     chunks, steps = unsynced(chunked), unsynced(decode)
     f32 = model.cfg.dtype == torch.float32
-    run = F32_POOL_RUNS["one_b", kv_quantize] if f32 else ONE_B_RUNS["paged", kv_quantize]
+    run = (next(r for r, spec in F32_LLAMA_RUNS.items() if spec == ("one_b", "paged", kv_quantize, ""))
+           if f32 else ONE_B_RUNS["paged", kv_quantize])
     require(chunks == {"flash_attention_d64" + ("_f32" if f32 else ""): 2 * layers},
             f"one_b {kv_quantize}: the chunked prefill launched {chunks}")
     require(steps == {k: 2 * layers for k in ON_PATH[run] if k not in PREFILL_KERNELS},
@@ -6092,7 +6230,8 @@ def gpt2_no_sync_check(torch, cuda, model) -> dict:
     last idle at the slot's end, so its writes drop), each inside
     ``torch.cuda.set_sync_debug_mode("error")``; the chunks launch C's 64
     build once a layer each, the steps F's and G's 64 builds once a layer
-    each, and nothing else launches; on the f32 model, the f32 builds."""
+    each, and nothing else launches; on the f32 model, the f32 builds; on
+    an int8-weight model, W8A16 too, 6 x 12 times a forward."""
     n, smax = 8, 1024
     layers = model.cfg.num_layers
     sfx = "_f32" if model.cfg.dtype == torch.float32 else ""
@@ -6131,13 +6270,17 @@ def gpt2_no_sync_check(torch, cuda, model) -> dict:
         return logits
 
     chunks, steps = unsynced(chunked), unsynced(decode)
-    require(chunks == {"flash_attention_d64" + sfx: 2 * layers},
+    # with int8 weights W8A16 too, 6 x 12 times a forward
+    w8 = type(model.blocks[0].w_fc).__name__ == "QLinear"
+    products = {"w8a16" + sfx: 2 * 6 * layers} if w8 else {}
+    require(chunks == {"flash_attention_d64" + sfx: 2 * layers, **products},
             f"gpt2: the chunked prefill launched {chunks}")
     require(steps == {"decode_attention_d64" + sfx: 2 * layers,
-                      "kv_append_slot_d64" + sfx: 2 * layers},
+                      "kv_append_slot_d64" + sfx: 2 * layers, **products},
             f"gpt2: two decode steps launched {steps}")
     del cache
-    return {"model": "gpt2 small", "kv_layout": "slot", "kv_pool": "f32" if sfx else "bf16",
+    return {"model": "gpt2 small" + (" (int8 weights)" if w8 else ""), "kv_layout": "slot",
+            "kv_pool": "f32" if sfx else "bf16",
             "chunks": 2,
             "steps": 2, "sync_debug_mode": "error", "launches": {"chunks": chunks, "steps": steps}}
 
@@ -6315,6 +6458,11 @@ def main() -> None:
     emit("phase4_gpt2_w8", served["gpt2_w8"])
     del gpt2_w8
     lap("phase4_gpt2_w8")
+    # GPT-2 small in its own f32 with int8 weights: W8A16's f32 build
+    gpt2_w8_32 = gpt2_serve(torch, cuda, w8=True, base=gpt2_32, f32=True)
+    served["gpt2_w8_f32"] = {"metrics": gpt2_w8_32["metrics"], "launches": gpt2_w8_32["launches"]}
+    emit("phase4_gpt2_w8_f32", served["gpt2_w8_f32"])
+    lap("phase4_gpt2_w8_f32")
 
     from gofr_tpu_torch.models.llama import LlamaConfig, init
 
@@ -6327,15 +6475,14 @@ def main() -> None:
     served["llama_slot_f32"] = llama_slot_f32(torch, cuda)
     emit("phase4_serve_llama_slot_f32", served["llama_slot_f32"])
     lap("phase4_llama_slot_f32")
-    # an f32 Llama on the f32 pool and on the int8 pool: one_b at full width
-    # and depth, then Llama-3-8B's widths cut to 2 layers
+    # an f32 Llama on every cache and with int8 weights: one_b at full
+    # width and depth, and Llama-3-8B's widths cut to 2 layers
     one_b32 = init(LlamaConfig.one_b(dtype=torch.float32),
                    torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     llama32 = init(LlamaConfig.llama3_8b(num_layers=LLAMA_F32_LAYERS, dtype=torch.float32),
                    torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-    for (which, kv_quantize), name in F32_POOL_RUNS.items():
-        served[name] = f32_pool_run(torch, cuda, one_b32 if which == "one_b" else llama32, name,
-                                    kv_quantize)
+    for name, (which, *_) in F32_LLAMA_RUNS.items():
+        served[name] = f32_llama_run(torch, cuda, one_b32 if which == "one_b" else llama32, name)
         emit(f"phase4_serve_{name}", served[name])
         lap(f"phase4_{name}")
     del llama32
@@ -6368,6 +6515,14 @@ def main() -> None:
     emit("phase5_model_one_b_int8_f32", {"model": "one_b (f32)", **model_check(
         torch, one_b32, "int8")})
     lap("phase5_one_b_f32")
+    # one_b in f32 on the int4 pool (E and B-q4's 64 f32 builds: the int4
+    # pool's limit) and GPT-2 small in f32 with int8 weights on its slot
+    # cache (W8A16's f32 build: within F32_TIE_GAP of the plain logits' range)
+    emit("phase5_model_one_b_int4_f32", {"model": "one_b (f32)", **model_check(
+        torch, one_b32, "int4")})
+    emit("phase5_model_gpt2_w8_f32", {"model": "gpt2 small (f32, int8 weights)", **model_check(
+        torch, gpt2_w8_32["model"], kv_layout="slot", tol=F32_TIE_GAP)})
+    lap("phase5_f32_int4_w8")
 
     emit("phase6_no_sync", [no_sync_check(torch, cuda, m, *run)
                             for m, run in [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]])
@@ -6375,10 +6530,10 @@ def main() -> None:
                                      [(model, r) for r in RUNS] + [(w8_model, ("paged", ""))]]
          + [dispatch_sync_check(torch, model, "paged", "", planes=True)])
     emit("phase6_gpt2_no_sync", [gpt2_no_sync_check(torch, cuda, m["model"])
-                                 for m in (gpt2, gpt2_32)])
+                                 for m in (gpt2, gpt2_32, gpt2_w8_32)])
     emit("phase6_one_b_no_sync", [one_b_no_sync_check(torch, cuda, m, q) for m, q in (
-        (one_b, "int8"), (one_b, "int4"), (one_b32, ""), (one_b32, "int8"))])
-    del gpt2, gpt2_32, one_b, one_b32
+        (one_b, "int8"), (one_b, "int4"), (one_b32, ""), (one_b32, "int8"), (one_b32, "int4"))])
+    del gpt2, gpt2_32, gpt2_w8_32, one_b, one_b32
     lap("phase6")
 
     # each kernel's launches from the first serving run whose path it is on,
@@ -6387,7 +6542,7 @@ def main() -> None:
     for k in kernels:
         run = next(r for r in (*RUNS, "paged_w8", "bert_embed", "gpt2_generate",
                                *ONE_B_RUNS.values(), "gpt2_f32", "llama_slot_f32",
-                               *F32_POOL_RUNS.values())
+                               *F32_LLAMA_RUNS, "gpt2_w8_f32")
                    if k["name"] in ON_PATH[r])
         k["launches"] = served[run]["launches"][k["name"]]
         k["launches_by_run"] = {r: lc[k["name"]] for r, lc in by_run.items() if lc.get(k["name"])}

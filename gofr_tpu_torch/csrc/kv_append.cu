@@ -20,6 +20,10 @@
 //   B (f32, 64) gofr_kv_append_d64_f32   F32Rows<64>    PoolAddr  f32 pool, head dim 64
 //   B-q (f32)   gofr_kv_append_q_f32     Int8Rows<128, F32Rows<128>>  PoolAddr  int8 pool, f32 rows
 //   B-q (f32, 64) gofr_kv_append_q_d64_f32 Int8Rows<64, F32Rows<64>>  PoolAddr  the same at 64
+//   B-q4 (f32)  gofr_kv_append_q4_f32    Int4Rows<128, F32Rows<128>>  PoolAddr  int4 pool, f32 rows
+//   B-q4 (f32, 64) gofr_kv_append_q4_d64_f32 Int4Rows<64, F32Rows<64>> PoolAddr the same at 64
+//   G-q (f32)   gofr_kv_append_slot_q_f32 Int8Rows<128, F32Rows<128>> SlotAddr  int8 slot cache, f32 rows
+//   G-q (f32, 64) gofr_kv_append_slot_q_d64_f32 Int8Rows<64, F32Rows<64>> SlotAddr the same at 64
 //
 // Replaces gofr_tpu/ops/pallas/kv_append.py append_tokens_paged_inplace
 // (:110, pallas_call :160) and append_tokens_inplace (:61, pallas_call :80,
@@ -61,12 +65,17 @@
 //     an int4 lane elements l and 32 + l (two 2-byte loads, the pair one
 //     packed byte holds) into a 1-byte store, so the warp's max covers the
 //     whole row and every lane writes its part of the 64- or 32-byte row.
-//   - The int8 rows take their input through a row policy of their own
-//     (Int8Rows' second parameter): bf16 rows (Bf16Rows, the bf16 models),
-//     or f32 rows (F32Rows, an f32 model on the int8 pool: B-q on f32
-//     rows), loaded as G's f32 rows are, the same elements a lane, so the
-//     quantization, already f32 math, sees the row's own f32 values. The
-//     scales stay bf16, as on the JAX package's int8 pool.
+//   - The quantizing rows take their input through a row policy of their
+//     own (Int8Rows' and Int4Rows' second parameter): bf16 rows (Bf16Rows,
+//     the bf16 models), or f32 rows (F32Rows, an f32 model on the int8
+//     pool, the int4 pool or the int8 slot cache: B-q, B-q4 and G-q on f32
+//     rows), the same elements a lane, so the quantization, already f32
+//     math, sees the row's own f32 values. An int8 lane loads f32 rows as
+//     G's f32 rows are loaded; an int4 lane loads the two halves its packed
+//     bytes pair (In::halves): at 128 elements 2l, 2l + 1 and 64 + 2l,
+//     65 + 2l, two 8-byte loads of f32 (two 4-byte loads of bf16), at 64
+//     elements l and 32 + l, two 4-byte loads (two 2-byte loads). The
+//     scales stay bf16, as on the JAX package's quantized caches.
 //   - The row's load is issued before the address chain (positions[n], then
 //     the table entry, then the store) resolves: the row does not depend on
 //     where it lands, so the two latencies overlap instead of adding up.
@@ -173,6 +182,19 @@ struct Bf16Rows {
       x[3] = hi_bf16(raw.y);
     }
   }
+
+  // An int4 lane's elements, in unpack's order: 2l, 2l + 1 (word l) and
+  // 64 + 2l, 65 + 2l (word 32 + l) at 128; l and 32 + l at 64 (raw.x).
+  __device__ static uint2 halves(const uint32_t* row, int lane) {
+    if constexpr (kD == 128) {
+      return make_uint2(__ldg(row + lane), __ldg(row + kD / 4 + lane));
+    } else {
+      const unsigned short* half = reinterpret_cast<const unsigned short*>(row);
+      return make_uint2(static_cast<uint32_t>(__ldg(half + lane)) |
+                            (static_cast<uint32_t>(__ldg(half + kD / 2 + lane)) << 16),
+                        0u);
+    }
+  }
 };
 
 // f32 rows (kernel G on an f32 slot cache, B on an f32 pool) of head dim
@@ -203,6 +225,19 @@ struct F32Rows {
     if constexpr (N == 4) {
       x[2] = __uint_as_float(raw.z);
       x[3] = __uint_as_float(raw.w);
+    }
+  }
+
+  // An int4 lane's elements, in unpack's order: 2l, 2l + 1 and 64 + 2l,
+  // 65 + 2l at 128 (two 8-byte loads); l and 32 + l at 64 (two 4-byte loads,
+  // in raw.x and raw.y).
+  __device__ static Raw halves(const uint32_t* row, int lane) {
+    if constexpr (kD == 128) {
+      const uint2* pairs = reinterpret_cast<const uint2*>(row);
+      const uint2 lo = __ldg(pairs + lane), hi = __ldg(pairs + kD / 4 + lane);
+      return make_uint4(lo.x, lo.y, hi.x, hi.y);
+    } else {
+      return make_uint2(__ldg(row + lane), __ldg(row + kD / 2 + lane));
     }
   }
 };
@@ -238,34 +273,27 @@ struct Int8Rows {
 
 // packed int4 rows with one bf16 scale (kernel B-q4) of head dim D,
 // split-half (byte j holds elements j and j + D/2). At 128 lane l holds
-// elements 2l, 2l + 1 (word l) and 64 + 2l, 65 + 2l (word 32 + l) and
-// writes packed bytes 2l and 2l + 1; at 64 it holds elements l and 32 + l
-// (two 2-byte loads) and writes packed byte l.
-template <int D>
+// elements 2l, 2l + 1 and 64 + 2l, 65 + 2l of its input rows (In: Bf16Rows<D>
+// or F32Rows<D>, loaded by In::halves) and writes packed bytes 2l and
+// 2l + 1; at 64 it holds elements l and 32 + l and writes packed byte l.
+// kAlign is 8 for either input: the f32 rows' 8-byte loads at 128 (the
+// other loads take 4 bytes or fewer).
+template <int D, class In = Bf16Rows<D>>
 struct Int4Rows {
   static_assert(D == 128 || D == 64, "built at head dims 128 and 64");
-  using Raw = uint2;
+  using Raw = typename In::Raw;
   static constexpr int kD = D;
   static constexpr int kRowBytes = kD / 2;
-  static constexpr int kInWords = kD / 2;
+  static constexpr int kInWords = In::kInWords;
   static constexpr int kAlign = 8;
   static constexpr int kPerLane = kD / 32;
 
-  __device__ static uint2 load(const uint32_t* row, int lane) {
-    if constexpr (kD == 128) {
-      return make_uint2(__ldg(row + lane), __ldg(row + kD / 4 + lane));
-    } else {
-      const unsigned short* half = reinterpret_cast<const unsigned short*>(row);
-      return make_uint2(static_cast<uint32_t>(__ldg(half + lane)) |
-                            (static_cast<uint32_t>(__ldg(half + kD / 2 + lane)) << 16),
-                        0u);
-    }
-  }
+  __device__ static Raw load(const uint32_t* row, int lane) { return In::halves(row, lane); }
 
-  __device__ static void store(uint8_t* dst, bf16* scale, uint2 raw, int lane) {
+  __device__ static void store(uint8_t* dst, bf16* scale, Raw raw, int lane) {
     float x[kPerLane];
     int q[kPerLane];
-    Bf16Rows<D>::unpack(raw, x);
+    In::unpack(raw, x);
     const float s = quantize<7>(x, q);
     if constexpr (kPerLane == 4)
       reinterpret_cast<uint16_t*>(dst)[lane] =
@@ -307,7 +335,7 @@ struct Planes {
   uint8_t* v;
   bf16* ks;                // their scales (null for bf16 rows)
   bf16* vs;
-  const uint32_t* k_new;   // [N, Hkv, D] bf16 (f32 for F32Rows and Int8Rows<D, F32Rows<D>>), as 32-bit words
+  const uint32_t* k_new;   // [N, Hkv, D] bf16 (f32 for F32Rows and the quantizing rows' F32Rows input), as 32-bit words
   const uint32_t* v_new;
 };
 
@@ -486,4 +514,41 @@ extern "C" int gofr_kv_append_q_d64_f32(void* k_pool, void* v_pool, void* k_scal
   return launch<Int8Rows<64, F32Rows<64>>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new),
                                            positions, pool_addr(table, maxp, pool, page), n, hkv,
                                            d, stream);
+}
+
+// B-q4 on f32 rows (an f32 Llama on the int4 pool), head dims 128 and 64
+extern "C" int gofr_kv_append_q4_f32(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                     const void* k_new, const void* v_new, const void* table,
+                                     const void* positions, int n, int maxp, int pool, int hkv,
+                                     int page, int d, void* stream) {
+  return launch<Int4Rows<128, F32Rows<128>>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new),
+                                             positions, pool_addr(table, maxp, pool, page), n, hkv,
+                                             d, stream);
+}
+
+extern "C" int gofr_kv_append_q4_d64_f32(void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                                         const void* k_new, const void* v_new, const void* table,
+                                         const void* positions, int n, int maxp, int pool, int hkv,
+                                         int page, int d, void* stream) {
+  return launch<Int4Rows<64, F32Rows<64>>>(planes(k_pool, v_pool, k_scale, v_scale, k_new, v_new),
+                                           positions, pool_addr(table, maxp, pool, page), n, hkv,
+                                           d, stream);
+}
+
+// G-q on f32 rows (an f32 Llama on the int8 slot cache), head dims 128 and 64
+extern "C" int gofr_kv_append_slot_q_f32(void* k_layer, void* v_layer, void* k_scale,
+                                         void* v_scale, const void* k_new, const void* v_new,
+                                         const void* positions, int n, int hkv, int smax, int d,
+                                         void* stream) {
+  return launch<Int8Rows<128, F32Rows<128>>>(
+      planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new), positions, SlotAddr{smax}, n, hkv,
+      d, stream);
+}
+
+extern "C" int gofr_kv_append_slot_q_d64_f32(void* k_layer, void* v_layer, void* k_scale,
+                                             void* v_scale, const void* k_new, const void* v_new,
+                                             const void* positions, int n, int hkv, int smax,
+                                             int d, void* stream) {
+  return launch<Int8Rows<64, F32Rows<64>>>(planes(k_layer, v_layer, k_scale, v_scale, k_new, v_new),
+                                           positions, SlotAddr{smax}, n, hkv, d, stream);
 }

@@ -17,6 +17,8 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
+
 #include "async_copy.cuh"
 
 namespace gofr {
@@ -72,6 +74,26 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)
   mma_tf32(d, a_lo, b0.hi, b1.hi);
   mma_tf32(d, a_hi, b0.lo, b1.lo);
   mma_tf32(d, a_hi, b0.hi, b1.hi);
+}
+
+// The three bf16 pieces of two f32 values (a pair in the low halves), for
+// the bf16 products of an f32 operand (kernel D and E's f32 q, the W8A16
+// kernel's f32 x): h = bf16(x), m = bf16(x - h), l = bf16(x - h - m), each a
+// register of two bf16; x - h and x - h - m are exact in f32, and the three
+// pieces together hold all 24 of x's significand bits. Against an operand
+// exact in bf16 (int8 values, int4 nibbles), each piece's product is exact
+// in f32, so three mma_bf16 a step (the smallest piece first) give the f32
+// product up to the order of the f32 sums.
+__device__ __forceinline__ void split_pair(float2 x, uint32_t& h, uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h2);
+  const float2 r = make_float2(x.x - hf.x, x.y - hf.y);
+  const __nv_bfloat162 m2 = __floats2bfloat162_rn(r.x, r.y);
+  const float2 mf = __bfloat1622float2(m2);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(r.x - mf.x, r.y - mf.y);
+  h = *reinterpret_cast<const uint32_t*>(&h2);
+  m = *reinterpret_cast<const uint32_t*>(&m2);
+  l = *reinterpret_cast<const uint32_t*>(&l2);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -89,18 +89,20 @@
 //     2 or 4 rows a step, and the final sum writes one column a thread, so
 //     threads kD..127 write nothing.
 //   - The query's type TQ is the kernel's second template parameter: bf16,
-//     or f32 for kernel D under an f32 model (Int8Rows at 128 and 64; A's
-//     f32 build is paged_decode.cu's, E's has none yet). The TPU kernel
-//     takes k.astype(q.dtype) against the f32 q with f32 accumulation
-//     (paged_decode.py:148). Here an f32 q is split as it is loaded into
-//     three bf16 pieces, h = bf16(q), m = bf16(q - h), l = bf16(q - h - m),
+//     or f32 for kernels D and E under an f32 model (Int8Rows and Int4Rows
+//     at 128 and 64; A's f32 build is paged_decode.cu's). The TPU kernels
+//     take k.astype(q.dtype) against the f32 q with f32 accumulation
+//     (paged_decode.py:148, :260; the int4 K converts to q.dtype at :291).
+//     Here an f32 q is split as it is loaded into three bf16 pieces, h =
+//     bf16(q), m = bf16(q - h), l = bf16(q - h - m) (mma.cuh split_pair),
 //     which together hold all 24 of its significand bits, and the scores run
 //     three mma.sync per step (l.k, m.k, then h.k) against the same K
-//     fragments: an int8 value is exact in bf16 and each bf16 x int8 product
-//     is exact in f32, so K needs no split and the scores are the f32
-//     product up to the order of the f32 sums. The pieces are three sets of
-//     A fragments in registers (kQPieces). P.V is unchanged (already f32 on
-//     the unrounded p * vs); the output and the merge's are written in f32
+//     fragments: an int8 value or a nibble is exact in bf16 and each bf16 x
+//     code product is exact in f32, so K needs no split (Int4Rows::k_frags
+//     already yields bf16 pairs) and the scores are the f32 product up to
+//     the order of the f32 sums. The pieces are three sets of A fragments
+//     in registers (kQPieces). P.V is unchanged (already f32 on the
+//     unrounded p * vs); the output and the merge's are written in f32
 //     through store_out's f32 overload.
 #include <cstdint>
 #include <type_traits>
@@ -313,21 +315,6 @@ struct PoolLength {
   }
 };
 
-// The three bf16 pieces of two f32 query elements (a in the low halves):
-// h = bf16(x), m = bf16(x - h), l = bf16(x - h - m), each an A-fragment
-// register; x - h and x - h - m are exact in f32.
-__device__ __forceinline__ void split_pair(float2 x, uint32_t& h, uint32_t& m, uint32_t& l) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x.x, x.y);
-  const float2 hf = __bfloat1622float2(h2);
-  const float2 r = make_float2(x.x - hf.x, x.y - hf.y);
-  const __nv_bfloat162 m2 = __floats2bfloat162_rn(r.x, r.y);
-  const float2 mf = __bfloat1622float2(m2);
-  const __nv_bfloat162 l2 = __floats2bfloat162_rn(r.x - mf.x, r.y - mf.y);
-  h = *reinterpret_cast<const uint32_t*>(&h2);
-  m = *reinterpret_cast<const uint32_t*>(&m2);
-  l = *reinterpret_cast<const uint32_t*>(&l2);
-}
-
 // The query's A fragments: step s's two registers of quad thread c (columns
 // col, col + 1 and col + 2, col + 3 of its row), as bf16 pairs read from a
 // bf16 q, or (kQPieces 3) the pieces h, m, l of an f32 q.
@@ -344,8 +331,8 @@ template <>
 struct QFrags<float> {
   static constexpr int kQPieces = 3;
   __device__ static void load(const float* qr, int col, uint32_t (&a)[kQPieces][2]) {
-    split_pair(*reinterpret_cast<const float2*>(qr + col), a[0][0], a[1][0], a[2][0]);
-    split_pair(*reinterpret_cast<const float2*>(qr + col + 2), a[0][1], a[1][1], a[2][1]);
+    gofr::split_pair(*reinterpret_cast<const float2*>(qr + col), a[0][0], a[1][0], a[2][0]);
+    gofr::split_pair(*reinterpret_cast<const float2*>(qr + col + 2), a[0][1], a[1][1], a[2][1]);
   }
 };
 
@@ -737,6 +724,30 @@ extern "C" int gofr_paged_decode_q_d64_f32(const void* q, const void* k_pool, co
                                            int page, int maxp, int split_rows, int splits,
                                            float scale, void* stream) {
   return launch<Int8Rows<64>, float>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out,
+                                     scratch, n, hkv, group, pool, page, maxp, split_rows, splits,
+                                     scale, stream);
+}
+
+// Kernel E under an f32 model: an f32 q (split into three bf16 pieces)
+// against the packed int4 pool, f32 out; head dims 128 and 64.
+extern "C" int gofr_paged_decode_q4_f32(const void* q, const void* k_pool, const void* v_pool,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* table, const void* lengths, void* out,
+                                        void* scratch, int n, int hkv, int group, int pool,
+                                        int page, int maxp, int split_rows, int splits,
+                                        float scale, void* stream) {
+  return launch<Int4Rows<128>, float>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out,
+                                      scratch, n, hkv, group, pool, page, maxp, split_rows, splits,
+                                      scale, stream);
+}
+
+extern "C" int gofr_paged_decode_q4_d64_f32(const void* q, const void* k_pool, const void* v_pool,
+                                            const void* k_scale, const void* v_scale,
+                                            const void* table, const void* lengths, void* out,
+                                            void* scratch, int n, int hkv, int group, int pool,
+                                            int page, int maxp, int split_rows, int splits,
+                                            float scale, void* stream) {
+  return launch<Int4Rows<64>, float>(q, k_pool, v_pool, k_scale, v_scale, table, lengths, out,
                                      scratch, n, hkv, group, pool, page, maxp, split_rows, splits,
                                      scale, stream);
 }

@@ -1,21 +1,25 @@
 // The W8A16 linear: y = bf16(bf16(x @ q^T) * bf16(s)), x bf16 [M, K], q int8
-// [N, K] (K contiguous per output channel), s f32 [N], y bf16 [M, N].
+// [N, K] (K contiguous per output channel), s f32 [N], y bf16 [M, N]; and its
+// f32-activation build (an f32 model with int8 weights): y = (x @ q^T) * s,
+// x and y f32, one f32 sum and one f32 multiply, no bf16 rounding.
 //
-// Port-only: the JAX package computes ops/quant.py qdot (:52) on a QTensor as
-// XLA, which fuses the int8 -> bf16 convert into the operand read. Its value
-// is two roundings, as the plain version (ops.quant.qdot_plain) takes them:
-// the f32 sum rounded to bf16, then multiplied by the bf16 scale and rounded
-// again. The int8 converts to bf16 exactly (|q| <= 127), in registers; no
-// bf16 copy of a weight ever reaches device memory.
+// Port-only: the JAX package computes ops/quant.py qdot (:61) on a QTensor as
+// XLA, which fuses the int8 -> x.dtype convert into the operand read. Its
+// bf16 value is two roundings, as the plain version (ops.quant.qdot_plain)
+// takes them: the f32 sum rounded to bf16, then multiplied by the bf16 scale
+// and rounded again; in f32 neither rounds. The int8 converts to bf16
+// exactly (|q| <= 127), in registers; no bf16 copy of a weight ever reaches
+// device memory.
 //
 // What bounds it on an H100: at decode (M = 8 slots) and verify (M = 40) the
 // weight's bytes. A Llama-3-8B decode step reads 7.50 GB of int8 weights over
 // its 225 products, 2.24 ms at 3.35 TB/s, against 2 * 8 operations a weight
 // byte, far below the ~295 where the tensor cores become the limit. At
-// prefill (M = 2048 .. 4096 rows) the operations: 2 M N K at 989 TFLOP/s.
+// prefill (M = 2048 .. 4096 rows) the operations: 2 M N K at 989 TFLOP/s
+// (the f32 build does three bf16 products for each: 3 x 2 M N K).
 //
 // Design, two tilings of one source (the launcher, ops/cuda/w8a16.py plan,
-// picks by M):
+// picks by M), each a template over the activation type TX (bf16, or f32):
 //   - The weight stream (M <= 64). A block of 4 warps owns a band of 64
 //     output channels, each warp 16 of them, over one split of K. The
 //     product is swapped so that the weight is the mma A operand (16 channel
@@ -25,30 +29,55 @@
 //     4 neighbouring threads), and the k order inside a chunk is permuted so
 //     that exactly those bytes form its A fragments of the chunk's four
 //     m16n8k16 steps: thread c's bytes 4t..4t+3 are logical columns 2c, 2c+1,
-//     2c+8, 2c+9 of step t. X is staged in shared memory (rows padded by 16
-//     bytes) and read in the same permuted order, 16 consecutive bf16 a
-//     thread, so the sum is the same sum. Stages of X cover at most 48 KB, so
-//     a block loops over stages when its split is longer. A thread issues
-//     the loads of 4 chunks together (8 16-byte loads in flight).
+//     2c+8, 2c+9 of step t. X is staged in shared memory in its own type
+//     (rows padded by 16 bytes) and read in the same permuted order, 16
+//     consecutive elements a thread, so the sum is the same sum. Stages of X
+//     cover at most 48 KB, so a block loops over stages when its split is
+//     longer (an f32 stage holds half the chunks of a bf16 one; the
+//     launcher's plan sizes it by the element). A thread issues the loads of
+//     4 chunks together (8 16-byte loads in flight).
 //     Too few bands fill the card at small N, so K is split: each split
 //     writes its f32 sums to a scratch the launcher allocates, and a second
 //     kernel from the same entry point adds the splits in order and takes the
-//     two roundings. Without a split the stream takes them itself; the scale
-//     and the roundings come only after the whole K sum either way.
+//     two roundings (f32: the one multiply). Without a split the stream
+//     finishes itself; the scale and the roundings come only after the whole
+//     K sum either way.
 //     Blocks at the decode shapes (plan(8, N, K)): wq and wo (4096, 4096): 64
 //     bands x 5 splits = 320; wk and wv (1024, 4096): 16 x 16 = 256; gate
 //     and up (14336, 4096): 224 x 2 = 448; down (4096, 14336): 64 x 5 = 320;
 //     the head (128256, 4096): 2004 x 1.
 //   - The tiles (M > 64). A block of 8 warps computes 128 rows x 128
-//     channels; tiles of 64 k of X (bf16) and Q (int8) flow through a
-//     three-stage cp.async ring (async_copy.cuh). Each warp owns all 128
-//     rows and 16 channels, so it converts each of its Q fragments once for
-//     8 m16 row tiles: B fragments of Q come as two 16-bit shared loads,
-//     converted to bf16 pairs in registers, A fragments of X by ldmatrix
-//     (rows padded to 144 bytes, Q rows to 80: conflict-free); mma.sync
-//     m16n8k16 bf16 -> f32 (mma.cuh). The first tiling (32 k a tile, warps
-//     of 64 rows x 32 channels) is a variant in
-//     scripts/torch_kernel_variants.py.
+//     channels; tiles of 64 k of X and Q (int8) flow through a three-stage
+//     cp.async ring (async_copy.cuh). Each warp owns all 128 rows and 16
+//     channels, so it converts each of its Q fragments once for 8 m16 row
+//     tiles: B fragments of Q come as two 16-bit shared loads, converted to
+//     bf16 pairs in registers, A fragments of bf16 X by ldmatrix (rows padded
+//     to 144 bytes, Q rows to 80: conflict-free); mma.sync m16n8k16 bf16 ->
+//     f32 (mma.cuh). The first tiling (32 k a tile, warps of 64 rows x 32
+//     channels) is a variant in scripts/torch_kernel_variants.py.
+//   - f32 X (TX float) keeps both tilings and takes X's full precision to
+//     the bf16 tensor cores as kernels D and E take an f32 q: each pair of
+//     X elements is split as it is read from shared memory into three bf16
+//     pieces h, m and l (mma.cuh split_pair), which hold all 24 of its
+//     significand bits, and each step runs three mma.sync (l, m, then h)
+//     against the same converted weight fragments. A weight code is exact in
+//     bf16, so each piece's product is exact in f32 and the sum is the f32
+//     product up to the order of the f32 sums; the split-K partials and
+//     their sum stay f32, and the f32 sum is multiplied by the f32 scale
+//     once (JAX's out * s.astype(x.dtype) in f32). The three products of a
+//     k16 step go into a fresh fragment, which is added to the running sum
+//     by f32 adds: the tensor cores' own accumulation rounds less exactly
+//     than an f32 add, and summed there across all of K = 14336 it read
+//     3.6e-5 of the output's RMS off cuBLAS's f32 product at M = 2048 (the
+//     down projection in chip_smoke.py's phase 3, H100 80GB HBM3, 700 W),
+//     past the 2e-5 the f32 builds are held to. The stream reads 16 f32
+//     a thread (four 16-byte loads) and splits them into the three pieces'
+//     B fragments. The tiles stage f32 rows of 64 + 8 floats (288 bytes: a
+//     quarter-warp's 8-byte A-fragment loads fall on distinct banks) and
+//     load each A fragment as four float2 instead of one ldmatrix; the ring
+//     keeps its three stages (141 KB of dynamic shared memory). Each warp
+//     splits every X element of its 128 rows, so the f32 tiles do 8 splits
+//     of each element a block where one split would do: simple first.
 // Rows past M or N and k past K are zero-filled on load and never stored;
 // K must be a multiple of 16 (the launcher checks). The next steps, when
 // this loses to cuBLAS on bf16 weights: wgmma fed by TMA for the tiles, and
@@ -68,21 +97,26 @@ using gofr::cp_async_commit;
 using gofr::cp_async_wait;
 using gofr::ldmatrix_x4;
 using gofr::mma_bf16;
+using gofr::split_pair;
 
 constexpr int kChunk = 64;          // k a stream warp takes per step
 constexpr int kBand = 64;           // output channels per stream block
 constexpr int kStreamThreads = 128;
 constexpr int kAhead = 4;           // chunks whose loads a stream warp issues together
-constexpr int kXPad = 8;            // bf16 of padding per staged X row (16 bytes)
+constexpr int kPadBytes = 16;       // padding per staged X row of the stream
 
 constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3, kTileThreads = 256;
 constexpr int kWM = 128, kWN = 16;  // a warp's rows and channels of the block tile
 constexpr int kMT = kWM / 16, kNT = kWN / 8;
-constexpr int kXRow = kBK + 8;      // bf16 per staged X row of a tile (144 bytes)
+constexpr int kXRow = kBK + 8;      // elements per staged X row of a tile (144 bytes bf16, 288 f32)
 constexpr int kQRow = kBK + 16;     // bytes per staged Q row of a tile (80 bytes)
 constexpr int kXStage = kBM * kXRow;
 constexpr int kQStage = kBN * kQRow;
-constexpr int kTileSmem = kStages * (kXStage * 2 + kQStage);
+
+template <class TX>
+constexpr int tile_smem() {
+  return kStages * (kXStage * static_cast<int>(sizeof(TX)) + kQStage);
+}
 
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -102,23 +136,94 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
   hi = bf16_pair(f2, f3);
 }
 
-// The plain version's two roundings: bf16(bf16(acc) * bf16(s)).
-__device__ __forceinline__ bf16 scaled(float acc, float s) {
+// The plain version's two roundings: bf16(bf16(acc) * bf16(s)); in f32 the
+// one multiply acc * s.
+__device__ __forceinline__ bf16 scaled(float acc, float s, bf16*) {
   return __float2bfloat16(__bfloat162float(__float2bfloat16(acc)) *
                           __bfloat162float(__float2bfloat16(s)));
 }
+__device__ __forceinline__ float scaled(float acc, float s, float*) { return acc * s; }
+
+template <class TX>
+__device__ __forceinline__ TX scaled(float acc, float s) {
+  return scaled(acc, s, static_cast<TX*>(nullptr));
+}
+
+// acc += part in f32 adds: an f32 x's three pieces are summed on the tensor
+// cores into a fresh fragment a k16 step (`part`), then added here, so no
+// tensor-core sum runs longer than three products.
+__device__ __forceinline__ void add_to(float (&acc)[4], const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// X's B fragments for the stream: the 16 consecutive elements of a staged
+// row a thread reads for one chunk, as bf16 pairs, xw[p][2t], xw[p][2t + 1]
+// of piece p for step t: bf16 X as it is (one piece), f32 X as its pieces
+// h, m, l (split_pair).
+template <class TX>
+struct StreamX {
+  static constexpr int kPieces = 1;
+  __device__ static void load(const bf16* xr, uint32_t (&xw)[kPieces][8]) {
+    const uint4 xa = *reinterpret_cast<const uint4*>(xr);
+    const uint4 xb = *reinterpret_cast<const uint4*>(xr + 8);
+    const uint32_t w[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xw[0][j] = w[j];
+  }
+};
+
+template <>
+struct StreamX<float> {
+  static constexpr int kPieces = 3;
+  __device__ static void load(const float* xr, uint32_t (&xw)[kPieces][8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = reinterpret_cast<const float4*>(xr)[j];
+      split_pair(make_float2(v.x, v.y), xw[0][2 * j], xw[1][2 * j], xw[2][2 * j]);
+      split_pair(make_float2(v.z, v.w), xw[0][2 * j + 1], xw[1][2 * j + 1], xw[2][2 * j + 1]);
+    }
+  }
+};
+
+// X's A fragments of one m16 row tile of the tiles (rows `row` .. row + 15,
+// k step kk of the staged tile): bf16 X by ldmatrix (one piece), f32 X as
+// four float2 per thread split into its pieces h, m, l.
+template <class TX>
+struct TileX {
+  static constexpr int kPieces = 1;
+  __device__ static void frags(const bf16* xt, int row, int kk, int lane, uint32_t (&a)[kPieces][4]) {
+    ldmatrix_x4(a[0], xt + (row + lane % 16) * kXRow + kk * 16 + (lane / 16) * 8);
+  }
+};
+
+template <>
+struct TileX<float> {
+  static constexpr int kPieces = 3;
+  __device__ static void frags(const float* xt, int row, int kk, int lane, uint32_t (&a)[kPieces][4]) {
+    // a[0]: (quad, 2c..), a[1]: (quad + 8, 2c..), a[2]: (quad, 2c + 8..), a[3]: (quad + 8, 2c + 8..)
+    const float* r = xt + (row + lane / 4) * kXRow + kk * 16 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = *reinterpret_cast<const float2*>(r + (i & 1) * 8 * kXRow + (i >> 1) * 8);
+      split_pair(v, a[0][i], a[1][i], a[2][i]);
+    }
+  }
+};
 
 // The weight stream: MT token tiles of 8 rows (M <= 8 MT). Grid (bands,
 // splits); split z sums chunks [z * per_split, (z + 1) * per_split).
-template <int MT>
+template <int MT, class TX>
 __global__ void __launch_bounds__(kStreamThreads)
-    stream_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                  const float* __restrict__ s, bf16* __restrict__ out,
+    stream_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
+                  const float* __restrict__ s, TX* __restrict__ out,
                   float* __restrict__ partial, int m, int n, int k, int per_split,
                   int stage_chunks) {
+  constexpr int kPiece = 16 / sizeof(TX);            // elements a 16-byte copy moves
+  constexpr int kPieces = StreamX<TX>::kPieces;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  const int row_len = stage_chunks * kChunk + kXPad;
+  TX* xs = reinterpret_cast<TX*>(smem);
+  const int row_len = stage_chunks * kChunk + kPadBytes / static_cast<int>(sizeof(TX));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, c = lane % 4;
   const int chunks = (k + kChunk - 1) / kChunk;
@@ -136,13 +241,13 @@ __global__ void __launch_bounds__(kStreamThreads)
 
   for (int s0 = c_begin; s0 < c_end; s0 += stage_chunks) {
     const int s_end = min(c_end, s0 + stage_chunks);
-    const int pieces = (s_end - s0) * kChunk / 8;  // 16-byte pieces of a staged row
+    const int pieces = (s_end - s0) * kChunk / kPiece;  // 16-byte pieces of a staged row
     __syncthreads();  // every warp is done with the previous stage
     for (int i = threadIdx.x; i < 8 * MT * pieces; i += kStreamThreads) {
       const int row = i / pieces, p = i % pieces;
-      const int kk = s0 * kChunk + p * 8;
+      const int kk = s0 * kChunk + p * kPiece;
       const bool valid = row < m && kk < k;
-      cp_async16(xs + row * row_len + p * 8, valid ? x + static_cast<size_t>(row) * k + kk : x,
+      cp_async16(xs + row * row_len + p * kPiece, valid ? x + static_cast<size_t>(row) * k + kk : x,
                  valid);
     }
     cp_async_commit();
@@ -177,12 +282,17 @@ __global__ void __launch_bounds__(kStreamThreads)
         const int xo = (g + a - s0) * kChunk + c * 16;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const bf16* xr = xs + (mt * 8 + quad) * row_len + xo;
-          const uint4 xa = *reinterpret_cast<const uint4*>(xr);
-          const uint4 xb = *reinterpret_cast<const uint4*>(xr + 8);
-          const uint32_t xw[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+          uint32_t xw[kPieces][8];
+          StreamX<TX>::load(xs + (mt * 8 + quad) * row_len + xo, xw);
 #pragma unroll
-          for (int t = 0; t < 4; ++t) mma_bf16(acc[mt], frag[t], xw[2 * t], xw[2 * t + 1]);
+          for (int t = 0; t < 4; ++t) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            float (&sum)[4] = kPieces == 1 ? acc[mt] : part;
+#pragma unroll
+            for (int p = kPieces - 1; p >= 0; --p)  // the smallest piece first
+              mma_bf16(sum, frag[t], xw[p][2 * t], xw[p][2 * t + 1]);
+            if constexpr (kPieces > 1) add_to(acc[mt], part);
+          }
         }
       }
     }
@@ -199,29 +309,43 @@ __global__ void __launch_bounds__(kStreamThreads)
       if (partial != nullptr) {
         partial[(static_cast<size_t>(blockIdx.y) * m + tok) * n + r] = acc[mt][i];
       } else {
-        out[static_cast<size_t>(tok) * n + r] = scaled(acc[mt][i], s[r]);
+        out[static_cast<size_t>(tok) * n + r] = scaled<TX>(acc[mt][i], s[r]);
       }
     }
   }
 }
 
-// The splits' f32 sums added in split order, then the two roundings.
+// The splits' f32 sums added in split order, then the two roundings (f32:
+// the multiply).
+template <class TX>
 __global__ void finish_kernel(const float* __restrict__ partial, const float* __restrict__ s,
-                              bf16* __restrict__ out, int m, int n, int splits) {
+                              TX* __restrict__ out, int m, int n, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m * n) return;
   float acc = 0.f;
   for (int z = 0; z < splits; ++z) acc += partial[static_cast<size_t>(z) * m * n + i];
-  out[i] = scaled(acc, s[i % n]);
+  out[i] = scaled<TX>(acc, s[i % n]);
+}
+
+// Two neighbouring outputs of a row, as one pair store where the row's
+// length is even.
+__device__ __forceinline__ void store_pair(bf16* o, bf16 y0, bf16 y1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(y0, y1);
+}
+__device__ __forceinline__ void store_pair(float* o, float y0, float y1) {
+  *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
 }
 
 // The tiles: grid (N / 128, M / 128), 8 warps of kWM rows x kWN channels.
+template <class TX>
 __global__ void __launch_bounds__(kTileThreads)
-    tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                const float* __restrict__ s, bf16* __restrict__ out, int m, int n, int k) {
+    tile_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ s, TX* __restrict__ out, int m, int n, int k) {
+  constexpr int kPiece = 16 / sizeof(TX);  // elements a 16-byte copy moves
+  constexpr int kPieces = TileX<TX>::kPieces;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + kStages * kXStage * sizeof(bf16));
+  TX* xs = reinterpret_cast<TX*>(smem);
+  int8_t* qs = reinterpret_cast<int8_t*>(smem + kStages * kXStage * sizeof(TX));
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, c = lane % 4;
@@ -230,11 +354,11 @@ __global__ void __launch_bounds__(kTileThreads)
 
   auto load = [&](int tile, int stage) {
     const int k0 = tile * kBK;
-    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kTileThreads) {
-      const int row = i / (kBK / 8), p = i % (kBK / 8);
-      const int gm = m0 + row, gk = k0 + p * 8;
+    for (int i = threadIdx.x; i < kBM * (kBK / kPiece); i += kTileThreads) {
+      const int row = i / (kBK / kPiece), p = i % (kBK / kPiece);
+      const int gm = m0 + row, gk = k0 + p * kPiece;
       const bool ok = gm < m && gk < k;
-      cp_async16(xs + stage * kXStage + row * kXRow + p * 8,
+      cp_async16(xs + stage * kXStage + row * kXRow + p * kPiece,
                  ok ? x + static_cast<size_t>(gm) * k + gk : x, ok);
     }
     for (int i = threadIdx.x; i < kBN * (kBK / 16); i += kTileThreads) {
@@ -262,7 +386,7 @@ __global__ void __launch_bounds__(kTileThreads)
     __syncthreads();  // tile t landed; every warp is done with tile t - 1's stage
     if (t + kStages - 1 < tiles) load(t + kStages - 1, (t + kStages - 1) % kStages);
     cp_async_commit();
-    const bf16* xt = xs + (t % kStages) * kXStage;
+    const TX* xt = xs + (t % kStages) * kXStage;
     const int8_t* qt = qs + (t % kStages) * kQStage;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -276,10 +400,17 @@ __global__ void __launch_bounds__(kTileThreads)
       }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xt + (wm * kWM + mt * 16 + lane % 16) * kXRow + kk * 16 + (lane / 16) * 8);
+        uint32_t a[kPieces][4];
+        TileX<TX>::frags(xt, wm * kWM + mt * 16, kk, lane, a);
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        for (int nt = 0; nt < kNT; ++nt) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          float (&sum)[4] = kPieces == 1 ? acc[mt][nt] : part;
+#pragma unroll
+          for (int p = kPieces - 1; p >= 0; --p)  // the smallest piece first
+            mma_bf16(sum, a[p], b[nt][0], b[nt][1]);
+          if constexpr (kPieces > 1) add_to(acc[mt][nt], part);
+        }
       }
     }
   }
@@ -296,53 +427,51 @@ __global__ void __launch_bounds__(kTileThreads)
       for (int h = 0; h < 2; ++h) {
         const int gm = m0 + wm * kWM + mt * 16 + quad + 8 * h;
         if (gm >= m) continue;
-        bf16* o = out + static_cast<size_t>(gm) * n + gn;
-        const bf16 y0 = scaled(acc[mt][nt][2 * h], s0);
+        TX* o = out + static_cast<size_t>(gm) * n + gn;
+        const TX y0 = scaled<TX>(acc[mt][nt][2 * h], s0);
         if (gn + 1 < n && n % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(y0, scaled(acc[mt][nt][2 * h + 1], s1));
+          store_pair(o, y0, scaled<TX>(acc[mt][nt][2 * h + 1], s1));
         } else {
           o[0] = y0;
-          if (gn + 1 < n) o[1] = scaled(acc[mt][nt][2 * h + 1], s1);
+          if (gn + 1 < n) o[1] = scaled<TX>(acc[mt][nt][2 * h + 1], s1);
         }
       }
     }
   }
 }
 
-template <int MT>
+template <int MT, class TX>
 cudaError_t launch_stream(const void* x, const void* q, const void* s, void* out, void* partial,
                           int m, int n, int k, int splits, int per_split, int stage_chunks,
                           cudaStream_t stream) {
   const dim3 grid((n + kBand - 1) / kBand, splits);
-  const size_t smem = static_cast<size_t>(8 * MT) * (stage_chunks * kChunk + kXPad) * sizeof(bf16);
-  stream_kernel<MT><<<grid, kStreamThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<bf16*>(out), splits > 1 ? static_cast<float*>(partial) : nullptr, m, n, k,
+  const size_t smem = static_cast<size_t>(8 * MT) * (stage_chunks * kChunk * sizeof(TX) + kPadBytes);
+  stream_kernel<MT, TX><<<grid, kStreamThreads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<TX*>(out), splits > 1 ? static_cast<float*>(partial) : nullptr, m, n, k,
       per_split, stage_chunks);
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // splits 0: the tiles; else the weight stream over `splits` splits of
 // `per_split` chunks, staging at most `stage_chunks` chunks of X at once
 // (partial: f32 [splits, M, N] when splits > 1). Returns cudaGetLastError().
-extern "C" int gofr_w8a16(const void* x, const void* q, const void* s, void* out, void* partial,
-                          int m, int n, int k, int splits, int per_split, int stage_chunks,
-                          void* stream) {
+template <class TX>
+int run(const void* x, const void* q, const void* s, void* out, void* partial, int m, int n,
+        int k, int splits, int per_split, int stage_chunks, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (splits == 0) {
     static bool configured = false;
     if (!configured) {
       const cudaError_t err = cudaFuncSetAttribute(
-          tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+          tile_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_smem<TX>());
       if (err != cudaSuccess) return static_cast<int>(err);
       configured = true;
     }
     const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    tile_kernel<<<grid, kTileThreads, kTileSmem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
-        static_cast<bf16*>(out), m, n, k);
+    tile_kernel<TX><<<grid, kTileThreads, tile_smem<TX>(), st>>>(
+        static_cast<const TX*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+        static_cast<TX*>(out), m, n, k);
     return static_cast<int>(cudaGetLastError());
   }
   if (m < 1 || m > 64 || (splits > 1 && partial == nullptr)) {
@@ -350,18 +479,35 @@ extern "C" int gofr_w8a16(const void* x, const void* q, const void* s, void* out
   }
   cudaError_t err;
   switch ((m + 7) / 8) {
-    case 1: err = launch_stream<1>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 2: err = launch_stream<2>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 3: err = launch_stream<3>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 4: err = launch_stream<4>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 5: err = launch_stream<5>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 6: err = launch_stream<6>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    case 7: err = launch_stream<7>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
-    default: err = launch_stream<8>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 1: err = launch_stream<1, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 2: err = launch_stream<2, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 3: err = launch_stream<3, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 4: err = launch_stream<4, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 5: err = launch_stream<5, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 6: err = launch_stream<6, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    case 7: err = launch_stream<7, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
+    default: err = launch_stream<8, TX>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, st); break;
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  finish_kernel<<<(m * n + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(s), static_cast<bf16*>(out), m,
+  finish_kernel<TX><<<(m * n + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(s), static_cast<TX*>(out), m,
       n, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 x and y (the bf16 models)
+extern "C" int gofr_w8a16(const void* x, const void* q, const void* s, void* out, void* partial,
+                          int m, int n, int k, int splits, int per_split, int stage_chunks,
+                          void* stream) {
+  return run<bf16>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, stream);
+}
+
+// f32 x and y (an f32 model with int8 weights); `stage_chunks` from the
+// launcher's plan at 4-byte elements
+extern "C" int gofr_w8a16_f32(const void* x, const void* q, const void* s, void* out,
+                              void* partial, int m, int n, int k, int splits, int per_split,
+                              int stage_chunks, void* stream) {
+  return run<float>(x, q, s, out, partial, m, n, k, splits, per_split, stage_chunks, stream);
 }

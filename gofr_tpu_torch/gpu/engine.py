@@ -197,7 +197,7 @@ from gofr_tpu_torch.ops.paged import (
     gather_page,
     page_planes,
 )
-from gofr_tpu_torch.ops.quant import QLinear, quantize_state, quantize_tree, quantized_bytes
+from gofr_tpu_torch.ops.quant import quantize_state, quantize_tree, quantized_bytes
 from gofr_tpu_torch.qos.scheduler import QoSQueue
 from gofr_tpu_torch.tracing import RequestTrace, current_span
 
@@ -230,12 +230,10 @@ MAKE_CACHE = {("paged", ""): "make_paged_cache", ("paged", "int8"): "make_paged_
 # the head dims every decode kernel and append is built at (A, B, D, E, F,
 # G and the quantizing appends; C too)
 KERNEL_HEAD_DIMS = (128, 64)
-# the model dtypes the card serves: bf16 on every cache; f32 on the slot
-# cache, the paged pool and the int8 pool (C, F, G, A, B, D and B-q have
-# f32 builds; E, B-q4, G-q and W8A16 take bf16 only: ROADMAP Queue B 7c)
+# the model dtypes the card serves, on every cache and with int8 weights:
+# every kernel (C, F, G, A, B, D, E, the quantizing appends and W8A16) has
+# a bf16 and an f32 build
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# the (kv_layout, kv_quantize) caches an f32 model is served on
-KERNEL_F32_CACHES = (("slot", ""), ("paged", ""), ("paged", "int8"))
 
 
 def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
@@ -246,37 +244,20 @@ def make_pool(model: torch.nn.Module, kv_quantize: str, rows: int, row_len: int,
     return getattr(model, MAKE_CACHE[kv_layout, kv_quantize])(rows, row_len)
 
 
-def refuse_unbuilt_kernels(cfg: Any, device: torch.device, kv_layout: str = "slot",
-                           kv_quantize: str = "", quantize: str = "") -> None:
+def refuse_unbuilt_kernels(cfg: Any, device: torch.device) -> None:
     """Raise before anything is allocated when the card has no kernel for
-    the model on the cache it asks for: weights in a dtype other than bf16
-    and f32 (``KERNEL_DTYPES``); f32 on the packed int4 pool or the int8
-    slot cache, or with int8 weights (``quantize``), whose kernels (E and
-    B-q4, G-q, W8A16) take bf16 only; or a head dim the kernels are not
-    built at (``KERNEL_HEAD_DIMS``). f32 on the slot cache, the paged pool
-    and the int8 pool (``KERNEL_F32_CACHES``) with no weight quantization
-    passes: C, F, G, A, B, D and B-q have f32 builds. Without the refusal
-    such a model would pass the build and fail at its first launch, inside
-    the engine's loop or its warmup. The CPU serves all of them through the
-    plain path."""
+    the model: weights in a dtype other than bf16 and f32
+    (``KERNEL_DTYPES``: fp16), or a head dim the kernels are not built at
+    (``KERNEL_HEAD_DIMS``). bf16 and f32 pass on every cache and with int8
+    weights. Without the refusal such a model would pass the build and fail
+    at its first launch, inside the engine's loop or its warmup. The CPU
+    serves all of them through the plain path."""
     if device.type != "cuda":
         return
     if cfg.dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"a model in {cfg.dtype} on the card: the kernels take bf16, and f32 on the slot "
-            "cache, the paged pool and the int8 pool (ROADMAP.md Queue B 7); serve "
-            "ModelSpec(..., dtype=torch.bfloat16) or on the CPU")
-    if cfg.dtype == torch.float32:
-        unbuilt = [what for what, asked in (
-            (f"the {kv_quantize} KV cache on kv_layout={kv_layout!r} (kernels E and B-q4, "
-             "G-q)", (kv_layout, kv_quantize) not in KERNEL_F32_CACHES),
-            ("int8 weights (W8A16 takes bf16 activations)", quantize)) if asked]
-        if unbuilt:
-            raise ValueError(
-                f"an f32 model on the card with {' and '.join(unbuilt)}: those kernels take bf16 "
-                "only (ROADMAP.md Queue B 7c, 'f32 inputs'); serve ModelSpec(..., "
-                "dtype=torch.bfloat16), or the f32 model on kv_layout='slot' or 'paged' with "
-                "kv_quantize '' (or 'int8' on the pool) and no weight quantization, or on the CPU")
+            f"a model in {cfg.dtype} on the card: the kernels take bf16, and f32, on every cache; "
+            "serve ModelSpec(..., dtype=torch.bfloat16) or on the CPU")
     d = cfg.head_size
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} on the card: the decode kernels and appends are built at "
@@ -1185,11 +1166,8 @@ class GenerateEngine(_EngineBase):
                     "too — use kv_layout='slot' or drop spec_draft")
         super().__init__(container, device=device, default_timeout=default_timeout,
                          max_restarts=max_restarts)
-        refuse_unbuilt_kernels(model.cfg, self.device, kv_layout, kv_quantize,
-                               "int8" if any(isinstance(m, QLinear) for m in model.modules())
-                               else "")
+        refuse_unbuilt_kernels(model.cfg, self.device)
         if spec_draft is not None:
-            # the draft's cache is a plain slot cache (``_make_draft``)
             refuse_unbuilt_kernels(spec_draft[1].cfg, self.device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
@@ -3300,8 +3278,8 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     ``quantize`` keyword, and ``ENGINE_QUANTIZE`` only warns there, as JAX
     reads it (engine.py:4084-4109). A model (or draft) the card has no
     kernel for (``refuse_unbuilt_kernels``: a dtype other than bf16 and
-    f32, f32 on the int4 pool or the int8 slot cache or with int8 weights,
-    a head dim other than 128 and 64) raises before any weight is drawn.
+    f32, a head dim other than 128 and 64) raises before any weight is
+    drawn.
     Runs on the card unless ``device`` says otherwise."""
     if isinstance(config, ModelSpec):
         spec = config
@@ -3351,11 +3329,9 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     dcfg = None
     if spec_draft is not None:
         dcfg = _PRESETS[spec_draft[0]]() if isinstance(spec_draft[0], str) else spec_draft[0]
-    layout = kw.get("kv_layout") or ("paged" if hasattr(family.MODEL, "make_paged_cache")
-                                     else "slot")
-    refuse_unbuilt_kernels(cfg, dev, layout, kw.get("kv_quantize", ""), quantize)
+    refuse_unbuilt_kernels(cfg, dev)
     if dcfg is not None:
-        refuse_unbuilt_kernels(dcfg, dev)  # the draft's cache is a plain slot cache
+        refuse_unbuilt_kernels(dcfg, dev)
     model = _model(family, cfg, params, dev, seed)
     if quantize:
         model = quantize_tree(model)

@@ -212,7 +212,14 @@ def _wrappers() -> dict:
             "paged_decode_q_d64_f32": paged_decode_q.paged_decode_q_d64_f32,
             "kv_append_q_f32": kv_append.kv_append_q_f32,
             "kv_append_q_d64_f32": kv_append.kv_append_q_d64_f32,
-            "w8a16": w8a16.w8a16}
+            "paged_decode_q4_f32": paged_decode_q4.paged_decode_q4_f32,
+            "paged_decode_q4_d64_f32": paged_decode_q4.paged_decode_q4_d64_f32,
+            "kv_append_q4_f32": kv_append.kv_append_q4_f32,
+            "kv_append_q4_d64_f32": kv_append.kv_append_q4_d64_f32,
+            "kv_append_slot_q_f32": kv_append.kv_append_slot_q_f32,
+            "kv_append_slot_q_d64_f32": kv_append.kv_append_slot_q_d64_f32,
+            "w8a16": w8a16.w8a16,
+            "w8a16_f32": w8a16.w8a16_f32}
 
 
 def launch_counts() -> dict[str, int]:

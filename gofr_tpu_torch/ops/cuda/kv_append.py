@@ -29,21 +29,23 @@ own dtype, Llama on the f32 slot cache and the f32 pool), counted as
 / ``kv_append_d64_f32``: ``kv_append_slot`` and ``kv_append`` route 4-byte
 planes there. B-q takes f32 rows too (an f32 model on the int8 pool: the
 row quantized from its own f32 values), counted as ``kv_append_q_f32`` /
-``kv_append_q_d64_f32``. B-q4 and G-q take bf16 rows only; the engine
-refuses an f32 model on the int4 pool and the int8 slot cache (ROADMAP
-Queue B 7c).
+``kv_append_q_d64_f32``; so do B-q4 (an f32 model on the int4 pool),
+counted as ``kv_append_q4_f32`` / ``kv_append_q4_d64_f32``, and G-q (on the
+int8 slot cache), counted as ``kv_append_slot_q_f32`` /
+``kv_append_slot_q_d64_f32``.
 
 The launchers take what the model hands them and convert nothing: rows
-[N, Hkv, D] in the cache's type (the model's, bf16 or f32 on the int8
-pool, bf16 on the other quantized caches),
+[N, Hkv, D] in the model's type (bf16 or f32, on every cache),
 ``positions`` [N] and ``table`` [N, MaxP] int32 and contiguous on the card
 (``Llama.decode_step`` converts both once per step). They validate, launch
 and count, with one check each of what the pointers they pass need (on
 the card, shapes, types, contiguous); the C entry points refuse rows that
-are not 8-byte aligned (16 for f32 rows of 128) before they launch.
+are not 8-byte aligned (16 for f32 rows of 128 into the f32 caches and the
+int8 ones) before they launch.
 Limit against the plain versions on f32 rows: bit for bit, as on bf16
-rows; the nearest planted fault (scripts/torch_kernel_mutants.py), B-q
-reading its f32 rows as bf16 halves, is caught by that check.
+rows; the nearest planted faults (scripts/torch_kernel_mutants.py), B-q,
+B-q4 and G-q reading their f32 rows as bf16 halves, are caught by that
+check.
 """
 
 from __future__ import annotations
@@ -65,8 +67,13 @@ SLOT_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_slot",
 Q_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_q", (64, torch.bfloat16): "gofr_kv_append_q_d64",
            (128, torch.float32): "gofr_kv_append_q_f32",
            (64, torch.float32): "gofr_kv_append_q_d64_f32"}
-Q4_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_q4", (64, torch.bfloat16): "gofr_kv_append_q4_d64"}
-SLOT_Q_ENTRY = {128: "gofr_kv_append_slot_q", 64: "gofr_kv_append_slot_q_d64"}
+Q4_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_q4", (64, torch.bfloat16): "gofr_kv_append_q4_d64",
+            (128, torch.float32): "gofr_kv_append_q4_f32",
+            (64, torch.float32): "gofr_kv_append_q4_d64_f32"}
+SLOT_Q_ENTRY = {(128, torch.bfloat16): "gofr_kv_append_slot_q",
+                (64, torch.bfloat16): "gofr_kv_append_slot_q_d64",
+                (128, torch.float32): "gofr_kv_append_slot_q_f32",
+                (64, torch.float32): "gofr_kv_append_slot_q_d64_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SLOT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _Q_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -81,11 +88,9 @@ _G_TAKES = (f"kv_append_slot {_TAKES}two 16-bit or f32 caches [N, Hkv, Smax, D] 
 _BQ_TAKES = (f"kv_append_q {_TAKES}int8 pools [P, Hkv, page, D] with bf16 scales [P, Hkv, page], "
              f"bf16 or f32 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
 _BQ4_TAKES = (f"kv_append_q4 {_TAKES}uint8 pools [P, Hkv, page, D/2] with bf16 scales "
-              f"[P, Hkv, page], bf16 rows [N, Hkv, D] (f32 rows: ROADMAP.md Queue B 7c), "
-              f"D 128 or 64, {_POOL_INDEX}")
+              f"[P, Hkv, page], bf16 or f32 rows [N, Hkv, D], D 128 or 64, {_POOL_INDEX}")
 _GQ_TAKES = (f"kv_append_slot_q {_TAKES}int8 caches [N, Hkv, Smax, D] with bf16 scales "
-             "[N, Hkv, Smax], bf16 rows [N, Hkv, D] (f32 rows: ROADMAP.md Queue B 7c), D 128 or "
-             "64, int32 positions [N]")
+             "[N, Hkv, Smax], bf16 or f32 rows [N, Hkv, D], D 128 or 64, int32 positions [N]")
 
 
 def _planes(k_layer: torch.Tensor, v_layer: torch.Tensor, dtype: torch.dtype, row: int) -> bool:
@@ -338,30 +343,54 @@ def kv_append_q4_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torc
     return kv_append_q4(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
 
 
+def kv_append_q4_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                     v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q4's f32-row build under its own name: ``kv_append_q4`` on
+    f32 rows (any other type raises); counted by head dim as
+    ``kv_append_q4_f32`` (128) or ``kv_append_q4_d64_f32``."""
+    cuda.require(k_new.dtype == torch.float32, f"kv_append_q4_f32 takes f32 rows, got {k_new.dtype}")
+    return kv_append_q4(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
+def kv_append_q4_d64_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, table: torch.Tensor, positions: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B-q4's f32-row build at head dim 64 under its own name (any
+    other type or head dim raises)."""
+    cuda.require(k_new.shape[-1] == 64,
+                 f"kv_append_q4_d64_f32 takes head_dim 64, got {k_new.shape[-1]}")
+    return kv_append_q4_f32(k_layer, v_layer, k_scale, v_scale, table, positions, k_new, v_new)
+
+
 kv_append_q4.launches = 0
 kv_append_q4_d64.launches = 0
-_Q4_COUNTED = {(128, torch.bfloat16): kv_append_q4, (64, torch.bfloat16): kv_append_q4_d64}
+kv_append_q4_f32.launches = 0
+kv_append_q4_d64_f32.launches = 0
+_Q4_COUNTED = {(128, torch.bfloat16): kv_append_q4, (64, torch.bfloat16): kv_append_q4_d64,
+               (128, torch.float32): kv_append_q4_f32, (64, torch.float32): kv_append_q4_d64_f32}
 
 
 def kv_append_slot_q(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
                      v_scale: torch.Tensor, positions: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Kernel G-q: quantize k_new/v_new [N, Hkv, D] bf16 to int8 rows and
-    append them, with their bf16 scales, to the int8 slot cache's layer
-    slices (values [N, Hkv, Smax, D], scales [N, Hkv, Smax]) at
+    """Kernel G-q: quantize k_new/v_new [N, Hkv, D] bf16 or f32 to int8
+    rows and append them, with their bf16 scales, to the int8 slot cache's
+    layer slices (values [N, Hkv, Smax, D], scales [N, Hkv, Smax]) at
     ``positions``, in place, dropping a position outside [0, Smax); returns
     the four slices. D is 128 or 64. Launches the kernel, or raises."""
     n, hkv, smax, d = k_layer.shape
     cuda.require(d in HEAD_DIMS and _planes(k_layer, v_layer, torch.int8, d)
                  and _scales(k_scale, v_scale, k_layer.shape[:-1])
-                 and _rows(k_new, v_new, n, hkv, torch.bfloat16, d) and _slot_index(positions, n),
-                 _GQ_TAKES)
+                 and (d, k_new.dtype) in SLOT_Q_ENTRY and _rows(k_new, v_new, n, hkv, k_new.dtype, d)
+                 and _slot_index(positions, n), _GQ_TAKES)
+    build = d, k_new.dtype
     if n > 0:
-        fn = cuda.bind(SLOT_Q_ENTRY[d], _SLOT_Q_ARGTYPES)
+        fn = cuda.bind(SLOT_Q_ENTRY[build], _SLOT_Q_ARGTYPES)
         cuda.check(fn(k_layer.data_ptr(), v_layer.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                       k_new.data_ptr(), v_new.data_ptr(), positions.data_ptr(), n, hkv, smax, d,
-                      cuda.stream_of(k_layer)), _SLOT_Q_COUNTED[d].__name__)
-        _SLOT_Q_COUNTED[d].launches += 1
+                      cuda.stream_of(k_layer)), _SLOT_Q_COUNTED[build].__name__)
+        _SLOT_Q_COUNTED[build].launches += 1
     return k_layer, v_layer, k_scale, v_scale
 
 
@@ -376,6 +405,31 @@ def kv_append_slot_q_d64(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: 
     return kv_append_slot_q(k_layer, v_layer, k_scale, v_scale, positions, k_new, v_new)
 
 
+def kv_append_slot_q_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, positions: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel G-q's f32-row build under its own name: ``kv_append_slot_q``
+    on f32 rows (any other type raises); counted by head dim as
+    ``kv_append_slot_q_f32`` (128) or ``kv_append_slot_q_d64_f32``."""
+    cuda.require(k_new.dtype == torch.float32,
+                 f"kv_append_slot_q_f32 takes f32 rows, got {k_new.dtype}")
+    return kv_append_slot_q(k_layer, v_layer, k_scale, v_scale, positions, k_new, v_new)
+
+
+def kv_append_slot_q_d64_f32(k_layer: torch.Tensor, v_layer: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, positions: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel G-q's f32-row build at head dim 64 under its own name (any
+    other type or head dim raises)."""
+    cuda.require(k_layer.shape[-1] == 64,
+                 f"kv_append_slot_q_d64_f32 takes head_dim 64, got {k_layer.shape[-1]}")
+    return kv_append_slot_q_f32(k_layer, v_layer, k_scale, v_scale, positions, k_new, v_new)
+
+
 kv_append_slot_q.launches = 0
 kv_append_slot_q_d64.launches = 0
-_SLOT_Q_COUNTED = {128: kv_append_slot_q, 64: kv_append_slot_q_d64}
+kv_append_slot_q_f32.launches = 0
+kv_append_slot_q_d64_f32.launches = 0
+_SLOT_Q_COUNTED = {(128, torch.bfloat16): kv_append_slot_q, (64, torch.bfloat16): kv_append_slot_q_d64,
+                   (128, torch.float32): kv_append_slot_q_f32,
+                   (64, torch.float32): kv_append_slot_q_d64_f32}

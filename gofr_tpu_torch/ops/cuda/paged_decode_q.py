@@ -107,8 +107,7 @@ def launch_quantized(op: str, counted: dict, entries: dict, values_dtype: torch.
     q_types = sorted({dt for _, dt in entries}, key=str)
     cuda.require(q.dtype in q_types,
                  f"{op} takes a {' or '.join(autotune.dtype_name(t) for t in q_types)} q, got "
-                 f"{q.dtype}" + ("" if torch.float32 in q_types else
-                                 " (an f32 q on this pool is ROADMAP.md Queue B 7c)"))
+                 f"{q.dtype}")
     cuda.require(kq_pool.dtype == vq_pool.dtype == values_dtype
                  and ks_pool.dtype == vs_pool.dtype == torch.bfloat16,
                  f"{op} takes bf16 scales and {values_dtype} pools, got "

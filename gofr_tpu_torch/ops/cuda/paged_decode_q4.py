@@ -8,11 +8,16 @@ version is ``ops.attention.paged_decode_attention_q4_plain`` (gather,
 unpack, dense decode); ``ops.attention.paged_decode_attention_q4`` chooses
 between the two by the tensor's device.
 
-Built at head dim 128 and 64, as kernel D: ``paged_decode_q4.launches``
-counts the launches at 128, ``paged_decode_q4_d64.launches`` those at 64,
-and both take the split plan the autotuner pinned for ``paged_decode_q4``
-at ``int4/bfloat16``. The query is bf16 only: an f32 q raises (its build
-is ROADMAP.md Queue B 7c).
+Built at head dim 128 and 64, as kernel D, for a bf16 q and, under an f32
+model, an f32 q (entry points ``gofr_paged_decode_q4_f32`` and
+``gofr_paged_decode_q4_d64_f32``: the f32 q split into three bf16 pieces
+whose products with the nibbles are summed in f32, f32 out, as D's f32-q
+build). Each build counts its launches under its own name:
+``paged_decode_q4`` (128, bf16 q), ``paged_decode_q4_d64`` (64),
+``paged_decode_q4_f32`` (128, f32 q) and ``paged_decode_q4_d64_f32``. All
+take the split plan the autotuner pinned for ``paged_decode_q4`` at their
+own pool and query dtype (``int4/bfloat16``, ``int4/float32``:
+``paged_decode_q.pin_dtype``).
 """
 
 from __future__ import annotations
@@ -39,18 +44,26 @@ from gofr_tpu_torch.ops.cuda.paged_decode_q import launch_quantized
 # stride, moved the outputs by 0.22 / 89% and 1.0 / 160%.
 MAX_ABS = 5e-3
 RMS_REL = 1.2e-2
-# the C entry point of each build
+# The f32-q builds against the f32 plain version (q.k in f32 on the nibble
+# values, p * vs unrounded): as D's f32-q builds, the three-piece split
+# keeps every bit of q and each piece's product with a nibble is exact, so
+# they differ by the order of f32 sums alone. Limits, D's f32 ones: 1e-4 on
+# any element and 2e-5 on the RMS ratio.
+F32 = cuda.Limits(MAX_ABS=1e-4, RMS_REL=2e-5)
+# the C entry point of each build, by (head dim, query type)
 ENTRY = {(128, torch.bfloat16): "gofr_paged_decode_q4",
-         (64, torch.bfloat16): "gofr_paged_decode_q4_d64"}
+         (64, torch.bfloat16): "gofr_paged_decode_q4_d64",
+         (128, torch.float32): "gofr_paged_decode_q4_f32",
+         (64, torch.float32): "gofr_paged_decode_q4_d64_f32"}
 
 
 def paged_decode_q4(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
                     ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
                     lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
-    """q [N, Hq, D] bf16 against packed uint8 pool layer slices
+    """q [N, Hq, D] bf16 or f32 against packed uint8 pool layer slices
     [P, Hkv, page, D//2] with bf16 scales [P, Hkv, page], through the block
-    table [N, MaxP] (OOB entries == P), masked by lengths [N] → [N, Hq, D].
-    D is 128 or 64. Launches the kernel, or raises."""
+    table [N, MaxP] (OOB entries == P), masked by lengths [N] → [N, Hq, D]
+    in q's type. D is 128 or 64. Launches the kernel, or raises."""
     return launch_quantized("paged_decode_q4", _COUNTED, ENTRY, torch.uint8, 2,
                             q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, scale)
 
@@ -64,6 +77,30 @@ def paged_decode_q4_d64(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.T
     return paged_decode_q4(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, **kw)
 
 
+def paged_decode_q4_f32(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                        ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
+                        lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel E's f32-q build under its own name: ``paged_decode_q4`` on an
+    f32 q (any other type raises); counted by head dim as
+    ``paged_decode_q4_f32`` (128) or ``paged_decode_q4_d64_f32``."""
+    cuda.require(q.dtype == torch.float32, f"paged_decode_q4_f32 takes an f32 q, got {q.dtype}")
+    return paged_decode_q4(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, **kw)
+
+
+def paged_decode_q4_d64_f32(q: torch.Tensor, kq_pool: torch.Tensor, vq_pool: torch.Tensor,
+                            ks_pool: torch.Tensor, vs_pool: torch.Tensor, table: torch.Tensor,
+                            lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel E's f32-q build at head dim 64 under its own name (any other
+    type or head dim raises)."""
+    cuda.require(q.shape[-1] == 64,
+                 f"paged_decode_q4_d64_f32 takes head_dim 64, got {q.shape[-1]}")
+    return paged_decode_q4_f32(q, kq_pool, vq_pool, ks_pool, vs_pool, table, lengths, **kw)
+
+
 paged_decode_q4.launches = 0
 paged_decode_q4_d64.launches = 0
-_COUNTED = {(128, torch.bfloat16): paged_decode_q4, (64, torch.bfloat16): paged_decode_q4_d64}
+paged_decode_q4_f32.launches = 0
+paged_decode_q4_d64_f32.launches = 0
+_COUNTED = {(128, torch.bfloat16): paged_decode_q4, (64, torch.bfloat16): paged_decode_q4_d64,
+            (128, torch.float32): paged_decode_q4_f32,
+            (64, torch.float32): paged_decode_q4_d64_f32}

@@ -1,17 +1,23 @@
 """The W8A16 linear: ``qdot`` on an int8 weight (port-only).
 
 The JAX package computes ``ops.quant.qdot`` on a ``QTensor`` as XLA (no
-Pallas), which fuses the int8→bf16 convert into the operand read, so the
-weight crosses device memory as int8 (gofr_tpu/ops/quant.py:52). Eager
-PyTorch would write a bf16 copy of every weight and read it back, so the
-port's product is a kernel: ``csrc/w8a16.cu``, whose header note says
-what bounds it (bytes at decode and verify, operations at prefill) and how
-the design answers that. Its plain version is ``ops.quant.qdot_plain``;
-``ops.quant.qdot`` chooses between the two by the activation's device.
+Pallas), which fuses the int8 convert into the operand read, so the
+weight crosses device memory as int8 (gofr_tpu/ops/quant.py:61). Eager
+PyTorch would write a copy of every weight in the activation's type and
+read it back, so the port's product is a kernel: ``csrc/w8a16.cu``, whose
+header note says what bounds it (bytes at decode and verify, operations at
+prefill) and how the design answers that. Its plain version is
+``ops.quant.qdot_plain``; ``ops.quant.qdot`` chooses between the two by
+the activation's device.
 
-``plan`` picks the tiling from the shapes alone (never from the data):
-at most ``SMALL_M`` rows take the weight stream, split over K when too few
-bands of output channels would fill the card; more rows take the tiles.
+The activation is bf16 (entry point ``gofr_w8a16``, counted as
+``w8a16``: ``bf16(bf16(x @ q.T) * bf16(s))``), or f32 under an f32 model
+(``gofr_w8a16_f32``, counted as ``w8a16_f32``: ``(x @ q.T) * s`` in f32,
+x split into three bf16 pieces against the exact bf16 weight codes).
+``plan`` picks the tiling from the shapes and the activation's element
+size alone (never from the data): at most ``SMALL_M`` rows take the
+weight stream, split over K when too few bands of output channels would
+fill the card; more rows take the tiles.
 """
 
 from __future__ import annotations
@@ -34,27 +40,39 @@ from gofr_tpu_torch.ops import cuda
 MAX_REL = 1e-2
 RMS_REL = 2e-3
 MISMATCH_SHARE = 1e-2
+# The f32 build against the f32 plain version (cuBLAS's f32 product with
+# TF32 off, then the f32 scale): both sum exact products of the whole f32 x
+# in f32, in different orders, so an output moves by a few f32 ulps of the
+# partial sums. Limits: max |err| at most 1e-4 of max |y| and the RMS of the
+# difference at most 2e-5 of the output's RMS (kernels D and F's f32
+# limits, taken relative to the output's scale), no mismatch share: in f32
+# most outputs differ in their last bits.
+F32 = cuda.Limits(MAX_ABS=1e-4, RMS_REL=2e-5)
 
 SMALL_M = 64          # rows served by the weight stream (8 token columns per mma)
 CHUNK = 64            # k a warp of the stream takes per step
 BAND = 64             # output channels per stream block (4 warps x 16)
-X_PAD = 8             # bf16 of padding per staged X row
+X_PAD_BYTES = 16      # padding per staged X row
 X_SMEM = 48 * 1024    # bytes of X a stream block stages at once
 TARGET_BLOCKS = 2 * 132   # two blocks per SM of an H100
 MIN_CHUNKS = 4        # chunks a split takes at least
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_TAKES = ("w8a16 takes contiguous tensors on the card: bf16 x [..., K], int8 q [N, K] and "
-          "f32 s [N], with K % 16 == 0")
+_TAKES = ("w8a16 takes contiguous tensors on the card: bf16 or f32 x [..., K], int8 q [N, K] "
+          "and f32 s [N], with K % 16 == 0")
+# the C entry point of each build, by the activation's type
+ENTRY = {torch.bfloat16: "gofr_w8a16", torch.float32: "gofr_w8a16_f32"}
 
 
 @functools.lru_cache(maxsize=256)
-def plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+def plan(m: int, n: int, k: int, itemsize: int = 2) -> tuple[int, int, int]:
     """(splits, chunks per split, chunks staged at once) of a product of
-    ``m`` rows, ``n`` output channels and depth ``k``; ``splits`` 0 means
-    the tile kernel. The stream splits K until the bands of 64 channels
-    times the splits reach two blocks per SM, while each split keeps at
-    least ``MIN_CHUNKS`` chunks and the f32 partials of all splits (written
-    and read once) stay within a quarter of the weight's bytes."""
+    ``m`` rows, ``n`` output channels and depth ``k`` on activations of
+    ``itemsize`` bytes (2 bf16, 4 f32); ``splits`` 0 means the tile kernel.
+    The stream splits K until the bands of 64 channels times the splits
+    reach two blocks per SM, while each split keeps at least ``MIN_CHUNKS``
+    chunks and the f32 partials of all splits (written and read once) stay
+    within a quarter of the weight's bytes; a stage holds as many chunks of
+    X as ``X_SMEM`` takes at that element size."""
     if m > SMALL_M:
         return 0, 0, 0
     rows = -(-m // 8) * 8
@@ -63,32 +81,43 @@ def plan(m: int, n: int, k: int) -> tuple[int, int, int]:
     splits = max(1, min(-(-TARGET_BLOCKS // bands), chunks // MIN_CHUNKS, k // (32 * rows)))
     per_split = -(-chunks // splits)
     splits = -(-chunks // per_split)
-    stage = min(per_split, (X_SMEM // (2 * rows) - X_PAD) // CHUNK)
+    stage = min(per_split, (X_SMEM // rows - X_PAD_BYTES) // (CHUNK * itemsize))
     return splits, per_split, stage
 
 
 def w8a16(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """x [..., K] bf16, q [N, K] int8, s [N] f32 → [..., N] bf16:
-    ``bf16(bf16(x @ q.T) * bf16(s))``. Launches the kernel, or raises."""
+    """x [..., K] bf16 or f32, q [N, K] int8, s [N] f32 → [..., N] in x's
+    type: ``bf16(bf16(x @ q.T) * bf16(s))`` for bf16 x, ``(x @ q.T) * s``
+    in f32 for f32 x. Launches the kernel, or raises."""
     n, k = q.shape
     x2 = x.reshape(-1, k) if x.shape[-1] == k else x
-    cuda.require(x.is_cuda and q.is_cuda and s.is_cuda and x.dtype == torch.bfloat16
+    cuda.require(x.is_cuda and q.is_cuda and s.is_cuda and x.dtype in ENTRY
                  and q.dtype == torch.int8 and s.dtype == torch.float32 and x2.shape[-1] == k
                  and s.shape == (n,) and k % 16 == 0 and x2.is_contiguous() and q.is_contiguous()
                  and s.is_contiguous(), _TAKES)
     m = x2.shape[0]
-    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     if m and n:
-        splits, per_split, stage = plan(m, n, k)
+        splits, per_split, stage = plan(m, n, k, x.element_size())
         partial = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
-        fn = cuda.bind("gofr_w8a16", _ARGTYPES)
+        fn = cuda.bind(ENTRY[x.dtype], _ARGTYPES)
         rc = fn(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                 None if partial is None else partial.data_ptr(), m, n, k, splits, per_split, stage,
                 cuda.stream_of(x))
-        cuda.check(rc, "w8a16")
-        w8a16.launches += 1
+        counted = _COUNTED[x.dtype]
+        cuda.check(rc, counted.__name__)
+        counted.launches += 1
     return out if x.dim() == 2 else out.view(*x.shape[:-1], n)
 
 
+def w8a16_f32(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The f32-activation build under its own name: ``w8a16`` on an f32 x
+    (any other type raises), counted as ``w8a16_f32``."""
+    cuda.require(x.dtype == torch.float32, f"w8a16_f32 takes an f32 x, got {x.dtype}")
+    return w8a16(x, q, s)
+
+
 w8a16.launches = 0
+w8a16_f32.launches = 0
+_COUNTED = {torch.bfloat16: w8a16, torch.float32: w8a16_f32}

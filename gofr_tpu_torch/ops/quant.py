@@ -72,8 +72,9 @@ def qdot_plain(x: torch.Tensor, w: torch.Tensor | QTensor) -> torch.Tensor:
 
 def qdot(x: torch.Tensor, w: torch.Tensor | QTensor) -> torch.Tensor:
     """``x @ w.T`` at a linear site: a ``QTensor`` on a CUDA activation goes
-    through the W8A16 kernel, one on the CPU through ``qdot_plain``; a plain
-    weight is ``F.linear`` on either device."""
+    through the W8A16 kernel (its bf16 or its f32 build, by x's type), one
+    on the CPU through ``qdot_plain``; a plain weight is ``F.linear`` on
+    either device."""
     if isinstance(w, QTensor) and x.is_cuda:
         return w8a16_launcher.w8a16(x, w.q, w.s)
     return qdot_plain(x, w)

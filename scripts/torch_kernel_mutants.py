@@ -29,18 +29,21 @@ row read or written at twice its stride stays inside the stack. Since D,
 E, B-q, B-q4 and G-q are built at 64 too, their 64 builds have faults of
 their own in ``ONLY``; those that read or write past a buffer
 (``ISOLATED``) have their faulting kernels checked in a child process.
-C, F, G, A, B, D and B-q also have f32 builds: F and G's are their
-templates' f32 instantiations, A's f32 build is F's f32 body with the
-pool's address policy and B's G's f32 rows with the pool's address, D's
-f32-q build is D's template with a three-piece q and B-q's f32-row build
-B-q's with F32Rows as its input, so a fault in those bodies lands in the
+Every kernel also has f32 builds: F and G's are their templates' f32
+instantiations, A's f32 build is F's f32 body with the pool's address
+policy and B's G's f32 rows with the pool's address, D's and E's f32-q
+builds are their template with a three-piece q, B-q's, B-q4's and G-q's
+f32-row builds theirs with F32Rows as the input, and W8A16's f32 build its
+two tilings with a three-piece x, so a fault in those bodies lands in the
 f32 builds too; C's f32 build is a kernel of its own beside the bf16 one
 in the same source, written the same way, so a C mutant's text occurs in
 both bodies (``OCCURS``) and is planted in both. The f32-only mutants in
 ``ONLY`` (C's lo products dropped, F's and A's P rounded to bf16, G's and
 B's half row, A reading the next page's table entry for the last tile of
-each page, D's q rounded to bf16 once, B-q's f32 rows read as bf16
-halves) must fail the f32 checks while the bf16 checks pass.
+each page, the three-piece split that D, E and W8A16 share rounded to
+bf16 once, then E's q and W8A16's x each alone, B-q's and G-q's f32 rows
+read as bf16 halves, B-q4's alone, and G-q's f32 entry point built on
+bf16 rows) must fail the f32 checks while the bf16 checks pass.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -200,7 +203,7 @@ MUTANTS = [
     # the W8A16 linear: the stream (M <= 64, split over K or not), the
     # split's second pass and the tiles (M > 64) are one source
     ("w8a16: the next channel's scale after a split", "w8a16.cu",
-     "scaled(acc, s[i % n])", "scaled(acc, s[(i + 1) % n])", True),
+     "scaled<TX>(acc, s[i % n])", "scaled<TX>(acc, s[(i + 1) % n])", True),
     ("w8a16: the last chunk of K dropped (stream)", "w8a16.cu",
      "const int c_end = min(chunks, c_begin + per_split);",
      "const int c_end = min(chunks - 1, c_begin + per_split);", True),
@@ -217,8 +220,8 @@ MUTANTS = [
      "__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f",
      "__byte_perm(u, 0x4B000000u, 0x7650)) - 8388735.f", True),
     ("w8a16: the X pairs of a step swapped (stream)", "w8a16.cu",
-     "mma_bf16(acc[mt], frag[t], xw[2 * t], xw[2 * t + 1]);",
-     "mma_bf16(acc[mt], frag[t], xw[2 * t + 1], xw[2 * t]);", True),
+     "mma_bf16(sum, frag[t], xw[p][2 * t], xw[p][2 * t + 1]);",
+     "mma_bf16(sum, frag[t], xw[p][2 * t + 1], xw[p][2 * t]);", True),
     ("w8a16: a B fragment's upper k pair read from the lower (tiles)", "w8a16.cu",
      "*reinterpret_cast<const uint16_t*>(qr + 8)", "*reinterpret_cast<const uint16_t*>(qr)", True),
     # faults in the f32 builds alone (``ONLY``): C's products in one pass of
@@ -235,13 +238,37 @@ MUTANTS = [
     # each page read through the next page's table entry
     ("paged_decode_f32: the next table entry at a page edge", "paged_decode.cu",
      "const int logical = t / page;", "const int logical = (t + 32) / page;", True),
-    # D's f32-q build: q rounded to bf16 once (the m and l pieces dropped)
-    ("paged_decode_q_f32: q rounded to bf16 once", "paged_decode_q.cu",
+    # the three-piece split (mma.cuh split_pair) that D's and E's f32-q
+    # builds and W8A16's f32 build share: the f32 operand rounded to bf16
+    # once (the m and l pieces dropped)
+    ("paged_decode_q_f32/_q4_f32/w8a16_f32: the f32 operand rounded to bf16 once", "mma.cuh",
      "  m = *reinterpret_cast<const uint32_t*>(&m2);\n  l = *reinterpret_cast<const uint32_t*>(&l2);\n",
      "  m = l = 0u;\n", True),
-    # B-q's f32-row build: its f32 rows read as bf16 halves
-    ("kv_append_q_f32: f32 rows read as bf16 halves", "kv_append.cu",
-     "    In::unpack(raw, x);\n", "    Bf16Rows<D>::unpack(make_uint2(raw.x, raw.y), x);\n", True),
+    # E's f32-q build alone: q rounded to bf16 once (only the h piece's
+    # product; Int4Rows is the one row policy of eight P.V columns a word)
+    ("paged_decode_q4_f32: q rounded to bf16 once", "paged_decode_q.cu",
+     "for (int p = kQPieces - 1; p >= 0; --p) {",
+     "for (int p = Rows::kCols == 8 ? 0 : kQPieces - 1; p >= 0; --p) {", True),
+    # W8A16's f32 build alone, both tilings: x rounded to bf16 once
+    ("w8a16_f32: x rounded to bf16 once", "w8a16.cu",
+     "for (int p = kPieces - 1; p >= 0; --p)  // the smallest piece first",
+     "for (int p = 0; p >= 0; --p)  // the smallest piece first", True),
+    # B-q's and G-q's f32-row builds (Int8Rows with F32Rows input): the f32
+    # rows read as bf16 halves
+    ("kv_append_q_f32/_slot_q_f32: f32 rows read as bf16 halves", "kv_append.cu",
+     "    In::unpack(raw, x);\n    const float s = quantize<127>(x, q);\n",
+     "    Bf16Rows<D>::unpack(make_uint2(raw.x, raw.y), x);\n    const float s = quantize<127>(x, q);\n",
+     True),
+    # B-q4's f32-row build alone: the same in the int4 rows' store
+    ("kv_append_q4_f32: f32 rows read as bf16 halves", "kv_append.cu",
+     "    In::unpack(raw, x);\n    const float s = quantize<7>(x, q);\n",
+     "    Bf16Rows<D>::unpack(make_uint2(raw.x, raw.y), x);\n    const float s = quantize<7>(x, q);\n",
+     True),
+    # G-q's f32-row entry point alone (128): built on bf16 rows, so it reads
+    # each f32 row as bf16 elements at a bf16 row's stride
+    ("kv_append_slot_q_f32: the f32 rows read as bf16 rows", "kv_append.cu",
+     "  return launch<Int8Rows<128, F32Rows<128>>>(\n      planes(k_layer,",
+     "  return launch<Int8Rows<128>>(\n      planes(k_layer,", True),
     # p kept in f32 instead of rounded to bf16 before P.V (A packs it for
     # the tensor cores by truncation, F multiplies it in f32): a relative
     # change of at most 2^-8 on each probability, averaged over hundreds of
@@ -262,6 +289,11 @@ _C32 = ("flash_attention_f32", "flash_attention_d64_f32")
 _F_BF16 = ("decode_attention", "decode_attention_d64")
 _F32 = ("decode_attention_f32", "decode_attention_d64_f32")
 _A32 = ("paged_decode_f32", "paged_decode_d64_f32")
+_D32 = ("paged_decode_q_f32", "paged_decode_q_d64_f32")
+_E32 = ("paged_decode_q4_f32", "paged_decode_q4_d64_f32")
+_BQ32 = ("kv_append_q_f32", "kv_append_q_d64_f32")
+_BQ432 = ("kv_append_q4_f32", "kv_append_q4_d64_f32")
+_GQ32 = ("kv_append_slot_q_f32", "kv_append_slot_q_d64_f32")
 ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "flash_attention_d64: causal diagonal masked": _C64,
         "paged_decode_d64: half of each output row never summed":
@@ -275,12 +307,14 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "kv_append_d64/_slot_d64: a 128-wide row stride":
             (("kv_append_d64", "kv_append_slot_d64", *_QAPPEND64), _APPEND128),
         "paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64":
-            (("paged_decode_q_d64", "paged_decode_q4_d64", "paged_decode_q_d64_f32"),
+            (("paged_decode_q_d64", "paged_decode_q4_d64", "paged_decode_q_d64_f32",
+              "paged_decode_q4_d64_f32"),
              (*_DECODE128, "paged_decode_d64")),
         "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)":
             (("paged_decode_q_d64", "paged_decode_q_d64_f32"), (*_DECODE128, "paged_decode_q4_d64")),
         "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)":
-            (("paged_decode_q4_d64",), (*_DECODE128, "paged_decode_q_d64")),
+            (("paged_decode_q4_d64", "paged_decode_q4_d64_f32"),
+             (*_DECODE128, "paged_decode_q_d64")),
         "kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row":
             (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64")),
         "flash_attention_f32: the lo terms dropped (plain TF32)":
@@ -292,11 +326,21 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
              (*_APPEND128, "kv_append_d64", "kv_append_slot_d64", *_QAPPEND64)),
         "paged_decode_f32: the next table entry at a page edge":
             (_A32, (*_F_BF16, *_F32, *_DECODE128)),
-        "paged_decode_q_f32: q rounded to bf16 once":
-            (("paged_decode_q_f32", "paged_decode_q_d64_f32"),
-             (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64")),
-        "kv_append_q_f32: f32 rows read as bf16 halves":
-            (("kv_append_q_f32", "kv_append_q_d64_f32"), (*_APPEND128, *_QAPPEND64))}
+        "paged_decode_q_f32/_q4_f32/w8a16_f32: the f32 operand rounded to bf16 once":
+            ((*_D32, *_E32, "w8a16_f32"),
+             (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64", "w8a16")),
+        "paged_decode_q4_f32: q rounded to bf16 once":
+            (_E32, (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64", *_D32)),
+        "w8a16_f32: x rounded to bf16 once": (("w8a16_f32",), ("w8a16",)),
+        "kv_append_q_f32/_slot_q_f32: f32 rows read as bf16 halves":
+            ((*_BQ32, *_GQ32), (*_APPEND128, *_QAPPEND64, *_BQ432)),
+        "kv_append_q4_f32: f32 rows read as bf16 halves":
+            (_BQ432, (*_APPEND128, *_QAPPEND64, *_BQ32, *_GQ32)),
+        "w8a16: the last chunk of K dropped (stream)":
+            (("w8a16", "w8a16_f32"), (*_DECODE128, *_APPEND128)),
+        "kv_append_slot_q_f32: the f32 rows read as bf16 rows":
+            (("kv_append_slot_q_f32",),
+             (*_APPEND128, *_QAPPEND64, *_BQ32, *_BQ432, "kv_append_slot_q_d64_f32"))}
 # Mutants whose text occurs in both of C's bodies (the bf16 and the f32
 # kernel), planted in both: how many times it occurs
 OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",
@@ -304,15 +348,27 @@ OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",
                                "flash_attention: last key tile skipped",
                                "flash_attention: online rescale of O skipped",
                                "flash_attention_d64: one key past kv_length",
-                               "flash_attention_d64: causal diagonal masked")}
+                               "flash_attention_d64: causal diagonal masked",
+                               # the W8A16 stream's and tiles' piece loops
+                               "w8a16_f32: x rounded to bf16 once")}
 # Mutants whose 64 build reads or writes past a buffer (global memory past
 # q or the output, shared memory past the ring): the kernels ``ONLY`` says
 # must fail are checked in a child process, so a launch that faults the
 # CUDA context fails there, as a caught mutant, and the other kernels are
 # checked here as usual.
+# The W8A16 stream built with its last chunk dropped faults the card in
+# some of its builds (bf16 at five token tiles, f32 at one, and bf16 at one
+# with the chunk loop's break written as a skip), at every plan: the PTX is
+# right, but ptxas (nvcc 12.9.86) folds the staging loop's trip count into
+# a three-input VIMNMX3 and drops the neg.s32 that ~(chunks - 1) = -chunks
+# needs, so the loop runs past its stage and its copies land past the
+# shared allocation (PERF.md §7). The unmodified source takes ~chunks by a
+# NOT, which ptxas keeps, and runs clean over scripts/torch_w8a16_probe.py's
+# sweep of shapes and plans.
 ISOLATED = {"paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64",
             "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)",
-            "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)"}
+            "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)",
+            "w8a16: the last chunk of K dropped (stream)"}
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the

@@ -199,7 +199,11 @@ def test_append_launchers_declare_the_c_entry_points_arguments(monkeypatch):
                         "gofr_kv_append_f32": mod._ARGTYPES,
                         "gofr_kv_append_d64_f32": mod._ARGTYPES,
                         "gofr_kv_append_q_f32": mod._Q_ARGTYPES,
-                        "gofr_kv_append_q_d64_f32": mod._Q_ARGTYPES}
+                        "gofr_kv_append_q_d64_f32": mod._Q_ARGTYPES,
+                        "gofr_kv_append_q4_f32": mod._Q_ARGTYPES,
+                        "gofr_kv_append_q4_d64_f32": mod._Q_ARGTYPES,
+                        "gofr_kv_append_slot_q_f32": mod._SLOT_Q_ARGTYPES,
+                        "gofr_kv_append_slot_q_d64_f32": mod._SLOT_Q_ARGTYPES}
 
     calls = []
     monkeypatch.setattr(cuda, "require", lambda cond, msg: None)

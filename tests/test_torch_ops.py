@@ -32,7 +32,9 @@ _KERNELS = ("paged_decode", "paged_decode_d64", "kv_append", "kv_append_d64", "f
             "kv_append_q_d64", "kv_append_q4", "kv_append_q4_d64", "kv_append_slot_q",
             "kv_append_slot_q_d64", "paged_decode_f32", "paged_decode_d64_f32", "kv_append_f32",
             "kv_append_d64_f32", "paged_decode_q_f32", "paged_decode_q_d64_f32", "kv_append_q_f32",
-            "kv_append_q_d64_f32", "w8a16")
+            "kv_append_q_d64_f32", "paged_decode_q4_f32", "paged_decode_q4_d64_f32",
+            "kv_append_q4_f32", "kv_append_q4_d64_f32", "kv_append_slot_q_f32",
+            "kv_append_slot_q_d64_f32", "w8a16", "w8a16_f32")
 
 
 def _t(a):

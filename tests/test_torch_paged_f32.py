@@ -16,8 +16,8 @@ card, are held at f32 against the Pallas kernels in interpret mode (as
 tests/test_pallas.py runs them) and against JAX's XLA append; an f32 Llama
 at head dims 64 and 128 on both pools against the JAX engine. The
 launchers are checked without a launch (an f32 call binds its f32 entry
-point and counts under its ``_f32`` name; fp16, E with an f32 q and B-q4
-and G-q with f32 rows are refused), and so are the autotuner's pins: A's
+point and counts under its ``_f32`` name; fp16 is refused), and so are the
+autotuner's pins: A's
 carry the pool's dtype, D's the query's (``int8/float32``), so a pin of
 one build never steers another. The ``cuda``-marked tests hold each new
 build against its plain version on the card (``python -m pytest
@@ -245,8 +245,9 @@ def test_the_f32_pool_launchers_bind_their_builds_and_count_apart(as_if_on_the_c
     """A, B, D and B-q on f32 inputs bind the f32 entry points and count
     under the ``_f32`` names (``_d64_f32`` at 64); the same calls in bf16
     bind the bf16 builds; fp16 is refused by A, D and B, an f32 pool with
-    pages that are not a multiple of 32 by A, an f32 q by E and f32 rows by
-    B-q4 and G-q (Queue B 7c), all before any pointer reaches C."""
+    pages that are not a multiple of 32 by A, and an fp16 q by E and fp16
+    rows by B-q4 and G-q (whose f32 builds tests/test_torch_quantized_f32.py
+    holds), all before any pointer reaches C."""
     from gofr_tpu_torch.ops import cuda
     from gofr_tpu_torch.ops.cuda.kv_append import kv_append, kv_append_q, kv_append_q4, kv_append_slot_q
     from gofr_tpu_torch.ops.cuda.paged_decode import paged_decode, paged_decode_f32
@@ -291,17 +292,18 @@ def test_the_f32_pool_launchers_bind_their_builds_and_count_apart(as_if_on_the_c
     odd = torch.zeros(5, 2, 40, d)
     with pytest.raises(ValueError, match="multiple of 32"):
         paged_decode(torch.zeros(n, hq, d), odd, odd, table, pos)
-    # still bf16 only: E's q, B-q4's and G-q's rows
-    q32, rows32 = torch.zeros(n, hq, d), torch.zeros(n, 2, d)
+    # fp16 on E's q, B-q4's and G-q's rows
+    q16, rows16 = torch.zeros(n, hq, d, dtype=torch.float16), torch.zeros(n, 2, d,
+                                                                          dtype=torch.float16)
     q4pool = torch.zeros(5, 2, PAGE, d // 2, dtype=torch.uint8)
-    with pytest.raises(ValueError, match="Queue B 7c"):
-        paged_decode_q4(q32, q4pool, q4pool, scales, scales, table, pos)
-    with pytest.raises(ValueError, match="Queue B 7c"):
-        kv_append_q4(q4pool, q4pool, scales, scales, table, pos, rows32, rows32)
+    with pytest.raises(ValueError, match="bfloat16 or float32 q"):
+        paged_decode_q4(q16, q4pool, q4pool, scales, scales, table, pos)
+    with pytest.raises(ValueError, match="bf16 or f32 rows"):
+        kv_append_q4(q4pool, q4pool, scales, scales, table, pos, rows16, rows16)
     slot = torch.zeros(n, 2, 64, d, dtype=torch.int8)
     slot_s = torch.zeros(n, 2, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Queue B 7c"):
-        kv_append_slot_q(slot, slot, slot_s, slot_s, pos, rows32, rows32)
+    with pytest.raises(ValueError, match="bf16 or f32 rows"):
+        kv_append_slot_q(slot, slot, slot_s, slot_s, pos, rows16, rows16)
     assert sum(cuda.launch_counts().values()) == 8
 
 
@@ -416,7 +418,8 @@ def test_f32_on_the_paged_pool_reaches_the_weight_draw(monkeypatch, kind, head_d
     "paged"`` with ``kv_quantize`` "" (A and B's f32 builds) or "int8" (D's
     f32-q build, B-q's f32 rows) passes ``refuse_unbuilt_kernels`` and goes
     on to draw its weights, by ``build_engine`` and by the ``ModelSpec``
-    route; the int4 pool and int8 weights are still refused (Queue B 7)."""
+    route; so does it on the int4 pool (E and B-q4's f32 builds) and with
+    int8 weights (W8A16's f32 build)."""
     from gofr_tpu_torch.container import new_mock_container
     from gofr_tpu_torch.gpu import engine
     from gofr_tpu_torch.models import LlamaConfig, ModelSpec
@@ -431,10 +434,10 @@ def test_f32_on_the_paged_pool_reaches_the_weight_draw(monkeypatch, kind, head_d
     with pytest.raises(_Drawn):
         engine.build_engine(ModelSpec("llama", cfg, dtype=torch.float32), new_mock_container(),
                             kv_quantize=kind)
-    engine.refuse_unbuilt_kernels(cfg, torch.device("cuda"), "paged", kind, "")
-    for layout, quant, weights in (("paged", "int4", ""), ("paged", kind, "int8")):
-        with pytest.raises(ValueError, match="Queue B 7"):
-            engine.refuse_unbuilt_kernels(cfg, torch.device("cuda"), layout, quant, weights)
+    engine.refuse_unbuilt_kernels(cfg, torch.device("cuda"))
+    for quant, weights in (("int4", ""), (kind, "int8")):
+        with pytest.raises(_Drawn):
+            engine.build_engine(cfg, kv_layout="paged", kv_quantize=quant, quantize=weights)
 
 
 # -- the slice as a whole: an f32 Llama on the f32 pool and the int8 pool --------------------

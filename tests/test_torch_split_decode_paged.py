@@ -165,7 +165,14 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_kv_append_d64_f32": kv_append._ARGTYPES,
         "gofr_kv_append_q_f32": kv_append._Q_ARGTYPES,
         "gofr_kv_append_q_d64_f32": kv_append._Q_ARGTYPES,
+        "gofr_paged_decode_q4_f32": paged_decode_q._ARGTYPES,
+        "gofr_paged_decode_q4_d64_f32": paged_decode_q._ARGTYPES,
+        "gofr_kv_append_q4_f32": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_q4_d64_f32": kv_append._Q_ARGTYPES,
+        "gofr_kv_append_slot_q_f32": kv_append._SLOT_Q_ARGTYPES,
+        "gofr_kv_append_slot_q_d64_f32": kv_append._SLOT_Q_ARGTYPES,
         "gofr_w8a16": w8a16._ARGTYPES,
+        "gofr_w8a16_f32": w8a16._ARGTYPES,
     }
 
 

@@ -398,16 +398,19 @@ def test_the_plan_gives_the_blocks_the_kernel_source_states():
     assert mod.plan(65, 4096, 4096) == (0, 0, 0) and mod.plan(2048, 128256, 4096) == (0, 0, 0)
     for m in (1, 8, 40, 64):
         for n, k in [(1000, 4112), (64, 16), *blocks]:
-            splits, per_split, stage = mod.plan(m, n, k)
-            chunks = -(-k // mod.CHUNK)
-            assert (splits - 1) * per_split < chunks <= splits * per_split
-            assert 1 <= stage <= per_split
-            assert -(-m // 8) * 8 * (stage * mod.CHUNK + mod.X_PAD) * 2 <= mod.X_SMEM
+            for itemsize in (2, 4):  # bf16 and f32 x
+                splits, per_split, stage = mod.plan(m, n, k, itemsize)
+                chunks = -(-k // mod.CHUNK)
+                assert (splits - 1) * per_split < chunks <= splits * per_split
+                assert 1 <= stage <= per_split
+                assert (-(-m // 8) * 8 * (stage * mod.CHUNK * itemsize + mod.X_PAD_BYTES)
+                        <= mod.X_SMEM)
 
 
 @pytest.mark.quick
 def test_the_launcher_declares_the_c_entry_point_s_arguments(monkeypatch):
-    """The ctypes argument list matches ``gofr_w8a16`` in csrc/w8a16.cu, and
+    """The ctypes argument list matches ``gofr_w8a16`` and ``gofr_w8a16_f32``
+    (the launcher's ``ENTRY``, in order) in csrc/w8a16.cu, and
     a call with the checks and the C call stubbed passes the plan's ints
     (a scratch of f32 [splits, M, N] when K is split) and counts one
     launch."""
@@ -419,9 +422,10 @@ def test_the_launcher_declares_the_c_entry_point_s_arguments(monkeypatch):
 
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
     source = (cuda.CSRC / "w8a16.cu").read_text()
-    (name, params), = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)
-    assert name == "gofr_w8a16"
-    assert [c_types[" ".join(p.split()[:-1])] for p in params.split(",")] == mod._ARGTYPES
+    declared = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)
+    assert [name for name, _ in declared] == list(mod.ENTRY.values())
+    for _, params in declared:
+        assert [c_types[" ".join(p.split()[:-1])] for p in params.split(",")] == mod._ARGTYPES
     calls = []
     monkeypatch.setattr(cuda, "require", lambda cond, msg: None)
     monkeypatch.setattr(cuda, "bind", lambda name, argtypes: lambda *args: calls.append(args) or 0)

@@ -215,7 +215,29 @@ result line:
    audits clean, A, B and C launch and A only on the pinned plan, and after
    ``stop`` no thread the App started is left; it prints the websocket
    first frame against the engine's TTFT, the frame gap against its TPOT,
-   the gRPC overhead and pub/sub publish to completion. Then the encoders
+   the gRPC overhead and pub/sub publish to completion. Then
+   ``app_services``: a model App on the phase's model (``SERVICES_CONFIG``:
+   ``HTTP_CONFIG`` with SQLite and a KV store in a temporary directory)
+   migrates a ``completion`` table at boot (versions 1 and 2), gives it
+   CRUD routes and answers ``POST /complete`` by generating 64 tokens and
+   storing them; a gateway App (``GATEWAY_CONFIG``, no model) reaches it
+   through ``register_service`` with a circuit breaker, a retry and a
+   retry budget; ``bf16``'s 8 prompts go to the gateway as 8 concurrent
+   ``POST /ask`` with a deadline, then each row comes back through the
+   gateway's ``GET /completion/{id}``, then the model App stops and calls
+   go on until the breaker opens. Held: 64 tokens each, ``bf16``'s by the
+   tie rule, the rows and KV entries equal to what ``/ask`` returned,
+   ``gofr_migrations`` at 1 and 2, the model App's health with sql, kv,
+   file, tpu (platform gpu, one device, memory in use, the card's total
+   as its limit) and the model UP, the gateway's ``service:model`` UP
+   and, after the stop, DOWN with the aggregate DEGRADED, the breaker open
+   within its threshold plus the retries of refused connections and then
+   failing fast, one trace id across both Apps' server spans, the
+   caller's deadline read by the model App, A, B and C launched and no
+   other kernel, the pool audit clean and no thread left after both stop;
+   it prints the gateway's overhead a request, the insert's seconds, the
+   migrations' seconds and the failures before the breaker opened. Then
+   the encoders
    on the batch engine, built by the App from a ``ModelSpec`` with random
    bf16 weights from the seed: ``bert_embed`` (BASELINE.md configuration
    #1: BERT-base, 12 layers of 768, ``ENGINE_MAX_BATCH=256``,
@@ -2086,6 +2108,8 @@ ON_PATH = {("paged", ""): ("paged_decode", "kv_append", "flash_attention"),
            "paged_autotune_int4": ("paged_decode_q4", "kv_append_q4", "flash_attention"),
            "paged_autotune_slot_bf16": ("decode_attention", "kv_append_slot", "flash_attention"),
            "app_transports": ("paged_decode", "kv_append", "flash_attention"),
+           # a gateway App in front of a model App on the bf16 pool
+           "app_services": ("paged_decode", "kv_append", "flash_attention"),
            # the encoders on the BatchEngine: C's head-dim-64 build alone
            "bert_embed": ("flash_attention_d64",),
            "vit_classify": ("flash_attention_d64",),
@@ -5521,6 +5545,294 @@ def app_transports(torch, cuda, model, base_outs: list) -> dict:
     }
 
 
+# Phase 4's ``app_services``: an ordinary GoFr service moved onto the card.
+# A model App serves the phase's Llama-3-8B (32 layers, ``ModelSpec(weights=
+# model)``), migrates its schema at boot, stores each completion in SQLite
+# and the KV store and gives the table its CRUD routes; a gateway App that
+# serves no model reaches it through the service client (circuit breaker,
+# retry, retry budget). ``SERVICES_CONFIG`` is the model App's (its
+# ``DB_NAME`` and ``KV_PATH`` go in a temporary directory), ``GATEWAY_CONFIG``
+# the gateway's.
+SERVICES_CONFIG = {**HTTP_CONFIG, "DB_DIALECT": "sqlite", "TRACE_EXPORTER": "memory"}
+GATEWAY_CONFIG = {"HTTP_PORT": "0", "METRICS_PORT": "0", "TRACE_EXPORTER": "memory",
+                  "LOG_LEVEL": "ERROR"}
+# the gateway's options: the breaker opens after THRESHOLD failures and
+# probes every INTERVAL seconds; one retry, from a shared budget
+SERVICES_BREAKER = {"threshold": 3, "interval": 5.0}
+SERVICES_RETRIES = 1
+SERVICES_MIGRATIONS = (
+    "CREATE TABLE completion (id INTEGER PRIMARY KEY, prompt TEXT, tokens TEXT, ttft_s REAL)",
+    "ALTER TABLE completion ADD COLUMN decode_s REAL",
+)
+
+
+def _completion_entity():
+    """The ``completion`` table's row, as ``add_rest_handlers`` reflects it."""
+    import dataclasses
+
+    @dataclasses.dataclass
+    class Completion:
+        id: int
+        prompt: str
+        tokens: str
+        ttft_s: float
+        decode_s: float
+
+    return Completion
+
+
+def app_services(torch, cuda, model, base_outs: list) -> dict:
+    """Phase 4 ``app_services``: ``bf16``'s 8 prompts as 8 concurrent
+    ``POST /ask`` to the gateway, each with a deadline, forwarded as
+    ``POST /complete`` to the model App, which awaits ``ctx.agenerate`` for
+    64 greedy tokens, inserts them and ``ttft_s`` through ``ctx.sql`` and
+    sets a key in ``ctx.kv``; then ``GET /completion/{id}`` for each through
+    the gateway; then the model App stops and calls go on until the breaker
+    opens. Held: every request 64 tokens, ``bf16``'s by the tie rule, and
+    each row read back through CRUD equal to what ``/ask`` returned;
+    ``gofr_migrations`` holds versions 1 and 2; the model App's health shows
+    sql, kv, file, tpu and ``model:lm`` UP, ``tpu`` on platform gpu with one
+    device, bytes in use above 0 and a limit of the card's total memory; the
+    gateway's shows ``service:model`` UP before the stop, and after it DOWN
+    with the aggregate DEGRADED; the breaker opens within its threshold plus
+    the retries of failed connections and then fails fast without one; the
+    gateway's and the model App's server spans share each request's trace
+    id and the model App reads the caller's deadline; the launch counters,
+    zeroed after a warm-up call, show A, B and C and no other kernel; the
+    pool audits clean; after both stop, no thread either App started is
+    left. Printed: the gateway's overhead a request (client wall less the
+    model App's ``ttft_s`` and ``decode_s``) and where it lies on the one
+    monotonic clock the process shares (client to gateway, gateway to
+    model App, the insert, the KV set, the way back), the insert's and the
+    KV set's seconds (``app_sql_stats`` and ``app_kv_stats`` count the same
+    calls), the migrations' seconds and the failures before the breaker
+    opened."""
+    import tempfile
+    import threading
+
+    from gofr_tpu_torch import deadline as deadline_mod
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import DictConfig
+    from gofr_tpu_torch.models import ModelSpec
+    from gofr_tpu_torch.service import CircuitBreaker, Retry
+    from gofr_tpu_torch.service.budget import RetryBudget
+
+    threads_before = set(threading.enumerate())
+    prompts = phase4_prompts(torch, model.cfg.vocab_size)
+    tmp = tempfile.TemporaryDirectory(prefix="gofr-smoke-services-")
+    conf = {**SERVICES_CONFIG, "DB_NAME": os.path.join(tmp.name, "completions.db"),
+            "KV_PATH": os.path.join(tmp.name, "kv.db")}
+    app = App(config=DictConfig(conf))
+    t0 = time.perf_counter()
+    app.migrate({v + 1: (lambda d, q=q: d.sql.execute(q))
+                 for v, q in enumerate(SERVICES_MIGRATIONS)})
+    migrate_s = time.perf_counter() - t0
+    app.add_rest_handlers(_completion_entity())
+    engine = app.serve_model("lm", ModelSpec("llama", model.cfg, weights=model,
+                                             dtype=model.cfg.dtype), seed=SEED, eos_token_id=-1)
+    seen = {}
+
+    async def complete(ctx):
+        t_in = time.monotonic()
+        body = ctx.bind(dict)
+        o = await ctx.agenerate("lm", body["prompt"], max_new_tokens=64, timeout=900)
+        t_gen = time.monotonic()
+        ctx.sql.execute("INSERT INTO completion (id, prompt, tokens, ttft_s, decode_s) "
+                        "VALUES (?, ?, ?, ?, ?)", (body["id"], json.dumps(body["prompt"]),
+                                                   json.dumps(o["tokens"]), o["ttft_s"],
+                                                   o["decode_s"]))
+        t_sql = time.monotonic()
+        ctx.kv.set(f"completion:{body['id']}", json.dumps(o["tokens"]))
+        # one process, one monotonic clock: the handler's marks line up
+        # with the gateway's and the client's
+        seen[body["id"]] = {"trace_id": ctx.span.trace_id, "deadline_s": ctx.deadline_remaining(),
+                            "t_in": t_in, "t_gen": t_gen, "t_sql": t_sql,
+                            "t_kv": time.monotonic()}
+        return {"id": body["id"], "tokens": o["tokens"], "ttft_s": o["ttft_s"],
+                "decode_s": o["decode_s"]}
+
+    app.post("/complete", complete)
+    gateway = App(config=DictConfig(GATEWAY_CONFIG))
+    gw_seen = {}
+
+    def forward(ctx, method, path, body=None):
+        headers = {"Content-Type": "application/json"}
+        rem = ctx.deadline_remaining()
+        if rem is not None:
+            headers[deadline_mod.DEADLINE_HEADER] = deadline_mod.header_value(
+                time.monotonic() + rem)
+        with ctx.trace(f"forward {path}"):
+            resp = ctx.http_service("model").request(method, path, body=body, headers=headers)
+        return resp.json()["data"]
+
+    def ask(ctx):
+        t_in = time.monotonic()
+        body = ctx.bind(dict)
+        out = forward(ctx, "POST", "/complete", json.dumps(body).encode())
+        gw_seen[body["id"]] = {"trace_id": ctx.span.trace_id, "t_in": t_in,
+                               "t_out": time.monotonic()}
+        return out
+
+    gateway.post("/ask", ask)
+    gateway.get("/completion/{id}", lambda ctx: forward(ctx, "GET",
+                                                        f"/completion/{ctx.path_param('id')}"))
+    model_thread = None
+    try:
+        model_thread = AppThread(app, "services-model").__enter__()
+        model_url = f"http://127.0.0.1:{app.http_port}"
+        budget = RetryBudget(metrics=gateway.container.metrics)
+        gateway.register_service("model", model_url, CircuitBreaker(**SERVICES_BREAKER),
+                                 Retry(max_retries=SERVICES_RETRIES, backoff=0.05, budget=budget))
+        with tmp, AppThread(gateway, "services-gateway"):
+            port = gateway.http_port
+            status, warm, *_ = http_call(app.http_port, "POST", "/complete",
+                                         {"id": 0, "prompt": list(range(1, 65))})
+            require(status == 201 and len(warm["data"]["tokens"]) == 64,
+                    f"app_services warm-up: {status} {warm}")
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            replies = [None] * len(prompts)
+            budget_ms = str(int((time.time() + 900) * 1000))
+
+            def one(i: int) -> None:
+                replies[i] = http_call(port, "POST", "/ask", {"id": i + 1, "prompt": prompts[i]},
+                                       {deadline_mod.DEADLINE_HEADER: budget_ms})
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wait_idle(engine)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            for i, r in enumerate(replies):
+                require(r is not None and r[0] == 201, f"app_services /ask {i}: {r and r[:2]}")
+            outs = [r[1]["data"] for r in replies]
+            rows = [http_call(port, "GET", f"/completion/{i + 1}") for i in range(len(prompts))]
+            model_health = http_call(app.http_port, "GET", "/.well-known/health")
+            gateway_health = http_call(port, "GET", "/.well-known/health")
+            engine.check_page_refs()
+            sql = app.container.sql
+            versions = [r["version"] for r in sql.query(
+                "SELECT version FROM gofr_migrations ORDER BY version")]
+            kv_tokens = [json.loads(app.container.kv.get(f"completion:{i + 1}"))
+                         for i in range(len(prompts))]
+            sql_stats = app.container.metrics.get("app_sql_stats")
+            sql_exec = (sql_stats.count(type="exec"), sql_stats.sum(type="exec"))
+            card_total = torch.cuda.get_device_properties(0).total_memory
+
+            # the model App goes away: the gateway fails until its breaker
+            # opens, then fails fast
+            model_thread.__exit__(None, None, None)
+            model_thread = None
+            hist = gateway.container.metrics.get("app_http_service_response")
+            stopped, opened_after = [], None
+            for i in range(2 * SERVICES_BREAKER["threshold"]):
+                t = time.perf_counter()
+                status, body, *_ = http_call(port, "POST", "/ask", {"id": 100 + i, "prompt": [1]})
+                stopped.append({"status": status, "message": body["error"]["message"],
+                                "wall_s": time.perf_counter() - t,
+                                "connections": hist.count(service=model_url, method="POST",
+                                                          status="0")})
+                if opened_after is None and body["error"]["message"] == "circuit breaker is open":
+                    opened_after = i
+            down_health = http_call(port, "GET", "/.well-known/health")
+            retries = gateway.container.metrics.get("app_retry_budget_spent_total").value()
+    finally:
+        if model_thread is not None:
+            model_thread.__exit__(None, None, None)
+    exported = {name: a.container.tracer._exporter.spans for name, a in (("model", app),
+                                                                         ("gateway", gateway))}
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+        if not left:
+            break
+        time.sleep(0.1)
+    require(not left, f"app_services: threads outlived stop(): {left}")
+    require(not engine._thread.is_alive(), "app_services: the engine's thread outlived stop()")
+
+    # the holds on what came back
+    for i, (o, r) in enumerate(zip(outs, rows)):
+        require(len(o["tokens"]) == 64, f"app_services /ask {i}: {len(o['tokens'])} tokens")
+        require(r[0] == 200 and json.loads(r[1]["data"]["tokens"]) == o["tokens"]
+                and kv_tokens[i] == o["tokens"] and json.loads(r[1]["data"]["prompt"]) == prompts[i],
+                f"app_services: row {i + 1} read back {r[0]} {str(r[1])[:200]}")
+    require(versions == [1, 2], f"app_services: gofr_migrations holds {versions}")
+    m_services = model_health[1]["data"]["services"]
+    require(model_health[0] == 200 and all(m_services.get(k, {}).get("status") == "UP"
+                                           for k in ("sql", "kv", "file", "tpu", "model:lm")),
+            f"app_services: model App health {model_health[:2]}")
+    tpu = m_services["tpu"]["details"]
+    mem = tpu["memory"]["0"]
+    require(tpu["platform"] == "gpu" and tpu["devices"] == 1 and mem["bytes_in_use"] > 0
+            and mem["bytes_limit"] == card_total,
+            f"app_services: tpu health {tpu} (card total {card_total})")
+    require(gateway_health[0] == 200
+            and gateway_health[1]["data"]["services"]["service:model"]["status"] == "UP",
+            f"app_services: gateway health {gateway_health[:2]}")
+    down = down_health[1]["data"]
+    require(down_health[0] == 200 and down["status"] == "DEGRADED"
+            and down["services"]["service:model"]["status"] == "DOWN",
+            f"app_services: gateway health after the stop {down_health[:2]}")
+    limit = SERVICES_BREAKER["threshold"] + SERVICES_RETRIES
+    require(opened_after is not None and all(s["status"] == 503 for s in stopped)
+            and stopped[-1]["connections"] <= limit
+            and stopped[opened_after]["connections"] == stopped[-1]["connections"],
+            f"app_services: after the stop {stopped}")
+    trace_ids = {name: {s.trace_id for s in ss if s.name == f"POST /{path}"}
+                 for (name, ss), path in zip(exported.items(), ("complete", "ask"))}
+    ids = range(1, len(prompts) + 1)
+    require(all(seen[i]["trace_id"] == gw_seen[i]["trace_id"] for i in ids)
+            and {gw_seen[i]["trace_id"] for i in ids} <= trace_ids["model"] & trace_ids["gateway"],
+            f"app_services: trace ids gateway { {i: gw_seen[i]['trace_id'] for i in ids} } model "
+            f"{ {i: seen[i]['trace_id'] for i in ids} }")
+    require(all(seen[i]["deadline_s"] is not None and 0 < seen[i]["deadline_s"] <= 900
+                for i in ids), f"app_services: deadlines { {i: seen[i]['deadline_s'] for i in ids} }")
+    for name, launches in counts.items():
+        require((launches > 0) == (name in ON_PATH["app_services"]),
+                f"app_services: kernel {name} launched {launches} times")
+    agreement_ = token_agreement(torch, model, prompts, outs, base_outs)
+    gaps = [mm["chosen_below_top1"] for mm in agreement_["margin_at_first_difference"] if mm]
+    require(all(gap <= SPEC_TIE_GAP for gap in gaps),
+            f"app_services: at a first difference from bf16 the token lies {gaps} below the "
+            f"top logit (limit {SPEC_TIE_GAP})")
+    walls = [r[2] for r in replies]
+    overhead = sorted(w - (o["ttft_s"] + o["decode_s"]) for w, o in zip(walls, outs))
+    # where the overhead lies, on the one clock: the client's start, the
+    # gateway's handler, the model App's handler (generated, inserted, KV
+    # set), the gateway's return and the client's last byte
+    marks = [(r[3], gw_seen[i]["t_in"], seen[i]["t_in"], seen[i]["t_gen"], seen[i]["t_sql"],
+              seen[i]["t_kv"], gw_seen[i]["t_out"], r[3] + r[2]) for i, r in zip(ids, replies)]
+    spans = {name: [m[k + 1] - m[k] for m in marks] for k, name in enumerate(
+        ("client_to_gateway_s", "gateway_to_model_s", "model_handler_generate_s", "insert_s",
+         "kv_set_s", "model_to_gateway_return_s", "gateway_to_client_s"))}
+    # the model App's handler outside the engine's own ttft + decode
+    model_side = [m[3] - m[2] - (o["ttft_s"] + o["decode_s"]) for m, o in zip(marks, outs)]
+    kv_stats = app.container.metrics.get("app_kv_stats")
+    del engine, app, gateway
+    torch.cuda.empty_cache()
+    return {
+        "model": "llama3_8b (random bf16 weights, seed 0)", "config": SERVICES_CONFIG,
+        "gateway_config": GATEWAY_CONFIG, "breaker": SERVICES_BREAKER,
+        "retries": SERVICES_RETRIES, "requests": len(outs), "new_tokens": 64,
+        "client_wall_s": walls, "ttft_s": [o["ttft_s"] for o in outs],
+        "decode_s": [o["decode_s"] for o in outs],
+        "gateway_overhead_p50_s": p50(overhead), "gateway_overhead_max_s": overhead[-1],
+        "insert_s_p50": p50(spans["insert_s"]), "kv_set_s_p50": p50(spans["kv_set_s"]),
+        "overhead_spans": spans, "model_handler_outside_engine_s": model_side,
+        "app_sql_stats_exec": {"count": sql_exec[0], "sum_s": sql_exec[1]},
+        "app_kv_stats_set": {"count": kv_stats.count(op="set"), "sum_s": kv_stats.sum(op="set")},
+        "migrations_s": migrate_s, "migrations": versions,
+        "tpu_health": tpu, "card_total_bytes": card_total,
+        "after_stop": stopped, "failures_before_open": opened_after,
+        "retries_granted": retries, "gateway_health_after_stop": down["status"],
+        **agreement_, "compared_with": "bf16",
+        "launches": counts, "nvidia_smi": smi_line(), "note": "smoke run, not a benchmark",
+    }
+
+
 # Phase 4's encoder runs, on the BatchEngine (the port's embed and classify
 # path). ``bert_embed``, BASELINE.md configuration #1: BERT-base at full
 # width and depth (12 layers, 768 wide, 12 heads of 64), random bf16
@@ -6430,6 +6742,10 @@ def main() -> None:
     served["app_transports"] = app_transports(torch, cuda, model, results["paged", ""])
     emit("phase4_app_transports", served["app_transports"])
     lap("phase4_app_transports")
+
+    served["app_services"] = app_services(torch, cuda, model, results["paged", ""])
+    emit("phase4_app_services", served["app_services"])
+    lap("phase4_app_services")
 
     served["bert_embed"] = bert_embed(torch, cuda)
     emit("phase4_bert_embed", {k: v for k, v in served["bert_embed"].items() if k != "step_sizes"})

@@ -6,11 +6,18 @@ layout mirrors the JAX package so each module has an obvious counterpart:
 
 - ``app.py``             the App: routes, ``serve_model``, the servers (app.py)
 - ``context.py``         the handler context (context.py)
-- ``container/``         config, logger, metrics and engines (container/)
+- ``container/``         config, logger, metrics, engines, datasources and
+                         service clients (container/)
+- ``datasource/``        SQL, Redis, KV, file and the plugin datasources
+                         (datasource/); ``migration/`` versioned migrations;
+                         ``crud.py`` a dataclass's REST routes
+- ``service/``           the inter-service HTTP client, its options and
+                         the retry budget (service/)
 - ``config/`` ``logging/`` ``metrics/`` ``deadline.py``  their copies
 - ``http/``              errors, request, responder, SSE, middlewares, and
                          an HTTP/1.1 server on the standard library (http/)
-- ``gpu/device.py``      device resolution and card facts (tpu/device.py)
+- ``gpu/device.py``      device resolution, card facts and the card as a
+                         datasource (tpu/device.py)
 - ``gpu/programs.py``    the prefill and decode step functions (tpu/programs.py)
 - ``gpu/engine.py``      continuous batching over the paged pool (tpu/engine.py)
 - ``models/llama.py``    the Llama family as an ``nn.Module`` (models/llama.py)

@@ -42,9 +42,23 @@ and ``/.well-known/swagger``, ``register_grpc_service`` (``GRPC_PORT``, 0
 binds a free port that ``grpc_port`` then reads; ``GRPC_THREADS``),
 ``subscribe`` (``SUBSCRIBER_WORKERS`` consumer threads a topic in
 ``CONSUMER_GROUP``, a message committed only when its handler succeeds)
-and ``add_cron_job``. Not ported yet: JAX's ``jax.profiler`` server on
-``PROFILER_PORT`` (it has no torch counterpart), the ``pubsub.commit`` and
-``client.disconnect`` chaos points, the raw proxy stream and the CLI.
+and ``add_cron_job``.
+
+An App's dependencies, wired through the container as JAX wires them:
+SQL, Redis and the KV store from config (``DB_DIALECT``, ``REDIS_HOST``,
+``KV_PATH``), the local filesystem always, ``add_mongo`` /
+``add_cassandra`` / ``add_clickhouse`` / ``add_kv_store`` /
+``add_file_store`` for plugins, ``migrate`` (versioned schema migrations,
+recorded in ``gofr_migrations``), ``add_rest_handlers`` (a dataclass's
+five CRUD routes over ``ctx.sql``), ``register_service`` (an inter-service
+HTTP client with circuit breaker, retry, retry budget and auth options,
+reached as ``ctx.http_service(name)``) and the card as ``ctx.tpu``.
+``on_cleanup`` functions run at shutdown before the container closes.
+
+Not ported yet: JAX's ``jax.profiler`` server on ``PROFILER_PORT`` (it has
+no torch counterpart), the ``pubsub.commit`` and ``client.disconnect``
+chaos points, the raw proxy stream, the CLI, the Kafka, Google and MQTT
+brokers, multipart binding and remote log levels.
 """
 
 from __future__ import annotations
@@ -125,6 +139,7 @@ class App:
         self._sub_stop = threading.Event()
         # one /debug/profile capture at a time (409 while held)
         self._profile_busy = threading.Lock()
+        self._cleanup: list[Callable[[], None]] = []
 
     # -- route registration (gofr.go:244-276) ----------------------------------
 
@@ -151,6 +166,13 @@ class App:
 
     def add_static_files(self, route: str, directory: str) -> None:
         self._static.append((route if route.startswith("/") else f"/{route}", directory))
+
+    def add_rest_handlers(self, entity: type, table: str | None = None,
+                          path: str | None = None) -> None:
+        """Reflect a dataclass into CRUD routes (gofr `crud_handlers.go`)."""
+        from gofr_tpu_torch.crud import register_crud_routes
+
+        register_crud_routes(self, entity, table=table, path=path)
 
     # -- auth (gofr.go:436-507; app.py:120-155) ---------------------------------
 
@@ -211,6 +233,11 @@ class App:
         self.container.register_qos(controller)
         return controller
 
+    def on_cleanup(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` during graceful shutdown, before the container closes
+        (app.py:192-196)."""
+        self._cleanup.append(fn)
+
     # -- other entry points (app.py:197-214) ------------------------------------
 
     def subscribe(self, topic: str, handler: Handler) -> None:
@@ -226,6 +253,40 @@ class App:
         """Register a gRPC service: ``(add_fn, servicer)`` from generated
         code, or an ``add_fn(server)`` alone."""
         self._grpc_services.append((adder, servicer))
+
+    # -- dependencies (app.py:214-252) ------------------------------------------
+
+    def register_service(self, name: str, base_url: str, *options: Any):
+        """Register an inter-service HTTP client (circuit breaker, retry and
+        auth via options, gofr `service/new.go`'s decorator pattern)."""
+        from gofr_tpu_torch.service import new_http_service
+
+        client = new_http_service(base_url, self.logger, self.container.metrics, *options)
+        self.container.register_service(name, client)
+        return client
+
+    def migrate(self, migrations: dict[int, Any]) -> None:
+        from gofr_tpu_torch.migration import run_migrations
+
+        run_migrations(migrations, self.container)
+
+    def add_mongo(self, client: Any) -> None:
+        self.container.add_mongo(client)
+
+    def add_cassandra(self, client: Any) -> None:
+        self.container.add_cassandra(client)
+
+    def add_clickhouse(self, client: Any) -> None:
+        self.container.add_clickhouse(client)
+
+    def add_kv_store(self, client: Any) -> None:
+        self.container.add_kv_store(client)
+
+    def add_file_store(self, provider: Any) -> None:
+        """Swap the container's file datasource for a remote-FS provider
+        (``datasource.file.FileSystemProvider``); handlers keep using
+        ``ctx.file``."""
+        self.container.add_file_store(provider)
 
     # -- model serving ---------------------------------------------------------
 
@@ -808,9 +869,10 @@ class App:
         routes, the gRPC server on ``GRPC_PORT`` when a service is
         registered, the subscribers and the cron table; then ``ready`` is
         set. A server that cannot bind raises. On the way out the
-        consumers, cron, gRPC and the JWKS pollers stop and their threads
-        are joined, the servers close, the container stops the engines and
-        the broker, and the executor shuts down."""
+        ``on_cleanup`` functions run, the consumers, cron, gRPC and the JWKS
+        pollers stop and their threads are joined, the servers close, the
+        container stops the engines and closes its datasources and service
+        clients, and the executor shuts down."""
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             try:
@@ -843,6 +905,11 @@ class App:
             await self._shutdown.wait()
             self.logger.info("shutting down")
         finally:
+            for fn in self._cleanup:
+                try:
+                    fn()
+                except Exception as e:  # noqa: BLE001 - one hook must not block the rest
+                    self.logger.log_exception(e, "cleanup hook")
             self._stop_entry_points(grpc_server)
             for server in self._servers:
                 await server.close()

@@ -1,24 +1,36 @@
 """Container: the dependency-injection hub (gofr `pkg/gofr/container/
-container.go`), the port's own copy of gofr_tpu/container/__init__.py
-reduced to what serving needs: config, logger, metrics, the tracer, the
-flight recorder, the SLO engine and its capture watcher, the QoS
-admission controller and the model engines, their health and their
-shutdown, and since the App's other entry points the pub/sub backbone
+container.go`), the port's own copy of gofr_tpu/container/__init__.py.
+
+One Container per App. It materializes every dependency from config at
+boot and exposes it through narrow attributes: config, logger, metrics, the
+tracer, the flight recorder, the SLO engine and its capture watcher, the
+QoS admission controller, the model engines, the pub/sub backbone
 (``PUBSUB_BACKEND``: ``inmemory`` or ``file``; ``publish`` with the
-traceparent header and the four ``app_pubsub_*`` counters).
+traceparent header and the four ``app_pubsub_*`` counters), and the
+datasources: SQL (``DB_DIALECT`` / ``DB_HOST``, ``datasource/sql.py``),
+Redis (``REDIS_HOST``), the KV store (``KV_PATH``), the local filesystem
+(always wired as ``file``), the plugins an App adds (``add_mongo``,
+``add_cassandra``, ``add_clickhouse``, ``add_kv_store``,
+``add_file_store``), the inter-service HTTP clients (``register_service``)
+and the card itself (``tpu``: ``gpu.device.GPUDevices``, wired by
+``build_engine`` on the engine's device, else built on first use on the
+card). Everything is config-gated: an unset host or backend leaves the
+feature unwired; a datasource that is configured and cannot connect (an
+unreachable Redis, a SQL dialect without its driver) raises at boot, where
+JAX's logs it and leaves it unwired (ROADMAP.md Queue C).
 
 The engines take ``metrics``, ``logger``, ``tracer``, ``flight`` and
-``slo`` from here (``GenerateEngine(model, container=...)``). The metric
-families are the JAX package's ``app_tpu_*`` / ``app_qos_*`` /
-``app_slo_*`` names, registered where the port has their producer; the
-compile counters (``app_tpu_compile_total``, ``app_tpu_compile_cache_hits``)
-have no eager counterpart and are left out. Datasources,
-inter-service clients, the controller's gauges and fleet federation (the
+``slo`` from here (``GenerateEngine(model, container=...)``). The
+metric families are the JAX package's names, registered where the port has
+their producer; the compile counters (``app_tpu_compile_total``,
+``app_tpu_compile_cache_hits``) have no eager counterpart and are left out.
+Remote log levels, the controller's gauges and fleet federation (the
 quality counters' included) are not ported yet.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any
 
@@ -45,6 +57,18 @@ class Container:
             max_requests=config.get_int("FLIGHT_REQUESTS", 256),
             max_steps=config.get_int("FLIGHT_STEPS", 512),
         )
+        # datasource slots (None = not wired; config decides)
+        self.sql = None
+        self.redis = None
+        self.mongo = None
+        self.cassandra = None
+        self.clickhouse = None
+        self.kv = None
+        self.file = None
+        # the card as a datasource (wire_tpu), None until first use
+        self._tpu = None
+        self._tpu_lock = threading.Lock()
+        self.services: dict[str, Any] = {}
         self._engines: dict[str, Any] = {}
         self.qos = None  # AdmissionController once App.enable_qos runs
         self.slo: SLOEngine | None = None  # once _maybe_slo runs (SLO_ENABLED)
@@ -59,7 +83,11 @@ class Container:
         c.metrics.add_collect_hook(c._sample_tpu_metrics)
         c.tracer = tracer_from_config(config, c.logger, c.app_name)
         c._maybe_slo()
+        c._maybe_sql()
+        c._maybe_redis()
         c._maybe_pubsub()
+        c._wire_file()
+        c._maybe_kv()
         return c
 
     def _register_framework_metrics(self) -> None:
@@ -68,6 +96,10 @@ class Container:
         g.set(1, app=self.app_name, version=self.app_version,
               framework=f"gofr_tpu_torch-{gofr_tpu_torch.__version__}")
         m.new_histogram("app_http_response", "HTTP handler latency (s)")
+        m.new_histogram("app_http_service_response", "outbound HTTP client latency (s)")
+        m.new_histogram("app_sql_stats", "SQL query latency (s)")
+        m.new_histogram("app_redis_stats", "redis command latency (s)")
+        m.new_histogram("app_kv_stats", "kv store op latency (s)")
         m.new_counter("app_pubsub_publish_total_count", "pubsub publish attempts")
         m.new_counter("app_pubsub_publish_success_count", "pubsub publish successes")
         m.new_counter("app_pubsub_subscribe_total_count", "pubsub messages received")
@@ -160,6 +192,10 @@ class Container:
         m.new_counter("app_request_deadline_exceeded_total",
                       "requests shed because their deadline could not be met "
                       "(where = edge|qos|engine)")
+        m.new_counter("app_retry_budget_spent_total",
+                      "retries granted by the shared Envoy-style retry budget")
+        m.new_counter("app_retry_budget_exhausted_total",
+                      "retries DENIED because the budget window was spent")
         # SLO plane: attainment and error-budget burn per (class,
         # objective), refreshed by the SLOEngine collect hook on a scrape
         m.new_gauge("app_slo_attainment",
@@ -227,23 +263,16 @@ class Container:
                     "backend='auto' to this backend; labels: op, backend)")
 
     def _sample_tpu_metrics(self, _registry=None) -> None:
-        """Collect hook: the card's memory on every /metrics scrape — read
-        here, never on the dispatch path, and only for the cards a
-        registered engine runs on (a scrape must never be the thing that
-        initializes a device)."""
-        devices = {e.device.index or 0 for e in self._engines.values()
-                   if getattr(getattr(e, "device", None), "type", None) == "cuda"}
-        if devices:
-            import torch
-
-            self.metrics.set_gauge("app_tpu_device_count", torch.cuda.device_count())
-            for i in sorted(devices):
-                try:
-                    free, total = torch.cuda.mem_get_info(i)
-                except Exception:  # noqa: BLE001 - scrape must not fail on a device hiccup
-                    continue
-                self.metrics.set_gauge("app_tpu_hbm_used_bytes", total - free, device=str(i))
-                self.metrics.set_gauge("app_tpu_hbm_limit_bytes", total, device=str(i))
+        """Collect hook: the card's memory on every /metrics scrape, pushed
+        through the device datasource — read here, never on the dispatch
+        path, and only once the datasource is materialized (a scrape must
+        never be the thing that initializes a device)."""
+        tpu = self._tpu
+        if tpu is not None:
+            try:
+                tpu._push_memory_gauges()
+            except Exception:  # noqa: BLE001 - scrape must not fail on a device hiccup
+                pass
         # summed HERE rather than set by each engine: a per-engine write to
         # the shared gauge would report whichever engine completed last
         self.metrics.set_gauge(
@@ -339,6 +368,23 @@ class Container:
             self.slo_capture = CaptureWatcher.from_config(self.config, self, self.slo)
             self.slo.add_breach_listener(self.slo_capture.on_breach)
 
+    def _maybe_sql(self) -> None:
+        dialect = (self.config.get("DB_DIALECT") or "").lower()
+        host = self.config.get("DB_HOST")
+        if not dialect and not host:
+            return
+        from gofr_tpu_torch.datasource.sql import connect_sql
+
+        self.sql = connect_sql(self.config, self.logger, self.metrics)
+
+    def _maybe_redis(self) -> None:
+        host = self.config.get("REDIS_HOST")
+        if not host:
+            return
+        from gofr_tpu_torch.datasource.redis import connect_redis
+
+        self.redis = connect_redis(self.config, self.logger, self.metrics)
+
     def _maybe_pubsub(self) -> None:
         backend = (self.config.get("PUBSUB_BACKEND") or "").lower()
         if not backend:
@@ -346,6 +392,72 @@ class Container:
         from gofr_tpu_torch.pubsub import connect_pubsub
 
         self.pubsub = connect_pubsub(backend, self.config, self.logger, self.metrics)
+
+    def _wire_file(self) -> None:
+        from gofr_tpu_torch.datasource.file import LocalFileSystem
+
+        self.file = LocalFileSystem()
+
+    def _maybe_kv(self) -> None:
+        path = self.config.get("KV_PATH")
+        if not path:
+            return
+        from gofr_tpu_torch.datasource.kv import KVStore
+
+        self.kv = KVStore(path, self.logger, self.metrics)
+
+    # -- external-plugin injection (gofr `external_db.go` pattern) -------------
+
+    def add_mongo(self, client: Any) -> None:
+        self.mongo = self._wire_plugin(client)
+
+    def add_cassandra(self, client: Any) -> None:
+        self.cassandra = self._wire_plugin(client)
+
+    def add_clickhouse(self, client: Any) -> None:
+        self.clickhouse = self._wire_plugin(client)
+
+    def add_kv_store(self, client: Any) -> None:
+        self.kv = self._wire_plugin(client)
+
+    def add_file_store(self, client: Any) -> None:
+        """Replace the default local filesystem with a remote-FS provider
+        (datasource/file.py ``FileSystemProvider``; gofr `file.go:69-78`)."""
+        self.file = self._wire_plugin(client)
+
+    def _wire_plugin(self, client: Any) -> Any:
+        if hasattr(client, "use_logger"):
+            client.use_logger(self.logger)
+        if hasattr(client, "use_metrics"):
+            client.use_metrics(self.metrics)
+        if hasattr(client, "connect"):
+            client.connect()
+        return client
+
+    # -- the card as a datasource (lazy, container/__init__.py:555-569) --------
+
+    def wire_tpu(self, device=None):
+        """The device datasource (``gpu.device.GPUDevices``), built on
+        ``device`` if none is wired yet; ``build_engine`` wires it on the
+        engine's device. ``None`` is the card: without one this raises
+        ``resolve_device``'s error, never a CPU datasource."""
+        if self._tpu is None:
+            with self._tpu_lock:
+                if self._tpu is None:
+                    from gofr_tpu_torch.gpu.device import GPUDevices
+
+                    self._tpu = GPUDevices(self.config, self.logger, self.metrics, device=device)
+        return self._tpu
+
+    @property
+    def tpu(self):
+        """The device datasource: the one an engine build wired, else the
+        card's, built on first use."""
+        return self.wire_tpu()
+
+    @property
+    def tpu_wired(self) -> bool:
+        return self._tpu is not None
 
     # -- pub/sub (container/__init__.py:623-660) --------------------------------
 
@@ -398,6 +510,17 @@ class Container:
     def generate(self, model: str, prompt: Any, **kw: Any):
         return self.engine(model).generate(prompt, **kw)
 
+    # -- inter-service HTTP clients ---------------------------------------------
+
+    def register_service(self, name: str, client: Any) -> None:
+        self.services[name] = client
+
+    def http_service(self, name: str):
+        try:
+            return self.services[name]
+        except KeyError:
+            raise KeyError(f"no HTTP service registered as {name!r}") from None
+
     # -- health aggregation (gofr `container/health.go`) -----------------------
 
     def health(self) -> dict[str, Any]:
@@ -416,11 +539,21 @@ class Container:
             if h.get("status") != "UP":
                 down += 1
 
+        check("sql", self.sql)
+        check("redis", self.redis)
         check("pubsub", self.pubsub)
+        check("kv", self.kv)
+        check("file", self.file)
+        check("mongo", self.mongo)
+        check("cassandra", self.cassandra)
+        check("clickhouse", self.clickhouse)
+        check("tpu", self._tpu)
         check("qos", self.qos)
         check("slo", self.slo)
         for name, engine in self._engines.items():
             check(f"model:{name}", engine)
+        for name, svc in self.services.items():
+            check(f"service:{name}", svc)
         status = "UP" if down == 0 else ("DEGRADED" if down < max(len(services), 1) else "DOWN")
         models = [h for name, h in services.items() if name.startswith("model:")]
         if models and all(h.get("status") == "DOWN" for h in models):
@@ -440,23 +573,28 @@ class Container:
     # -- shutdown --------------------------------------------------------------
 
     def close(self) -> None:
-        """Stop every engine, close the pub/sub broker, then the tracer (its
-        exporter thread flushes and ends)."""
+        """Stop every engine, close each datasource (SQL, Redis, the pub/sub
+        broker, the KV store, the plugins and the service clients), then
+        the tracer (its exporter thread flushes and ends)."""
         for engine in self._engines.values():
             if hasattr(engine, "stop"):
                 engine.stop()
-        if self.pubsub is not None and hasattr(self.pubsub, "close"):
-            try:
-                self.pubsub.close()
-            except Exception:  # noqa: BLE001 - shutdown goes on
-                pass
+        # the service clients too (JAX leaves them open): a circuit
+        # breaker's probe thread ends with its client
+        for ds in (self.sql, self.redis, self.pubsub, self.kv, self.mongo, self.cassandra,
+                   self.clickhouse, *self.services.values()):
+            if ds is not None and hasattr(ds, "close"):
+                try:
+                    ds.close()
+                except Exception:  # noqa: BLE001 - shutdown goes on
+                    pass
         self.tracer.shutdown()
 
 
 def new_mock_container(config: dict[str, str] | None = None) -> Container:
     """Hermetic container for handler tests (gofr `NewMockContainer`): mock
     logger, real metrics registry, the SLO engine as ``SLO_ENABLED`` says,
-    in-memory pub/sub."""
+    no datasources wired, in-memory pub/sub."""
     from gofr_tpu_torch.pubsub.inmemory import InMemoryBroker
 
     c = Container(DictConfig(config or {}), logger=MockLogger(level=Level.DEBUG))

@@ -4,9 +4,13 @@ transport.
 
 The server builds a Context from (request, container) and passes it to the
 user handler ``def handler(ctx) -> result``. Handlers reach the request
-(``bind``, ``param``, ``path_param``, ``header``), the container
-(``logger``, ``config``, ``metrics``, ``publish``) and the served models
-(``infer``, ``generate``, ``agenerate``) through it. The request is any
+(``bind``, ``param``, ``path_param``, ``header``, ``deadline_remaining``),
+the container (``logger``, ``config``, ``metrics``, ``publish``), its
+datasources (``sql``, ``redis``, ``kv``, ``file``, ``mongo``,
+``cassandra``, ``clickhouse``, the card as ``tpu``), the services it calls
+(``http_service(name)``) and the served models (``infer``, ``generate``,
+``agenerate``) through it, never a transport; ``set_value`` /
+``get_value`` keep scratch values for the request. The request is any
 transport's: an HTTP request, a websocket message, a pub/sub message, a gRPC
 call or a cron firing's empty request. What each engine call takes from
 the request (``_request_kw``, context.py:143-200): the request's server
@@ -31,12 +35,13 @@ if TYPE_CHECKING:
 
 
 class Context:
-    __slots__ = ("request", "container", "span", "_engine_requests")
+    __slots__ = ("request", "container", "span", "_values", "_engine_requests")
 
     def __init__(self, request: Any, container: "Container", span: Span | None = None):
         self.request = request
         self.container = container
         self.span = span
+        self._values: dict[str, Any] = {}
         # engine Requests submitted through this context, so the transport
         # can cancel them all when the client disconnects mid-handler;
         # populated via the engine's _on_submit hook
@@ -83,6 +88,44 @@ class Context:
     def metrics(self):
         return self.container.metrics
 
+    @property
+    def sql(self):
+        return self.container.sql
+
+    @property
+    def redis(self):
+        return self.container.redis
+
+    @property
+    def kv(self):
+        return self.container.kv
+
+    @property
+    def file(self):
+        return self.container.file
+
+    @property
+    def mongo(self):
+        return self.container.mongo
+
+    @property
+    def cassandra(self):
+        return self.container.cassandra
+
+    @property
+    def clickhouse(self):
+        return self.container.clickhouse
+
+    @property
+    def tpu(self):
+        """The card as a datasource (``gpu.device.GPUDevices``): the one
+        an engine build wired on its device, else the card's (raising
+        without one)."""
+        return self.container.tpu
+
+    def http_service(self, name: str):
+        return self.container.http_service(name)
+
     # -- pub/sub ---------------------------------------------------------------
 
     def publish(self, topic: str, payload: Any) -> None:
@@ -94,6 +137,12 @@ class Context:
         self.container.publish(topic, payload, headers=headers)
 
     # -- model inference -------------------------------------------------------
+
+    def deadline_remaining(self) -> float | None:
+        """Seconds left in the request's propagated deadline (<= 0 once
+        expired); None when the request carries none. Parsed at the HTTP
+        edge from ``X-Request-Deadline-Ms`` (``deadline.py``)."""
+        return _deadline.remaining(self.request.context())
 
     def cancel_inflight(self, reason: str = "client_disconnect") -> int:
         """Cancel every engine Request submitted through this context — the
@@ -190,3 +239,9 @@ class Context:
         `context.go:45-55`). Use as a context manager:
         ``with ctx.trace("work"): ...``"""
         return self.container.tracer.start_span(name, parent=self.span)
+
+    def set_value(self, key: str, value: Any) -> None:
+        self._values[key] = value
+
+    def get_value(self, key: str, default: Any = None) -> Any:
+        return self._values.get(key, default)

@@ -35,6 +35,14 @@ def parse_deadline_ms(value: Any) -> float | None:
     return time.monotonic() + wall_remaining
 
 
+def header_value(deadline_at: float) -> str:
+    """Monotonic deadline -> the absolute epoch-ms wire form: what a caller
+    stamps on an outgoing request so the next service inherits the
+    budget."""
+    wall = time.time() + (deadline_at - time.monotonic())
+    return str(int(wall * 1000.0))
+
+
 def set_deadline(ctx: dict, deadline_at: float | None) -> None:
     """Record a monotonic deadline on a per-request context dict."""
     if deadline_at is not None:

@@ -3219,6 +3219,7 @@ def build_batch_engine(spec: ModelSpec, container: Any, cfg: Any, *,
     model = _model(family, cfg, spec.weights, dev, seed)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, engine device is {dev}")
+    container.wire_tpu(dev)  # the device as the container's datasource (engine.py:4043)
     if spec.task == "embed":
         tokenizer, vocab = spec.tokenizer, cfg.vocab_size
 
@@ -3280,7 +3281,9 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
     kernel for (``refuse_unbuilt_kernels``: a dtype other than bf16 and
     f32, a head dim other than 128 and 64) raises before any weight is
     drawn.
-    Runs on the card unless ``device`` says otherwise."""
+    Runs on the card unless ``device`` says otherwise; in the spec form the
+    build wires that device as the container's datasource
+    (``container.tpu``) once the model is drawn."""
     if isinstance(config, ModelSpec):
         spec = config
         if container is None or params is not None:
@@ -3337,5 +3340,7 @@ def build_engine(config: str | Any = "llama3_8b", container: Any = None, *,
         model = quantize_tree(model)
     if spec_draft is not None:
         spec_draft = (dcfg, _model(family_of_config(dcfg), dcfg, spec_draft[1], dev, seed + 1))
+    if container is not None:
+        container.wire_tpu(dev)  # the device as the container's datasource (engine.py:4043)
     return GenerateEngine(model, device=dev, seed=seed, spec_draft=spec_draft, container=container,
                           **kw)

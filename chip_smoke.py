@@ -426,14 +426,15 @@ def device_ms(torch, fn, iters: int) -> float:
     trace, over ``iters``. Unlike ``time_ms`` it leaves out the host's time
     between launches, which a short kernel behind a Python wrapper can wait
     on."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from gofr_tpu_torch.gpu.launch_gate import quiet_profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with quiet_profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
             fn(i)
-        torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     return total_us / 1e3 / iters
@@ -1990,7 +1991,10 @@ def check_w8a16(torch, timing=None, f32: bool = False) -> dict:  # port: the wei
     weight (TF32 off), the bound's operations at three bf16 products
     each. The row's ``ms``, ``device_ms``, ``plain_ms``, ``library_ms``
     and ``bound_ms`` are one decode step's 225 products at M = 8
-    (``W8_PER_STEP``), summed over the shapes. ``timing`` is
+    (``W8_PER_STEP``), summed over the shapes; ``prefill_*`` and (bf16)
+    ``verify_*`` sum a forward's products at M = 2048 and M = 40 the same
+    way (device time, bound, cuBLAS's device time). The bf16 check also
+    holds the tiles at ``W8_EDGES`` (untimed). ``timing`` is
     ``check_kernels``' timer; None leaves the check untimed."""
     import torch.nn.functional as F
 
@@ -2031,6 +2035,16 @@ def check_w8a16(torch, timing=None, f32: bool = False) -> dict:  # port: the wei
                 shapes[f"{name}_m{m}"] = entry
             del ws, qs
             torch.cuda.empty_cache()
+        # the bf16 tiles' ragged edges at each token width: M past a whole
+        # tile, N past a whole 128-channel tile, K past a whole 64 (untimed)
+        for m, n_out, k_in in (() if f32 else W8_EDGES):
+            w = quantize((torch.randn(n_out, k_in, device=dev, generator=wgen) * k_in ** -0.5)
+                         .to(dtype))
+            x = torch.randn(m, k_in, device=dev, generator=wgen).to(dtype)
+            shapes[f"edge_{m}x{n_out}x{k_in}"] = {
+                **w8_agreement(f"{launch.__name__} edge M={m} N={n_out} K={k_in}",
+                               launch(x, w.q, w.s), qdot_plain(x, w)),
+                "n": n_out, "k": k_in, "m": m, "plan": w8_mod.plan(m, n_out, k_in)}
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     lim = w8_mod.F32 if f32 else None
@@ -2046,6 +2060,12 @@ def check_w8a16(torch, timing=None, f32: bool = False) -> dict:  # port: the wei
     for key in ("bound_ms", *(("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
                               if timed else ())):
         row[key] = sum(W8_PER_STEP[name] * shapes[f"{name}_m8"][key] for name in W8_SHAPES)
+    # a forward's products at the prefill rows and (bf16) the verify rows,
+    # beside their bound and cuBLAS's device time on the same weights
+    for label, m in (("prefill", 2048), *(() if f32 else (("verify", 40),))):
+        for key in ("bound_ms", *(("device_ms", "library_device_ms") if timed else ())):
+            row[f"{label}_{key}"] = sum(W8_PER_STEP[name] * shapes[f"{name}_m{m}"][key]
+                                        for name in W8_SHAPES)
     return row
 
 
@@ -2057,6 +2077,9 @@ W8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (1024, 4096), "gate_up": (14336, 40
              "down": (4096, 14336), "head": (128256, 4096)}
 W8_PER_STEP = {"wq_wo": 64, "wk_wv": 64, "gate_up": 64, "down": 32, "head": 1}
 W8_ROWS = (8, 40, 2048)
+# The bf16 tiles' edges (M, N, K) at token widths 64, 128 and 256: M, N and
+# K each past a whole tile.
+W8_EDGES = ((129, 1000, 4112), (2000, 1000, 4112), (600, 4200, 4112))
 # The f32 build's rows: a decode step and a prefill.
 W8_ROWS_F32 = (8, 2048)
 W8_COLD_BYTES = 150e6
@@ -2597,6 +2620,7 @@ def serve_spec(torch, cuda, model, results: dict) -> dict:
     prompts = phase4_prompts(torch, model.cfg.vocab_size)
     out = {}
     for name, (kv_layout, kv_quantize) in SPEC_RUNS.items():
+        t0 = time.perf_counter()
         draft = None
         if name == "slot_spec_draft":
             draft = init(LlamaConfig.llama3_8b(num_layers=DRAFT_LAYERS),
@@ -2617,7 +2641,8 @@ def serve_spec(torch, cuda, model, results: dict) -> dict:
         torch.cuda.empty_cache()
         metrics.update(token_agreement(torch, model, prompts, outs, results[kv_layout, kv_quantize]))
         metrics["compared_with"] = run_name(kv_layout, kv_quantize)
-        emit(f"phase4_serve_{name}", {**metrics, "launches": counts})
+        emit(f"phase4_serve_{name}", {**metrics, "launches": counts,
+                                      "run_wall_s": time.perf_counter() - t0})
         gaps = [m["chosen_below_top1"] for m in metrics["margin_at_first_difference"] if m]
         require(all(gap <= SPEC_TIE_GAP for gap in gaps),
                 f"{name}: at a first difference from the plain run the spec run chose a token "
@@ -2782,11 +2807,15 @@ def profiled_wave(torch, eng, prompts: list, marks: list | None = None) -> dict:
     the device's busy ms (kernels and copies) over the second wave's
     window, its submit to its first tokens, and the idle share. ``marks``
     gets the window's start and end on the monotonic clock."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from gofr_tpu_torch.gpu.launch_gate import quiet_profile
 
     per = PIPELINE["requests"] // PIPELINE["waves"]
     first = submit_wave(eng, prompts[:per])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # started and stopped between the engine's turns: a session started or
+    # stopped while the engine's thread launches can trace no kernel
+    with quiet_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if marks is not None:
             marks.append(time.monotonic())
@@ -2801,12 +2830,10 @@ def profiled_wave(torch, eng, prompts: list, marks: list | None = None) -> dict:
         r.result(timeout=900)
     busy_ms = sum(e.device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    # the profiler does not always see the kernels the engine's thread
-    # launches (one arm in a few traced nothing); such a trace measures
-    # nothing
-    seen = busy_ms >= 0.01 * window_s * 1e3
+    require(busy_ms >= 0.01 * window_s * 1e3,
+            f"the profiled wave traced {busy_ms} ms of device time in {window_s} s")
     return {"profiled_wave_s": window_s, "profiled_wave_device_busy_ms": busy_ms,
-            "profiled_wave_device_idle_share": 1.0 - busy_ms / (window_s * 1e3) if seen else None}
+            "profiled_wave_device_idle_share": 1.0 - busy_ms / (window_s * 1e3)}
 
 
 def pipeline_arm(torch, cuda, model, depth: int, prompts: list) -> tuple[list, dict, dict]:
@@ -3569,9 +3596,7 @@ def plane_vs_profiler(torch, engine, prompts: list) -> dict:
                                                 if decode else None),
             "profiler_busy_ms_per_step": busy_s / len(steps) * 1e3 if steps else None,
             "plane_mbu": nbytes / plane_s / H100_SXM_HBM_BYTES_PER_S if plane_s else None,
-            "profiler_mbu": (nbytes / busy_s / H100_SXM_HBM_BYTES_PER_S
-                             if busy_s and wave["profiled_wave_device_idle_share"] is not None
-                             else None)}
+            "profiler_mbu": nbytes / busy_s / H100_SXM_HBM_BYTES_PER_S}
 
 
 def http_planes(torch, cuda, model, base_outs: list) -> dict:
@@ -4238,8 +4263,9 @@ def arm_device_ms(torch, model, sample: dict, kv_quantize: str) -> dict:
     """One shadow sample's two arms again, each under ``torch.profiler``:
     the bucket, each arm's device ms and C's share of it; and each arm's
     rows, for the tie rule."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
+    from gofr_tpu_torch.gpu.launch_gate import quiet_profile
     from gofr_tpu_torch.metrics.quality import (
         _pow2_bucket,
         make_serving_attn_fn,
@@ -4250,11 +4276,9 @@ def arm_device_ms(torch, model, sample: dict, kv_quantize: str) -> dict:
                                   model.cfg.max_seq_len)}
     rows = {}
     for arm, attn_fn in (("serving", make_serving_attn_fn(kv_quantize)), ("reference", None)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with quiet_profile(activities=[ProfilerActivity.CUDA]) as prof:
             rows[arm] = teacher_forced_rows(model, sample["prompt"], sample["emitted"],
                                             attn_fn=attn_fn)
-            torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         total = sum(e.device_time_total for e in events) / 1e3
@@ -6630,6 +6654,12 @@ def main() -> None:
     def lap(name: str) -> None:
         wall[name] = time.perf_counter() - start - sum(wall.values())
 
+    def report(phase: str, payload: dict, name: str | None = None) -> None:
+        """A phase-4 run's result line, with the run's wall seconds (``lap``
+        under ``name``, by default the line's own name)."""
+        lap(name or phase)
+        emit(phase, {**payload, "run_wall_s": wall[name or phase]})
+
     emit("phase1_device", device_info())
 
     built = cuda.build()
@@ -6647,138 +6677,118 @@ def main() -> None:
     model, served, results = None, {}, {}
     for kv_layout, kv_quantize in RUNS:
         eng, counts, metrics, outs = serve(torch, cuda, model, kv_quantize, kv_layout)
-        emit(f"phase4_serve_{run_name(kv_layout, kv_quantize)}", {**metrics, "launches": counts})
         eng.stop()
         model = eng.model
         served[kv_layout, kv_quantize] = {"metrics": metrics, "launches": counts}
         results[kv_layout, kv_quantize] = outs
         del eng
         torch.cuda.empty_cache()
-        lap(f"phase4_{run_name(kv_layout, kv_quantize)}")
+        report(f"phase4_serve_{run_name(kv_layout, kv_quantize)}", {**metrics, "launches": counts},
+               f"phase4_{run_name(kv_layout, kv_quantize)}")
 
     served.update(serve_spec(torch, cuda, model, results))
     lap("phase4_spec")
 
     admission = serve_admission(torch, cuda, model)
-    emit("phase4_serve_paged_admission", admission)
     served["paged_admission"] = admission
-    lap("phase4_paged_admission")
+    report("phase4_serve_paged_admission", admission, "phase4_paged_admission")
 
     served["paged_prefix_host"] = serve_prefix_host(torch, cuda, model)
-    emit("phase4_serve_paged_prefix_host", {k: v for k, v in served["paged_prefix_host"].items()
-                                            if k not in ("counters_host_tier_off", "pool_after")})
-    lap("phase4_paged_prefix_host")
+    report("phase4_serve_paged_prefix_host", {k: v for k, v in served["paged_prefix_host"].items()
+                                              if k not in ("counters_host_tier_off", "pool_after")},
+           "phase4_paged_prefix_host")
 
     served["paged_pipeline"] = serve_pipeline(torch, cuda, model)
-    emit("phase4_serve_paged_pipeline", {**served["paged_pipeline"], "arms": [
+    report("phase4_serve_paged_pipeline", {**served["paged_pipeline"], "arms": [
         {k: v for k, v in arm.items() if k != "margin_at_first_difference"}
-        for arm in served["paged_pipeline"]["arms"]]})
-    lap("phase4_paged_pipeline")
+        for arm in served["paged_pipeline"]["arms"]]}, "phase4_paged_pipeline")
 
     served["paged_lora"] = serve_lora(torch, cuda, model, served["paged", ""]["metrics"],
                                       results["paged", ""])
-    emit("phase4_serve_paged_lora", {**served["paged_lora"]["metrics"],
-                                     "launches": served["paged_lora"]["launches"]})
-    lap("phase4_paged_lora")
+    report("phase4_serve_paged_lora", {**served["paged_lora"]["metrics"],
+                                     "launches": served["paged_lora"]["launches"]},
+           "phase4_paged_lora")
 
     adoption = adopt_check(torch, cuda)
-    emit("phase4_adopt_weights", adoption)
     served["adopt_weights"] = adoption
-    lap("phase4_adopt_weights")
+    report("phase4_adopt_weights", adoption)
 
     served["http_generate"] = http_generate(torch, cuda, model, served["paged", ""]["metrics"],
                                             results["paged", ""])
-    emit("phase4_http_generate", served["http_generate"])
-    lap("phase4_http_generate")
+    report("phase4_http_generate", served["http_generate"])
 
     served["http_planes"] = http_planes(torch, cuda, model, results["paged", ""])
-    emit("phase4_http_planes", {**served["http_planes"], "arms": [
+    report("phase4_http_planes", {**served["http_planes"], "arms": [
         {k: v for k, v in arm.items() if k != "batch_margin_at_first_difference"}
         for arm in served["http_planes"]["arms"]]})
-    lap("phase4_http_planes")
 
     served["paged_w8"], w8_model = serve_w8(torch, cuda, model, served["paged", ""]["metrics"],
                                             results["paged", ""])
-    emit("phase4_serve_paged_w8", {**served["paged_w8"]["metrics"],
-                                   "launches": served["paged_w8"]["launches"]})
-    lap("phase4_paged_w8")
+    report("phase4_serve_paged_w8", {**served["paged_w8"]["metrics"],
+                                   "launches": served["paged_w8"]["launches"]}, "phase4_paged_w8")
 
     served["paged_warmup"] = serve_warmup(torch, cuda, model, results["paged", ""])
-    emit("phase4_serve_paged_warmup", {k: v for k, v in served["paged_warmup"].items()
-                                       if k != "margin_at_first_difference"})
-    lap("phase4_paged_warmup")
+    report("phase4_serve_paged_warmup", {k: v for k, v in served["paged_warmup"].items()
+                                       if k != "margin_at_first_difference"}, "phase4_paged_warmup")
 
     served["paged_restart"] = serve_restart(torch, cuda, model, results["paged", ""])
-    emit("phase4_serve_paged_restart", {k: v for k, v in served["paged_restart"].items()
-                                        if k != "margin_at_first_difference"})
-    lap("phase4_paged_restart")
+    report("phase4_serve_paged_restart", {k: v for k, v in served["paged_restart"].items()
+                                        if k != "margin_at_first_difference"},
+           "phase4_paged_restart")
 
     for kv_quantize, capture in (("", True), ("int8", False)):
         name = f"{kv_quantize or 'paged'}_quality"
         served[name] = quality_run(torch, cuda, model, kv_quantize, results["paged", kv_quantize],
                                    capture)
-        emit(f"phase4_serve_{name}", {k: v for k, v in served[name].items()
-                                      if k != "margin_at_first_difference"})
-        lap(f"phase4_{name}")
+        report(f"phase4_serve_{name}", {k: v for k, v in served[name].items()
+                                      if k != "margin_at_first_difference"}, f"phase4_{name}")
 
     served["paged_control"] = serve_control(torch, cuda, model, results["paged", ""])
-    emit("phase4_serve_paged_control", served["paged_control"])
-    lap("phase4_paged_control")
+    report("phase4_serve_paged_control", served["paged_control"], "phase4_paged_control")
 
     served["paged_handoff"] = serve_handoff(torch, cuda, model, results, served)
-    emit("phase4_serve_paged_handoff", served["paged_handoff"])
-    lap("phase4_paged_handoff")
+    report("phase4_serve_paged_handoff", served["paged_handoff"], "phase4_paged_handoff")
 
     served["cold_start"] = cold_start(torch)
-    emit("phase4_cold_start", served["cold_start"])
-    lap("phase4_cold_start")
+    report("phase4_cold_start", served["cold_start"])
 
     autotuned = serve_autotune(torch, cuda)
-    emit("phase4_serve_paged_autotune", autotuned)
     for name, run in autotuned["runs"].items():
         served[f"paged_autotune_{name}"] = run
-    lap("phase4_paged_autotune")
+    report("phase4_serve_paged_autotune", autotuned, "phase4_paged_autotune")
 
     served["app_transports"] = app_transports(torch, cuda, model, results["paged", ""])
-    emit("phase4_app_transports", served["app_transports"])
-    lap("phase4_app_transports")
+    report("phase4_app_transports", served["app_transports"])
 
     served["app_services"] = app_services(torch, cuda, model, results["paged", ""])
-    emit("phase4_app_services", served["app_services"])
-    lap("phase4_app_services")
+    report("phase4_app_services", served["app_services"])
 
     served["bert_embed"] = bert_embed(torch, cuda)
-    emit("phase4_bert_embed", {k: v for k, v in served["bert_embed"].items() if k != "step_sizes"})
-    lap("phase4_bert_embed")
+    report("phase4_bert_embed",
+           {k: v for k, v in served["bert_embed"].items() if k != "step_sizes"})
 
     served["vit_classify"] = vit_classify(torch, cuda)
-    emit("phase4_vit_classify", served["vit_classify"])
-    lap("phase4_vit_classify")
+    report("phase4_vit_classify", served["vit_classify"])
 
     # the f32 models in their own dtype: the encoders, then GPT-2 small
     for name, run in (("bert_embed_f32", bert_embed), ("vit_classify_f32", vit_classify)):
         served[name] = run(torch, cuda, torch.float32)
-        emit(f"phase4_{name}", {k: v for k, v in served[name].items() if k != "step_sizes"})
-        lap(f"phase4_{name}")
+        report(f"phase4_{name}", {k: v for k, v in served[name].items() if k != "step_sizes"})
     gpt2_32 = gpt2_serve(torch, cuda, f32=True)
     served["gpt2_f32"] = {"metrics": gpt2_32["metrics"], "launches": gpt2_32["launches"]}
-    emit("phase4_gpt2_f32", served["gpt2_f32"])
-    lap("phase4_gpt2_f32")
+    report("phase4_gpt2_f32", served["gpt2_f32"])
 
     gpt2 = gpt2_serve(torch, cuda)
     served["gpt2_generate"] = {"metrics": gpt2["metrics"], "launches": gpt2["launches"]}
-    emit("phase4_gpt2_generate", served["gpt2_generate"])
-    lap("phase4_gpt2_generate")
+    report("phase4_gpt2_generate", served["gpt2_generate"])
     gpt2_w8 = gpt2_serve(torch, cuda, w8=True, base=gpt2)
     served["gpt2_w8"] = {"metrics": gpt2_w8["metrics"], "launches": gpt2_w8["launches"]}
-    emit("phase4_gpt2_w8", served["gpt2_w8"])
     del gpt2_w8
-    lap("phase4_gpt2_w8")
+    report("phase4_gpt2_w8", served["gpt2_w8"])
     # GPT-2 small in its own f32 with int8 weights: W8A16's f32 build
     gpt2_w8_32 = gpt2_serve(torch, cuda, w8=True, base=gpt2_32, f32=True)
     served["gpt2_w8_f32"] = {"metrics": gpt2_w8_32["metrics"], "launches": gpt2_w8_32["launches"]}
-    emit("phase4_gpt2_w8_f32", served["gpt2_w8_f32"])
-    lap("phase4_gpt2_w8_f32")
+    report("phase4_gpt2_w8_f32", served["gpt2_w8_f32"])
 
     from gofr_tpu_torch.models.llama import LlamaConfig, init
 
@@ -6786,11 +6796,10 @@ def main() -> None:
     for (kv_layout, kv_quantize), name in ONE_B_RUNS.items():
         served[name] = one_b_run(torch, cuda, one_b, kv_quantize, kv_layout,
                                  served.get("one_b_bf16"))
-        emit(f"phase4_serve_{name}", {k: v for k, v in served[name].items() if k != "outs"})
-        lap(f"phase4_{name}")
+        report(f"phase4_serve_{name}", {k: v for k, v in served[name].items() if k != "outs"},
+               f"phase4_{name}")
     served["llama_slot_f32"] = llama_slot_f32(torch, cuda)
-    emit("phase4_serve_llama_slot_f32", served["llama_slot_f32"])
-    lap("phase4_llama_slot_f32")
+    report("phase4_serve_llama_slot_f32", served["llama_slot_f32"], "phase4_llama_slot_f32")
     # an f32 Llama on every cache and with int8 weights: one_b at full
     # width and depth, and Llama-3-8B's widths cut to 2 layers
     one_b32 = init(LlamaConfig.one_b(dtype=torch.float32),
@@ -6799,8 +6808,7 @@ def main() -> None:
                    torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     for name, (which, *_) in F32_LLAMA_RUNS.items():
         served[name] = f32_llama_run(torch, cuda, one_b32 if which == "one_b" else llama32, name)
-        emit(f"phase4_serve_{name}", served[name])
-        lap(f"phase4_{name}")
+        report(f"phase4_serve_{name}", served[name], f"phase4_{name}")
     del llama32
     torch.cuda.empty_cache()
 

@@ -19,8 +19,9 @@
 // (the f32 build does three bf16 products for each: 3 x 2 M N K).
 //
 // Design, two tilings of one source (the launcher, ops/cuda/w8a16.py plan,
-// picks by M), each a template over the activation type TX (bf16, or f32):
-//   - The weight stream (M <= 64). A block of 4 warps owns a band of 64
+// picks by M):
+//   - The weight stream (M <= 64), a template over the activation type TX
+//     (bf16, or f32). A block of 4 warps owns a band of 64
 //     output channels, each warp 16 of them, over one split of K. The
 //     product is swapped so that the weight is the mma A operand (16 channel
 //     rows) and X the B operand (8 token columns; M is padded to a multiple
@@ -46,16 +47,63 @@
 //     bands x 5 splits = 320; wk and wv (1024, 4096): 16 x 16 = 256; gate
 //     and up (14336, 4096): 224 x 2 = 448; down (4096, 14336): 64 x 5 = 320;
 //     the head (128256, 4096): 2004 x 1.
-//   - The tiles (M > 64). A block of 8 warps computes 128 rows x 128
-//     channels; tiles of 64 k of X and Q (int8) flow through a three-stage
-//     cp.async ring (async_copy.cuh). Each warp owns all 128 rows and 16
-//     channels, so it converts each of its Q fragments once for 8 m16 row
-//     tiles: B fragments of Q come as two 16-bit shared loads, converted to
-//     bf16 pairs in registers, A fragments of bf16 X by ldmatrix (rows padded
-//     to 144 bytes, Q rows to 80: conflict-free); mma.sync m16n8k16 bf16 ->
-//     f32 (mma.cuh). The first tiling (32 k a tile, warps of 64 rows x 32
-//     channels) is a variant in scripts/torch_kernel_variants.py.
-//   - f32 X (TX float) keeps both tilings and takes X's full precision to
+//   - The bf16 tiles (M > 64, and 17..64 rows of a weight whose channel
+//     tiles alone fill the card): wgmma fed by TMA (hopper.cuh). The
+//     mma.sync tiles that came first (below, now the f32 build's) reached a
+//     third of cuBLAS's rate on the bf16 weight at prefill (117.8 ms of
+//     device time for a Llama-3-8B forward's 225 products at M = 2048,
+//     against 38.36): mma.sync cannot reach the tensor cores' Hopper rate,
+//     each of their 8 warps re-read the block's whole X tile by ldmatrix for
+//     its 16 channels (about 2 bytes of shared memory a multiply-add, so
+//     shared-memory bandwidth set the pace), and every thread issued
+//     cp.async loads, none left to run ahead. Now a block of 384 threads
+//     owns 128 output channels x BN tokens (BN = 256, 128 or 64 from the
+//     plan, which fills the card's 132 SMs from (m, n, k) alone): its third
+//     warpgroup is a producer whose one thread keeps TMA loads of 64 k of
+//     X (BN rows of bf16, 128-byte swizzle) and of Q (128 rows of int8,
+//     64-byte swizzle) in flight through a ring of 5 to 16 stages on
+//     mbarriers, and its two
+//     consumer warpgroups each own 64 channels. The product keeps the
+//     stream's swap: the weight is wgmma's A operand from registers, each
+//     thread loading its two channel rows' k pairs of a k16 step from the Q
+//     stage by four 4-byte shared loads (the 64-byte swizzle puts the eight
+//     rows a load instruction meets on distinct banks, where unswizzled 64-
+//     byte rows met four to a bank) and converting them with int8x4_to_bf16
+//     once for all BN tokens; X is the B operand straight from the TMA
+//     stage, K-major, the tokens being wgmma's N. So X crosses shared memory
+//     once a warpgroup, at the tensor cores' own operand rate, and each
+//     weight byte is converted once a block. A warpgroup issues its k16
+//     steps in groups of products and converts the next group's fragments
+//     while a group runs: a stage's four steps a group at BN = 64 and 128,
+//     where one step at a time left the tensor cores waiting on the
+//     conversion (wk and wv, BN = 128, took 1.08x as long at M = 2048, a
+//     verify forward's products forced onto BN = 64 1.27x; PERF.md), and
+//     one step a group at BN = 256 (group_steps), where the accumulators
+//     take 128 registers and four steps' fragments twice over spilled, which
+//     made ptxas serialise the products (a forward's products 1.40x as
+//     long). ptxas allots 168 registers a thread under the launch bound of
+//     384 threads, whatever setmaxnreg moves at run time (232 a consumer
+//     thread, 40 the producer's). The other form, X as A from shared memory
+//     and Q converted into a bf16 shared tile as B, would write and fence a
+//     converted copy of every Q stage; the swapped form converts in
+//     registers. The epilogue takes the two roundings (scaled), stages the
+//     bf16 outputs through the drained ring as rows of 128 channels (rows
+//     padded to 272 bytes, conflict-free), and writes each row of y with
+//     16-byte stores. Blocks walk M fastest, so the blocks of one channel
+//     tile run together and each weight tile is read from device memory
+//     once. What bounds the tiles now: at M = 2048 the operations, at
+//     1.1-1.6x cuBLAS's time on the bf16 weight (PERF.md; wk and wv, 64
+//     blocks on 132 SMs, the furthest); each block fills
+//     its ring anew and drains it into its epilogue, where a persistent
+//     block would overlap both. At 17..64 rows the weight's bytes: there the
+//     tiles read a weight of at least 99 channel tiles faster than the
+//     stream, whose M / 8 token tiles a warp grow with the rows.
+//   - f32 X (TX float) keeps the first design of both tilings: the stream
+//     above and the mma.sync tiles (a block of 8 warps computes 128 rows x
+//     128 channels from tiles of 64 k of X and Q through a three-stage
+//     cp.async ring; each warp owns all 128 rows and 16 channels, B fragments
+//     of Q as two 16-bit shared loads converted to bf16 pairs, A fragments
+//     of X as staged rows of 64 + 8 floats). It takes X's full precision to
 //     the bf16 tensor cores as kernels D and E take an f32 q: each pair of
 //     X elements is split as it is read from shared memory into three bf16
 //     pieces h, m and l (mma.cuh split_pair), which hold all 24 of its
@@ -75,18 +123,24 @@
 //     B fragments. The tiles stage f32 rows of 64 + 8 floats (288 bytes: a
 //     quarter-warp's 8-byte A-fragment loads fall on distinct banks) and
 //     load each A fragment as four float2 instead of one ldmatrix; the ring
-//     keeps its three stages (141 KB of dynamic shared memory). Each warp
-//     splits every X element of its 128 rows, so the f32 tiles do 8 splits
-//     of each element a block where one split would do: simple first.
+//     keeps its three stages (141 KB of dynamic shared memory). Within
+//     1.05x of cuBLAS in f32 at M = 2048, it stays as it is.
+//     scripts/torch_kernel_variants.py adds back their bf16 form (ldmatrix
+//     A fragments, rows of 144 bytes) to time those tiles beside the wgmma
+//     tiles.
 // Rows past M or N and k past K are zero-filled on load and never stored;
-// K must be a multiple of 16 (the launcher checks). The next steps, when
-// this loses to cuBLAS on bf16 weights: wgmma fed by TMA for the tiles, and
-// a persistent stream that hides each band's first loads.
+// K must be a multiple of 16 and x and q 16-byte aligned (the launcher
+// checks both: TMA and the 16-byte copies need them). The next steps: a
+// persistent walk over the tiles, and a persistent stream that hides each
+// band's first loads.
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "async_copy.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -95,7 +149,6 @@ using bf16 = __nv_bfloat16;
 using gofr::cp_async16;
 using gofr::cp_async_commit;
 using gofr::cp_async_wait;
-using gofr::ldmatrix_x4;
 using gofr::mma_bf16;
 using gofr::split_pair;
 
@@ -105,10 +158,11 @@ constexpr int kStreamThreads = 128;
 constexpr int kAhead = 4;           // chunks whose loads a stream warp issues together
 constexpr int kPadBytes = 16;       // padding per staged X row of the stream
 
+// the mma.sync tiles (the f32 build's)
 constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3, kTileThreads = 256;
 constexpr int kWM = 128, kWN = 16;  // a warp's rows and channels of the block tile
 constexpr int kMT = kWM / 16, kNT = kWN / 8;
-constexpr int kXRow = kBK + 8;      // elements per staged X row of a tile (144 bytes bf16, 288 f32)
+constexpr int kXRow = kBK + 8;      // elements per staged X row of a tile (288 bytes)
 constexpr int kQRow = kBK + 16;     // bytes per staged Q row of a tile (80 bytes)
 constexpr int kXStage = kBM * kXRow;
 constexpr int kQStage = kBN * kQRow;
@@ -186,16 +240,11 @@ struct StreamX<float> {
   }
 };
 
-// X's A fragments of one m16 row tile of the tiles (rows `row` .. row + 15,
-// k step kk of the staged tile): bf16 X by ldmatrix (one piece), f32 X as
-// four float2 per thread split into its pieces h, m, l.
+// X's A fragments of one m16 row tile of the mma.sync tiles (rows `row` ..
+// row + 15, k step kk of the staged tile): f32 X as four float2 per thread
+// split into its pieces h, m, l.
 template <class TX>
-struct TileX {
-  static constexpr int kPieces = 1;
-  __device__ static void frags(const bf16* xt, int row, int kk, int lane, uint32_t (&a)[kPieces][4]) {
-    ldmatrix_x4(a[0], xt + (row + lane % 16) * kXRow + kk * 16 + (lane / 16) * 8);
-  }
-};
+struct TileX;
 
 template <>
 struct TileX<float> {
@@ -329,14 +378,12 @@ __global__ void finish_kernel(const float* __restrict__ partial, const float* __
 
 // Two neighbouring outputs of a row, as one pair store where the row's
 // length is even.
-__device__ __forceinline__ void store_pair(bf16* o, bf16 y0, bf16 y1) {
-  *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(y0, y1);
-}
 __device__ __forceinline__ void store_pair(float* o, float y0, float y1) {
   *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
 }
 
-// The tiles: grid (N / 128, M / 128), 8 warps of kWM rows x kWN channels.
+// The mma.sync tiles (f32 x): grid (N / 128, M / 128), 8 warps of kWM rows x kWN
+// channels.
 template <class TX>
 __global__ void __launch_bounds__(kTileThreads)
     tile_kernel(const TX* __restrict__ x, const int8_t* __restrict__ q,
@@ -440,6 +487,277 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
+// The bf16 tiles on wgmma: a block of two consumer warpgroups (64 channels
+// each) and a producer warpgroup, 128 channels x BN tokens, 64 k a stage.
+constexpr int kGK = 64;                  // k of a stage: 128 bytes of an X row, 64 of a Q row
+constexpr int kGChannels = 128;          // output channels a block
+constexpr int kGConsumers = 256;         // the two consumer warpgroups' threads
+constexpr int kGThreads = kGConsumers + 128;  // and the producer's warpgroup
+constexpr int kGRingBytes = 200 * 1024;  // the ring's budget of shared memory
+constexpr int kGMaxStages = 16;
+constexpr int kGOutRow = kGChannels * 2 + 16;  // bytes of a staged output row
+
+template <int BN>
+struct GTile {
+  static constexpr int kXBytes = BN * kGK * 2;
+  static constexpr int kQBytes = kGChannels * kGK;
+  static constexpr int kStageBytes = kXBytes + kQBytes;
+  static constexpr int kStages =
+      kGRingBytes / kStageBytes < kGMaxStages ? kGRingBytes / kStageBytes : kGMaxStages;
+  // 1024 bytes to align the ring (the 128-byte swizzle's period), then the
+  // stages, then a full and an empty barrier a stage
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kStages >= 4, "a ring of at least four stages");
+  static_assert(kSmem <= 232448, "the ring fits in the 227 KB a block can use");
+  static_assert(kXBytes % 1024 == 0 && kStageBytes % 1024 == 0,
+                "swizzled boxes start 1024-aligned");
+  static_assert(BN * kGOutRow <= kStages * kStageBytes, "the output rows fit in the drained ring");
+};
+
+// The A fragments of G consecutive k16 steps t0 .. t0 + G - 1 of a Q stage
+// (128 rows of 64 bytes in TMA's 64-byte swizzle: 16-byte chunk j of row r
+// at chunk j ^ ((r >> 1) & 3)): the thread's rows r and r + 8 (`row`
+// points at row r; both rows share its swizzle `sw`), k 2c, 2c + 1, 2c + 8,
+// 2c + 9 of each step. A 4-byte load brings the quad neighbour's pair too;
+// a byte permute keeps the thread's own.
+template <int G>
+__device__ __forceinline__ void q_frags(const unsigned char* row, int sw, int c, int t0,
+                                        uint32_t (&a)[G][4]) {
+  const uint32_t sel = (c & 1) ? 0x7632u : 0x5410u;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int t = t0 + j;
+    const int at = ((t ^ sw) << 4) | ((c >> 1) << 2);
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(row + at);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(row + at + 8);
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(row + 8 * kGK + at);
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(row + 8 * kGK + at + 8);
+    int8x4_to_bf16(__byte_perm(w0, w1, sel), a[j][0], a[j][2]);
+    int8x4_to_bf16(__byte_perm(w2, w3, sel), a[j][1], a[j][3]);
+  }
+}
+
+// k16 steps a consumer issues as one wgmma group, by token width. At BN =
+// 256 the accumulators take 128 of the 168 registers ptxas gives a thread
+// under the launch bound; two sets of four steps' fragments (32 more)
+// spilled there, and ptxas then waited for each product before the next
+// (WARPGROUP.DEPBAR 0 after every HGMMA in the SASS). One step a group
+// fits and keeps one group in flight while the next is converted.
+template <int BN>
+__host__ __device__ constexpr int group_steps() {
+  return BN >= 256 ? 1 : kGK / 16;
+}
+
+// One stage kt of a consumer warpgroup: its kGK / 16 k16 steps in groups
+// of G, each group issued as one wgmma group on the half F + p of `f`
+// (every offset known at compile time). Once the group before is done
+// (the other half free; the previous stage released to the producer when
+// the stage's first group runs), the next group's fragments, of this
+// stage or the next one's first, are converted into the other half while
+// this group runs.
+template <int BN, int G, int F>
+__device__ __forceinline__ void consume_stage(float (&acc)[BN / 2], uint32_t (&f)[2][G][4],
+                                              unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                              int kt, int k_steps, int q_off, int sw, int c) {
+  using T = GTile<BN>;
+  constexpr int kPer = kGK / 16 / G;  // groups a stage
+  unsigned char* stage = ring + kt % T::kStages * T::kStageBytes;
+  const uint32_t x_at = gofr::smem_addr(stage);
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    gofr::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      gofr::Wgmma<BN>::mma(acc, f[(F + p) & 1][j], gofr::sw128_desc(x_at + 32 * (p * G + j)));
+    }
+    gofr::wgmma_commit();
+    gofr::wgmma_wait<1>();
+    if (p == 0 && kt > 0) gofr::mbar_arrive(&empty[(kt - 1) % T::kStages]);
+    if (p + 1 < kPer) {
+      q_frags<G>(stage + T::kXBytes + q_off, sw, c, (p + 1) * G, f[(F + p + 1) & 1]);
+    } else if (kt + 1 < k_steps) {
+      const int nst = (kt + 1) % T::kStages;
+      gofr::mbar_wait(&full[nst], ((kt + 1) / T::kStages) & 1);
+      q_frags<G>(ring + nst * T::kStageBytes + T::kXBytes + q_off, sw, c, 0, f[(F + p + 1) & 1]);
+    }
+  }
+}
+
+// Grid (M / BN, N / 128): blocks walk M fastest.
+template <int BN>
+__global__ void __launch_bounds__(kGThreads, 1)
+    wgmma_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap qmap, const float* __restrict__ s,
+                      bf16* __restrict__ out, int m, int n, int k) {
+  using T = GTile<BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem + ((1024 - (gofr::smem_addr(smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStageBytes);
+  uint64_t* empty = full + T::kStages;
+  const int m0 = blockIdx.x * BN, n0 = blockIdx.y * kGChannels;
+  const int k_steps = (k + kGK - 1) / kGK;  // stages the ring passes
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::kStages; ++i) {
+      gofr::mbar_init(&full[i], 1);
+      gofr::mbar_init(&empty[i], kGConsumers);
+    }
+    gofr::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kGConsumers) {  // the producer warpgroup: one thread loads
+    gofr::setmaxnreg_dec<40>();
+    if (threadIdx.x == kGConsumers) {
+      for (int kt = 0; kt < k_steps; ++kt) {
+        const int st = kt % T::kStages;
+        gofr::mbar_wait(&empty[st], ((kt / T::kStages) & 1) ^ 1);
+        unsigned char* stage = ring + st * T::kStageBytes;
+        gofr::mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+        gofr::tma_load_2d(stage, &xmap, kt * kGK, m0, &full[st]);
+        gofr::tma_load_2d(stage + T::kXBytes, &qmap, kt * kGK, n0, &full[st]);
+      }
+    }
+  } else {  // two consumer warpgroups of 64 channels
+    gofr::setmaxnreg_inc<232>();
+    const int lane = threadIdx.x % 32, c = lane % 4;
+    // the thread's channel rows of the block tile: row and row + 8
+    const int row = (threadIdx.x / 32) * 16 + lane / 4;
+    const int sw = (row >> 1) & 3;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // the fragments of two groups of steps: one in the products, the other
+    // being converted; two stages a pass, so that where a stage holds an odd
+    // number of groups the next one starts on the other half
+    constexpr int G = group_steps<BN>();
+    constexpr int kOdd = kGK / 16 / G % 2;
+    uint32_t f[2][G][4];
+    const int q_off = row * kGK;  // the thread's row within a Q stage
+    gofr::mbar_wait(&full[0], 0);
+    q_frags<G>(ring + T::kXBytes + q_off, sw, c, 0, f[0]);
+    for (int kt = 0; kt < k_steps; kt += 2) {
+      consume_stage<BN, G, 0>(acc, f, ring, full, empty, kt, k_steps, q_off, sw, c);
+      if (kt + 1 < k_steps) {
+        consume_stage<BN, G, kOdd>(acc, f, ring, full, empty, kt + 1, k_steps, q_off, sw, c);
+      }
+    }
+    gofr::wgmma_wait<0>();
+    gofr::fence_regs(acc);
+
+    // the epilogue: y = bf16(bf16(acc) * bf16(s)) staged as rows of 128
+    // channels in the drained ring, then written 16 bytes a thread
+    gofr::fence_proxy_async();
+    gofr::named_barrier(1, kGConsumers);  // both warpgroups are done with the ring
+    const auto y = [](float v, float sc) { return scaled<bf16>(v, sc); };
+    const float s0 = n0 + row < n ? s[n0 + row] : 0.f;
+    const float s1 = n0 + row + 8 < n ? s[n0 + row + 8] : 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      bf16* r0 = reinterpret_cast<bf16*>(ring + (8 * j + 2 * c) * kGOutRow) + row;
+      bf16* r1 = reinterpret_cast<bf16*>(ring + (8 * j + 2 * c + 1) * kGOutRow) + row;
+      r0[0] = y(acc[4 * j], s0);
+      r1[0] = y(acc[4 * j + 1], s0);
+      r0[8] = y(acc[4 * j + 2], s1);
+      r1[8] = y(acc[4 * j + 3], s1);
+    }
+    gofr::named_barrier(1, kGConsumers);
+    constexpr int kParts = kGChannels * 2 / 16;  // 16-byte pieces of a row
+    const bool pieces = n % 8 == 0;             // y's rows 16-byte aligned
+    for (int i = threadIdx.x; i < BN * kParts; i += kGConsumers) {
+      const int tok = i / kParts, part = i % kParts;
+      const int gm = m0 + tok, gn = n0 + part * 8;
+      if (gm >= m || gn >= n) continue;
+      const unsigned char* src = ring + tok * kGOutRow + part * 16;
+      bf16* dst = out + static_cast<size_t>(gm) * n + gn;
+      if (pieces && gn + 8 <= n) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && gn + e < n; ++e) dst[e] = reinterpret_cast<const bf16*>(src)[e];
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (the library
+// links no libcuda), looked up once.
+cudaError_t tensor_map_encoder(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// A 2-D map of a row-major [rows, cols] matrix of `elem`-byte elements,
+// boxes of box_rows x kGK; parts of a box past the matrix load as zeros.
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* base, CUtensorMapDataType type,
+              int elem, int cols, int rows, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {kGK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_wgmma_tiles(const CUtensorMap& xmap, const CUtensorMap& qmap, const float* s,
+                               bf16* out, int m, int n, int k, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgmma_tile_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, GTile<BN>::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((m + BN - 1) / BN, (n + kGChannels - 1) / kGChannels);
+  wgmma_tile_kernel<BN><<<grid, kGThreads, GTile<BN>::kSmem, stream>>>(xmap, qmap, s, out, m, n, k);
+  return cudaGetLastError();
+}
+
+// The bf16 tiles at token width `width` (64, 128 or 256): both tensor maps
+// encoded on every launch (x's address changes with every call).
+cudaError_t wgmma_tiles(const void* x, const void* q, const void* s, void* out, int m, int n, int k,
+                        int width, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q)) % 16 != 0) {
+    return cudaErrorMisalignedAddress;
+  }
+  if (k % 16 != 0) return cudaErrorInvalidValue;
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, qmap;
+  if (!tile_map(encode, &xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m, width,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(encode, &qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, n, kGChannels,
+                CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto sp = static_cast<const float*>(s);
+  const auto yp = static_cast<bf16*>(out);
+  switch (width) {
+    case 64: return launch_wgmma_tiles<64>(xmap, qmap, sp, yp, m, n, k, stream);
+    case 128: return launch_wgmma_tiles<128>(xmap, qmap, sp, yp, m, n, k, stream);
+    case 256: return launch_wgmma_tiles<256>(xmap, qmap, sp, yp, m, n, k, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int MT, class TX>
 cudaError_t launch_stream(const void* x, const void* q, const void* s, void* out, void* partial,
                           int m, int n, int k, int splits, int per_split, int stage_chunks,
@@ -453,26 +771,32 @@ cudaError_t launch_stream(const void* x, const void* q, const void* s, void* out
   return cudaGetLastError();
 }
 
-// splits 0: the tiles; else the weight stream over `splits` splits of
-// `per_split` chunks, staging at most `stage_chunks` chunks of X at once
-// (partial: f32 [splits, M, N] when splits > 1). Returns cudaGetLastError().
+// splits 0: the tiles (bf16 x: the wgmma tiles at token width
+// `per_split`; f32 x: the mma.sync tiles); else the weight stream over
+// `splits` splits of `per_split` chunks, staging at most `stage_chunks`
+// chunks of X at once (partial: f32 [splits, M, N] when splits > 1).
+// Returns cudaGetLastError().
 template <class TX>
 int run(const void* x, const void* q, const void* s, void* out, void* partial, int m, int n,
         int k, int splits, int per_split, int stage_chunks, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (splits == 0) {
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          tile_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_smem<TX>());
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = true;
+    if constexpr (std::is_same_v<TX, bf16>) {
+      return static_cast<int>(wgmma_tiles(x, q, s, out, m, n, k, per_split, st));
+    } else {
+      static bool configured = false;
+      if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            tile_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_smem<TX>());
+        if (err != cudaSuccess) return static_cast<int>(err);
+        configured = true;
+      }
+      const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+      tile_kernel<TX><<<grid, kTileThreads, tile_smem<TX>(), st>>>(
+          static_cast<const TX*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+          static_cast<TX*>(out), m, n, k);
+      return static_cast<int>(cudaGetLastError());
     }
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    tile_kernel<TX><<<grid, kTileThreads, tile_smem<TX>(), st>>>(
-        static_cast<const TX*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
-        static_cast<TX*>(out), m, n, k);
-    return static_cast<int>(cudaGetLastError());
   }
   if (m < 1 || m > 64 || (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -167,6 +167,7 @@ from gofr_tpu_torch.control.controller import ControlPolicy, KnobSpec, StepContr
 from gofr_tpu_torch.gpu import decode, executor
 from gofr_tpu_torch.gpu.device import resolve_device
 from gofr_tpu_torch.gpu.handoff import HandoffExporter, HandoffJob, HandoffServer
+from gofr_tpu_torch.gpu.launch_gate import LAUNCH_GATE
 from gofr_tpu_torch.gpu.planner import next_bucket, plan_prefill, pow2_buckets
 from gofr_tpu_torch.gpu.prefix import PrefixCache
 from gofr_tpu_torch.gpu.programs import Draft, SpecAux, new_history
@@ -778,7 +779,8 @@ class _EngineBase:
             self._log_crash(error, "model engine step crashed")
             recovered = True
             try:
-                self._crash_recover(error)
+                with LAUNCH_GATE.launching():
+                    self._crash_recover(error)
             except Exception as e2:  # noqa: BLE001 - the state cannot be trusted
                 self._log_crash(e2, "engine crash recovery failed")
                 recovered = False
@@ -967,14 +969,18 @@ class BatchEngine(_EngineBase):
         return live
 
     def _loop(self) -> None:
+        # a warmup and a step hold the launch gate (gpu/launch_gate.py);
+        # the wait for a batch does not
         while not self._stop.is_set():
             if self._pending_warmup is not None:
-                self._apply_pending_warmup()
+                with LAUNCH_GATE.launching():
+                    self._apply_pending_warmup()
             batch = self._drain()
             if not batch:
                 continue
             try:
-                self._step(batch)
+                with LAUNCH_GATE.launching():
+                    self._step(batch)
             except Exception as e:  # noqa: BLE001 - a bad batch fails alone
                 self._log_crash(e, "batch engine step")
                 with self._state_lock:
@@ -2011,14 +2017,16 @@ class GenerateEngine(_EngineBase):
         ``pipeline_depth`` - 1 are left while work keeps coming, all of them
         when the turn found none. At depth 1 each phase is folded before the
         next. An adoption or a warmup waiting for the loop runs at a turn
-        boundary."""
+        boundary. Each turn holds the launch gate (``gpu/launch_gate.py``),
+        so a profiler starts and stops between turns."""
         while not self._stop.is_set():
-            if self._pending_weights is not None:
-                self._apply_pending_weights()
-            if self._pending_warmup is not None:
-                self._apply_pending_warmup()
-            with self._decision_scope():
-                self._turn()
+            with LAUNCH_GATE.launching():
+                if self._pending_weights is not None:
+                    self._apply_pending_weights()
+                if self._pending_warmup is not None:
+                    self._apply_pending_warmup()
+                with self._decision_scope():
+                    self._turn()
 
     def _crash_recover(self, error: Exception) -> None:
         """A crash's cleanup (engine.py:2324-2340): the requests in slots,
@@ -2074,8 +2082,9 @@ class GenerateEngine(_EngineBase):
         # idle: wait for work without taking it (engine.py:3381): a get and
         # put back would skew QoS's fair credits and its wait metrics, and
         # could reorder arrivals of one class; the next turn's admission
-        # drains it
-        self._queue.wait_nonempty(0.2)
+        # drains it. A profiler may start or stop meanwhile
+        with LAUNCH_GATE.paused():
+            self._queue.wait_nonempty(0.2)
         if self.perf is not None:
             # nothing queued, nothing in flight: true idleness is not bubble
             self.perf.mark_no_work(time.monotonic())

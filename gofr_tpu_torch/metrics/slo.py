@@ -39,7 +39,8 @@ state to a timestamped bundle under ``SLO_CAPTURE_DIR`` (else
 ``SLO_CAPTURE_BURST``) and swept to ``SLO_CAPTURE_MAX_BUNDLES``. With
 ``SLO_CAPTURE_TRACE_S`` > 0 it also records that many seconds of the card
 with ``torch.profiler`` (CUDA activity, which the profiler takes for the
-whole process, the engine's thread included) into the bundle's
+whole process, the engine's thread included; started and stopped at the
+engines' quiet points, ``gpu/launch_gate.py``) into the bundle's
 ``trace/trace.json``, where JAX records a ``jax.profiler`` trace.
 
 Feed points: the engine's device loop / completion path (gpu/engine.py
@@ -596,17 +597,20 @@ def record_trace(out_dir: str, seconds: float) -> str:
     a Chrome trace to ``out_dir/trace.json``; returns its path. On a card
     the profiler takes CUDA activity, every kernel the process launches
     from any thread; the window ends once the card has run what was
-    launched in it. Without a card it takes CPU activity. The SLO capture
-    trace and ``/debug/profile`` both record with it."""
+    launched in it. Without a card it takes CPU activity. The session
+    starts and stops at quiet points of the engines' threads
+    (``gpu/launch_gate.py``): started or stopped while another thread
+    launches, it can trace no kernel. The SLO capture trace and
+    ``/debug/profile`` both record with it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from gofr_tpu_torch.gpu.launch_gate import quiet_profile
 
     on_card = torch.cuda.is_available()
     activities = [ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]
-    with profile(activities=activities) as prof:
+    with quiet_profile(activities=activities) as prof:
         time.sleep(seconds)
-        if on_card:
-            torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
     trace = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(trace)

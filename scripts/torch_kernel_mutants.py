@@ -18,8 +18,11 @@ D and E (the page pool's decodes) are one template in
 ``paged_decode_q.cu``, so a fault in its shared body lands in all three;
 the merge of a split decode (``split_merge.cuh``) is one kernel for F, A,
 D and E; the five appends (B, G, B-q, B-q4, G-q) are one template in
-``kv_append.cu``, held bit for bit. The W8A16 linear's two tilings and
-its split's second pass are one source, ``w8a16.cu``. Kernels C, A, F,
+``kv_append.cu``, held bit for bit. The W8A16 linear's weight stream,
+its split's second pass, the bf16 wgmma tiles and the f32 build's
+mma.sync tiles are one source, ``w8a16.cu``: a fault in the wgmma tiles
+must fail ``w8a16`` alone, one in the mma.sync tiles ``w8a16_f32`` alone
+(``ONLY``). Kernels C, A, F,
 B and G are each one template at head dims 128 and 64, so a fault in
 their bodies lands in both builds; the mutants in ``ONLY`` plant a fault
 in the 64 builds alone (C's masks; A's, F's, B's and G's half row and a
@@ -207,7 +210,8 @@ MUTANTS = [
     ("w8a16: the last chunk of K dropped (stream)", "w8a16.cu",
      "const int c_end = min(chunks, c_begin + per_split);",
      "const int c_end = min(chunks - 1, c_begin + per_split);", True),
-    ("w8a16: the last k tile dropped (tiles)", "w8a16.cu",
+    # the mma.sync tiles are the f32 build's alone (``ONLY``)
+    ("w8a16_f32: the last k tile dropped (mma.sync tiles)", "w8a16.cu",
      "const int tiles = (k + kBK - 1) / kBK;", "const int tiles = (k - 1) / kBK;", True),
     ("w8a16: the first split's partial summed twice", "w8a16.cu",
      "float acc = 0.f;", "float acc = partial[i];", True),
@@ -222,8 +226,32 @@ MUTANTS = [
     ("w8a16: the X pairs of a step swapped (stream)", "w8a16.cu",
      "mma_bf16(sum, frag[t], xw[p][2 * t], xw[p][2 * t + 1]);",
      "mma_bf16(sum, frag[t], xw[p][2 * t + 1], xw[p][2 * t]);", True),
-    ("w8a16: a B fragment's upper k pair read from the lower (tiles)", "w8a16.cu",
+    ("w8a16_f32: a B fragment's upper k pair read from the lower (mma.sync tiles)", "w8a16.cu",
      "*reinterpret_cast<const uint16_t*>(qr + 8)", "*reinterpret_cast<const uint16_t*>(qr)", True),
+    # the bf16 wgmma tiles alone (``ONLY``): the last 64-k stage never
+    # loaded nor summed; the producer refilling a stage its consumers still
+    # read (the empty barrier's phase off by one after the first pass: an
+    # early refill, or a ring that never fills, which the wait's limit
+    # turns into a trap; checked in a child, ``ISOLATED``); X's boxes loaded
+    # unswizzled under the descriptor's 128-byte swizzle; Q's fragments read
+    # as if unswizzled; the grid one channel tile short where N is ragged
+    # (the edge holds, ``W8_EDGES``); the epilogue's sum not rounded to bf16
+    ("w8a16: the last k stage dropped (wgmma tiles)", "w8a16.cu",
+     "const int k_steps = (k + kGK - 1) / kGK;", "const int k_steps = (k - 1) / kGK;", True),
+    ("w8a16: a stage refilled before its consumers released it (wgmma tiles)", "w8a16.cu",
+     "gofr::mbar_wait(&empty[st], ((kt / T::kStages) & 1) ^ 1);",
+     "gofr::mbar_wait(&empty[st], ((kt / T::kStages + (kt >= T::kStages)) & 1) ^ 1);", True),
+    ("w8a16: X's boxes unswizzled (wgmma tiles)", "w8a16.cu",
+     "CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE", True),
+    ("w8a16: Q's fragments read without the 64-byte swizzle (wgmma tiles)", "w8a16.cu",
+     "const int at = ((t ^ sw) << 4) | ((c >> 1) << 2);", "const int at = (t << 4) | ((c >> 1) << 2);",
+     True),
+    ("w8a16: the last ragged channel tile skipped (wgmma tiles)", "w8a16.cu",
+     "(n + kGChannels - 1) / kGChannels", "n / kGChannels", True),
+    ("w8a16: the sum's rounding to bf16 skipped (wgmma tiles)", "w8a16.cu",
+     "const auto y = [](float v, float sc) { return scaled<bf16>(v, sc); };",
+     "const auto y = [](float v, float sc) {\n"
+     "      return __float2bfloat16(v * __bfloat162float(__float2bfloat16(sc)));\n    };", True),
     # faults in the f32 builds alone (``ONLY``): C's products in one pass of
     # TF32 (the lo terms dropped), F's P rounded to bf16 before P.V (as the
     # bf16 build does), G's f32 rows half written
@@ -332,6 +360,16 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "paged_decode_q4_f32: q rounded to bf16 once":
             (_E32, (*_DECODE128, "paged_decode_q_d64", "paged_decode_q4_d64", *_D32)),
         "w8a16_f32: x rounded to bf16 once": (("w8a16_f32",), ("w8a16",)),
+        **{name: (("w8a16_f32",), ("w8a16",)) for name in (
+            "w8a16_f32: the last k tile dropped (mma.sync tiles)",
+            "w8a16_f32: a B fragment's upper k pair read from the lower (mma.sync tiles)")},
+        **{name: (("w8a16",), ("w8a16_f32",)) for name in (
+            "w8a16: the last k stage dropped (wgmma tiles)",
+            "w8a16: a stage refilled before its consumers released it (wgmma tiles)",
+            "w8a16: X's boxes unswizzled (wgmma tiles)",
+            "w8a16: Q's fragments read without the 64-byte swizzle (wgmma tiles)",
+            "w8a16: the last ragged channel tile skipped (wgmma tiles)",
+            "w8a16: the sum's rounding to bf16 skipped (wgmma tiles)")},
         "kv_append_q_f32/_slot_q_f32: f32 rows read as bf16 halves":
             ((*_BQ32, *_GQ32), (*_APPEND128, *_QAPPEND64, *_BQ432)),
         "kv_append_q4_f32: f32 rows read as bf16 halves":
@@ -368,7 +406,8 @@ OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",
 ISOLATED = {"paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 64",
             "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)",
             "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)",
-            "w8a16: the last chunk of K dropped (stream)"}
+            "w8a16: the last chunk of K dropped (stream)",
+            "w8a16: a stage refilled before its consumers released it (wgmma tiles)"}
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the

@@ -9,19 +9,30 @@ undone (a text replacement, made and built under
 are never changed). The unmodified build is held against the plain
 versions (``chip_smoke.check_kernels``), each variant against the
 unmodified build's outputs, and every build is timed twice, in the order
-A B ... then ... B A, on
+A B ... then ... B A (the unmodified build on every call, a variant on the
+calls of the kernels its edited files hold, ``CASES_OF``), on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
 4 x 1024 causal, the slot decode (F), the paged decode (A) and the
 quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
 one (and D and E's head-dim-64 builds at Llama one_b's step), the five
 appends (B, G, B-q, B-q4, G-q) at those slots' next
-positions, and the W8A16 linear at Llama-3-8B's wq/wo, gate/up and head
-for 8 rows (decode) and 2048 (prefill). Times are device times
+positions, and the W8A16 linear at Llama-3-8B's five shapes for 8 rows
+(decode), 40 (verify) and 2048 (prefill), with the bf16 wgmma tiles and
+the weight stream each forced at ``FORCED_ROWS`` (the ``w8a16_tiles_*``
+and ``w8a16_stream_*`` calls; on the mma.sync variants the tiles are
+those), also on a GPT-2-width head. Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
 kernel's.
 
-Prints one JSON line per build and round, then the mean of each, and writes
-them to ``chiprun_out/kernel_variants.json``. Exits non-zero if the
+Prints one JSON line per build and round, then the mean of each and the
+W8A16 sums over a Llama-3-8B forward's products (``forwards``), and writes
+them to ``chiprun_out/kernel_variants.json``.
+
+    python3 scripts/torch_kernel_variants.py --serve-w8 "VARIANT NAME"
+
+instead serves ``chip_smoke.py``'s ``paged_w8`` run (Llama-3-8B with int8
+weights) on the unmodified build and on the named variant, A B B A, and
+prints each run's TTFT and decode tok/s. Exits non-zero if the
 unmodified build fails ``chip_smoke.check_kernels`` or a variant's outputs
 move by more than ``MAX_DIFF`` from the unmodified build's.
 """
@@ -41,65 +52,15 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 from gofr_tpu_torch.ops import cuda  # noqa: E402
 
+# W8A16's rows at which the bf16 tiles (token width 64) and the weight
+# stream are each forced, beside each other, and a GPT-2-width head (N, K)
+# of 393 channel tiles, timed at those rows too
+FORCED_ROWS = (8, 16, 24, 40, 64)
+GPT2_HEAD = (50257, 768)
 # A variant only reorders or regroups the same arithmetic: its outputs may
 # differ from the unmodified build's by rounding (a bf16 ulp of the largest
 # flash outputs is 0.0156), never by more than this.
 MAX_DIFF = 0.1
-# the template's tensor-core score block (kernels A, D and E), which one
-# variant replaces for D and E
-SCORE_BLOCK = (
-    "#pragma unroll\n"
-    "    for (int nt = 0; nt < kWarpRows / 8; ++nt) {\n"
-    "      const int t_base = warp * kWarpRows + nt * 8;\n"
-    "      uint32_t b[kSteps][2];\n"
-    "      Rows::k_frags(k_tile, t_base + quad, c, b);\n"
-    "      float sc[4] = {0.f, 0.f, 0.f, 0.f};\n"
-    "#pragma unroll\n"
-    "      for (int s = 0; s < kSteps; ++s) {\n"
-    "        const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};\n"
-    "        gofr::mma_bf16(sc, a, b[s][0], b[s][1]);\n"
-    "      }\n"
-    "      if (quad < group) {\n"
-    "#pragma unroll\n"
-    "        for (int e = 0; e < 2; ++e) {\n"
-    "          const int t = t_base + 2 * c + e;\n"
-    "          float x = sc[e] * scale;\n"
-    "          if constexpr (Rows::kScaled) x *= __bfloat162float(ks_tile[t]);\n"
-    "          p_s[quad][t] = (t0 + t < t_end) ? x : gofr::kNegInf;\n"
-    "        }\n"
-    "      }\n"
-    "    }\n"
-)
-# the scores kernels D and E took before the tensor cores, one (query row,
-# position) pair per thread and step in f32, each K element converted again
-# for every query row (q staged in shared memory as f32; rows read 16 bytes
-# at a time)
-SCALAR_SCORES = (
-    "      __shared__ float q_f[kMaxGroup][kD];\n"
-    "      if (i == 0)\n"
-    "        for (int j = tid; j < group * kD; j += kThreads)\n"
-    "          q_f[j / kD][j % kD] =\n"
-    "              __bfloat162float(q[((size_t)n * hq + h * group + j / kD) * kD + j % kD]);\n"
-    "      __syncthreads();\n"
-    "      for (int j = tid; j < group * kTile; j += kThreads) {\n"
-    "        const int g = j / kTile, t = j % kTile;\n"
-    "        const uint4* row = reinterpret_cast<const uint4*>(k_tile + Rows::offset(t, 0));\n"
-    "        float s = 0.f;\n"
-    "        for (int w4 = 0; w4 < Rows::kBytes / 16; ++w4) {\n"
-    "          const uint4 x = row[w4];\n"
-    "          const uint32_t words[4] = {x.x, x.y, x.z, x.w};\n"
-    "#pragma unroll\n"
-    "          for (int w = 0; w < 4; ++w) {\n"
-    "            float v[Rows::kCols];\n"
-    "            Rows::values(words[w], v);\n"
-    "#pragma unroll\n"
-    "            for (int e = 0; e < Rows::kCols; ++e)\n"
-    "              s = fmaf(q_f[g][Rows::col(16 * w4 + 4 * w, e)], v[e], s);\n"
-    "          }\n"
-    "        }\n"
-    "        p_s[g][t] = (t0 + t < t_end) ? s * scale * __bfloat162float(ks_tile[t]) : gofr::kNegInf;\n"
-    "      }\n"
-)
 # kernels B and G as first ported: one block of 256 threads per slot,
 # threads over Hkv x D with a div/mod per 2-byte element, each row loaded
 # only after its position and table entry (and one launch for both planes)
@@ -146,6 +107,35 @@ __global__ void __launch_bounds__(kOldThreads) kv_append_slot_kernel(
 
 }  // namespace
 """
+# W8A16's mma.sync tiles on bf16 X, which the source keeps for f32 X
+# alone: ldmatrix A fragments of staged bf16 rows (144 bytes), pair stores
+# of bf16 outputs, and the bf16 build routed to them
+MMA_SYNC_BF16 = [
+    ("w8a16.cu", "template <class TX>\nstruct TileX;\n",
+     "template <class TX>\nstruct TileX {\n"
+     "  static constexpr int kPieces = 1;\n"
+     "  __device__ static void frags(const bf16* xt, int row, int kk, int lane,\n"
+     "                               uint32_t (&a)[kPieces][4]) {\n"
+     "    gofr::ldmatrix_x4(a[0], xt + (row + lane % 16) * kXRow + kk * 16 + (lane / 16) * 8);\n"
+     "  }\n"
+     "};\n"),
+    ("w8a16.cu", "__device__ __forceinline__ void store_pair(float* o, float y0, float y1) {",
+     "__device__ __forceinline__ void store_pair(bf16* o, bf16 y0, bf16 y1) {\n"
+     "  *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(y0, y1);\n"
+     "}\n"
+     "__device__ __forceinline__ void store_pair(float* o, float y0, float y1) {"),
+    ("w8a16.cu", "if constexpr (std::is_same_v<TX, bf16>) {", "if constexpr (false) {"),
+]
+# the rule of W8A16's wgmma tiles for the k16 steps of a group by token width
+GROUP_STEPS = "return BN >= 256 ? 1 : kGK / 16;"
+# the timed calls (by the start of their names) of the kernels each source
+# file holds: a variant is timed on those of the files it edits
+CASES_OF = {"flash_attention.cu": ("flash_",),
+            "online_softmax.cuh": ("flash_", "slot_decode", "paged_decode"),
+            "paged_decode.cu": ("slot_decode", "paged_decode"),
+            "paged_decode_q.cu": ("paged_decode",),
+            "kv_append.cu": ("kv_append",),
+            "w8a16.cu": ("w8a16_",)}
 # (name, [(file, text to replace, replacement), ...])
 VARIANTS = [
     # C: each K and V fragment loaded right before its mma.sync
@@ -161,30 +151,6 @@ VARIANTS = [
         ("flash_attention.cu",
          "(half * 4 + j) * 16 + (mat >> 1) * 8);\n#pragma unroll\n        for (int j = 0; j < 4; ++j) {\n",
          "(half * 4 + j) * 16 + (mat >> 1) * 8);\n"),
-    ]),
-    # C: three blocks per SM (Q staged in stage 1's K tile, 168 registers)
-    ("flash_attention: three blocks per SM", [
-        ("flash_attention.cu",
-         "constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;",
-         "constexpr int kSmemBytes = 2 * kStages * kTileElems * 2;"),
-        ("flash_attention.cu", "__launch_bounds__(kThreads) flash_kernel(",
-         "__launch_bounds__(kThreads, 3) flash_kernel("),
-        ("flash_attention.cu",
-         "  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBQ][kStride], then the output tile\n"
-         "  bf16* k_s = q_s + kBQ * kStride;            // [kStages][kBK][kStride]\n",
-         "  bf16* k_s = reinterpret_cast<bf16*>(smem);\n  bf16* q_s = k_s + kTileElems;\n"),
-        ("flash_attention.cu", "    const int k0 = i * kBK;\n    if (i + 1 < n_tiles) {",
-         "    const int k0 = i * kBK;\n    if (i == 0) {\n      gofr::cp_async_wait<0>();\n"
-         "      __syncthreads();\n#pragma unroll\n      for (int kk = 0; kk < kD / 16; ++kk)\n"
-         "        ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kStride + kk * 16 + "
-         "(lane >> 4) * 8);\n      __syncthreads();\n    }\n    if (i + 1 < n_tiles) {"),
-        ("flash_attention.cu",
-         "    gofr::cp_async_wait<1>();\n    __syncthreads();\n    if (i == 0) {\n#pragma unroll\n"
-         "      for (int kk = 0; kk < kD / 16; ++kk)\n        ldmatrix_x4(qf[kk], q_s + (warp * 16 + "
-         "(lane & 15)) * kStride + kk * 16 + (lane >> 4) * 8);\n    }\n",
-         "    if (i > 0) {\n      gofr::cp_async_wait<1>();\n      __syncthreads();\n    }\n"),
-        ("flash_attention.cu", "bf16* o_s = q_s + warp * 16 * kStride;",
-         "bf16* o_s = k_s + warp * 16 * kStride;"),
     ]),
     # C, A, D, E, F: exp2f for expf in the probabilities (changes the numerics slightly)
     ("online_softmax: exp2f probabilities", [
@@ -205,10 +171,10 @@ VARIANTS = [
     # F: one split per (slot, head), finished in place
     ("decode_attention: one split", [
         ("paged_decode.cu",
-         "  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, split_rows,\n"
-         "                     splits, scale, stream);",
-         "  return launch<128>(q, k_cache, v_cache, smax, lengths, out, scratch, n, hkv, group, smax, 1,\n"
-         "                     scale, stream);"),
+         "  return launch<128, bf16>(q, k_cache, v_cache, SlotRows<128>{smax}, lengths, out, scratch, n,\n"
+         "                           hkv, group, split_rows, splits, scale, stream);",
+         "  return launch<128, bf16>(q, k_cache, v_cache, SlotRows<128>{smax}, lengths, out, scratch, n,\n"
+         "                           hkv, group, smax, 1, scale, stream);"),
     ]),
     # A, D and E: one split per (slot, head), finished in place
     ("paged_decode/_q/_q4: one split", [
@@ -243,12 +209,6 @@ VARIANTS = [
     ("paged_decode: P.V in f32 FMAs", [
         ("paged_decode_q.cu", "static constexpr bool kMmaPV = true;",
          "static constexpr bool kMmaPV = false;"),
-    ]),
-    # D and E: the scalar scores above (A keeps the tensor cores)
-    ("paged_decode_q/_q4: K dequantized per query row", [
-        ("paged_decode_q.cu", SCORE_BLOCK,
-         "    if constexpr (Rows::kScaled) {\n" + SCALAR_SCORES + "    } else {\n" + SCORE_BLOCK
-         + "    }\n"),
     ]),
     # B and G: the first design (OLD_APPENDS) behind the same entry points
     ("kv_append/_slot: one block per slot, 2-byte copies, loads after the table", [
@@ -286,15 +246,32 @@ VARIANTS = [
          "  static constexpr int kStride = kD == 64 ? kBytes + 16 : kBytes;\n"
          "  static constexpr int kFragBytes = kBytes / 4;"),
     ]),
-    # W8A16's tiles as first written: tiles of 32 k, warps of 64 rows x 32
-    # channels (each Q fragment converted by both row halves of the block)
-    ("w8a16 tiles: the first tiling (32 k a tile, warps of 64 x 32)", [
+    # W8A16's bf16 tiles before the wgmma redesign: the mma.sync tiles (a
+    # three-stage cp.async ring, 8 warps of 128 rows x 16 channels, ldmatrix
+    # A fragments of X), which the f32 build keeps
+    ("w8a16 tiles: the mma.sync tiles (cp.async ring)", MMA_SYNC_BF16),
+    # ... and those tiles as first written: 32 k a tile, warps of 64 rows x
+    # 32 channels (each Q fragment converted by both row halves of the block)
+    ("w8a16 tiles: the first mma.sync tiling (32 k a tile, warps of 64 x 32)", [
+        *MMA_SYNC_BF16,
         ("w8a16.cu", "kBK = 64, kStages", "kBK = 32, kStages"),
         ("w8a16.cu", "constexpr int kWM = 128, kWN = 16;", "constexpr int kWM = 64, kWN = 32;"),
     ]),
-    # W8A16's tiles with the warps of 128 x 16 but tiles of 32 k
-    ("w8a16 tiles: 32 k a tile", [
-        ("w8a16.cu", "kBK = 64, kStages", "kBK = 32, kStages"),
+    # the wgmma tiles with a ring of four stages at every token width
+    ("w8a16 wgmma tiles: four stages", [
+        ("w8a16.cu", "constexpr int kGMaxStages = 16;", "constexpr int kGMaxStages = 4;"),
+    ]),
+    # ... with a stage's four k16 steps a group at every width (at BN = 256
+    # their fragments spill and ptxas serialises the products), two steps a
+    # group at BN = 256, or one step a group at every width
+    ("w8a16 wgmma tiles: four k16 steps a group at BN = 256", [
+        ("w8a16.cu", GROUP_STEPS, "return kGK / 16;"),
+    ]),
+    ("w8a16 wgmma tiles: two k16 steps a group at BN = 256", [
+        ("w8a16.cu", GROUP_STEPS, "return BN >= 256 ? 2 : kGK / 16;"),
+    ]),
+    ("w8a16 wgmma tiles: one k16 step a group at every width", [
+        ("w8a16.cu", GROUP_STEPS, "return 1;"),
     ]),
     # all five appends: one launch per plane instead of one for both
     ("kv_append (all five): separate K and V launches", [
@@ -389,17 +366,51 @@ def cases(torch) -> dict:
     out["kv_append_slot_q"] = lambda i: kv_append_slot_q(
         qslot.k[i % layers], qslot.v[i % layers], qslot.ks[i % layers], qslot.vs[i % layers], lengths,
         k_new, v_new)
-    # the W8A16 linear at a decode step's wq/wo and head and a prefill's
-    # wq/wo and gate/up (chip_smoke's phase-3 shapes; one weight each)
-    from gofr_tpu_torch.ops.cuda.w8a16 import w8a16
+    # the W8A16 linear at Llama-3-8B's five shapes (chip_smoke's phase-3
+    # shapes) and the rows of a decode step, a verify forward and a prefill,
+    # on chip_smoke.W8_COLD_BYTES of weight copies cycled (each launch finds
+    # its weight cold in L2); and at FORCED_ROWS the bf16 wgmma tiles forced
+    # (token width 64) and the weight stream forced, whatever the plan takes
+    # there (the readings behind w8a16.STREAM_ROWS and TILE_FILL_BLOCKS),
+    # those two also on GPT2_HEAD
+    from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
     from gofr_tpu_torch.ops.quant import quantize
 
-    for label, (n_out, k_in) in (("wq_wo", (4096, 4096)), ("gate_up", (14336, 4096)),
-                                 ("head", (128256, 4096))):
-        w = quantize((torch.randn(n_out, k_in, device=dev, generator=gen) * k_in ** -0.5).to(bf))
-        for m in ((8, 2048) if label != "head" else (8,)):
+    for label, (n_out, k_in) in {**chip_smoke.W8_SHAPES, "gpt2_head": GPT2_HEAD}.items():
+        copies = max(1, -(-int(chip_smoke.W8_COLD_BYTES) // (n_out * k_in)))
+        ws = [quantize((torch.randn(n_out, k_in, device=dev, generator=gen) * k_in ** -0.5).to(bf))
+              for _ in range(copies)]
+        planned_rows = chip_smoke.W8_ROWS if label in chip_smoke.W8_SHAPES else ()
+        for m in sorted({*planned_rows, *FORCED_ROWS}):
             x = torch.randn(m, k_in, device=dev, generator=gen).to(bf)
-            out[f"w8a16_{label}_m{m}"] = lambda i, x=x, w=w: w8a16(x, w.q, w.s)
+            if m in planned_rows:
+                out[f"w8a16_{label}_m{m}"] = lambda i, x=x, ws=ws: w8_mod.w8a16(
+                    x, ws[i % len(ws)].q, ws[i % len(ws)].s)
+            if m in FORCED_ROWS:
+                out[f"w8a16_tiles_{label}_m{m}"] = lambda i, x=x, ws=ws: planned(
+                    x, ws[i % len(ws)], (0, 64, 0))
+                out[f"w8a16_stream_{label}_m{m}"] = lambda i, x=x, ws=ws: planned(
+                    x, ws[i % len(ws)], w8_mod.stream_plan(x.shape[0], *ws[0].q.shape))
+    return out
+
+
+def planned(x, w, plan: tuple[int, int, int]):
+    """The W8A16 entry point under ``plan`` (splits, per split or token
+    width, stage), whatever ``w8a16.plan`` takes at x's rows: the
+    launcher's call with the plan replaced."""
+    import torch
+
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda import w8a16 as w8_mod
+
+    (m, k), n = x.shape, w.q.shape[0]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    partial = (torch.empty(plan[0], m, n, dtype=torch.float32, device=x.device)
+               if plan[0] > 1 else None)
+    fn = cuda.bind(w8_mod.ENTRY[x.dtype], w8_mod._ARGTYPES)
+    cuda.check(fn(x.data_ptr(), w.q.data_ptr(), w.s.data_ptr(), out.data_ptr(),
+                  None if partial is None else partial.data_ptr(), m, n, k, *plan,
+                  cuda.stream_of(x)), "w8a16")
     return out
 
 
@@ -417,17 +428,68 @@ def diff_from(calls: dict, wants: dict) -> dict:
     return {name: (flat(fn(0)) - wants[name]).abs().max().item() for name, fn in calls.items()}
 
 
+def serve_w8(torch, name: str) -> None:
+    """``chip_smoke.py``'s ``paged_w8`` serving run (Llama-3-8B with int8
+    weights, 8 requests of 64 tokens, its holds) on the unmodified build
+    and on variant ``name``, in the order A B B A in one process: TTFT and
+    decode tok/s of each, into ``chiprun_out/kernel_variants_serve_w8.json``."""
+    from gofr_tpu_torch.models.llama import LlamaConfig, init
+
+    index = next(i for i, v in enumerate(VARIANTS) if v[0] == name)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libraries = [b.result()["library"] for b in (pool.submit(cuda.build),
+                                                      pool.submit(make, index, VARIANTS[index]))]
+    model = init(LlamaConfig.llama3_8b(), torch.Generator(device="cuda").manual_seed(chip_smoke.SEED),
+                 "cuda")
+    rows = []
+    for build in (0, 1, 1, 0):
+        cuda.load(libraries[build])
+        eng, counts, metrics, _ = chip_smoke.serve(torch, cuda, model, w8=True)
+        eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+        row = {"build": ("unmodified", name)[build], "w8a16_launches": counts["w8a16"],
+               **{k: metrics[k] for k in ("ttft_p50_s", "ttft_max_s", "decode_tok_s", "wall_s")}}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    summary = {"nvidia_smi": chip_smoke.smi_line()}
+    print(json.dumps(summary))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_variants_serve_w8.json"), "w") as f:
+        json.dump({"rows": rows, "summary": summary}, f, indent=1)
+
+
+def forwards(mean: dict) -> dict:
+    """A Llama-3-8B forward's products (``chip_smoke.W8_PER_STEP`` of each
+    shape) from one build's mean device ms: as planned at each of
+    ``chip_smoke.W8_ROWS``, and with the tiles or the stream forced at each
+    of ``FORCED_ROWS``."""
+    out = {}
+    for kind, rows in (("", chip_smoke.W8_ROWS), ("tiles_", FORCED_ROWS), ("stream_", FORCED_ROWS)):
+        for m in rows:
+            out[f"{kind}m{m}"] = sum(count * mean[f"w8a16_{kind}{label}_m{m}"]
+                                     for label, count in chip_smoke.W8_PER_STEP.items())
+    return out
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_variants: no CUDA device available")
     os.chdir(REPO)
+    if sys.argv[1:2] == ["--serve-w8"]:
+        serve_w8(torch, sys.argv[2])
+        return
+    chosen = list(enumerate(VARIANTS))
     with ThreadPoolExecutor(max_workers=4) as pool:
         clean = pool.submit(cuda.build)
-        builds = [clean, *(pool.submit(make, i, v) for i, v in enumerate(VARIANTS))]
+        builds = [clean, *(pool.submit(make, i, v) for i, v in chosen)]
         libraries = [b.result()["library"] for b in builds]
-    names = ["unmodified", *(v[0] for v in VARIANTS)]
+    names = ["unmodified", *(v[0] for _, v in chosen)]
+    # the calls each build is timed on: every call for the unmodified
+    # build, the calls of the kernels a variant's files hold for a variant
+    timed = [None, *({case for fname, _, _ in v[1] for case in CASES_OF[fname]} for _, v in chosen)]
     cuda.load(libraries[0])
     for kernel in chip_smoke.check_kernels(torch, timed=False):
         if not kernel["passed"]:
@@ -440,13 +502,17 @@ def main() -> None:
         for i in order:
             cuda.load(libraries[i])
             row = {"build": names[i], "diff_from_unmodified": diff_from(calls, wants),
-                   "device_ms": {name: chip_smoke.device_ms(torch, fn, 20) for name, fn in calls.items()}}
+                   "device_ms": {name: chip_smoke.device_ms(torch, fn, 20) for name, fn in calls.items()
+                                 if timed[i] is None or name.startswith(tuple(timed[i]))}}
             print(json.dumps(row), flush=True)
             rows.append(row)
     mean = {name: {call: sum(r["device_ms"][call] for r in rows if r["build"] == name) / 2
-                   for call in calls} for name in names}
+                   for call in rows[i]["device_ms"]} for i, name in enumerate(names)}
     bad = [r["build"] for r in rows if max(r["diff_from_unmodified"].values()) > MAX_DIFF]
-    summary = {"mean_device_ms": mean, "nvidia_smi": chip_smoke.smi_line()}
+    summary = {"mean_device_ms": mean,
+               "w8a16_forward_ms": {name: forwards(mean[name]) for i, name in enumerate(names)
+                                    if timed[i] is None or "w8a16_" in timed[i]},
+               "nvidia_smi": chip_smoke.smi_line()}
     print(json.dumps(summary))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:

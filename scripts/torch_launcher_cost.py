@@ -24,10 +24,12 @@ slots, 8 KV heads of 128, pages of 128) and timed three ways:
 
 Where the checkout has weight-only int8, ``w8a16`` is ``ops.quant.qdot``
 on an int8 QTensor at a decode step's wq (8 rows, 4096 x 4096, split over
-K) and ``w8a16_head`` at its head (128256 x 4096), the path every linear
-of the int8 model takes; ``linear_bf16`` and ``linear_bf16_head`` are
-``F.linear`` on the bf16 weights of the same shapes (cuBLAS), the path of
-the bf16 model.
+K), ``w8a16_head`` at its head (128256 x 4096), and ``w8a16_tiles`` at 128
+rows of a 256 x 512 weight (the tiles, a product short enough that the
+host's time shows; the wgmma tiles encode two TMA tensor maps a launch),
+the path every linear of the int8 model takes; ``linear_bf16``,
+``linear_bf16_head`` and ``linear_bf16_tiles`` are ``F.linear`` on the
+bf16 weights of the same shapes (cuBLAS), the path of the bf16 model.
 
 ``paged_decode_pinned`` and ``decode_attention_pinned`` repeat A and F
 inside a decision scope that pins ``split_plan``'s own plan at their shape
@@ -142,12 +144,14 @@ def child(tree: str, iters: int) -> dict:
     from gofr_tpu_torch.ops import quant
 
     x8 = torch.randn(8, 4096, device=dev, generator=g).to(bf)
-    for label, n_out in (("", 4096), ("_head", 128256)):
-        w = (torch.randn(n_out, 4096, device=dev, generator=g) * 4096 ** -0.5).to(bf)
-        calls[f"linear_bf16{label}"] = lambda i, w=w: torch.nn.functional.linear(x8, w)
+    x128 = torch.randn(128, 512, device=dev, generator=g).to(bf)
+    for label, n_out, x in (("", 4096, x8), ("_head", 128256, x8), ("_tiles", 256, x128)):
+        k_in = x.shape[1]
+        w = (torch.randn(n_out, k_in, device=dev, generator=g) * k_in ** -0.5).to(bf)
+        calls[f"linear_bf16{label}"] = lambda i, w=w, x=x: torch.nn.functional.linear(x, w)
         if hasattr(quant, "qdot"):
             wq = quant.quantize(w)
-            calls[f"w8a16{label}"] = lambda i, wq=wq: quant.qdot(x8, wq)
+            calls[f"w8a16{label}"] = lambda i, wq=wq, x=x: quant.qdot(x, wq)
     out = {"tree": tree, "iters": iters}
     for name, fn in calls.items():
         out[name] = _timed(torch, fn, iters)

@@ -395,16 +395,111 @@ def test_the_plan_gives_the_blocks_the_kernel_source_states():
     for (n, k), want in blocks.items():
         splits, per_split, stage = mod.plan(8, n, k)
         assert -(-n // mod.BAND) * splits == want
-    assert mod.plan(65, 4096, 4096) == (0, 0, 0) and mod.plan(2048, 128256, 4096) == (0, 0, 0)
+    # the tiles: (0, token width, 0) for bf16 x, (0, 0, 0) for f32 x
+    assert mod.plan(65, 4096, 4096) == (0, 64, 0) and mod.plan(2048, 128256, 4096) == (0, 256, 0)
+    assert mod.plan(65, 4096, 4096, 4) == (0, 0, 0)
     for m in (1, 8, 40, 64):
         for n, k in [(1000, 4112), (64, 16), *blocks]:
             for itemsize in (2, 4):  # bf16 and f32 x
                 splits, per_split, stage = mod.plan(m, n, k, itemsize)
+                if splits == 0:  # bf16 rows past 16 on a weight whose tiles fill the card
+                    assert itemsize == 2 and m > mod.STREAM_ROWS and n >= 128 * mod.TILE_FILL_BLOCKS
+                    # the stream's own plan there, which the variants script forces
+                    splits, per_split, stage = mod.stream_plan(m, n, k, itemsize)
                 chunks = -(-k // mod.CHUNK)
                 assert (splits - 1) * per_split < chunks <= splits * per_split
                 assert 1 <= stage <= per_split
                 assert (-(-m // 8) * 8 * (stage * mod.CHUNK * itemsize + mod.X_PAD_BYTES)
                         <= mod.X_SMEM)
+
+
+# Llama-3-8B's five products (N, K) at a prefill's 2048 rows: the bf16
+# tiles' token width and blocks, each within 0.96 of whole waves over the
+# card's 132 SMs
+LLAMA_TILES = {(4096, 4096): (256, 256), (1024, 4096): (128, 128), (14336, 4096): (256, 896),
+               (4096, 14336): (256, 256), (128256, 4096): (256, 8016)}
+
+
+@pytest.mark.quick
+@pytest.mark.parametrize("n,k", list(LLAMA_TILES))
+def test_the_tile_plan_fills_the_card_at_each_llama_3_8b_shape(n, k):
+    """``plan`` at M = 2048 picks the token width and block count above, a
+    wave efficiency of at least 0.96; at a decode step's 8 rows the weight
+    stream keeps the product, and at a verify forward's 40 the tiles (64
+    tokens wide) take it where the 128-channel tiles alone fill three
+    quarters of the SMs (gate/up and the head), the stream elsewhere."""
+    from gofr_tpu_torch.ops.cuda import w8a16 as mod
+
+    width, blocks = LLAMA_TILES[n, k]
+    assert mod.plan(2048, n, k) == (0, width, 0)
+    assert mod.tiles(2048, n, width) == blocks
+    assert blocks / (-(-blocks // mod.SMS) * mod.SMS) >= 0.96
+    splits, per_split, stage = mod.plan(8, n, k)
+    assert splits >= 1 and per_split >= 1 and stage >= 1
+    if n in (14336, 128256):
+        assert mod.plan(40, n, k) == (0, 64, 0)
+    else:
+        assert mod.plan(40, n, k)[0] >= 1
+
+
+@pytest.mark.quick
+def test_the_tile_ring_fits_in_shared_memory():
+    """At every token width the kernel takes (the launcher's widths), the
+    ring of at least four stages, its barriers and the alignment pad fit in
+    the 227 KB a block can use, each swizzled box starts 1024-aligned, and
+    the drained ring holds the staged output rows: computed from the kernel
+    source's own constants."""
+    import re
+
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda import w8a16 as mod
+
+    source = (cuda.CSRC / "w8a16.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kG\w+) = ([^;/]+);", source))
+
+    def const(name):
+        return eval(consts[name], {}, {k: const(k) for k in consts if k in consts[name]})
+
+    channels, k_stage = const("kGChannels"), const("kGK")
+    assert channels == mod.TILE_CHANNELS
+    widths = [int(w) for w in re.findall(r"case (\d+): return launch_wgmma_tiles", source)]
+    assert sorted(widths) == sorted(mod.TILE_WIDTHS)
+    for width in widths:
+        x_bytes, stage = width * k_stage * 2, width * k_stage * 2 + channels * k_stage
+        stages = min(const("kGRingBytes") // stage, const("kGMaxStages"))
+        assert stages >= 4
+        assert 1024 + stages * stage + 2 * stages * 8 <= 232448
+        assert x_bytes % 1024 == 0 and stage % 1024 == 0
+        assert width * const("kGOutRow") <= stages * stage
+
+
+@pytest.mark.quick
+def test_the_launcher_raises_on_a_misaligned_x_before_any_c_call(monkeypatch):
+    """A view of x at a 2-byte storage offset is not 16-byte aligned, which
+    TMA and the 16-byte copies need: the launcher raises before any pointer
+    reaches C (the device checks stubbed so the CPU tensors get that far);
+    the aligned tensor goes on to the C call."""
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda import w8a16 as mod
+
+    real = cuda.require
+    monkeypatch.setattr(cuda, "require", lambda cond, msg: msg == mod._TAKES or real(cond, msg))
+    calls = []
+    monkeypatch.setattr(cuda, "bind", lambda name, argtypes: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(cuda, "stream_of", lambda t: 0)
+    m, n, k = 300, 256, 64
+    q, s = torch.zeros(n, k, dtype=torch.int8), torch.zeros(n)
+    buf = torch.zeros(m * k + 8, dtype=torch.bfloat16)
+    x = buf[1:1 + m * k].view(m, k)
+    assert x.data_ptr() % 16 == 2 and x.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mod.w8a16(x, q, s)
+    assert calls == []
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mod.w8a16(buf[:m * k].view(m, k), buf.view(torch.int8)[1:1 + n * k].view(n, k), s)
+    assert calls == []
+    mod.w8a16(buf[8:8 + m * k].view(m, k), q, s)
+    assert len(calls) == 1 and calls[0][5:11] == (m, n, k, 0, 64, 0)
 
 
 @pytest.mark.quick
@@ -463,10 +558,11 @@ def test_the_launcher_refuses_cpu_tensors_and_qdot_routes_by_device():
 
 @pytest.mark.cuda
 def test_w8a16_matches_qdot_plain_at_every_launcher_branch_on_the_card():
-    """The weight stream without a split and with one, the tiles, a ragged
-    N and a K tail of 16, each against ``qdot_plain`` on the same bf16
-    inputs within the launcher's limits; ``quantize`` on the card bit for
-    bit as on the CPU."""
+    """The weight stream without a split and with one, the tiles at each
+    token width the plan picks, a ragged N and M and a K tail of 16, each
+    against ``qdot_plain`` on the same bf16 inputs within the launcher's
+    limits; ``quantize`` on the card bit for bit as on the CPU; a view of x
+    at a 2-byte offset raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from gofr_tpu_torch.ops.cuda import w8a16 as mod
@@ -475,9 +571,18 @@ def test_w8a16_matches_qdot_plain_at_every_launcher_branch_on_the_card():
     cases = {"stream": (8, 14336, 4096), "stream_split": (8, 1024, 4096),
              "stream_40": (40, 4096, 4096), "tiles": (300, 1024, 4096),
              "ragged_n": (5, 1000, 4096), "tiles_ragged": (129, 1000, 1040),
-             "k_tail": (8, 256, 4112)}
+             "k_tail": (8, 256, 4112),
+             # the wgmma tiles: a prefill at Llama-3-8B's wk/wv and wq/wo, N
+             # ragged to the 128-channel tile, M ragged (129: a tile of one
+             # row past 128), a K tail (K % 64 == 16), each token width
+             "tiles_2048_wk": (2048, 1024, 4096), "tiles_2048_wq": (2048, 4096, 4096),
+             "tiles_ragged_n": (600, 4200, 4096), "tiles_ragged_m": (129, 1024, 4096),
+             "tiles_k_tail": (2000, 1000, 4112), "tiles_40": (40, 14336, 4096)}
     assert mod.plan(*cases["stream"])[0] == 2 and mod.plan(*cases["stream_split"])[0] > 1
-    assert mod.plan(*cases["tiles"])[0] == 0
+    assert mod.plan(*cases["tiles"])[0] == 0 and mod.plan(*cases["stream_40"])[0] >= 1
+    assert mod.plan(*cases["tiles_40"]) == (0, 64, 0)
+    assert {mod.plan(*cases[c])[1] for c in ("tiles_2048_wk", "tiles_2048_wq", "tiles_ragged_m")} == {
+        64, 128, 256}
     # the plain version's reference: cuBLAS reduces split-K sums in f32
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -485,6 +590,10 @@ def test_w8a16_matches_qdot_plain_at_every_launcher_branch_on_the_card():
         _check_cases(cases, gen)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    x = torch.zeros(300 * 64 + 8, dtype=torch.bfloat16, device="cuda")[1:1 + 300 * 64].view(300, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mod.w8a16(x, torch.zeros(256, 64, dtype=torch.int8, device="cuda"),
+                  torch.ones(256, device="cuda"))
 
 
 def _check_cases(cases, gen):

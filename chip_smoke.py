@@ -52,7 +52,11 @@ result line:
    ``*_f32`` rows): C at Llama-3-8B's heads on 4 x 512 (full and ragged)
    and 4 x 1024 causal prompts and a chunk of 512 at offset 512, its 64
    build at BERT's step, ViT's 32 x 197 and GPT-2's causal and chunked
-   calls; F at the slot case's step and at GPT-2's, with a lane past the
+   calls, both beside a batch row of 200 or 197 positions whose next row
+   is fully masked with NaN in its first keys and values (the row must
+   hold, the masked row read zero), each row with its build's registers,
+   spills and shared bytes (``build``); F at the slot case's step and at
+   GPT-2's, with a lane past the
    slot, the split's boundaries and every plan; G on the slot appends'
    edge lanes; held to their launchers' f32 limits (``F32``) against the
    f32 plain versions, G bit for bit, and timed beside SDPA in f32, their
@@ -368,6 +372,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -470,6 +475,51 @@ def bound_ms(nbytes: float, flops, peak: float | None = None) -> tuple[float, st
     t_ops = (sum(ops / rate for ops, rate in flops) if isinstance(flops, (list, tuple))
              else flops / (peak or H100_SXM_BF16_FLOPS))
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_usage(report: str, fragment: str) -> dict:
+    """Registers, spills and stack of each entry whose name holds
+    ``fragment``, from ``nvcc -Xptxas -v``'s report (``cuda.build``)."""
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or fragment not in name:
+            continue
+        row = usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    return usage
+
+
+# C's f32 build by head dim, under its phase-3 names
+F32_FLASH_DIMS = {"flash_attention_f32": 128, "flash_attention_d64_f32": 64}
+
+
+def flash_f32_build(report: str, d: int) -> dict:
+    """C's f32 body at head dim ``d``: ptxas's registers, spills and stack,
+    and the dynamic shared memory a block takes."""
+    from gofr_tpu_torch.ops import cuda
+    from gofr_tpu_torch.ops.cuda.flash_attention import shared_bytes
+
+    usage = [u for name, u in ptxas_usage(report, "flash_kernel_f32").items() if f"ILi{d}E" in name]
+    require(len(usage) == 1, f"ptxas reported {len(usage)} f32 flash kernels at head dim {d}")
+    # the consumers' setmaxnreg.inc must not ask for fewer registers than
+    # the launch gives them
+    consumer = int(re.search(r"kConsumerRegs = (\d+)",
+                             (cuda.CSRC / "flash_attention_f32.cu").read_text()).group(1))
+    require(usage[0]["registers"] <= consumer,
+            f"the f32 flash kernel at head dim {d} takes {usage[0]['registers']} registers, past "
+            f"its consumers' setmaxnreg of {consumer}")
+    return {**usage[0], "shared_bytes": shared_bytes(d)}
 
 
 def agreement(name: str, got, want, module) -> dict:
@@ -1463,13 +1513,29 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
                          plain_iters=plain_iters)}
 
     def flash32_row(name: str, checks: dict, main: dict, shape: dict, **subs) -> dict:
-        return {"name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/flash_attention.cu",
+        return {"name": name, "route": "cuda", "source": "gofr_tpu_torch/csrc/flash_attention_f32.cu",
                 "replaces": "gofr_tpu/ops/pallas/flash_attention.py:108",
                 "max_abs_err": max(a["max_abs_err"] for a in checks.values()),
                 "rms_rel_err": max(a["rms_rel_err"] for a in checks.values()),
                 "checks": checks,
                 "tolerance": {"max_abs": flash_mod.F32.MAX_ABS, "rms_rel": flash_mod.F32.RMS_REL},
                 **main, **subs, "shape": shape}
+
+    def flash32_isolated(label: str, b: int, s: int, h: int, kv_heads: int, dim: int,
+                         causal: bool) -> dict:
+        """Two batch rows of ``s`` positions (not a multiple of the 64-row
+        tile), the second fully masked and its first 64 keys and values NaN:
+        the first row's last partial tiles must read its positions past
+        ``s`` as zeros (the 4-D maps), not the next row's, so its output
+        holds the plain version's; the second row is 0."""
+        qx, kx, vx = randn32(b, s, h, dim), randn32(b, s, kv_heads, dim), randn32(b, s, kv_heads, dim)
+        kx[1, :64] = float("nan")
+        vx[1, :64] = float("nan")
+        lens = torch.tensor([s] + [0] * (b - 1), device=dev, dtype=torch.int32)
+        got = flash_attention(qx, kx, vx, causal=causal, kv_lengths=lens)
+        require(torch.all(got[1:] == 0).item(), f"{label}: the fully masked row is not zero")
+        return agreement(label, got[:1], mha_attention_plain(qx[:1], kx[:1], vx[:1], causal=causal),
+                         flash_mod.F32)
 
     def check_flash_f32() -> dict:  # C's f32 build at 128: Llama-3-8B's heads, 4 x 512 and 4 x 1024
         qf, kf, vf = randn32(4, 512, hq, d), randn32(4, 512, hkv, d), randn32(4, 512, hkv, d)
@@ -1490,6 +1556,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
         checks["chunk_512_at_512"] = flash32_agree("flash_attention_f32 (chunk 512 at 512)", qc, kc,
                                                    vc, causal=True, q_offset=offc,
                                                    kv_lengths=lenc)[0]
+        checks["s_200_next_row_nan"] = flash32_isolated(
+            "flash_attention_f32 (Sq 200, the next row NaN)", 2, 200, hq, hkv, d, causal=True)
         chunk_mask = (torch.arange(1024, device=dev)[None, :]
                       <= 512 + torch.arange(512, device=dev)[:, None])
         qch = qc.transpose(1, 2)
@@ -1533,6 +1601,8 @@ def check_kernels(torch, timed: bool = True, keep_going: bool = False,
         b, s, h = d64["vit"]["batch"], d64["vit"]["seq"], d64["vit"]["heads"]
         qv, kv, vv = qkv(b, s, h)
         checks["vit"] = flash32_agree(f"{name} (ViT)", qv, kv, vv, causal=False)[0]
+        checks["vit_next_row_nan"] = flash32_isolated(f"{name} (ViT, the next row NaN)", 2, s, h, h,
+                                                      64, causal=False)
         qvh, kvh, vvh = (t.transpose(1, 2) for t in (qv, kv, vv))
         vit = {"shape": d64["vit"],
                **flash32_timed(qv, kv, vv, 4 * 4 * qv.numel(), s * s * b,
@@ -6669,6 +6739,9 @@ def main() -> None:
     lap("phases_1_2")
 
     kernels = check_kernels(torch)
+    for row in kernels:
+        if row["name"] in F32_FLASH_DIMS:
+            row["build"] = flash_f32_build(built["ptxas"], F32_FLASH_DIMS[row["name"]])
     emit("phase3_kernels", kernels)
     torch.cuda.empty_cache()
     lap("phase3")

@@ -50,34 +50,8 @@
 //     bucket) and ViT's (197 positions: the last query and key tiles hold 5
 //     rows; rows past Sq and Skv are zero-filled on load and never stored).
 //
-// The f32 build (flash_kernel_f32; the f32 models: GPT-2 small in its own
-// dtype, BERT-base and ViT-L/16 in f32): the same blocks, tiles, ring,
-// masking and softmax, with q/k/v and the output in f32. The TPU kernel's
-// f32 dot is an f32 product; one pass of TF32 keeps about three decimal
-// digits, so each product runs as three tf32 mma.sync.m16n8k8 (3xTF32,
-// mma.cuh: hi = rna(x), lo = rna(x - hi), lo.hi + hi.lo + hi.hi), which
-// keeps f32-class error. What differs from the bf16 build:
-//   - ldmatrix has no 32-bit transposed form, and the tf32 fragments hold
-//     one element a register, so every fragment comes by 32-bit shared
-//     loads: Q's A fragment Q[r][c], Q[r][c + 4] and K's B fragment
-//     K[key][c], K[key][c + 4] (c the thread's column in its quad), split
-//     into hi and lo as they are loaded. Q stays in shared memory as f32
-//     (its hi and lo fragments across the loop would double Q's registers).
-//   - P V takes P straight from S's accumulators, with the keys of each
-//     8-key step taken in another order: the accumulator holds keys 2c and
-//     2c + 1 of a row where the A fragment wants its columns c and c + 4,
-//     so the k index c stands for key 2c and c + 4 for key 2c + 1, and V's
-//     B fragment reads V[2c][col] and V[2c + 1][col] to match. A sum over
-//     the keys does not depend on their order; no shuffle and no staging.
-//   - P is not rounded: common.py:57 casts it to v.dtype, f32 here.
-//   - Rows are padded by 16 B here too: a stride of kD + 4 words (4 mod 32)
-//     puts the 32 lanes' reads of a fragment (8 rows x 4 columns of Q and
-//     K, 4 key pairs x 8 columns of V) on distinct banks.
-//   - Shared memory doubles: 168,960 B at 128 (one block an SM) and 87,040
-//     B at 64, under the 227 KB a block may opt into.
-// The next step, if this still loses to a library kernel of the same shape:
-// wgmma on shared-memory descriptors fed by TMA, with warp specialisation
-// (for f32, wgmma's tf32 form in the same 3xTF32 split).
+// The f32 build is a kernel of its own, for Hopper's tf32 wgmma fed by TMA:
+// flash_attention_f32.cu.
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -90,8 +64,6 @@ using bf16 = __nv_bfloat16;
 using gofr::ldmatrix_x4;
 using gofr::ldmatrix_x4_trans;
 using gofr::mma_bf16;
-using gofr::mma_3xtf32;
-using gofr::split_tf32;
 
 constexpr int kBQ = 64;            // query rows per block
 constexpr int kBK = 64;            // KV rows per tile
@@ -101,18 +73,17 @@ constexpr int kStages = 2;         // K/V ring depth
 
 static_assert(kBQ == kBK, "stage_rows copies 64-row tiles of Q, K and V alike");
 
-// What follows the head dim kD (the wrapper checks it is 64 or 128) and the
-// element type T (bf16, or float for the f32 build).
-template <int kD, class T = bf16>
+// What follows the head dim kD (the wrapper checks it is 64 or 128).
+template <int kD>
 struct Dims {
   static_assert(kD % 64 == 0, "P V runs in passes of 64 columns");
-  static constexpr int kPerChunk = 16 / sizeof(T);  // elements per 16-byte chunk
-  // padded row in shared memory: 272 or 144 B of bf16, 528 or 272 B of f32
+  static constexpr int kPerChunk = 8;  // bf16 per 16-byte chunk
+  // padded row in shared memory: 272 or 144 B
   static constexpr int kStride = kD + kPerChunk;
   static constexpr int kChunks = kD / kPerChunk;  // 16-byte chunks per row
   static constexpr int kTileElems = kBK * kStride;
-  // bf16: 87,040 B at 128, 46,080 B at 64; f32: 168,960 B and 87,040 B
-  static constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * sizeof(T);
+  // 87,040 B at 128, 46,080 B at 64
+  static constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 2;
 };
 
 // Two f32 values as one register of bf16 pair, `lo` in the low half (the
@@ -122,14 +93,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Issue the copies of rows row0 .. row0+63 of a [rows, pitch] matrix of T
+// Issue the copies of rows row0 .. row0+63 of a [rows, pitch] bf16 matrix
 // into a padded shared tile; rows at or past `valid` are zero-filled.
-template <int kD, class T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int valid,
+template <int kD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0, int valid,
                                            size_t pitch) {
-  constexpr int kChunks = Dims<kD, T>::kChunks, kStride = Dims<kD, T>::kStride;
+  constexpr int kChunks = Dims<kD>::kChunks, kStride = Dims<kD>::kStride;
   for (int c = threadIdx.x; c < kBK * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * Dims<kD, T>::kPerChunk;
+    const int r = c / kChunks, col = (c % kChunks) * Dims<kD>::kPerChunk;
     const bool ok = row0 + r < valid;
     gofr::cp_async16(dst + r * kStride + col, src + (ok ? (size_t)(row0 + r) * pitch : 0) + col, ok);
   }
@@ -167,10 +138,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   // query positions of this thread's two rows (gid and gid + 8 of the warp's 16)
   const int pos_lo = qo + q0 + warp * 16 + gid, pos_hi = pos_lo + 8;
 
-  stage_rows<kD, bf16>(q_s, qb, q0, sq, q_pitch);
+  stage_rows<kD>(q_s, qb, q0, sq, q_pitch);
   if (n_tiles > 0) {
-    stage_rows<kD, bf16>(k_s, kb, 0, skv, kv_pitch);
-    stage_rows<kD, bf16>(v_s, vb, 0, skv, kv_pitch);
+    stage_rows<kD>(k_s, kb, 0, skv, kv_pitch);
+    stage_rows<kD>(v_s, vb, 0, skv, kv_pitch);
   }
   gofr::cp_async_commit();
 
@@ -187,8 +158,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const int k0 = i * kBK;
     if (i + 1 < n_tiles) {
       const int next = (i + 1) % kStages;
-      stage_rows<kD, bf16>(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
-      stage_rows<kD, bf16>(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
+      stage_rows<kD>(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
+      stage_rows<kD>(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
     }
     gofr::cp_async_commit();  // possibly empty, so one wait depth serves every step
     gofr::cp_async_wait<1>();
@@ -304,183 +275,23 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   }
 }
 
-// The f32 build: flash_kernel's blocks, ring, masking and online softmax on
-// f32 q/k/v, its two products in 3xTF32 on mma.sync.m16n8k8 (see the note
-// at the top).
 template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_kernel_f32(
-    const float* __restrict__ q,          // [B, Sq, Hq, D]
-    const float* __restrict__ k,          // [B, Skv, Hkv, D]
-    const float* __restrict__ v,          // [B, Skv, Hkv, D]
-    const int* __restrict__ q_offset,     // [B]
-    const int* __restrict__ kv_lengths,   // [B]
-    float* __restrict__ out,              // [B, Sq, Hq, D]
-    int sq, int skv, int hq, int hkv, int group, int causal, float scale) {
-  using Dm = Dims<kD, float>;
-  constexpr int kStride = Dm::kStride, kChunks = Dm::kChunks, kTileElems = Dm::kTileElems;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [kBQ][kStride], then the output tile
-  float* k_s = q_s + kBQ * kStride;             // [kStages][kBK][kStride]
-  float* v_s = k_s + kStages * kTileElems;      // [kStages][kBK][kStride]
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // longest causal tiles first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
-  const int qo = q_offset[b];
-  const int kl = min(max(kv_lengths[b], 0), skv);
-  const size_t q_pitch = (size_t)hq * kD, kv_pitch = (size_t)hkv * kD;
-  const float* qb = q + ((size_t)b * sq * hq + h) * kD;
-  const float* kb = k + ((size_t)b * skv * hkv + h / group) * kD;
-  const float* vb = v + ((size_t)b * skv * hkv + h / group) * kD;
-  const int kv_end = max(causal ? min(kl, qo + q0 + kBQ) : kl, 0);
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-  const int pos_lo = qo + q0 + warp * 16 + gid, pos_hi = pos_lo + 8;
-
-  stage_rows<kD, float>(q_s, qb, q0, sq, q_pitch);
-  if (n_tiles > 0) {
-    stage_rows<kD, float>(k_s, kb, 0, skv, kv_pitch);
-    stage_rows<kD, float>(v_s, vb, 0, skv, kv_pitch);
-  }
-  gofr::cp_async_commit();
-
-  // this thread's Q elements: rows gid and gid + 8 of the warp's 16, at
-  // column tig of each 8-wide step of d (and tig + 4)
-  const float* q_lo = q_s + (warp * 16 + gid) * kStride + tig;
-  const float* q_hi = q_lo + 8 * kStride;
-  float o[kD / 8][4];  // O accumulators, one per 8-wide tile of d
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  gofr::RowState st[2] = {gofr::row_init(), gofr::row_init()};
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int k0 = i * kBK;
-    if (i + 1 < n_tiles) {
-      const int next = (i + 1) % kStages;
-      stage_rows<kD, float>(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
-      stage_rows<kD, float>(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
-    }
-    gofr::cp_async_commit();
-    gofr::cp_async_wait<1>();
-    __syncthreads();
-    const float* ks = k_s + (i % kStages) * kTileElems;
-    const float* vs = v_s + (i % kStages) * kTileElems;
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys, kD / 8
-    // k-steps; each fragment split into tf32 hi and lo as it is loaded
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < kD / 8; ++kk) {
-      const int c = kk * 8;
-      const gofr::Tf32Pair a0 = split_tf32(q_lo[c]), a1 = split_tf32(q_hi[c]);
-      const gofr::Tf32Pair a2 = split_tf32(q_lo[c + 4]), a3 = split_tf32(q_hi[c + 4]);
-      const uint32_t a_hi[4] = {a0.hi, a1.hi, a2.hi, a3.hi};
-      const uint32_t a_lo[4] = {a0.lo, a1.lo, a2.lo, a3.lo};
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        // B[c'][key] = K[key][c']: key j * 8 + gid, columns tig and tig + 4
-        const float* kr = ks + (j * 8 + gid) * kStride + c + tig;
-        mma_3xtf32(s[j], a_hi, a_lo, split_tf32(kr[0]), split_tf32(kr[4]));
-      }
-    }
-
-    // scale, and mask only a tile that crosses the diagonal or holds kv_length
-    const bool edge = k0 + kBK > kl || (causal && k0 + kBK - 1 > qo + q0);
-    float tile_max[2] = {gofr::kNegInf, gofr::kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kv = k0 + j * 8 + 2 * tig + (e & 1);
-        const int pos = e < 2 ? pos_lo : pos_hi;
-        float x = s[j][e] * scale;
-        if (edge && !(kv < kl && (!causal || pos >= kv))) x = gofr::kNegInf;
-        s[j][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float alpha[2], safe[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      alpha[r] = gofr::row_rescale(st[r], gofr::quad_max(tile_max[r]), &safe[r]);
-
-    // P in place of S, f32 and unrounded; l sums it
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = gofr::row_prob(s[j][0], safe[0]), s[j][1] = gofr::row_prob(s[j][1], safe[0]);
-      s[j][2] = gofr::row_prob(s[j][2], safe[1]), s[j][3] = gofr::row_prob(s[j][3], safe[1]);
-      st[0].l += s[j][0] + s[j][1];
-      st[1].l += s[j][2] + s[j][3];
-    }
-
-    // O = O * alpha + P V: 16 rows x kD columns per warp
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      // k-step j: keys j * 8 .. + 7, k index tig for key 2 tig and tig + 4
-      // for key 2 tig + 1, the two keys S's accumulator gives this thread
-      const gofr::Tf32Pair p0 = split_tf32(s[j][0]), p1 = split_tf32(s[j][2]);
-      const gofr::Tf32Pair p2 = split_tf32(s[j][1]), p3 = split_tf32(s[j][3]);
-      const uint32_t p_hi[4] = {p0.hi, p1.hi, p2.hi, p3.hi};
-      const uint32_t p_lo[4] = {p0.lo, p1.lo, p2.lo, p3.lo};
-      const float* vr = vs + (j * 8 + 2 * tig) * kStride + gid;  // V[key 2 tig][gid]
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n)
-        mma_3xtf32(o[n], p_hi, p_lo, split_tf32(vr[n * 8]), split_tf32(vr[kStride + n * 8]));
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // Q's copies may still be in flight when no tile was loaded
-  gofr::cp_async_wait<0>();
-  __syncthreads();
-  const float l_lo = gofr::quad_sum(st[0].l), l_hi = gofr::quad_sum(st[1].l);
-  float* o_s = q_s + warp * 16 * kStride;  // this warp's 16 rows of the Q tile
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    const int col = j * 8 + 2 * tig;
-    *reinterpret_cast<float2*>(o_s + gid * kStride + col) =
-        make_float2(gofr::row_finish(o[j][0], l_lo), gofr::row_finish(o[j][1], l_lo));
-    *reinterpret_cast<float2*>(o_s + (gid + 8) * kStride + col) =
-        make_float2(gofr::row_finish(o[j][2], l_hi), gofr::row_finish(o[j][3], l_hi));
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, col = (c % kChunks) * 4, row = q0 + warp * 16 + r;
-    if (row < sq)
-      *reinterpret_cast<float4*>(out + (((size_t)b * sq + row) * hq + h) * kD + col) =
-          *reinterpret_cast<const float4*>(o_s + r * kStride + col);
-  }
-}
-
-// One launcher for both builds: Kernel is flash_kernel<kD> on bf16 or
-// flash_kernel_f32<kD> on float.
-template <int kD, class T, class Kernel>
-int launch(Kernel kernel, const void* q, const void* k, const void* v, const void* q_offset,
+int launch(const void* q, const void* k, const void* v, const void* q_offset,
            const void* kv_lengths, void* out, int b, int sq, int skv, int hq, int hkv, int causal,
            float scale, cudaStream_t stream) {
-  constexpr int kSmemBytes = Dims<kD, T>::kSmemBytes;
+  constexpr int kSmemBytes = Dims<kD>::kSmemBytes;
   static bool configured = false;  // one flag per instantiation
   if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(hq, b, (sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_kernel<kD><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_offset), static_cast<const int*>(kv_lengths),
-      static_cast<T*>(out), sq, skv, hq, hkv, hq / hkv, causal, scale);
+      static_cast<bf16*>(out), sq, skv, hq, hkv, hq / hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -494,30 +305,8 @@ extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
                                     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    return launch<128, bf16>(flash_kernel<128>, q, k, v, q_offset, kv_lengths, out, b, sq, skv,
-                             hq, hkv, causal, scale, s);
+    return launch<128>(q, k, v, q_offset, kv_lengths, out, b, sq, skv, hq, hkv, causal, scale, s);
   if (d == 64)
-    return launch<64, bf16>(flash_kernel<64>, q, k, v, q_offset, kv_lengths, out, b, sq, skv, hq,
-                            hkv, causal, scale, s);
+    return launch<64>(q, k, v, q_offset, kv_lengths, out, b, sq, skv, hq, hkv, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The f32 build, one entry point a head dim (d must be 128, or 64 for the
-// _d64 entry; any other is refused as cudaErrorInvalidValue).
-extern "C" int gofr_flash_attention_f32(const void* q, const void* k, const void* v,
-                                        const void* q_offset, const void* kv_lengths, void* out,
-                                        int b, int sq, int skv, int hq, int hkv, int d, int causal,
-                                        float scale, void* stream) {
-  if (d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<128, float>(flash_kernel_f32<128>, q, k, v, q_offset, kv_lengths, out, b, sq, skv,
-                            hq, hkv, causal, scale, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int gofr_flash_attention_d64_f32(const void* q, const void* k, const void* v,
-                                            const void* q_offset, const void* kv_lengths,
-                                            void* out, int b, int sq, int skv, int hq, int hkv,
-                                            int d, int causal, float scale, void* stream) {
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64, float>(flash_kernel_f32<64>, q, k, v, q_offset, kv_lengths, out, b, sq, skv,
-                           hq, hkv, causal, scale, static_cast<cudaStream_t>(stream));
 }

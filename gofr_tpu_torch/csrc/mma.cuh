@@ -1,6 +1,6 @@
 // The tensor-core products the attention kernels share (mma.sync, sm_80 and
 // later): one warp multiplies a 16 x 16 bf16 A tile by a 16 x 8 bf16 B tile
-// into a 16 x 8 f32 accumulator (below: the tf32 form for f32 inputs).
+// into a 16 x 8 f32 accumulator.
 // Fragment layouts, with quad = lane / 4 and c = lane % 4 (PTX ISA,
 // "mma.m16n8k16"):
 //   a[0]: A[quad][2c, 2c+1]    a[1]: A[quad+8][2c, 2c+1]
@@ -31,49 +31,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The tf32 form, m16n8k8, for the f32 builds (kernel C on f32 inputs): one
-// warp multiplies a 16 x 8 A tile by an 8 x 8 B tile, one tf32 element a
-// register (PTX ISA, "mma.m16n8k8", .tf32):
-//   a[0]: A[quad][c]   a[1]: A[quad+8][c]   a[2]: A[quad][c+4]   a[3]: A[quad+8][c+4]
-//   b0:   B[c][quad]   b1:   B[c+4][quad]
-//   d as for m16n8k16: D[quad][2c, 2c+1], D[quad+8][2c, 2c+1].
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An f32 value as the sum of two tf32 values, hi = rna(x) and lo =
-// rna(x - hi): together they keep 21 or more of x's 24 significand bits.
-struct Tf32Pair {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ Tf32Pair split_tf32(float x) {
-  const uint32_t hi = to_tf32(x);
-  return {hi, to_tf32(x - __uint_as_float(hi))};
-}
-
-// d += a * b to f32-class accuracy on the tf32 tensor cores (3xTF32): the
-// two cross terms first, then hi * hi; only lo * lo, under 2^-20 of the
-// product, is left out. One tf32 product alone keeps about three decimal
-// digits.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], Tf32Pair b0, Tf32Pair b1) {
-  mma_tf32(d, a_lo, b0.hi, b1.hi);
-  mma_tf32(d, a_hi, b0.lo, b1.lo);
-  mma_tf32(d, a_hi, b0.hi, b1.hi);
 }
 
 // The three bf16 pieces of two f32 values (a pair in the low halves), for

@@ -678,29 +678,7 @@ __global__ void __launch_bounds__(kGThreads, 1)
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled from the driver through the runtime (the library
-// links no libcuda), looked up once.
-cudaError_t tensor_map_encoder(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
+using gofr::EncodeTiled;
 
 // A 2-D map of a row-major [rows, cols] matrix of `elem`-byte elements,
 // boxes of box_rows x kGK; parts of a box past the matrix load as zeros.
@@ -739,7 +717,7 @@ cudaError_t wgmma_tiles(const void* x, const void* q, const void* s, void* out, 
   }
   if (k % 16 != 0) return cudaErrorInvalidValue;
   EncodeTiled encode;
-  const cudaError_t err = tensor_map_encoder(&encode);
+  const cudaError_t err = gofr::tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
   CUtensorMap xmap, qmap;
   if (!tile_map(encode, &xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m, width,

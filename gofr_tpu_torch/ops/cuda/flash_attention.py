@@ -1,18 +1,18 @@
 """Kernel C: flash (blocked online-softmax) prefill attention.
 
 Replaces gofr_tpu/ops/pallas/flash_attention.py ``flash_attention`` (:108).
-The CUDA source is ``csrc/flash_attention.cu`` (tensor cores, ``mma.sync``)
-with the recurrence shared with the decode kernels in
-``csrc/online_softmax.cuh``; the header note says what bounds it (bytes at
-4 x 512, operations at 4 x 1024) and how the design answers that. Its plain version
-is ``ops.attention.mha_attention_plain``; ``ops.attention.mha_attention``
+The bf16 build is ``csrc/flash_attention.cu`` (tensor cores, ``mma.sync``),
+the f32 build ``csrc/flash_attention_f32.cu`` (3xTF32 on ``wgmma`` fed by
+TMA, a producer warpgroup that splits and transposes the tiles, P
+unrounded), both with the recurrence shared with the decode kernels in
+``csrc/online_softmax.cuh``; each header note says what bounds it and how
+the design answers that. Its plain version is
+``ops.attention.mha_attention_plain``; ``ops.attention.mha_attention``
 chooses between the two by the tensor's device.
 
-The kernel is one template instantiated at head dim 128 (Llama) and 64
-(BERT-base, ViT-L/16, GPT-2), each on bf16 and on f32 inputs (the f32
-build: products in 3xTF32 on ``mma.sync`` m16n8k8, P unrounded; the
-source's header note says how); ``flash_attention`` takes any of the four
-and any other head dim or type raises. Each build counts its launches
+Each build is instantiated at head dim 128 (Llama) and 64 (BERT-base,
+ViT-L/16, GPT-2); ``flash_attention`` takes any of the four and any other
+head dim or type raises. Each build counts its launches
 under its own name: ``flash_attention`` (128, bf16),
 ``flash_attention_d64`` (64, bf16), ``flash_attention_f32`` (128, f32)
 and ``flash_attention_d64_f32`` (``cuda.launch_counts()`` lists them
@@ -46,18 +46,25 @@ MAX_ABS = 3e-2
 RMS_REL = 1.2e-2
 # The f32 build against the f32 plain version on the same f32 inputs: the
 # 3xTF32 products leave out only lo * lo (under 2^-20 of a product) and P
-# is not rounded, so the two differ by about 1e-7 of the output's scale (a
-# numpy emulation of the fragment walk: 2.8e-6 on scores of order 10, 1.1e-7
-# relative on P V). Limits: 1e-4 on any element, the f32 parity contract
-# (the CPU tests hold the plain version to the Pallas kernel at 1e-5), and
-# 2e-5 on the RMS ratio. One pass of TF32 (the lo terms dropped) moves
-# scores of order 10 by 1e-2, an output by ~1e-3.
+# is not rounded, so the two differ by about 1e-6 of the output's scale
+# (tests/test_torch_flash_f32_tiles.py emulates the body's tiles, split and
+# key order against the Pallas kernel). Limits: 1e-4 on any element, the
+# f32 parity contract (the CPU tests hold the plain version to the Pallas
+# kernel at 1e-5), and 2e-5 on the RMS ratio. One pass of TF32 (the lo terms
+# dropped) moves scores of order 10 by 1e-2, an output by ~1e-3.
 F32 = cuda.Limits(MAX_ABS=1e-4, RMS_REL=2e-5)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_SHARED_ARGTYPES = [ctypes.c_int]
 # the C entry point of each build, by (head dim, type)
 ENTRY = {(128, torch.bfloat16): "gofr_flash_attention", (64, torch.bfloat16): "gofr_flash_attention",
          (128, torch.float32): "gofr_flash_attention_f32",
          (64, torch.float32): "gofr_flash_attention_d64_f32"}
+
+
+def shared_bytes(d: int) -> int:
+    """Dynamic shared memory a block of the f32 build at head dim ``d``
+    takes (its source's layout; 0 for another d)."""
+    return cuda.bind("gofr_flash_attention_f32_shared_bytes", _SHARED_ARGTYPES)(d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -80,6 +87,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda.require(hq % hkv == 0, f"query heads {hq} not divisible by kv heads {hkv}")
     scale = scale if scale is not None else d ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.float32:  # the f32 build's TMA maps take 16-byte aligned tensors
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     # a Python offset is filled in on the card: copying it from the host
     # would synchronise the stream on every call (every prefill layer)
     offsets = (torch.full((b,), int(q_offset), dtype=torch.int32, device=q.device)

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Does ``chip_smoke.py``'s kernel check catch a wrong kernel? (one card)
 
-    python3 scripts/torch_kernel_mutants.py
+    python3 scripts/torch_kernel_mutants.py [NAME_PART ...]
+
+With NAME_PART arguments, only the mutants whose names hold one of them
+are planted (``flash_attention w8a16``: C's and W8A16's); the unmodified
+build is always checked in full.
 
 Each mutant is a copy of ``gofr_tpu_torch/csrc`` with one planted fault (a
 length mask off by one, a live tile skipped, a key left out of P.V, ...),
@@ -38,15 +42,19 @@ policy and B's G's f32 rows with the pool's address, D's and E's f32-q
 builds are their template with a three-piece q, B-q's, B-q4's and G-q's
 f32-row builds theirs with F32Rows as the input, and W8A16's f32 build its
 two tilings with a three-piece x, so a fault in those bodies lands in the
-f32 builds too; C's f32 build is a kernel of its own beside the bf16 one
-in the same source, written the same way, so a C mutant's text occurs in
-both bodies (``OCCURS``) and is planted in both. The f32-only mutants in
-``ONLY`` (C's lo products dropped, F's and A's P rounded to bf16, G's and
-B's half row, A reading the next page's table entry for the last tile of
-each page, the three-piece split that D, E and W8A16 share rounded to
-bf16 once, then E's q and W8A16's x each alone, B-q's and G-q's f32 rows
-read as bf16 halves, B-q4's alone, and G-q's f32 entry point built on
-bf16 rows) must fail the f32 checks while the bf16 checks pass.
+f32 builds too; C's f32 build is a kernel of its own in a source of its
+own (``flash_attention_f32.cu``: tf32 wgmma fed by TMA), so C's masks and
+tile walk have a mutant in each source, and the f32 body's mechanism has
+its own: a phase parity flipped (a ring that never fills, trapped), Vt's
+keys in their natural order, a product of P.V dropped, and the maps'
+positions running past S into the next batch row (a 2-D map's reading).
+The f32-only mutants in ``ONLY`` (C's lo products dropped, F's and A's P
+rounded to bf16, G's and B's half row, A reading the next page's table
+entry for the last tile of each page, the three-piece split that D, E and
+W8A16 share rounded to bf16 once, then E's q and W8A16's x each alone,
+B-q's and G-q's f32 rows read as bf16 halves, B-q4's alone, and G-q's f32
+entry point built on bf16 rows) must fail the f32 checks while the bf16
+checks pass.
 
 Prints one JSON line per build, then a summary, and writes them all to
 ``chiprun_out/kernel_mutants.json``. Exits non-zero if the unmodified build
@@ -125,6 +133,41 @@ MUTANTS = [
     ("flash_attention: online rescale of O skipped", "flash_attention.cu",
      "o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];",
      "(void)alpha;", True),
+    # C's f32 body (flash_attention_f32.cu, a source of its own): the masks
+    # and the tile walk as in the bf16 body, then faults of its mechanism
+    ("flash_attention_f32: causal diagonal masked", "flash_attention_f32.cu",
+     "(!causal || pos >= kv)", "(!causal || pos > kv)", True),
+    ("flash_attention_f32: one key past kv_length", "flash_attention_f32.cu",
+     "!(kv < kl &&", "!(kv <= kl &&", True),
+    ("flash_attention_f32: last key tile skipped", "flash_attention_f32.cu",
+     "n_tiles = (kv_end + kBK - 1) / kBK;", "n_tiles = (kv_end - 1) / kBK;", True),
+    ("flash_attention_f32: online rescale of O skipped", "flash_attention_f32.cu",
+     "o[4 * j] *= alpha[0], o[4 * j + 1] *= alpha[0], o[4 * j + 2] *= alpha[1], o[4 * j + 3] *= alpha[1];",
+     "(void)alpha;", True),
+    ("flash_attention_d64_f32: one key past kv_length", "flash_attention_f32.cu",
+     "!(kv < kl &&", "!(kv < kl + (kD == 64) &&", True),
+    ("flash_attention_d64_f32: causal diagonal masked", "flash_attention_f32.cu",
+     "(!causal || pos >= kv)", "(!causal || pos >= kv + (kD == 64))", True),
+    # the consumers wait for K's lo plane of tile i with the parity of the
+    # phase after: late for a tile, they wait for the next tile's plane,
+    # which the producer writes only after this tile's S (a ring that never
+    # fills, trapped by mbar_wait's limit; checked in a child, ``ISOLATED``)
+    ("flash_attention_f32: the lo plane's phase parity flipped", "flash_attention_f32.cu",
+     "gofr::mbar_wait(klo_ready, i & 1);", "gofr::mbar_wait(klo_ready, (i & 1) ^ 1);", True),
+    ("flash_attention_f32: Vt's keys in their natural order", "flash_attention_f32.cu",
+     "8 * (g >> 1) + (g & 1) + 2 * j", "4 * g + j", True),
+    ("flash_attention_f32: P.hi Vt.lo dropped from P.V", "flash_attention_f32.cu",
+     "gofr::WgmmaTf32<kD>::rs(o, p_hi[j], step_desc(vtlo_at, j, L::kVtChunk), 1);",
+     "(void)vtlo_at;", True),
+    # the maps' positions running on past S into the next batch row, as a
+    # 2-D map over B.S rows reads them (past the last row: past the tensor,
+    # so checked in a child, ``ISOLATED``); phase 3 puts NaN in V there (K
+    # and Q past S are harmless: their keys are masked, their rows never
+    # stored)
+    ("flash_attention_f32: the last partial tile read past its row (a 2-D map over B.S rows)",
+     "flash_attention_f32.cu",
+     "static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};",
+     "static_cast<cuuint64_t>(seq) * batch, static_cast<cuuint64_t>(batch)};", True),
     # faults in the head-dim-64 build alone (BERT, ViT, GPT-2): the 128 build
     # must still pass (``ONLY``)
     ("flash_attention_d64: one key past kv_length", "flash_attention.cu",
@@ -255,8 +298,9 @@ MUTANTS = [
     # faults in the f32 builds alone (``ONLY``): C's products in one pass of
     # TF32 (the lo terms dropped), F's P rounded to bf16 before P.V (as the
     # bf16 build does), G's f32 rows half written
-    ("flash_attention_f32: the lo terms dropped (plain TF32)", "mma.cuh",
-     "  mma_tf32(d, a_lo, b0.hi, b1.hi);\n  mma_tf32(d, a_hi, b0.lo, b1.lo);\n", "", True),
+    ("flash_attention_f32: the lo terms dropped (plain TF32)", "flash_attention_f32.cu",
+     "float tf32_lo(float x) { return x - tf32_hi(x); }",
+     "float tf32_lo(float x) { return 0.f * x; }", True),
     ("decode_attention_f32/paged_decode_f32: P rounded to bf16", "online_softmax.cuh",
      "row[lane] = pa;", "row[lane] = round_bf16(pa);", True),
     ("kv_append_slot_f32/kv_append_f32: half of each row left unwritten", "kv_append.cu",
@@ -308,7 +352,8 @@ MUTANTS = [
 
 # Mutants whose fault lies in the head-dim-64 instantiations: (the kernels
 # that must fail, the kernels built from the same source that must pass)
-_C64 = (("flash_attention_d64", "flash_attention_d64_f32"), ("flash_attention", "flash_attention_f32"))
+_C64 = (("flash_attention_d64",), ("flash_attention", "flash_attention_f32", "flash_attention_d64_f32"))
+_C64_32 = (("flash_attention_d64_f32",), ("flash_attention_f32", "flash_attention", "flash_attention_d64"))
 _DECODE128 = ("paged_decode", "paged_decode_q", "paged_decode_q4")
 _APPEND128 = ("kv_append", "kv_append_slot", "kv_append_q", "kv_append_q4", "kv_append_slot_q")
 _QAPPEND64 = ("kv_append_q_d64", "kv_append_q4_d64", "kv_append_slot_q_d64")
@@ -345,8 +390,18 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
              (*_DECODE128, "paged_decode_q_d64")),
         "kv_append_q_d64/_q4_d64/_slot_q_d64: the max over half the row":
             (_QAPPEND64, (*_APPEND128, "kv_append_d64", "kv_append_slot_d64")),
-        "flash_attention_f32: the lo terms dropped (plain TF32)":
-            (_C32, ("flash_attention", "flash_attention_d64")),
+        **{name: (_C32, ("flash_attention", "flash_attention_d64")) for name in (
+            "flash_attention_f32: the lo terms dropped (plain TF32)",
+            "flash_attention_f32: causal diagonal masked",
+            "flash_attention_f32: one key past kv_length",
+            "flash_attention_f32: last key tile skipped",
+            "flash_attention_f32: online rescale of O skipped",
+            "flash_attention_f32: the lo plane's phase parity flipped",
+            "flash_attention_f32: Vt's keys in their natural order",
+            "flash_attention_f32: P.hi Vt.lo dropped from P.V",
+            "flash_attention_f32: the last partial tile read past its row (a 2-D map over B.S rows)")},
+        "flash_attention_d64_f32: one key past kv_length": _C64_32,
+        "flash_attention_d64_f32: causal diagonal masked": _C64_32,
         "decode_attention_f32/paged_decode_f32: P rounded to bf16":
             ((*_F32, *_A32), (*_F_BF16, *_DECODE128)),
         "kv_append_slot_f32/kv_append_f32: half of each row left unwritten":
@@ -379,16 +434,12 @@ ONLY = {"flash_attention_d64: one key past kv_length": _C64,
         "kv_append_slot_q_f32: the f32 rows read as bf16 rows":
             (("kv_append_slot_q_f32",),
              (*_APPEND128, *_QAPPEND64, *_BQ32, *_BQ432, "kv_append_slot_q_d64_f32"))}
-# Mutants whose text occurs in both of C's bodies (the bf16 and the f32
-# kernel), planted in both: how many times it occurs
-OCCURS = {name: 2 for name in ("flash_attention: causal diagonal masked",
-                               "flash_attention: one key past kv_length",
-                               "flash_attention: last key tile skipped",
-                               "flash_attention: online rescale of O skipped",
-                               "flash_attention_d64: one key past kv_length",
-                               "flash_attention_d64: causal diagonal masked",
-                               # the W8A16 stream's and tiles' piece loops
-                               "w8a16_f32: x rounded to bf16 once")}
+# Mutants whose text occurs more than once in its source, planted at
+# every occurrence: how many times it occurs
+OCCURS = {name: 2 for name in (
+    # the W8A16 stream's and tiles' piece loops
+    "w8a16_f32: x rounded to bf16 once",
+)}
 # Mutants whose 64 build reads or writes past a buffer (global memory past
 # q or the output, shared memory past the ring): the kernels ``ONLY`` says
 # must fail are checked in a child process, so a launch that faults the
@@ -407,7 +458,9 @@ ISOLATED = {"paged_decode_q_d64/_q4_d64: the final sum unguarded past head dim 6
             "paged_decode_q_d64: the 128 build's fragment walk (32 B a quad thread)",
             "paged_decode_q4_d64: the halves split at 64 bytes, not 32 (the scores)",
             "w8a16: the last chunk of K dropped (stream)",
-            "w8a16: a stage refilled before its consumers released it (wgmma tiles)"}
+            "w8a16: a stage refilled before its consumers released it (wgmma tiles)",
+            "flash_attention_f32: the lo plane's phase parity flipped",
+            "flash_attention_f32: the last partial tile read past its row (a 2-D map over B.S rows)"}
 
 # Builds also read through chip_smoke's phase 5 (the model end to end), on
 # the caches named, (kv_layout, kv_quantize): the unmodified build, the
@@ -475,10 +528,12 @@ def main() -> None:
     if sys.argv[1:2] == ["--verdicts"]:
         print(json.dumps(kernel_verdicts(torch, Path(sys.argv[2]), set(sys.argv[3].split(",")))))
         return
-    plan = [("unmodified", None, None, None, False), *MUTANTS]
+    parts = sys.argv[1:]
+    chosen = [(i, m) for i, m in enumerate(MUTANTS) if not parts or any(s in m[0] for s in parts)]
+    plan = [("unmodified", None, None, None, False), *(m for _, m in chosen)]
     with ThreadPoolExecutor(max_workers=4) as pool:
         clean = pool.submit(cuda.build)
-        builds = [clean, *(pool.submit(make, i, m) for i, m in enumerate(MUTANTS))]
+        builds = [clean, *(pool.submit(make, i, m) for i, m in chosen)]
         libraries = [b.result()["library"] for b in builds]
     results, bad = [], []
     for (name, fname, _, _, must_catch), library in zip(plan, libraries):
@@ -502,7 +557,7 @@ def main() -> None:
             row["phase5"] = {chip_smoke.run_name(*run): chip_smoke.model_check(
                 torch, model, run[1], enforce=False, kv_layout=run[0]) for run in PHASE5[row["mutant"]]}
             print(json.dumps({"mutant": row["mutant"], "phase5": row["phase5"]}), flush=True)
-    summary = {"caught": sum(not r["passed"] for r in results[1:]), "mutants": len(MUTANTS),
+    summary = {"caught": sum(not r["passed"] for r in results[1:]), "mutants": len(chosen),
                "unexpected": bad, "nvidia_smi": chip_smoke.smi_line()}
     print(json.dumps(summary))
     os.makedirs("chiprun_out", exist_ok=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What does each piece of a kernel's design buy? (one card)
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [NAME_PART ...]
 
 Each variant is a copy of ``gofr_tpu_torch/csrc`` with one design choice
 undone (a text replacement, made and built under
@@ -12,7 +12,9 @@ unmodified build's outputs, and every build is timed twice, in the order
 A B ... then ... B A (the unmodified build on every call, a variant on the
 calls of the kernels its edited files hold, ``CASES_OF``), on
 ``chip_smoke.py``'s phase-3 shapes: the flash prefill (C) at 4 x 512 and
-4 x 1024 causal, the slot decode (F), the paged decode (A) and the
+4 x 1024 causal, its f32 build at the phase's six f32 shapes beside SDPA in
+f32 on the same inputs (``sdpa_f32_*``, timed with every build that edits
+its source), the slot decode (F), the paged decode (A) and the
 quantized-pool decodes (D, E) at 8 live slots of 699..1591 and an empty
 one (and D and E's head-dim-64 builds at Llama one_b's step), the five
 appends (B, G, B-q, B-q4, G-q) at those slots' next
@@ -23,6 +25,9 @@ and ``w8a16_stream_*`` calls; on the mma.sync variants the tiles are
 those), also on a GPT-2-width head. Times are device times
 (``chip_smoke.device_ms``), so a wrapper's host time does not hide a
 kernel's.
+
+With NAME_PART arguments, only the variants whose names hold one of them
+are built (the unmodified build is timed on every call all the same).
 
 Prints one JSON line per build and round, then the mean of each and the
 W8A16 sums over a Llama-3-8B forward's products (``forwards``), and writes
@@ -128,9 +133,277 @@ MMA_SYNC_BF16 = [
 ]
 # the rule of W8A16's wgmma tiles for the k16 steps of a group by token width
 GROUP_STEPS = "return BN >= 256 ? 1 : kGK / 16;"
+# kernel C's first f32 body (PR 22), which the wgmma body replaced, put
+# behind the same entry points
+PR22_F32 = r"""
+// The first f32 body (PR 22): four warps of 16 query rows, K and V through a
+// two-stage cp.async ring in rows padded by 16 bytes, each product as three
+// mma.sync.m16n8k8 tf32 on fragments loaded as 32-bit shared words and split
+// into hi and lo by every warp.
+namespace pr22 {
+
+constexpr int kBQ = 64, kBK = 64, kWarps = 4, kThreads = 32 * kWarps, kStages = 2;
+
+template <int kD>
+struct Dims {
+  static constexpr int kPerChunk = 4;
+  static constexpr int kStride = kD + kPerChunk;
+  static constexpr int kChunks = kD / kPerChunk;
+  static constexpr int kTileElems = kBK * kStride;
+  static constexpr int kSmemBytes = (kBQ * kStride + 2 * kStages * kTileElems) * 4;
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ uint32_t rna_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ Tf32Pair split_tf32(float x) {
+  const uint32_t hi = rna_bits(x);
+  return {hi, rna_bits(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], Tf32Pair b0, Tf32Pair b1) {
+  mma_tf32(d, a_lo, b0.hi, b1.hi);
+  mma_tf32(d, a_hi, b0.lo, b1.lo);
+  mma_tf32(d, a_hi, b0.hi, b1.hi);
+}
+
+template <int kD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int valid,
+                                           size_t pitch) {
+  constexpr int kChunks = Dims<kD>::kChunks, kStride = Dims<kD>::kStride;
+  for (int c = threadIdx.x; c < kBK * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * Dims<kD>::kPerChunk;
+    const bool ok = row0 + r < valid;
+    gofr::cp_async16(dst + r * kStride + col, src + (ok ? (size_t)(row0 + r) * pitch : 0) + col, ok);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads) flash_kernel_f32(
+    const float* __restrict__ q,          // [B, Sq, Hq, D]
+    const float* __restrict__ k,          // [B, Skv, Hkv, D]
+    const float* __restrict__ v,          // [B, Skv, Hkv, D]
+    const int* __restrict__ q_offset,     // [B]
+    const int* __restrict__ kv_lengths,   // [B]
+    float* __restrict__ out,              // [B, Sq, Hq, D]
+    int sq, int skv, int hq, int hkv, int group, int causal, float scale) {
+  using Dm = Dims<kD>;
+  constexpr int kStride = Dm::kStride, kChunks = Dm::kChunks, kTileElems = Dm::kTileElems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kBQ][kStride], then the output tile
+  float* k_s = q_s + kBQ * kStride;             // [kStages][kBK][kStride]
+  float* v_s = k_s + kStages * kTileElems;      // [kStages][kBK][kStride]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // longest causal tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
+  const int qo = q_offset[b];
+  const int kl = min(max(kv_lengths[b], 0), skv);
+  const size_t q_pitch = (size_t)hq * kD, kv_pitch = (size_t)hkv * kD;
+  const float* qb = q + ((size_t)b * sq * hq + h) * kD;
+  const float* kb = k + ((size_t)b * skv * hkv + h / group) * kD;
+  const float* vb = v + ((size_t)b * skv * hkv + h / group) * kD;
+  const int kv_end = max(causal ? min(kl, qo + q0 + kBQ) : kl, 0);
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int pos_lo = qo + q0 + warp * 16 + gid, pos_hi = pos_lo + 8;
+
+  stage_rows<kD>(q_s, qb, q0, sq, q_pitch);
+  if (n_tiles > 0) {
+    stage_rows<kD>(k_s, kb, 0, skv, kv_pitch);
+    stage_rows<kD>(v_s, vb, 0, skv, kv_pitch);
+  }
+  gofr::cp_async_commit();
+
+  // this thread's Q elements: rows gid and gid + 8 of the warp's 16, at
+  // column tig of each 8-wide step of d (and tig + 4)
+  const float* q_lo = q_s + (warp * 16 + gid) * kStride + tig;
+  const float* q_hi = q_lo + 8 * kStride;
+  float o[kD / 8][4];  // O accumulators, one per 8-wide tile of d
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  gofr::RowState st[2] = {gofr::row_init(), gofr::row_init()};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * kBK;
+    if (i + 1 < n_tiles) {
+      const int next = (i + 1) % kStages;
+      stage_rows<kD>(k_s + next * kTileElems, kb, k0 + kBK, skv, kv_pitch);
+      stage_rows<kD>(v_s + next * kTileElems, vb, k0 + kBK, skv, kv_pitch);
+    }
+    gofr::cp_async_commit();
+    gofr::cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = k_s + (i % kStages) * kTileElems;
+    const float* vs = v_s + (i % kStages) * kTileElems;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys, kD / 8
+    // k-steps; each fragment split into tf32 hi and lo as it is loaded
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      const int c = kk * 8;
+      const Tf32Pair a0 = split_tf32(q_lo[c]), a1 = split_tf32(q_hi[c]);
+      const Tf32Pair a2 = split_tf32(q_lo[c + 4]), a3 = split_tf32(q_hi[c + 4]);
+      const uint32_t a_hi[4] = {a0.hi, a1.hi, a2.hi, a3.hi};
+      const uint32_t a_lo[4] = {a0.lo, a1.lo, a2.lo, a3.lo};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        // B[c'][key] = K[key][c']: key j * 8 + gid, columns tig and tig + 4
+        const float* kr = ks + (j * 8 + gid) * kStride + c + tig;
+        mma_3xtf32(s[j], a_hi, a_lo, split_tf32(kr[0]), split_tf32(kr[4]));
+      }
+    }
+
+    // scale, and mask only a tile that crosses the diagonal or holds kv_length
+    const bool edge = k0 + kBK > kl || (causal && k0 + kBK - 1 > qo + q0);
+    float tile_max[2] = {gofr::kNegInf, gofr::kNegInf};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kv = k0 + j * 8 + 2 * tig + (e & 1);
+        const int pos = e < 2 ? pos_lo : pos_hi;
+        float x = s[j][e] * scale;
+        if (edge && !(kv < kl && (!causal || pos >= kv))) x = gofr::kNegInf;
+        s[j][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float alpha[2], safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      alpha[r] = gofr::row_rescale(st[r], gofr::quad_max(tile_max[r]), &safe[r]);
+
+    // P in place of S, f32 and unrounded; l sums it
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      s[j][0] = gofr::row_prob(s[j][0], safe[0]), s[j][1] = gofr::row_prob(s[j][1], safe[0]);
+      s[j][2] = gofr::row_prob(s[j][2], safe[1]), s[j][3] = gofr::row_prob(s[j][3], safe[1]);
+      st[0].l += s[j][0] + s[j][1];
+      st[1].l += s[j][2] + s[j][3];
+    }
+
+    // O = O * alpha + P V: 16 rows x kD columns per warp
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[j][0] *= alpha[0], o[j][1] *= alpha[0], o[j][2] *= alpha[1], o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      // k-step j: keys j * 8 .. + 7, k index tig for key 2 tig and tig + 4
+      // for key 2 tig + 1, the two keys S's accumulator gives this thread
+      const Tf32Pair p0 = split_tf32(s[j][0]), p1 = split_tf32(s[j][2]);
+      const Tf32Pair p2 = split_tf32(s[j][1]), p3 = split_tf32(s[j][3]);
+      const uint32_t p_hi[4] = {p0.hi, p1.hi, p2.hi, p3.hi};
+      const uint32_t p_lo[4] = {p0.lo, p1.lo, p2.lo, p3.lo};
+      const float* vr = vs + (j * 8 + 2 * tig) * kStride + gid;  // V[key 2 tig][gid]
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+        mma_3xtf32(o[n], p_hi, p_lo, split_tf32(vr[n * 8]), split_tf32(vr[kStride + n * 8]));
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // Q's copies may still be in flight when no tile was loaded
+  gofr::cp_async_wait<0>();
+  __syncthreads();
+  const float l_lo = gofr::quad_sum(st[0].l), l_hi = gofr::quad_sum(st[1].l);
+  float* o_s = q_s + warp * 16 * kStride;  // this warp's 16 rows of the Q tile
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = j * 8 + 2 * tig;
+    *reinterpret_cast<float2*>(o_s + gid * kStride + col) =
+        make_float2(gofr::row_finish(o[j][0], l_lo), gofr::row_finish(o[j][1], l_lo));
+    *reinterpret_cast<float2*>(o_s + (gid + 8) * kStride + col) =
+        make_float2(gofr::row_finish(o[j][2], l_hi), gofr::row_finish(o[j][3], l_hi));
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, col = (c % kChunks) * 4, row = q0 + warp * 16 + r;
+    if (row < sq)
+      *reinterpret_cast<float4*>(out + (((size_t)b * sq + row) * hq + h) * kD + col) =
+          *reinterpret_cast<const float4*>(o_s + r * kStride + col);
+  }
+}
+
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* q_offset,
+           const void* kv_lengths, void* out, int b, int sq, int skv, int hq, int hkv, int causal,
+           float scale, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel_f32<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Dims<kD>::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(hq, b, (sq + kBQ - 1) / kBQ);
+  flash_kernel_f32<kD><<<grid, kThreads, Dims<kD>::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(q_offset), static_cast<const int*>(kv_lengths),
+      static_cast<float*>(out), sq, skv, hq, hkv, hq / hkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pr22
+
+"""
+# C's f32 body with the split rule it did not take: hi = rna(x) (cvt.rna),
+# exact in tf32 whatever the tensor cores do with a raw word, written over
+# K's stage by the producer and over Q's words and P by the consumers, where
+# the body reads the raw words as hi (their truncation, as the tensor cores
+# read them)
+RNA_HI = [
+    ("flash_attention_f32.cu", "  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);",
+     "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n"
+     "  return __uint_as_float(r);"),
+    ("flash_attention_f32.cu", "  const float4* src = reinterpret_cast<const float4*>(stage);",
+     "  float4* src = reinterpret_cast<float4*>(stage);"),
+    ("flash_attention_f32.cu",
+     "    dst[i] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));\n",
+     "    dst[i] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));\n"
+     "    src[i] = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));\n"),
+    ("flash_attention_f32.cu", "      qhi[t][r] = __float_as_uint(x);",
+     "      qhi[t][r] = __float_as_uint(tf32_hi(x));"),
+    ("flash_attention_f32.cu", "        p_hi[j][r] = __float_as_uint(pr);",
+     "        p_hi[j][r] = __float_as_uint(tf32_hi(pr));"),
+]
+PR22_ENTRIES = [
+    ("flash_attention_f32.cu", "// One entry point a head dim (d must be 128",
+     PR22_F32 + "// One entry point a head dim (d must be 128"),
+    ("flash_attention_f32.cu", "  return launch<128>(q, k, v,", "  return pr22::launch<128>(q, k, v,"),
+    ("flash_attention_f32.cu", "  return launch<64>(q, k, v,", "  return pr22::launch<64>(q, k, v,"),
+]
 # the timed calls (by the start of their names) of the kernels each source
 # file holds: a variant is timed on those of the files it edits
-CASES_OF = {"flash_attention.cu": ("flash_",),
+CASES_OF = {"flash_attention.cu": ("flash_4x",),
+            "flash_attention_f32.cu": ("flash_f32_", "sdpa_f32_"),
+            "hopper.cuh": ("flash_f32_", "sdpa_f32_", "w8a16_"),
             "online_softmax.cuh": ("flash_", "slot_decode", "paged_decode"),
             "paged_decode.cu": ("slot_decode", "paged_decode"),
             "paged_decode_q.cu": ("paged_decode",),
@@ -257,6 +530,11 @@ VARIANTS = [
         ("w8a16.cu", "kBK = 64, kStages", "kBK = 32, kStages"),
         ("w8a16.cu", "constexpr int kWM = 128, kWN = 16;", "constexpr int kWM = 64, kWN = 32;"),
     ]),
+    # C's f32 build: the first body (PR 22), and the split rule not taken
+    # (rna(x) written over Q's tile and K's stage as hi, instead of the raw
+    # words read as their truncation)
+    ("flash_attention_f32: the PR 22 body (mma.sync m16n8k8, cp.async ring)", PR22_ENTRIES),
+    ("flash_attention_f32: hi written as rna(x) over Q's tile and K's stage", RNA_HI),
     # the wgmma tiles with a ring of four stages at every token width
     ("w8a16 wgmma tiles: four stages", [
         ("w8a16.cu", "constexpr int kGMaxStages = 16;", "constexpr int kGMaxStages = 4;"),
@@ -329,6 +607,7 @@ def cases(torch) -> dict:
     for s in (512, 1024):
         q, k, v = (torch.randn(4, s, h, 128, device=dev, generator=gen).to(bf) for h in (32, 8, 8))
         out[f"flash_4x{s}"] = lambda i, q=q, k=k, v=v: flash_attention(q, k, v, causal=True)
+    out.update(f32_flash_cases(torch, gen))
     c = chip_smoke._decode_case(torch)
     sc = chip_smoke._slot_case(torch, c)
     q, lengths, table, layers = c["q"], c["lengths"], c["table"], c["layers"]
@@ -391,6 +670,63 @@ def cases(torch) -> dict:
                     x, ws[i % len(ws)], (0, 64, 0))
                 out[f"w8a16_stream_{label}_m{m}"] = lambda i, x=x, ws=ws: planned(
                     x, ws[i % len(ws)], w8_mod.stream_plan(x.shape[0], *ws[0].q.shape))
+    return out
+
+
+def f32_flash_cases(torch, gen) -> dict:
+    """C's f32 build at chip_smoke.py's phase-3 f32 shapes (Llama-3-8B's
+    heads at 4 x 512 and 4 x 1024 causal and a chunk of 512 at 512; BERT's
+    step, ViT's batch and GPT-2's chunk at head dim 64), each beside SDPA
+    in f32 on the same inputs (``sdpa_f32_*``, the yardstick the port never
+    calls: head-major views, KV heads repeated and masks built outside the
+    timed call)."""
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    dev, d64 = torch.device("cuda"), chip_smoke.D64_SHAPES
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen, dtype=torch.float32)
+
+    def heads(t, g=1):
+        return t.transpose(1, 2).repeat_interleave(g, dim=1)
+
+    out = {}
+    for s in (512, 1024):
+        q, k, v = randn(4, s, 32, 128), randn(4, s, 8, 128), randn(4, s, 8, 128)
+        qh, kh, vh = heads(q), heads(k, 4), heads(v, 4)
+        out[f"flash_f32_4x{s}"] = lambda i, q=q, k=k, v=v: flash_attention(q, k, v, causal=True)
+        out[f"sdpa_f32_4x{s}"] = lambda i, qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)
+    ch = d64["gpt2_chunk"]
+    chunks = {"chunk_512_at_512": (32, 8, 128, 512, 512),
+              "d64_gpt2_chunk": (ch["heads"], ch["heads"], 64, ch["queries"], ch["offset"])}
+    for label, (hq, hkv, d, sq, off) in chunks.items():
+        q, k, v = randn(1, sq, hq, d), randn(1, off + sq, hkv, d), randn(1, off + sq, hkv, d)
+        offs = torch.tensor([off], device=dev, dtype=torch.int32)
+        lens = torch.tensor([off + sq], device=dev, dtype=torch.int32)
+        mask = torch.arange(off + sq, device=dev)[None, :] <= off + torch.arange(sq, device=dev)[:, None]
+        qh, kh, vh = heads(q), heads(k, hq // hkv), heads(v, hq // hkv)
+        out[f"flash_f32_{label}"] = lambda i, q=q, k=k, v=v, offs=offs, lens=lens: flash_attention(
+            q, k, v, causal=True, q_offset=offs, kv_lengths=lens)
+        out[f"sdpa_f32_{label}"] = lambda i, qh=qh, kh=kh, vh=vh, mask=mask: (
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    b, s, h = d64["bert"]["batch"], d64["bert"]["seq"], d64["bert"]["heads"]
+    lens_cpu = torch.randint(8, s + 1, (b,), generator=torch.Generator().manual_seed(chip_smoke.SEED + 22),
+                             dtype=torch.int32)
+    lens_cpu[-d64["bert"]["padded_rows"]:] = 1
+    lens = lens_cpu.to(dev)
+    q, k, v = randn(b, s, h, 64), randn(b, s, h, 64), randn(b, s, h, 64)
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    out["flash_f32_d64_bert"] = lambda i: flash_attention(q, k, v, causal=False, kv_lengths=lens)
+    bert = heads(q), heads(k), heads(v)
+    out["sdpa_f32_d64_bert"] = lambda i: F.scaled_dot_product_attention(*bert, attn_mask=mask)
+    b, s, h = d64["vit"]["batch"], d64["vit"]["seq"], d64["vit"]["heads"]
+    qv, kv, vv = randn(b, s, h, 64), randn(b, s, h, 64), randn(b, s, h, 64)
+    out["flash_f32_d64_vit"] = lambda i: flash_attention(qv, kv, vv, causal=False)
+    vit = heads(qv), heads(kv), heads(vv)
+    out["sdpa_f32_d64_vit"] = lambda i: F.scaled_dot_product_attention(*vit)
     return out
 
 
@@ -481,7 +817,8 @@ def main() -> None:
     if sys.argv[1:2] == ["--serve-w8"]:
         serve_w8(torch, sys.argv[2])
         return
-    chosen = list(enumerate(VARIANTS))
+    parts = sys.argv[1:]
+    chosen = [(i, v) for i, v in enumerate(VARIANTS) if not parts or any(s in v[0] for s in parts)]
     with ThreadPoolExecutor(max_workers=4) as pool:
         clean = pool.submit(cuda.build)
         builds = [clean, *(pool.submit(make, i, v) for i, v in chosen)]

@@ -361,26 +361,41 @@ def _within(got, want, limits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [128, 64])
 def test_f32_flash_matches_plain_on_the_card(d):
-    """C's f32 build on causal, ragged-with-offsets and encoder calls, in f32
-    out, within ``F32`` of the plain version; one launch each, counted
-    under its own name."""
+    """C's f32 build, in f32 out, within ``F32`` of the plain version on the
+    calls its body must cut right: causal, ragged with offsets and a fully
+    masked row (0), an encoder's padded keys, ViT's 197 positions, BERT-style
+    lengths (a bucket of 64, padded rows of length 1), a chunk of 80 queries
+    at offsets against 208 keys (Sq not a multiple of the 64-row tile); one
+    launch each, counted under its own name."""
     _needs_card()
     from gofr_tpu_torch.ops import cuda
     from gofr_tpu_torch.ops.attention import mha_attention_plain
     from gofr_tpu_torch.ops.cuda import flash_attention as mod
 
+    def cuda_i32(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda.reset_launch_counts()
     q, k, v = (_t(a).cuda() for a in _qkv(31 + d, 3, 200, 200, 8, 2, d))
-    lens = torch.tensor([200, 131, 0], dtype=torch.int32, device="cuda")
-    offs = torch.tensor([0, 40, 0], dtype=torch.int32, device="cuda")
-    for kw in (dict(causal=True), dict(causal=True, q_offset=offs, kv_lengths=lens),
-               dict(causal=False, kv_lengths=lens)):
-        got = mod.flash_attention(q, k, v, **kw)
+    lens, offs = cuda_i32([200, 131, 0]), cuda_i32([0, 40, 0])
+    vit = tuple(_t(a).cuda() for a in _qkv(32 + d, 2, 197, 197, 4, 4, d))
+    bert = tuple(_t(a).cuda() for a in _qkv(33 + d, 8, 64, 64, 4, 4, d))
+    chunk = tuple(_t(a).cuda() for a in _qkv(34 + d, 2, 80, 208, 8, 2, d))
+    calls = [((q, k, v), dict(causal=True)),
+             ((q, k, v), dict(causal=True, q_offset=offs, kv_lengths=lens)),
+             ((q, k, v), dict(causal=False, kv_lengths=lens)),
+             (vit, dict(causal=False)),
+             (bert, dict(causal=False, kv_lengths=cuda_i32([64, 9, 1, 33, 64, 1, 1, 50]))),
+             (chunk, dict(causal=True, q_offset=cuda_i32([128, 65]), kv_lengths=cuda_i32([208, 145])))]
+    for args, kw in calls:
+        got = mod.flash_attention(*args, **kw)
         assert got.dtype == torch.float32
-        assert _within(got, mha_attention_plain(q, k, v, **kw), mod.F32)
+        assert _within(got, mha_attention_plain(*args, **kw), mod.F32)
+    got = mod.flash_attention(q, k, v, causal=True, q_offset=offs, kv_lengths=lens)
+    assert torch.all(got[2] == 0)
     torch.cuda.synchronize()
-    assert cuda.launch_counts()["flash_attention" + ("_d64" if d == 64 else "") + "_f32"] == 3
+    assert cuda.launch_counts()["flash_attention" + ("_d64" if d == 64 else "") + "_f32"] == len(calls) + 1
 
 
 @pytest.mark.cuda

@@ -145,6 +145,7 @@ def test_launchers_declare_the_c_entry_points_arguments():
         "gofr_flash_attention": flash_attention._ARGTYPES,
         "gofr_flash_attention_f32": flash_attention._ARGTYPES,
         "gofr_flash_attention_d64_f32": flash_attention._ARGTYPES,
+        "gofr_flash_attention_f32_shared_bytes": flash_attention._SHARED_ARGTYPES,
         "gofr_kv_append": kv_append._ARGTYPES,
         "gofr_kv_append_d64": kv_append._ARGTYPES,
         "gofr_kv_append_slot": kv_append._SLOT_ARGTYPES,
